@@ -1,0 +1,13 @@
+"""MMaDA on PyTorch and CUDA: the text and t2i serving path of the unified
+masked-diffusion model, with its attention kernel written by hand for Hopper.
+
+The package mirrors the module names of the JAX package `mmada_tpu` so that
+each counterpart is easy to find, and keeps the JAX weight layout (`(in, out)`
+matrices, layer-stacked `blocks[name][i]`). It imports `torch` and numpy
+only. Entry points run on `cuda` unless the caller passes `device="cpu"`;
+without CUDA and without an explicit device they raise.
+"""
+
+__version__ = "0.1.0"
+
+from mmada_tpu_torch.core.vocab import VocabLayout  # noqa: F401

@@ -1,0 +1,33 @@
+"""Precision policy: bf16 matmuls with fp32 islands (torch dtypes).
+
+Counterpart of `mmada_tpu/core/precision.py`: RMSNorm, attention softmax,
+RoPE and the vocab head's output run in fp32; weights and activations in the
+policy's compute dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    param_dtype: torch.dtype = torch.float32      # storage dtype of weights
+    compute_dtype: torch.dtype = torch.bfloat16   # matmul/activation dtype
+    norm_dtype: torch.dtype = torch.float32       # RMSNorm/LayerNorm island
+    softmax_dtype: torch.dtype = torch.float32    # attention + sampling softmax
+    rope_dtype: torch.dtype = torch.float32       # rope_full_precision analog
+    logits_dtype: torch.dtype = torch.float32     # final head output
+
+
+# Parity/testing: everything fp32 so outputs can be compared elementwise.
+FP32 = Policy(param_dtype=torch.float32, compute_dtype=torch.float32)
+
+# Production: bf16 weights + compute, fp32 islands.
+BF16 = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+
+
+def policy_from_name(name: str) -> Policy:
+    return {"fp32": FP32, "float32": FP32, "bf16": BF16, "bfloat16": BF16}[name]

@@ -1,0 +1,112 @@
+"""Serving entry points: answer a list of text or t2i requests.
+
+Counterparts of the repo-root `generate.py` and `inference_t2i.py` up to the
+token ids / image codes, with keyword arguments instead of a yaml config:
+
+  * `serve_text(model, prompts, ...)` builds each prompt's frame (BOS first,
+    as `generate.py` does), batches requests of equal frame length, and runs
+    the exact semi-AR sampler; it returns each request's generated ids.
+  * `serve_t2i(model, prompts, ...)` builds the t2i frames and the
+    empty-prompt CFG frames (`UniversalPrompting.t2i_gen` /
+    `t2i_gen_uncond`) and runs the exact MaskGIT sampler; it returns the
+    `(len(prompts), num_vq_tokens)` image codes.
+
+Both run on the card unless called with `device="cpu"`, and raise when the
+model's weights are elsewhere.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from mmada_tpu_torch.core.device import DeviceLike, resolve_device
+from mmada_tpu_torch.models.mmada import MMadaModel
+from mmada_tpu_torch.prompting.universal import (
+    ByteTokenizer,
+    SpecialIds,
+    UniversalPrompting,
+)
+
+
+def _check_device(model: MMadaModel, device: DeviceLike) -> torch.device:
+    device = resolve_device(device)
+    if model.device.type != device.type:
+        raise ValueError(f"model weights are on {model.device}, serving asked for {device}")
+    return model.device
+
+
+def text_frames(model: MMadaModel, prompts: Sequence[str], tokenizer=None) -> list[list[int]]:
+    """Token ids of each prompt, BOS first."""
+    tokenizer = tokenizer or ByteTokenizer()
+    bos = model.vocab.bos_token_id
+    frames = []
+    for ids in tokenizer(list(prompts))["input_ids"]:
+        ids = list(ids)
+        if not ids or ids[0] != bos:
+            ids = [bos] + ids
+        frames.append(ids)
+    return frames
+
+
+def serve_text(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
+               device: DeviceLike = None, gen_length: int = 128,
+               steps: int = 128, block_length: int = 128,
+               temperature: float = 0.0, cfg_scale: float = 0.0,
+               remasking: str = "low_confidence", seed: int = 0) -> list[torch.Tensor]:
+    """Each request's `gen_length` generated ids (fused vocab, on the CPU).
+    Requests with frames of the same length share one batch, as the JAX
+    serving engine groups them; a batch's rows never see each other."""
+    device = _check_device(model, device)
+    frames = text_frames(model, prompts, tokenizer)
+    stochastic = temperature > 0 or remasking == "random"
+    generator = torch.Generator(device).manual_seed(seed) if stochastic else None
+    groups: dict[int, list[int]] = {}
+    for i, ids in enumerate(frames):
+        groups.setdefault(len(ids), []).append(i)
+    answers: list[Optional[torch.Tensor]] = [None] * len(frames)
+    for length, rows in groups.items():
+        prompt = torch.tensor([frames[i] for i in rows], dtype=torch.long, device=device)
+        out = model.generate(
+            prompt, gen_length=gen_length, steps=steps, block_length=block_length,
+            temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
+            generator=generator,
+        )
+        for row, i in enumerate(rows):
+            answers[i] = out[row, length:].cpu()
+    return answers
+
+
+def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
+              special_ids: Optional[SpecialIds] = None,
+              device: DeviceLike = None, num_vq_tokens: int = 1024,
+              max_text_len: int = 128, timesteps: int = 15,
+              guidance_scale: float = 3.5, temperature: float = 1.0,
+              greedy: bool = False, seed: int = 0) -> torch.Tensor:
+    """`(len(prompts), num_vq_tokens)` image codes in [0, codebook), on the
+    CPU, from one batch of t2i frames (all frames have the same length).
+    `special_ids` defaults to the vocab's reserved task tokens."""
+    device = _check_device(model, device)
+    vocab = model.vocab
+    prompting = UniversalPrompting(
+        tokenizer or ByteTokenizer(), special_ids or SpecialIds.from_vocab(vocab),
+        max_text_len=max_text_len,
+    )
+    mask_id = vocab.mask_token_id
+    image_ids = torch.full((len(prompts), num_vq_tokens), mask_id, dtype=torch.long)
+    input_ids, attn = prompting.t2i_gen(list(prompts), image_ids.numpy())
+    uncond_ids, uncond_attn = prompting.t2i_gen_uncond(len(prompts), num_vq_tokens, mask_id)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.long).to(device)
+
+    generator = None if greedy else torch.Generator(device).manual_seed(seed)
+    codes = model.t2i_generate(
+        dev(input_ids), uncond_input_ids=dev(uncond_ids),
+        attention_mask=dev(attn), uncond_attention_mask=dev(uncond_attn),
+        temperature=temperature, timesteps=timesteps,
+        guidance_scale=guidance_scale, num_vq_tokens=num_vq_tokens,
+        generator=generator, greedy=greedy,
+    )
+    return codes.cpu()

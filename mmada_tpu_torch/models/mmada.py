@@ -1,0 +1,121 @@
+"""MMaDA: the unified multimodal masked-diffusion model, text and t2i paths.
+
+Counterpart of `MMadaModel` in `mmada_tpu/models/mmada.py` (:164): the LLaDA
+backbone plus the fused vocab layout plus the task entry points this slice
+serves:
+
+  * `forward`      - raw logits over the fused vocab (or a window of it)
+  * `generate`     - semi-AR text denoising, exact sampler
+  * `t2i_generate` - MaskGIT image-token generation with CFG, exact sampler
+
+Image generation evaluates the vocab head only over the 8k image window and
+the image positions (`logit_window` + `logit_positions`); text steps only
+over the active block's positions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from mmada_tpu_torch.core.device import DeviceLike
+from mmada_tpu_torch.core.precision import FP32, Policy
+from mmada_tpu_torch.core.vocab import VocabLayout
+from mmada_tpu_torch.models import llada
+from mmada_tpu_torch.sampling import t2i as t2i_sampling
+from mmada_tpu_torch.sampling import text as text_sampling
+from mmada_tpu_torch.sampling.schedules import cosine_schedule
+
+
+@dataclasses.dataclass
+class MMadaModel:
+    cfg: llada.LLaDAConfig
+    params: Any
+    vocab: VocabLayout
+    policy: Policy = FP32
+
+    # ------------------------------------------------------------- factory
+    @classmethod
+    def init(cls, cfg: llada.LLaDAConfig, vocab: VocabLayout,
+             device: DeviceLike = None, dtype: torch.dtype = torch.float32,
+             generator: Optional[torch.Generator] = None,
+             policy: Policy = FP32) -> "MMadaModel":
+        """Random weights made on `device` (the card unless told otherwise)."""
+        params = llada.init_params(cfg, device=device, dtype=dtype, generator=generator)
+        return cls(cfg=cfg, params=params, vocab=vocab, policy=policy)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["wte"].device
+
+    # ------------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, input_ids, attention_mask=None, attention_bias=None,
+                logit_window=None, logit_positions=None):
+        return llada.forward(
+            self.params, self.cfg, input_ids,
+            attention_mask=attention_mask, attention_bias=attention_bias,
+            policy=self.policy, logit_window=logit_window,
+            logit_positions=logit_positions,
+        )
+
+    def _text_window_forward_fn(self, block_length: int):
+        """Semi-AR block-windowed forward: the full-width vocab head (text
+        steps may emit any fused id) over the active block's positions only."""
+
+        def fn(tokens, start):
+            return self.forward(tokens, logit_positions=(start, block_length))
+
+        return fn
+
+    def _window_forward_fn(self, num_tokens: int, window: tuple[int, int]):
+        """Vocab AND position windows: the head runs only over the image span's
+        hidden states and the image vocab slice."""
+
+        def fn(tokens, attention_mask):
+            seq_len = tokens.shape[1]
+            return self.forward(
+                tokens, attention_mask=attention_mask, logit_window=window,
+                logit_positions=(seq_len - (num_tokens + 1), num_tokens),
+            )
+
+        return fn
+
+    # ---------------------------------------------------------------- text
+    def generate(self, prompt, gen_length=128, steps=128, block_length=128,
+                 temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
+                 generator=None):
+        """(B, P + gen_length) tokens from a (B, P) prompt, exact sampler."""
+        scfg = text_sampling.SemiARConfig(
+            gen_length=gen_length, steps=steps, block_length=block_length,
+            temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
+            mask_id=self.vocab.mask_token_id,
+        )
+        return text_sampling.generate(
+            None, prompt, scfg, generator=generator,
+            window_forward_fn=self._text_window_forward_fn(block_length),
+        )
+
+    # ----------------------------------------------------------------- t2i
+    def t2i_generate(self, input_ids, uncond_input_ids=None,
+                     attention_mask=None, uncond_attention_mask=None,
+                     temperature=1.0, timesteps=18, guidance_scale=0.0,
+                     noise_schedule=cosine_schedule, num_vq_tokens=1024,
+                     generator=None, greedy=False, cfg_interval=(0.0, 1.0)):
+        """(B, num_vq_tokens) raw image codes, exact MaskGIT sampler."""
+        mcfg = t2i_sampling.MaskGITConfig(
+            timesteps=timesteps, temperature=temperature,
+            guidance_scale=guidance_scale, noise_schedule=noise_schedule,
+            mask_id=self.vocab.mask_token_id, num_vq_tokens=num_vq_tokens,
+            codebook_size=self.vocab.image_codebook_size,
+            text_vocab_size=self.vocab.image_offset, greedy=greedy,
+            cfg_interval=tuple(cfg_interval),
+        )
+        fwd = self._window_forward_fn(num_vq_tokens, self.vocab.image_window)
+        return t2i_sampling.t2i_generate(
+            fwd, input_ids, mcfg, generator=generator,
+            uncond_input_ids=uncond_input_ids, attention_mask=attention_mask,
+            uncond_attention_mask=uncond_attention_mask,
+        )

@@ -1,0 +1,425 @@
+// One-pass bidirectional attention with neox RoPE, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `flash_attention` -> `_attn_kernel` /
+// `_attn_rope_kernel` in mmada_tpu/ops/flash_attention.py (:59-92, called at
+// :650). It computes, per (batch, head):
+//
+//   q, k  <- RoPE(q, k) in fp32 (rotate-half), cast back to bf16
+//   s     =  (q . k^T accumulated in fp32) * scale; key columns >= Lk get the
+//            finite fp32 min, so rows past the edge stay NaN-free
+//   p     =  exp(s - rowmax(s)) / rowsum(...)     in fp32, BEFORE the cast
+//   out   =  bf16( bf16(p) . v accumulated in fp32 )
+//
+// Normalising p before its bf16 cast is the point of the design: an online
+// softmax that divides at the end is another function in bf16 (about half the
+// outputs differ). So each query tile walks K twice: pass 1 finds the row max
+// and row sum, pass 2 recomputes the scores, forms the normalised p, casts it
+// to bf16 and accumulates p . v.
+//
+// Two kernels, launched together by the C entry:
+//  * rope_kernel rotates q and k once into bf16 scratch. The TPU kernel fuses
+//    the rotation into its tile loads because it reads K once per query tile;
+//    here every query tile reads K twice, so rotating on load would redo the
+//    rotation (and re-read the fp32 tables) 2 x Lq/64 times per key.
+//  * attn_fwd_kernel: one block per (64-row query tile, head, batch), four
+//    warps of 16 query rows; K/V tiles of 64 keys double-buffered in shared
+//    memory with cp.async, so the next tile's copy overlaps this tile's
+//    products. Fragments come from ldmatrix (V transposed), products from
+//    mma.sync m16n8k16 (bf16 in, fp32 accumulate). GQA maps head h to kv head
+//    h / (H / KVH), so K/V are never repeated. Ragged Lq / Lk edges are masked
+//    in the kernel (zero-filled rows, finite-min columns).
+//
+// Bound: 4*B*H*Lq*Lk*D flops (pass 1 recomputes q.k^T, so the kernel does
+// 6*B*H*Lq*Lk*D) against q + k + v + o bytes (+ the fp32 rope tables). At the
+// serving shapes (L ~ 1.2k, D = 128) the flops dominate: the kernel is
+// compute-bound. mma.sync without warp specialisation, and the second pass,
+// keep it well short of that bound; wgmma and TMA are the next steps.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BLOCK_Q = 64;
+constexpr int BLOCK_K = 64;
+constexpr int NUM_WARPS = BLOCK_Q / 16;
+constexpr int NUM_THREADS = NUM_WARPS * 32;
+constexpr int ROPE_THREADS = 256;
+constexpr float NEG_F32 = -FLT_MAX;  // finite min, as the TPU kernel's mask
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8. TRANS delivers each matrix transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// 16-byte asynchronous copy global -> shared; with `valid` false the 16
+// bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Start copying rows [row0, row0 + ROWS) of a (L, D) bf16 matrix with row
+// stride `row_stride` into shared memory (row stride D + 8), rows at or past
+// `n_rows` zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                long long row_stride, int row0,
+                                                int n_rows) {
+  constexpr int STRIDE = D + 8;
+  constexpr int VECS = D / 8;  // 16-byte vectors per row
+  static_assert(ROWS * VECS % NUM_THREADS == 0, "whole vectors per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * VECS / NUM_THREADS; ++it) {
+    const int i = threadIdx.x + it * NUM_THREADS;
+    const int r = i / VECS, c = (i % VECS) * 8;
+    const bool valid = row0 + r < n_rows;
+    cp_async16(dst + r * STRIDE + c,
+               src + (long long)(valid ? row0 + r : 0) * row_stride + c, valid);
+  }
+}
+
+// RoPE of every row of x (B, H, L, D; element strides sb, sh, sl) into the
+// contiguous out (B, H, L, D): out = x * cos + rotate_half(x) * sin in fp32,
+// rotate_half(x) = [-x2, x1], rounded to bf16 as `_rope_tile` does. A thread
+// takes 8 columns c.. of the first half and the 8 columns c + D/2.. they pair
+// with. Plain multiplies and adds (no fused multiply-add) keep the rounding
+// of the unfused reference.
+template <int D>
+__global__ void __launch_bounds__(ROPE_THREADS)
+rope_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+            const float* __restrict__ sin_t, const float* __restrict__ cos_t,
+            long long n_chunks, int H, int L, long long sb, long long sh,
+            long long sl) {
+  constexpr int HALF = D / 2;
+  constexpr int CHUNKS = HALF / 8;  // 8-column chunks per half row
+  const long long i = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x;
+  if (i >= n_chunks) return;
+  const long long row = i / CHUNKS;
+  const int c = (int)(i % CHUNKS) * 8;
+  const int pos = (int)(row % L);
+  const long long bh = row / L;
+  const bf16* src = x + (bh / H) * sb + (bh % H) * sh + pos * sl;
+  const uint4 x1v = *reinterpret_cast<const uint4*>(src + c);
+  const uint4 x2v = *reinterpret_cast<const uint4*>(src + c + HALF);
+  const float4* sn = reinterpret_cast<const float4*>(sin_t + (long long)pos * D + c);
+  const float4* cs = reinterpret_cast<const float4*>(cos_t + (long long)pos * D + c);
+  // [0, 8): columns c.., [8, 16): columns c + D/2..
+  const float4 s4[4] = {sn[0], sn[1], sn[HALF / 4], sn[HALF / 4 + 1]};
+  const float4 c4[4] = {cs[0], cs[1], cs[HALF / 4], cs[HALF / 4 + 1]};
+  const float* sv = reinterpret_cast<const float*>(s4);
+  const float* cv = reinterpret_cast<const float*>(c4);
+  const bf16* x1 = reinterpret_cast<const bf16*>(&x1v);
+  const bf16* x2 = reinterpret_cast<const bf16*>(&x2v);
+  uint4 lo, hi;
+  bf16* out_lo = reinterpret_cast<bf16*>(&lo);
+  bf16* out_hi = reinterpret_cast<bf16*>(&hi);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float a = __bfloat162float(x1[e]), b = __bfloat162float(x2[e]);
+    out_lo[e] = __float2bfloat16_rn(
+        __fadd_rn(__fmul_rn(a, cv[e]), __fmul_rn(-b, sv[e])));
+    out_hi[e] = __float2bfloat16_rn(
+        __fadd_rn(__fmul_rn(b, cv[8 + e]), __fmul_rn(a, sv[8 + e])));
+  }
+  bf16* dst = out + row * D + c;
+  *reinterpret_cast<uint4*>(dst) = lo;
+  *reinterpret_cast<uint4*>(dst + HALF) = hi;
+}
+
+// Scores of this warp's 16 query rows against the 64 keys in `ks`:
+// s[n][0..1] -> row g, keys n*8 + 2t + {0,1}; s[n][2..3] -> row g + 8.
+// Scaled, and masked past Lk. The d loop is outermost so that consecutive
+// products go to different accumulators; each accumulator still sums its d
+// slices in order.
+template <int D>
+__device__ __forceinline__ void tile_scores(float s[BLOCK_K / 8][4],
+                                            const uint32_t qa[D / 16][4],
+                                            const bf16* ks, int k0, int Lk,
+                                            float scale, int lane) {
+  constexpr int STRIDE = D + 8;
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < BLOCK_K / 8; ++n)
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  // lane's row for ldmatrix: key n*8 + lane%8, d columns (lane/8)*8 of 32
+  const bf16* krow = ks + (lane & 7) * STRIDE + (lane >> 3) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; kk += 2) {
+    uint32_t b[BLOCK_K / 8][4];  // B fragments of d slices kk and kk + 1
+#pragma unroll
+    for (int n = 0; n < BLOCK_K / 8; ++n)
+      ldmatrix_x4<false>(b[n], krow + n * 8 * STRIDE + kk * 16);
+#pragma unroll
+    for (int n = 0; n < BLOCK_K / 8; ++n) mma_bf16(s[n], qa[kk], b[n][0], b[n][1]);
+#pragma unroll
+    for (int n = 0; n < BLOCK_K / 8; ++n)
+      mma_bf16(s[n], qa[kk + 1], b[n][2], b[n][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < BLOCK_K / 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + n * 8 + t * 2 + (j & 1);
+      s[n][j] = col < Lk ? s[n][j] * scale : NEG_F32;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int rep,
+                int Lq, int Lk, long long q_sb, long long q_sh, long long q_sl,
+                long long k_sb, long long k_sh, long long k_sl,
+                long long v_sb, long long v_sh, long long v_sl,
+                long long o_sb, long long o_sh, long long o_sl, float scale) {
+  constexpr int STRIDE = D + 8;
+  constexpr int TILE = BLOCK_K * STRIDE;  // elements of one K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + BLOCK_Q * STRIDE;  // two K tiles
+  bf16* vs = ks + 2 * TILE;          // two V tiles
+
+  const int q0 = blockIdx.x * BLOCK_Q;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / rep;
+  const bf16* qp = q + b * q_sb + h * q_sh;
+  const bf16* kp = k + b * k_sb + kvh * k_sh;
+  const bf16* vp = v + b * v_sb + kvh * v_sh;
+  bf16* op = o + b * o_sb + h * o_sh;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (Lk + BLOCK_K - 1) / BLOCK_K;
+
+  load_rows_async<D, BLOCK_Q>(qs, qp, q_sl, q0, Lq);
+  load_rows_async<D, BLOCK_K>(ks, kp, k_sl, 0, Lk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 query rows as mma A fragments, one per 16-wide d slice
+  uint32_t qa[D / 16][4];
+  {
+    const bf16* qw = qs + warp * 16 * STRIDE;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + t * 2;
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(qw + g * STRIDE + c);
+      qa[kk][1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * STRIDE + c);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(qw + g * STRIDE + c + 8);
+      qa[kk][3] =
+          *reinterpret_cast<const uint32_t*>(qw + (g + 8) * STRIDE + c + 8);
+    }
+  }
+
+  float s[BLOCK_K / 8][4];
+
+  // pass 1: row max and row sum (rows g and g + 8 of this warp). Tile 0 is
+  // in the first K buffer; each step starts copying the next tile into the
+  // other one.
+  float m[2] = {NEG_F32, NEG_F32};
+  float l[2] = {0.f, 0.f};
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {
+      load_rows_async<D, BLOCK_K>(ks + ((tile + 1) & 1) * TILE, kp, k_sl,
+                                  (tile + 1) * BLOCK_K, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's copy is visible to every warp
+    tile_scores<D>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk, scale, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_F32;
+#pragma unroll
+      for (int n = 0; n < BLOCK_K / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BLOCK_K / 8; ++n)
+        sum += expf(s[n][2 * r] - m_new) + expf(s[n][2 * r + 1] - m_new);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] = l[r] * expf(m[r] - m_new) + sum;
+      m[r] = m_new;
+    }
+    __syncthreads();  // every warp is done with this buffer before its refill
+  }
+
+  // pass 2: p = exp(s - m) / l in fp32, cast to bf16, accumulate p . v
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  load_rows_async<D, BLOCK_K>(ks, kp, k_sl, 0, Lk);
+  load_rows_async<D, BLOCK_K>(vs, vp, v_sl, 0, Lk);
+  cp_async_commit();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {
+      const int next = (tile + 1) & 1;
+      load_rows_async<D, BLOCK_K>(ks + next * TILE, kp, k_sl, (tile + 1) * BLOCK_K, Lk);
+      load_rows_async<D, BLOCK_K>(vs + next * TILE, vp, v_sl, (tile + 1) * BLOCK_K, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    tile_scores<D>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk, scale, lane);
+    const bf16* vt = vs + (tile & 1) * TILE;
+#pragma unroll
+    for (int kb = 0; kb < BLOCK_K / 16; ++kb) {
+      // the two 16x8 score fragments of keys [16 kb, 16 kb + 16) form the
+      // 16x16 A fragment of p
+      uint32_t pa[4];
+      const float* s0 = s[2 * kb];
+      const float* s1 = s[2 * kb + 1];
+      pa[0] = pack_bf16(expf(s0[0] - m[0]) / l[0], expf(s0[1] - m[0]) / l[0]);
+      pa[1] = pack_bf16(expf(s0[2] - m[1]) / l[1], expf(s0[3] - m[1]) / l[1]);
+      pa[2] = pack_bf16(expf(s1[0] - m[0]) / l[0], expf(s1[1] - m[0]) / l[0]);
+      pa[3] = pack_bf16(expf(s1[2] - m[1]) / l[1], expf(s1[3] - m[1]) / l[1]);
+      // ldmatrix.trans rows: key kb*16 + lane%16, d columns (lane/16)*8
+      const bf16* vrow = vt + (kb * 16 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; dn += 2) {
+        uint32_t vf[4];  // B fragments of d columns dn*8.. and (dn+1)*8..
+        ldmatrix_x4<true>(vf, vrow + dn * 8);
+        mma_bf16(acc[dn], pa, vf[0], vf[1]);
+        mma_bf16(acc[dn + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + t * 2;
+    if (row_a < Lq)
+      *reinterpret_cast<uint32_t*>(op + row_a * o_sl + col) =
+          pack_bf16(acc[dn][0], acc[dn][1]);
+    if (row_b < Lq)
+      *reinterpret_cast<uint32_t*>(op + row_b * o_sl + col) =
+          pack_bf16(acc[dn][2], acc[dn][3]);
+  }
+}
+
+// Rotate x (B, H, L, D; element strides st[0..2]) into the contiguous out.
+template <int D>
+cudaError_t rope(const void* x, void* out, const void* sin_t, const void* cos_t,
+                 int B, int H, int L, const long long* st, cudaStream_t stream) {
+  const long long n_chunks = (long long)B * H * L * (D / 16);
+  const unsigned blocks = (unsigned)((n_chunks + ROPE_THREADS - 1) / ROPE_THREADS);
+  rope_kernel<D><<<blocks, ROPE_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out),
+      static_cast<const float*>(sin_t), static_cast<const float*>(cos_t),
+      n_chunks, H, L, st[0], st[1], st[2]);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const void* rope_sin, const void* rope_cos, void* q_rot,
+                   void* k_rot, int B, int H, int KVH, int Lq, int Lk,
+                   const long long* strides, float scale, cudaStream_t stream) {
+  long long st[12];
+  for (int i = 0; i < 12; ++i) st[i] = strides[i];
+  if (rope_sin != nullptr) {
+    cudaError_t err = rope<D>(q, q_rot, rope_sin, rope_cos, B, H, Lq, st, stream);
+    if (err != cudaSuccess) return err;
+    err = rope<D>(k, k_rot, rope_sin, rope_cos, B, KVH, Lk, st + 3, stream);
+    if (err != cudaSuccess) return err;
+    q = q_rot;
+    k = k_rot;
+    st[0] = (long long)H * Lq * D, st[1] = (long long)Lq * D, st[2] = D;
+    st[3] = (long long)KVH * Lk * D, st[4] = (long long)Lk * D, st[5] = D;
+  }
+  const size_t smem = (size_t)(BLOCK_Q + 4 * BLOCK_K) * (D + 8) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + BLOCK_Q - 1) / BLOCK_Q, H, B);
+  attn_fwd_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), H / KVH, Lq, Lk,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry, bound with ctypes. q (B, H, Lq, D), k and v (B, KVH, Lk, D), o
+// (B, H, Lq, D): bf16, last dim contiguous, element strides for (batch, head,
+// row) in `strides` = [q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+// o_sb, o_sh, o_sl]. rope_sin / rope_cos: fp32 (L, D) contiguous, or both null
+// for no RoPE (RoPE needs Lq == Lk); with RoPE, q_rot (B*H*Lq*D) and k_rot
+// (B*KVH*Lk*D) are bf16 scratch for the rotated q and k. Returns a
+// cudaError_t; 0 is success.
+extern "C" int mmada_flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    const void* rope_sin, const void* rope_cos, void* q_rot, void* k_rot,
+    int B, int H, int KVH, int Lq, int Lk, int D, const long long* strides,
+    float scale, void* stream) {
+  if (B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((rope_sin == nullptr) != (rope_cos == nullptr) ||
+      (rope_sin != nullptr && (Lq != Lk || q_rot == nullptr || k_rot == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128>(q, k, v, o, rope_sin, rope_cos, q_rot, k_rot, B, H,
+                            KVH, Lq, Lk, strides, scale, s);
+  if (D == 64)
+    return (int)launch<64>(q, k, v, o, rope_sin, rope_cos, q_rot, k_rot, B, H,
+                           KVH, Lq, Lk, strides, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,163 @@
+"""MaskGIT-style non-autoregressive image generation with CFG (exact sampler).
+
+Counterpart of the exact path of `mmada_tpu/sampling/t2i.py`
+(`MaskGITConfig`, `cfg_interval_steps`, `_cfg_preamble`, `init_carry`,
+`_make_step`): all image positions start masked inside the t2i frame
+`[pad* <|t2i|> <bos> text <eos> <|soi|> IMG <|eoi|>]`; each of `timesteps`
+steps forwards the sequence (batch-doubled under CFG with an empty-prompt
+uncond row sharing the current image tokens), reads logits over the image
+window, samples a candidate at every position, keeps committed tokens, and
+re-masks the lowest-confidence positions down to the schedule's count.
+
+Reference details kept: the CFG combine `(1 + s) * cond - s * uncond`; the
+temperature compounds across steps (step t uses T0 * prod(1 - r_i)); the
+mask count is clamped to [1, unknown - 1]. The step loop is a Python loop,
+and the schedule's scalars are fp32 as in the JAX scan. The block-KV cached
+decode is a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from mmada_tpu_torch.sampling.gumbel import (
+    confidence_of,
+    gumbel_noise,
+    mask_by_random_topk,
+)
+from mmada_tpu_torch.sampling.schedules import cosine_schedule
+
+# (tokens (B, L), attention_mask (B, L) | None) -> (B, num_vq_tokens, codebook)
+WindowForwardFn = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskGITConfig:
+    timesteps: int = 18
+    temperature: float = 1.0
+    guidance_scale: float = 0.0
+    noise_schedule: Callable = cosine_schedule
+    mask_id: int = 126336
+    num_vq_tokens: int = 1024
+    codebook_size: int = 8192
+    text_vocab_size: int = 126464   # fused-id offset of the image window
+    greedy: bool = False            # argmax instead of categorical (parity/tests)
+    cfg_interval: tuple = (0.0, 1.0)
+    """Guidance interval (lo, hi) as step fractions: CFG runs only for steps
+    t with lo <= t / timesteps < hi; other steps forward the single cond
+    batch. (0.0, 1.0) = CFG every step."""
+
+
+def cfg_interval_steps(cfg: MaskGITConfig) -> tuple[int, int]:
+    """(lo_idx, hi_idx): step t uses guidance iff lo_idx <= t < hi_idx."""
+    lo, hi = cfg.cfg_interval
+    if not (0.0 <= lo <= hi <= 1.0):
+        raise ValueError(f"cfg_interval must satisfy 0 <= lo <= hi <= 1, got {cfg.cfg_interval}")
+    t = cfg.timesteps
+    return math.ceil(lo * t - 1e-9), math.ceil(hi * t - 1e-9)
+
+
+def _cfg_preamble(cfg, prompt_len, uncond_input_ids, attention_mask,
+                  uncond_attention_mask):
+    """(use_cfg, uncond_prefix, full_mask)."""
+    use_cfg = uncond_input_ids is not None and cfg.guidance_scale > 0
+    if not use_cfg:
+        return False, None, attention_mask
+    uncond_prefix = uncond_input_ids[:, :prompt_len].long()
+    if attention_mask is not None and uncond_attention_mask is not None:
+        full_mask = torch.cat([attention_mask, uncond_attention_mask], dim=0)
+    else:
+        full_mask = None
+    return True, uncond_prefix, full_mask
+
+
+def init_carry(input_ids: torch.Tensor, cfg: MaskGITConfig):
+    """Initial (x, cur, temperature): the frame, its image span as raw codes
+    (mask id where masked), and the fp32 temperature."""
+    n = cfg.num_vq_tokens
+    img_lo = input_ids.shape[1] - (n + 1)
+    x = input_ids.long()
+    cur = x[:, img_lo:-1]
+    cur = torch.where(cur == cfg.mask_id, cfg.mask_id, cur - cfg.text_vocab_size)
+    return x, cur, torch.tensor(cfg.temperature, dtype=torch.float32)
+
+
+def _step(forward_fn, cfg, x, cur, temperature, t, use_cfg, uncond_prefix,
+          mask, generator):
+    """One MaskGIT timestep; returns (x, cur, temperature, sampled)."""
+    b, l = x.shape
+    n = cfg.num_vq_tokens
+    img_lo = l - (n + 1)
+    prompt_len = l - (n + 2)
+
+    if use_cfg:
+        uncond_x = torch.cat([uncond_prefix, x[:, prompt_len:]], dim=1)
+        logits = forward_fn(torch.cat([x, uncond_x], dim=0), mask)
+        cond, uncond = logits.chunk(2, dim=0)
+        logits = (1.0 + cfg.guidance_scale) * cond - cfg.guidance_scale * uncond
+    else:
+        logits = forward_fn(x, mask)
+    logits = logits.float()                     # (B, n, codebook)
+
+    if cfg.greedy:
+        sampled = logits.argmax(dim=-1)
+    else:
+        sampled = (logits + gumbel_noise(logits.shape, generator, logits.device)).argmax(dim=-1)
+
+    unknown = cur == cfg.mask_id
+    sampled = torch.where(unknown, sampled, cur)
+
+    ratio = (torch.tensor(t, dtype=torch.float32) + 1.0) / cfg.timesteps
+    mask_ratio = cfg.noise_schedule(ratio)
+
+    selected = confidence_of(logits, sampled)
+    selected = torch.where(unknown, selected, torch.finfo(torch.float32).max)
+
+    mask_len = torch.floor(n * mask_ratio).to(torch.long).to(x.device)
+    unknown_count = unknown.sum(dim=-1, keepdim=True)
+    mask_len = torch.clamp(torch.minimum(unknown_count - 1, mask_len), min=1)
+
+    temperature = temperature * (1.0 - ratio)
+    masking = mask_by_random_topk(
+        mask_len, selected, temperature.to(x.device),
+        None if cfg.temperature == 0.0 else generator,
+    )
+
+    new_cur = torch.where(masking, cfg.mask_id, sampled)
+    new_img = torch.where(masking, cfg.mask_id, sampled + cfg.text_vocab_size)
+    x = x.clone()
+    x[:, img_lo:img_lo + n] = new_img
+    return x, new_cur, temperature, sampled
+
+
+def t2i_generate(
+    forward_fn: WindowForwardFn,
+    input_ids: torch.Tensor,                          # (B, L) full t2i frame
+    cfg: MaskGITConfig,
+    generator: Optional[torch.Generator] = None,
+    uncond_input_ids: Optional[torch.Tensor] = None,  # (B, L) empty-prompt frame
+    attention_mask: Optional[torch.Tensor] = None,    # (B, L)
+    uncond_attention_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Raw VQ codes `(B, num_vq_tokens)` in [0, codebook_size)."""
+    if not cfg.greedy and generator is None:
+        raise ValueError("categorical sampling requires a torch.Generator")
+    n = cfg.num_vq_tokens
+    prompt_len = input_ids.shape[1] - (n + 2)
+    x, cur, temperature = init_carry(input_ids, cfg)
+    use_cfg, uncond_prefix, full_mask = _cfg_preamble(
+        cfg, prompt_len, uncond_input_ids, attention_mask, uncond_attention_mask
+    )
+    lo_idx, hi_idx = cfg_interval_steps(cfg)
+    sampled = None
+    for t in range(cfg.timesteps):
+        guided = use_cfg and lo_idx <= t < hi_idx
+        x, cur, temperature, sampled = _step(
+            forward_fn, cfg, x, cur, temperature, t, guided,
+            uncond_prefix, full_mask if guided else attention_mask, generator,
+        )
+    return sampled

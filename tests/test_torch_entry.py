@@ -1,0 +1,243 @@
+"""The port's serving entry points, its import boundary and its kernel build.
+
+* `serve_text` / `serve_t2i` on the CPU answer requests token-exactly as the
+  JAX package does on the same weights and frames (the slice as a whole).
+* `mmada_tpu_torch` and `chip_smoke.py` import neither jax, the JAX package,
+  yaml nor PIL (none of them is installed beside the card).
+* Entry points never fall back to the CPU on their own.
+* The nvcc build targets sm_90a and writes into a gitignored directory.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmada_tpu.core.vocab import tiny_layout as jax_tiny_layout
+from mmada_tpu.models import llada as jax_llada
+from mmada_tpu.models.mmada import MMadaModel as JaxMMadaModel
+from mmada_tpu.prompting.universal import SpecialIds as JaxSpecialIds
+from mmada_tpu.prompting.universal import UniversalPrompting as JaxPrompting
+from mmada_tpu.prompting.universal import ByteTokenizer as JaxByteTokenizer
+from mmada_tpu_torch.checkpoints.from_jax import params_from_jax
+from mmada_tpu_torch.core.vocab import tiny_layout
+from mmada_tpu_torch.entry import serve_t2i, serve_text, text_frames
+from mmada_tpu_torch.models import llada
+from mmada_tpu_torch.models.mmada import MMadaModel
+from mmada_tpu_torch.ops import _build
+from mmada_tpu_torch.prompting.universal import SpecialIds
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "mmada_tpu_torch")
+
+
+def _tiny_special(vocab, cls):
+    t = vocab.text_vocab_size
+    return cls(soi=t - 20, eoi=t - 19, t2i=t - 18, mmu=t - 17, r2i=t - 16, t2m=t - 15,
+               som=t - 14, eom=t - 13, pad=vocab.pad_token_id, bos=vocab.bos_token_id,
+               eos=vocab.eos_token_id)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jvocab = jax_tiny_layout()
+    jcfg = jax_llada.tiny_config(vocab_size=jvocab.total_vocab_size, n_kv_heads=2)
+    jmodel = JaxMMadaModel.init(jax.random.key(11), jcfg, jvocab)
+    cfg = llada.LLaDAConfig(**dataclasses.asdict(jcfg))
+    params = params_from_jax(jax.device_get(jmodel.params), cfg, device="cpu")
+    return jmodel, MMadaModel(cfg=cfg, params=params, vocab=tiny_layout())
+
+
+PROMPTS = ["hello", "world", "a longer prompt"]
+
+
+@pytest.mark.parametrize("cfg_scale", [0.0, 1.5])
+def test_serve_text_matches_jax(models, cfg_scale):
+    """Three requests (two share a frame length, one batch each length):
+    each answer equals the JAX model's on the same BOS-first frame."""
+    jmodel, model = models
+    kw = dict(gen_length=16, steps=8, block_length=8, temperature=0.0, cfg_scale=cfg_scale)
+    answers = serve_text(model, PROMPTS, device="cpu", **kw)
+    assert len(answers) == 3
+    for frame, ans in zip(text_frames(model, PROMPTS), answers):
+        assert frame[0] == model.vocab.bos_token_id
+        want = jmodel.generate(jnp.asarray([frame], jnp.int32), **kw)
+        np.testing.assert_array_equal(ans.numpy(), np.asarray(want)[0, len(frame):])
+        assert (ans != model.vocab.mask_token_id).all()
+
+
+def test_serve_text_batches_by_length(models, monkeypatch):
+    _, model = models
+    batches = []
+    real = MMadaModel.generate
+
+    def spy(self, prompt, **kw):
+        batches.append(tuple(prompt.shape))
+        return real(self, prompt, **kw)
+
+    monkeypatch.setattr(MMadaModel, "generate", spy)
+    serve_text(model, PROMPTS, device="cpu", gen_length=8, steps=4, block_length=8)
+    assert sorted(batches) == [(1, 16), (2, 6)]
+
+
+def test_serve_t2i_matches_jax(models):
+    """Three t2i requests, greedy with CFG: codes equal the JAX model's on
+    the frames the JAX prompting builds."""
+    jmodel, model = models
+    n, max_text_len = 16, 12
+    kw = dict(temperature=0.0, timesteps=6, guidance_scale=2.0, num_vq_tokens=n)
+    codes = serve_t2i(model, PROMPTS, special_ids=_tiny_special(model.vocab, SpecialIds),
+                      device="cpu", max_text_len=max_text_len, greedy=True, **kw)
+    assert codes.shape == (3, n)
+    jvocab = jmodel.vocab
+    prompting = JaxPrompting(JaxByteTokenizer(), _tiny_special(jvocab, JaxSpecialIds),
+                             max_text_len=max_text_len)
+    ids, attn = prompting.t2i_gen(PROMPTS, np.full((3, n), jvocab.mask_token_id))
+    un_ids, un_attn = prompting.t2i_gen_uncond(3, n, jvocab.mask_token_id)
+    want = jmodel.t2i_generate(jnp.asarray(ids), uncond_input_ids=jnp.asarray(un_ids),
+                               attention_mask=jnp.asarray(attn),
+                               uncond_attention_mask=jnp.asarray(un_attn),
+                               key=jax.random.key(0), greedy=True, **kw)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want))
+
+
+def test_prompting_layouts_match_jax():
+    """The port's copy of the text/t2i frame builders equals the JAX one."""
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, UniversalPrompting
+
+    vocab, jvocab = tiny_layout(text_vocab_size=300), jax_tiny_layout(text_vocab_size=300)
+    sp = dataclasses.replace(_tiny_special(vocab, SpecialIds), end_header=290)
+    jsp = dataclasses.replace(_tiny_special(jvocab, JaxSpecialIds), end_header=290)
+    up = UniversalPrompting(ByteTokenizer(), sp, max_text_len=10)
+    jup = JaxPrompting(JaxByteTokenizer(), jsp, max_text_len=10)
+    texts = ["hi", "a much longer caption that gets cut", "", "x" + chr(290 - 16) + "yz"]
+    img = np.arange(4 * 6).reshape(4, 6) + 200
+    for got, want in [
+        (up.t2i_gen(texts, img), jup.t2i_gen(texts, img)),
+        (up.t2i_gen_uncond(4, 6, 299), jup.t2i_gen_uncond(4, 6, 299)),
+        (up.lm(texts, 12), jup.lm(texts, 12)),
+        (up.lm_chat(texts, 12), jup.lm_chat(texts, 12)),
+        (up.t2i(texts, img, img, dropout=False), jup.t2i(texts, img, img, dropout=False)),
+    ]:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_serve_t2i_sampled_codes_in_range(models):
+    _, model = models
+    codes = serve_t2i(model, PROMPTS, special_ids=_tiny_special(model.vocab, SpecialIds),
+                      device="cpu", num_vq_tokens=16, max_text_len=12, timesteps=4,
+                      guidance_scale=3.5, temperature=1.0, seed=3)
+    assert codes.shape == (3, 16)
+    assert ((codes >= 0) & (codes < model.vocab.image_codebook_size)).all()
+
+
+def test_entry_points_never_fall_back_to_cpu(models, monkeypatch):
+    """Without an explicit device the port wants the card; with no card it
+    raises instead of running on the CPU."""
+    _, model = models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llada.tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_text(model, PROMPTS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_t2i(model, PROMPTS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MMadaModel.init(cfg, tiny_layout())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llada.init_params(cfg)
+
+
+def test_serving_rejects_weights_on_another_device(models):
+    _, model = models
+    with pytest.raises(ValueError, match="model weights"):
+        serve_text(model, PROMPTS, device="meta")
+
+
+def test_port_imports_without_jax_yaml_or_the_jax_package():
+    """In a fresh interpreter where jax, yaml, PIL and mmada_tpu cannot be
+    imported, the port imports and runs a tiny forward."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
+        " 'mmada_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch, mmada_tpu_torch\n"
+        "import mmada_tpu_torch.entry, mmada_tpu_torch.checkpoints.from_jax\n"
+        "from mmada_tpu_torch.models import llada\n"
+        "cfg = llada.tiny_config()\n"
+        "p = llada.init_params(cfg, device='cpu', generator=torch.Generator().manual_seed(0))\n"
+        "out = llada.forward(p, cfg, torch.zeros(1, 8, dtype=torch.long))\n"
+        "assert out.shape == (1, 8, cfg.vocab_size) and torch.isfinite(out).all()\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-B", "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|yaml|PIL)\b|from\s+(jax|yaml|PIL)\b"
+    r"|import\s+mmada_tpu(\.|\s|$)|from\s+mmada_tpu(\.|\s))",
+    re.MULTILINE,
+)
+
+
+def test_source_scan_finds_no_forbidden_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    hits = []
+    for path in files:
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
+    assert hits == []
+
+
+def test_nvcc_command_targets_sm90a():
+    cmd = _build.nvcc_command("flash_attention_fwd", "/tmp/out.so", nvcc="nvcc")
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
+    assert cmd[-1].endswith(os.path.join("csrc", "flash_attention_fwd.cu"))
+    assert _build.sources() == ["flash_attention_fwd"]
+    # the C sources include CUDA headers only (no torch/extension.h): seconds to build
+    with open(os.path.join(_build.CSRC_DIR, "flash_attention_fwd.cu")) as f:
+        includes = re.findall(r"#include\s*[<\"]([^>\"]+)", f.read())
+    assert all(not i.startswith(("torch", "ATen", "cutlass")) for i in includes)
+
+
+def test_build_dir_is_inside_the_package_and_gitignored():
+    assert os.path.dirname(_build.BUILD_DIR) == PORT
+    probe = os.path.join(os.path.relpath(_build.BUILD_DIR, REPO), "libx.so")
+    res = subprocess.run(["git", "check-ignore", "-q", probe], cwd=REPO,
+                         capture_output=True, timeout=60)
+    if res.returncode == 128:  # a checkout without git metadata
+        with open(os.path.join(REPO, ".gitignore")) as f:
+            assert "mmada_tpu_torch/_kernels_build/" in f.read().split()
+    else:
+        assert res.returncode == 0, res.stderr
+
+
+def test_library_hash_follows_the_sources():
+    path = _build.library_path("flash_attention_fwd")
+    assert path.startswith(_build.BUILD_DIR + os.sep) and path.endswith(".so")
+    assert path == _build.library_path("flash_attention_fwd")
+
+
+def test_missing_nvcc_raises_clearly(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
