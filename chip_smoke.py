@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
 holds each kernel against its plain PyTorch version at the shapes the serving
-path gives it, builds the full-width 8B (random weights, made on the card
+and training paths give it, trains a small model through the kernels against
+the fp32 CPU path, builds the full-width 8B (random weights, made on the card
 from a seed), answers text and t2i requests through the port's entry points,
-and checks that the kernels really ran on that path (launch counters). Each
-phase prints one line with the elapsed seconds; any failure ends the run
-with a non-zero exit. The last three lines are the kernels' JSON record, the
-card's name and power limit as nvidia-smi reports them, and
-`{"ok": true, "device": {...}}`.
+then takes stage-1 train steps of the same 8B through `entry.train`, and
+checks that the kernels really ran on each path (launch counters, set to 0
+just before the path and read just after). Each phase prints lines with the
+elapsed seconds; any failure ends the run with a non-zero exit. The last
+three lines are the kernels' JSON record, the card's name and power limit as
+nvidia-smi reports them, and `{"ok": true, "device": {...}}`.
 
 It writes nothing into the repository except the kernels' build directory
 (`mmada_tpu_torch/_kernels_build/`, gitignored).
@@ -19,7 +21,9 @@ It writes nothing into the repository except the kernels' build directory
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -31,6 +35,17 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s (data sheet)
 KERNEL_ATOL = 3e-2         # bf16 output: a few bf16 ulps at |out| ~ 1
 KERNEL_RTOL = 3e-2
 SMALL_MODEL_REL_L2 = 5e-2  # bf16 weights/activations vs the fp32 reference
+# backward kernels: p and ds enter the tensor cores rounded to bf16 (2^-9
+# relative per term) and dq/dk/dv are bf16, so each is held normwise, and
+# elementwise against its largest entry (a per-element relative bar means
+# nothing where cancellation leaves an entry near 0)
+GRAD_REL_L2 = 1e-2
+GRAD_MAX_REL = 2e-2
+LSE_ATOL = 1e-3            # fp32 row logsumexp, summed in another order
+# a bf16 train step against the fp32 CPU step: the forward's bar, doubled for
+# gradients, which carry the roundings of the forward and of the backward
+SMALL_TRAIN_LOSS_REL = 5e-2
+SMALL_TRAIN_GRAD_REL_L2 = 1e-1
 
 TEXT_PROMPTS = [            # equal byte lengths: one batch
     "What is the capital of France?",
@@ -41,6 +56,26 @@ T2I_PROMPTS = ["a photo of a red fox in the snow", "an oil painting of a lightho
 TEXT_SETTINGS = dict(gen_length=128, steps=32, block_length=32, temperature=0.0)
 T2I_SETTINGS = dict(num_vq_tokens=1024, max_text_len=128, timesteps=12,
                     guidance_scale=3.5, temperature=1.0, seed=0)
+# stage 1 (configs/mmada_pretraining_stage1.yaml): 7 t2i + 2 lm + 6 mmu rows,
+# 256 image codes, max_seq_length 128; AdamW with clip 1.0 and the cosine
+# schedule with its 5000 warmup steps; here accumulation 1, full remat and
+# the chunked vocab head (the card holds weights, gradients and moments)
+TRAIN_STEPS = 3
+TRAIN_SETTINGS = dict(
+    max_text_len=128,
+    training=dict(batch_size_t2i=7, batch_size_lm=2, batch_size_mmu=6, loss_chunk=128,
+                  gradient_accumulation_steps=1),
+    optimizer=dict(name="adamw", params=dict(beta1=0.9, beta2=0.999, weight_decay=0.01,
+                                             epsilon=1e-8, max_grad_norm=1.0)),
+    lr_scheduler=dict(scheduler="cosine", params=dict(learning_rate=1e-4, warmup_steps=5000,
+                                                      total_steps=500000)),
+    seed=0,
+)
+TRAIN_IMAGE_TOKENS = 256
+# the t2i frame the trainer builds: padded caption (BOS + max_text_len) +
+# <|soi|> + image codes + <|eoi|>; the lm and mmu rows are padded to it
+TRAIN_FRAME = TRAIN_SETTINGS["max_text_len"] + 1 + TRAIN_IMAGE_TOKENS + 2
+TRAIN_ROWS = sum(TRAIN_SETTINGS["training"][f"batch_size_{k}"] for k in ("t2i", "lm", "mmu"))
 
 
 def log(phase: str, msg: str) -> None:
@@ -82,19 +117,34 @@ def attention_case(b, h, kvh, lq, lk, rope, seed):
     return q, k, v, sin, cos
 
 
-def attention_bound(b, h, kvh, lq, lk, rope):
-    """(bound_ms, bound_by): least time for the function's flops and bytes."""
-    d = 128
-    flops = 4 * b * h * lq * lk * d
-    nbytes = 2 * d * (2 * b * h * lq + 2 * b * kvh * lk) + (2 * 4 * lq * d if rope else 0)
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): least time for these flops and bytes."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_bound(b, h, kvh, lq, lk, rope):
+    """Forward: 4 B H Lq Lk D flops; q, k, v, o (+ the fp32 rope tables)."""
+    d = 128
+    nbytes = 2 * d * (2 * b * h * lq + 2 * b * kvh * lk) + (2 * 4 * lq * d if rope else 0)
+    return bound(4 * b * h * lq * lk * d, nbytes)
+
+
+def bwd_bounds(b, h, kvh, lq, lk):
+    """dq: 6 B H Lq Lk D flops; reads q, k, v, dO, delta, writes dq, lse.
+    dkv: 8 B H Lq Lk D flops; reads q, k, v, dO, lse, delta, writes dk, dv."""
+    d = 128
+    rows_q, rows_k = b * h * lq, b * kvh * lk
+    dq = bound(6 * b * h * lq * lk * d, 2 * d * (3 * rows_q + 2 * rows_k) + 8 * rows_q)
+    dkv = bound(8 * b * h * lq * lk * d, 2 * d * (2 * rows_q + 4 * rows_k) + 8 * rows_q)
+    return dq, dkv
 
 
 def kernel_cases(h: int):
     """(tag, B, H, KVH, Lq, Lk, rope) at the shapes the served requests give
     the kernel: the text frame (BOS + prompt bytes + answer) and the t2i
-    frame (padded prompt + <|soi|> + image + <|eoi|>, 1155 tokens)."""
+    frame (padded prompt + <|soi|> + image + <|eoi|>, 1155 tokens); and the
+    stage-1 training frame."""
     text_len = 1 + len(TEXT_PROMPTS[0].encode()) + TEXT_SETTINGS["gen_length"]
     t2i_len = T2I_SETTINGS["max_text_len"] + 1 + T2I_SETTINGS["num_vq_tokens"] + 2
     return [
@@ -104,6 +154,7 @@ def kernel_cases(h: int):
         ("t2i B4 (served CFG batch)", 4, h, h, t2i_len, t2i_len, True),
         ("rectangular no-rope", 2, h, h, 256, t2i_len, False),
         ("gqa 32/8", 2, h, 8, t2i_len, t2i_len, True),
+        ("train B15 (stage-1 batch)", TRAIN_ROWS, h, h, TRAIN_FRAME, TRAIN_FRAME, True),
     ]
 
 
@@ -179,6 +230,265 @@ def check_small_model():
         raise AssertionError(f"small model disagrees with the reference: rel L2 {rel}")
 
 
+def bwd_cases(h: int):
+    """(tag, B, H, KVH, Lq, Lk, rope, through_function): the stage-1 training
+    frame at its batch (through the autograd Function, RoPE pulled back),
+    half that batch, GQA and rectangular shapes at the t2i frame, and the
+    short text frame."""
+    return [
+        ("train B15 (stage-1 batch, Function)", TRAIN_ROWS, h, h, TRAIN_FRAME, TRAIN_FRAME,
+         True, True),
+        ("train B7", 7, h, h, TRAIN_FRAME, TRAIN_FRAME, False, False),
+        ("gqa 32/8", 2, h, 8, 1155, 1155, False, False),
+        ("rectangular no-rope", 2, h, h, 256, 1155, False, False),
+        ("tiny L", 1, h, h, 159, 159, False, False),
+    ]
+
+
+def grad_error(got, want):
+    """(max abs err, rel L2, passes) of a bf16 gradient against its plain
+    version."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_err = float(err.max())
+    rel = float((got - want).norm() / want.norm())
+    ok = (bool(torch.isfinite(got).all()) and rel <= GRAD_REL_L2
+          and max_err <= GRAD_MAX_REL * float(want.abs().max()))
+    return max_err, rel, ok
+
+
+def check_backward(cases):
+    """The dq and dkv kernels against their plain versions; returns per-case
+    records. The first case goes through `KernelAttention` (forward kernel,
+    backward kernels, RoPE pulled back) against the same backward on the
+    plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmada_tpu_torch.ops.attention import KernelAttention, apply_rope, attention_backward
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dkv_reference,
+        attention_bwd_dq,
+        attention_bwd_dq_reference,
+        attention_delta,
+        flash_attention,
+        flash_attention_bwd_reference,
+    )
+
+    records = []
+    for i, (tag, b, h, kvh, lq, lk, rope, function) in enumerate(cases):
+        q, k, v, sin, cos = attention_case(b, h, kvh, lq, lk, rope, seed=200 + i)
+        g = torch.Generator("cuda").manual_seed(300 + i)
+        dout = torch.randn((b, h, lq, 128), generator=g, device="cuda").to(torch.bfloat16)
+        errors = {}
+        if function:
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = KernelAttention.apply(*ins, sin, cos)
+            got = torch.autograd.grad(out, ins, dout)
+            want = attention_backward(q, k, v, out.detach(), dout, sin, cos,
+                                      bwd=flash_attention_bwd_reference)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                errors[f"function {name}"] = grad_error(a, w)
+        qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
+        out = flash_attention(qr, kr, v)
+        delta = attention_delta(out, dout)
+        dq, lse = attention_bwd_dq(qr, kr, v, dout, delta)
+        dk, dv = attention_bwd_dkv(qr, kr, v, dout, lse, delta)
+        want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta)
+        want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta)
+        torch.cuda.synchronize()
+        errors["dq"] = grad_error(dq, want_dq)
+        errors["dk"] = grad_error(dk, want_dk)
+        errors["dv"] = grad_error(dv, want_dv)
+        lse_err = float((lse - want_lse).abs().max())
+
+        (dq_bound, dq_by), (dkv_bound, dkv_by) = bwd_bounds(b, h, kvh, lq, lk)
+        dq_rec = dict(
+            ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta), 10),
+            plain_ms=cuda_ms(lambda: attention_bwd_dq_reference(qr, kr, v, dout, delta), 3, 1),
+            bound_ms=dq_bound, bound_by=dq_by, max_abs_err=errors["dq"][0],
+            rel_l2=errors["dq"][1])
+        dkv_rec = dict(
+            ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta), 10),
+            plain_ms=cuda_ms(
+                lambda: attention_bwd_dkv_reference(qr, kr, v, dout, lse, delta), 3, 1),
+            bound_ms=dkv_bound, bound_by=dkv_by,
+            max_abs_err=max(errors["dk"][0], errors["dv"][0]),
+            rel_l2=max(errors["dk"][1], errors["dv"][1]))
+        # yardstick only: the library's attention backward (dq, dk and dv in
+        # one call) on the same rotated inputs
+        lib_in = [t.detach().requires_grad_() for t in (qr, kr, v)]
+        gqa = {"enable_gqa": True} if kvh != h else {}
+        lib_out = F.scaled_dot_product_attention(*lib_in, **gqa)
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), 10)
+        rec = dict(tag=tag, shape=[b, h, kvh, lq, lk], rope=rope, function=function,
+                   dq=dq_rec, dkv=dkv_rec, library_ms=library_ms, lse_max_abs_err=lse_err,
+                   errors={k: [e[0], e[1]] for k, e in errors.items()})
+        log("backward", json.dumps(rec))
+        bad = [k for k, e in errors.items() if not e[2]]
+        if bad or lse_err > LSE_ATOL:
+            raise AssertionError(
+                f"backward kernels disagree with their plain versions on {tag}: {bad} "
+                f"(rel L2 <= {GRAD_REL_L2}, max abs <= {GRAD_MAX_REL} x max|ref|), "
+                f"lse err {lse_err} (atol {LSE_ATOL})")
+        records.append(rec)
+    return records
+
+
+def small_train_batch(vocab, sc, generator):
+    """Clean [t2i | lm | mmu] frames of 200 tokens, made from a seed."""
+    import torch
+
+    n, l = sc.batch_size_t2i, 200
+
+    def ids(rows):
+        return torch.randint(3, vocab.text_vocab_size - 30, (rows, l), generator=generator)
+
+    t2i = ids(n)
+    t2i[:, sc.max_seq_length + 1:-1] = vocab.image_offset + torch.randint(
+        0, vocab.image_codebook_size, (n, l - sc.max_seq_length - 2), generator=generator)
+    lm, mmu = ids(sc.batch_size_lm), ids(sc.batch_size_mmu)
+    prompt = torch.zeros_like(mmu)
+    prompt[:, :60] = 1
+    return {"t2i_input_ids": t2i, "t2i_masks": torch.ones_like(t2i),
+            "lm_input_ids": lm, "lm_labels": lm.clone(),
+            "mmu_input_ids": mmu, "mmu_prompt_masks": prompt,
+            "mmu_labels": torch.where(prompt == 1, torch.full_like(mmu, -100), mmu)}
+
+
+def check_small_model_training():
+    """A small model with the kernels' head_dim: one bf16 train step on the
+    card (kernels, full remat) against the fp32 CPU step on the same weights
+    and corrupted batch (loss and every weight's gradient), then 30 steps on
+    that fixed batch, after which the loss is below 0.7 x the first."""
+    import torch
+
+    from mmada_tpu_torch.core.precision import BF16, FP32
+    from mmada_tpu_torch.core.vocab import tiny_layout
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        flash_attention,
+    )
+    from mmada_tpu_torch.training import optimizers
+    from mmada_tpu_torch.training.lr_schedules import get_scheduler
+    from mmada_tpu_torch.training.train_step import (
+        StepConfig,
+        TrainState,
+        corrupt_batch,
+        make_train_step,
+    )
+
+    vocab = tiny_layout()
+    cfg = dataclasses.replace(
+        llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2,
+                          n_layers=2, mlp_hidden_size=512),
+        mask_token_id=vocab.mask_token_id)
+    params = llada.init_params(cfg, device="cpu", dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(3))
+
+    def move(tree, **kw):
+        if isinstance(tree, dict):
+            return {k: move(t, **kw) for k, t in tree.items()}
+        return tree.to(**kw)
+
+    sc = StepConfig(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2, max_seq_length=40)
+    cpu = MMadaModel(cfg=cfg, params=move(params, dtype=torch.float32), vocab=vocab, policy=FP32)
+    card = MMadaModel(cfg=cfg, params=move(params, device="cuda"), vocab=vocab, policy=BF16,
+                      remat="full")
+    g = torch.Generator().manual_seed(4)
+    prepared = corrupt_batch(cpu, sc, small_train_batch(vocab, sc, g), g)
+    prepared_card = {k: t.cuda() for k, t in prepared.items()}
+
+    def loss_and_grads(model, batch):
+        step = make_train_step(model, optimizers.AdamW(1e-3), sc)
+        tree = llada.split_layers(model.params)
+        loss, _ = step.loss(tree, batch)
+        names, leaves = zip(*llada.named_leaves(tree))
+        return loss, dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+    counts = (flash_attention.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    loss_card, grads_card = loss_and_grads(card, prepared_card)
+    torch.cuda.synchronize()
+    launched = tuple(c - c0 for c, c0 in zip(
+        (flash_attention.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches),
+        counts))
+    loss_cpu, grads_cpu = loss_and_grads(cpu, prepared)
+    loss_card, loss_cpu = float(loss_card), float(loss_cpu)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_rel = {n: float((grads_card[n].float().cpu() - grads_cpu[n]).norm()
+                         / grads_cpu[n].norm().clamp_min(1e-30)) for n in grads_cpu}
+    worst = max(grad_rel, key=grad_rel.get)
+    log("small train", f"bf16 kernel step vs fp32 CPU step: loss {loss_card:.5f} vs "
+        f"{loss_cpu:.5f} (rel {loss_rel:.2e}, limit {SMALL_TRAIN_LOSS_REL}); worst "
+        f"gradient rel L2 {grad_rel[worst]:.2e} ({worst}, limit {SMALL_TRAIN_GRAD_REL_L2}); "
+        f"launches fwd/dq/dkv {launched}")
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)  # remat re-runs the forward
+    if launched != want:
+        raise AssertionError(f"small train step launched {launched}, expected {want}")
+    if not (math.isfinite(loss_card) and loss_rel <= SMALL_TRAIN_LOSS_REL
+            and grad_rel[worst] <= SMALL_TRAIN_GRAD_REL_L2):
+        raise AssertionError("small model train step disagrees with the fp32 CPU step")
+
+    opt = optimizers.AdamW(get_scheduler("cosine", 5e-3, warmup_steps=2, total_steps=80))
+    state = TrainState.create(card.params, opt)
+    step = make_train_step(card, opt, sc)
+    losses = []
+    for _ in range(30):
+        state, metrics = step.apply(state, prepared_card)   # fixed noise
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    log("small train", f"30 steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(limit {0.7 * losses[0]:.4f}), step {int(state.step)}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < 0.7 * losses[0]
+            and int(state.step) == 30):
+        raise AssertionError(f"small model did not learn its batch: {losses}")
+
+
+def train_flows(n_codes: int, seed: int):
+    """One stage-1 raw batch: captions + VQ codes (t2i), text (lm), images +
+    questions (mmu), made from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bt = TRAIN_SETTINGS["training"]["batch_size_t2i"]
+    bl = TRAIN_SETTINGS["training"]["batch_size_lm"]
+    bm = TRAIN_SETTINGS["training"]["batch_size_mmu"]
+    words = ["a", "photo", "of", "red", "fox", "in", "the", "snow", "an", "oil", "painting",
+             "lighthouse", "at", "dusk", "with", "waves", "and", "gulls", "over", "rocks"]
+
+    def text(n_words):
+        return " ".join(rng.choice(words, n_words))
+
+    return {
+        "t2i_flow": {"input_ids": [text(12) for _ in range(bt)],
+                     "image_codes": rng.integers(0, 8192, (bt, n_codes))},
+        "lm_flow": {"input_ids": [text(60) for _ in range(bl)]},
+        "mmu_flow": {"input_ids": ["What is in this image? " + text(8) for _ in range(bm)],
+                     "image_codes": rng.integers(0, 8192, (bm, n_codes))},
+    }
+
+
+def optimizer_ms(trainer) -> float:
+    """Device time of one AdamW pass (clip, moments, decay, gated write-back)
+    over the whole trained state, timed alone after the training path."""
+    import torch
+
+    from mmada_tpu_torch.models import llada
+
+    params = dict(llada.named_leaves(trainer.state.params))
+    grads = {n: torch.zeros_like(p) for n, p in params.items()}
+    gate = torch.ones((), dtype=torch.bool, device=trainer.device)
+    return cuda_ms(lambda: trainer.optimizer.apply(params, grads, trainer.state.opt_state, gate),
+                   2, 1)
+
+
 def main() -> int:
     import torch
 
@@ -189,11 +499,24 @@ def main() -> int:
     import mmada_tpu_torch
     from mmada_tpu_torch.core.precision import BF16
     from mmada_tpu_torch.core.vocab import MMADA_8B
-    from mmada_tpu_torch.entry import serve_t2i, serve_text, text_frames
+    from mmada_tpu_torch.entry import serve_t2i, serve_text, text_frames, train
     from mmada_tpu_torch.models import llada
     from mmada_tpu_torch.models.mmada import MMadaModel
     from mmada_tpu_torch.ops import _build
-    from mmada_tpu_torch.ops.flash_attention import flash_attention
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        flash_attention,
+    )
+
+    kernels_ = (flash_attention, attention_bwd_dq, attention_bwd_dkv)
+
+    def reset_counts():
+        for fn in kernels_:
+            fn.launches = 0
+
+    def counts():
+        return tuple(fn.launches for fn in kernels_)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -216,10 +539,13 @@ def main() -> int:
     if not built:
         log("build", "libraries already present (not a cold build)")
 
-    # 3. kernel 1 against its plain version at the serving path's shapes
+    # 3. the kernels against their plain versions at the paths' shapes; a
+    # small model through them, served and trained
     cfg = llada.llada_8b()
     records = check_kernel(kernel_cases(cfg.n_heads))
     check_small_model()
+    bwd_records = check_backward(bwd_cases(cfg.n_heads))
+    check_small_model_training()
 
     # 4. the full-width 8B, made on the card
     torch.cuda.reset_peak_memory_stats()
@@ -232,8 +558,8 @@ def main() -> int:
         f"{llada.param_count(model.params) / 1e9:.3f}e9 params, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # 5-6. the main path: text then t2i requests, with the counters from 0
-    flash_attention.launches = 0
+    # 5-6. the serving path: text then t2i requests, with the counters from 0
+    reset_counts()
     t = time.perf_counter()
     answers = serve_text(model, TEXT_PROMPTS, **TEXT_SETTINGS)
     torch.cuda.synchronize()
@@ -256,7 +582,7 @@ def main() -> int:
     codes = serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS)
     torch.cuda.synchronize()
     t2i_s = time.perf_counter() - t
-    launches = flash_attention.launches
+    launches, serve_dq, serve_dkv = counts()
     if codes.shape != (len(T2I_PROMPTS), T2I_SETTINGS["num_vq_tokens"]):
         raise AssertionError(f"t2i codes shape {tuple(codes.shape)}")
     if not ((codes >= 0) & (codes < MMADA_8B.image_codebook_size)).all():
@@ -272,14 +598,71 @@ def main() -> int:
         f"t2i {launches - text_launches}); expected {want}")
     if text_launches != want_text or launches != want:
         raise AssertionError(f"flash_attention launched {launches} times, expected {want}")
+    if serve_dq or serve_dkv:
+        raise AssertionError(f"serving launched backward kernels: {serve_dq}, {serve_dkv}")
+
+    # 8. the training path: stage-1 train steps of the same 8B (its weights
+    # are trained in place), full remat, counters from 0
+    model = dataclasses.replace(model, remat="full")
+    flows = [train_flows(TRAIN_IMAGE_TOKENS, seed) for seed in range(TRAIN_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer = train(model, flows, steps=TRAIN_STEPS, log_every=1, **TRAIN_SETTINGS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    # the frame the kernel cases of phase 3 were held at is the one trained
+    frames = [t for k, t in trainer.prepare_batch(flows[0]).items() if k.endswith("input_ids")]
+    trained_shape = (sum(t.shape[0] for t in frames), {t.shape[1] for t in frames})
+    for h in trainer.history:
+        log("train", f"step {h['step']}: loss {h['loss']:.4f} (t2i {h['loss_t2i']:.4f} "
+            f"lm {h['loss_lm']:.4f} mmu {h['loss_mmu']:.4f}) grad_norm {h['grad_norm']:.4f} "
+            f"skipped {h['skipped_nonfinite']:.0f}; {h['seconds']:.3f}s, "
+            f"{h['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+            f"{h['max_memory_allocated_gib']:.2f} GiB")
+    n = cfg.n_layers
+    want_train = (TRAIN_STEPS * 2 * n, TRAIN_STEPS * n, TRAIN_STEPS * n)
+    log("train", f"{TRAIN_STEPS} steps of the {n}-layer 8B at stage-1 shapes in {train_s:.2f}s "
+        f"(rows, frame lengths) {trained_shape}; peak {peak:.2f} GiB allocated, "
+        f"{peak_reserved:.2f} GiB reserved; launches fwd/dq/dkv {train_launches}, expected "
+        f"{want_train} (the forward twice a step: remat)")
+    if trained_shape != (TRAIN_ROWS, {TRAIN_FRAME}):
+        raise AssertionError(f"trained (rows, frame) {trained_shape}, but the kernels were "
+                             f"checked at ({TRAIN_ROWS}, {TRAIN_FRAME})")
+    for h in trainer.history:
+        if not all(map(math.isfinite, h.values())):
+            raise AssertionError(f"non-finite train metrics: {h}")
+        if h["grad_norm"] <= 0 or h["skipped_nonfinite"] != 0:
+            raise AssertionError(f"bad train step: {h}")
+    if int(trainer.state.step) != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS:
+        raise AssertionError(f"train step count {int(trainer.state.step)}, want {TRAIN_STEPS}")
+    if train_launches != want_train:
+        raise AssertionError(f"train launches {train_launches}, expected {want_train}")
+
+    # where the step's time goes: the three kernels (ms x launches per step)
+    # and the optimizer pass, against the steady step's wall time
+    step_s = min(h["seconds"] for h in trainer.history)
+    fwd_rec = next(r for r in records if r["tag"].startswith("train B15"))
+    attn_ms = {"fwd": fwd_rec["ms"] * 2 * n, "dq": bwd_records[0]["dq"]["ms"] * n,
+               "dkv": bwd_records[0]["dkv"]["ms"] * n}
+    opt_ms = optimizer_ms(trainer)
+    log("train", f"steady step {step_s * 1e3:.1f} ms: attention kernels "
+        f"{sum(attn_ms.values()):.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in attn_ms.items())}; "
+        f"{sum(attn_ms.values()) / (step_s * 1e3):.1%}), AdamW pass {opt_ms:.1f} ms "
+        f"({opt_ms / (step_s * 1e3):.1%})")
 
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
+    train_rec = bwd_records[0]
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "mmada_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "mmada_tpu/ops/flash_attention.py:650",
-        "launches": launches,
+        "launches": launches + train_launches[0],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
@@ -287,6 +670,21 @@ def main() -> int:
         "bound_by": main_rec["bound_by"],
         "library_ms": main_rec["library_ms"],
     }]
+    for name, key, line, count in (("flash_attention_bwd_dq", "dq", 895, train_launches[1]),
+                                   ("flash_attention_bwd_dkv", "dkv", 963, train_launches[2])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mmada_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": f"mmada_tpu/ops/flash_attention.py:{line}",
+            "launches": count,
+            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_records),
+            "ms": train_rec[key]["ms"],
+            "plain_ms": train_rec[key]["plain_ms"],
+            "bound_ms": train_rec[key]["bound_ms"],
+            "bound_by": train_rec[key]["bound_by"],
+            "library_ms": train_rec["library_ms"],
+        })
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,7 @@
-"""MMaDA on PyTorch and CUDA: the text and t2i serving path of the unified
-masked-diffusion model, with its attention kernel written by hand for Hopper.
+"""MMaDA on PyTorch and CUDA: the text and t2i serving path and the
+multi-task training step of the unified masked-diffusion model, with its
+attention kernels (forward, and the dq / dkv backward) written by hand for
+Hopper.
 
 The package mirrors the module names of the JAX package `mmada_tpu` so that
 each counterpart is easy to find, and keeps the JAX weight layout (`(in, out)`
@@ -8,6 +10,6 @@ only. Entry points run on `cuda` unless the caller passes `device="cpu"`;
 without CUDA and without an explicit device they raise.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from mmada_tpu_torch.core.vocab import VocabLayout  # noqa: F401

@@ -3,6 +3,10 @@
 * `params_from_jax` takes the JAX package's LLaDA params as numpy arrays
   (`jax.device_get(params)`) and returns the port's: the layouts are the
   same, so this is `torch.from_numpy` and a move, with no transposes.
+* `named_from_jax` takes any tree of that shape (params, or the optax AdamW
+  moments `mu` / `nu`, which mirror it) into the trainable layout's flat
+  names (`llada.named_leaves` of `llada.split_layers`: one tensor per layer
+  and weight kind, `layers.{i}.{kind}`).
 * `params_from_torch_state_dict` is the counterpart of
   `mmada_tpu/checkpoints/hf_import.params_from_torch_state_dict`: it reads a
   flat reference state dict (`model.transformer.blocks.{i}.q_proj.weight`,
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
-from mmada_tpu_torch.models.llada import LLaDAConfig, Params
+from mmada_tpu_torch.models.llada import LLaDAConfig, Params, named_leaves
 
 
 def _tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -49,6 +53,18 @@ def params_from_jax(np_tree: Mapping, cfg: LLaDAConfig, device: DeviceLike = Non
         if t.shape[0] != n:
             raise ValueError(f"blocks[{name!r}] has {t.shape[0]} layers, config {n}")
     return params
+
+
+def named_from_jax(np_tree: Mapping, device: DeviceLike = None,
+                   dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """A JAX params-shaped tree (numpy leaves) by the trainable layout's
+    names: `wte`, `ln_f`, `ff_out`, `layers.{i}.{kind}`."""
+    device = resolve_device(device)
+    tree: Params = {name: _tensor(a, device, dtype)
+                    for name, a in np_tree.items() if name != "blocks"}
+    tree["blocks"] = {name: _tensor(a, device, dtype)
+                      for name, a in np_tree["blocks"].items()}
+    return {name: t.contiguous() for name, t in named_leaves(tree)}
 
 
 _BLOCK_RE = re.compile(

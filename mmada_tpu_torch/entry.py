@@ -1,7 +1,8 @@
-"""Serving entry points: answer a list of text or t2i requests.
+"""Entry points: answer text or t2i requests, and train.
 
-Counterparts of the repo-root `generate.py` and `inference_t2i.py` up to the
-token ids / image codes, with keyword arguments instead of a yaml config:
+Counterparts of the repo-root `generate.py`, `inference_t2i.py` (up to the
+token ids / image codes) and `train.py`, with keyword arguments instead of a
+yaml config:
 
   * `serve_text(model, prompts, ...)` builds each prompt's frame (BOS first,
     as `generate.py` does), batches requests of equal frame length, and runs
@@ -10,14 +11,18 @@ token ids / image codes, with keyword arguments instead of a yaml config:
     empty-prompt CFG frames (`UniversalPrompting.t2i_gen` /
     `t2i_gen_uncond`) and runs the exact MaskGIT sampler; it returns the
     `(len(prompts), num_vq_tokens)` image codes.
+  * `train(model, flows, steps, ...)` builds the multi-task `Trainer` and
+    takes `steps` optimizer steps over the raw batches in `flows` (cycled),
+    updating the model's weights in place.
 
-Both run on the card unless called with `device="cpu"`, and raise when the
+All run on the card unless called with `device="cpu"`, and raise when the
 model's weights are elsewhere.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import itertools
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -28,6 +33,7 @@ from mmada_tpu_torch.prompting.universal import (
     SpecialIds,
     UniversalPrompting,
 )
+from mmada_tpu_torch.training.trainer import Trainer
 
 
 def _check_device(model: MMadaModel, device: DeviceLike) -> torch.device:
@@ -110,3 +116,25 @@ def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
         generator=generator, greedy=greedy,
     )
     return codes.cpu()
+
+
+def train(model: MMadaModel, flows: Sequence[Mapping], steps: int,
+          device: DeviceLike = None, tokenizer=None,
+          special_ids: Optional[SpecialIds] = None, max_text_len: int = 128,
+          training: Optional[Mapping] = None, optimizer: Optional[Mapping] = None,
+          lr_scheduler: Optional[Mapping] = None, seed: int = 0,
+          log_every: int = 1) -> Trainer:
+    """Take `steps` train steps on the raw batches `flows` (each a dict of
+    `t2i_flow` / `lm_flow` / `mmu_flow`, images as VQ codes), cycling through
+    them. `training` / `optimizer` / `lr_scheduler` are the reference
+    config's blocks as dicts. The model's weights are updated in place; the
+    returned Trainer holds the state and the logged metrics (`history`)."""
+    _check_device(model, device)
+    prompting = UniversalPrompting(
+        tokenizer or ByteTokenizer(), special_ids or SpecialIds.from_vocab(model.vocab),
+        max_text_len=max_text_len,
+    )
+    trainer = Trainer(model, prompting, training=dict(training or {}, max_train_steps=steps),
+                      optimizer=optimizer, lr_scheduler=lr_scheduler, log_every=log_every)
+    trainer.fit(itertools.islice(itertools.cycle(flows), steps), rng_seed=seed)
+    return trainer

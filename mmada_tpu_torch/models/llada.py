@@ -6,9 +6,17 @@ head. Parameters keep the JAX layout: a dict of layer-stacked tensors
 (`blocks[name]` is `(n_layers, ...)`, `(in, out)` matrices, `x @ w`), so the
 weights of either package convert to the other with no transposes.
 
-The layer loop is a Python loop over `blocks[name][i]`. RoPE rides into the
-attention call, which rotates q and k inside the kernel's C entry.
-No KV cache and no quantized weights here: those are later slices.
+The layer loop is a Python loop over per-layer views `blocks[name][i]`. For
+training, `split_layers` gives every weight its own leaf: the stack becomes
+a `layers` list of per-layer leaves that are views of the same storage, so
+each layer's gradient is a tensor of one layer's size (indexing the stack
+under autograd would give every layer a zero gradient the size of the whole
+stack) and an optimizer's in-place updates land in the storage serving
+reads. `forward` takes either form. RoPE rides into the attention call,
+which rotates q and k inside the kernel's C entry. `remat` recomputes each
+layer in the backward (`torch.utils.checkpoint`, the counterpart of
+`jax.checkpoint` in `_wrap_remat`). No KV cache and no quantized weights
+here: those are later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import FP32, Policy
@@ -192,10 +201,37 @@ def init_params(
     return params
 
 
+def layer_params(params: Params) -> list[Params]:
+    """One dict of tensors per layer: the `layers` list of a split tree, or
+    views `t[i]` of the layer-stacked `blocks`."""
+    if "layers" in params:
+        return params["layers"]
+    blocks = params["blocks"]
+    n = next(iter(blocks.values())).shape[0]
+    return [{name: t[i] for name, t in blocks.items()} for i in range(n)]
+
+
+def split_layers(params: Params) -> Params:
+    """The trainable form of `params`: every tensor a leaf that requires
+    grad, and the layer stack a `layers` list of per-layer leaves that are
+    views of the stacked storage (no copy; updates in place reach it)."""
+    out = {name: t.detach().requires_grad_()
+           for name, t in params.items() if name not in ("blocks", "layers")}
+    out["layers"] = [{name: t.detach().requires_grad_() for name, t in lp.items()}
+                     for lp in layer_params(params)]
+    return out
+
+
+def named_leaves(params: Params) -> list[tuple[str, torch.Tensor]]:
+    """(name, tensor) of every weight, layer weights named `layers.{i}.{kind}`."""
+    out = [(name, t) for name, t in params.items() if name not in ("blocks", "layers")]
+    for i, lp in enumerate(layer_params(params)):
+        out += [(f"layers.{i}.{name}", t) for name, t in lp.items()]
+    return out
+
+
 def param_count(params: Params) -> int:
-    return sum(t.numel() for t in params["blocks"].values()) + sum(
-        t.numel() for k, t in params.items() if k != "blocks"
-    )
+    return sum(t.numel() for _, t in named_leaves(params))
 
 
 # --------------------------------------------------------------------------
@@ -331,11 +367,16 @@ def forward(
     policy: Policy = FP32,
     logit_window: Optional[tuple[int, int]] = None,
     logit_positions: Optional[tuple[int, int]] = None,
+    remat=False,  # False | True | "full" (_check_remat)
+    return_normed_hidden: bool = False,
 ) -> torch.Tensor:
     """Logits `(B, L, V)`, or `(B, L, stop - start)` with
     `logit_window=(start, stop)` over the vocab; `logit_positions=(start,
     LENGTH)` restricts the head to that position span, giving
-    `(B, LENGTH, ...)`."""
+    `(B, LENGTH, ...)`. `return_normed_hidden=True` stops after the final
+    norm and returns the `(B, L, D)` hidden states (the chunked training
+    loss applies the head itself)."""
+    remat = _check_remat(remat)
     x = params["wte"][input_ids].to(policy.compute_dtype)
     if cfg.input_emb_norm:
         x = x * math.sqrt(cfg.d_model)
@@ -346,10 +387,12 @@ def forward(
         bias = None  # reference-faithful: masks never reach attention
 
     sin, cos = rope_sin_cos(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        lp = {name: t[i] for name, t in blocks.items()}
-        x = _block(cfg, policy, x, lp, bias, sin, cos)
+    remat = remat and torch.is_grad_enabled()
+    for lp in layer_params(params):
+        if remat:
+            x = checkpoint(_block, cfg, policy, x, lp, bias, sin, cos, use_reentrant=False)
+        else:
+            x = _block(cfg, policy, x, lp, bias, sin, cos)
 
     if logit_positions is not None:
         # the head runs only over the span the sampler reads
@@ -357,7 +400,24 @@ def forward(
         x = x[:, p_start:p_start + p_len]
 
     x = _norm(cfg, x, params["ln_f"])
+    if return_normed_hidden:
+        return x
     return _head(params, cfg, x, logit_window, policy)
+
+
+def _check_remat(remat) -> bool:
+    """Activation checkpointing modes of `_wrap_remat`: False saves every
+    activation; True / "full" recomputes each layer in the backward. The
+    policy modes "dots" (save the matmul outputs) and "auto" (pick by memory
+    fit) are not ported yet."""
+    if remat in (False, None):
+        return False
+    if remat is True or remat == "full":
+        return True
+    if remat in ("dots", "auto"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet; use False, True or 'full'")
+    raise ValueError(f"remat must be False/True/'full', got {remat!r}")
 
 
 def _head(

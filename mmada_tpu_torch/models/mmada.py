@@ -4,7 +4,11 @@ Counterpart of `MMadaModel` in `mmada_tpu/models/mmada.py` (:164): the LLaDA
 backbone plus the fused vocab layout plus the task entry points this slice
 serves:
 
-  * `forward`      - raw logits over the fused vocab (or a window of it)
+  * `forward`      - raw logits over the fused vocab (or a window of it),
+                     without autograd (serving)
+  * `forward_hidden` / `apply_head` - the differentiable training path: the
+                     post-norm hidden states, and the vocab head on (a chunk
+                     of) them
   * `generate`     - semi-AR text denoising, exact sampler
   * `t2i_generate` - MaskGIT image-token generation with CFG, exact sampler
 
@@ -35,16 +39,19 @@ class MMadaModel:
     params: Any
     vocab: VocabLayout
     policy: Policy = FP32
+    remat: Any = False
+    """Activation checkpointing of the training path: False | True | "full"
+    (llada._check_remat)."""
 
     # ------------------------------------------------------------- factory
     @classmethod
     def init(cls, cfg: llada.LLaDAConfig, vocab: VocabLayout,
              device: DeviceLike = None, dtype: torch.dtype = torch.float32,
              generator: Optional[torch.Generator] = None,
-             policy: Policy = FP32) -> "MMadaModel":
+             policy: Policy = FP32, remat=False) -> "MMadaModel":
         """Random weights made on `device` (the card unless told otherwise)."""
         params = llada.init_params(cfg, device=device, dtype=dtype, generator=generator)
-        return cls(cfg=cfg, params=params, vocab=vocab, policy=policy)
+        return cls(cfg=cfg, params=params, vocab=vocab, policy=policy, remat=remat)
 
     @property
     def device(self) -> torch.device:
@@ -60,6 +67,18 @@ class MMadaModel:
             policy=self.policy, logit_window=logit_window,
             logit_positions=logit_positions,
         )
+
+    def forward_hidden(self, input_ids, attention_mask=None):
+        """Post-final-norm hidden states `(B, L, D)`, with autograd; the
+        vocab head is NOT applied (the training loss path)."""
+        return llada.forward(
+            self.params, self.cfg, input_ids, attention_mask=attention_mask,
+            policy=self.policy, remat=self.remat, return_normed_hidden=True,
+        )
+
+    def apply_head(self, normed_hidden, logit_window=None):
+        """Vocab-head matmul on (a chunk of) normed hidden states."""
+        return llada._head(self.params, self.cfg, normed_hidden, logit_window, self.policy)
 
     def _text_window_forward_fn(self, block_length: int):
         """Semi-AR block-windowed forward: the full-width vocab head (text

@@ -1,0 +1,421 @@
+// Backward of one-pass bidirectional attention, for Hopper (sm_90a): the dq
+// kernel and the dk/dv kernel.
+//
+// Replaces the TPU kernels of `flash_attention_bwd` in
+// mmada_tpu/ops/flash_attention.py: `_attn_bwd_dq_kernel` (:719, called at
+// :895) and `_attn_bwd_dkv_kernel` (:753, called at :963). Both take q and k
+// already rotated (RoPE and its pullback run outside, as in the JAX
+// package), bf16 q / k / v / dO with element strides, and
+// delta = rowsum(dO * O) in fp32, computed outside. With s = (q . k^T) * scale
+// in fp32 (key columns past Lk get the finite fp32 min):
+//
+//   dq kernel:  m, l = row max and row sum of exp(s - m)       (pass 1)
+//               p = exp(s - m) / l; dp = dO . v^T; ds = p (dp - delta)
+//               dq = bf16((ds . k) * scale); lse = m + log(l)  (pass 2)
+//   dkv kernel: p = exp(s - lse); dv = p^T . dO; dp = dO . v^T;
+//               ds = p (dp - delta); dk = (ds^T . q) * scale;
+//               summed over the query heads that share the kv head
+//
+// Design. Every product is mma.sync m16n8k16 (bf16 operands, fp32
+// accumulators) fed by ldmatrix from shared memory; tiles stream in with
+// cp.async, double-buffered, so the next tile's copy overlaps this tile's
+// products. Blocks have four warps of 16 rows.
+//  * dq: one block per (64-row query tile, head, batch). Its q and dO tiles
+//    stay in shared memory; it walks the K/V tiles twice, as the forward
+//    kernel does, because p is normalised by the full row sum before use.
+//    GQA maps head h to kv head h / (H / KVH).
+//  * dkv: one block per (64-row key tile, kv head, batch). Each warp keeps
+//    its 16 key rows' dk and dv in fp32 registers and the block walks every
+//    (query head of the group, 32-row query tile) pair in one loop, so the
+//    GQA sum happens in registers: no atomics and no second pass. This is
+//    the TPU kernel's sequential group axis with fp32 outputs. It computes
+//    the transposed scores k . q^T directly, so p^T and ds^T come out in the
+//    accumulator layout the next products take as their A operand.
+//  * Ragged edges are masked in the kernels: rows past Lq / Lk are
+//    zero-filled on load and never stored, key columns past Lk get the
+//    finite min (dq), query columns past Lq get p = 0 (dkv).
+//
+// Rounding. q.k^T and dO.v^T multiply bf16 inputs exactly and sum in fp32,
+// as the TPU kernel's fp32 dots do. p and ds are fp32 and are rounded to
+// bf16 (round to nearest even) to enter the tensor cores for ds.k, p^T.dO
+// and ds^T.q, the usual choice of flash-attention backward kernels: each
+// term then carries a relative error of at most 2^-9, against the TPU
+// kernel's fp32 products, and the outputs a further bf16 rounding.
+//
+// Bound (on an H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s): dq needs
+// 6*B*H*Lq*Lk*D flops (the kernel does 8, pass 1 recomputes q.k^T) against
+// q + k + v + dO + dq (+ delta, lse) bytes; dkv 8*B*H*Lq*Lk*D flops against
+// q + k + v + dO + dk + dv (+ lse, delta). At the stage-1 training shape
+// (B 15, H 32, L 388, D 128) both are bound by bytes by a small margin; at
+// longer L by operations. mma.sync without warp specialisation keeps the
+// kernels short of either bound; wgmma and TMA are the next steps.
+
+#include <float.h>
+
+#include "mma_sm90.cuh"
+
+namespace {
+
+constexpr int BLOCK = 64;   // query rows per dq block, key rows per dkv block
+constexpr int DKV_QT = 32;  // query rows per step of the dkv loop
+constexpr int NUM_THREADS = 128;
+constexpr float NEG_F32 = -FLT_MAX;  // finite min, as the TPU kernel's mask
+
+// Element strides (batch, head, row) of the operands, in call order.
+struct Strides {
+  long long s[18];
+};
+
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   float* __restrict__ lse, int rep, int H, int Lq, int Lk,
+                   Strides st, float scale) {
+  // strides: q 0-2, k 3-5, v 6-8, dO 9-11, dq 12-14
+  constexpr int STRIDE = D + 8;
+  constexpr int TILE = BLOCK * STRIDE;
+  constexpr int NB = BLOCK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + TILE;
+  bf16* ks = dos + TILE;  // two K tiles
+  bf16* vs = ks + 2 * TILE;  // two V tiles
+
+  const int q0 = blockIdx.x * BLOCK;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / rep;
+  const bf16* qp = q + b * st.s[0] + h * st.s[1];
+  const bf16* kp = k + b * st.s[3] + kvh * st.s[4];
+  const bf16* vp = v + b * st.s[6] + kvh * st.s[7];
+  const bf16* dop = dout + b * st.s[9] + h * st.s[10];
+  bf16* dqp = dq + b * st.s[12] + h * st.s[13];
+  const long long stat0 = ((long long)b * H + h) * Lq;  // delta / lse rows
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (Lk + BLOCK - 1) / BLOCK;
+  const bf16* qw = qs + warp * 16 * STRIDE;   // this warp's 16 query rows
+  const bf16* dow = dos + warp * 16 * STRIDE;
+
+  load_rows_async<D, BLOCK>(qs, qp, st.s[2], q0, Lq);
+  load_rows_async<D, BLOCK>(dos, dop, st.s[11], q0, Lq);
+  load_rows_async<D, BLOCK>(ks, kp, st.s[5], 0, Lk);
+  cp_async_commit();
+
+  float s[NB][4];
+
+  // pass 1: row max m and row sum l (rows g and g + 8 of this warp)
+  float m[2] = {NEG_F32, NEG_F32};
+  float l[2] = {0.f, 0.f};
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {
+      load_rows_async<D, BLOCK>(ks + ((tile + 1) & 1) * TILE, kp, st.s[5],
+                                (tile + 1) * BLOCK, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    mma_abt<D, NB>(s, qw, ks + (tile & 1) * TILE, lane);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tile * BLOCK + n * 8 + t * 2 + (j & 1);
+        s[n][j] = col < Lk ? s[n][j] * scale : NEG_F32;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_F32;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        sum += expf(s[n][2 * r] - m_new) + expf(s[n][2 * r + 1] - m_new);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] = l[r] * expf(m[r] - m_new) + sum;
+      m[r] = m_new;
+    }
+    __syncthreads();  // every warp is done with this buffer before its refill
+  }
+
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  const float delta_r[2] = {row_a < Lq ? delta[stat0 + row_a] : 0.f,
+                            row_b < Lq ? delta[stat0 + row_b] : 0.f};
+
+  // pass 2: p, dp, ds; dq += ds . k
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  constexpr int HALF = BLOCK / 2;
+  float sh[NB / 2][4], dp[NB / 2][4];
+
+  load_rows_async<D, BLOCK>(ks, kp, st.s[5], 0, Lk);
+  load_rows_async<D, BLOCK>(vs, vp, st.s[8], 0, Lk);
+  cp_async_commit();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {
+      const int next = (tile + 1) & 1;
+      load_rows_async<D, BLOCK>(ks + next * TILE, kp, st.s[5], (tile + 1) * BLOCK, Lk);
+      load_rows_async<D, BLOCK>(vs + next * TILE, vp, st.s[8], (tile + 1) * BLOCK, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // the tile in two halves of 32 keys, which keeps s, dp, the dq
+    // accumulators and the B fragments within the register file
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const bf16* kt = ks + (tile & 1) * TILE + half * HALF * STRIDE;
+      mma_abt<D, NB / 2>(sh, qw, kt, lane);
+      mma_abt<D, NB / 2>(dp, dow, vs + (tile & 1) * TILE + half * HALF * STRIDE, lane);
+#pragma unroll
+      for (int n = 0; n < NB / 2; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = j >> 1;
+          const int col = tile * BLOCK + half * HALF + n * 8 + t * 2 + (j & 1);
+          const float sc = col < Lk ? sh[n][j] * scale : NEG_F32;
+          const float p = expf(sc - m[r]) / l[r];  // normalised, as :735-738
+          sh[n][j] = p * (dp[n][j] - delta_r[r]);  // ds
+        }
+      mma_pb<D, NB / 2>(acc, sh, kt, lane);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + t * 2;
+    if (row_a < Lq)
+      *reinterpret_cast<uint32_t*>(dqp + row_a * st.s[14] + col) =
+          pack_bf16(acc[dn][0] * scale, acc[dn][1] * scale);
+    if (row_b < Lq)
+      *reinterpret_cast<uint32_t*>(dqp + row_b * st.s[14] + col) =
+          pack_bf16(acc[dn][2] * scale, acc[dn][3] * scale);
+  }
+  if (t == 0) {
+    if (row_a < Lq) lse[stat0 + row_a] = m[0] + logf(l[0]);
+    if (row_b < Lq) lse[stat0 + row_b] = m[1] + logf(l[1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int group,
+                    int H, int Lq, int Lk, Strides st, float scale) {
+  // strides: q 0-2, k 3-5, v 6-8, dO 9-11, dk 12-14, dv 15-17
+  constexpr int STRIDE = D + 8;
+  constexpr int QTILE = DKV_QT * STRIDE;
+  constexpr int NB = DKV_QT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + BLOCK * STRIDE;
+  bf16* qs = vs + BLOCK * STRIDE;  // two Q tiles
+  bf16* dos = qs + 2 * QTILE;      // two dO tiles
+  float* lses = reinterpret_cast<float*>(dos + 2 * QTILE);  // two x DKV_QT
+  float* dels = lses + 2 * DKV_QT;                          // two x DKV_QT
+
+  const int k0 = blockIdx.x * BLOCK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (Lq + DKV_QT - 1) / DKV_QT;
+  const int n_steps = group * n_qt;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* kw = ks + warp * 16 * STRIDE;  // this warp's 16 key rows
+  const bf16* vw = vs + warp * 16 * STRIDE;
+
+  // step i: query head kvh * group + i / n_qt, query tile i % n_qt
+  auto issue = [&](int step, int buf) {
+    const int h = kvh * group + step / n_qt;
+    const int row0 = (step % n_qt) * DKV_QT;
+    load_rows_async<D, DKV_QT>(qs + buf * QTILE, q + b * st.s[0] + h * st.s[1],
+                               st.s[2], row0, Lq);
+    load_rows_async<D, DKV_QT>(dos + buf * QTILE, dout + b * st.s[9] + h * st.s[10],
+                               st.s[11], row0, Lq);
+    if (threadIdx.x < 2 * DKV_QT) {
+      const int i = threadIdx.x % DKV_QT;
+      const bool valid = row0 + i < Lq;
+      const long long at = ((long long)b * H + h) * Lq + (valid ? row0 + i : 0);
+      if (threadIdx.x < DKV_QT)
+        cp_async4(lses + buf * DKV_QT + i, lse + at, valid);
+      else
+        cp_async4(dels + buf * DKV_QT + i, delta + at, valid);
+    }
+  };
+
+  load_rows_async<D, BLOCK>(ks, k + b * st.s[3] + kvh * st.s[4], st.s[5], k0, Lk);
+  load_rows_async<D, BLOCK>(vs, v + b * st.s[6] + kvh * st.s[7], st.s[8], k0, Lk);
+  issue(0, 0);
+  cp_async_commit();
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_dk[dn][j] = acc_dv[dn][j] = 0.f;
+  float s[NB][4], dp[NB][4];
+
+  for (int step = 0; step < n_steps; ++step) {
+    if (step + 1 < n_steps) {
+      issue(step + 1, (step + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = step & 1;
+    const bf16* qt = qs + buf * QTILE;
+    const bf16* dot = dos + buf * QTILE;
+    const float* lt = lses + buf * DKV_QT;
+    const float* dt = dels + buf * DKV_QT;
+    const int row0 = (step % n_qt) * DKV_QT;
+
+    // s^T (this warp's 16 keys x DKV_QT queries) -> p^T
+    mma_abt<D, NB>(s, kw, qt, lane);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n * 8 + t * 2 + (j & 1);  // query within the tile
+        s[n][j] = row0 + c < Lq ? expf(s[n][j] * scale - lt[c]) : 0.f;  // :769
+      }
+    mma_pb<D, NB>(acc_dv, s, dot, lane);  // dv += p^T . dO
+    mma_abt<D, NB>(dp, vw, dot, lane);    // dp^T = v . dO^T
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n * 8 + t * 2 + (j & 1);
+        s[n][j] = s[n][j] * (dp[n][j] - dt[c]);  // ds^T
+      }
+    mma_pb<D, NB>(acc_dk, s, qt, lane);   // dk += ds^T . q
+    __syncthreads();  // every warp is done with this buffer before its refill
+  }
+
+  const int row_a = k0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  bf16* dkp = dk + b * st.s[12] + kvh * st.s[13];
+  bf16* dvp = dv + b * st.s[15] + kvh * st.s[16];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + t * 2;
+    if (row_a < Lk) {
+      *reinterpret_cast<uint32_t*>(dkp + row_a * st.s[14] + col) =
+          pack_bf16(acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+      *reinterpret_cast<uint32_t*>(dvp + row_a * st.s[17] + col) =
+          pack_bf16(acc_dv[dn][0], acc_dv[dn][1]);
+    }
+    if (row_b < Lk) {
+      *reinterpret_cast<uint32_t*>(dkp + row_b * st.s[14] + col) =
+          pack_bf16(acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+      *reinterpret_cast<uint32_t*>(dvp + row_b * st.s[17] + col) =
+          pack_bf16(acc_dv[dn][2], acc_dv[dn][3]);
+    }
+  }
+}
+
+Strides copy_strides(const long long* strides, int n) {
+  Strides st;
+  for (int i = 0; i < 18; ++i) st.s[i] = i < n ? strides[i] : 0;
+  return st;
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* delta, void* dq, void* lse,
+                      int B, int H, int KVH, int Lq, int Lk,
+                      const long long* strides, float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)6 * BLOCK * (D + 8) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + BLOCK - 1) / BLOCK, H, B);
+  attn_bwd_dq_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      static_cast<float*>(lse), H / KVH, H, Lq, Lk, copy_strides(strides, 15), scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int KVH, int Lq, int Lk,
+                       const long long* strides, float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * BLOCK + 4 * DKV_QT) * (D + 8) * sizeof(bf16) +
+                      (size_t)4 * DKV_QT * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lk + BLOCK - 1) / BLOCK, KVH, B);
+  attn_bwd_dkv_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H / KVH, H, Lq, Lk,
+      copy_strides(strides, 18), scale);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int H, int KVH, int Lq, int Lk) {
+  return B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1;
+}
+
+}  // namespace
+
+// C entries, bound with ctypes. q, dO (B, H, Lq, D) and k, v (B, KVH, Lk, D):
+// bf16, last dim contiguous, rows 16-byte aligned; `strides` holds the
+// element strides (batch, head, row) of each operand in argument order.
+// delta and lse: contiguous fp32 (B, H, Lq). Each returns a cudaError_t; 0 is
+// success.
+
+// dq (B, H, Lq, D) bf16 and lse; strides = [q, k, v, dO, dq] x 3.
+extern "C" int mmada_flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* delta, void* dq, void* lse, int B, int H, int KVH, int Lq,
+    int Lk, int D, const long long* strides, float scale, void* stream) {
+  if (bad_shape(B, H, KVH, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch_dq<128>(q, k, v, dout, delta, dq, lse, B, H, KVH, Lq, Lk,
+                               strides, scale, s);
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, dout, delta, dq, lse, B, H, KVH, Lq, Lk,
+                              strides, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dk, dv (B, KVH, Lk, D) bf16; strides = [q, k, v, dO, dk, dv] x 3.
+extern "C" int mmada_flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    int KVH, int Lq, int Lk, int D, const long long* strides, float scale,
+    void* stream) {
+  if (bad_shape(B, H, KVH, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq,
+                                Lk, strides, scale, s);
+  if (D == 64)
+    return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq,
+                               Lk, strides, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -35,10 +35,9 @@
 // compute-bound. mma.sync without warp specialisation, and the second pass,
 // keep it well short of that bound; wgmma and TMA are the next steps.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <float.h>
-#include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -48,74 +47,6 @@ constexpr int NUM_WARPS = BLOCK_Q / 16;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int ROPE_THREADS = 256;
 constexpr float NEG_F32 = -FLT_MAX;  // finite min, as the TPU kernel's mask
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8. TRANS delivers each matrix transposed.
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// 16-byte asynchronous copy global -> shared; with `valid` false the 16
-// bytes are zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Start copying rows [row0, row0 + ROWS) of a (L, D) bf16 matrix with row
-// stride `row_stride` into shared memory (row stride D + 8), rows at or past
-// `n_rows` zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
-                                                long long row_stride, int row0,
-                                                int n_rows) {
-  constexpr int STRIDE = D + 8;
-  constexpr int VECS = D / 8;  // 16-byte vectors per row
-  static_assert(ROWS * VECS % NUM_THREADS == 0, "whole vectors per thread");
-#pragma unroll
-  for (int it = 0; it < ROWS * VECS / NUM_THREADS; ++it) {
-    const int i = threadIdx.x + it * NUM_THREADS;
-    const int r = i / VECS, c = (i % VECS) * 8;
-    const bool valid = row0 + r < n_rows;
-    cp_async16(dst + r * STRIDE + c,
-               src + (long long)(valid ? row0 + r : 0) * row_stride + c, valid);
-  }
-}
 
 // RoPE of every row of x (B, H, L, D; element strides sb, sh, sl) into the
 // contiguous out (B, H, L, D): out = x * cos + rotate_half(x) * sin in fp32,

@@ -1,12 +1,13 @@
-"""UniversalPrompting: the text and t2i sequence layouts.
+"""UniversalPrompting: the text, t2i and mmu sequence layouts.
 
 Counterpart of `mmada_tpu/prompting/universal.py`, restricted to the tasks the
-port serves so far (pure numpy, no framework code):
+port serves and trains so far (pure numpy, no framework code):
 
   t2i      [pad]* <|t2i|> <bos> text <eos> <|soi|> img <|eoi|>
   t2i_gen  same frame, no labels
   lm       text <eos> [<eos> padding]
   lm_chat  same ids; mask = prompt up to last <|end_header_id|>
+  mmu      <|mmu|> <|soi|> img <|eoi|> <bos> text <eos> [<eos> padding]
 
 The text tokenizer is injected (duck-typed: `__call__(list[str])` -> dict
 with 'input_ids'); tests and the smoke run use the deterministic
@@ -62,7 +63,7 @@ class UniversalPrompting:
     """Task-keyed sequence assembler (reference __call__ dispatch,
     prompting_utils.py:482-541)."""
 
-    TASKS = ("t2i", "t2i_gen", "lm", "lm_chat")
+    TASKS = ("t2i", "t2i_gen", "lm", "lm_chat", "mmu")
 
     def __init__(
         self,
@@ -186,6 +187,39 @@ class UniversalPrompting:
             prompt_masks[i, :prompt_len] = 1
         return ids, prompt_masks, labs
 
+    # ---------------------------------------------------------------- mmu
+    def mmu(self, image_ids: np.ndarray, texts):
+        """Returns (input_ids, prompt_masks, labels): the prompt mask covers
+        the image frame and the text up to the last <|end_header_id|>
+        (prompting_utils.py:316-425)."""
+        token_lists = self._tokenize(texts)
+        b, n = image_ids.shape
+        max_text_len = self.max_text_len - 1
+        seqs, pmasks, labs = [], [], []
+        for i in range(b):
+            ids = self._with_bos(token_lists[i]) + [self.sp.eos]
+            if len(ids) <= max_text_len:
+                ids = ids + [self.sp.eos] * (max_text_len - len(ids))
+            else:
+                ids = ids[: max_text_len - 1] + [self.sp.eos]
+            seq = np.concatenate([
+                [self.sp.mmu, self.sp.soi], image_ids[i], [self.sp.eoi], ids
+            ]).astype(np.int64)
+            lab = np.concatenate([
+                [self.ignore_id, self.ignore_id],
+                np.full(n, self.ignore_id),
+                [self.ignore_id],
+                ids,
+            ]).astype(np.int64)
+            lab = np.where(lab == self.sp.pad, self.ignore_id, lab)
+            pos = self._last_end_header(ids)
+            frame_len = len(seq) - len(ids)
+            prompt_len = frame_len + (pos + 1 if pos != -1 else 0)
+            pm = np.zeros(len(seq), np.int64)
+            pm[:prompt_len] = 1
+            seqs.append(seq), pmasks.append(pm), labs.append(lab)
+        return np.stack(seqs), np.stack(pmasks), np.stack(labs)
+
     # ------------------------------------------------------------ dispatch
     def __call__(self, inputs, task: str, **kwargs):
         if task == "t2i":
@@ -196,6 +230,8 @@ class UniversalPrompting:
             return self.lm(*inputs)
         if task == "lm_chat":
             return self.lm_chat(*inputs)
+        if task == "mmu":
+            return self.mmu(*inputs)
         raise NotImplementedError(f"unknown task: {task}")
 
 

@@ -1,5 +1,6 @@
-"""Tests of the port that need the card: the Hopper kernel against its plain
-version, its refusals, and the served path through it.
+"""Tests of the port that need the card: the Hopper kernels against their
+plain versions, their refusals, gradients through attention, and the served
+and trained paths through the kernels.
 
 They skip without a CUDA device (the kernel has no CPU mode). This file
 imports neither jax nor the JAX package, so it also runs beside the card,
@@ -13,11 +14,16 @@ import torch
 
 from mmada_tpu_torch.core.precision import BF16
 from mmada_tpu_torch.core.vocab import tiny_layout
-from mmada_tpu_torch.entry import serve_t2i, serve_text
+from mmada_tpu_torch.entry import serve_t2i, serve_text, train
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
-from mmada_tpu_torch.ops.attention import bidirectional_attention
+from mmada_tpu_torch.ops.attention import KernelAttention, bidirectional_attention
 from mmada_tpu_torch.ops.flash_attention import (
+    attention_bwd_dkv,
+    attention_bwd_dkv_reference,
+    attention_bwd_dq,
+    attention_bwd_dq_reference,
+    attention_delta,
     flash_attention,
     flash_attention_reference,
 )
@@ -117,3 +123,159 @@ def test_served_requests_go_through_the_kernel(cuda_device):
     assert flash_attention.launches - before == cfg.n_layers * 4
     assert codes.shape == (2, 16)
     assert ((codes >= 0) & (codes < vocab.image_codebook_size)).all()
+
+
+# bf16 gradients: p and ds enter the tensor cores rounded to bf16 (2^-9
+# relative per term) and the outputs are bf16; held normwise, and elementwise
+# against the largest entry (cancellation makes a per-element relative bar
+# meaningless where a gradient entry is near 0). Where the exact gradient is
+# 0 (one key: p = 1, so ds = dp - delta = 0) the scale is an absolute floor,
+# per entry, far below the unit-scale dO and v the cases draw
+GRAD_REL_L2 = 1e-2
+GRAD_MAX_REL = 2e-2
+GRAD_ABS_FLOOR = 1e-3
+
+
+def assert_grad_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    norm = max(float(want.norm()), GRAD_ABS_FLOOR * want.numel() ** 0.5)
+    rel = float((got - want).norm()) / norm
+    worst = float((got - want).abs().max()) / max(float(want.abs().max()), GRAD_ABS_FLOOR)
+    assert rel <= GRAD_REL_L2 and worst <= GRAD_MAX_REL, (rel, worst)
+
+
+@pytest.mark.parametrize("b,h,kvh,lq,lk,d", [
+    (2, 4, 4, 388, 388, 128),   # the stage-1 training frame, unaligned
+    (1, 8, 2, 200, 200, 64),    # GQA, head_dim 64
+    (2, 4, 4, 100, 333, 128),   # rectangular
+    (1, 2, 2, 1, 7, 128),       # one query row
+    (1, 2, 2, 1, 1, 128),       # one query, one key: dq = dk = 0 exactly
+    (1, 4, 1, 1155, 1155, 128), # GQA 4:1 at the t2i frame
+])
+def test_backward_kernels_match_plain_versions(cuda_device, b, h, kvh, lq, lk, d):
+    q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, d)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    out = flash_attention(q, k, v)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta)
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_dq, want_lse = attention_bwd_dq_reference(q, k, v, dout, delta)
+    want_dk, want_dv = attention_bwd_dkv_reference(q, k, v, dout, want_lse, delta)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert_grad_close(got, want)
+
+
+def test_backward_kernels_take_strided_views(cuda_device):
+    """dO as the head view of a (B, L, H*D) gradient, as the model's
+    backward hands it over: no copy, same result as a contiguous dO."""
+    b, l, h, d = 2, 300, 4, 128
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, d)
+    g = torch.Generator(cuda_device).manual_seed(2)
+    flat = torch.randn(b, l, h * d, generator=g, device=cuda_device).bfloat16()
+    dout = flat.view(b, l, h, d).transpose(1, 2)
+    out = flash_attention(q, k, v)
+    delta = attention_delta(out, dout)
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta)
+    dq2, lse2 = attention_bwd_dq(q, k, v, dout.contiguous(), delta)
+    torch.testing.assert_close(dq, dq2, atol=0, rtol=0)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta)
+    dk2, dv2 = attention_bwd_dkv(q, k, v, dout.contiguous(), lse2, delta)
+    torch.testing.assert_close((dk, dv), (dk2, dv2), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("rope,kvh,lq,lk", [(True, 4, 388, 388), (True, 2, 300, 300),
+                                            (False, 4, 256, 500)])
+def test_attention_is_differentiable_on_cuda(cuda_device, rope, kvh, lq, lk):
+    """The repaired fault: on the card the output of `bidirectional_attention`
+    has a grad_fn, and its gradients (backward kernels, RoPE pulled back in
+    fp32) equal those of the CPU path (the plain versions) on the same
+    values."""
+    h, d = 4, 128
+    q, k, v = _qkv(cuda_device, 2, h, kvh, lq, lk, d)
+    sin = cos = None
+    if rope:
+        sin, cos = llada.rope_sin_cos(lq, d, 500000.0, device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    dout = torch.randn(2, h, lq, d, generator=g, device=cuda_device).bfloat16()
+
+    def grads(device):
+        ins = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        tables = [None if t is None else t.to(device) for t in (sin, cos)]
+        out = bidirectional_attention(*ins, rope_sin=tables[0], rope_cos=tables[1])
+        assert out.grad_fn is not None
+        return torch.autograd.grad(out, ins, dout.to(device))
+
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    got = grads(cuda_device)
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b_ in zip(got, grads("cpu")):
+        assert a.dtype == torch.bfloat16
+        assert_grad_close(a.cpu(), b_)
+
+
+def test_backward_refuses_what_it_cannot_take(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 128)
+    out = flash_attention(q, k, v)
+    delta = attention_delta(out, q)
+    with pytest.raises(TypeError):
+        attention_bwd_dq(q.float(), k.float(), v.float(), q.float(), delta)
+    with pytest.raises(ValueError):
+        attention_bwd_dq(q, k, v, q, delta.double())
+    with pytest.raises(ValueError):
+        attention_bwd_dq(q[..., :96], k[..., :96], v[..., :96], q[..., :96], delta)
+
+
+def test_backward_past_the_one_pass_range_names_b5(cuda_device):
+    """Past 4096 tokens the backward raises (the staged kernels, B5) rather
+    than recompute through plain PyTorch."""
+    x = torch.zeros(1, 1, 4097, 128, dtype=torch.bfloat16, device=cuda_device,
+                    requires_grad=True)
+    out = KernelAttention.apply(x, x, x, None, None)
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    with pytest.raises(NotImplementedError, match="B5"):
+        out.sum().backward()
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == before
+
+
+def test_train_steps_go_through_the_kernels(cuda_device):
+    """A 2-layer bf16 model with head_dim 128 and full remat, trained through
+    `entry.train`: each step runs the forward kernel twice per layer (the
+    forward and its recompute) and each backward kernel once per layer, with
+    finite metrics, and the weights change."""
+    import numpy as np
+
+    vocab = tiny_layout()
+    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2)
+    model = MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0),
+                            policy=BF16, remat="full")
+    before = model.params["blocks"]["q_proj"].clone()
+    t = vocab.text_vocab_size
+    sp = SpecialIds(soi=t - 20, eoi=t - 19, t2i=t - 18, mmu=t - 17, r2i=t - 16,
+                    t2m=t - 15, som=t - 14, eom=t - 13, pad=vocab.pad_token_id,
+                    bos=vocab.bos_token_id, eos=vocab.eos_token_id)
+    rng = np.random.default_rng(0)
+    flows = {"t2i_flow": {"input_ids": ["a cat", "a dog"], "image_codes": rng.integers(0, 64, (2, 100))},
+             "lm_flow": {"input_ids": ["hello there", "general"]},
+             "mmu_flow": {"input_ids": ["what?", "who?"], "image_codes": rng.integers(0, 64, (2, 100))}}
+    counts = (flash_attention.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    trainer = train(model, [flows], steps=2, special_ids=sp, max_text_len=16,
+                    training=dict(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2,
+                                  loss_chunk=64),
+                    lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
+    launched = tuple(c - c0 for c, c0 in zip(
+        (flash_attention.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches), counts))
+    assert launched == (2 * 2 * cfg.n_layers, 2 * cfg.n_layers, 2 * cfg.n_layers)
+    assert int(trainer.state.step) == 2
+    for h in trainer.history:
+        assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
+    assert not torch.equal(model.params["blocks"]["q_proj"], before)

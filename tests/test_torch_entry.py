@@ -1,9 +1,11 @@
-"""The port's serving entry points, its import boundary and its kernel build.
+"""The port's entry points, its import boundary and its kernel build.
 
 * `serve_text` / `serve_t2i` on the CPU answer requests token-exactly as the
-  JAX package does on the same weights and frames (the slice as a whole).
+  JAX package does on the same weights and frames (the serving slice as a
+  whole); `train` takes train steps on the CPU when asked to.
 * `mmada_tpu_torch` and `chip_smoke.py` import neither jax, the JAX package,
-  yaml nor PIL (none of them is installed beside the card).
+  yaml nor PIL (none of them is installed beside the card), and a train step
+  runs without them.
 * Entry points never fall back to the CPU on their own.
 * The nvcc build targets sm_90a and writes into a gitignored directory.
 """
@@ -28,7 +30,7 @@ from mmada_tpu.prompting.universal import UniversalPrompting as JaxPrompting
 from mmada_tpu.prompting.universal import ByteTokenizer as JaxByteTokenizer
 from mmada_tpu_torch.checkpoints.from_jax import params_from_jax
 from mmada_tpu_torch.core.vocab import tiny_layout
-from mmada_tpu_torch.entry import serve_t2i, serve_text, text_frames
+from mmada_tpu_torch.entry import serve_t2i, serve_text, text_frames, train
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops import _build
@@ -109,7 +111,7 @@ def test_serve_t2i_matches_jax(models):
 
 
 def test_prompting_layouts_match_jax():
-    """The port's copy of the text/t2i frame builders equals the JAX one."""
+    """The port's copy of the text/t2i/mmu frame builders equals the JAX one."""
     from mmada_tpu_torch.prompting.universal import ByteTokenizer, UniversalPrompting
 
     vocab, jvocab = tiny_layout(text_vocab_size=300), jax_tiny_layout(text_vocab_size=300)
@@ -125,6 +127,8 @@ def test_prompting_layouts_match_jax():
         (up.lm(texts, 12), jup.lm(texts, 12)),
         (up.lm_chat(texts, 12), jup.lm_chat(texts, 12)),
         (up.t2i(texts, img, img, dropout=False), jup.t2i(texts, img, img, dropout=False)),
+        (up.mmu(img, texts), jup.mmu(img, texts)),
+        (up((img, texts), "mmu"), jup((img, texts), "mmu")),
     ]:
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
@@ -139,6 +143,35 @@ def test_serve_t2i_sampled_codes_in_range(models):
     assert ((codes >= 0) & (codes < model.vocab.image_codebook_size)).all()
 
 
+def test_train_entry_on_cpu(models):
+    """`train` on the CPU: three steps over two cycled raw batches (t2i, lm
+    and mmu flows, images as VQ codes), finite metrics each step, and the
+    model's own weights updated in place."""
+    _, served = models
+    params = {k: ({n: t.clone() for n, t in v.items()} if k == "blocks" else v.clone())
+              for k, v in served.params.items()}   # the fixture's weights stay as they are
+    model = MMadaModel(cfg=served.cfg, params=params, vocab=served.vocab, remat="full")
+    before = model.params["blocks"]["q_proj"].clone()
+    rng = np.random.default_rng(0)
+
+    def flows(n):
+        return {"t2i_flow": {"input_ids": PROMPTS[:n], "image_codes": rng.integers(0, 64, (n, 16))},
+                "lm_flow": {"input_ids": PROMPTS[:2]},
+                "mmu_flow": {"input_ids": PROMPTS[:n], "image_codes": rng.integers(0, 64, (n, 16))}}
+
+    trainer = train(model, [flows(3), flows(3)], steps=3, device="cpu",
+                    special_ids=_tiny_special(model.vocab, SpecialIds), max_text_len=12,
+                    training=dict(batch_size_t2i=3, batch_size_lm=2, batch_size_mmu=3,
+                                  loss_chunk=16),
+                    optimizer={"params": {"max_grad_norm": 1.0}},
+                    lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
+    assert [h["step"] for h in trainer.history] == [1, 2, 3]
+    for h in trainer.history:
+        assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
+    assert int(trainer.state.step) == 3
+    assert not torch.equal(model.params["blocks"]["q_proj"], before)
+
+
 def test_entry_points_never_fall_back_to_cpu(models, monkeypatch):
     """Without an explicit device the port wants the card; with no card it
     raises instead of running on the CPU."""
@@ -149,6 +182,8 @@ def test_entry_points_never_fall_back_to_cpu(models, monkeypatch):
         serve_text(model, PROMPTS)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_t2i(model, PROMPTS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(model, [], steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         MMadaModel.init(cfg, tiny_layout())
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -163,7 +198,7 @@ def test_serving_rejects_weights_on_another_device(models):
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
     """In a fresh interpreter where jax, yaml, PIL and mmada_tpu cannot be
-    imported, the port imports and runs a tiny forward."""
+    imported, the port imports, runs a tiny forward and takes a train step."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -172,10 +207,26 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "import torch, mmada_tpu_torch\n"
         "import mmada_tpu_torch.entry, mmada_tpu_torch.checkpoints.from_jax\n"
         "from mmada_tpu_torch.models import llada\n"
+        "from mmada_tpu_torch.training import losses, lr_schedules, masking, optimizers\n"
+        "from mmada_tpu_torch.training import train_step, trainer\n"
         "cfg = llada.tiny_config()\n"
         "p = llada.init_params(cfg, device='cpu', generator=torch.Generator().manual_seed(0))\n"
         "out = llada.forward(p, cfg, torch.zeros(1, 8, dtype=torch.long))\n"
         "assert out.shape == (1, 8, cfg.vocab_size) and torch.isfinite(out).all()\n"
+        "from mmada_tpu_torch.core.vocab import tiny_layout\n"
+        "from mmada_tpu_torch.models.mmada import MMadaModel\n"
+        "vocab = tiny_layout()\n"
+        "cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size)\n"
+        "model = MMadaModel.init(cfg, vocab, device='cpu', remat=True,\n"
+        "                        generator=torch.Generator().manual_seed(0))\n"
+        "opt = optimizers.AdamW(1e-3)\n"
+        "state = train_step.TrainState.create(model.params, opt)\n"
+        "sc = train_step.StepConfig(batch_size_t2i=0, batch_size_lm=2, batch_size_mmu=0,\n"
+        "                           max_seq_length=4, loss_chunk=4)\n"
+        "ids = torch.randint(3, 200, (2, 10), generator=torch.Generator().manual_seed(1))\n"
+        "state, m = train_step.make_train_step(model, opt, sc)(\n"
+        "    state, {'lm_input_ids': ids, 'lm_labels': ids}, torch.Generator().manual_seed(2))\n"
+        "assert int(state.step) == 1 and torch.isfinite(m['loss'])\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
@@ -211,11 +262,12 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in joined
     assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert cmd[-1].endswith(os.path.join("csrc", "flash_attention_fwd.cu"))
-    assert _build.sources() == ["flash_attention_fwd"]
+    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd"]
     # the C sources include CUDA headers only (no torch/extension.h): seconds to build
-    with open(os.path.join(_build.CSRC_DIR, "flash_attention_fwd.cu")) as f:
-        includes = re.findall(r"#include\s*[<\"]([^>\"]+)", f.read())
-    assert all(not i.startswith(("torch", "ATen", "cutlass")) for i in includes)
+    for name in os.listdir(_build.CSRC_DIR):
+        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+            includes = re.findall(r"#include\s*[<\"]([^>\"]+)", f.read())
+        assert all(not i.startswith(("torch", "ATen", "cutlass")) for i in includes), name
 
 
 def test_build_dir_is_inside_the_package_and_gitignored():
