@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
-holds each kernel against its plain PyTorch version at the shapes the serving
-and training paths give it, trains a small model through the kernels against
-the fp32 CPU path, builds the full-width 8B (random weights, made on the card
-from a seed), answers text and t2i requests through the port's entry points,
-then takes stage-1 train steps of the same 8B through `entry.train`, and
-checks that the kernels really ran on each path (launch counters, set to 0
-just before the path and read just after). Each phase prints lines with the
+holds each kernel (B1, B2 with a bias, dq and dkv without and with a bias)
+against its plain PyTorch version at the shapes the serving and training
+paths give it, runs and trains a small model through the kernels against the
+fp32 CPU path (without and with attention masks), builds the full-width 8B
+(random weights, made on the card from a seed), answers text and t2i
+requests through the port's entry points, takes stage-1 train steps of the
+same 8B through `entry.train`, then turns attention masks on
+(`attention_bias_enabled=True`, the same weights) and answers t2i requests
+and takes stage-1 train steps with `t2i_masks` again. It checks that the
+kernels really ran on each path (launch counters, set to 0 just before the
+path and read just after: the unbiased kernels on the unmasked paths only,
+the biased ones on the masked paths only). Each phase prints lines with the
 elapsed seconds; any failure ends the run with a non-zero exit. The last
 three lines are the kernels' JSON record, the card's name and power limit as
 nvidia-smi reports them, and `{"ok": true, "device": {...}}`.
@@ -22,6 +27,7 @@ It writes nothing into the repository except the kernels' build directory
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -61,12 +67,13 @@ T2I_SETTINGS = dict(num_vq_tokens=1024, max_text_len=128, timesteps=12,
 # schedule with its 5000 warmup steps; here accumulation 1, full remat and
 # the chunked vocab head (the card holds weights, gradients and moments)
 TRAIN_STEPS = 3
+MASKED_TRAIN_STEPS = 2
 TRAIN_SETTINGS = dict(
     max_text_len=128,
     training=dict(batch_size_t2i=7, batch_size_lm=2, batch_size_mmu=6, loss_chunk=128,
-                  gradient_accumulation_steps=1),
+                  gradient_accumulation_steps=1, max_grad_norm=1.0),
     optimizer=dict(name="adamw", params=dict(beta1=0.9, beta2=0.999, weight_decay=0.01,
-                                             epsilon=1e-8, max_grad_norm=1.0)),
+                                             epsilon=1e-8)),
     lr_scheduler=dict(scheduler="cosine", params=dict(learning_rate=1e-4, warmup_steps=5000,
                                                       total_steps=500000)),
     seed=0,
@@ -117,49 +124,139 @@ def attention_case(b, h, kvh, lq, lk, rope, seed):
     return q, k, v, sin, cos
 
 
+def _mask_bias(masks):
+    """The (B, 1, L, L) fp32 bias the model builds from (B, L) keep-masks."""
+    import torch
+
+    from mmada_tpu_torch.models.llada import prepare_attention_bias
+
+    return prepare_attention_bias(torch.as_tensor(masks, dtype=torch.long, device="cuda"))
+
+
+def t2i_mask_bias(cfg_batch: bool):
+    """The mask bias of the frames `serve_t2i` builds for T2I_PROMPTS: the
+    prompts' frames, then (CFG) the empty-prompt frames, as the sampler
+    batches them."""
+    import numpy as np
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B),
+                            max_text_len=T2I_SETTINGS["max_text_len"])
+    n, mask_id = T2I_SETTINGS["num_vq_tokens"], MMADA_8B.mask_token_id
+    _, masks = up.t2i_gen(T2I_PROMPTS, np.full((len(T2I_PROMPTS), n), mask_id))
+    if cfg_batch:
+        _, uncond = up.t2i_gen_uncond(len(T2I_PROMPTS), n, mask_id)
+        masks = np.concatenate([masks, uncond])
+    return _mask_bias(masks)
+
+
+def train_mask_bias():
+    """The mask bias of one stage-1 batch: the t2i rows' t2i_masks as the
+    trainer's prompting builds them (captions padded), then the lm and mmu
+    rows, which attend everywhere."""
+    import numpy as np
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B),
+                            max_text_len=TRAIN_SETTINGS["max_text_len"])
+    flow = train_flows(TRAIN_IMAGE_TOKENS, 0)["t2i_flow"]
+    image_ids = np.asarray(flow["image_codes"]) + MMADA_8B.image_offset
+    _, masks, _ = up((flow["input_ids"], image_ids, image_ids), "t2i")
+    rest = np.ones((TRAIN_ROWS - masks.shape[0], masks.shape[1]), masks.dtype)
+    return _mask_bias(np.concatenate([masks, rest]))
+
+
+def random_bias(b, h, lq, lk, seed):
+    """A per-head random fp32 bias, some entries at the finite min."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    bias = torch.randn((b, h, lq, lk), generator=g, device="cuda") * 2.0
+    drop = torch.rand((b, h, lq, lk), generator=g, device="cuda") < 0.1
+    return bias.masked_fill(drop, torch.finfo(torch.float32).min)
+
+
+def live_rows(bias, shape):
+    """(B, H, Lq, 1) True where a query row has an allowed key: the model's
+    cotangent is 0 on the others (no real row attends to a pad key, and no
+    loss reads a pad row), so the backward cases give them 0 too."""
+    import torch
+
+    return (bias > torch.finfo(torch.float32).min).any(-1, keepdim=True).expand(
+        *shape[:3], 1)
+
+
+def sdpa_mask(bias, dtype):
+    """The bias as the library's attention takes it (its dtype), with the
+    finite fp32 min clamped to a finite number of that dtype."""
+    return None if bias is None else bias.clamp_min(-1e30).to(dtype)
+
+
 def bound(flops, nbytes):
     """(bound_ms, bound_by): least time for these flops and bytes."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound(b, h, kvh, lq, lk, rope):
-    """Forward: 4 B H Lq Lk D flops; q, k, v, o (+ the fp32 rope tables)."""
+def bias_bytes(bias):
+    """The fp32 bias, read once at its own (broadcast) shape."""
+    return 0 if bias is None else 4 * bias.numel()
+
+
+def attention_bound(b, h, kvh, lq, lk, rope, bias=None):
+    """Forward: 4 B H Lq Lk D flops; q, k, v, o (+ the fp32 rope tables,
+    + the fp32 bias)."""
     d = 128
     nbytes = 2 * d * (2 * b * h * lq + 2 * b * kvh * lk) + (2 * 4 * lq * d if rope else 0)
-    return bound(4 * b * h * lq * lk * d, nbytes)
+    return bound(4 * b * h * lq * lk * d, nbytes + bias_bytes(bias))
 
 
-def bwd_bounds(b, h, kvh, lq, lk):
-    """dq: 6 B H Lq Lk D flops; reads q, k, v, dO, delta, writes dq, lse.
-    dkv: 8 B H Lq Lk D flops; reads q, k, v, dO, lse, delta, writes dk, dv."""
+def bwd_bounds(b, h, kvh, lq, lk, bias=None):
+    """dq: 6 B H Lq Lk D flops; reads q, k, v, dO, delta (+ bias), writes dq,
+    lse. dkv: 8 B H Lq Lk D flops; reads q, k, v, dO, lse, delta (+ bias),
+    writes dk, dv."""
     d = 128
     rows_q, rows_k = b * h * lq, b * kvh * lk
-    dq = bound(6 * b * h * lq * lk * d, 2 * d * (3 * rows_q + 2 * rows_k) + 8 * rows_q)
-    dkv = bound(8 * b * h * lq * lk * d, 2 * d * (2 * rows_q + 4 * rows_k) + 8 * rows_q)
+    extra = bias_bytes(bias)
+    dq = bound(6 * b * h * lq * lk * d, 2 * d * (3 * rows_q + 2 * rows_k) + 8 * rows_q + extra)
+    dkv = bound(8 * b * h * lq * lk * d,
+                2 * d * (2 * rows_q + 4 * rows_k) + 8 * rows_q + extra)
     return dq, dkv
 
 
 def kernel_cases(h: int):
-    """(tag, B, H, KVH, Lq, Lk, rope) at the shapes the served requests give
-    the kernel: the text frame (BOS + prompt bytes + answer) and the t2i
+    """(tag, B, H, KVH, Lq, Lk, rope, bias) at the shapes the served requests
+    give the kernel: the text frame (BOS + prompt bytes + answer) and the t2i
     frame (padded prompt + <|soi|> + image + <|eoi|>, 1155 tokens); and the
-    stage-1 training frame."""
+    stage-1 training frame. `bias` is None (kernel B1) or a function that
+    makes the fp32 bias on the card (kernel B2): the masks of the served t2i
+    frames and of a stage-1 batch, and a per-head random bias."""
     text_len = 1 + len(TEXT_PROMPTS[0].encode()) + TEXT_SETTINGS["gen_length"]
     t2i_len = T2I_SETTINGS["max_text_len"] + 1 + T2I_SETTINGS["num_vq_tokens"] + 2
     return [
-        ("text B1", 1, h, h, text_len, text_len, True),
-        ("text B3 (served batch)", 3, h, h, text_len, text_len, True),
-        ("t2i B2", 2, h, h, t2i_len, t2i_len, True),
-        ("t2i B4 (served CFG batch)", 4, h, h, t2i_len, t2i_len, True),
-        ("rectangular no-rope", 2, h, h, 256, t2i_len, False),
-        ("gqa 32/8", 2, h, 8, t2i_len, t2i_len, True),
-        ("train B15 (stage-1 batch)", TRAIN_ROWS, h, h, TRAIN_FRAME, TRAIN_FRAME, True),
+        ("text B1", 1, h, h, text_len, text_len, True, None),
+        ("text B3 (served batch)", 3, h, h, text_len, text_len, True, None),
+        ("t2i B2", 2, h, h, t2i_len, t2i_len, True, None),
+        ("t2i B4 (served CFG batch)", 4, h, h, t2i_len, t2i_len, True, None),
+        ("rectangular no-rope", 2, h, h, 256, t2i_len, False, None),
+        ("gqa 32/8", 2, h, 8, t2i_len, t2i_len, True, None),
+        ("train B15 (stage-1 batch)", TRAIN_ROWS, h, h, TRAIN_FRAME, TRAIN_FRAME, True, None),
+        ("masked t2i B4 (served CFG batch)", 4, h, h, t2i_len, t2i_len, True,
+         lambda: t2i_mask_bias(cfg_batch=True)),
+        ("masked train B15 (stage-1 batch)", TRAIN_ROWS, h, h, TRAIN_FRAME, TRAIN_FRAME, True,
+         train_mask_bias),
+        ("per-head bias L333", 1, h, h, 333, 333, True, lambda: random_bias(1, h, 333, 333, 7)),
+        ("masked gqa 32/8", 2, h, 8, t2i_len, t2i_len, True,
+         lambda: t2i_mask_bias(cfg_batch=False)),
     ]
 
 
 def check_kernel(cases):
-    """Kernel 1 against its plain version; returns per-case records."""
+    """B1 and B2 against their plain version; returns per-case records."""
     import torch
     import torch.nn.functional as F
 
@@ -170,26 +267,33 @@ def check_kernel(cases):
     )
 
     records = []
-    for i, (tag, b, h, kvh, lq, lk, rope) in enumerate(cases):
+    for i, (tag, b, h, kvh, lq, lk, rope, make_bias) in enumerate(cases):
         q, k, v, sin, cos = attention_case(b, h, kvh, lq, lk, rope, seed=100 + i)
-        out = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
-        ref = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos)
+        bias = make_bias() if make_bias else None
+        kw = dict(rope_sin=sin, rope_cos=cos, bias=bias)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         ok = bool(torch.isfinite(out).all()) and bool(
             (err <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
         max_err = float(err.max())
-        ms = cuda_ms(lambda: flash_attention(q, k, v, rope_sin=sin, rope_cos=cos), 10)
-        plain_ms = cuda_ms(
-            lambda: flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos), 3, 1)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, **kw), 3, 1)
         # yardstick only: one library call on the same (pre-rotated) inputs
         qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
         gqa = {"enable_gqa": True} if kvh != h else {}
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, **gqa), 10)
-        bound_ms, bound_by = attention_bound(b, h, kvh, lq, lk, rope)
-        rec = dict(tag=tag, shape=[b, h, kvh, lq, lk], rope=rope, max_abs_err=max_err,
+        mask = sdpa_mask(bias, q.dtype)
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask, **gqa), 10)
+        bound_ms, bound_by = attention_bound(b, h, kvh, lq, lk, rope, bias)
+        rec = dict(tag=tag, shape=[b, h, kvh, lq, lk], rope=rope,
+                   bias=None if bias is None else list(bias.shape), max_abs_err=max_err,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
+        if bias is not None:
+            rec["rows_without_an_allowed_key"] = int(
+                (~live_rows(bias, (b, bias.shape[1], lq))).sum())
         log("kernel", json.dumps(rec))
         if not ok:
             raise AssertionError(
@@ -199,9 +303,29 @@ def check_kernel(cases):
     return records
 
 
-def check_small_model():
+def check_zero_bias(h: int) -> None:
+    """B2 with a zero bias is B1 bit for bit (adding 0.0f to a score is
+    exact), at the served t2i CFG shape."""
+    import torch
+
+    from mmada_tpu_torch.ops.flash_attention import flash_attention
+
+    t2i_len = T2I_SETTINGS["max_text_len"] + 1 + T2I_SETTINGS["num_vq_tokens"] + 2
+    q, k, v, sin, cos = attention_case(4, h, h, t2i_len, t2i_len, True, seed=99)
+    zero = torch.zeros((4, 1, t2i_len, t2i_len), device="cuda")
+    b2 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero)
+    b1 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
+    same = bool(torch.equal(b1, b2))
+    log("kernel", f"zero bias vs no bias at (4, {h}, {h}, {t2i_len}, {t2i_len}): "
+        f"bit for bit {same}")
+    if not same:
+        raise AssertionError("B2 with a zero bias differs from B1")
+
+
+def check_small_model(masked: bool):
     """A small model with the kernel's head_dim, run through the kernel in
-    bf16 on the card, against the port's fp32 CPU path on the same weights."""
+    bf16 on the card, against the port's fp32 CPU path on the same weights;
+    `masked`: with attention masks on and rows padded (kernel B2)."""
     import torch
 
     from mmada_tpu_torch.core.precision import BF16, FP32
@@ -209,39 +333,56 @@ def check_small_model():
     from mmada_tpu_torch.models import llada
 
     vocab = tiny_layout()
-    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256,
-                            n_heads=2, n_layers=2, mlp_hidden_size=512)
+    cfg = dataclasses.replace(
+        llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2,
+                          n_layers=2, mlp_hidden_size=512),
+        attention_bias_enabled=masked)
     params = llada.init_params(cfg, device="cpu", dtype=torch.bfloat16,
                                generator=torch.Generator().manual_seed(1))
     ids = torch.randint(0, vocab.total_vocab_size, (2, 200),
                         generator=torch.Generator().manual_seed(2))
+    mask = torch.ones_like(ids)
+    mask[0, :20] = 0
+    mask[1, :45] = 0
 
     def move(tree, **kw):
         if isinstance(tree, dict):
             return {k: move(t, **kw) for k, t in tree.items()}
         return tree.to(**kw)
 
-    ref = llada.forward(move(params, dtype=torch.float32), cfg, ids, policy=FP32)
-    got = llada.forward(move(params, device="cuda"), cfg, ids.cuda(), policy=BF16).cpu()
+    ref = llada.forward(move(params, dtype=torch.float32), cfg, ids, attention_mask=mask,
+                        policy=FP32)
+    got = llada.forward(move(params, device="cuda"), cfg, ids.cuda(),
+                        attention_mask=mask.cuda(), policy=BF16).cpu()
     rel = float((got - ref).norm() / ref.norm())
-    log("small model", f"bf16 kernel path vs fp32 plain path: rel L2 {rel:.3e} "
-        f"(limit {SMALL_MODEL_REL_L2}), logits {tuple(got.shape)}")
+    log("small model", f"{'masked ' if masked else ''}bf16 kernel path vs fp32 plain path: "
+        f"rel L2 {rel:.3e} (limit {SMALL_MODEL_REL_L2}), logits {tuple(got.shape)}")
     if not (torch.isfinite(got).all() and rel <= SMALL_MODEL_REL_L2):
         raise AssertionError(f"small model disagrees with the reference: rel L2 {rel}")
 
 
 def bwd_cases(h: int):
-    """(tag, B, H, KVH, Lq, Lk, rope, through_function): the stage-1 training
-    frame at its batch (through the autograd Function, RoPE pulled back),
-    half that batch, GQA and rectangular shapes at the t2i frame, and the
-    short text frame."""
+    """(tag, B, H, KVH, Lq, Lk, rope, through_function, bias): the stage-1
+    training frame at its batch (through the autograd Function, RoPE pulled
+    back), half that batch, GQA and rectangular shapes at the t2i frame, and
+    the short text frame; then with a bias (dq-bias, dkv-bias): the stage-1
+    batch's masks (through the Function), the served t2i CFG frames' masks,
+    a per-head random bias, and GQA with the served frames' masks."""
     return [
         ("train B15 (stage-1 batch, Function)", TRAIN_ROWS, h, h, TRAIN_FRAME, TRAIN_FRAME,
-         True, True),
-        ("train B7", 7, h, h, TRAIN_FRAME, TRAIN_FRAME, False, False),
-        ("gqa 32/8", 2, h, 8, 1155, 1155, False, False),
-        ("rectangular no-rope", 2, h, h, 256, 1155, False, False),
-        ("tiny L", 1, h, h, 159, 159, False, False),
+         True, True, None),
+        ("train B7", 7, h, h, TRAIN_FRAME, TRAIN_FRAME, False, False, None),
+        ("gqa 32/8", 2, h, 8, 1155, 1155, False, False, None),
+        ("rectangular no-rope", 2, h, h, 256, 1155, False, False, None),
+        ("tiny L", 1, h, h, 159, 159, False, False, None),
+        ("masked train B15 (stage-1 batch, Function)", TRAIN_ROWS, h, h, TRAIN_FRAME,
+         TRAIN_FRAME, True, True, train_mask_bias),
+        ("masked t2i B4 (CFG batch)", 4, h, h, 1155, 1155, False, False,
+         lambda: t2i_mask_bias(cfg_batch=True)),
+        ("per-head bias L333", 1, h, h, 333, 333, False, False,
+         lambda: random_bias(1, h, 333, 333, 8)),
+        ("masked gqa 32/8", 2, h, 8, 1155, 1155, False, False,
+         lambda: t2i_mask_bias(cfg_batch=False)),
     ]
 
 
@@ -260,10 +401,12 @@ def grad_error(got, want):
 
 
 def check_backward(cases):
-    """The dq and dkv kernels against their plain versions; returns per-case
-    records. The first case goes through `KernelAttention` (forward kernel,
-    backward kernels, RoPE pulled back) against the same backward on the
-    plain versions."""
+    """The dq and dkv kernels, unbiased and biased, against their plain
+    versions; returns per-case records. A Function case goes through
+    `KernelAttention` (forward kernel, backward kernels, RoPE pulled back)
+    against the same backward on the plain versions. With a bias, rows that
+    have no allowed key get a zero cotangent, as in the model; a second run
+    with a cotangent there too must stay finite."""
     import torch
     import torch.nn.functional as F
 
@@ -275,72 +418,84 @@ def check_backward(cases):
         attention_bwd_dq_reference,
         attention_delta,
         flash_attention,
+        flash_attention_bwd,
         flash_attention_bwd_reference,
     )
 
     records = []
-    for i, (tag, b, h, kvh, lq, lk, rope, function) in enumerate(cases):
+    for i, (tag, b, h, kvh, lq, lk, rope, function, make_bias) in enumerate(cases):
         q, k, v, sin, cos = attention_case(b, h, kvh, lq, lk, rope, seed=200 + i)
+        bias = make_bias() if make_bias else None
         g = torch.Generator("cuda").manual_seed(300 + i)
-        dout = torch.randn((b, h, lq, 128), generator=g, device="cuda").to(torch.bfloat16)
+        dout_all = torch.randn((b, h, lq, 128), generator=g, device="cuda").to(torch.bfloat16)
+        dout = dout_all if bias is None else dout_all * live_rows(bias, dout_all.shape)
         errors = {}
         if function:
             ins = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = KernelAttention.apply(*ins, sin, cos)
+            out = KernelAttention.apply(*ins, bias, sin, cos)
             got = torch.autograd.grad(out, ins, dout)
-            want = attention_backward(q, k, v, out.detach(), dout, sin, cos,
+            want = attention_backward(q, k, v, out.detach(), dout, sin, cos, bias,
                                       bwd=flash_attention_bwd_reference)
             for name, a, w in zip(("dq", "dk", "dv"), got, want):
                 errors[f"function {name}"] = grad_error(a, w)
         qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
-        out = flash_attention(qr, kr, v)
+        out = flash_attention(qr, kr, v, bias=bias)
         delta = attention_delta(out, dout)
-        dq, lse = attention_bwd_dq(qr, kr, v, dout, delta)
-        dk, dv = attention_bwd_dkv(qr, kr, v, dout, lse, delta)
-        want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta)
-        want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta)
+        dq, lse = attention_bwd_dq(qr, kr, v, dout, delta, bias)
+        dk, dv = attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias)
+        want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta, bias)
+        want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta, bias)
         torch.cuda.synchronize()
         errors["dq"] = grad_error(dq, want_dq)
         errors["dk"] = grad_error(dk, want_dk)
         errors["dv"] = grad_error(dv, want_dv)
         lse_err = float((lse - want_lse).abs().max())
+        finite = True
+        if bias is not None:  # a cotangent on the rows with no allowed key too
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in flash_attention_bwd(qr, kr, v, out, dout_all, bias))
 
-        (dq_bound, dq_by), (dkv_bound, dkv_by) = bwd_bounds(b, h, kvh, lq, lk)
+        (dq_bound, dq_by), (dkv_bound, dkv_by) = bwd_bounds(b, h, kvh, lq, lk, bias)
         dq_rec = dict(
-            ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta), 10),
-            plain_ms=cuda_ms(lambda: attention_bwd_dq_reference(qr, kr, v, dout, delta), 3, 1),
+            ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias), 10),
+            plain_ms=cuda_ms(
+                lambda: attention_bwd_dq_reference(qr, kr, v, dout, delta, bias), 3, 1),
             bound_ms=dq_bound, bound_by=dq_by, max_abs_err=errors["dq"][0],
             rel_l2=errors["dq"][1])
         dkv_rec = dict(
-            ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta), 10),
+            ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias), 10),
             plain_ms=cuda_ms(
-                lambda: attention_bwd_dkv_reference(qr, kr, v, dout, lse, delta), 3, 1),
+                lambda: attention_bwd_dkv_reference(qr, kr, v, dout, lse, delta, bias), 3, 1),
             bound_ms=dkv_bound, bound_by=dkv_by,
             max_abs_err=max(errors["dk"][0], errors["dv"][0]),
             rel_l2=max(errors["dk"][1], errors["dv"][1]))
         # yardstick only: the library's attention backward (dq, dk and dv in
-        # one call) on the same rotated inputs
+        # one call) on the same rotated inputs and bias
         lib_in = [t.detach().requires_grad_() for t in (qr, kr, v)]
         gqa = {"enable_gqa": True} if kvh != h else {}
-        lib_out = F.scaled_dot_product_attention(*lib_in, **gqa)
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=sdpa_mask(bias, q.dtype),
+                                                 **gqa)
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), 10)
         rec = dict(tag=tag, shape=[b, h, kvh, lq, lk], rope=rope, function=function,
+                   bias=None if bias is None else list(bias.shape),
                    dq=dq_rec, dkv=dkv_rec, library_ms=library_ms, lse_max_abs_err=lse_err,
-                   errors={k: [e[0], e[1]] for k, e in errors.items()})
+                   errors={k: [e[0], e[1]] for k, e in errors.items()},
+                   finite_with_cotangent_on_dead_rows=finite)
         log("backward", json.dumps(rec))
         bad = [k for k, e in errors.items() if not e[2]]
-        if bad or lse_err > LSE_ATOL:
+        if bad or lse_err > LSE_ATOL or not finite:
             raise AssertionError(
                 f"backward kernels disagree with their plain versions on {tag}: {bad} "
                 f"(rel L2 <= {GRAD_REL_L2}, max abs <= {GRAD_MAX_REL} x max|ref|), "
-                f"lse err {lse_err} (atol {LSE_ATOL})")
+                f"lse err {lse_err} (atol {LSE_ATOL}), finite {finite}")
         records.append(rec)
     return records
 
 
 def small_train_batch(vocab, sc, generator):
-    """Clean [t2i | lm | mmu] frames of 200 tokens, made from a seed."""
+    """Clean [t2i | lm | mmu] frames of 200 tokens, made from a seed; the
+    t2i rows' captions padded (t2i_masks 0) by 10 and 25 positions."""
     import torch
 
     n, l = sc.batch_size_t2i, 200
@@ -354,17 +509,22 @@ def small_train_batch(vocab, sc, generator):
     lm, mmu = ids(sc.batch_size_lm), ids(sc.batch_size_mmu)
     prompt = torch.zeros_like(mmu)
     prompt[:, :60] = 1
-    return {"t2i_input_ids": t2i, "t2i_masks": torch.ones_like(t2i),
+    t2i_masks = torch.ones_like(t2i)
+    for row in range(n):
+        t2i_masks[row, :10 + 15 * row] = 0
+    return {"t2i_input_ids": t2i, "t2i_masks": t2i_masks,
             "lm_input_ids": lm, "lm_labels": lm.clone(),
             "mmu_input_ids": mmu, "mmu_prompt_masks": prompt,
             "mmu_labels": torch.where(prompt == 1, torch.full_like(mmu, -100), mmu)}
 
 
-def check_small_model_training():
+def check_small_model_training(masked: bool):
     """A small model with the kernels' head_dim: one bf16 train step on the
     card (kernels, full remat) against the fp32 CPU step on the same weights
-    and corrupted batch (loss and every weight's gradient), then 30 steps on
-    that fixed batch, after which the loss is below 0.7 x the first."""
+    and corrupted batch (loss and every weight's gradient); unmasked, then 30
+    steps on that fixed batch, after which the loss is below 0.7 x the
+    first; `masked`: attention masks on, the t2i rows' pads reaching the
+    biased kernels."""
     import torch
 
     from mmada_tpu_torch.core.precision import BF16, FP32
@@ -389,7 +549,7 @@ def check_small_model_training():
     cfg = dataclasses.replace(
         llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2,
                           n_layers=2, mlp_hidden_size=512),
-        mask_token_id=vocab.mask_token_id)
+        mask_token_id=vocab.mask_token_id, attention_bias_enabled=masked)
     params = llada.init_params(cfg, device="cpu", dtype=torch.bfloat16,
                                generator=torch.Generator().manual_seed(3))
 
@@ -413,19 +573,24 @@ def check_small_model_training():
         names, leaves = zip(*llada.named_leaves(tree))
         return loss, dict(zip(names, torch.autograd.grad(loss, leaves)))
 
-    counts = (flash_attention.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    attr = "bias_launches" if masked else "launches"
+
+    def counts():
+        return tuple(getattr(f, attr) for f in (flash_attention, attention_bwd_dq,
+                                                attention_bwd_dkv))
+
+    counts0 = counts()
     loss_card, grads_card = loss_and_grads(card, prepared_card)
     torch.cuda.synchronize()
-    launched = tuple(c - c0 for c, c0 in zip(
-        (flash_attention.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches),
-        counts))
+    launched = tuple(c - c0 for c, c0 in zip(counts(), counts0))
     loss_cpu, grads_cpu = loss_and_grads(cpu, prepared)
     loss_card, loss_cpu = float(loss_card), float(loss_cpu)
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     grad_rel = {n: float((grads_card[n].float().cpu() - grads_cpu[n]).norm()
                          / grads_cpu[n].norm().clamp_min(1e-30)) for n in grads_cpu}
     worst = max(grad_rel, key=grad_rel.get)
-    log("small train", f"bf16 kernel step vs fp32 CPU step: loss {loss_card:.5f} vs "
+    log("small train", f"{'masked ' if masked else ''}bf16 kernel step vs fp32 CPU step: "
+        f"loss {loss_card:.5f} vs "
         f"{loss_cpu:.5f} (rel {loss_rel:.2e}, limit {SMALL_TRAIN_LOSS_REL}); worst "
         f"gradient rel L2 {grad_rel[worst]:.2e} ({worst}, limit {SMALL_TRAIN_GRAD_REL_L2}); "
         f"launches fwd/dq/dkv {launched}")
@@ -435,6 +600,8 @@ def check_small_model_training():
     if not (math.isfinite(loss_card) and loss_rel <= SMALL_TRAIN_LOSS_REL
             and grad_rel[worst] <= SMALL_TRAIN_GRAD_REL_L2):
         raise AssertionError("small model train step disagrees with the fp32 CPU step")
+    if masked:
+        return
 
     opt = optimizers.AdamW(get_scheduler("cosine", 5e-3, warmup_steps=2, total_steps=80))
     state = TrainState.create(card.params, opt)
@@ -509,14 +676,18 @@ def main() -> int:
         flash_attention,
     )
 
-    kernels_ = (flash_attention, attention_bwd_dq, attention_bwd_dkv)
+    # (wrapper, counter) of B1, dq, dkv, then B2, dq-bias, dkv-bias
+    counters = [(fn, attr) for attr in ("launches", "bias_launches")
+                for fn in (flash_attention, attention_bwd_dq, attention_bwd_dkv)]
 
     def reset_counts():
-        for fn in kernels_:
-            fn.launches = 0
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
 
     def counts():
-        return tuple(fn.launches for fn in kernels_)
+        """(unbiased fwd, dq, dkv), (biased fwd, dq, dkv)."""
+        c = tuple(getattr(fn, attr) for fn, attr in counters)
+        return c[:3], c[3:]
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -540,12 +711,17 @@ def main() -> int:
         log("build", "libraries already present (not a cold build)")
 
     # 3. the kernels against their plain versions at the paths' shapes; a
-    # small model through them, served and trained
+    # small model through them, served and trained, without and with masks
     cfg = llada.llada_8b()
+    t = time.perf_counter()
     records = check_kernel(kernel_cases(cfg.n_heads))
-    check_small_model()
+    check_zero_bias(cfg.n_heads)
+    check_small_model(masked=False)
+    check_small_model(masked=True)
     bwd_records = check_backward(bwd_cases(cfg.n_heads))
-    check_small_model_training()
+    check_small_model_training(masked=False)
+    check_small_model_training(masked=True)
+    log("checks", f"kernel and small-model checks took {time.perf_counter() - t:.1f}s")
 
     # 4. the full-width 8B, made on the card
     torch.cuda.reset_peak_memory_stats()
@@ -582,115 +758,191 @@ def main() -> int:
     codes = serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS)
     torch.cuda.synchronize()
     t2i_s = time.perf_counter() - t
-    launches, serve_dq, serve_dkv = counts()
-    if codes.shape != (len(T2I_PROMPTS), T2I_SETTINGS["num_vq_tokens"]):
-        raise AssertionError(f"t2i codes shape {tuple(codes.shape)}")
-    if not ((codes >= 0) & (codes < MMADA_8B.image_codebook_size)).all():
-        raise AssertionError("t2i codes outside [0, 8192)")
+    (launches, serve_dq, serve_dkv), serve_biased = counts()
+    check_codes(codes, MMADA_8B)
     log("t2i", f"{len(T2I_PROMPTS)} requests, {T2I_SETTINGS}: {t2i_s:.2f}s, "
         f"{len(T2I_PROMPTS) / t2i_s:.3f} img/s; "
         f"{codes.unique().numel()} distinct codes")
 
     # 7. the kernel ran on the main path, once per layer per forward
     want_text = cfg.n_layers * TEXT_SETTINGS["steps"] * n_batches
-    want = want_text + cfg.n_layers * T2I_SETTINGS["timesteps"]
+    want_t2i = cfg.n_layers * T2I_SETTINGS["timesteps"]
+    want = want_text + want_t2i
     log("launches", f"flash_attention {launches} (text {text_launches}, "
-        f"t2i {launches - text_launches}); expected {want}")
+        f"t2i {launches - text_launches}); expected {want}; biased kernels {serve_biased}")
     if text_launches != want_text or launches != want:
         raise AssertionError(f"flash_attention launched {launches} times, expected {want}")
     if serve_dq or serve_dkv:
         raise AssertionError(f"serving launched backward kernels: {serve_dq}, {serve_dkv}")
+    if any(serve_biased):
+        raise AssertionError(f"unmasked serving launched biased kernels: {serve_biased}")
 
     # 8. the training path: stage-1 train steps of the same 8B (its weights
     # are trained in place), full remat, counters from 0
     model = dataclasses.replace(model, remat="full")
-    flows = [train_flows(TRAIN_IMAGE_TOKENS, seed) for seed in range(TRAIN_STEPS)]
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t = time.perf_counter()
-    trainer = train(model, flows, steps=TRAIN_STEPS, log_every=1, **TRAIN_SETTINGS)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t
-    train_launches = counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
-    # the frame the kernel cases of phase 3 were held at is the one trained
-    frames = [t for k, t in trainer.prepare_batch(flows[0]).items() if k.endswith("input_ids")]
-    trained_shape = (sum(t.shape[0] for t in frames), {t.shape[1] for t in frames})
-    for h in trainer.history:
-        log("train", f"step {h['step']}: loss {h['loss']:.4f} (t2i {h['loss_t2i']:.4f} "
-            f"lm {h['loss_lm']:.4f} mmu {h['loss_mmu']:.4f}) grad_norm {h['grad_norm']:.4f} "
-            f"skipped {h['skipped_nonfinite']:.0f}; {h['seconds']:.3f}s, "
-            f"{h['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
-            f"{h['max_memory_allocated_gib']:.2f} GiB")
     n = cfg.n_layers
-    want_train = (TRAIN_STEPS * 2 * n, TRAIN_STEPS * n, TRAIN_STEPS * n)
-    log("train", f"{TRAIN_STEPS} steps of the {n}-layer 8B at stage-1 shapes in {train_s:.2f}s "
-        f"(rows, frame lengths) {trained_shape}; peak {peak:.2f} GiB allocated, "
-        f"{peak_reserved:.2f} GiB reserved; launches fwd/dq/dkv {train_launches}, expected "
-        f"{want_train} (the forward twice a step: remat)")
-    if trained_shape != (TRAIN_ROWS, {TRAIN_FRAME}):
-        raise AssertionError(f"trained (rows, frame) {trained_shape}, but the kernels were "
-                             f"checked at ({TRAIN_ROWS}, {TRAIN_FRAME})")
-    for h in trainer.history:
-        if not all(map(math.isfinite, h.values())):
-            raise AssertionError(f"non-finite train metrics: {h}")
-        if h["grad_norm"] <= 0 or h["skipped_nonfinite"] != 0:
-            raise AssertionError(f"bad train step: {h}")
-    if int(trainer.state.step) != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS:
-        raise AssertionError(f"train step count {int(trainer.state.step)}, want {TRAIN_STEPS}")
-    if train_launches != want_train:
-        raise AssertionError(f"train launches {train_launches}, expected {want_train}")
+    trainer, train_launches, train_biased = train_phase(
+        "train", model, TRAIN_STEPS, train, reset_counts, counts)
+    if any(train_biased):
+        raise AssertionError(f"unmasked training launched biased kernels: {train_biased}")
+    if train_launches != (TRAIN_STEPS * 2 * n, TRAIN_STEPS * n, TRAIN_STEPS * n):
+        raise AssertionError(f"train launches {train_launches}")
 
     # where the step's time goes: the three kernels (ms x launches per step)
     # and the optimizer pass, against the steady step's wall time
-    step_s = min(h["seconds"] for h in trainer.history)
     fwd_rec = next(r for r in records if r["tag"].startswith("train B15"))
-    attn_ms = {"fwd": fwd_rec["ms"] * 2 * n, "dq": bwd_records[0]["dq"]["ms"] * n,
-               "dkv": bwd_records[0]["dkv"]["ms"] * n}
+    step_share("train", trainer, fwd_rec, bwd_records[0], n)
     opt_ms = optimizer_ms(trainer)
-    log("train", f"steady step {step_s * 1e3:.1f} ms: attention kernels "
-        f"{sum(attn_ms.values()):.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in attn_ms.items())}; "
-        f"{sum(attn_ms.values()) / (step_s * 1e3):.1%}), AdamW pass {opt_ms:.1f} ms "
-        f"({opt_ms / (step_s * 1e3):.1%})")
+    step_ms = min(h["seconds"] for h in trainer.history) * 1e3
+    log("train", f"AdamW pass {opt_ms:.1f} ms ({opt_ms / step_ms:.1%} of the steady step)")
+
+    # 9. masks on: the same weights (no copy) with attention_bias_enabled.
+    # The first trainer's AdamW moments are freed first: a second set would
+    # not fit beside them.
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    masked = dataclasses.replace(model, cfg=dataclasses.replace(cfg, attention_bias_enabled=True))
+    if masked.params is not model.params:
+        raise AssertionError("the masked model must share the served weights")
+    log("masked", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the "
+        "masked phases")
+    reset_counts()
+    t = time.perf_counter()
+    codes = serve_t2i(masked, T2I_PROMPTS, **T2I_SETTINGS)
+    torch.cuda.synchronize()
+    masked_t2i_s = time.perf_counter() - t
+    masked_unbiased, masked_serve = counts()
+    check_codes(codes, MMADA_8B)
+    prompt_lens = [len(p.encode()) for p in T2I_PROMPTS]
+    log("masked t2i", f"{len(T2I_PROMPTS)} requests (prompts of {prompt_lens} bytes), "
+        f"{T2I_SETTINGS}: {masked_t2i_s:.2f}s ({t2i_s:.2f}s unmasked), "
+        f"{codes.unique().numel()} distinct codes; launches biased fwd/dq/dkv {masked_serve}, "
+        f"unbiased {masked_unbiased}")
+    if any(masked_unbiased) or masked_serve != (want_t2i, 0, 0):
+        raise AssertionError(f"masked t2i launches: unbiased {masked_unbiased}, "
+                             f"biased {masked_serve}, expected ({want_t2i}, 0, 0)")
+    masked_trainer, masked_unbiased, masked_train = train_phase(
+        "masked train", masked, MASKED_TRAIN_STEPS, train, reset_counts, counts)
+    batch = masked_trainer.prepare_batch(train_flows(TRAIN_IMAGE_TOKENS, 0))
+    n_pad = int((batch["t2i_masks"] == 0).sum())
+    log("masked train", f"t2i_masks of the first batch: {n_pad} padded positions")
+    if n_pad == 0:
+        raise AssertionError("the masked training batch has no padded position")
+    want_masked = (MASKED_TRAIN_STEPS * 2 * n, MASKED_TRAIN_STEPS * n, MASKED_TRAIN_STEPS * n)
+    if any(masked_unbiased) or masked_train != want_masked:
+        raise AssertionError(f"masked train launches: unbiased {masked_unbiased}, biased "
+                             f"{masked_train}, expected {want_masked}")
+    masked_fwd = next(r for r in records if r["tag"].startswith("masked train B15"))
+    masked_bwd = next(r for r in bwd_records if r["tag"].startswith("masked train B15"))
+    step_share("masked train", masked_trainer, masked_fwd, masked_bwd, n)
 
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
-    train_rec = bwd_records[0]
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "mmada_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "replaces": "mmada_tpu/ops/flash_attention.py:650",
-        "launches": launches + train_launches[0],
-        "max_abs_err": max(r["max_abs_err"] for r in records),
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"],
-    }]
-    for name, key, line, count in (("flash_attention_bwd_dq", "dq", 895, train_launches[1]),
-                                   ("flash_attention_bwd_dkv", "dkv", 963, train_launches[2])):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "mmada_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-            "replaces": f"mmada_tpu/ops/flash_attention.py:{line}",
-            "launches": count,
-            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_records),
-            "ms": train_rec[key]["ms"],
-            "plain_ms": train_rec[key]["plain_ms"],
-            "bound_ms": train_rec[key]["bound_ms"],
-            "bound_by": train_rec[key]["bound_by"],
-            "library_ms": train_rec["library_ms"],
-        })
+    masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
+    kernels = [kernel_record("flash_attention_fwd", "flash_attention_fwd", 650,
+                             launches + train_launches[0],
+                             [r for r in records if r["bias"] is None], main_rec),
+               kernel_record("flash_attention_fwd_bias", "flash_attention_fwd", 686,
+                             masked_serve[0] + masked_train[0],
+                             [r for r in records if r["bias"] is not None], masked_rec)]
+    plain_bwd = [r for r in bwd_records if r["bias"] is None]
+    biased_bwd = [r for r in bwd_records if r["bias"] is not None]
+    for name, key, line, count, recs in (
+            ("flash_attention_bwd_dq", "dq", 895, train_launches[1], plain_bwd),
+            ("flash_attention_bwd_dkv", "dkv", 963, train_launches[2], plain_bwd),
+            ("flash_attention_bwd_dq_bias", "dq", 746, masked_train[1], biased_bwd),
+            ("flash_attention_bwd_dkv_bias", "dkv", 799, masked_train[2], biased_bwd)):
+        kernels.append(kernel_record(name, "flash_attention_bwd", line, count,
+                                     [dict(r[key], library_ms=r["library_ms"]) for r in recs],
+                                     dict(recs[0][key], library_ms=recs[0]["library_ms"])))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def check_codes(codes, vocab) -> None:
+    if codes.shape != (len(T2I_PROMPTS), T2I_SETTINGS["num_vq_tokens"]):
+        raise AssertionError(f"t2i codes shape {tuple(codes.shape)}")
+    if not ((codes >= 0) & (codes < vocab.image_codebook_size)).all():
+        raise AssertionError("t2i codes outside [0, 8192)")
+
+
+def train_phase(phase, model, steps, train, reset_counts, counts):
+    """`steps` stage-1 train steps of `model` through `entry.train`, with the
+    counters from 0; checks the metrics and the trained frame, and returns
+    (trainer, unbiased launches, biased launches)."""
+    import torch
+
+    flows = [train_flows(TRAIN_IMAGE_TOKENS, seed) for seed in range(steps)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer = train(model, flows, steps=steps, log_every=1, **TRAIN_SETTINGS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    unbiased, biased = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    # the frame the kernel cases of phase 3 were held at is the one trained
+    frames = [t for k, t in trainer.prepare_batch(flows[0]).items() if k.endswith("input_ids")]
+    trained_shape = (sum(t.shape[0] for t in frames), {t.shape[1] for t in frames})
+    for h in trainer.history:
+        log(phase, f"step {h['step']}: loss {h['loss']:.4f} (t2i {h['loss_t2i']:.4f} "
+            f"lm {h['loss_lm']:.4f} mmu {h['loss_mmu']:.4f}) grad_norm {h['grad_norm']:.4f} "
+            f"skipped {h['skipped_nonfinite']:.0f}; {h['seconds']:.3f}s, "
+            f"{h['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+            f"{h['max_memory_allocated_gib']:.2f} GiB")
+    log(phase, f"{steps} steps of the {model.cfg.n_layers}-layer 8B at stage-1 shapes in "
+        f"{train_s:.2f}s (rows, frame lengths) {trained_shape}; peak {peak:.2f} GiB "
+        f"allocated, {peak_reserved:.2f} GiB reserved; launches fwd/dq/dkv unbiased "
+        f"{unbiased}, biased {biased} (the forward twice a step: remat); clip "
+        f"{trainer.optimizer.max_grad_norm}")
+    if trained_shape != (TRAIN_ROWS, {TRAIN_FRAME}):
+        raise AssertionError(f"trained (rows, frame) {trained_shape}, but the kernels were "
+                             f"checked at ({TRAIN_ROWS}, {TRAIN_FRAME})")
+    if trainer.optimizer.max_grad_norm != TRAIN_SETTINGS["training"]["max_grad_norm"]:
+        raise AssertionError("the training block's max_grad_norm is not the clip")
+    for h in trainer.history:
+        if not all(map(math.isfinite, h.values())):
+            raise AssertionError(f"non-finite train metrics: {h}")
+        if h["grad_norm"] <= 0 or h["skipped_nonfinite"] != 0:
+            raise AssertionError(f"bad train step: {h}")
+    if int(trainer.state.step) != steps or len(trainer.history) != steps:
+        raise AssertionError(f"train step count {int(trainer.state.step)}, want {steps}")
+    return trainer, unbiased, biased
+
+
+def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
+    """The attention kernels' share of the steady step: ms x launches a step
+    (the forward twice: remat)."""
+    step_ms = min(h["seconds"] for h in trainer.history) * 1e3
+    attn_ms = {"fwd": fwd_rec["ms"] * 2 * n_layers, "dq": bwd_rec["dq"]["ms"] * n_layers,
+               "dkv": bwd_rec["dkv"]["ms"] * n_layers}
+    log(phase, f"steady step {step_ms:.1f} ms: attention kernels "
+        f"{sum(attn_ms.values()):.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in attn_ms.items())}; "
+        f"{sum(attn_ms.values()) / step_ms:.1%})")
+
+
+def kernel_record(name, source, line, launches, recs, main_rec) -> dict:
+    """One kernel's entry of the JSON line: times at its main-path case, the
+    largest error over all its cases."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"mmada_tpu_torch/ops/csrc/{source}.cu",
+        "replaces": f"mmada_tpu/ops/flash_attention.py:{line}",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "ms": main_rec["ms"],
+        "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"],
+        "bound_by": main_rec["bound_by"],
+        "library_ms": main_rec["library_ms"],
+    }
 
 
 if __name__ == "__main__":

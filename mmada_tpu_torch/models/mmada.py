@@ -15,6 +15,13 @@ serves:
 Image generation evaluates the vocab head only over the 8k image window and
 the image positions (`logit_window` + `logit_positions`); text steps only
 over the active block's positions.
+
+On the card the model computes in bf16: the attention kernels take bf16
+operands only, so a model whose weights are on CUDA and whose policy's
+compute dtype is not bf16 is refused when it is built (`init` and the
+constructor), naming `BF16`. The CPU keeps the FP32 policy, which the parity
+tests use. (JAX's Pallas kernels also take fp32; fp32 kernels on the card
+are ROADMAP C.2.)
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Any, Optional
 
 import torch
 
-from mmada_tpu_torch.core.device import DeviceLike
+from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import FP32, Policy
 from mmada_tpu_torch.core.vocab import VocabLayout
 from mmada_tpu_torch.models import llada
@@ -43,13 +50,20 @@ class MMadaModel:
     """Activation checkpointing of the training path: False | True | "full"
     (llada._check_remat)."""
 
+    def __post_init__(self):
+        if self.params is not None:  # a train step's template holds no weights
+            _check_policy(self.policy, self.device)
+
     # ------------------------------------------------------------- factory
     @classmethod
     def init(cls, cfg: llada.LLaDAConfig, vocab: VocabLayout,
              device: DeviceLike = None, dtype: torch.dtype = torch.float32,
              generator: Optional[torch.Generator] = None,
              policy: Policy = FP32, remat=False) -> "MMadaModel":
-        """Random weights made on `device` (the card unless told otherwise)."""
+        """Random weights made on `device` (the card unless told otherwise).
+        On the card `policy` must compute in bf16 (`BF16`)."""
+        device = resolve_device(device)
+        _check_policy(policy, device)  # before 16 GB of weights are made
         params = llada.init_params(cfg, device=device, dtype=dtype, generator=generator)
         return cls(cfg=cfg, params=params, vocab=vocab, policy=policy, remat=remat)
 
@@ -138,3 +152,11 @@ class MMadaModel:
             uncond_input_ids=uncond_input_ids, attention_mask=attention_mask,
             uncond_attention_mask=uncond_attention_mask,
         )
+
+
+def _check_policy(policy: Policy, device: torch.device) -> None:
+    if device.type == "cuda" and policy.compute_dtype != torch.bfloat16:
+        raise ValueError(
+            f"a model on {device} computes in bf16: its attention kernels take bf16 "
+            f"only, and this policy computes in {policy.compute_dtype}; pass "
+            "policy=BF16 (mmada_tpu_torch.core.precision.BF16)")

@@ -1,13 +1,17 @@
 // Backward of one-pass bidirectional attention, for Hopper (sm_90a): the dq
-// kernel and the dk/dv kernel.
+// kernel and the dk/dv kernel, without a bias (kernels B3) and with one
+// (B3-bias).
 //
 // Replaces the TPU kernels of `flash_attention_bwd` in
-// mmada_tpu/ops/flash_attention.py: `_attn_bwd_dq_kernel` (:719, called at
-// :895) and `_attn_bwd_dkv_kernel` (:753, called at :963). Both take q and k
-// already rotated (RoPE and its pullback run outside, as in the JAX
-// package), bf16 q / k / v / dO with element strides, and
-// delta = rowsum(dO * O) in fp32, computed outside. With s = (q . k^T) * scale
-// in fp32 (key columns past Lk get the finite fp32 min):
+// mmada_tpu/ops/flash_attention.py: `_attn_bwd_dq_kernel` (:719) and
+// `_attn_bwd_dq_bias_kernel` (:746), called at :895, and
+// `_attn_bwd_dkv_kernel` (:753) and `_attn_bwd_dkv_bias_kernel` (:799),
+// called at :963. All take q and k already rotated (RoPE and its pullback
+// run outside, as in the JAX package), bf16 q / k / v / dO with element
+// strides, and delta = rowsum(dO * O) in fp32, computed outside. With
+// s = (q . k^T) * scale in fp32, plus the fp32 bias (B|1, H|1, Lq, Lk) in the
+// biased kernels (round(round(s * scale) + bias), as the forward), and key
+// columns past Lk at -inf (p = 0 there):
 //
 //   dq kernel:  m, l = row max and row sum of exp(s - m)       (pass 1)
 //               p = exp(s - m) / l; dp = dO . v^T; ds = p (dp - delta)
@@ -32,8 +36,20 @@
 //    the transposed scores k . q^T directly, so p^T and ds^T come out in the
 //    accumulator layout the next products take as their A operand.
 //  * Ragged edges are masked in the kernels: rows past Lq / Lk are
-//    zero-filled on load and never stored, key columns past Lk get the
-//    finite min (dq), query columns past Lq get p = 0 (dkv).
+//    zero-filled on load and never stored, key columns past Lk get -inf
+//    (dq), query columns past Lq get p = 0 (dkv).
+//  * The bias is read per accumulator fragment from global memory, as in
+//    the forward kernel (its rows need not be 16-byte aligned), before the
+//    products it is added to; dkv reads it transposed, bias[query][key] for
+//    its k . q^T tile.
+//
+// Query rows whose every key is masked (the padding of a masked frame): each
+// score rounds to the finite min, so dq's p is 1/Lk on such a row and its lse
+// is the finite min (min + log Lk rounds back to it), which makes dkv's
+// p = exp(s - lse) = 1 for each of its keys, as the TPU's dkv kernel has it.
+// The model gives those rows a zero cotangent (no real row attends to a pad
+// key, and no loss reads a pad row), so dO = delta = 0 there and they add
+// nothing; with a nonzero cotangent every output stays finite.
 //
 // Rounding. q.k^T and dO.v^T multiply bf16 inputs exactly and sum in fp32,
 // as the TPU kernel's fp32 dots do. p and ds are fp32 and are rounded to
@@ -51,6 +67,7 @@
 // kernels short of either bound; wgmma and TMA are the next steps.
 
 #include <float.h>
+#include <math.h>
 
 #include "mma_sm90.cuh"
 
@@ -59,21 +76,44 @@ namespace {
 constexpr int BLOCK = 64;   // query rows per dq block, key rows per dkv block
 constexpr int DKV_QT = 32;  // query rows per step of the dkv loop
 constexpr int NUM_THREADS = 128;
-constexpr float NEG_F32 = -FLT_MAX;  // finite min, as the TPU kernel's mask
+constexpr float NEG_F32 = -FLT_MAX;  // finite min: the running max's start
+constexpr float EDGE = -INFINITY;    // key columns past Lk: p = exp(-inf) = 0
 
 // Element strides (batch, head, row) of the operands, in call order.
 struct Strides {
-  long long s[18];
+  long long s[21];
 };
 
-template <int D>
+// round(s * scale) + bias, with no fused multiply-add (as the forward)
+template <bool BIAS>
+__device__ __forceinline__ float scaled(float s, float scale, float b) {
+  return BIAS ? __fadd_rn(__fmul_rn(s, scale), b) : s * scale;
+}
+
+// The bias values of NB score fragments whose rows are brow[0] (row g) and
+// brow[1] (row g + 8), keys from k0 (0 past Lk); loaded before the products
+// they are added to, so the loads overlap them.
+template <bool BIAS, int NB>
+__device__ __forceinline__ void load_bias_rows(float bv[NB][4], const float* const brow[2],
+                                               int k0, int Lk, int t) {
+  if (!BIAS) return;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + n * 8 + t * 2 + (j & 1);
+      bv[n][j] = col < Lk ? __ldg(brow[j >> 1] + col) : 0.f;
+    }
+}
+
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NUM_THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ delta, bf16* __restrict__ dq,
-                   float* __restrict__ lse, int rep, int H, int Lq, int Lk,
-                   Strides st, float scale) {
-  // strides: q 0-2, k 3-5, v 6-8, dO 9-11, dq 12-14
+                   const float* __restrict__ delta, const float* __restrict__ bias,
+                   bf16* __restrict__ dq, float* __restrict__ lse, int rep,
+                   int H, int Lq, int Lk, Strides st, float scale) {
+  // strides: q 0-2, k 3-5, v 6-8, dO 9-11, dq 12-14, bias 15-17
   constexpr int STRIDE = D + 8;
   constexpr int TILE = BLOCK * STRIDE;
   constexpr int NB = BLOCK / 8;
@@ -98,6 +138,15 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (Lk + BLOCK - 1) / BLOCK;
   const bf16* qw = qs + warp * 16 * STRIDE;   // this warp's 16 query rows
   const bf16* dow = dos + warp * 16 * STRIDE;
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  // this thread's two bias rows; rows past Lq (never stored) read row Lq - 1
+  const float* brow[2] = {nullptr, nullptr};
+  if (BIAS) {
+    const float* bp = bias + b * st.s[15] + h * st.s[16];
+    brow[0] = bp + (long long)min(row_a, Lq - 1) * st.s[17];
+    brow[1] = bp + (long long)min(row_b, Lq - 1) * st.s[17];
+  }
 
   load_rows_async<D, BLOCK>(qs, qp, st.s[2], q0, Lq);
   load_rows_async<D, BLOCK>(dos, dop, st.s[11], q0, Lq);
@@ -109,7 +158,9 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // pass 1: row max m and row sum l (rows g and g + 8 of this warp)
   float m[2] = {NEG_F32, NEG_F32};
   float l[2] = {0.f, 0.f};
+  float bv[NB][4];
   for (int tile = 0; tile < n_tiles; ++tile) {
+    load_bias_rows<BIAS, NB>(bv, brow, tile * BLOCK, Lk, t);
     if (tile + 1 < n_tiles) {
       load_rows_async<D, BLOCK>(ks + ((tile + 1) & 1) * TILE, kp, st.s[5],
                                 (tile + 1) * BLOCK, Lk);
@@ -125,7 +176,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = tile * BLOCK + n * 8 + t * 2 + (j & 1);
-        s[n][j] = col < Lk ? s[n][j] * scale : NEG_F32;
+        s[n][j] = col < Lk ? scaled<BIAS>(s[n][j], scale, bv[n][j]) : EDGE;
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -147,8 +198,6 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with this buffer before its refill
   }
 
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
   const float delta_r[2] = {row_a < Lq ? delta[stat0 + row_a] : 0.f,
                             row_b < Lq ? delta[stat0 + row_b] : 0.f};
 
@@ -178,6 +227,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const bf16* kt = ks + (tile & 1) * TILE + half * HALF * STRIDE;
+      float bh[NB / 2][4];
+      load_bias_rows<BIAS, NB / 2>(bh, brow, tile * BLOCK + half * HALF, Lk, t);
       mma_abt<D, NB / 2>(sh, qw, kt, lane);
       mma_abt<D, NB / 2>(dp, dow, vs + (tile & 1) * TILE + half * HALF * STRIDE, lane);
 #pragma unroll
@@ -186,7 +237,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const int r = j >> 1;
           const int col = tile * BLOCK + half * HALF + n * 8 + t * 2 + (j & 1);
-          const float sc = col < Lk ? sh[n][j] * scale : NEG_F32;
+          const float sc = col < Lk ? scaled<BIAS>(sh[n][j], scale, bh[n][j]) : EDGE;
           const float p = expf(sc - m[r]) / l[r];  // normalised, as :735-738
           sh[n][j] = p * (dp[n][j] - delta_r[r]);  // ds
         }
@@ -211,14 +262,15 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NUM_THREADS)
 attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int group,
-                    int H, int Lq, int Lk, Strides st, float scale) {
-  // strides: q 0-2, k 3-5, v 6-8, dO 9-11, dk 12-14, dv 15-17
+                    const float* __restrict__ bias, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int group, int H, int Lq, int Lk,
+                    Strides st, float scale) {
+  // strides: q 0-2, k 3-5, v 6-8, dO 9-11, dk 12-14, dv 15-17, bias 18-20
   constexpr int STRIDE = D + 8;
   constexpr int QTILE = DKV_QT * STRIDE;
   constexpr int NB = DKV_QT / 8;
@@ -239,6 +291,9 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const bf16* kw = ks + warp * 16 * STRIDE;  // this warp's 16 key rows
   const bf16* vw = vs + warp * 16 * STRIDE;
+  // this thread's two key columns of the bias; keys past Lk (never stored)
+  // read key Lk - 1
+  const int key[2] = {min(k0 + warp * 16 + g, Lk - 1), min(k0 + warp * 16 + g + 8, Lk - 1)};
 
   // step i: query head kvh * group + i / n_qt, query tile i % n_qt
   auto issue = [&](int step, int buf) {
@@ -272,6 +327,21 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float s[NB][4], dp[NB][4];
 
   for (int step = 0; step < n_steps; ++step) {
+    // this step's bias values, bias[query][key] for the k . q^T fragments
+    // (query head kvh * group + step / n_qt, query rows from row0); loaded
+    // before the wait so they overlap it and the products
+    const int row0 = (step % n_qt) * DKV_QT;
+    float bv[NB][4];
+    if (BIAS) {
+      const float* bstep = bias + b * st.s[18] + (kvh * group + step / n_qt) * st.s[19];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qrow = min(row0 + n * 8 + t * 2 + (j & 1), Lq - 1);
+          bv[n][j] = __ldg(bstep + qrow * st.s[20] + key[j >> 1]);
+        }
+    }
     if (step + 1 < n_steps) {
       issue(step + 1, (step + 1) & 1);
       cp_async_commit();
@@ -285,7 +355,6 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* dot = dos + buf * QTILE;
     const float* lt = lses + buf * DKV_QT;
     const float* dt = dels + buf * DKV_QT;
-    const int row0 = (step % n_qt) * DKV_QT;
 
     // s^T (this warp's 16 keys x DKV_QT queries) -> p^T
     mma_abt<D, NB>(s, kw, qt, lane);
@@ -294,7 +363,8 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = n * 8 + t * 2 + (j & 1);  // query within the tile
-        s[n][j] = row0 + c < Lq ? expf(s[n][j] * scale - lt[c]) : 0.f;  // :769
+        const float sc = scaled<BIAS>(s[n][j], scale, bv[n][j]);
+        s[n][j] = row0 + c < Lq ? expf(sc - lt[c]) : 0.f;  // :769
       }
     mma_pb<D, NB>(acc_dv, s, dot, lane);  // dv += p^T . dO
     mma_abt<D, NB>(dp, vw, dot, lane);    // dp^T = v . dO^T
@@ -333,50 +403,89 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 Strides copy_strides(const long long* strides, int n) {
   Strides st;
-  for (int i = 0; i < 18; ++i) st.s[i] = i < n ? strides[i] : 0;
+  for (int i = 0; i < 21; ++i) st.s[i] = i < n ? strides[i] : 0;
   return st;
 }
 
-template <int D>
+template <int D, bool BIAS>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* delta, void* dq, void* lse,
-                      int B, int H, int KVH, int Lq, int Lk,
+                      const void* dout, const void* delta, const void* bias,
+                      void* dq, void* lse, int B, int H, int KVH, int Lq, int Lk,
                       const long long* strides, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)6 * BLOCK * (D + 8) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dq_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + BLOCK - 1) / BLOCK, H, B);
-  attn_bwd_dq_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+  attn_bwd_dq_kernel<D, BIAS><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq),
-      static_cast<float*>(lse), H / KVH, H, Lq, Lk, copy_strides(strides, 15), scale);
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<bf16*>(dq), static_cast<float*>(lse), H / KVH, H, Lq, Lk,
+      copy_strides(strides, BIAS ? 18 : 15), scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BIAS>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int H, int KVH, int Lq, int Lk,
-                       const long long* strides, float scale, cudaStream_t stream) {
+                       const void* bias, void* dk, void* dv, int B, int H,
+                       int KVH, int Lq, int Lk, const long long* strides,
+                       float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(2 * BLOCK + 4 * DKV_QT) * (D + 8) * sizeof(bf16) +
                       (size_t)4 * DKV_QT * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dkv_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lk + BLOCK - 1) / BLOCK, KVH, B);
-  attn_bwd_dkv_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+  attn_bwd_dkv_kernel<D, BIAS><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H / KVH, H, Lq, Lk,
-      copy_strides(strides, 18), scale);
+      static_cast<const float*>(bias), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H / KVH, H, Lq, Lk,
+      copy_strides(strides, BIAS ? 21 : 18), scale);
   return cudaGetLastError();
 }
 
 bool bad_shape(int B, int H, int KVH, int Lq, int Lk) {
   return B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1;
+}
+
+template <bool BIAS>
+int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
+                const void* delta, const void* bias, void* dq, void* lse, int B,
+                int H, int KVH, int Lq, int Lk, int D, const long long* strides,
+                float scale, void* stream) {
+  if (bad_shape(B, H, KVH, Lq, Lk) || (BIAS && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch_dq<128, BIAS>(q, k, v, dout, delta, bias, dq, lse, B, H,
+                                     KVH, Lq, Lk, strides, scale, s);
+  if (D == 64)
+    return (int)launch_dq<64, BIAS>(q, k, v, dout, delta, bias, dq, lse, B, H,
+                                    KVH, Lq, Lk, strides, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool BIAS>
+int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, const void* bias, void* dk,
+                 void* dv, int B, int H, int KVH, int Lq, int Lk, int D,
+                 const long long* strides, float scale, void* stream) {
+  if (bad_shape(B, H, KVH, Lq, Lk) || (BIAS && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch_dkv<128, BIAS>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                      B, H, KVH, Lq, Lk, strides, scale, s);
+  if (D == 64)
+    return (int)launch_dkv<64, BIAS>(q, k, v, dout, lse, delta, bias, dk, dv, B,
+                                     H, KVH, Lq, Lk, strides, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -392,15 +501,8 @@ extern "C" int mmada_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* delta, void* dq, void* lse, int B, int H, int KVH, int Lq,
     int Lk, int D, const long long* strides, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, Lq, Lk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch_dq<128>(q, k, v, dout, delta, dq, lse, B, H, KVH, Lq, Lk,
-                               strides, scale, s);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, dout, delta, dq, lse, B, H, KVH, Lq, Lk,
-                              strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dq<false>(q, k, v, dout, delta, nullptr, dq, lse, B, H, KVH,
+                            Lq, Lk, D, strides, scale, stream);
 }
 
 // dk, dv (B, KVH, Lk, D) bf16; strides = [q, k, v, dO, dk, dv] x 3.
@@ -409,13 +511,30 @@ extern "C" int mmada_flash_attention_bwd_dkv_bf16(
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
     int KVH, int Lq, int Lk, int D, const long long* strides, float scale,
     void* stream) {
-  if (bad_shape(B, H, KVH, Lq, Lk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq,
-                                Lk, strides, scale, s);
-  if (D == 64)
-    return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Lq,
-                               Lk, strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dkv<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
+                             KVH, Lq, Lk, D, strides, scale, stream);
+}
+
+// The biased entries take the fp32 bias (B|1, H|1, Lq, Lk), last dim
+// contiguous, after delta (dq) or lse and delta (dkv), and its element
+// strides (batch, head, row; 0 on a broadcast axis) after the others.
+
+// dq-bias: strides = [q, k, v, dO, dq, bias] x 3.
+extern "C" int mmada_flash_attention_bwd_dq_bias_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* delta, const void* bias, void* dq, void* lse, int B, int H,
+    int KVH, int Lq, int Lk, int D, const long long* strides, float scale,
+    void* stream) {
+  return dispatch_dq<true>(q, k, v, dout, delta, bias, dq, lse, B, H, KVH, Lq,
+                           Lk, D, strides, scale, stream);
+}
+
+// dkv-bias: strides = [q, k, v, dO, dk, dv, bias] x 3.
+extern "C" int mmada_flash_attention_bwd_dkv_bias_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* bias, void* dk, void* dv,
+    int B, int H, int KVH, int Lq, int Lk, int D, const long long* strides,
+    float scale, void* stream) {
+  return dispatch_dkv<true>(q, k, v, dout, lse, delta, bias, dk, dv, B, H, KVH,
+                            Lq, Lk, D, strides, scale, stream);
 }

@@ -1,14 +1,34 @@
-// One-pass bidirectional attention with neox RoPE, for Hopper (sm_90a).
+// One-pass bidirectional attention with neox RoPE, for Hopper (sm_90a),
+// without a bias (kernel B1) and with one (kernel B2).
 //
-// Replaces the TPU kernel `flash_attention` -> `_attn_kernel` /
+// B1 replaces the TPU kernel `flash_attention` -> `_attn_kernel` /
 // `_attn_rope_kernel` in mmada_tpu/ops/flash_attention.py (:59-92, called at
-// :650). It computes, per (batch, head):
+// :650); B2 replaces `_attn_bias_kernel` / `_attn_rope_bias_kernel` (:148,
+// :172, called at :686). They compute, per (batch, head):
 //
 //   q, k  <- RoPE(q, k) in fp32 (rotate-half), cast back to bf16
-//   s     =  (q . k^T accumulated in fp32) * scale; key columns >= Lk get the
-//            finite fp32 min, so rows past the edge stay NaN-free
+//   s     =  (q . k^T accumulated in fp32) * scale  [+ bias, fp32, B2]
 //   p     =  exp(s - rowmax(s)) / rowsum(...)     in fp32, BEFORE the cast
 //   out   =  bf16( bf16(p) . v accumulated in fp32 )
+//
+// Key columns >= Lk take no part: their score is -inf, so p = 0 there. (The
+// TPU kernel pads K to the 128 tile and gives the padded columns the finite
+// fp32 min; on a row whose every real score is the finite min, as a query
+// row that a mask shuts out entirely, that averages v over the padded tile.
+// Here such a row averages v over its Lk real keys, which is what the XLA
+// tier computes. Rows with an allowed key get the same p either way.)
+//
+// The bias is (B|1, H|1, Lq, Lk) fp32 with its own element strides, 0 on a
+// broadcast axis; it is added as round(round(s * scale) + bias), with no
+// fused multiply-add, so a zero bias gives B1's output bit for bit. Each
+// thread reads the bias values of its accumulator fragments straight from
+// global memory (two rows, 2 columns of each 8-key slice), for a tile
+// before the wait for its K copy, so the loads overlap the barrier and the
+// products: the rows of a mask bias of odd Lk are not 16-byte aligned, which
+// rules out cp.async vectors without a padded copy, staging 64 x 64 fp32
+// tiles in shared memory would cost the second resident block per SM, and a
+// (B, 1, L, L) mask bias is read by all H heads of a batch row, so after the
+// first head it comes from L2.
 //
 // Normalising p before its bf16 cast is the point of the design: an online
 // softmax that divides at the end is another function in bf16 (about half the
@@ -36,6 +56,7 @@
 // keep it well short of that bound; wgmma and TMA are the next steps.
 
 #include <float.h>
+#include <math.h>
 
 #include "mma_sm90.cuh"
 
@@ -46,7 +67,8 @@ constexpr int BLOCK_K = 64;
 constexpr int NUM_WARPS = BLOCK_Q / 16;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int ROPE_THREADS = 256;
-constexpr float NEG_F32 = -FLT_MAX;  // finite min, as the TPU kernel's mask
+constexpr float NEG_F32 = -FLT_MAX;  // finite min: the running max's start
+constexpr float EDGE = -INFINITY;    // key columns past Lk: p = exp(-inf) = 0
 
 // RoPE of every row of x (B, H, L, D; element strides sb, sh, sl) into the
 // contiguous out (B, H, L, D): out = x * cos + rotate_half(x) * sin in fp32,
@@ -96,16 +118,36 @@ rope_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   *reinterpret_cast<uint4*>(dst + HALF) = hi;
 }
 
+// This thread's bias values for the tile of keys from k0, in the score
+// fragments' layout (bv[n][0..1] from row bias_a, bv[n][2..3] from bias_b);
+// 0 past Lk. Issued before the tile's copy is waited for, so the loads
+// overlap the barrier and the products.
+template <bool BIAS>
+__device__ __forceinline__ void load_bias(float bv[BLOCK_K / 8][4],
+                                          const float* bias_a,
+                                          const float* bias_b, int k0, int Lk,
+                                          int t) {
+  if (!BIAS) return;
+#pragma unroll
+  for (int n = 0; n < BLOCK_K / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + n * 8 + t * 2 + (j & 1);
+      bv[n][j] = col < Lk ? __ldg(((j & 2) ? bias_b : bias_a) + col) : 0.f;
+    }
+}
+
 // Scores of this warp's 16 query rows against the 64 keys in `ks`:
 // s[n][0..1] -> row g, keys n*8 + 2t + {0,1}; s[n][2..3] -> row g + 8.
-// Scaled, and masked past Lk. The d loop is outermost so that consecutive
-// products go to different accumulators; each accumulator still sums its d
-// slices in order.
-template <int D>
+// Scaled, plus the bias values bv (load_bias) with BIAS, and masked past Lk.
+// The d loop is outermost so that consecutive products go to different
+// accumulators; each accumulator still sums its d slices in order.
+template <int D, bool BIAS>
 __device__ __forceinline__ void tile_scores(float s[BLOCK_K / 8][4],
                                             const uint32_t qa[D / 16][4],
                                             const bf16* ks, int k0, int Lk,
-                                            float scale, int lane) {
+                                            float scale, int lane,
+                                            const float bv[BLOCK_K / 8][4]) {
   constexpr int STRIDE = D + 8;
   const int t = lane & 3;
 #pragma unroll
@@ -130,19 +172,24 @@ __device__ __forceinline__ void tile_scores(float s[BLOCK_K / 8][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = k0 + n * 8 + t * 2 + (j & 1);
-      s[n][j] = col < Lk ? s[n][j] * scale : NEG_F32;
+      if (BIAS)
+        s[n][j] = col < Lk ? __fadd_rn(__fmul_rn(s[n][j], scale), bv[n][j]) : EDGE;
+      else
+        s[n][j] = col < Lk ? s[n][j] * scale : EDGE;
     }
   }
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NUM_THREADS)
 attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int rep,
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                const float* __restrict__ bias, int rep,
                 int Lq, int Lk, long long q_sb, long long q_sh, long long q_sl,
                 long long k_sb, long long k_sh, long long k_sl,
                 long long v_sb, long long v_sh, long long v_sl,
-                long long o_sb, long long o_sh, long long o_sl, float scale) {
+                long long o_sb, long long o_sh, long long o_sl,
+                long long b_sb, long long b_sh, long long b_sl, float scale) {
   constexpr int STRIDE = D + 8;
   constexpr int TILE = BLOCK_K * STRIDE;  // elements of one K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -161,6 +208,16 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (Lk + BLOCK_K - 1) / BLOCK_K;
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  // this thread's two bias rows; rows past Lq (never stored) read row Lq - 1
+  const float* bias_a = nullptr;
+  const float* bias_b = nullptr;
+  if (BIAS) {
+    const float* bp = bias + b * b_sb + h * b_sh;
+    bias_a = bp + (long long)min(row_a, Lq - 1) * b_sl;
+    bias_b = bp + (long long)min(row_b, Lq - 1) * b_sl;
+  }
 
   load_rows_async<D, BLOCK_Q>(qs, qp, q_sl, q0, Lq);
   load_rows_async<D, BLOCK_K>(ks, kp, k_sl, 0, Lk);
@@ -190,7 +247,9 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // other one.
   float m[2] = {NEG_F32, NEG_F32};
   float l[2] = {0.f, 0.f};
+  float bv[BLOCK_K / 8][4];
   for (int tile = 0; tile < n_tiles; ++tile) {
+    load_bias<BIAS>(bv, bias_a, bias_b, tile * BLOCK_K, Lk, t);
     if (tile + 1 < n_tiles) {
       load_rows_async<D, BLOCK_K>(ks + ((tile + 1) & 1) * TILE, kp, k_sl,
                                   (tile + 1) * BLOCK_K, Lk);
@@ -200,7 +259,8 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();  // this tile's copy is visible to every warp
-    tile_scores<D>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk, scale, lane);
+    tile_scores<D, BIAS>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk,
+                         scale, lane, bv);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = NEG_F32;
@@ -232,6 +292,7 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows_async<D, BLOCK_K>(vs, vp, v_sl, 0, Lk);
   cp_async_commit();
   for (int tile = 0; tile < n_tiles; ++tile) {
+    load_bias<BIAS>(bv, bias_a, bias_b, tile * BLOCK_K, Lk, t);
     if (tile + 1 < n_tiles) {
       const int next = (tile + 1) & 1;
       load_rows_async<D, BLOCK_K>(ks + next * TILE, kp, k_sl, (tile + 1) * BLOCK_K, Lk);
@@ -242,7 +303,8 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    tile_scores<D>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk, scale, lane);
+    tile_scores<D, BIAS>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk,
+                         scale, lane, bv);
     const bf16* vt = vs + (tile & 1) * TILE;
 #pragma unroll
     for (int kb = 0; kb < BLOCK_K / 16; ++kb) {
@@ -268,8 +330,6 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int col = dn * 8 + t * 2;
@@ -295,13 +355,14 @@ cudaError_t rope(const void* x, void* out, const void* sin_t, const void* cos_t,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const void* rope_sin, const void* rope_cos, void* q_rot,
-                   void* k_rot, int B, int H, int KVH, int Lq, int Lk,
-                   const long long* strides, float scale, cudaStream_t stream) {
-  long long st[12];
-  for (int i = 0; i < 12; ++i) st[i] = strides[i];
+                   const void* bias, const void* rope_sin, const void* rope_cos,
+                   void* q_rot, void* k_rot, int B, int H, int KVH, int Lq,
+                   int Lk, const long long* strides, float scale,
+                   cudaStream_t stream) {
+  long long st[15] = {0};
+  for (int i = 0; i < (BIAS ? 15 : 12); ++i) st[i] = strides[i];
   if (rope_sin != nullptr) {
     cudaError_t err = rope<D>(q, q_rot, rope_sin, rope_cos, B, H, Lq, st, stream);
     if (err != cudaSuccess) return err;
@@ -314,43 +375,72 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   const size_t smem = (size_t)(BLOCK_Q + 4 * BLOCK_K) * (D + 8) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + BLOCK_Q - 1) / BLOCK_Q, H, B);
-  attn_fwd_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+  attn_fwd_kernel<D, BIAS><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H / KVH, Lq, Lk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<const float*>(bias), H / KVH, Lq, Lk, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+      st[13], st[14], scale);
   return cudaGetLastError();
+}
+
+bool bad_args(int B, int H, int KVH, int Lq, int Lk, const void* rope_sin,
+              const void* rope_cos, const void* q_rot, const void* k_rot) {
+  if (B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1) return true;
+  return (rope_sin == nullptr) != (rope_cos == nullptr) ||
+         (rope_sin != nullptr && (Lq != Lk || q_rot == nullptr || k_rot == nullptr));
+}
+
+template <bool BIAS>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             const void* bias, const void* rope_sin, const void* rope_cos,
+             void* q_rot, void* k_rot, int B, int H, int KVH, int Lq, int Lk,
+             int D, const long long* strides, float scale, void* stream) {
+  if (bad_args(B, H, KVH, Lq, Lk, rope_sin, rope_cos, q_rot, k_rot) ||
+      (BIAS && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128, BIAS>(q, k, v, o, bias, rope_sin, rope_cos, q_rot,
+                                  k_rot, B, H, KVH, Lq, Lk, strides, scale, s);
+  if (D == 64)
+    return (int)launch<64, BIAS>(q, k, v, o, bias, rope_sin, rope_cos, q_rot,
+                                 k_rot, B, H, KVH, Lq, Lk, strides, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. q (B, H, Lq, D), k and v (B, KVH, Lk, D), o
+// C entries, bound with ctypes. q (B, H, Lq, D), k and v (B, KVH, Lk, D), o
 // (B, H, Lq, D): bf16, last dim contiguous, element strides for (batch, head,
 // row) in `strides` = [q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
 // o_sb, o_sh, o_sl]. rope_sin / rope_cos: fp32 (L, D) contiguous, or both null
 // for no RoPE (RoPE needs Lq == Lk); with RoPE, q_rot (B*H*Lq*D) and k_rot
-// (B*KVH*Lk*D) are bf16 scratch for the rotated q and k. Returns a
+// (B*KVH*Lk*D) are bf16 scratch for the rotated q and k. Each returns a
 // cudaError_t; 0 is success.
+
+// Kernel B1: no bias.
 extern "C" int mmada_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o,
     const void* rope_sin, const void* rope_cos, void* q_rot, void* k_rot,
     int B, int H, int KVH, int Lq, int Lk, int D, const long long* strides,
     float scale, void* stream) {
-  if (B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1)
-    return (int)cudaErrorInvalidValue;
-  if ((rope_sin == nullptr) != (rope_cos == nullptr) ||
-      (rope_sin != nullptr && (Lq != Lk || q_rot == nullptr || k_rot == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch<128>(q, k, v, o, rope_sin, rope_cos, q_rot, k_rot, B, H,
-                            KVH, Lq, Lk, strides, scale, s);
-  if (D == 64)
-    return (int)launch<64>(q, k, v, o, rope_sin, rope_cos, q_rot, k_rot, B, H,
-                           KVH, Lq, Lk, strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, o, nullptr, rope_sin, rope_cos, q_rot, k_rot,
+                         B, H, KVH, Lq, Lk, D, strides, scale, stream);
+}
+
+// Kernel B2: plus the fp32 bias (B|1, H|1, Lq, Lk), last dim contiguous, its
+// element strides (batch, head, row) appended to `strides` (0 on a broadcast
+// axis).
+extern "C" int mmada_flash_attention_fwd_bias_bf16(
+    const void* q, const void* k, const void* v, void* o, const void* bias,
+    const void* rope_sin, const void* rope_cos, void* q_rot, void* k_rot,
+    int B, int H, int KVH, int Lq, int Lk, int D, const long long* strides,
+    float scale, void* stream) {
+  return dispatch<true>(q, k, v, o, bias, rope_sin, rope_cos, q_rot, k_rot, B,
+                        H, KVH, Lq, Lk, D, strides, scale, stream);
 }

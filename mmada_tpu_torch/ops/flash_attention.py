@@ -1,26 +1,42 @@
-"""One-pass bidirectional attention with RoPE: Hopper kernel + plain version.
+"""One-pass bidirectional attention with RoPE: Hopper kernels + plain versions.
 
 Counterpart of `flash_attention` in `mmada_tpu/ops/flash_attention.py`
-(:510-660, kernel bodies `_attn_kernel` / `_attn_rope_kernel` at :59-92).
-`flash_attention` launches the CUDA kernel in `csrc/flash_attention_fwd.cu`
-for a CUDA tensor, and raises for anything the kernel does not take; it never
-falls back. For a CPU tensor it computes `flash_attention_reference`, the
-plain PyTorch version of the same function, which the CPU tests hold against
-the JAX kernel and `chip_smoke.py` holds the kernel against on the card.
+(:510-697): without a bias (kernel bodies `_attn_kernel` / `_attn_rope_kernel`
+at :59-92, called at :650) and with one (`_attn_bias_kernel` /
+`_attn_rope_bias_kernel` at :148-178, called at :686). `flash_attention`
+launches the CUDA kernel in `csrc/flash_attention_fwd.cu` for a CUDA tensor
+(B1, or B2 with a bias), and raises for anything the kernel does not take; it
+never falls back. For a CPU tensor it computes `flash_attention_reference`,
+the plain PyTorch version of the same function, which the CPU tests hold
+against the JAX kernel and `chip_smoke.py` holds the kernel against on the
+card.
 
 The function: RoPE (neox rotate-half) on q and k in fp32, cast back to the
-input dtype; scores q.k^T in fp32 times 1/sqrt(D); softmax in fp32 with p
-normalised BEFORE its cast to the dtype of v; p.v accumulated in fp32; the
-output in the dtype of q. GQA maps query head h to kv head h // (H / KVH).
+input dtype; scores q.k^T in fp32 times 1/sqrt(D), plus the fp32 bias (B|1,
+H|1, Lq, Lk) if there is one; softmax in fp32 with p normalised BEFORE its
+cast to the dtype of v; p.v accumulated in fp32; the output in the dtype of
+q. GQA maps query head h to kv head h // (H / KVH). A bool bias marks the
+allowed pairs and becomes 0 / the finite fp32 min (`bias_as_float`).
+
+A query row whose every key is masked (the padding rows of a masked frame)
+has every score at the finite min: the kernels and the plain versions
+average v over its Lk keys, as the XLA tier does. The JAX Pallas tier pads K
+to the 128 tile and averages over the padded tile too, so it differs from
+both on those rows only; no caller reads them.
 
 The backward (`flash_attention_bwd`, counterpart of the JAX function of the
 same name, :808-1005) takes q and k already rotated, the saved output and its
 cotangent, and runs two kernels of `csrc/flash_attention_bwd.cu`:
-`attention_bwd_dq` (dq and the row logsumexp; `_attn_bwd_dq_kernel`) and
-`attention_bwd_dkv` (dk and dv summed over the query heads of each kv head;
-`_attn_bwd_dkv_kernel`). delta = rowsum(dO * O) is computed here in fp32, as
-the JAX wrapper does. Each has a plain version, `*_reference`, that the CPU
-takes and the card's checks hold the kernel against.
+`attention_bwd_dq` (dq and the row logsumexp; `_attn_bwd_dq_kernel` /
+`_attn_bwd_dq_bias_kernel`) and `attention_bwd_dkv` (dk and dv summed over
+the query heads of each kv head; `_attn_bwd_dkv_kernel` /
+`_attn_bwd_dkv_bias_kernel`). delta = rowsum(dO * O) is computed here in
+fp32, as the JAX wrapper does. Each has a plain version, `*_reference`, that
+the CPU takes and the card's checks hold the kernel against.
+
+Each wrapper counts its launches: `<wrapper>.launches` for the unbiased
+kernel, `<wrapper>.bias_launches` for the biased one. A launch runs under
+`torch.cuda.device(q.device)`, on that device's current stream.
 """
 
 from __future__ import annotations
@@ -33,8 +49,8 @@ import torch
 _KERNEL_SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _HEAD_DIMS = (64, 128)
-_fn = None
-_bwd_fns: dict = {}
+NEG_F32 = float(torch.finfo(torch.float32).min)
+_fns: dict = {}
 
 
 def _rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -45,16 +61,34 @@ def _rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor
     return (xf * cos.float() + rot * sin.float()).to(x.dtype)
 
 
+def bias_as_float(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """An additive fp32 bias: a bool bias (True = allowed) becomes 0 / the
+    finite fp32 min, as the JAX kernel wrapper converts it."""
+    if bias is None:
+        return None
+    if bias.dtype == torch.bool:
+        return torch.where(bias, 0.0, NEG_F32).float()
+    return bias.float()
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """fp32 q.k^T * scale (+ bias); k already repeated over the query heads."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / (q.shape[-1] ** 0.5))
+    return s if bias is None else s + bias_as_float(bias)
+
+
 def flash_attention_reference(
     q: torch.Tensor,                         # (B, H, Lq, D)
     k: torch.Tensor,                         # (B, KVH, Lk, D)
     v: torch.Tensor,                         # (B, KVH, Lk, D)
     rope_sin: Optional[torch.Tensor] = None,  # (L, D): rotate q and k
     rope_cos: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,     # (B|1, H|1, Lq, Lk) fp32 or bool
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (no padding needed: it works
-    on the exact lengths, which is what padding plus the finite-min column
-    mask computes)."""
+    """The kernels' function in plain PyTorch. It works on the exact
+    lengths, which is what padding plus the finite-min column mask computes
+    on every row with an allowed key; on a row whose every key is masked it
+    averages v over the Lk keys, as the XLA tier (`xla_attention`) does."""
     if rope_sin is not None:
         if q.shape[2] != k.shape[2]:
             raise ValueError("rope requires square attention (Lq == Lk)")
@@ -63,27 +97,28 @@ def flash_attention_reference(
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = _scores(q, k, bias)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)   # normalise before the cast
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
 
 
-def _kernel():
-    """The C entry of the built library, with its ctypes signature."""
-    global _fn
-    if _fn is None:
+def _entry(source: str, name: str, n_ptr: int):
+    """The C entry `name` of the library built from `csrc/<source>.cu`, with
+    its ctypes signature: `n_ptr` pointers, B, H, KVH, Lq, Lk, D, the
+    strides, the scale and the stream."""
+    fn = _fns.get(name)
+    if fn is None:
         from mmada_tpu_torch.ops import _build
 
-        fn = _build.load_library(_KERNEL_SOURCE).mmada_flash_attention_fwd_bf16
+        fn = getattr(_build.load_library(source), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -97,14 +132,35 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} rows must be 16-byte aligned: strides {t.stride()}")
 
 
-def _strides(*ts: torch.Tensor):
-    flat = [s for t in ts for s in t.stride()[:3]]
+def _bias_strides(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
+                  device: torch.device) -> list[int]:
+    """Element strides (batch, head, row) of the fp32 bias the kernels read,
+    0 on a broadcast axis."""
+    if bias.device != device:
+        raise ValueError(f"bias is on {bias.device}, q on {device}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"bias must be float32 for the CUDA kernel, got {bias.dtype}")
+    if (bias.dim() != 4 or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)
+            or tuple(bias.shape[2:]) != (lq, lk)):
+        raise ValueError(f"bias {tuple(bias.shape)} is not (B|1, H|1, Lq, Lk) for "
+                         f"B {b}, H {h}, Lq {lq}, Lk {lk}")
+    if lk > 1 and bias.stride(-1) != 1:
+        raise ValueError("bias must have a contiguous last dim")
+    return [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3)]
+
+
+def _strides(*ts: torch.Tensor, extra=()):
+    flat = [s for t in ts for s in t.stride()[:3]] + list(extra)
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _raise_on(err: int, what: str) -> None:
+def _launch(fn, device: torch.device, *args) -> None:
+    """Run the C entry `fn` with the stream of `device` appended, with
+    `device` the current CUDA device, and raise on a launch error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError {err}")
 
 
 def flash_attention(
@@ -113,14 +169,16 @@ def flash_attention(
     v: torch.Tensor,                         # (B, KVH, Lk, D)
     rope_sin: Optional[torch.Tensor] = None,  # (L, D) fp32: rotate q and k
     rope_cos: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,     # (B|1, H|1, Lq, Lk) fp32 or bool
 ) -> torch.Tensor:
     """Attention through the Hopper kernel (CUDA tensors) or its plain version
     (CPU tensors). Any length and alignment; rectangular Lq != Lk only
-    without RoPE. Counts its launches in `flash_attention.launches` (one per
-    call: with RoPE the C entry runs its rotation kernel and the attention
-    kernel together)."""
+    without RoPE. Counts its launches in `flash_attention.launches` (B1) or
+    `flash_attention.bias_launches` (B2, with a bias): one per call, since
+    with RoPE the C entry runs its rotation kernel and the attention kernel
+    together."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, rope_sin, rope_cos)
+        return flash_attention_reference(q, k, v, rope_sin, rope_cos, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -141,6 +199,8 @@ def flash_attention(
                     or tuple(t.shape) != (lq, d) or not t.is_contiguous()
                     or t.data_ptr() % 16):
                 raise ValueError(f"{name} must be contiguous fp32 ({lq}, {d}) on {q.device}")
+    bias = bias_as_float(bias)
+    bias_strides = () if bias is None else _bias_strides(bias, b, h, lq, lk, q.device)
 
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -148,21 +208,24 @@ def flash_attention(
     if rope_sin is not None:  # scratch for the rotated q and k
         q_rot = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
         k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        rope_sin.data_ptr() if rope_sin is not None else None,
-        rope_cos.data_ptr() if rope_cos is not None else None,
-        q_rot.data_ptr() if q_rot is not None else None,
-        k_rot.data_ptr() if k_rot is not None else None,
-        b, h, kvh, lq, lk, d, _strides(q, k, v, out), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, "flash_attention")
-    flash_attention.launches += 1
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if bias is not None:
+        ptrs.append(bias.data_ptr())
+    ptrs += [None if t is None else t.data_ptr() for t in (rope_sin, rope_cos, q_rot, k_rot)]
+    name = "mmada_flash_attention_fwd_bf16" if bias is None else \
+        "mmada_flash_attention_fwd_bias_bf16"
+    _launch(_entry(_KERNEL_SOURCE, name, len(ptrs)), q.device, *ptrs,
+            b, h, kvh, lq, lk, d, _strides(q, k, v, out, extra=bias_strides),
+            1.0 / (d ** 0.5))
+    if bias is None:
+        flash_attention.launches += 1
+    else:
+        flash_attention.bias_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.bias_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -182,20 +245,22 @@ def attention_bwd_dq_reference(
     v: torch.Tensor,      # (B, KVH, Lk, D)
     dout: torch.Tensor,   # (B, H, Lq, D)
     delta: torch.Tensor,  # (B, H, Lq) fp32
+    bias: Optional[torch.Tensor] = None,  # (B|1, H|1, Lq, Lk)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """dq (dtype of q) and the row logsumexp (fp32), in plain PyTorch: the
-    function of `_attn_bwd_dq_kernel` (fp32 throughout, p = e / l)."""
+    function of `_attn_bwd_dq_kernel` / `_attn_bwd_dq_bias_kernel` (fp32
+    throughout, p = e / l). On a row whose every key is masked, p = 1/Lk and
+    the lse is the finite fp32 min."""
     h = q.shape[1]
-    scale = 1.0 / (q.shape[-1] ** 0.5)
     kf = _heads_like_q(k, h)
-    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    s = _scores(q, kf, bias)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
     p = e / l
     dp = torch.matmul(dout.float(), _heads_like_q(v, h).transpose(-1, -2))
     ds = p * (dp - delta[..., None])
-    dq = torch.matmul(ds, kf) * scale
+    dq = torch.matmul(ds, kf) * (1.0 / (q.shape[-1] ** 0.5))
     return dq.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -203,14 +268,16 @@ def attention_bwd_dkv_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor,    # (B, H, Lq) fp32
     delta: torch.Tensor,  # (B, H, Lq) fp32
+    bias: Optional[torch.Tensor] = None,  # (B|1, H|1, Lq, Lk)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """dk and dv (dtype of k), in plain PyTorch: the function of
-    `_attn_bwd_dkv_kernel` (p = exp(s - lse)); under GQA each kv head sums
-    its query heads in fp32 before the cast."""
+    `_attn_bwd_dkv_kernel` / `_attn_bwd_dkv_bias_kernel` (p = exp(s - lse),
+    so p = 1 on each key of a row whose every key is masked); under GQA each
+    kv head sums its query heads in fp32 before the cast."""
     b, h, _, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     scale = 1.0 / (d ** 0.5)
-    s = torch.matmul(q.float(), _heads_like_q(k, h).transpose(-1, -2)) * scale
+    s = _scores(q, _heads_like_q(k, h), bias)
     p = torch.exp(s - lse[..., None])
     do = dout.float()
     dv = torch.matmul(p.transpose(-1, -2), do)
@@ -220,21 +287,6 @@ def attention_bwd_dkv_reference(
     dk = dk.view(b, kvh, h // kvh, lk, d).sum(dim=2)
     dv = dv.view(b, kvh, h // kvh, lk, d).sum(dim=2)
     return dk.to(k.dtype), dv.to(v.dtype)
-
-
-def _bwd_kernel(name: str):
-    fn = _bwd_fns.get(name)
-    if fn is None:
-        from mmada_tpu_torch.ops import _build
-
-        fn = getattr(_build.load_library(_BWD_SOURCE), f"mmada_flash_attention_bwd_{name}_bf16")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        n_ptr = 7 if name == "dq" else 8
-        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-        _bwd_fns[name] = fn
-    return fn
 
 
 def _check_bwd_shapes(q, k, v, dout, stats) -> tuple[int, int, int, int, int, int]:
@@ -255,53 +307,72 @@ def _check_bwd_shapes(q, k, v, dout, stats) -> tuple[int, int, int, int, int, in
     return b, h, kvh, lq, lk, d
 
 
-def attention_bwd_dq(q, k, v, dout, delta) -> tuple[torch.Tensor, torch.Tensor]:
+def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dq, lse) through the Hopper dq kernel (CUDA tensors) or its plain
-    version (CPU tensors). Counts launches in `attention_bwd_dq.launches`."""
+    version (CPU tensors). Counts launches in `attention_bwd_dq.launches`,
+    or `attention_bwd_dq.bias_launches` with a bias."""
     if q.device.type == "cpu":
-        return attention_bwd_dq_reference(q, k, v, dout, delta)
+        return attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq runs on cuda or cpu, not {q.device}")
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
+    bias = bias_as_float(bias)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    err = _bwd_kernel("dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), lse.data_ptr(), b, h, kvh, lq, lk, d,
-        _strides(q, k, v, dout, dq), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, "attention_bwd_dq")
-    attention_bwd_dq.launches += 1
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
+    if bias is None:
+        name, bias_strides = "mmada_flash_attention_bwd_dq_bf16", ()
+    else:
+        name = "mmada_flash_attention_bwd_dq_bias_bf16"
+        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
+        ptrs.append(bias.data_ptr())
+    ptrs += [dq.data_ptr(), lse.data_ptr()]
+    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            _strides(q, k, v, dout, dq, extra=bias_strides), 1.0 / (d ** 0.5))
+    if bias is None:
+        attention_bwd_dq.launches += 1
+    else:
+        attention_bwd_dq.bias_launches += 1
     return dq, lse
 
 
 attention_bwd_dq.launches = 0
+attention_bwd_dq.bias_launches = 0
 
 
-def attention_bwd_dkv(q, k, v, dout, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
+def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) through the Hopper dkv kernel (CUDA tensors) or its plain
-    version (CPU tensors). Counts launches in `attention_bwd_dkv.launches`."""
+    version (CPU tensors). Counts launches in `attention_bwd_dkv.launches`,
+    or `attention_bwd_dkv.bias_launches` with a bias."""
     if q.device.type == "cpu":
-        return attention_bwd_dkv_reference(q, k, v, dout, lse, delta)
+        return attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv runs on cuda or cpu, not {q.device}")
     b, h, kvh, lq, lk, d = _check_bwd_shapes(
         q, k, v, dout, [("lse", lse), ("delta", delta)])
+    bias = bias_as_float(bias)
     dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    err = _bwd_kernel("dkv")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, lq, lk, d,
-        _strides(q, k, v, dout, dk, dv), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, "attention_bwd_dkv")
-    attention_bwd_dkv.launches += 1
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()]
+    if bias is None:
+        name, bias_strides = "mmada_flash_attention_bwd_dkv_bf16", ()
+    else:
+        name = "mmada_flash_attention_bwd_dkv_bias_bf16"
+        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
+        ptrs.append(bias.data_ptr())
+    ptrs += [dk.data_ptr(), dv.data_ptr()]
+    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            _strides(q, k, v, dout, dk, dv, extra=bias_strides), 1.0 / (d ** 0.5))
+    if bias is None:
+        attention_bwd_dkv.launches += 1
+    else:
+        attention_bwd_dkv.bias_launches += 1
     return dk, dv
 
 
 attention_bwd_dkv.launches = 0
+attention_bwd_dkv.bias_launches = 0
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -315,18 +386,22 @@ def flash_attention_bwd(
     v: torch.Tensor,
     out: torch.Tensor,   # the forward's output
     dout: torch.Tensor,  # its cotangent
+    bias: Optional[torch.Tensor] = None,  # (B|1, H|1, Lq, Lk)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): delta, then the dq kernel (which also gives the row
-    logsumexp), then the dkv kernel; plain versions for CPU tensors."""
+    logsumexp), then the dkv kernel; plain versions for CPU tensors. No
+    gradient goes to the bias."""
+    bias = bias_as_float(bias)
     delta = attention_delta(out, dout)
-    dq, lse = attention_bwd_dq(q, k, v, dout, delta)
-    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta)
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, bias)
     return dq, dk, dv
 
 
-def flash_attention_bwd_reference(q, k, v, out, dout):
+def flash_attention_bwd_reference(q, k, v, out, dout, bias=None):
     """`flash_attention_bwd` through the plain versions, on any device."""
+    bias = bias_as_float(bias)
     delta = attention_delta(out, dout)
-    dq, lse = attention_bwd_dq_reference(q, k, v, dout, delta)
-    dk, dv = attention_bwd_dkv_reference(q, k, v, dout, lse, delta)
+    dq, lse = attention_bwd_dq_reference(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     return dq, dk, dv

@@ -9,9 +9,23 @@ chain it builds, in optax's order:
 
 State is one first and one second moment per parameter, in the
 parameter's dtype unless `mu_dtype` says otherwise (optax's default with
-`mu_dtype=None`), and an update count on the device. Each update's arithmetic
-is fp32. `apply` updates parameters and moments in place, one tensor (and one
-chunk of a large tensor) at a time, so its temporaries stay small: torch's
+`mu_dtype=None`), and an update count on the device.
+
+Each operation rounds as optax's does on the same leaves, so bf16 weights
+and moments come out bit for bit as optax's (tests/test_torch_training.py
+holds a bf16 and an fp32 case): every op runs in the dtype JAX's promotion
+gives it, a Python constant taking the dtype of the tensor it meets (JAX's
+weak types), and a bias correction `1 - b**count` computed in fp32 and cast
+to the moment's dtype before the division. The clip's global norm is
+optax's too: each leaf's sum of squares (squares in the leaf's dtype,
+summed in fp32, the sum rounded to the leaf's dtype), the leaves' sums added
+in order in their promoted dtype, then the square root; with bf16 leaves
+the norm the clip compares with `max_grad_norm` is a bf16 number. (Only the
+order of the fp32 summation inside a leaf differs from XLA's; it shows only
+where a sum lands within an ulp of a rounding boundary of the leaf's dtype.)
+
+`apply` updates parameters and moments in place, one tensor (and one chunk
+of a large tensor) at a time, so its temporaries stay small: torch's
 `foreach` AdamW would hold temporaries the size of all the moments at once.
 With a `gate` (a 0-d bool tensor on the device) every tensor takes its new
 value only where the gate is true and the count advances by the gate: a
@@ -55,15 +69,38 @@ def decay_mask(params: Named, no_decay_keys=NO_DECAY_KEYS) -> dict[str, bool]:
 
 
 def global_norm(tensors: Named) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in fp32, on the device."""
-    sq = [torch.linalg.vector_norm(t, dtype=torch.float32) ** 2 for t in tensors.values()]
-    return torch.stack(sq).sum().sqrt()
+    """`optax.global_norm` with its rounding, on the device: per leaf,
+    squares in the leaf's dtype summed in fp32 and rounded to that dtype;
+    the leaves' sums added in order (promoting as JAX does); the square root
+    in the result's dtype (bf16 for bf16 leaves)."""
+    total = None
+    for t in tensors.values():
+        part = sum((c * c).sum(dtype=torch.float32) for c in t.reshape(-1).split(CHUNK))
+        part = part.to(t.dtype)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def _keep(dst: torch.Tensor, new: torch.Tensor, gate: Optional[torch.Tensor]) -> None:
     """dst <- new, or dst <- where(gate, new, dst)."""
     new = new.to(dst.dtype)
     dst.copy_(new if gate is None else torch.where(gate, new, dst))
+
+
+class _Weak:
+    """Python constants as 0-d tensors of the dtype they meet, as JAX's weak
+    types round them (a bf16 op rounds 0.1 to bf16 first, where torch would
+    keep it in fp32)."""
+
+    def __init__(self, device: torch.device, **values: float):
+        self.device, self.values, self.cache = device, values, {}
+
+    def __call__(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        key = (name, like.dtype)
+        if key not in self.cache:
+            self.cache[key] = torch.tensor(self.values[name], dtype=like.dtype,
+                                           device=self.device)
+        return self.cache[key]
 
 
 @dataclasses.dataclass
@@ -94,33 +131,40 @@ class AdamW:
     @torch.no_grad()
     def apply(self, params: Named, grads: Named, state: dict,
               gate: Optional[torch.Tensor] = None) -> None:
-        """One update, in place (see the module docstring)."""
+        """One update, in place, rounding as optax does (see the module
+        docstring)."""
         count = state["count"]
+        device = count.device
         count_inc = (count + 1).to(torch.float32)
-        bc1 = 1.0 - torch.tensor(self.beta1, dtype=torch.float32, device=count.device) ** count_inc
-        bc2 = 1.0 - torch.tensor(self.beta2, dtype=torch.float32, device=count.device) ** count_inc
+        f32 = dict(dtype=torch.float32, device=device)
+        bc1 = 1.0 - torch.tensor(self.beta1, **f32) ** count_inc  # fp32, as optax
+        bc2 = 1.0 - torch.tensor(self.beta2, **f32) ** count_inc
         step_size = -1.0 * self._lr(count)
+        c = _Weak(device, one_minus_b1=1 - self.beta1, b1=self.beta1,
+                  one_minus_b2=1 - self.beta2, b2=self.beta2, eps=self.eps,
+                  wd=self.weight_decay, max_norm=self.max_grad_norm or 0.0)
         clip = None
         if self.max_grad_norm is not None:
             g_norm = global_norm(grads)
             clip = (g_norm < self.max_grad_norm, g_norm)
         decay = decay_mask(params, self.no_decay_keys)
-        b1, b2 = self.beta1, self.beta2
         for name, p in params.items():
             flat = [t.reshape(-1).split(CHUNK)
                     for t in (p, grads[name], state["mu"][name], state["nu"][name])]
-            for pc, gc, mc, vc in zip(*flat):
-                g = gc.float()
-                if clip is not None:
+            for pc, g, mc, vc in zip(*flat):
+                if clip is not None:  # clip_by_global_norm
                     trigger, g_norm = clip
-                    g = torch.where(trigger, g, (g / g_norm) * self.max_grad_norm)
-                mu = (1 - b1) * g + b1 * mc.float()
-                nu = (1 - b2) * (g * g) + b2 * vc.float()
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-                pf = pc.float()
-                if decay[name]:
-                    u = u + self.weight_decay * pf
-                _keep(pc, pf + step_size * u, gate)
+                    g = torch.where(trigger, g, (g / g_norm.to(g.dtype)) * c("max_norm", g))
+                # scale_by_adam: moments, bias corrections, the update
+                mu = c("one_minus_b1", g) * g + c("b1", mc) * mc
+                nu = c("one_minus_b2", g) * (g * g) + c("b2", vc) * vc
+                mu_hat = mu / bc1.to(mu.dtype)
+                nu_hat = nu / bc2.to(nu.dtype)
+                u = mu_hat / (torch.sqrt(nu_hat) + c("eps", nu_hat))
+                if decay[name]:  # add_decayed_weights (masked)
+                    u = u + c("wd", pc) * pc
+                u = step_size.to(u.dtype) * u  # scale_by_learning_rate
+                _keep(pc, pc + u, gate)        # apply_updates
                 _keep(mc, mu, gate)
                 _keep(vc, nu, gate)
         count.add_(1 if gate is None else gate.to(count.dtype))

@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the Hopper kernels against their
-plain versions, their refusals, gradients through attention, and the served
-and trained paths through the kernels.
+"""Tests of the port that need the card: the Hopper kernels (unbiased and
+biased) against their plain versions, their refusals, gradients through
+attention, the served and trained paths through the kernels (with masks
+too), the bf16-only model on the card, and the launches' device.
 
 They skip without a CUDA device (the kernel has no CPU mode). This file
 imports neither jax nor the JAX package, so it also runs beside the card,
@@ -12,7 +13,9 @@ where jax is not installed:
 import pytest
 import torch
 
-from mmada_tpu_torch.core.precision import BF16
+import dataclasses
+
+from mmada_tpu_torch.core.precision import BF16, FP32
 from mmada_tpu_torch.core.vocab import tiny_layout
 from mmada_tpu_torch.entry import serve_t2i, serve_text, train
 from mmada_tpu_torch.models import llada
@@ -25,6 +28,7 @@ from mmada_tpu_torch.ops.flash_attention import (
     attention_bwd_dq_reference,
     attention_delta,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_reference,
 )
 from mmada_tpu_torch.prompting.universal import SpecialIds
@@ -93,12 +97,19 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     sin, cos = llada.rope_sin_cos(64, 128, 500000.0, device=cuda_device)
     with pytest.raises(ValueError):
         flash_attention(q, k[:, :, :32], v[:, :, :32], rope_sin=sin, rope_cos=cos)
-    with pytest.raises(NotImplementedError):
-        bidirectional_attention(q, k, v, bias=torch.zeros(1, 1, 64, 64, device=cuda_device))
+    before_bias = flash_attention.bias_launches
+    with pytest.raises(ValueError):   # a bias of the wrong shape
+        flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 32, device=cuda_device))
+    with pytest.raises(ValueError):   # a bias on another device
+        flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 64))
     long_q = torch.zeros(1, 1, 4097, 128, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="B4"):
         bidirectional_attention(long_q, long_q, long_q)
+    with pytest.raises(NotImplementedError, match="B4"):
+        bidirectional_attention(long_q, long_q, long_q,
+                                bias=torch.zeros(1, 1, 4097, 4097, device=cuda_device))
     assert flash_attention.launches == before
+    assert flash_attention.bias_launches == before_bias
 
 
 def test_served_requests_go_through_the_kernel(cuda_device):
@@ -239,7 +250,7 @@ def test_backward_past_the_one_pass_range_names_b5(cuda_device):
     than recompute through plain PyTorch."""
     x = torch.zeros(1, 1, 4097, 128, dtype=torch.bfloat16, device=cuda_device,
                     requires_grad=True)
-    out = KernelAttention.apply(x, x, x, None, None)
+    out = KernelAttention.apply(x, x, x, None, None, None)
     before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
     with pytest.raises(NotImplementedError, match="B5"):
         out.sum().backward()
@@ -279,3 +290,252 @@ def test_train_steps_go_through_the_kernels(cuda_device):
     for h in trainer.history:
         assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
     assert not torch.equal(model.params["blocks"]["q_proj"], before)
+
+
+# ------------------------------------------------------------------ biased
+
+def _mask_bias(device, b, l, n_pad, seed=0):
+    """The (B, 1, L, L) fp32 bias a (B, L) keep-mask gives: each row's first
+    n_pad + row positions padded (masked out), as a padded prompt frame. The
+    padded query rows have no allowed key."""
+    mask = torch.ones(b, l, dtype=torch.long, device=device)
+    for row in range(b):
+        mask[row, :n_pad + row] = 0
+    return llada.prepare_attention_bias(mask), mask
+
+
+def _bias(device, kind, b, h, lq, lk, seed=7):
+    g = torch.Generator(device).manual_seed(seed)
+    if kind == "mask":
+        return _mask_bias(device, b, lq, 5)[0]
+    shape = {"head": (b, h, lq, lk), "batch": (b, 1, lq, lk), "one": (1, 1, lq, lk),
+             "head-only": (1, h, lq, lk)}[kind]
+    return torch.randn(shape, generator=g, device=device) * 2.0
+
+
+@pytest.mark.parametrize("kind,b,h,kvh,lq,lk,rope,d", [
+    ("mask", 2, 4, 4, 1155, 1155, True, 128),     # a padded t2i frame, rows fully masked
+    ("head", 1, 4, 4, 333, 333, True, 128),       # per-head float bias, unaligned
+    ("batch", 2, 8, 2, 200, 200, True, 64),       # GQA, head_dim 64
+    ("one", 2, 4, 4, 100, 333, False, 128),       # rectangular, one bias for all
+    ("head-only", 2, 4, 4, 70, 70, True, 128),    # broadcast over the batch only
+])
+def test_biased_kernel_matches_plain_version(cuda_device, kind, b, h, kvh, lq, lk, rope, d):
+    q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, d)
+    bias = _bias(cuda_device, kind, b, h, lq, lk)
+    sin = cos = None
+    if rope:
+        sin, cos = llada.rope_sin_cos(lq, d, 500000.0, device=cuda_device)
+    before = (flash_attention.launches, flash_attention.bias_launches)
+    got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    assert (flash_attention.launches, flash_attention.bias_launches) == (
+        before[0], before[1] + 1)
+    want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_bool_bias_equals_its_float_form(cuda_device):
+    q, k, v = _qkv(cuda_device, 2, 4, 4, 150, 150, 128)
+    allowed = torch.rand(2, 1, 150, 150, device=cuda_device) < 0.7
+    from_bool = flash_attention(q, k, v, bias=allowed)
+    as_float = torch.where(allowed, 0.0, torch.finfo(torch.float32).min)
+    torch.testing.assert_close(from_bool, flash_attention(q, k, v, bias=as_float),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_zero_bias_gives_b1_bit_for_bit(cuda_device, rope):
+    """Adding 0.0f to a score is exact, so B2 with a zero bias is B1."""
+    q, k, v = _qkv(cuda_device, 2, 4, 2, 1155, 1155, 128)
+    sin = cos = None
+    if rope:
+        sin, cos = llada.rope_sin_cos(1155, 128, 500000.0, device=cuda_device)
+    zero = torch.zeros(2, 1, 1155, 1155, device=cuda_device)
+    got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero)
+    want = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_biased_kernels_take_strided_views(cuda_device):
+    """Head views of (B, L, H*D) projections and a bias that is an expanded
+    view (0 strides) give what contiguous copies give."""
+    b, l, h, d = 2, 300, 4, 128
+    g = torch.Generator(cuda_device).manual_seed(1)
+    fused = torch.randn(b, l, 3 * h * d, generator=g, device=cuda_device).bfloat16()
+    q, k, v = (t.view(b, l, h, d).transpose(1, 2) for t in fused.split(h * d, dim=-1))
+    row = torch.randn(1, 1, l, l, generator=g, device=cuda_device)
+    view = row.expand(b, h, l, l)
+    got = flash_attention(q, k, v, bias=view)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias=row)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    dout = torch.randn(b, l, h * d, generator=g, device=cuda_device).bfloat16()
+    dout = dout.view(b, l, h, d).transpose(1, 2)
+    got = flash_attention_bwd(q, k, v, want, dout, bias=view)
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), want,
+                               dout.contiguous(), bias=row)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kind,b,h,kvh,lq,lk,d", [
+    ("mask", 3, 4, 4, 387, 387, 128),   # the stage-1 frame with padded t2i rows
+    ("head", 1, 4, 4, 333, 333, 128),
+    ("batch", 1, 8, 2, 200, 200, 64),   # GQA, head_dim 64
+    ("one", 2, 4, 4, 100, 333, 128),    # rectangular
+    ("mask", 1, 4, 1, 1155, 1155, 128), # GQA 4:1 at the t2i frame
+])
+def test_biased_backward_kernels_match_plain_versions(cuda_device, kind, b, h, kvh, lq, lk, d):
+    """dq-bias and dkv-bias against their plain versions. Rows whose every key
+    is masked get a zero cotangent, as in the model: no real row attends to a
+    pad key (p = 0 exactly) and no loss reads a pad row."""
+    q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, d)
+    bias = _bias(cuda_device, kind, b, h, lq, lk)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    out = flash_attention(q, k, v, bias=bias)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    if kind == "mask":
+        live = (bias > torch.finfo(torch.float32).min).any(-1, keepdim=True)
+        dout = dout * live
+    delta = attention_delta(out, dout)
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches,
+              attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches)
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches,
+            attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+    want_dq, want_lse = attention_bwd_dq_reference(q, k, v, dout, delta, bias)
+    want_dk, want_dv = attention_bwd_dkv_reference(q, k, v, dout, want_lse, delta, bias)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert_grad_close(got, want)
+
+
+def test_biased_backward_is_finite_on_fully_masked_rows(cuda_device):
+    """With a nonzero cotangent on the rows that have no allowed key, dq, dk
+    and dv stay finite (dkv's p is 1 on such a row: its lse is the finite
+    min)."""
+    q, k, v = _qkv(cuda_device, 2, 4, 4, 387, 387, 128)
+    bias, mask = _mask_bias(cuda_device, 2, 387, 40)
+    g = torch.Generator(cuda_device).manual_seed(6)
+    out = flash_attention(q, k, v, bias=bias)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, bias=bias)
+    for t in (out, dq, dk, dv):
+        assert torch.isfinite(t).all()
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_biased_attention_is_differentiable_on_cuda(cuda_device, rope):
+    """`bidirectional_attention` with a mask bias on the card: gradients
+    through B2 and B3-bias equal the CPU path's (the plain versions), pad rows
+    with a zero cotangent, and no gradient reaches the bias."""
+    b, h, l, d = 2, 4, 300, 128
+    q, k, v = _qkv(cuda_device, b, h, 2, l, l, d)
+    bias, mask = _mask_bias(cuda_device, b, l, 30)
+    sin = cos = None
+    if rope:
+        sin, cos = llada.rope_sin_cos(l, d, 500000.0, device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    dout = torch.randn(b, h, l, d, generator=g, device=cuda_device).bfloat16()
+    dout = dout * mask[:, None, :, None].bfloat16()
+
+    def grads(device):
+        ins = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        bias_in = bias.to(device).requires_grad_()
+        tables = [None if t is None else t.to(device) for t in (sin, cos)]
+        out = bidirectional_attention(*ins, bias=bias_in, rope_sin=tables[0],
+                                      rope_cos=tables[1])
+        *gs, gb = torch.autograd.grad(out, ins + [bias_in], dout.to(device),
+                                      allow_unused=True)
+        assert gb is None
+        return gs
+
+    before = (attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches)
+    got = grads(cuda_device)
+    assert (attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b_ in zip(got, grads("cpu")):
+        assert_grad_close(a.cpu(), b_)
+
+
+def _tiny_special():
+    vocab = tiny_layout()
+    t = vocab.text_vocab_size
+    return vocab, SpecialIds(soi=t - 20, eoi=t - 19, t2i=t - 18, mmu=t - 17, r2i=t - 16,
+                             t2m=t - 15, som=t - 14, eom=t - 13, pad=vocab.pad_token_id,
+                             bos=vocab.bos_token_id, eos=vocab.eos_token_id)
+
+
+def test_masked_paths_go_through_the_biased_kernels(cuda_device):
+    """A 2-layer bf16 model with attention masks on: t2i serving runs B2
+    once per layer per step and no B1; a train step with t2i_masks runs B2
+    twice per layer (forward + recompute) and dq-bias / dkv-bias once per
+    layer, and none of the unbiased kernels."""
+    import numpy as np
+
+    vocab, sp = _tiny_special()
+    cfg = dataclasses.replace(
+        llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2),
+        attention_bias_enabled=True)
+    model = MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0),
+                            policy=BF16, remat="full")
+    kernels = (flash_attention, attention_bwd_dq, attention_bwd_dkv)
+
+    def counts():
+        return tuple(getattr(f, a) for f in kernels for a in ("launches", "bias_launches"))
+
+    c0 = counts()
+    codes = serve_t2i(model, ["a cat", "a much longer dog"], special_ids=sp, num_vq_tokens=16,
+                      max_text_len=8, timesteps=4, guidance_scale=2.0)
+    n = cfg.n_layers
+    assert tuple(c - b for c, b in zip(counts(), c0)) == (0, 4 * n, 0, 0, 0, 0)
+    assert codes.shape == (2, 16)
+    rng = np.random.default_rng(0)
+    flows = {"t2i_flow": {"input_ids": ["a cat", "a dog with a long caption"],
+                          "image_codes": rng.integers(0, 64, (2, 100))},
+             "lm_flow": {"input_ids": ["hello there", "general"]},
+             "mmu_flow": {"input_ids": ["what?", "who?"], "image_codes": rng.integers(0, 64, (2, 100))}}
+    c0 = counts()
+    trainer = train(model, [flows], steps=1, special_ids=sp, max_text_len=16,
+                    training=dict(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2,
+                                  loss_chunk=64),
+                    lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
+    assert tuple(c - b for c, b in zip(counts(), c0)) == (0, 2 * n, 0, n, 0, n)
+    h = trainer.history[0]
+    assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
+
+
+def test_model_on_the_card_refuses_a_non_bf16_policy(cuda_device):
+    """ROADMAP C.2: the kernels take bf16 only, so an FP32 model on the card
+    is refused when it is built, not deep inside the kernel wrapper."""
+    vocab = tiny_layout()
+    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=128, n_heads=2)
+    with pytest.raises(ValueError, match="BF16"):
+        MMadaModel.init(cfg, vocab, device=cuda_device)
+    params = llada.init_params(cfg, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="BF16"):
+        MMadaModel(cfg=cfg, params=params, vocab=vocab, policy=FP32)
+    model = MMadaModel(cfg=cfg, params=params, vocab=vocab, policy=BF16)
+    with pytest.raises(ValueError, match="BF16"):
+        dataclasses.replace(model, policy=FP32)
+
+
+def test_launches_run_on_the_tensors_device(cuda_device):
+    """Each launch runs with q's device current and restores the caller's
+    current device afterwards; a launch on cuda:0 is counted."""
+    dev0 = torch.device("cuda", 0)
+    q, k, v = _qkv(dev0, 1, 2, 2, 64, 64, 128)
+    bias = torch.zeros(1, 1, 64, 64, device=dev0)
+    current = torch.cuda.current_device()
+    before = (flash_attention.launches, flash_attention.bias_launches,
+              attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches)
+    out = flash_attention(q, k, v)
+    out_b = flash_attention(q, k, v, bias=bias)
+    flash_attention_bwd(q, k, v, out_b, out_b, bias=bias)
+    assert torch.cuda.current_device() == current
+    assert (flash_attention.launches, flash_attention.bias_launches,
+            attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    torch.testing.assert_close(out, out_b, atol=0, rtol=0)

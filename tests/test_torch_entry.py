@@ -2,7 +2,8 @@
 
 * `serve_text` / `serve_t2i` on the CPU answer requests token-exactly as the
   JAX package does on the same weights and frames (the serving slice as a
-  whole); `train` takes train steps on the CPU when asked to.
+  whole), `serve_t2i` with attention masks on too; `train` takes train steps
+  on the CPU when asked to, masked or not.
 * `mmada_tpu_torch` and `chip_smoke.py` import neither jax, the JAX package,
   yaml nor PIL (none of them is installed beside the card), and a train step
   runs without them.
@@ -57,6 +58,17 @@ def models():
     return jmodel, MMadaModel(cfg=cfg, params=params, vocab=tiny_layout())
 
 
+@pytest.fixture(scope="module")
+def masked_models(models):
+    """The same weights with `attention_bias_enabled=True`: the frames'
+    attention masks reach attention as a bias."""
+    jmodel, model = models
+    return (dataclasses.replace(jmodel, cfg=dataclasses.replace(jmodel.cfg,
+                                                                attention_bias_enabled=True)),
+            dataclasses.replace(model, cfg=dataclasses.replace(model.cfg,
+                                                               attention_bias_enabled=True)))
+
+
 PROMPTS = ["hello", "world", "a longer prompt"]
 
 
@@ -92,7 +104,16 @@ def test_serve_text_batches_by_length(models, monkeypatch):
 def test_serve_t2i_matches_jax(models):
     """Three t2i requests, greedy with CFG: codes equal the JAX model's on
     the frames the JAX prompting builds."""
-    jmodel, model = models
+    _serve_t2i_against_jax(*models)
+
+
+def test_serve_t2i_masked_matches_jax(masked_models):
+    """As above with `attention_bias_enabled=True`: the padded prompts and
+    the uncond frames attend through the mask bias, in both packages."""
+    _serve_t2i_against_jax(*masked_models)
+
+
+def _serve_t2i_against_jax(jmodel, model):
     n, max_text_len = 16, 12
     kw = dict(temperature=0.0, timesteps=6, guidance_scale=2.0, num_vq_tokens=n)
     codes = serve_t2i(model, PROMPTS, special_ids=_tiny_special(model.vocab, SpecialIds),
@@ -172,6 +193,36 @@ def test_train_entry_on_cpu(models):
     assert not torch.equal(model.params["blocks"]["q_proj"], before)
 
 
+def test_masked_t2i_and_train_entry_on_cpu(masked_models):
+    """`serve_t2i` and `train` on a model with `attention_bias_enabled=True`
+    need no new argument: the frames' masks (padded prompts, t2i_masks) go
+    through the biased attention, answers are in range and the train steps
+    finite, and the masks change what the model computes."""
+    _, served = masked_models
+    params = {k: ({n: t.clone() for n, t in v.items()} if k == "blocks" else v.clone())
+              for k, v in served.params.items()}
+    model = MMadaModel(cfg=served.cfg, params=params, vocab=served.vocab, remat="full")
+    sp = _tiny_special(model.vocab, SpecialIds)
+    kw = dict(special_ids=sp, device="cpu", num_vq_tokens=16, max_text_len=12, timesteps=4,
+              guidance_scale=2.0, temperature=0.0, greedy=True)
+    codes = serve_t2i(model, PROMPTS, **kw)
+    assert codes.shape == (3, 16)
+    assert ((codes >= 0) & (codes < model.vocab.image_codebook_size)).all()
+    rng = np.random.default_rng(1)
+    flows = {"t2i_flow": {"input_ids": PROMPTS, "image_codes": rng.integers(0, 64, (3, 16))},
+             "lm_flow": {"input_ids": PROMPTS[:2]},
+             "mmu_flow": {"input_ids": PROMPTS, "image_codes": rng.integers(0, 64, (3, 16))}}
+    trainer = train(model, [flows], steps=2, device="cpu", special_ids=sp, max_text_len=12,
+                    training=dict(batch_size_t2i=3, batch_size_lm=2, batch_size_mmu=3,
+                                  loss_chunk=16, max_grad_norm=1.0),
+                    lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
+    batch = trainer.prepare_batch(flows)
+    assert (batch["t2i_masks"] == 0).any()   # the caption pads are masked out
+    for h in trainer.history:
+        assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
+    assert int(trainer.state.step) == 2
+
+
 def test_entry_points_never_fall_back_to_cpu(models, monkeypatch):
     """Without an explicit device the port wants the card; with no card it
     raises instead of running on the CPU."""
@@ -226,6 +277,23 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "ids = torch.randint(3, 200, (2, 10), generator=torch.Generator().manual_seed(1))\n"
         "state, m = train_step.make_train_step(model, opt, sc)(\n"
         "    state, {'lm_input_ids': ids, 'lm_labels': ids}, torch.Generator().manual_seed(2))\n"
+        "assert int(state.step) == 1 and torch.isfinite(m['loss'])\n"
+        "import dataclasses\n"
+        "mcfg = dataclasses.replace(cfg, attention_bias_enabled=True)\n"
+        "masked = MMadaModel.init(mcfg, vocab, device='cpu', remat=True,\n"
+        "                         generator=torch.Generator().manual_seed(0))\n"
+        "mask = torch.ones(2, 10, dtype=torch.long)\n"
+        "mask[0, :3] = 0\n"
+        "out = masked.forward(ids, attention_mask=mask)\n"
+        "assert torch.isfinite(out).all()\n"
+        "assert not torch.allclose(out[0], masked.forward(ids)[0])\n"
+        "sc = train_step.StepConfig(batch_size_t2i=2, batch_size_lm=0, batch_size_mmu=0,\n"
+        "                           max_seq_length=4, loss_chunk=4)\n"
+        "t2i = ids.clone()\n"
+        "t2i[:, 5:9] = vocab.image_offset + 3\n"
+        "state = train_step.TrainState.create(masked.params, opt)\n"
+        "state, m = train_step.make_train_step(masked, opt, sc)(\n"
+        "    state, {'t2i_input_ids': t2i, 't2i_masks': mask}, torch.Generator().manual_seed(3))\n"
         "assert int(state.step) == 1 and torch.isfinite(m['loss'])\n"
         "import chip_smoke\n"
         "print('ok')\n"

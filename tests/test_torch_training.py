@@ -87,6 +87,14 @@ def _port_model(models, remat=False) -> MMadaModel:
     return MMadaModel(cfg=cfg, params=params, vocab=VOCAB, remat=remat)
 
 
+def _masked(models):
+    """The same weights with `attention_bias_enabled=True` in both packages."""
+    jmodel, cfg = models
+    return (dataclasses.replace(jmodel, cfg=dataclasses.replace(jmodel.cfg,
+                                                                attention_bias_enabled=True)),
+            dataclasses.replace(cfg, attention_bias_enabled=True))
+
+
 def _toy_batch(seed=0, seq_lm=24, n_img=16):
     """Clean frames as the JAX training tests build them (numpy)."""
     rng = np.random.default_rng(seed)
@@ -295,6 +303,75 @@ def test_adamw_matches_optax():
     assert int(state["count"]) == 3
 
 
+def test_adamw_bf16_matches_optax_bit_for_bit():
+    """bf16 weights, gradients and moments (how the card trains the 8B): the
+    JAX package's own chain (clip 1.0 -> optax AdamW, lr 1e-4, wd 0.01) and
+    the port's AdamW, 5 steps on a 256 x 256 weight and a no-decay vector,
+    the clip triggered on some steps and not on others. optax computes every
+    op in the leaf's dtype; the port rounds the same way, so weights, mu and
+    nu agree bit for bit."""
+    rng = np.random.default_rng(11)
+    bf16 = dict(device="cpu", dtype=torch.bfloat16)
+    jparams = {"blocks": {"q_proj": rng.normal(size=(1, 256, 256)).astype(np.float32)},
+               "ln_f": rng.normal(size=(256,)).astype(np.float32)}
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jparams)
+    jopt = jax_optimizers.adamw(1e-4, max_grad_norm=1.0, weight_decay=0.01,
+                                params_for_mask=jp)
+    jstate = jopt.init(jp)
+    params = named_from_jax(jax.device_get(jp), **bf16)
+    assert all(t.dtype == torch.bfloat16 for t in params.values())
+    opt = optimizers.AdamW(1e-4, max_grad_norm=1.0, weight_decay=0.01)
+    state = opt.init(params)
+    for scale in (1.0, 0.3, 2.0, 1e-3, 1.0):   # global norm 1e-3 x 256: no clip
+        jg = jax.tree.map(
+            lambda a: jnp.asarray(rng.normal(size=a.shape) * scale, jnp.bfloat16), jparams)
+        updates, jstate = jopt.update(jg, jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.apply(params, named_from_jax(jax.device_get(jg), **bf16), state)
+        for name, want in named_from_jax(jax.device_get(jp), **bf16).items():
+            assert torch.equal(params[name], want), name
+    adam = jstate[1][0]
+    for ours, theirs in ((state["mu"], adam.mu), (state["nu"], adam.nu)):
+        for name, want in named_from_jax(jax.device_get(theirs), **bf16).items():
+            assert ours[name].dtype == torch.bfloat16 and torch.equal(ours[name], want), name
+
+
+def test_training_block_max_grad_norm_clips(models):
+    """The stage configs put `max_grad_norm` under `training:`
+    (configs/mmada_pretraining_stage1.yaml:63) and leave it out of
+    `optimizer.params`: the port's Trainer clips with it (the JAX Trainer
+    does not read it). A clip in `optimizer.params` takes precedence."""
+    optimizer = {"name": "adamw", "params": {"learning_rate": 1e-4, "beta1": 0.9,
+                                             "beta2": 0.999, "weight_decay": 0.01,
+                                             "epsilon": 1e-8}}
+    training = dict(batch_size_t2i=0, batch_size_lm=1, max_grad_norm=1)
+    prompting = UniversalPrompting(ByteTokenizer(), _special(VOCAB, SpecialIds), max_text_len=8)
+
+    def built(opt_cfg, tr):
+        return Trainer(_port_model(models), prompting, training=tr, optimizer=opt_cfg).optimizer
+
+    opt = built(optimizer, training)
+    assert opt.max_grad_norm == 1
+    assert built(optimizer, dict(training, max_grad_norm=None)).max_grad_norm is None
+    explicit = {"name": "adamw", "params": dict(optimizer["params"], max_grad_norm=0.5)}
+    assert built(explicit, training).max_grad_norm == 0.5
+    # and it clips: a gradient of norm 10 moves the weights as one of norm 1
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.normal(size=(8, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(8, 8)).astype(np.float32))
+    g = g * (10.0 / g.norm())
+    moved = {}
+    for tag, o, grad in (("clipped", opt, g), ("unit", optimizers.AdamW(1e-4, max_grad_norm=None), g / 10.0),
+                         ("raw", optimizers.AdamW(1e-4, max_grad_norm=None), g)):
+        params = {"layers.0.q_proj": w.clone()}
+        st = o.init(params)
+        for _ in range(2):
+            o.apply(params, {"layers.0.q_proj": grad}, st)
+        moved[tag] = (params["layers.0.q_proj"], st["nu"]["layers.0.q_proj"])
+    torch.testing.assert_close(moved["clipped"], moved["unit"], rtol=1e-6, atol=1e-9)
+    assert not torch.allclose(moved["clipped"][1], moved["raw"][1])
+
+
 # -------------------------------------------------------------- train step
 
 def _step_pair(models, key_seed=1, every_k=1, log_norms=False):
@@ -334,6 +411,30 @@ def test_train_step_matches_jax(models):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, err_msg=k)
     assert float(m["skipped_nonfinite"]) == 0.0 and int(state.step) == int(jstate.step) == 1
     _assert_params_close(state, jstate)
+
+
+def test_masked_train_step_matches_jax(models):
+    """`attention_bias_enabled=True` with t2i_masks that pad the captions of
+    the t2i rows (3 and 5 positions): one step against JAX's
+    `make_train_step` on the same corrupted batch, loss, parts and gradient
+    norm within 1e-5 and every weight after the update within 1e-5. The pad
+    rows get a zero cotangent in both (no loss reads them)."""
+    (jstep, jstate), (step, state) = _step_pair(_masked(models))
+    batch = _toy_batch(2)
+    batch["t2i_masks"][0, :3] = 0
+    batch["t2i_masks"][1, :5] = 0
+    key = jax.random.key(7)
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    prepared = _jax_corrupted(models[0], batch, key)
+    assert (prepared["t2i_masks"] == 0).sum() == 8
+    state, m = step.apply(state, prepared)
+    for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    _assert_params_close(state, jstate)
+    # the masks reach attention: the unmasked step computes another loss
+    (_, _), (step0, state0) = _step_pair(models)
+    _, m0 = step0.apply(state0, prepared)
+    assert abs(float(m0["loss_t2i"]) - float(m["loss_t2i"])) > 1e-4
 
 
 def test_train_step_remat_equals_no_remat(models):
