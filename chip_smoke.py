@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
-holds each kernel (B1, B2 with a bias, dq and dkv without and with a bias)
-against its plain PyTorch version at the shapes the serving and training
-paths give it, runs and trains a small model through the kernels against the
-fp32 CPU path (without and with attention masks), builds the full-width 8B
-(random weights, made on the card from a seed), answers text and t2i
-requests through the port's entry points, takes stage-1 train steps of the
-same 8B through `entry.train`, then turns attention masks on
-(`attention_bias_enabled=True`, the same weights) and answers t2i requests
-and takes stage-1 train steps with `t2i_masks` again. It checks that the
-kernels really ran on each path (launch counters, set to 0 just before the
-path and read just after: the unbiased kernels on the unmasked paths only,
-the biased ones on the masked paths only). Each phase prints lines with the
-elapsed seconds; any failure ends the run with a non-zero exit. The last
-three lines are the kernels' JSON record, the card's name and power limit as
-nvidia-smi reports them, and `{"ok": true, "device": {...}}`.
+holds each kernel against its plain PyTorch version at the shapes the
+serving and training paths give it: the one-pass tier (B1, B2 with a bias,
+dq and dkv without and with a bias) and the long tier past 4096 tokens (B4,
+B5-dq and B5-dkv, without and with a bias, at 8,192 tokens, at 16,384, under
+GQA and rectangular), and the one-pass tier on an unaligned length past 4096.
+It runs and trains a small model through the kernels against the fp32 CPU
+path (without and with attention masks), builds the full-width 8B (random
+weights, made on the card from a seed), answers text and t2i requests
+through the port's entry points, answers a text request whose frame is
+8,192 tokens, takes stage-1 train steps of the same 8B through
+`entry.train`, then train steps on 8,192-token frames, then turns attention
+masks on (`attention_bias_enabled=True`, the same weights) and answers t2i
+requests and takes stage-1 train steps with `t2i_masks` again, and one
+masked step on 8,192-token frames. It checks that the kernels really ran on
+each path (launch counters, set to 0 just before the path and read just
+after: on each path exactly the kernels of its tier, unbiased or biased).
+Each phase prints lines with the elapsed seconds; any failure ends the run
+with a non-zero exit. The last three lines are the kernels' JSON record, the
+card's name and power limit as nvidia-smi reports them, and
+`{"ok": true, "device": {...}}`.
 
 It writes nothing into the repository except the kernels' build directory
 (`mmada_tpu_torch/_kernels_build/`, gitignored).
@@ -83,6 +88,36 @@ TRAIN_IMAGE_TOKENS = 256
 # <|soi|> + image codes + <|eoi|>; the lm and mmu rows are padded to it
 TRAIN_FRAME = TRAIN_SETTINGS["max_text_len"] + 1 + TRAIN_IMAGE_TOKENS + 2
 TRAIN_ROWS = sum(TRAIN_SETTINGS["training"][f"batch_size_{k}"] for k in ("t2i", "lm", "mmu"))
+
+# past 4096 tokens (the long tier, B4 and B5): one text request whose frame
+# is 8,192 tokens (BOS + prompt + answer); train steps on 8,192-token frames,
+# one t2i row (caption padded to 7,933 + <|soi|> + 256 codes + <|eoi|>) and
+# one lm row, the stage-1 optimizer and schedule, full remat
+LONG_FRAME = 8192
+LONG_TEXT_SETTINGS = dict(gen_length=64, steps=8, block_length=64, temperature=0.0)
+LONG_PROMPT_BYTES = LONG_FRAME - 1 - LONG_TEXT_SETTINGS["gen_length"]
+LONG_TRAIN_STEPS = 2
+MASKED_LONG_TRAIN_STEPS = 1
+LONG_TRAIN_SETTINGS = dict(
+    TRAIN_SETTINGS, max_text_len=LONG_FRAME - 1 - TRAIN_IMAGE_TOKENS - 2,
+    training=dict(TRAIN_SETTINGS["training"], batch_size_t2i=1, batch_size_lm=1,
+                  batch_size_mmu=0))
+LONG_TRAIN_ROWS = 2
+# the two trained configurations: settings, (rows, frame) of a batch, and the
+# words of an lm row (the long one fills its frame with text)
+STAGE1 = dict(settings=TRAIN_SETTINGS, rows=TRAIN_ROWS, frame=TRAIN_FRAME, lm_words=60)
+LONG = dict(settings=LONG_TRAIN_SETTINGS, rows=LONG_TRAIN_ROWS, frame=LONG_FRAME,
+            lm_words=1650)
+# the long tier keeps p in fp32 and enters it into the tensor cores as two
+# bf16 halves (a relative error of at most 2^-18 per term against the plain
+# version's fp32 products). So each bf16 output is within one bf16 ulp of the
+# plain version's, plus 2^-14 absolute where cancellation leaves an entry
+# small (four times the 2^-18 x max|v| the split can add); gradients within
+# 1e-3 normwise and one bf16 ulp of their largest entry elementwise (2^-7 x
+# max|ref|); lse as the one-pass tier's
+LONG_ABS_FLOOR = 2.0 ** -14
+LONG_GRAD_REL_L2 = 1e-3
+LONG_GRAD_MAX_REL = 2.0 ** -7
 
 
 def log(phase: str, msg: str) -> None:
@@ -152,21 +187,21 @@ def t2i_mask_bias(cfg_batch: bool):
     return _mask_bias(masks)
 
 
-def train_mask_bias():
-    """The mask bias of one stage-1 batch: the t2i rows' t2i_masks as the
-    trainer's prompting builds them (captions padded), then the lm and mmu
-    rows, which attend everywhere."""
+def train_mask_bias(plan=STAGE1):
+    """The mask bias of one batch of `plan` (STAGE1 or LONG): the t2i rows'
+    t2i_masks as the trainer's prompting builds them (captions padded), then
+    the lm and mmu rows, which attend everywhere."""
     import numpy as np
 
     from mmada_tpu_torch.core.vocab import MMADA_8B
     from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
 
     up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B),
-                            max_text_len=TRAIN_SETTINGS["max_text_len"])
-    flow = train_flows(TRAIN_IMAGE_TOKENS, 0)["t2i_flow"]
+                            max_text_len=plan["settings"]["max_text_len"])
+    flow = train_flows(0, plan)["t2i_flow"]
     image_ids = np.asarray(flow["image_codes"]) + MMADA_8B.image_offset
     _, masks, _ = up((flow["input_ids"], image_ids, image_ids), "t2i")
-    rest = np.ones((TRAIN_ROWS - masks.shape[0], masks.shape[1]), masks.dtype)
+    rest = np.ones((plan["rows"] - masks.shape[0], masks.shape[1]), masks.dtype)
     return _mask_bias(np.concatenate([masks, rest]))
 
 
@@ -493,6 +528,306 @@ def check_backward(cases):
     return records
 
 
+def by_heads(fn, h, kvh, *args, heads=4):
+    """`fn(*args)` computed over chunks of `heads` query heads (a multiple of
+    the GQA group) and concatenated along the head axis: the plain versions
+    materialise (B, H, Lq, Lk) fp32, 8.6 GB per row at 32 heads and 8,192
+    tokens. An argument of 3 or more dims is cut on axis 1 where that is
+    its head axis (H, or KVH for k and v); a bias broadcast over heads and
+    the rope tables go whole."""
+    import torch
+
+    group = h // kvh
+    c = min(h, max(heads, group))
+    outs = []
+    for i in range(h // c):
+        def part(t):
+            if not torch.is_tensor(t) or t.dim() < 3 or t.shape[1] not in (h, kvh):
+                return t
+            n = c if t.shape[1] == h else c // group
+            return t[:, i * n:(i + 1) * n]
+
+        outs.append(fn(*(part(a) for a in args)))
+    if torch.is_tensor(outs[0]):
+        return torch.cat(outs, 1)
+    return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+
+
+def within_one_ulp(got, want):
+    """(max abs err, passes): each bf16 entry within one bf16 ulp of the
+    plain version's (at the larger magnitude of the two) plus
+    LONG_ABS_FLOOR."""
+    import torch
+
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    err = (got - want).abs()
+    excess = err - torch.ldexp(torch.ones_like(got), exp - 8)
+    return float(err.max()), bool(torch.isfinite(got).all()) and float(
+        excess.max()) <= LONG_ABS_FLOOR
+
+
+def long_grad_error(got, want):
+    """(max abs err, rel L2, passes) of a long-tier gradient."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_err = float(err.max())
+    rel = float((got - want).norm() / want.norm())
+    ok = (bool(torch.isfinite(got).all()) and rel <= LONG_GRAD_REL_L2
+          and max_err <= LONG_GRAD_MAX_REL * float(want.abs().max()))
+    return max_err, rel, ok
+
+
+def long_cases(h: int):
+    """(tag, B, H, KVH, L, bias) of B4 / B4-bias: the served 8,192-token
+    text frame, the long training batch (one t2i and one lm row) without and
+    with its masks, one row's mask at the served shape, GQA just past the
+    one-pass range, and 16,384 tokens at 2 heads (the JAX staged range)
+    without and with a per-head bias."""
+    f = LONG_FRAME
+    return [
+        ("long text B1 (served frame)", 1, h, h, f, None),
+        ("long train B2 (batch)", LONG_TRAIN_ROWS, h, h, f, None),
+        ("gqa 32/8 L4224", 1, h, 8, 4224, None),
+        ("L16384, 2 heads", 1, 2, 2, 16384, None),
+        ("masked long train B2 (batch)", LONG_TRAIN_ROWS, h, h, f,
+         lambda: train_mask_bias(LONG)),
+        ("one row's mask, served shape", 1, h, h, f, lambda: train_mask_bias(LONG)[:1]),
+        ("per-head bias L16384, 2 heads", 1, 2, 2, 16384,
+         lambda: random_bias(1, 2, 16384, 16384, 9)),
+    ]
+
+
+def check_long_kernel(cases):
+    """B4 and B4-bias against their plain version (by head chunks) at every
+    head; returns per-case records."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        flash_attention_long,
+        flash_attention_long_reference,
+    )
+
+    records = []
+    for i, (tag, b, h, kvh, l, make_bias) in enumerate(cases):
+        q, k, v, _, _ = attention_case(b, h, kvh, l, l, False, seed=400 + i)
+        bias = make_bias() if make_bias else None
+        out = flash_attention_long(q, k, v, bias)
+        ref = by_heads(flash_attention_long_reference, h, kvh, q, k, v, bias)
+        torch.cuda.synchronize()
+        max_err, ok = within_one_ulp(out, ref)
+        ms = cuda_ms(lambda: flash_attention_long(q, k, v, bias), 10)
+        plain_ms = cuda_ms(
+            lambda: by_heads(flash_attention_long_reference, h, kvh, q, k, v, bias), 3, 1)
+        gqa = {"enable_gqa": True} if kvh != h else {}
+        mask = sdpa_mask(bias, q.dtype)
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **gqa), 10)
+        bound_ms, bound_by = attention_bound(b, h, kvh, l, l, False, bias)
+        rec = dict(tag=tag, shape=[b, h, kvh, l, l],
+                   bias=None if bias is None else list(bias.shape), max_abs_err=max_err,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        if bias is not None:
+            rec["rows_without_an_allowed_key"] = int(
+                (~live_rows(bias, (b, bias.shape[1], l))).sum())
+        log("long kernel", json.dumps(rec))
+        if not ok:
+            raise AssertionError(
+                f"flash_attention_long disagrees with its plain version on {tag}: max abs "
+                f"err {max_err} (one bf16 ulp + {LONG_ABS_FLOOR})")
+        records.append(rec)
+        del q, k, v, bias, out, ref
+        free_memory()
+    return records
+
+
+def long_bwd_cases(h: int):
+    """(tag, B, H, KVH, Lq, Lk, rope, through_function, bias) of B5-dq and
+    B5-dkv: the long training batch (through the autograd Function, RoPE
+    pulled back), the served frame, GQA and rectangular GQA just past the
+    one-pass range (4224 x 4352, as the JAX test), 16,384 tokens at 2 heads;
+    then with a bias: the long training batch's masks (through the
+    Function), one row's mask, and a per-head bias at 16,384 tokens."""
+    f = LONG_FRAME
+    return [
+        ("long train B2 (batch, Function)", LONG_TRAIN_ROWS, h, h, f, f, True, True, None),
+        ("long text B1 (served frame)", 1, h, h, f, f, False, False, None),
+        ("gqa 32/8 L4224", 1, h, 8, 4224, 4224, False, False, None),
+        ("rectangular gqa 32/8 4224 x 4352", 1, h, 8, 4224, 4352, False, False, None),
+        ("L16384, 2 heads", 1, 2, 2, 16384, 16384, False, False, None),
+        ("masked long train B2 (batch, Function)", LONG_TRAIN_ROWS, h, h, f, f, True, True,
+         lambda: train_mask_bias(LONG)),
+        ("one row's mask, served shape", 1, h, h, f, f, False, False,
+         lambda: train_mask_bias(LONG)[:1]),
+        ("per-head bias L16384, 2 heads", 1, 2, 2, 16384, 16384, False, False,
+         lambda: random_bias(1, 2, 16384, 16384, 10)),
+    ]
+
+
+def check_long_backward(cases):
+    """B5-dq and B5-dkv, unbiased and biased, against their plain versions
+    (by head chunks); returns per-case records. A Function case goes through
+    `KernelAttention` in the long tier (B4, B5, RoPE pulled back) against
+    the same backward on the plain versions. With a bias, rows that have no
+    allowed key get a zero cotangent, as in the model; a second run with a
+    cotangent there too must stay finite."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmada_tpu_torch.ops.attention import KernelAttention, apply_rope, attention_backward
+    from mmada_tpu_torch.ops.flash_attention import attention_delta
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        attention_bwd_dkv_long,
+        attention_bwd_dkv_long_reference,
+        attention_bwd_dq_long,
+        attention_bwd_dq_long_reference,
+        flash_attention_bwd_long,
+        flash_attention_bwd_long_reference,
+        flash_attention_long,
+    )
+
+    records = []
+    for i, (tag, b, h, kvh, lq, lk, rope, function, make_bias) in enumerate(cases):
+        q, k, v, sin, cos = attention_case(b, h, kvh, lq, lk, rope, seed=500 + i)
+        bias = make_bias() if make_bias else None
+        g = torch.Generator("cuda").manual_seed(600 + i)
+        dout_all = torch.randn((b, h, lq, 128), generator=g, device="cuda").to(torch.bfloat16)
+        dout = dout_all if bias is None else dout_all * live_rows(bias, dout_all.shape)
+
+        def plain_bwd(*args):
+            return by_heads(flash_attention_bwd_long_reference, h, kvh, *args)
+
+        errors = {}
+        if function:
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = KernelAttention.apply(*ins, bias, sin, cos, True)
+            got = torch.autograd.grad(out, ins, dout)
+            want = attention_backward(q, k, v, out.detach(), dout, sin, cos, bias, bwd=plain_bwd)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                errors[f"function {name}"] = long_grad_error(a, w)
+            del ins, out, got, want
+        qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
+        out = flash_attention_long(qr, kr, v, bias)
+        delta = attention_delta(out, dout)
+        dq, lse = attention_bwd_dq_long(qr, kr, v, dout, delta, bias)
+        dk, dv = attention_bwd_dkv_long(qr, kr, v, dout, lse, delta, bias)
+        want_dq, want_lse = by_heads(attention_bwd_dq_long_reference, h, kvh, qr, kr, v, dout,
+                                     delta, bias)
+        want_dk, want_dv = by_heads(attention_bwd_dkv_long_reference, h, kvh, qr, kr, v, dout,
+                                    want_lse, delta, bias)
+        torch.cuda.synchronize()
+        errors["dq"] = long_grad_error(dq, want_dq)
+        errors["dk"] = long_grad_error(dk, want_dk)
+        errors["dv"] = long_grad_error(dv, want_dv)
+        lse_err = float((lse - want_lse).abs().max())
+        del want_dq, want_dk, want_dv, want_lse, dq, dk, dv
+        finite = True
+        if bias is not None:  # a cotangent on the rows with no allowed key too
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in flash_attention_bwd_long(qr, kr, v, out, dout_all, bias))
+
+        (dq_bound, dq_by), (dkv_bound, dkv_by) = bwd_bounds(b, h, kvh, lq, lk, bias)
+        dq_rec = dict(
+            ms=cuda_ms(lambda: attention_bwd_dq_long(qr, kr, v, dout, delta, bias), 10),
+            plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dq_long_reference, h, kvh, qr, kr,
+                                              v, dout, delta, bias), 3, 1),
+            bound_ms=dq_bound, bound_by=dq_by, max_abs_err=errors["dq"][0],
+            rel_l2=errors["dq"][1])
+        dkv_rec = dict(
+            ms=cuda_ms(lambda: attention_bwd_dkv_long(qr, kr, v, dout, lse, delta, bias), 10),
+            plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dkv_long_reference, h, kvh, qr, kr,
+                                              v, dout, lse, delta, bias), 3, 1),
+            bound_ms=dkv_bound, bound_by=dkv_by,
+            max_abs_err=max(errors["dk"][0], errors["dv"][0]),
+            rel_l2=max(errors["dk"][1], errors["dv"][1]))
+        # yardstick only: the library's attention backward (dq, dk and dv in
+        # one call) on the same rotated inputs and bias
+        lib_in = [t.detach().requires_grad_() for t in (qr, kr, v)]
+        gqa = {"enable_gqa": True} if kvh != h else {}
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=sdpa_mask(bias, q.dtype),
+                                                 **gqa)
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), 10)
+        rec = dict(tag=tag, shape=[b, h, kvh, lq, lk], rope=rope, function=function,
+                   bias=None if bias is None else list(bias.shape),
+                   dq=dq_rec, dkv=dkv_rec, library_ms=library_ms, lse_max_abs_err=lse_err,
+                   errors={k: [e[0], e[1]] for k, e in errors.items()},
+                   finite_with_cotangent_on_dead_rows=finite)
+        log("long backward", json.dumps(rec))
+        bad = [k for k, e in errors.items() if not e[2]]
+        if bad or lse_err > LSE_ATOL or not finite:
+            raise AssertionError(
+                f"long backward kernels disagree with their plain versions on {tag}: {bad} "
+                f"(rel L2 <= {LONG_GRAD_REL_L2}, max abs <= {LONG_GRAD_MAX_REL} x max|ref|), "
+                f"lse err {lse_err} (atol {LSE_ATOL}), finite {finite}")
+        records.append(rec)
+        del q, k, v, qr, kr, bias, out, dout, dout_all, lib_in, lib_out
+        free_memory()
+    return records
+
+
+def check_unaligned_long(h: int):
+    """The unaligned route past 4096: `bidirectional_attention` at L = 6000
+    with RoPE takes the one-pass tier (B1 forward, B3 dq and dkv: JAX's XLA
+    function there) and no long-tier kernel; output and gradients against
+    the plain versions at B1's and B3's bars. Returns {"fwd": record,
+    "bwd": record} for B1's and B3's entries."""
+    import torch
+
+    from mmada_tpu_torch.ops.attention import attention_backward, bidirectional_attention
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        attention_bwd_dkv_long,
+        attention_bwd_dq_long,
+        flash_attention_long,
+    )
+
+    l = 6000
+    kernels = (flash_attention, attention_bwd_dq, attention_bwd_dkv, flash_attention_long,
+               attention_bwd_dq_long, attention_bwd_dkv_long)
+    q, k, v, sin, cos = attention_case(1, h, h, l, l, True, seed=700)
+    dout = torch.randn((1, h, l, 128), generator=torch.Generator("cuda").manual_seed(701),
+                       device="cuda").to(torch.bfloat16)
+    before = [f.launches for f in kernels]
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = bidirectional_attention(*ins, rope_sin=sin, rope_cos=cos)
+    grads = torch.autograd.grad(out, ins, dout)
+    out = out.detach()
+    torch.cuda.synchronize()
+    launched = tuple(f.launches - c for f, c in zip(kernels, before))
+    want = by_heads(flash_attention_reference, h, h, q, k, v, sin, cos)
+    err = (out.float() - want.float()).abs()
+    fwd_ok = bool(torch.isfinite(out).all()) and bool(
+        (err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all())
+    want_grads = attention_backward(
+        q, k, v, out, dout, sin, cos, None,
+        bwd=lambda *a: by_heads(flash_attention_bwd_reference, h, h, *a))
+    errors = {name: grad_error(a, w) for name, a, w in zip(("dq", "dk", "dv"), grads,
+                                                           want_grads)}
+    rec = dict(tag=f"unaligned L{l} (B1, B3)", shape=[1, h, h, l, l],
+               launches_b1_dq_dkv_b4_b5dq_b5dkv=launched, fwd_max_abs_err=float(err.max()),
+               errors={k: [e[0], e[1]] for k, e in errors.items()})
+    log("unaligned", json.dumps(rec))
+    if launched != (1, 1, 1, 0, 0, 0) or not fwd_ok or not all(e[2] for e in errors.values()):
+        raise AssertionError(f"the unaligned route past 4096 failed: {rec}")
+    del q, k, v, ins, out, grads, want, want_grads
+    free_memory()
+    return {"fwd": {"max_abs_err": rec["fwd_max_abs_err"]},
+            "bwd": {"dq": {"max_abs_err": errors["dq"][0]},
+                    "dkv": {"max_abs_err": max(errors["dk"][0], errors["dv"][0])},
+                    "library_ms": None}}
+
+
 def small_train_batch(vocab, sc, generator):
     """Clean [t2i | lm | mmu] frames of 200 tokens, made from a seed; the
     t2i rows' captions padded (t2i_masks 0) by 10 and 25 positions."""
@@ -618,15 +953,14 @@ def check_small_model_training(masked: bool):
         raise AssertionError(f"small model did not learn its batch: {losses}")
 
 
-def train_flows(n_codes: int, seed: int):
-    """One stage-1 raw batch: captions + VQ codes (t2i), text (lm), images +
-    questions (mmu), made from a seed."""
+def train_flows(seed: int, plan=STAGE1):
+    """One raw batch of `plan` (STAGE1 or LONG): captions + VQ codes (t2i),
+    text (lm), images + questions (mmu), made from a seed."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    bt = TRAIN_SETTINGS["training"]["batch_size_t2i"]
-    bl = TRAIN_SETTINGS["training"]["batch_size_lm"]
-    bm = TRAIN_SETTINGS["training"]["batch_size_mmu"]
+    n_codes = TRAIN_IMAGE_TOKENS
+    bt, bl, bm = (plan["settings"]["training"][f"batch_size_{k}"] for k in ("t2i", "lm", "mmu"))
     words = ["a", "photo", "of", "red", "fox", "in", "the", "snow", "an", "oil", "painting",
              "lighthouse", "at", "dusk", "with", "waves", "and", "gulls", "over", "rocks"]
 
@@ -636,7 +970,7 @@ def train_flows(n_codes: int, seed: int):
     return {
         "t2i_flow": {"input_ids": [text(12) for _ in range(bt)],
                      "image_codes": rng.integers(0, 8192, (bt, n_codes))},
-        "lm_flow": {"input_ids": [text(60) for _ in range(bl)]},
+        "lm_flow": {"input_ids": [text(plan["lm_words"]) for _ in range(bl)]},
         "mmu_flow": {"input_ids": ["What is in this image? " + text(8) for _ in range(bm)],
                      "image_codes": rng.integers(0, 8192, (bm, n_codes))},
     }
@@ -675,19 +1009,28 @@ def main() -> int:
         attention_bwd_dq,
         flash_attention,
     )
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        attention_bwd_dkv_long,
+        attention_bwd_dq_long,
+        flash_attention_long,
+    )
 
-    # (wrapper, counter) of B1, dq, dkv, then B2, dq-bias, dkv-bias
-    counters = [(fn, attr) for attr in ("launches", "bias_launches")
-                for fn in (flash_attention, attention_bwd_dq, attention_bwd_dkv)]
+    # (wrapper, counter): B1, dq, dkv; B2, dq-bias, dkv-bias; B4, B5-dq,
+    # B5-dkv; B4-bias, B5-dq-bias, B5-dkv-bias
+    counters = [(fn, attr) for tier in ((flash_attention, attention_bwd_dq, attention_bwd_dkv),
+                                        (flash_attention_long, attention_bwd_dq_long,
+                                         attention_bwd_dkv_long))
+                for attr in ("launches", "bias_launches") for fn in tier]
 
     def reset_counts():
         for fn, attr in counters:
             setattr(fn, attr, 0)
 
     def counts():
-        """(unbiased fwd, dq, dkv), (biased fwd, dq, dkv)."""
+        """(fwd, dq, dkv) of the one-pass tier unbiased and biased, then of
+        the long tier unbiased and biased."""
         c = tuple(getattr(fn, attr) for fn, attr in counters)
-        return c[:3], c[3:]
+        return c[:3], c[3:6], c[6:9], c[9:]
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -722,6 +1065,11 @@ def main() -> int:
     check_small_model_training(masked=False)
     check_small_model_training(masked=True)
     log("checks", f"kernel and small-model checks took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    long_records = check_long_kernel(long_cases(cfg.n_heads))
+    long_bwd_records = check_long_backward(long_bwd_cases(cfg.n_heads))
+    unaligned = check_unaligned_long(cfg.n_heads)
+    log("checks", f"long-tier checks took {time.perf_counter() - t:.1f}s")
 
     # 4. the full-width 8B, made on the card
     torch.cuda.reset_peak_memory_stats()
@@ -758,7 +1106,7 @@ def main() -> int:
     codes = serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS)
     torch.cuda.synchronize()
     t2i_s = time.perf_counter() - t
-    (launches, serve_dq, serve_dkv), serve_biased = counts()
+    (launches, serve_dq, serve_dkv), serve_biased, *serve_long = counts()
     check_codes(codes, MMADA_8B)
     log("t2i", f"{len(T2I_PROMPTS)} requests, {T2I_SETTINGS}: {t2i_s:.2f}s, "
         f"{len(T2I_PROMPTS) / t2i_s:.3f} img/s; "
@@ -774,19 +1122,39 @@ def main() -> int:
         raise AssertionError(f"flash_attention launched {launches} times, expected {want}")
     if serve_dq or serve_dkv:
         raise AssertionError(f"serving launched backward kernels: {serve_dq}, {serve_dkv}")
-    if any(serve_biased):
-        raise AssertionError(f"unmasked serving launched biased kernels: {serve_biased}")
+    if any(serve_biased) or any(map(any, serve_long)):
+        raise AssertionError(f"unmasked serving launched biased kernels {serve_biased} or "
+                             f"long-tier kernels {serve_long}")
+
+    # 7b. a text request whose frame is 8,192 tokens: the long tier (B4) only
+    long_prompt = ("The quick brown fox jumps over the lazy dog. " * 200)[:LONG_PROMPT_BYTES]
+    reset_counts()
+    t = time.perf_counter()
+    long_answer = serve_text(model, [long_prompt], **LONG_TEXT_SETTINGS)[0]
+    torch.cuda.synchronize()
+    long_text_s = time.perf_counter() - t
+    long_text_launches = counts()
+    # the frame: BOS + prompt, then the answer's positions
+    frame = len(text_frames(model, [long_prompt])[0]) + LONG_TEXT_SETTINGS["gen_length"]
+    log("long text", f"1 request, frame {frame} tokens, {LONG_TEXT_SETTINGS}: "
+        f"{long_text_s:.2f}s, {LONG_TEXT_SETTINGS['gen_length'] / long_text_s:.1f} tok/s; "
+        f"answer ids {long_answer[:12].tolist()}; launches {long_text_launches}")
+    if frame != LONG_FRAME or long_answer.shape != (LONG_TEXT_SETTINGS["gen_length"],):
+        raise AssertionError(f"long text frame {frame}, answer {tuple(long_answer.shape)}")
+    if (long_answer == MMADA_8B.mask_token_id).any() or not (
+            (long_answer >= 0) & (long_answer < MMADA_8B.total_vocab_size)).all():
+        raise AssertionError("long text answer holds [MASK] tokens or ids out of the vocab")
+    expect_launches("long text", long_text_launches,
+                    {"long": (cfg.n_layers * LONG_TEXT_SETTINGS["steps"], 0, 0)})
 
     # 8. the training path: stage-1 train steps of the same 8B (its weights
     # are trained in place), full remat, counters from 0
     model = dataclasses.replace(model, remat="full")
     n = cfg.n_layers
-    trainer, train_launches, train_biased = train_phase(
-        "train", model, TRAIN_STEPS, train, reset_counts, counts)
-    if any(train_biased):
-        raise AssertionError(f"unmasked training launched biased kernels: {train_biased}")
-    if train_launches != (TRAIN_STEPS * 2 * n, TRAIN_STEPS * n, TRAIN_STEPS * n):
-        raise AssertionError(f"train launches {train_launches}")
+    trainer, launched = train_phase("train", model, TRAIN_STEPS, train, reset_counts, counts)
+    train_launches = launched[0]
+    expect_launches("train", launched,
+                    {"one-pass": (TRAIN_STEPS * 2 * n, TRAIN_STEPS * n, TRAIN_STEPS * n)})
 
     # where the step's time goes: the three kernels (ms x launches per step)
     # and the optimizer pass, against the steady step's wall time
@@ -796,12 +1164,22 @@ def main() -> int:
     step_ms = min(h["seconds"] for h in trainer.history) * 1e3
     log("train", f"AdamW pass {opt_ms:.1f} ms ({opt_ms / step_ms:.1%} of the steady step)")
 
-    # 9. masks on: the same weights (no copy) with attention_bias_enabled.
-    # The first trainer's AdamW moments are freed first: a second set would
-    # not fit beside them.
+    # 8b. train steps on 8,192-token frames (the long tier: B4, B5-dq,
+    # B5-dkv). Each trainer's AdamW moments are freed before the next
+    # trainer makes its own: a second set would not fit beside them.
     del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
+    long_trainer, long_train = train_phase("long train", model, LONG_TRAIN_STEPS, train,
+                                           reset_counts, counts, plan=LONG)
+    expect_launches("long train", long_train, {"long": (
+        LONG_TRAIN_STEPS * 2 * n, LONG_TRAIN_STEPS * n, LONG_TRAIN_STEPS * n)})
+    step_share("long train", long_trainer,
+               next(r for r in long_records if r["tag"].startswith("long train")),
+               long_bwd_records[0], n)
+    del long_trainer
+    free_memory()
+
+    # 9. masks on: the same weights (no copy) with attention_bias_enabled
     masked = dataclasses.replace(model, cfg=dataclasses.replace(cfg, attention_bias_enabled=True))
     if masked.params is not model.params:
         raise AssertionError("the masked model must share the served weights")
@@ -812,55 +1190,106 @@ def main() -> int:
     codes = serve_t2i(masked, T2I_PROMPTS, **T2I_SETTINGS)
     torch.cuda.synchronize()
     masked_t2i_s = time.perf_counter() - t
-    masked_unbiased, masked_serve = counts()
+    launched = counts()
+    masked_serve = launched[1]
     check_codes(codes, MMADA_8B)
     prompt_lens = [len(p.encode()) for p in T2I_PROMPTS]
     log("masked t2i", f"{len(T2I_PROMPTS)} requests (prompts of {prompt_lens} bytes), "
         f"{T2I_SETTINGS}: {masked_t2i_s:.2f}s ({t2i_s:.2f}s unmasked), "
-        f"{codes.unique().numel()} distinct codes; launches biased fwd/dq/dkv {masked_serve}, "
-        f"unbiased {masked_unbiased}")
-    if any(masked_unbiased) or masked_serve != (want_t2i, 0, 0):
-        raise AssertionError(f"masked t2i launches: unbiased {masked_unbiased}, "
-                             f"biased {masked_serve}, expected ({want_t2i}, 0, 0)")
-    masked_trainer, masked_unbiased, masked_train = train_phase(
+        f"{codes.unique().numel()} distinct codes; launches {launched}")
+    expect_launches("masked t2i", launched, {"one-pass bias": (want_t2i, 0, 0)})
+    masked_trainer, launched = train_phase(
         "masked train", masked, MASKED_TRAIN_STEPS, train, reset_counts, counts)
-    batch = masked_trainer.prepare_batch(train_flows(TRAIN_IMAGE_TOKENS, 0))
+    masked_train = launched[1]
+    batch = masked_trainer.prepare_batch(train_flows(0))
     n_pad = int((batch["t2i_masks"] == 0).sum())
     log("masked train", f"t2i_masks of the first batch: {n_pad} padded positions")
     if n_pad == 0:
         raise AssertionError("the masked training batch has no padded position")
-    want_masked = (MASKED_TRAIN_STEPS * 2 * n, MASKED_TRAIN_STEPS * n, MASKED_TRAIN_STEPS * n)
-    if any(masked_unbiased) or masked_train != want_masked:
-        raise AssertionError(f"masked train launches: unbiased {masked_unbiased}, biased "
-                             f"{masked_train}, expected {want_masked}")
+    expect_launches("masked train", launched, {"one-pass bias": (
+        MASKED_TRAIN_STEPS * 2 * n, MASKED_TRAIN_STEPS * n, MASKED_TRAIN_STEPS * n)})
     masked_fwd = next(r for r in records if r["tag"].startswith("masked train B15"))
     masked_bwd = next(r for r in bwd_records if r["tag"].startswith("masked train B15"))
     step_share("masked train", masked_trainer, masked_fwd, masked_bwd, n)
+    del masked_trainer
+    free_memory()
+
+    # 9b. one masked train step on 8,192-token frames: the biased long tier
+    masked_long_trainer, masked_long = train_phase(
+        "masked long train", masked, MASKED_LONG_TRAIN_STEPS, train, reset_counts, counts,
+        plan=LONG)
+    batch = masked_long_trainer.prepare_batch(train_flows(0, LONG))
+    n_pad = int((batch["t2i_masks"] == 0).sum())
+    log("masked long train", f"t2i_masks of the batch: {n_pad} padded positions")
+    if n_pad == 0:
+        raise AssertionError("the masked long training batch has no padded position")
+    expect_launches("masked long train", masked_long, {"long bias": (
+        MASKED_LONG_TRAIN_STEPS * 2 * n, MASKED_LONG_TRAIN_STEPS * n,
+        MASKED_LONG_TRAIN_STEPS * n)})
+    step_share("masked long train", masked_long_trainer,
+               next(r for r in long_records if r["tag"].startswith("masked long train")),
+               next(r for r in long_bwd_records if r["tag"].startswith("masked long train")), n)
 
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
-    kernels = [kernel_record("flash_attention_fwd", "flash_attention_fwd", 650,
-                             launches + train_launches[0],
-                             [r for r in records if r["bias"] is None], main_rec),
-               kernel_record("flash_attention_fwd_bias", "flash_attention_fwd", 686,
+    one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
+    kernels = [kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
+                             launches + train_launches[0], one_pass, main_rec),
+               kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                              masked_serve[0] + masked_train[0],
                              [r for r in records if r["bias"] is not None], masked_rec)]
-    plain_bwd = [r for r in bwd_records if r["bias"] is None]
+    plain_bwd = [r for r in bwd_records if r["bias"] is None] + [unaligned["bwd"]]
     biased_bwd = [r for r in bwd_records if r["bias"] is not None]
-    for name, key, line, count, recs in (
-            ("flash_attention_bwd_dq", "dq", 895, train_launches[1], plain_bwd),
-            ("flash_attention_bwd_dkv", "dkv", 963, train_launches[2], plain_bwd),
-            ("flash_attention_bwd_dq_bias", "dq", 746, masked_train[1], biased_bwd),
-            ("flash_attention_bwd_dkv_bias", "dkv", 799, masked_train[2], biased_bwd)):
-        kernels.append(kernel_record(name, "flash_attention_bwd", line, count,
-                                     [dict(r[key], library_ms=r["library_ms"]) for r in recs],
-                                     dict(recs[0][key], library_ms=recs[0]["library_ms"])))
+    long_fwd = [r for r in long_records if r["bias"] is None]
+    long_fwd_bias = [r for r in long_records if r["bias"] is not None]
+    long_bwd = [r for r in long_bwd_records if r["bias"] is None]
+    long_bwd_bias = [r for r in long_bwd_records if r["bias"] is not None]
+    kernels += [
+        kernel_record("flash_attention_long_fwd", "flash_attention_long.cu", "471,392",
+                      long_text_launches[2][0] + long_train[2][0], long_fwd,
+                      next(r for r in long_fwd if r["tag"].startswith("long text"))),
+        kernel_record("flash_attention_long_fwd_bias", "flash_attention_long.cu", "497,418",
+                      masked_long[3][0], long_fwd_bias,
+                      next(r for r in long_fwd_bias if r["tag"].startswith("masked long"))),
+    ]
+
+    def bwd_record(name, source, line, key, count, recs):
+        return kernel_record(name, source, line, count,
+                             [dict(r[key], library_ms=r["library_ms"]) for r in recs],
+                             dict(recs[0][key], library_ms=recs[0]["library_ms"]))
+
+    for name, source, key, line, count, recs in (
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq", "895",
+             train_launches[1], plain_bwd),
+            ("flash_attention_bwd_dkv", "flash_attention_dkv.cuh", "dkv", "963",
+             train_launches[2], plain_bwd),
+            ("flash_attention_bwd_dq_bias", "flash_attention_bwd.cu", "dq", "746",
+             masked_train[1], biased_bwd),
+            ("flash_attention_bwd_dkv_bias", "flash_attention_dkv.cuh", "dkv", "799",
+             masked_train[2], biased_bwd),
+            ("flash_attention_long_bwd_dq", "flash_attention_long.cu", "dq", "1185",
+             long_train[2][1], long_bwd),
+            ("flash_attention_long_bwd_dq_bias", "flash_attention_long.cu", "dq", "1185",
+             masked_long[3][1], long_bwd_bias),
+            ("flash_attention_long_bwd_dkv", "flash_attention_dkv.cuh", "dkv", "1240",
+             long_train[2][2], long_bwd),
+            ("flash_attention_long_bwd_dkv_bias", "flash_attention_dkv.cuh", "dkv", "1240",
+             masked_long[3][2], long_bwd_bias)):
+        kernels.append(bwd_record(name, source, line, key, count, recs))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def free_memory() -> None:
+    """Return what dropped objects held (a trainer's moments) to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check_codes(codes, vocab) -> None:
@@ -870,21 +1299,21 @@ def check_codes(codes, vocab) -> None:
         raise AssertionError("t2i codes outside [0, 8192)")
 
 
-def train_phase(phase, model, steps, train, reset_counts, counts):
-    """`steps` stage-1 train steps of `model` through `entry.train`, with the
-    counters from 0; checks the metrics and the trained frame, and returns
-    (trainer, unbiased launches, biased launches)."""
+def train_phase(phase, model, steps, train, reset_counts, counts, plan=STAGE1):
+    """`steps` train steps of `model` through `entry.train` on batches of
+    `plan` (STAGE1 or LONG), with the counters from 0; checks the metrics and
+    the trained frame, and returns (trainer, counts())."""
     import torch
 
-    flows = [train_flows(TRAIN_IMAGE_TOKENS, seed) for seed in range(steps)]
+    flows = [train_flows(seed, plan) for seed in range(steps)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t = time.perf_counter()
-    trainer = train(model, flows, steps=steps, log_every=1, **TRAIN_SETTINGS)
+    trainer = train(model, flows, steps=steps, log_every=1, **plan["settings"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
-    unbiased, biased = counts()
+    launched = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     peak_reserved = torch.cuda.max_memory_reserved() / 2**30
     # the frame the kernel cases of phase 3 were held at is the one trained
@@ -896,15 +1325,16 @@ def train_phase(phase, model, steps, train, reset_counts, counts):
             f"skipped {h['skipped_nonfinite']:.0f}; {h['seconds']:.3f}s, "
             f"{h['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
             f"{h['max_memory_allocated_gib']:.2f} GiB")
-    log(phase, f"{steps} steps of the {model.cfg.n_layers}-layer 8B at stage-1 shapes in "
-        f"{train_s:.2f}s (rows, frame lengths) {trained_shape}; peak {peak:.2f} GiB "
-        f"allocated, {peak_reserved:.2f} GiB reserved; launches fwd/dq/dkv unbiased "
-        f"{unbiased}, biased {biased} (the forward twice a step: remat); clip "
+    log(phase, f"{steps} steps of the {model.cfg.n_layers}-layer 8B in {train_s:.2f}s "
+        f"(rows, frame lengths) {trained_shape}; peak {peak:.2f} GiB allocated, "
+        f"{peak_reserved:.2f} GiB reserved; launches fwd/dq/dkv one-pass unbiased "
+        f"{launched[0]}, biased {launched[1]}, long unbiased {launched[2]}, biased "
+        f"{launched[3]} (the forward twice a step: remat); clip "
         f"{trainer.optimizer.max_grad_norm}")
-    if trained_shape != (TRAIN_ROWS, {TRAIN_FRAME}):
+    if trained_shape != (plan["rows"], {plan["frame"]}):
         raise AssertionError(f"trained (rows, frame) {trained_shape}, but the kernels were "
-                             f"checked at ({TRAIN_ROWS}, {TRAIN_FRAME})")
-    if trainer.optimizer.max_grad_norm != TRAIN_SETTINGS["training"]["max_grad_norm"]:
+                             f"checked at ({plan['rows']}, {plan['frame']})")
+    if trainer.optimizer.max_grad_norm != plan["settings"]["training"]["max_grad_norm"]:
         raise AssertionError("the training block's max_grad_norm is not the clip")
     for h in trainer.history:
         if not all(map(math.isfinite, h.values())):
@@ -913,7 +1343,18 @@ def train_phase(phase, model, steps, train, reset_counts, counts):
             raise AssertionError(f"bad train step: {h}")
     if int(trainer.state.step) != steps or len(trainer.history) != steps:
         raise AssertionError(f"train step count {int(trainer.state.step)}, want {steps}")
-    return trainer, unbiased, biased
+    return trainer, launched
+
+
+def expect_launches(phase, launched, want) -> None:
+    """`launched` (counts()) must equal `want`: a dict from the tier and kind
+    ("one-pass", "one-pass bias", "long", "long bias") to (fwd, dq, dkv);
+    a tier and kind it does not name launched nothing."""
+    kinds = ("one-pass", "one-pass bias", "long", "long bias")
+    expected = tuple(want.get(kind, (0, 0, 0)) for kind in kinds)
+    if tuple(launched) != expected:
+        raise AssertionError(f"{phase} launched {dict(zip(kinds, launched))}, expected "
+                             f"{dict(zip(kinds, expected))}")
 
 
 def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
@@ -929,11 +1370,12 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
 
 def kernel_record(name, source, line, launches, recs, main_rec) -> dict:
     """One kernel's entry of the JSON line: times at its main-path case, the
-    largest error over all its cases."""
+    largest error over all its cases. `source` is the file in `ops/csrc` that
+    holds the kernel's body, `line` the TPU kernel's line(s)."""
     return {
         "name": name,
         "route": "cuda",
-        "source": f"mmada_tpu_torch/ops/csrc/{source}.cu",
+        "source": f"mmada_tpu_torch/ops/csrc/{source}",
         "replaces": f"mmada_tpu/ops/flash_attention.py:{line}",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in recs),

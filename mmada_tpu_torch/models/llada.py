@@ -312,7 +312,6 @@ def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _block(
     cfg: LLaDAConfig,
-    policy: Policy,
     x: torch.Tensor,       # (B, L, D)
     lp: Params,            # one layer's params (no leading layer axis)
     bias: Optional[torch.Tensor],
@@ -323,15 +322,10 @@ def _block(
     h = _norm(cfg, x, lp.get("attn_norm"))
     q, k, v = _qkv(cfg, lp, h)
     if cfg.rope_full_precision:
-        att = bidirectional_attention(
-            q, k, v, bias=bias, softmax_dtype=policy.softmax_dtype,
-            rope_sin=sin, rope_cos=cos,
-        )
+        att = bidirectional_attention(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
     else:
         q, k = apply_rope(q, k, sin, cos, full_precision=False)
-        att = bidirectional_attention(
-            q, k, v, bias=bias, softmax_dtype=policy.softmax_dtype
-        )
+        att = bidirectional_attention(q, k, v, bias=bias)
     att = att.transpose(1, 2).reshape(b, l, d)
     x = x + att @ lp["attn_out"]
     return _mlp(cfg, lp, x)
@@ -390,9 +384,9 @@ def forward(
     remat = remat and torch.is_grad_enabled()
     for lp in layer_params(params):
         if remat:
-            x = checkpoint(_block, cfg, policy, x, lp, bias, sin, cos, use_reentrant=False)
+            x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False)
         else:
-            x = _block(cfg, policy, x, lp, bias, sin, cos)
+            x = _block(cfg, x, lp, bias, sin, cos)
 
     if logit_positions is not None:
         # the head runs only over the span the sampler reads

@@ -1,35 +1,44 @@
 """Bidirectional (non-causal) multi-head attention for masked diffusion.
 
-Counterpart of `mmada_tpu/ops/attention.py`:
+Counterpart of `mmada_tpu/ops/attention.py`. Every call goes through
+`KernelAttention`, the `torch.autograd.Function` counterpart of the
+`jax.custom_vjp` `_pallas_attention` (:134-250), in one of two kernel tiers,
+on both devices: on the card it launches the Hopper kernels, on the CPU
+their plain versions, so the CPU computes the card's function and a tensor
+that requires grad keeps its graph on both. A bool bias is first made fp32 0
+/ finite min, as JAX does (:280-283). The routing, by length:
 
-  * `xla_attention` - the plain attention with fp32 softmax (any bias, any
-    length); the CPU path for what the one-pass kernel does not cover;
-  * `flash_attention` (ops/flash_attention.py) - the one-pass kernels, B1
-    and, with a bias, B2, with the RoPE rotation done inside the C entry;
-  * `KernelAttention` - the `torch.autograd.Function` around it, the
-    counterpart of the `jax.custom_vjp` `_pallas_attention` (:134-250):
-    forward through `flash_attention`, backward through
-    `flash_attention_bwd` (the dq and dkv kernels, biased or not) on q/k
-    rotated in fp32 outside the kernels, the rotation pulled back by
-    autograd of the fp32 `apply_rope` (the casts of `jax.vjp` of it). No
-    gradient reaches the bias or the rope tables (JAX returns zeros for
-    them, :245).
+  * Lq, Lk <= 4096: the one-pass tier, `flash_attention`
+    (ops/flash_attention.py; B1, B2 with a bias, the RoPE rotation done in
+    the C entry) and `flash_attention_bwd` (B3, B3-bias);
+  * Lq = Lk = L > 4096, L a multiple of 128: the long tier,
+    `flash_attention_long` (ops/flash_attention_long.py; B4) and
+    `flash_attention_bwd_long` (B5-dq, B5-dkv), biased or not: JAX's
+    `flash_attention_online` / `flash_attention_staged` forward (:97-131)
+    and `flash_attention_bwd_staged`, one function (p kept in fp32 and
+    divided last), RoPE applied outside in fp32 (`apply_rope`);
+  * Lq = Lk = L > 4096, L not a multiple of 128: the one-pass tier again.
+    JAX sends these to `xla_attention` (:276-277), whose function is B1's
+    (p normalised in fp32, cast to v's dtype, then p.v); the kernels take
+    any length, and B3 computes its gradient;
+  * Lq != Lk with either past 4096: refused. No path reaches it: the JAX
+    long tiers take one L for q and k (`flash_attention.py:360`, `:451`),
+    and only the block-KV decode (ROADMAP A.3) would ask for it.
 
-`bidirectional_attention` sends every call with Lq, Lk <= 4096 through
-`KernelAttention`, a bool bias first made fp32 0 / finite min as JAX does
-(:280-283): on the card that launches the Hopper kernels, on the CPU their
-plain versions, so a tensor that requires grad keeps its graph on both. On
-the card L > 4096 raises: those kernel tiers (ROADMAP queue B: B4 long-L
-online/staged forward, B5 staged backward) are not ported yet, and the port
-does not quietly substitute plain PyTorch for a kernel. On the CPU those
-calls take `xla_attention`, which autograd differentiates directly.
+The backward runs the tier's dq and dkv kernels on q/k rotated in fp32
+outside the kernels, the rotation pulled back by autograd of the fp32
+`apply_rope` (the casts of `jax.vjp` of it). No gradient reaches the bias or
+the rope tables (JAX returns zeros for them, :245).
 
 Routing of the backward differs from the JAX package's, not its function:
 JAX sends L < 256, and head_dim not a multiple of 128, to an XLA recompute
 (`_kernel_bwd_eligible`), because its kernels pad to 128-row tiles. The
-port's kernels take every shape its forward kernel takes (L <= 4096 at any
-alignment, head_dim 64 or 128, GQA, rectangular Lq != Lk without RoPE), so
-the port has no such routing: the kernels' wrappers refuse any other shape.
+port's kernels take every shape its forward kernels take (head_dim 64 or
+128, GQA, rectangular Lq != Lk without RoPE in the one-pass tier), so the
+port has no such routing: the kernels' wrappers refuse any other shape.
+
+Every tier computes the softmax in fp32, as the JAX kernel tiers do (JAX
+takes a `softmax_dtype` for its XLA path only).
 
 Bias semantics: a boolean bias marks *allowed* pairs; a float bias is added
 to the scores before the softmax.
@@ -46,34 +55,14 @@ from mmada_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
 )
+from mmada_tpu_torch.ops.flash_attention_long import (
+    ALIGN,
+    flash_attention_bwd_long,
+    flash_attention_long,
+)
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 ONE_PASS_MAX_LEN = 4096
-
-
-def _merge_bias(scores: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    return scores if bias is None else scores + bias_as_float(bias).to(scores.dtype)
-
-
-def xla_attention(
-    q: torch.Tensor,  # (B, H, L, D)
-    k: torch.Tensor,  # (B, KVH, L, D)
-    v: torch.Tensor,  # (B, KVH, L, D)
-    bias: Optional[torch.Tensor] = None,  # (B|1, 1|H, L, L) bool or float
-    softmax_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    orig_dtype = q.dtype
-    n_heads, n_kv = q.shape[1], k.shape[1]
-    if n_heads != n_kv:
-        rep = n_heads // n_kv
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-    scale = float(1.0 / torch.tensor(float(q.shape[-1]), dtype=softmax_dtype).sqrt())
-    scores = torch.matmul(q.to(softmax_dtype), k.to(softmax_dtype).transpose(-1, -2))
-    scores = _merge_bias(scores * scale, bias)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(orig_dtype).to(softmax_dtype), v.to(softmax_dtype))
-    return out.to(orig_dtype)
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -88,8 +77,8 @@ def apply_rope(
     cos: torch.Tensor,
     full_precision: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Neox rotate-half RoPE as a standalone pass (the one-pass kernel's C
-    entry runs the same rotation on the card)."""
+    """Neox rotate-half RoPE as a standalone pass: the long tier's rotation
+    (the one-pass kernel's C entry runs the same rotation on the card)."""
     dtype = q.dtype
     if full_precision:
         q, k = q.float(), k.float()
@@ -101,17 +90,13 @@ def apply_rope(
     return q.to(dtype), k.to(dtype)
 
 
-def _bwd_tier_staged(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Past the one-pass range: the staged backward kernels' tier (B5)."""
-    return q.shape[2] > ONE_PASS_MAX_LEN or k.shape[2] > ONE_PASS_MAX_LEN
-
-
 def attention_backward(q, k, v, out, dout, rope_sin=None, rope_cos=None,
                        bias=None, bwd=flash_attention_bwd):
-    """(dq, dk, dv) of one-pass attention, as `_pallas_attention_bwd`: q/k
-    rotated in fp32 outside the kernels, `bwd` (the dq and dkv kernels, or
-    `flash_attention_bwd_reference`) on the rotated values and the bias, the
-    rotation pulled back by autograd of the fp32 `apply_rope`."""
+    """(dq, dk, dv) of kernel attention, as `_pallas_attention_bwd`: q/k
+    rotated in fp32 outside the kernels, `bwd` (a tier's dq and dkv kernels,
+    `flash_attention_bwd` or `flash_attention_bwd_long`, or their plain
+    versions) on the rotated values and the bias, the rotation pulled back by
+    autograd of the fp32 `apply_rope`."""
     if rope_sin is None:
         return bwd(q, k, v, out, dout, bias)
     with torch.enable_grad():
@@ -124,13 +109,18 @@ def attention_backward(q, k, v, out, dout, rope_sin=None, rope_cos=None,
 
 
 class KernelAttention(torch.autograd.Function):
-    """One-pass attention with the kernels' backward (`_pallas_attention`).
-    `bias` is None or the fp32 (B|1, H|1, Lq, Lk) bias; it gets no
-    gradient."""
+    """Kernel attention with the kernels' backward (`_pallas_attention`), in
+    the one-pass tier or, with `long=True`, the long tier. `bias` is None or
+    the fp32 (B|1, H|1, Lq, Lk) bias; it gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, rope_sin, rope_cos):
-        out = flash_attention(q, k, v, rope_sin=rope_sin, rope_cos=rope_cos, bias=bias)
+    def forward(ctx, q, k, v, bias, rope_sin, rope_cos, long=False):
+        if not long:
+            out = flash_attention(q, k, v, rope_sin=rope_sin, rope_cos=rope_cos, bias=bias)
+        else:
+            qr, kr = (q, k) if rope_sin is None else apply_rope(q, k, rope_sin, rope_cos)
+            out = flash_attention_long(qr, kr, v, bias)
+        ctx.long = long
         # the output rides along for delta = rowsum(dO * O), and the bias is
         # the one tensor every layer shares (no extra memory: both are alive
         # anyway)
@@ -140,14 +130,24 @@ class KernelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, bias, rope_sin, rope_cos = ctx.saved_tensors
-        if q.is_cuda and _bwd_tier_staged(q, k):
-            raise NotImplementedError(
-                f"no backward kernel for q {tuple(q.shape)} k {tuple(k.shape)}: past "
-                "4096 tokens that is the staged backward, not ported yet (ROADMAP B5)")
         if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]):
             dout = dout.contiguous()  # e.g. the broadcast cotangent of a sum
-        grads = attention_backward(q, k, v, out, dout, rope_sin, rope_cos, bias)
-        return (*grads, None, None, None)
+        bwd = flash_attention_bwd_long if ctx.long else flash_attention_bwd
+        grads = attention_backward(q, k, v, out, dout, rope_sin, rope_cos, bias, bwd=bwd)
+        return (*grads, None, None, None, None)
+
+
+def long_tier(lq: int, lk: int) -> bool:
+    """Whether (Lq, Lk) takes the long tier (B4, B5); raises for the shapes
+    no tier takes."""
+    if max(lq, lk) <= ONE_PASS_MAX_LEN:
+        return False
+    if lq != lk:
+        raise NotImplementedError(
+            f"attention of {lq} queries over {lk} keys: past {ONE_PASS_MAX_LEN} tokens the "
+            "kernel tiers take one length for q and k, as the JAX long tiers do; "
+            "rectangular attention that long comes with the block-KV decode (ROADMAP A.3)")
+    return lq % ALIGN == 0
 
 
 def bidirectional_attention(
@@ -155,18 +155,8 @@ def bidirectional_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
-    softmax_dtype: torch.dtype = torch.float32,
     rope_sin: Optional[torch.Tensor] = None,  # (L, D): q/k arrive un-roped
     rope_cos: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    if q.shape[2] <= ONE_PASS_MAX_LEN and k.shape[2] <= ONE_PASS_MAX_LEN:
-        return KernelAttention.apply(q, k, v, bias_as_float(bias), rope_sin, rope_cos)
-    if q.is_cuda:
-        raise NotImplementedError(
-            f"attention past 4096 tokens (q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"bias {'none' if bias is None else tuple(bias.shape)}) needs the long-L "
-            "kernel tiers, not ported yet (ROADMAP queue B: B4 forward, B5 backward)"
-        )
-    if rope_sin is not None:
-        q, k = apply_rope(q, k, rope_sin, rope_cos)
-    return xla_attention(q, k, v, bias=bias, softmax_dtype=softmax_dtype)
+    long = long_tier(q.shape[2], k.shape[2])
+    return KernelAttention.apply(q, k, v, bias_as_float(bias), rope_sin, rope_cos, long)

@@ -1,7 +1,8 @@
 // Warp-level building blocks shared by the port's attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): bf16 packing, the
-// mma.sync m16n8k16 product, ldmatrix fragment loads, cp.async copies, and
-// the two warp-tile products every attention kernel here is made of.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_long.cu):
+// bf16 packing, the mma.sync m16n8k16 product, ldmatrix fragment loads,
+// cp.async copies, and the two warp-tile products every attention kernel
+// here is made of.
 //
 // Fragment layout of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 //   accumulator c[0..1] -> row g, columns 2t, 2t+1; c[2..3] -> row g+8.
@@ -23,6 +24,15 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The low half of the split x = hi + lo of two fp32 values whose bf16
+// roundings `hi` holds (pack_bf16): lo = bf16(x - hi). x - hi is exact in
+// fp32, so hi + lo carries about 16 significant bits of x where hi alone
+// carries 8.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float x0, float x1, uint32_t hi) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return pack_bf16(x0 - h.x, x1 - h.y);
 }
 
 // D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
@@ -125,8 +135,11 @@ __device__ __forceinline__ void mma_abt(float s[NB][4], const bf16* a,
 // acc (16 x D, fp32) += bf16(P) . B, where P (16 x NB*8) is in accumulator
 // layout in registers (rounded to bf16 here) and B is NB*8 rows x D,
 // row-major in shared memory (read transposed by ldmatrix): the
-// probability-shaped product (p.v, ds.k, p^T.dO, ds^T.q).
-template <int D, int NB>
+// probability-shaped product (p.v, ds.k, p^T.dO, ds^T.q). With SPLIT, P
+// enters as hi + lo (pack_bf16_rest), two products per B fragment: B is
+// bf16, so each product is exact in the fp32 accumulator and P keeps about
+// 16 significant bits instead of 8.
+template <int D, int NB, bool SPLIT = false>
 __device__ __forceinline__ void mma_pb(float acc[D / 8][4], const float p[NB][4],
                                        const bf16* b, int lane) {
   constexpr int STRIDE = D + 8;
@@ -139,6 +152,13 @@ __device__ __forceinline__ void mma_pb(float acc[D / 8][4], const float p[NB][4]
     const float* p1 = p[2 * kb + 1];
     const uint32_t pa[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
                             pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+    uint32_t pl[4];
+    if (SPLIT) {
+      pl[0] = pack_bf16_rest(p0[0], p0[1], pa[0]);
+      pl[1] = pack_bf16_rest(p0[2], p0[3], pa[1]);
+      pl[2] = pack_bf16_rest(p1[0], p1[1], pa[2]);
+      pl[3] = pack_bf16_rest(p1[2], p1[3], pa[3]);
+    }
     // ldmatrix.trans rows: kb*16 + lane % 16, columns (lane / 16) * 8
     const bf16* brow = b + (kb * 16 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
 #pragma unroll
@@ -147,6 +167,10 @@ __device__ __forceinline__ void mma_pb(float acc[D / 8][4], const float p[NB][4]
       ldmatrix_x4<true>(bf, brow + dn * 8);
       mma_bf16(acc[dn], pa, bf[0], bf[1]);
       mma_bf16(acc[dn + 1], pa, bf[2], bf[3]);
+      if (SPLIT) {
+        mma_bf16(acc[dn], pl, bf[0], bf[1]);
+        mma_bf16(acc[dn + 1], pl, bf[2], bf[3]);
+      }
     }
   }
 }

@@ -26,7 +26,9 @@ both on those rows only; no caller reads them.
 
 The backward (`flash_attention_bwd`, counterpart of the JAX function of the
 same name, :808-1005) takes q and k already rotated, the saved output and its
-cotangent, and runs two kernels of `csrc/flash_attention_bwd.cu`:
+cotangent, and runs two kernels of the library built from
+`csrc/flash_attention_bwd.cu` (the dkv kernel's body is in
+`csrc/flash_attention_dkv.cuh`, shared with the long tier's B5-dkv):
 `attention_bwd_dq` (dq and the row logsumexp; `_attn_bwd_dq_kernel` /
 `_attn_bwd_dq_bias_kernel`) and `attention_bwd_dkv` (dk and dv summed over
 the query heads of each kv head; `_attn_bwd_dkv_kernel` /
@@ -163,6 +165,15 @@ def _launch(fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError {err}")
 
 
+def _count_launch(wrapper, bias: Optional[torch.Tensor]) -> None:
+    """One launch of `wrapper`'s kernel: `.launches`, or `.bias_launches`
+    for its biased kernel."""
+    if bias is None:
+        wrapper.launches += 1
+    else:
+        wrapper.bias_launches += 1
+
+
 def flash_attention(
     q: torch.Tensor,                         # (B, H, Lq, D)
     k: torch.Tensor,                         # (B, KVH, Lk, D)
@@ -217,10 +228,7 @@ def flash_attention(
     _launch(_entry(_KERNEL_SOURCE, name, len(ptrs)), q.device, *ptrs,
             b, h, kvh, lq, lk, d, _strides(q, k, v, out, extra=bias_strides),
             1.0 / (d ** 0.5))
-    if bias is None:
-        flash_attention.launches += 1
-    else:
-        flash_attention.bias_launches += 1
+    _count_launch(flash_attention, bias)
     return out
 
 
@@ -307,6 +315,46 @@ def _check_bwd_shapes(q, k, v, dout, stats) -> tuple[int, int, int, int, int, in
     return b, h, kvh, lq, lk, d
 
 
+def _launch_bwd_dq(source: str, entry: str, q, k, v, dout, delta, bias):
+    """Check the operands, allocate (dq, lse) and launch the dq kernel
+    `<entry>_bf16` (or `<entry>_bias_bf16`) of `csrc/<source>.cu`."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
+    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
+    if bias is None:
+        name, bias_strides = f"{entry}_bf16", ()
+    else:
+        name = f"{entry}_bias_bf16"
+        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
+        ptrs.append(bias.data_ptr())
+    ptrs += [dq.data_ptr(), lse.data_ptr()]
+    _launch(_entry(source, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            _strides(q, k, v, dout, dq, extra=bias_strides), 1.0 / (d ** 0.5))
+    return dq, lse
+
+
+def _launch_bwd_dkv(source: str, entry: str, q, k, v, dout, lse, delta, bias):
+    """Check the operands, allocate (dk, dv) and launch the dkv kernel
+    `<entry>_bf16` (or `<entry>_bias_bf16`) of `csrc/<source>.cu`."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(
+        q, k, v, dout, [("lse", lse), ("delta", delta)])
+    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()]
+    if bias is None:
+        name, bias_strides = f"{entry}_bf16", ()
+    else:
+        name = f"{entry}_bias_bf16"
+        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
+        ptrs.append(bias.data_ptr())
+    ptrs += [dk.data_ptr(), dv.data_ptr()]
+    _launch(_entry(source, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            _strides(q, k, v, dout, dk, dv, extra=bias_strides), 1.0 / (d ** 0.5))
+    return dk, dv
+
+
 def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dq, lse) through the Hopper dq kernel (CUDA tensors) or its plain
     version (CPU tensors). Counts launches in `attention_bwd_dq.launches`,
@@ -315,25 +363,11 @@ def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, tor
         return attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq runs on cuda or cpu, not {q.device}")
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
     bias = bias_as_float(bias)
-    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
-    if bias is None:
-        name, bias_strides = "mmada_flash_attention_bwd_dq_bf16", ()
-    else:
-        name = "mmada_flash_attention_bwd_dq_bias_bf16"
-        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-        ptrs.append(bias.data_ptr())
-    ptrs += [dq.data_ptr(), lse.data_ptr()]
-    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
-            _strides(q, k, v, dout, dq, extra=bias_strides), 1.0 / (d ** 0.5))
-    if bias is None:
-        attention_bwd_dq.launches += 1
-    else:
-        attention_bwd_dq.bias_launches += 1
-    return dq, lse
+    out = _launch_bwd_dq(_BWD_SOURCE, "mmada_flash_attention_bwd_dq", q, k, v, dout, delta,
+                         bias)
+    _count_launch(attention_bwd_dq, bias)
+    return out
 
 
 attention_bwd_dq.launches = 0
@@ -348,27 +382,11 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tenso
         return attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv runs on cuda or cpu, not {q.device}")
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(
-        q, k, v, dout, [("lse", lse), ("delta", delta)])
     bias = bias_as_float(bias)
-    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr()]
-    if bias is None:
-        name, bias_strides = "mmada_flash_attention_bwd_dkv_bf16", ()
-    else:
-        name = "mmada_flash_attention_bwd_dkv_bias_bf16"
-        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-        ptrs.append(bias.data_ptr())
-    ptrs += [dk.data_ptr(), dv.data_ptr()]
-    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
-            _strides(q, k, v, dout, dk, dv, extra=bias_strides), 1.0 / (d ** 0.5))
-    if bias is None:
-        attention_bwd_dkv.launches += 1
-    else:
-        attention_bwd_dkv.bias_launches += 1
-    return dk, dv
+    out = _launch_bwd_dkv(_BWD_SOURCE, "mmada_flash_attention_bwd_dkv", q, k, v, dout, lse,
+                          delta, bias)
+    _count_launch(attention_bwd_dkv, bias)
+    return out
 
 
 attention_bwd_dkv.launches = 0

@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the Hopper kernels (unbiased and
-biased) against their plain versions, their refusals, gradients through
-attention, the served and trained paths through the kernels (with masks
-too), the bf16-only model on the card, and the launches' device.
+biased, the one-pass tier and the long tier) against their plain versions,
+their refusals, the routing by length, gradients through attention, the
+served and trained paths through the kernels (with masks too, and on a
+frame past 4096 tokens), the bf16-only model on the card, and the launches'
+device.
 
 They skip without a CUDA device (the kernel has no CPU mode). This file
 imports neither jax nor the JAX package, so it also runs beside the card,
@@ -30,6 +32,15 @@ from mmada_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_reference,
+)
+from mmada_tpu_torch.ops.flash_attention_long import (
+    attention_bwd_dkv_long,
+    attention_bwd_dkv_long_reference,
+    attention_bwd_dq_long,
+    attention_bwd_dq_long_reference,
+    flash_attention_bwd_long,
+    flash_attention_long,
+    flash_attention_long_reference,
 )
 from mmada_tpu_torch.prompting.universal import SpecialIds
 
@@ -102,12 +113,15 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
         flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 32, device=cuda_device))
     with pytest.raises(ValueError):   # a bias on another device
         flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 64))
-    long_q = torch.zeros(1, 1, 4097, 128, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="B4"):
-        bidirectional_attention(long_q, long_q, long_q)
-    with pytest.raises(NotImplementedError, match="B4"):
-        bidirectional_attention(long_q, long_q, long_q,
-                                bias=torch.zeros(1, 1, 4097, 4097, device=cuda_device))
+    long_q = torch.zeros(1, 1, 4224, 128, dtype=torch.bfloat16, device=cuda_device)
+    before_long = (flash_attention_long.launches, flash_attention_long.bias_launches)
+    with pytest.raises(NotImplementedError, match="A.3"):   # rectangular past 4096
+        bidirectional_attention(long_q, long_q[:, :, :300], long_q[:, :, :300])
+    with pytest.raises(ValueError):   # the long tier takes 128-aligned lengths
+        flash_attention_long(long_q[:, :, :4200], long_q[:, :, :4200], long_q[:, :, :4200])
+    with pytest.raises(TypeError):
+        flash_attention_long(long_q.float(), long_q.float(), long_q.float())
+    assert (flash_attention_long.launches, flash_attention_long.bias_launches) == before_long
     assert flash_attention.launches == before
     assert flash_attention.bias_launches == before_bias
 
@@ -246,15 +260,32 @@ def test_backward_refuses_what_it_cannot_take(cuda_device):
 
 
 def test_backward_past_the_one_pass_range_names_b5(cuda_device):
-    """Past 4096 tokens the backward raises (the staged kernels, B5) rather
-    than recompute through plain PyTorch."""
-    x = torch.zeros(1, 1, 4097, 128, dtype=torch.bfloat16, device=cuda_device,
-                    requires_grad=True)
-    out = KernelAttention.apply(x, x, x, None, None, None)
-    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
-    with pytest.raises(NotImplementedError, match="B5"):
-        out.sum().backward()
-    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == before
+    """Past 4096 tokens the routing takes the long tier for 128-aligned
+    lengths (B4 forward, B5-dq and B5-dkv backward) and the one-pass tier
+    otherwise (B1, B3: JAX's XLA function there); rectangular attention that
+    long raises, launching nothing."""
+    kernels = (flash_attention, attention_bwd_dq, attention_bwd_dkv, flash_attention_long,
+               attention_bwd_dq_long, attention_bwd_dkv_long)
+
+    def launched(l, lk=None):
+        q = torch.zeros(1, 2, l, 128, dtype=torch.bfloat16, device=cuda_device,
+                        requires_grad=True)
+        k = torch.zeros(1, 2, lk or l, 128, dtype=torch.bfloat16, device=cuda_device,
+                        requires_grad=True)
+        before = [f.launches for f in kernels]
+        try:
+            bidirectional_attention(q, k, k).sum().backward()
+        finally:
+            after = [f.launches for f in kernels]
+        return tuple(a - b for a, b in zip(after, before))
+
+    assert launched(4097) == (1, 1, 1, 0, 0, 0)
+    assert launched(4224) == (0, 0, 0, 1, 1, 1)
+    assert launched(4096) == (1, 1, 1, 0, 0, 0)
+    before = [f.launches for f in kernels]
+    with pytest.raises(NotImplementedError, match="A.3"):
+        launched(4224, 4352)
+    assert [f.launches for f in kernels] == before
 
 
 def test_train_steps_go_through_the_kernels(cuda_device):
@@ -539,3 +570,186 @@ def test_launches_run_on_the_tensors_device(cuda_device):
             attention_bwd_dq.bias_launches, attention_bwd_dkv.bias_launches) == (
         before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
     torch.testing.assert_close(out, out_b, atol=0, rtol=0)
+
+
+# ------------------------------------------------------------------- long
+
+# The long tier keeps p in fp32 and enters it into the tensor cores as two
+# bf16 halves (about 16 significant bits, a relative error of at most 2^-18
+# per term against the plain version's fp32 products). So a bf16 output is
+# within one bf16 ulp of the plain version's, plus an absolute 2^-14 where
+# cancellation leaves an entry small (four times the 2^-18 x max|v| the
+# split can add at these inputs); gradients within 1e-3 normwise.
+LONG_ABS_FLOOR = 2.0 ** -14
+LONG_GRAD_REL_L2 = 1e-3
+
+
+def assert_within_one_ulp(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    assert torch.isfinite(got).all()
+    _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), exp - 8)   # bf16: 8 significant bits
+    excess = (got - want).abs() - ulp
+    assert float(excess.max()) <= LONG_ABS_FLOOR, float(excess.max())
+
+
+def assert_long_grad_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    rel = float((got - want).norm()) / max(float(want.norm()), 1e-30)
+    assert rel <= LONG_GRAD_REL_L2, rel
+
+
+@pytest.mark.parametrize("kind,b,h,kvh,lq,lk,d", [
+    (None, 1, 4, 4, 4224, 4224, 128),      # just past the one-pass range
+    (None, 1, 8, 2, 1024, 1024, 64),       # GQA, head_dim 64
+    (None, 2, 4, 4, 256, 640, 128),        # rectangular
+    ("mask", 2, 4, 4, 4224, 4224, 128),    # padded frames, rows fully masked
+    ("head", 1, 4, 4, 512, 512, 128),      # per-head float bias
+    ("batch", 2, 8, 2, 768, 768, 64),
+    ("one", 2, 4, 4, 384, 384, 128),
+    ("head-only", 2, 4, 4, 256, 256, 128),
+])
+def test_long_kernel_matches_plain_version(cuda_device, kind, b, h, kvh, lq, lk, d):
+    q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, d)
+    bias = None if kind is None else _bias(cuda_device, kind, b, h, lq, lk)
+    attr = "launches" if bias is None else "bias_launches"
+    before = getattr(flash_attention_long, attr)
+    got = flash_attention_long(q, k, v, bias)
+    assert getattr(flash_attention_long, attr) == before + 1
+    want = flash_attention_long_reference(q, k, v, bias)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("kind,b,h,kvh,lq,lk,d", [
+    (None, 1, 4, 4, 4224, 4224, 128),
+    (None, 1, 4, 2, 4224, 4352, 128),      # GQA and rectangular, as the JAX test
+    (None, 1, 8, 2, 512, 512, 64),         # GQA, head_dim 64
+    ("mask", 2, 4, 4, 4224, 4224, 128),    # padded frames, zero cotangent there
+    ("head", 1, 4, 4, 512, 512, 128),
+    ("one", 2, 4, 4, 256, 384, 128),       # rectangular, one bias for all
+])
+def test_long_backward_kernels_match_plain_versions(cuda_device, kind, b, h, kvh, lq, lk,
+                                                    d):
+    q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, d)
+    bias = None if kind is None else _bias(cuda_device, kind, b, h, lq, lk)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    out = flash_attention_long(q, k, v, bias)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    if kind == "mask":
+        dout = dout * (bias > torch.finfo(torch.float32).min).any(-1, keepdim=True)
+    delta = attention_delta(out, dout)
+    attr = "launches" if bias is None else "bias_launches"
+    before = (getattr(attention_bwd_dq_long, attr), getattr(attention_bwd_dkv_long, attr))
+    dq, lse = attention_bwd_dq_long(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias)
+    assert (getattr(attention_bwd_dq_long, attr), getattr(attention_bwd_dkv_long, attr)) == (
+        before[0] + 1, before[1] + 1)
+    want_dq, want_lse = attention_bwd_dq_long_reference(q, k, v, dout, delta, bias)
+    want_dk, want_dv = attention_bwd_dkv_long_reference(q, k, v, dout, want_lse, delta, bias)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16
+        assert_long_grad_close(got, want)
+    if kind == "mask":  # a cotangent on the rows with no allowed key: finite
+        dout_all = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+        for t in flash_attention_bwd_long(q, k, v, out, dout_all, bias):
+            assert torch.isfinite(t).all()
+
+
+def test_long_kernels_take_strided_views(cuda_device):
+    """Head views of (B, L, H*D) projections, a dO head view and an expanded
+    bias view (0 strides) give what contiguous copies give, bit for bit."""
+    b, l, h, d = 1, 4224, 2, 128
+    g = torch.Generator(cuda_device).manual_seed(1)
+    fused = torch.randn(b, l, 3 * h * d, generator=g, device=cuda_device).bfloat16()
+    q, k, v = (t.view(b, l, h, d).transpose(1, 2) for t in fused.split(h * d, dim=-1))
+    row = torch.randn(1, 1, l, l, generator=g, device=cuda_device)
+    view = row.expand(b, h, l, l)
+    got = flash_attention_long(q, k, v, view)
+    want = flash_attention_long(q.contiguous(), k.contiguous(), v.contiguous(), row)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    dout = torch.randn(b, l, h * d, generator=g, device=cuda_device).bfloat16()
+    dout = dout.view(b, l, h, d).transpose(1, 2)
+    got = flash_attention_bwd_long(q, k, v, want, dout, view)
+    want = flash_attention_bwd_long(q.contiguous(), k.contiguous(), v.contiguous(), want,
+                                     dout.contiguous(), row)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_long_attention_is_differentiable_on_cuda(cuda_device, masked):
+    """`bidirectional_attention` at an aligned L past 4096 with RoPE: B4 and
+    B5 on the card give the CPU path's output and gradients (the plain
+    versions), with a mask bias too (pad rows with a zero cotangent)."""
+    b, h, l, d = 1, 2, 4224, 128
+    q, k, v = _qkv(cuda_device, b, h, 1, l, l, d)
+    bias, mask = _mask_bias(cuda_device, b, l, 70) if masked else (None, None)
+    sin, cos = llada.rope_sin_cos(l, d, 500000.0, device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    dout = torch.randn(b, h, l, d, generator=g, device=cuda_device).bfloat16()
+    if masked:
+        dout = dout * mask[:, None, :, None].bfloat16()
+
+    def run(device):
+        ins = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        out = bidirectional_attention(*ins, bias=None if bias is None else bias.to(device),
+                                      rope_sin=sin.to(device), rope_cos=cos.to(device))
+        return out, torch.autograd.grad(out, ins, dout.to(device))
+
+    attr = "launches" if bias is None else "bias_launches"
+    kernels = (flash_attention_long, attention_bwd_dq_long, attention_bwd_dkv_long)
+    before = [getattr(f, attr) for f in kernels]
+    out, grads = run(cuda_device)
+    assert [getattr(f, attr) - c for f, c in zip(kernels, before)] == [1, 1, 1]
+    want_out, want_grads = run("cpu")
+    assert_within_one_ulp(out.cpu(), want_out)
+    for a, w in zip(grads, want_grads):
+        assert_long_grad_close(a.cpu(), w)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_long_frames_go_through_the_long_kernels(cuda_device, masked):
+    """A 2-layer bf16 model with head_dim 128 on frames of 4,224 tokens:
+    serving runs B4 once per layer per step; a train step with full remat
+    runs B4 twice per layer and B5-dq / B5-dkv once per layer (the biased
+    kernels with masks on), and no one-pass kernel."""
+    import numpy as np
+
+    vocab, sp = _tiny_special()
+    cfg = dataclasses.replace(
+        llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2),
+        attention_bias_enabled=masked)
+    model = MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0),
+                            policy=BF16, remat="full")
+    attr = "bias_launches" if masked else "launches"
+    one_pass = (flash_attention, attention_bwd_dq, attention_bwd_dkv)
+    long = (flash_attention_long, attention_bwd_dq_long, attention_bwd_dkv_long)
+
+    def counts():
+        return (tuple(f.launches + f.bias_launches for f in one_pass),
+                tuple(getattr(f, attr) for f in long))
+
+    n = cfg.n_layers
+    if not masked:  # text frames carry no mask
+        (c1, c0) = counts()
+        answers = serve_text(model, ["x" * (4224 - 1 - 16)], gen_length=16, steps=2,
+                             block_length=16)
+        assert answers[0].shape == (16,)
+        assert counts() == (c1, (c0[0] + 2 * n, c0[1], c0[2]))
+    n_img = 100
+    rng = np.random.default_rng(0)
+    flows = {"t2i_flow": {"input_ids": ["a cat", "a dog with a long caption"],
+                          "image_codes": rng.integers(0, 64, (2, n_img))},
+             "lm_flow": {"input_ids": ["hello there", "general"]}}
+    (c1, c0) = counts()
+    trainer = train(model, [flows], steps=1, special_ids=sp, max_text_len=4224 - n_img - 3,
+                    training=dict(batch_size_t2i=2, batch_size_lm=2, loss_chunk=64),
+                    lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
+    frames = trainer.prepare_batch(flows)
+    assert {t.shape[1] for key, t in frames.items() if key.endswith("input_ids")} == {4224}
+    assert counts() == (c1, (c0[0] + 2 * n, c0[1] + n, c0[2] + n))
+    h = trainer.history[0]
+    assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0

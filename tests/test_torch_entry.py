@@ -249,7 +249,8 @@ def test_serving_rejects_weights_on_another_device(models):
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
     """In a fresh interpreter where jax, yaml, PIL and mmada_tpu cannot be
-    imported, the port imports, runs a tiny forward and takes a train step."""
+    imported, the port imports, runs a tiny forward, takes a train step and
+    runs attention forward and backward at 4,224 tokens (the long tier)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -295,6 +296,13 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "state, m = train_step.make_train_step(masked, opt, sc)(\n"
         "    state, {'t2i_input_ids': t2i, 't2i_masks': mask}, torch.Generator().manual_seed(3))\n"
         "assert int(state.step) == 1 and torch.isfinite(m['loss'])\n"
+        "from mmada_tpu_torch.ops.attention import bidirectional_attention\n"
+        "g = torch.Generator().manual_seed(4)\n"
+        "q, k = (torch.randn(1, 2, 4224, 64, generator=g).requires_grad_() for _ in range(2))\n"
+        "sin, cos = llada.rope_sin_cos(4224, 64, 10000.0, device='cpu')\n"
+        "out = bidirectional_attention(q, k, k, rope_sin=sin, rope_cos=cos)\n"
+        "dq, dk = torch.autograd.grad(out.square().sum(), (q, k))\n"
+        "assert out.shape == q.shape and all(torch.isfinite(t).all() for t in (out, dq, dk))\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
@@ -330,7 +338,8 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in joined
     assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert cmd[-1].endswith(os.path.join("csrc", "flash_attention_fwd.cu"))
-    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd"]
+    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
+                                "flash_attention_long"]
     # the C sources include CUDA headers only (no torch/extension.h): seconds to build
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
