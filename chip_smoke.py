@@ -8,18 +8,24 @@ holds each kernel against its plain PyTorch version at the shapes the
 serving and training paths give it: the one-pass tier (B1, B2 with a bias,
 dq and dkv without and with a bias) and the long tier past 4096 tokens (B4,
 B5-dq and B5-dkv, without and with a bias, at 8,192 tokens, at 16,384, under
-GQA and rectangular), and the one-pass tier on an unaligned length past 4096.
-It runs and trains a small model through the kernels against the fp32 CPU
-path (without and with attention masks), builds the full-width 8B (random
-weights, made on the card from a seed), answers text and t2i requests
-through the port's entry points, answers a text request whose frame is
-8,192 tokens, takes stage-1 train steps of the same 8B through
-`entry.train`, then train steps on 8,192-token frames, then turns attention
-masks on (`attention_bias_enabled=True`, the same weights) and answers t2i
-requests and takes stage-1 train steps with `t2i_masks` again, and one
-masked step on 8,192-token frames. It checks that the kernels really ran on
-each path (launch counters, set to 0 just before the path and read just
-after: on each path exactly the kernels of its tier, unbiased or biased).
+GQA and rectangular), the one-pass tier on an unaligned length past 4096,
+and the int4 matmul (B6) at the shapes of the int4 model's matmuls. It runs
+and trains a small model through the kernels against the fp32 CPU path
+(without and with attention masks; an int4 forward through B6; a W8A8
+straight-through train step), builds the full-width 8B (random weights, made
+on the card from a seed), answers text and t2i requests through the port's
+entry points, answers a text request whose frame is 8,192 tokens, quantizes
+the same 8B on the card (`entry.quantize`) to int4 and answers the text and
+t2i requests through B6, then to SmoothQuant W8A8 (text and t2i), int8 and
+W8A8 (a text batch each), freeing each quantized model before the next,
+takes stage-1 train steps of the bf16 8B through `entry.train`, then train
+steps on 8,192-token frames, then turns attention masks on
+(`attention_bias_enabled=True`, the same weights) and answers t2i requests
+and takes stage-1 train steps with `t2i_masks` again, and one masked step
+on 8,192-token frames. It checks that the kernels really ran on each path
+(launch counters, set to 0 just before the path and read just after: on
+each path exactly the kernels of its tier, unbiased or biased, and B6 on
+the int4 paths only).
 Each phase prints lines with the elapsed seconds; any failure ends the run
 with a non-zero exit. The last three lines are the kernels' JSON record, the
 card's name and power limit as nvidia-smi reports them, and
@@ -67,6 +73,10 @@ T2I_PROMPTS = ["a photo of a red fox in the snow", "an oil painting of a lightho
 TEXT_SETTINGS = dict(gen_length=128, steps=32, block_length=32, temperature=0.0)
 T2I_SETTINGS = dict(num_vq_tokens=1024, max_text_len=128, timesteps=12,
                     guidance_scale=3.5, temperature=1.0, seed=0)
+# the served frames: BOS + prompt bytes + answer; padded prompt + <|soi|> +
+# image + <|eoi|>
+TEXT_FRAME = 1 + len(TEXT_PROMPTS[0].encode()) + TEXT_SETTINGS["gen_length"]
+T2I_FRAME = T2I_SETTINGS["max_text_len"] + 1 + T2I_SETTINGS["num_vq_tokens"] + 2
 # stage 1 (configs/mmada_pretraining_stage1.yaml): 7 t2i + 2 lm + 6 mmu rows,
 # 256 image codes, max_seq_length 128; AdamW with clip 1.0 and the cosine
 # schedule with its 5000 warmup steps; here accumulation 1, full remat and
@@ -118,6 +128,21 @@ LONG = dict(settings=LONG_TRAIN_SETTINGS, rows=LONG_TRAIN_ROWS, frame=LONG_FRAME
 LONG_ABS_FLOOR = 2.0 ** -14
 LONG_GRAD_REL_L2 = 1e-3
 LONG_GRAD_MAX_REL = 2.0 ** -7
+# B6 (int4 matmul): its dequantised bf16 weight is bit for bit the plain
+# version's and both sum in fp32, in another order, so each bf16 output is
+# within one bf16 ulp of the plain version's plus LONG_ABS_FLOOR (2^-14),
+# the bar of `within_one_ulp`; the plain version's cuBLAS product is held to
+# full fp32 reductions for the comparison. The int4 8B against the bf16 8B
+# whose weights are the int4 weights dequantised (the same function through
+# torch.matmul): every matmul output may differ by one bf16 ulp where the
+# fp32 sums straddle a rounding, and that spreads through 32 layers of bf16
+# activations, so one t2i forward's logits are held normwise
+INT4_MODEL_REL_L2 = 2e-2
+# the library's grouped-int4 matmul (B6's library time) rounds the scales to
+# bf16 (a relative change of at most 2^-9 per weight); it is held to the
+# plain version normwise, which a wrong nibble order or sign would miss by
+# orders of magnitude
+INT4_LIBRARY_REL_L2 = 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -270,8 +295,7 @@ def kernel_cases(h: int):
     stage-1 training frame. `bias` is None (kernel B1) or a function that
     makes the fp32 bias on the card (kernel B2): the masks of the served t2i
     frames and of a stage-1 batch, and a per-head random bias."""
-    text_len = 1 + len(TEXT_PROMPTS[0].encode()) + TEXT_SETTINGS["gen_length"]
-    t2i_len = T2I_SETTINGS["max_text_len"] + 1 + T2I_SETTINGS["num_vq_tokens"] + 2
+    text_len, t2i_len = TEXT_FRAME, T2I_FRAME
     return [
         ("text B1", 1, h, h, text_len, text_len, True, None),
         ("text B3 (served batch)", 3, h, h, text_len, text_len, True, None),
@@ -345,7 +369,7 @@ def check_zero_bias(h: int) -> None:
 
     from mmada_tpu_torch.ops.flash_attention import flash_attention
 
-    t2i_len = T2I_SETTINGS["max_text_len"] + 1 + T2I_SETTINGS["num_vq_tokens"] + 2
+    t2i_len = T2I_FRAME
     q, k, v, sin, cos = attention_case(4, h, h, t2i_len, t2i_len, True, seed=99)
     zero = torch.zeros((4, 1, t2i_len, t2i_len), device="cuda")
     b2 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero)
@@ -380,14 +404,9 @@ def check_small_model(masked: bool):
     mask[0, :20] = 0
     mask[1, :45] = 0
 
-    def move(tree, **kw):
-        if isinstance(tree, dict):
-            return {k: move(t, **kw) for k, t in tree.items()}
-        return tree.to(**kw)
-
-    ref = llada.forward(move(params, dtype=torch.float32), cfg, ids, attention_mask=mask,
+    ref = llada.forward(move_params(params, dtype=torch.float32), cfg, ids, attention_mask=mask,
                         policy=FP32)
-    got = llada.forward(move(params, device="cuda"), cfg, ids.cuda(),
+    got = llada.forward(move_params(params, device="cuda"), cfg, ids.cuda(),
                         attention_mask=mask.cuda(), policy=BF16).cpu()
     rel = float((got - ref).norm() / ref.norm())
     log("small model", f"{'masked ' if masked else ''}bf16 kernel path vs fp32 plain path: "
@@ -828,6 +847,182 @@ def check_unaligned_long(h: int):
                     "library_ms": None}}
 
 
+def int4_cases(cfg):
+    """(tag, M, K, N, view) of B6 at the int4 8B's matmuls: the served text
+    batch (3 x 159 rows) at q/k/v/attn_out, ff_proj/up_proj and ff_out, its
+    head over one block's positions (3 x 32 rows, the whole vocab), the t2i
+    CFG batch (4 x 1,155) at ff_proj/up_proj, the t2i head's column window
+    (4 x 1,024 rows, the 8,192 image ids of the packed head, read in place),
+    a bytes-bound case (16 rows), ragged rows (1, 17, 130), one group (K
+    128), and one layer of a stacked weight (`packed[i]`). `view` is
+    "window", "layer" or None."""
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+
+    d, f, v = cfg.d_model, cfg.hidden_size, cfg.effective_vocab_size
+    text = len(TEXT_PROMPTS) * TEXT_FRAME
+    t2i = 2 * len(T2I_PROMPTS) * T2I_FRAME
+    lo, hi = MMADA_8B.image_window
+    return [
+        ("text q/k/v/attn_out", text, d, d, None),
+        ("text ff_proj/up_proj", text, d, f, None),
+        ("text ff_out", text, f, d, None),
+        ("text head", len(TEXT_PROMPTS) * TEXT_SETTINGS["block_length"], d, v, None),
+        ("t2i CFG ff_proj/up_proj", t2i, d, f, None),
+        ("t2i head window", 2 * len(T2I_PROMPTS) * T2I_SETTINGS["num_vq_tokens"], d, hi - lo,
+         "window"),
+        ("bytes-bound 16 rows", 16, d, v, None),
+        ("ragged M 1", 1, d, d, None),
+        ("ragged M 17", 17, d, d, None),
+        ("ragged M 130", 130, d, d, None),
+        ("one group K 128", 130, 128, d, None),
+        ("layer view packed[1]", text, d, d, "layer"),
+    ]
+
+
+def int4_operands(m, k, n, view, seed):
+    """x (M, K) bf16 and (packed, scales) of a normal(0, 0.02) weight, made on
+    the card: for "window" the image-id columns of a (K, 134,656) head, for
+    "layer" layer 1 of a 3-layer stack, both strided views."""
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.ops.int4_matmul import pack_int4
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    shape = {"layer": (3, k, n), "window": (k, MMADA_8B.total_vocab_size)}.get(view, (k, n))
+    packed, scales = pack_int4(torch.randn(shape, generator=g, device="cuda") * 0.02)
+    if view == "layer":
+        packed, scales = packed[1], scales[1]
+    elif view == "window":
+        lo, hi = MMADA_8B.image_window
+        packed, scales = packed[:, lo:hi], scales[:, lo:hi]
+    if tuple(packed.shape) != (k // 2, n):
+        raise AssertionError(f"int4 case operands {tuple(packed.shape)}, want {(k // 2, n)}")
+    return x, packed, scales
+
+
+def int4_bound(m, k, n):
+    """2 M K N flops; x (bf16) + packed (0.5 byte a weight) + fp32 group
+    scales + out (bf16), each moved once."""
+    return bound(2 * m * k * n, 2 * m * k + k * n // 2 + 4 * (k // 128) * n + 2 * m * n)
+
+
+def tinygemm_operands(packed, scales):
+    """The same int4 weight in the layout of PyTorch's own grouped-int4
+    matmul, `torch._weight_int4pack_mm` (tinygemm, the library yardstick of
+    B6; the port never calls it): the nibbles biased to [0, 15], packed two
+    to a byte along K (even k in the high nibble) of an (N, K/2) uint8 weight
+    and converted by `torch._convert_weight_to_int4pack`; one bf16 (scale,
+    zero 0) pair per (group, column). It computes (q - 8) * scale + zero, so
+    its weight is B6's with the scales rounded to bf16."""
+    import torch
+
+    from mmada_tpu_torch.ops.int4_matmul import GROUP, _unpack_i32
+
+    half_k, n = packed.shape
+    lo, hi = _unpack_i32(packed.reshape(half_k * 2 // GROUP, GROUP // 2, n))
+    codes = (torch.cat([lo, hi], dim=1).reshape(2 * half_k, n) + 8).t().contiguous()
+    weight = torch._convert_weight_to_int4pack(
+        ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8), 8)
+    del codes
+    bf16_scales = scales.to(torch.bfloat16)
+    return weight, torch.stack([bf16_scales, torch.zeros_like(bf16_scales)], dim=-1).contiguous()
+
+
+def check_int4_kernel(cases):
+    """B6 against its plain version at every case; returns per-case records
+    with kernel, plain and library ms (`tinygemm_operands`: the library call
+    is held to the plain version normwise first, so that its time is that of
+    the same function)."""
+    import torch
+
+    from mmada_tpu_torch.core.precision import exact_bf16_reductions
+    from mmada_tpu_torch.ops.int4_matmul import GROUP, int4_matmul, int4_matmul_reference
+
+    records = []
+    with exact_bf16_reductions():
+        for i, (tag, m, k, n, view) in enumerate(cases):
+            x, packed, scales = int4_operands(m, k, n, view, seed=800 + i)
+            out = int4_matmul(x, packed, scales)
+            ref = int4_matmul_reference(x, packed, scales)
+            weight, scales_and_zeros = tinygemm_operands(packed, scales)
+            lib = torch._weight_int4pack_mm(x, weight, GROUP, scales_and_zeros)
+            torch.cuda.synchronize()
+            max_err, ok = within_one_ulp(out, ref)
+            lib_rel = float((lib.float() - ref.float()).norm() / ref.float().norm())
+            bound_ms, bound_by = int4_bound(m, k, n)
+            rec = dict(tag=tag, shape=[m, k, n], view=view, max_abs_err=max_err,
+                       ms=cuda_ms(lambda: int4_matmul(x, packed, scales), 10),
+                       plain_ms=cuda_ms(lambda: int4_matmul_reference(x, packed, scales), 3, 1),
+                       library_ms=cuda_ms(
+                           lambda: torch._weight_int4pack_mm(x, weight, GROUP, scales_and_zeros),
+                           10),
+                       library_rel_l2=lib_rel, bound_ms=bound_ms, bound_by=bound_by)
+            log("int4 kernel", json.dumps(rec))
+            if not ok:
+                raise AssertionError(
+                    f"int4_matmul disagrees with its plain version on {tag}: max abs err "
+                    f"{max_err} (one bf16 ulp + {LONG_ABS_FLOOR})")
+            if not lib_rel <= INT4_LIBRARY_REL_L2:
+                raise AssertionError(
+                    f"the library int4 matmul computes another function on {tag}: rel L2 "
+                    f"{lib_rel} (limit {INT4_LIBRARY_REL_L2})")
+            records.append(rec)
+            del x, packed, scales, out, ref, weight, scales_and_zeros, lib
+    free_memory()
+    return records
+
+
+def move_params(tree, device=None, dtype=None):
+    """`tree` with every tensor moved to `device` and cast to `dtype`;
+    quantized leaves are moved field by field and keep their dtypes."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: move_params(t, device, dtype) for k, t in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=dtype)
+    return type(tree)(**{f.name: getattr(tree, f.name).to(device=device)
+                         for f in dataclasses.fields(tree)})
+
+
+def check_small_int4_model():
+    """A 2-layer model with head_dim 128 and a vocab that is a 128 multiple
+    (384): its int4 weights (quantized once, on the CPU) on the card in bf16
+    through B6, against the same weights on the CPU in fp32 (the plain
+    version); B6 launched once per block matmul and for the head."""
+    import torch
+
+    from mmada_tpu_torch.core.precision import BF16, FP32
+    from mmada_tpu_torch.core.vocab import tiny_layout
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.ops.int4_matmul import int4_matmul
+    from mmada_tpu_torch.ops.quantization import quantize_llada_params
+
+    vocab = tiny_layout()
+    cfg = llada.tiny_config(vocab_size=384, d_model=256, n_heads=2, n_layers=2,
+                            mlp_hidden_size=512)
+    params = llada.init_params(cfg, device="cpu", dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(5))
+    qparams = quantize_llada_params(params, bits=4)
+    ids = torch.randint(0, vocab.total_vocab_size, (2, 200),
+                        generator=torch.Generator().manual_seed(6))
+    ref = llada.forward(move_params(qparams, dtype=torch.float32), cfg, ids, policy=FP32)
+    before = int4_matmul.launches
+    got = llada.forward(move_params(qparams, device="cuda"), cfg, ids.cuda(), policy=BF16).cpu()
+    launched = int4_matmul.launches - before
+    rel = float((got - ref).norm() / ref.norm())
+    want = 7 * cfg.n_layers + 1
+    log("small int4 model", f"bf16 B6 path vs fp32 plain path: rel L2 {rel:.3e} (limit "
+        f"{SMALL_MODEL_REL_L2}), logits {tuple(got.shape)}, B6 launches {launched} "
+        f"(expected {want})")
+    if launched != want:
+        raise AssertionError(f"small int4 forward launched B6 {launched} times, want {want}")
+    if not (torch.isfinite(got).all() and rel <= SMALL_MODEL_REL_L2):
+        raise AssertionError(f"small int4 model disagrees with the reference: rel L2 {rel}")
+
+
 def small_train_batch(vocab, sc, generator):
     """Clean [t2i | lm | mmu] frames of 200 tokens, made from a seed; the
     t2i rows' captions padded (t2i_masks 0) by 10 and 25 positions."""
@@ -853,13 +1048,14 @@ def small_train_batch(vocab, sc, generator):
             "mmu_labels": torch.where(prompt == 1, torch.full_like(mmu, -100), mmu)}
 
 
-def check_small_model_training(masked: bool):
+def check_small_model_training(masked: bool, forward_quantize: str = "none"):
     """A small model with the kernels' head_dim: one bf16 train step on the
     card (kernels, full remat) against the fp32 CPU step on the same weights
     and corrupted batch (loss and every weight's gradient); unmasked, then 30
     steps on that fixed batch, after which the loss is below 0.7 x the
     first; `masked`: attention masks on, the t2i rows' pads reaching the
-    biased kernels."""
+    biased kernels; `forward_quantize="w8a8"`: the block matmuls' W8A8
+    straight-through forward (the int8 product on each device), one step."""
     import torch
 
     from mmada_tpu_torch.core.precision import BF16, FP32
@@ -888,14 +1084,10 @@ def check_small_model_training(masked: bool):
     params = llada.init_params(cfg, device="cpu", dtype=torch.bfloat16,
                                generator=torch.Generator().manual_seed(3))
 
-    def move(tree, **kw):
-        if isinstance(tree, dict):
-            return {k: move(t, **kw) for k, t in tree.items()}
-        return tree.to(**kw)
-
-    sc = StepConfig(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2, max_seq_length=40)
-    cpu = MMadaModel(cfg=cfg, params=move(params, dtype=torch.float32), vocab=vocab, policy=FP32)
-    card = MMadaModel(cfg=cfg, params=move(params, device="cuda"), vocab=vocab, policy=BF16,
+    sc = StepConfig(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2, max_seq_length=40,
+                    forward_quantize=forward_quantize)
+    cpu = MMadaModel(cfg=cfg, params=move_params(params, dtype=torch.float32), vocab=vocab, policy=FP32)
+    card = MMadaModel(cfg=cfg, params=move_params(params, device="cuda"), vocab=vocab, policy=BF16,
                       remat="full")
     g = torch.Generator().manual_seed(4)
     prepared = corrupt_batch(cpu, sc, small_train_batch(vocab, sc, g), g)
@@ -924,7 +1116,8 @@ def check_small_model_training(masked: bool):
     grad_rel = {n: float((grads_card[n].float().cpu() - grads_cpu[n]).norm()
                          / grads_cpu[n].norm().clamp_min(1e-30)) for n in grads_cpu}
     worst = max(grad_rel, key=grad_rel.get)
-    log("small train", f"{'masked ' if masked else ''}bf16 kernel step vs fp32 CPU step: "
+    kind = ("masked " if masked else "") + ("w8a8 STE " if forward_quantize != "none" else "")
+    log("small train", f"{kind}bf16 kernel step vs fp32 CPU step: "
         f"loss {loss_card:.5f} vs "
         f"{loss_cpu:.5f} (rel {loss_rel:.2e}, limit {SMALL_TRAIN_LOSS_REL}); worst "
         f"gradient rel L2 {grad_rel[worst]:.2e} ({worst}, limit {SMALL_TRAIN_GRAD_REL_L2}); "
@@ -935,7 +1128,7 @@ def check_small_model_training(masked: bool):
     if not (math.isfinite(loss_card) and loss_rel <= SMALL_TRAIN_LOSS_REL
             and grad_rel[worst] <= SMALL_TRAIN_GRAD_REL_L2):
         raise AssertionError("small model train step disagrees with the fp32 CPU step")
-    if masked:
+    if masked or forward_quantize != "none":
         return
 
     opt = optimizers.AdamW(get_scheduler("cosine", 5e-3, warmup_steps=2, total_steps=80))
@@ -1000,7 +1193,7 @@ def main() -> int:
     import mmada_tpu_torch
     from mmada_tpu_torch.core.precision import BF16
     from mmada_tpu_torch.core.vocab import MMADA_8B
-    from mmada_tpu_torch.entry import serve_t2i, serve_text, text_frames, train
+    from mmada_tpu_torch.entry import quantize, serve_t2i, serve_text, text_frames, train
     from mmada_tpu_torch.models import llada
     from mmada_tpu_torch.models.mmada import MMadaModel
     from mmada_tpu_torch.ops import _build
@@ -1014,13 +1207,15 @@ def main() -> int:
         attention_bwd_dq_long,
         flash_attention_long,
     )
+    from mmada_tpu_torch.ops.int4_matmul import int4_matmul
 
     # (wrapper, counter): B1, dq, dkv; B2, dq-bias, dkv-bias; B4, B5-dq,
-    # B5-dkv; B4-bias, B5-dq-bias, B5-dkv-bias
+    # B5-dkv; B4-bias, B5-dq-bias, B5-dkv-bias; B6
     counters = [(fn, attr) for tier in ((flash_attention, attention_bwd_dq, attention_bwd_dkv),
                                         (flash_attention_long, attention_bwd_dq_long,
                                          attention_bwd_dkv_long))
                 for attr in ("launches", "bias_launches") for fn in tier]
+    counters.append((int4_matmul, "launches"))
 
     def reset_counts():
         for fn, attr in counters:
@@ -1028,9 +1223,9 @@ def main() -> int:
 
     def counts():
         """(fwd, dq, dkv) of the one-pass tier unbiased and biased, then of
-        the long tier unbiased and biased."""
+        the long tier unbiased and biased, then (B6,)."""
         c = tuple(getattr(fn, attr) for fn, attr in counters)
-        return c[:3], c[3:6], c[6:9], c[9:]
+        return c[:3], c[3:6], c[6:9], c[9:12], c[12:]
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1070,6 +1265,11 @@ def main() -> int:
     long_bwd_records = check_long_backward(long_bwd_cases(cfg.n_heads))
     unaligned = check_unaligned_long(cfg.n_heads)
     log("checks", f"long-tier checks took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    int4_records = check_int4_kernel(int4_cases(cfg))
+    check_small_int4_model()
+    check_small_model_training(masked=False, forward_quantize="w8a8")
+    log("checks", f"int4 and w8a8 checks took {time.perf_counter() - t:.1f}s")
 
     # 4. the full-width 8B, made on the card
     torch.cuda.reset_peak_memory_stats()
@@ -1090,13 +1290,7 @@ def main() -> int:
     text_s = time.perf_counter() - t
     text_launches = flash_attention.launches
     n_batches = len({len(f) for f in text_frames(model, TEXT_PROMPTS)})
-    for ans in answers:
-        if ans.shape != (TEXT_SETTINGS["gen_length"],):
-            raise AssertionError(f"text answer shape {tuple(ans.shape)}")
-        if (ans == MMADA_8B.mask_token_id).any():
-            raise AssertionError("text answer still holds [MASK] tokens")
-        if not ((ans >= 0) & (ans < MMADA_8B.total_vocab_size)).all():
-            raise AssertionError("text answer ids out of the fused vocab")
+    check_answers(answers, MMADA_8B)
     log("text", f"{len(answers)} requests in {n_batches} batch(es), "
         f"{TEXT_SETTINGS}: {text_s:.2f}s, "
         f"{len(answers) * TEXT_SETTINGS['gen_length'] / text_s:.1f} tok/s; "
@@ -1124,7 +1318,7 @@ def main() -> int:
         raise AssertionError(f"serving launched backward kernels: {serve_dq}, {serve_dkv}")
     if any(serve_biased) or any(map(any, serve_long)):
         raise AssertionError(f"unmasked serving launched biased kernels {serve_biased} or "
-                             f"long-tier kernels {serve_long}")
+                             f"long-tier kernels or B6 {serve_long}")
 
     # 7b. a text request whose frame is 8,192 tokens: the long tier (B4) only
     long_prompt = ("The quick brown fox jumps over the lazy dog. " * 200)[:LONG_PROMPT_BYTES]
@@ -1146,6 +1340,18 @@ def main() -> int:
         raise AssertionError("long text answer holds [MASK] tokens or ids out of the vocab")
     expect_launches("long text", long_text_launches,
                     {"long": (cfg.n_layers * LONG_TEXT_SETTINGS["steps"], 0, 0)})
+
+    # 7c. quantized serving, before any trainer holds its moments: int4
+    # (B6 at every block matmul and the head), then SmoothQuant W8A8 (text
+    # and t2i), int8 and W8A8 (a text batch each); each quantized model is
+    # freed before the next is made
+    serving = dict(n_batches=n_batches, want_text=want_text, want_t2i=want_t2i,
+                   bf16_text_s=text_s, bf16_t2i_s=t2i_s)
+    int4_launches = serve_quantized(model, quantize, "int4", serving, reset_counts, counts,
+                                    compare_t2i=True)
+    serve_quantized(model, quantize, "w8a8_smooth", serving, reset_counts, counts)
+    serve_quantized(model, quantize, "int8", serving, reset_counts, counts, t2i=False)
+    serve_quantized(model, quantize, "w8a8", serving, reset_counts, counts, t2i=False)
 
     # 8. the training path: stage-1 train steps of the same 8B (its weights
     # are trained in place), full remat, counters from 0
@@ -1244,6 +1450,9 @@ def main() -> int:
     long_fwd_bias = [r for r in long_records if r["bias"] is not None]
     long_bwd = [r for r in long_bwd_records if r["bias"] is None]
     long_bwd_bias = [r for r in long_bwd_records if r["bias"] is not None]
+    int4_main = next(r for r in int4_records if r["tag"].startswith("t2i CFG"))
+    kernels.append(kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches,
+                                 int4_records, int4_main, replaces="int4_matmul.py"))
     kernels += [
         kernel_record("flash_attention_long_fwd", "flash_attention_long.cu", "471,392",
                       long_text_launches[2][0] + long_train[2][0], long_fwd,
@@ -1290,6 +1499,143 @@ def free_memory() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def check_answers(answers, vocab) -> None:
+    for ans in answers:
+        if ans.shape != (TEXT_SETTINGS["gen_length"],):
+            raise AssertionError(f"text answer shape {tuple(ans.shape)}")
+        if (ans == vocab.mask_token_id).any():
+            raise AssertionError("text answer still holds [MASK] tokens")
+        if not ((ans >= 0) & (ans < vocab.total_vocab_size)).all():
+            raise AssertionError("text answer ids out of the fused vocab")
+
+
+def t2i_frames():
+    """The (4, 1,155) token batch of the t2i sampler's first forward for
+    T2I_PROMPTS: the prompts' frames, all image positions masked, then the
+    empty-prompt (CFG) frames."""
+    import numpy as np
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B),
+                            max_text_len=T2I_SETTINGS["max_text_len"])
+    n, mask_id = T2I_SETTINGS["num_vq_tokens"], MMADA_8B.mask_token_id
+    ids, _ = up.t2i_gen(T2I_PROMPTS, np.full((len(T2I_PROMPTS), n), mask_id))
+    uncond, _ = up.t2i_gen_uncond(len(T2I_PROMPTS), n, mask_id)
+    return torch.as_tensor(np.concatenate([ids, uncond]), dtype=torch.long, device="cuda")
+
+
+def dequantized(params):
+    """`params` with every int4 weight replaced by its bf16 dequantisation
+    (one layer at a time), the other leaves shared."""
+    import torch
+
+    from mmada_tpu_torch.ops.quantization import Int4Tensor
+
+    def deq(w):
+        if not isinstance(w, Int4Tensor):
+            return w
+        if len(w.shape) == 2:
+            return w.dequantize(torch.bfloat16)
+        return torch.stack([w[i].dequantize(torch.bfloat16) for i in range(w.shape[0])])
+
+    out = {k: deq(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: deq(v) for k, v in params["blocks"].items()}
+    return out
+
+
+def compare_int4_t2i_forward(qmodel) -> None:
+    """One t2i forward (the sampler's first, windowed head) of the int4 8B
+    through B6 against the bf16 8B whose weights are the int4 weights
+    dequantised, through torch.matmul: the same function."""
+    import torch
+
+    from mmada_tpu_torch.core.precision import exact_bf16_reductions
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+
+    ids = t2i_frames()
+    n = T2I_SETTINGS["num_vq_tokens"]
+    kw = dict(logit_window=MMADA_8B.image_window, logit_positions=(ids.shape[1] - n - 1, n))
+    with exact_bf16_reductions():
+        got = qmodel.forward(ids, **kw)
+        deq = dataclasses.replace(qmodel, params=dequantized(qmodel.params))
+        want = deq.forward(ids, **kw)
+        torch.cuda.synchronize()
+    rel = float((got - want).norm() / want.norm())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log("int4", f"one t2i forward {tuple(got.shape)} vs the dequantised bf16 8B: rel L2 "
+        f"{rel:.3e} (limit {INT4_MODEL_REL_L2}), max abs {float((got - want).abs().max()):.3e}, "
+        f"argmax agreement {agree:.4f}")
+    del deq, want
+    free_memory()
+    if not (torch.isfinite(got).all() and rel <= INT4_MODEL_REL_L2):
+        raise AssertionError(f"the int4 8B disagrees with its dequantised bf16 twin: rel {rel}")
+
+
+def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=True,
+                    compare_t2i=False):
+    """Quantize the 8B on the card (`entry.quantize`, timed, its bytes logged),
+    answer TEXT_PROMPTS (and T2I_PROMPTS) with the counters from 0 and check
+    the answers and the launches: the attention kernels as on the bf16
+    phases, and B6 exactly 7 n_layers + 1 times a forward for int4, never
+    for the others. Frees the quantized model; returns B6's launches."""
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import serve_t2i, serve_text
+    from mmada_tpu_torch.ops.quantization import nbytes
+
+    n = model.cfg.n_layers
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    qmodel = quantize(model, scheme)
+    torch.cuda.synchronize()
+    log(scheme, f"quantized on the card in {time.perf_counter() - t:.2f}s: params "
+        f"{nbytes(qmodel.params) / 1e9:.3f} GB ({nbytes(model.params) / 1e9:.3f} GB in bf16, "
+        f"{(torch.cuda.memory_allocated() - before) / 1e9:.3f} GB newly allocated); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    reset_counts()
+    t = time.perf_counter()
+    answers = serve_text(qmodel, TEXT_PROMPTS, **TEXT_SETTINGS)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t
+    text_launched = counts()
+    check_answers(answers, MMADA_8B)
+    log(scheme, f"text: {len(answers)} requests, {TEXT_SETTINGS}: {text_s:.2f}s "
+        f"({serving['bf16_text_s']:.2f}s in bf16); first answer ids "
+        f"{answers[0][:12].tolist()}; launches {text_launched}")
+    per_forward = 7 * n + 1 if scheme == "int4" else 0
+    text_forwards = TEXT_SETTINGS["steps"] * serving["n_batches"]
+    expect_launches(f"{scheme} text", text_launched, {
+        "one-pass": (serving["want_text"], 0, 0), "int4": (per_forward * text_forwards,)})
+    b6 = text_launched[4][0]
+    if t2i:
+        reset_counts()
+        t = time.perf_counter()
+        codes = serve_t2i(qmodel, T2I_PROMPTS, **T2I_SETTINGS)
+        torch.cuda.synchronize()
+        t2i_s = time.perf_counter() - t
+        launched = counts()
+        check_codes(codes, MMADA_8B)
+        log(scheme, f"t2i: {len(T2I_PROMPTS)} requests, {T2I_SETTINGS}: {t2i_s:.2f}s "
+            f"({serving['bf16_t2i_s']:.2f}s in bf16); {codes.unique().numel()} distinct codes; "
+            f"launches {launched}")
+        # every step is CFG-batched: one forward a step
+        expect_launches(f"{scheme} t2i", launched, {
+            "one-pass": (serving["want_t2i"], 0, 0),
+            "int4": (per_forward * T2I_SETTINGS["timesteps"],)})
+        b6 += launched[4][0]
+    if compare_t2i:
+        compare_int4_t2i_forward(qmodel)
+    del qmodel
+    free_memory()
+    return b6
 
 
 def check_codes(codes, vocab) -> None:
@@ -1348,10 +1694,11 @@ def train_phase(phase, model, steps, train, reset_counts, counts, plan=STAGE1):
 
 def expect_launches(phase, launched, want) -> None:
     """`launched` (counts()) must equal `want`: a dict from the tier and kind
-    ("one-pass", "one-pass bias", "long", "long bias") to (fwd, dq, dkv);
-    a tier and kind it does not name launched nothing."""
-    kinds = ("one-pass", "one-pass bias", "long", "long bias")
-    expected = tuple(want.get(kind, (0, 0, 0)) for kind in kinds)
+    ("one-pass", "one-pass bias", "long", "long bias") to (fwd, dq, dkv),
+    and "int4" to (B6,); a tier and kind it does not name launched
+    nothing."""
+    kinds = ("one-pass", "one-pass bias", "long", "long bias", "int4")
+    expected = tuple(want.get(kind, (0,) if kind == "int4" else (0, 0, 0)) for kind in kinds)
     if tuple(launched) != expected:
         raise AssertionError(f"{phase} launched {dict(zip(kinds, launched))}, expected "
                              f"{dict(zip(kinds, expected))}")
@@ -1368,15 +1715,17 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
         f"{sum(attn_ms.values()) / step_ms:.1%})")
 
 
-def kernel_record(name, source, line, launches, recs, main_rec) -> dict:
+def kernel_record(name, source, line, launches, recs, main_rec,
+                  replaces="flash_attention.py") -> dict:
     """One kernel's entry of the JSON line: times at its main-path case, the
     largest error over all its cases. `source` is the file in `ops/csrc` that
-    holds the kernel's body, `line` the TPU kernel's line(s)."""
+    holds the kernel's body, `replaces` the file in `mmada_tpu/ops` of the
+    TPU kernel and `line` its line(s)."""
     return {
         "name": name,
         "route": "cuda",
         "source": f"mmada_tpu_torch/ops/csrc/{source}",
-        "replaces": f"mmada_tpu/ops/flash_attention.py:{line}",
+        "replaces": f"mmada_tpu/ops/{replaces}:{line}",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["ms"],

@@ -2,7 +2,11 @@
 
 * `params_from_jax` takes the JAX package's LLaDA params as numpy arrays
   (`jax.device_get(params)`) and returns the port's: the layouts are the
-  same, so this is `torch.from_numpy` and a move, with no transposes.
+  same, so this is `torch.from_numpy` and a move, with no transposes. A
+  quantized leaf of the JAX package (`QuantizedTensor`, `W8A8Tensor`,
+  `Int4Tensor`, as `jax.device_get` returns them: the JAX dataclass with
+  numpy fields) becomes the port's class of the same name, its int8 codes
+  kept int8 and its scales fp32.
 * `named_from_jax` takes any tree of that shape (params, or the optax AdamW
   moments `mu` / `nu`, which mirror it) into the trainable layout's flat
   names (`llada.named_leaves` of `llada.split_layers`: one tensor per layer
@@ -24,6 +28,12 @@ import torch
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.models.llada import LLaDAConfig, Params, named_leaves
+from mmada_tpu_torch.ops import quantization as Q
+
+# the JAX package's quantized leaf classes, by name, and their fields
+_QUANTIZED = {"QuantizedTensor": (Q.QuantizedTensor, ("values", "scales")),
+              "W8A8Tensor": (Q.W8A8Tensor, ("values", "scales")),
+              "Int4Tensor": (Q.Int4Tensor, ("packed", "scales"))}
 
 
 def _tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -33,21 +43,32 @@ def _tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(arr, dtype=dtype, device=device)
 
 
+def _leaf(a, device: torch.device, dtype: torch.dtype):
+    """A weight as `dtype`, or a quantized leaf as the port's class with its
+    fields' own dtypes."""
+    quantized = _QUANTIZED.get(type(a).__name__)
+    if quantized is None:
+        return _tensor(a, device, dtype)
+    cls, fields = quantized
+    return cls(**{f: torch.from_numpy(np.array(getattr(a, f))).to(device) for f in fields})
+
+
 def params_from_jax(np_tree: Mapping, cfg: LLaDAConfig, device: DeviceLike = None,
                     dtype: torch.dtype = torch.float32) -> Params:
-    """The JAX `llada.init_params` / `load_pretrained` pytree (numpy leaves)
-    as the port's params on `device`."""
+    """The JAX `llada.init_params` / `load_pretrained` pytree (numpy leaves),
+    or a quantized one (`quantize_llada_params`), as the port's params on
+    `device`."""
     device = resolve_device(device)
     params: Params = {
         "wte": _tensor(np_tree["wte"], device, dtype),
         "ln_f": _tensor(np_tree["ln_f"], device, dtype),
         "blocks": {
-            name: _tensor(arr, device, dtype)
+            name: _leaf(arr, device, dtype)
             for name, arr in np_tree["blocks"].items()
         },
     }
     if not cfg.weight_tying:
-        params["ff_out"] = _tensor(np_tree["ff_out"], device, dtype)
+        params["ff_out"] = _leaf(np_tree["ff_out"], device, dtype)
     n = cfg.n_layers
     for name, t in params["blocks"].items():
         if t.shape[0] != n:

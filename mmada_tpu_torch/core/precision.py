@@ -7,6 +7,7 @@ policy's compute dtype.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -31,3 +32,16 @@ BF16 = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
 def policy_from_name(name: str) -> Policy:
     return {"fp32": FP32, "float32": FP32, "bf16": BF16, "bfloat16": BF16}[name]
+
+
+@contextlib.contextmanager
+def exact_bf16_reductions():
+    """cuBLAS bf16 products with fp32 reductions throughout (a reference
+    setting, as TF32 off is): the setting in which a kernel's bf16 output is
+    compared with its plain version's."""
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev

@@ -14,6 +14,12 @@ yaml config:
   * `train(model, flows, steps, ...)` builds the multi-task `Trainer` and
     takes `steps` optimizer steps over the raw batches in `flows` (cycled),
     updating the model's weights in place.
+  * `quantize(model, scheme, ...)` is the quantize branch of the JAX loader
+    (`mmada_tpu/serve/loader.py`, `model.mmada.quantize`): a model whose
+    block weights and vocab head are int8 (`"int8"`, `"w8"`), W8A8
+    (`"w8a8"`), SmoothQuant-migrated W8A8 (`"w8a8_smooth"`) or grouped int4
+    (`"int4"`, whose matmuls run kernel B6 on the card). `serve_text` and
+    `serve_t2i` take it as they take any model.
 
 All run on the card unless called with `device="cpu"`, and raise when the
 model's weights are elsewhere.
@@ -21,13 +27,18 @@ model's weights are elsewhere.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
+from mmada_tpu_torch.models.llada import calibration_stats
 from mmada_tpu_torch.models.mmada import MMadaModel
+from mmada_tpu_torch.ops.quantization import quantize_llada_params
+from mmada_tpu_torch.ops.smoothquant import migrate_params
 from mmada_tpu_torch.prompting.universal import (
     ByteTokenizer,
     SpecialIds,
@@ -138,3 +149,54 @@ def train(model: MMadaModel, flows: Sequence[Mapping], steps: int,
                       optimizer=optimizer, lr_scheduler=lr_scheduler, log_every=log_every)
     trainer.fit(itertools.islice(itertools.cycle(flows), steps), rng_seed=seed)
     return trainer
+
+
+QUANT_SCHEMES = ("int8", "w8", "w8a8", "w8a8_smooth", "int4")
+
+
+def quantize(model: MMadaModel, scheme: str, smoothquant_calib=None,
+             smoothquant_alpha: float = 0.5) -> MMadaModel:
+    """`model` with its block matmul weights and vocab head quantized by
+    `scheme` (QUANT_SCHEMES); the embedding and, but for "w8a8_smooth" (whose
+    migration rescales them), the norms are shared with `model`, not copied.
+    "w8a8_smooth" calibrates on `smoothquant_calib` ((N, L) token ids, or the
+    path of an .npy of them) or on the synthetic batches of
+    `calibration_batches`, in the model's own policy."""
+    if scheme not in QUANT_SCHEMES:
+        raise ValueError(f"unknown quantization scheme {scheme!r}; one of {QUANT_SCHEMES}")
+    if scheme == "w8a8_smooth":
+        # calibrate -> migrate -> quantize to W8A8 (the head included)
+        stats = calibration_stats(model.params, model.cfg,
+                                  calibration_batches(model.cfg, model.vocab, smoothquant_calib),
+                                  policy=model.policy)
+        params = quantize_llada_params(
+            migrate_params(model.params, model.cfg, stats, alpha=float(smoothquant_alpha)),
+            activations=True)
+    else:
+        params = quantize_llada_params(model.params, activations=scheme == "w8a8",
+                                       bits=4 if scheme == "int4" else 8)
+    return dataclasses.replace(model, params=params)
+
+
+def calibration_batches(arch, vocab, calib=None) -> list[np.ndarray]:
+    """SmoothQuant calibration ids (`loader._calibration_batches`): up to 16
+    rows of `calib` in batches of 4, else two deterministic synthetic
+    batches, a text batch and a t2i-shaped frame (text prefix, image-code
+    span, masks)."""
+    if calib is not None:
+        ids = np.load(calib) if isinstance(calib, str) else np.asarray(calib)
+        ids = ids.astype(np.int32)
+        if ids.ndim != 2:
+            raise ValueError(f"smoothquant_calib must be (N, L), got {ids.shape}")
+        return [ids[i:i + 4] for i in range(0, min(len(ids), 16), 4)]
+    rng = np.random.default_rng(0)
+    text_hi = min(vocab.text_vocab_size, arch.vocab_size) - 1
+    text = rng.integers(3, text_hi, (2, 128), dtype=np.int32)
+    frame = rng.integers(3, text_hi, (2, 160), dtype=np.int32)
+    img_lo = vocab.image_offset
+    img_hi = min(img_lo + vocab.image_codebook_size, arch.vocab_size)
+    if img_lo < img_hi:
+        frame[:, 32:96] = rng.integers(img_lo, img_hi, (2, 64), dtype=np.int32)
+    if vocab.mask_token_id < arch.vocab_size:
+        frame[:, 96:] = vocab.mask_token_id
+    return [text, frame]

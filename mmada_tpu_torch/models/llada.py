@@ -15,8 +15,11 @@ stack) and an optimizer's in-place updates land in the storage serving
 reads. `forward` takes either form. RoPE rides into the attention call,
 which rotates q and k inside the kernel's C entry. `remat` recomputes each
 layer in the backward (`torch.utils.checkpoint`, the counterpart of
-`jax.checkpoint` in `_wrap_remat`). No KV cache and no quantized weights
-here: those are later slices.
+`jax.checkpoint` in `_wrap_remat`). Every block matmul and the vocab head go
+through `ops/quantization.py`'s dispatch (`maybe_matmul` / `multi_matmul`),
+so a weight may be a quantized leaf (int8, W8A8, int4: kernel B6) or a
+W8A8 training tag; a plain tensor takes `x @ w` as before. No KV cache here:
+that is a later slice.
 """
 
 from __future__ import annotations
@@ -33,6 +36,12 @@ from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import FP32, Policy
 from mmada_tpu_torch.ops.attention import NEG_INF, apply_rope, bidirectional_attention
 from mmada_tpu_torch.ops.norms import layer_norm, rms_norm
+from mmada_tpu_torch.ops.quantization import (
+    Int4Tensor,
+    QuantizedTensor,
+    maybe_matmul,
+    multi_matmul,
+)
 
 Params = dict[str, Any]
 
@@ -281,11 +290,12 @@ def _qkv(cfg: LLaDAConfig, lp: Params, h: torch.Tensor):
     b, l, d = h.shape
     nh, kvh, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
     if cfg.block_type == "llama":
-        q, k, v = h @ lp["q_proj"], h @ lp["k_proj"], h @ lp["v_proj"]
+        # one activation-quantize pass for q/k/v under W8A8
+        q, k, v = multi_matmul(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
         if "q_bias" in lp:
             q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
     else:
-        fused = h @ lp["att_proj"]
+        fused = maybe_matmul(h, lp["att_proj"])
         if "att_proj_bias" in lp:
             fused = fused + lp["att_proj_bias"]
         q, k, v = fused.split([d, kvh * hd, kvh * hd], dim=-1)
@@ -300,14 +310,25 @@ def _qkv(cfg: LLaDAConfig, lp: Params, h: torch.Tensor):
     return q, k, v
 
 
-def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _tap(taps: Optional[dict], site: str, t: torch.Tensor) -> None:
+    """SmoothQuant calibration: append t's per-channel absmax over (batch,
+    seq), in fp32, to `taps[site]` (when there are taps)."""
+    if taps is not None:
+        taps[site].append(t.float().abs().amax(dim=(0, 1)))
+
+
+def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor,
+         taps: Optional[dict] = None) -> torch.Tensor:
     h = _norm(cfg, x, lp.get("ff_norm"))
+    _tap(taps, "mlp_in", h)
     if cfg.block_type == "llama":
         # act(ff_proj(h)) * up_proj(h): ff_proj is the gate input
-        h = _activation(cfg, h @ lp["ff_proj"]) * (h @ lp["up_proj"])
+        gate, up = multi_matmul(h, (lp["ff_proj"], lp["up_proj"]))
+        h = _activation(cfg, gate) * up
     else:
-        h = _activation(cfg, h @ lp["ff_proj"])
-    return x + h @ lp["ff_out"]
+        h = _activation(cfg, maybe_matmul(h, lp["ff_proj"]))
+    _tap(taps, "mlp_mid", h)
+    return x + maybe_matmul(h, lp["ff_out"])
 
 
 def _block(
@@ -317,9 +338,11 @@ def _block(
     bias: Optional[torch.Tensor],
     sin: torch.Tensor,
     cos: torch.Tensor,
+    taps: Optional[dict] = None,  # calibration_stats: the quantized matmuls' inputs
 ) -> torch.Tensor:
     b, l, d = x.shape
     h = _norm(cfg, x, lp.get("attn_norm"))
+    _tap(taps, "qkv_in", h)
     q, k, v = _qkv(cfg, lp, h)
     if cfg.rope_full_precision:
         att = bidirectional_attention(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
@@ -327,8 +350,9 @@ def _block(
         q, k = apply_rope(q, k, sin, cos, full_precision=False)
         att = bidirectional_attention(q, k, v, bias=bias)
     att = att.transpose(1, 2).reshape(b, l, d)
-    x = x + att @ lp["attn_out"]
-    return _mlp(cfg, lp, x)
+    _tap(taps, "ctx", att)
+    x = x + maybe_matmul(att, lp["attn_out"])
+    return _mlp(cfg, lp, x, taps)
 
 
 def prepare_attention_bias(
@@ -363,13 +387,16 @@ def forward(
     logit_positions: Optional[tuple[int, int]] = None,
     remat=False,  # False | True | "full" (_check_remat)
     return_normed_hidden: bool = False,
+    taps: Optional[dict] = None,
 ) -> torch.Tensor:
     """Logits `(B, L, V)`, or `(B, L, stop - start)` with
     `logit_window=(start, stop)` over the vocab; `logit_positions=(start,
     LENGTH)` restricts the head to that position span, giving
     `(B, LENGTH, ...)`. `return_normed_hidden=True` stops after the final
     norm and returns the `(B, L, D)` hidden states (the chunked training
-    loss applies the head itself)."""
+    loss applies the head itself). `taps` (lists under CALIBRATION_SITES)
+    gain each layer's per-channel input absmax at its quantized matmuls
+    (`calibration_stats`, which runs without autograd, so without remat)."""
     remat = _check_remat(remat)
     x = params["wte"][input_ids].to(policy.compute_dtype)
     if cfg.input_emb_norm:
@@ -386,7 +413,7 @@ def forward(
         if remat:
             x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False)
         else:
-            x = _block(cfg, x, lp, bias, sin, cos)
+            x = _block(cfg, x, lp, bias, sin, cos, taps)
 
     if logit_positions is not None:
         # the head runs only over the span the sampler reads
@@ -397,6 +424,31 @@ def forward(
     if return_normed_hidden:
         return x
     return _head(params, cfg, x, logit_window, policy)
+
+
+# the input of every quantized block matmul, as SmoothQuant's migration reads
+# it: q/k/v (or att_proj), attn_out, ff_proj/up_proj, ff_out
+CALIBRATION_SITES = ("qkv_in", "ctx", "mlp_in", "mlp_mid")
+
+
+@torch.no_grad()
+def calibration_stats(params: Params, cfg: LLaDAConfig, calib_batches,
+                      policy: Policy = FP32) -> dict:
+    """SmoothQuant calibration (`collect_stats` of the JAX package's
+    `ops/smoothquant.py`): `forward` over each (B, L) batch of ids (numpy or
+    torch) without autograd, the max over batches of each site's per-channel
+    input absmax: {qkv_in, ctx, mlp_in (n, d), mlp_mid (n, f_out), head_in
+    (d,)}, fp32 on the params' device."""
+    device = params["wte"].device
+    acc = None
+    for ids in calib_batches:
+        taps: dict = {site: [] for site in CALIBRATION_SITES}
+        hidden = forward(params, cfg, torch.as_tensor(ids, dtype=torch.long).to(device),
+                         policy=policy, return_normed_hidden=True, taps=taps)
+        stats = {site: torch.stack(t) for site, t in taps.items()}
+        stats["head_in"] = hidden.float().abs().amax(dim=(0, 1))
+        acc = stats if acc is None else {k: torch.maximum(acc[k], stats[k]) for k in acc}
+    return acc
 
 
 def _check_remat(remat) -> bool:
@@ -422,10 +474,23 @@ def _head(
     policy: Policy,
 ) -> torch.Tensor:
     head = params["wte"].T if cfg.weight_tying else params["ff_out"]
-    if logit_window is not None:
-        start, stop = logit_window
-        head = head[:, start:stop]
-    logits = (x @ head.to(x.dtype)).to(policy.logits_dtype)
+    if isinstance(head, (QuantizedTensor, Int4Tensor)):
+        if logit_window is not None:
+            # window the head's output channels (vocab ids): the last dim of
+            # the codes and of their scales, read in place
+            start, stop = logit_window
+            if isinstance(head, Int4Tensor):
+                head = Int4Tensor(packed=head.packed[..., :, start:stop],
+                                  scales=head.scales[..., :, start:stop])
+            else:
+                head = type(head)(values=head.values[..., :, start:stop],
+                                  scales=head.scales[..., start:stop])
+        logits = maybe_matmul(x, head).to(policy.logits_dtype)
+    else:
+        if logit_window is not None:
+            start, stop = logit_window
+            head = head[:, start:stop]
+        logits = (x @ head.to(x.dtype)).to(policy.logits_dtype)
     if cfg.scale_logits:
         logits = logits * (1.0 / math.sqrt(cfg.d_model))
     return logits

@@ -24,6 +24,7 @@ import torch
 
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
+from mmada_tpu_torch.ops.quantization import tag_w8a8_ste
 from mmada_tpu_torch.sampling.schedules import cosine_schedule
 from mmada_tpu_torch.training import losses as L
 from mmada_tpu_torch.training import masking
@@ -67,7 +68,7 @@ class StepConfig:
     loss_chunk: int = 0          # > 0: position-chunked vocab head
     log_param_grad_norms: bool = False
     skip_nonfinite_updates: bool = True
-    forward_quantize: str = "none"  # "w8a8" STE forward: not ported yet
+    forward_quantize: str = "none"  # "w8a8": the block matmuls' STE int8 forward
 
 
 def corrupt_batch(model: MMadaModel, sc: StepConfig, batch: dict,
@@ -140,10 +141,9 @@ class TrainStep:
     (the tests hand it one the JAX package corrupted)."""
 
     def __init__(self, model_template: MMadaModel, optimizer, sc: StepConfig):
-        if sc.forward_quantize != "none":
-            raise NotImplementedError(
-                f"forward_quantize={sc.forward_quantize!r} (the w8a8 STE forward, "
-                "ROADMAP A.8) is not ported yet")
+        if sc.forward_quantize not in ("none", "w8a8"):
+            raise ValueError(f"forward_quantize must be 'none' or 'w8a8', "
+                             f"got {sc.forward_quantize!r}")
         # no weights in the template: the state's leaves are the live ones
         self.model = dataclasses.replace(model_template, params=None)
         self.optimizer = optimizer
@@ -151,6 +151,11 @@ class TrainStep:
 
     def loss(self, params, prepared: dict):
         sc = self.sc
+        if sc.forward_quantize == "w8a8":
+            # the block matmuls run W8A8 forward (straight-through gradients
+            # to the trainable leaves, which the tags wrap without a copy);
+            # the vocab head stays as it is
+            params = tag_w8a8_ste(params)
         model = dataclasses.replace(self.model, params=params)
         _, loss_t2i, loss_lm, loss_mmu = L.forward_process(
             model, prepared["input_ids"], prepared["labels"],

@@ -1,9 +1,10 @@
 """Tests of the port that need the card: the Hopper kernels (unbiased and
-biased, the one-pass tier and the long tier) against their plain versions,
-their refusals, the routing by length, gradients through attention, the
-served and trained paths through the kernels (with masks too, and on a
-frame past 4096 tokens), the bf16-only model on the card, and the launches'
-device.
+biased, the one-pass tier and the long tier; the int4 matmul B6) against
+their plain versions, their refusals, the routing by length, gradients
+through attention, the served and trained paths through the kernels (with
+masks too, on a frame past 4096 tokens, and on int4 weights), the W8A8
+int8 product on the card, the bf16-only model on the card, and the
+launches' device.
 
 They skip without a CUDA device (the kernel has no CPU mode). This file
 imports neither jax nor the JAX package, so it also runs beside the card,
@@ -17,9 +18,9 @@ import torch
 
 import dataclasses
 
-from mmada_tpu_torch.core.precision import BF16, FP32
+from mmada_tpu_torch.core.precision import BF16, FP32, exact_bf16_reductions
 from mmada_tpu_torch.core.vocab import tiny_layout
-from mmada_tpu_torch.entry import serve_t2i, serve_text, train
+from mmada_tpu_torch.entry import quantize, serve_t2i, serve_text, train
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.attention import KernelAttention, bidirectional_attention
@@ -42,6 +43,8 @@ from mmada_tpu_torch.ops.flash_attention_long import (
     flash_attention_long,
     flash_attention_long_reference,
 )
+from mmada_tpu_torch.ops import quantization as Q
+from mmada_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, pack_int4
 from mmada_tpu_torch.prompting.universal import SpecialIds
 
 pytestmark = pytest.mark.cuda
@@ -753,3 +756,134 @@ def test_long_frames_go_through_the_long_kernels(cuda_device, masked):
     assert counts() == (c1, (c0[0] + 2 * n, c0[1] + n, c0[2] + n))
     h = trainer.history[0]
     assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
+
+
+# --------------------------------------------------------------------- int4
+
+# B6's dequantised bf16 weight is bit for bit the plain version's, and both
+# accumulate in fp32: only the order of the sums differs, so each bf16 output
+# is within one bf16 ulp of the plain version's, plus 2^-14 where
+# cancellation leaves an entry small. The plain version's bf16 matmul is
+# held to full fp32 reductions for the comparison.
+INT4_ABS_FLOOR = 2.0 ** -14
+
+
+@pytest.fixture
+def cuda_fp32_reductions(cuda_device):
+    with exact_bf16_reductions():
+        yield cuda_device
+
+
+def _int4_weight(device, shape, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    return pack_int4(torch.randn(shape, generator=g, device=device) * 0.02)
+
+
+def _int4_x(device, m, k, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randn((m, k), generator=g, device=device).bfloat16()
+
+
+def assert_int4_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    excess = (got - want).abs() - torch.ldexp(torch.ones_like(got), exp - 8)
+    assert float(excess.max()) <= INT4_ABS_FLOOR
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (477, 4096, 4096), (477, 4096, 12288), (477, 12288, 4096), (96, 4096, 134656),
+    (4620, 4096, 12288), (16, 4096, 134656), (1, 4096, 4096), (17, 4096, 4096),
+    (130, 4096, 4096), (200, 128, 256),
+])
+def test_int4_kernel_matches_plain_version(cuda_fp32_reductions, m, k, n):
+    device = cuda_fp32_reductions
+    packed, scales = _int4_weight(device, (k, n), seed=m + n)
+    x = _int4_x(device, m, k, seed=k)
+    before = int4_matmul.launches
+    got = int4_matmul(x, packed, scales)
+    assert int4_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert_int4_close(got, int4_matmul_reference(x, packed, scales))
+
+
+def test_int4_kernel_reads_windows_and_layers_in_place(cuda_fp32_reductions):
+    """The t2i head's column window of a 134,656-wide packed head, and one
+    layer of a stacked weight, as strided views (no copy); and x with
+    leading dims."""
+    device = cuda_fp32_reductions
+    packed, scales = _int4_weight(device, (4096, 134656), seed=1)
+    x = _int4_x(device, 4096, 4096, seed=2).view(4, 1024, 4096)
+    win_p, win_s = packed[:, 126464:134656], scales[:, 126464:134656]
+    assert not win_p.is_contiguous()
+    got = int4_matmul(x, win_p, win_s)
+    assert got.shape == (4, 1024, 8192)
+    assert_int4_close(got, int4_matmul_reference(x, win_p, win_s))
+    stacked_p, stacked_s = _int4_weight(device, (3, 4096, 4096), seed=3)
+    x = _int4_x(device, 300, 4096, seed=4)
+    assert_int4_close(int4_matmul(x, stacked_p[1], stacked_s[1]),
+                      int4_matmul_reference(x, stacked_p[1], stacked_s[1]))
+
+
+def test_int4_kernel_refuses_what_it_cannot_take(cuda_device):
+    packed, scales = _int4_weight(cuda_device, (256, 256), seed=7)
+    x = _int4_x(cuda_device, 8, 256, seed=8)
+    small_p, small_s = _int4_weight(cuda_device, (64, 128), seed=9)   # per-channel
+    before = int4_matmul.launches
+    for call, err in (
+            (lambda: int4_matmul(x.float(), packed, scales), TypeError),      # fp32 x
+            (lambda: int4_matmul(x[:, :128], packed, scales), ValueError),     # K vs packed
+            (lambda: int4_matmul(x[:, :64], small_p, small_s), ValueError),    # K % 128
+            (lambda: int4_matmul(x, packed[:, :192], scales[:, :192]), ValueError),  # N % 128
+            (lambda: int4_matmul(x, packed, scales[:1]), ValueError),          # scale rows
+            (lambda: int4_matmul(x, packed.cpu(), scales), ValueError),        # devices
+            (lambda: int4_matmul(x, packed, scales.double()), TypeError)):
+        with pytest.raises(err):
+            call()
+    assert int4_matmul.launches == before
+
+
+def test_int4_served_requests_launch_b6_per_matmul(cuda_device):
+    """A 2-layer int4 model (head_dim 128, vocab a 128 multiple) on the card:
+    every text forward launches B6 once per block matmul and once for the
+    head (7 x 2 + 1); a t2i forward once per block matmul, its head window
+    (the 64 image ids of the tiny vocab, not a 128 multiple) taking x @ the
+    dequantised weight, the JAX package's rule."""
+    vocab, sp = _tiny_special()
+    cfg = llada.tiny_config(vocab_size=384, d_model=256, n_heads=2, mlp_hidden_size=512)
+    model = quantize(MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                                     generator=torch.Generator(cuda_device).manual_seed(0),
+                                     policy=BF16), "int4")
+    per_forward = 7 * cfg.n_layers + 1
+    before = int4_matmul.launches
+    answers = serve_text(model, ["abc", "xyz"], gen_length=16, steps=8, block_length=8)
+    assert int4_matmul.launches - before == 8 * per_forward
+    assert all((a != vocab.mask_token_id).all() for a in answers)
+    before = int4_matmul.launches
+    codes = serve_t2i(model, ["a cat", "a dog"], special_ids=sp, num_vq_tokens=16,
+                      max_text_len=8, timesteps=4, guidance_scale=2.0)
+    assert int4_matmul.launches - before == 4 * (per_forward - 1)
+    assert ((codes >= 0) & (codes < vocab.image_codebook_size)).all()
+
+
+@pytest.mark.parametrize("m,n,window", [(1, 4096, None), (16, 4096, None),
+                                        (96, 134656, (126464, 134656)), (40, 1000, None)])
+def test_w8a8_int8_product_on_the_card_equals_the_cpu(cuda_device, m, n, window):
+    """The int8 x int8 product (`torch._int_mm`, its operands zero-padded
+    where the card's call wants it: M > 16, widths multiples of 8) gives the
+    CPU's int32 sums and W8A8's output bits, for few rows and a column window
+    of a head."""
+    g = torch.Generator().manual_seed(m)
+    x = torch.randn((m, 4096), generator=g).bfloat16()
+    w = Q._quantize_w8a8(torch.randn((4096, n), generator=g) * 0.02)
+    w_card = Q.W8A8Tensor(values=w.values.to(cuda_device), scales=w.scales.to(cuda_device))
+    if window is not None:   # the windowed views, taken on each device
+        w, w_card = (Q.W8A8Tensor(values=t.values[:, window[0]:window[1]],
+                                  scales=t.scales[window[0]:window[1]]) for t in (w, w_card))
+        assert not w_card.values.is_contiguous()
+    x_q, x_scale = Q.quantize_activations(x)
+    want = Q.int8_matmul(x_q, w.values)
+    got = Q.int8_matmul(x_q.to(cuda_device), w_card.values)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(Q.w8a8_matmul(x.to(cuda_device), w_card).cpu(), Q.w8a8_matmul(x, w))

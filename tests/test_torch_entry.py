@@ -249,8 +249,9 @@ def test_serving_rejects_weights_on_another_device(models):
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
     """In a fresh interpreter where jax, yaml, PIL and mmada_tpu cannot be
-    imported, the port imports, runs a tiny forward, takes a train step and
-    runs attention forward and backward at 4,224 tokens (the long tier)."""
+    imported, the port imports, runs a tiny forward, takes a train step,
+    runs attention forward and backward at 4,224 tokens (the long tier),
+    and runs an int4 forward and a W8A8 forward (`entry.quantize`)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -303,6 +304,15 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "out = bidirectional_attention(q, k, k, rope_sin=sin, rope_cos=cos)\n"
         "dq, dk = torch.autograd.grad(out.square().sum(), (q, k))\n"
         "assert out.shape == q.shape and all(torch.isfinite(t).all() for t in (out, dq, dk))\n"
+        "from mmada_tpu_torch.ops import quantization, smoothquant, int4_matmul\n"
+        "qcfg = llada.tiny_config(vocab_size=384, d_model=128, mlp_hidden_size=256)\n"
+        "qmodel = MMadaModel.init(qcfg, vocab, device='cpu',\n"
+        "                         generator=torch.Generator().manual_seed(5))\n"
+        "for scheme, cls in (('int4', quantization.Int4Tensor), ('w8a8', quantization.W8A8Tensor)):\n"
+        "    qm = mmada_tpu_torch.entry.quantize(qmodel, scheme)\n"
+        "    assert isinstance(qm.params['blocks']['ff_out'], cls)\n"
+        "    out = qm.forward(ids)\n"
+        "    assert out.shape == (2, 10, 384) and torch.isfinite(out).all()\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
@@ -339,7 +349,7 @@ def test_nvcc_command_targets_sm90a():
     assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert cmd[-1].endswith(os.path.join("csrc", "flash_attention_fwd.cu"))
     assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
-                                "flash_attention_long"]
+                                "flash_attention_long", "int4_matmul"]
     # the C sources include CUDA headers only (no torch/extension.h): seconds to build
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:

@@ -374,10 +374,11 @@ def test_training_block_max_grad_norm_clips(models):
 
 # -------------------------------------------------------------- train step
 
-def _step_pair(models, key_seed=1, every_k=1, log_norms=False):
+def _step_pair(models, key_seed=1, every_k=1, log_norms=False, forward_quantize="none"):
     """(JAX step fn + state, port TrainStep + state) on the same weights."""
     jmodel, _ = models
-    jsc = jax_train_step.StepConfig(**SIZES, log_param_grad_norms=log_norms)
+    jsc = jax_train_step.StepConfig(**SIZES, log_param_grad_norms=log_norms,
+                                    forward_quantize=forward_quantize)
     jopt = jax_train_step.with_grad_accumulation(
         jax_optimizers.adamw(LR, params_for_mask=jmodel.params), every_k)
     jstate = jax_train_step.TrainState.create(jmodel.params, jopt)
@@ -385,7 +386,8 @@ def _step_pair(models, key_seed=1, every_k=1, log_norms=False):
     model = _port_model(models)
     opt = with_grad_accumulation(optimizers.AdamW(LR), every_k)
     state = TrainState.create(model.params, opt)
-    step = make_train_step(model, opt, StepConfig(**SIZES, log_param_grad_norms=log_norms))
+    step = make_train_step(model, opt, StepConfig(**SIZES, log_param_grad_norms=log_norms,
+                                                  forward_quantize=forward_quantize))
     return (jstep, jstate), (step, state)
 
 
@@ -435,6 +437,31 @@ def test_masked_train_step_matches_jax(models):
     (_, _), (step0, state0) = _step_pair(models)
     _, m0 = step0.apply(state0, prepared)
     assert abs(float(m0["loss_t2i"]) - float(m["loss_t2i"])) > 1e-4
+
+
+def test_w8a8_train_step_matches_jax(models):
+    """`forward_quantize="w8a8"`: the block matmuls run the W8A8 forward with
+    straight-through gradients. One step on a batch the JAX package
+    corrupted: loss, parts and gradient norm within 1e-5 of JAX's
+    `make_train_step`, every weight after the update within 1e-5; the tags
+    wrap the trainable leaves (no copy) and leave the head alone; the
+    quantized forward computes another loss than the plain one."""
+    from mmada_tpu_torch.ops.quantization import tag_w8a8_ste
+
+    (jstep, jstate), (step, state) = _step_pair(models, forward_quantize="w8a8")
+    tagged = tag_w8a8_ste(state.params)
+    assert tagged["layers"][0]["q_proj"].values is state.params["layers"][0]["q_proj"]
+    assert tagged["ff_out"] is state.params["ff_out"]
+    batch, key = _toy_batch(4), jax.random.key(9)
+    prepared = _jax_corrupted(models[0], batch, key)
+    (_, _), (plain, _) = _step_pair(models)
+    loss_plain, _ = plain.loss(state.params, prepared)
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    state, m = step.apply(state, prepared)
+    for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    _assert_params_close(state, jstate)
+    assert float(loss_plain.detach()) != float(m["loss"])
 
 
 def test_train_step_remat_equals_no_remat(models):
@@ -525,8 +552,8 @@ def test_per_kind_grad_norms_sum_layers():
 
 def test_unported_modes_raise(models):
     model = _port_model(models)
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, optimizers.AdamW(LR), StepConfig(**SIZES, forward_quantize="w8a8"))
+    with pytest.raises(ValueError, match="forward_quantize"):
+        make_train_step(model, optimizers.AdamW(LR), StepConfig(**SIZES, forward_quantize="w4"))
     for mode in ("dots", "auto"):
         with pytest.raises(NotImplementedError):
             llada.forward(model.params, model.cfg, torch.zeros(1, 4, dtype=torch.long),
