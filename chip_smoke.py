@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
-holds each kernel against its plain PyTorch version at the shapes the
-serving and training paths give it: the one-pass tier (B1, B2 with a bias,
-dq and dkv without and with a bias) and the long tier past 4096 tokens (B4,
-B5-dq and B5-dkv, without and with a bias, at 8,192 tokens, at 16,384, under
-GQA and rectangular), the one-pass tier on an unaligned length past 4096,
-and the int4 matmul (B6) at the shapes of the int4 model's matmuls. It runs
+checks that the wgmma kernels B1 and B4 hold `wgmma` (HGMMA) and TMA load
+(UTMALDG) instructions in their SASS, holds each kernel against its plain
+PyTorch version (B1 also by the share of its outputs that differ) at the
+shapes the serving and training paths give it: the one-pass tier (B1, B2
+with a bias, dq and dkv without and with a bias) and the long tier past
+4096 tokens (B4, B5-dq and B5-dkv, without and with a bias, at 8,192 tokens,
+at 16,384, under GQA and rectangular), the one-pass tier on an unaligned
+length past 4096, and the int4 matmul (B6) at the shapes of the int4
+model's matmuls. It runs
 and trains a small model through the kernels against the fp32 CPU path
 (without and with attention masks; an int4 forward through B6; a W8A8
 straight-through train step), builds the full-width 8B (random weights, made
@@ -51,6 +54,11 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak (data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s (data sheet)
 KERNEL_ATOL = 3e-2         # bf16 output: a few bf16 ulps at |out| ~ 1
 KERNEL_RTOL = 3e-2
+# B1 normalises p in fp32 before its bf16 cast, as its plain version does, so
+# few bf16 outputs differ (sums in another order, exp2 and a reciprocal
+# multiply for exp and the division); an online softmax that divided at the
+# end would pass the atol/rtol bar but move about half of them
+B1_DIFFER_SHARE = 0.05
 SMALL_MODEL_REL_L2 = 5e-2  # bf16 weights/activations vs the fp32 reference
 # backward kernels: p and ds enter the tensor cores rounded to bf16 (2^-9
 # relative per term) and dq/dk/dv are bf16, so each is held normwise, and
@@ -334,8 +342,10 @@ def check_kernel(cases):
         ref = flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
+        share = differing_share(out, ref)
         ok = bool(torch.isfinite(out).all()) and bool(
             (err <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
+        ok = ok and (bias is not None or share <= B1_DIFFER_SHARE)
         max_err = float(err.max())
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, **kw), 3, 1)
@@ -348,7 +358,7 @@ def check_kernel(cases):
         bound_ms, bound_by = attention_bound(b, h, kvh, lq, lk, rope, bias)
         rec = dict(tag=tag, shape=[b, h, kvh, lq, lk], rope=rope,
                    bias=None if bias is None else list(bias.shape), max_abs_err=max_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   differing_share=share, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
         if bias is not None:
             rec["rows_without_an_allowed_key"] = int(
@@ -357,14 +367,24 @@ def check_kernel(cases):
         if not ok:
             raise AssertionError(
                 f"flash_attention disagrees with its plain version on {tag}: "
-                f"max abs err {max_err} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL})")
+                f"max abs err {max_err} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}), differing "
+                f"share {share} (B1: at most {B1_DIFFER_SHARE})")
         records.append(rec)
     return records
 
 
+def differing_share(got, want) -> float:
+    """The share of output elements that differ from the plain version's."""
+    return float((got != want).float().mean())
+
+
 def check_zero_bias(h: int) -> None:
-    """B2 with a zero bias is B1 bit for bit (adding 0.0f to a score is
-    exact), at the served t2i CFG shape."""
+    """At the served t2i CFG shape: B2 with a zero bias against B1, at B1's
+    bars (atol/rtol and the differing share: the two kernels compute one
+    function with different designs, so they agree as each agrees with the
+    plain version); and B2 with a zero (B, 1, L, L) bias against B2 with a
+    zero (1, 1, L, L) bias, bit for bit (adding 0.0f to a score is exact,
+    and a broadcast axis only changes the bias's strides)."""
     import torch
 
     from mmada_tpu_torch.ops.flash_attention import flash_attention
@@ -373,12 +393,59 @@ def check_zero_bias(h: int) -> None:
     q, k, v, sin, cos = attention_case(4, h, h, t2i_len, t2i_len, True, seed=99)
     zero = torch.zeros((4, 1, t2i_len, t2i_len), device="cuda")
     b2 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero)
+    b2_row = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero[:1])
     b1 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
-    same = bool(torch.equal(b1, b2))
-    log("kernel", f"zero bias vs no bias at (4, {h}, {h}, {t2i_len}, {t2i_len}): "
+    err = (b2.float() - b1.float()).abs()
+    close = bool((err <= KERNEL_ATOL + KERNEL_RTOL * b1.float().abs()).all())
+    share = differing_share(b2, b1)
+    same = bool(torch.equal(b2, b2_row))
+    log("kernel", f"zero bias at (4, {h}, {h}, {t2i_len}, {t2i_len}): B2 vs B1 max abs err "
+        f"{float(err.max())}, differing share {share}; B2 (4, 1, L, L) vs (1, 1, L, L) bias "
         f"bit for bit {same}")
-    if not same:
-        raise AssertionError("B2 with a zero bias differs from B1")
+    if not (close and share <= B1_DIFFER_SHARE and same):
+        raise AssertionError("B2 with a zero bias differs from B1 beyond B1's bars, or from "
+                             "itself with a zero bias of another broadcast shape")
+
+
+def check_sass() -> dict:
+    """Per wgmma kernel of the built B1 and B4 libraries, the count of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS
+    (`cuobjdump -sass`); fails if either is missing."""
+    import os
+
+    from mmada_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("flash_attention_fwd", "flash_attention_long"):
+        sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        func = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :")[1].strip()
+                func = func if "wgmma_kernel" in func else None
+                if func:
+                    counts[func] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+            elif func:
+                for op in counts[func]:
+                    counts[func][op] += op in line
+    for name, text in _build.build_logs.items():  # ptxas -v of a cold build
+        func = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                func = line.split("'")[1]
+            elif func in counts and ("registers" in line or "spill" in line):
+                counts[func]["ptxas"] = counts[func].get("ptxas", "") + line.strip() + "; "
+    for func, c in counts.items():
+        log("sass", f"{func}: {c}")
+    wanted = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128",
+              "attn_long_fwd_wgmma_kernelILi64", "attn_long_fwd_wgmma_kernelILi128")
+    for want in wanted:
+        found = [c for f, c in counts.items() if want in f]
+        if not found or not (found[0]["HGMMA"] and found[0]["UTMALDG"]):
+            raise AssertionError(f"{want}: no HGMMA or no UTMALDG in its SASS ({found})")
+    return counts
 
 
 def check_small_model(masked: bool):
@@ -826,8 +893,10 @@ def check_unaligned_long(h: int):
     launched = tuple(f.launches - c for f, c in zip(kernels, before))
     want = by_heads(flash_attention_reference, h, h, q, k, v, sin, cos)
     err = (out.float() - want.float()).abs()
+    share = differing_share(out, want)
     fwd_ok = bool(torch.isfinite(out).all()) and bool(
-        (err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all())
+        (err <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all()) and (
+        share <= B1_DIFFER_SHARE)
     want_grads = attention_backward(
         q, k, v, out, dout, sin, cos, None,
         bwd=lambda *a: by_heads(flash_attention_bwd_reference, h, h, *a))
@@ -835,6 +904,7 @@ def check_unaligned_long(h: int):
                                                            want_grads)}
     rec = dict(tag=f"unaligned L{l} (B1, B3)", shape=[1, h, h, l, l],
                launches_b1_dq_dkv_b4_b5dq_b5dkv=launched, fwd_max_abs_err=float(err.max()),
+               fwd_differing_share=share,
                errors={k: [e[0], e[1]] for k, e in errors.items()})
     log("unaligned", json.dumps(rec))
     if launched != (1, 1, 1, 0, 0, 0) or not fwd_ok or not all(e[2] for e in errors.values()):
@@ -1247,6 +1317,7 @@ def main() -> int:
                 log("build", f"  {line.strip()}")
     if not built:
         log("build", "libraries already present (not a cold build)")
+    check_sass()
 
     # 3. the kernels against their plain versions at the paths' shapes; a
     # small model through them, served and trained, without and with masks

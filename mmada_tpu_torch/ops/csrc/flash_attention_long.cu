@@ -39,8 +39,25 @@
 // is the finite min (a query row a mask shuts out entirely) gets p = 1 per
 // key and averages v over its Lk keys, as the TPU tiers do on aligned L.
 //
-// Design, as B1 and B3: one block per (64-row query tile, head, batch), four
-// warps of 16 rows, q (and dO) tiles in shared memory, K/V tiles of 64 keys
+// B4 (attn_long_fwd_wgmma_kernel) is the attention skeleton of
+// hopper_sm90.cuh with one online pass: one block per (128-row query tile,
+// head, batch), pairs of blocks in a cluster sharing each K/V tile by TMA
+// multicast, a TMA producer warpgroup and two consumer warpgroups of 64
+// rows that issue their wgmma products in turns, K/V tiles of 128 keys in a
+// ring of three slots, q . k^T on wgmma from shared memory, p . v on wgmma
+// with p from registers: p is split into its hi and lo bf16 halves, two
+// register-A operands, and O takes two products per tile, P_hi . V then
+// P_lo . V. The loop is pipelined by one tile: a turn issues tile j-1's two
+// products and tile j's scores together, and tile j's online step (o
+// rescaled, p formed and split) runs while the other warpgroup's products
+// run. exp goes through exp2 of the score pre-scaled by log2 e (p
+// moves by a few fp32 ulps, far inside the bar of one bf16 ulp); the output
+// is stored by TMA. Lq and Lk are multiples of 128, so there are no ragged
+// edges.
+//
+// B4-bias (attn_long_fwd_bias_kernel) and B5-dq keep the earlier design, as
+// B2 and B3: one block per (64-row query tile, head, batch), four warps of
+// 16 rows, q (and dO) tiles in shared memory, K/V tiles of 64 keys
 // double-buffered with cp.async so the next tile's copy overlaps this tile's
 // products, fragments from ldmatrix, products from mma.sync m16n8k16 (bf16
 // in, fp32 accumulate). GQA maps head h to kv head h / (H / KVH). The bias is
@@ -53,15 +70,17 @@
 // Bound (on an H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s): B4 needs
 // 4*B*H*Lq*Lk*D flops and B5-dq 6, against a few bytes per row (q, k, v, o;
 // dO, dq, delta, lse), so at L >= 4096 both are bound by operations. The
-// split products make the tensor cores do 6 and 10 of those units; mma.sync
-// without warp specialisation keeps them well short of the bound; wgmma, TMA
-// and a cheaper split are the next steps.
+// split products make the tensor cores do 6 and 10 of those units: even a B4
+// at the tensor cores' peak takes 1.5 times the bound.
 
 #include "flash_attention_dkv.cuh"
+#include "hopper_sm90.cuh"
 
 namespace {
 
 constexpr int ALIGN = 128;  // Lq, Lk multiples of this, as the TPU tiers
+constexpr int LONG_STAGES = 3;  // B4's K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
 
 // One query row's online-softmax step over this thread's NB score fragments
 // of row r (s[n][2r], s[n][2r + 1], already scaled): the new max over the
@@ -107,12 +126,13 @@ __device__ __forceinline__ void rescale_rows(float acc[D / 8][4], const float a[
   }
 }
 
-template <int D, bool BIAS>
+// Kernel B4-bias.
+template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
-attn_long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     const float* __restrict__ bias, int rep, int Lk, Strides st,
-                     float scale) {
+attn_long_fwd_bias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          const float* __restrict__ bias, int rep, int Lk, Strides st,
+                          float scale) {
   // strides: q 0-2, k 3-5, v 6-8, o 9-11, bias 12-14
   constexpr int STRIDE = D + 8;
   constexpr int TILE = BLOCK * STRIDE;
@@ -132,12 +152,9 @@ attn_long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = Lk / BLOCK;
   const bf16* qw = qs + warp * 16 * STRIDE;  // this warp's 16 query rows
   const int row_a = q0 + warp * 16 + g;      // and row_a + 8; Lq is aligned
-  const float* brow[2] = {nullptr, nullptr};
-  if (BIAS) {
-    const float* bp = bias + b * st.s[12] + h * st.s[13];
-    brow[0] = bp + (long long)row_a * st.s[14];
-    brow[1] = bp + (long long)(row_a + 8) * st.s[14];
-  }
+  const float* bp = bias + b * st.s[12] + h * st.s[13];
+  const float* const brow[2] = {bp + (long long)row_a * st.s[14],
+                                bp + (long long)(row_a + 8) * st.s[14]};
 
   // every row of the query tile exists: Lq is a multiple of BLOCK
   load_rows_async<D, BLOCK>(qs, q + b * st.s[0] + h * st.s[1], st.s[2], q0, q0 + BLOCK);
@@ -152,7 +169,7 @@ attn_long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l[2] = {0.f, 0.f};
   float s[NB][4], bv[NB][4];
   for (int tile = 0; tile < n_tiles; ++tile) {
-    load_bias_rows<BIAS, NB>(bv, brow, tile * BLOCK, Lk, t);
+    load_bias_rows<true, NB>(bv, brow, tile * BLOCK, Lk, t);
     if (tile + 1 < n_tiles) {
       const int next = (tile + 1) & 1;
       load_rows_async<D, BLOCK>(ks + next * TILE, kp, st.s[5], (tile + 1) * BLOCK, Lk);
@@ -167,7 +184,7 @@ attn_long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = scaled<BIAS>(s[n][j], scale, bv[n][j]);
+      for (int j = 0; j < 4; ++j) s[n][j] = scaled<true>(s[n][j], scale, bv[n][j]);
     const float a[2] = {online_step<NB>(s, 0, m[0], l[0]), online_step<NB>(s, 1, m[1], l[1])};
     rescale_rows<D>(acc, a);
     mma_pb<D, NB, true>(acc, s, vs + (tile & 1) * TILE, lane);  // acc += p . v
@@ -183,6 +200,131 @@ attn_long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pack_bf16(acc[dn][0] / lsum[0], acc[dn][1] / lsum[0]);
     *reinterpret_cast<uint32_t*>(op + (row_a + 8) * st.s[11] + col) =
         pack_bf16(acc[dn][2] / lsum[1], acc[dn][3] / lsum[1]);
+  }
+}
+
+// B4's online step for one tile of scores s (fp32, unscaled): the new row
+// max m (log2 units), p = exp(s - m) in place, l = l a + rowsum(p) (this
+// thread's part), o rescaled by a, and p as two register-A operands, its
+// bf16 rounding hi and the rest lo.
+template <int D>
+__device__ __forceinline__ void online_step(float (&o)[D / 2], float (&s)[64], float m[2],
+                                            float l[2], uint32_t (&hi)[8][4],
+                                            uint32_t (&lo)[8][4], float c) {
+  float a[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], row_max(s, r) * c);
+    a[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float& x = s[4 * n + 2 * r + u];
+        x = exp2f(fmaf(x, c, -m_new));
+        sum += x;
+      }
+    l[r] = l[r] * a[r] + sum;
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    o[4 * n] *= a[0];
+    o[4 * n + 1] *= a[0];
+    o[4 * n + 2] *= a[1];
+    o[4 * n + 3] *= a[1];
+  }
+#pragma unroll
+  for (int kb = 0; kb < 8; ++kb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x0 = s[8 * kb + 2 * e], x1 = s[8 * kb + 2 * e + 1];
+      hi[kb][e] = pack_bf16(x0, x1);
+      lo[kb][e] = pack_bf16_rest(x0, x1, hi[kb][e]);
+    }
+}
+
+// Kernel B4. q_rows: this consumer warpgroup's 64 rows of the Q tile.
+template <int D>
+__global__ void __cluster_dims__(ATT_PAIR, 1, 1) __launch_bounds__(ATT_THREADS, 1)
+attn_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o, int rep, int Lq, int Lk,
+                           float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const AttnSmem<D, LONG_STAGES> sm(smem_raw);
+  const int q0 = blockIdx.x * ATT_M, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = Lk / ATT_N;
+  if (threadIdx.x == 0) sm.init_barriers();
+  cluster_sync();  // the pair's barriers are ready before any multicast or remote arrival
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0)
+      attn_produce(sm, &tm_q, &tm_k, &tm_v, q0, h, h / rep, b, n_tiles, 0, cluster_rank());
+    cluster_sync();  // the pair's last multicasts and arrivals are done
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+    unsigned char* q_rows = sm.q + cw * 64 * 128;
+    const float c = scale_log2;  // scores in log2 units: exp(s * scale) = exp2(s * c)
+    mbar_wait(sm.q_full, 0);
+
+    // software pipelined by one tile, as B1's second pass: the turn of tile
+    // j issues o += p_{j-1} . V_{j-1} (hi, then lo) and s_j = q . K_j^T
+    // together, then takes the online step of tile j (o rescaled once
+    // p_{j-1} . V_{j-1} is in) while the other warpgroup's products run
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_F32, NEG_F32}, l[2] = {0.f, 0.f};  // l: this thread's part
+    float s[64];
+    uint32_t hi[8][4], lo[8][4];
+    turns_start(cw);
+    mbar_wait(&sm.full[0], 0);
+    turn_begin(cw);
+    wgmma_fence();
+    attn_scores_issue<D>(s, q_rows, sm.k[0]);
+    wgmma_commit();
+    turn_end(cw, false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    online_step<D>(o, s, m, l, hi, lo, c);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % LONG_STAGES, prev = (j - 1) % LONG_STAGES;
+      mbar_wait(&sm.full[st], (j / LONG_STAGES) & 1);
+      turn_begin(cw);
+      wgmma_fence();
+      attn_pv_issue<D>(o, hi, sm.v[prev]);
+      attn_pv_issue<D>(o, lo, sm.v[prev]);
+      attn_scores_issue<D>(s, q_rows, sm.k[st]);
+      wgmma_commit();
+      turn_end(cw, false);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s);
+      fence_regs(hi);
+      fence_regs(lo);
+      release_slot(&sm.empty[prev], lane);
+      online_step<D>(o, s, m, l, hi, lo, c);
+    }
+    const int last = (n_tiles - 1) % LONG_STAGES;
+    turn_begin(cw);
+    wgmma_fence();
+    attn_pv_issue<D>(o, hi, sm.v[last]);
+    attn_pv_issue<D>(o, lo, sm.v[last]);
+    wgmma_commit();
+    turn_end(cw, true);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(hi);
+    fence_regs(lo);
+    release_slot(&sm.empty[last], lane);
+    const float div[2] = {fmaxf(quad_sum(l[0]), 1e-30f), fmaxf(quad_sum(l[1]), 1e-30f)};
+    attn_store<D>(q_rows, &tm_o, o, div, t, cw, q0 + 64 * cw, Lq, h, b);
+    cluster_sync();
   }
 }
 
@@ -285,21 +427,44 @@ attn_long_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool BIAS>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       const void* bias, int B, int H, int KVH, int Lq, int Lk,
-                       const long long* strides, float scale, cudaStream_t stream) {
+// B4 on the operands at `bases` that `maps` describes (q, k, v, o).
+template <int D>
+cudaError_t launch_fwd(const void* const bases[4], const long long* maps, int B, int H, int KVH,
+                       int Lq, int Lk, float scale, cudaStream_t stream) {
+  if (!spec_is(maps, D, Lq, H, B, ATT_M) || !spec_is(maps + MAP_SPEC, D, Lk, KVH, B, ATT_N) ||
+      !spec_is(maps + 2 * MAP_SPEC, D, Lk, KVH, B, ATT_N) ||
+      !spec_is(maps + 3 * MAP_SPEC, D, Lq, H, B, 64))
+    return cudaErrorInvalidValue;
+  CUtensorMap tm[4];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = encode_tensor_map(&tm[i], bases[i], maps + i * MAP_SPEC);
+    if (err != cudaSuccess) return err;
+  }
+  const int smem = AttnSmem<D, LONG_STAGES>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_long_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // whole pairs of query tiles (a tile past Lq computes and stores nothing)
+  const int tiles = Lq / ATT_M;
+  const dim3 grid((tiles + ATT_PAIR - 1) / ATT_PAIR * ATT_PAIR, H, B);
+  attn_long_fwd_wgmma_kernel<D><<<grid, ATT_THREADS, smem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], H / KVH, Lq, Lk, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_bias(const void* q, const void* k, const void* v, void* o,
+                            const void* bias, int B, int H, int KVH, int Lq, int Lk,
+                            const long long* strides, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)5 * BLOCK * (D + 8) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_long_fwd_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_long_fwd_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(Lq / BLOCK, H, B);
-  attn_long_fwd_kernel<D, BIAS><<<grid, NUM_THREADS, smem, stream>>>(
+  attn_long_fwd_bias_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<const float*>(bias), H / KVH, Lk,
-      copy_strides(strides, BIAS ? 15 : 12), scale);
+      static_cast<const float*>(bias), H / KVH, Lk, copy_strides(strides, 15), scale);
   return cudaGetLastError();
 }
 
@@ -330,18 +495,6 @@ bool bad_long_shape(int B, int H, int KVH, int Lq, int Lk, int D, bool bias,
 }
 
 template <bool BIAS>
-int dispatch_fwd(const void* q, const void* k, const void* v, void* o,
-                 const void* bias, int B, int H, int KVH, int Lq, int Lk, int D,
-                 const long long* strides, float scale, void* stream) {
-  if (bad_long_shape(B, H, KVH, Lq, Lk, D, BIAS, bias)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_fwd<128, BIAS>(q, k, v, o, bias, B, H, KVH, Lq, Lk,
-                                               strides, scale, s)
-                  : (int)launch_fwd<64, BIAS>(q, k, v, o, bias, B, H, KVH, Lq, Lk,
-                                              strides, scale, s);
-}
-
-template <bool BIAS>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
                 const void* delta, const void* bias, void* dq, void* lse, int B,
                 int H, int KVH, int Lq, int Lk, int D, const long long* strides,
@@ -369,27 +522,37 @@ int dispatch_long_dkv(const void* q, const void* k, const void* v, const void* d
 // C entries, bound with ctypes, with the signatures of the one-pass tier's
 // (flash_attention_fwd.cu without the rope arguments, flash_attention_bwd.cu
 // as they are): q, dO (B, H, Lq, D) and k, v (B, KVH, Lk, D) bf16, last dim
-// contiguous, rows 16-byte aligned, Lq and Lk multiples of 128, D 64 or 128;
-// `strides` holds the element strides (batch, head, row) of each operand in
-// argument order, the bias's last (0 on a broadcast axis). delta and lse:
+// contiguous, Lq and Lk multiples of 128, D 64 or 128; `strides` holds the
+// element strides (batch, head, row) of each operand in argument order, the
+// bias's last (0 on a broadcast axis). delta and lse:
 // contiguous fp32 (B, H, Lq). The bias: fp32 (B|1, H|1, Lq, Lk), last dim
 // contiguous. Each returns a cudaError_t; 0 is success.
 
-// B4: o (B, H, Lq, D) bf16; strides = [q, k, v, o] x 3.
+// B4: o (B, H, Lq, D) bf16. `maps`: the wrapper's descriptions
+// (ops/tensor_maps.py, MAP_SPEC values each) of q, k, v (boxes of 128 rows)
+// and o (64 rows); every stride a multiple of 16 bytes.
 extern "C" int mmada_flash_attention_long_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-    int Lq, int Lk, int D, const long long* strides, float scale, void* stream) {
-  return dispatch_fwd<false>(q, k, v, o, nullptr, B, H, KVH, Lq, Lk, D, strides,
-                             scale, stream);
+    int Lq, int Lk, int D, const long long* maps, float scale, void* stream) {
+  if (bad_long_shape(B, H, KVH, Lq, Lk, D, false, nullptr)) return (int)cudaErrorInvalidValue;
+  const void* bases[4] = {q, k, v, o};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 128 ? (int)launch_fwd<128>(bases, maps, B, H, KVH, Lq, Lk, scale, s)
+                  : (int)launch_fwd<64>(bases, maps, B, H, KVH, Lq, Lk, scale, s);
 }
 
-// B4-bias: strides = [q, k, v, o, bias] x 3.
+// B4-bias: strides = [q, k, v, o, bias] x 3 (element strides, rows 16-byte
+// aligned).
 extern "C" int mmada_flash_attention_long_fwd_bias_bf16(
     const void* q, const void* k, const void* v, void* o, const void* bias, int B,
     int H, int KVH, int Lq, int Lk, int D, const long long* strides, float scale,
     void* stream) {
-  return dispatch_fwd<true>(q, k, v, o, bias, B, H, KVH, Lq, Lk, D, strides, scale,
-                            stream);
+  if (bad_long_shape(B, H, KVH, Lq, Lk, D, true, bias)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 128 ? (int)launch_fwd_bias<128>(q, k, v, o, bias, B, H, KVH, Lq, Lk, strides,
+                                              scale, s)
+                  : (int)launch_fwd_bias<64>(q, k, v, o, bias, B, H, KVH, Lq, Lk, strides,
+                                             scale, s);
 }
 
 // B5-dq: dq (B, H, Lq, D) bf16 and lse; strides = [q, k, v, dO, dq] x 3.

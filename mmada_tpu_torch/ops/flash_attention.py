@@ -6,10 +6,12 @@ at :59-92, called at :650) and with one (`_attn_bias_kernel` /
 `_attn_rope_bias_kernel` at :148-178, called at :686). `flash_attention`
 launches the CUDA kernel in `csrc/flash_attention_fwd.cu` for a CUDA tensor
 (B1, or B2 with a bias), and raises for anything the kernel does not take; it
-never falls back. For a CPU tensor it computes `flash_attention_reference`,
-the plain PyTorch version of the same function, which the CPU tests hold
-against the JAX kernel and `chip_smoke.py` holds the kernel against on the
-card.
+never falls back. B1 runs on `wgmma` and reads its operands through TMA
+tensor maps, which the wrapper describes (`tensor_maps.py`); an operand that
+a map cannot describe is copied first. For a CPU tensor it computes
+`flash_attention_reference`, the plain PyTorch version of the same function,
+which the CPU tests hold against the JAX kernel and `chip_smoke.py` holds the
+kernel against on the card.
 
 The function: RoPE (neox rotate-half) on q and k in fp32, cast back to the
 input dtype; scores q.k^T in fp32 times 1/sqrt(D), plus the fp32 bias (B|1,
@@ -47,6 +49,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from mmada_tpu_torch.ops.tensor_maps import OUT_ROWS, TILE_ROWS, describe, spec_array, tma_operand
 
 _KERNEL_SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
@@ -106,30 +110,41 @@ def flash_attention_reference(
     return o.to(q.dtype)
 
 
-def _entry(source: str, name: str, n_ptr: int):
+def _entry(source: str, name: str, n_ptr: int, arrays: int = 0):
     """The C entry `name` of the library built from `csrc/<source>.cu`, with
     its ctypes signature: `n_ptr` pointers, B, H, KVH, Lq, Lk, D, the
-    strides, the scale and the stream."""
+    element strides (a ctypes array, `_strides`) or else `arrays` addresses
+    of long long arrays (`tensor_maps.spec_array`), the scale and the
+    stream."""
     fn = _fns.get(name)
     if fn is None:
         from mmada_tpu_torch.ops import _build
 
         fn = getattr(_build.load_library(source), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
+        lists = [p] * arrays if arrays else [ctypes.POINTER(ctypes.c_longlong)]
+        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i, *lists, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_operand(name: str, t: torch.Tensor, device: torch.device,
+                   aligned: bool = True) -> None:
+    """Device, dtype and rank; with `aligned` (the cp.async kernels) also a
+    contiguous last dim and 16-byte aligned rows. The TMA kernels (B1, B4)
+    take any layout: `tensor_maps.tma_operand` copies what a map cannot
+    describe."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16 for the CUDA kernel, got {t.dtype}")
-    if t.dim() != 4 or t.stride(-1) != 1:
-        raise ValueError(f"{name} must be 4-D with a contiguous last dim")
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be 4-D")
+    if not aligned:
+        return
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous last dim")
     if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name} rows must be 16-byte aligned: strides {t.stride()}")
 
@@ -187,13 +202,15 @@ def flash_attention(
     without RoPE. Counts its launches in `flash_attention.launches` (B1) or
     `flash_attention.bias_launches` (B2, with a bias): one per call, since
     with RoPE the C entry runs its rotation kernel and the attention kernel
-    together."""
+    together. B1 reads its operands through TMA tensor maps
+    (`tensor_maps`), so an operand that a map cannot describe is copied
+    first; B2 takes 16-byte aligned rows."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, rope_sin, rope_cos, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q.device, aligned=bias is not None)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
@@ -211,7 +228,8 @@ def flash_attention(
                     or t.data_ptr() % 16):
                 raise ValueError(f"{name} must be contiguous fp32 ({lq}, {d}) on {q.device}")
     bias = bias_as_float(bias)
-    bias_strides = () if bias is None else _bias_strides(bias, b, h, lq, lk, q.device)
+    if bias is None:
+        q, k, v = (tma_operand(t) for t in (q, k, v))
 
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -219,15 +237,26 @@ def flash_attention(
     if rope_sin is not None:  # scratch for the rotated q and k
         q_rot = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
         k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if bias is not None:
-        ptrs.append(bias.data_ptr())
-    ptrs += [None if t is None else t.data_ptr() for t in (rope_sin, rope_cos, q_rot, k_rot)]
-    name = "mmada_flash_attention_fwd_bf16" if bias is None else \
-        "mmada_flash_attention_fwd_bias_bf16"
-    _launch(_entry(_KERNEL_SOURCE, name, len(ptrs)), q.device, *ptrs,
-            b, h, kvh, lq, lk, d, _strides(q, k, v, out, extra=bias_strides),
-            1.0 / (d ** 0.5))
+    rope_ptrs = [None if t is None else t.data_ptr() for t in (rope_sin, rope_cos, q_rot, k_rot)]
+    scale = 1.0 / (d ** 0.5)
+    if bias is None:
+        # one array: the element strides of q and k (the rotation reads
+        # them), then the tensor maps of what the attention kernel reads
+        qs, ks = q.stride(), k.stride()
+        args = spec_array(describe(q if q_rot is None else q_rot, TILE_ROWS),
+                          describe(k if k_rot is None else k_rot, TILE_ROWS),
+                          describe(v, TILE_ROWS), describe(out, OUT_ROWS),
+                          head=(*qs[:3], *ks[:3]))
+        addr = args.buffer_info()[0]
+        fn = _entry(_KERNEL_SOURCE, "mmada_flash_attention_fwd_bf16", 8, arrays=2)
+        _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *rope_ptrs, b, h, kvh, lq, lk, d, addr, addr + 6 * args.itemsize, scale)
+    else:
+        fn = _entry(_KERNEL_SOURCE, "mmada_flash_attention_fwd_bias_bf16", 9)
+        _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bias.data_ptr(), *rope_ptrs, b, h, kvh, lq, lk, d,
+                _strides(q, k, v, out, extra=_bias_strides(bias, b, h, lq, lk, q.device)),
+                scale)
     _count_launch(flash_attention, bias)
     return out
 

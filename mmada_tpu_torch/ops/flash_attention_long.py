@@ -8,7 +8,8 @@ the forward of `flash_attention_online` (:435; bodies `_attn_online_kernel`
 function, and the staged backward `flash_attention_bwd_staged` (:1121; dq
 bodies :1018 / :1062 called at :1185, dkv bodies :1070 / :1110 called at
 :1240). The kernels are in `csrc/flash_attention_long.cu` (B4 and B5-dq) and
-`csrc/flash_attention_dkv.cuh` (B5-dkv, shared with B3).
+`csrc/flash_attention_dkv.cuh` (B5-dkv, shared with B3). B4 runs on `wgmma`
+and reads its operands through TMA tensor maps (`tensor_maps.py`).
 
 The function, on q and k already rotated (RoPE runs outside, in fp32, as the
 JAX tier does): s = q.k^T in fp32 times 1/sqrt(D), plus the fp32 bias (B|1,
@@ -55,6 +56,7 @@ from mmada_tpu_torch.ops.flash_attention import (
     attention_delta,
     bias_as_float,
 )
+from mmada_tpu_torch.ops.tensor_maps import OUT_ROWS, TILE_ROWS, describe, spec_array, tma_operand
 
 _SOURCE = "flash_attention_long"
 ALIGN = 128  # Lq and Lk of the kernels: multiples of this, as the JAX tiers
@@ -86,13 +88,16 @@ def flash_attention_long_reference(
 
 def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
     """B4 for CUDA tensors (`.launches`, or `.bias_launches` with a bias),
-    its plain version for CPU tensors. q and k rotated; square or not."""
+    its plain version for CPU tensors. q and k rotated; square or not. B4
+    reads its operands through TMA tensor maps (`tensor_maps`: an operand a
+    map cannot describe is copied first); B4-bias takes 16-byte aligned
+    rows."""
     if q.device.type == "cpu":
         return flash_attention_long_reference(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_long runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q.device, aligned=bias is not None)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
@@ -101,17 +106,22 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
         raise ValueError(f"head_dim {d} not in the kernel's {_HEAD_DIMS}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
+    if bias is None:
+        q, k, v = (tma_operand(t) for t in (q, k, v))
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    scale = 1.0 / (d ** 0.5)
     if bias is None:
-        name, bias_strides = "mmada_flash_attention_long_fwd_bf16", ()
+        maps = spec_array(describe(q, TILE_ROWS), describe(k, TILE_ROWS),
+                          describe(v, TILE_ROWS), describe(out, OUT_ROWS))
+        _launch(_entry(_SOURCE, "mmada_flash_attention_long_fwd_bf16", 4, arrays=1), q.device,
+                *ptrs, b, h, kvh, lq, lk, d, maps.buffer_info()[0], scale)
     else:
-        name = "mmada_flash_attention_long_fwd_bias_bf16"
-        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-        ptrs.append(bias.data_ptr())
-    _launch(_entry(_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
-            _strides(q, k, v, out, extra=bias_strides), 1.0 / (d ** 0.5))
+        _launch(_entry(_SOURCE, "mmada_flash_attention_long_fwd_bias_bf16", 5), q.device,
+                *ptrs, bias.data_ptr(), b, h, kvh, lq, lk, d,
+                _strides(q, k, v, out, extra=_bias_strides(bias, b, h, lq, lk, q.device)),
+                scale)
     _count_launch(flash_attention_long, bias)
     return out
 
