@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's wgmma attention kernels (B1
-// in flash_attention_fwd.cu, B4 in flash_attention_long.cu): TMA tile loads
-// and stores through tensor maps, mbarrier waits, warpgroup register
-// rebalancing, the wgmma shared-memory matrix descriptor, and the
-// m64nNk16 bf16 wgmma products (fp32 accumulate) these kernels take.
+// in flash_attention_fwd.cu; B4, B5-dq and B5-dkv in flash_attention_long.cu):
+// TMA tile loads and stores through tensor maps, 1-D bulk copies, mbarrier
+// waits, warpgroup register rebalancing, the wgmma shared-memory matrix
+// descriptor, and the m64nNk16 bf16 wgmma products (fp32 accumulate) these
+// kernels take.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a box is `rows` rows of 64 bf16 (128 bytes), 1024-byte aligned, the 16-byte
@@ -88,6 +89,15 @@ __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap*
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "h"(mask), "r"(col), "r"(row), "r"(head), "r"(batch)
       : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 // Arrive on the barrier at the same offset as `bar` in block `rank` of the
@@ -217,6 +227,42 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d += a . b (m64n64k16, both from shared memory)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d = a . b, d's earlier values neither read nor kept: the registers of a
+// product that starts a sum are free up to this instruction, where a "+f"
+// operand (wgmma_ss_n64, with scale-d 0) would keep the previous values
+// live, in a loop from one iteration to the next
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -256,13 +302,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 // Store this warpgroup's 64 x D accumulator rows (rows 16w + g and + 8 of
-// column slab n), each divided by its row's `div[r]`, as bf16 into
-// 128-byte-swizzled boxes: box c (columns 64c..) at tile + c * box_stride,
-// the layout a TMA store with a box of 64 rows reads.
+// column slab n), each divided by its row's `div[r]` and then multiplied by
+// `mul`, as bf16 into 128-byte-swizzled boxes: box c (columns 64c..) at
+// tile + c * box_stride, the layout a TMA store with a box of 64 rows reads.
 template <int D>
 __device__ __forceinline__ void acc_to_swizzled(unsigned char* tile, int box_stride,
                                                 const float (&o)[D / 2], const float div[2],
-                                                int t) {
+                                                int t, float mul = 1.f) {
   const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -270,7 +316,8 @@ __device__ __forceinline__ void acc_to_swizzled(unsigned char* tile, int box_str
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = warp * 16 + g + 8 * r;
-      const uint32_t v = pack_bf16(o[4 * n + 2 * r] / div[r], o[4 * n + 2 * r + 1] / div[r]);
+      const uint32_t v =
+          pack_bf16(o[4 * n + 2 * r] / div[r] * mul, o[4 * n + 2 * r + 1] / div[r] * mul);
       *reinterpret_cast<uint32_t*>(box + row * 128 + (((n & 7) ^ g) << 4) + q * 4) = v;
     }
   }
@@ -431,10 +478,11 @@ __device__ __forceinline__ void mask_keys(float (&s)[64], int key0, int Lk, int 
 }
 
 // The largest score of row r (g or g + 8) over the quad's columns.
-__device__ __forceinline__ float row_max(const float (&s)[64], int r) {
+template <int N>
+__device__ __forceinline__ float row_max(const float (&s)[N], int r) {
   float mx = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  for (int j = 0; j < N / 4; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
   mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
   return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
 }
@@ -445,13 +493,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // The consumer warpgroup's epilogue: its 64 x D output rows, each divided
-// by `div[r]`, as bf16 into its own rows of the Q tile (no longer read),
-// then one TMA store per box; rows past Lq are not written.
+// by `div[r]` and multiplied by `mul`, as bf16 into its own rows of a
+// 128-row tile (the Q tile: no longer read), then one TMA store per box;
+// rows past Lq are not written.
 template <int D>
 __device__ __forceinline__ void attn_store(unsigned char* q_rows, const CUtensorMap* tm_o,
                                            const float (&o)[D / 2], const float div[2], int t,
-                                           int cw, int row0, int Lq, int h, int b) {
-  acc_to_swizzled<D>(q_rows, ATT_BOX, o, div, t);
+                                           int cw, int row0, int Lq, int h, int b,
+                                           float mul = 1.f) {
+  acc_to_swizzled<D>(q_rows, ATT_BOX, o, div, t, mul);
   fence_async_shared();
   named_barrier_sync(1 + cw, 128);
   if (t == 0 && row0 < Lq) {
@@ -514,6 +564,17 @@ inline bool spec_is(const long long* spec, int d, int rows, int heads, int batch
                     int box_rows) {
   return spec[0] == d && spec[1] == rows && spec[2] == heads && spec[3] == batches &&
          spec[7] == (d < 64 ? d : 64) && spec[8] == box_rows && spec[9] == 1 && spec[10] == 1;
+}
+
+// Values per fp32 row-statistics operand (lse, delta: contiguous (B, H, L))
+// in a wrapper's description (ops/tensor_maps.py, `describe_rows`): rows,
+// heads, batches, and the bytes of one span a kernel copies with bulk_load.
+constexpr int ROWS_SPEC = 4;
+
+inline bool rows_spec_is(const long long* spec, int rows, int heads, int batches,
+                         int span_rows) {
+  return spec[0] == rows && spec[1] == heads && spec[2] == batches &&
+         spec[3] == 4LL * span_rows;
 }
 
 }  // namespace

@@ -132,8 +132,8 @@ def _entry(source: str, name: str, n_ptr: int, arrays: int = 0):
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                    aligned: bool = True) -> None:
     """Device, dtype and rank; with `aligned` (the cp.async kernels) also a
-    contiguous last dim and 16-byte aligned rows. The TMA kernels (B1, B4)
-    take any layout: `tensor_maps.tma_operand` copies what a map cannot
+    contiguous last dim and 16-byte aligned rows. The TMA kernels (B1, B4,
+    B5) take any layout: `tensor_maps.tma_operand` copies what a map cannot
     describe."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
@@ -326,9 +326,12 @@ def attention_bwd_dkv_reference(
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_bwd_shapes(q, k, v, dout, stats) -> tuple[int, int, int, int, int, int]:
+def _check_bwd_shapes(q, k, v, dout, stats,
+                      aligned: bool = True) -> tuple[int, int, int, int, int, int]:
+    """Devices, dtypes and shapes of a backward kernel's operands (`aligned`:
+    see `_check_operand`); returns (B, H, KVH, Lq, Lk, D)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q.device, aligned=aligned)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if (k.shape != v.shape or dout.shape != q.shape or k.shape[0] != b

@@ -7,9 +7,11 @@ the forward of `flash_attention_online` (:435; bodies `_attn_online_kernel`
 `_attn_staged_bias_kernel` :333, called at :392 and :418), which compute one
 function, and the staged backward `flash_attention_bwd_staged` (:1121; dq
 bodies :1018 / :1062 called at :1185, dkv bodies :1070 / :1110 called at
-:1240). The kernels are in `csrc/flash_attention_long.cu` (B4 and B5-dq) and
-`csrc/flash_attention_dkv.cuh` (B5-dkv, shared with B3). B4 runs on `wgmma`
-and reads its operands through TMA tensor maps (`tensor_maps.py`).
+:1240). The kernels are in `csrc/flash_attention_long.cu`, but for the
+biased B5-dkv, which is `csrc/flash_attention_dkv.cuh`'s (shared with B3).
+B4, B5-dq and B5-dkv run on `wgmma` and read their operands through TMA
+tensor maps (`tensor_maps.py`); their biased kernels run on `mma.sync` and
+take 16-byte aligned rows.
 
 The function, on q and k already rotated (RoPE runs outside, in fp32, as the
 JAX tier does): s = q.k^T in fp32 times 1/sqrt(D), plus the fp32 bias (B|1,
@@ -42,6 +44,7 @@ import torch
 from mmada_tpu_torch.ops.flash_attention import (
     NEG_F32,
     _bias_strides,
+    _check_bwd_shapes,
     _check_operand,
     _count_launch,
     _entry,
@@ -56,7 +59,16 @@ from mmada_tpu_torch.ops.flash_attention import (
     attention_delta,
     bias_as_float,
 )
-from mmada_tpu_torch.ops.tensor_maps import OUT_ROWS, TILE_ROWS, describe, spec_array, tma_operand
+from mmada_tpu_torch.ops.tensor_maps import (
+    OUT_ROWS,
+    STEP_ROWS,
+    TILE_ROWS,
+    describe,
+    describe_rows,
+    rows_operand,
+    spec_array,
+    tma_operand,
+)
 
 _SOURCE = "flash_attention_long"
 ALIGN = 128  # Lq and Lk of the kernels: multiples of this, as the JAX tiers
@@ -156,17 +168,58 @@ def attention_bwd_dq_long_reference(
 attention_bwd_dkv_long_reference = attention_bwd_dkv_reference
 
 
+def _launch_dq_wgmma(q, k, v, dout, delta):
+    """B5-dq: (dq, lse) with q, k, v and dO read through tensor maps (an
+    operand a map cannot describe copied first); dq stored by TMA."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)], aligned=False)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
+    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    maps = spec_array(describe(q, TILE_ROWS), describe(k, STEP_ROWS), describe(v, STEP_ROWS),
+                      describe(dout, TILE_ROWS), describe(dq, OUT_ROWS))
+    _launch(_entry(_SOURCE, "mmada_flash_attention_long_bwd_dq_bf16", 7, arrays=1), q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), lse.data_ptr(), b, h, kvh, lq, lk, d, maps.buffer_info()[0],
+            1.0 / (d ** 0.5))
+    return dq, lse
+
+
+def _launch_dkv_wgmma(q, k, v, dout, lse, delta):
+    """B5-dkv: (dk, dv) with q, k, v and dO read through tensor maps and lse,
+    delta by bulk copies of STEP_ROWS values (each copied first if it cannot
+    be read so); dk and dv stored by TMA."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)],
+                                             aligned=False)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
+    lse, delta = rows_operand(lse), rows_operand(delta)
+    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    maps = spec_array(describe(q, STEP_ROWS), describe(k, TILE_ROWS), describe(v, TILE_ROWS),
+                      describe(dout, STEP_ROWS), describe(dk, OUT_ROWS), describe(dv, OUT_ROWS),
+                      describe_rows(lse, STEP_ROWS), describe_rows(delta, STEP_ROWS))
+    _launch(_entry(_SOURCE, "mmada_flash_attention_long_bwd_dkv_bf16", 8, arrays=1), q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, lq, lk, d,
+            maps.buffer_info()[0], 1.0 / (d ** 0.5))
+    return dk, dv
+
+
 def attention_bwd_dq_long(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dq, lse) through B5-dq (CUDA tensors; `.launches`, `.bias_launches`)
-    or its plain version (CPU tensors)."""
+    """(dq, lse) through B5-dq (CUDA tensors; `.launches`, or B5-dq-bias and
+    `.bias_launches`) or its plain version (CPU tensors). B5-dq reads its
+    operands through TMA tensor maps (`tensor_maps`: an operand a map cannot
+    describe is copied first); B5-dq-bias takes 16-byte aligned rows."""
     if q.device.type == "cpu":
         return attention_bwd_dq_long_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq_long runs on cuda or cpu, not {q.device}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
-    out = _launch_bwd_dq(_SOURCE, "mmada_flash_attention_long_bwd_dq", q, k, v, dout, delta,
-                         bias)
+    if bias is None:
+        out = _launch_dq_wgmma(q, k, v, dout, delta)
+    else:
+        out = _launch_bwd_dq(_SOURCE, "mmada_flash_attention_long_bwd_dq", q, k, v, dout,
+                             delta, bias)
     _count_launch(attention_bwd_dq_long, bias)
     return out
 
@@ -177,16 +230,21 @@ attention_bwd_dq_long.bias_launches = 0
 
 def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor,
                                                                           torch.Tensor]:
-    """(dk, dv) through B5-dkv (CUDA tensors; `.launches`, `.bias_launches`)
-    or its plain version (CPU tensors)."""
+    """(dk, dv) through B5-dkv (CUDA tensors; `.launches`, or B5-dkv-bias and
+    `.bias_launches`) or its plain version (CPU tensors). B5-dkv reads its
+    operands through TMA tensor maps and bulk copies; B5-dkv-bias takes
+    16-byte aligned rows."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_long_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv_long runs on cuda or cpu, not {q.device}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
-    out = _launch_bwd_dkv(_SOURCE, "mmada_flash_attention_long_bwd_dkv", q, k, v, dout, lse,
-                          delta, bias)
+    if bias is None:
+        out = _launch_dkv_wgmma(q, k, v, dout, lse, delta)
+    else:
+        out = _launch_bwd_dkv(_SOURCE, "mmada_flash_attention_long_bwd_dkv", q, k, v, dout,
+                              lse, delta, bias)
     _count_launch(attention_bwd_dkv_long, bias)
     return out
 

@@ -12,11 +12,11 @@ codebook)): the pixel path needs the MAGVIT-v2 encoder, which is not ported
 yet. Not ported either: weight EMA, checkpoint save and resume, the
 validation hooks and the preemption handler.
 
-One departure from the JAX Trainer: the stage configs put `max_grad_norm`
-under `training:` (configs/mmada_pretraining_stage1.yaml:63), where neither
-package's optimizer reads it, so the JAX Trainer trains those configs
-without clipping. Here the optimizer takes `training.max_grad_norm` when
-`optimizer.params` gives none.
+The optimizer is built from the `optimizer` block alone, as the JAX Trainer
+builds it (`mmada_tpu/training/optimizers.py:89-98`): its clip is
+`optimizer.params.max_grad_norm`. A `max_grad_norm` under `training:` (where
+the stage configs put it, configs/mmada_pretraining_stage1.yaml:63) is read
+by neither package.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ class Trainer:
         )
         self.max_train_steps = tr.get("max_train_steps", 10000)
         lr = lr_from_config(lr_scheduler or {}, total_steps=self.max_train_steps)
-        opt = optimizers.from_config(_with_grad_clip(optimizer or {}, tr), lr)
+        opt = optimizers.from_config(optimizer or {}, lr)
         self.optimizer = with_grad_accumulation(opt, tr.get("gradient_accumulation_steps", 1))
         self.train_step = make_train_step(model, self.optimizer, self.step_cfg)
         self.state = TrainState.create(model.params, self.optimizer)
@@ -161,15 +161,6 @@ class Trainer:
                 end, tokens = now, 0
                 self.history.append(vals)
         return self.state
-
-
-def _with_grad_clip(opt_cfg: Mapping, training: Mapping) -> dict:
-    """The `optimizer` block, with `training.max_grad_norm` as its clip when
-    its own `params` name none."""
-    params = dict(opt_cfg.get("params", {}))
-    if params.get("max_grad_norm") is None and training.get("max_grad_norm") is not None:
-        params["max_grad_norm"] = training["max_grad_norm"]
-    return dict(opt_cfg, params=params)
 
 
 def _pad_flows_to_common_length(batch: dict, eos_id: int) -> dict:

@@ -40,6 +40,7 @@ from mmada_tpu_torch.ops.flash_attention_long import (
     attention_bwd_dq_long,
     attention_bwd_dq_long_reference,
     flash_attention_bwd_long,
+    flash_attention_bwd_long_reference,
     flash_attention_long,
     flash_attention_long_reference,
 )
@@ -123,10 +124,14 @@ def test_b1_copies_an_operand_no_tensor_map_describes(cuda_device):
 def test_wgmma_tile_loaded_by_tma_matches_torch_matmul(cuda_device):
     """One tile through the kernels' path: TMA loads with the 128-byte
     swizzle, s = a . b^T from shared memory (K-major), o = bf16(s) . v with
-    s from registers and v MN-major. A map and a descriptor that disagree on
-    the swizzle, or a wrong descriptor offset, run and return wrong
-    numbers."""
-    from mmada_tpu_torch.ops.tensor_maps import wgmma_tile_product
+    s from registers and v MN-major. Then the roles the backward kernels
+    (B5-dq, B5-dkv) add, at D 64 and 128: the A operand from the second 64
+    rows of a 128-row tile, and one 64-row streamed tile read both ways,
+    K-major for s = x[64:] . y^T (as k in B5-dq's scores, q and dO in
+    B5-dkv's) and MN-major for o = bf16(s) . y (as k in t . k, q and dO in
+    ds^T . q and p^T . dO). A map and a descriptor that disagree on the
+    swizzle, or a wrong descriptor offset, run and return wrong numbers."""
+    from mmada_tpu_torch.ops.tensor_maps import wgmma_bwd_tile_product, wgmma_tile_product
 
     g = torch.Generator(cuda_device).manual_seed(3)
     a = torch.randn(64, 128, generator=g, device=cuda_device).bfloat16()
@@ -137,6 +142,14 @@ def test_wgmma_tile_loaded_by_tma_matches_torch_matmul(cuda_device):
     torch.testing.assert_close(s, torch.matmul(a.float(), b.float().T), atol=1e-3, rtol=1e-5)
     torch.testing.assert_close(o, torch.matmul(s.bfloat16().float(), v.float()), atol=1e-2,
                                rtol=1e-5)
+    for d in (64, 128):
+        x = torch.randn(128, d, generator=g, device=cuda_device).bfloat16()
+        y = torch.randn(64, d, generator=g, device=cuda_device).bfloat16()
+        s, o = wgmma_bwd_tile_product(x, y)
+        torch.testing.assert_close(s, torch.matmul(x[64:].float(), y.float().T), atol=1e-3,
+                                   rtol=1e-5)
+        torch.testing.assert_close(o, torch.matmul(s.bfloat16().float(), y.float()),
+                                   atol=1e-2, rtol=1e-5)
 
 
 @pytest.mark.parametrize("kvh,d,rope", [(4, 128, False), (2, 128, True), (2, 64, False)])
@@ -705,6 +718,8 @@ def test_long_kernel_matches_plain_version(cuda_device, kind, b, h, kvh, lq, lk,
     (None, 1, 4, 4, 4224, 4224, 128),
     (None, 1, 4, 2, 4224, 4352, 128),      # GQA and rectangular, as the JAX test
     (None, 1, 8, 2, 512, 512, 64),         # GQA, head_dim 64
+    (None, 1, 8, 2, 4224, 4352, 64),       # GQA 8:2, rectangular, head_dim 64
+    (None, 2, 4, 1, 4352, 4224, 128),      # one kv head, Lq > Lk, a batch of two
     ("mask", 2, 4, 4, 4224, 4224, 128),    # padded frames, zero cotangent there
     ("head", 1, 4, 4, 512, 512, 128),
     ("one", 2, 4, 4, 256, 384, 128),       # rectangular, one bias for all
@@ -735,6 +750,64 @@ def test_long_backward_kernels_match_plain_versions(cuda_device, kind, b, h, kvh
         dout_all = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
         for t in flash_attention_bwd_long(q, k, v, out, dout_all, bias):
             assert torch.isfinite(t).all()
+
+
+def test_long_backward_reads_views_through_tensor_maps(cuda_device):
+    """The unbiased B5-dq and B5-dkv read q, k, v and dO through tensor maps:
+    head views of (B, L, H*D) projections and of a GQA (B, L, KVH*D) one are
+    read in place and give what contiguous copies give, bit for bit; an
+    operand no map describes (a 2-byte offset) is copied first, with the
+    same result; lse and delta at an unaligned base are copied too."""
+    b, l, h, kvh, d = 1, 4224, 4, 2, 128
+    g = torch.Generator(cuda_device).manual_seed(2)
+    fused_q = torch.randn(b, l, 2 * h * d, generator=g, device=cuda_device).bfloat16()
+    q, dout = (t.view(b, l, h, d).transpose(1, 2) for t in fused_q.split(h * d, dim=-1))
+    fused_kv = torch.randn(b, l, 2 * kvh * d, generator=g, device=cuda_device).bfloat16()
+    k, v = (t.view(b, l, kvh, d).transpose(1, 2) for t in fused_kv.split(kvh * d, dim=-1))
+    out = flash_attention_long(q, k, v)
+    delta = attention_delta(out, dout)
+    dense = [t.contiguous() for t in (q, k, v, dout)]
+    before = (attention_bwd_dq_long.launches, attention_bwd_dkv_long.launches)
+    dq, lse = attention_bwd_dq_long(q, k, v, dout, delta)
+    dk, dv = attention_bwd_dkv_long(q, k, v, dout, lse, delta)
+    want_dq, want_lse = attention_bwd_dq_long(*dense, delta)
+    want = attention_bwd_dkv_long(*dense, want_lse, delta)
+    assert (attention_bwd_dq_long.launches, attention_bwd_dkv_long.launches) == (
+        before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(dq, want_dq, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    torch.testing.assert_close((dk, dv), want, atol=0, rtol=0)
+    wide = torch.randn(b, h, l, d + 8, generator=g, device=cuda_device).bfloat16()
+    wide[..., 1:d + 1] = dout
+    odd = wide[..., 1:d + 1]   # 2 bytes off: no tensor map describes it
+    torch.testing.assert_close(attention_bwd_dq_long(q, k, v, odd, delta), (dq, lse),
+                               atol=0, rtol=0)
+    stats = torch.empty(2 * lse.numel() + 1, device=cuda_device)
+    lse_odd = stats[1:lse.numel() + 1].view_as(lse).copy_(lse)     # 4 bytes off
+    delta_odd = stats[lse.numel() + 1:].view_as(delta).copy_(delta)
+    torch.testing.assert_close(attention_bwd_dkv_long(q, k, v, odd, lse_odd, delta_odd),
+                               (dk, dv), atol=0, rtol=0)
+
+
+def test_biased_long_backward_keeps_its_kernel(cuda_device):
+    """With a bias, B5-dq and B5-dkv launch their biased kernels (the earlier
+    mma.sync bodies): `.bias_launches` moves and `.launches`, the counter of
+    the wgmma bodies, does not."""
+    b, h, l, d = 1, 2, 256, 128
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, d)
+    bias = _bias(cuda_device, "head", b, h, l, l)
+    out = flash_attention_long(q, k, v, bias)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(6),
+                       device=cuda_device).bfloat16()
+    before = [(f.launches, f.bias_launches) for f in (attention_bwd_dq_long,
+                                                      attention_bwd_dkv_long)]
+    dq, dk, dv = flash_attention_bwd_long(q, k, v, out, dout, bias)
+    after = [(f.launches, f.bias_launches) for f in (attention_bwd_dq_long,
+                                                     attention_bwd_dkv_long)]
+    assert after == [(n, nb + 1) for n, nb in before]
+    want = flash_attention_bwd_long_reference(q, k, v, out, dout, bias)
+    for got, w in zip((dq, dk, dv), want):
+        assert_long_grad_close(got, w)
 
 
 def test_long_kernels_take_strided_views(cuda_device):

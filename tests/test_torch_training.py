@@ -17,6 +17,7 @@ within 1e-6.
 """
 
 import dataclasses
+import os
 import types
 
 import jax
@@ -26,6 +27,7 @@ import optax
 import pytest
 import torch
 
+from mmada_tpu.core.config import load_config
 from mmada_tpu.core.vocab import tiny_layout as jax_tiny_layout
 from mmada_tpu.models import llada as jax_llada
 from mmada_tpu.models.mmada import MMadaModel as JaxMMadaModel
@@ -337,39 +339,64 @@ def test_adamw_bf16_matches_optax_bit_for_bit():
 
 
 def test_training_block_max_grad_norm_clips(models):
-    """The stage configs put `max_grad_norm` under `training:`
-    (configs/mmada_pretraining_stage1.yaml:63) and leave it out of
-    `optimizer.params`: the port's Trainer clips with it (the JAX Trainer
-    does not read it). A clip in `optimizer.params` takes precedence."""
-    optimizer = {"name": "adamw", "params": {"learning_rate": 1e-4, "beta1": 0.9,
-                                             "beta2": 0.999, "weight_decay": 0.01,
-                                             "epsilon": 1e-8}}
-    training = dict(batch_size_t2i=0, batch_size_lm=1, max_grad_norm=1)
+    """The port's Trainer builds the JAX Trainer's optimizer: from the
+    `optimizer` block alone (`mmada_tpu.training.optimizers.from_config`).
+    The stage-1 blocks put `max_grad_norm` under `training:`
+    (configs/mmada_pretraining_stage1.yaml:63), which neither package reads,
+    so both train them without a clip: the port's optimizer has no
+    `max_grad_norm`, and two steps on a gradient of norm 10 move the weights
+    and moments as optax's chain from the same blocks does. A clip under
+    `optimizer.params` is taken: with it a gradient of norm 10 moves them as
+    one of norm 1, and as the JAX chain with that clip does."""
+    stage1 = load_config(os.path.join(os.path.dirname(__file__), os.pardir, "configs",
+                                      "mmada_pretraining_stage1.yaml"))
+    optimizer = stage1.get_path("optimizer").to_dict()
+    training = stage1.get_path("training").to_dict()
+    assert training["max_grad_norm"] == 1 and "max_grad_norm" not in optimizer["params"]
+    training.update(batch_size_t2i=0, batch_size_lm=1, batch_size_mmu=0,
+                    gradient_accumulation_steps=1)
+    lr = {"scheduler": "constant", "params": {"learning_rate": 1e-4}}
     prompting = UniversalPrompting(ByteTokenizer(), _special(VOCAB, SpecialIds), max_text_len=8)
 
-    def built(opt_cfg, tr):
-        return Trainer(_port_model(models), prompting, training=tr, optimizer=opt_cfg).optimizer
+    def built(opt_cfg):
+        return Trainer(_port_model(models), prompting, training=training, optimizer=opt_cfg,
+                       lr_scheduler=lr).optimizer
 
-    opt = built(optimizer, training)
-    assert opt.max_grad_norm == 1
-    assert built(optimizer, dict(training, max_grad_norm=None)).max_grad_norm is None
-    explicit = {"name": "adamw", "params": dict(optimizer["params"], max_grad_norm=0.5)}
-    assert built(explicit, training).max_grad_norm == 0.5
-    # and it clips: a gradient of norm 10 moves the weights as one of norm 1
     rng = np.random.default_rng(2)
-    w = torch.from_numpy(rng.normal(size=(8, 8)).astype(np.float32))
-    g = torch.from_numpy(rng.normal(size=(8, 8)).astype(np.float32))
-    g = g * (10.0 / g.norm())
-    moved = {}
-    for tag, o, grad in (("clipped", opt, g), ("unit", optimizers.AdamW(1e-4, max_grad_norm=None), g / 10.0),
-                         ("raw", optimizers.AdamW(1e-4, max_grad_norm=None), g)):
-        params = {"layers.0.q_proj": w.clone()}
-        st = o.init(params)
+    w = rng.normal(size=(8, 8)).astype(np.float32)
+    g = rng.normal(size=(8, 8)).astype(np.float32)
+    g = g * (10.0 / np.linalg.norm(g))
+
+    def moved(opt, grad):
+        params = {"layers.0.q_proj": torch.from_numpy(w.copy())}
+        st = opt.init(params)
         for _ in range(2):
-            o.apply(params, {"layers.0.q_proj": grad}, st)
-        moved[tag] = (params["layers.0.q_proj"], st["nu"]["layers.0.q_proj"])
-    torch.testing.assert_close(moved["clipped"], moved["unit"], rtol=1e-6, atol=1e-9)
-    assert not torch.allclose(moved["clipped"][1], moved["raw"][1])
+            opt.apply(params, {"layers.0.q_proj": torch.from_numpy(grad)}, st)
+        return params["layers.0.q_proj"], st["nu"]["layers.0.q_proj"]
+
+    def jax_moved(opt_cfg, grad):
+        jopt = jax_optimizers.from_config(opt_cfg, 1e-4)
+        jp = {"blocks": {"q_proj": jnp.asarray(w[None])}}
+        jstate = jopt.init(jp)
+        for _ in range(2):
+            updates, jstate = jopt.update({"blocks": {"q_proj": jnp.asarray(grad[None])}},
+                                          jstate, jp)
+            jp = optax.apply_updates(jp, updates)
+        adam = jstate[-1][0]   # the chain's last link: optax.adamw's Adam state
+        return (torch.from_numpy(np.array(jp["blocks"]["q_proj"][0])),
+                torch.from_numpy(np.array(adam.nu["blocks"]["q_proj"][0])))
+
+    unclipped = built(optimizer)
+    assert unclipped.max_grad_norm is None
+    torch.testing.assert_close(moved(unclipped, g), jax_moved(optimizer, g),
+                               rtol=1e-6, atol=1e-9)
+    explicit = {"name": "adamw", "params": dict(optimizer["params"], max_grad_norm=1.0)}
+    clipped = built(explicit)
+    assert clipped.max_grad_norm == 1.0
+    torch.testing.assert_close(moved(clipped, g), moved(unclipped, g / 10.0),
+                               rtol=1e-6, atol=1e-9)
+    torch.testing.assert_close(moved(clipped, g), jax_moved(explicit, g), rtol=1e-6, atol=1e-9)
+    assert not torch.allclose(moved(clipped, g)[1], moved(unclipped, g)[1])
 
 
 # -------------------------------------------------------------- train step
