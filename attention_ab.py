@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the attention kernels B1, B4 (the serving path's forwards) and B5
-(the long training path's staged backward) against those of another
-checkout of the port, in turns on one NVIDIA GPU.
+"""Times the attention kernels B1, B2 and B4 (the serving path's forwards)
+and B5 (the long training path's staged backward, unbiased and biased)
+against those of another checkout of the port, in turns on one NVIDIA GPU.
 
     python3 attention_ab.py PARENT_DIR [--out chiprun_out/attention_ab.json]
                             [--only forward|backward]
@@ -9,35 +9,39 @@ checkout of the port, in turns on one NVIDIA GPU.
 PARENT_DIR is an unpacked checkout of the commit to compare with (for
 example `git archive HEAD | tar -x -C chip_checkout`). Its kernels are built
 from its own `mmada_tpu_torch/ops/csrc` with its own `_build.py` and launched
-through their C entries with the signatures they had there: B1
-`mmada_flash_attention_fwd_bf16` and B4 `mmada_flash_attention_long_fwd_bf16`
-by tensor maps (as here, so through this checkout's wrappers), B5-dq
-`mmada_flash_attention_long_bwd_dq_bf16` and B5-dkv
-`mmada_flash_attention_long_bwd_dkv_bf16` by element strides (before their
-redesign on wgmma). This checkout's kernels run through its wrappers. Each measurement runs in the order parent, this, this,
-parent, on the same inputs:
+through their C entries with the signatures they had there: the unbiased B1,
+B4, B5-dq and B5-dkv by tensor maps (as here, so through this checkout's
+wrappers), B2, B5-dq-bias and B5-dkv-bias by element strides (before their
+redesign on wgmma). This checkout's kernels run through its wrappers. Each
+measurement runs in the order parent, this, this, parent, on the same
+inputs:
 
   * B1 at the t2i CFG batch (4 x 32 heads x 1,155 tokens, RoPE) and at the
-    served text batch (3 x 32 x 159, RoPE), B4 at the long text frame (1 x 32
-    x 8,192): CUDA events, 10 calls after 2 warm-up, and the device time of
-    the kernels a call launches (torch.profiler, 10 calls: it leaves out
-    the time the stream waits for the host); beside B1's, the share of its
+    served text batch (3 x 32 x 159, RoPE), B2 at the t2i CFG batch with the
+    served requests' mask bias, B4 at the long text frame (1 x 32 x 8,192):
+    CUDA events, 10 calls after 2 warm-up, and the device time of the
+    kernels a call launches (torch.profiler, 10 calls: it leaves out the
+    time the stream waits for the host); beside them, the share of their
     output elements that differ from the plain version's
-    (`flash_attention_reference`);
+    (`flash_attention_reference`), and for B2 the bias bytes its blocks read
+    against its device time;
   * one forward of the full-width 8B (random weights from seed 0, bf16) at
     the served text batch (3 x 159 tokens, the head over one 32-token block),
-    at the t2i CFG batch (the sampler's first forward, windowed head) and on
+    at the t2i CFG batch (the sampler's first forward, windowed head),
+    without and with its attention masks (`attention_bias_enabled`), and on
     the 8,192-token text frame (the head over one 64-token block), with the
     model's attention calls sent to one version's kernels or the other's:
     CUDA events, 3 calls after 1 warm-up, and the device time of the
     kernels a forward launches (3 forwards);
-  * B5-dq and B5-dkv (no bias) at the long training batch (2 x 32 heads x
-    8,192 tokens) and at 16,384 tokens (1 x 2 heads): CUDA events, 10 calls
-    after 2 warm-up, and the device time of a call; beside them the largest
-    difference of each output from the parent's, relative to the parent's
-    largest entry (lse: absolute).
+  * B5-dq and B5-dkv at the long training batch (2 x 32 heads x 8,192
+    tokens) and at 16,384 tokens (1 x 2 heads), and B5-dq-bias and
+    B5-dkv-bias at the long training batch with its masks (the cotangent 0
+    on the rows with no allowed key): CUDA events, 10 calls after 2 warm-up,
+    and the device time of a call; beside them the largest difference of
+    each output from the parent's, relative to the parent's largest entry
+    (lse: absolute).
 
-`--only forward` runs the first two, `--only backward` the last.
+`--only forward` runs the first two, `--only backward` the third.
 
 Prints one JSON line per measurement, the card's name and power limit as
 nvidia-smi reports them, and a summary JSON line last; with --out, writes
@@ -58,17 +62,18 @@ import chip_smoke
 
 
 def parent_kernels(parent_dir: str):
-    """(B1, B4, B5-dq, B5-dkv) of the checkout at `parent_dir`, as callables
-    with the signatures of this checkout's `flash_attention`,
-    `flash_attention_long`, `attention_bwd_dq_long` and
-    `attention_bwd_dkv_long` (no bias). B1's and B4's C entries take the
-    operands' tensor maps, as this checkout's do, so the parent's run
-    through this checkout's wrappers (`_through`); B5's take element
-    strides."""
+    """The attention kernels of the checkout at `parent_dir`, as callables
+    with the signatures of this checkout's wrappers: (forward, B4, B5-dq,
+    B5-dkv), where the forward is `flash_attention` (B1, or B2 with a bias)
+    and B5's take an optional bias. The unbiased entries of B1, B4, B5-dq
+    and B5-dkv take the operands' tensor maps, as this checkout's do, so they
+    run through this checkout's wrappers (`_through`); the parent's biased
+    entries (B2, B5-dq-bias, B5-dkv-bias: the earlier mma.sync bodies) take
+    element strides and are called directly."""
     import torch
 
-    from mmada_tpu_torch.ops.flash_attention import flash_attention
-    from mmada_tpu_torch.ops.flash_attention_long import flash_attention_long
+    from mmada_tpu_torch.ops import flash_attention_long as long_mod
+    from mmada_tpu_torch.ops.flash_attention import _bias_strides, flash_attention
 
     path = os.path.join(parent_dir, "mmada_tpu_torch", "ops", "_build.py")
     spec = importlib.util.spec_from_file_location("parent_build", path)
@@ -83,44 +88,75 @@ def parent_kernels(parent_dir: str):
         fn.restype = ctypes.c_int
         return fn
 
-    b1_name, b4_name = "mmada_flash_attention_fwd_bf16", "mmada_flash_attention_long_fwd_bf16"
-    b1 = entry("flash_attention_fwd", b1_name, 8, [p, p])
-    b4 = entry("flash_attention_long", b4_name, 4, [p])
+    names = {"b1": "mmada_flash_attention_fwd_bf16", "b4": "mmada_flash_attention_long_fwd_bf16",
+             "dq": "mmada_flash_attention_long_bwd_dq_bf16",
+             "dkv": "mmada_flash_attention_long_bwd_dkv_bf16"}
+    b1 = entry("flash_attention_fwd", names["b1"], 8, [p, p])
+    b4 = entry("flash_attention_long", names["b4"], 4, [p])
+    dq = entry("flash_attention_long", names["dq"], 7, [p])
+    dkv = entry("flash_attention_long", names["dkv"], 8, [p])
     by_strides = [ctypes.POINTER(ctypes.c_longlong)]
-    dq_fn = entry("flash_attention_long", "mmada_flash_attention_long_bwd_dq_bf16", 7, by_strides)
-    dkv_fn = entry("flash_attention_long", "mmada_flash_attention_long_bwd_dkv_bf16", 8,
-                   by_strides)
+    b2 = entry("flash_attention_fwd", "mmada_flash_attention_fwd_bias_bf16", 9, by_strides)
+    dq_bias = entry("flash_attention_long", "mmada_flash_attention_long_bwd_dq_bias_bf16", 8,
+                    by_strides)
+    dkv_bias = entry("flash_attention_long", "mmada_flash_attention_long_bwd_dkv_bias_bf16", 9,
+                     by_strides)
 
-    def strides(*ts):
+    def strides(*ts, bias):
+        b, h, lq, lk = ts[0].shape[0], ts[0].shape[1], bias.shape[2], bias.shape[3]
         flat = [s for t in ts for s in t.stride()[:3]]
+        flat += _bias_strides(bias, b, h, lq, lk, bias.device)
         return (ctypes.c_longlong * len(flat))(*flat)
 
-    def stream(t):
-        return torch.cuda.current_stream(t.device).cuda_stream
-
-    def attention_bwd_dq_long(q, k, v, dout, delta):
-        b, h, lq, d = q.shape
-        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-        lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-        err = dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), lse.data_ptr(), b, h, k.shape[1], lq, k.shape[2], d,
-                    strides(q, k, v, dout, dq), 1.0 / d ** 0.5, stream(q))
+    def run(fn, *args):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"parent B5-dq failed: cudaError {err}")
-        return dq, lse
+            raise RuntimeError(f"parent {fn.__name__} failed: cudaError {err}")
 
-    def attention_bwd_dkv_long(q, k, v, dout, lse, delta):
+    b1_through = _through(flash_attention, names["b1"], b1)
+
+    def forward(q, k, v, rope_sin=None, rope_cos=None, bias=None):
+        if bias is None:
+            return b1_through(q, k, v, rope_sin=rope_sin, rope_cos=rope_cos)
+        b, h, lq, d = q.shape
+        kvh, lk = k.shape[1], k.shape[2]
+        out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+        scratch = [None, None]
+        if rope_sin is not None:
+            scratch = [torch.empty_like(q, memory_format=torch.contiguous_format),
+                       torch.empty_like(k, memory_format=torch.contiguous_format)]
+        ptrs = [None if t is None else t.data_ptr() for t in (rope_sin, rope_cos, *scratch)]
+        run(b2, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias.data_ptr(), *ptrs,
+            b, h, kvh, lq, lk, d, strides(q, k, v, out, bias=bias), 1.0 / d ** 0.5)
+        return out
+
+    dq_through = _through(long_mod.attention_bwd_dq_long, names["dq"], dq)
+    dkv_through = _through(long_mod.attention_bwd_dkv_long, names["dkv"], dkv)
+
+    def attention_bwd_dq_long(q, k, v, dout, delta, bias=None):
+        if bias is None:
+            return dq_through(q, k, v, dout, delta)
+        b, h, lq, d = q.shape
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+        run(dq_bias, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            delta.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h,
+            k.shape[1], lq, k.shape[2], d, strides(q, k, v, dout, out, bias=bias), 1.0 / d ** 0.5)
+        return out, lse
+
+    def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None):
+        if bias is None:
+            return dkv_through(q, k, v, dout, lse, delta)
         b, h, lq, d = q.shape
         dk = torch.empty_like(k, memory_format=torch.contiguous_format)
         dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-        err = dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], lq,
-                     k.shape[2], d, strides(q, k, v, dout, dk, dv), 1.0 / d ** 0.5, stream(q))
-        if err:
-            raise RuntimeError(f"parent B5-dkv failed: cudaError {err}")
+        run(dkv_bias, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, k.shape[1], lq, k.shape[2], d, strides(q, k, v, dout, dk, dv, bias=bias),
+            1.0 / d ** 0.5)
         return dk, dv
 
-    return (_through(flash_attention, b1_name, b1), _through(flash_attention_long, b4_name, b4),
+    return (forward, _through(long_mod.flash_attention_long, names["b4"], b4),
             attention_bwd_dq_long, attention_bwd_dkv_long)
 
 
@@ -144,9 +180,11 @@ def _through(wrapper, name: str, fn):
 
 
 def in_turns(fns: dict, measure) -> dict:
-    """measure(fn) in the order parent, this, this, parent; every value and
-    the mean per version."""
-    order = ["parent", "this", "this", "parent"]
+    """measure(fn) in the order first, second, second, first of the two
+    versions in `fns` (parent, this, this, parent); every value and the mean
+    per version."""
+    first, second = fns
+    order = [first, second, second, first]
     values = {name: [] for name in fns}
     for name in order:
         values[name].append(measure(fns[name]))
@@ -180,32 +218,40 @@ def relative_gap(got, want) -> float:
 
 def time_b5(b5: dict, emit) -> None:
     """B5-dq and B5-dkv of both versions at the long training batch and at
-    16,384 tokens, in turns, on the same inputs."""
+    16,384 tokens, and B5-dq-bias and B5-dkv-bias at the long training batch
+    with its masks, in turns, on the same inputs."""
     import torch
 
     from mmada_tpu_torch.ops.flash_attention import attention_delta
     from mmada_tpu_torch.ops.flash_attention_long import flash_attention_long
 
-    for tag, (b, h, l) in (("long train", (chip_smoke.LONG_TRAIN_ROWS, 32, chip_smoke.LONG_FRAME)),
-                           ("L16384, 2 heads", (1, 2, 16384))):
+    rows, frame = chip_smoke.LONG_TRAIN_ROWS, chip_smoke.LONG_FRAME
+    for tag, (b, h, l), masked in (("long train", (rows, 32, frame), False),
+                                   ("L16384, 2 heads", (1, 2, 16384), False),
+                                   ("long train + mask", (rows, 32, frame), True)):
         q, k, v, _, _ = chip_smoke.attention_case(b, h, h, l, l, False, seed=13)
+        bias = chip_smoke.train_mask_bias(chip_smoke.LONG) if masked else None
         g = torch.Generator("cuda").manual_seed(14)
         dout = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
-        delta = attention_delta(flash_attention_long(q, k, v), dout)
-        outs = {name: fns[0](q, k, v, dout, delta) for name, fns in b5.items()}
+        if masked:  # the model's cotangent: 0 on the rows with no allowed key
+            dout = dout * chip_smoke.live_rows(bias, dout.shape)
+        delta = attention_delta(flash_attention_long(q, k, v, bias), dout)
+        outs = {name: fns[0](q, k, v, dout, delta, bias) for name, fns in b5.items()}
         lse = outs["parent"][1]
-        grads = {name: fns[1](q, k, v, dout, lse, delta) for name, fns in b5.items()}
+        grads = {name: fns[1](q, k, v, dout, lse, delta, bias) for name, fns in b5.items()}
         gap = {"dq": relative_gap(outs["this"][0], outs["parent"][0]),
                "lse_abs": float((outs["this"][1] - lse).abs().max()),
                "dk": relative_gap(grads["this"][0], grads["parent"][0]),
                "dv": relative_gap(grads["this"][1], grads["parent"][1])}
-        for kernel, call in (("B5-dq", lambda fns: fns[0](q, k, v, dout, delta)),
-                             ("B5-dkv", lambda fns: fns[1](q, k, v, dout, lse, delta))):
+        suffix = "-bias" if masked else ""
+        calls = ((f"B5-dq{suffix}", lambda fns: fns[0](q, k, v, dout, delta, bias)),
+                 (f"B5-dkv{suffix}", lambda fns: fns[1](q, k, v, dout, lse, delta, bias)))
+        for kernel, call in calls:
             times = in_turns(b5, lambda fns: chip_smoke.cuda_ms(lambda: call(fns), 10))
             device = in_turns(b5, lambda fns: device_ms(lambda: call(fns)))
             emit(dict(tag=f"{kernel} {tag}", shape=[b, h, h, l, l], ms=times, device_ms=device,
                       gap_to_parent=gap))
-        del q, k, v, dout, delta, outs, grads, lse
+        del q, k, v, dout, delta, outs, grads, lse, bias
         torch.cuda.empty_cache()
 
 
@@ -233,18 +279,18 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
-    _build.build_all(["flash_attention_fwd", "flash_attention_long"])
-    parent_b1, parent_b4, parent_dq, parent_dkv = parent_kernels(args.parent_dir)
-    b1 = {"parent": parent_b1, "this": flash_attention}
-    b4 = {"parent": parent_b4, "this": flash_attention_long}
-    b5 = {"parent": (parent_dq, parent_dkv), "this": (attention_bwd_dq_long,
-                                                     attention_bwd_dkv_long)}
     records = []
 
     def emit(rec):
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
+    _build.build_all(["flash_attention_fwd", "flash_attention_long"])
+    parent_fwd, parent_b4, parent_dq, parent_dkv = parent_kernels(args.parent_dir)
+    b1 = {"parent": parent_fwd, "this": flash_attention}
+    b4 = {"parent": parent_b4, "this": flash_attention_long}
+    b5 = {"parent": (parent_dq, parent_dkv), "this": (attention_bwd_dq_long,
+                                                     attention_bwd_dkv_long)}
     if args.only != "forward":
         time_b5(b5, emit)
     if args.only != "backward":
@@ -260,8 +306,10 @@ def main() -> int:
 
 
 def time_forwards(b1: dict, b4: dict, emit) -> None:
-    """B1 and B4 of both versions, and three 8B forwards through one
+    """B1, B2 and B4 of both versions, and four 8B forwards through one
     version's forwards or the other's, in turns."""
+    import dataclasses
+
     import torch
 
     from mmada_tpu_torch.core.precision import BF16
@@ -271,19 +319,25 @@ def time_forwards(b1: dict, b4: dict, emit) -> None:
     from mmada_tpu_torch.ops import attention
     from mmada_tpu_torch.ops.flash_attention import flash_attention_reference
 
-    for tag, (b, h, l) in (("B1 t2i CFG", (4, 32, chip_smoke.T2I_FRAME)),
-                           ("B1 text batch", (3, 32, chip_smoke.TEXT_FRAME))):
+    for tag, (b, h, l), masked in (("B1 t2i CFG", (4, 32, chip_smoke.T2I_FRAME), False),
+                                   ("B1 text batch", (3, 32, chip_smoke.TEXT_FRAME), False),
+                                   ("B2 t2i CFG + mask", (4, 32, chip_smoke.T2I_FRAME), True)):
         q, k, v, sin, cos = chip_smoke.attention_case(b, h, h, l, l, True, seed=11)
-        want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos)
-        shares = {name: differing_share(fn(q, k, v, rope_sin=sin, rope_cos=cos), want)
-                  for name, fn in b1.items()}
-        times = in_turns(b1, lambda fn: chip_smoke.cuda_ms(
-            lambda: fn(q, k, v, rope_sin=sin, rope_cos=cos), 10))
-        device = in_turns(b1, lambda fn: device_ms(lambda: fn(q, k, v, rope_sin=sin,
-                                                               rope_cos=cos)))
-        emit(dict(tag=tag, shape=[b, h, h, l, l], ms=times, device_ms=device,
-                  differing_share=shares))
-        del q, k, v, want
+        kw = dict(rope_sin=sin, rope_cos=cos,
+                  bias=chip_smoke.t2i_mask_bias(cfg_batch=True) if masked else None)
+        want = flash_attention_reference(q, k, v, **kw)
+        shares = {name: differing_share(fn(q, k, v, **kw), want) for name, fn in b1.items()}
+        times = in_turns(b1, lambda fn: chip_smoke.cuda_ms(lambda: fn(q, k, v, **kw), 10))
+        device = in_turns(b1, lambda fn: device_ms(lambda: fn(q, k, v, **kw)))
+        rec = dict(tag=tag, shape=[b, h, h, l, l], ms=times, device_ms=device,
+                   differing_share=shares)
+        if masked:  # the bias rows each head reads, against the kernel's time
+            bias_bytes = 2 * h * kw["bias"].numel() * 4   # both passes, every head
+            rec["bias_bytes_read"] = bias_bytes
+            rec["bias_tb_per_s"] = {name: bias_bytes / (t["mean"] * 1e-3) / 1e12
+                                    for name, t in device.items()}
+        emit(rec)
+        del q, k, v, want, kw
 
     l = chip_smoke.LONG_FRAME
     q, k, v, _, _ = chip_smoke.attention_case(1, 32, 32, l, l, False, seed=12)
@@ -295,19 +349,22 @@ def time_forwards(b1: dict, b4: dict, emit) -> None:
     cfg = llada.llada_8b()
     model = MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
                             generator=torch.Generator("cuda").manual_seed(0), policy=BF16)
+    masked = dataclasses.replace(model, cfg=dataclasses.replace(cfg, attention_bias_enabled=True))
     t2i = chip_smoke.t2i_frames()
+    t2i_mask = torch.as_tensor(chip_smoke.t2i_masks(cfg_batch=True), device="cuda")
     n = chip_smoke.T2I_SETTINGS["num_vq_tokens"]
     long_ids = torch.randint(0, 256, (1, l), generator=torch.Generator().manual_seed(3)).cuda()
     block = chip_smoke.LONG_TEXT_SETTINGS["block_length"]
     text = torch.randint(0, 256, (len(chip_smoke.TEXT_PROMPTS), chip_smoke.TEXT_FRAME),
                          generator=torch.Generator().manual_seed(4)).cuda()
     text_block = chip_smoke.TEXT_SETTINGS["block_length"]
+    image = dict(logit_window=MMADA_8B.image_window, logit_positions=(t2i.shape[1] - n - 1, n))
     forwards = {
         "text forward (3 x 159)": lambda: model.forward(
             text, logit_positions=(text.shape[1] - text_block, text_block)),
-        "t2i forward (4 x 1,155)": lambda: model.forward(
-            t2i, logit_window=MMADA_8B.image_window,
-            logit_positions=(t2i.shape[1] - n - 1, n)),
+        "t2i forward (4 x 1,155)": lambda: model.forward(t2i, **image),
+        "masked t2i forward (4 x 1,155)": lambda: masked.forward(
+            t2i, attention_mask=t2i_mask, **image),
         "long text forward (1 x 8,192)": lambda: model.forward(
             long_ids, logit_positions=(l - block, block)),
     }

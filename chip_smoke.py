@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
-checks that the wgmma kernels B1, B4, B5-dq and B5-dkv hold `wgmma` (HGMMA)
-and TMA load (UTMALDG) instructions in their SASS, holds each kernel against
-its plain PyTorch version (B1 also by the share of its outputs that differ)
+checks that the wgmma kernels B1, B2, B4, B5-dq and B5-dkv (the last two
+unbiased and biased) hold `wgmma` (HGMMA) and TMA load (UTMALDG)
+instructions in their SASS and that ptxas spilled nothing of theirs, holds
+each kernel against its plain PyTorch version (B1 and B2 also by the share
+of their outputs that differ, B2 with a zero bias against B1 bit for bit)
 at the shapes the serving and training paths give it: the one-pass tier (B1, B2
 with a bias, dq and dkv without and with a bias) and the long tier past
 4096 tokens (B4, B5-dq and B5-dkv, without and with a bias, at 8,192 tokens,
@@ -28,7 +30,8 @@ and takes stage-1 train steps with `t2i_masks` again, and one masked step
 on 8,192-token frames. It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
-the int4 paths only).
+the int4 paths only), and that the masked paths' biases reached the
+kernels without a copy (`bias_copies` 0).
 Each phase prints lines with the elapsed seconds; any failure ends the run
 with a non-zero exit. The last three lines are the kernels' JSON record, the
 card's name and power limit as nvidia-smi reports them, and
@@ -44,6 +47,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -207,9 +211,15 @@ def _mask_bias(masks):
 
 
 def t2i_mask_bias(cfg_batch: bool):
-    """The mask bias of the frames `serve_t2i` builds for T2I_PROMPTS: the
-    prompts' frames, then (CFG) the empty-prompt frames, as the sampler
-    batches them."""
+    """The mask bias of the frames `serve_t2i` builds for T2I_PROMPTS
+    (`t2i_masks`)."""
+    return _mask_bias(t2i_masks(cfg_batch))
+
+
+def t2i_masks(cfg_batch: bool):
+    """The (B, 1,155) keep-masks of the frames `serve_t2i` builds for
+    T2I_PROMPTS: the prompts' frames, then (CFG) the empty-prompt frames, as
+    the sampler batches them."""
     import numpy as np
 
     from mmada_tpu_torch.core.vocab import MMADA_8B
@@ -222,7 +232,7 @@ def t2i_mask_bias(cfg_batch: bool):
     if cfg_batch:
         _, uncond = up.t2i_gen_uncond(len(T2I_PROMPTS), n, mask_id)
         masks = np.concatenate([masks, uncond])
-    return _mask_bias(masks)
+    return masks
 
 
 def train_mask_bias(plan=STAGE1):
@@ -350,7 +360,7 @@ def check_kernel(cases):
         share = differing_share(out, ref)
         ok = bool(torch.isfinite(out).all()) and bool(
             (err <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
-        ok = ok and (bias is not None or share <= B1_DIFFER_SHARE)
+        ok = ok and share <= B1_DIFFER_SHARE
         max_err = float(err.max())
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, **kw), 3, 1)
@@ -373,7 +383,7 @@ def check_kernel(cases):
             raise AssertionError(
                 f"flash_attention disagrees with its plain version on {tag}: "
                 f"max abs err {max_err} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}), differing "
-                f"share {share} (B1: at most {B1_DIFFER_SHARE})")
+                f"share {share} (at most {B1_DIFFER_SHARE})")
         records.append(rec)
     return records
 
@@ -384,12 +394,10 @@ def differing_share(got, want) -> float:
 
 
 def check_zero_bias(h: int) -> None:
-    """At the served t2i CFG shape: B2 with a zero bias against B1, at B1's
-    bars (atol/rtol and the differing share: the two kernels compute one
-    function with different designs, so they agree as each agrees with the
-    plain version); and B2 with a zero (B, 1, L, L) bias against B2 with a
-    zero (1, 1, L, L) bias, bit for bit (adding 0.0f to a score is exact,
-    and a broadcast axis only changes the bias's strides)."""
+    """At the served t2i CFG shape: B2 with a zero bias against B1, bit for
+    bit (B2 adds the bias in log2 units to B1's exponent, and adding 0.0f
+    changes nothing), with a (B, 1, L, L) and a (1, 1, L, L) zero bias (a
+    broadcast axis only changes the bias's tensor map)."""
     import torch
 
     from mmada_tpu_torch.ops.flash_attention import flash_attention
@@ -400,24 +408,29 @@ def check_zero_bias(h: int) -> None:
     b2 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero)
     b2_row = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero[:1])
     b1 = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
-    err = (b2.float() - b1.float()).abs()
-    close = bool((err <= KERNEL_ATOL + KERNEL_RTOL * b1.float().abs()).all())
-    share = differing_share(b2, b1)
-    same = bool(torch.equal(b2, b2_row))
-    log("kernel", f"zero bias at (4, {h}, {h}, {t2i_len}, {t2i_len}): B2 vs B1 max abs err "
-        f"{float(err.max())}, differing share {share}; B2 (4, 1, L, L) vs (1, 1, L, L) bias "
-        f"bit for bit {same}")
-    if not (close and share <= B1_DIFFER_SHARE and same):
-        raise AssertionError("B2 with a zero bias differs from B1 beyond B1's bars, or from "
-                             "itself with a zero bias of another broadcast shape")
+    same, same_row = bool(torch.equal(b2, b1)), bool(torch.equal(b2_row, b1))
+    log("kernel", f"zero bias at (4, {h}, {h}, {t2i_len}, {t2i_len}): B2 vs B1 bit for bit "
+        f"{same} ((4, 1, L, L) bias), {same_row} ((1, 1, L, L) bias); differing share "
+        f"{differing_share(b2, b1)}")
+    if not (same and same_row):
+        raise AssertionError("B2 with a zero bias differs from B1")
+
+
+# bytes of spill stores a wgmma kernel's cold build may show: none, but for
+# B5-dkv-bias at D 128, whose consumers hold dk, dv, s^T and dp^T (192 of
+# their 232 registers) beside the bias tile's addresses; one register (4
+# bytes) spills there, whichever order the bias is read in (PR 11's builds)
+SPILL_ALLOWED = {"attn_long_bwd_dkv_wgmma_kernelILi128ELb1": 4}
 
 
 def check_sass() -> dict:
-    """Per wgmma kernel of the built B1 and long-tier libraries (B1, B4,
-    B5-dq, B5-dkv at D 64 and 128), the count of HGMMA (wgmma), UTMALDG (TMA
-    load) and UTMASTG (TMA store) instructions in its SASS (`cuobjdump
-    -sass`) and, after a cold build, its ptxas lines; fails if HGMMA or
-    UTMALDG is missing."""
+    """Per wgmma kernel of the built one-pass and long-tier libraries (B1,
+    B2, B4, B5-dq, B5-dkv, B5-dq-bias, B5-dkv-bias at D 64 and 128), the
+    count of HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store)
+    instructions in its SASS (`cuobjdump -sass`) and, after a cold build, its
+    ptxas lines; fails if HGMMA or UTMALDG is missing, if ptxas spilled
+    registers of one of them (beyond SPILL_ALLOWED), or if it serialised the
+    wgmma of any kernel (C7510-C7520 in a build log)."""
     import os
 
     from mmada_tpu_torch.ops import _build
@@ -446,14 +459,24 @@ def check_sass() -> dict:
                 counts[func]["ptxas"] = counts[func].get("ptxas", "") + line.strip() + "; "
     for func, c in counts.items():
         log("sass", f"{func}: {c}")
-    wanted = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128",
-              "attn_long_fwd_wgmma_kernelILi64", "attn_long_fwd_wgmma_kernelILi128",
-              "attn_long_bwd_dq_wgmma_kernelILi64", "attn_long_bwd_dq_wgmma_kernelILi128",
-              "attn_long_bwd_dkv_wgmma_kernelILi64", "attn_long_bwd_dkv_wgmma_kernelILi128")
+    wanted = [f"{kernel}ILi{d}E{flag}" for d in (64, 128)
+              for kernel, flags in (("attn_fwd_wgmma_kernel", ("",)),
+                                    ("attn_fwd_bias_wgmma_kernel", ("",)),
+                                    ("attn_long_fwd_wgmma_kernel", ("",)),
+                                    ("attn_long_bwd_dq_wgmma_kernel", ("Lb0", "Lb1")),
+                                    ("attn_long_bwd_dkv_wgmma_kernel", ("Lb0", "Lb1")))
+              for flag in flags]
     for want in wanted:
         found = [c for f, c in counts.items() if want in f]
         if not found or not (found[0]["HGMMA"] and found[0]["UTMALDG"]):
             raise AssertionError(f"{want}: no HGMMA or no UTMALDG in its SASS ({found})")
+        spilled = re.search(r"(\d+) bytes spill stores", found[0].get("ptxas", ""))
+        if spilled and int(spilled.group(1)) > SPILL_ALLOWED.get(want, 0):
+            raise AssertionError(f"{want}: ptxas spilled registers ({found[0]['ptxas']})")
+    serialised = [line for text in _build.build_logs.values() for line in text.splitlines()
+                  if any(f"C75{n}" in line for n in range(10, 21))]
+    if serialised:
+        raise AssertionError(f"ptxas serialised wgmma: {serialised}")
     return counts
 
 
@@ -1295,10 +1318,21 @@ def main() -> int:
                                          attention_bwd_dkv_long))
                 for attr in ("launches", "bias_launches") for fn in tier]
     counters.append((int4_matmul, "launches"))
+    # the wrappers that copy a bias no tensor map describes (B2, B5-dq-bias,
+    # B5-dkv-bias): the model builds its bias so that none is copied
+    copiers = (flash_attention, attention_bwd_dq_long, attention_bwd_dkv_long)
 
     def reset_counts():
         for fn, attr in counters:
             setattr(fn, attr, 0)
+        for fn in copiers:
+            fn.bias_copies = 0
+
+    def expect_no_bias_copies(phase):
+        copies = {fn.__name__: fn.bias_copies for fn in copiers}
+        log(phase, f"bias copies {copies}")
+        if any(copies.values()):
+            raise AssertionError(f"{phase} copied its bias before a kernel: {copies}")
 
     def counts():
         """(fwd, dq, dkv) of the one-pass tier unbiased and biased, then of
@@ -1484,6 +1518,7 @@ def main() -> int:
         f"{T2I_SETTINGS}: {masked_t2i_s:.2f}s ({t2i_s:.2f}s unmasked), "
         f"{codes.unique().numel()} distinct codes; launches {launched}")
     expect_launches("masked t2i", launched, {"one-pass bias": (want_t2i, 0, 0)})
+    expect_no_bias_copies("masked t2i")
     masked_trainer, launched = train_phase(
         "masked train", masked, MASKED_TRAIN_STEPS, train, reset_counts, counts)
     masked_train = launched[1]
@@ -1494,6 +1529,7 @@ def main() -> int:
         raise AssertionError("the masked training batch has no padded position")
     expect_launches("masked train", launched, {"one-pass bias": (
         MASKED_TRAIN_STEPS * 2 * n, MASKED_TRAIN_STEPS * n, MASKED_TRAIN_STEPS * n)})
+    expect_no_bias_copies("masked train")
     masked_fwd = next(r for r in records if r["tag"].startswith("masked train B15"))
     masked_bwd = next(r for r in bwd_records if r["tag"].startswith("masked train B15"))
     step_share("masked train", masked_trainer, masked_fwd, masked_bwd, n)
@@ -1512,6 +1548,7 @@ def main() -> int:
     expect_launches("masked long train", masked_long, {"long bias": (
         MASKED_LONG_TRAIN_STEPS * 2 * n, MASKED_LONG_TRAIN_STEPS * n,
         MASKED_LONG_TRAIN_STEPS * n)})
+    expect_no_bias_copies("masked long train")
     step_share("masked long train", masked_long_trainer,
                next(r for r in long_records if r["tag"].startswith("masked long train")),
                next(r for r in long_bwd_records if r["tag"].startswith("masked long train")), n)
@@ -1524,7 +1561,8 @@ def main() -> int:
                              design=WGMMA_DESIGN),
                kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                              masked_serve[0] + masked_train[0],
-                             [r for r in records if r["bias"] is not None], masked_rec)]
+                             [r for r in records if r["bias"] is not None], masked_rec,
+                             design=WGMMA_DESIGN)]
     plain_bwd = [r for r in bwd_records if r["bias"] is None] + [unaligned["bwd"]]
     biased_bwd = [r for r in bwd_records if r["bias"] is not None]
     long_fwd = [r for r in long_records if r["bias"] is None]
@@ -1563,11 +1601,11 @@ def main() -> int:
             ("flash_attention_long_bwd_dq", "flash_attention_long.cu", "dq", "1185",
              long_train[2][1], long_bwd, WGMMA_DESIGN),
             ("flash_attention_long_bwd_dq_bias", "flash_attention_long.cu", "dq", "1185",
-             masked_long[3][1], long_bwd_bias, MMA_DESIGN),
+             masked_long[3][1], long_bwd_bias, WGMMA_DESIGN),
             ("flash_attention_long_bwd_dkv", "flash_attention_long.cu", "dkv", "1240",
              long_train[2][2], long_bwd, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dkv_bias", "flash_attention_dkv.cuh", "dkv", "1240",
-             masked_long[3][2], long_bwd_bias, MMA_DESIGN)):
+            ("flash_attention_long_bwd_dkv_bias", "flash_attention_long.cu", "dkv", "1240",
+             masked_long[3][2], long_bwd_bias, WGMMA_DESIGN)):
         kernels.append(bwd_record(name, source, line, key, count, recs, design))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1800,8 +1838,9 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
         f"{sum(attn_ms.values()) / step_ms:.1%})")
 
 
-# how each kernel of the JSON line is built: the wgmma kernels (B1, B4,
-# B5-dq, B5-dkv) and those that keep the earlier warp-level design
+# how each kernel of the JSON line is built: the wgmma kernels (B1, B2, B4,
+# B5-dq, B5-dkv, unbiased and biased) and those that keep the earlier
+# warp-level design (B3, B3-bias, B4-bias)
 WGMMA_DESIGN = "wgmma + TMA, producer and two consumer warpgroups"
 MMA_DESIGN = "mma.sync + cp.async, four warps"
 

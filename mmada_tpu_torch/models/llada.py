@@ -36,6 +36,7 @@ from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import FP32, Policy
 from mmada_tpu_torch.ops.attention import NEG_INF, apply_rope, bidirectional_attention
 from mmada_tpu_torch.ops.norms import layer_norm, rms_norm
+from mmada_tpu_torch.ops.tensor_maps import ROW_FLOATS
 from mmada_tpu_torch.ops.quantization import (
     Int4Tensor,
     QuantizedTensor,
@@ -359,21 +360,32 @@ def prepare_attention_bias(
     attention_mask: Optional[torch.Tensor] = None,  # (B, L) 1=keep 0=pad
     attention_bias: Optional[torch.Tensor] = None,  # (B|1, 1, L, L) bool/float
 ) -> Optional[torch.Tensor]:
-    """Merge mask/bias into one additive fp32 bias (reference semantics)."""
+    """Merge mask/bias into one additive fp32 bias (reference semantics).
+
+    The result is a view of the first L columns of a tensor whose rows are
+    padded to a multiple of ROW_FLOATS (16 bytes): the biased kernels read
+    it through TMA, which needs rows that start 16 bytes apart, and one bias
+    serves every layer of the forward, so the padding is made here, once,
+    and no kernel wrapper copies it (`tensor_maps.bias_operand`)."""
     out = None
+    length = None
     if attention_bias is not None:
+        length = attention_bias.shape[-1]
+        pad = (0, -length % ROW_FLOATS)
         if attention_bias.dtype == torch.bool:
-            out = torch.where(attention_bias, 0.0, NEG_INF).float()
+            out = torch.where(F.pad(attention_bias, pad), 0.0, NEG_INF).float()
         else:
-            out = attention_bias.float()
+            out = F.pad(attention_bias.float(), pad)
     if attention_mask is not None:
-        pair = (attention_mask[:, :, None] * attention_mask[:, None, :]) > 0
+        length = attention_mask.shape[-1]
+        cols = F.pad(attention_mask, (0, -length % ROW_FLOATS))
+        pair = (attention_mask[:, :, None] * cols[:, None, :]) > 0
         mask_bias = torch.where(pair, 0.0, NEG_INF).float()[:, None]
         out = mask_bias if out is None else out + mask_bias
-    if out is not None:
-        # min + min would be -inf; clamp to the finite min
-        out = torch.clamp(out, min=NEG_INF)
-    return out
+    if out is None:
+        return None
+    # min + min would be -inf; clamp to the finite min
+    return torch.clamp(out, min=NEG_INF)[..., :length]
 
 
 def forward(

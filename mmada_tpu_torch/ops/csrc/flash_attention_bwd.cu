@@ -30,15 +30,13 @@
 //    GQA maps head h to kv head h / (H / KVH).
 //  * dkv: one block per (64-row key tile, kv head, batch) walks every query
 //    tile of every query head of its group, the GQA sum in registers. Its
-//    kernel is in flash_attention_dkv.cuh, shared with the staged backward
-//    (B5), which differs from it only in how p and ds enter the tensor cores.
+//    kernel is in flash_attention_dkv.cuh.
 //  * Ragged edges are masked in the kernels: rows past Lq / Lk are
 //    zero-filled on load and never stored, key columns past Lk get -inf
 //    (dq), query columns past Lq get p = 0 (dkv).
-//  * The bias is read per accumulator fragment from global memory, as in
-//    the forward kernel (its rows need not be 16-byte aligned), before the
-//    products it is added to; dkv reads it transposed, bias[query][key] for
-//    its k . q^T tile.
+//  * The bias is read per accumulator fragment from global memory (its
+//    rows need not be 16-byte aligned), before the products it is added to;
+//    dkv reads it transposed, bias[query][key] for its k . q^T tile.
 //
 // Query rows whose every key is masked (the padding of a masked frame): each
 // score rounds to the finite min, so dq's p is 1/Lk on such a row and its lse
@@ -283,7 +281,7 @@ extern "C" int mmada_flash_attention_bwd_dkv_bf16(
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
     int KVH, int Lq, int Lk, int D, const long long* strides, float scale,
     void* stream) {
-  return dispatch_dkv<false, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B,
+  return dispatch_dkv<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B,
                                     H, KVH, Lq, Lk, D, strides, scale, stream);
 }
 
@@ -307,6 +305,6 @@ extern "C" int mmada_flash_attention_bwd_dkv_bias_bf16(
     const void* lse, const void* delta, const void* bias, void* dk, void* dv,
     int B, int H, int KVH, int Lq, int Lk, int D, const long long* strides,
     float scale, void* stream) {
-  return dispatch_dkv<true, false>(q, k, v, dout, lse, delta, bias, dk, dv, B, H,
+  return dispatch_dkv<true>(q, k, v, dout, lse, delta, bias, dk, dv, B, H,
                                    KVH, Lq, Lk, D, strides, scale, stream);
 }

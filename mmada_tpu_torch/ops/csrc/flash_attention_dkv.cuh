@@ -1,14 +1,13 @@
-// The dk/dv kernel of bidirectional attention and what the backward kernels
-// share, for Hopper (sm_90a): included by flash_attention_bwd.cu (the
-// one-pass backward, B3) and flash_attention_long.cu (the staged backward,
-// B5), which differ here only in how p and ds enter the tensor cores.
+// The dk/dv kernel of the one-pass bidirectional attention backward (B3)
+// and what the backward kernels share, for Hopper (sm_90a): included by
+// flash_attention_bwd.cu (B3) and flash_attention_long.cu (which takes the
+// shared helpers for B4-bias).
 //
 // attn_bwd_dkv_kernel replaces `_attn_bwd_dkv_kernel` (:753) and
 // `_attn_bwd_dkv_bias_kernel` (:799) of mmada_tpu/ops/flash_attention.py,
-// called at :963 (B3), and `_attn_bwd_dkv_staged_kernel` (:1070) and its
-// `_bias` (:1110), called at :1240 (B5). All four compute, with q and k
-// rotated, s = (q . k^T) * scale in fp32 (+ the fp32 bias (B|1, H|1, Lq, Lk),
-// added as round(round(s * scale) + bias)) and lse / delta from the dq pass:
+// called at :963. Both compute, with q and k rotated, s = (q . k^T) * scale
+// in fp32 (+ the fp32 bias (B|1, H|1, Lq, Lk), added as round(round(s *
+// scale) + bias)) and lse / delta from the dq pass:
 //
 //   p = exp(s - lse); dv = p^T . dO; dp = dO . v^T; ds = p (dp - delta);
 //   dk = (ds^T . q) * scale; summed over the query heads of the kv head
@@ -27,19 +26,15 @@
 // the step's copy, so the loads overlap it and the products.
 //
 // Rounding. k.q^T and v.dO^T multiply bf16 inputs exactly and sum in fp32,
-// as the TPU kernels' fp32 dots do. p^T and ds^T are fp32; SPLIT decides how
-// they enter the tensor cores for p^T.dO and ds^T.q:
-//  * false (B3): rounded to bf16, a relative error of at most 2^-9 per term,
-//    the usual choice of flash-attention backward kernels;
-//  * true (B5): as hi + lo, two bf16 products each (mma_pb), about 16
-//    significant bits, so dk and dv stay within fp32-like error of the TPU
-//    staged kernel's fp32 products before their bf16 rounding.
+// as the TPU kernels' fp32 dots do. p^T and ds^T are fp32 and enter the
+// tensor cores for p^T.dO and ds^T.q rounded to bf16, a relative error of
+// at most 2^-9 per term, the usual choice of flash-attention backward
+// kernels. (The long tier's B5-dkv enters them as hi + lo halves instead.)
 //
 // Bound (on an H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s): 8*B*H*Lq*Lk*D
 // flops against q + k + v + dO + dk + dv (+ lse, delta, bias) bytes; bound
 // by bytes at the stage-1 training frame (L 387) by a small margin, by
-// operations at longer L. With SPLIT the tensor cores do 12 of those 8 units
-// (two products each for p^T.dO and ds^T.q).
+// operations at longer L.
 
 #pragma once
 
@@ -83,7 +78,7 @@ __device__ __forceinline__ void load_bias_rows(float bv[NB][4], const float* con
     }
 }
 
-template <int D, bool BIAS, bool SPLIT>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NUM_THREADS)
 attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -187,7 +182,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float sc = scaled<BIAS>(s[n][j], scale, bv[n][j]);
         s[n][j] = row0 + c < Lq ? expf(sc - lt[c]) : 0.f;  // :769
       }
-    mma_pb<D, NB, SPLIT>(acc_dv, s, dot, lane);  // dv += p^T . dO
+    mma_pb<D, NB>(acc_dv, s, dot, lane);  // dv += p^T . dO
     mma_abt<D, NB>(dp, vw, dot, lane);           // dp^T = v . dO^T
 #pragma unroll
     for (int n = 0; n < NB; ++n)
@@ -196,7 +191,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int c = n * 8 + t * 2 + (j & 1);
         s[n][j] = s[n][j] * (dp[n][j] - dt[c]);  // ds^T
       }
-    mma_pb<D, NB, SPLIT>(acc_dk, s, qt, lane);   // dk += ds^T . q
+    mma_pb<D, NB>(acc_dk, s, qt, lane);   // dk += ds^T . q
     __syncthreads();  // every warp is done with this buffer before its refill
   }
 
@@ -228,7 +223,7 @@ Strides copy_strides(const long long* strides, int n) {
   return st;
 }
 
-template <int D, bool BIAS, bool SPLIT>
+template <int D, bool BIAS>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* bias, void* dk, void* dv, int B, int H,
@@ -237,11 +232,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   const size_t smem = (size_t)(2 * BLOCK + 4 * DKV_QT) * (D + 8) * sizeof(bf16) +
                       (size_t)4 * DKV_QT * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel<D, BIAS, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bwd_dkv_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lk + BLOCK - 1) / BLOCK, KVH, B);
-  attn_bwd_dkv_kernel<D, BIAS, SPLIT><<<grid, NUM_THREADS, smem, stream>>>(
+  attn_bwd_dkv_kernel<D, BIAS><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -255,7 +250,7 @@ bool bad_shape(int B, int H, int KVH, int Lq, int Lk) {
   return B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1;
 }
 
-template <bool BIAS, bool SPLIT>
+template <bool BIAS>
 int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, const void* bias, void* dk,
                  void* dv, int B, int H, int KVH, int Lq, int Lk, int D,
@@ -264,10 +259,10 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return (int)launch_dkv<128, BIAS, SPLIT>(q, k, v, dout, lse, delta, bias, dk, dv,
+    return (int)launch_dkv<128, BIAS>(q, k, v, dout, lse, delta, bias, dk, dv,
                                              B, H, KVH, Lq, Lk, strides, scale, s);
   if (D == 64)
-    return (int)launch_dkv<64, BIAS, SPLIT>(q, k, v, dout, lse, delta, bias, dk, dv, B,
+    return (int)launch_dkv<64, BIAS>(q, k, v, dout, lse, delta, bias, dk, dv, B,
                                             H, KVH, Lq, Lk, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,18 +45,31 @@
 // / (H / KVH) in the tensor maps' coordinates; TMA zero-fills rows past Lq
 // and Lk, and the store drops rows past Lq.
 //
-// B2 (attn_fwd_bias_kernel) keeps the earlier design: one block per (64-row
-// query tile, head, batch), four warps of 16 query rows, K/V tiles of 64
-// keys double-buffered with cp.async, fragments from ldmatrix, products from
-// mma.sync m16n8k16. The bias is (B|1, H|1, Lq, Lk) fp32 with its own element
-// strides, 0 on a broadcast axis; it is added as round(round(s * scale) +
-// bias), with no fused multiply-add. Each thread reads the bias values of
-// its accumulator fragments straight from global memory (two rows, 2
-// columns of each 8-key slice), for a tile before the wait for its K copy,
-// so the loads overlap the barrier and the products: the rows of a mask
-// bias of odd Lk are not 16-byte aligned, which rules out cp.async vectors
-// without a padded copy, and a (B, 1, L, L) mask bias is read by all H heads
-// of a batch row, so after the first head it comes from L2.
+// B2 (attn_fwd_bias_wgmma_kernel) is B1 with the fp32 bias (B|1, H|1, Lq,
+// Lk) added to the scores. Its K/V tiles are 64 keys (STEP_N), so that a
+// ring slot holds the K and V tiles and the block's 128 x 64 fp32 bias tile
+// (two 128-byte-swizzled boxes of 32 keys, by TMA, this block's own: the
+// pair shares K and V, not its query rows' bias): Q (32 KB) and three slots
+// of 64 KB fill 224 KB at D = 128. The products are m64n64 (scores) and
+// m64nDk16 over 64 keys (p . v). A broadcast axis of the bias is a
+// dimension of 1 in its tensor map, read at index 0. The rows of a mask
+// bias of odd L are not 16-byte aligned, which TMA needs:
+// `prepare_attention_bias` gives the model's bias rows padded to 4 floats,
+// and the wrapper copies any other bias once.
+//
+// The scores stay in B1's log2 units: with b' = max(bias * log2 e,
+// -FLT_MAX), pass 1 takes m = max(fma(s, c, b')) and e = exp2(fma(s, c, -m)
+// + b'), pass 2 the same e. For a zero bias b' = 0 and e + 0.0f is e, so B2
+// computes B1's every value, bit for bit, provided its pass 1 sums a row's
+// exps over B1's 128-key groups: it takes its 64-key tiles in pairs (the
+// second of a last pair, past Lk, is zero-filled and masked). The
+// saturation is what keeps a row that a mask shuts out entirely (every
+// bias the finite min, whose log2 form would be -inf) finite: there m =
+// -FLT_MAX and fma(s, c, FLT_MAX) - FLT_MAX = 0, so e = 1 on each of the Lk
+// keys and the row averages v, the XLA tier's function; on a row with an
+// allowed key a masked key's e is exp2(-FLT_MAX) = 0. Against the plain
+// version's round(round(s * scale) + bias), p moves by a few fp32 ulps, as
+// B1's does.
 //
 // Bound: 4*B*H*Lq*Lk*D flops against q + k + v + o bytes (+ the fp32 rope
 // tables, + the bias). At the serving shapes (L ~ 1.2k, D = 128) the flops
@@ -69,14 +82,9 @@
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int NUM_WARPS = BLOCK_Q / 16;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int ROPE_THREADS = 256;
-constexpr int STAGES = 3;            // B1's K/V ring
+constexpr int STAGES = 3;            // B1's and B2's K/V rings
 constexpr float NEG_F32 = -FLT_MAX;  // finite min: the running max's start
-constexpr float EDGE = -INFINITY;    // key columns past Lk: p = exp(-inf) = 0
 constexpr float LOG2E = 1.4426950408889634f;
 
 // RoPE of every row of x (B, H, L, D; element strides sb, sh, sl) into the
@@ -126,222 +134,6 @@ rope_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   *reinterpret_cast<uint4*>(dst) = lo;
   *reinterpret_cast<uint4*>(dst + HALF) = hi;
 }
-
-// This thread's bias values for the tile of keys from k0, in the score
-// fragments' layout (bv[n][0..1] from row bias_a, bv[n][2..3] from bias_b);
-// 0 past Lk. Issued before the tile's copy is waited for, so the loads
-// overlap the barrier and the products.
-__device__ __forceinline__ void load_bias(float bv[BLOCK_K / 8][4],
-                                          const float* bias_a,
-                                          const float* bias_b, int k0, int Lk,
-                                          int t) {
-#pragma unroll
-  for (int n = 0; n < BLOCK_K / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + n * 8 + t * 2 + (j & 1);
-      bv[n][j] = col < Lk ? __ldg(((j & 2) ? bias_b : bias_a) + col) : 0.f;
-    }
-}
-
-// Scores of this warp's 16 query rows against the 64 keys in `ks`:
-// s[n][0..1] -> row g, keys n*8 + 2t + {0,1}; s[n][2..3] -> row g + 8.
-// Scaled, plus the bias values bv (load_bias), and masked past Lk.
-// The d loop is outermost so that consecutive products go to different
-// accumulators; each accumulator still sums its d slices in order.
-template <int D>
-__device__ __forceinline__ void tile_scores(float s[BLOCK_K / 8][4],
-                                            const uint32_t qa[D / 16][4],
-                                            const bf16* ks, int k0, int Lk,
-                                            float scale, int lane,
-                                            const float bv[BLOCK_K / 8][4]) {
-  constexpr int STRIDE = D + 8;
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < BLOCK_K / 8; ++n)
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  // lane's row for ldmatrix: key n*8 + lane%8, d columns (lane/8)*8 of 32
-  const bf16* krow = ks + (lane & 7) * STRIDE + (lane >> 3) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; kk += 2) {
-    uint32_t b[BLOCK_K / 8][4];  // B fragments of d slices kk and kk + 1
-#pragma unroll
-    for (int n = 0; n < BLOCK_K / 8; ++n)
-      ldmatrix_x4<false>(b[n], krow + n * 8 * STRIDE + kk * 16);
-#pragma unroll
-    for (int n = 0; n < BLOCK_K / 8; ++n) mma_bf16(s[n], qa[kk], b[n][0], b[n][1]);
-#pragma unroll
-    for (int n = 0; n < BLOCK_K / 8; ++n)
-      mma_bf16(s[n], qa[kk + 1], b[n][2], b[n][3]);
-  }
-#pragma unroll
-  for (int n = 0; n < BLOCK_K / 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + n * 8 + t * 2 + (j & 1);
-      s[n][j] = col < Lk ? __fadd_rn(__fmul_rn(s[n][j], scale), bv[n][j]) : EDGE;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-attn_fwd_bias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o,
-                const float* __restrict__ bias, int rep,
-                int Lq, int Lk, long long q_sb, long long q_sh, long long q_sl,
-                long long k_sb, long long k_sh, long long k_sl,
-                long long v_sb, long long v_sh, long long v_sl,
-                long long o_sb, long long o_sh, long long o_sl,
-                long long b_sb, long long b_sh, long long b_sl, float scale) {
-  constexpr int STRIDE = D + 8;
-  constexpr int TILE = BLOCK_K * STRIDE;  // elements of one K or V tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + BLOCK_Q * STRIDE;  // two K tiles
-  bf16* vs = ks + 2 * TILE;          // two V tiles
-
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / rep;
-  const bf16* qp = q + b * q_sb + h * q_sh;
-  const bf16* kp = k + b * k_sb + kvh * k_sh;
-  const bf16* vp = v + b * v_sb + kvh * v_sh;
-  bf16* op = o + b * o_sb + h * o_sh;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_tiles = (Lk + BLOCK_K - 1) / BLOCK_K;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  // this thread's two bias rows; rows past Lq (never stored) read row Lq - 1
-  const float* bp = bias + b * b_sb + h * b_sh;
-  const float* bias_a = bp + (long long)min(row_a, Lq - 1) * b_sl;
-  const float* bias_b = bp + (long long)min(row_b, Lq - 1) * b_sl;
-
-  load_rows_async<D, BLOCK_Q>(qs, qp, q_sl, q0, Lq);
-  load_rows_async<D, BLOCK_K>(ks, kp, k_sl, 0, Lk);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // this warp's 16 query rows as mma A fragments, one per 16-wide d slice
-  uint32_t qa[D / 16][4];
-  {
-    const bf16* qw = qs + warp * 16 * STRIDE;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(qw + g * STRIDE + c);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * STRIDE + c);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(qw + g * STRIDE + c + 8);
-      qa[kk][3] =
-          *reinterpret_cast<const uint32_t*>(qw + (g + 8) * STRIDE + c + 8);
-    }
-  }
-
-  float s[BLOCK_K / 8][4];
-
-  // pass 1: row max and row sum (rows g and g + 8 of this warp). Tile 0 is
-  // in the first K buffer; each step starts copying the next tile into the
-  // other one.
-  float m[2] = {NEG_F32, NEG_F32};
-  float l[2] = {0.f, 0.f};
-  float bv[BLOCK_K / 8][4];
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    load_bias(bv, bias_a, bias_b, tile * BLOCK_K, Lk, t);
-    if (tile + 1 < n_tiles) {
-      load_rows_async<D, BLOCK_K>(ks + ((tile + 1) & 1) * TILE, kp, k_sl,
-                                  (tile + 1) * BLOCK_K, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile's copy is visible to every warp
-    tile_scores<D>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk,
-                         scale, lane, bv);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = NEG_F32;
-#pragma unroll
-      for (int n = 0; n < BLOCK_K / 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < BLOCK_K / 8; ++n)
-        sum += expf(s[n][2 * r] - m_new) + expf(s[n][2 * r + 1] - m_new);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[r] = l[r] * expf(m[r] - m_new) + sum;
-      m[r] = m_new;
-    }
-    __syncthreads();  // every warp is done with this buffer before its refill
-  }
-
-  // pass 2: p = exp(s - m) / l in fp32, cast to bf16, accumulate p . v
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  load_rows_async<D, BLOCK_K>(ks, kp, k_sl, 0, Lk);
-  load_rows_async<D, BLOCK_K>(vs, vp, v_sl, 0, Lk);
-  cp_async_commit();
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    load_bias(bv, bias_a, bias_b, tile * BLOCK_K, Lk, t);
-    if (tile + 1 < n_tiles) {
-      const int next = (tile + 1) & 1;
-      load_rows_async<D, BLOCK_K>(ks + next * TILE, kp, k_sl, (tile + 1) * BLOCK_K, Lk);
-      load_rows_async<D, BLOCK_K>(vs + next * TILE, vp, v_sl, (tile + 1) * BLOCK_K, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tile_scores<D>(s, qa, ks + (tile & 1) * TILE, tile * BLOCK_K, Lk,
-                         scale, lane, bv);
-    const bf16* vt = vs + (tile & 1) * TILE;
-#pragma unroll
-    for (int kb = 0; kb < BLOCK_K / 16; ++kb) {
-      // the two 16x8 score fragments of keys [16 kb, 16 kb + 16) form the
-      // 16x16 A fragment of p
-      uint32_t pa[4];
-      const float* s0 = s[2 * kb];
-      const float* s1 = s[2 * kb + 1];
-      pa[0] = pack_bf16(expf(s0[0] - m[0]) / l[0], expf(s0[1] - m[0]) / l[0]);
-      pa[1] = pack_bf16(expf(s0[2] - m[1]) / l[1], expf(s0[3] - m[1]) / l[1]);
-      pa[2] = pack_bf16(expf(s1[0] - m[0]) / l[0], expf(s1[1] - m[0]) / l[0]);
-      pa[3] = pack_bf16(expf(s1[2] - m[1]) / l[1], expf(s1[3] - m[1]) / l[1]);
-      // ldmatrix.trans rows: key kb*16 + lane%16, d columns (lane/16)*8
-      const bf16* vrow = vt + (kb * 16 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
-        uint32_t vf[4];  // B fragments of d columns dn*8.. and (dn+1)*8..
-        ldmatrix_x4<true>(vf, vrow + dn * 8);
-        mma_bf16(acc[dn], pa, vf[0], vf[1]);
-        mma_bf16(acc[dn + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + t * 2;
-    if (row_a < Lq)
-      *reinterpret_cast<uint32_t*>(op + row_a * o_sl + col) =
-          pack_bf16(acc[dn][0], acc[dn][1]);
-    if (row_b < Lq)
-      *reinterpret_cast<uint32_t*>(op + row_b * o_sl + col) =
-          pack_bf16(acc[dn][2], acc[dn][3]);
-  }
-}
-
 
 // B1's probabilities of one tile, as register-A fragments: p = exp(s - m) / l
 // in fp32 (exp through exp2 of the log2-scaled score, the division as a
@@ -485,6 +277,281 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------------------ B2
+
+constexpr int B2_BIAS_BOX = ATT_M * 128;  // bytes of one bias box: 128 rows of 32 fp32
+
+// B2's shared memory: the Q tile, then STAGES ring slots, each a K and a V
+// tile of STEP_N keys and the block's 128 x STEP_N fp32 bias tile (two boxes
+// of BIAS_COLS keys); every tile 1024-byte aligned, as the swizzle needs.
+template <int D, int STAGES_>
+struct BiasAttnSmem {
+  static constexpr int Q_TILE = ATT_M * D * 2;
+  static constexpr int KV = STEP_N * D * 2;      // a K or V tile
+  static constexpr int BIAS_BOX = B2_BIAS_BOX;
+  static constexpr int BIAS = ATT_M * STEP_N * 4;
+  static constexpr int STAGE = 2 * KV + BIAS;
+  static constexpr int BYTES = Q_TILE + STAGES_ * STAGE + 8 * (1 + 2 * STAGES_) + 1024;
+  unsigned char* q;
+  uint64_t* q_full;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ explicit BiasAttnSmem(unsigned char* raw) {
+    q = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+    q_full = reinterpret_cast<uint64_t*>(q + Q_TILE + STAGES_ * STAGE);
+    full = q_full + 1;
+    empty = full + STAGES_;
+  }
+
+  // slot s's tiles (computed: a runtime index into an array of pointers
+  // would put the array in local memory)
+  __device__ unsigned char* k(int s) const { return q + Q_TILE + s * STAGE; }
+  __device__ unsigned char* v(int s) const { return k(s) + KV; }
+  __device__ unsigned char* bias(int s) const { return k(s) + 2 * KV; }
+
+  __device__ void init_barriers() const {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES_; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8 * ATT_PAIR);
+    }
+    mbar_init_fence();
+  }
+};
+
+// B2's producer thread: the Q tile, then n1 slots of a K tile and the bias
+// tile (pass 1), then n2 slots of K, V and bias (pass 2), each slot i of
+// keys from STEP_N * (i or i - n1). K and V boxes are shared with the pair
+// as attn_produce's; the bias boxes (query rows q0.., head hb, batch bb) are
+// this block's own.
+template <int D, int S>
+__device__ __forceinline__ void bias_produce(const BiasAttnSmem<D, S>& sm,
+                                             const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                             const CUtensorMap* tm_v, const CUtensorMap* tm_b,
+                                             int q0, int h, int kvh, int b, int hb, int bb,
+                                             int n1, int n2, int rank) {
+  constexpr int BOXES = D / 64;
+  constexpr uint16_t BOTH = (1 << ATT_PAIR) - 1;
+  using M = BiasAttnSmem<D, S>;
+  mbar_expect_tx(sm.q_full, M::Q_TILE);
+  for (int c = 0; c < BOXES; ++c) tma_load(sm.q + c * ATT_BOX, tm_q, sm.q_full, 64 * c, q0, h, b);
+  for (int i = 0; i < n1 + n2; ++i) {
+    const int s = i % S;
+    const bool with_v = i >= n1;
+    const int key0 = (with_v ? i - n1 : i) * STEP_N;
+    mbar_wait(&sm.empty[s], ((i / S) & 1) ^ 1);
+    mbar_expect_tx(&sm.full[s], (with_v ? 2 : 1) * M::KV + M::BIAS);
+    for (int box = rank; box < (with_v ? 2 : 1) * BOXES; box += ATT_PAIR) {
+      const bool is_v = box >= BOXES;
+      const int c = box % BOXES;
+      tma_load_multicast((is_v ? sm.v(s) : sm.k(s)) + c * STEP_BOX, is_v ? tm_v : tm_k,
+                         &sm.full[s], BOTH, 64 * c, key0, kvh, b);
+    }
+    for (int c = 0; c < STEP_N / BIAS_COLS; ++c)
+      tma_load(sm.bias(s) + c * M::BIAS_BOX, tm_b, &sm.full[s], key0 + BIAS_COLS * c, q0, hb, bb);
+  }
+}
+
+// A bias value in B1's log2 units, saturated at the finite min (a mask's
+// -FLT_MAX times log2 e would be -inf).
+__device__ __forceinline__ float bias_log2(float x) { return fmaxf(x * LOG2E, NEG_F32); }
+
+// This thread's 32 bias values of a 64-key tile in log2 units, in the
+// accumulator layout of its scores (rows `row` and row + 8 of the block's
+// 128).
+__device__ __forceinline__ void load_bias_log2(float (&bl)[32], const unsigned char* tile,
+                                               int row, int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 x = *bias_row_pair(tile, B2_BIAS_BOX, row, 0, tq, j, r);
+      bl[4 * j + 2 * r] = bias_log2(x.x);
+      bl[4 * j + 2 * r + 1] = bias_log2(x.y);
+    }
+}
+
+// B2's probabilities of one 64-key tile as register-A fragments: B1's
+// normalised_probs with the tile's bias (log2 units, load_bias_log2) added
+// to each exponent.
+__device__ __forceinline__ void normalised_probs_bias(uint32_t (&p)[4][4], float (&s)[32],
+                                                      const float (&bl)[32], int key0, int Lk,
+                                                      int tq, float c, const float m[2],
+                                                      const float l[2], const float inv[2]) {
+  mask_keys(s, key0, Lk, tq);
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e & 1;
+      float x[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = 8 * kb + 2 * e + u;
+        const float ex = exp2f(__fadd_rn(fmaf(s[i], c, -m[r]), bl[i]));
+        const float y = ex * inv[r];
+        x[u] = fmaf(inv[r], fmaf(-y, l[r], ex), y);
+      }
+      p[kb][e] = pack_bf16(x[0], x[1]);
+    }
+}
+
+// Kernel B2. `bias_heads` / `bias_batches`: the bias map's extents of those
+// axes (1: broadcast, read at index 0).
+template <int D>
+__global__ void __cluster_dims__(ATT_PAIR, 1, 1) __launch_bounds__(ATT_THREADS, 1)
+attn_fwd_bias_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o,
+                           const __grid_constant__ CUtensorMap tm_b, int rep, int Lq, int Lk,
+                           int bias_heads, int bias_batches, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BiasAttnSmem<D, STAGES> sm(smem_raw);
+  const int q0 = blockIdx.x * ATT_M, h = blockIdx.y, b = blockIdx.z;
+  // pass 1 walks pairs of 64-key tiles (B1's 128-key tiles), pass 2 tiles
+  const int n_pairs = (Lk + 2 * STEP_N - 1) / (2 * STEP_N);
+  const int n1 = 2 * n_pairs, n2 = (Lk + STEP_N - 1) / STEP_N;
+  if (threadIdx.x == 0) sm.init_barriers();
+  cluster_sync();  // the pair's barriers are ready before any multicast or remote arrival
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0)
+      bias_produce(sm, &tm_q, &tm_k, &tm_v, &tm_b, q0, h, h / rep, b,
+                   bias_heads > 1 ? h : 0, bias_batches > 1 ? b : 0, n1, n2, cluster_rank());
+    cluster_sync();  // the pair's last multicasts and arrivals are done
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1, t = threadIdx.x % 128, lane = t % 32, tq = lane % 4;
+    unsigned char* q_rows = sm.q + cw * 64 * 128;
+    const int row = 64 * cw + (t / 32) * 16 + lane / 4;  // this thread's first tile row
+    const float c = scale_log2;
+    turns_start(cw);
+    mbar_wait(sm.q_full, 0);
+
+    // pass 1: B1's, on the pair of 64-key tiles of each 128-key group: the
+    // row max of fma(s, c, b') and the sum of exp2(fma(s, c, -m) + b'), its
+    // terms in B1's order
+    float m[2] = {NEG_F32, NEG_F32}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < n_pairs; ++j) {
+      const int i0 = 2 * j, s0 = i0 % STAGES, s1 = (i0 + 1) % STAGES;
+      mbar_wait(&sm.full[s0], (i0 / STAGES) & 1);
+      mbar_wait(&sm.full[s1], ((i0 + 1) / STAGES) & 1);
+      float sa[32], sb[32];
+      turn_begin(cw);
+      wgmma_fence();
+      step_scores_issue<D>(sa, q_rows, sm.k(s0));
+      step_scores_issue<D>(sb, q_rows, sm.k(s1));
+      wgmma_commit();
+      turn_end(cw, false);
+      float ba[32], bb[32];  // read while the products run
+      load_bias_log2(ba, sm.bias(s0), row, tq);
+      load_bias_log2(bb, sm.bias(s1), row, tq);
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(sb);
+      mask_keys(sa, j * 2 * STEP_N, Lk, tq);
+      mask_keys(sb, j * 2 * STEP_N + STEP_N, Lk, tq);
+      // the bias reads (generic proxy) before the slots' next TMA loads
+      fence_async_shared();
+      release_slot(&sm.empty[s0], lane);
+      release_slot(&sm.empty[s1], lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int i = 4 * n + 2 * r + u;
+            mx = fmaxf(mx, fmaxf(fmaf(sa[i], c, ba[i]), fmaf(sb[i], c, bb[i])));
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int i = 4 * n + 2 * r;
+          sum += exp2f(__fadd_rn(fmaf(sa[i], c, -m_new), ba[i])) +
+                 exp2f(__fadd_rn(fmaf(sa[i + 1], c, -m_new), ba[i + 1]));
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int i = 4 * n + 2 * r;
+          sum += exp2f(__fadd_rn(fmaf(sb[i], c, -m_new), bb[i])) +
+                 exp2f(__fadd_rn(fmaf(sb[i + 1], c, -m_new), bb[i + 1]));
+        }
+        l[r] = l[r] * exp2f(m[r] - m_new) + sum;
+        m[r] = m_new;
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv[r] = __frcp_rn(l[r]);
+    }
+
+    // pass 2: B1's, over 64-key tiles, pipelined by one tile
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float s[32], bl[32];
+    uint32_t p[4][4];
+    {
+      const int st = n1 % STAGES;
+      mbar_wait(&sm.full[st], (n1 / STAGES) & 1);
+      turn_begin(cw);
+      wgmma_fence();
+      step_scores_issue<D>(s, q_rows, sm.k(st));
+      wgmma_commit();
+      turn_end(cw, false);
+      load_bias_log2(bl, sm.bias(st), row, tq);
+      wgmma_wait<0>();
+      fence_regs(s);
+      normalised_probs_bias(p, s, bl, 0, Lk, tq, c, m, l, inv);
+    }
+    for (int j = 1; j < n2; ++j) {
+      const int i = n1 + j, st = i % STAGES, prev = (i - 1) % STAGES;
+      mbar_wait(&sm.full[st], (i / STAGES) & 1);
+      turn_begin(cw);
+      wgmma_fence();
+      step_acc_issue<D>(o, p, sm.v(prev));
+      step_scores_issue<D>(s, q_rows, sm.k(st));
+      wgmma_commit();
+      turn_end(cw, false);
+      load_bias_log2(bl, sm.bias(st), row, tq);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s);
+      fence_regs(p);
+      fence_async_shared();
+      release_slot(&sm.empty[prev], lane);
+      normalised_probs_bias(p, s, bl, j * STEP_N, Lk, tq, c, m, l, inv);
+    }
+    {
+      const int last = (n1 + n2 - 1) % STAGES;
+      turn_begin(cw);
+      wgmma_fence();
+      step_acc_issue<D>(o, p, sm.v(last));
+      wgmma_commit();
+      turn_end(cw, true);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      fence_async_shared();
+      release_slot(&sm.empty[last], lane);
+    }
+    const float one[2] = {1.f, 1.f};
+    attn_store<D>(q_rows, &tm_o, o, one, t, cw, q0 + 64 * cw, Lq, h, b);
+    cluster_sync();
+  }
+}
+
 // One 64 x 128 by 128 x 128 tile product through the kernels' TMA and wgmma
 // path, for the card test that pins the descriptors and the swizzle: s = a
 // . b^T (a and b K-major, as q and k), o = bf16(s) . v (v MN-major, as V,
@@ -600,34 +667,34 @@ cudaError_t launch_wgmma(const void* const bases[4], const long long* maps, int 
   return cudaGetLastError();
 }
 
+// B2 on the operands that `maps` describes (q or q_rot, k or k_rot, v, o,
+// then the fp32 bias).
 template <int D>
-cudaError_t launch_bias(const void* q, const void* k, const void* v, void* o,
-                        const void* bias, const void* rope_sin, const void* rope_cos,
-                        void* q_rot, void* k_rot, int B, int H, int KVH, int Lq,
-                        int Lk, const long long* strides, float scale,
-                        cudaStream_t stream) {
-  long long st[15];
-  for (int i = 0; i < 15; ++i) st[i] = strides[i];
-  cudaError_t err = rope_qk<D>(q, k, rope_sin, rope_cos, q_rot, k_rot, B, H, KVH, Lq, Lk, st,
-                               stream);
-  if (err != cudaSuccess) return err;
-  if (rope_sin != nullptr) {
-    q = q_rot;
-    k = k_rot;
-    st[0] = (long long)H * Lq * D, st[1] = (long long)Lq * D, st[2] = D;
-    st[3] = (long long)KVH * Lk * D, st[4] = (long long)Lk * D, st[5] = D;
+cudaError_t launch_bias_wgmma(const void* const bases[5], const long long* maps, int B, int H,
+                              int KVH, int Lq, int Lk, float scale, cudaStream_t stream) {
+  const long long* bias = maps + 4 * MAP_SPEC;
+  if (!spec_is(maps, D, Lq, H, B, ATT_M) || !spec_is(maps + MAP_SPEC, D, Lk, KVH, B, STEP_N) ||
+      !spec_is(maps + 2 * MAP_SPEC, D, Lk, KVH, B, STEP_N) ||
+      !spec_is(maps + 3 * MAP_SPEC, D, Lq, H, B, 64) ||
+      !bias_spec_is(bias, Lk, Lq, H, B, ATT_M))
+    return cudaErrorInvalidValue;
+  CUtensorMap tm[5];
+  for (int i = 0; i < 5; ++i) {
+    const cudaError_t err =
+        encode_tensor_map(&tm[i], bases[i], maps + i * MAP_SPEC,
+                          i == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+    if (err != cudaSuccess) return err;
   }
-  const size_t smem = (size_t)(BLOCK_Q + 4 * BLOCK_K) * (D + 8) * sizeof(bf16);
-  err = cudaFuncSetAttribute(attn_fwd_bias_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int smem = BiasAttnSmem<D, STAGES>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_bias_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + BLOCK_Q - 1) / BLOCK_Q, H, B);
-  attn_fwd_bias_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<const float*>(bias), H / KVH, Lq, Lk, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
-      st[13], st[14], scale);
+  const int tiles = (Lq + ATT_M - 1) / ATT_M;
+  const dim3 grid((tiles + ATT_PAIR - 1) / ATT_PAIR * ATT_PAIR, H, B);
+  attn_fwd_bias_wgmma_kernel<D><<<grid, ATT_THREADS, smem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], tm[4], H / KVH, Lq, Lk, (int)bias[2], (int)bias[3],
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -672,24 +739,29 @@ extern "C" int mmada_flash_attention_fwd_bf16(
   return (int)err;
 }
 
-// Kernel B2: plus the fp32 bias (B|1, H|1, Lq, Lk), last dim contiguous.
-// `strides` holds the element strides (batch, head, row) of q, k, v, o and
-// the bias (0 on a broadcast axis); rows 16-byte aligned.
+// Kernel B2: plus the fp32 bias (B|1, H|1, Lq, Lk). As B1's entry, with
+// the bias after o in `maps` (q and k in boxes of 128 and 64 rows, v 64, o
+// 64; the bias in boxes of 32 fp32 columns and 128 rows, its broadcast axes
+// of extent 1, its rows' stride a multiple of 16 bytes).
 extern "C" int mmada_flash_attention_fwd_bias_bf16(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     const void* rope_sin, const void* rope_cos, void* q_rot, void* k_rot,
     int B, int H, int KVH, int Lq, int Lk, int D, const long long* strides,
-    float scale, void* stream) {
-  if (bad_args(B, H, KVH, Lq, Lk, rope_sin, rope_cos, q_rot, k_rot) || bias == nullptr)
+    const long long* maps, float scale, void* stream) {
+  if (bad_args(B, H, KVH, Lq, Lk, rope_sin, rope_cos, q_rot, k_rot) || bias == nullptr ||
+      (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch_bias<128>(q, k, v, o, bias, rope_sin, rope_cos, q_rot, k_rot, B, H,
-                                 KVH, Lq, Lk, strides, scale, s);
-  if (D == 64)
-    return (int)launch_bias<64>(q, k, v, o, bias, rope_sin, rope_cos, q_rot, k_rot, B, H,
-                                KVH, Lq, Lk, strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const bool roped = rope_sin != nullptr;
+  const void* bases[5] = {roped ? q_rot : q, roped ? k_rot : k, v, o, bias};
+  cudaError_t err = D == 128 ? rope_qk<128>(q, k, rope_sin, rope_cos, q_rot, k_rot, B, H, KVH,
+                                            Lq, Lk, strides, s)
+                             : rope_qk<64>(q, k, rope_sin, rope_cos, q_rot, k_rot, B, H, KVH,
+                                           Lq, Lk, strides, s);
+  if (err != cudaSuccess) return (int)err;
+  err = D == 128 ? launch_bias_wgmma<128>(bases, maps, B, H, KVH, Lq, Lk, scale, s)
+                 : launch_bias_wgmma<64>(bases, maps, B, H, KVH, Lq, Lk, scale, s);
+  return (int)err;
 }
 
 // The tile product of wgmma_tile_kernel, for the card test: a (64 x 128), b

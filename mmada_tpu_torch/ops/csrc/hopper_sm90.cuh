@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the port's wgmma attention kernels (B1
-// in flash_attention_fwd.cu; B4, B5-dq and B5-dkv in flash_attention_long.cu):
-// TMA tile loads and stores through tensor maps, 1-D bulk copies, mbarrier
-// waits, warpgroup register rebalancing, the wgmma shared-memory matrix
-// descriptor, and the m64nNk16 bf16 wgmma products (fp32 accumulate) these
-// kernels take.
+// and B2 in flash_attention_fwd.cu; B4, B5-dq and B5-dkv, unbiased and
+// biased, in flash_attention_long.cu): TMA tile loads and stores through
+// tensor maps, 1-D bulk copies, mbarrier waits, warpgroup register
+// rebalancing, the wgmma shared-memory matrix descriptor, the m64nNk16 bf16
+// wgmma products (fp32 accumulate) these kernels take, and the reads of an
+// fp32 bias tile.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a box is `rows` rows of 64 bf16 (128 bytes), 1024-byte aligned, the 16-byte
@@ -12,6 +13,17 @@
 // swizzle (layout type 1), so map and descriptor agree by construction; a
 // mismatch would run and return wrong numbers, which the card test
 // `test_wgmma_tile_loaded_by_tma_matches_torch_matmul` pins.
+//
+// An fp32 bias tile (B2, B5-dq-bias, B5-dkv-bias) arrives the same way, in
+// boxes of 32 fp32 columns (128 bytes) and `rows` rows with the 128-byte
+// swizzle: element (r, c) of a box at r * 128 + (((c / 4) ^ (r % 8)) << 4) +
+// (c % 4) * 4. The swizzle makes both reads the consumers make free of bank
+// conflicts: a warp reading its accumulator elements row-wise (B2, B5-dq:
+// rows 16w + g, keys 8j + 2q, +1, as float2) hits each 16-byte chunk of a
+// row from two rows of the eight, and one reading them transposed (B5-dkv:
+// bias[query][key] with the key as its accumulator row, queries 8j + 2q +
+// (i & 1) as columns) hits 32 distinct banks. Unswizzled, the rows of 128
+// bytes would put the eight rows of a warp on the same banks.
 //
 // Accumulator layout of m64nNk16 (fp32), thread t of the warpgroup, warp w =
 // t / 32, g = (t % 32) / 4, q = t % 4: d[4j + 0..1] -> row 16w + g, columns
@@ -98,6 +110,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive once on this block's barrier `bar`.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
 }
 
 // Arrive on the barrier at the same offset as `bar` in block `rank` of the
@@ -444,6 +461,43 @@ __device__ __forceinline__ void attn_pv_issue(float (&o)[D / 2], uint32_t (&p)[8
   }
 }
 
+// Tiles of 64 rows (B2's K and V tiles, B5-dq's K and V, B5-dkv's q and
+// dO): STEP_N rows, boxes of STEP_BOX bytes. Such a tile is read both ways:
+// K-major as the B operand of a score product, MN-major as the B operand of
+// an accumulation whose A operand comes from registers.
+constexpr int STEP_N = 64;
+constexpr int STEP_BOX = 64 * 128;  // bytes of one 64-column box of such a tile
+
+// s (64 x 64, fp32) = a . b^T for this warpgroup's 64 rows of a 128-row tile
+// (`a`, its boxes ATT_BOX apart) and a 64-row tile `b`, both K-major: D / 16
+// wgmma steps, the first of which does not read s.
+template <int D>
+__device__ __forceinline__ void step_scores_issue(float (&s)[32], const unsigned char* a,
+                                                  const unsigned char* b) {
+  wgmma_ss_n64_first(s, desc_sw128(a, 16, 1024), desc_sw128(b, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const int col = (kk % 4) * 32;
+    wgmma_ss_n64(s, desc_sw128(a + (kk / 4) * ATT_BOX + col, 16, 1024),
+                 desc_sw128(b + (kk / 4) * STEP_BOX + col, 16, 1024));
+  }
+}
+
+// acc (64 x D) += x . b over the 64 rows of the tile `b` (MN-major, its
+// 64-column boxes STEP_BOX apart), x from registers in four k16 steps.
+template <int D>
+__device__ __forceinline__ void step_acc_issue(float (&acc)[D / 2], const uint32_t (&x)[4][4],
+                                               const unsigned char* b) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    const uint64_t desc = desc_sw128(b + kb * 16 * 128, STEP_BOX, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128(acc, x[kb], desc, 1);
+    else
+      wgmma_rs_n64(acc, x[kb], desc, 1);
+  }
+}
+
 // Ping-pong between the two consumer warpgroups: each issues its products
 // only in its turn (named barrier 3 + cw, 256 threads: its own 128 wait,
 // the other's 128 arrive) and hands the turn over once they are issued, so
@@ -461,20 +515,108 @@ __device__ __forceinline__ void turn_end(int cw, bool last) {
   if (!(last && cw == 1)) named_barrier_arrive(3 + (cw ^ 1), 256);
 }
 
+// The (tile, head) this block takes. The grid is (tiles, H, B) with the
+// tile fastest, or, with `heads_fastest`, (tiles * H, 1, B) with the head
+// fastest: each cluster (ATT_PAIR neighbouring blocks of x) is one head's
+// neighbouring tiles, and the H heads' clusters of the same tiles follow one
+// another, so that blocks that read the same rows of a bias broadcast over
+// the heads run side by side.
+__device__ __forceinline__ int2 tile_and_head(bool heads_fastest, int H) {
+  if (!heads_fastest) return make_int2(blockIdx.x, blockIdx.y);
+  const int pair = blockIdx.x / ATT_PAIR;
+  return make_int2((pair / H) * ATT_PAIR + blockIdx.x % ATT_PAIR, pair % H);
+}
+
 // This warp's part in releasing a ring slot: every consumer warp of the
 // pair arrives on the slot's empty barrier in both blocks.
 __device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
   if (lane < ATT_PAIR) mbar_arrive_cluster(empty, lane);
 }
 
-// Score columns at or past Lk take no part: -inf, so p = 0 there.
-__device__ __forceinline__ void mask_keys(float (&s)[64], int key0, int Lk, int tq) {
-  if (key0 + ATT_N <= Lk) return;
+// Score columns at or past Lk take no part: -inf, so p = 0 there. s holds
+// this thread's N values of a tile of 2 N keys (128 or 64) from key0.
+template <int N>
+__device__ __forceinline__ void mask_keys(float (&s)[N], int key0, int Lk, int tq) {
+  if (key0 + 2 * N <= Lk) return;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (key0 + 8 * j + 2 * tq + (i & 1) >= Lk) s[4 * j + i] = -INFINITY;
+}
+
+constexpr int BIAS_COLS = 32;  // fp32 columns of one bias box: 128 bytes
+
+// The byte offset of element (row, col) in an fp32 bias tile held as
+// 128-byte-swizzled boxes of BIAS_COLS columns, `box_bytes` apart.
+__device__ __forceinline__ int bias_offset(int box_bytes, int row, int col) {
+  const int c = col % BIAS_COLS;
+  return (col / BIAS_COLS) * box_bytes + row * 128 + (((c >> 2) ^ (row & 7)) << 4) + (c & 3) * 4;
+}
+
+// Element (row, col) of such a tile; an even col starts a float2.
+__device__ __forceinline__ const float* bias_at(const unsigned char* tile, int box_bytes,
+                                                int row, int col) {
+  return reinterpret_cast<const float*>(tile + bias_offset(box_bytes, row, col));
+}
+
+// Where a thread's accumulator values of its 64 x 64 scores (B2,
+// B5-dq-bias: rows `row` and row + 8, columns col0 + 8j + 2tq, +1) are in
+// an fp32 bias tile: the float2 of row row + 8r, columns 8j + 2tq, +1.
+__device__ __forceinline__ const float2* bias_row_pair(const unsigned char* tile, int box_bytes,
+                                                       int row, int col0, int tq, int j, int r) {
+  return reinterpret_cast<const float2*>(
+      bias_at(tile, box_bytes, row + 8 * r, col0 + 8 * j + 2 * tq));
+}
+
+// The same, transposed, for the scores k . q^T of B5-dkv-bias, whose rows
+// are keys (`key` and key + 8) and columns queries while the tile is
+// bias[query][key]: accumulator value 4j + i is element (8j + 2tq + (i & 1),
+// key + 8 (i >> 1)), bias_col_offset(..., i) + 1024 j bytes into the tile
+// (eight more rows keep the swizzle's row % 8).
+__device__ __forceinline__ int bias_col_offset(int box_bytes, int key, int tq, int i) {
+  return bias_offset(box_bytes, 2 * tq + (i & 1), key + 8 * (i >> 1));
+}
+
+__device__ __forceinline__ const float* bias_col_at(const unsigned char* tile, int box_bytes,
+                                                    int key, int tq, int j, int i) {
+  return reinterpret_cast<const float*>(tile + bias_col_offset(box_bytes, key, tq, i) +
+                                        1024 * j);
+}
+
+// threadIdx.x, read where it is used: the compiler may not hoist it (and
+// what is computed from it) out of a loop and hold it there.
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// The fp32 at shared-memory address `addr` (ld.shared: the compiler may not
+// move it across the barrier waits and arrivals around it).
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// A thread's 32 accumulator values read through bias_row_pair
+// (`transposed` false) or bias_col_at: the card test's view of both reads.
+__device__ __forceinline__ void bias_values(float (&bv)[32], const unsigned char* tile,
+                                            int box_bytes, int first, int tq, bool transposed) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (transposed) {
+        bv[4 * j + 2 * r] = *bias_col_at(tile, box_bytes, first, tq, j, 2 * r);
+        bv[4 * j + 2 * r + 1] = *bias_col_at(tile, box_bytes, first, tq, j, 2 * r + 1);
+      } else {
+        const float2 x = *bias_row_pair(tile, box_bytes, first, 0, tq, j, r);
+        bv[4 * j + 2 * r] = x.x;
+        bv[4 * j + 2 * r + 1] = x.y;
+      }
+    }
 }
 
 // The largest score of row r (g or g + 8) over the quad's columns.
@@ -540,9 +682,12 @@ inline EncodeTiledFn encode_tiled() {
 // and batches, the box (columns, rows, 1, 1).
 constexpr int MAP_SPEC = 11;
 
-// The tensor map of a bf16 (B, H, L, D) operand at `base` from its
-// description `spec`: 128-byte swizzle, zero fill past the edges.
-inline cudaError_t encode_tensor_map(CUtensorMap* map, const void* base, const long long* spec) {
+// The tensor map of a bf16 (B, H, L, D) operand (or, with `type` FLOAT32,
+// an fp32 bias (B|1, H|1, Lq, Lk)) at `base` from its description `spec`:
+// 128-byte swizzle, zero fill past the edges.
+inline cudaError_t encode_tensor_map(
+    CUtensorMap* map, const void* base, const long long* spec,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t dims[4], strides[3];
@@ -551,7 +696,7 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map, const void* base, const l
   for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)spec[i];
   for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)spec[4 + i];
   for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)spec[7 + i];
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -564,6 +709,16 @@ inline bool spec_is(const long long* spec, int d, int rows, int heads, int batch
                     int box_rows) {
   return spec[0] == d && spec[1] == rows && spec[2] == heads && spec[3] == batches &&
          spec[7] == (d < 64 ? d : 64) && spec[8] == box_rows && spec[9] == 1 && spec[10] == 1;
+}
+
+// Whether `spec` describes an fp32 bias of `cols` keys and `rows` queries
+// over heads and batches each either broadcast (a dimension of 1, indexed at
+// 0) or full, read in boxes of BIAS_COLS columns and `box_rows` rows.
+inline bool bias_spec_is(const long long* spec, int cols, int rows, int heads, int batches,
+                         int box_rows) {
+  return spec[0] == cols && spec[1] == rows && (spec[2] == 1 || spec[2] == heads) &&
+         (spec[3] == 1 || spec[3] == batches) && spec[7] == BIAS_COLS &&
+         spec[8] == box_rows && spec[9] == 1 && spec[10] == 1;
 }
 
 // Values per fp32 row-statistics operand (lse, delta: contiguous (B, H, L))

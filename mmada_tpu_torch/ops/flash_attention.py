@@ -6,9 +6,10 @@ at :59-92, called at :650) and with one (`_attn_bias_kernel` /
 `_attn_rope_bias_kernel` at :148-178, called at :686). `flash_attention`
 launches the CUDA kernel in `csrc/flash_attention_fwd.cu` for a CUDA tensor
 (B1, or B2 with a bias), and raises for anything the kernel does not take; it
-never falls back. B1 runs on `wgmma` and reads its operands through TMA
-tensor maps, which the wrapper describes (`tensor_maps.py`); an operand that
-a map cannot describe is copied first. For a CPU tensor it computes
+never falls back. B1 and B2 run on `wgmma` and read their operands through
+TMA tensor maps, which the wrapper describes (`tensor_maps.py`); an operand
+that a map cannot describe is copied first (a bias so copied is counted in
+`flash_attention.bias_copies`: the model's biases need none). For a CPU tensor it computes
 `flash_attention_reference`, the plain PyTorch version of the same function,
 which the CPU tests hold against the JAX kernel and `chip_smoke.py` holds the
 kernel against on the card.
@@ -50,7 +51,16 @@ from typing import Optional
 
 import torch
 
-from mmada_tpu_torch.ops.tensor_maps import OUT_ROWS, TILE_ROWS, describe, spec_array, tma_operand
+from mmada_tpu_torch.ops.tensor_maps import (
+    OUT_ROWS,
+    STEP_ROWS,
+    TILE_ROWS,
+    bias_operand,
+    describe,
+    describe_bias,
+    spec_array,
+    tma_operand,
+)
 
 _KERNEL_SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
@@ -132,9 +142,9 @@ def _entry(source: str, name: str, n_ptr: int, arrays: int = 0):
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                    aligned: bool = True) -> None:
     """Device, dtype and rank; with `aligned` (the cp.async kernels) also a
-    contiguous last dim and 16-byte aligned rows. The TMA kernels (B1, B4,
-    B5) take any layout: `tensor_maps.tma_operand` copies what a map cannot
-    describe."""
+    contiguous last dim and 16-byte aligned rows. The TMA kernels (B1, B2,
+    B4, B5) take any layout: `tensor_maps.tma_operand` copies what a map
+    cannot describe."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
@@ -149,10 +159,9 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} rows must be 16-byte aligned: strides {t.stride()}")
 
 
-def _bias_strides(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
-                  device: torch.device) -> list[int]:
-    """Element strides (batch, head, row) of the fp32 bias the kernels read,
-    0 on a broadcast axis."""
+def _check_bias(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
+                device: torch.device) -> None:
+    """Device, dtype and shape of the fp32 bias (B|1, H|1, Lq, Lk)."""
     if bias.device != device:
         raise ValueError(f"bias is on {bias.device}, q on {device}")
     if bias.dtype != torch.float32:
@@ -161,6 +170,13 @@ def _bias_strides(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
             or tuple(bias.shape[2:]) != (lq, lk)):
         raise ValueError(f"bias {tuple(bias.shape)} is not (B|1, H|1, Lq, Lk) for "
                          f"B {b}, H {h}, Lq {lq}, Lk {lk}")
+
+
+def _bias_strides(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
+                  device: torch.device) -> list[int]:
+    """Element strides (batch, head, row) of the fp32 bias the cp.async
+    kernels (B3-bias, B4-bias) read, 0 on a broadcast axis."""
+    _check_bias(bias, b, h, lq, lk, device)
     if lk > 1 and bias.stride(-1) != 1:
         raise ValueError("bias must have a contiguous last dim")
     return [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3)]
@@ -178,6 +194,17 @@ def _launch(fn, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError {err}")
+
+
+def _bias_map_operand(wrapper, bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
+                      device: torch.device) -> torch.Tensor:
+    """The bias as a TMA kernel reads it: checked, and copied once if no map
+    can describe it (`tensor_maps.bias_operand`), counted in
+    `wrapper.bias_copies`."""
+    _check_bias(bias, b, h, lq, lk, device)
+    bias, copied = bias_operand(bias)
+    wrapper.bias_copies += copied
+    return bias
 
 
 def _count_launch(wrapper, bias: Optional[torch.Tensor]) -> None:
@@ -202,15 +229,22 @@ def flash_attention(
     without RoPE. Counts its launches in `flash_attention.launches` (B1) or
     `flash_attention.bias_launches` (B2, with a bias): one per call, since
     with RoPE the C entry runs its rotation kernel and the attention kernel
-    together. B1 reads its operands through TMA tensor maps
+    together. B1 and B2 read their operands through TMA tensor maps
     (`tensor_maps`), so an operand that a map cannot describe is copied
-    first; B2 takes 16-byte aligned rows."""
+    first (a bias: `flash_attention.bias_copies`).
+
+    B2 adds the bias in log2 units, saturated at the finite min, so on the
+    card every bias at or below -FLT_MAX / log2 e (about -2.36e38) counts as
+    the mask's -FLT_MAX: a row whose every key lies there averages v over
+    its Lk keys, where the plain version weights only the largest of those
+    biases. A mask (0 or the finite min, as `bias_as_float` makes it) and
+    any bias above that threshold give the plain version's function."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, rope_sin, rope_cos, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device, aligned=bias is not None)
+        _check_operand(name, t, q.device, aligned=False)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
@@ -228,8 +262,9 @@ def flash_attention(
                     or t.data_ptr() % 16):
                 raise ValueError(f"{name} must be contiguous fp32 ({lq}, {d}) on {q.device}")
     bias = bias_as_float(bias)
-    if bias is None:
-        q, k, v = (tma_operand(t) for t in (q, k, v))
+    if bias is not None:
+        bias = _bias_map_operand(flash_attention, bias, b, h, lq, lk, q.device)
+    q, k, v = (tma_operand(t) for t in (q, k, v))
 
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -239,30 +274,33 @@ def flash_attention(
         k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
     rope_ptrs = [None if t is None else t.data_ptr() for t in (rope_sin, rope_cos, q_rot, k_rot)]
     scale = 1.0 / (d ** 0.5)
+    # one array: the element strides of q and k (the rotation reads them),
+    # then the tensor maps of what the attention kernel reads: B1 takes K
+    # and V in tiles of 128 keys, B2 in tiles of 64 beside its bias tiles
+    kv_rows = TILE_ROWS if bias is None else STEP_ROWS
+    maps = [describe(q if q_rot is None else q_rot, TILE_ROWS),
+            describe(k if k_rot is None else k_rot, kv_rows), describe(v, kv_rows),
+            describe(out, OUT_ROWS)]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     if bias is None:
-        # one array: the element strides of q and k (the rotation reads
-        # them), then the tensor maps of what the attention kernel reads
-        qs, ks = q.stride(), k.stride()
-        args = spec_array(describe(q if q_rot is None else q_rot, TILE_ROWS),
-                          describe(k if k_rot is None else k_rot, TILE_ROWS),
-                          describe(v, TILE_ROWS), describe(out, OUT_ROWS),
-                          head=(*qs[:3], *ks[:3]))
-        addr = args.buffer_info()[0]
-        fn = _entry(_KERNEL_SOURCE, "mmada_flash_attention_fwd_bf16", 8, arrays=2)
-        _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *rope_ptrs, b, h, kvh, lq, lk, d, addr, addr + 6 * args.itemsize, scale)
+        name = "mmada_flash_attention_fwd_bf16"
     else:
-        fn = _entry(_KERNEL_SOURCE, "mmada_flash_attention_fwd_bias_bf16", 9)
-        _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bias.data_ptr(), *rope_ptrs, b, h, kvh, lq, lk, d,
-                _strides(q, k, v, out, extra=_bias_strides(bias, b, h, lq, lk, q.device)),
-                scale)
+        name = "mmada_flash_attention_fwd_bias_bf16"
+        maps.append(describe_bias(bias, TILE_ROWS))
+        ptrs.append(bias.data_ptr())
+    qs, ks = q.stride(), k.stride()
+    args = spec_array(*maps, head=(*qs[:3], *ks[:3]))
+    addr = args.buffer_info()[0]
+    fn = _entry(_KERNEL_SOURCE, name, len(ptrs) + 4, arrays=2)
+    _launch(fn, q.device, *ptrs, *rope_ptrs, b, h, kvh, lq, lk, d, addr,
+            addr + 6 * args.itemsize, scale)
     _count_launch(flash_attention, bias)
     return out
 
 
 flash_attention.launches = 0
 flash_attention.bias_launches = 0
+flash_attention.bias_copies = 0
 
 
 # --------------------------------------------------------------------------
@@ -347,28 +385,28 @@ def _check_bwd_shapes(q, k, v, dout, stats,
     return b, h, kvh, lq, lk, d
 
 
-def _launch_bwd_dq(source: str, entry: str, q, k, v, dout, delta, bias):
-    """Check the operands, allocate (dq, lse) and launch the dq kernel
-    `<entry>_bf16` (or `<entry>_bias_bf16`) of `csrc/<source>.cu`."""
+def _launch_bwd_dq(q, k, v, dout, delta, bias):
+    """Check the operands, allocate (dq, lse) and launch B3's dq kernel
+    (B3-bias's with a bias)."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
     if bias is None:
-        name, bias_strides = f"{entry}_bf16", ()
+        name, bias_strides = "mmada_flash_attention_bwd_dq_bf16", ()
     else:
-        name = f"{entry}_bias_bf16"
+        name = "mmada_flash_attention_bwd_dq_bias_bf16"
         bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
         ptrs.append(bias.data_ptr())
     ptrs += [dq.data_ptr(), lse.data_ptr()]
-    _launch(_entry(source, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
             _strides(q, k, v, dout, dq, extra=bias_strides), 1.0 / (d ** 0.5))
     return dq, lse
 
 
-def _launch_bwd_dkv(source: str, entry: str, q, k, v, dout, lse, delta, bias):
-    """Check the operands, allocate (dk, dv) and launch the dkv kernel
-    `<entry>_bf16` (or `<entry>_bias_bf16`) of `csrc/<source>.cu`."""
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, bias):
+    """Check the operands, allocate (dk, dv) and launch B3's dkv kernel
+    (B3-bias's with a bias)."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(
         q, k, v, dout, [("lse", lse), ("delta", delta)])
     dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
@@ -376,13 +414,13 @@ def _launch_bwd_dkv(source: str, entry: str, q, k, v, dout, lse, delta, bias):
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr()]
     if bias is None:
-        name, bias_strides = f"{entry}_bf16", ()
+        name, bias_strides = "mmada_flash_attention_bwd_dkv_bf16", ()
     else:
-        name = f"{entry}_bias_bf16"
+        name = "mmada_flash_attention_bwd_dkv_bias_bf16"
         bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
         ptrs.append(bias.data_ptr())
     ptrs += [dk.data_ptr(), dv.data_ptr()]
-    _launch(_entry(source, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
             _strides(q, k, v, dout, dk, dv, extra=bias_strides), 1.0 / (d ** 0.5))
     return dk, dv
 
@@ -396,8 +434,7 @@ def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, tor
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq runs on cuda or cpu, not {q.device}")
     bias = bias_as_float(bias)
-    out = _launch_bwd_dq(_BWD_SOURCE, "mmada_flash_attention_bwd_dq", q, k, v, dout, delta,
-                         bias)
+    out = _launch_bwd_dq(q, k, v, dout, delta, bias)
     _count_launch(attention_bwd_dq, bias)
     return out
 
@@ -415,8 +452,7 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tenso
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv runs on cuda or cpu, not {q.device}")
     bias = bias_as_float(bias)
-    out = _launch_bwd_dkv(_BWD_SOURCE, "mmada_flash_attention_bwd_dkv", q, k, v, dout, lse,
-                          delta, bias)
+    out = _launch_bwd_dkv(q, k, v, dout, lse, delta, bias)
     _count_launch(attention_bwd_dkv, bias)
     return out
 

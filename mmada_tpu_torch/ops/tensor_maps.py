@@ -1,7 +1,7 @@
-"""How the wgmma attention kernels (B1, B4, B5) see their operands: TMA tensor maps.
+"""How the wgmma attention kernels (B1, B2, B4, B5) see their operands: TMA tensor maps.
 
-The kernels in `csrc/flash_attention_fwd.cu` (B1) and
-`csrc/flash_attention_long.cu` (B4, B5-dq, B5-dkv) read their bf16 operands
+The kernels in `csrc/flash_attention_fwd.cu` (B1, B2) and
+`csrc/flash_attention_long.cu` (B4, B5-dq, B5-dkv, biased or not) read their bf16 operands
 and write their outputs through TMA, which copies a whole box of a tensor
 between device and shared memory. A tensor map describes a bf16 (B, H, L,
 D) operand to TMA; the wrapper writes that description here, in Python, and
@@ -23,6 +23,16 @@ stride that is not a multiple of 8 elements, strided columns) is copied with
 size 1 is never stepped over, so its stride is replaced by the contiguous
 one, which keeps it a multiple of 16 whatever torch reports for it.
 
+The biased kernels (B2, B5-dq-bias, B5-dkv-bias) read the fp32 bias (B|1,
+H|1, Lq, Lk) through a map too (`describe_bias`): dims (Lk, Lq, heads,
+batches), boxes of 32 columns (128 bytes, the swizzle's width) and the
+kernel's rows. A broadcast axis (extent 1, or a stride of 0 as `expand`
+gives) is a dimension of 1 that the kernel reads at index 0. The rows must
+start 16 bytes apart: a mask bias of odd L does not, so the model builds its
+bias with rows padded to ROW_FLOATS (4) floats, a view of the first L
+columns as `aligned_rows` makes, and a wrapper copies any other bias once
+(`bias_operand`).
+
 B5-dkv also copies spans of the fp32 row statistics lse and delta
 (contiguous (B, H, Lq)) with 1-D bulk copies: `describe_rows` says what the
 C entry checks of them, and `rows_operand` copies one whose base is not
@@ -41,13 +51,15 @@ BOX_COLS = 64   # bf16 columns of one box: 128 bytes
 ALIGN_BYTES = 16
 # box rows of the kernels' tiles (ATT_M and ATT_N in csrc/hopper_sm90.cuh):
 # q, k and v in tiles of 128 rows (B5: the resident q and dO of B5-dq, k and
-# v of B5-dkv); the output stored 64 rows (one consumer warpgroup's) at a
-# time; B5's streamed tiles (BWD_N in csrc/flash_attention_long.cu): B5-dq's
-# K and V tiles of 64 keys, B5-dkv's q and dO tiles and lse / delta spans of
-# 64 queries
+# v of B5-dkv; the bias tiles of B2 and B5-dq-bias); the output stored 64
+# rows (one consumer warpgroup's) at a time; 64-row tiles (STEP_N in
+# csrc/hopper_sm90.cuh): B2's and B5-dq's K and V tiles of 64 keys, B5-dkv's
+# q and dO tiles, bias tiles and lse / delta spans of 64 queries
 TILE_ROWS = 128
 OUT_ROWS = 64
 STEP_ROWS = 64
+BIAS_COLS = 32  # fp32 columns of one bias box: 128 bytes (BIAS_COLS in csrc/hopper_sm90.cuh)
+ROW_FLOATS = ALIGN_BYTES // 4  # a bias row's length is padded to a multiple of this
 
 
 class TensorMapSpec(NamedTuple):
@@ -101,6 +113,63 @@ def describe(t: torch.Tensor, box_rows: int) -> TensorMapSpec:
     batches = stride[0] * size if b > 1 else heads * h
     return TensorMapSpec((d, l, h, b), (rows, heads, batches),
                          (min(d, BOX_COLS), box_rows, 1, 1))
+
+
+def _bias_axes(t: torch.Tensor) -> tuple[bool, bool]:
+    """Whether the bias's batch and head axes are broadcast: extent 1, or
+    stride 0 (an expanded view)."""
+    return tuple(t.shape[i] == 1 or t.stride(i) == 0 for i in range(2))
+
+
+def bias_describable(t: torch.Tensor) -> bool:
+    """Whether a tensor map can describe the fp32 bias t as it is: 4-D,
+    contiguous columns, base and the strides of every axis that is stepped
+    over (rows; heads and batches unless broadcast) multiples of 16 bytes."""
+    if t.dtype != torch.float32 or t.dim() != 4 or t.data_ptr() % ALIGN_BYTES:
+        return False
+    if t.shape[3] > 1 and t.stride(3) != 1:
+        return False
+    stepped = [2] if t.shape[2] > 1 else []
+    stepped += [i for i, broadcast in enumerate(_bias_axes(t)) if not broadcast]
+    return all(t.stride(i) * 4 % ALIGN_BYTES == 0 for i in stepped)
+
+
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """t's values as a view of the first L columns of a tensor whose rows
+    are padded to a multiple of 4 floats (16 bytes), its other strides
+    contiguous: what a bias map can describe."""
+    lk = t.shape[-1]
+    padded = torch.empty((*t.shape[:-1], lk + -lk % ROW_FLOATS), dtype=t.dtype,
+                         device=t.device)
+    view = padded[..., :lk]
+    view.copy_(t)
+    return view
+
+
+def bias_operand(t: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """(bias, copied): t itself if a bias map can describe it, else a copy
+    with broadcast axes of extent 1 and rows padded (`aligned_rows`)."""
+    if bias_describable(t):
+        return t, False
+    batch, head = _bias_axes(t)
+    return aligned_rows(t[:1 if batch else None, :1 if head else None]), True
+
+
+def describe_bias(t: torch.Tensor, box_rows: int) -> TensorMapSpec:
+    """The tensor map of an fp32 bias (B|1, H|1, Lq, Lk), read in boxes of
+    BIAS_COLS columns and `box_rows` rows: dims (Lk, Lq, heads, batches), a
+    broadcast axis of extent 1. Raises if t is not `bias_describable` (the
+    wrapper copies such a bias first, `bias_operand`)."""
+    if not bias_describable(t):
+        raise ValueError(f"no tensor map describes the bias of shape {tuple(t.shape)} strides "
+                         f"{t.stride()} at offset {t.data_ptr() % ALIGN_BYTES}: copy it first")
+    batch, head = _bias_axes(t)
+    b, h = (1 if batch else t.shape[0]), (1 if head else t.shape[1])
+    lq, lk = t.shape[2], t.shape[3]
+    rows = t.stride(2) * 4 if lq > 1 else (lk + -lk % ROW_FLOATS) * 4
+    heads = t.stride(1) * 4 if h > 1 else rows * lq
+    batches = t.stride(0) * 4 if b > 1 else heads * h
+    return TensorMapSpec((lk, lq, h, b), (rows, heads, batches), (BIAS_COLS, box_rows, 1, 1))
 
 
 class RowsSpec(NamedTuple):
@@ -176,6 +245,35 @@ def wgmma_tile_product(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"mmada_wgmma_tile_bf16 launch failed: cudaError {err}")
     return s_out, o_out
+
+
+def bias_tile_read(bias: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """The fp32 bias tile as the biased kernels read it from shared memory
+    (`bias_tile_kernel` in csrc/flash_attention_long.cu), for the card test
+    that pins the bias map's swizzle against the kernels' reads: `bias`
+    (128, 64) read row-wise as B2 and B5-dq-bias do (out = bias), or (64,
+    128) read transposed as B5-dkv-bias does (out = bias^T); out (128, 64)
+    fp32."""
+    from mmada_tpu_torch.ops import _build
+
+    if bias.device.type != "cuda":
+        raise ValueError("the bias tile read runs on the card only")
+    want = (64, 128) if transposed else (128, 64)
+    if tuple(bias.shape) != want or bias.dtype != torch.float32:
+        raise ValueError(f"the bias tile is fp32 {want}, got {bias.dtype} {tuple(bias.shape)}")
+    bias, _ = bias_operand(bias.reshape(1, 1, *want))
+    out = torch.empty((128, 64), dtype=torch.float32, device=bias.device)
+    fn = _build.load_library("flash_attention_long").mmada_bias_tile_f32
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_int, p, p]
+    fn.restype = ctypes.c_int
+    spec = spec_array(describe_bias(bias, want[0]))
+    with torch.cuda.device(bias.device):
+        err = fn(bias.data_ptr(), out.data_ptr(), int(transposed), spec.buffer_info()[0],
+                 torch.cuda.current_stream(bias.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mmada_bias_tile_f32 launch failed: cudaError {err}")
+    return out
 
 
 def wgmma_bwd_tile_product(x: torch.Tensor, y: torch.Tensor):

@@ -320,3 +320,38 @@ def test_bias_is_built_once_and_shared_by_every_layer(monkeypatch, remat):
     assert len(built) == 1
     assert len(seen) == cfg.n_layers * (2 if remat else 1)
     assert all(b is built[0] for b in seen)
+
+
+@pytest.mark.parametrize("length", [387, 1155])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_prepared_bias_is_jax_bias_with_aligned_rows(length, with_bias):
+    """At the odd frame lengths the model runs (stage-1 387, t2i CFG 1,155),
+    `prepare_attention_bias` gives JAX's bias element for element, as a view
+    whose rows start a multiple of 4 floats (16 bytes) apart, the other
+    strides contiguous (the biased kernels read it through TMA without a
+    copy); the plain versions give the same bits on it as on a contiguous
+    copy."""
+    rng = np.random.default_rng(length)
+    mask = np.ones((2, length), np.int32)
+    mask[0, :length // 3] = 0
+    extra = (rng.standard_normal((1, 1, length, length)).astype(np.float32)
+             if with_bias else None)
+    want = jax_llada.prepare_attention_bias(
+        jnp.asarray(mask), None if extra is None else jnp.asarray(extra))
+    got = llada.prepare_attention_bias(
+        torch.from_numpy(mask), None if extra is None else torch.from_numpy(extra))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 1, length, length)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.stride(-1) == 1 and got.stride(-2) % 4 == 0 and got.stride(-2) >= length
+    assert got.stride(1) == length * got.stride(-2) and got.stride(0) == got.stride(1)
+    assert not got.is_contiguous()
+    dense = got.contiguous()
+    g = torch.Generator().manual_seed(length)
+    q, k, v = (torch.randn(2, 2, length, 64, generator=g) for _ in range(3))
+    out = flash_attention_reference(q, k, v, bias=got)
+    torch.testing.assert_close(out, flash_attention_reference(q, k, v, bias=dense),
+                               atol=0, rtol=0)
+    dout = torch.randn(out.shape, generator=g)
+    torch.testing.assert_close(flash_attention_bwd_reference(q, k, v, out, dout, bias=got),
+                               flash_attention_bwd_reference(q, k, v, out, dout, bias=dense),
+                               atol=0, rtol=0)

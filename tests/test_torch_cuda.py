@@ -182,13 +182,14 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
         flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         flash_attention(q[..., :96], k[..., :96], v[..., :96])       # head_dim 96
-    # misaligned (a 2-byte offset): B1 copies what a tensor map cannot
-    # describe and gives the contiguous copy's result; B2 refuses it
+    # misaligned (a 2-byte offset): B1 and B2 copy what a tensor map cannot
+    # describe and give the contiguous copy's result
     odd = [t[..., 1:65] for t in (q, k, v)]
-    torch.testing.assert_close(flash_attention(*odd),
-                               flash_attention(*(t.contiguous() for t in odd)), atol=0, rtol=0)
-    with pytest.raises(ValueError):
-        flash_attention(*odd, bias=torch.zeros(1, 1, 64, 64, device=cuda_device))
+    dense = [t.contiguous() for t in odd]
+    torch.testing.assert_close(flash_attention(*odd), flash_attention(*dense), atol=0, rtol=0)
+    zero = torch.zeros(1, 1, 64, 64, device=cuda_device)
+    torch.testing.assert_close(flash_attention(*odd, bias=zero),
+                               flash_attention(*dense, bias=zero), atol=0, rtol=0)
     sin, cos = llada.rope_sin_cos(64, 128, 500000.0, device=cuda_device)
     with pytest.raises(ValueError):
         flash_attention(q, k[:, :, :32], v[:, :, :32], rope_sin=sin, rope_cos=cos)
@@ -447,7 +448,7 @@ def test_biased_kernel_matches_plain_version(cuda_device, kind, b, h, kvh, lq, l
         before[0], before[1] + 1)
     want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    assert_b1_close(got, want)   # B2 normalises p before its cast, as B1
 
 
 def test_bool_bias_equals_its_float_form(cuda_device):
@@ -459,22 +460,118 @@ def test_bool_bias_equals_its_float_form(cuda_device):
                                atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("rope", [True, False])
-def test_zero_bias_gives_b1_bit_for_bit(cuda_device, rope):
-    """B2 with a zero bias computes B1's function: it meets B1's bars against
-    B1 (B1 runs on wgmma now, B2 on the earlier body, so the two agree as
-    each agrees with the plain version), and it is bit for bit itself with a
-    zero bias of another broadcast shape (adding 0.0f to a score is exact)."""
-    q, k, v = _qkv(cuda_device, 2, 4, 2, 1155, 1155, 128)
+@pytest.mark.parametrize("rope,d,lq,lk", [(True, 128, 1155, 1155), (False, 128, 1155, 1155),
+                                            (True, 64, 387, 387), (False, 128, 100, 333)])
+def test_zero_bias_gives_b1_bit_for_bit(cuda_device, rope, d, lq, lk):
+    """B2 with a zero bias is B1, bit for bit: it adds the bias in log2 units
+    to B1's exponent (adding 0.0f changes nothing) and sums a row's exps over
+    B1's 128-key groups; so with a zero bias of any broadcast shape."""
+    q, k, v = _qkv(cuda_device, 2, 4, 2, lq, lk, d)
     sin = cos = None
     if rope:
-        sin, cos = llada.rope_sin_cos(1155, 128, 500000.0, device=cuda_device)
-    zero = torch.zeros(2, 1, 1155, 1155, device=cuda_device)
-    got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero)
+        sin, cos = llada.rope_sin_cos(lq, d, 500000.0, device=cuda_device)
+    zero = torch.zeros(2, 1, lq, lk, device=cuda_device)
     want = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
-    assert_b1_close(got, want)
-    row = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=zero[:1, :1])
-    torch.testing.assert_close(got, row, atol=0, rtol=0)
+    for bias in (zero, zero[:1, :1], torch.zeros(2, 4, lq, lk, device=cuda_device)):
+        got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_bias_tile_loaded_by_tma_is_read_as_the_kernels_read_it(cuda_device):
+    """The fp32 bias tile through the biased kernels' path: TMA loads with
+    the 128-byte swizzle in boxes of 32 columns, then the reads the kernels
+    make (the same helpers): row-wise for B2's and B5-dq-bias's scores
+    (128 rows x 64 keys) and transposed for B5-dkv-bias's k . q^T (64 query
+    rows x 128 keys, the key as the accumulator row). A swizzle the map and
+    the reads disagree on returns the values in the wrong places."""
+    from mmada_tpu_torch.ops.tensor_maps import bias_tile_read
+
+    g = torch.Generator(cuda_device).manual_seed(4)
+    rows = torch.randn(128, 64, generator=g, device=cuda_device)
+    torch.testing.assert_close(bias_tile_read(rows, transposed=False), rows, atol=0, rtol=0)
+    cols = torch.randn(64, 128, generator=g, device=cuda_device)
+    torch.testing.assert_close(bias_tile_read(cols, transposed=True), cols.T, atol=0, rtol=0)
+
+
+def test_biased_kernel_copies_a_bias_no_map_describes(cuda_device):
+    """B2 reads a bias through TMA: one whose rows are not 16 bytes apart
+    (odd Lk, contiguous) is copied once per call into padded rows
+    (`flash_attention.bias_copies`) and gives the bits the padded view gives;
+    the model's bias (`prepare_attention_bias`) is read as it is."""
+    from mmada_tpu_torch.ops.tensor_maps import aligned_rows
+
+    q, k, v = _qkv(cuda_device, 2, 4, 4, 333, 333, 128)
+    bias = torch.randn(2, 1, 333, 333, generator=torch.Generator(cuda_device).manual_seed(8),
+                       device=cuda_device)
+    before = flash_attention.bias_copies
+    got = flash_attention(q, k, v, bias=bias)
+    assert flash_attention.bias_copies == before + 1
+    want = flash_attention(q, k, v, bias=aligned_rows(bias))
+    assert flash_attention.bias_copies == before + 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    model_bias, _ = _mask_bias(cuda_device, 2, 333, 9)
+    flash_attention(q, k, v, bias=model_bias)
+    assert flash_attention.bias_copies == before + 1
+
+
+def test_fully_masked_rows_average_v(cuda_device):
+    """A query row that the mask shuts out entirely (every bias the finite
+    min): B2 averages v over the Lk keys (the XLA tier's function; p =
+    1/Lk before its bf16 cast), and in the long tier B5-dq gives p = 1/Lk and
+    lse the finite min, B5-dkv p = 1 on each key; with a cotangent on those
+    rows too, dq, dk and dv are finite and meet their plain versions' bars."""
+    b, h, l = 2, 4, 1155
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, 128)
+    bias, mask = _mask_bias(cuda_device, b, l, 40)
+    sin, cos = llada.rope_sin_cos(l, 128, 500000.0, device=cuda_device)
+    out = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    p = torch.tensor(1.0 / l).bfloat16().float()
+    mean = (p * v.float()).sum(dim=2, keepdim=True).expand(b, h, l, 128)
+    dead = (mask == 0)[:, None, :, None].expand(b, h, l, 128)
+    assert dead.any()
+    torch.testing.assert_close(out.float()[dead], mean[dead], atol=3e-2, rtol=3e-2)
+
+    l = 4224
+    q, k, v = _qkv(cuda_device, 1, 2, 2, l, l, 128)
+    bias, mask = _mask_bias(cuda_device, 1, l, 70)
+    out = flash_attention_long(q, k, v, bias)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(9),
+                       device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+    dq, lse = attention_bwd_dq_long(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias)
+    want_dq, want_lse = attention_bwd_dq_long_reference(q, k, v, dout, delta, bias)
+    want_dk, want_dv = attention_bwd_dkv_long_reference(q, k, v, dout, want_lse, delta, bias)
+    rows = mask[0] == 0
+    assert bool((lse[..., rows] == torch.finfo(torch.float32).min).all())
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert_long_grad_close(got, want)
+
+
+def test_b2_counts_biases_past_the_log2_range_as_the_mask(cuda_device):
+    """B2 adds the bias in log2 units saturated at the finite min, so every
+    bias at or below -FLT_MAX / log2 e counts as the mask's -FLT_MAX (see
+    `flash_attention`): a row whose keys mix -3e38 and -FLT_MAX averages v
+    over all its keys, and B2 gives, bit for bit, what it gives with those
+    biases set to -FLT_MAX, within B1's bars of the plain version on that
+    bias. Rows with a key above the threshold keep the plain version's
+    function on the bias as given."""
+    b, h, l = 1, 2, 200
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, 128)
+    bias = _bias(cuda_device, "one", b, h, l, l)
+    lowest = torch.finfo(torch.float32).min
+    keys = torch.arange(l, device=cuda_device)
+    bias[0, 0, :100] = torch.where(keys % 2 == 0, -3e38, lowest)
+    bias[0, 0, 50:100, 7] = 0.0   # one allowed key on rows 50-99
+    saturated = torch.where(bias * 1.4426950408889634 <= lowest, lowest, bias)
+    got = flash_attention(q, k, v, bias=bias)
+    torch.testing.assert_close(got, flash_attention(q, k, v, bias=saturated), atol=0, rtol=0)
+    assert_b1_close(got, flash_attention_reference(q, k, v, bias=saturated))
+    p = torch.tensor(1.0 / l).bfloat16().float()
+    mean = (p * v.float()).sum(dim=2, keepdim=True).expand(b, h, 50, 128)
+    torch.testing.assert_close(got[:, :, :50].float(), mean, atol=3e-2, rtol=3e-2)
+    assert_b1_close(got[:, :, 50:], flash_attention_reference(q, k, v, bias=bias)[:, :, 50:])
 
 
 def test_biased_kernels_take_strided_views(cuda_device):
@@ -591,7 +688,8 @@ def test_masked_paths_go_through_the_biased_kernels(cuda_device):
     """A 2-layer bf16 model with attention masks on: t2i serving runs B2
     once per layer per step and no B1; a train step with t2i_masks runs B2
     twice per layer (forward + recompute) and dq-bias / dkv-bias once per
-    layer, and none of the unbiased kernels."""
+    layer, and none of the unbiased kernels; B2 reads the model's bias (odd
+    frame lengths) without a copy."""
     import numpy as np
 
     vocab, sp = _tiny_special()
@@ -606,7 +704,7 @@ def test_masked_paths_go_through_the_biased_kernels(cuda_device):
     def counts():
         return tuple(getattr(f, a) for f in kernels for a in ("launches", "bias_launches"))
 
-    c0 = counts()
+    c0, copies = counts(), flash_attention.bias_copies
     codes = serve_t2i(model, ["a cat", "a much longer dog"], special_ids=sp, num_vq_tokens=16,
                       max_text_len=8, timesteps=4, guidance_scale=2.0)
     n = cfg.n_layers
@@ -625,6 +723,31 @@ def test_masked_paths_go_through_the_biased_kernels(cuda_device):
     assert tuple(c - b for c, b in zip(counts(), c0)) == (0, 2 * n, 0, n, 0, n)
     h = trainer.history[0]
     assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
+    assert flash_attention.bias_copies == copies   # the model's bias needs no copy
+
+
+def test_model_logits_do_not_depend_on_reduced_precision_reductions(cuda_device):
+    """ROADMAP C.6, settled: torch lets cuBLAS reduce bf16 products in
+    reduced precision by default (`allow_bf16_reduced_precision_reduction`),
+    where the JAX reference's dots accumulate in fp32. At the 8B's widths
+    (d_model 4096, MLP 12288, the 134,656-token head; 2 layers, random bf16
+    weights) and the t2i CFG frame (4 x 1,155) the model's logits are the
+    same bits inside and outside `exact_bf16_reductions()`: cuBLAS takes no
+    reduced-precision reduction at these shapes, so the model's path sets
+    nothing."""
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+
+    cfg = dataclasses.replace(llada.llada_8b(), n_layers=2)
+    model = MMadaModel.init(cfg, MMADA_8B, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0), policy=BF16)
+    ids = torch.randint(0, MMADA_8B.total_vocab_size, (4, 1155),
+                        generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    allowed = model.forward(ids)
+    with exact_bf16_reductions():
+        exact = model.forward(ids)
+    assert torch.isfinite(allowed).all()
+    torch.testing.assert_close(allowed, exact, atol=0, rtol=0)
 
 
 def test_model_on_the_card_refuses_a_non_bf16_policy(cuda_device):
@@ -790,9 +913,9 @@ def test_long_backward_reads_views_through_tensor_maps(cuda_device):
 
 
 def test_biased_long_backward_keeps_its_kernel(cuda_device):
-    """With a bias, B5-dq and B5-dkv launch their biased kernels (the earlier
-    mma.sync bodies): `.bias_launches` moves and `.launches`, the counter of
-    the wgmma bodies, does not."""
+    """With a bias, B5-dq and B5-dkv launch their biased kernels (the wgmma
+    bodies with the bias tile): `.bias_launches` moves and `.launches`, the
+    counter of the unbiased ones, does not."""
     b, h, l, d = 1, 2, 256, 128
     q, k, v = _qkv(cuda_device, b, h, h, l, l, d)
     bias = _bias(cuda_device, "head", b, h, l, l)
@@ -808,6 +931,29 @@ def test_biased_long_backward_keeps_its_kernel(cuda_device):
     want = flash_attention_bwd_long_reference(q, k, v, out, dout, bias)
     for got, w in zip((dq, dk, dv), want):
         assert_long_grad_close(got, w)
+
+
+@pytest.mark.parametrize("kind,h,kvh,d", [("mask", 4, 4, 128), ("batch", 4, 2, 128),
+                                          ("one", 2, 2, 64)])
+def test_biased_long_backward_grid_orders_agree(cuda_device, kind, h, kvh, d):
+    """B5-dq-bias and B5-dkv-bias run a bias broadcast over the heads with
+    the heads fastest in the grid, and a per-head bias with the tiles
+    fastest. The broadcast bias and its per-head copy give the same bits
+    (each block computes the same tile either way), and both meet the plain
+    versions' bars, GQA and head_dim 64 too."""
+    b, l = 2, 1024
+    q, k, v = _qkv(cuda_device, b, h, kvh, l, l, d)
+    bias = _bias(cuda_device, kind, b, h, l, l)
+    out = flash_attention_long(q, k, v, bias)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(7),
+                       device=cuda_device).bfloat16()
+    if kind == "mask":
+        dout = dout * (bias > torch.finfo(torch.float32).min).any(-1, keepdim=True)
+    per_head = bias.expand(b, h, l, l).contiguous()
+    runs = [flash_attention_bwd_long(q, k, v, out, dout, t) for t in (bias, per_head)]
+    torch.testing.assert_close(runs[0], runs[1], atol=0, rtol=0)
+    for got, want in zip(runs[0], flash_attention_bwd_long_reference(q, k, v, out, dout, bias)):
+        assert_long_grad_close(got, want)
 
 
 def test_long_kernels_take_strided_views(cuda_device):
@@ -897,12 +1043,16 @@ def test_long_frames_go_through_the_long_kernels(cuda_device, masked):
                           "image_codes": rng.integers(0, 64, (2, n_img))},
              "lm_flow": {"input_ids": ["hello there", "general"]}}
     (c1, c0) = counts()
+    copies = [f.bias_copies for f in (flash_attention, attention_bwd_dq_long,
+                                      attention_bwd_dkv_long)]
     trainer = train(model, [flows], steps=1, special_ids=sp, max_text_len=4224 - n_img - 3,
                     training=dict(batch_size_t2i=2, batch_size_lm=2, loss_chunk=64),
                     lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
     frames = trainer.prepare_batch(flows)
     assert {t.shape[1] for key, t in frames.items() if key.endswith("input_ids")} == {4224}
     assert counts() == (c1, (c0[0] + 2 * n, c0[1] + n, c0[2] + n))
+    assert [f.bias_copies for f in (flash_attention, attention_bwd_dq_long,
+                                    attention_bwd_dkv_long)] == copies
     h = trainer.history[0]
     assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
 

@@ -1,25 +1,33 @@
-"""The tensor maps through which the wgmma attention kernels (B1, B4, B5-dq,
-B5-dkv) read their operands and write their outputs, as the wrappers
+"""The tensor maps through which the wgmma attention kernels (B1, B2, B4,
+B5-dq, B5-dkv) read their operands and write their outputs, as the wrappers
 describe them (`mmada_tpu_torch/ops/tensor_maps.py`): dims in (columns,
 rows, heads, batches) order, byte strides that are multiples of 16, the box,
-and a copy of an operand no map can describe; and the spans of fp32 row
-statistics (lse, delta) that B5-dkv copies in bulk. These run on the CPU:
+and a copy of an operand no map can describe; the fp32 bias of the biased
+kernels (B2, B5-dq-bias, B5-dkv-bias), broadcast axes as dimensions of 1;
+and the spans of fp32 row statistics (lse, delta) that B5-dkv copies in
+bulk. These run on the CPU:
 the description is Python, and the kernels that take it run on the card
 (`tests/test_torch_cuda.py`)."""
 
 import pytest
 import torch
 
+from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.ops import flash_attention as fa_mod
 from mmada_tpu_torch.ops import flash_attention_long as long_mod
 from mmada_tpu_torch.ops.tensor_maps import (
+    BIAS_COLS,
     OUT_ROWS,
     STEP_ROWS,
     TILE_ROWS,
     RowsSpec,
     TensorMapSpec,
+    aligned_rows,
+    bias_describable,
+    bias_operand,
     describable,
     describe,
+    describe_bias,
     describe_rows,
     rows_operand,
     spec_array,
@@ -280,3 +288,77 @@ def test_b5_wrappers_leave_cpu_tensors_to_the_plain_versions():
     torch.testing.assert_close((dq, lse), (want_dq, want_lse), atol=0, rtol=0)
     torch.testing.assert_close((dk, dv), want, atol=0, rtol=0)
 
+
+
+# ---------------------------------------------------------------------- bias
+
+@pytest.mark.parametrize("length", [387, 1155, 8192])
+def test_model_bias_is_described_in_place(length):
+    """The bias the model builds (`prepare_attention_bias`: (B, 1, L, L) fp32,
+    a view of rows padded to 4 floats) at the stage-1, t2i CFG and long
+    frames: described as it is, dims (Lk, Lq, 1, B) with the broadcast head
+    axis a dimension of 1, the padded row stride, boxes of 32 columns and the
+    kernel's rows (B2 and B5-dq-bias 128, B5-dkv-bias 64)."""
+    b = 2 if length < 8192 else 1
+    mask = torch.ones(b, length, dtype=torch.long)
+    mask[0, :17] = 0
+    bias = llada.prepare_attention_bias(mask)
+    assert bias_describable(bias)
+    assert bias_operand(bias) == (bias, False)
+    row = -(-length // 4) * 16
+    for rows in (TILE_ROWS, STEP_ROWS):
+        spec = describe_bias(bias, rows)
+        assert spec.dims == (length, length, 1, b)
+        assert spec.strides == (row, row * length, row * length)
+        assert spec.box == (BIAS_COLS, rows, 1, 1) and BIAS_COLS * 4 == 128
+        assert all(x % 16 == 0 for x in spec.strides)
+        assert len(spec.flat()) == 11
+
+
+def test_broadcast_bias_axes_are_dimensions_of_one():
+    """A bias broadcast by shape (extent 1) or by an expanded view (stride 0)
+    over heads or batches: that axis is a dimension of 1, read at index 0;
+    a per-head bias keeps its heads."""
+    row = aligned_rows(torch.randn(1, 1, 300, 300))
+    for t in (row, row.expand(3, 4, 300, 300), row.expand(3, 1, 300, 300)):
+        assert bias_describable(t) and bias_operand(t)[0] is t
+        assert describe_bias(t, TILE_ROWS).dims == (300, 300, 1, 1)
+    per_head = torch.randn(3, 4, 300, 300)[:, :, :, :]
+    spec = describe_bias(per_head, STEP_ROWS)
+    assert spec.dims == (300, 300, 4, 3)
+    assert spec.strides == (1200, 300 * 1200, 4 * 300 * 1200)
+
+
+def test_biased_b5_grid_order_follows_the_bias_shape():
+    """B5's biased kernels run the heads fastest for a bias broadcast over
+    the heads (by extent 1 or by an expanded view), the tiles fastest for a
+    per-head bias: the order comes from the bias's tensor map alone."""
+    row = aligned_rows(torch.randn(1, 1, 256, 256))
+    for t in (row, row.expand(2, 1, 256, 256), row.expand(2, 4, 256, 256),
+              torch.randn(2, 1, 256, 256)):
+        assert long_mod._heads_fastest(t) == 1
+    for t in (torch.randn(2, 4, 256, 256), row.expand(2, 4, 256, 256).contiguous()):
+        assert long_mod._heads_fastest(t) == 0
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.randn(2, 1, 333, 333),                        # rows 1,332 bytes apart
+    lambda: torch.randn(1, 1, 64, 65)[..., 1:],                 # base 4 bytes off
+    lambda: torch.randn(1, 3, 64, 64).expand(2, 3, 64, 64)[:, :, :, :].transpose(2, 3),
+    lambda: torch.randn(1, 1, 64, 64).double(),                 # not fp32
+])
+def test_a_bias_no_map_describes_is_copied_once(make):
+    """A bias whose rows do not start 16 bytes apart, whose base is not
+    aligned or whose columns are strided is copied (`bias_operand`) into
+    padded rows, broadcast axes kept at extent 1, with the same values."""
+    t = make()
+    assert not bias_describable(t)
+    with pytest.raises(ValueError, match="copy it first"):
+        describe_bias(t, TILE_ROWS)
+    if t.dtype != torch.float32:
+        return
+    copied, was_copied = bias_operand(t)
+    assert was_copied and bias_describable(copied)
+    assert copied.stride(-2) % 4 == 0 and copied.stride(-1) == 1
+    assert copied.shape[0] in (1, t.shape[0]) and copied.shape[1] in (1, t.shape[1])
+    torch.testing.assert_close(copied.expand(t.shape), t, atol=0, rtol=0)
