@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the attention kernels B1, B2 and B4 (the serving path's forwards)
-and B5 (the long training path's staged backward, unbiased and biased)
-against those of another checkout of the port, in turns on one NVIDIA GPU.
+"""Times the attention kernels B1, B2, B4 and B4-bias (the forwards), B3 (the
+one-pass backward) and B5 (the long training path's staged backward,
+unbiased and biased) against those of another checkout of the port, in turns
+on one NVIDIA GPU.
 
     python3 attention_ab.py PARENT_DIR [--out chiprun_out/attention_ab.json]
                             [--only forward|backward]
@@ -9,22 +10,26 @@ against those of another checkout of the port, in turns on one NVIDIA GPU.
 PARENT_DIR is an unpacked checkout of the commit to compare with (for
 example `git archive HEAD | tar -x -C chip_checkout`). Its kernels are built
 from its own `mmada_tpu_torch/ops/csrc` with its own `_build.py` and launched
-through their C entries with the signatures they had there: the unbiased B1,
-B4, B5-dq and B5-dkv by tensor maps (as here, so through this checkout's
-wrappers), B2, B5-dq-bias and B5-dkv-bias by element strides (before their
+through their C entries with the signatures they had there: B1, B2, B4, and
+B5-dq and B5-dkv unbiased and biased, by tensor maps (as here, so through
+this checkout's wrappers); B3 and B4-bias by element strides (before their
 redesign on wgmma). This checkout's kernels run through its wrappers. Each
 measurement runs in the order parent, this, this, parent, on the same
 inputs:
 
   * B1 at the t2i CFG batch (4 x 32 heads x 1,155 tokens, RoPE) and at the
     served text batch (3 x 32 x 159, RoPE), B2 at the t2i CFG batch with the
-    served requests' mask bias, B4 at the long text frame (1 x 32 x 8,192):
+    served requests' mask bias, B4 at the long text frame (1 x 32 x 8,192),
+    B4-bias at the long training batch (2 x 32 x 8,192) with its masks:
     CUDA events, 10 calls after 2 warm-up, and the device time of the
     kernels a call launches (torch.profiler, 10 calls: it leaves out the
     time the stream waits for the host); beside them, the share of their
     output elements that differ from the plain version's
-    (`flash_attention_reference`), and for B2 the bias bytes its blocks read
-    against its device time;
+    (`flash_attention_reference`), for B2 the bias bytes its blocks read
+    against its device time, and for B4-bias the largest difference of its
+    output from the parent's and this checkout's two grid orders (heads or
+    tiles fastest, `_heads_fastest`) timed in turns, with their outputs
+    compared bit for bit;
   * one forward of the full-width 8B (random weights from seed 0, bf16) at
     the served text batch (3 x 159 tokens, the head over one 32-token block),
     at the t2i CFG batch (the sampler's first forward, windowed head),
@@ -33,13 +38,15 @@ inputs:
     model's attention calls sent to one version's kernels or the other's:
     CUDA events, 3 calls after 1 warm-up, and the device time of the
     kernels a forward launches (3 forwards);
-  * B5-dq and B5-dkv at the long training batch (2 x 32 heads x 8,192
-    tokens) and at 16,384 tokens (1 x 2 heads), and B5-dq-bias and
+  * B3's dq and dkv at the stage-1 training batch (15 x 32 heads x 387
+    tokens), B5-dq and B5-dkv at the long training batch (2 x 32 heads x
+    8,192 tokens) and at 16,384 tokens (1 x 2 heads), and B5-dq-bias and
     B5-dkv-bias at the long training batch with its masks (the cotangent 0
     on the rows with no allowed key): CUDA events, 10 calls after 2 warm-up,
     and the device time of a call; beside them the largest difference of
     each output from the parent's, relative to the parent's largest entry
-    (lse: absolute).
+    (lse: absolute); and this checkout's B3-dq on its persistent grid and on
+    one cluster per work item, in turns, compared bit for bit.
 
 `--only forward` runs the first two, `--only backward` the third.
 
@@ -61,26 +68,28 @@ import sys
 import chip_smoke
 
 
-def parent_kernels(parent_dir: str):
+def parent_kernels(parent_dir: str) -> dict:
     """The attention kernels of the checkout at `parent_dir`, as callables
-    with the signatures of this checkout's wrappers: (forward, B4, B5-dq,
-    B5-dkv), where the forward is `flash_attention` (B1, or B2 with a bias)
-    and B5's take an optional bias. The unbiased entries of B1, B4, B5-dq
-    and B5-dkv take the operands' tensor maps, as this checkout's do, so they
-    run through this checkout's wrappers (`_through`); the parent's biased
-    entries (B2, B5-dq-bias, B5-dkv-bias: the earlier mma.sync bodies) take
-    element strides and are called directly."""
+    with the signatures of this checkout's wrappers: "forward"
+    (`flash_attention`: B1, or B2 with a bias), "long" (B4, or B4-bias with a
+    bias), "dq" and "dkv" (B3's), "long_dq" and "long_dkv" (B5's, with an
+    optional bias). The entries of B1, B2, B4 and B5 (biased too) take the
+    operands' tensor maps, as this checkout's do, so they run through this
+    checkout's wrappers (`_through`); the parent's B3 and B4-bias (the
+    earlier mma.sync bodies) take element strides and are called
+    directly."""
     import torch
 
+    from mmada_tpu_torch.ops import flash_attention as fa
     from mmada_tpu_torch.ops import flash_attention_long as long_mod
-    from mmada_tpu_torch.ops.flash_attention import _bias_strides, flash_attention
 
     path = os.path.join(parent_dir, "mmada_tpu_torch", "ops", "_build.py")
     spec = importlib.util.spec_from_file_location("parent_build", path)
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
-    build.build_all(["flash_attention_fwd", "flash_attention_long"])
+    build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long"])
     p, i = ctypes.c_void_p, ctypes.c_int
+    by_strides = [ctypes.POINTER(ctypes.c_longlong)]
 
     def entry(source, name, n_ptr, lists):
         fn = getattr(build.load_library(source), name)
@@ -88,24 +97,31 @@ def parent_kernels(parent_dir: str):
         fn.restype = ctypes.c_int
         return fn
 
-    names = {"b1": "mmada_flash_attention_fwd_bf16", "b4": "mmada_flash_attention_long_fwd_bf16",
-             "dq": "mmada_flash_attention_long_bwd_dq_bf16",
-             "dkv": "mmada_flash_attention_long_bwd_dkv_bf16"}
-    b1 = entry("flash_attention_fwd", names["b1"], 8, [p, p])
-    b4 = entry("flash_attention_long", names["b4"], 4, [p])
-    dq = entry("flash_attention_long", names["dq"], 7, [p])
-    dkv = entry("flash_attention_long", names["dkv"], 8, [p])
-    by_strides = [ctypes.POINTER(ctypes.c_longlong)]
-    b2 = entry("flash_attention_fwd", "mmada_flash_attention_fwd_bias_bf16", 9, by_strides)
-    dq_bias = entry("flash_attention_long", "mmada_flash_attention_long_bwd_dq_bias_bf16", 8,
-                    by_strides)
-    dkv_bias = entry("flash_attention_long", "mmada_flash_attention_long_bwd_dkv_bias_bf16", 9,
-                     by_strides)
+    def through(wrapper, source, name, n_ptr, arrays=1):
+        return _through(wrapper, name, entry(source, name, n_ptr, [p] * arrays))
 
-    def strides(*ts, bias):
-        b, h, lq, lk = ts[0].shape[0], ts[0].shape[1], bias.shape[2], bias.shape[3]
+    b1 = through(fa.flash_attention, "flash_attention_fwd", "mmada_flash_attention_fwd_bf16", 8,
+                 arrays=2)
+    b2 = through(fa.flash_attention, "flash_attention_fwd",
+                 "mmada_flash_attention_fwd_bias_bf16", 9, arrays=2)
+    b4 = through(long_mod.flash_attention_long, "flash_attention_long",
+                 "mmada_flash_attention_long_fwd_bf16", 4)
+    long_dq = {bias: through(long_mod.attention_bwd_dq_long, "flash_attention_long",
+                             f"mmada_flash_attention_long_bwd_dq{bias}_bf16", 7 + bool(bias))
+               for bias in ("", "_bias")}
+    long_dkv = {bias: through(long_mod.attention_bwd_dkv_long, "flash_attention_long",
+                              f"mmada_flash_attention_long_bwd_dkv{bias}_bf16", 8 + bool(bias))
+                for bias in ("", "_bias")}
+    b3_dq = entry("flash_attention_bwd", "mmada_flash_attention_bwd_dq_bf16", 7, by_strides)
+    b3_dkv = entry("flash_attention_bwd", "mmada_flash_attention_bwd_dkv_bf16", 8, by_strides)
+    b4_bias = entry("flash_attention_long", "mmada_flash_attention_long_fwd_bias_bf16", 5,
+                    by_strides)
+
+    def strides(*ts, bias=None):
         flat = [s for t in ts for s in t.stride()[:3]]
-        flat += _bias_strides(bias, b, h, lq, lk, bias.device)
+        if bias is not None:
+            b, h, lq, lk = ts[0].shape[0], ts[0].shape[1], bias.shape[2], bias.shape[3]
+            flat += fa._bias_strides(bias, b, h, lq, lk, bias.device)
         return (ctypes.c_longlong * len(flat))(*flat)
 
     def run(fn, *args):
@@ -113,51 +129,46 @@ def parent_kernels(parent_dir: str):
         if err:
             raise RuntimeError(f"parent {fn.__name__} failed: cudaError {err}")
 
-    b1_through = _through(flash_attention, names["b1"], b1)
-
     def forward(q, k, v, rope_sin=None, rope_cos=None, bias=None):
+        call = b1 if bias is None else b2
+        return call(q, k, v, rope_sin=rope_sin, rope_cos=rope_cos, bias=bias)
+
+    def long_forward(q, k, v, bias=None):
         if bias is None:
-            return b1_through(q, k, v, rope_sin=rope_sin, rope_cos=rope_cos)
+            return b4(q, k, v)
         b, h, lq, d = q.shape
-        kvh, lk = k.shape[1], k.shape[2]
         out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-        scratch = [None, None]
-        if rope_sin is not None:
-            scratch = [torch.empty_like(q, memory_format=torch.contiguous_format),
-                       torch.empty_like(k, memory_format=torch.contiguous_format)]
-        ptrs = [None if t is None else t.data_ptr() for t in (rope_sin, rope_cos, *scratch)]
-        run(b2, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias.data_ptr(), *ptrs,
-            b, h, kvh, lq, lk, d, strides(q, k, v, out, bias=bias), 1.0 / d ** 0.5)
+        run(b4_bias, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias.data_ptr(),
+            b, h, k.shape[1], lq, k.shape[2], d, strides(q, k, v, out, bias=bias),
+            1.0 / d ** 0.5)
         return out
 
-    dq_through = _through(long_mod.attention_bwd_dq_long, names["dq"], dq)
-    dkv_through = _through(long_mod.attention_bwd_dkv_long, names["dkv"], dkv)
-
-    def attention_bwd_dq_long(q, k, v, dout, delta, bias=None):
-        if bias is None:
-            return dq_through(q, k, v, dout, delta)
+    def dq(q, k, v, dout, delta):
         b, h, lq, d = q.shape
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
         lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-        run(dq_bias, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            delta.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h,
-            k.shape[1], lq, k.shape[2], d, strides(q, k, v, dout, out, bias=bias), 1.0 / d ** 0.5)
+        run(b3_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], lq, k.shape[2], d,
+            strides(q, k, v, dout, out), 1.0 / d ** 0.5)
         return out, lse
 
-    def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None):
-        if bias is None:
-            return dkv_through(q, k, v, dout, lse, delta)
+    def dkv(q, k, v, dout, lse, delta):
         b, h, lq, d = q.shape
         dk = torch.empty_like(k, memory_format=torch.contiguous_format)
         dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-        run(dkv_bias, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, k.shape[1], lq, k.shape[2], d, strides(q, k, v, dout, dk, dv, bias=bias),
-            1.0 / d ** 0.5)
+        run(b3_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], lq, k.shape[2],
+            d, strides(q, k, v, dout, dk, dv), 1.0 / d ** 0.5)
         return dk, dv
 
-    return (forward, _through(long_mod.flash_attention_long, names["b4"], b4),
-            attention_bwd_dq_long, attention_bwd_dkv_long)
+    def b5_dq(q, k, v, dout, delta, bias=None):
+        return long_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
+
+    def b5_dkv(q, k, v, dout, lse, delta, bias=None):
+        return long_dkv["" if bias is None else "_bias"](q, k, v, dout, lse, delta, bias)
+
+    return {"forward": forward, "long": long_forward, "dq": dq, "dkv": dkv,
+            "long_dq": b5_dq, "long_dkv": b5_dkv}
 
 
 def _through(wrapper, name: str, fn):
@@ -216,6 +227,52 @@ def relative_gap(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+def time_b3(b3: dict, emit) -> None:
+    """B3's dq and dkv of both versions at the stage-1 training batch, in
+    turns, on the same inputs; then this checkout's two grids of B3-dq
+    (persistent, one cluster per work item) in turns, their outputs compared
+    bit for bit."""
+    import torch
+
+    from mmada_tpu_torch.ops import flash_attention as fa
+    from mmada_tpu_torch.ops.flash_attention import attention_delta, flash_attention
+
+    b, h, l = chip_smoke.TRAIN_ROWS, 32, chip_smoke.TRAIN_FRAME
+    q, k, v, _, _ = chip_smoke.attention_case(b, h, h, l, l, False, seed=15)
+    dout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(16),
+                       device="cuda").to(torch.bfloat16)
+    delta = attention_delta(flash_attention(q, k, v), dout)
+    outs = {name: fns[0](q, k, v, dout, delta) for name, fns in b3.items()}
+    lse = outs["parent"][1]
+    grads = {name: fns[1](q, k, v, dout, lse, delta) for name, fns in b3.items()}
+    gap = {"dq": relative_gap(outs["this"][0], outs["parent"][0]),
+           "lse_abs": float((outs["this"][1] - lse).abs().max()),
+           "dk": relative_gap(grads["this"][0], grads["parent"][0]),
+           "dv": relative_gap(grads["this"][1], grads["parent"][1])}
+    calls = (("B3-dq", lambda fns: fns[0](q, k, v, dout, delta)),
+             ("B3-dkv", lambda fns: fns[1](q, k, v, dout, lse, delta)))
+    for kernel, call in calls:
+        times = in_turns(b3, lambda fns: chip_smoke.cuda_ms(lambda: call(fns), 10))
+        device = in_turns(b3, lambda fns: device_ms(lambda: call(fns)))
+        emit(dict(tag=f"{kernel} stage-1", shape=[b, h, h, l, l], ms=times, device_ms=device,
+                  gap_to_parent=gap))
+
+    # this checkout's two grids of B3-dq: persistent (its wrapper's), and one
+    # cluster per work item
+    def dq_on(grid):
+        return lambda: fa._launch_bwd_dq(q, k, v, dout, delta, None, grid)
+
+    grids = {"persistent": dq_on(-1), "one cluster an item": dq_on(0)}
+    same = all(bool(torch.equal(a, b_)) for a, b_ in zip(grids["persistent"](),
+                                                        grids["one cluster an item"]()))
+    times = in_turns(grids, lambda fn: chip_smoke.cuda_ms(fn, 10))
+    device = in_turns(grids, lambda fn: device_ms(fn))
+    emit(dict(tag="B3-dq grid (this)", shape=[b, h, h, l, l], ms=times, device_ms=device,
+              bit_for_bit=same))
+    del q, k, v, dout, delta, outs, grads, lse
+    torch.cuda.empty_cache()
+
+
 def time_b5(b5: dict, emit) -> None:
     """B5-dq and B5-dkv of both versions at the long training batch and at
     16,384 tokens, and B5-dq-bias and B5-dkv-bias at the long training batch
@@ -255,6 +312,45 @@ def time_b5(b5: dict, emit) -> None:
         torch.cuda.empty_cache()
 
 
+def time_b4_bias(b4: dict, emit) -> None:
+    """B4-bias of both versions at the long training batch with its masks,
+    in turns; then this checkout's two grid orders (heads fastest, as
+    `_heads_fastest` takes for this broadcast bias, and tiles fastest) in
+    turns, their outputs compared bit for bit."""
+    import torch
+
+    from mmada_tpu_torch.ops import flash_attention_long as long_mod
+
+    b, h, l = chip_smoke.LONG_TRAIN_ROWS, 32, chip_smoke.LONG_FRAME
+    q, k, v, _, _ = chip_smoke.attention_case(b, h, h, l, l, False, seed=17)
+    bias = chip_smoke.train_mask_bias(chip_smoke.LONG)
+    outs = {name: fn(q, k, v, bias) for name, fn in b4.items()}
+    times = in_turns(b4, lambda fn: chip_smoke.cuda_ms(lambda: fn(q, k, v, bias), 10))
+    device = in_turns(b4, lambda fn: device_ms(lambda: fn(q, k, v, bias)))
+    emit(dict(tag="B4-bias long train + mask", shape=[b, h, h, l, l], ms=times,
+              device_ms=device, gap_to_parent=relative_gap(outs["this"], outs["parent"])))
+
+    chosen = long_mod._heads_fastest
+
+    def in_order(heads_fastest):
+        def call():
+            long_mod._heads_fastest = lambda _: heads_fastest
+            try:
+                return long_mod.flash_attention_long(q, k, v, bias)
+            finally:
+                long_mod._heads_fastest = chosen
+        return call
+
+    orders = {"heads fastest": in_order(1), "tiles fastest": in_order(0)}
+    same = bool(torch.equal(orders["heads fastest"](), orders["tiles fastest"]()))
+    times = in_turns(orders, lambda fn: chip_smoke.cuda_ms(fn, 10))
+    device = in_turns(orders, lambda fn: device_ms(fn))
+    emit(dict(tag="B4-bias grid order (this)", shape=[b, h, h, l, l], ms=times,
+              device_ms=device, bit_for_bit=same, chosen=chosen(bias)))
+    del q, k, v, bias, outs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -268,7 +364,11 @@ def main() -> int:
         return 2
 
     from mmada_tpu_torch.ops import _build
-    from mmada_tpu_torch.ops.flash_attention import flash_attention
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        flash_attention,
+    )
     from mmada_tpu_torch.ops.flash_attention_long import (
         attention_bwd_dkv_long,
         attention_bwd_dq_long,
@@ -285,15 +385,18 @@ def main() -> int:
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
-    _build.build_all(["flash_attention_fwd", "flash_attention_long"])
-    parent_fwd, parent_b4, parent_dq, parent_dkv = parent_kernels(args.parent_dir)
-    b1 = {"parent": parent_fwd, "this": flash_attention}
-    b4 = {"parent": parent_b4, "this": flash_attention_long}
-    b5 = {"parent": (parent_dq, parent_dkv), "this": (attention_bwd_dq_long,
-                                                     attention_bwd_dkv_long)}
+    _build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long"])
+    parent = parent_kernels(args.parent_dir)
+    b1 = {"parent": parent["forward"], "this": flash_attention}
+    b4 = {"parent": parent["long"], "this": flash_attention_long}
+    b3 = {"parent": (parent["dq"], parent["dkv"]), "this": (attention_bwd_dq, attention_bwd_dkv)}
+    b5 = {"parent": (parent["long_dq"], parent["long_dkv"]),
+          "this": (attention_bwd_dq_long, attention_bwd_dkv_long)}
     if args.only != "forward":
+        time_b3(b3, emit)
         time_b5(b5, emit)
     if args.only != "backward":
+        time_b4_bias(b4, emit)
         time_forwards(b1, b4, emit)
     print(smi, flush=True)
     summary = {r["tag"]: {name: t["mean"] for name, t in r["ms"].items()} for r in records}

@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
-checks that the wgmma kernels B1, B2, B4, B5-dq and B5-dkv (the last two
-unbiased and biased) hold `wgmma` (HGMMA) and TMA load (UTMALDG)
-instructions in their SASS and that ptxas spilled nothing of theirs, holds
-each kernel against its plain PyTorch version (B1 and B2 also by the share
-of their outputs that differ, B2 with a zero bias against B1 bit for bit)
-at the shapes the serving and training paths give it: the one-pass tier (B1, B2
-with a bias, dq and dkv without and with a bias) and the long tier past
+checks that the wgmma kernels B1, B2, B3 (dq and dkv), B4, B4-bias, B5-dq
+and B5-dkv (the last two unbiased and biased) hold `wgmma` (HGMMA) and TMA
+load (UTMALDG) instructions in their SASS and that ptxas spilled nothing of
+theirs, holds each kernel against its plain PyTorch version (B1 and B2
+also by the share of their outputs that differ, B2 with a zero bias against
+B1 bit for bit) at the shapes the serving and training paths give it: the
+one-pass tier (B1, B2 with a bias, dq and dkv without and with a bias) and
+the long tier past
 4096 tokens (B4, B5-dq and B5-dkv, without and with a bias, at 8,192 tokens,
 at 16,384, under GQA and rectangular), the one-pass tier on an unaligned
 length past 4096, and the int4 matmul (B6) at the shapes of the int4
@@ -420,59 +421,70 @@ def check_zero_bias(h: int) -> None:
 # B5-dkv-bias at D 128, whose consumers hold dk, dv, s^T and dp^T (192 of
 # their 232 registers) beside the bias tile's addresses; one register (4
 # bytes) spills there, whichever order the bias is read in (PR 11's builds)
-SPILL_ALLOWED = {"attn_long_bwd_dkv_wgmma_kernelILi128ELb1": 4}
+SPILL_ALLOWED = {"attn_bwd_dkv_wgmma_kernelILi128ELb1ELb0E": 4}
+
+# the wgmma kernels by library, as the start of their mangled names: B1, B2;
+# B3's dq and dkv (the backward bodies with ONE_PASS); B4, B4-bias, B5-dq and
+# B5-dkv unbiased and biased; each at D 64 and 128
+WGMMA_KERNELS = {
+    "flash_attention_fwd": [f"{k}ILi{d}E" for d in (64, 128)
+                            for k in ("attn_fwd_wgmma_kernel", "attn_fwd_bias_wgmma_kernel")],
+    "flash_attention_bwd": [f"{k}ILi{d}ELb0ELb1E" for d in (64, 128)
+                            for k in ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel")],
+    "flash_attention_long": (
+        [f"{k}ILi{d}E" for d in (64, 128)
+         for k in ("attn_long_fwd_wgmma_kernel", "attn_long_fwd_bias_wgmma_kernel")]
+        + [f"{k}ILi{d}ELb{bias}ELb0E" for d in (64, 128) for bias in (0, 1)
+           for k in ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel")]),
+}
 
 
 def check_sass() -> dict:
-    """Per wgmma kernel of the built one-pass and long-tier libraries (B1,
-    B2, B4, B5-dq, B5-dkv, B5-dq-bias, B5-dkv-bias at D 64 and 128), the
-    count of HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store)
-    instructions in its SASS (`cuobjdump -sass`) and, after a cold build, its
-    ptxas lines; fails if HGMMA or UTMALDG is missing, if ptxas spilled
-    registers of one of them (beyond SPILL_ALLOWED), or if it serialised the
-    wgmma of any kernel (C7510-C7520 in a build log)."""
+    """Per wgmma kernel of the built one-pass, one-pass backward and
+    long-tier libraries (WGMMA_KERNELS: B1, B2, B3-dq, B3-dkv, B4, B4-bias,
+    B5-dq, B5-dkv, B5-dq-bias, B5-dkv-bias at D 64 and 128), the count of
+    HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
+    its SASS (`cuobjdump -sass`) and, after a cold build, its ptxas lines;
+    fails if HGMMA or UTMALDG is missing, if ptxas spilled registers of one
+    of them (beyond SPILL_ALLOWED), or if it serialised the wgmma of any
+    kernel (C7510-C7520 in a build log)."""
     import os
 
     from mmada_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    counts = {}
-    for name in ("flash_attention_fwd", "flash_attention_long"):
+    counts = {}  # library -> kernel -> counts
+    for name in WGMMA_KERNELS:
         sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], check=True,
                               capture_output=True, text=True, timeout=300).stdout
+        lib = counts[name] = {}
         func = None
         for line in sass.splitlines():
             if "Function :" in line:
                 func = line.split("Function :")[1].strip()
                 func = func if "wgmma_kernel" in func else None
                 if func:
-                    counts[func] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+                    lib[func] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
             elif func:
-                for op in counts[func]:
-                    counts[func][op] += op in line
-    for name, text in _build.build_logs.items():  # ptxas -v of a cold build
+                for op in lib[func]:
+                    lib[func][op] += op in line
         func = None
-        for line in text.splitlines():
+        for line in _build.build_logs.get(name, "").splitlines():  # ptxas -v of a cold build
             if "Compiling entry function" in line:
                 func = line.split("'")[1]
-            elif func in counts and ("registers" in line or "spill" in line):
-                counts[func]["ptxas"] = counts[func].get("ptxas", "") + line.strip() + "; "
-    for func, c in counts.items():
-        log("sass", f"{func}: {c}")
-    wanted = [f"{kernel}ILi{d}E{flag}" for d in (64, 128)
-              for kernel, flags in (("attn_fwd_wgmma_kernel", ("",)),
-                                    ("attn_fwd_bias_wgmma_kernel", ("",)),
-                                    ("attn_long_fwd_wgmma_kernel", ("",)),
-                                    ("attn_long_bwd_dq_wgmma_kernel", ("Lb0", "Lb1")),
-                                    ("attn_long_bwd_dkv_wgmma_kernel", ("Lb0", "Lb1")))
-              for flag in flags]
-    for want in wanted:
-        found = [c for f, c in counts.items() if want in f]
-        if not found or not (found[0]["HGMMA"] and found[0]["UTMALDG"]):
-            raise AssertionError(f"{want}: no HGMMA or no UTMALDG in its SASS ({found})")
-        spilled = re.search(r"(\d+) bytes spill stores", found[0].get("ptxas", ""))
-        if spilled and int(spilled.group(1)) > SPILL_ALLOWED.get(want, 0):
-            raise AssertionError(f"{want}: ptxas spilled registers ({found[0]['ptxas']})")
+            elif func in lib and ("registers" in line or "spill" in line):
+                lib[func]["ptxas"] = lib[func].get("ptxas", "") + line.strip() + "; "
+        for func, c in lib.items():
+            log("sass", f"{name}: {func}: {c}")
+    for name, wanted in WGMMA_KERNELS.items():
+        for want in wanted:
+            found = [c for f, c in counts[name].items() if want in f]
+            if len(found) != 1 or not (found[0]["HGMMA"] and found[0]["UTMALDG"]):
+                raise AssertionError(f"{name}: {want}: no HGMMA or no UTMALDG in its SASS "
+                                     f"({found})")
+            spilled = re.search(r"(\d+) bytes spill stores", found[0].get("ptxas", ""))
+            if spilled and int(spilled.group(1)) > SPILL_ALLOWED.get(want, 0):
+                raise AssertionError(f"{want}: ptxas spilled registers ({found[0]['ptxas']})")
     serialised = [line for text in _build.build_logs.values() for line in text.splitlines()
                   if any(f"C75{n}" in line for n in range(10, 21))]
     if serialised:
@@ -1318,9 +1330,11 @@ def main() -> int:
                                          attention_bwd_dkv_long))
                 for attr in ("launches", "bias_launches") for fn in tier]
     counters.append((int4_matmul, "launches"))
-    # the wrappers that copy a bias no tensor map describes (B2, B5-dq-bias,
-    # B5-dkv-bias): the model builds its bias so that none is copied
-    copiers = (flash_attention, attention_bwd_dq_long, attention_bwd_dkv_long)
+    # the wrappers that copy a bias no tensor map describes (B2, B4-bias,
+    # B5-dq-bias, B5-dkv-bias): the model builds its bias so that none is
+    # copied
+    copiers = (flash_attention, flash_attention_long, attention_bwd_dq_long,
+               attention_bwd_dkv_long)
 
     def reset_counts():
         for fn, attr in counters:
@@ -1580,7 +1594,8 @@ def main() -> int:
                       design=WGMMA_DESIGN),
         kernel_record("flash_attention_long_fwd_bias", "flash_attention_long.cu", "497,418",
                       masked_long[3][0], long_fwd_bias,
-                      next(r for r in long_fwd_bias if r["tag"].startswith("masked long"))),
+                      next(r for r in long_fwd_bias if r["tag"].startswith("masked long")),
+                      design=WGMMA_DESIGN),
     ]
 
     def bwd_record(name, source, line, key, count, recs, design):
@@ -1590,22 +1605,22 @@ def main() -> int:
                              design=design)
 
     for name, source, key, line, count, recs, design in (
-            ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq", "895",
-             train_launches[1], plain_bwd, MMA_DESIGN),
-            ("flash_attention_bwd_dkv", "flash_attention_dkv.cuh", "dkv", "963",
-             train_launches[2], plain_bwd, MMA_DESIGN),
+            ("flash_attention_bwd_dq", "flash_attention_bwd_wgmma.cuh", "dq", "895",
+             train_launches[1], plain_bwd, WGMMA_DESIGN),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd_wgmma.cuh", "dkv", "963",
+             train_launches[2], plain_bwd, WGMMA_DESIGN),
             ("flash_attention_bwd_dq_bias", "flash_attention_bwd.cu", "dq", "746",
              masked_train[1], biased_bwd, MMA_DESIGN),
             ("flash_attention_bwd_dkv_bias", "flash_attention_dkv.cuh", "dkv", "799",
              masked_train[2], biased_bwd, MMA_DESIGN),
-            ("flash_attention_long_bwd_dq", "flash_attention_long.cu", "dq", "1185",
+            ("flash_attention_long_bwd_dq", "flash_attention_bwd_wgmma.cuh", "dq", "1185",
              long_train[2][1], long_bwd, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dq_bias", "flash_attention_long.cu", "dq", "1185",
+            ("flash_attention_long_bwd_dq_bias", "flash_attention_bwd_wgmma.cuh", "dq", "1185",
              masked_long[3][1], long_bwd_bias, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dkv", "flash_attention_long.cu", "dkv", "1240",
+            ("flash_attention_long_bwd_dkv", "flash_attention_bwd_wgmma.cuh", "dkv", "1240",
              long_train[2][2], long_bwd, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dkv_bias", "flash_attention_long.cu", "dkv", "1240",
-             masked_long[3][2], long_bwd_bias, WGMMA_DESIGN)):
+            ("flash_attention_long_bwd_dkv_bias", "flash_attention_bwd_wgmma.cuh", "dkv",
+             "1240", masked_long[3][2], long_bwd_bias, WGMMA_DESIGN)):
         kernels.append(bwd_record(name, source, line, key, count, recs, design))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1838,9 +1853,9 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
         f"{sum(attn_ms.values()) / step_ms:.1%})")
 
 
-# how each kernel of the JSON line is built: the wgmma kernels (B1, B2, B4,
-# B5-dq, B5-dkv, unbiased and biased) and those that keep the earlier
-# warp-level design (B3, B3-bias, B4-bias)
+# how each kernel of the JSON line is built: the wgmma kernels (B1, B2, B3,
+# B4, B4-bias, B5-dq, B5-dkv, unbiased and biased) and those that keep the
+# earlier warp-level design (B3-bias)
 WGMMA_DESIGN = "wgmma + TMA, producer and two consumer warpgroups"
 MMA_DESIGN = "mma.sync + cp.async, four warps"
 

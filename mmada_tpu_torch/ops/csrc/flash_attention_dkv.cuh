@@ -1,13 +1,13 @@
-// The dk/dv kernel of the one-pass bidirectional attention backward (B3)
-// and what the backward kernels share, for Hopper (sm_90a): included by
-// flash_attention_bwd.cu (B3) and flash_attention_long.cu (which takes the
-// shared helpers for B4-bias).
+// The dk/dv kernel of the biased one-pass attention backward (B3-bias), for
+// Hopper (sm_90a), and what B3-bias's two kernels share: included by
+// flash_attention_bwd.cu. (The unbiased B3 runs on wgmma, in
+// flash_attention_bwd_wgmma.cuh; B3-bias keeps this mma.sync design until
+// its own redesign.)
 //
-// attn_bwd_dkv_kernel replaces `_attn_bwd_dkv_kernel` (:753) and
-// `_attn_bwd_dkv_bias_kernel` (:799) of mmada_tpu/ops/flash_attention.py,
-// called at :963. Both compute, with q and k rotated, s = (q . k^T) * scale
-// in fp32 (+ the fp32 bias (B|1, H|1, Lq, Lk), added as round(round(s *
-// scale) + bias)) and lse / delta from the dq pass:
+// attn_bwd_dkv_bias_kernel replaces `_attn_bwd_dkv_bias_kernel` (:799) of
+// mmada_tpu/ops/flash_attention.py, called at :963. With q and k rotated,
+// s = (q . k^T) * scale in fp32 + the fp32 bias (B|1, H|1, Lq, Lk), added as
+// round(round(s * scale) + bias), and lse / delta from the dq pass:
 //
 //   p = exp(s - lse); dv = p^T . dO; dp = dO . v^T; ds = p (dp - delta);
 //   dk = (ds^T . q) * scale; summed over the query heads of the kv head
@@ -28,8 +28,7 @@
 // Rounding. k.q^T and v.dO^T multiply bf16 inputs exactly and sum in fp32,
 // as the TPU kernels' fp32 dots do. p^T and ds^T are fp32 and enter the
 // tensor cores for p^T.dO and ds^T.q rounded to bf16, a relative error of
-// at most 2^-9 per term, the usual choice of flash-attention backward
-// kernels. (The long tier's B5-dkv enters them as hi + lo halves instead.)
+// at most 2^-9 per term, as the unbiased B3 does.
 //
 // Bound (on an H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s): 8*B*H*Lq*Lk*D
 // flops against q + k + v + dO + dk + dv (+ lse, delta, bias) bytes; bound
@@ -38,18 +37,14 @@
 
 #pragma once
 
-#include <float.h>
-#include <math.h>
-
-#include "mma_sm90.cuh"
+#include "hopper_sm90.cuh"  // NEG_F32, bad_shape; mma_sm90.cuh
 
 namespace {
 
 constexpr int BLOCK = 64;   // query rows per dq block, key rows per dkv block
 constexpr int DKV_QT = 32;  // query rows per step of the dkv loop
 constexpr int NUM_THREADS = 128;
-constexpr float NEG_F32 = -FLT_MAX;  // finite min: the running max's start
-constexpr float EDGE = -INFINITY;    // key columns past Lk: p = exp(-inf) = 0
+constexpr float EDGE = -INFINITY;  // key columns past Lk: p = exp(-inf) = 0
 
 // Element strides (batch, head, row) of the operands, in call order.
 struct Strides {
@@ -57,18 +52,16 @@ struct Strides {
 };
 
 // round(s * scale) + bias, with no fused multiply-add (as the forward)
-template <bool BIAS>
 __device__ __forceinline__ float scaled(float s, float scale, float b) {
-  return BIAS ? __fadd_rn(__fmul_rn(s, scale), b) : s * scale;
+  return __fadd_rn(__fmul_rn(s, scale), b);
 }
 
 // The bias values of NB score fragments whose rows are brow[0] (row g) and
 // brow[1] (row g + 8), keys from k0 (0 past Lk); loaded before the products
 // they are added to, so the loads overlap them.
-template <bool BIAS, int NB>
+template <int NB>
 __device__ __forceinline__ void load_bias_rows(float bv[NB][4], const float* const brow[2],
                                                int k0, int Lk, int t) {
-  if (!BIAS) return;
 #pragma unroll
   for (int n = 0; n < NB; ++n)
 #pragma unroll
@@ -78,9 +71,9 @@ __device__ __forceinline__ void load_bias_rows(float bv[NB][4], const float* con
     }
 }
 
-template <int D, bool BIAS>
+template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
-attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+attn_bwd_dkv_bias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const float* __restrict__ bias, bf16* __restrict__ dk,
@@ -148,16 +141,14 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // before the wait so they overlap it and the products
     const int row0 = (step % n_qt) * DKV_QT;
     float bv[NB][4];
-    if (BIAS) {
-      const float* bstep = bias + b * st.s[18] + (kvh * group + step / n_qt) * st.s[19];
+    const float* bstep = bias + b * st.s[18] + (kvh * group + step / n_qt) * st.s[19];
 #pragma unroll
-      for (int n = 0; n < NB; ++n)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qrow = min(row0 + n * 8 + t * 2 + (j & 1), Lq - 1);
-          bv[n][j] = __ldg(bstep + qrow * st.s[20] + key[j >> 1]);
-        }
-    }
+      for (int j = 0; j < 4; ++j) {
+        const int qrow = min(row0 + n * 8 + t * 2 + (j & 1), Lq - 1);
+        bv[n][j] = __ldg(bstep + qrow * st.s[20] + key[j >> 1]);
+      }
     if (step + 1 < n_steps) {
       issue(step + 1, (step + 1) & 1);
       cp_async_commit();
@@ -179,7 +170,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = n * 8 + t * 2 + (j & 1);  // query within the tile
-        const float sc = scaled<BIAS>(s[n][j], scale, bv[n][j]);
+        const float sc = scaled(s[n][j], scale, bv[n][j]);
         s[n][j] = row0 + c < Lq ? expf(sc - lt[c]) : 0.f;  // :769
       }
     mma_pb<D, NB>(acc_dv, s, dot, lane);  // dv += p^T . dO
@@ -223,48 +214,27 @@ Strides copy_strides(const long long* strides, int n) {
   return st;
 }
 
-template <int D, bool BIAS>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       const void* bias, void* dk, void* dv, int B, int H,
-                       int KVH, int Lq, int Lk, const long long* strides,
-                       float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dkv_bias(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta,
+                            const void* bias, void* dk, void* dv, int B, int H,
+                            int KVH, int Lq, int Lk, const long long* strides,
+                            float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(2 * BLOCK + 4 * DKV_QT) * (D + 8) * sizeof(bf16) +
                       (size_t)4 * DKV_QT * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bwd_dkv_bias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lk + BLOCK - 1) / BLOCK, KVH, B);
-  attn_bwd_dkv_kernel<D, BIAS><<<grid, NUM_THREADS, smem, stream>>>(
+  attn_bwd_dkv_bias_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(bias), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), H / KVH, H, Lq, Lk,
-      copy_strides(strides, BIAS ? 21 : 18), scale);
+      copy_strides(strides, 21), scale);
   return cudaGetLastError();
-}
-
-bool bad_shape(int B, int H, int KVH, int Lq, int Lk) {
-  return B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1;
-}
-
-template <bool BIAS>
-int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, const void* bias, void* dk,
-                 void* dv, int B, int H, int KVH, int Lq, int Lk, int D,
-                 const long long* strides, float scale, void* stream) {
-  if (bad_shape(B, H, KVH, Lq, Lk) || (BIAS && bias == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch_dkv<128, BIAS>(q, k, v, dout, lse, delta, bias, dk, dv,
-                                             B, H, KVH, Lq, Lk, strides, scale, s);
-  if (D == 64)
-    return (int)launch_dkv<64, BIAS>(q, k, v, dout, lse, delta, bias, dk, dv, B,
-                                            H, KVH, Lq, Lk, strides, scale, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

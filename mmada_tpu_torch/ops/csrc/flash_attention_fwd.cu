@@ -75,17 +75,12 @@
 // tables, + the bias). At the serving shapes (L ~ 1.2k, D = 128) the flops
 // dominate: the kernels are compute-bound.
 
-#include <float.h>
-#include <math.h>
-
 #include "hopper_sm90.cuh"
 
 namespace {
 
 constexpr int ROPE_THREADS = 256;
-constexpr int STAGES = 3;            // B1's and B2's K/V rings
-constexpr float NEG_F32 = -FLT_MAX;  // finite min: the running max's start
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STAGES = 3;  // B1's and B2's K/V rings
 
 // RoPE of every row of x (B, H, L, D; element strides sb, sh, sl) into the
 // contiguous out (B, H, L, D): out = x * cos + rotate_half(x) * sin in fp32,

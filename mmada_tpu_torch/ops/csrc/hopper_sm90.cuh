@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the port's wgmma attention kernels (B1
-// and B2 in flash_attention_fwd.cu; B4, B5-dq and B5-dkv, unbiased and
-// biased, in flash_attention_long.cu): TMA tile loads and stores through
-// tensor maps, 1-D bulk copies, mbarrier waits, warpgroup register
-// rebalancing, the wgmma shared-memory matrix descriptor, the m64nNk16 bf16
-// wgmma products (fp32 accumulate) these kernels take, and the reads of an
-// fp32 bias tile.
+// and B2 in flash_attention_fwd.cu; B3 in flash_attention_bwd.cu; B4,
+// B4-bias, B5-dq and B5-dkv, unbiased and biased, in
+// flash_attention_long.cu; the backward bodies of B3 and B5 in
+// flash_attention_bwd_wgmma.cuh): TMA tile loads and stores through tensor
+// maps, mbarrier waits, warpgroup register rebalancing, the wgmma
+// shared-memory matrix descriptor, the m64nNk16 bf16 wgmma products (fp32
+// accumulate) these kernels take, 1-D bulk copies, and the reads of an fp32
+// bias tile.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a box is `rows` rows of 64 bf16 (128 bytes), 1024-byte aligned, the 16-byte
@@ -36,11 +38,16 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry is looked up, not linked
+#include <float.h>
 #include <math.h>
 
 #include "mma_sm90.cuh"
 
 namespace {
+
+constexpr float NEG_F32 = -FLT_MAX;  // finite min: a running max's start
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- device
 
@@ -342,7 +349,8 @@ __device__ __forceinline__ void acc_to_swizzled(unsigned char* tile, int box_str
 
 // ------------------------------------------------- the attention skeleton
 //
-// B1 and B4 share it. One block per (128-row query tile, head, batch) with
+// B1 and B4 take it as it is; B2, B3, B4-bias and B5 take it with tiles of
+// 64 rows (STEP_N) streamed past the resident 128-row ones. One block per (128-row query tile, head, batch) with
 // three warpgroups: warpgroup 0 is the producer (one thread issues every
 // TMA load, after lowering the warpgroup's registers to 40), warpgroups 1
 // and 2 consume 64 query rows each (raised to 232 registers). The Q tile is
@@ -527,6 +535,18 @@ __device__ __forceinline__ int2 tile_and_head(bool heads_fastest, int H) {
   return make_int2((pair / H) * ATT_PAIR + blockIdx.x % ATT_PAIR, pair % H);
 }
 
+// The (tile, head, batch) of work item `item` of a kernel whose clusters
+// walk items (B3's dq on its persistent grid): item = (batch, then pair of
+// 128-row tiles and head), a pair of tiles a cluster (this block the tile of
+// its rank), in tile_and_head's orders: the tiles fastest, or with
+// `heads_fastest` the H heads of one pair one after another.
+__device__ __forceinline__ int3 work_item(int item, int pairs, int H, bool heads_fastest) {
+  const int per_batch = pairs * H, r = item % per_batch;
+  const int pair = heads_fastest ? r / H : r % pairs;
+  return make_int3(pair * ATT_PAIR + (int)cluster_rank(), heads_fastest ? r % H : r / pairs,
+                   item / per_batch);
+}
+
 // This warp's part in releasing a ring slot: every consumer warp of the
 // pair arrives on the slot's empty barrier in both blocks.
 __device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
@@ -703,6 +723,17 @@ inline cudaError_t encode_tensor_map(
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Encode `n` tensor maps from the descriptions at `maps` (MAP_SPEC values
+// each) of the bf16 operands at `bases`.
+inline cudaError_t encode_maps(CUtensorMap* tm, const void* const* bases, const long long* maps,
+                               int n) {
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t err = encode_tensor_map(&tm[i], bases[i], maps + i * MAP_SPEC);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Whether `spec` describes a (batches, heads, rows, d) operand with boxes
 // of `box_rows` rows, as a kernel's tiles expect.
 inline bool spec_is(const long long* spec, int d, int rows, int heads, int batches,
@@ -723,13 +754,18 @@ inline bool bias_spec_is(const long long* spec, int cols, int rows, int heads, i
 
 // Values per fp32 row-statistics operand (lse, delta: contiguous (B, H, L))
 // in a wrapper's description (ops/tensor_maps.py, `describe_rows`): rows,
-// heads, batches, and the bytes of one span a kernel copies with bulk_load.
+// heads, batches, and the bytes of one span a kernel reads at a time.
 constexpr int ROWS_SPEC = 4;
 
 inline bool rows_spec_is(const long long* spec, int rows, int heads, int batches,
                          int span_rows) {
   return spec[0] == rows && spec[1] == heads && spec[2] == batches &&
          spec[3] == 4LL * span_rows;
+}
+
+// Shapes every attention entry refuses.
+inline bool bad_shape(int B, int H, int KVH, int Lq, int Lk) {
+  return B < 1 || H < 1 || KVH < 1 || H % KVH || Lq < 1 || Lk < 1;
 }
 
 }  // namespace

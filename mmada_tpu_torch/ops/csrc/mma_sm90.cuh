@@ -1,8 +1,8 @@
-// Warp-level building blocks shared by the port's attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_long.cu):
-// bf16 packing, the mma.sync m16n8k16 product, ldmatrix fragment loads,
-// cp.async copies, and the two warp-tile products every attention kernel
-// here is made of.
+// Warp-level building blocks of the port's kernels: bf16 packing (every
+// attention kernel), and for the mma.sync kernels (B3-bias in
+// flash_attention_bwd.cu and flash_attention_dkv.cuh; B6 in int4_matmul.cu)
+// the mma.sync m16n8k16 product, ldmatrix fragment loads, cp.async copies,
+// and the two warp-tile products B3-bias is made of.
 //
 // Fragment layout of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 //   accumulator c[0..1] -> row g, columns 2t, 2t+1; c[2..3] -> row g+8.
@@ -135,11 +135,8 @@ __device__ __forceinline__ void mma_abt(float s[NB][4], const bf16* a,
 // acc (16 x D, fp32) += bf16(P) . B, where P (16 x NB*8) is in accumulator
 // layout in registers (rounded to bf16 here) and B is NB*8 rows x D,
 // row-major in shared memory (read transposed by ldmatrix): the
-// probability-shaped product (p.v, ds.k, p^T.dO, ds^T.q). With SPLIT, P
-// enters as hi + lo (pack_bf16_rest), two products per B fragment: B is
-// bf16, so each product is exact in the fp32 accumulator and P keeps about
-// 16 significant bits instead of 8.
-template <int D, int NB, bool SPLIT = false>
+// probability-shaped product (ds.k, p^T.dO, ds^T.q).
+template <int D, int NB>
 __device__ __forceinline__ void mma_pb(float acc[D / 8][4], const float p[NB][4],
                                        const bf16* b, int lane) {
   constexpr int STRIDE = D + 8;
@@ -152,13 +149,6 @@ __device__ __forceinline__ void mma_pb(float acc[D / 8][4], const float p[NB][4]
     const float* p1 = p[2 * kb + 1];
     const uint32_t pa[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
                             pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
-    uint32_t pl[4];
-    if (SPLIT) {
-      pl[0] = pack_bf16_rest(p0[0], p0[1], pa[0]);
-      pl[1] = pack_bf16_rest(p0[2], p0[3], pa[1]);
-      pl[2] = pack_bf16_rest(p1[0], p1[1], pa[2]);
-      pl[3] = pack_bf16_rest(p1[2], p1[3], pa[3]);
-    }
     // ldmatrix.trans rows: kb*16 + lane % 16, columns (lane / 16) * 8
     const bf16* brow = b + (kb * 16 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
 #pragma unroll
@@ -167,10 +157,6 @@ __device__ __forceinline__ void mma_pb(float acc[D / 8][4], const float p[NB][4]
       ldmatrix_x4<true>(bf, brow + dn * 8);
       mma_bf16(acc[dn], pa, bf[0], bf[1]);
       mma_bf16(acc[dn + 1], pa, bf[2], bf[3]);
-      if (SPLIT) {
-        mma_bf16(acc[dn], pl, bf[0], bf[1]);
-        mma_bf16(acc[dn + 1], pl, bf[2], bf[3]);
-      }
     }
   }
 }

@@ -30,14 +30,18 @@ both on those rows only; no caller reads them.
 The backward (`flash_attention_bwd`, counterpart of the JAX function of the
 same name, :808-1005) takes q and k already rotated, the saved output and its
 cotangent, and runs two kernels of the library built from
-`csrc/flash_attention_bwd.cu` (the dkv kernel's body is in
-`csrc/flash_attention_dkv.cuh`, shared with the long tier's B5-dkv):
-`attention_bwd_dq` (dq and the row logsumexp; `_attn_bwd_dq_kernel` /
-`_attn_bwd_dq_bias_kernel`) and `attention_bwd_dkv` (dk and dv summed over
-the query heads of each kv head; `_attn_bwd_dkv_kernel` /
-`_attn_bwd_dkv_bias_kernel`). delta = rowsum(dO * O) is computed here in
-fp32, as the JAX wrapper does. Each has a plain version, `*_reference`, that
-the CPU takes and the card's checks hold the kernel against.
+`csrc/flash_attention_bwd.cu`: `attention_bwd_dq` (dq and the row
+logsumexp; `_attn_bwd_dq_kernel` / `_attn_bwd_dq_bias_kernel`) and
+`attention_bwd_dkv` (dk and dv summed over the query heads of each kv head;
+`_attn_bwd_dkv_kernel` / `_attn_bwd_dkv_bias_kernel`). Unbiased (B3) they
+run on `wgmma` (the bodies of the long tier's B5, in
+`csrc/flash_attention_bwd_wgmma.cuh`) and read their operands through
+tensor maps (an operand a map cannot describe is copied first), lse and
+delta in spans of 64 rows (`tensor_maps.describe_rows`). Biased (B3-bias)
+they keep `mma.sync` bodies that take 16-byte aligned rows. delta =
+rowsum(dO * O) is computed here in fp32, as the JAX wrapper does. Each has a
+plain version, `*_reference`, that the CPU takes and the card's checks hold
+the kernel against.
 
 Each wrapper counts its launches: `<wrapper>.launches` for the unbiased
 kernel, `<wrapper>.bias_launches` for the biased one. A launch runs under
@@ -58,6 +62,8 @@ from mmada_tpu_torch.ops.tensor_maps import (
     bias_operand,
     describe,
     describe_bias,
+    describe_rows,
+    rows_operand,
     spec_array,
     tma_operand,
 )
@@ -141,10 +147,10 @@ def _entry(source: str, name: str, n_ptr: int, arrays: int = 0):
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                    aligned: bool = True) -> None:
-    """Device, dtype and rank; with `aligned` (the cp.async kernels) also a
-    contiguous last dim and 16-byte aligned rows. The TMA kernels (B1, B2,
-    B4, B5) take any layout: `tensor_maps.tma_operand` copies what a map
-    cannot describe."""
+    """Device, dtype and rank; with `aligned` (B3-bias's cp.async kernels)
+    also a contiguous last dim and 16-byte aligned rows. The TMA kernels (B1,
+    B2, B3, B4, B5) take any layout: `tensor_maps.tma_operand` copies what a
+    map cannot describe."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
@@ -175,7 +181,7 @@ def _check_bias(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
 def _bias_strides(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
                   device: torch.device) -> list[int]:
     """Element strides (batch, head, row) of the fp32 bias the cp.async
-    kernels (B3-bias, B4-bias) read, 0 on a broadcast axis."""
+    kernels (B3-bias) read, 0 on a broadcast axis."""
     _check_bias(bias, b, h, lq, lk, device)
     if lk > 1 and bias.stride(-1) != 1:
         raise ValueError("bias must have a contiguous last dim")
@@ -385,50 +391,139 @@ def _check_bwd_shapes(q, k, v, dout, stats,
     return b, h, kvh, lq, lk, d
 
 
-def _launch_bwd_dq(q, k, v, dout, delta, bias):
-    """Check the operands, allocate (dq, lse) and launch B3's dq kernel
-    (B3-bias's with a bias)."""
+def _heads_fastest(bias: torch.Tensor) -> int:
+    """The grid order of the biased wgmma kernels that stream a bias tile a
+    step (B4-bias, B5-dq-bias, B5-dkv-bias; 1: heads fastest). A bias
+    broadcast over the heads runs a tile's heads side by side, so its rows
+    come from HBM about once; a per-head bias runs a head's tiles side by
+    side, as the unbiased kernels do."""
+    return int(describe_bias(bias, STEP_ROWS).dims[2] == 1)
+
+
+def _dq_maps(q, k, v, dout, dq) -> list:
+    """The tensor maps of a wgmma dq kernel's operands (B3's, B5-dq's): q and
+    dO read as resident tiles of 128 rows, k and v as streamed tiles of 64
+    keys, dq stored 64 rows at a time."""
+    return [describe(q, TILE_ROWS), describe(k, STEP_ROWS), describe(v, STEP_ROWS),
+            describe(dout, TILE_ROWS), describe(dq, OUT_ROWS)]
+
+
+def _dkv_maps(q, k, v, dout, dk, dv, lse, delta) -> list:
+    """The descriptions of a wgmma dkv kernel's operands (B3's, B5-dkv's): k
+    and v read as resident tiles of 128 rows, q and dO as streamed tiles of
+    64 query rows, dk and dv stored 64 rows at a time, lse and delta read in
+    spans of 64 rows."""
+    return [describe(q, STEP_ROWS), describe(k, TILE_ROWS), describe(v, TILE_ROWS),
+            describe(dout, STEP_ROWS), describe(dk, OUT_ROWS), describe(dv, OUT_ROWS),
+            describe_rows(lse, STEP_ROWS), describe_rows(delta, STEP_ROWS)]
+
+
+def _launch_dq_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, delta, bias=None,
+                     grid=None):
+    """(dq, lse) through a wgmma dq kernel, the C entry `mmada_<prefix>_dq_bf16`
+    (`_dq_bias_bf16` with a bias) of the library built from
+    `csrc/<source>.cu`: B3's or B5-dq's. q, k, v, dO (and the bias) are read
+    through tensor maps, an operand no map describes copied first (a bias so
+    copied counts in `wrapper.bias_copies`); dq is stored by TMA. `grid`, for
+    B3's entry: 0 for one cluster per work item, -1 for a persistent grid."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)], aligned=False)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
+    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    maps = _dq_maps(q, k, v, dout, dq)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
+    tail, name = (), f"mmada_{prefix}_dq_bf16"
+    if bias is not None:
+        bias = _bias_map_operand(wrapper, bias, b, h, lq, lk, q.device)
+        maps.append(describe_bias(bias, TILE_ROWS))
+        ptrs.append(bias.data_ptr())
+        tail, name = (_heads_fastest(bias),), f"mmada_{prefix}_dq_bias_bf16"
+    if grid is not None:
+        tail = (*tail, grid)
+    ptrs += [dq.data_ptr(), lse.data_ptr()]
+    args = spec_array(*maps)
+    args.extend(tail)
+    _launch(_entry(source, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            args.buffer_info()[0], 1.0 / (d ** 0.5))
+    return dq, lse
+
+
+def _launch_dkv_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, lse, delta,
+                      bias=None):
+    """(dk, dv) through a wgmma dkv kernel, the C entry
+    `mmada_<prefix>_dkv_bf16` (`_dkv_bias_bf16` with a bias) of the library
+    built from `csrc/<source>.cu`: B3's or B5-dkv's. q, k, v, dO (and the
+    bias) are read through tensor maps, lse and delta in spans of 64 rows
+    (each copied first if it cannot be read so; a bias so copied counts in
+    `wrapper.bias_copies`); dk and dv are stored by TMA."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)],
+                                             aligned=False)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
+    lse, delta = rows_operand(lse), rows_operand(delta)
+    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    maps = _dkv_maps(q, k, v, dout, dk, dv, lse, delta)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()]
+    tail, name = (), f"mmada_{prefix}_dkv_bf16"
+    if bias is not None:
+        bias = _bias_map_operand(wrapper, bias, b, h, lq, lk, q.device)
+        maps.append(describe_bias(bias, STEP_ROWS))
+        ptrs.append(bias.data_ptr())
+        tail, name = (_heads_fastest(bias),), f"mmada_{prefix}_dkv_bias_bf16"
+    ptrs += [dk.data_ptr(), dv.data_ptr()]
+    args = spec_array(*maps)
+    args.extend(tail)
+    _launch(_entry(source, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            args.buffer_info()[0], 1.0 / (d ** 0.5))
+    return dk, dv
+
+
+def _launch_bwd_dq(q, k, v, dout, delta, bias, grid=-1):
+    """Check the operands, allocate (dq, lse) and launch B3's dq kernel (on
+    wgmma, `_launch_dq_wgmma`; `grid` -1: persistent, each cluster walking
+    several (tile pair, head, batch) items, its ring running on from one to
+    the next, 7% faster at the stage-1 batch on an H100 than 0, one cluster
+    per item) or B3-bias's (mma.sync, element strides)."""
+    if bias is None:
+        return _launch_dq_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dq, q, k, v,
+                                dout, delta, grid=grid)
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
-    if bias is None:
-        name, bias_strides = "mmada_flash_attention_bwd_dq_bf16", ()
-    else:
-        name = "mmada_flash_attention_bwd_dq_bias_bf16"
-        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-        ptrs.append(bias.data_ptr())
-    ptrs += [dq.data_ptr(), lse.data_ptr()]
-    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
-            _strides(q, k, v, dout, dq, extra=bias_strides), 1.0 / (d ** 0.5))
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            bias.data_ptr(), dq.data_ptr(), lse.data_ptr()]
+    bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
+    _launch(_entry(_BWD_SOURCE, "mmada_flash_attention_bwd_dq_bias_bf16", len(ptrs)), q.device,
+            *ptrs, b, h, kvh, lq, lk, d, _strides(q, k, v, dout, dq, extra=bias_strides),
+            1.0 / (d ** 0.5))
     return dq, lse
 
 
 def _launch_bwd_dkv(q, k, v, dout, lse, delta, bias):
-    """Check the operands, allocate (dk, dv) and launch B3's dkv kernel
-    (B3-bias's with a bias)."""
+    """Check the operands, allocate (dk, dv) and launch B3's dkv kernel (on
+    wgmma, `_launch_dkv_wgmma`) or B3-bias's (mma.sync, element strides)."""
+    if bias is None:
+        return _launch_dkv_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dkv, q, k,
+                                 v, dout, lse, delta)
     b, h, kvh, lq, lk, d = _check_bwd_shapes(
         q, k, v, dout, [("lse", lse), ("delta", delta)])
     dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr()]
-    if bias is None:
-        name, bias_strides = "mmada_flash_attention_bwd_dkv_bf16", ()
-    else:
-        name = "mmada_flash_attention_bwd_dkv_bias_bf16"
-        bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-        ptrs.append(bias.data_ptr())
-    ptrs += [dk.data_ptr(), dv.data_ptr()]
-    _launch(_entry(_BWD_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+    bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
+    _launch(_entry(_BWD_SOURCE, "mmada_flash_attention_bwd_dkv_bias_bf16", len(ptrs)),
+            q.device, *ptrs, b, h, kvh, lq, lk, d,
             _strides(q, k, v, dout, dk, dv, extra=bias_strides), 1.0 / (d ** 0.5))
     return dk, dv
 
 
 def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dq, lse) through the Hopper dq kernel (CUDA tensors) or its plain
-    version (CPU tensors). Counts launches in `attention_bwd_dq.launches`,
-    or `attention_bwd_dq.bias_launches` with a bias."""
+    version (CPU tensors). Counts launches in `attention_bwd_dq.launches`
+    (B3, which reads its operands through tensor maps), or
+    `attention_bwd_dq.bias_launches` with a bias (B3-bias)."""
     if q.device.type == "cpu":
         return attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
@@ -445,8 +540,9 @@ attention_bwd_dq.bias_launches = 0
 
 def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) through the Hopper dkv kernel (CUDA tensors) or its plain
-    version (CPU tensors). Counts launches in `attention_bwd_dkv.launches`,
-    or `attention_bwd_dkv.bias_launches` with a bias."""
+    version (CPU tensors). Counts launches in `attention_bwd_dkv.launches`
+    (B3, which reads its operands through tensor maps), or
+    `attention_bwd_dkv.bias_launches` with a bias (B3-bias)."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":

@@ -7,11 +7,11 @@ the forward of `flash_attention_online` (:435; bodies `_attn_online_kernel`
 `_attn_staged_bias_kernel` :333, called at :392 and :418), which compute one
 function, and the staged backward `flash_attention_bwd_staged` (:1121; dq
 bodies :1018 / :1062 called at :1185, dkv bodies :1070 / :1110 called at
-:1240). The kernels are in `csrc/flash_attention_long.cu`. B4, B5-dq and
-B5-dkv, and B5's biased kernels, run on `wgmma` and read their operands
-through TMA tensor maps (`tensor_maps.py`; a bias no map describes is copied
-first, counted in the wrapper's `.bias_copies`); B4-bias runs on `mma.sync`
-and takes 16-byte aligned rows.
+:1240). The kernels are in `csrc/flash_attention_long.cu` (B5's bodies,
+shared with the one-pass tier's B3, in `csrc/flash_attention_bwd_wgmma.cuh`).
+B4, B5-dq and B5-dkv, unbiased and biased, run on `wgmma` and read their
+operands through TMA tensor maps (`tensor_maps.py`; a bias no map describes
+is copied first, counted in the wrapper's `.bias_copies`).
 
 The function, on q and k already rotated (RoPE runs outside, in fp32, as the
 JAX tier does): s = q.k^T in fp32 times 1/sqrt(D), plus the fp32 bias (B|1,
@@ -44,16 +44,16 @@ import torch
 from mmada_tpu_torch.ops.flash_attention import (
     NEG_F32,
     _bias_map_operand,
-    _bias_strides,
-    _check_bwd_shapes,
     _check_operand,
     _count_launch,
     _entry,
     _HEAD_DIMS,
+    _heads_fastest,
     _heads_like_q,
     _launch,
+    _launch_dkv_wgmma,
+    _launch_dq_wgmma,
     _scores,
-    _strides,
     attention_bwd_dkv_reference,
     attention_delta,
     bias_as_float,
@@ -64,22 +64,12 @@ from mmada_tpu_torch.ops.tensor_maps import (
     TILE_ROWS,
     describe,
     describe_bias,
-    describe_rows,
-    rows_operand,
     spec_array,
     tma_operand,
 )
 
 _SOURCE = "flash_attention_long"
 ALIGN = 128  # Lq and Lk of the kernels: multiples of this, as the JAX tiers
-
-
-def _heads_fastest(bias: torch.Tensor) -> int:
-    """The grid order of B5's biased kernels (1: heads fastest). A bias
-    broadcast over the heads runs a tile's heads side by side, so its rows
-    come from HBM about once; a per-head bias runs a head's tiles side by
-    side, as the unbiased kernels do."""
-    return int(describe_bias(bias, STEP_ROWS).dims[2] == 1)
 
 
 def _check_aligned(q: torch.Tensor, k: torch.Tensor) -> None:
@@ -106,18 +96,30 @@ def flash_attention_long_reference(
     return (torch.matmul(p, _heads_like_q(v, h)) / l).to(q.dtype)
 
 
+def _long_fwd_maps(q, k, v, out, bias=None) -> list:
+    """The tensor maps of B4's operands (q, k and v in tiles of 128 rows, the
+    output stored 64 rows at a time) or B4-bias's (k and v in tiles of 64
+    keys beside its bias tiles: the fp32 bias in boxes of 32 columns and
+    128 rows)."""
+    kv_rows = TILE_ROWS if bias is None else STEP_ROWS
+    maps = [describe(q, TILE_ROWS), describe(k, kv_rows), describe(v, kv_rows),
+            describe(out, OUT_ROWS)]
+    return maps if bias is None else maps + [describe_bias(bias, TILE_ROWS)]
+
+
 def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
-    """B4 for CUDA tensors (`.launches`, or `.bias_launches` with a bias),
-    its plain version for CPU tensors. q and k rotated; square or not. B4
-    reads its operands through TMA tensor maps (`tensor_maps`: an operand a
-    map cannot describe is copied first); B4-bias takes 16-byte aligned
-    rows."""
+    """B4 for CUDA tensors (`.launches`, or B4-bias and `.bias_launches`
+    with a bias), its plain version for CPU tensors. q and k rotated; square
+    or not. Both read their operands through TMA tensor maps (`tensor_maps`:
+    an operand a map cannot describe is copied first; a bias so copied
+    counts in `.bias_copies`); B4-bias runs a bias broadcast over the heads
+    with the heads fastest in its grid (`_heads_fastest`)."""
     if q.device.type == "cpu":
         return flash_attention_long_reference(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_long runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device, aligned=bias is not None)
+        _check_operand(name, t, q.device, aligned=False)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
@@ -126,28 +128,26 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
         raise ValueError(f"head_dim {d} not in the kernel's {_HEAD_DIMS}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
-    if bias is None:
-        q, k, v = (tma_operand(t) for t in (q, k, v))
+    q, k, v = (tma_operand(t) for t in (q, k, v))
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    scale = 1.0 / (d ** 0.5)
-    if bias is None:
-        maps = spec_array(describe(q, TILE_ROWS), describe(k, TILE_ROWS),
-                          describe(v, TILE_ROWS), describe(out, OUT_ROWS))
-        _launch(_entry(_SOURCE, "mmada_flash_attention_long_fwd_bf16", 4, arrays=1), q.device,
-                *ptrs, b, h, kvh, lq, lk, d, maps.buffer_info()[0], scale)
-    else:
-        _launch(_entry(_SOURCE, "mmada_flash_attention_long_fwd_bias_bf16", 5), q.device,
-                *ptrs, bias.data_ptr(), b, h, kvh, lq, lk, d,
-                _strides(q, k, v, out, extra=_bias_strides(bias, b, h, lq, lk, q.device)),
-                scale)
+    tail, name = (), "mmada_flash_attention_long_fwd_bf16"
+    if bias is not None:
+        bias = _bias_map_operand(flash_attention_long, bias, b, h, lq, lk, q.device)
+        ptrs.append(bias.data_ptr())
+        tail, name = (_heads_fastest(bias),), "mmada_flash_attention_long_fwd_bias_bf16"
+    args = spec_array(*_long_fwd_maps(q, k, v, out, bias))
+    args.extend(tail)
+    _launch(_entry(_SOURCE, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
+            args.buffer_info()[0], 1.0 / (d ** 0.5))
     _count_launch(flash_attention_long, bias)
     return out
 
 
 flash_attention_long.launches = 0
 flash_attention_long.bias_launches = 0
+flash_attention_long.bias_copies = 0
 
 
 def attention_bwd_dq_long_reference(
@@ -176,61 +176,6 @@ def attention_bwd_dq_long_reference(
 attention_bwd_dkv_long_reference = attention_bwd_dkv_reference
 
 
-def _launch_dq_wgmma(q, k, v, dout, delta, bias=None):
-    """B5-dq (B5-dq-bias with a bias): (dq, lse) with q, k, v, dO (and the
-    bias) read through tensor maps (an operand a map cannot describe copied
-    first); dq stored by TMA."""
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)], aligned=False)
-    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
-    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    maps = [describe(q, TILE_ROWS), describe(k, STEP_ROWS), describe(v, STEP_ROWS),
-            describe(dout, TILE_ROWS), describe(dq, OUT_ROWS)]
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr()]
-    tail, name = (), "mmada_flash_attention_long_bwd_dq_bf16"
-    if bias is not None:
-        bias = _bias_map_operand(attention_bwd_dq_long, bias, b, h, lq, lk, q.device)
-        maps.append(describe_bias(bias, TILE_ROWS))
-        ptrs.append(bias.data_ptr())
-        tail, name = (_heads_fastest(bias),), "mmada_flash_attention_long_bwd_dq_bias_bf16"
-    ptrs += [dq.data_ptr(), lse.data_ptr()]
-    args = spec_array(*maps)
-    args.extend(tail)
-    _launch(_entry(_SOURCE, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
-            args.buffer_info()[0], 1.0 / (d ** 0.5))
-    return dq, lse
-
-
-def _launch_dkv_wgmma(q, k, v, dout, lse, delta, bias=None):
-    """B5-dkv (B5-dkv-bias with a bias): (dk, dv) with q, k, v, dO (and the
-    bias) read through tensor maps and lse, delta by bulk copies of
-    STEP_ROWS values (each copied first if it cannot be read so); dk and dv
-    stored by TMA."""
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)],
-                                             aligned=False)
-    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
-    lse, delta = rows_operand(lse), rows_operand(delta)
-    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    maps = [describe(q, STEP_ROWS), describe(k, TILE_ROWS), describe(v, TILE_ROWS),
-            describe(dout, STEP_ROWS), describe(dk, OUT_ROWS), describe(dv, OUT_ROWS),
-            describe_rows(lse, STEP_ROWS), describe_rows(delta, STEP_ROWS)]
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr()]
-    tail, name = (), "mmada_flash_attention_long_bwd_dkv_bf16"
-    if bias is not None:
-        bias = _bias_map_operand(attention_bwd_dkv_long, bias, b, h, lq, lk, q.device)
-        maps.append(describe_bias(bias, STEP_ROWS))
-        ptrs.append(bias.data_ptr())
-        tail, name = (_heads_fastest(bias),), "mmada_flash_attention_long_bwd_dkv_bias_bf16"
-    ptrs += [dk.data_ptr(), dv.data_ptr()]
-    args = spec_array(*maps)
-    args.extend(tail)
-    _launch(_entry(_SOURCE, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
-            args.buffer_info()[0], 1.0 / (d ** 0.5))
-    return dk, dv
-
-
 def attention_bwd_dq_long(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dq, lse) through B5-dq (CUDA tensors; `.launches`, or B5-dq-bias and
     `.bias_launches`) or its plain version (CPU tensors). Both read their
@@ -242,7 +187,8 @@ def attention_bwd_dq_long(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor
         raise ValueError(f"attention_bwd_dq_long runs on cuda or cpu, not {q.device}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
-    out = _launch_dq_wgmma(q, k, v, dout, delta, bias)
+    out = _launch_dq_wgmma(_SOURCE, "flash_attention_long_bwd", attention_bwd_dq_long, q, k, v,
+                           dout, delta, bias)
     _count_launch(attention_bwd_dq_long, bias)
     return out
 
@@ -264,7 +210,8 @@ def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.
         raise ValueError(f"attention_bwd_dkv_long runs on cuda or cpu, not {q.device}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
-    out = _launch_dkv_wgmma(q, k, v, dout, lse, delta, bias)
+    out = _launch_dkv_wgmma(_SOURCE, "flash_attention_long_bwd", attention_bwd_dkv_long, q, k,
+                            v, dout, lse, delta, bias)
     _count_launch(attention_bwd_dkv_long, bias)
     return out
 

@@ -1,9 +1,10 @@
-"""How the wgmma attention kernels (B1, B2, B4, B5) see their operands: TMA tensor maps.
+"""How the wgmma attention kernels (B1-B5) see their operands: TMA tensor maps.
 
-The kernels in `csrc/flash_attention_fwd.cu` (B1, B2) and
-`csrc/flash_attention_long.cu` (B4, B5-dq, B5-dkv, biased or not) read their bf16 operands
-and write their outputs through TMA, which copies a whole box of a tensor
-between device and shared memory. A tensor map describes a bf16 (B, H, L,
+The kernels in `csrc/flash_attention_fwd.cu` (B1, B2),
+`csrc/flash_attention_bwd.cu` (B3) and `csrc/flash_attention_long.cu` (B4,
+B5-dq, B5-dkv, biased or not) read their bf16 operands and write their
+outputs through TMA, which copies a whole box of a tensor between device and
+shared memory. A tensor map describes a bf16 (B, H, L,
 D) operand to TMA; the wrapper writes that description here, in Python, and
 the C entry only encodes it (`encode_tensor_map` in `csrc/hopper_sm90.cuh`):
 
@@ -23,7 +24,7 @@ stride that is not a multiple of 8 elements, strided columns) is copied with
 size 1 is never stepped over, so its stride is replaced by the contiguous
 one, which keeps it a multiple of 16 whatever torch reports for it.
 
-The biased kernels (B2, B5-dq-bias, B5-dkv-bias) read the fp32 bias (B|1,
+The biased kernels (B2, B4-bias, B5-dq-bias, B5-dkv-bias) read the fp32 bias (B|1,
 H|1, Lq, Lk) through a map too (`describe_bias`): dims (Lk, Lq, heads,
 batches), boxes of 32 columns (128 bytes, the swizzle's width) and the
 kernel's rows. A broadcast axis (extent 1, or a stride of 0 as `expand`
@@ -33,9 +34,12 @@ bias with rows padded to ROW_FLOATS (4) floats, a view of the first L
 columns as `aligned_rows` makes, and a wrapper copies any other bias once
 (`bias_operand`).
 
-B5-dkv also copies spans of the fp32 row statistics lse and delta
-(contiguous (B, H, Lq)) with 1-D bulk copies: `describe_rows` says what the
-C entry checks of them, and `rows_operand` copies one whose base is not
+The dkv kernels (B3's, B5-dkv) also read the fp32 row statistics lse and
+delta (contiguous (B, H, Lq)) in spans of 64 values: B5-dkv with 1-D bulk
+copies (its Lq a multiple of 128, so every span starts 16 bytes aligned), B3
+with ordinary loads (at Lq 387 a (batch, head)'s rows start 1,548 bytes
+apart, where no bulk copy or TMA box may start). `describe_rows` says what
+the C entry checks of them, and `rows_operand` copies one whose base is not
 16-byte aligned.
 """
 
@@ -49,12 +53,14 @@ import torch
 
 BOX_COLS = 64   # bf16 columns of one box: 128 bytes
 ALIGN_BYTES = 16
+MAX_BOX = 256   # elements of a box along any dimension (TMA's limit)
 # box rows of the kernels' tiles (ATT_M and ATT_N in csrc/hopper_sm90.cuh):
-# q, k and v in tiles of 128 rows (B5: the resident q and dO of B5-dq, k and
-# v of B5-dkv; the bias tiles of B2 and B5-dq-bias); the output stored 64
-# rows (one consumer warpgroup's) at a time; 64-row tiles (STEP_N in
-# csrc/hopper_sm90.cuh): B2's and B5-dq's K and V tiles of 64 keys, B5-dkv's
-# q and dO tiles, bias tiles and lse / delta spans of 64 queries
+# q, k and v in tiles of 128 rows (the resident q and dO of the dq kernels
+# and B4-bias, k and v of the dkv kernels; the bias tiles of B2, B4-bias and
+# B5-dq-bias); the output stored 64 rows (one consumer warpgroup's) at a
+# time; 64-row tiles (STEP_N in csrc/hopper_sm90.cuh): the K and V tiles of
+# 64 keys of B2, B4-bias and the dq kernels, the dkv kernels' q and dO
+# tiles, bias tiles and lse / delta spans of 64 queries
 TILE_ROWS = 128
 OUT_ROWS = 64
 STEP_ROWS = 64
@@ -174,7 +180,8 @@ def describe_bias(t: torch.Tensor, box_rows: int) -> TensorMapSpec:
 
 class RowsSpec(NamedTuple):
     """What the C entry checks of an fp32 row-statistics operand (`ROWS_SPEC`
-    = 4 values): its extents and the bytes of one span it copies."""
+    = 4 values): its extents and the bytes of one span it reads at a
+    time."""
 
     dims: tuple[int, int, int]          # (rows, heads, batches)
     span_bytes: int
@@ -194,10 +201,12 @@ def rows_operand(t: torch.Tensor) -> torch.Tensor:
 
 
 def describe_rows(t: torch.Tensor, span_rows: int) -> RowsSpec:
-    """The description of fp32 (B, H, L) row statistics copied `span_rows`
-    values at a time. Raises unless t is contiguous fp32, its base 16-byte
-    aligned (`rows_operand` copies one that is not) and a span a multiple
-    of 16 bytes that divides L."""
+    """The description of fp32 (B, H, L) row statistics read `span_rows`
+    values at a time, at any L (B3 reads a ragged last span with ordinary
+    loads, masked; B5's L is a multiple of the span). Raises unless t is
+    contiguous fp32, its base 16-byte aligned (`rows_operand` copies one
+    that is not) and a span a multiple of 16 bytes and at most MAX_BOX
+    values (a bulk copy's and a TMA box's limits)."""
     if t.dtype != torch.float32 or t.dim() != 3:
         raise ValueError(f"row statistics must be fp32 (B, H, L), got {t.dtype} "
                          f"{tuple(t.shape)}")
@@ -206,8 +215,9 @@ def describe_rows(t: torch.Tensor, span_rows: int) -> RowsSpec:
                          f"(offset {t.data_ptr() % ALIGN_BYTES}): copy it first")
     b, h, l = t.shape
     span = span_rows * t.element_size()
-    if span % ALIGN_BYTES or l % span_rows:
-        raise ValueError(f"spans of {span_rows} rows do not tile L {l} in 16-byte pieces")
+    if span % ALIGN_BYTES or not 0 < span_rows <= MAX_BOX:
+        raise ValueError(f"spans of {span_rows} rows are not a box of 16-byte pieces of at "
+                         f"most {MAX_BOX} values")
     return RowsSpec((l, h, b), span)
 
 

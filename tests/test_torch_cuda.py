@@ -256,12 +256,17 @@ def assert_grad_close(got, want):
 
 
 @pytest.mark.parametrize("b,h,kvh,lq,lk,d", [
-    (2, 4, 4, 388, 388, 128),   # the stage-1 training frame, unaligned
+    (2, 4, 4, 388, 388, 128),   # an unaligned training frame
     (1, 8, 2, 200, 200, 64),    # GQA, head_dim 64
     (2, 4, 4, 100, 333, 128),   # rectangular
     (1, 2, 2, 1, 7, 128),       # one query row
     (1, 2, 2, 1, 1, 128),       # one query, one key: dq = dk = 0 exactly
     (1, 4, 1, 1155, 1155, 128), # GQA 4:1 at the t2i frame
+    (2, 4, 4, 129, 129, 128),   # a tail of one row and one key past a 128 tile
+    (3, 4, 4, 387, 387, 128),   # the stage-1 frame: a tail of 3 past 3 x 128
+    (1, 8, 2, 387, 387, 64),    # the stage-1 frame, GQA, head_dim 64
+    (1, 4, 2, 1, 387, 64),      # one query row over the stage-1 keys
+    (1, 4, 4, 4097, 4097, 128), # an unaligned frame past 4096 (the one-pass route)
 ])
 def test_backward_kernels_match_plain_versions(cuda_device, b, h, kvh, lq, lk, d):
     q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, d)
@@ -281,6 +286,42 @@ def test_backward_kernels_match_plain_versions(cuda_device, b, h, kvh, lq, lk, d
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert_grad_close(got, want)
+
+
+@pytest.mark.parametrize("b,h,kvh,l,d", [(3, 8, 8, 387, 128), (2, 8, 2, 129, 64)])
+def test_backward_kernels_repeat_bit_for_bit(cuda_device, b, h, kvh, l, d):
+    """Two identical calls of B3's dq and dkv give the same bits: the lse
+    and delta spans, read from shared memory with ordinary loads, are fenced
+    before their slot's next TMA load (a race there gave other bits from run
+    to run in the biased B5-dq)."""
+    q, k, v = _qkv(cuda_device, b, h, kvh, l, l, d)
+    out = flash_attention(q, k, v)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(11),
+                       device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+    runs = []
+    for _ in range(2):
+        dq, lse = attention_bwd_dq(q, k, v, dout, delta)
+        runs.append((dq, lse, *attention_bwd_dkv(q, k, v, dout, lse, delta)))
+    for a, b_ in zip(*runs):
+        torch.testing.assert_close(a, b_, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,kvh,l,d", [(15, 8, 8, 387, 128), (3, 8, 2, 200, 64)])
+def test_backward_grids_agree_bit_for_bit(cuda_device, b, h, kvh, l, d):
+    """B3's dq kernel runs on a persistent grid (each cluster walks several
+    (tile pair, head, batch) items, its ring running on from one to the
+    next); on a grid of one cluster per item it gives the same bits."""
+    from mmada_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(cuda_device, b, h, kvh, l, l, d)
+    out = flash_attention(q, k, v)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(12),
+                       device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+    persistent = fa._launch_bwd_dq(q, k, v, dout, delta, None, -1)
+    one_an_item = fa._launch_bwd_dq(q, k, v, dout, delta, None, 0)
+    torch.testing.assert_close(persistent, one_an_item, atol=0, rtol=0)
 
 
 def test_backward_kernels_take_strided_views(cuda_device):
@@ -912,6 +953,41 @@ def test_long_backward_reads_views_through_tensor_maps(cuda_device):
                                (dk, dv), atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("kind,h,kvh,d", [("mask", 4, 4, 128), ("batch", 4, 2, 64)])
+def test_biased_long_forward_grid_orders_agree(cuda_device, kind, h, kvh, d):
+    """B4-bias runs a bias broadcast over the heads with the heads fastest in
+    the grid and a per-head bias with the tiles fastest: the broadcast bias
+    and its per-head copy give the same bits (each block computes the same
+    tile either way), within one bf16 ulp of the plain version, and a
+    second identical call gives the same bits again (the bias tile, read from
+    shared memory with ordinary loads, is fenced before its slot's next TMA
+    load)."""
+    b, l = 2, 1024
+    q, k, v = _qkv(cuda_device, b, h, kvh, l, l, d)
+    bias = _bias(cuda_device, kind, b, h, l, l)
+    per_head = bias.expand(b, h, l, l).contiguous()
+    runs = [flash_attention_long(q, k, v, t) for t in (bias, per_head, bias)]
+    torch.testing.assert_close(runs[0], runs[1], atol=0, rtol=0)
+    torch.testing.assert_close(runs[0], runs[2], atol=0, rtol=0)
+    assert_within_one_ulp(runs[0], flash_attention_long_reference(q, k, v, bias))
+
+
+def test_biased_long_forward_dead_rows_average_v(cuda_device):
+    """B4-bias on query rows that the mask shuts out entirely (every score
+    the finite min): each of the Lk keys gets p = 1, so the row averages v
+    (as the plain version and the TPU tiers on aligned L), without NaN; the
+    other rows stay within one bf16 ulp of the plain version."""
+    b, h, l = 2, 4, 4224
+    q, k, v = _qkv(cuda_device, b, h, 2, l, l, 128)
+    bias, mask = _mask_bias(cuda_device, b, l, 70)
+    out = flash_attention_long(q, k, v, bias)
+    mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(2, dim=1).expand(b, h, l, 128)
+    dead = (mask == 0)[:, None, :, None].expand(b, h, l, 128)
+    assert dead.any()
+    assert_within_one_ulp(out.float()[dead], mean[dead])
+    assert_within_one_ulp(out, flash_attention_long_reference(q, k, v, bias))
+
+
 def test_biased_long_backward_keeps_its_kernel(cuda_device):
     """With a bias, B5-dq and B5-dkv launch their biased kernels (the wgmma
     bodies with the bias tile): `.bias_launches` moves and `.launches`, the
@@ -1043,16 +1119,16 @@ def test_long_frames_go_through_the_long_kernels(cuda_device, masked):
                           "image_codes": rng.integers(0, 64, (2, n_img))},
              "lm_flow": {"input_ids": ["hello there", "general"]}}
     (c1, c0) = counts()
-    copies = [f.bias_copies for f in (flash_attention, attention_bwd_dq_long,
-                                      attention_bwd_dkv_long)]
+    copiers = (flash_attention, flash_attention_long, attention_bwd_dq_long,
+               attention_bwd_dkv_long)
+    copies = [f.bias_copies for f in copiers]
     trainer = train(model, [flows], steps=1, special_ids=sp, max_text_len=4224 - n_img - 3,
                     training=dict(batch_size_t2i=2, batch_size_lm=2, loss_chunk=64),
                     lr_scheduler={"scheduler": "constant", "params": {"learning_rate": 1e-3}})
     frames = trainer.prepare_batch(flows)
     assert {t.shape[1] for key, t in frames.items() if key.endswith("input_ids")} == {4224}
     assert counts() == (c1, (c0[0] + 2 * n, c0[1] + n, c0[2] + n))
-    assert [f.bias_copies for f in (flash_attention, attention_bwd_dq_long,
-                                    attention_bwd_dkv_long)] == copies
+    assert [f.bias_copies for f in copiers] == copies
     h = trainer.history[0]
     assert all(np.isfinite(v) for v in h.values()) and h["skipped_nonfinite"] == 0
 

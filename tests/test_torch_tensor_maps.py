@@ -1,11 +1,12 @@
-"""The tensor maps through which the wgmma attention kernels (B1, B2, B4,
-B5-dq, B5-dkv) read their operands and write their outputs, as the wrappers
-describe them (`mmada_tpu_torch/ops/tensor_maps.py`): dims in (columns,
-rows, heads, batches) order, byte strides that are multiples of 16, the box,
-and a copy of an operand no map can describe; the fp32 bias of the biased
-kernels (B2, B5-dq-bias, B5-dkv-bias), broadcast axes as dimensions of 1;
-and the spans of fp32 row statistics (lse, delta) that B5-dkv copies in
-bulk. These run on the CPU:
+"""The tensor maps through which the wgmma attention kernels (B1, B2, B3,
+B4, B4-bias, B5-dq, B5-dkv) read their operands and write their outputs, as
+the wrappers describe them (`mmada_tpu_torch/ops/tensor_maps.py`): dims in
+(columns, rows, heads, batches) order, byte strides that are multiples of
+16, the box, and a copy of an operand no map can describe; the fp32 bias of
+the biased kernels (B2, B4-bias, B5-dq-bias, B5-dkv-bias), broadcast axes as
+dimensions of 1, and the grid order it sets; and the spans of fp32 row
+statistics (lse, delta) that the dkv kernels (B3's, B5-dkv) read. These run
+on the CPU:
 the description is Python, and the kernels that take it run on the card
 (`tests/test_torch_cuda.py`)."""
 
@@ -235,12 +236,17 @@ def test_b5_row_statistics_no_span_reads_are_copied(make):
 
 
 def test_b5_row_statistics_refuse_other_types_and_lengths():
+    """Row statistics are fp32, and a span a multiple of 16 bytes and at
+    most 256 values. Any L is described: B3 reads a ragged last span with
+    ordinary loads, masked (B5's L is a multiple of the span)."""
     with pytest.raises(ValueError, match="fp32"):
         describe_rows(_aligned(2, 4, 256), STEP_ROWS)                 # bf16
-    with pytest.raises(ValueError, match="tile"):
-        describe_rows(_aligned(2, 4, 200, dtype=torch.float32), STEP_ROWS)
-    with pytest.raises(ValueError, match="tile"):
+    with pytest.raises(ValueError, match="box"):
         describe_rows(_aligned(2, 4, 256, dtype=torch.float32), 2)    # 8-byte spans
+    with pytest.raises(ValueError, match="box"):
+        describe_rows(_aligned(2, 4, 1024, dtype=torch.float32), 512)  # past a box
+    assert describe_rows(_aligned(2, 4, 200, dtype=torch.float32), STEP_ROWS) == RowsSpec(
+        (200, 4, 2), 256)
 
 
 @pytest.mark.parametrize("make", [
@@ -362,3 +368,149 @@ def test_a_bias_no_map_describes_is_copied_once(make):
     assert copied.stride(-2) % 4 == 0 and copied.stride(-1) == 1
     assert copied.shape[0] in (1, t.shape[0]) and copied.shape[1] in (1, t.shape[1])
     torch.testing.assert_close(copied.expand(t.shape), t, atol=0, rtol=0)
+
+
+# ------------------------------------------------------------------- B3
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("l", [387, 1155])
+def test_b3_maps_of_the_one_pass_backward(l, h, kvh, d):
+    """The maps B3's wrappers hand its wgmma kernels at the stage-1 and t2i
+    frames, ragged lengths: the dq kernel reads q and dO as resident tiles of
+    128 rows and k, v as streamed tiles of 64 keys and stores dq 64 rows at a
+    time; the dkv kernel reads k and v as resident tiles of 128 rows, q and
+    dO as streamed tiles of 64 query rows, stores dk and dv (B, KVH, Lk, D),
+    and loads lse and delta in spans of 64 values (256 bytes) of the flat
+    (B, H, Lq) arrays. A GQA kv head is a head of the (B, KVH, L, D) maps."""
+    b = 2
+    q, dout, dq = (_aligned(b, h, l, d) for _ in range(3))
+    k, v, dk, dv = (_aligned(b, kvh, l, d) for _ in range(4))
+    lse, delta = (_aligned(b, h, l, dtype=torch.float32) for _ in range(2))
+    dq_maps = fa_mod._dq_maps(q, k, v, dout, dq)
+    for spec, t, rows in zip(dq_maps, (q, k, v, dout, dq),
+                             (TILE_ROWS, STEP_ROWS, STEP_ROWS, TILE_ROWS, OUT_ROWS)):
+        _check_spec(spec, t, rows)
+    dkv_maps = fa_mod._dkv_maps(q, k, v, dout, dk, dv, lse, delta)
+    for spec, t, rows in zip(dkv_maps, (q, k, v, dout, dk, dv),
+                             (STEP_ROWS, TILE_ROWS, TILE_ROWS, STEP_ROWS, OUT_ROWS, OUT_ROWS)):
+        _check_spec(spec, t, rows)
+    assert dkv_maps[6:] == [RowsSpec((l, h, b), 256)] * 2
+    assert describe(k, TILE_ROWS).strides == (d * 2, l * d * 2, kvh * l * d * 2)
+    flat = list(spec_array(*dkv_maps))
+    assert len(flat) == 6 * 11 + 2 * 4 and flat[-4:] == [l, h, b, 256]
+
+
+def test_b3_reads_the_gradient_head_view_in_place():
+    """dO as the model's backward hands it to B3: the head view of a (B, L,
+    H D) gradient, its row stride the gradient's width, read in place by
+    both kernels (a resident tile for dq, a streamed one for dkv)."""
+    b, l, h, d = 15, 387, 32, 128
+    flat = _aligned(b, l, h * d)
+    dout = flat.view(b, l, h, d).transpose(1, 2)
+    assert tma_operand(dout) is dout
+    for rows in (TILE_ROWS, STEP_ROWS):
+        spec = describe(dout, rows)
+        _check_spec(spec, dout, rows)
+        assert spec.strides == (h * d * 2, d * 2, l * h * d * 2)
+
+
+def test_b3_copies_an_operand_no_map_describes():
+    """A q or dO 2 bytes off (or with rows 264 bytes apart) is copied,
+    contiguous, before B3 reads it; the copy's maps are the contiguous
+    operand's."""
+    base = _aligned(1, 2, 387, 140)
+    for t in (base[..., 1:129],
+              base.as_strided((1, 2, 387, 128), (2 * 387 * 132, 387 * 132, 132, 1))):
+        assert not describable(t)
+        copied = tma_operand(t)
+        assert copied is not t and copied.is_contiguous() and torch.equal(copied, t)
+        for spec, rows in zip(fa_mod._dq_maps(copied, copied, copied, copied, copied),
+                              (TILE_ROWS, STEP_ROWS, STEP_ROWS, TILE_ROWS, OUT_ROWS)):
+            _check_spec(spec, copied, rows)
+
+
+def test_b3_row_statistics_at_an_unaligned_lq():
+    """lse and delta at the stage-1 batch (15 x 32 heads x 387 rows): a
+    (batch, head)'s rows start 1,548 bytes apart, not on 16 bytes, where no
+    bulk copy (as B5's aligned lengths allow) may start; they are described
+    all the same, and B3 reads them in spans of 64 rows with ordinary loads.
+    A base off 16 bytes is copied first (`rows_operand`)."""
+    lse = _aligned(15, 32, 387, dtype=torch.float32)
+    assert (387 * 4) % 16 != 0
+    spec = describe_rows(lse, STEP_ROWS)
+    assert spec == RowsSpec((387, 32, 15), 256)
+    assert rows_operand(lse) is lse
+    stats = _aligned(2 * lse.numel() + 1, dtype=torch.float32)
+    odd = stats[1:lse.numel() + 1].view_as(lse)            # 4 bytes off
+    with pytest.raises(ValueError, match="copy it first"):
+        describe_rows(odd, STEP_ROWS)
+    copied = rows_operand(odd)
+    assert copied.data_ptr() % 16 == 0 and torch.equal(copied, odd)
+    assert describe_rows(copied, STEP_ROWS) == spec
+
+
+# ---------------------------------------------------------------- B4-bias
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_b4_bias_maps_of_the_masked_long_forward(d):
+    """B4-bias's maps at a masked long frame: q a resident tile of 128 rows,
+    k and v streamed tiles of 64 keys (beside the bias tiles), the output
+    stored 64 rows at a time, and the model's mask bias ((B, 1, L, L) fp32,
+    `prepare_attention_bias`) described in place: dims (L, L, 1, B), boxes of
+    32 columns and 128 rows. Broadcast over the heads, it runs the heads
+    fastest in the grid; a per-head bias the tiles fastest. B4 (no bias)
+    reads k and v in tiles of 128 rows."""
+    b, h, l = 2, 2, 4224
+    mask = torch.ones(b, l, dtype=torch.long)
+    mask[0, :70] = 0
+    bias = llada.prepare_attention_bias(mask)
+    assert bias_operand(bias) == (bias, False)
+    q, out = _aligned(b, h, l, d), _aligned(b, l, h, d).transpose(1, 2)
+    k, v = _aligned(b, h, l, d), _aligned(b, h, l, d)
+    maps = long_mod._long_fwd_maps(q, k, v, out, bias)
+    for spec, t, rows in zip(maps, (q, k, v, out),
+                             (TILE_ROWS, STEP_ROWS, STEP_ROWS, OUT_ROWS)):
+        _check_spec(spec, t, rows)
+    assert maps[4] == describe_bias(bias, TILE_ROWS)
+    assert maps[4].dims == (l, l, 1, b) and maps[4].box == (BIAS_COLS, TILE_ROWS, 1, 1)
+    assert long_mod._heads_fastest(bias) == 1
+    assert long_mod._heads_fastest(bias.expand(b, h, l, l).contiguous()) == 0
+    unbiased = long_mod._long_fwd_maps(q, k, v, out)
+    assert [m.box[1] for m in unbiased] == [TILE_ROWS, TILE_ROWS, TILE_ROWS, OUT_ROWS]
+
+
+def test_b3_and_b4_bias_wrappers_leave_cpu_tensors_to_the_plain_versions():
+    """On the CPU, B3's dq and dkv and B4-bias compute their plain versions
+    on any layout (views no map takes, unaligned statistics, a bias no map
+    describes), describe and copy nothing and count no launch."""
+    g = torch.Generator().manual_seed(3)
+    b, h, kvh, l, d = 1, 4, 2, 131, 64
+
+    def odd(*shape):   # 2 bytes off: no tensor map describes it
+        return torch.randn(*shape[:-1], shape[-1] + 8, generator=g).bfloat16()[..., 1:d + 1]
+
+    q, dout = odd(b, h, l, d), odd(b, h, l, d)
+    k, v = odd(b, kvh, l, d), odd(b, kvh, l, d)
+    out = fa_mod.flash_attention(q, k, v)
+    delta = fa_mod.attention_delta(out, dout)
+    kernels = (fa_mod.attention_bwd_dq, fa_mod.attention_bwd_dkv, long_mod.flash_attention_long)
+    before = [(f.launches, f.bias_launches) for f in kernels]
+    copies = long_mod.flash_attention_long.bias_copies
+    dq, lse = fa_mod.attention_bwd_dq(q, k, v, dout, delta)
+    stats = torch.empty(2 * lse.numel() + 1)
+    lse_odd = stats[1:lse.numel() + 1].view_as(lse).copy_(lse)
+    dk, dv = fa_mod.attention_bwd_dkv(q, k, v, dout, lse_odd, delta)
+    want_dq, want_lse = fa_mod.attention_bwd_dq_reference(q, k, v, dout, delta)
+    want = fa_mod.attention_bwd_dkv_reference(q, k, v, dout, want_lse, delta)
+    torch.testing.assert_close((dq, lse), (want_dq, want_lse), atol=0, rtol=0)
+    torch.testing.assert_close((dk, dv), want, atol=0, rtol=0)
+    lb = 256
+    q2, k2, v2 = odd(b, h, lb, d), odd(b, kvh, lb, d), odd(b, kvh, lb, d)
+    bias = torch.randn(2, 1, lb, lb + 3, generator=g)[..., 3:]   # base 12 bytes off
+    assert not bias_describable(bias)
+    got = long_mod.flash_attention_long(q2, k2, v2, bias)
+    torch.testing.assert_close(got, long_mod.flash_attention_long_reference(q2, k2, v2, bias),
+                               atol=0, rtol=0)
+    assert [(f.launches, f.bias_launches) for f in kernels] == before
+    assert long_mod.flash_attention_long.bias_copies == copies
