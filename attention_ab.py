@@ -27,9 +27,7 @@ inputs:
     output elements that differ from the plain version's
     (`flash_attention_reference`), for B2 the bias bytes its blocks read
     against its device time, and for B4-bias the largest difference of its
-    output from the parent's and this checkout's two grid orders (heads or
-    tiles fastest, `_heads_fastest`) timed in turns, with their outputs
-    compared bit for bit;
+    output from the parent's;
   * one forward of the full-width 8B (random weights from seed 0, bf16) at
     the served text batch (3 x 159 tokens, the head over one 32-token block),
     at the t2i CFG batch (the sampler's first forward, windowed head),
@@ -45,8 +43,7 @@ inputs:
     on the rows with no allowed key): CUDA events, 10 calls after 2 warm-up,
     and the device time of a call; beside them the largest difference of
     each output from the parent's, relative to the parent's largest entry
-    (lse: absolute); and this checkout's B3-dq on its persistent grid and on
-    one cluster per work item, in turns, compared bit for bit.
+    (lse: absolute).
 
 `--only forward` runs the first two, `--only backward` the third.
 
@@ -229,12 +226,9 @@ def relative_gap(got, want) -> float:
 
 def time_b3(b3: dict, emit) -> None:
     """B3's dq and dkv of both versions at the stage-1 training batch, in
-    turns, on the same inputs; then this checkout's two grids of B3-dq
-    (persistent, one cluster per work item) in turns, their outputs compared
-    bit for bit."""
+    turns, on the same inputs."""
     import torch
 
-    from mmada_tpu_torch.ops import flash_attention as fa
     from mmada_tpu_torch.ops.flash_attention import attention_delta, flash_attention
 
     b, h, l = chip_smoke.TRAIN_ROWS, 32, chip_smoke.TRAIN_FRAME
@@ -256,19 +250,6 @@ def time_b3(b3: dict, emit) -> None:
         device = in_turns(b3, lambda fns: device_ms(lambda: call(fns)))
         emit(dict(tag=f"{kernel} stage-1", shape=[b, h, h, l, l], ms=times, device_ms=device,
                   gap_to_parent=gap))
-
-    # this checkout's two grids of B3-dq: persistent (its wrapper's), and one
-    # cluster per work item
-    def dq_on(grid):
-        return lambda: fa._launch_bwd_dq(q, k, v, dout, delta, None, grid)
-
-    grids = {"persistent": dq_on(-1), "one cluster an item": dq_on(0)}
-    same = all(bool(torch.equal(a, b_)) for a, b_ in zip(grids["persistent"](),
-                                                        grids["one cluster an item"]()))
-    times = in_turns(grids, lambda fn: chip_smoke.cuda_ms(fn, 10))
-    device = in_turns(grids, lambda fn: device_ms(fn))
-    emit(dict(tag="B3-dq grid (this)", shape=[b, h, h, l, l], ms=times, device_ms=device,
-              bit_for_bit=same))
     del q, k, v, dout, delta, outs, grads, lse
     torch.cuda.empty_cache()
 
@@ -314,12 +295,8 @@ def time_b5(b5: dict, emit) -> None:
 
 def time_b4_bias(b4: dict, emit) -> None:
     """B4-bias of both versions at the long training batch with its masks,
-    in turns; then this checkout's two grid orders (heads fastest, as
-    `_heads_fastest` takes for this broadcast bias, and tiles fastest) in
-    turns, their outputs compared bit for bit."""
+    in turns, on the same inputs."""
     import torch
-
-    from mmada_tpu_torch.ops import flash_attention_long as long_mod
 
     b, h, l = chip_smoke.LONG_TRAIN_ROWS, 32, chip_smoke.LONG_FRAME
     q, k, v, _, _ = chip_smoke.attention_case(b, h, h, l, l, False, seed=17)
@@ -329,24 +306,6 @@ def time_b4_bias(b4: dict, emit) -> None:
     device = in_turns(b4, lambda fn: device_ms(lambda: fn(q, k, v, bias)))
     emit(dict(tag="B4-bias long train + mask", shape=[b, h, h, l, l], ms=times,
               device_ms=device, gap_to_parent=relative_gap(outs["this"], outs["parent"])))
-
-    chosen = long_mod._heads_fastest
-
-    def in_order(heads_fastest):
-        def call():
-            long_mod._heads_fastest = lambda _: heads_fastest
-            try:
-                return long_mod.flash_attention_long(q, k, v, bias)
-            finally:
-                long_mod._heads_fastest = chosen
-        return call
-
-    orders = {"heads fastest": in_order(1), "tiles fastest": in_order(0)}
-    same = bool(torch.equal(orders["heads fastest"](), orders["tiles fastest"]()))
-    times = in_turns(orders, lambda fn: chip_smoke.cuda_ms(fn, 10))
-    device = in_turns(orders, lambda fn: device_ms(fn))
-    emit(dict(tag="B4-bias grid order (this)", shape=[b, h, h, l, l], ms=times,
-              device_ms=device, bit_for_bit=same, chosen=chosen(bias)))
     del q, k, v, bias, outs
     torch.cuda.empty_cache()
 

@@ -38,10 +38,12 @@
 // L 387 takes 7 steps where 6.05 are needed (4 of 128 would need 3.02).
 // The dq kernel runs on a persistent grid: as many clusters as the card
 // holds at once, each walking several (tile pair, head, batch) items, its
-// ring running on from one item to the next (at the stage-1 batch 7% faster
-// than one cluster an item, on an H100). The dkv kernel runs one cluster an
-// item: walking items there made the shared body of the long tier's biased
-// dkv spill registers.
+// ring running on from one item to the next. An item's loads wait for the
+// item before's dq store, so the grid saves the launch, barrier set-up and
+// teardown of a cluster an item, not load latency (at the stage-1 batch 7%
+// faster than one cluster an item, on an H100). The dkv kernel runs one
+// cluster an item: walking items there made the shared body of the long
+// tier's biased dkv spill registers.
 //
 // B3-bias keeps the earlier design: every product is mma.sync m16n8k16
 // (bf16 operands, fp32 accumulators) fed by ldmatrix from shared memory;
@@ -265,20 +267,19 @@ bool bad_args(int B, int H, int KVH, int Lq, int Lk, int D) {
 // B3's dq: dq (B, H, Lq, D) bf16 and lse. `maps`: the wrapper's descriptions
 // (ops/tensor_maps.py, MAP_SPEC values each, every stride a multiple of 16
 // bytes) of q (boxes of 128 rows), k, v (64 rows), dO (128 rows) and dq (64
-// rows), then the grid: 0 one cluster per work item, -1 a persistent grid
-// (item_grid), whose clusters walk several items each.
+// rows). It runs on a persistent grid (item_grid), whose clusters walk
+// several items each.
 extern "C" int mmada_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* delta, void* dq, void* lse, int B, int H, int KVH, int Lq,
     int Lk, int D, const long long* maps, float scale, void* stream) {
   if (bad_args(B, H, KVH, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const void* bases[6] = {q, k, v, dout, dq, nullptr};
-  const int clusters = (int)maps[5 * MAP_SPEC];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D == 128 ? (int)launch_dq_wgmma<128, false, true>(bases, maps, delta, lse, B, H, KVH,
-                                                           Lq, Lk, scale, clusters, s)
+                                                           Lq, Lk, scale, s)
                   : (int)launch_dq_wgmma<64, false, true>(bases, maps, delta, lse, B, H, KVH,
-                                                          Lq, Lk, scale, clusters, s);
+                                                          Lq, Lk, scale, s);
 }
 
 // B3's dkv: dk, dv (B, KVH, Lk, D) bf16. `maps`: the descriptions of q

@@ -42,7 +42,8 @@
 // B operand of an accumulation (t . k; p^T . dO, ds^T . q), whose A operand
 // comes from registers. B3's dq kernel runs on a persistent grid (its
 // clusters walk several work items, the ring running on from one to the
-// next); the other kernels run one cluster a work item.
+// next; an item's loads start after the item before has stored its dq);
+// the other kernels run one cluster a work item.
 //
 // Registers bound the shapes (232 a consumer thread after setmaxnreg). The
 // dq kernel holds acc (64 x D), s and dp (64 x 64) and t's halves: 160 at D =
@@ -378,11 +379,13 @@ __device__ __forceinline__ void dq_step_normalised(float (&s)[32], const float (
 // `bias_heads` / `bias_batches`: the bias map's extents of those axes (1:
 // broadcast, read at index 0). Each cluster takes the work item (a pair of
 // query tiles, a head, a batch: cluster_item) of its index; with ONE_PASS it
-// walks on by the grid's clusters (B3's persistent grid: the ring runs on
-// from one item to the next, its loads of the next item's K tiles
-// overlapping this item's last products, and the resident tiles are
-// reloaded once both warpgroups' stores have read them, q_empty). On the
-// long tier's grid of one cluster an item the loop runs once.
+// walks on by the grid's clusters (B3's persistent grid: the ring's slots
+// and phases run on from one item to the next). The producer waits until
+// both warpgroups' dq stores have read the staged rows (q_empty) before it
+// loads the next item's resident tiles and then its K and V tiles, so those
+// loads do not overlap this item's products: the grid saves the launch,
+// barrier set-up and teardown of a cluster an item, not load latency. On
+// the long tier's grid of one cluster an item the loop runs once.
 template <int D, bool BIAS, bool ONE_PASS>
 __global__ void __cluster_dims__(ATT_PAIR, 1, 1) __launch_bounds__(ATT_THREADS, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -858,33 +861,31 @@ inline dim3 tile_grid(int tiles, int H, int B, bool heads_fastest) {
   return heads_fastest ? dim3(padded * H, 1, B) : dim3(padded, H, B);
 }
 
-// B3's 1-D grid over `items` work items (work_item): one cluster an item
-// (`clusters` 0), or a persistent grid (-1: as many clusters as the card
-// holds at once of `kernel` with `smem` bytes of shared memory a block, at
-// most one an item).
+// B3's persistent 1-D grid over `items` work items (work_item): as many
+// clusters as the card holds at once of `kernel` with `smem` bytes of shared
+// memory a block, at most one an item.
 template <class Kernel>
-cudaError_t item_grid(Kernel kernel, int smem, int items, int clusters, dim3* grid) {
-  if (clusters < 0) {
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(ATT_PAIR);
-    config.blockDim = dim3(ATT_THREADS);
-    config.dynamicSmemBytes = smem;
-    const cudaError_t err =
-        cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<void*>(kernel), &config);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-  }
-  *grid = dim3(ATT_PAIR * (clusters > 0 && clusters < items ? clusters : items));
+cudaError_t item_grid(Kernel kernel, int smem, int items, dim3* grid) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ATT_PAIR);
+  config.blockDim = dim3(ATT_THREADS);
+  config.dynamicSmemBytes = smem;
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<void*>(kernel), &config);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  *grid = dim3(ATT_PAIR * (clusters < items ? clusters : items));
   return cudaSuccess;
 }
 
 // The dq kernel on the operands at `bases` that `maps` describes (q, k, v,
-// dO, dq; with BIAS the bias, then the grid order), on item_grid's grid of
-// at most `clusters` clusters.
+// dO, dq; with BIAS the bias, then the grid order): with ONE_PASS on
+// item_grid's persistent grid, else one cluster an item (tile_grid).
 template <int D, bool BIAS, bool ONE_PASS>
 cudaError_t launch_dq_wgmma(const void* const bases[6], const long long* maps,
                             const void* delta, void* lse, int B, int H, int KVH, int Lq,
-                            int Lk, float scale, int clusters, cudaStream_t stream) {
+                            int Lk, float scale, cudaStream_t stream) {
   const long long* bias = maps + 5 * MAP_SPEC;
   if (!spec_is(maps, D, Lq, H, B, ATT_M) || !spec_is(maps + MAP_SPEC, D, Lk, KVH, B, STEP_N) ||
       !spec_is(maps + 2 * MAP_SPEC, D, Lk, KVH, B, STEP_N) ||
@@ -906,7 +907,7 @@ cudaError_t launch_dq_wgmma(const void* const bases[6], const long long* maps,
   dim3 grid = tile_grid(tiles, H, B, heads_fastest);
   if (ONE_PASS)
     err = item_grid(attn_bwd_dq_wgmma_kernel<D, BIAS, ONE_PASS>, smem,
-                    (tiles + ATT_PAIR - 1) / ATT_PAIR * H * B, clusters, &grid);
+                    (tiles + ATT_PAIR - 1) / ATT_PAIR * H * B, &grid);
   if (err != cudaSuccess) return err;
   attn_bwd_dq_wgmma_kernel<D, BIAS, ONE_PASS><<<grid, ATT_THREADS, smem, stream>>>(
           tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], static_cast<const float*>(delta),

@@ -505,9 +505,9 @@ extern "C" int mmada_flash_attention_long_bwd_dq_bf16(
   const void* bases[6] = {q, k, v, dout, dq, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D == 128 ? (int)launch_dq_wgmma<128, false, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                     Lk, scale, 0, s)
+                                                     Lk, scale, s)
                   : (int)launch_dq_wgmma<64, false, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                    Lk, scale, 0, s);
+                                                    Lk, scale, s);
 }
 
 // B5-dq-bias: B5-dq's `maps`, then the bias's (fp32, boxes of 32 columns
@@ -522,9 +522,9 @@ extern "C" int mmada_flash_attention_long_bwd_dq_bias_bf16(
   const void* bases[6] = {q, k, v, dout, dq, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D == 128 ? (int)launch_dq_wgmma<128, true, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                    Lk, scale, 0, s)
+                                                    Lk, scale, s)
                   : (int)launch_dq_wgmma<64, true, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                   Lk, scale, 0, s);
+                                                   Lk, scale, s);
 }
 
 // B5-dkv: dk, dv (B, KVH, Lk, D) bf16. `maps`: the descriptions of q (boxes

@@ -418,14 +418,12 @@ def _dkv_maps(q, k, v, dout, dk, dv, lse, delta) -> list:
             describe_rows(lse, STEP_ROWS), describe_rows(delta, STEP_ROWS)]
 
 
-def _launch_dq_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, delta, bias=None,
-                     grid=None):
+def _launch_dq_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, delta, bias=None):
     """(dq, lse) through a wgmma dq kernel, the C entry `mmada_<prefix>_dq_bf16`
     (`_dq_bias_bf16` with a bias) of the library built from
     `csrc/<source>.cu`: B3's or B5-dq's. q, k, v, dO (and the bias) are read
     through tensor maps, an operand no map describes copied first (a bias so
-    copied counts in `wrapper.bias_copies`); dq is stored by TMA. `grid`, for
-    B3's entry: 0 for one cluster per work item, -1 for a persistent grid."""
+    copied counts in `wrapper.bias_copies`); dq is stored by TMA."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)], aligned=False)
     q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
@@ -438,8 +436,6 @@ def _launch_dq_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, delta, bi
         maps.append(describe_bias(bias, TILE_ROWS))
         ptrs.append(bias.data_ptr())
         tail, name = (_heads_fastest(bias),), f"mmada_{prefix}_dq_bias_bf16"
-    if grid is not None:
-        tail = (*tail, grid)
     ptrs += [dq.data_ptr(), lse.data_ptr()]
     args = spec_array(*maps)
     args.extend(tail)
@@ -479,15 +475,14 @@ def _launch_dkv_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, lse, del
     return dk, dv
 
 
-def _launch_bwd_dq(q, k, v, dout, delta, bias, grid=-1):
+def _launch_bwd_dq(q, k, v, dout, delta, bias):
     """Check the operands, allocate (dq, lse) and launch B3's dq kernel (on
-    wgmma, `_launch_dq_wgmma`; `grid` -1: persistent, each cluster walking
-    several (tile pair, head, batch) items, its ring running on from one to
-    the next, 7% faster at the stage-1 batch on an H100 than 0, one cluster
-    per item) or B3-bias's (mma.sync, element strides)."""
+    wgmma, `_launch_dq_wgmma`, on a persistent grid: each cluster walks
+    several (tile pair, head, batch) items) or B3-bias's (mma.sync, element
+    strides)."""
     if bias is None:
         return _launch_dq_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dq, q, k, v,
-                                dout, delta, grid=grid)
+                                dout, delta)
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
