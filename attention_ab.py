@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Times the attention kernels B1, B2, B4 and B4-bias (the forwards), B3 (the
-one-pass backward) and B5 (the long training path's staged backward,
-unbiased and biased) against those of another checkout of the port, in turns
-on one NVIDIA GPU.
+"""Times the attention kernels B1, B2, B4 and B4-bias (the forwards), B3 and
+B3-bias (the one-pass backward), B5 (the long training path's staged
+backward, unbiased and biased) and the int4 matmul B6 against those of
+another checkout of the port, in turns on one NVIDIA GPU.
 
     python3 attention_ab.py PARENT_DIR [--out chiprun_out/attention_ab.json]
-                            [--only forward|backward]
+                            [--only forward|backward|int4]
 
 PARENT_DIR is an unpacked checkout of the commit to compare with (for
 example `git archive HEAD | tar -x -C chip_checkout`). Its kernels are built
 from its own `mmada_tpu_torch/ops/csrc` with its own `_build.py` and launched
-through their C entries with the signatures they had there: B1, B2, B4, and
-B5-dq and B5-dkv unbiased and biased, by tensor maps (as here, so through
-this checkout's wrappers); B3 and B4-bias by element strides (before their
-redesign on wgmma). This checkout's kernels run through its wrappers. Each
-measurement runs in the order parent, this, this, parent, on the same
-inputs:
+through their C entries with the signatures they had there. The parent's
+B1, B2, B3, B4, B4-bias and B5 (biased and not) must take tensor maps, as
+here, and run through this checkout's wrappers; so do its B3-bias and B6
+unless they are the earlier `mma.sync` bodies (its csrc still holds
+`flash_attention_dkv.cuh`), which are called directly, B3-bias with element
+strides and B6 with row strides.
+This checkout's kernels run through its wrappers. Each measurement runs in
+the order parent, this, this, parent, on the same inputs:
 
   * B1 at the t2i CFG batch (4 x 32 heads x 1,155 tokens, RoPE) and at the
     served text batch (3 x 32 x 159, RoPE), B2 at the t2i CFG batch with the
@@ -37,15 +39,22 @@ inputs:
     CUDA events, 3 calls after 1 warm-up, and the device time of the
     kernels a forward launches (3 forwards);
   * B3's dq and dkv at the stage-1 training batch (15 x 32 heads x 387
-    tokens), B5-dq and B5-dkv at the long training batch (2 x 32 heads x
-    8,192 tokens) and at 16,384 tokens (1 x 2 heads), and B5-dq-bias and
-    B5-dkv-bias at the long training batch with its masks (the cotangent 0
-    on the rows with no allowed key): CUDA events, 10 calls after 2 warm-up,
-    and the device time of a call; beside them the largest difference of
-    each output from the parent's, relative to the parent's largest entry
-    (lse: absolute).
+    tokens), unbiased and with the batch's masks (B3-bias, the cotangent 0
+    on the rows with no allowed key), B5-dq and B5-dkv at the long training
+    batch (2 x 32 heads x 8,192 tokens) and at 16,384 tokens (1 x 2 heads),
+    and B5-dq-bias and B5-dkv-bias at the long training batch with its
+    masks: CUDA events, 10 calls after 2 warm-up, and the device time of a
+    call; beside them the largest difference of each output from the
+    parent's, relative to the parent's largest entry (lse: absolute);
+  * B6 at the int4 8B's main-path shapes (`chip_smoke.int4_cases`, the
+    first eight: the served text batch's and the t2i CFG batch's matmuls
+    and heads): CUDA events, 10 calls after 2 warm-up, and the device time
+    of a call; beside them the bound (`chip_smoke.int4_bound`) and the
+    largest difference of the output from the parent's, in bf16 ulps of
+    the larger entry.
 
-`--only forward` runs the first two, `--only backward` the third.
+`--only forward` runs the first two, `--only backward` the third, `--only
+int4` the last.
 
 Prints one JSON line per measurement, the card's name and power limit as
 nvidia-smi reports them, and a summary JSON line last; with --out, writes
@@ -66,27 +75,30 @@ import chip_smoke
 
 
 def parent_kernels(parent_dir: str) -> dict:
-    """The attention kernels of the checkout at `parent_dir`, as callables
-    with the signatures of this checkout's wrappers: "forward"
+    """The kernels of the checkout at `parent_dir` (B1-B5 taking tensor
+    maps), as callables with the signatures of this checkout's wrappers: "forward"
     (`flash_attention`: B1, or B2 with a bias), "long" (B4, or B4-bias with a
-    bias), "dq" and "dkv" (B3's), "long_dq" and "long_dkv" (B5's, with an
-    optional bias). The entries of B1, B2, B4 and B5 (biased too) take the
-    operands' tensor maps, as this checkout's do, so they run through this
-    checkout's wrappers (`_through`); the parent's B3 and B4-bias (the
-    earlier mma.sync bodies) take element strides and are called
-    directly."""
+    bias), "dq" and "dkv" (B3's, or B3-bias's with a bias), "long_dq" and
+    "long_dkv" (B5's, with an optional bias), "int4" (B6). Entries that take
+    the operands' tensor maps, as this checkout's do, run through this
+    checkout's wrappers (`_through`); a parent's B3-bias and B6 from before
+    their wgmma bodies (`strides_b3_bias_and_b6`) take strides and are
+    called directly."""
     import torch
 
     from mmada_tpu_torch.ops import flash_attention as fa
     from mmada_tpu_torch.ops import flash_attention_long as long_mod
+    from mmada_tpu_torch.ops import int4_matmul as int4_mod
 
     path = os.path.join(parent_dir, "mmada_tpu_torch", "ops", "_build.py")
     spec = importlib.util.spec_from_file_location("parent_build", path)
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
-    build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long"])
+    build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long",
+                     "int4_matmul"])
     p, i = ctypes.c_void_p, ctypes.c_int
     by_strides = [ctypes.POINTER(ctypes.c_longlong)]
+    legacy = strides_b3_bias_and_b6(parent_dir)
 
     def entry(source, name, n_ptr, lists):
         fn = getattr(build.load_library(source), name)
@@ -109,16 +121,28 @@ def parent_kernels(parent_dir: str) -> dict:
     long_dkv = {bias: through(long_mod.attention_bwd_dkv_long, "flash_attention_long",
                               f"mmada_flash_attention_long_bwd_dkv{bias}_bf16", 8 + bool(bias))
                 for bias in ("", "_bias")}
-    b3_dq = entry("flash_attention_bwd", "mmada_flash_attention_bwd_dq_bf16", 7, by_strides)
-    b3_dkv = entry("flash_attention_bwd", "mmada_flash_attention_bwd_dkv_bf16", 8, by_strides)
-    b4_bias = entry("flash_attention_long", "mmada_flash_attention_long_fwd_bias_bf16", 5,
-                    by_strides)
+    b4_bias = through(long_mod.flash_attention_long, "flash_attention_long",
+                      "mmada_flash_attention_long_fwd_bias_bf16", 5)
+    b3_dq = {"": through(fa.attention_bwd_dq, "flash_attention_bwd",
+                         "mmada_flash_attention_bwd_dq_bf16", 7)}
+    b3_dkv = {"": through(fa.attention_bwd_dkv, "flash_attention_bwd",
+                          "mmada_flash_attention_bwd_dkv_bf16", 8)}
+    if legacy:
+        b3_dq["_bias"] = entry("flash_attention_bwd", "mmada_flash_attention_bwd_dq_bias_bf16",
+                               8, by_strides)
+        b3_dkv["_bias"] = entry("flash_attention_bwd",
+                                "mmada_flash_attention_bwd_dkv_bias_bf16", 9, by_strides)
+    else:
+        b3_dq["_bias"] = through(fa.attention_bwd_dq, "flash_attention_bwd",
+                                 "mmada_flash_attention_bwd_dq_bias_bf16", 8)
+        b3_dkv["_bias"] = through(fa.attention_bwd_dkv, "flash_attention_bwd",
+                                  "mmada_flash_attention_bwd_dkv_bias_bf16", 9)
 
-    def strides(*ts, bias=None):
+    def strides(*ts, bias):
+        """The element strides (batch, head, row) of each operand, then the
+        bias's (0 on a broadcast axis): the strides entries' layout."""
         flat = [s for t in ts for s in t.stride()[:3]]
-        if bias is not None:
-            b, h, lq, lk = ts[0].shape[0], ts[0].shape[1], bias.shape[2], bias.shape[3]
-            flat += fa._bias_strides(bias, b, h, lq, lk, bias.device)
+        flat += [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3)]
         return (ctypes.c_longlong * len(flat))(*flat)
 
     def run(fn, *args):
@@ -131,32 +155,54 @@ def parent_kernels(parent_dir: str) -> dict:
         return call(q, k, v, rope_sin=rope_sin, rope_cos=rope_cos, bias=bias)
 
     def long_forward(q, k, v, bias=None):
-        if bias is None:
-            return b4(q, k, v)
-        b, h, lq, d = q.shape
-        out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-        run(b4_bias, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias.data_ptr(),
-            b, h, k.shape[1], lq, k.shape[2], d, strides(q, k, v, out, bias=bias),
-            1.0 / d ** 0.5)
-        return out
+        return b4(q, k, v) if bias is None else b4_bias(q, k, v, bias)
 
-    def dq(q, k, v, dout, delta):
+    def dq(q, k, v, dout, delta, bias=None):
+        if bias is None or not legacy:
+            return b3_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
         b, h, lq, d = q.shape
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
         lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-        run(b3_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], lq, k.shape[2], d,
-            strides(q, k, v, dout, out), 1.0 / d ** 0.5)
+        run(b3_dq["_bias"], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            delta.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, k.shape[1],
+            lq, k.shape[2], d, strides(q, k, v, dout, out, bias=bias), 1.0 / d ** 0.5)
         return out, lse
 
-    def dkv(q, k, v, dout, lse, delta):
+    def dkv(q, k, v, dout, lse, delta, bias=None):
+        if bias is None or not legacy:
+            return b3_dkv["" if bias is None else "_bias"](q, k, v, dout, lse, delta, bias)
         b, h, lq, d = q.shape
         dk = torch.empty_like(k, memory_format=torch.contiguous_format)
         dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-        run(b3_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], lq, k.shape[2],
-            d, strides(q, k, v, dout, dk, dv), 1.0 / d ** 0.5)
+        run(b3_dkv["_bias"], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+            k.shape[1], lq, k.shape[2], d, strides(q, k, v, dout, dk, dv, bias=bias),
+            1.0 / d ** 0.5)
         return dk, dv
+
+    b6 = getattr(build.load_library("int4_matmul"), "mmada_int4_matmul_bf16")
+    if legacy:
+        b6.argtypes = [p] * 4 + [i] * 3 + [ctypes.c_longlong] * 3 + [p]
+    else:
+        b6.argtypes = [p] * 4 + [i] * 3 + [p, p]
+    b6.restype = ctypes.c_int
+
+    def int4(x, packed, scales):
+        if not legacy:
+            own = int4_mod._fn
+            int4_mod._fn = b6
+            try:
+                return int4_mod.int4_matmul(x, packed, scales)
+            finally:
+                int4_mod._fn = own
+        (m, k), n = x.shape, packed.shape[1]
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+        err = b6(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
+                 x.stride(0), packed.stride(0), scales.stride(0),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent mmada_int4_matmul_bf16 failed: cudaError {err}")
+        return out
 
     def b5_dq(q, k, v, dout, delta, bias=None):
         return long_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
@@ -165,7 +211,15 @@ def parent_kernels(parent_dir: str) -> dict:
         return long_dkv["" if bias is None else "_bias"](q, k, v, dout, lse, delta, bias)
 
     return {"forward": forward, "long": long_forward, "dq": dq, "dkv": dkv,
-            "long_dq": b5_dq, "long_dkv": b5_dkv}
+            "long_dq": b5_dq, "long_dkv": b5_dkv, "int4": int4}
+
+
+def strides_b3_bias_and_b6(parent_dir: str) -> bool:
+    """Whether the parent's B3-bias and B6 entries take strides (their
+    mma.sync bodies: its csrc still holds flash_attention_dkv.cuh) rather
+    than tensor maps."""
+    return os.path.exists(os.path.join(parent_dir, "mmada_tpu_torch", "ops", "csrc",
+                                       "flash_attention_dkv.cuh"))
 
 
 def _through(wrapper, name: str, fn):
@@ -225,33 +279,61 @@ def relative_gap(got, want) -> float:
 
 
 def time_b3(b3: dict, emit) -> None:
-    """B3's dq and dkv of both versions at the stage-1 training batch, in
-    turns, on the same inputs."""
+    """B3's dq and dkv of both versions at the stage-1 training batch, and
+    B3-bias's with the batch's masks (the cotangent 0 on the rows with no
+    allowed key), in turns, on the same inputs."""
     import torch
 
     from mmada_tpu_torch.ops.flash_attention import attention_delta, flash_attention
 
     b, h, l = chip_smoke.TRAIN_ROWS, 32, chip_smoke.TRAIN_FRAME
-    q, k, v, _, _ = chip_smoke.attention_case(b, h, h, l, l, False, seed=15)
-    dout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(16),
-                       device="cuda").to(torch.bfloat16)
-    delta = attention_delta(flash_attention(q, k, v), dout)
-    outs = {name: fns[0](q, k, v, dout, delta) for name, fns in b3.items()}
-    lse = outs["parent"][1]
-    grads = {name: fns[1](q, k, v, dout, lse, delta) for name, fns in b3.items()}
-    gap = {"dq": relative_gap(outs["this"][0], outs["parent"][0]),
-           "lse_abs": float((outs["this"][1] - lse).abs().max()),
-           "dk": relative_gap(grads["this"][0], grads["parent"][0]),
-           "dv": relative_gap(grads["this"][1], grads["parent"][1])}
-    calls = (("B3-dq", lambda fns: fns[0](q, k, v, dout, delta)),
-             ("B3-dkv", lambda fns: fns[1](q, k, v, dout, lse, delta)))
-    for kernel, call in calls:
-        times = in_turns(b3, lambda fns: chip_smoke.cuda_ms(lambda: call(fns), 10))
-        device = in_turns(b3, lambda fns: device_ms(lambda: call(fns)))
-        emit(dict(tag=f"{kernel} stage-1", shape=[b, h, h, l, l], ms=times, device_ms=device,
-                  gap_to_parent=gap))
-    del q, k, v, dout, delta, outs, grads, lse
-    torch.cuda.empty_cache()
+    for masked in (False, True):
+        q, k, v, _, _ = chip_smoke.attention_case(b, h, h, l, l, False, seed=15)
+        bias = chip_smoke.train_mask_bias() if masked else None
+        dout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(16),
+                           device="cuda").to(torch.bfloat16)
+        if masked:
+            dout = dout * chip_smoke.live_rows(bias, dout.shape)
+        delta = attention_delta(flash_attention(q, k, v, bias=bias), dout)
+        outs = {name: fns[0](q, k, v, dout, delta, bias) for name, fns in b3.items()}
+        lse = outs["parent"][1]
+        grads = {name: fns[1](q, k, v, dout, lse, delta, bias) for name, fns in b3.items()}
+        gap = {"dq": relative_gap(outs["this"][0], outs["parent"][0]),
+               "lse_abs": float((outs["this"][1] - lse).abs().max()),
+               "dk": relative_gap(grads["this"][0], grads["parent"][0]),
+               "dv": relative_gap(grads["this"][1], grads["parent"][1])}
+        suffix = "-bias" if masked else ""
+        calls = ((f"B3-dq{suffix}", lambda fns: fns[0](q, k, v, dout, delta, bias)),
+                 (f"B3-dkv{suffix}", lambda fns: fns[1](q, k, v, dout, lse, delta, bias)))
+        for kernel, call in calls:
+            times = in_turns(b3, lambda fns: chip_smoke.cuda_ms(lambda: call(fns), 10))
+            device = in_turns(b3, lambda fns: device_ms(lambda: call(fns)))
+            emit(dict(tag=f"{kernel} stage-1{' + mask' if masked else ''}",
+                      shape=[b, h, h, l, l], ms=times, device_ms=device, gap_to_parent=gap))
+        del q, k, v, dout, delta, outs, grads, lse, bias
+        torch.cuda.empty_cache()
+
+
+def time_b6(b6: dict, emit) -> None:
+    """B6 of both versions at the int4 8B's main-path shapes, in turns, on the
+    same operands (`chip_smoke.int4_operands`)."""
+    import torch
+
+    from mmada_tpu_torch.models import llada
+
+    for i, (tag, m, k, n, view) in enumerate(chip_smoke.int4_cases(llada.llada_8b())[:8]):
+        x, packed, scales = chip_smoke.int4_operands(m, k, n, view, seed=900 + i)
+        outs = {name: fn(x, packed, scales) for name, fn in b6.items()}
+        got, want = outs["this"].float(), outs["parent"].float()
+        _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+        ulps = float(((got - want).abs() / torch.ldexp(torch.ones_like(got), exp - 8)).max())
+        times = in_turns(b6, lambda fn: chip_smoke.cuda_ms(lambda: fn(x, packed, scales), 10))
+        device = in_turns(b6, lambda fn: device_ms(lambda: fn(x, packed, scales)))
+        bound_ms, bound_by = chip_smoke.int4_bound(m, k, n)
+        emit(dict(tag=f"B6 {tag}", shape=[m, k, n], ms=times, device_ms=device,
+                  bound_ms=bound_ms, bound_by=bound_by, ulps_from_parent=ulps))
+        del x, packed, scales, outs, got, want
+        torch.cuda.empty_cache()
 
 
 def time_b5(b5: dict, emit) -> None:
@@ -316,7 +398,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_dir")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", choices=("forward", "backward"), default=None)
+    ap.add_argument("--only", choices=("forward", "backward", "int4"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_ab: no CUDA device", file=sys.stderr)
@@ -344,19 +426,23 @@ def main() -> int:
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
-    _build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long"])
+    from mmada_tpu_torch.ops.int4_matmul import int4_matmul
+
+    _build.build_all()
     parent = parent_kernels(args.parent_dir)
     b1 = {"parent": parent["forward"], "this": flash_attention}
     b4 = {"parent": parent["long"], "this": flash_attention_long}
     b3 = {"parent": (parent["dq"], parent["dkv"]), "this": (attention_bwd_dq, attention_bwd_dkv)}
     b5 = {"parent": (parent["long_dq"], parent["long_dkv"]),
           "this": (attention_bwd_dq_long, attention_bwd_dkv_long)}
-    if args.only != "forward":
+    if args.only in (None, "backward"):
         time_b3(b3, emit)
         time_b5(b5, emit)
-    if args.only != "backward":
+    if args.only in (None, "forward"):
         time_b4_bias(b4, emit)
         time_forwards(b1, b4, emit)
+    if args.only in (None, "int4"):
+        time_b6({"parent": parent["int4"], "this": int4_matmul}, emit)
     print(smi, flush=True)
     summary = {r["tag"]: {name: t["mean"] for name, t in r["ms"].items()} for r in records}
     print(json.dumps({"card": smi, "mean_ms": summary}), flush=True)

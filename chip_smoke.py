@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `mmada_tpu_torch/ops/csrc` (nvcc, cold),
-checks that the wgmma kernels B1, B2, B3 (dq and dkv), B4, B4-bias, B5-dq
-and B5-dkv (the last two unbiased and biased) hold `wgmma` (HGMMA) and TMA
-load (UTMALDG) instructions in their SASS and that ptxas spilled nothing of
+checks that every kernel (B1, B2, B3 and B3-bias (dq and dkv), B4, B4-bias,
+B5-dq and B5-dkv (unbiased and biased), B6) holds `wgmma` (HGMMA) and TMA
+load (UTMALDG) instructions in its SASS and that ptxas spilled nothing of
 theirs, holds each kernel against its plain PyTorch version (B1 and B2
 also by the share of their outputs that differ, B2 with a zero bias against
 B1 bit for bit) at the shapes the serving and training paths give it: the
@@ -15,7 +15,7 @@ the long tier past
 4096 tokens (B4, B5-dq and B5-dkv, without and with a bias, at 8,192 tokens,
 at 16,384, under GQA and rectangular), the one-pass tier on an unaligned
 length past 4096, and the int4 matmul (B6) at the shapes of the int4
-model's matmuls. It runs
+model's matmuls (with its share of its bound at each). It runs
 and trains a small model through the kernels against the fp32 CPU path
 (without and with attention masks; an int4 forward through B6; a W8A8
 straight-through train step), builds the full-width 8B (random weights, made
@@ -417,26 +417,28 @@ def check_zero_bias(h: int) -> None:
         raise AssertionError("B2 with a zero bias differs from B1")
 
 
-# the wgmma kernels by library, as the start of their mangled names: B1, B2;
-# B3's dq and dkv (the backward bodies with ONE_PASS); B4, B4-bias, B5-dq and
-# B5-dkv unbiased and biased; each at D 64 and 128
+# the kernels by library, every one on wgmma, as the start of their mangled
+# names: B1, B2; B3's and B3-bias's dq and dkv (the backward bodies with
+# ONE_PASS, unbiased and biased); B4, B4-bias, B5-dq and B5-dkv unbiased and
+# biased; each at D 64 and 128; B6 with tiles of 128 and 256 rows
 WGMMA_KERNELS = {
     "flash_attention_fwd": [f"{k}ILi{d}E" for d in (64, 128)
                             for k in ("attn_fwd_wgmma_kernel", "attn_fwd_bias_wgmma_kernel")],
-    "flash_attention_bwd": [f"{k}ILi{d}ELb0ELb1E" for d in (64, 128)
+    "flash_attention_bwd": [f"{k}ILi{d}ELb{bias}ELb1E" for d in (64, 128) for bias in (0, 1)
                             for k in ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel")],
     "flash_attention_long": (
         [f"{k}ILi{d}E" for d in (64, 128)
          for k in ("attn_long_fwd_wgmma_kernel", "attn_long_fwd_bias_wgmma_kernel")]
         + [f"{k}ILi{d}ELb{bias}ELb0E" for d in (64, 128) for bias in (0, 1)
            for k in ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel")]),
+    "int4_matmul": [f"int4_matmul_wgmma_kernelILi{mb}E" for mb in (1, 2)],
 }
 
 
 def check_sass() -> dict:
-    """Per wgmma kernel of the built one-pass, one-pass backward and
-    long-tier libraries (WGMMA_KERNELS: B1, B2, B3-dq, B3-dkv, B4, B4-bias,
-    B5-dq, B5-dkv, B5-dq-bias, B5-dkv-bias at D 64 and 128), the count of
+    """Per kernel of the built libraries (WGMMA_KERNELS: B1, B2, B3-dq,
+    B3-dkv, B3-dq-bias, B3-dkv-bias, B4, B4-bias, B5-dq, B5-dkv, B5-dq-bias,
+    B5-dkv-bias at D 64 and 128; B6 at both tile heights), the count of
     HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
     its SASS (`cuobjdump -sass`) and, after a cold build, its ptxas lines;
     fails if HGMMA or UTMALDG is missing, if ptxas spilled any register of
@@ -959,11 +961,12 @@ def int4_cases(cfg):
     """(tag, M, K, N, view) of B6 at the int4 8B's matmuls: the served text
     batch (3 x 159 rows) at q/k/v/attn_out, ff_proj/up_proj and ff_out, its
     head over one block's positions (3 x 32 rows, the whole vocab), the t2i
-    CFG batch (4 x 1,155) at ff_proj/up_proj, the t2i head's column window
-    (4 x 1,024 rows, the 8,192 image ids of the packed head, read in place),
-    a bytes-bound case (16 rows), ragged rows (1, 17, 130), one group (K
-    128), and one layer of a stacked weight (`packed[i]`). `view` is
-    "window", "layer" or None."""
+    CFG batch (4 x 1,155) at ff_proj/up_proj, q/k/v/attn_out and ff_out, the
+    t2i head's column window (4 x 1,024 rows, the 8,192 image ids of the
+    packed head, read in place), a bytes-bound case (16 rows), ragged rows
+    (1, 17, 130), one group (K 128), and one layer of a stacked weight
+    (`packed[i]`). `view` is "window", "layer" or None. The first eight are
+    the main paths' shapes."""
     from mmada_tpu_torch.core.vocab import MMADA_8B
 
     d, f, v = cfg.d_model, cfg.hidden_size, cfg.effective_vocab_size
@@ -976,6 +979,8 @@ def int4_cases(cfg):
         ("text ff_out", text, f, d, None),
         ("text head", len(TEXT_PROMPTS) * TEXT_SETTINGS["block_length"], d, v, None),
         ("t2i CFG ff_proj/up_proj", t2i, d, f, None),
+        ("t2i CFG q/k/v/attn_out", t2i, d, d, None),
+        ("t2i CFG ff_out", t2i, f, d, None),
         ("t2i head window", 2 * len(T2I_PROMPTS) * T2I_SETTINGS["num_vq_tokens"], d, hi - lo,
          "window"),
         ("bytes-bound 16 rows", 16, d, v, None),
@@ -1060,24 +1065,28 @@ def check_int4_kernel(cases):
             max_err, ok = within_one_ulp(out, ref)
             lib_rel = float((lib.float() - ref.float()).norm() / ref.float().norm())
             bound_ms, bound_by = int4_bound(m, k, n)
+            again = int4_matmul(x, packed, scales)
             rec = dict(tag=tag, shape=[m, k, n], view=view, max_abs_err=max_err,
+                       repeat_bit_for_bit=bool(torch.equal(again, out)),
                        ms=cuda_ms(lambda: int4_matmul(x, packed, scales), 10),
                        plain_ms=cuda_ms(lambda: int4_matmul_reference(x, packed, scales), 3, 1),
                        library_ms=cuda_ms(
                            lambda: torch._weight_int4pack_mm(x, weight, GROUP, scales_and_zeros),
                            10),
                        library_rel_l2=lib_rel, bound_ms=bound_ms, bound_by=bound_by)
+            rec["share_of_bound"] = bound_ms / rec["ms"]
             log("int4 kernel", json.dumps(rec))
-            if not ok:
+            if not (ok and rec["repeat_bit_for_bit"]):
                 raise AssertionError(
                     f"int4_matmul disagrees with its plain version on {tag}: max abs err "
-                    f"{max_err} (one bf16 ulp + {LONG_ABS_FLOOR})")
+                    f"{max_err} (one bf16 ulp + {LONG_ABS_FLOOR}); a repeated call the same "
+                    f"bits: {rec['repeat_bit_for_bit']}")
             if not lib_rel <= INT4_LIBRARY_REL_L2:
                 raise AssertionError(
                     f"the library int4 matmul computes another function on {tag}: rel L2 "
                     f"{lib_rel} (limit {INT4_LIBRARY_REL_L2})")
             records.append(rec)
-            del x, packed, scales, out, ref, weight, scales_and_zeros, lib
+            del x, packed, scales, out, again, ref, weight, scales_and_zeros, lib
     free_memory()
     return records
 
@@ -1324,11 +1333,11 @@ def main() -> int:
                                          attention_bwd_dkv_long))
                 for attr in ("launches", "bias_launches") for fn in tier]
     counters.append((int4_matmul, "launches"))
-    # the wrappers that copy a bias no tensor map describes (B2, B4-bias,
-    # B5-dq-bias, B5-dkv-bias): the model builds its bias so that none is
-    # copied
-    copiers = (flash_attention, flash_attention_long, attention_bwd_dq_long,
-               attention_bwd_dkv_long)
+    # the wrappers that copy a bias no tensor map describes (B2, B3-bias,
+    # B4-bias, B5-dq-bias, B5-dkv-bias): the model builds its bias so that
+    # none is copied
+    copiers = (flash_attention, attention_bwd_dq, attention_bwd_dkv, flash_attention_long,
+               attention_bwd_dq_long, attention_bwd_dkv_long)
 
     def reset_counts():
         for fn, attr in counters:
@@ -1565,12 +1574,10 @@ def main() -> int:
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
     kernels = [kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
-                             launches + train_launches[0], one_pass, main_rec,
-                             design=WGMMA_DESIGN),
+                             launches + train_launches[0], one_pass, main_rec),
                kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                              masked_serve[0] + masked_train[0],
-                             [r for r in records if r["bias"] is not None], masked_rec,
-                             design=WGMMA_DESIGN)]
+                             [r for r in records if r["bias"] is not None], masked_rec)]
     plain_bwd = [r for r in bwd_records if r["bias"] is None] + [unaligned["bwd"]]
     biased_bwd = [r for r in bwd_records if r["bias"] is not None]
     long_fwd = [r for r in long_records if r["bias"] is None]
@@ -1578,44 +1585,37 @@ def main() -> int:
     long_bwd = [r for r in long_bwd_records if r["bias"] is None]
     long_bwd_bias = [r for r in long_bwd_records if r["bias"] is not None]
     int4_main = next(r for r in int4_records if r["tag"].startswith("t2i CFG"))
-    kernels.append(kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches,
-                                 int4_records, int4_main, replaces="int4_matmul.py",
-                                 design="mma.sync, W tile expanded in shared memory"))
+    main_shapes = int4_records[:8]
+    kernels.append(dict(
+        kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches, int4_records,
+                      int4_main, replaces="int4_matmul.py"),
+        main_path_shapes=[{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "share_of_bound",
+                                             "plain_ms", "library_ms")} for r in main_shapes]))
     kernels += [
         kernel_record("flash_attention_long_fwd", "flash_attention_long.cu", "471,392",
                       long_text_launches[2][0] + long_train[2][0], long_fwd,
-                      next(r for r in long_fwd if r["tag"].startswith("long text")),
-                      design=WGMMA_DESIGN),
+                      next(r for r in long_fwd if r["tag"].startswith("long text"))),
         kernel_record("flash_attention_long_fwd_bias", "flash_attention_long.cu", "497,418",
                       masked_long[3][0], long_fwd_bias,
-                      next(r for r in long_fwd_bias if r["tag"].startswith("masked long")),
-                      design=WGMMA_DESIGN),
+                      next(r for r in long_fwd_bias if r["tag"].startswith("masked long"))),
     ]
 
-    def bwd_record(name, source, line, key, count, recs, design):
-        return kernel_record(name, source, line, count,
+    def bwd_record(name, key, line, count, recs):
+        return kernel_record(name, "flash_attention_bwd_wgmma.cuh", line, count,
                              [dict(r[key], library_ms=r["library_ms"]) for r in recs],
-                             dict(recs[0][key], library_ms=recs[0]["library_ms"]),
-                             design=design)
+                             dict(recs[0][key], library_ms=recs[0]["library_ms"]))
 
-    for name, source, key, line, count, recs, design in (
-            ("flash_attention_bwd_dq", "flash_attention_bwd_wgmma.cuh", "dq", "895",
-             train_launches[1], plain_bwd, WGMMA_DESIGN),
-            ("flash_attention_bwd_dkv", "flash_attention_bwd_wgmma.cuh", "dkv", "963",
-             train_launches[2], plain_bwd, WGMMA_DESIGN),
-            ("flash_attention_bwd_dq_bias", "flash_attention_bwd.cu", "dq", "746",
-             masked_train[1], biased_bwd, MMA_DESIGN),
-            ("flash_attention_bwd_dkv_bias", "flash_attention_dkv.cuh", "dkv", "799",
-             masked_train[2], biased_bwd, MMA_DESIGN),
-            ("flash_attention_long_bwd_dq", "flash_attention_bwd_wgmma.cuh", "dq", "1185",
-             long_train[2][1], long_bwd, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dq_bias", "flash_attention_bwd_wgmma.cuh", "dq", "1185",
-             masked_long[3][1], long_bwd_bias, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dkv", "flash_attention_bwd_wgmma.cuh", "dkv", "1240",
-             long_train[2][2], long_bwd, WGMMA_DESIGN),
-            ("flash_attention_long_bwd_dkv_bias", "flash_attention_bwd_wgmma.cuh", "dkv",
-             "1240", masked_long[3][2], long_bwd_bias, WGMMA_DESIGN)):
-        kernels.append(bwd_record(name, source, line, key, count, recs, design))
+    for name, key, line, count, recs in (
+            ("flash_attention_bwd_dq", "dq", "895", train_launches[1], plain_bwd),
+            ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2], plain_bwd),
+            ("flash_attention_bwd_dq_bias", "dq", "746", masked_train[1], biased_bwd),
+            ("flash_attention_bwd_dkv_bias", "dkv", "799", masked_train[2], biased_bwd),
+            ("flash_attention_long_bwd_dq", "dq", "1185", long_train[2][1], long_bwd),
+            ("flash_attention_long_bwd_dq_bias", "dq", "1185", masked_long[3][1], long_bwd_bias),
+            ("flash_attention_long_bwd_dkv", "dkv", "1240", long_train[2][2], long_bwd),
+            ("flash_attention_long_bwd_dkv_bias", "dkv", "1240", masked_long[3][2],
+             long_bwd_bias)):
+        kernels.append(bwd_record(name, key, line, count, recs))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1847,22 +1847,19 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
         f"{sum(attn_ms.values()) / step_ms:.1%})")
 
 
-# how each kernel of the JSON line is built: the wgmma kernels (B1, B2, B3,
-# B4, B4-bias, B5-dq, B5-dkv, unbiased and biased) and those that keep the
-# earlier warp-level design (B3-bias)
+# how every kernel of the JSON line is built
 WGMMA_DESIGN = "wgmma + TMA, producer and two consumer warpgroups"
-MMA_DESIGN = "mma.sync + cp.async, four warps"
 
 
 def kernel_record(name, source, line, launches, recs, main_rec,
-                  replaces="flash_attention.py", design=MMA_DESIGN) -> dict:
+                  replaces="flash_attention.py") -> dict:
     """One kernel's entry of the JSON line: times at its main-path case, the
     largest error over all its cases. `source` is the file in `ops/csrc` that
     holds the kernel's body, `replaces` the file in `mmada_tpu/ops` of the
-    TPU kernel and `line` its line(s), `design` how it is built."""
+    TPU kernel and `line` its line(s)."""
     return {
         "name": name,
-        "design": design,
+        "design": WGMMA_DESIGN,
         "route": "cuda",
         "source": f"mmada_tpu_torch/ops/csrc/{source}",
         "replaces": f"mmada_tpu/ops/{replaces}:{line}",

@@ -43,7 +43,7 @@
 // comes from registers. B3's dq kernel runs on a persistent grid (its
 // clusters walk several work items, the ring running on from one to the
 // next; an item's loads start after the item before has stored its dq);
-// the other kernels run one cluster a work item.
+// the other kernels, B3-bias's dq too, run one cluster a work item.
 //
 // Registers bound the shapes (232 a consumer thread after setmaxnreg). The
 // dq kernel holds acc (64 x D), s and dp (64 x 64) and t's halves: 160 at D =
@@ -68,17 +68,20 @@
 // barrier beside the TMA bytes. The long tier's lengths are multiples of 128
 // and never reach those edges.
 //
-// With a bias (BIAS true: B5-dq-bias, B5-dkv-bias), each step's fp32 bias
-// tile comes by TMA into a ring of its own, BIAS_SLOTS slots on their own
-// barriers (the block's own rows: dq's 128 query rows x 64 keys, dkv's 64
-// query rows x 128 keys, both 32 KB, in boxes of 32 keys), beside a K/V
-// (q/dO) ring of three slots, so that 224 KB of shared memory hold it all. A
-// bias slot is released as soon as the step's exps have read it. The scores
-// are then formed as the function has them, x = round(round(s * scale) +
-// bias), with the max and lse in natural units: log2 units would turn a
-// mask's finite min into -inf and a row that the mask shuts out entirely
-// into NaN, where it averages v (p = 1 on each key; lse = the finite min).
-// Only the difference to the max goes to log2 units, exp2((x - m) log2 e).
+// With a bias (BIAS true: B5-dq-bias, B5-dkv-bias; with ONE_PASS B3-bias),
+// each step's fp32 bias tile comes by TMA into a ring of its own, BIAS_SLOTS
+// slots on their own barriers (the block's own rows: dq's 128 query rows x
+// 64 keys, dkv's 64 query rows x 128 keys, both 32 KB, in boxes of 32 keys),
+// beside a K/V (q/dO) ring of three slots, so that 224 KB of shared memory
+// hold it all. A bias slot is released as soon as the step's exps have read
+// it (B3-dq reads each key tile's bias twice: its pass 1 loads every K tile
+// with its bias tile). The scores are then formed as the function has them,
+// x = round(round(s * scale) + bias), with the max and lse in natural units:
+// log2 units would turn a mask's finite min into -inf and a row that the
+// mask shuts out entirely into NaN, where it averages v (p = 1 on each key;
+// lse = the finite min). Only the difference to the max goes to log2 units,
+// exp2((x - m) log2 e). B3's keys past Lk (TMA zero-fills K and the bias
+// there, so x = 0) are masked after the bias is added, in both passes.
 // The bias values are read from shared memory inside the loop that forms p,
 // not held beside s, dp and the halves. A bias broadcast over the heads is
 // read by every head of a batch row: with `heads_fastest` the grid runs a
@@ -289,6 +292,23 @@ __device__ __forceinline__ void dq_produce(const DqSmem<D, STAGES, BIAS, RESIDEN
   }
 }
 
+// x = round(round(s * scale) + bias) in place for this thread's 64 x 64
+// scores (dq's tile rows `row` and row + 8: the bias tile's rows), as the
+// forward forms them.
+__device__ __forceinline__ void add_bias_rows(float (&s)[32], const unsigned char* bias,
+                                              int row, int tq, float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bv = *bias_row_pair(bias, ATT_M * 128, row, 0, tq, n, r);
+      float& x0 = s[4 * n + 2 * r];
+      float& x1 = s[4 * n + 2 * r + 1];
+      x0 = __fadd_rn(__fmul_rn(x0, scale), bv.x);
+      x1 = __fadd_rn(__fmul_rn(x1, scale), bv.y);
+    }
+}
+
 // The long tier's online step for one tile of 64 keys: s (fp32, unscaled
 // scores) and, for B5-dq, dp (dO . v^T) in; the new row max m, p = exp(s -
 // m), l = l a + rowsum(p) (this thread's part), acc rescaled by a, and t as
@@ -303,18 +323,11 @@ __device__ __forceinline__ void dq_step(float (&acc)[D / 2], float (&s)[32],
                                         uint32_t (&lo)[4][4], float scale, float c,
                                         const unsigned char* bias, int row, int tq) {
   float a[2];
+  if constexpr (BIAS) add_bias_rows(s, bias, row, tq, scale);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float m_new;
     if constexpr (BIAS) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 bv = *bias_row_pair(bias, ATT_M * 128, row, 0, tq, n, r);
-        float& x0 = s[4 * n + 2 * r];
-        float& x1 = s[4 * n + 2 * r + 1];
-        x0 = __fadd_rn(__fmul_rn(x0, scale), bv.x);
-        x1 = __fadd_rn(__fmul_rn(x1, scale), bv.y);
-      }
       m_new = fmaxf(m[r], row_max(s, r));
       a[r] = exp2f(__fmul_rn(m[r] - m_new, LOG2E));
     } else {
@@ -350,12 +363,18 @@ __device__ __forceinline__ void dq_step(float (&acc)[D / 2], float (&s)[32],
 // units, c = scale log2 e) and row sum l, the division as a multiply by the
 // row's correctly rounded reciprocal `inv` and one FMA correction step, as
 // B1's pass 2; keys past Lk at p = 0; ds = p (dp - delta), rounded once to
-// bf16, as the register-A operand `ds`.
+// bf16, as the register-A operand `ds`. With a bias (B3-bias), s becomes x
+// = round(round(s * scale) + bias) (the bias tile's rows `row` and row + 8)
+// before the keys past Lk are masked, m is in natural units, and p = exp2((x
+// - m) log2 e) / l.
+template <bool BIAS>
 __device__ __forceinline__ void dq_step_normalised(float (&s)[32], const float (&dp)[32],
                                                    const float m[2], const float l[2],
                                                    const float inv[2], const float delta[2],
-                                                   uint32_t (&ds)[4][4], float c, int key0,
-                                                   int Lk, int tq) {
+                                                   uint32_t (&ds)[4][4], float scale, float c,
+                                                   const unsigned char* bias, int row,
+                                                   int key0, int Lk, int tq) {
+  if constexpr (BIAS) add_bias_rows(s, bias, row, tq, scale);
   mask_keys(s, key0, Lk, tq);
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb)
@@ -366,7 +385,8 @@ __device__ __forceinline__ void dq_step_normalised(float (&s)[32], const float (
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int i = 8 * kb + 2 * e + u;
-        const float ex = exp2_approx(fmaf(s[i], c, -m[r]));
+        const float ex = BIAS ? exp2_approx(__fmul_rn(s[i] - m[r], LOG2E))
+                              : exp2_approx(fmaf(s[i], c, -m[r]));
         const float y = ex * inv[r];
         const float p = fmaf(inv[r], fmaf(-y, l[r], ex), y);
         x[u] = p * (dp[i] - delta[r]);
@@ -375,17 +395,20 @@ __device__ __forceinline__ void dq_step_normalised(float (&s)[32], const float (
     }
 }
 
-// Kernel B5-dq (B5-dq-bias with BIAS; B3's dq kernel with ONE_PASS).
+// Kernel B5-dq (B5-dq-bias with BIAS; B3's dq kernel with ONE_PASS, B3-bias's
+// with both). Only B3's walks work items (PERSISTENT): B3-bias's, its
+// consumers holding the bias reads beside the item loop, spilled 16 bytes at
+// D = 128 on the persistent grid, so it runs one cluster an item.
 // `bias_heads` / `bias_batches`: the bias map's extents of those axes (1:
 // broadcast, read at index 0). Each cluster takes the work item (a pair of
-// query tiles, a head, a batch: cluster_item) of its index; with ONE_PASS it
-// walks on by the grid's clusters (B3's persistent grid: the ring's slots
+// query tiles, a head, a batch: cluster_item) of its index; with PERSISTENT
+// it walks on by the grid's clusters (B3's persistent grid: the ring's slots
 // and phases run on from one item to the next). The producer waits until
 // both warpgroups' dq stores have read the staged rows (q_empty) before it
 // loads the next item's resident tiles and then its K and V tiles, so those
 // loads do not overlap this item's products: the grid saves the launch,
 // barrier set-up and teardown of a cluster an item, not load latency. On
-// the long tier's grid of one cluster an item the loop runs once.
+// a grid of one cluster an item the loop runs once.
 template <int D, bool BIAS, bool ONE_PASS>
 __global__ void __cluster_dims__(ATT_PAIR, 1, 1) __launch_bounds__(ATT_THREADS, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -397,8 +420,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ delta, float* __restrict__ lse, int rep,
                          int B, int H, int Lq, int Lk, int bias_heads, int bias_batches,
                          int heads_fastest, float scale) {
-  static_assert(!(BIAS && ONE_PASS), "B3-bias keeps its mma.sync body");
   constexpr int STAGES = BIAS ? BIAS_STAGES : DQ_STAGES;
+  constexpr bool PERSISTENT = ONE_PASS && !BIAS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const DqSmem<D, STAGES, BIAS> sm(smem_raw);
   const int pairs = ((Lq + ATT_M - 1) / ATT_M + ATT_PAIR - 1) / ATT_PAIR;
@@ -412,12 +435,12 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       for (int item = blockIdx.x / ATT_PAIR, k = 0;; item += stride, ++k) {
-        const int3 w = cluster_item<ONE_PASS>(item, pairs, H, heads_fastest);
-        if constexpr (ONE_PASS) mbar_wait(sm.q_empty(), (k & 1) ^ 1);
+        const int3 w = cluster_item<PERSISTENT>(item, pairs, H, heads_fastest);
+        if constexpr (PERSISTENT) mbar_wait(sm.q_empty(), (k & 1) ^ 1);
         dq_produce(sm, &tm_q, &tm_do, &tm_k, &tm_v, &tm_b, w.x * ATT_M, w.y, w.y / rep, w.z,
                    bias_heads > 1 ? w.y : 0, bias_batches > 1 ? w.z : 0, n_tiles, n1,
                    k * (n1 + n_tiles), cluster_rank());
-        if (!ONE_PASS || item + stride >= n_items) break;
+        if (!PERSISTENT || item + stride >= n_items) break;
       }
     }
     cluster_sync();
@@ -430,10 +453,10 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float c = scale * LOG2E;  // unbiased: scores in log2 units
     turns_start(cw);
     for (int item = blockIdx.x / ATT_PAIR, k = 0;; item += stride, ++k) {
-      const int3 w = cluster_item<ONE_PASS>(item, pairs, H, heads_fastest);
+      const int3 w = cluster_item<PERSISTENT>(item, pairs, H, heads_fastest);
       const int h = w.y, b = w.z, row0 = w.x * ATT_M + 64 * cw;
       const int g = k * (n1 + n_tiles);  // the ring's loads of this block's earlier items
-      const bool last_item = !ONE_PASS || item + stride >= n_items;
+      const bool last_item = !PERSISTENT || item + stride >= n_items;
       // this thread's rows: row0 + 16 w + g and + 8 (rows past Lq, of a
       // ragged tile or of the pair's padding, read no delta and store nothing)
       const long long stat0 = ((long long)b * H + h) * Lq;
@@ -449,8 +472,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       float m[2] = {NEG_F32, NEG_F32}, l[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f};
       float s[32], dp[32];
       if constexpr (ONE_PASS) {
-        // pass 1 (B1's over 64-key tiles): the row max m (log2 units) and
-        // this thread's part of the row sum l; one turn per K tile
+        // pass 1 (B1's over 64-key tiles): the row max m (log2 units; with
+        // a bias natural units, on x) and this thread's part of the row sum
+        // l; one turn per K tile
         for (int j = 0; j < n1; ++j) {
           const int st = (g + j) % STAGES;
           mbar_wait(&sm.full[st], ((g + j) / STAGES) & 1);
@@ -462,17 +486,31 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_wait<0>();
           fence_regs(s);
           release_slot(&sm.empty[st], lane);
+          if constexpr (BIAS) {
+            add_bias_rows(s, sm.bias.wait(g + j), row, tq, scale);
+            sm.bias.release(g + j, lane);
+          }
           mask_keys(s, j * STEP_N, Lk, tq);
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const float m_new = fmaxf(m[r], row_max(s, r) * c);
             float sum = 0.f;
+            if constexpr (BIAS) {
+              const float m_new = fmaxf(m[r], row_max(s, r));
 #pragma unroll
-            for (int n = 0; n < 8; ++n)
-              sum += exp2_approx(fmaf(s[4 * n + 2 * r], c, -m_new)) +
-                     exp2_approx(fmaf(s[4 * n + 2 * r + 1], c, -m_new));
-            l[r] = l[r] * exp2_approx(m[r] - m_new) + sum;
-            m[r] = m_new;
+              for (int n = 0; n < 8; ++n)
+                sum += exp2_approx(__fmul_rn(s[4 * n + 2 * r] - m_new, LOG2E)) +
+                       exp2_approx(__fmul_rn(s[4 * n + 2 * r + 1] - m_new, LOG2E));
+              l[r] = l[r] * exp2_approx(__fmul_rn(m[r] - m_new, LOG2E)) + sum;
+              m[r] = m_new;
+            } else {
+              const float m_new = fmaxf(m[r], row_max(s, r) * c);
+#pragma unroll
+              for (int n = 0; n < 8; ++n)
+                sum += exp2_approx(fmaf(s[4 * n + 2 * r], c, -m_new)) +
+                       exp2_approx(fmaf(s[4 * n + 2 * r + 1], c, -m_new));
+              l[r] = l[r] * exp2_approx(m[r] - m_new) + sum;
+              m[r] = m_new;
+            }
           }
         }
 #pragma unroll
@@ -490,18 +528,19 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       uint32_t hi[4][4], lo[4][4];
-      // tile j's step (the long tier's reads, and then releases, its bias tile)
-      auto step = [&](int j) {
-        if constexpr (ONE_PASS) {
-          dq_step_normalised(s, dp, m, l, inv, dl, hi, c, j * STEP_N, Lk, tq);
-        } else {
-          const unsigned char* bias = nullptr;
-          if constexpr (BIAS) bias = sm.bias.wait(g + j);
-          dq_step<D, BIAS>(acc, s, dp, m, l, dl, hi, lo, scale, c, bias, row, tq);
-          if constexpr (BIAS) sm.bias.release(g + j, lane);
-        }
-      };
       const int g2 = g + n1;
+      // tile j's step (a biased kernel's reads, and then releases, its bias
+      // tile: the ring's load g2 + j)
+      auto step = [&](int j) {
+        const unsigned char* bias = nullptr;
+        if constexpr (BIAS) bias = sm.bias.wait(g2 + j);
+        if constexpr (ONE_PASS)
+          dq_step_normalised<BIAS>(s, dp, m, l, inv, dl, hi, scale, c, bias, row, j * STEP_N,
+                                   Lk, tq);
+        else
+          dq_step<D, BIAS>(acc, s, dp, m, l, dl, hi, lo, scale, c, bias, row, tq);
+        if constexpr (BIAS) sm.bias.release(g2 + j, lane);
+      };
       {
         const int st = g2 % STAGES;
         mbar_wait(&sm.full[st], (g2 / STAGES) & 1);
@@ -555,7 +594,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         div[1] = fmaxf(quad_sum(l[1]), 1e-30f);
       }
       attn_store<D>(q_rows, &tm_dq, acc, div, t, cw, row0, Lq, h, b, scale);
-      if (ONE_PASS && t == 0) mbar_arrive(sm.q_empty());  // its store has read the staged rows
+      if (PERSISTENT && t == 0) mbar_arrive(sm.q_empty());  // its store has read the staged rows
       if (t % 4 == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -736,7 +775,8 @@ __device__ __forceinline__ void dkv_step(float (&s)[32], float (&dp)[32], const 
   }
 }
 
-// Kernel B5-dkv (B5-dkv-bias with BIAS; B3's dkv kernel with ONE_PASS).
+// Kernel B5-dkv (B5-dkv-bias with BIAS; B3's dkv kernel with ONE_PASS, B3-bias's
+// with both).
 template <int D, bool BIAS, bool ONE_PASS>
 __global__ void __cluster_dims__(ATT_PAIR, 1, 1) __launch_bounds__(ATT_THREADS, 1)
 attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -749,7 +789,6 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           int group, int H, int KVH, int Lq, int Lk, int bias_heads,
                           int bias_batches, int heads_fastest, float scale) {
-  static_assert(!(BIAS && ONE_PASS), "B3-bias keeps its mma.sync body");
   constexpr int STAGES = BIAS ? BIAS_STAGES : DKV_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const DkvSmem<D, STAGES, BIAS> sm(smem_raw);
@@ -880,8 +919,9 @@ cudaError_t item_grid(Kernel kernel, int smem, int items, dim3* grid) {
 }
 
 // The dq kernel on the operands at `bases` that `maps` describes (q, k, v,
-// dO, dq; with BIAS the bias, then the grid order): with ONE_PASS on
-// item_grid's persistent grid, else one cluster an item (tile_grid).
+// dO, dq; with BIAS the bias, then the grid order): B3's (ONE_PASS, no bias)
+// on item_grid's persistent grid, the others one cluster an item
+// (tile_grid).
 template <int D, bool BIAS, bool ONE_PASS>
 cudaError_t launch_dq_wgmma(const void* const bases[6], const long long* maps,
                             const void* delta, void* lse, int B, int H, int KVH, int Lq,
@@ -905,7 +945,7 @@ cudaError_t launch_dq_wgmma(const void* const bases[6], const long long* maps,
   const bool heads_fastest = BIAS && bias[MAP_SPEC] != 0;
   const int tiles = (Lq + ATT_M - 1) / ATT_M;
   dim3 grid = tile_grid(tiles, H, B, heads_fastest);
-  if (ONE_PASS)
+  if (ONE_PASS && !BIAS)
     err = item_grid(attn_bwd_dq_wgmma_kernel<D, BIAS, ONE_PASS>, smem,
                     (tiles + ATT_PAIR - 1) / ATT_PAIR * H * B, &grid);
   if (err != cudaSuccess) return err;

@@ -1,12 +1,12 @@
-// Hopper building blocks shared by the port's wgmma attention kernels (B1
-// and B2 in flash_attention_fwd.cu; B3 in flash_attention_bwd.cu; B4,
-// B4-bias, B5-dq and B5-dkv, unbiased and biased, in
-// flash_attention_long.cu; the backward bodies of B3 and B5 in
-// flash_attention_bwd_wgmma.cuh): TMA tile loads and stores through tensor
-// maps, mbarrier waits, warpgroup register rebalancing, the wgmma
-// shared-memory matrix descriptor, the m64nNk16 bf16 wgmma products (fp32
-// accumulate) these kernels take, 1-D bulk copies, and the reads of an fp32
-// bias tile.
+// Hopper building blocks shared by the port's kernels, every one of them on
+// wgmma (B1 and B2 in flash_attention_fwd.cu; B3 and B3-bias in
+// flash_attention_bwd.cu; B4, B4-bias, B5-dq and B5-dkv, unbiased and
+// biased, in flash_attention_long.cu; the backward bodies of B3 and B5 in
+// flash_attention_bwd_wgmma.cuh; B6 in int4_matmul.cu): bf16 packing, TMA
+// tile loads and stores through tensor maps, mbarrier waits, warpgroup
+// register rebalancing, the wgmma shared-memory matrix descriptor, the
+// m64nNk16 bf16 wgmma products (fp32 accumulate) these kernels take, 1-D
+// bulk copies, and the reads of an fp32 bias tile.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a box is `rows` rows of 64 bf16 (128 bytes), 1024-byte aligned, the 16-byte
@@ -30,7 +30,7 @@
 // Accumulator layout of m64nNk16 (fp32), thread t of the warpgroup, warp w =
 // t / 32, g = (t % 32) / 4, q = t % 4: d[4j + 0..1] -> row 16w + g, columns
 // 8j + 2q, +1; d[4j + 2..3] -> row 16w + g + 8. The register-A fragment of
-// one k16 step (a[0..3]) has the layout of mma.sync's m16n8k16 A: a[0] row
+// one k16 step (a[0..3]) is the m16n8k16 A fragment's layout: a[0] row
 // 16w + g, k 2q..2q+1; a[1] row + 8; a[2] k + 8; a[3] row + 8, k + 8. So
 // the accumulator of keys [16kb, 16kb + 16) packs into the A fragment of
 // the next product without moving between threads.
@@ -38,12 +38,29 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry is looked up, not linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
-
-#include "mma_sm90.cuh"
+#include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The low half of the split x = hi + lo of two fp32 values whose bf16
+// roundings `hi` holds (pack_bf16): lo = bf16(x - hi). x - hi is exact in
+// fp32, so hi + lo carries about 16 significant bits of x where hi alone
+// carries 8.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float x0, float x1, uint32_t hi) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return pack_bf16(x0 - h.x, x1 - h.y);
+}
 
 constexpr float NEG_F32 = -FLT_MAX;  // finite min: a running max's start
 constexpr float LOG2E = 1.4426950408889634f;
@@ -240,6 +257,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d = a . b + (scale_d ? d : 0) (m64n128k16, both from shared memory: a
+// K-major, b MN-major, as B6 reads x and its expanded W tile)
+__device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -703,11 +744,13 @@ inline EncodeTiledFn encode_tiled() {
 constexpr int MAP_SPEC = 11;
 
 // The tensor map of a bf16 (B, H, L, D) operand (or, with `type` FLOAT32,
-// an fp32 bias (B|1, H|1, Lq, Lk)) at `base` from its description `spec`:
-// 128-byte swizzle, zero fill past the edges.
+// an fp32 bias (B|1, H|1, Lq, Lk); B6's 2-D operands as (columns, rows, 1,
+// 1)) at `base` from its description `spec`: the 128-byte swizzle unless
+// `swizzle` says otherwise, zero fill past the edges.
 inline cudaError_t encode_tensor_map(
     CUtensorMap* map, const void* base, const long long* spec,
-    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t dims[4], strides[3];
@@ -718,7 +761,7 @@ inline cudaError_t encode_tensor_map(
   for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)spec[7 + i];
   const CUresult r = encode(map, type, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -33,12 +33,12 @@ cotangent, and runs two kernels of the library built from
 `csrc/flash_attention_bwd.cu`: `attention_bwd_dq` (dq and the row
 logsumexp; `_attn_bwd_dq_kernel` / `_attn_bwd_dq_bias_kernel`) and
 `attention_bwd_dkv` (dk and dv summed over the query heads of each kv head;
-`_attn_bwd_dkv_kernel` / `_attn_bwd_dkv_bias_kernel`). Unbiased (B3) they
-run on `wgmma` (the bodies of the long tier's B5, in
+`_attn_bwd_dkv_kernel` / `_attn_bwd_dkv_bias_kernel`). Unbiased (B3) and
+biased (B3-bias) they run on `wgmma` (the bodies of the long tier's B5, in
 `csrc/flash_attention_bwd_wgmma.cuh`) and read their operands through
-tensor maps (an operand a map cannot describe is copied first), lse and
-delta in spans of 64 rows (`tensor_maps.describe_rows`). Biased (B3-bias)
-they keep `mma.sync` bodies that take 16-byte aligned rows. delta =
+tensor maps (an operand a map cannot describe is copied first; a bias so
+copied counts in `<wrapper>.bias_copies`: the model's biases need none),
+lse and delta in spans of 64 rows (`tensor_maps.describe_rows`). delta =
 rowsum(dO * O) is computed here in fp32, as the JAX wrapper does. Each has a
 plain version, `*_reference`, that the CPU takes and the card's checks hold
 the kernel against.
@@ -126,43 +126,32 @@ def flash_attention_reference(
     return o.to(q.dtype)
 
 
-def _entry(source: str, name: str, n_ptr: int, arrays: int = 0):
+def _entry(source: str, name: str, n_ptr: int, arrays: int = 1):
     """The C entry `name` of the library built from `csrc/<source>.cu`, with
-    its ctypes signature: `n_ptr` pointers, B, H, KVH, Lq, Lk, D, the
-    element strides (a ctypes array, `_strides`) or else `arrays` addresses
-    of long long arrays (`tensor_maps.spec_array`), the scale and the
-    stream."""
+    its ctypes signature: `n_ptr` pointers, B, H, KVH, Lq, Lk, D, `arrays`
+    addresses of long long arrays (`tensor_maps.spec_array`), the scale and
+    the stream."""
     fn = _fns.get(name)
     if fn is None:
         from mmada_tpu_torch.ops import _build
 
         fn = getattr(_build.load_library(source), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lists = [p] * arrays if arrays else [ctypes.POINTER(ctypes.c_longlong)]
-        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i, *lists, ctypes.c_float, p]
+        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i, *([p] * arrays), ctypes.c_float, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device,
-                   aligned: bool = True) -> None:
-    """Device, dtype and rank; with `aligned` (B3-bias's cp.async kernels)
-    also a contiguous last dim and 16-byte aligned rows. The TMA kernels (B1,
-    B2, B3, B4, B5) take any layout: `tensor_maps.tma_operand` copies what a
-    map cannot describe."""
+def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+    """Device, dtype and rank. The kernels take any layout:
+    `tensor_maps.tma_operand` copies what a map cannot describe."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16 for the CUDA kernel, got {t.dtype}")
     if t.dim() != 4:
         raise ValueError(f"{name} must be 4-D")
-    if not aligned:
-        return
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} must have a contiguous last dim")
-    if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"{name} rows must be 16-byte aligned: strides {t.stride()}")
 
 
 def _check_bias(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
@@ -176,21 +165,6 @@ def _check_bias(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
             or tuple(bias.shape[2:]) != (lq, lk)):
         raise ValueError(f"bias {tuple(bias.shape)} is not (B|1, H|1, Lq, Lk) for "
                          f"B {b}, H {h}, Lq {lq}, Lk {lk}")
-
-
-def _bias_strides(bias: torch.Tensor, b: int, h: int, lq: int, lk: int,
-                  device: torch.device) -> list[int]:
-    """Element strides (batch, head, row) of the fp32 bias the cp.async
-    kernels (B3-bias) read, 0 on a broadcast axis."""
-    _check_bias(bias, b, h, lq, lk, device)
-    if lk > 1 and bias.stride(-1) != 1:
-        raise ValueError("bias must have a contiguous last dim")
-    return [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3)]
-
-
-def _strides(*ts: torch.Tensor, extra=()):
-    flat = [s for t in ts for s in t.stride()[:3]] + list(extra)
-    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _launch(fn, device: torch.device, *args) -> None:
@@ -250,7 +224,7 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device, aligned=False)
+        _check_operand(name, t, q.device)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
@@ -370,12 +344,11 @@ def attention_bwd_dkv_reference(
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_bwd_shapes(q, k, v, dout, stats,
-                      aligned: bool = True) -> tuple[int, int, int, int, int, int]:
-    """Devices, dtypes and shapes of a backward kernel's operands (`aligned`:
-    see `_check_operand`); returns (B, H, KVH, Lq, Lk, D)."""
+def _check_bwd_shapes(q, k, v, dout, stats) -> tuple[int, int, int, int, int, int]:
+    """Devices, dtypes and shapes of a backward kernel's operands; returns
+    (B, H, KVH, Lq, Lk, D)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        _check_operand(name, t, q.device, aligned=aligned)
+        _check_operand(name, t, q.device)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if (k.shape != v.shape or dout.shape != q.shape or k.shape[0] != b
@@ -393,7 +366,7 @@ def _check_bwd_shapes(q, k, v, dout, stats,
 
 def _heads_fastest(bias: torch.Tensor) -> int:
     """The grid order of the biased wgmma kernels that stream a bias tile a
-    step (B4-bias, B5-dq-bias, B5-dkv-bias; 1: heads fastest). A bias
+    step (B3-bias, B4-bias, B5-dq-bias, B5-dkv-bias; 1: heads fastest). A bias
     broadcast over the heads runs a tile's heads side by side, so its rows
     come from HBM about once; a per-head bias runs a head's tiles side by
     side, as the unbiased kernels do."""
@@ -421,10 +394,10 @@ def _dkv_maps(q, k, v, dout, dk, dv, lse, delta) -> list:
 def _launch_dq_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, delta, bias=None):
     """(dq, lse) through a wgmma dq kernel, the C entry `mmada_<prefix>_dq_bf16`
     (`_dq_bias_bf16` with a bias) of the library built from
-    `csrc/<source>.cu`: B3's or B5-dq's. q, k, v, dO (and the bias) are read
+    `csrc/<source>.cu`: B3's (B3-bias's) or B5-dq's (B5-dq-bias's). q, k, v, dO (and the bias) are read
     through tensor maps, an operand no map describes copied first (a bias so
     copied counts in `wrapper.bias_copies`); dq is stored by TMA."""
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)], aligned=False)
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
     q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -439,7 +412,7 @@ def _launch_dq_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, delta, bi
     ptrs += [dq.data_ptr(), lse.data_ptr()]
     args = spec_array(*maps)
     args.extend(tail)
-    _launch(_entry(source, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
+    _launch(_entry(source, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
             args.buffer_info()[0], 1.0 / (d ** 0.5))
     return dq, lse
 
@@ -448,12 +421,12 @@ def _launch_dkv_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, lse, del
                       bias=None):
     """(dk, dv) through a wgmma dkv kernel, the C entry
     `mmada_<prefix>_dkv_bf16` (`_dkv_bias_bf16` with a bias) of the library
-    built from `csrc/<source>.cu`: B3's or B5-dkv's. q, k, v, dO (and the
+    built from `csrc/<source>.cu`: B3's (B3-bias's) or B5-dkv's
+    (B5-dkv-bias's). q, k, v, dO (and the
     bias) are read through tensor maps, lse and delta in spans of 64 rows
     (each copied first if it cannot be read so; a bias so copied counts in
     `wrapper.bias_copies`); dk and dv are stored by TMA."""
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)],
-                                             aligned=False)
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)])
     q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
     lse, delta = rows_operand(lse), rows_operand(delta)
     dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
@@ -470,86 +443,54 @@ def _launch_dkv_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, lse, del
     ptrs += [dk.data_ptr(), dv.data_ptr()]
     args = spec_array(*maps)
     args.extend(tail)
-    _launch(_entry(source, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
+    _launch(_entry(source, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
             args.buffer_info()[0], 1.0 / (d ** 0.5))
-    return dk, dv
-
-
-def _launch_bwd_dq(q, k, v, dout, delta, bias):
-    """Check the operands, allocate (dq, lse) and launch B3's dq kernel (on
-    wgmma, `_launch_dq_wgmma`, on a persistent grid: each cluster walks
-    several (tile pair, head, batch) items) or B3-bias's (mma.sync, element
-    strides)."""
-    if bias is None:
-        return _launch_dq_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dq, q, k, v,
-                                dout, delta)
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
-    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-            bias.data_ptr(), dq.data_ptr(), lse.data_ptr()]
-    bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-    _launch(_entry(_BWD_SOURCE, "mmada_flash_attention_bwd_dq_bias_bf16", len(ptrs)), q.device,
-            *ptrs, b, h, kvh, lq, lk, d, _strides(q, k, v, dout, dq, extra=bias_strides),
-            1.0 / (d ** 0.5))
-    return dq, lse
-
-
-def _launch_bwd_dkv(q, k, v, dout, lse, delta, bias):
-    """Check the operands, allocate (dk, dv) and launch B3's dkv kernel (on
-    wgmma, `_launch_dkv_wgmma`) or B3-bias's (mma.sync, element strides)."""
-    if bias is None:
-        return _launch_dkv_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dkv, q, k,
-                                 v, dout, lse, delta)
-    b, h, kvh, lq, lk, d = _check_bwd_shapes(
-        q, k, v, dout, [("lse", lse), ("delta", delta)])
-    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr()]
-    bias_strides = _bias_strides(bias, b, h, lq, lk, q.device)
-    _launch(_entry(_BWD_SOURCE, "mmada_flash_attention_bwd_dkv_bias_bf16", len(ptrs)),
-            q.device, *ptrs, b, h, kvh, lq, lk, d,
-            _strides(q, k, v, dout, dk, dv, extra=bias_strides), 1.0 / (d ** 0.5))
     return dk, dv
 
 
 def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dq, lse) through the Hopper dq kernel (CUDA tensors) or its plain
     version (CPU tensors). Counts launches in `attention_bwd_dq.launches`
-    (B3, which reads its operands through tensor maps), or
-    `attention_bwd_dq.bias_launches` with a bias (B3-bias)."""
+    (B3), or `attention_bwd_dq.bias_launches` with a bias (B3-bias). Both
+    read their operands through tensor maps and run on a persistent grid
+    (each cluster walks several (tile pair, head, batch) items); a bias no
+    map describes is copied first (`attention_bwd_dq.bias_copies`)."""
     if q.device.type == "cpu":
         return attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq runs on cuda or cpu, not {q.device}")
     bias = bias_as_float(bias)
-    out = _launch_bwd_dq(q, k, v, dout, delta, bias)
+    out = _launch_dq_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dq, q, k, v, dout,
+                           delta, bias)
     _count_launch(attention_bwd_dq, bias)
     return out
 
 
 attention_bwd_dq.launches = 0
 attention_bwd_dq.bias_launches = 0
+attention_bwd_dq.bias_copies = 0
 
 
 def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) through the Hopper dkv kernel (CUDA tensors) or its plain
     version (CPU tensors). Counts launches in `attention_bwd_dkv.launches`
-    (B3, which reads its operands through tensor maps), or
-    `attention_bwd_dkv.bias_launches` with a bias (B3-bias)."""
+    (B3), or `attention_bwd_dkv.bias_launches` with a bias (B3-bias). Both
+    read their operands through tensor maps; a bias no map describes is
+    copied first (`attention_bwd_dkv.bias_copies`)."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv runs on cuda or cpu, not {q.device}")
     bias = bias_as_float(bias)
-    out = _launch_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    out = _launch_dkv_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dkv, q, k, v,
+                            dout, lse, delta, bias)
     _count_launch(attention_bwd_dkv, bias)
     return out
 
 
 attention_bwd_dkv.launches = 0
 attention_bwd_dkv.bias_launches = 0
+attention_bwd_dkv.bias_copies = 0
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -119,7 +119,7 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_long runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device, aligned=False)
+        _check_operand(name, t, q.device)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
@@ -139,7 +139,7 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
         tail, name = (_heads_fastest(bias),), "mmada_flash_attention_long_fwd_bias_bf16"
     args = spec_array(*_long_fwd_maps(q, k, v, out, bias))
     args.extend(tail)
-    _launch(_entry(_SOURCE, name, len(ptrs), arrays=1), q.device, *ptrs, b, h, kvh, lq, lk, d,
+    _launch(_entry(_SOURCE, name, len(ptrs)), q.device, *ptrs, b, h, kvh, lq, lk, d,
             args.buffer_info()[0], 1.0 / (d ** 0.5))
     _count_launch(flash_attention_long, bias)
     return out

@@ -14,7 +14,10 @@ per-channel (one group of K rows); such a weight never reaches the kernel
 (`quantization.int4_matmul_dispatch` sends it to the dequant route).
 
 `int4_matmul` launches B6 for a CUDA tensor and raises for anything B6 does
-not take: it never falls back. For a CPU tensor it computes
+not take: it never falls back. B6 runs on `wgmma` and reads x, the packed
+weight and its scales and writes the output through TMA tensor maps, which
+the wrapper describes (`tensor_maps.describe_matrix`), with tiles of 128 or
+256 rows (`block_rows`). For a CPU tensor it computes
 `int4_matmul_reference`, JAX's function in plain PyTorch (dequantise in
 fp32, cast to x's dtype, then x @ w), which the CPU tests hold against the
 JAX kernel and `chip_smoke.py` holds B6 against on the card. It counts its
@@ -25,13 +28,32 @@ launches in `int4_matmul.launches`; a launch runs under
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+
+from mmada_tpu_torch.ops.tensor_maps import describe_matrix, spec_array
 
 GROUP = 128          # quantization group size along the contracting dim
 _PACK = GROUP // 2   # packed byte rows per group
 _SOURCE = "int4_matmul"
+_BLOCK_COLS = 128    # output columns of a B6 tile
+_OUT_BOX = 64        # B6 stores its output 64 x 64 at a time
+# a wave's cost beyond its tiles' rows (pipeline fill, epilogue, launch), in
+# rows: where one wave holds every tile at either height (477 rows, N 4096,
+# K 4096 and 12288) a 256-row wave took 1.34x and 1.35x a 128-row one on an
+# H100, i.e. 253 and 237 rows' worth (attention_ab.py --only int4 against
+# copies of B6 forced to one height)
+_TILE_OVERHEAD_ROWS = 245
 _fn = None
+_sms: dict = {}
+# B6's map descriptions by (M, K, N, row strides, SMs): with the bases
+# checked 16-byte aligned they depend on nothing else, and describing four
+# maps costs more host time (about 19 us on a CPU core) than B6 takes on the
+# card at the text batch's q/k/v shapes (about 46 us). A server meets a new
+# M with each frame length, so the oldest of _MAPS_HELD entries goes first.
+_MAPS_HELD = 256
+_maps: dict = {}
 
 
 def pack_int4(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -82,11 +104,42 @@ def _entry():
         from mmada_tpu_torch.ops import _build
 
         fn = _build.load_library(_SOURCE).mmada_int4_matmul_bf16
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def block_rows(m: int, n: int, sms: int) -> int:
+    """B6's tile rows for an (m, n) output on a card of `sms` SMs: 256 where
+    its fewer waves take less time than those of 128-row tiles (the
+    persistent grid holds one block an SM and walks the tiles in waves of
+    `sms`), a wave costing its tiles' rows plus _TILE_OVERHEAD_ROWS."""
+    def cost(rows):
+        tiles = math.ceil(m / rows) * (n // _BLOCK_COLS)
+        return math.ceil(tiles / sms) * (rows + _TILE_OVERHEAD_ROWS)
+
+    return 256 if cost(256) < cost(128) else 128
+
+
+def int4_maps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, out: torch.Tensor,
+              sms: int) -> list:
+    """The tensor maps of B6's operands: x (M, K) in boxes of 64 columns and
+    `block_rows` rows, the packed weight in boxes of 128 columns x 64 byte
+    rows (one group), the scales 128 x 1, the output 64 x 64."""
+    m, n = out.shape
+    return [describe_matrix(x, 64, block_rows(m, n, sms)),
+            describe_matrix(packed, _BLOCK_COLS, _PACK),
+            describe_matrix(scales, _BLOCK_COLS, 1),
+            describe_matrix(out, _OUT_BOX, _OUT_BOX)]
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def _check(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> tuple[int, int]:
@@ -122,8 +175,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
     """x (..., K) @ dequant(packed (K/2, N), scales (K/128, N)) -> (..., N)
     in x's dtype, through B6 (CUDA tensors: bf16 x, K and N multiples of 128,
     128-row groups, 16-byte aligned rows; strided row views are read in
-    place) or its plain version (CPU tensors). Counts launches in
-    `int4_matmul.launches`."""
+    place through their tensor maps) or its plain version (CPU tensors).
+    Counts launches in `int4_matmul.launches`."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, packed, scales)
     if x.device.type != "cuda":
@@ -135,9 +188,16 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:
+        sms = _sm_count(x.device)
+        key = (m, k, n, x2.stride(0), packed.stride(0), scales.stride(0), sms)
+        maps = _maps.get(key)
+        if maps is None:
+            if len(_maps) >= _MAPS_HELD:
+                _maps.pop(next(iter(_maps)))
+            maps = _maps[key] = spec_array(*int4_maps(x2, packed, scales, out, sms))
         with torch.cuda.device(x.device):
             err = _entry()(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                           m, k, n, x2.stride(0), packed.stride(0), scales.stride(0),
+                           m, k, n, maps.buffer_info()[0],
                            torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"int4_matmul kernel launch failed: cudaError {err}")

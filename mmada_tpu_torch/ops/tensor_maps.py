@@ -1,4 +1,4 @@
-"""How the wgmma attention kernels (B1-B5) see their operands: TMA tensor maps.
+"""How the wgmma kernels (B1-B6) see their operands: TMA tensor maps.
 
 The kernels in `csrc/flash_attention_fwd.cu` (B1, B2),
 `csrc/flash_attention_bwd.cu` (B3) and `csrc/flash_attention_long.cu` (B4,
@@ -33,6 +33,15 @@ start 16 bytes apart: a mask bias of odd L does not, so the model builds its
 bias with rows padded to ROW_FLOATS (4) floats, a view of the first L
 columns as `aligned_rows` makes, and a wrapper copies any other bias once
 (`bias_operand`).
+
+The int4 matmul (B6, `csrc/int4_matmul.cu`) reads 2-D operands through maps
+of their own (`describe_matrix`): bf16 x (M, K) in boxes of 64 columns and
+the kernel's 128 or 256 tile rows, the int8 packed weight (K/2, N) in boxes
+of 128 x 64 bytes, its fp32 scales (K/128, N) in boxes of 128 x 1, and the
+bf16 output (M, N) written 64 x 64 at a time; dims (columns, rows, 1, 1). A
+column window of a wide weight or one layer of a stacked one is read in
+place; a view whose base or row stride is not a multiple of 16 bytes is
+refused (B6's wrapper checks its operands first).
 
 The dkv kernels (B3's, B5-dkv) also read the fp32 row statistics lse and
 delta (contiguous (B, H, Lq)) in spans of 64 values: B5-dkv with 1-D bulk
@@ -219,6 +228,30 @@ def describe_rows(t: torch.Tensor, span_rows: int) -> RowsSpec:
         raise ValueError(f"spans of {span_rows} rows are not a box of 16-byte pieces of at "
                          f"most {MAX_BOX} values")
     return RowsSpec((l, h, b), span)
+
+
+def describe_matrix(t: torch.Tensor, box_cols: int, box_rows: int) -> TensorMapSpec:
+    """The tensor map of a 2-D (rows, columns) operand (B6's x, packed
+    weight, scales and output), read or written in boxes of box_cols x
+    box_rows: dims (columns, rows, 1, 1), the byte stride of a row (the
+    contiguous one for a single row), the dims of 1 stepped over by the
+    whole matrix. Raises unless the columns are contiguous and the base and
+    the row stride are multiples of 16 bytes."""
+    if t.dim() != 2:
+        raise ValueError(f"a matrix map describes 2-D tensors, got {tuple(t.shape)}")
+    rows, cols = t.shape
+    size = t.element_size()
+    row_bytes = t.stride(0) * size if rows > 1 else cols * size
+    if ((cols > 1 and t.stride(1) != 1) or t.data_ptr() % ALIGN_BYTES
+            or row_bytes % ALIGN_BYTES or cols * size % ALIGN_BYTES):
+        raise ValueError(f"no tensor map describes shape {tuple(t.shape)} strides {t.stride()} "
+                         f"at offset {t.data_ptr() % ALIGN_BYTES}: rows must be contiguous and "
+                         f"start {ALIGN_BYTES} bytes apart")
+    if not (0 < box_cols <= MAX_BOX and 0 < box_rows <= MAX_BOX):
+        raise ValueError(f"a box of {box_cols} x {box_rows} exceeds {MAX_BOX} a dimension")
+    whole = row_bytes * rows
+    return TensorMapSpec((cols, rows, 1, 1), (row_bytes, whole, whole),
+                         (box_cols, box_rows, 1, 1))
 
 
 def spec_array(*specs, head: tuple = ()) -> array.array:

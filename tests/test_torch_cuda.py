@@ -628,6 +628,16 @@ def test_biased_kernels_take_strided_views(cuda_device):
     ("batch", 1, 8, 2, 200, 200, 64),   # GQA, head_dim 64
     ("one", 2, 4, 4, 100, 333, 128),    # rectangular
     ("mask", 1, 4, 1, 1155, 1155, 128), # GQA 4:1 at the t2i frame
+    # ragged edges: keys past Lk (not a multiple of 64) must be masked after
+    # the bias is added, since TMA zero-fills K and the bias there
+    ("mask", 2, 4, 4, 129, 129, 128),   # a tail of one row and one key past a 128 tile
+    ("one", 1, 4, 4, 1, 387, 128),      # one query row over the stage-1 keys
+    ("head", 2, 4, 4, 387, 129, 128),   # rectangular, Lq > Lk
+    ("mask", 1, 8, 2, 387, 387, 64),    # the stage-1 frame, GQA 8:2, head_dim 64
+    # more (tile pair, head, batch) items than the dq kernel's persistent
+    # grid has clusters, so each cluster walks several
+    ("mask", 15, 8, 8, 387, 387, 128),
+    ("head", 16, 8, 2, 387, 387, 64),
 ])
 def test_biased_backward_kernels_match_plain_versions(cuda_device, kind, b, h, kvh, lq, lk, d):
     """dq-bias and dkv-bias against their plain versions. Rows whose every key
@@ -651,6 +661,79 @@ def test_biased_backward_kernels_match_plain_versions(cuda_device, kind, b, h, k
         before[0], before[1], before[2] + 1, before[3] + 1)
     want_dq, want_lse = attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     want_dk, want_dv = attention_bwd_dkv_reference(q, k, v, dout, want_lse, delta, bias)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert_grad_close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["mask", "head"])
+def test_biased_backward_repeats_bit_for_bit(cuda_device, kind):
+    """Two identical calls of dq-bias and dkv-bias give the same bits, with a
+    bias broadcast over the heads (the model's mask: the grid runs the heads
+    fastest) and with a per-head bias (the tiles fastest)."""
+    b, h, l = 3, 8, 387
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, 128)
+    bias = _bias(cuda_device, kind, b, h, l, l)
+    out = flash_attention(q, k, v, bias=bias)
+    g = torch.Generator(cuda_device).manual_seed(9)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+    first = attention_bwd_dq(q, k, v, dout, delta, bias)
+    grads = attention_bwd_dkv(q, k, v, dout, first[1], delta, bias)
+    again = attention_bwd_dq(q, k, v, dout, delta, bias)
+    for a, b_ in zip((*first, *grads), (*again, *attention_bwd_dkv(q, k, v, dout, again[1],
+                                                                   delta, bias))):
+        assert torch.equal(a, b_)
+
+
+def test_biased_backward_copies_a_bias_no_map_describes(cuda_device):
+    """A per-head bias at L 387 held contiguously (rows 1,548 bytes apart: no
+    tensor map describes it) is copied once by each of dq-bias and dkv-bias
+    (`.bias_copies`) and gives the bits its padded view (`aligned_rows`)
+    gives, which is read in place."""
+    from mmada_tpu_torch.ops.tensor_maps import aligned_rows
+
+    b, h, l = 2, 4, 387
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, 128)
+    bias = _bias(cuda_device, "head", b, h, l, l)
+    padded = aligned_rows(bias)
+    out = flash_attention(q, k, v, bias=padded)
+    g = torch.Generator(cuda_device).manual_seed(10)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+
+    def copies():
+        return attention_bwd_dq.bias_copies, attention_bwd_dkv.bias_copies
+
+    before = copies()
+    want_dq, want_lse = attention_bwd_dq(q, k, v, dout, delta, padded)
+    want = attention_bwd_dkv(q, k, v, dout, want_lse, delta, padded)
+    assert copies() == before
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta, bias)
+    got = attention_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    assert copies() == (before[0] + 1, before[1] + 1)
+    for a, b_ in zip((dq, lse, *got), (want_dq, want_lse, *want)):
+        assert torch.equal(a, b_)
+
+
+def test_biased_backward_dead_rows_match_plain_versions(cuda_device):
+    """Rows whose every key is masked, with a nonzero cotangent: dq-bias gives
+    them the finite min as lse (p = 1/Lk on each key) and dkv-bias p = 1 on
+    each key, as the plain versions do; the gradients match them."""
+    b, h, l = 2, 4, 387
+    q, k, v = _qkv(cuda_device, b, h, h, l, l, 128)
+    bias, _ = _mask_bias(cuda_device, b, l, 40)
+    dead = (bias <= torch.finfo(torch.float32).min).all(-1).expand(b, h, l)
+    assert dead.any()
+    out = flash_attention(q, k, v, bias=bias)
+    g = torch.Generator(cuda_device).manual_seed(11)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).bfloat16()
+    delta = attention_delta(out, dout)
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    want_dq, want_lse = attention_bwd_dq_reference(q, k, v, dout, delta, bias)
+    want_dk, want_dv = attention_bwd_dkv_reference(q, k, v, dout, want_lse, delta, bias)
+    assert bool((lse[dead] == torch.finfo(torch.float32).min).all())
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert_grad_close(got, want)
@@ -1168,6 +1251,42 @@ def test_int4_kernel_matches_plain_version(cuda_fp32_reductions, m, k, n):
     assert int4_matmul.launches == before + 1
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     assert_int4_close(got, int4_matmul_reference(x, packed, scales))
+    assert torch.equal(int4_matmul(x, packed, scales), got)   # a repeated call: the same bits
+
+
+@pytest.mark.parametrize("m,k,n,rows", [(128, 128, 256, 128), (4096, 4096, 8192, 256)])
+def test_int4_expanded_tile_is_read_as_wgmma_reads_it(cuda_device, m, k, n, rows):
+    """x the identity, so out = W: the weight B6 expands into shared memory,
+    as its wgmma products read it (the 128-byte swizzle of an MN-major B
+    operand), is bit for bit the plain version's dequantised W, at both tile
+    heights. An expansion written in another layout than the descriptor
+    reads runs and gives wrong numbers."""
+    from mmada_tpu_torch.ops.int4_matmul import block_rows, unpack_int4
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert block_rows(m, n, sms) == rows
+    packed, scales = _int4_weight(cuda_device, (k, n), seed=12)
+    x = torch.eye(m, k, device=cuda_device, dtype=torch.bfloat16)
+    got = int4_matmul(x, packed, scales)
+    torch.testing.assert_close(got, unpack_int4(packed, scales, torch.bfloat16)[:m], atol=0,
+                               rtol=0)
+
+
+def test_int4_map_cache_holds_a_bounded_number_of_shapes(cuda_device, monkeypatch):
+    """A server meets a new M with each frame length: B6's maps are kept
+    for at most _MAPS_HELD shapes, the oldest dropped first, and a shape
+    described again gives the same bits."""
+    from mmada_tpu_torch.ops import int4_matmul as int4_mod
+
+    monkeypatch.setattr(int4_mod, "_MAPS_HELD", 4)
+    monkeypatch.setattr(int4_mod, "_maps", {})
+    packed, scales = _int4_weight(cuda_device, (128, 128), seed=5)
+    x = _int4_x(cuda_device, 8, 128, seed=6)
+    first = int4_matmul(x[:1], packed, scales)
+    for m in range(2, 8):
+        int4_matmul(x[:m], packed, scales)
+    assert sorted(key[0] for key in int4_mod._maps) == [4, 5, 6, 7]
+    assert torch.equal(int4_matmul(x[:1], packed, scales), first)
 
 
 def test_int4_kernel_reads_windows_and_layers_in_place(cuda_fp32_reductions):

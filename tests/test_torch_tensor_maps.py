@@ -1,11 +1,13 @@
-"""The tensor maps through which the wgmma attention kernels (B1, B2, B3,
-B4, B4-bias, B5-dq, B5-dkv) read their operands and write their outputs, as
+"""The tensor maps through which the wgmma kernels (B1, B2, B3, B3-bias,
+B4, B4-bias, B5-dq, B5-dkv; B6) read their operands and write their outputs, as
 the wrappers describe them (`mmada_tpu_torch/ops/tensor_maps.py`): dims in
 (columns, rows, heads, batches) order, byte strides that are multiples of
 16, the box, and a copy of an operand no map can describe; the fp32 bias of
 the biased kernels (B2, B4-bias, B5-dq-bias, B5-dkv-bias), broadcast axes as
 dimensions of 1, and the grid order it sets; and the spans of fp32 row
-statistics (lse, delta) that the dkv kernels (B3's, B5-dkv) read. These run
+statistics (lse, delta) that the dkv kernels (B3's, B5-dkv) read; B6's 2-D
+maps of x, the packed int4 weight, its scales and the output, and the tile
+height it takes. These run
 on the CPU:
 the description is Python, and the kernels that take it run on the card
 (`tests/test_torch_cuda.py`)."""
@@ -16,6 +18,7 @@ import torch
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.ops import flash_attention as fa_mod
 from mmada_tpu_torch.ops import flash_attention_long as long_mod
+from mmada_tpu_torch.ops import int4_matmul as int4_mod
 from mmada_tpu_torch.ops.tensor_maps import (
     BIAS_COLS,
     OUT_ROWS,
@@ -29,6 +32,7 @@ from mmada_tpu_torch.ops.tensor_maps import (
     describable,
     describe,
     describe_bias,
+    describe_matrix,
     describe_rows,
     rows_operand,
     spec_array,
@@ -514,3 +518,80 @@ def test_b3_and_b4_bias_wrappers_leave_cpu_tensors_to_the_plain_versions():
                                atol=0, rtol=0)
     assert [(f.launches, f.bias_launches) for f in kernels] == before
     assert long_mod.flash_attention_long.bias_copies == copies
+
+
+# --------------------------------------------------------------------- B6
+
+H100_SMS = 132
+
+
+def _int4_operands(m, k, n):
+    x = _aligned(m, k)
+    packed = torch.zeros(k // 2, n, dtype=torch.int8)
+    scales = _aligned(k // 128, n, dtype=torch.float32)
+    out = torch.empty(m, n, dtype=torch.bfloat16)
+    return x, packed, scales, out
+
+
+@pytest.mark.parametrize("m,k,n,rows", [
+    (477, 4096, 4096, 128), (477, 4096, 12288, 256), (477, 12288, 4096, 128),
+    (96, 4096, 134656, 128), (4620, 4096, 12288, 256), (4620, 4096, 4096, 256),
+    (4620, 12288, 4096, 256), (4096, 4096, 8192, 256), (1, 4096, 4096, 128),
+])
+def test_b6_maps_of_the_int4_matmul(m, k, n, rows):
+    """B6's maps at the int4 8B's main-path shapes: x (M, K) bf16 as (K, M,
+    1, 1) in boxes of 64 columns (the 128-byte swizzle) and the tile's rows,
+    the packed int8 weight (K/2, N) in boxes of 128 x 64 bytes (one group),
+    the fp32 scales (K/128, N) in boxes of 128 x 1, the bf16 output (M, N)
+    in boxes of 64 x 64; every stride the tensor's own row, in bytes. Tall
+    tiles (256 rows) where their fewer waves pay: the t2i batch, and the
+    text batch's ff_proj (two waves of 256-row tiles, not three of 128),
+    not its shapes of one wave at either height or the head's 96 rows."""
+    x, packed, scales, out = _int4_operands(m, k, n)
+    assert int4_mod.block_rows(m, n, H100_SMS) == rows
+    maps = int4_mod.int4_maps(x, packed, scales, out, H100_SMS)
+    want = [((k, m, 1, 1), 2 * k, (64, rows, 1, 1)),
+            ((n, k // 2, 1, 1), n, (128, 64, 1, 1)),
+            ((n, k // 128, 1, 1), 4 * n, (128, 1, 1, 1)),
+            ((n, m, 1, 1), 2 * n, (64, 64, 1, 1))]
+    for spec, (dims, row_bytes, box) in zip(maps, want):
+        assert spec.dims == dims and spec.box == box
+        assert spec.strides[0] == row_bytes and all(st % 16 == 0 for st in spec.strides)
+        assert len(spec.flat()) == 11
+
+
+def test_b6_reads_a_column_window_and_a_layer_in_place():
+    """The t2i head's image ids as a column window `packed[:, lo:hi]` of the
+    packed head, and one layer `packed[i]` of a stacked weight: maps of the
+    views themselves (base at the window or the layer, the parent's row
+    stride), no copy."""
+    lo, hi = 256, 768
+    packed = torch.zeros(64, 1024, dtype=torch.int8)
+    scales = _aligned(1, 1024, dtype=torch.float32)
+    win_p, win_s = packed[:, lo:hi], scales[:, lo:hi]
+    spec = describe_matrix(win_p, 128, 64)
+    assert spec.dims == (hi - lo, 64, 1, 1) and spec.strides[0] == 1024
+    assert describe_matrix(win_s, 128, 1).dims == (hi - lo, 1, 1, 1)
+    assert win_p.data_ptr() - packed.data_ptr() == lo
+    stacked = torch.zeros(3, 128, 256, dtype=torch.int8)
+    layer = stacked[1]
+    spec = describe_matrix(layer, 128, 64)
+    assert spec.dims == (256, 128, 1, 1) and spec.strides[0] == 256
+    assert layer.data_ptr() - stacked.data_ptr() == 128 * 256
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros(64, 1024, dtype=torch.int8)[:, 8:136],       # base 8 bytes off
+    lambda: torch.zeros(64, 1032, dtype=torch.int8)[:, :128],        # rows 1,032 bytes apart
+    lambda: torch.zeros(10, 129, dtype=torch.bfloat16)[:, :128],     # rows 258 bytes apart
+    lambda: torch.zeros(128, 64, dtype=torch.bfloat16).t(),          # strided columns
+    lambda: torch.zeros(2, 64, 128, dtype=torch.bfloat16),           # not 2-D
+])
+def test_b6_refuses_a_view_no_map_describes(make):
+    """A view whose base or row stride is not a multiple of 16 bytes, whose
+    columns are strided, or that is not 2-D, has no 2-D map: refused (the
+    wrapper's checks raise first on the card). A row stride of 1,032 bytes
+    is a multiple of 8 but not of 16: refused too."""
+    t = make()
+    with pytest.raises(ValueError, match="no tensor map describes|2-D"):
+        describe_matrix(t, 64, 64)
