@@ -20,12 +20,21 @@ and trains a small model through the kernels against the fp32 CPU path
 (without and with attention masks; an int4 forward through B6; a W8A8
 straight-through train step), builds the full-width 8B (random weights, made
 on the card from a seed), answers text and t2i requests through the port's
-entry points, answers a text request whose frame is 8,192 tokens, quantizes
+entry points, builds the flagship MAGVIT-v2 tokenizer (random fp32 weights
+from a seed) and decodes the t2i request's codes to 512-px images
+(`entry.decode_images`), encodes a 512-px image and holds its latents and
+codes against the fp32 CPU encode of the same weights (and the codes bit for
+bit under torch's default TF32 flags, TF32 on everywhere and a repeat),
+answers an MMU request about that image (`entry.serve_mmu`, exact, then
+early-stop at block 32 against the exact sampler at block 32), answers a
+text request whose frame is 8,192 tokens, quantizes
 the same 8B on the card (`entry.quantize`) to int4 and answers the text and
 t2i requests through B6, then to SmoothQuant W8A8 (text and t2i), int8 and
 W8A8 (a text batch each), freeing each quantized model before the next,
-takes stage-1 train steps of the bf16 8B through `entry.train`, then train
-steps on 8,192-token frames, then turns attention masks on
+takes stage-1 train steps of the bf16 8B through `entry.train`, one
+stage-1 step whose flows carry 256-px images that MAGVIT-v2 encodes on the
+card (its frames equal those of the same flows carrying the codes), then
+train steps on 8,192-token frames, then turns attention masks on
 (`attention_bias_enabled=True`, the same weights) and answers t2i requests
 and takes stage-1 train steps with `t2i_masks` again, and one masked step
 on 8,192-token frames. It checks that the kernels really ran on each path
@@ -57,6 +66,7 @@ T0 = time.perf_counter()
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak (data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s (data sheet)
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores (data sheet)
 KERNEL_ATOL = 3e-2         # bf16 output: a few bf16 ulps at |out| ~ 1
 KERNEL_RTOL = 3e-2
 # B1 normalises p in fp32 before its bf16 cast, as its plain version does, so
@@ -113,6 +123,27 @@ TRAIN_IMAGE_TOKENS = 256
 # <|soi|> + image codes + <|eoi|>; the lm and mmu rows are padded to it
 TRAIN_FRAME = TRAIN_SETTINGS["max_text_len"] + 1 + TRAIN_IMAGE_TOKENS + 2
 TRAIN_ROWS = sum(TRAIN_SETTINGS["training"][f"batch_size_{k}"] for k in ("t2i", "lm", "mmu"))
+
+# MAGVIT-v2: the flagship tokenizer (magvit2_default(), random fp32 weights
+# from seed 0) on MMaDA's 512-px images (configs/mmada_demo.yaml:40-43):
+# 32 x 32 = 1,024 codes. Its latents on the card are held against its fp32
+# CPU latents at the JAX test's bar (tests/test_magvit_parity.py:36), its
+# atol scaled by the largest |latent|; a code may differ only through a
+# channel whose CPU latent is within the measured latent error of 0 (the
+# card and the CPU sum the convs in other orders)
+VQ_RESOLUTION = 512
+LATENT_ATOL = 2e-4
+LATENT_RTOL = 1e-3
+# one MMU request at the bench's light point (bench.py:327-333): 128 new
+# tokens, 64 steps, one block of 128, T = 0; the 38-byte question makes the
+# frame (<|mmu|> <|soi|> 1,024 codes <|eoi|> <bos> question + answer) the
+# bench's 1,194 tokens. Then the early-stop sampler at block 32, held
+# against the exact sampler at block 32
+MMU_QUESTION = "Describe this image in detail, please."
+MMU_SETTINGS = dict(max_new_tokens=128, steps=64, block_length=128, temperature=0.0)
+MMU_FAST_BLOCK = 32
+MMU_FRAME = (2 + (VQ_RESOLUTION // 16) ** 2 + 2 + len(MMU_QUESTION.encode())
+             + MMU_SETTINGS["max_new_tokens"])
 
 # past 4096 tokens (the long tier, B4 and B5): one text request whose frame
 # is 8,192 tokens (BOS + prompt + answer); train steps on 8,192-token frames,
@@ -314,14 +345,16 @@ def bwd_bounds(b, h, kvh, lq, lk, bias=None):
 
 def kernel_cases(h: int):
     """(tag, B, H, KVH, Lq, Lk, rope, bias) at the shapes the served requests
-    give the kernel: the text frame (BOS + prompt bytes + answer) and the t2i
-    frame (padded prompt + <|soi|> + image + <|eoi|>, 1155 tokens); and the
+    give the kernel: the text frame (BOS + prompt bytes + answer), the MMU
+    frame (1,194 tokens) and the t2i frame (padded prompt + <|soi|> + image +
+    <|eoi|>, 1155 tokens); and the
     stage-1 training frame. `bias` is None (kernel B1) or a function that
     makes the fp32 bias on the card (kernel B2): the masks of the served t2i
     frames and of a stage-1 batch, and a per-head random bias."""
     text_len, t2i_len = TEXT_FRAME, T2I_FRAME
     return [
         ("text B1", 1, h, h, text_len, text_len, True, None),
+        ("mmu B1", 1, h, h, MMU_FRAME, MMU_FRAME, True, None),
         ("text B3 (served batch)", 3, h, h, text_len, text_len, True, None),
         ("t2i B2", 2, h, h, t2i_len, t2i_len, True, None),
         ("t2i B4 (served CFG batch)", 4, h, h, t2i_len, t2i_len, True, None),
@@ -1098,6 +1131,8 @@ def move_params(tree, device=None, dtype=None):
 
     if isinstance(tree, dict):
         return {k: move_params(t, device, dtype) for k, t in tree.items()}
+    if isinstance(tree, list):
+        return [move_params(t, device, dtype) for t in tree]
     if isinstance(tree, torch.Tensor):
         return tree.to(device=device, dtype=dtype)
     return type(tree)(**{f.name: getattr(tree, f.name).to(device=device)
@@ -1301,6 +1336,7 @@ def optimizer_ms(trainer) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1451,6 +1487,13 @@ def main() -> int:
         raise AssertionError(f"unmasked serving launched biased kernels {serve_biased} or "
                              f"long-tier kernels or B6 {serve_long}")
 
+    # 7a. MAGVIT-v2 (the flagship, on the card): the t2i request's codes
+    # decoded to 512-px images, a 512-px image encoded (against the fp32 CPU,
+    # under other TF32 flags, on a repeat); then an MMU request about that
+    # image through `serve_mmu` on the 8B (B1 only), exact and early-stop
+    vq, vq_cfg, image = magvit_phase(codes)
+    mmu_launches = mmu_phase(model, vq, vq_cfg, image, reset_counts, counts)
+
     # 7b. a text request whose frame is 8,192 tokens: the long tier (B4) only
     long_prompt = ("The quick brown fox jumps over the lazy dog. " * 200)[:LONG_PROMPT_BYTES]
     reset_counts()
@@ -1501,11 +1544,33 @@ def main() -> int:
     step_ms = min(h["seconds"] for h in trainer.history) * 1e3
     log("train", f"AdamW pass {opt_ms:.1f} ms ({opt_ms / step_ms:.1%} of the steady step)")
 
+    del trainer
+    free_memory()
+
+    # 8a. one stage-1 step whose flows carry 256-px images, which the
+    # flagship MAGVIT-v2 encodes on the card; the frames it trains on equal
+    # those of the same flows carrying the codes (the caption dropout drawn
+    # alike)
+    pixel_flows, coded_flows = pixel_train_flows(vq, vq_cfg)
+    pixel_trainer, pixel_train = train_phase("pixel train", model, 1, train, reset_counts, counts,
+                                             flows=[pixel_flows], vq_params=vq, vq_cfg=vq_cfg)
+    expect_launches("pixel train", pixel_train, {"one-pass": (2 * n, n, n)})
+    batches = []
+    for flows in (pixel_flows, coded_flows):
+        pixel_trainer.prompting.rng = np.random.default_rng(0)
+        batches.append(pixel_trainer.prepare_batch(flows))
+    same = sorted(batches[0]) == sorted(batches[1]) and all(
+        torch.equal(v, batches[1][k]) for k, v in batches[0].items())
+    log("pixel train", f"frames from pixels equal the frames from their codes: {same} "
+        f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in batches[0].items())})")
+    if not same:
+        raise AssertionError("the pixel flows' frames differ from their codes' frames")
+    del pixel_trainer, batches
+    free_memory()
+
     # 8b. train steps on 8,192-token frames (the long tier: B4, B5-dq,
     # B5-dkv). Each trainer's AdamW moments are freed before the next
     # trainer makes its own: a second set would not fit beside them.
-    del trainer
-    free_memory()
     long_trainer, long_train = train_phase("long train", model, LONG_TRAIN_STEPS, train,
                                            reset_counts, counts, plan=LONG)
     expect_launches("long train", long_train, {"long": (
@@ -1574,7 +1639,8 @@ def main() -> int:
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
     kernels = [kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
-                             launches + train_launches[0], one_pass, main_rec),
+                             launches + mmu_launches + train_launches[0] + pixel_train[0][0],
+                             one_pass, main_rec),
                kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                              masked_serve[0] + masked_train[0],
                              [r for r in records if r["bias"] is not None], masked_rec)]
@@ -1606,8 +1672,10 @@ def main() -> int:
                              dict(recs[0][key], library_ms=recs[0]["library_ms"]))
 
     for name, key, line, count, recs in (
-            ("flash_attention_bwd_dq", "dq", "895", train_launches[1], plain_bwd),
-            ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2], plain_bwd),
+            ("flash_attention_bwd_dq", "dq", "895", train_launches[1] + pixel_train[0][1],
+             plain_bwd),
+            ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2] + pixel_train[0][2],
+             plain_bwd),
             ("flash_attention_bwd_dq_bias", "dq", "746", masked_train[1], biased_bwd),
             ("flash_attention_bwd_dkv_bias", "dkv", "799", masked_train[2], biased_bwd),
             ("flash_attention_long_bwd_dq", "dq", "1185", long_train[2][1], long_bwd),
@@ -1634,12 +1702,7 @@ def free_memory() -> None:
 
 def check_answers(answers, vocab) -> None:
     for ans in answers:
-        if ans.shape != (TEXT_SETTINGS["gen_length"],):
-            raise AssertionError(f"text answer shape {tuple(ans.shape)}")
-        if (ans == vocab.mask_token_id).any():
-            raise AssertionError("text answer still holds [MASK] tokens")
-        if not ((ans >= 0) & (ans < vocab.total_vocab_size)).all():
-            raise AssertionError("text answer ids out of the fused vocab")
+        check_answer_ids(ans, TEXT_SETTINGS["gen_length"], vocab)
 
 
 def t2i_frames():
@@ -1769,6 +1832,205 @@ def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=
     return b6
 
 
+def seeded_images(n, res, seed):
+    """(n, res, res, 3) pixels in [-1, 1] on the card, made from a seed: a few
+    smooth waves a channel and some noise."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    axis = torch.linspace(-1.0, 1.0, res, device="cuda")
+    y, x = torch.meshgrid(axis, axis, indexing="ij")
+    freq = torch.rand((n, 4, 3, 2), generator=g, device="cuda") * 8.0
+    phase = torch.rand((n, 4, 3, 1, 1), generator=g, device="cuda") * 2 * math.pi
+    waves = torch.sin(freq[..., 0, None, None] * x + freq[..., 1, None, None] * y + phase)
+    noise = torch.randn((n, res, res, 3), generator=g, device="cuda")
+    return (waves.mean(1).permute(0, 2, 3, 1) + 0.1 * noise).clamp(-1.0, 1.0)
+
+
+def magvit_flops(vq, cfg, res):
+    """(encode, decode) operations of one res-px image, counted by torch's
+    FLOP counter over the convs and the attention products on meta tensors
+    (no work done); the norms and activations are not counted."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mmada_tpu_torch.models import magvit2
+
+    meta = move_params(vq, "meta")
+    counts = []
+    for fn, part, shape in ((magvit2.encoder_forward, "encoder", (1, res, res, cfg.in_ch)),
+                            (magvit2.decoder_forward, "decoder",
+                             (1, res // cfg.downsample_factor, res // cfg.downsample_factor,
+                              cfg.z_channels))):
+        with FlopCounterMode(display=False) as counter:
+            fn(meta[part], cfg, torch.empty(shape, device="meta"))
+        counts.append(counter.get_total_flops())
+    return tuple(counts)
+
+
+def magvit_phase(t2i_codes):
+    """The flagship MAGVIT-v2 on the card: decode the t2i request's codes to
+    512-px images (`entry.decode_images`); encode a 512-px image and hold
+    its latents and codes against the fp32 CPU encode of the same weights;
+    encode it again with TF32 at torch's defaults, with TF32 on everywhere,
+    and on a repeat: the same codes bit for bit each time. Returns (params,
+    cfg, image)."""
+    import torch
+
+    from mmada_tpu_torch.entry import decode_images
+    from mmada_tpu_torch.models import magvit2
+
+    cfg = magvit2.magvit2_default()
+    t = time.perf_counter()
+    vq = magvit2.init_magvit2(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = magvit2.param_count(vq)
+    log("magvit", f"magvit2_default() built on the card in {time.perf_counter() - t:.2f}s: "
+        f"{n} params, {4 * n / 1e6:.1f} MB in fp32")
+
+    # decode: the t2i request's codes to 512-px images
+    codes = t2i_codes.cuda()
+    pixels = magvit2.decode_code(vq, cfg, codes)
+    images = decode_images(vq, cfg, codes)
+    torch.cuda.synchronize()
+    want = ((pixels + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu()
+    shape = (codes.shape[0], VQ_RESOLUTION, VQ_RESOLUTION, 3)
+    if tuple(pixels.shape) != shape or not bool(torch.isfinite(pixels).all()):
+        raise AssertionError(f"decoded pixels {tuple(pixels.shape)}, finite "
+                             f"{bool(torch.isfinite(pixels).all())}; want {shape}")
+    if images.dtype != torch.uint8 or tuple(images.shape) != shape or not torch.equal(images, want):
+        raise AssertionError("decode_images differs from (x + 1) * 127.5 clipped to uint8")
+    decode_ms = cuda_ms(lambda: decode_images(vq, cfg, codes), 3, 1) / codes.shape[0]
+    clipped = float(((pixels < -1) | (pixels > 1)).float().mean())
+    encode_flops, decode_flops = magvit_flops(vq, cfg, VQ_RESOLUTION)
+    log("magvit", f"decoded {tuple(codes.shape)} t2i codes to {tuple(images.shape)} uint8 images: "
+        f"{decode_ms:.2f} ms an image ({rate(decode_flops, decode_ms)}); pixels in "
+        f"[{float(pixels.min()):.3f}, {float(pixels.max()):.3f}], {clipped:.4f} of them clipped")
+    del pixels
+
+    # encode a 512-px image, against the fp32 CPU encode of the same weights
+    image = seeded_images(1, VQ_RESOLUTION, seed=1)
+    z = magvit2.encoder_forward(vq["encoder"], cfg, image)
+    codes = magvit2.lfq_indices(z, cfg.z_channels)
+    cpu_vq = move_params(vq, "cpu")
+    t = time.perf_counter()
+    z_cpu = magvit2.encoder_forward(cpu_vq["encoder"], cfg, image.cpu())
+    cpu_s = time.perf_counter() - t
+    del cpu_vq
+    z = z.cpu()
+    err = (z - z_cpu).abs()
+    max_err, scale = float(err.max()), float(z_cpu.abs().max())
+    within = bool((err <= LATENT_ATOL * scale + LATENT_RTOL * z_cpu.abs()).all())
+    flipped = (z > 0) != (z_cpu > 0)
+    differ = flipped.any(-1).reshape(codes.shape)
+    if not torch.equal(differ, codes.cpu() != magvit2.lfq_indices(z_cpu, cfg.z_channels)):
+        raise AssertionError("the differing codes are not those with a flipped channel")
+    flip_z = float(z_cpu.abs()[flipped].max()) if bool(flipped.any()) else 0.0
+    log("magvit", f"encoded a {VQ_RESOLUTION}-px image to {tuple(codes.shape)} codes: latents "
+        f"{tuple(z.shape)}, max |z| {scale:.4f}, max abs err vs the fp32 CPU {max_err:.3e} "
+        f"(bar atol {LATENT_ATOL} x {scale:.4f} + rtol {LATENT_RTOL}: {within}); codes that "
+        f"differ {float(differ.float().mean()):.5f} ({int(differ.sum())}), largest CPU |z| of "
+        f"a flipped channel {flip_z:.3e}; CPU encode {cpu_s:.1f}s")
+    if not within or flip_z > max_err:
+        raise AssertionError(f"MAGVIT-v2 on the card departs from its fp32 CPU encode: latents "
+                             f"within the bar {within}, a flipped channel at |z| {flip_z} "
+                             f"past the latent error {max_err}")
+
+    # the same codes whatever the caller's TF32 flags, and on a repeat
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    at_defaults = magvit2.get_code(vq, cfg, image)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_on = magvit2.get_code(vq, cfg, image)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    repeat = magvit2.get_code(vq, cfg, image)
+    same = [bool(torch.equal(c, codes)) for c in (at_defaults, tf32_on, repeat)]
+    encode_ms = cuda_ms(lambda: magvit2.get_code(vq, cfg, image), 3, 1)
+    log("magvit", f"codes bit for bit with TF32 at torch's defaults {same[0]}, with TF32 on "
+        f"everywhere {same[1]}, on a repeat {same[2]}; {encode_ms:.2f} ms an image "
+        f"({rate(encode_flops, encode_ms)})")
+    if not all(same):
+        raise AssertionError(f"MAGVIT-v2's codes depend on the TF32 flags or the run: {same}")
+    return vq, cfg, image
+
+
+def rate(flops, ms) -> str:
+    return (f"{flops / 1e12:.3f} TFLOP, {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{flops / ms / 1e9 / (PEAK_FP32_FLOPS / 1e12):.1%} of the fp32 peak")
+
+
+def mmu_phase(model, vq, vq_cfg, image, reset_counts, counts) -> int:
+    """One MMU request on the 8B through `entry.serve_mmu` at the bench's
+    light point (B1 only, once a layer a forward), then `fast=True` at block
+    32 against the exact sampler at block 32: the same ids up to the block
+    it stopped after, [MASK] past it. Returns B1's launches."""
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import serve_mmu
+
+    n = model.cfg.n_layers
+
+    def request(**kw):
+        reset_counts()
+        t = time.perf_counter()
+        answer = serve_mmu(model, vq, vq_cfg, image, [MMU_QUESTION], **kw)[0]
+        torch.cuda.synchronize()
+        return answer, time.perf_counter() - t, counts()
+
+    answer, mmu_s, launched = request(**MMU_SETTINGS)
+    check_answer_ids(answer, MMU_SETTINGS["max_new_tokens"], MMADA_8B)
+    log("mmu", f"1 request, frame {MMU_FRAME} tokens, {MMU_SETTINGS}: {mmu_s:.2f}s, "
+        f"{MMU_SETTINGS['max_new_tokens'] / mmu_s:.1f} tok/s; answer ids "
+        f"{answer[:12].tolist()}; launches {launched}")
+    expect_launches("mmu", launched, {"one-pass": (n * MMU_SETTINGS["steps"], 0, 0)})
+    b1 = launched[0][0]
+
+    block = dict(MMU_SETTINGS, block_length=MMU_FAST_BLOCK)
+    fast, fast_s, fast_launched = request(fast=True, **block)
+    exact, exact_s, exact_launched = request(**block)
+    spb = block["steps"] * MMU_FAST_BLOCK // block["max_new_tokens"]
+    blocks = fast_launched[0][0] // (n * spb)
+    stop = blocks * MMU_FAST_BLOCK
+    log("mmu fast", f"block {MMU_FAST_BLOCK}: ran {blocks} of "
+        f"{block['max_new_tokens'] // MMU_FAST_BLOCK} blocks in {fast_s:.2f}s (the exact sampler "
+        f"{exact_s:.2f}s); ids equal the exact sampler's up to position {stop}: "
+        f"{bool(torch.equal(fast[:stop], exact[:stop]))}; launches {fast_launched}")
+    check_answer_ids(exact, block["max_new_tokens"], MMADA_8B)
+    expect_launches("mmu fast", fast_launched, {"one-pass": (n * spb * blocks, 0, 0)})
+    expect_launches("mmu exact block 32", exact_launched, {"one-pass": (n * block["steps"], 0, 0)})
+    if not (torch.equal(fast[:stop], exact[:stop])
+            and bool((fast[stop:] == MMADA_8B.mask_token_id).all())):
+        raise AssertionError("mmu_generate_fast departs from the exact sampler")
+    return b1 + fast_launched[0][0] + exact_launched[0][0]
+
+
+def pixel_train_flows(vq, vq_cfg):
+    """STAGE1's first batch with its t2i and mmu images as 256-px pixels
+    (configs/mmada_pretraining_stage1.yaml:22,41), and the same batch with
+    the codes MAGVIT-v2 gives those pixels."""
+    from mmada_tpu_torch.models import magvit2
+
+    flows = train_flows(0)
+    coded = {k: dict(v) for k, v in flows.items()}
+    for i, key in enumerate(("t2i_flow", "mmu_flow")):
+        n = len(flows[key]["input_ids"])
+        images = seeded_images(n, VQ_RESOLUTION // 2, seed=10 + i)
+        flows[key] = {"input_ids": flows[key]["input_ids"], "images": images.cpu().numpy()}
+        coded[key]["image_codes"] = magvit2.get_code(vq, vq_cfg, images).cpu().numpy()
+        if coded[key]["image_codes"].shape != (n, TRAIN_IMAGE_TOKENS):
+            raise AssertionError(f"{key}: {coded[key]['image_codes'].shape} codes")
+    return flows, coded
+
+
+def check_answer_ids(ans, length, vocab) -> None:
+    if ans.shape != (length,):
+        raise AssertionError(f"answer shape {tuple(ans.shape)}, want ({length},)")
+    if (ans == vocab.mask_token_id).any():
+        raise AssertionError("answer still holds [MASK] tokens")
+    if not ((ans >= 0) & (ans < vocab.total_vocab_size)).all():
+        raise AssertionError("answer ids out of the fused vocab")
+
+
 def check_codes(codes, vocab) -> None:
     if codes.shape != (len(T2I_PROMPTS), T2I_SETTINGS["num_vq_tokens"]):
         raise AssertionError(f"t2i codes shape {tuple(codes.shape)}")
@@ -1776,18 +2038,20 @@ def check_codes(codes, vocab) -> None:
         raise AssertionError("t2i codes outside [0, 8192)")
 
 
-def train_phase(phase, model, steps, train, reset_counts, counts, plan=STAGE1):
+def train_phase(phase, model, steps, train, reset_counts, counts, plan=STAGE1, flows=None,
+                **train_kw):
     """`steps` train steps of `model` through `entry.train` on batches of
-    `plan` (STAGE1 or LONG), with the counters from 0; checks the metrics and
-    the trained frame, and returns (trainer, counts())."""
+    `plan` (STAGE1 or LONG), made from seeds unless `flows` are given, with
+    the counters from 0; checks the metrics and the trained frame, and
+    returns (trainer, counts())."""
     import torch
 
-    flows = [train_flows(seed, plan) for seed in range(steps)]
+    flows = flows or [train_flows(seed, plan) for seed in range(steps)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t = time.perf_counter()
-    trainer = train(model, flows, steps=steps, log_every=1, **plan["settings"])
+    trainer = train(model, flows, steps=steps, log_every=1, **plan["settings"], **train_kw)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     launched = counts()

@@ -1,7 +1,7 @@
-"""MMaDA on PyTorch and CUDA: the text and t2i serving path and the
-multi-task training step of the unified masked-diffusion model, with its
-attention kernels (forward, and the dq / dkv backward) written by hand for
-Hopper.
+"""MMaDA on PyTorch and CUDA: the text, t2i and MMU serving paths (with the
+MAGVIT-v2 image tokenizer) and the multi-task training step of the unified
+masked-diffusion model, with its attention kernels (forward, and the dq /
+dkv backward) and its int4 matmul written by hand for Hopper.
 
 The package mirrors the module names of the JAX package `mmada_tpu` so that
 each counterpart is easy to find, and keeps the JAX weight layout (`(in, out)`

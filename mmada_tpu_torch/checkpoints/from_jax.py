@@ -11,6 +11,9 @@
   moments `mu` / `nu`, which mirror it) into the trainable layout's flat
   names (`llada.named_leaves` of `llada.split_layers`: one tensor per layer
   and weight kind, `layers.{i}.{kind}`).
+* `magvit2_from_jax` takes the JAX package's MAGVIT-v2 params as numpy
+  arrays and returns the port's: the same tree, with each HWIO conv kernel
+  transposed to torch's OIHW.
 * `params_from_torch_state_dict` is the counterpart of
   `mmada_tpu/checkpoints/hf_import.params_from_torch_state_dict`: it reads a
   flat reference state dict (`model.transformer.blocks.{i}.q_proj.weight`,
@@ -86,6 +89,28 @@ def named_from_jax(np_tree: Mapping, device: DeviceLike = None,
     tree["blocks"] = {name: _tensor(a, device, dtype)
                       for name, a in np_tree["blocks"].items()}
     return {name: t.contiguous() for name, t in named_leaves(tree)}
+
+
+def magvit2_from_jax(np_tree, cfg, device: DeviceLike = None,
+                     dtype: torch.dtype = torch.float32):
+    """The JAX `magvit2.init_magvit2` / `magvit2_params_from_torch` pytree
+    (numpy leaves) as the port's MAGVIT-v2 params on `device`. `cfg` (a
+    `VQGANConfig`) is checked against the tree's encoder levels."""
+    device = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, Mapping):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        t = _tensor(node, device, dtype)
+        return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t  # HWIO -> OIHW
+
+    params = convert(np_tree)
+    if len(params["encoder"]["down"]) != cfg.num_levels:
+        raise ValueError(f"encoder has {len(params['encoder']['down'])} levels, "
+                         f"config {cfg.num_levels}")
+    return params
 
 
 _BLOCK_RE = re.compile(

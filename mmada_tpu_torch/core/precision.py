@@ -2,7 +2,9 @@
 
 Counterpart of `mmada_tpu/core/precision.py`: RMSNorm, attention softmax,
 RoPE and the vocab head's output run in fp32; weights and activations in the
-policy's compute dtype.
+policy's compute dtype. Two contexts fix how cuBLAS and cuDNN compute, whatever
+the caller's flags: `exact_bf16_reductions` (bf16 products with fp32 sums)
+and `exact_fp32_products` (fp32 products without TF32, MAGVIT-v2's).
 """
 
 from __future__ import annotations
@@ -45,3 +47,20 @@ def exact_bf16_reductions():
         yield
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+@contextlib.contextmanager
+def exact_fp32_products():
+    """fp32 convolutions and matmuls in full fp32 (TF32 off for cuDNN's convs
+    and cuBLAS's matmuls) by algorithms cuDNN picks by its heuristics, not by
+    timing (`cudnn.benchmark` off): MAGVIT-v2's codes are the signs of its
+    latents, so a TF32 product, or an algorithm that differs from one call to
+    the next, flips codes. The caller's settings are restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.conv.fp32_precision, matmul.fp32_precision, cudnn.benchmark
+    cudnn.conv.fp32_precision = matmul.fp32_precision = "ieee"
+    cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        cudnn.conv.fp32_precision, matmul.fp32_precision, cudnn.benchmark = saved

@@ -1,8 +1,8 @@
-"""Entry points: answer text or t2i requests, and train.
+"""Entry points: answer text, t2i and MMU requests, decode images, and train.
 
-Counterparts of the repo-root `generate.py`, `inference_t2i.py` (up to the
-token ids / image codes) and `train.py`, with keyword arguments instead of a
-yaml config:
+Counterparts of the repo-root `generate.py`, `inference_t2i.py`,
+`inference_mmu.py` (from pixel arrays: the PIL transforms stay with the
+CLIs) and `train.py`, with keyword arguments instead of a yaml config:
 
   * `serve_text(model, prompts, ...)` builds each prompt's frame (BOS first,
     as `generate.py` does), batches requests of equal frame length, and runs
@@ -11,9 +11,16 @@ yaml config:
     empty-prompt CFG frames (`UniversalPrompting.t2i_gen` /
     `t2i_gen_uncond`) and runs the exact MaskGIT sampler; it returns the
     `(len(prompts), num_vq_tokens)` image codes.
+  * `decode_images(vq, vq_cfg, codes)` turns image codes into uint8 NHWC
+    images by MAGVIT-v2's decoder, as `inference_t2i.py` does.
+  * `serve_mmu(model, vq, vq_cfg, images, questions, ...)` encodes each
+    image by MAGVIT-v2, builds `inference_mmu.py`'s frame and runs
+    `mmu_generate` (or `mmu_generate_fast`, stopping at EOT); it returns
+    each request's generated ids.
   * `train(model, flows, steps, ...)` builds the multi-task `Trainer` and
     takes `steps` optimizer steps over the raw batches in `flows` (cycled),
-    updating the model's weights in place.
+    updating the model's weights in place; flows may carry pixels, which
+    the MAGVIT-v2 encoder (`vq_params`) turns into codes.
   * `quantize(model, scheme, ...)` is the quantize branch of the JAX loader
     (`mmada_tpu/serve/loader.py`, `model.mmada.quantize`): a model whose
     block weights and vocab head are int8 (`"int8"`, `"w8"`), W8A8
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
+from mmada_tpu_torch.models import magvit2
 from mmada_tpu_torch.models.llada import calibration_stats
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.quantization import quantize_llada_params
@@ -52,6 +60,14 @@ def _check_device(model: MMadaModel, device: DeviceLike) -> torch.device:
     if model.device.type != device.type:
         raise ValueError(f"model weights are on {model.device}, serving asked for {device}")
     return model.device
+
+
+def _check_vq_device(vq, device: DeviceLike) -> torch.device:
+    device = resolve_device(device)
+    vq_device = vq["encoder"]["conv_in"]["w"].device
+    if vq_device.type != device.type:
+        raise ValueError(f"MAGVIT-v2 weights are on {vq_device}, the call asked for {device}")
+    return vq_device
 
 
 def text_frames(model: MMadaModel, prompts: Sequence[str], tokenizer=None) -> list[list[int]]:
@@ -129,24 +145,77 @@ def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
     return codes.cpu()
 
 
+def decode_images(vq, vq_cfg: magvit2.VQGANConfig, codes, device: DeviceLike = None
+                  ) -> torch.Tensor:
+    """`(B, H, W, 3)` uint8 images, on the CPU, from `(B, N)` raw image codes:
+    MAGVIT-v2's decode, then `(x + 1) * 127.5` clipped to [0, 255] and cast
+    (`inference_t2i.py`)."""
+    device = _check_vq_device(vq, device)
+    pixels = magvit2.decode_code(vq, vq_cfg, torch.as_tensor(codes, dtype=torch.long).to(device))
+    return ((pixels + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu()
+
+
+def serve_mmu(model: MMadaModel, vq, vq_cfg: magvit2.VQGANConfig, images, questions: Sequence[str],
+              tokenizer=None, special_ids: Optional[SpecialIds] = None,
+              device: DeviceLike = None, max_new_tokens: int = 128, steps: int = 64,
+              block_length: int = 128, temperature: float = 0.0, cfg_scale: float = 0.0,
+              fast: bool = False, seed: int = 0) -> list[torch.Tensor]:
+    """Each request's `max_new_tokens` generated ids (fused vocab, on the
+    CPU) for an image and a question. `images` is `(B, H, W, 3)` pixels in
+    [-1, 1] (an array, or a tensor on any device). Each frame is
+    `inference_mmu.py`'s, `<|mmu|> <|soi|> codes <|eoi|> <bos> question`
+    (the question's ids as the tokenizer gives them, no padding); frames of
+    one length share a batch. `fast` stops a batch after the first block
+    that ends in EOT in every row (its later blocks stay [MASK])."""
+    device = _check_device(model, device)
+    _check_vq_device(vq, device)
+    sp = special_ids or SpecialIds.from_vocab(model.vocab)
+    if not isinstance(images, torch.Tensor):
+        images = np.ascontiguousarray(images)
+    pixels = torch.as_tensor(images, dtype=torch.float32, device=device)
+    codes = magvit2.get_code(vq, vq_cfg, pixels).cpu().numpy() + model.vocab.image_offset
+    texts = (tokenizer or ByteTokenizer())(list(questions))["input_ids"]
+    frames = [[sp.mmu, sp.soi, *c.tolist(), sp.eoi, sp.bos, *ids] for c, ids in zip(codes, texts)]
+    generator = torch.Generator(device).manual_seed(seed) if temperature > 0 else None
+    kw = dict(max_new_tokens=max_new_tokens, steps=steps, block_length=block_length,
+              temperature=temperature, cfg_scale=cfg_scale, generator=generator)
+    groups: dict[int, list[int]] = {}
+    for i, ids in enumerate(frames):
+        groups.setdefault(len(ids), []).append(i)
+    answers: list[Optional[torch.Tensor]] = [None] * len(frames)
+    for length, rows in groups.items():
+        prompt = torch.tensor([frames[i] for i in rows], dtype=torch.long, device=device)
+        if fast:
+            out = model.mmu_generate_fast(prompt, eot_token=sp.eos, **kw)
+        else:
+            out = model.mmu_generate(prompt, **kw)
+        for row, i in enumerate(rows):
+            answers[i] = out[row, length:].cpu()
+    return answers
+
+
 def train(model: MMadaModel, flows: Sequence[Mapping], steps: int,
           device: DeviceLike = None, tokenizer=None,
           special_ids: Optional[SpecialIds] = None, max_text_len: int = 128,
           training: Optional[Mapping] = None, optimizer: Optional[Mapping] = None,
           lr_scheduler: Optional[Mapping] = None, seed: int = 0,
-          log_every: int = 1) -> Trainer:
+          log_every: int = 1, vq_params=None,
+          vq_cfg: Optional[magvit2.VQGANConfig] = None) -> Trainer:
     """Take `steps` train steps on the raw batches `flows` (each a dict of
-    `t2i_flow` / `lm_flow` / `mmu_flow`, images as VQ codes), cycling through
-    them. `training` / `optimizer` / `lr_scheduler` are the reference
-    config's blocks as dicts. The model's weights are updated in place; the
-    returned Trainer holds the state and the logged metrics (`history`)."""
+    `t2i_flow` / `lm_flow` / `mmu_flow`, images as pixels, `images`, which
+    MAGVIT-v2 (`vq_params`, `vq_cfg`) encodes, or as VQ codes,
+    `image_codes`), cycling through them. `training` / `optimizer` /
+    `lr_scheduler` are the reference config's blocks as dicts. The model's
+    weights are updated in place; the returned Trainer holds the state and
+    the logged metrics (`history`)."""
     _check_device(model, device)
     prompting = UniversalPrompting(
         tokenizer or ByteTokenizer(), special_ids or SpecialIds.from_vocab(model.vocab),
         max_text_len=max_text_len,
     )
     trainer = Trainer(model, prompting, training=dict(training or {}, max_train_steps=steps),
-                      optimizer=optimizer, lr_scheduler=lr_scheduler, log_every=log_every)
+                      optimizer=optimizer, lr_scheduler=lr_scheduler, log_every=log_every,
+                      vq_params=vq_params, vq_cfg=vq_cfg)
     trainer.fit(itertools.islice(itertools.cycle(flows), steps), rng_seed=seed)
     return trainer
 

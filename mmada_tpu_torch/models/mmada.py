@@ -1,4 +1,4 @@
-"""MMaDA: the unified multimodal masked-diffusion model, text and t2i paths.
+"""MMaDA: the unified multimodal masked-diffusion model: text, MMU and t2i.
 
 Counterpart of `MMadaModel` in `mmada_tpu/models/mmada.py` (:164): the LLaDA
 backbone plus the fused vocab layout plus the task entry points this slice
@@ -10,6 +10,9 @@ serves:
                      post-norm hidden states, and the vocab head on (a chunk
                      of) them
   * `generate`     - semi-AR text denoising, exact sampler
+  * `mmu_generate` / `mmu_generate_fast` - the same denoiser on a prompt
+                     that holds the <|mmu|> image frame; the fast one stops
+                     after the first block that ends in EOT in every row
   * `t2i_generate` - MaskGIT image-token generation with CFG, exact sampler
 
 Image generation evaluates the vocab head only over the 8k image window and
@@ -131,6 +134,40 @@ class MMadaModel:
             window_forward_fn=self._text_window_forward_fn(block_length),
         )
 
+    # ----------------------------------------------------------------- mmu
+    def mmu_generate(self, input_ids, max_new_tokens=128, steps=128, block_length=128,
+                     temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
+                     generator=None, block_kv_cache=False, parallel_threshold=0.0,
+                     parallel_warmup_steps=0, cache_refresh_every=0, segment_steps=0):
+        """`generate` on a prompt that already holds the <|mmu|> image frame.
+        The block-KV, tau-parallel and segmented knobs must stay at their
+        defaults (the exact sampler)."""
+        _exact_sampler_only(block_kv_cache=block_kv_cache, parallel_threshold=parallel_threshold,
+                            parallel_warmup_steps=parallel_warmup_steps,
+                            cache_refresh_every=cache_refresh_every, segment_steps=segment_steps)
+        return self.generate(input_ids, gen_length=max_new_tokens, steps=steps,
+                             block_length=block_length, temperature=temperature,
+                             cfg_scale=cfg_scale, remasking=remasking, generator=generator)
+
+    def mmu_generate_fast(self, input_ids, eot_token: int, max_new_tokens=128, steps=128,
+                          block_length=128, temperature=0.0, cfg_scale=0.0, generator=None,
+                          block_kv_cache=False, parallel_threshold=0.0,
+                          parallel_warmup_steps=0, cache_refresh_every=0):
+        """`mmu_generate` that stops after the first block whose last
+        position holds `eot_token` in every row (the blocks not run stay
+        masked)."""
+        _exact_sampler_only(block_kv_cache=block_kv_cache, parallel_threshold=parallel_threshold,
+                            parallel_warmup_steps=parallel_warmup_steps,
+                            cache_refresh_every=cache_refresh_every)
+        scfg = text_sampling.SemiARConfig(
+            gen_length=max_new_tokens, steps=steps, block_length=block_length,
+            temperature=temperature, cfg_scale=cfg_scale, mask_id=self.vocab.mask_token_id,
+        )
+        return text_sampling.generate_with_early_stop(
+            None, input_ids, scfg, eot_token, generator=generator,
+            window_forward_fn=self._text_window_forward_fn(block_length),
+        )
+
     # ----------------------------------------------------------------- t2i
     def t2i_generate(self, input_ids, uncond_input_ids=None,
                      attention_mask=None, uncond_attention_mask=None,
@@ -152,6 +189,18 @@ class MMadaModel:
             uncond_input_ids=uncond_input_ids, attention_mask=attention_mask,
             uncond_attention_mask=uncond_attention_mask,
         )
+
+
+_EXACT_SAMPLER = dict(block_kv_cache=False, parallel_threshold=0.0, parallel_warmup_steps=0,
+                      cache_refresh_every=0, segment_steps=0)
+
+
+def _exact_sampler_only(**knobs) -> None:
+    changed = sorted(k for k, v in knobs.items() if v != _EXACT_SAMPLER[k])
+    if changed:
+        raise NotImplementedError(
+            f"{', '.join(changed)}: block-KV, tau-parallel and segmented sampling are not "
+            "ported yet (ROADMAP A.3-A.5); the port runs the exact sampler")
 
 
 def _check_policy(policy: Policy, device: torch.device) -> None:

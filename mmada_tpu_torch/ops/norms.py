@@ -2,7 +2,8 @@
 
 Counterpart of `mmada_tpu/ops/norms.py`: RMSNorm computes the variance in
 fp32, casts the normalized activations back to the input dtype, then applies
-the affine weight; Gemma-RMS applies `x * (1 + w)`.
+the affine weight; Gemma-RMS applies `x * (1 + w)`. GroupNorm (MAGVIT-v2's)
+stays in fp32 through its affine step and casts last.
 """
 
 from __future__ import annotations
@@ -47,3 +48,22 @@ def layer_norm(
     if bias is not None:
         x = x + bias.to(orig_dtype)
     return x
+
+
+def group_norm(
+    x: torch.Tensor,  # NHWC
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """GroupNorm over NHWC tensors (VQGAN `Normalize`: groups of
+    `c // num_groups` contiguous channels, population variance, eps 1e-6),
+    in fp32; the affine step is fp32 too and the result is cast back to
+    `x`'s dtype."""
+    orig_dtype = x.dtype
+    n, h, w, c = x.shape
+    xf = x.float().reshape(n, h, w, num_groups, c // num_groups)
+    var, mean = torch.var_mean(xf, dim=(1, 2, 4), keepdim=True, unbiased=False)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    return (xf * weight + bias).to(orig_dtype)

@@ -1,13 +1,15 @@
-"""UniversalPrompting: the text, t2i and mmu sequence layouts.
+"""UniversalPrompting: the text, t2i, mmu and r2i sequence layouts.
 
-Counterpart of `mmada_tpu/prompting/universal.py`, restricted to the tasks the
-port serves and trains so far (pure numpy, no framework code):
+Counterpart of `mmada_tpu/prompting/universal.py` but for the motion frame
+(t2m), in pure numpy:
 
   t2i      [pad]* <|t2i|> <bos> text <eos> <|soi|> img <|eoi|>
   t2i_gen  same frame, no labels
   lm       text <eos> [<eos> padding]
   lm_chat  same ids; mask = prompt up to last <|end_header_id|>
   mmu      <|mmu|> <|soi|> img <|eoi|> <bos> text <eos> [<eos> padding]
+  mmu_gen  same frame, no labels
+  r2i      <|r2i|> <bos> text <eos> [<eos> padding] <|soi|> img <|eoi|>
 
 The text tokenizer is injected (duck-typed: `__call__(list[str])` -> dict
 with 'input_ids'); tests and the smoke run use the deterministic
@@ -63,7 +65,7 @@ class UniversalPrompting:
     """Task-keyed sequence assembler (reference __call__ dispatch,
     prompting_utils.py:482-541)."""
 
-    TASKS = ("t2i", "t2i_gen", "lm", "lm_chat", "mmu")
+    TASKS = ("t2i", "t2i_gen", "lm", "lm_chat", "mmu", "mmu_gen", "r2i")
 
     def __init__(
         self,
@@ -220,6 +222,42 @@ class UniversalPrompting:
             seqs.append(seq), pmasks.append(pm), labs.append(lab)
         return np.stack(seqs), np.stack(pmasks), np.stack(labs)
 
+    def mmu_gen(self, image_ids: np.ndarray, texts):
+        """The mmu frame and its prompt mask, without labels."""
+        ids, pmask, _ = self.mmu(image_ids, texts)
+        return ids, pmask
+
+    # ---------------------------------------------------------------- r2i
+    def r2i(self, image_ids: np.ndarray, texts):
+        """Returns (input_ids, prompt_masks, labels = input_ids): the prompt
+        mask covers the task token, the text up to the last
+        <|end_header_id|> (else all of it) and <|soi|> and <|eoi|>."""
+        token_lists = self._tokenize(texts)
+        b, n = image_ids.shape
+        max_text_len = self.max_text_len - 1
+        seqs, pmasks = [], []
+        for i in range(b):
+            ids = self._with_bos(token_lists[i]) + [self.sp.eos]
+            if len(ids) <= max_text_len:
+                ids = ids + [self.sp.eos] * (max_text_len - len(ids))
+            else:
+                ids = ids[: max_text_len - 1] + [self.sp.eos]
+            seq = np.concatenate([
+                [self.sp.r2i], ids, [self.sp.soi], image_ids[i], [self.sp.eoi]
+            ]).astype(np.int64)
+            pm = np.zeros(len(seq), np.int64)
+            pm[0] = 1
+            pos = self._last_end_header(ids)
+            if pos != -1:
+                pm[1 : pos + 2] = 1
+            else:
+                pm[1 : len(ids) + 1] = 1
+            pm[len(ids) + 1] = 1                  # <|soi|>
+            pm[len(ids) + 2 + n] = 1              # <|eoi|>
+            seqs.append(seq), pmasks.append(pm)
+        seqs = np.stack(seqs)
+        return seqs, np.stack(pmasks), seqs.copy()
+
     # ------------------------------------------------------------ dispatch
     def __call__(self, inputs, task: str, **kwargs):
         if task == "t2i":
@@ -232,6 +270,10 @@ class UniversalPrompting:
             return self.lm_chat(*inputs)
         if task == "mmu":
             return self.mmu(*inputs)
+        if task == "mmu_gen":
+            return self.mmu_gen(*inputs)
+        if task == "r2i":
+            return self.r2i(*inputs)
         raise NotImplementedError(f"unknown task: {task}")
 
 

@@ -9,8 +9,9 @@ exactly `num_transfer_tokens` highest-confidence candidates per row. The
 block and step loops are Python loops. Classifier-free guidance doubles the
 batch with the prompt re-masked and combines `un + (s + 1)(c - un)`.
 
-Block-KV, confidence-parallel, segmented and early-stop variants are later
-slices of the port.
+`generate_with_early_stop` stops after the first block whose last position
+holds EOT in every row. Block-KV, confidence-parallel and segmented variants
+are later slices of the port (ROADMAP A.3-A.5).
 """
 
 from __future__ import annotations
@@ -128,17 +129,8 @@ def _denoise_step(
     return x
 
 
-def generate(
-    forward_fn: Optional[ForwardFn],
-    prompt: torch.Tensor,   # (B, P) int, no masks inside
-    cfg: SemiARConfig,
-    generator: Optional[torch.Generator] = None,
-    window_forward_fn: Optional[WindowForwardFn] = None,
-) -> torch.Tensor:
-    """Generate `(B, P + gen_length)` tokens. Deterministic at T=0 with
-    'low_confidence' remasking. Pass `window_forward_fn` (position-windowed
-    head) to skip the vocab head outside the active block; `forward_fn`
-    alone computes full logits and slices them."""
+def _blocks(forward_fn, prompt, cfg, generator, window_forward_fn):
+    """Run the blocks one by one; yields (x, block_end) after each."""
     b, p = prompt.shape
     if window_forward_fn is None:
         window_forward_fn = as_window_forward_fn(forward_fn, cfg.block_length)
@@ -164,4 +156,38 @@ def generate(
         for step in range(spb):
             x = _denoise_step(x, generator, transfers[:, step], window_forward_fn,
                               prompt_index, block_end, cfg)
+        yield x, block_end
+
+
+def generate(
+    forward_fn: Optional[ForwardFn],
+    prompt: torch.Tensor,   # (B, P) int, no masks inside
+    cfg: SemiARConfig,
+    generator: Optional[torch.Generator] = None,
+    window_forward_fn: Optional[WindowForwardFn] = None,
+) -> torch.Tensor:
+    """Generate `(B, P + gen_length)` tokens. Deterministic at T=0 with
+    'low_confidence' remasking. Pass `window_forward_fn` (position-windowed
+    head) to skip the vocab head outside the active block; `forward_fn`
+    alone computes full logits and slices them."""
+    for x, _ in _blocks(forward_fn, prompt, cfg, generator, window_forward_fn):
+        pass
+    return x
+
+
+def generate_with_early_stop(
+    forward_fn: Optional[ForwardFn],
+    prompt: torch.Tensor,
+    cfg: SemiARConfig,
+    eot_token: int,
+    generator: Optional[torch.Generator] = None,
+    window_forward_fn: Optional[WindowForwardFn] = None,
+) -> torch.Tensor:
+    """`generate`, stopping after the first block at whose end every row
+    holds `eot_token` (one host check a block; `mmu_generate_fast`,
+    modeling_mmada.py:484-556). The blocks not run stay masked; up to the
+    block it stopped after, the tokens are `generate`'s."""
+    for x, block_end in _blocks(forward_fn, prompt, cfg, generator, window_forward_fn):
+        if bool((x[:, block_end - 1] == eot_token).all()):
+            break
     return x

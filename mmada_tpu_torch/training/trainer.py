@@ -7,10 +7,12 @@ clean frames (prompting); the train step corrupts them on the device,
 forwards once over the `[t2i | lm | mmu]` concat, computes the three losses
 and updates.
 
-The flows carry images as VQ codes (`image_codes`, raw ids in [0,
-codebook)): the pixel path needs the MAGVIT-v2 encoder, which is not ported
-yet. Not ported either: weight EMA, checkpoint save and resume, the
-validation hooks and the preemption handler.
+The flows carry images as pixels (`images`, `(B, H, W, 3)` in [-1, 1], with
+optional `cache_keys`), which the frozen MAGVIT-v2 encoder (`vq_params`,
+`vq_cfg`) turns into codes, as the JAX Trainer does; or as VQ codes already
+(`image_codes`, raw ids in [0, codebook)). Not ported: weight EMA,
+checkpoint save and resume, the validation hooks and the preemption
+handler.
 
 The optimizer is built from the `optimizer` block alone, as the JAX Trainer
 builds it (`mmada_tpu/training/optimizers.py:89-98`): its clip is
@@ -27,6 +29,7 @@ from typing import Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from mmada_tpu_torch.models import magvit2
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.sampling.schedules import get_mask_schedule
 from mmada_tpu_torch.training import losses as L
@@ -51,10 +54,15 @@ class Trainer:
         mask_schedule: str = "cosine",
         lm_max_seq_length: int = 512,  # lm frame length when there is no t2i flow
         log_every: int = 50,
+        vq_params=None,
+        vq_cfg: Optional[magvit2.VQGANConfig] = None,
     ):
         tr = dict(training or {})
         self.model = model
         self.prompting = prompting
+        self.vq_params = vq_params
+        self.vq_cfg = vq_cfg
+        self._vq_cache: dict = {}
         self.lm_max_seq_length = lm_max_seq_length
         self.log_every = log_every
         self.step_cfg = StepConfig(
@@ -91,17 +99,40 @@ class Trainer:
         return self.state.params["wte"].device
 
     # -------------------------------------------------------------- data
+    def encode_images(self, images, cache_keys=None) -> np.ndarray:
+        """pixels (B, H, W, C), a host array -> fused image-token ids, by the
+        MAGVIT-v2 encoder on its weights' device. `cache_keys` (one hashable
+        per image) lets repeated images skip the encoder: it is frozen, so an
+        image's codes never change."""
+        if self.vq_params is None:
+            raise ValueError("flows carry pixels ('images'): encoding them needs the "
+                             "MAGVIT-v2 weights (vq_params, vq_cfg)")
+        device = self.vq_params["encoder"]["conv_in"]["w"].device
+
+        def codes(pixels):
+            x = torch.as_tensor(np.ascontiguousarray(pixels), dtype=torch.float32).to(device)
+            return magvit2.get_code(self.vq_params, self.vq_cfg, x).cpu().numpy()
+
+        offset = self.model.vocab.image_offset
+        if cache_keys is None:
+            return codes(images) + offset
+        missing = [i for i, k in enumerate(cache_keys) if k not in self._vq_cache]
+        if missing:
+            for i, c in zip(missing, codes(np.asarray(images)[missing])):
+                self._vq_cache[cache_keys[i]] = c
+        return np.stack([self._vq_cache[k] for k in cache_keys]) + offset
+
     def image_ids(self, flow: Mapping) -> np.ndarray:
-        """A flow's images as fused image-token ids."""
-        if "image_codes" not in flow:
-            raise NotImplementedError(
-                "flows must carry VQ codes ('image_codes'): encoding pixels needs "
-                "MAGVIT-v2, not ported yet (ROADMAP A.6)")
+        """A flow's images as fused image-token ids: its pixels encoded, or
+        its VQ codes offset."""
+        if "images" in flow:
+            return self.encode_images(flow["images"], flow.get("cache_keys"))
         return np.asarray(flow["image_codes"], np.int64) + self.model.vocab.image_offset
 
     def prepare_batch(self, raw: Mapping) -> dict:
-        """Host-side assembly of clean frames (no corruption: that happens in
-        the train step), padded to one length, as tensors on the device."""
+        """Host-side assembly of clean frames (images encoded; no corruption:
+        that happens in the train step), padded to one length, as tensors on
+        the device."""
         sc = self.step_cfg
         batch: dict[str, np.ndarray] = {}
         if sc.batch_size_t2i:

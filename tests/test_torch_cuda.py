@@ -3,8 +3,9 @@ biased, the one-pass tier and the long tier; the int4 matmul B6) against
 their plain versions, their refusals, the routing by length, gradients
 through attention, the served and trained paths through the kernels (with
 masks too, on a frame past 4096 tokens, and on int4 weights), the W8A8
-int8 product on the card, the bf16-only model on the card, and the
-launches' device.
+int8 product on the card, the bf16-only model on the card, the launches'
+device, MAGVIT-v2 on the card (against the CPU, whatever the TF32 flags) and
+MMU requests through B1 alone.
 
 They skip without a CUDA device (the kernel has no CPU mode). This file
 imports neither jax nor the JAX package, so it also runs beside the card,
@@ -20,8 +21,8 @@ import dataclasses
 
 from mmada_tpu_torch.core.precision import BF16, FP32, exact_bf16_reductions
 from mmada_tpu_torch.core.vocab import tiny_layout
-from mmada_tpu_torch.entry import quantize, serve_t2i, serve_text, train
-from mmada_tpu_torch.models import llada
+from mmada_tpu_torch.entry import decode_images, quantize, serve_mmu, serve_t2i, serve_text, train
+from mmada_tpu_torch.models import llada, magvit2
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.attention import KernelAttention, bidirectional_attention
 from mmada_tpu_torch.ops.flash_attention import (
@@ -1368,3 +1369,103 @@ def test_w8a8_int8_product_on_the_card_equals_the_cpu(cuda_device, m, n, window)
     got = Q.int8_matmul(x_q.to(cuda_device), w_card.values)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(Q.w8a8_matmul(x.to(cuda_device), w_card).cpu(), Q.w8a8_matmul(x, w))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def assert_codes_meet_the_cpu_bar(z, z_cpu):
+    """MAGVIT-v2's latents on the card against the fp32 CPU's: atol 2e-4
+    scaled by the largest |latent|, rtol 1e-3 (tests/test_magvit_parity.py);
+    a code may differ only through a channel whose CPU latent is within the
+    measured latent error of 0."""
+    err = (z - z_cpu).abs()
+    max_err = float(err.max())
+    assert bool((err <= 2e-4 * z_cpu.abs().max() + 1e-3 * z_cpu.abs()).all()), max_err
+    flipped = (z > 0) != (z_cpu > 0)
+    c = z.shape[-1]
+    assert torch.equal(flipped.any(-1).reshape(z.shape[0], -1),
+                       magvit2.lfq_indices(z, c) != magvit2.lfq_indices(z_cpu, c))
+    assert not bool(flipped.any()) or float(z_cpu.abs()[flipped].max()) <= max_err
+
+
+@pytest.mark.parametrize("res", [16, 32])
+def test_tiny_magvit_on_the_card_meets_the_cpu_bar(cuda_device, res):
+    """Encode and decode on the card against the CPU, the same fp32 weights;
+    pixels within the decode bar (atol 5e-4 scaled by the largest |pixel|,
+    rtol 1e-3)."""
+    cfg = magvit2.tiny_vqgan(res)
+    vq = magvit2.init_magvit2(cfg, device="cpu", generator=torch.Generator().manual_seed(res))
+    card = _to(vq, cuda_device)
+    pixels = torch.rand((2, 2 * res, res, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    z_cpu = magvit2.encoder_forward(vq["encoder"], cfg, pixels)
+    z = magvit2.encoder_forward(card["encoder"], cfg, pixels.to(cuda_device))
+    assert z.device.type == "cuda"
+    assert_codes_meet_the_cpu_bar(z.cpu(), z_cpu)
+    codes = magvit2.lfq_indices(z_cpu, cfg.z_channels)
+    want = magvit2.decode_code(vq, cfg, codes, (res, res // 2))
+    got = magvit2.decode_code(card, cfg, codes.to(cuda_device), (res, res // 2)).cpu()
+    assert bool(((got - want).abs() <= 5e-4 * want.abs().max() + 1e-3 * want.abs()).all())
+    square = magvit2.lfq_indices(z_cpu[:, :res // 2], cfg.z_channels)
+    images = decode_images(card, cfg, square)
+    pixels = magvit2.decode_code(card, cfg, square.to(cuda_device))
+    assert images.dtype == torch.uint8 and images.shape == (2, res, res, 3)
+    assert torch.equal(images, ((pixels + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu())
+
+
+def test_flagship_codes_do_not_depend_on_tf32_flags(cuda_device):
+    """magvit2_default() on 256-px images: the codes with TF32 at torch's
+    defaults (cuDNN on, matmul off) and with TF32 on everywhere equal those
+    with TF32 off, bit for bit, and so does a repeat; the caller's flags are
+    left as they were."""
+    cfg = magvit2.magvit2_default()
+    vq = magvit2.init_magvit2(cfg, device=cuda_device,
+                              generator=torch.Generator(cuda_device).manual_seed(0))
+    pixels = torch.rand((2, 256, 256, 3), generator=torch.Generator(cuda_device).manual_seed(1),
+                        device=cuda_device) * 2 - 1
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        runs = []
+        for cudnn_tf32, matmul_tf32 in ((False, False), (True, False), (True, True),
+                                        (False, False)):
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+            runs.append(magvit2.get_code(vq, cfg, pixels))
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == (cudnn_tf32, matmul_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert runs[0].shape == (2, 256)
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_mmu_requests_launch_b1_only(cuda_device, fast):
+    """`serve_mmu` on a small bf16 model and a tiny MAGVIT-v2 on the card:
+    B1 once a layer a forward, no other kernel."""
+    vocab, sp = _tiny_special()
+    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=128, n_heads=2)
+    model = MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0), policy=BF16)
+    vq_cfg = magvit2.tiny_vqgan(16)
+    vq = magvit2.init_magvit2(vq_cfg, device=cuda_device,
+                              generator=torch.Generator(cuda_device).manual_seed(1))
+    pixels = torch.rand((2, 16, 16, 3), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    kernels = [(fn, attr) for fn in (flash_attention, attention_bwd_dq, attention_bwd_dkv,
+                                     flash_attention_long, attention_bwd_dq_long,
+                                     attention_bwd_dkv_long)
+               for attr in ("launches", "bias_launches")] + [(int4_matmul, "launches")]
+    before = [getattr(fn, attr) for fn, attr in kernels]
+    answers = serve_mmu(model, vq, vq_cfg, pixels, ["what is it?", "who?"], special_ids=sp,
+                        max_new_tokens=16, steps=8, block_length=8, fast=fast)
+    launched = [getattr(fn, attr) - b for (fn, attr), b in zip(kernels, before)]
+    forwards = launched[0] // cfg.n_layers
+    assert launched[0] == cfg.n_layers * forwards and launched[1:] == [0] * (len(kernels) - 1)
+    # two frame lengths, two batches; the fast sampler may stop after a block
+    assert forwards == 2 * 8 or (fast and 2 * 4 <= forwards < 2 * 8)
+    assert [a.shape for a in answers] == [(16,), (16,)]

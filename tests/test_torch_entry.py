@@ -251,7 +251,8 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     """In a fresh interpreter where jax, yaml, PIL and mmada_tpu cannot be
     imported, the port imports, runs a tiny forward, takes a train step,
     runs attention forward and backward at 4,224 tokens (the long tier),
-    and runs an int4 forward and a W8A8 forward (`entry.quantize`)."""
+    runs an int4 forward and a W8A8 forward (`entry.quantize`), and encodes
+    and decodes an image with a tiny MAGVIT-v2."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -313,6 +314,14 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "    assert isinstance(qm.params['blocks']['ff_out'], cls)\n"
         "    out = qm.forward(ids)\n"
         "    assert out.shape == (2, 10, 384) and torch.isfinite(out).all()\n"
+        "from mmada_tpu_torch.models import magvit2\n"
+        "from mmada_tpu_torch.checkpoints import magvit_import\n"
+        "vcfg = magvit2.tiny_vqgan(16)\n"
+        "vq = magvit2.init_magvit2(vcfg, device='cpu', generator=torch.Generator().manual_seed(6))\n"
+        "codes = magvit2.get_code(vq, vcfg, torch.rand(1, 16, 16, 3, generator=g) * 2 - 1)\n"
+        "assert codes.shape == (1, 64) and 0 <= int(codes.min()) <= int(codes.max()) < 32\n"
+        "img = mmada_tpu_torch.entry.decode_images(vq, vcfg, codes, device='cpu')\n"
+        "assert img.shape == (1, 16, 16, 3) and img.dtype == torch.uint8\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )

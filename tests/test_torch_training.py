@@ -631,10 +631,11 @@ def test_prepare_batch_matches_jax_trainer(models, chat_lm, pad_loss):
 
 
 def test_prepare_batch_refuses_pixels(models):
+    """Without MAGVIT-v2 weights a Trainer cannot encode pixel flows."""
     trainer = Trainer(_port_model(models),
                       UniversalPrompting(ByteTokenizer(), _special(VOCAB, SpecialIds),
                                          max_text_len=8),
                       training=dict(batch_size_t2i=1))
-    with pytest.raises(NotImplementedError, match="MAGVIT"):
+    with pytest.raises(ValueError, match="MAGVIT"):
         trainer.prepare_batch({"t2i_flow": {"input_ids": ["a"],
                                             "images": np.zeros((1, 8, 8, 3))}})
