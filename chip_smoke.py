@@ -27,11 +27,22 @@ codes against the fp32 CPU encode of the same weights (and the codes bit for
 bit under torch's default TF32 flags, TF32 on everywhere and a repeat),
 answers an MMU request about that image (`entry.serve_mmu`, exact, then
 early-stop at block 32 against the exact sampler at block 32), answers a
-text request whose frame is 8,192 tokens, quantizes
-the same 8B on the card (`entry.quantize`) to int4 and answers the text and
-t2i requests through B6, then to SmoothQuant W8A8 (text and t2i), int8 and
-W8A8 (a text batch each), freeing each quantized model before the next,
-takes stage-1 train steps of the bf16 8B through `entry.train`, one
+text request whose frame is 8,192 tokens, answers the same requests through
+the block-KV cached decode (the fast samplers: text with the bf16 and the
+int8 cache, a refresh every 4 steps and tau 1.5, which must leave the
+answers bit for bit; MMU with the cache and with the JAX loader's
+fast_stack preset; t2i with the cache, its codes decoded; the 8,192-token
+request, B4 capturing and B1 stepping), each beside the exact sampler on the
+same batch, with B1's launches split into square captures and rectangular
+steps, each run twice to the same answer bit for bit, and holds a fresh
+capture's step, with the bf16 and with the int8 cache, against the exact
+forward and the int8 cache's step against the bf16 cache's (also B1 at the
+four step shapes in phase 3, and B6 at the steps' 96 and 128 rows),
+quantizes the same 8B on the card (`entry.quantize`) to int4 and answers
+the text and t2i requests through B6 (and the text and MMU requests cached,
+B6's calls recorded by shape), then to SmoothQuant W8A8 (text and t2i),
+int8 and W8A8 (a text batch each), freeing each quantized model before the
+next, takes stage-1 train steps of the bf16 8B through `entry.train`, one
 stage-1 step whose flows carry 256-px images that MAGVIT-v2 encodes on the
 card (its frames equal those of the same flows carrying the codes), then
 train steps on 8,192-token frames, then turns attention masks on
@@ -53,6 +64,8 @@ It writes nothing into the repository except the kernels' build directory
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -159,6 +172,30 @@ LONG_TRAIN_SETTINGS = dict(
     training=dict(TRAIN_SETTINGS["training"], batch_size_t2i=1, batch_size_lm=1,
                   batch_size_mmu=0))
 LONG_TRAIN_ROWS = 2
+# the block-KV cached decode (opt-in fast samplers) on the same requests:
+# text with the bf16 cache, the int8 cache, a refresh every 4 steps, and
+# tau 1.5 (never fires: bit for bit tau off); MMU with the cache and with
+# the JAX loader's fast_stack MMU preset (mmada_tpu/serve/loader.py:42-49:
+# int8, tau 0.9, warmup 2); t2i and the 8,192-token request with the cache
+CACHED_REFRESH = 4
+MMU_FAST_STACK = dict(block_kv_cache="int8", parallel_threshold=0.9, parallel_warmup_steps=2)
+# a fresh capture's first step against the exact forward: both round one
+# function in bf16, the step at other matmul heights (96 rows, not 477:
+# cuBLAS may round an output one ulp, 2^-8, otherwise) and with RoPE outside
+# the kernel, and on random weights a one-ulp difference grows through 32
+# layers (on the H100, random weights: step vs exact rel L2 2.3e-2, argmax
+# agreement 0.885). So each is held against the same logits in fp32
+# (`fp32_block_logits`): the step may be at most 1.5 times as far from them
+# as the exact forward is, with the bf16 cache and with the int8 cache (on
+# the H100: 1.00x and 1.14x at text, 1.00x and 1.28x at MMU); a stale or
+# misplaced K would leave them by O(1)
+FRESH_STEP_FACTOR = 1.5
+# the int8 cache's first step against the bf16 cache's: JAX's mean-error bar
+# (tests/test_kv_cache.py::test_int8_cache_close_to_fp32_cache); its argmax
+# bar (0.95) is held in the CPU tests and only reported here, since on the
+# random 8B bf16 rounding alone moves 8% of the argmaxes (the exact forward
+# against fp32: agreement 0.917 at text)
+INT8_CACHE_MEAN_REL = 0.05
 # the two trained configurations: settings, (rows, frame) of a batch, and the
 # words of an lm row (the long one fills its frame with text)
 STAGE1 = dict(settings=TRAIN_SETTINGS, rows=TRAIN_ROWS, frame=TRAIN_FRAME, lm_words=60)
@@ -347,8 +384,9 @@ def kernel_cases(h: int):
     """(tag, B, H, KVH, Lq, Lk, rope, bias) at the shapes the served requests
     give the kernel: the text frame (BOS + prompt bytes + answer), the MMU
     frame (1,194 tokens) and the t2i frame (padded prompt + <|soi|> + image +
-    <|eoi|>, 1155 tokens); and the
-    stage-1 training frame. `bias` is None (kernel B1) or a function that
+    <|eoi|>, 1155 tokens); the cached decode's steps on those frames and on
+    the 8,192-token one (rectangular, no RoPE); and the stage-1 training
+    frame. `bias` is None (kernel B1) or a function that
     makes the fp32 bias on the card (kernel B2): the masks of the served t2i
     frames and of a stage-1 batch, and a per-head random bias."""
     text_len, t2i_len = TEXT_FRAME, T2I_FRAME
@@ -368,6 +406,15 @@ def kernel_cases(h: int):
         ("per-head bias L333", 1, h, h, 333, 333, True, lambda: random_bias(1, h, 333, 333, 7)),
         ("masked gqa 32/8", 2, h, 8, t2i_len, t2i_len, True,
          lambda: t2i_mask_bias(cfg_batch=False)),
+        # the block-KV decode's steps: a block's (or the image span's) queries
+        # over the frame's keys, no RoPE
+        ("cached text step", len(TEXT_PROMPTS), h, h, TEXT_SETTINGS["block_length"], text_len,
+         False, None),
+        ("cached mmu step", 1, h, h, MMU_SETTINGS["block_length"], MMU_FRAME, False, None),
+        ("cached t2i step (CFG)", 2 * len(T2I_PROMPTS), h, h, T2I_SETTINGS["num_vq_tokens"],
+         t2i_len, False, None),
+        ("cached long step", 1, h, h, LONG_TEXT_SETTINGS["block_length"], LONG_FRAME, False,
+         None),
     ]
 
 
@@ -448,6 +495,28 @@ def check_zero_bias(h: int) -> None:
         f"{differing_share(b2, b1)}")
     if not (same and same_row):
         raise AssertionError("B2 with a zero bias differs from B1")
+
+
+def check_rope_outside(h: int) -> None:
+    """The cache's capture rotates q and k outside the kernel
+    (`apply_rope`, fp32, cast to bf16) and keeps that K; the exact forward
+    lets B1's C entry rotate them (unfused fp32 multiplies and adds, cast to
+    bf16). At the text and MMU frames: B1 on the outside-rotated q and k,
+    without tables, equals B1 with the tables bit for bit."""
+    import torch
+
+    from mmada_tpu_torch.ops.attention import apply_rope
+    from mmada_tpu_torch.ops.flash_attention import flash_attention
+
+    for i, (b, l) in enumerate(((len(TEXT_PROMPTS), TEXT_FRAME), (1, MMU_FRAME))):
+        q, k, v, sin, cos = attention_case(b, h, h, l, l, True, seed=90 + i)
+        inside = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos)
+        outside = flash_attention(*apply_rope(q, k, sin, cos), v)
+        same = bool(torch.equal(inside, outside))
+        log("kernel", f"rope outside vs inside B1's C entry at ({b}, {h}, {l}): bit for bit "
+            f"{same}; differing share {differing_share(outside, inside)}")
+        if not same:
+            raise AssertionError("apply_rope and B1's C entry rotate q and k differently")
 
 
 # the kernels by library, every one on wgmma, as the start of their mangled
@@ -998,8 +1067,9 @@ def int4_cases(cfg):
     t2i head's column window (4 x 1,024 rows, the 8,192 image ids of the
     packed head, read in place), a bytes-bound case (16 rows), ragged rows
     (1, 17, 130), one group (K 128), and one layer of a stacked weight
-    (`packed[i]`). `view` is "window", "layer" or None. The first eight are
-    the main paths' shapes."""
+    (`packed[i]`), then the cached decode's step heights (96 and 128 rows).
+    `view` is "window", "layer" or None. The first eight are the exact
+    main paths' shapes."""
     from mmada_tpu_torch.core.vocab import MMADA_8B
 
     d, f, v = cfg.d_model, cfg.hidden_size, cfg.effective_vocab_size
@@ -1022,6 +1092,15 @@ def int4_cases(cfg):
         ("ragged M 130", 130, d, d, None),
         ("one group K 128", 130, 128, d, None),
         ("layer view packed[1]", text, d, d, "layer"),
+    ] + [
+        # the cached decode's steps: one block's rows (3 x 32 text, 1 x 128
+        # MMU); the text step's head is "text head" above
+        (f"cached {path} step {name}", m, k, n, None)
+        for path, m in (("text", len(TEXT_PROMPTS) * TEXT_SETTINGS["block_length"]),
+                        ("mmu", MMU_SETTINGS["block_length"]))
+        for name, k, n in (("q/k/v/attn_out", d, d), ("ff_proj/up_proj", d, f), ("ff_out", f, d),
+                           ("head", d, v))
+        if (path, name) != ("text", "head")
     ]
 
 
@@ -1421,6 +1500,7 @@ def main() -> int:
     t = time.perf_counter()
     records = check_kernel(kernel_cases(cfg.n_heads))
     check_zero_bias(cfg.n_heads)
+    check_rope_outside(cfg.n_heads)
     check_small_model(masked=False)
     check_small_model(masked=True)
     bwd_records = check_backward(bwd_cases(cfg.n_heads))
@@ -1515,14 +1595,20 @@ def main() -> int:
     expect_launches("long text", long_text_launches,
                     {"long": (cfg.n_layers * LONG_TEXT_SETTINGS["steps"], 0, 0)})
 
+    # 7b'. the block-KV cached decode (the fast samplers) on the same 8B:
+    # text, MMU, t2i and the 8,192-token request, each beside the exact
+    # sampler on the same batch
+    cached = cached_phase(model, vq, vq_cfg, image, reset_counts, counts)
+
     # 7c. quantized serving, before any trainer holds its moments: int4
     # (B6 at every block matmul and the head), then SmoothQuant W8A8 (text
     # and t2i), int8 and W8A8 (a text batch each); each quantized model is
     # freed before the next is made
     serving = dict(n_batches=n_batches, want_text=want_text, want_t2i=want_t2i,
                    bf16_text_s=text_s, bf16_t2i_s=t2i_s)
-    int4_launches = serve_quantized(model, quantize, "int4", serving, reset_counts, counts,
-                                    compare_t2i=True)
+    int4_launches, int4_cached = serve_quantized(model, quantize, "int4", serving, reset_counts,
+                                                 counts, compare_t2i=True,
+                                                 cached=(vq, vq_cfg, image))
     serve_quantized(model, quantize, "w8a8_smooth", serving, reset_counts, counts)
     serve_quantized(model, quantize, "int8", serving, reset_counts, counts, t2i=False)
     serve_quantized(model, quantize, "w8a8", serving, reset_counts, counts, t2i=False)
@@ -1638,9 +1724,17 @@ def main() -> int:
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
-    kernels = [kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
-                             launches + mmu_launches + train_launches[0] + pixel_train[0][0],
-                             one_pass, main_rec),
+    b1 = kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
+                       launches + mmu_launches + cached["b1"] + int4_cached["b1"]
+                       + train_launches[0] + pixel_train[0][0], one_pass, main_rec)
+    # the cached decode's step shapes: B1's time there, and its launches on
+    # the bf16 8B's cached requests (the int4 8B's: `int4_cached`)
+    b1["cached_step_shapes"] = [
+        dict({k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by", "plain_ms",
+                                "library_ms")},
+             launches=cached["rect"][(r["shape"][0], r["shape"][3], r["shape"][4])])
+        for r in records if r["tag"].startswith("cached")]
+    kernels = [b1,
                kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                              masked_serve[0] + masked_train[0],
                              [r for r in records if r["bias"] is not None], masked_rec)]
@@ -1656,10 +1750,14 @@ def main() -> int:
         kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches, int4_records,
                       int4_main, replaces="int4_matmul.py"),
         main_path_shapes=[{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "share_of_bound",
-                                             "plain_ms", "library_ms")} for r in main_shapes]))
+                                             "plain_ms", "library_ms")} for r in main_shapes],
+        cached_step_shapes=[dict({k: r[k] for k in ("tag", "shape", "ms", "bound_ms",
+                                                    "share_of_bound", "plain_ms", "library_ms")},
+                                 launches=int4_cached["b6_shapes"][tuple(r["shape"])])
+                            for r in int4_records if r["tag"].startswith("cached")]))
     kernels += [
         kernel_record("flash_attention_long_fwd", "flash_attention_long.cu", "471,392",
-                      long_text_launches[2][0] + long_train[2][0], long_fwd,
+                      long_text_launches[2][0] + cached["b4"] + long_train[2][0], long_fwd,
                       next(r for r in long_fwd if r["tag"].startswith("long text"))),
         kernel_record("flash_attention_long_fwd_bias", "flash_attention_long.cu", "497,418",
                       masked_long[3][0], long_fwd_bias,
@@ -1771,12 +1869,15 @@ def compare_int4_t2i_forward(qmodel) -> None:
 
 
 def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=True,
-                    compare_t2i=False):
+                    compare_t2i=False, cached=None):
     """Quantize the 8B on the card (`entry.quantize`, timed, its bytes logged),
     answer TEXT_PROMPTS (and T2I_PROMPTS) with the counters from 0 and check
     the answers and the launches: the attention kernels as on the bf16
     phases, and B6 exactly 7 n_layers + 1 times a forward for int4, never
-    for the others. Frees the quantized model; returns B6's launches."""
+    for the others. With `cached` ((vq, vq_cfg, image)) also the text
+    request and an MMU request through the block-KV cache
+    (`serve_quantized_cached`). Frees the quantized model; returns B6's
+    launches, and those of the cached requests (None without `cached`)."""
     import torch
 
     from mmada_tpu_torch.core.vocab import MMADA_8B
@@ -1809,6 +1910,7 @@ def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=
     expect_launches(f"{scheme} text", text_launched, {
         "one-pass": (serving["want_text"], 0, 0), "int4": (per_forward * text_forwards,)})
     b6 = text_launched[4][0]
+    serving[f"{scheme}_text_s"] = text_s
     if t2i:
         reset_counts()
         t = time.perf_counter()
@@ -1825,11 +1927,61 @@ def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=
             "one-pass": (serving["want_t2i"], 0, 0),
             "int4": (per_forward * T2I_SETTINGS["timesteps"],)})
         b6 += launched[4][0]
+    cached_launches = None
+    if cached is not None:
+        cached_launches = serve_quantized_cached(qmodel, scheme, serving, cached, reset_counts,
+                                                 counts)
+        b6 += cached_launches["b6"]
     if compare_t2i:
         compare_int4_t2i_forward(qmodel)
     del qmodel
     free_memory()
-    return b6
+    return b6, cached_launches
+
+
+def serve_quantized_cached(qmodel, scheme, serving, cached, reset_counts, counts) -> dict:
+    """The quantized 8B's cached text request (4 captures, 32 steps of 3 x 32
+    rows) and cached MMU request (1 capture, 64 steps of 128 rows) through
+    `cached_request`: B1 n_layers times a capture or a step, B6 7 n_layers a
+    capture and 7 n_layers + 1 a step, and B6's calls at a step's rows, as
+    recorded at the int4 dispatch, 4 n_layers at (D, D) (q/k/v/attn_out), 2
+    n_layers at (D, F) (ff_proj/up_proj), n_layers at (F, D) (ff_out) and one
+    at (D, V) (the head) a step. Returns B1's and B6's launches and B6's by
+    recorded (M, K, N)."""
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import serve_mmu, serve_text
+
+    cfg = qmodel.cfg
+    n, d, f, v = cfg.n_layers, cfg.d_model, cfg.hidden_size, cfg.effective_vocab_size
+    vq, vq_cfg, image = cached
+    blocks = TEXT_SETTINGS["gen_length"] // TEXT_SETTINGS["block_length"]
+    out = dict(b1=0, b6=0, b6_shapes=collections.Counter())
+    for tag, fn, captures, steps, rows in (
+            ("text", lambda: serve_text(qmodel, TEXT_PROMPTS, block_kv_cache=True,
+                                        **TEXT_SETTINGS), blocks, TEXT_SETTINGS["steps"],
+             len(TEXT_PROMPTS) * TEXT_SETTINGS["block_length"]),
+            ("mmu", lambda: serve_mmu(qmodel, vq, vq_cfg, image, [MMU_QUESTION],
+                                      block_kv_cache=True, **MMU_SETTINGS), 1,
+             MMU_SETTINGS["steps"], MMU_SETTINGS["block_length"])):
+        phase = f"{scheme} cached {tag}"
+        answers, _, launched, shapes = cached_request(
+            phase, fn, reset_counts, counts, n * captures, n * steps,
+            serving.get(f"{scheme}_{tag}_s"), want={
+                "one-pass": (n * (captures + steps), 0, 0),
+                "int4": (7 * n * captures + steps * (7 * n + 1),)})
+        for ans in answers:
+            check_answer_ids(ans, ans.shape[0], MMADA_8B)
+        by_shape = collections.Counter(shapes["b6"])
+        want = {(rows, d, d): 4 * n * steps, (rows, d, f): 2 * n * steps,
+                (rows, f, d): n * steps, (rows, d, v): steps}
+        got = {shape: by_shape[shape] for shape in want}
+        log(phase, f"B6 by (M, K, N) as recorded: {dict(by_shape)}")
+        if got != want:
+            raise AssertionError(f"{phase}: B6 at the step's {rows} rows {got}, expected {want}")
+        out["b1"] += launched[0][0]
+        out["b6"] += launched[4][0]
+        out["b6_shapes"].update(by_shape)
+    return out
 
 
 def seeded_images(n, res, seed):
@@ -2002,6 +2154,306 @@ def mmu_phase(model, vq, vq_cfg, image, reset_counts, counts) -> int:
             and bool((fast[stop:] == MMADA_8B.mask_token_id).all())):
         raise AssertionError("mmu_generate_fast departs from the exact sampler")
     return b1 + fast_launched[0][0] + exact_launched[0][0]
+
+
+@contextlib.contextmanager
+def recording_shapes():
+    """Record the shape of every call the model makes to B1's wrapper through
+    the attention dispatch, (B, Lq, Lk), and to B6's through the int4
+    dispatch, (M, K, N); each wrapper still counts its own launches. Yields
+    {"b1": [...], "b6": [...]}."""
+    from mmada_tpu_torch.ops import attention, quantization
+
+    inner_b1, inner_b6 = attention.flash_attention, quantization.int4_matmul
+    shapes = dict(b1=[], b6=[])
+
+    def b1(q, k, v, **kw):
+        shapes["b1"].append((q.shape[0], q.shape[2], k.shape[2]))
+        return inner_b1(q, k, v, **kw)
+
+    def b6(x, packed, scales):
+        shapes["b6"].append((x.numel() // x.shape[-1], x.shape[-1], scales.shape[-1]))
+        return inner_b6(x, packed, scales)
+
+    attention.flash_attention, quantization.int4_matmul = b1, b6
+    try:
+        yield shapes
+    finally:
+        attention.flash_attention, quantization.int4_matmul = inner_b1, inner_b6
+
+
+def timed_request(fn, reset_counts, counts):
+    """Run one request with the counters from 0 and B1's and B6's shapes
+    recorded: (result, seconds, counts(), shapes, peak GiB allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with recording_shapes() as shapes:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    return out, seconds, counts(), shapes, torch.cuda.max_memory_allocated() / 2**30
+
+
+def cached_request(phase, fn, reset_counts, counts, square, rect, exact_s=None,
+                   rect_steps=None, want=None):
+    """Run a request twice with the counters from 0 (its host-bound time
+    varies from call to call) and hold the first run: B1's launches split
+    into `square` captures and `rect` steps (`expect_b1_shapes`), every
+    kernel's launches (`want`; by default B1's alone), B6's recorded calls
+    against its count; and the second answer bit for bit the first (T = 0,
+    seeded generators). Returns (result, the lesser seconds, counts(),
+    shapes)."""
+    result, first, launched, shapes, peak = timed_request(fn, reset_counts, counts)
+    sq, rc = expect_b1_shapes(phase, launched, shapes["b1"], square, rect, rect_steps)
+    expect_launches(phase, launched, want or {"one-pass": (sq + rc, 0, 0)})
+    if len(shapes["b6"]) != launched[4][0]:
+        raise AssertionError(f"{phase}: {len(shapes['b6'])} calls to B6 recorded against "
+                             f"{launched[4][0]} launches")
+    again, second, *_ = timed_request(fn, reset_counts, counts)
+    seconds = min(first, second)
+    beside = "" if exact_s is None else f" (exact {exact_s:.2f}s, {exact_s / seconds:.2f}x)"
+    log(phase, f"{first:.2f}s / {second:.2f}s{beside}; B1 {sq} square + {rc} rectangular "
+        f"{sorted(set(shapes['b1']))}; launches {launched}; peak {peak:.2f} GiB allocated")
+    if not _same(result, again):
+        raise AssertionError(f"{phase}: the same request answered differently the second time")
+    return result, seconds, launched, shapes
+
+
+def expect_b1_shapes(phase, launched, shapes, square, rect, rect_steps=None):
+    """B1's launches split by shape: `square` captures (Lq = Lk) and `rect`
+    cached steps (Lq < Lk, the block's rows); with `rect_steps` (tau-parallel,
+    a data-dependent step count) `rect` is the launches of one step and the
+    count is a whole number of steps, at most `rect_steps` of them."""
+    n_square = sum(1 for _, lq, lk in shapes if lq == lk)
+    n_rect = sum(1 for _, lq, lk in shapes if lq < lk)
+    if len(shapes) != launched[0][0] or n_square + n_rect != len(shapes):
+        raise AssertionError(f"{phase}: B1 shapes {sorted(set(shapes))} against "
+                             f"{launched[0][0]} launches")
+    if rect_steps is None:
+        ok = n_rect == rect
+    else:
+        ok = n_rect % rect == 0 and 1 <= n_rect // rect <= rect_steps
+    if n_square != square or not ok:
+        raise AssertionError(f"{phase}: B1 launched {n_square} square and {n_rect} rectangular "
+                             f"times, expected {square} and {rect}"
+                             + (f" x up to {rect_steps} steps" if rect_steps else ""))
+    return n_square, n_rect
+
+
+def fp32_block_logits(model, frame, block_start, block):
+    """The exact forward's logits over [block_start, block_start + block) in
+    fp32 on the card, the function both bf16 paths round: each layer's
+    weights cast to fp32 in turn, attention by the kernels' plain version
+    (the kernels take bf16 only), TF32 off."""
+    import torch
+
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.ops import attention
+    from mmada_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    cfg, params = model.cfg, model.params
+    x = params["wte"][frame].float()
+    sin, cos = llada.rope_sin_cos(frame.shape[1], cfg.head_dim, cfg.rope_theta, device="cuda")
+    inner = attention.flash_attention
+    attention.flash_attention = flash_attention_reference
+    try:
+        for lp in llada.layer_params(params):
+            x = llada._block(cfg, x, {k: v.float() for k, v in lp.items()}, None, sin, cos)
+    finally:
+        attention.flash_attention = inner
+    x = llada._norm(cfg, x[:, block_start:block_start + block], params["ln_f"].float())
+    return x @ params["ff_out"].float()
+
+
+def check_fresh_step(model, frame, block_start, block, tag):
+    """At a fresh capture of `frame` (B, L), the cached step's logits over
+    [block_start, block_start + block) and the exact forward's there, each
+    against the same logits in fp32: the step may be at most
+    FRESH_STEP_FACTOR times as far from them as the exact forward is, with
+    the bf16 cache and with the int8 cache; the int8 cache's step against
+    the bf16 cache's also by JAX's mean-error bar. Returns the errors."""
+    import torch
+
+    from mmada_tpu_torch.models import llada
+
+    cfg, params, policy = model.cfg, model.params, model.policy
+    blk = frame[:, block_start:block_start + block]
+    exact = model.forward(frame, logit_positions=(block_start, block)).float()
+    kv = llada.forward_kv_capture(params, cfg, frame, policy=policy)
+    got = llada.forward_kv_step(params, cfg, blk, kv, block_start, policy=policy).float()
+    del kv
+    kv8 = llada.forward_kv_capture(params, cfg, frame, policy=policy, cache_dtype="int8")
+    got8 = llada.forward_kv_step(params, cfg, blk, kv8, block_start, policy=policy).float()
+    del kv8
+    ref = fp32_block_logits(model, frame, block_start, block)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    err = dict(exact_vs_fp32=rel(exact, ref), step_vs_fp32=rel(got, ref),
+               step_vs_exact=rel(got, exact), int8_vs_fp32=rel(got8, ref),
+               int8_mean_vs_bf16=float((got8 - got).abs().mean() / got.abs().mean()),
+               argmax_exact_vs_fp32=agree(exact, ref), argmax_step_vs_exact=agree(got, exact),
+               argmax_int8_vs_bf16=agree(got8, got))
+    log("cached", f"{tag}: a fresh capture's step over {tuple(blk.shape)}: " + ", ".join(
+        f"{k} {v:.4e}" for k, v in err.items()) + f" (limits: step_vs_fp32 and int8_vs_fp32 "
+        f"at most {FRESH_STEP_FACTOR} x exact_vs_fp32; int8_mean_vs_bf16 under "
+        f"{INT8_CACHE_MEAN_REL})")
+    bar = FRESH_STEP_FACTOR * err["exact_vs_fp32"]
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(got8).all())
+            and err["step_vs_fp32"] <= bar and err["int8_vs_fp32"] <= bar):
+        raise AssertionError(f"{tag}: a fresh cached step (bf16 or int8 cache) departs from the "
+                             f"fp32 function more than {FRESH_STEP_FACTOR} x the exact forward "
+                             f"does: {err}")
+    if not err["int8_mean_vs_bf16"] < INT8_CACHE_MEAN_REL:
+        raise AssertionError(f"{tag}: the int8 cache departs from the bf16 cache: {err}")
+    return err
+
+
+def mmu_frame(model, codes):
+    """The (1, MMU_FRAME) frame `serve_mmu` builds for MMU_QUESTION about an
+    image of MAGVIT-v2 `codes` (1,024), its answer positions [MASK]."""
+    import torch
+
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds
+
+    vocab = model.vocab
+    sp = SpecialIds.from_vocab(vocab)
+    codes = (codes + vocab.image_offset).tolist()
+    question = ByteTokenizer()([MMU_QUESTION])["input_ids"][0]
+    ids = [sp.mmu, sp.soi, *codes, sp.eoi, sp.bos, *question]
+    ids += [vocab.mask_token_id] * MMU_SETTINGS["max_new_tokens"]
+    if len(ids) != MMU_FRAME:
+        raise AssertionError(f"mmu frame {len(ids)} tokens, want {MMU_FRAME}")
+    return torch.tensor([ids], device="cuda")
+
+
+def _same(a, b) -> bool:
+    """Two requests' answers (a tensor or a list of them) equal bit for bit."""
+    import torch
+
+    if isinstance(a, list):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def cached_phase(model, vq, vq_cfg, image, reset_counts, counts) -> dict:
+    """The block-KV cached decode on the 8B through the entry points, each
+    request beside the exact sampler on the same batch (run just before it):
+    text (the bf16 cache, int8, a refresh every CACHED_REFRESH steps, tau
+    1.5 bit for bit tau off), MMU (the cache, the fast_stack preset), t2i
+    (the cache, its codes decoded by MAGVIT-v2) and the 8,192-token request
+    (B4 for the capture, B1 for the steps). Each path's launches are
+    asserted exactly, B1's split into square captures and rectangular steps;
+    a fresh capture's step is held against the exact forward. Returns B1's
+    and B4's launches by path, and the times."""
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import decode_images, serve_mmu, serve_t2i, serve_text, text_frames
+    from mmada_tpu_torch.models import magvit2
+
+    n = model.cfg.n_layers
+    out = dict(b1=0, b4=0, rect=collections.Counter(), times={})
+
+    def request(phase, fn, square, rect, exact_s=None, rect_steps=None, want=None):
+        """`cached_request`, B1's and B4's launches added up, the
+        rectangular ones by shape, as recorded."""
+        result, seconds, launched, shapes = cached_request(
+            phase, fn, reset_counts, counts, square, rect, exact_s, rect_steps, want)
+        out["b1"] += launched[0][0]
+        out["b4"] += launched[2][0]
+        rect_shapes = [s for s in shapes["b1"] if s[1] < s[2]]
+        out["rect"].update(rect_shapes)
+        out["times"][phase] = seconds
+        return result, seconds, len(rect_shapes)
+
+    # text: 3 requests in one batch, 4 blocks of 8 steps
+    spb = TEXT_SETTINGS["steps"] * TEXT_SETTINGS["block_length"] // TEXT_SETTINGS["gen_length"]
+    blocks = TEXT_SETTINGS["gen_length"] // TEXT_SETTINGS["block_length"]
+    steps = TEXT_SETTINGS["steps"]
+    exact, exact_s, _ = request("exact text", lambda: serve_text(model, TEXT_PROMPTS,
+                                                              **TEXT_SETTINGS), n * steps, 0)
+    runs = {}
+    for tag, knobs, captures in (
+            ("cached text", dict(block_kv_cache=True), blocks),
+            ("cached text int8", dict(block_kv_cache="int8"), blocks),
+            (f"cached text refresh {CACHED_REFRESH}",
+             dict(block_kv_cache=True, cache_refresh_every=CACHED_REFRESH),
+             blocks * (1 + (spb - 1) // CACHED_REFRESH)),
+            ("cached text tau 1.5", dict(block_kv_cache=True, parallel_threshold=1.5), blocks)):
+        runs[tag], _, _ = request(tag, lambda: serve_text(model, TEXT_PROMPTS, **knobs,
+                                                       **TEXT_SETTINGS),
+                               n * captures, n * steps, exact_s)
+        check_answers(runs[tag], MMADA_8B)
+    agree = [float(torch.cat([(a == e).float() for a, e in zip(runs[tag], exact)]).mean())
+             for tag in runs]
+    same = all(torch.equal(a, b) for a, b in zip(runs["cached text tau 1.5"],
+                                                 runs["cached text"]))
+    log("cached", f"text: tokens equal to the exact sampler's {dict(zip(runs, agree))}; tau 1.5 "
+        f"bit for bit tau off: {same}")
+    if not same:
+        raise AssertionError("tau 1.5 (which never fires) changed the cached text answers")
+    frames = torch.tensor(text_frames(model, TEXT_PROMPTS), device="cuda")
+    p = frames.shape[1]
+    frame = torch.cat([frames, torch.full((len(TEXT_PROMPTS), TEXT_SETTINGS["gen_length"]),
+                                          MMADA_8B.mask_token_id, device="cuda")], dim=1)
+    out["fresh"] = {"text": check_fresh_step(model, frame, p, TEXT_SETTINGS["block_length"],
+                                             "text")}
+
+    # MMU at the bench's light point: one block of 64 steps
+    mmu = dict(MMU_SETTINGS)
+    _, exact_s, _ = request("exact mmu", lambda: serve_mmu(
+        model, vq, vq_cfg, image, [MMU_QUESTION], **mmu), n * mmu["steps"], 0)
+    answer, _, _ = request("cached mmu", lambda: serve_mmu(
+        model, vq, vq_cfg, image, [MMU_QUESTION], block_kv_cache=True, **mmu),
+        n, n * mmu["steps"], exact_s)
+    check_answer_ids(answer[0], mmu["max_new_tokens"], MMADA_8B)
+    answer, _, rect = request("mmu fast_stack", lambda: serve_mmu(
+        model, vq, vq_cfg, image, [MMU_QUESTION], **MMU_FAST_STACK, **mmu),
+        n, n, exact_s, rect_steps=mmu["steps"])
+    check_answer_ids(answer[0], mmu["max_new_tokens"], MMADA_8B)
+    log("cached", f"mmu fast_stack {MMU_FAST_STACK}: {rect // n} steps of {mmu['steps']}")
+    frame = mmu_frame(model, magvit2.get_code(vq, vq_cfg, image)[0])
+    p = MMU_FRAME - mmu["max_new_tokens"]
+    out["fresh"]["mmu"] = check_fresh_step(model, frame, p, mmu["block_length"], "mmu")
+
+    # t2i: 2 requests under CFG, 12 timesteps: one capture, 12 span steps
+    t2i_steps = T2I_SETTINGS["timesteps"]
+    exact_codes, exact_s, _ = request("exact t2i", lambda: serve_t2i(model, T2I_PROMPTS,
+                                                                  **T2I_SETTINGS),
+                                   n * t2i_steps, 0)
+    codes, _, _ = request("cached t2i", lambda: serve_t2i(model, T2I_PROMPTS, block_kv_cache=True,
+                                                       **T2I_SETTINGS),
+                       n, n * t2i_steps, exact_s)
+    check_codes(codes, MMADA_8B)
+    images = decode_images(vq, vq_cfg, codes)
+    if images.shape != (len(T2I_PROMPTS), VQ_RESOLUTION, VQ_RESOLUTION, 3):
+        raise AssertionError(f"cached t2i images {tuple(images.shape)}")
+    n_img = T2I_SETTINGS["num_vq_tokens"]
+    log("cached", f"t2i: {codes.unique().numel()} distinct codes, "
+        f"{float((codes == exact_codes).float().mean()):.4f} equal to the exact sampler's; "
+        f"decoded to {tuple(images.shape)} uint8 images")
+
+    # the 8,192-token request: B4 for the one capture, B1 for the 8 steps
+    long_prompt = ("The quick brown fox jumps over the lazy dog. " * 200)[:LONG_PROMPT_BYTES]
+    long_steps = LONG_TEXT_SETTINGS["steps"]
+    _, exact_s, _ = request("exact long text", lambda: serve_text(model, [long_prompt],
+                                                               **LONG_TEXT_SETTINGS),
+                         0, 0, want={"long": (n * long_steps, 0, 0)})
+    answer, _, _ = request("cached long text", lambda: serve_text(
+        model, [long_prompt], block_kv_cache=True, **LONG_TEXT_SETTINGS), 0, n * long_steps,
+        exact_s, want={"one-pass": (n * long_steps, 0, 0), "long": (n, 0, 0)})
+    check_answer_ids(answer[0], LONG_TEXT_SETTINGS["gen_length"], MMADA_8B)
+    return out
 
 
 def pixel_train_flows(vq, vq_cfg):

@@ -6,10 +6,10 @@ CLIs) and `train.py`, with keyword arguments instead of a yaml config:
 
   * `serve_text(model, prompts, ...)` builds each prompt's frame (BOS first,
     as `generate.py` does), batches requests of equal frame length, and runs
-    the exact semi-AR sampler; it returns each request's generated ids.
+    the semi-AR sampler; it returns each request's generated ids.
   * `serve_t2i(model, prompts, ...)` builds the t2i frames and the
     empty-prompt CFG frames (`UniversalPrompting.t2i_gen` /
-    `t2i_gen_uncond`) and runs the exact MaskGIT sampler; it returns the
+    `t2i_gen_uncond`) and runs the MaskGIT sampler; it returns the
     `(len(prompts), num_vq_tokens)` image codes.
   * `decode_images(vq, vq_cfg, codes)` turns image codes into uint8 NHWC
     images by MAGVIT-v2's decoder, as `inference_t2i.py` does.
@@ -28,6 +28,12 @@ CLIs) and `train.py`, with keyword arguments instead of a yaml config:
     (`"int4"`, whose matmuls run kernel B6 on the card). `serve_text` and
     `serve_t2i` take it as they take any model.
 
+The samplers are the exact ones unless a request asks for the fast ones:
+`serve_text`, `serve_mmu` and `serve_t2i` take `block_kv_cache` (False,
+True or "int8", also as a string, through the strict `parse_kv_cache`) and
+`cache_refresh_every`; `serve_text` and `serve_mmu` also
+`parallel_threshold` and `parallel_warmup_steps` (tau-parallel).
+
 All run on the card unless called with `device="cpu"`, and raise when the
 model's weights are elsewhere.
 """
@@ -41,6 +47,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from mmada_tpu_torch.core.config import parse_kv_cache
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.models import magvit2
 from mmada_tpu_torch.models.llada import calibration_stats
@@ -87,11 +94,17 @@ def serve_text(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
                device: DeviceLike = None, gen_length: int = 128,
                steps: int = 128, block_length: int = 128,
                temperature: float = 0.0, cfg_scale: float = 0.0,
-               remasking: str = "low_confidence", seed: int = 0) -> list[torch.Tensor]:
+               remasking: str = "low_confidence", seed: int = 0, block_kv_cache=False,
+               parallel_threshold: float = 0.0, parallel_warmup_steps: int = 0,
+               cache_refresh_every: int = 0) -> list[torch.Tensor]:
     """Each request's `gen_length` generated ids (fused vocab, on the CPU).
     Requests with frames of the same length share one batch, as the JAX
     serving engine groups them; a batch's rows never see each other."""
     device = _check_device(model, device)
+    fast = dict(block_kv_cache=parse_kv_cache(block_kv_cache),
+                parallel_threshold=parallel_threshold,
+                parallel_warmup_steps=parallel_warmup_steps,
+                cache_refresh_every=cache_refresh_every)
     frames = text_frames(model, prompts, tokenizer)
     stochastic = temperature > 0 or remasking == "random"
     generator = torch.Generator(device).manual_seed(seed) if stochastic else None
@@ -104,7 +117,7 @@ def serve_text(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
         out = model.generate(
             prompt, gen_length=gen_length, steps=steps, block_length=block_length,
             temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
-            generator=generator,
+            generator=generator, **fast,
         )
         for row, i in enumerate(rows):
             answers[i] = out[row, length:].cpu()
@@ -116,7 +129,8 @@ def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
               device: DeviceLike = None, num_vq_tokens: int = 1024,
               max_text_len: int = 128, timesteps: int = 15,
               guidance_scale: float = 3.5, temperature: float = 1.0,
-              greedy: bool = False, seed: int = 0) -> torch.Tensor:
+              greedy: bool = False, seed: int = 0, block_kv_cache=False,
+              cache_refresh_every: int = 0) -> torch.Tensor:
     """`(len(prompts), num_vq_tokens)` image codes in [0, codebook), on the
     CPU, from one batch of t2i frames (all frames have the same length).
     `special_ids` defaults to the vocab's reserved task tokens."""
@@ -141,6 +155,7 @@ def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
         temperature=temperature, timesteps=timesteps,
         guidance_scale=guidance_scale, num_vq_tokens=num_vq_tokens,
         generator=generator, greedy=greedy,
+        block_kv_cache=parse_kv_cache(block_kv_cache), cache_refresh_every=cache_refresh_every,
     )
     return codes.cpu()
 
@@ -159,7 +174,9 @@ def serve_mmu(model: MMadaModel, vq, vq_cfg: magvit2.VQGANConfig, images, questi
               tokenizer=None, special_ids: Optional[SpecialIds] = None,
               device: DeviceLike = None, max_new_tokens: int = 128, steps: int = 64,
               block_length: int = 128, temperature: float = 0.0, cfg_scale: float = 0.0,
-              fast: bool = False, seed: int = 0) -> list[torch.Tensor]:
+              fast: bool = False, seed: int = 0, block_kv_cache=False,
+              parallel_threshold: float = 0.0, parallel_warmup_steps: int = 0,
+              cache_refresh_every: int = 0) -> list[torch.Tensor]:
     """Each request's `max_new_tokens` generated ids (fused vocab, on the
     CPU) for an image and a question. `images` is `(B, H, W, 3)` pixels in
     [-1, 1] (an array, or a tensor on any device). Each frame is
@@ -178,7 +195,11 @@ def serve_mmu(model: MMadaModel, vq, vq_cfg: magvit2.VQGANConfig, images, questi
     frames = [[sp.mmu, sp.soi, *c.tolist(), sp.eoi, sp.bos, *ids] for c, ids in zip(codes, texts)]
     generator = torch.Generator(device).manual_seed(seed) if temperature > 0 else None
     kw = dict(max_new_tokens=max_new_tokens, steps=steps, block_length=block_length,
-              temperature=temperature, cfg_scale=cfg_scale, generator=generator)
+              temperature=temperature, cfg_scale=cfg_scale, generator=generator,
+              block_kv_cache=parse_kv_cache(block_kv_cache),
+              parallel_threshold=parallel_threshold,
+              parallel_warmup_steps=parallel_warmup_steps,
+              cache_refresh_every=cache_refresh_every)
     groups: dict[int, list[int]] = {}
     for i, ids in enumerate(frames):
         groups.setdefault(len(ids), []).append(i)

@@ -18,8 +18,14 @@ layer in the backward (`torch.utils.checkpoint`, the counterpart of
 `jax.checkpoint` in `_wrap_remat`). Every block matmul and the vocab head go
 through `ops/quantization.py`'s dispatch (`maybe_matmul` / `multi_matmul`),
 so a weight may be a quantized leaf (int8, W8A8, int4: kernel B6) or a
-W8A8 training tag; a plain tensor takes `x @ w` as before. No KV cache here:
-that is a later slice.
+W8A8 training tag; a plain tensor takes `x @ w` as before.
+
+The block-KV cache of the fast samplers (`forward_kv_capture`,
+`forward_kv_step`, `_quantize_kv`) is the counterpart of JAX's block-cached
+decode (`mmada_tpu/models/llada.py:605-757`): a capture pass keeps each
+layer's post-RoPE K and V (bf16, or int8 with one fp32 scale a head vector),
+and each denoise step forwards only the active block's (or image span's)
+tokens against them.
 """
 
 from __future__ import annotations
@@ -332,6 +338,18 @@ def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor,
     return x + maybe_matmul(h, lp["ff_out"])
 
 
+def _join_cache(k: torch.Tensor, v: torch.Tensor, cache) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cached step's fresh block K/V joined to one layer's cache `(kc, vc,
+    span)`: written over `span` in place, or, with `span` None (a compact
+    cache), concatenated in front of it."""
+    kc, vc, span = cache
+    if span is None:
+        return torch.cat([k, kc], dim=2), torch.cat([v, vc], dim=2)
+    kc[:, :, span].copy_(k)
+    vc[:, :, span].copy_(v)
+    return kc, vc
+
+
 def _block(
     cfg: LLaDAConfig,
     x: torch.Tensor,       # (B, L, D)
@@ -340,20 +358,30 @@ def _block(
     sin: torch.Tensor,
     cos: torch.Tensor,
     taps: Optional[dict] = None,  # calibration_stats: the quantized matmuls' inputs
-) -> torch.Tensor:
+    return_kv: bool = False,
+    cache=None,            # a cached step's layer cache: (kc, vc, span | None)
+):
+    """One layer. With `return_kv` (the cache's capture pass) it returns
+    `(x, (k, v))`, k rotated: RoPE runs here, outside the kernel, so the
+    cached K is post-RoPE in the compute dtype, and attention takes no rope
+    tables. With `cache` (a cached step: x holds the block's positions, sin
+    and cos their rows) the block's queries attend to its fresh K/V joined
+    to the cache (`_join_cache`), rectangular and without rope tables."""
     b, l, d = x.shape
     h = _norm(cfg, x, lp.get("attn_norm"))
     _tap(taps, "qkv_in", h)
     q, k, v = _qkv(cfg, lp, h)
-    if cfg.rope_full_precision:
-        att = bidirectional_attention(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
+    if return_kv or cache is not None or not cfg.rope_full_precision:
+        q, k = apply_rope(q, k, sin, cos, full_precision=cfg.rope_full_precision)
+        ka, va = (k, v) if cache is None else _join_cache(k, v, cache)
+        att = bidirectional_attention(q, ka, va, bias=bias)
     else:
-        q, k = apply_rope(q, k, sin, cos, full_precision=False)
-        att = bidirectional_attention(q, k, v, bias=bias)
+        att = bidirectional_attention(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
     att = att.transpose(1, 2).reshape(b, l, d)
     _tap(taps, "ctx", att)
     x = x + maybe_matmul(att, lp["attn_out"])
-    return _mlp(cfg, lp, x, taps)
+    x = _mlp(cfg, lp, x, taps)
+    return (x, (k, v)) if return_kv else x
 
 
 def prepare_attention_bias(
@@ -506,3 +534,123 @@ def _head(
     if cfg.scale_logits:
         logits = logits * (1.0 / math.sqrt(cfg.d_model))
     return logits
+
+
+# --------------------------------------------------------------------------
+# Block-KV cache (the fast samplers' cached decode)
+# --------------------------------------------------------------------------
+
+def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of a K/V tensor `(..., D)`, one fp32 scale per
+    head vector (`(..., 1)`): amax / 127, rounded half to even as
+    `jnp.round` rounds."""
+    t = t.float()
+    scale = t.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.round(t / scale).to(torch.int8), scale
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (codes * scale).to(dtype)   # int8 x fp32: the product in fp32
+
+
+@torch.no_grad()
+def forward_kv_capture(
+    params: Params,
+    cfg: LLaDAConfig,
+    input_ids: torch.Tensor,                  # (B, L) int
+    policy: Policy = FP32,
+    remat=False,
+    drop_span: Optional[tuple[int, int]] = None,
+    cache_dtype: Optional[str] = None,         # None | "int8"
+):
+    """The backbone over the whole frame, without the vocab head, returning
+    every layer's post-RoPE K and V: `(k, v)`, each `(n_layers, B, KVH, L,
+    D)` in the compute dtype, or with `cache_dtype="int8"` each a pair
+    (int8 codes `(n_layers, B, KVH, L, D)`, fp32 scales `(n_layers, B, KVH,
+    L, 1)`). `drop_span=(lo, hi)` leaves that span's positions out of the
+    cache (the compact cache of the MaskGIT samplers, whose span is
+    recomputed every step; attention is invariant to the keys' order). No
+    attention bias: the cache serves the unbiased (checkpoint-faithful)
+    path only. Without autograd; `remat` must be False (nothing is saved
+    for a backward)."""
+    if remat not in (False, None):
+        raise NotImplementedError(
+            f"forward_kv_capture serves without autograd: remat={remat!r} is not taken")
+    if cache_dtype not in (None, "int8"):
+        raise ValueError(f"cache_dtype must be None or 'int8', got {cache_dtype!r}")
+    x = params["wte"][input_ids].to(policy.compute_dtype)
+    if cfg.input_emb_norm:
+        x = x * math.sqrt(cfg.d_model)
+    b, l = input_ids.shape
+    sin, cos = rope_sin_cos(l, cfg.head_dim, cfg.rope_theta, device=x.device)
+    lo, hi = drop_span if drop_span is not None else (l, l)
+    layers = layer_params(params)
+    shape = (len(layers), b, cfg.effective_n_kv_heads, l - (hi - lo), cfg.head_dim)
+
+    def empty():
+        if cache_dtype == "int8":
+            return (torch.empty(shape, dtype=torch.int8, device=x.device),
+                    torch.empty(shape[:-1] + (1,), dtype=torch.float32, device=x.device))
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    k_cache, v_cache = empty(), empty()
+    for i, lp in enumerate(layers):
+        x, kv = _block(cfg, x, lp, None, sin, cos, return_kv=True)
+        for t, cache in zip(kv, (k_cache, v_cache)):
+            if drop_span is not None:
+                t = torch.cat([t[:, :, :lo], t[:, :, hi:]], dim=2)
+            if cache_dtype == "int8":
+                for dst, src in zip(cache, _quantize_kv(t)):
+                    dst[i].copy_(src)
+            else:
+                cache[i].copy_(t)
+    return k_cache, v_cache
+
+
+@torch.no_grad()
+def forward_kv_step(
+    params: Params,
+    cfg: LLaDAConfig,
+    block_ids: torch.Tensor,       # (B, blk) int: the active block's tokens
+    kv_cache,                      # forward_kv_capture's, of the same B
+    block_start: int,              # the block's offset in the frame
+    policy: Policy = FP32,
+    logit_window: Optional[tuple[int, int]] = None,
+    cache_is_compact: bool = False,
+) -> torch.Tensor:
+    """`(B, blk, V|window)` logits of the block's tokens against the cached
+    K/V. Per layer (`_block` with the layer's cache): q/k/v of the block's
+    positions, RoPE at their absolute offsets; the fresh K/V overwrite the
+    block's slice of the cache, or, with `cache_is_compact` (a `drop_span`
+    capture), are concatenated in front of it; the block's queries attend to
+    all of them (rectangular attention without rope tables, the one-pass
+    tier: B1); the MLP, the final norm and the (windowed) head run over the
+    block only.
+
+    A bf16 or fp32 cache's block slice is overwritten in place: each step
+    writes it again with the block's fresh K/V before reading it, so every
+    step reads what JAX's functional update gives, without copying the
+    cache. An int8 cache is dequantised a layer at a time and stays as
+    captured."""
+    k_cache, v_cache = kv_cache
+    quantized = isinstance(k_cache, tuple)
+    cache_len = (k_cache[0] if quantized else k_cache).shape[3]
+    blk = block_ids.shape[1]
+    seq_len = cache_len + (blk if cache_is_compact else 0)
+
+    x = params["wte"][block_ids].to(policy.compute_dtype)
+    if cfg.input_emb_norm:
+        x = x * math.sqrt(cfg.d_model)
+    sin, cos = rope_sin_cos(seq_len, cfg.head_dim, cfg.rope_theta, device=x.device)
+    sin, cos = sin[block_start:block_start + blk], cos[block_start:block_start + blk]
+    span = slice(block_start, block_start + blk)
+
+    for i, lp in enumerate(layer_params(params)):
+        if quantized:
+            kc = _dequantize_kv(k_cache[0][i], k_cache[1][i], x.dtype)
+            vc = _dequantize_kv(v_cache[0][i], v_cache[1][i], x.dtype)
+        else:
+            kc, vc = k_cache[i], v_cache[i]
+        x = _block(cfg, x, lp, None, sin, cos, cache=(kc, vc, None if cache_is_compact else span))
+    x = _norm(cfg, x, params["ln_f"])
+    return _head(params, cfg, x, logit_window, policy)

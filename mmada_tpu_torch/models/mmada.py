@@ -9,11 +9,19 @@ serves:
   * `forward_hidden` / `apply_head` - the differentiable training path: the
                      post-norm hidden states, and the vocab head on (a chunk
                      of) them
-  * `generate`     - semi-AR text denoising, exact sampler
+  * `generate` / `generate_stepwise` - semi-AR text denoising
   * `mmu_generate` / `mmu_generate_fast` - the same denoiser on a prompt
                      that holds the <|mmu|> image frame; the fast one stops
                      after the first block that ends in EOT in every row
-  * `t2i_generate` - MaskGIT image-token generation with CFG, exact sampler
+  * `t2i_generate` - MaskGIT image-token generation with CFG
+
+Every sampler runs the exact sampler by default. The fast samplers are
+opt-in knobs, as in JAX: `block_kv_cache` (False, True or "int8": the
+block-KV cached decode, `_text_cache_fns` / `_span_cache_fns` on
+`llada.forward_kv_capture` / `forward_kv_step`), `cache_refresh_every`, and
+for text and MMU `parallel_threshold` / `parallel_warmup_steps`
+(tau-parallel). The segmented runs (`segment_steps`, `segment_timesteps`)
+belong to the serving engine and raise until it is ported (ROADMAP A.9).
 
 Image generation evaluates the vocab head only over the 8k image window and
 the image positions (`logit_window` + `logit_positions`); text steps only
@@ -24,7 +32,7 @@ operands only, so a model whose weights are on CUDA and whose policy's
 compute dtype is not bf16 is refused when it is built (`init` and the
 constructor), naming `BF16`. The CPU keeps the FP32 policy, which the parity
 tests use. (JAX's Pallas kernels also take fp32; fp32 kernels on the card
-are ROADMAP C.2.)
+are ROADMAP A.17.)
 """
 
 from __future__ import annotations
@@ -106,6 +114,47 @@ class MMadaModel:
 
         return fn
 
+    def _validate_kv_cache_support(self) -> None:
+        if self.cfg.attention_bias_enabled:
+            raise ValueError(
+                "block_kv_cache supports only the no-bias (checkpoint-faithful) "
+                "attention path")
+
+    def _text_cache_fns(self, cache_dtype=None):
+        """Block-KV cached decode: capture the frame's per-layer K/V once a
+        block, then forward only the block's tokens each step (approximate:
+        out-of-block K/V are frozen within a block)."""
+        self._validate_kv_cache_support()
+
+        def capture(tokens):
+            return llada.forward_kv_capture(self.params, self.cfg, tokens, policy=self.policy,
+                                            cache_dtype=cache_dtype)
+
+        def step(block_tokens, kv, block_start):
+            return llada.forward_kv_step(self.params, self.cfg, block_tokens, kv, block_start,
+                                         policy=self.policy)
+
+        return capture, step
+
+    def _span_cache_fns(self, window: tuple[int, int], num_tokens: int, cache_dtype=None):
+        """Cache fns of the MaskGIT samplers: the span (`num_tokens` positions
+        before the frame's last) is left out of the cache (compact form) and
+        recomputed each step, with the head over `window` only."""
+        self._validate_kv_cache_support()
+
+        def capture(tokens):
+            lo = tokens.shape[1] - (num_tokens + 1)
+            return llada.forward_kv_capture(self.params, self.cfg, tokens, policy=self.policy,
+                                            drop_span=(lo, lo + num_tokens),
+                                            cache_dtype=cache_dtype)
+
+        def step(span_tokens, kv, span_start):
+            return llada.forward_kv_step(self.params, self.cfg, span_tokens, kv, span_start,
+                                         policy=self.policy, logit_window=window,
+                                         cache_is_compact=True)
+
+        return capture, step
+
     def _window_forward_fn(self, num_tokens: int, window: tuple[int, int]):
         """Vocab AND position windows: the head runs only over the image span's
         hidden states and the image vocab slice."""
@@ -120,34 +169,65 @@ class MMadaModel:
         return fn
 
     # ---------------------------------------------------------------- text
-    def generate(self, prompt, gen_length=128, steps=128, block_length=128,
-                 temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
-                 generator=None):
-        """(B, P + gen_length) tokens from a (B, P) prompt, exact sampler."""
-        scfg = text_sampling.SemiARConfig(
+    def _semiar_config(self, gen_length, steps, block_length, temperature, cfg_scale,
+                       remasking="low_confidence", parallel_threshold=0.0,
+                       parallel_warmup_steps=0, cache_refresh_every=0):
+        return text_sampling.SemiARConfig(
             gen_length=gen_length, steps=steps, block_length=block_length,
             temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
-            mask_id=self.vocab.mask_token_id,
+            mask_id=self.vocab.mask_token_id, parallel_threshold=parallel_threshold,
+            parallel_warmup_steps=parallel_warmup_steps,
+            cache_refresh_every=cache_refresh_every,
         )
-        return text_sampling.generate(
+
+    def _text_sources(self, block_length, block_kv_cache):
+        """The sampler's logits source: `cache_fns` for the cached decode,
+        else the block-windowed exact forward."""
+        if block_kv_cache:
+            return dict(cache_fns=self._text_cache_fns(_cache_dtype(block_kv_cache)))
+        return dict(window_forward_fn=self._text_window_forward_fn(block_length))
+
+    def generate(self, prompt, gen_length=128, steps=128, block_length=128,
+                 temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
+                 generator=None, block_kv_cache=False, parallel_threshold=0.0,
+                 parallel_warmup_steps=0, cache_refresh_every=0, segment_steps=0):
+        """(B, P + gen_length) tokens from a (B, P) prompt. The exact sampler
+        unless `block_kv_cache` (True / "int8": the cached decode, re-captured
+        every `cache_refresh_every` steps within a block) or
+        `parallel_threshold` (tau-parallel, from step `parallel_warmup_steps`
+        of each block) is set."""
+        _refuse_segmented(segment_steps=segment_steps)
+        scfg = self._semiar_config(gen_length, steps, block_length, temperature, cfg_scale,
+                                   remasking, parallel_threshold, parallel_warmup_steps,
+                                   cache_refresh_every)
+        return text_sampling.generate(None, prompt, scfg, generator=generator,
+                                      **self._text_sources(block_length, block_kv_cache))
+
+    def generate_stepwise(self, prompt, gen_length=128, steps=128, block_length=128,
+                          temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
+                          generator=None, block_kv_cache=False, cache_refresh_every=0):
+        """The denoising trajectory `(steps, B, P + gen_length)`: the tokens
+        after every step (the last is `generate`'s)."""
+        scfg = self._semiar_config(gen_length, steps, block_length, temperature, cfg_scale,
+                                   remasking, cache_refresh_every=cache_refresh_every)
+        return text_sampling.generate_stepwise(
             None, prompt, scfg, generator=generator,
-            window_forward_fn=self._text_window_forward_fn(block_length),
-        )
+            **self._text_sources(block_length, block_kv_cache))
 
     # ----------------------------------------------------------------- mmu
     def mmu_generate(self, input_ids, max_new_tokens=128, steps=128, block_length=128,
                      temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
                      generator=None, block_kv_cache=False, parallel_threshold=0.0,
                      parallel_warmup_steps=0, cache_refresh_every=0, segment_steps=0):
-        """`generate` on a prompt that already holds the <|mmu|> image frame.
-        The block-KV, tau-parallel and segmented knobs must stay at their
-        defaults (the exact sampler)."""
-        _exact_sampler_only(block_kv_cache=block_kv_cache, parallel_threshold=parallel_threshold,
-                            parallel_warmup_steps=parallel_warmup_steps,
-                            cache_refresh_every=cache_refresh_every, segment_steps=segment_steps)
+        """`generate` on a prompt that already holds the <|mmu|> image frame."""
         return self.generate(input_ids, gen_length=max_new_tokens, steps=steps,
                              block_length=block_length, temperature=temperature,
-                             cfg_scale=cfg_scale, remasking=remasking, generator=generator)
+                             cfg_scale=cfg_scale, remasking=remasking, generator=generator,
+                             block_kv_cache=block_kv_cache,
+                             parallel_threshold=parallel_threshold,
+                             parallel_warmup_steps=parallel_warmup_steps,
+                             cache_refresh_every=cache_refresh_every,
+                             segment_steps=segment_steps)
 
     def mmu_generate_fast(self, input_ids, eot_token: int, max_new_tokens=128, steps=128,
                           block_length=128, temperature=0.0, cfg_scale=0.0, generator=None,
@@ -156,51 +236,59 @@ class MMadaModel:
         """`mmu_generate` that stops after the first block whose last
         position holds `eot_token` in every row (the blocks not run stay
         masked)."""
-        _exact_sampler_only(block_kv_cache=block_kv_cache, parallel_threshold=parallel_threshold,
-                            parallel_warmup_steps=parallel_warmup_steps,
-                            cache_refresh_every=cache_refresh_every)
-        scfg = text_sampling.SemiARConfig(
-            gen_length=max_new_tokens, steps=steps, block_length=block_length,
-            temperature=temperature, cfg_scale=cfg_scale, mask_id=self.vocab.mask_token_id,
-        )
+        scfg = self._semiar_config(max_new_tokens, steps, block_length, temperature, cfg_scale,
+                                   parallel_threshold=parallel_threshold,
+                                   parallel_warmup_steps=parallel_warmup_steps,
+                                   cache_refresh_every=cache_refresh_every)
         return text_sampling.generate_with_early_stop(
             None, input_ids, scfg, eot_token, generator=generator,
-            window_forward_fn=self._text_window_forward_fn(block_length),
-        )
+            **self._text_sources(block_length, block_kv_cache))
 
     # ----------------------------------------------------------------- t2i
     def t2i_generate(self, input_ids, uncond_input_ids=None,
                      attention_mask=None, uncond_attention_mask=None,
                      temperature=1.0, timesteps=18, guidance_scale=0.0,
                      noise_schedule=cosine_schedule, num_vq_tokens=1024,
-                     generator=None, greedy=False, cfg_interval=(0.0, 1.0)):
-        """(B, num_vq_tokens) raw image codes, exact MaskGIT sampler."""
+                     generator=None, greedy=False, stepwise=False,
+                     block_kv_cache=False, cache_refresh_every=0,
+                     segment_timesteps=0, cfg_interval=(0.0, 1.0)):
+        """(B, num_vq_tokens) raw image codes, or with `stepwise` each step's
+        `(timesteps, B, num_vq_tokens)`. `block_kv_cache` (True / "int8"):
+        capture the K/V outside the image span once and forward only the
+        span each step, re-captured every `cache_refresh_every` steps."""
+        _refuse_segmented(segment_timesteps=segment_timesteps)
         mcfg = t2i_sampling.MaskGITConfig(
             timesteps=timesteps, temperature=temperature,
             guidance_scale=guidance_scale, noise_schedule=noise_schedule,
             mask_id=self.vocab.mask_token_id, num_vq_tokens=num_vq_tokens,
             codebook_size=self.vocab.image_codebook_size,
             text_vocab_size=self.vocab.image_offset, greedy=greedy,
-            cfg_interval=tuple(cfg_interval),
+            cfg_interval=tuple(cfg_interval), cache_refresh_every=cache_refresh_every,
         )
         fwd = self._window_forward_fn(num_vq_tokens, self.vocab.image_window)
-        return t2i_sampling.t2i_generate(
+        cache_fns = (self._span_cache_fns(self.vocab.image_window, num_vq_tokens,
+                                          _cache_dtype(block_kv_cache))
+                     if block_kv_cache else None)
+        gen = t2i_sampling.t2i_generate_stepwise if stepwise else t2i_sampling.t2i_generate
+        return gen(
             fwd, input_ids, mcfg, generator=generator,
             uncond_input_ids=uncond_input_ids, attention_mask=attention_mask,
-            uncond_attention_mask=uncond_attention_mask,
+            uncond_attention_mask=uncond_attention_mask, cache_fns=cache_fns,
         )
 
 
-_EXACT_SAMPLER = dict(block_kv_cache=False, parallel_threshold=0.0, parallel_warmup_steps=0,
-                      cache_refresh_every=0, segment_steps=0)
+def _cache_dtype(block_kv_cache):
+    """Sampler flag -> cache dtype: False / True = the compute dtype, "int8"
+    = the quantized cache (`llada._quantize_kv`)."""
+    return "int8" if block_kv_cache == "int8" else None
 
 
-def _exact_sampler_only(**knobs) -> None:
-    changed = sorted(k for k, v in knobs.items() if v != _EXACT_SAMPLER[k])
+def _refuse_segmented(**knobs) -> None:
+    changed = sorted(k for k, v in knobs.items() if v)
     if changed:
         raise NotImplementedError(
-            f"{', '.join(changed)}: block-KV, tau-parallel and segmented sampling are not "
-            "ported yet (ROADMAP A.3-A.5); the port runs the exact sampler")
+            f"{', '.join(changed)}: the segmented runs belong to the serving engine, "
+            "which is not ported yet (ROADMAP A.9)")
 
 
 def _check_policy(policy: Policy, device: torch.device) -> None:

@@ -21,9 +21,12 @@ that requires grad keeps its graph on both. A bool bias is first made fp32 0
     JAX sends these to `xla_attention` (:276-277), whose function is B1's
     (p normalised in fp32, cast to v's dtype, then p.v); the kernels take
     any length, and B3 computes its gradient;
-  * Lq != Lk with either past 4096: refused. No path reaches it: the JAX
-    long tiers take one L for q and k (`flash_attention.py:360`, `:451`),
-    and only the block-KV decode (ROADMAP A.3) would ask for it.
+  * Lq != Lk with either past 4096 (the block-KV decode's step: a block's
+    queries over a long frame's cached keys, no RoPE): the one-pass tier.
+    The JAX long tiers take one L for q and k (`flash_attention.py:360`,
+    `:451`), so JAX sends this shape to `xla_attention` (:313-326), whose
+    function is B1's; B4 would compute the long tier's (p kept in fp32 and
+    divided last), so it does not take it.
 
 The backward runs the tier's dq and dkv kernels on q/k rotated in fp32
 outside the kernels, the rotation pulled back by autograd of the fp32
@@ -77,17 +80,19 @@ def apply_rope(
     cos: torch.Tensor,
     full_precision: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Neox rotate-half RoPE as a standalone pass: the long tier's rotation
-    (the one-pass kernel's C entry runs the same rotation on the card)."""
+    """Neox rotate-half RoPE as a standalone pass: the long tier's and the
+    block-KV cache's rotation (the one-pass kernel's C entry runs the same
+    rotation on the card). q and k go through one pass, their heads side by
+    side (half the launches of two passes; the cache's steps are
+    host-bound), and come back as views of its output."""
     dtype = q.dtype
+    x = torch.cat([q, k], dim=1)
     if full_precision:
-        q, k = q.float(), k.float()
-        sin, cos = sin.float(), cos.float()
+        x, sin, cos = x.float(), sin.float(), cos.float()
     else:
         sin, cos = sin.to(dtype), cos.to(dtype)
-    q = q * cos + _rotate_half(q) * sin
-    k = k * cos + _rotate_half(k) * sin
-    return q.to(dtype), k.to(dtype)
+    x = (x * cos + _rotate_half(x) * sin).to(dtype)
+    return x.split([q.shape[1], k.shape[1]], dim=1)
 
 
 def attention_backward(q, k, v, out, dout, rope_sin=None, rope_cos=None,
@@ -138,16 +143,9 @@ class KernelAttention(torch.autograd.Function):
 
 
 def long_tier(lq: int, lk: int) -> bool:
-    """Whether (Lq, Lk) takes the long tier (B4, B5); raises for the shapes
-    no tier takes."""
-    if max(lq, lk) <= ONE_PASS_MAX_LEN:
-        return False
-    if lq != lk:
-        raise NotImplementedError(
-            f"attention of {lq} queries over {lk} keys: past {ONE_PASS_MAX_LEN} tokens the "
-            "kernel tiers take one length for q and k, as the JAX long tiers do; "
-            "rectangular attention that long comes with the block-KV decode (ROADMAP A.3)")
-    return lq % ALIGN == 0
+    """Whether (Lq, Lk) takes the long tier (B4, B5): one length past 4096,
+    a multiple of 128. Every other shape takes the one-pass tier (B1-B3)."""
+    return lq == lk > ONE_PASS_MAX_LEN and lq % ALIGN == 0
 
 
 def bidirectional_attention(

@@ -1,19 +1,28 @@
-"""MaskGIT-style non-autoregressive image generation with CFG (exact sampler).
+"""MaskGIT-style non-autoregressive image generation with CFG.
 
-Counterpart of the exact path of `mmada_tpu/sampling/t2i.py`
-(`MaskGITConfig`, `cfg_interval_steps`, `_cfg_preamble`, `init_carry`,
-`_make_step`): all image positions start masked inside the t2i frame
-`[pad* <|t2i|> <bos> text <eos> <|soi|> IMG <|eoi|>]`; each of `timesteps`
-steps forwards the sequence (batch-doubled under CFG with an empty-prompt
-uncond row sharing the current image tokens), reads logits over the image
-window, samples a candidate at every position, keeps committed tokens, and
-re-masks the lowest-confidence positions down to the schedule's count.
+Counterpart of `mmada_tpu/sampling/t2i.py` (`MaskGITConfig`,
+`cfg_interval_steps`, `_cfg_preamble`, `init_carry`, `_scan`, `_make_step`,
+`t2i_generate`, `t2i_generate_stepwise`): all image positions start masked
+inside the t2i frame `[pad* <|t2i|> <bos> text <eos> <|soi|> IMG <|eoi|>]`;
+each of `timesteps` steps forwards the sequence (batch-doubled under CFG
+with an empty-prompt uncond row sharing the current image tokens), reads
+logits over the image window, samples a candidate at every position, keeps
+committed tokens, and re-masks the lowest-confidence positions down to the
+schedule's count.
 
 Reference details kept: the CFG combine `(1 + s) * cond - s * uncond`; the
 temperature compounds across steps (step t uses T0 * prod(1 - r_i)); the
 mask count is clamped to [1, unknown - 1]. The step loop is a Python loop,
-and the schedule's scalars are fp32 as in the JAX scan. The block-KV cached
-decode is a later slice.
+and the schedule's scalars are fp32 as in the JAX scan.
+
+The block-KV cached decode (`cache_fns`, opt-in) captures the K/V of the
+positions outside the image span once (their tokens never change; their
+responses to the committed image tokens are what it freezes), on
+`[x; uncond]` under CFG, and each step forwards only the `num_vq_tokens`
+image positions (doubled under CFG) at offset `img_lo`.
+`cache_refresh_every=N` re-captures before steps t > 0 with t % N == 0. A
+`cfg_interval` narrower than every step is refused with the cache, as JAX
+refuses it: the cache holds the CFG batch's rows.
 """
 
 from __future__ import annotations
@@ -50,6 +59,9 @@ class MaskGITConfig:
     """Guidance interval (lo, hi) as step fractions: CFG runs only for steps
     t with lo <= t / timesteps < hi; other steps forward the single cond
     batch. (0.0, 1.0) = CFG every step."""
+    cache_refresh_every: int = 0
+    """KV-cached decode only: re-capture the out-of-span K/V every N steps
+    (0 = one capture for all timesteps)."""
 
 
 def cfg_interval_steps(cfg: MaskGITConfig) -> tuple[int, int]:
@@ -86,21 +98,34 @@ def init_carry(input_ids: torch.Tensor, cfg: MaskGITConfig):
     return x, cur, torch.tensor(cfg.temperature, dtype=torch.float32)
 
 
-def _step(forward_fn, cfg, x, cur, temperature, t, use_cfg, uncond_prefix,
-          mask, generator):
-    """One MaskGIT timestep; returns (x, cur, temperature, sampled)."""
-    b, l = x.shape
-    n = cfg.num_vq_tokens
-    img_lo = l - (n + 1)
-    prompt_len = l - (n + 2)
-
+def _exact_logits(forward_fn, cfg, x, use_cfg, uncond_prefix, mask):
+    """The image window's logits of the full-sequence forward (CFG rows
+    batched after the cond rows), before the guidance combine."""
     if use_cfg:
+        prompt_len = x.shape[1] - (cfg.num_vq_tokens + 2)
         uncond_x = torch.cat([uncond_prefix, x[:, prompt_len:]], dim=1)
-        logits = forward_fn(torch.cat([x, uncond_x], dim=0), mask)
+        return forward_fn(torch.cat([x, uncond_x], dim=0), mask)
+    return forward_fn(x, mask)
+
+
+def _cached_logits(step_fn, cfg, x, kv, use_cfg):
+    """The image span forwarded alone against the captured K/V; the cond
+    and uncond rows share the span's tokens, so CFG doubles it."""
+    n = cfg.num_vq_tokens
+    img_lo = x.shape[1] - (n + 1)
+    img_tok = x[:, img_lo:img_lo + n]
+    span_in = torch.cat([img_tok, img_tok], dim=0) if use_cfg else img_tok
+    return step_fn(span_in, kv, img_lo)
+
+
+def _step(logits, cfg, x, cur, temperature, t, use_cfg, generator):
+    """One MaskGIT timestep on the step's window logits (CFG rows batched
+    after the cond rows); returns (x, cur, temperature, sampled)."""
+    n = cfg.num_vq_tokens
+    img_lo = x.shape[1] - (n + 1)
+    if use_cfg:
         cond, uncond = logits.chunk(2, dim=0)
         logits = (1.0 + cfg.guidance_scale) * cond - cfg.guidance_scale * uncond
-    else:
-        logits = forward_fn(x, mask)
     logits = logits.float()                     # (B, n, codebook)
 
     if cfg.greedy:
@@ -134,16 +159,9 @@ def _step(forward_fn, cfg, x, cur, temperature, t, use_cfg, uncond_prefix,
     return x, new_cur, temperature, sampled
 
 
-def t2i_generate(
-    forward_fn: WindowForwardFn,
-    input_ids: torch.Tensor,                          # (B, L) full t2i frame
-    cfg: MaskGITConfig,
-    generator: Optional[torch.Generator] = None,
-    uncond_input_ids: Optional[torch.Tensor] = None,  # (B, L) empty-prompt frame
-    attention_mask: Optional[torch.Tensor] = None,    # (B, L)
-    uncond_attention_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Raw VQ codes `(B, num_vq_tokens)` in [0, codebook_size)."""
+def _scan(forward_fn, input_ids, cfg, generator, uncond_input_ids, attention_mask,
+          uncond_attention_mask, cache_fns):
+    """Run the MaskGIT loop; yields each step's sampled `(B, n)` grid."""
     if not cfg.greedy and generator is None:
         raise ValueError("categorical sampling requires a torch.Generator")
     n = cfg.num_vq_tokens
@@ -153,11 +171,64 @@ def t2i_generate(
         cfg, prompt_len, uncond_input_ids, attention_mask, uncond_attention_mask
     )
     lo_idx, hi_idx = cfg_interval_steps(cfg)
-    sampled = None
+    if cache_fns is not None:
+        if use_cfg and (lo_idx > 0 or hi_idx < cfg.timesteps):
+            raise ValueError(
+                "cfg_interval + block_kv_cache is unsupported: the cached K/V is "
+                "captured at CFG batch (2B rows) and the cond-only phases would need "
+                "a different cache shape; run the exact sampler with cfg_interval")
+        capture_fn, step_fn = cache_fns
+
+        def capture(xc):
+            if use_cfg:
+                un = torch.cat([uncond_prefix, xc[:, prompt_len:]], dim=1)
+                return capture_fn(torch.cat([xc, un], dim=0))
+            return capture_fn(xc)
+
+        kv = capture(x)
+    refresh = cfg.cache_refresh_every
     for t in range(cfg.timesteps):
         guided = use_cfg and lo_idx <= t < hi_idx
-        x, cur, temperature, sampled = _step(
-            forward_fn, cfg, x, cur, temperature, t, guided,
-            uncond_prefix, full_mask if guided else attention_mask, generator,
-        )
+        if cache_fns is None:
+            logits = _exact_logits(forward_fn, cfg, x, guided, uncond_prefix,
+                                   full_mask if guided else attention_mask)
+        else:
+            if refresh > 0 and t > 0 and t % refresh == 0:
+                kv = capture(x)
+            logits = _cached_logits(step_fn, cfg, x, kv, use_cfg)
+        x, cur, temperature, sampled = _step(logits, cfg, x, cur, temperature, t, guided,
+                                             generator)
+        yield sampled
+
+
+def t2i_generate(
+    forward_fn: WindowForwardFn,
+    input_ids: torch.Tensor,                          # (B, L) full t2i frame
+    cfg: MaskGITConfig,
+    generator: Optional[torch.Generator] = None,
+    uncond_input_ids: Optional[torch.Tensor] = None,  # (B, L) empty-prompt frame
+    attention_mask: Optional[torch.Tensor] = None,    # (B, L)
+    uncond_attention_mask: Optional[torch.Tensor] = None,
+    cache_fns=None,                                   # (capture_fn, step_fn)
+) -> torch.Tensor:
+    """Raw VQ codes `(B, num_vq_tokens)` in [0, codebook_size)."""
+    for sampled in _scan(forward_fn, input_ids, cfg, generator, uncond_input_ids,
+                         attention_mask, uncond_attention_mask, cache_fns):
+        pass
     return sampled
+
+
+def t2i_generate_stepwise(
+    forward_fn: WindowForwardFn,
+    input_ids: torch.Tensor,
+    cfg: MaskGITConfig,
+    generator: Optional[torch.Generator] = None,
+    uncond_input_ids: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    uncond_attention_mask: Optional[torch.Tensor] = None,
+    cache_fns=None,
+) -> torch.Tensor:
+    """`(timesteps, B, n)`: each step's sampled grid (the last is
+    `t2i_generate`'s codes)."""
+    return torch.stack(list(_scan(forward_fn, input_ids, cfg, generator, uncond_input_ids,
+                                  attention_mask, uncond_attention_mask, cache_fns)))

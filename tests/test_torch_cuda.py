@@ -201,14 +201,16 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
         flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 64))
     long_q = torch.zeros(1, 1, 4224, 128, dtype=torch.bfloat16, device=cuda_device)
     before_long = (flash_attention_long.launches, flash_attention_long.bias_launches)
-    with pytest.raises(NotImplementedError, match="A.3"):   # rectangular past 4096
-        bidirectional_attention(long_q, long_q[:, :, :300], long_q[:, :, :300])
+    # rectangular past 4096: B1 once (the one-pass tier), never B4
+    lq, lk, lv = _qkv(cuda_device, 1, 1, 1, 4224, 300, 128, seed=3)
+    assert_b1_close(bidirectional_attention(lq, lk, lv), flash_attention_reference(lq, lk, lv))
     with pytest.raises(ValueError):   # the long tier takes 128-aligned lengths
         flash_attention_long(long_q[:, :, :4200], long_q[:, :, :4200], long_q[:, :, :4200])
     with pytest.raises(TypeError):
         flash_attention_long(long_q.float(), long_q.float(), long_q.float())
     assert (flash_attention_long.launches, flash_attention_long.bias_launches) == before_long
-    assert flash_attention.launches == before + 2   # the misaligned call and its copy
+    # the misaligned call and its copy, and the rectangular call past 4096
+    assert flash_attention.launches == before + 3
     assert flash_attention.bias_launches == before_bias
 
 
@@ -376,8 +378,9 @@ def test_backward_refuses_what_it_cannot_take(cuda_device):
 def test_backward_past_the_one_pass_range_names_b5(cuda_device):
     """Past 4096 tokens the routing takes the long tier for 128-aligned
     lengths (B4 forward, B5-dq and B5-dkv backward) and the one-pass tier
-    otherwise (B1, B3: JAX's XLA function there); rectangular attention that
-    long raises, launching nothing."""
+    otherwise (B1, B3: JAX's XLA function there), as rectangular attention
+    that long does (the block-KV decode's step), matching the plain
+    version."""
     kernels = (flash_attention, attention_bwd_dq, attention_bwd_dkv, flash_attention_long,
                attention_bwd_dq_long, attention_bwd_dkv_long)
 
@@ -396,10 +399,13 @@ def test_backward_past_the_one_pass_range_names_b5(cuda_device):
     assert launched(4097) == (1, 1, 1, 0, 0, 0)
     assert launched(4224) == (0, 0, 0, 1, 1, 1)
     assert launched(4096) == (1, 1, 1, 0, 0, 0)
-    before = [f.launches for f in kernels]
-    with pytest.raises(NotImplementedError, match="A.3"):
-        launched(4224, 4352)
-    assert [f.launches for f in kernels] == before
+    assert launched(4224, 4352) == (1, 1, 1, 0, 0, 0)
+    assert launched(64, 8192) == (1, 1, 1, 0, 0, 0)
+    q, k, v = _qkv(cuda_device, 1, 4, 2, 64, 8256, 128, seed=5)
+    before = (flash_attention.launches, flash_attention_long.launches)
+    assert_b1_close(bidirectional_attention(q, k, v), flash_attention_reference(q, k, v))
+    assert (flash_attention.launches, flash_attention_long.launches) == (before[0] + 1,
+                                                                          before[1])
 
 
 def test_train_steps_go_through_the_kernels(cuda_device):
@@ -1469,3 +1475,56 @@ def test_mmu_requests_launch_b1_only(cuda_device, fast):
     # two frame lengths, two batches; the fast sampler may stop after a block
     assert forwards == 2 * 8 or (fast and 2 * 4 <= forwards < 2 * 8)
     assert [a.shape for a in answers] == [(16,), (16,)]
+
+
+@pytest.mark.parametrize("b,h,kvh,lq,lk", [
+    (3, 32, 32, 32, 159),      # text: 3 requests, a block of 32 over the 159-token frame
+    (1, 32, 32, 128, 1194),    # MMU: the block of 128 over the bench's 1,194-token frame
+    (4, 32, 32, 1024, 1155),   # t2i: the image span under CFG over span + compact cache
+    (1, 32, 32, 64, 8192),     # long text: a block of 64 over 8,192 keys (past 4096)
+])
+def test_kernel_at_cached_step_shapes(cuda_device, b, h, kvh, lq, lk):
+    """B1 at the block-KV decode's step shapes (rectangular, no RoPE): one
+    launch through the attention dispatch, no long-tier launch, within B1's
+    bars of its plain version."""
+    q, k, v = _qkv(cuda_device, b, h, kvh, lq, lk, 128)
+    before = (flash_attention.launches, flash_attention_long.launches)
+    got = bidirectional_attention(q, k, v)
+    assert (flash_attention.launches, flash_attention_long.launches) == (before[0] + 1,
+                                                                          before[1])
+    assert_b1_close(got, flash_attention_reference(q, k, v))
+
+
+@pytest.mark.parametrize("cache", [True, "int8"])
+def test_kv_step_on_the_card_matches_its_plain_path(cuda_device, cache):
+    """A small bf16 model on the card (head_dim 128): a capture launches B1
+    once a layer (square, RoPE outside), a step once a layer (rectangular),
+    and the step's logits are within the small model's bar (rel L2 5e-2) of
+    the same step on the CPU in fp32 (the plain path) and of the exact
+    forward's block logits on the card."""
+    vocab = tiny_layout()
+    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2)
+    model = MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0), policy=BF16)
+    ids = torch.randint(3, 200, (2, 96), generator=torch.Generator().manual_seed(1))
+    start, blk = 64, 16
+    cache_dtype = "int8" if cache == "int8" else None
+    before = flash_attention.launches
+    kv = llada.forward_kv_capture(model.params, cfg, ids.cuda(), policy=BF16,
+                                  cache_dtype=cache_dtype)
+    assert flash_attention.launches - before == cfg.n_layers
+    got = llada.forward_kv_step(model.params, cfg, ids[:, start:start + blk].cuda(), kv, start,
+                                policy=BF16).float()
+    assert flash_attention.launches - before == 2 * cfg.n_layers
+    cpu = {k: (v.float().cpu() if isinstance(v, torch.Tensor) else
+               {n: t.float().cpu() for n, t in v.items()}) for k, v in model.params.items()}
+    cpu_kv = llada.forward_kv_capture(cpu, cfg, ids, cache_dtype=cache_dtype)
+    want = llada.forward_kv_step(cpu, cfg, ids[:, start:start + blk], cpu_kv, start)
+    exact = model.forward(ids.cuda(), logit_positions=(start, blk)).float()
+
+    def rel(a, b):
+        return float((a.cpu() - b.cpu()).norm() / b.cpu().norm())
+
+    assert torch.isfinite(got).all()
+    assert rel(got, want) <= 5e-2, rel(got, want)
+    assert rel(got, exact) <= 5e-2, rel(got, exact)

@@ -4,9 +4,9 @@
   JAX package does on the same weights and frames (the serving slice as a
   whole), `serve_t2i` with attention masks on too; `train` takes train steps
   on the CPU when asked to, masked or not.
-* `mmada_tpu_torch` and `chip_smoke.py` import neither jax, the JAX package,
-  yaml nor PIL (none of them is installed beside the card), and a train step
-  runs without them.
+* `mmada_tpu_torch`, `chip_smoke.py` and `profile_cached.py` import neither
+  jax, the JAX package, yaml nor PIL (none of them is installed beside the
+  card), and a train step runs without them.
 * Entry points never fall back to the CPU on their own.
 * The nvcc build targets sm_90a and writes into a gitignored directory.
 """
@@ -322,7 +322,12 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "assert codes.shape == (1, 64) and 0 <= int(codes.min()) <= int(codes.max()) < 32\n"
         "img = mmada_tpu_torch.entry.decode_images(vq, vcfg, codes, device='cpu')\n"
         "assert img.shape == (1, 16, 16, 3) and img.dtype == torch.uint8\n"
-        "import chip_smoke\n"
+        "from mmada_tpu_torch.core.config import parse_kv_cache\n"
+        "out = model.generate(ids[:, :6], gen_length=8, steps=4, block_length=4,\n"
+        "                     block_kv_cache=parse_kv_cache('int8'), cache_refresh_every=1,\n"
+        "                     parallel_threshold=0.9)\n"
+        "assert out.shape == (2, 14) and (out != vocab.mask_token_id).all()\n"
+        "import chip_smoke, profile_cached\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-B", "-c", code], cwd=REPO, capture_output=True,
@@ -339,7 +344,7 @@ _FORBIDDEN = re.compile(
 
 
 def test_source_scan_finds_no_forbidden_import():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, name) for name in ("chip_smoke.py", "profile_cached.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

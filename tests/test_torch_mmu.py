@@ -3,7 +3,9 @@
 * The `mmu_gen` and `r2i` frames equal JAX's, token for token.
 * `mmu_generate` is token-exact at T = 0 (cfg 0 and 1.5); `mmu_generate_fast`
   too, with an EOT that stops both after the first block, and with one that
-  never stops them; the knobs of later slices raise.
+  never stops them; both with each fast-sampler knob (the block-KV cache,
+  bf16 and int8, its refresh, tau-parallel and its warmup); `segment_steps`
+  raises.
 * `serve_mmu(device="cpu")` answers as JAX's `get_code` + the
   `inference_mmu.py` frame + `mmu_generate` (or `mmu_generate_fast`) do.
 * `Trainer.prepare_batch` on pixel flows with `cache_keys` equals the JAX
@@ -128,17 +130,39 @@ def test_mmu_generate_fast_matches_jax(models, stop):
         np.testing.assert_array_equal(got.numpy(), full)
 
 
-@pytest.mark.parametrize("knob,value", [("block_kv_cache", True), ("parallel_threshold", 0.9),
-                                        ("parallel_warmup_steps", 8),
-                                        ("cache_refresh_every", 2), ("segment_steps", 4)])
-def test_mmu_knobs_of_later_slices_raise(models, knob, value):
+MMU_KNOBS = {
+    "block_kv_cache": dict(block_kv_cache=True),
+    "parallel_threshold": dict(parallel_threshold=0.9),
+    "parallel_warmup_steps": dict(parallel_threshold=0.9, parallel_warmup_steps=2),
+    "cache_refresh_every": dict(block_kv_cache="int8", cache_refresh_every=2),
+}
+
+
+@pytest.mark.parametrize("knob", list(MMU_KNOBS))
+def test_mmu_knobs_match_jax(models, knob):
+    """`mmu_generate` with each fast-sampler knob, and `mmu_generate_fast`
+    with it and an EOT that stops after block 1, token-exact against JAX."""
+    jmodel, model, *_ = models
+    prompt = _prompts(models)
+    kw = dict(GEN, **MMU_KNOBS[knob])
+    want = np.asarray(jmodel.mmu_generate(jnp.asarray(prompt), **kw))
+    got = model.mmu_generate(torch.from_numpy(prompt).long(), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[:, prompt.shape[1]:] != model.vocab.mask_token_id).all()
+    one = prompt[:1]
+    p = one.shape[1]
+    eot = int(np.asarray(jmodel.mmu_generate(jnp.asarray(one), **kw))[0, p + GEN["block_length"] - 1])
+    want = np.asarray(jmodel.mmu_generate_fast(jnp.asarray(one), eot_token=eot, **kw))
+    got = model.mmu_generate_fast(torch.from_numpy(one).long(), eot_token=eot, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mmu_segment_steps_raises(models):
+    """The segmented run belongs to the serving engine (ROADMAP A.9)."""
     _, model, *_ = models
     prompt = torch.from_numpy(_prompts(models, n=1)).long()
-    with pytest.raises(NotImplementedError, match="A.3-A.5"):
-        model.mmu_generate(prompt, **GEN, **{knob: value})
-    if knob != "segment_steps":
-        with pytest.raises(NotImplementedError, match=knob):
-            model.mmu_generate_fast(prompt, eot_token=2, **GEN, **{knob: value})
+    with pytest.raises(NotImplementedError, match="A.9"):
+        model.mmu_generate(prompt, **GEN, segment_steps=4)
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -158,6 +182,29 @@ def test_serve_mmu_matches_jax(models, fast):
             want = jmodel.mmu_generate_fast(frame, eot_token=sp.eos, **GEN)
         else:
             want = jmodel.mmu_generate(frame, **GEN)
+        np.testing.assert_array_equal(ans.numpy(), np.asarray(want)[0, frame.shape[1]:])
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_serve_mmu_with_fast_knobs_matches_jax(models, fast):
+    """`serve_mmu` with the int8 cache given as a string (the strict parser),
+    its refresh and tau-parallel with warmup: each answer equals JAX's
+    `mmu_generate(_fast)` with the same knobs on the same frame."""
+    jmodel, model, (jvq, jvq_cfg), (vq, vq_cfg) = models
+    pixels = _pixels(2, seed=8)
+    knobs = dict(cache_refresh_every=2, parallel_threshold=0.9, parallel_warmup_steps=1)
+    answers = serve_mmu(model, vq, vq_cfg, pixels, QUESTIONS[:2],
+                        special_ids=_special(model.vocab, SpecialIds), device="cpu",
+                        fast=fast, block_kv_cache="INT8", **knobs, **GEN)
+    sp = _special(jmodel.vocab, JaxSpecialIds)
+    codes = np.asarray(jax_magvit2.get_code(jvq, jvq_cfg, pixels)) + jmodel.vocab.image_offset
+    kw = dict(GEN, block_kv_cache="int8", **knobs)
+    for c, question, ans in zip(codes, QUESTIONS, answers):
+        frame = jnp.asarray(_frame(sp, c, question))[None]
+        if fast:
+            want = jmodel.mmu_generate_fast(frame, eot_token=sp.eos, **kw)
+        else:
+            want = jmodel.mmu_generate(frame, **kw)
         np.testing.assert_array_equal(ans.numpy(), np.asarray(want)[0, frame.shape[1]:])
 
 
