@@ -27,7 +27,14 @@ codes against the fp32 CPU encode of the same weights (and the codes bit for
 bit under torch's default TF32 flags, TF32 on everywhere and a repeat),
 answers an MMU request about that image (`entry.serve_mmu`, exact, then
 early-stop at block 32 against the exact sampler at block 32), answers a
-text request whose frame is 8,192 tokens, answers the same requests through
+text request whose frame is 8,192 tokens, writes the 8B (bf16 shards with an
+index, the reference key layout) and MAGVIT-v2 to safetensors files and
+loads them back through the serve loader from dotted overrides (every leaf
+equal to the in-memory one, the host's RSS growth under 4 GB), frees the
+in-memory copies, answers the text, t2i and MMU requests (MMU also with the
+fast_stack preset; text also int4, loaded and quantized by the loader)
+through the three command lines' `run` on the loaded model, each equal to
+the in-memory model's answer, answers the same requests through
 the block-KV cached decode (the fast samplers: text with the bf16 and the
 int8 cache, a refresh every 4 steps and tau 1.5, which must leave the
 answers bit for bit; MMU with the cache and with the JAX loader's
@@ -70,9 +77,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -214,6 +224,14 @@ LONG_GRAD_MAX_REL = 2.0 ** -7
 # the long tier's lse: fp32 m + log(l) summed in another order, at the card
 # test's bar (tests/test_torch_cuda.py); the one-pass tier keeps LSE_ATOL
 LONG_LSE_ATOL = 1e-4
+# the checkpoint phase: the served 8B written in the reference key layout in
+# bf16 shards of at most 5 GB with an index, MAGVIT-v2 as one fused file,
+# both loaded back through `serve.loader.load_all`; the host's peak RSS may
+# grow by less than 4 GB while loading (the largest tensor, the embedding
+# or the head, is 1.10 GB: a loader that stages the model on the host
+# fails)
+CKPT_SHARD_BYTES = 5 * 10**9
+CKPT_RSS_GROWTH = 4 * 10**9
 # B6 (int4 matmul): its dequantised bf16 weight is bit for bit the plain
 # version's and both sum in fp32, in another order, so each bf16 output is
 # within one bf16 ulp of the plain version's plus LONG_ABS_FLOOR (2^-14),
@@ -1595,6 +1613,21 @@ def main() -> int:
     expect_launches("long text", long_text_launches,
                     {"long": (cfg.n_layers * LONG_TEXT_SETTINGS["steps"], 0, 0)})
 
+    # 7b''. the checkpoint: the 8B and MAGVIT-v2 written to safetensors and
+    # loaded back through the serve loader (leaves equal, host RSS bounded);
+    # the in-memory copies are then freed and every later phase runs on the
+    # loaded ones; the three command lines answer through their `run`
+    ckpt_dir = tempfile.mkdtemp(prefix="mmada_ckpt_")
+    try:
+        loaded, refs = checkpoint_load(ckpt_dir, model, vq, vq_cfg, image, reset_counts, counts)
+        model, vq = loaded.model, loaded.vq
+        free_memory()
+        ckpt = checkpoint_answers(ckpt_dir, loaded, refs, image, answers, reset_counts, counts)
+        del loaded
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("checkpoint", f"removed {ckpt_dir}")
+
     # 7b'. the block-KV cached decode (the fast samplers) on the same 8B:
     # text, MMU, t2i and the 8,192-token request, each beside the exact
     # sampler on the same batch
@@ -1608,7 +1641,8 @@ def main() -> int:
                    bf16_text_s=text_s, bf16_t2i_s=t2i_s)
     int4_launches, int4_cached = serve_quantized(model, quantize, "int4", serving, reset_counts,
                                                  counts, compare_t2i=True,
-                                                 cached=(vq, vq_cfg, image))
+                                                 cached=(vq, vq_cfg, image),
+                                                 want_text=ckpt["int4_text"])
     serve_quantized(model, quantize, "w8a8_smooth", serving, reset_counts, counts)
     serve_quantized(model, quantize, "int8", serving, reset_counts, counts, t2i=False)
     serve_quantized(model, quantize, "w8a8", serving, reset_counts, counts, t2i=False)
@@ -1725,7 +1759,7 @@ def main() -> int:
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
     b1 = kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
-                       launches + mmu_launches + cached["b1"] + int4_cached["b1"]
+                       launches + mmu_launches + ckpt["b1"] + cached["b1"] + int4_cached["b1"]
                        + train_launches[0] + pixel_train[0][0], one_pass, main_rec)
     # the cached decode's step shapes: B1's time there, and its launches on
     # the bf16 8B's cached requests (the int4 8B's: `int4_cached`)
@@ -1747,8 +1781,8 @@ def main() -> int:
     int4_main = next(r for r in int4_records if r["tag"].startswith("t2i CFG"))
     main_shapes = int4_records[:8]
     kernels.append(dict(
-        kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches, int4_records,
-                      int4_main, replaces="int4_matmul.py"),
+        kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches + ckpt["b6"],
+                      int4_records, int4_main, replaces="int4_matmul.py"),
         main_path_shapes=[{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "share_of_bound",
                                              "plain_ms", "library_ms")} for r in main_shapes],
         cached_step_shapes=[dict({k: r[k] for k in ("tag", "shape", "ms", "bound_ms",
@@ -1869,7 +1903,7 @@ def compare_int4_t2i_forward(qmodel) -> None:
 
 
 def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=True,
-                    compare_t2i=False, cached=None):
+                    compare_t2i=False, cached=None, want_text=None):
     """Quantize the 8B on the card (`entry.quantize`, timed, its bytes logged),
     answer TEXT_PROMPTS (and T2I_PROMPTS) with the counters from 0 and check
     the answers and the launches: the attention kernels as on the bf16
@@ -1877,7 +1911,8 @@ def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=
     for the others. With `cached` ((vq, vq_cfg, image)) also the text
     request and an MMU request through the block-KV cache
     (`serve_quantized_cached`). Frees the quantized model; returns B6's
-    launches, and those of the cached requests (None without `cached`)."""
+    launches, and those of the cached requests (None without `cached`).
+    With `want_text`, the text answers must equal it bit for bit."""
     import torch
 
     from mmada_tpu_torch.core.vocab import MMADA_8B
@@ -1905,6 +1940,11 @@ def serve_quantized(model, quantize, scheme, serving, reset_counts, counts, t2i=
     log(scheme, f"text: {len(answers)} requests, {TEXT_SETTINGS}: {text_s:.2f}s "
         f"({serving['bf16_text_s']:.2f}s in bf16); first answer ids "
         f"{answers[0][:12].tolist()}; launches {text_launched}")
+    if want_text is not None:
+        same = _same(answers, want_text)
+        log(scheme, f"text answers equal those of the loaded checkpoint's CLI run: {same}")
+        if not same:
+            raise AssertionError(f"{scheme}: entry.quantize's answers differ from the loader's")
     per_forward = 7 * n + 1 if scheme == "int4" else 0
     text_forwards = TEXT_SETTINGS["steps"] * serving["n_batches"]
     expect_launches(f"{scheme} text", text_launched, {
@@ -2196,6 +2236,245 @@ def timed_request(fn, reset_counts, counts):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
     return out, seconds, counts(), shapes, torch.cuda.max_memory_allocated() / 2**30
+
+
+def rss_bytes() -> int:
+    """The process's resident set now (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+@contextlib.contextmanager
+def rss_growth():
+    """The host RSS's growth over the block, by two measures: VmRSS sampled
+    every 2 ms on a thread (peak minus the value before), and the growth of
+    the process's peak (`ru_maxrss`, which moves only past every earlier
+    peak). Yields a dict that holds both, and the larger, after the block."""
+    import resource
+    import threading
+
+    out = {"before": rss_bytes()}
+    peak = [out["before"]]
+    maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], rss_bytes())
+            stop.wait(0.002)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["sampled"] = max(peak[0], rss_bytes()) - out["before"]
+        out["maxrss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 - maxrss
+        out["growth"] = max(out["sampled"], out["maxrss"])
+
+
+def same_tree(a, b) -> bool:
+    """Two parameter trees with the same structure and every leaf equal
+    (`torch.equal`: shape, and values bit for bit, in one dtype)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            same_tree(a[k], b[k]) for k in a)
+    return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+
+
+def checkpoint_load(root, model, vq, vq_cfg, image, reset_counts, counts):
+    """Write the served 8B (bf16, reference key layout, shards of at most 5
+    GB with an index, `config.json` in LLaDA's field names) and MAGVIT-v2
+    (one fused `encoder.*` / `decoder.*` file) under `root`; load both back
+    through `serve.loader.load_all` from dotted overrides alone, timed and
+    with the host's RSS watched; hold every leaf equal to the in-memory
+    one's, the configs equal and the tokenizer the ByteTokenizer (`root` has
+    no tokenizer files). Then, on the in-memory model, the references of the
+    command lines' runs with the loader's special ids (ByteTokenizer's BOS
+    and EOS, as JAX's `build_prompting` picks them; the exact phases used
+    the vocab's): the t2i codes and pixels, and the MMU answers exact and
+    with the fast_stack preset. Returns (the loaded `Loaded`, references)."""
+    import torch
+
+    from mmada_tpu_torch.checkpoints.hf_import import export_pretrained
+    from mmada_tpu_torch.checkpoints.magvit_import import magvit2_state_dict
+    from mmada_tpu_torch.checkpoints.safetensors_io import save_file
+    from mmada_tpu_torch.core.config import load_config
+    from mmada_tpu_torch.entry import decode_images, serve_mmu, serve_t2i
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer
+    from mmada_tpu_torch.serve.loader import build_text_tokenizer, load_all
+
+    n = model.cfg.n_layers
+    free = shutil.disk_usage(root).free
+    log("checkpoint", f"writing under {root}: {free / 1e9:.1f} GB free on its disk")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    shards = export_pretrained(root, model.params, model.cfg, model.vocab,
+                               max_shard_bytes=CKPT_SHARD_BYTES)
+    vq_dir = os.path.join(root, "magvit2")
+    vq_bytes = save_file(magvit2_state_dict(vq), os.path.join(vq_dir, "model.safetensors"),
+                         metadata={"format": "pt"})
+    write_s = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(p) for p in shards)
+    largest = max(t.numel() * t.element_size() for t in (model.params["wte"],
+                                                          model.params["ff_out"]))
+    log("checkpoint", f"wrote the 8B ({len(shards)} bf16 shards, {nbytes / 1e9:.3f} GB) and "
+        f"MAGVIT-v2 (fp32, {vq_bytes / 1e9:.3f} GB) in {write_s:.2f}s "
+        f"({(nbytes + vq_bytes) / write_s / 1e9:.2f} GB/s)")
+
+    cfg = load_config(overrides=[f"model.mmada.pretrained_model_path={root}",
+                                 f"model.vq_model.vq_model_path={vq_dir}",
+                                 "training.mixed_precision=bf16"])
+    # the tokenizer builder's first call imports `transformers` where it is
+    # installed (seconds): timed apart, so that load_all's time is the weights'
+    t = time.perf_counter()
+    tokenizer = build_text_tokenizer(cfg)
+    log("checkpoint", f"the tokenizer builder alone, first call: {time.perf_counter() - t:.2f}s "
+        f"({type(tokenizer).__name__}: no tokenizer files in the checkpoint)")
+    with rss_growth() as rss:
+        t = time.perf_counter()
+        loaded = load_all(cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    log("checkpoint", f"load_all in {load_s:.2f}s ({(nbytes + vq_bytes) / load_s / 1e9:.2f} "
+        f"GB/s); host RSS {rss['before'] / 1e9:.3f} GB before, growth {rss['growth'] / 1e9:.3f} "
+        f"GB (sampled {rss['sampled'] / 1e9:.3f}, ru_maxrss {rss['maxrss'] / 1e9:.3f}; limit "
+        f"{CKPT_RSS_GROWTH / 1e9:.0f}, the largest tensor {largest / 1e9:.3f} GB)")
+    if rss["growth"] >= CKPT_RSS_GROWTH:
+        raise AssertionError(f"loading grew the host RSS by {rss['growth']} bytes")
+    same = dict(config=loaded.model.cfg == model.cfg and loaded.vq_cfg == vq_cfg,
+                llada=same_tree(loaded.model.params, model.params),
+                magvit=same_tree(loaded.vq, vq),
+                policy=loaded.model.policy == model.policy,
+                byte_tokenizer=type(loaded.tokenizer) is ByteTokenizer)
+    log("checkpoint", f"loaded equal to the in-memory model: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the loaded checkpoint differs from the in-memory one: {same}")
+
+    sp = loaded.prompting.sp
+    log("checkpoint", f"the loader's special ids: bos {sp.bos}, eos {sp.eos} (ByteTokenizer's; "
+        f"the exact phases used the vocab's {model.vocab.bos_token_id}, "
+        f"{model.vocab.eos_token_id})")
+    refs = {}
+    ref_kw = dict(tokenizer=ByteTokenizer(), special_ids=sp)
+    for tag, fn, square, rect_steps in (
+            ("t2i", lambda: serve_t2i(model, T2I_PROMPTS, **ref_kw, **T2I_SETTINGS),
+             n * T2I_SETTINGS["timesteps"], None),
+            ("mmu", lambda: serve_mmu(model, vq, vq_cfg, image, [MMU_QUESTION], **ref_kw,
+                                      **MMU_SETTINGS)[0], n * MMU_SETTINGS["steps"], None),
+            ("mmu fast_stack", lambda: serve_mmu(model, vq, vq_cfg, image, [MMU_QUESTION],
+                                                 **ref_kw, **MMU_SETTINGS,
+                                                 **MMU_FAST_STACK)[0], n,
+             MMU_SETTINGS["steps"])):
+        refs[tag], seconds, launched, shapes, _ = timed_request(fn, reset_counts, counts)
+        sq, rc = expect_b1_shapes(f"checkpoint reference {tag}", launched, shapes["b1"], square,
+                                  0 if rect_steps is None else n, rect_steps)
+        expect_launches(f"checkpoint reference {tag}", launched, {"one-pass": (sq + rc, 0, 0)})
+        refs["b1"] = refs.get("b1", 0) + sq + rc
+        log("checkpoint", f"reference {tag} on the in-memory 8B: {seconds:.2f}s; B1 {sq} square "
+            f"+ {rc} rectangular")
+    check_codes(refs["t2i"], model.vocab)
+    refs["pixels"] = decode_images(vq, vq_cfg, refs["t2i"])
+    return loaded, refs
+
+
+def checkpoint_answers(root, loaded, refs, image, text_answers, reset_counts, counts) -> dict:
+    """The three command lines' `run` on the loaded 8B and MAGVIT-v2, each
+    config built from dotted overrides at the smoke's settings: the text
+    requests (ids equal the exact text phase's), the t2i requests (codes and
+    pixels equal the references), the MMU request exact and with
+    `serving.mmu.fast_stack=true` (answers equal the references), and the
+    text requests with `model.mmada.quantize=int4`, loaded from `root` again
+    and quantized by the loader (B6's calls by recorded shape equal phase
+    7c's schedule). B1's launches equal the schedule's on every run.
+    Returns B1's and B6's launches and the int4 answers."""
+    import torch
+
+    import generate_torch
+    import inference_mmu_torch
+    import inference_t2i_torch
+    from mmada_tpu_torch.core.config import load_config
+
+    model = loaded.model
+    n, d, f, v = model.cfg.n_layers, model.cfg.d_model, model.cfg.hidden_size, \
+        model.cfg.effective_vocab_size
+    base = [f"model.mmada.pretrained_model_path={root}",
+            f"model.vq_model.vq_model_path={os.path.join(root, 'magvit2')}",
+            "training.mixed_precision=bf16"]
+    text = base + [f"{k}={v}" for k, v in TEXT_SETTINGS.items()]
+    t2i = base + ["batch_size=2", f"generation_timesteps={T2I_SETTINGS['timesteps']}",
+                  f"guidance_scale={T2I_SETTINGS['guidance_scale']}",
+                  f"generation_temperature={T2I_SETTINGS['temperature']}",
+                  f"seed={T2I_SETTINGS['seed']}",
+                  f"dataset.preprocessing.max_seq_length={T2I_SETTINGS['max_text_len']}",
+                  f"model.mmada.num_vq_tokens={T2I_SETTINGS['num_vq_tokens']}"]
+    mmu = base + [f"max_new_tokens={MMU_SETTINGS['max_new_tokens']}",
+                  f"steps={MMU_SETTINGS['steps']}", f"question={MMU_QUESTION}",
+                  f"dataset.preprocessing.resolution={VQ_RESOLUTION}"]
+    out = dict(b1=refs["b1"], b6=0)
+    runs = (
+        ("generate_torch", text, lambda cfg: generate_torch.run(cfg, loaded, TEXT_PROMPTS),
+         text_answers, n * TEXT_SETTINGS["steps"], 0, None),
+        ("inference_t2i_torch", t2i,
+         lambda cfg: inference_t2i_torch.run(cfg, loaded, T2I_PROMPTS),
+         (refs["t2i"], refs["pixels"]), n * T2I_SETTINGS["timesteps"], 0, None),
+        ("inference_mmu_torch", mmu, lambda cfg: inference_mmu_torch.run(cfg, loaded, image),
+         [refs["mmu"]], n * MMU_SETTINGS["steps"], 0, None),
+        ("inference_mmu_torch fast_stack", mmu + ["serving.mmu.fast_stack=true"],
+         lambda cfg: inference_mmu_torch.run(cfg, loaded, image), [refs["mmu fast_stack"]],
+         n, n, MMU_SETTINGS["steps"]),
+    )
+    for tag, argv, fn, want, square, rect, rect_steps in runs:
+        cfg = load_config(overrides=argv)
+        got, seconds, launched, shapes, _ = timed_request(lambda: fn(cfg), reset_counts, counts)
+        sq, rc = expect_b1_shapes(f"checkpoint {tag}", launched, shapes["b1"], square, rect,
+                                  rect_steps)
+        expect_launches(f"checkpoint {tag}", launched, {"one-pass": (sq + rc, 0, 0)})
+        out["b1"] += sq + rc
+        same = _same(list(got), list(want))
+        log("checkpoint", f"{tag}.run: {seconds:.2f}s; B1 {sq} square + {rc} rectangular; "
+            f"equal to the in-memory model's: {same}")
+        if not same:
+            raise AssertionError(f"checkpoint {tag}: the command line's answer differs")
+
+    # int4 through the loader: the checkpoint read again and quantized
+    cfg = load_config(overrides=text + ["model.mmada.quantize=int4"])
+    t = time.perf_counter()
+    qloaded = generate_torch.load(cfg)
+    torch.cuda.synchronize()
+    log("checkpoint", f"generate_torch.load with model.mmada.quantize=int4: "
+        f"{time.perf_counter() - t:.2f}s")
+    got, seconds, launched, shapes, _ = timed_request(
+        lambda: generate_torch.run(cfg, qloaded, TEXT_PROMPTS), reset_counts, counts)
+    steps = TEXT_SETTINGS["steps"]
+    rows = len(TEXT_PROMPTS) * TEXT_FRAME
+    head_rows = len(TEXT_PROMPTS) * TEXT_SETTINGS["block_length"]
+    expect_launches("checkpoint int4 generate_torch", launched, {
+        "one-pass": (n * steps, 0, 0), "int4": ((7 * n + 1) * steps,)})
+    by_shape = collections.Counter(shapes["b6"])
+    want = {(rows, d, d): 4 * n * steps, (rows, d, f): 2 * n * steps,
+            (rows, f, d): n * steps, (head_rows, d, v): steps}
+    log("checkpoint", f"int4 generate_torch.run: {seconds:.2f}s; B6 by (M, K, N) as recorded "
+        f"{dict(by_shape)}")
+    if dict(by_shape) != want:
+        raise AssertionError(f"checkpoint int4: B6 by shape {dict(by_shape)}, expected {want}")
+    for ans in got:
+        check_answer_ids(ans, TEXT_SETTINGS["gen_length"], model.vocab)
+    out["b1"] += launched[0][0]
+    out["b6"] = launched[4][0]
+    out["int4_text"] = got
+    del qloaded
+    free_memory()
+    return out
 
 
 def cached_request(phase, fn, reset_counts, counts, square, rect, exact_s=None,

@@ -18,17 +18,18 @@
   `mmada_tpu/checkpoints/hf_import.params_from_torch_state_dict`: it reads a
   flat reference state dict (`model.transformer.blocks.{i}.q_proj.weight`,
   ...; the goldens' `w::` keys), transposes torch's `(out, in)` linear
-  weights to `(in, out)` and stacks the layers.
+  weights to `(in, out)` and stacks the layers, through the same streaming
+  filler as checkpoint loading (`hf_import.fill_params`).
 """
 
 from __future__ import annotations
 
-import re
-from typing import Mapping, Optional
+from typing import Mapping
 
 import numpy as np
 import torch
 
+from mmada_tpu_torch.checkpoints.hf_import import fill_params
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.models.llada import LLaDAConfig, Params, named_leaves
 from mmada_tpu_torch.ops import quantization as Q
@@ -113,25 +114,6 @@ def magvit2_from_jax(np_tree, cfg, device: DeviceLike = None,
     return params
 
 
-_BLOCK_RE = re.compile(
-    r"(?:model\.)?transformer\.(?:blocks\.(\d+)|block_groups\.(\d+)\.(\d+))\.(.+)"
-)
-_LINEAR_2D = {
-    "q_proj", "k_proj", "v_proj", "att_proj", "attn_out",
-    "ff_proj", "up_proj", "ff_out",
-}
-_NORM_1D = {"attn_norm", "ff_norm", "q_norm", "k_norm"}
-
-
-def _canon_layer(key: str, block_group_size: int) -> Optional[tuple[int, str]]:
-    m = _BLOCK_RE.match(key)
-    if not m:
-        return None
-    if m.group(1) is not None:
-        return int(m.group(1)), m.group(4)
-    return int(m.group(2)) * block_group_size + int(m.group(3)), m.group(4)
-
-
 def params_from_torch_state_dict(
     state: Mapping[str, np.ndarray],
     cfg: LLaDAConfig,
@@ -139,50 +121,7 @@ def params_from_torch_state_dict(
     dtype: torch.dtype = torch.float32,
     block_group_size: int = 1,
 ) -> Params:
-    """Stacked params from a flat reference state dict (numpy values)."""
-    device = resolve_device(device)
-    n = cfg.n_layers
-    per_layer: dict[str, list[Optional[np.ndarray]]] = {}
-    top: dict[str, np.ndarray] = {}
-    for key, value in state.items():
-        value = np.asarray(value)
-        parsed = _canon_layer(key, block_group_size)
-        if parsed is not None:
-            layer, rest = parsed
-            name, _, leaf = rest.partition(".")
-            if leaf == "weight" and name in _LINEAR_2D:
-                arr = value.T  # torch (out, in) -> (in, out)
-            elif leaf == "weight" and name in _NORM_1D:
-                arr = value
-            elif leaf == "bias":
-                name = f"{name}_bias"
-                arr = value
-            else:
-                continue
-            per_layer.setdefault(name, [None] * n)[layer] = arr
-            continue
-        skey = key[len("model."):] if key.startswith("model.") else key
-        if skey == "transformer.wte.weight":
-            top["wte"] = value
-        elif skey == "transformer.ln_f.weight":
-            top["ln_f"] = value
-        elif skey == "transformer.ff_out.weight":
-            top["ff_out"] = value.T
-
-    blocks = {}
-    for name, slices in per_layer.items():
-        missing = [i for i, s in enumerate(slices) if s is None]
-        if missing:
-            raise ValueError(f"layers {missing} missing tensor {name!r}")
-        blocks[name] = _tensor(np.stack(slices), device, dtype)
-
-    params: Params = {
-        "wte": _tensor(top["wte"], device, dtype),
-        "ln_f": _tensor(top["ln_f"], device, dtype),
-        "blocks": blocks,
-    }
-    if not cfg.weight_tying:
-        if "ff_out" not in top:
-            raise ValueError("weight_tying=False but no transformer.ff_out.weight")
-        params["ff_out"] = _tensor(top["ff_out"], device, dtype)
-    return params
+    """Stacked params from a flat reference state dict (numpy values):
+    `hf_import.fill_params` over the dict's items."""
+    return fill_params(state.items(), cfg, device=device, dtype=dtype,
+                       block_group_size=block_group_size)

@@ -4,8 +4,9 @@ Counterpart of `mmada_tpu/checkpoints/magvit_import.py`. The state dict
 follows the reference module tree (models/modeling_magvitv2.py): `encoder.*`,
 `decoder.*` and `quantize.*` (the LFQ holds only constant buffers: nothing
 to load). The port's convs take torch's OIHW kernels, so every weight is
-kept as it is: no transpose. Reading the safetensors files of a checkpoint
-(`load_magvit2`) comes with the rest of checkpoint loading (ROADMAP A.3).
+kept as it is: no transpose. `load_magvit2` reads a checkpoint's
+safetensors files (`safetensors_io`, BF16 included); `magvit2_state_dict`
+is the inverse, the fused state dict of the port's params.
 """
 
 from __future__ import annotations
@@ -15,13 +16,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from mmada_tpu_torch.checkpoints.safetensors_io import iter_safetensors
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.models.magvit2 import VQGANConfig
 
 Params = dict[str, Any]
 
 
-def _component_from_state(state: Mapping[str, np.ndarray], num_res_blocks, device, dtype,
+def _component_from_state(state: Mapping[str, object], num_res_blocks, device, dtype,
                           is_encoder: bool) -> Params:
     """One of the encoder and decoder: `{down|up}.{level}.{block|attn}.{j}...`
     into the level lists, every other key into nested dicts; `.weight` is
@@ -33,7 +35,8 @@ def _component_from_state(state: Mapping[str, np.ndarray], num_res_blocks, devic
         *parts, leaf = key.split(".")
         if leaf not in ("weight", "bias"):
             continue
-        arr = torch.tensor(np.asarray(value, np.float32), dtype=dtype, device=device)
+        arr = (value.to(device=device, dtype=dtype) if isinstance(value, torch.Tensor)
+               else torch.tensor(np.asarray(value, np.float32), dtype=dtype, device=device))
         node = out
         if parts[0] == levels_key:
             level, kind = levels[int(parts[1])], parts[2]
@@ -74,3 +77,31 @@ def magvit2_params_from_fused_state(state: Mapping[str, np.ndarray], cfg: VQGANC
     enc = {k[len("encoder."):]: v for k, v in state.items() if k.startswith("encoder.")}
     dec = {k[len("decoder."):]: v for k, v in state.items() if k.startswith("decoder.")}
     return magvit2_params_from_torch(enc, dec, cfg, dtype, device)
+
+
+def load_magvit2(model_dir: str, cfg: VQGANConfig, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.bfloat16) -> Params:
+    """The MAGVIT-v2 params of a local checkpoint (a fused `encoder.*` /
+    `decoder.*` state dict in safetensors files) on `device` in `dtype`."""
+    return magvit2_params_from_fused_state(dict(iter_safetensors(model_dir)), cfg, dtype,
+                                           device)
+
+
+def magvit2_state_dict(params: Params) -> dict[str, torch.Tensor]:
+    """The fused state dict (`encoder.*` / `decoder.*`, the reference
+    wrapper's keys) of the port's params: the inverse of
+    `magvit2_params_from_fused_state`, its tensors the params' own."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, torch.Tensor):
+            leaf = {"w": "weight", "b": "bias"}[prefix.rsplit(".", 1)[-1]]
+            out[f"{prefix.rsplit('.', 1)[0]}.{leaf}"] = node
+            return
+        items = node.items() if isinstance(node, Mapping) else enumerate(node)
+        for k, v in items:
+            walk(v, f"{prefix}.{k}")
+
+    for part in ("encoder", "decoder"):
+        walk(params[part], part)
+    return out

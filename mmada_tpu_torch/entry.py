@@ -32,7 +32,9 @@ The samplers are the exact ones unless a request asks for the fast ones:
 `serve_text`, `serve_mmu` and `serve_t2i` take `block_kv_cache` (False,
 True or "int8", also as a string, through the strict `parse_kv_cache`) and
 `cache_refresh_every`; `serve_text` and `serve_mmu` also
-`parallel_threshold` and `parallel_warmup_steps` (tau-parallel).
+`parallel_threshold` and `parallel_warmup_steps` (tau-parallel), `serve_t2i`
+`cfg_interval`. `segment_steps` / `segment_timesteps` above 0 raise (the
+segmented runs wait for the serving engine, ROADMAP A.9).
 
 All run on the card unless called with `device="cpu"`, and raise when the
 model's weights are elsewhere.
@@ -96,7 +98,7 @@ def serve_text(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
                temperature: float = 0.0, cfg_scale: float = 0.0,
                remasking: str = "low_confidence", seed: int = 0, block_kv_cache=False,
                parallel_threshold: float = 0.0, parallel_warmup_steps: int = 0,
-               cache_refresh_every: int = 0) -> list[torch.Tensor]:
+               cache_refresh_every: int = 0, segment_steps: int = 0) -> list[torch.Tensor]:
     """Each request's `gen_length` generated ids (fused vocab, on the CPU).
     Requests with frames of the same length share one batch, as the JAX
     serving engine groups them; a batch's rows never see each other."""
@@ -117,7 +119,7 @@ def serve_text(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
         out = model.generate(
             prompt, gen_length=gen_length, steps=steps, block_length=block_length,
             temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
-            generator=generator, **fast,
+            generator=generator, segment_steps=segment_steps, **fast,
         )
         for row, i in enumerate(rows):
             answers[i] = out[row, length:].cpu()
@@ -130,7 +132,8 @@ def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
               max_text_len: int = 128, timesteps: int = 15,
               guidance_scale: float = 3.5, temperature: float = 1.0,
               greedy: bool = False, seed: int = 0, block_kv_cache=False,
-              cache_refresh_every: int = 0) -> torch.Tensor:
+              cache_refresh_every: int = 0, segment_timesteps: int = 0,
+              cfg_interval=(0.0, 1.0)) -> torch.Tensor:
     """`(len(prompts), num_vq_tokens)` image codes in [0, codebook), on the
     CPU, from one batch of t2i frames (all frames have the same length).
     `special_ids` defaults to the vocab's reserved task tokens."""
@@ -156,6 +159,7 @@ def serve_t2i(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
         guidance_scale=guidance_scale, num_vq_tokens=num_vq_tokens,
         generator=generator, greedy=greedy,
         block_kv_cache=parse_kv_cache(block_kv_cache), cache_refresh_every=cache_refresh_every,
+        segment_timesteps=segment_timesteps, cfg_interval=cfg_interval,
     )
     return codes.cpu()
 
@@ -176,7 +180,7 @@ def serve_mmu(model: MMadaModel, vq, vq_cfg: magvit2.VQGANConfig, images, questi
               block_length: int = 128, temperature: float = 0.0, cfg_scale: float = 0.0,
               fast: bool = False, seed: int = 0, block_kv_cache=False,
               parallel_threshold: float = 0.0, parallel_warmup_steps: int = 0,
-              cache_refresh_every: int = 0) -> list[torch.Tensor]:
+              cache_refresh_every: int = 0, segment_steps: int = 0) -> list[torch.Tensor]:
     """Each request's `max_new_tokens` generated ids (fused vocab, on the
     CPU) for an image and a question. `images` is `(B, H, W, 3)` pixels in
     [-1, 1] (an array, or a tensor on any device). Each frame is
@@ -209,7 +213,7 @@ def serve_mmu(model: MMadaModel, vq, vq_cfg: magvit2.VQGANConfig, images, questi
         if fast:
             out = model.mmu_generate_fast(prompt, eot_token=sp.eos, **kw)
         else:
-            out = model.mmu_generate(prompt, **kw)
+            out = model.mmu_generate(prompt, segment_steps=segment_steps, **kw)
         for row, i in enumerate(rows):
             answers[i] = out[row, length:].cpu()
     return answers

@@ -4,6 +4,8 @@ Counterpart of `MMadaModel` in `mmada_tpu/models/mmada.py` (:164): the LLaDA
 backbone plus the fused vocab layout plus the task entry points this slice
 serves:
 
+  * `init` / `from_pretrained` - random weights from a seed, or a local
+                     checkpoint's (`checkpoints/hf_import.py`)
   * `forward`      - raw logits over the fused vocab (or a window of it),
                      without autograd (serving)
   * `forward_hidden` / `apply_head` - the differentiable training path: the
@@ -42,8 +44,9 @@ from typing import Any, Optional
 
 import torch
 
+from mmada_tpu_torch.checkpoints.hf_import import config_from_hf_json, load_pretrained
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
-from mmada_tpu_torch.core.precision import FP32, Policy
+from mmada_tpu_torch.core.precision import BF16, FP32, Policy
 from mmada_tpu_torch.core.vocab import VocabLayout
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.sampling import t2i as t2i_sampling
@@ -76,6 +79,20 @@ class MMadaModel:
         device = resolve_device(device)
         _check_policy(policy, device)  # before 16 GB of weights are made
         params = llada.init_params(cfg, device=device, dtype=dtype, generator=generator)
+        return cls(cfg=cfg, params=params, vocab=vocab, policy=policy, remat=remat)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, vocab: VocabLayout, device: DeviceLike = None,
+                        dtype: torch.dtype = torch.bfloat16, policy: Policy = BF16,
+                        remat=False) -> "MMadaModel":
+        """The model of a local checkpoint directory (`config.json` and
+        safetensors or `pytorch_model.bin`), its weights streamed onto `device`
+        (the card unless told otherwise) in `dtype`. On the card `policy` must
+        compute in bf16; it is checked before any weight is read."""
+        device = resolve_device(device)
+        _check_policy(policy, device)
+        cfg = config_from_hf_json(model_dir)
+        params = load_pretrained(model_dir, cfg, device=device, dtype=dtype)
         return cls(cfg=cfg, params=params, vocab=vocab, policy=policy, remat=remat)
 
     @property
