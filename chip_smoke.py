@@ -49,7 +49,22 @@ quantizes the same 8B on the card (`entry.quantize`) to int4 and answers
 the text and t2i requests through B6 (and the text and MMU requests cached,
 B6's calls recorded by shape), then to SmoothQuant W8A8 (text and t2i),
 int8 and W8A8 (a text batch each), freeing each quantized model before the
-next, takes stage-1 train steps of the bf16 8B through `entry.train`, one
+next, serves through the port's `ServingEngine` (phase 7d: four text
+requests released together from a held dispatcher as one batch, bit for bit
+`model.generate` on the batch, against the four one at a time and one
+against `entry.serve_text`; two stochastic requests with their own seeds in
+one batch, against the direct call and their solo runs; the MMU request as
+chunks of 8 steps, alone against monolithic (the cost of a chunk boundary),
+then overtaken by a short text request and joined mid-flight by a second
+MMU request; the t2i requests as windows of 4 steps, one with a guidance
+interval, each its monolithic run; a cancelled queued request and a drain;
+a text batch on the int4 8B, B6 by recorded shape; the achieved rate of
+the exact MMU forward, which the chunk guard divides by) and through
+`app_torch`'s HTTP server on 127.0.0.1 over the checkpoint (phase 7e:
+/health, /stats, /generate against the model on the app's frame,
+/generate_stepwise streamed, /t2i and /mmu against the t2i and MMU command
+lines' `run`, four concurrent /generate calls as one batch by /stats's
+counters), then removes the checkpoint, takes stage-1 train steps of the bf16 8B through `entry.train`, one
 stage-1 step whose flows carry 256-px images that MAGVIT-v2 encodes on the
 card (its frames equal those of the same flows carrying the codes), then
 train steps on 8,192-token frames, then turns attention masks on
@@ -71,6 +86,7 @@ It writes nothing into the repository except the kernels' build directory
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -247,6 +263,26 @@ INT4_MODEL_REL_L2 = 2e-2
 # plain version normwise, which a wrong nibble order or sign would miss by
 # orders of magnitude
 INT4_LIBRARY_REL_L2 = 1e-2
+
+# the serving engine (phase 7d) on the full-width 8B: four text requests at
+# TEXT_SETTINGS released together from a held dispatcher (one batch of 4);
+# two stochastic requests (T 1, seeds 0 and 1) in one batch, each its solo
+# run; the MMU request of phase 7a as chunks of ENGINE_SEGMENT steps (8 of its
+# 64), overtaken by a short text request and joined mid-flight by a second
+# MMU request of its key; the t2i requests as windows of ENGINE_WINDOW steps,
+# and one with a guidance interval; a cancelled queued request and a drain;
+# a text batch on the int4 8B (B6 by recorded shape)
+ENGINE_PROMPTS = TEXT_PROMPTS + ["Tell me a fact about the moon."]
+ENGINE_SEGMENT = 8
+ENGINE_TIMING_ORDER = (0, ENGINE_SEGMENT, ENGINE_SEGMENT, 0, 0, ENGINE_SEGMENT)
+ENGINE_TIMING_PAIRS = len(ENGINE_TIMING_ORDER) // 2
+ENGINE_WINDOW = 4
+ENGINE_INTERVAL = (0.0, 0.2)
+ENGINE_SHORT = dict(gen_length=32, steps=8, block_length=32)
+ENGINE_JOIN_QUESTION = "What objects does this photo show you?"   # MMU_QUESTION's length
+# the HTTP phase (7e): app_torch's server on 127.0.0.1 over the checkpoint of
+# phase 7b''; its free port is asked of the OS
+HTTP_T2I_PROMPT = T2I_PROMPTS[0]
 
 
 def log(phase: str, msg: str) -> None:
@@ -1616,17 +1652,14 @@ def main() -> int:
     # 7b''. the checkpoint: the 8B and MAGVIT-v2 written to safetensors and
     # loaded back through the serve loader (leaves equal, host RSS bounded);
     # the in-memory copies are then freed and every later phase runs on the
-    # loaded ones; the three command lines answer through their `run`
+    # loaded ones; the three command lines answer through their `run`. The
+    # directory stays until the HTTP phase (7e) has served it
     ckpt_dir = tempfile.mkdtemp(prefix="mmada_ckpt_")
-    try:
-        loaded, refs = checkpoint_load(ckpt_dir, model, vq, vq_cfg, image, reset_counts, counts)
-        model, vq = loaded.model, loaded.vq
-        free_memory()
-        ckpt = checkpoint_answers(ckpt_dir, loaded, refs, image, answers, reset_counts, counts)
-        del loaded
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    log("checkpoint", f"removed {ckpt_dir}")
+    atexit.register(shutil.rmtree, ckpt_dir, True)
+    loaded, refs = checkpoint_load(ckpt_dir, model, vq, vq_cfg, image, reset_counts, counts)
+    model, vq = loaded.model, loaded.vq
+    free_memory()
+    ckpt = checkpoint_answers(ckpt_dir, loaded, refs, image, answers, reset_counts, counts)
 
     # 7b'. the block-KV cached decode (the fast samplers) on the same 8B:
     # text, MMU, t2i and the 8,192-token request, each beside the exact
@@ -1646,6 +1679,18 @@ def main() -> int:
     serve_quantized(model, quantize, "w8a8_smooth", serving, reset_counts, counts)
     serve_quantized(model, quantize, "int8", serving, reset_counts, counts, t2i=False)
     serve_quantized(model, quantize, "w8a8", serving, reset_counts, counts, t2i=False)
+
+    # 7d. the serving engine on the 8B: batches of held requests, per-row
+    # seeds, a chunked MMU stream overtaken and joined, t2i windows, a
+    # cancel and a drain, an int4 batch
+    engine = engine_phase(model, vq, vq_cfg, image, quantize, reset_counts, counts)
+
+    # 7e. the HTTP front end over the checkpoint of 7b''; then the directory
+    # goes, before the weights are trained in place
+    http = http_phase(ckpt_dir, loaded, image, reset_counts, counts)
+    del loaded
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("checkpoint", f"removed {ckpt_dir}")
 
     # 8. the training path: stage-1 train steps of the same 8B (its weights
     # are trained in place), full remat, counters from 0
@@ -1758,9 +1803,14 @@ def main() -> int:
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
+    b1_parts = dict(serve=launches, mmu=mmu_launches, checkpoint=ckpt["b1"],
+                    cached=cached["b1"], int4_cached=int4_cached["b1"], engine=engine["b1"],
+                    http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0])
+    b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"])
+    log("launches", f"B1 {sum(b1_parts.values())} by phase {b1_parts}; "
+        f"B6 {sum(b6_parts.values())} by phase {b6_parts}")
     b1 = kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
-                       launches + mmu_launches + ckpt["b1"] + cached["b1"] + int4_cached["b1"]
-                       + train_launches[0] + pixel_train[0][0], one_pass, main_rec)
+                       sum(b1_parts.values()), one_pass, main_rec)
     # the cached decode's step shapes: B1's time there, and its launches on
     # the bf16 8B's cached requests (the int4 8B's: `int4_cached`)
     b1["cached_step_shapes"] = [
@@ -1781,7 +1831,7 @@ def main() -> int:
     int4_main = next(r for r in int4_records if r["tag"].startswith("t2i CFG"))
     main_shapes = int4_records[:8]
     kernels.append(dict(
-        kernel_record("int4_matmul", "int4_matmul.cu", "149", int4_launches + ckpt["b6"],
+        kernel_record("int4_matmul", "int4_matmul.cu", "149", sum(b6_parts.values()),
                       int4_records, int4_main, replaces="int4_matmul.py"),
         main_path_shapes=[{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "share_of_bound",
                                              "plain_ms", "library_ms")} for r in main_shapes],
@@ -2840,6 +2890,520 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
     log(phase, f"steady step {step_ms:.1f} ms: attention kernels "
         f"{sum(attn_ms.values()):.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in attn_ms.items())}; "
         f"{sum(attn_ms.values()) / step_ms:.1%})")
+
+
+def engine_phase(model, vq, vq_cfg, image, quantize, reset_counts, counts) -> dict:
+    """The serving engine on the 8B (phase 7d); every answer held bit for
+    bit against the model's own call on the same batch (or the solo run of a
+    request's seed). B1's and B6's launches are read around every call, the
+    references' included, and each held against the schedule. Returns
+    their totals and the numbers PERF.md reports."""
+    import numpy as np
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import serve_text, text_frames
+    from mmada_tpu_torch.models import magvit2
+    from mmada_tpu_torch.serve import engine as E
+    from mmada_tpu_torch.utils.flops import forward_matmul_flops_per_token
+
+    n, d, f, v = (model.cfg.n_layers, model.cfg.d_model, model.cfg.hidden_size,
+                  model.cfg.effective_vocab_size)
+    out = dict(b1=0, b6=0)
+    image_codes = magvit2.get_code(vq, vq_cfg, image)[0]
+    frames = text_frames(model, ENGINE_PROMPTS)
+    if len({len(x) for x in frames}) != 1:
+        raise AssertionError("the engine phase's prompts must have one frame length")
+    settings = E.TextSettings(**TEXT_SETTINGS)
+    prompts = torch.tensor(frames, device="cuda")
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def tally(launched):
+        out["b1"] += launched[0][0]
+        out["b6"] += launched[4][0]
+        return launched
+
+    def counted(phase, fn, b1, b6=0):
+        """`fn()`, with B1's and B6's launches around it read, held against
+        the schedule (`b1`, `b6`) and added to the totals."""
+        reset_counts()
+        result = fn()
+        expect_launches(phase, tally(counts()), {"one-pass": (b1, 0, 0), "int4": (b6,)})
+        return result
+
+    def released(eng, submit):
+        """Submit while the dispatcher is held, release, wait: (results,
+        seconds from the release, counts(), shapes); the launches are added
+        to the totals."""
+        eng.pause()
+        futs = submit()
+        reset_counts()
+        with recording_shapes() as shapes:
+            t = sync()
+            eng.resume()
+            results = [fut.result(600) for fut in futs]
+            seconds = sync() - t
+        return results, seconds, tally(counts()), shapes
+
+    eng = E.ServingEngine(model, max_wait_ms=1.0).start()
+    try:
+        # text: one batch of four against model.generate on the same batch;
+        # released twice (the first call at a new batch height pays cuBLAS's
+        # first use of its GEMMs), the second timed, both equal
+        steps = TEXT_SETTINGS["steps"]
+        warm, warm_s, launched, _ = released(
+            eng, lambda: [eng.submit_text(np.asarray(x), settings) for x in frames])
+        expect_launches("engine text, first release", launched, {"one-pass": (n * steps, 0, 0)})
+        got, batch_s, launched, shapes = released(
+            eng, lambda: [eng.submit_text(np.asarray(x), settings) for x in frames])
+        want = counted("engine text reference",
+                       lambda: model.generate(prompts, **TEXT_SETTINGS).cpu().numpy(), n * steps)
+        if not all(np.array_equal(a, b) for a, b in zip(warm, got)):
+            raise AssertionError("the engine's text batch differs between two releases")
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        by_shape = collections.Counter(shapes["b1"])
+        log("engine", f"text: 4 requests released together, twice: {eng.stats['batches']} "
+            f"batches of {eng.stats['batched_requests'] // 2}, {warm_s:.2f}s then {batch_s:.2f}s, "
+            f"{4 * TEXT_SETTINGS['gen_length'] / batch_s:.1f} tok/s; equal to model.generate on "
+            f"the batch: {same}; B1 by (B, Lq, Lk) {dict(by_shape)}")
+        if not same or eng.stats["batches"] != 2 or eng.stats["batched_requests"] != 8:
+            raise AssertionError(f"engine text batch: equal {same}, stats {eng.stats}")
+        if dict(by_shape) != {(4, TEXT_FRAME, TEXT_FRAME): n * steps}:
+            raise AssertionError(f"engine text batch: B1 by shape {dict(by_shape)}")
+        expect_launches("engine text", launched, {"one-pass": (n * steps, 0, 0)})
+        for a in got:
+            check_answer_ids(torch.as_tensor(a[len(frames[0]):]), TEXT_SETTINGS["gen_length"],
+                             MMADA_8B)
+        # the same four one at a time, and one request against entry.serve_text
+        t = sync()
+        serial = counted("engine text one at a time", lambda: [
+            eng.submit_text(np.asarray(x), settings).result(600) for x in frames], 4 * n * steps)
+        serial_s = sync() - t
+        t = sync()
+        direct = counted("entry.serve_text",
+                         lambda: serve_text(model, ENGINE_PROMPTS[:1], **TEXT_SETTINGS)[0],
+                         n * steps)
+        direct_s = sync() - t
+        serial_same = all(np.array_equal(a, b) for a, b in zip(serial, got))
+        if not np.array_equal(serial[0][len(frames[0]):], direct.numpy()):
+            raise AssertionError("one request through the engine differs from entry.serve_text")
+        out.update(batch_tok_s=4 * TEXT_SETTINGS["gen_length"] / batch_s,
+                   serial_tok_s=4 * TEXT_SETTINGS["gen_length"] / serial_s,
+                   single_s=serial_s / 4, serve_text_s=direct_s)
+        log("engine", f"text one at a time: {serial_s:.2f}s for 4 "
+            f"({out['serial_tok_s']:.1f} tok/s; batched {out['batch_tok_s']:.1f} tok/s, "
+            f"{out['batch_tok_s'] / out['serial_tok_s']:.2f}x); one request through the engine "
+            f"{serial_s / 4:.3f}s against entry.serve_text {direct_s:.3f}s "
+            f"({serial_s / 4 - direct_s:+.3f}s); answers equal the batch's: {serial_same}")
+        if not serial_same:
+            raise AssertionError("a text row's answer depends on what shares its batch")
+
+        # per-row seeds: two stochastic requests share a batch
+        hot = E.TextSettings(**dict(TEXT_SETTINGS, temperature=1.0))
+        got, _, launched, _ = released(
+            eng, lambda: [eng.submit_text(np.asarray(frames[0]), hot, seed=s) for s in (0, 1)])
+        solos = counted("per-row seeds, solo references", lambda: [
+            model.generate(prompts[:1], **dict(TEXT_SETTINGS, temperature=1.0),
+                           generator=torch.Generator("cuda").manual_seed(s))[0].cpu().numpy()
+            for s in (0, 1)], 2 * n * steps)
+        pair = counted("per-row seeds, pair reference", lambda: model.generate(
+            prompts[:1].repeat(2, 1), **dict(TEXT_SETTINGS, temperature=1.0),
+            generator=[torch.Generator("cuda").manual_seed(s) for s in (0, 1)]), n * steps)
+        direct_same = all(np.array_equal(g, w) for g, w in zip(got, pair.cpu().numpy()))
+        seeds_same = [bool(np.array_equal(g, w)) for g, w in zip(got, solos)]
+        log("engine", f"per-row seeds: 2 requests (T 1, seeds 0 and 1) in one batch; equal to "
+            f"the direct call with row generators: {direct_same}; each equal to its solo run: "
+            f"{seeds_same}; the two answers differ: {not np.array_equal(got[0], got[1])}")
+        if launched[0][0] != n * steps or not direct_same or not all(seeds_same):
+            raise AssertionError(f"per-row seeds: B1 {launched[0][0]}, direct {direct_same}, "
+                                 f"solo {seeds_same}")
+
+        # chunked MMU: alone, monolithic and chunked; then overtaken and joined
+        mmu = E.TextSettings(gen_length=MMU_SETTINGS["max_new_tokens"],
+                             steps=MMU_SETTINGS["steps"], block_length=MMU_SETTINGS["block_length"],
+                             segment_steps=ENGINE_SEGMENT)
+        frame = mmu_frame(model, image_codes)[0, :-MMU_SETTINGS["max_new_tokens"]].cpu().numpy()
+        join_frame = mmu_question_frame(model, image_codes, ENGINE_JOIN_QUESTION)
+        if len(join_frame) != len(frame):
+            raise AssertionError("the joining MMU request needs the frame length of the first")
+        # alone, in turns (monolithic, chunked, chunked, monolithic, ...):
+        # the medians' difference over the chunks is a boundary's cost
+        n_chunks = MMU_SETTINGS["steps"] // ENGINE_SEGMENT
+        runs = {0: [], ENGINE_SEGMENT: []}
+        answers = []
+        c0 = eng.stats["chunks"]
+
+        def alone():
+            for seg in ENGINE_TIMING_ORDER:
+                t = sync()
+                answers.append(eng.submit_mmu(frame, dataclasses.replace(
+                    mmu, segment_steps=seg)).result(600))
+                runs[seg].append(sync() - t)
+
+        counted("chunked mmu alone", alone, len(ENGINE_TIMING_ORDER) * n * MMU_SETTINGS["steps"])
+        ref = counted("mmu reference", lambda: model.mmu_generate(
+            torch.as_tensor(frame, device="cuda")[None], **MMU_SETTINGS)[0].cpu().numpy(),
+            n * MMU_SETTINGS["steps"])
+        mono_s, chunked_s = (float(np.median(runs[k])) for k in (0, ENGINE_SEGMENT))
+        out["chunk_s"] = (chunked_s - mono_s) / n_chunks
+        same = all(np.array_equal(a, ref) for a in answers)
+        chunks = eng.stats["chunks"] - c0
+        log("engine", f"mmu alone, {ENGINE_TIMING_PAIRS} of each in turns: monolithic "
+            f"{[round(x, 3) for x in runs[0]]}s, chunked ({n_chunks} chunks of {ENGINE_SEGMENT} "
+            f"steps) {[round(x, 3) for x in runs[ENGINE_SEGMENT]]}s: medians "
+            f"{mono_s:.3f} / {chunked_s:.3f}s, {out['chunk_s'] * 1e3:+.1f} ms a chunk boundary; "
+            f"every answer equal to mmu_generate: {same}")
+        if chunks != n_chunks * ENGINE_TIMING_PAIRS:
+            raise AssertionError(f"chunked mmu: chunks {chunks}")
+        if not same:
+            raise AssertionError("the chunked MMU request differs from the monolithic one")
+        order = []
+        short = E.TextSettings(**dict(ENGINE_SHORT, temperature=0.0))
+        joins0 = eng.stats["stream_joins"]
+        c0 = eng.stats["chunks"]
+        reset_counts()
+        heavy = eng.submit_mmu(frame, mmu)
+        heavy.add_done_callback(lambda _: order.append("heavy"))
+        while eng.stats["chunks"] < c0 + 1:
+            time.sleep(0.001)
+        quick = eng.submit_text(np.asarray(frames[0]), short)
+        quick.add_done_callback(lambda _: order.append("short"))
+        while eng.stats["chunks"] < c0 + 2:
+            time.sleep(0.001)
+        eng.pause()
+        joined = eng.submit_mmu(join_frame, mmu)
+        eng.resume()
+        heavy_ids, joined_ids = heavy.result(600), joined.result(600)
+        quick.result(600)
+        # the stream's chunks run ENGINE_SEGMENT forwards each, whatever
+        # rows they hold; the short request runs apart, unchunked
+        stream_chunks = eng.stats["chunks"] - c0
+        launched = tally(counts())
+        expect_launches("mmu chunked with company", launched, {"one-pass": (
+            n * (ENGINE_SEGMENT * stream_chunks + ENGINE_SHORT["steps"]), 0, 0)})
+        joined_ref = counted("joined mmu reference", lambda: model.mmu_generate(
+            torch.as_tensor(join_frame, device="cuda")[None], **MMU_SETTINGS)[0].cpu().numpy(),
+            n * MMU_SETTINGS["steps"])
+        joins = eng.stats["stream_joins"] - joins0
+        heavy_same = bool(np.array_equal(heavy_ids, ref))
+        joined_same = bool(np.array_equal(joined_ids, joined_ref))
+        log("engine", f"mmu chunked with company: finished in the order {order}; stream joins "
+            f"{joins}; the heavy request equal to mmu_generate: {heavy_same}, the joined one "
+            f"to its solo run: {joined_same}; {stream_chunks} stream chunks, launches {launched}")
+        if order[0] != "short" or joins != 1 or not heavy_same or not joined_same or \
+                stream_chunks <= n_chunks:
+            raise AssertionError(f"chunked mmu: order {order}, joins {joins}, heavy equal "
+                                 f"{heavy_same}, joined equal {joined_same}")
+
+        # t2i: windows of ENGINE_WINDOW steps, and a guidance interval
+        t2i_out = []
+        for prompt, seed, interval in ((T2I_PROMPTS[0], 0, (0.0, 1.0)),
+                                       (T2I_PROMPTS[1], 1, (0.0, 1.0)),
+                                       (T2I_PROMPTS[0], 2, ENGINE_INTERVAL)):
+            ids, attn, uncond, uattn = t2i_request(prompt)
+            s = E.T2ISettings(timesteps=T2I_SETTINGS["timesteps"],
+                              guidance_scale=T2I_SETTINGS["guidance_scale"],
+                              temperature=T2I_SETTINGS["temperature"],
+                              num_vq_tokens=T2I_SETTINGS["num_vq_tokens"],
+                              segment_timesteps=ENGINE_WINDOW, cfg_interval=interval)
+            c0 = eng.stats["chunks"]
+            t = sync()
+            codes = counted(f"engine t2i seed {seed}", lambda: eng.submit_t2i(
+                ids, uncond, s, seed=seed, attention_mask=attn,
+                uncond_attention_mask=uattn).result(600), n * T2I_SETTINGS["timesteps"])
+            seconds = sync() - t
+            windows = eng.stats["chunks"] - c0
+
+            def dev(a):
+                return torch.as_tensor(a, device="cuda")[None]
+
+            want = counted(f"t2i reference seed {seed}", lambda: model.t2i_generate(
+                dev(ids), uncond_input_ids=dev(uncond), attention_mask=dev(attn),
+                uncond_attention_mask=dev(uattn), temperature=T2I_SETTINGS["temperature"],
+                timesteps=T2I_SETTINGS["timesteps"], guidance_scale=T2I_SETTINGS["guidance_scale"],
+                num_vq_tokens=T2I_SETTINGS["num_vq_tokens"], cfg_interval=interval,
+                generator=torch.Generator("cuda").manual_seed(seed))[0].cpu().numpy(),
+                n * T2I_SETTINGS["timesteps"])
+            same = bool(np.array_equal(codes, want))
+            t2i_out.append(same)
+            log("engine", f"t2i {prompt!r} seed {seed}, cfg_interval {interval}: {windows} "
+                f"windows, {seconds:.2f}s; equal to t2i_generate: {same}")
+            if not same:
+                raise AssertionError(f"engine t2i seed {seed} differs from t2i_generate")
+
+        # lifecycle: a queued request cancelled; a drain finishes a stream
+        reset_counts()
+        eng.pause()
+        keep = eng.submit_text(np.asarray(frames[1]), short)
+        drop = eng.submit_text(np.asarray(frames[2]), short)
+        cancelled0 = eng.stats["cancelled"]
+        if not drop.cancel():
+            raise AssertionError("a queued request could not be cancelled")
+        eng.resume()
+        keep.result(600)
+        while eng.stats["cancelled"] < cancelled0 + 1:
+            time.sleep(0.001)
+        tail = eng.submit_mmu(frame, mmu)
+        c0 = eng.stats["chunks"]
+        while eng.stats["chunks"] < c0 + 1:
+            time.sleep(0.001)
+        eng.stop(drain=True)
+        drained = bool(np.array_equal(tail.result(5), ref))
+        launched = tally(counts())
+        expect_launches("engine lifecycle", launched, {"one-pass": (
+            n * (ENGINE_SHORT["steps"] + MMU_SETTINGS["steps"]), 0, 0)})
+        late = eng.submit_text(np.asarray(frames[0]), short)
+        log("engine", f"lifecycle: a queued request cancelled (cancelled "
+            f"{eng.stats['cancelled'] - cancelled0}); the drain finished the stream in flight "
+            f"({eng.stats['chunks'] - c0} chunks, equal to mmu_generate: {drained}); a request "
+            f"after it refused: {type(late.exception(5)).__name__}")
+        if not drained or late.exception(5) is None:
+            raise AssertionError("the drain lost its stream or took a request after it")
+        out["latency"] = eng.latency_stats()
+        out["stats"] = dict(eng.stats)
+        log("engine", f"stats {out['stats']}; latency_stats {out['latency']}")
+    finally:
+        eng.stop()
+
+    # the chunk guard's rate: the exact forward of the MMU frame, by CUDA events
+    x = torch.as_tensor(frame, device="cuda")[None]
+    x = torch.cat([x, torch.full((1, MMU_SETTINGS["max_new_tokens"]), MMADA_8B.mask_token_id,
+                                 device="cuda")], 1)
+    span = (x.shape[1] - MMU_SETTINGS["max_new_tokens"], MMU_SETTINGS["block_length"])
+    # cuda_ms: 2 warm-up calls and 5 timed
+    ms = counted("the chunk guard's rate", lambda: cuda_ms(
+        lambda: model.forward(x, logit_positions=span), iters=5), 7 * n)
+    flops = x.shape[1] * forward_matmul_flops_per_token(model.cfg, x.shape[1],
+                                                        MMU_SETTINGS["block_length"], v)
+    out["rate"] = flops / (ms / 1e3)
+    log("engine", f"the chunk guard's rate: the exact MMU forward ({x.shape[1]} tokens, "
+        f"{flops / 1e12:.2f} TFLOP of matmuls) {ms:.2f} ms, {out['rate'] / 1e12:.1f} TFLOP/s "
+        f"(engine.CARD_FLOPS_PER_S {E.CARD_FLOPS_PER_S / 1e12:.1f} TFLOP/s)")
+
+    # int4: one text batch of four through the engine on the int4 8B
+    qmodel = quantize(model, "int4")
+    eng = E.ServingEngine(qmodel, max_wait_ms=1.0).start()
+    try:
+        got, seconds, launched, shapes = released(
+            eng, lambda: [eng.submit_text(np.asarray(x), settings) for x in frames])
+    finally:
+        eng.stop()
+    want = counted("engine int4 reference",
+                   lambda: qmodel.generate(prompts, **TEXT_SETTINGS).cpu().numpy(), n * steps,
+                   (7 * n + 1) * steps)
+    rows, head_rows = 4 * len(frames[0]) + 4 * TEXT_SETTINGS["gen_length"], \
+        4 * TEXT_SETTINGS["block_length"]
+    by_shape = dict(collections.Counter(shapes["b6"]))
+    wanted = {(rows, d, d): 4 * n * steps, (rows, d, f): 2 * n * steps,
+              (rows, f, d): n * steps, (head_rows, d, v): steps}
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log("engine", f"int4: 4 requests in {seconds:.2f}s, equal to the int4 model's generate on "
+        f"the batch: {same}; B6 by (M, K, N) as recorded {by_shape}")
+    expect_launches("engine int4", launched, {"one-pass": (n * steps, 0, 0),
+                                              "int4": ((7 * n + 1) * steps,)})
+    if not same or by_shape != wanted:
+        raise AssertionError(f"engine int4: equal {same}, B6 by shape {by_shape}")
+    log("engine", f"launches in the phase, every call and reference counted: B1 {out['b1']}, "
+        f"B6 {out['b6']}")
+    del qmodel
+    free_memory()
+    return out
+
+
+def mmu_question_frame(model, codes, question):
+    """The MMU frame (no answer positions) of `question` about an image of
+    MAGVIT-v2 `codes`, as `serve_mmu` builds it."""
+    import numpy as np
+
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds
+
+    sp = SpecialIds.from_vocab(model.vocab)
+    ids = ByteTokenizer()([question])["input_ids"][0]
+    return np.asarray([sp.mmu, sp.soi, *(codes + model.vocab.image_offset).tolist(), sp.eoi,
+                       sp.bos, *ids])
+
+
+def t2i_request(prompt):
+    """(frame, mask, uncond frame, uncond mask) of one t2i request, as
+    `serve_t2i` builds them."""
+    import numpy as np
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B),
+                            max_text_len=T2I_SETTINGS["max_text_len"])
+    n, mask_id = T2I_SETTINGS["num_vq_tokens"], MMADA_8B.mask_token_id
+    ids, attn = up.t2i_gen([prompt], np.full((1, n), mask_id))
+    uncond, uattn = up.t2i_gen_uncond(1, n, mask_id)
+    return (np.asarray(ids)[0], np.asarray(attn)[0], np.asarray(uncond)[0],
+            np.asarray(uattn)[0])
+
+
+def http_phase(root, loaded, image, reset_counts, counts) -> dict:
+    """`app_torch`'s HTTP server over the checkpoint under `root` (the model
+    already loaded from it), from a thread on 127.0.0.1 (phase 7e): /health
+    and /stats answer; /generate answers as the model on the app's frame,
+    /t2i and /mmu as the t2i and MMU command lines' `run` on the same weights
+    (the PNG of the phase's image, decoded as the app decodes it: PIL is
+    needed here, through `app_torch`'s PNG helpers, as by the app's image
+    endpoints and JAX's `app.py`);
+    /generate_stepwise streams states whose last is /generate's answer; four
+    concurrent /generate calls released together run as one batch by
+    /stats's counters. B1's launches are read around every call, the
+    references' included, and each held against the schedule. Returns their
+    total."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import app_torch
+    import inference_mmu_torch
+    import inference_t2i_torch
+    from generate_torch import answer_text
+    from mmada_tpu_torch.core.config import load_config
+    from mmada_tpu_torch.serve.loader import build_prompting
+
+    n = loaded.model.cfg.n_layers
+    cfg = load_config(overrides=[
+        f"model.mmada.pretrained_model_path={root}",
+        f"model.vq_model.vq_model_path={os.path.join(root, 'magvit2')}",
+        "training.mixed_precision=bf16", "batch_size=1",
+        f"generation_timesteps={T2I_SETTINGS['timesteps']}",
+        f"guidance_scale={T2I_SETTINGS['guidance_scale']}",
+        f"generation_temperature={T2I_SETTINGS['temperature']}", "seed=0",
+        f"dataset.preprocessing.max_seq_length={T2I_SETTINGS['max_text_len']}",
+        f"model.mmada.num_vq_tokens={T2I_SETTINGS['num_vq_tokens']}",
+        f"dataset.preprocessing.resolution={VQ_RESOLUTION}",
+        f"max_new_tokens={MMU_SETTINGS['max_new_tokens']}", f"steps={MMU_SETTINGS['steps']}",
+        f"question={MMU_QUESTION}"])
+    # the app's prompting pads t2i prompts to this config's max_seq_length
+    loaded = loaded._replace(prompting=build_prompting(cfg, loaded.tokenizer, loaded.vocab))
+    state = app_torch.AppState(cfg, device="cuda", loaded=loaded)
+    httpd = app_torch.make_server(state, 0, "127.0.0.1")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = dict(b1=0)
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if resp.headers.get("Content-Type") == "application/x-ndjson":
+                return [json.loads(line) for line in resp if line.strip()]
+            return json.loads(resp.read())
+
+    def counted(phase, fn, b1):
+        """`fn()`, with B1's launches around it read, held against the
+        schedule and added to the total."""
+        reset_counts()
+        result = fn()
+        launched = counts()
+        expect_launches(phase, launched, {"one-pass": (b1, 0, 0)})
+        out["b1"] += launched[0][0]
+        return result
+
+    def timed(path, payload, b1):
+        t = time.perf_counter()
+        got = counted(path, lambda: call(path, payload), b1)
+        return got, time.perf_counter() - t
+
+    try:
+        health, stats = call("/health"), call("/stats")
+        log("http", f"{url}: /health {health}; /stats model {stats['model']}, devices "
+            f"{stats['devices']}, engine {stats['engine']}")
+        if health != {"status": "ok"} or not stats["engine_running"]:
+            raise AssertionError(f"/health {health}, /stats {stats}")
+
+        prompt = TEXT_PROMPTS[0]
+        text_req = dict(prompt=prompt, temperature=0.0, **{k: TEXT_SETTINGS[k] for k in (
+            "gen_length", "steps", "block_length")})
+        text_b1 = n * TEXT_SETTINGS["steps"]
+        text, text_s = timed("/generate", text_req, text_b1)
+        ids = state._text_ids(prompt)
+        direct = counted("/generate reference", lambda: loaded.model.generate(
+            torch.tensor(ids, device="cuda"), **TEXT_SETTINGS).cpu(), text_b1)
+        want_text = state._answer(direct, len(ids[0]))
+        steps, stream_s = timed("/generate_stepwise", dict(
+            text_req, stream=True, segment_steps=ENGINE_SEGMENT), text_b1)
+        want_last = state._token_states(direct[0, len(ids[0]):])
+        log("http", f"/generate {text_s:.2f}s, equal to the model on the app's frame: "
+            f"{text['text'] == want_text}; /generate_stepwise (streamed, chunks of "
+            f"{ENGINE_SEGMENT}) {stream_s:.2f}s, {len(steps)} states, the last /generate's "
+            f"answer: {steps[-1]['step'] == want_last}")
+        if text["text"] != want_text or steps[-1]["step"] != want_last or \
+                len(steps) != TEXT_SETTINGS["steps"]:
+            raise AssertionError("/generate or /generate_stepwise departs from the model")
+
+        t2i, t2i_s = timed("/t2i", dict(prompt=HTTP_T2I_PROMPT, seed=0,
+                                        timesteps=T2I_SETTINGS["timesteps"],
+                                        guidance_scale=T2I_SETTINGS["guidance_scale"],
+                                        temperature=T2I_SETTINGS["temperature"]),
+                           n * T2I_SETTINGS["timesteps"])
+        got = np.asarray(app_torch.image_from_png_b64(t2i["image_png_b64"]))
+        _, cli_images = counted("/t2i reference", lambda: inference_t2i_torch.run(
+            cfg, loaded, [HTTP_T2I_PROMPT]), n * T2I_SETTINGS["timesteps"])
+        t2i_same = bool(np.array_equal(got, np.asarray(cli_images[0])))
+        log("http", f"/t2i {t2i_s:.2f}s: a {got.shape} image, equal to inference_t2i_torch.run: "
+            f"{t2i_same}")
+
+        u8 = ((image[0].float().cpu() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).numpy()
+        png = app_torch.png_b64(u8)
+        mmu, mmu_s = timed("/mmu", dict(
+            image_png_b64=png, question=MMU_QUESTION,
+            max_new_tokens=MMU_SETTINGS["max_new_tokens"], steps=MMU_SETTINGS["steps"],
+            block_length=MMU_SETTINGS["block_length"], temperature=0.0),
+            n * MMU_SETTINGS["steps"])
+        pixels = inference_mmu_torch.image_transform(app_torch.image_from_png_b64(png),
+                                                     VQ_RESOLUTION)[None]
+        cli = answer_text(loaded, counted("/mmu reference", lambda: inference_mmu_torch.run(
+            cfg, loaded, pixels)[0], n * MMU_SETTINGS["steps"]))
+        log("http", f"/mmu {mmu_s:.2f}s, equal to inference_mmu_torch.run: {mmu['text'] == cli}")
+        if not t2i_same or mmu["text"] != cli:
+            raise AssertionError("/t2i or /mmu departs from its command line")
+
+        before = call("/stats")["engine"]
+        state.engine.pause()
+        results = [None] * 4
+        reset_counts()
+
+        def worker(i):
+            results[i] = call("/generate", text_req)["text"]
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        while call("/stats")["engine"]["requests"] < before["requests"] + 4:
+            time.sleep(0.005)
+        t = time.perf_counter()
+        state.engine.resume()
+        for th in threads:
+            th.join()
+        batch_s = time.perf_counter() - t
+        launched = counts()
+        out["b1"] += launched[0][0]
+        expect_launches("4 concurrent /generate", launched, {"one-pass": (text_b1, 0, 0)})
+        after = call("/stats")
+        delta = {k: after["engine"][k] - before[k] for k in before}
+        log("http", f"4 concurrent /generate released together: {batch_s:.2f}s, answers equal "
+            f"the sequential one: {results == [want_text] * 4}; /stats deltas {delta}; latency "
+            f"{after['latency']}")
+        if results != [want_text] * 4 or delta["batches"] != 1 or \
+                delta["batched_requests"] != 4:
+            raise AssertionError(f"concurrent /generate: deltas {delta}")
+        log("http", f"launches in the phase, every call and reference counted: B1 {out['b1']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.stop_engine()
+        thread.join(timeout=30)
+    return out
 
 
 # how every kernel of the JSON line is built

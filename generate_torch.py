@@ -10,8 +10,9 @@ One key more: `device` (the card unless `device=cpu`). A `config=` file is
 read with PyYAML; without PyYAML, give every key as a dotted override. The
 fast-decode knobs (`kv_cache`, `parallel_threshold`, ...) default to the
 family-resolved `serving.text.*` / `serving.*` values
-(`serve.loader.task_serving_defaults`); `segment_steps` above 0 raises
-until the serving engine is ported.
+(`serve.loader.task_serving_defaults`); `segment_steps` above 0 runs the
+exact sampler in chunks of that many steps (the same tokens; the cached
+decode wins when both are set), as `generate.py` does.
 
 `load(cfg)` builds the tokenizer, prompting and model; `run(cfg, loaded)`
 returns each prompt's generated ids; `main` prints the answer's text.

@@ -15,7 +15,8 @@ question`, then semi-AR text denoising (`fast=true`: stop after the first
 block that ends in EOT). One key more: `device` (the card unless
 `device=cpu`). A `config=` file is read with PyYAML. The fast-decode knobs
 default to the family-resolved `serving.mmu.*` / `serving.*` values;
-`segment_steps` above 0 raises until the serving engine is ported.
+`segment_steps` above 0 runs the exact sampler in chunks (the same tokens;
+the cached decode and `fast` win when set), as `inference_mmu.py` does.
 
 `load(cfg)` calls `serve.loader.load_all`; `run(cfg, loaded, images)`
 returns each image's generated ids; `read_images` and `main` do the file

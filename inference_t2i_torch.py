@@ -12,9 +12,10 @@ defaults:
 Images are written to `{output_dir}/NNNN.png` (PIL). One key more: `device`
 (the card unless `device=cpu`). A `config=` file is read with PyYAML. The
 fast-decode knobs default to the family-resolved `serving.t2i.*` /
-`serving.*` values; `segment_timesteps` above 0 raises until the serving
-engine is ported, and `quantative=true` raises until the eval modules are
-(ROADMAP A.13).
+`serving.*` values; `segment_timesteps` above 0 runs the exact sampler in
+windows of that many steps (the same codes; the cached decode wins when both
+are set), as `inference_t2i.py` does, and `quantative=true` raises until the
+eval modules are ported (ROADMAP A.13).
 
 `load(cfg)` calls `serve.loader.load_all`; `run(cfg, loaded)` returns the
 codes and the uint8 images; `main` reads the prompts and writes the PNGs.

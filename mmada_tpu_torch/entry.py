@@ -33,8 +33,10 @@ The samplers are the exact ones unless a request asks for the fast ones:
 True or "int8", also as a string, through the strict `parse_kv_cache`) and
 `cache_refresh_every`; `serve_text` and `serve_mmu` also
 `parallel_threshold` and `parallel_warmup_steps` (tau-parallel), `serve_t2i`
-`cfg_interval`. `segment_steps` / `segment_timesteps` above 0 raise (the
-segmented runs wait for the serving engine, ROADMAP A.9).
+`cfg_interval`; all three the segmented runs' `segment_steps` /
+`segment_timesteps` (the exact sampler in chunks, the same answers). The
+serving engine (`serve/engine.py`) and the HTTP front end (`app_torch.py`)
+serve concurrent requests.
 
 All run on the card unless called with `device="cpu"`, and raise when the
 model's weights are elsewhere.

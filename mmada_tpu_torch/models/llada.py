@@ -424,7 +424,7 @@ def forward(
     attention_bias: Optional[torch.Tensor] = None,  # (B|1, 1, L, L)
     policy: Policy = FP32,
     logit_window: Optional[tuple[int, int]] = None,
-    logit_positions: Optional[tuple[int, int]] = None,
+    logit_positions: Optional[tuple] = None,
     remat=False,  # False | True | "full" (_check_remat)
     return_normed_hidden: bool = False,
     taps: Optional[dict] = None,
@@ -432,7 +432,8 @@ def forward(
     """Logits `(B, L, V)`, or `(B, L, stop - start)` with
     `logit_window=(start, stop)` over the vocab; `logit_positions=(start,
     LENGTH)` restricts the head to that position span, giving
-    `(B, LENGTH, ...)`. `return_normed_hidden=True` stops after the final
+    `(B, LENGTH, ...)`; `start` may be a `(B,)` tensor, one span a row (the
+    serving engine's rows each decode their own block). `return_normed_hidden=True` stops after the final
     norm and returns the `(B, L, D)` hidden states (the chunked training
     loss applies the head itself). `taps` (lists under CALIBRATION_SITES)
     gain each layer's per-channel input absmax at its quantized matmuls
@@ -458,7 +459,11 @@ def forward(
     if logit_positions is not None:
         # the head runs only over the span the sampler reads
         p_start, p_len = logit_positions
-        x = x[:, p_start:p_start + p_len]
+        if isinstance(p_start, torch.Tensor):
+            idx = p_start.to(x.device, torch.long)[:, None] + torch.arange(p_len, device=x.device)
+            x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+        else:
+            x = x[:, p_start:p_start + p_len]
 
     x = _norm(cfg, x, params["ln_f"])
     if return_normed_hidden:

@@ -22,8 +22,13 @@ opt-in knobs, as in JAX: `block_kv_cache` (False, True or "int8": the
 block-KV cached decode, `_text_cache_fns` / `_span_cache_fns` on
 `llada.forward_kv_capture` / `forward_kv_step`), `cache_refresh_every`, and
 for text and MMU `parallel_threshold` / `parallel_warmup_steps`
-(tau-parallel). The segmented runs (`segment_steps`, `segment_timesteps`)
-belong to the serving engine and raise until it is ported (ROADMAP A.9).
+(tau-parallel). The segmented runs (`segment_steps` on `generate` and
+`mmu_generate`, `segment_timesteps` on `t2i_generate`; the exact sampler
+only, as in JAX) run the sampler in chunks with the same tokens;
+`segmented_run`, `segmented_stepwise_run`, `segmented_chunk_runner` and
+`t2i_segmented_run` hand the chunks to the caller (the serving engine,
+`serve/engine.py`, and the HTTP front end's streams). Not ported:
+`with_pinned_fast_runner` (XLA layout pinning) and the t2m runs (ROADMAP A.11).
 
 Image generation evaluates the vocab head only over the 8k image window and
 the image positions (`logit_window` + `logit_positions`); text steps only
@@ -212,11 +217,19 @@ class MMadaModel:
         unless `block_kv_cache` (True / "int8": the cached decode, re-captured
         every `cache_refresh_every` steps within a block) or
         `parallel_threshold` (tau-parallel, from step `parallel_warmup_steps`
-        of each block) is set."""
-        _refuse_segmented(segment_steps=segment_steps)
+        of each block) is set. `segment_steps` (0 = off) runs the exact
+        sampler in chunks of at most that many steps of a block, with the
+        same tokens (`text_sampling.SegmentedRun`). `generator` may be a list
+        of one generator a row (stochastic settings only): each row's tokens
+        are then those of its batch-1 run with its generator."""
         scfg = self._semiar_config(gen_length, steps, block_length, temperature, cfg_scale,
                                    remasking, parallel_threshold, parallel_warmup_steps,
                                    cache_refresh_every)
+        if segment_steps:
+            _exact_only("segment_steps", block_kv_cache)
+            return text_sampling.generate_segmented(
+                None, prompt, scfg, generator=generator, segment_steps=segment_steps,
+                window_forward_fn=self._text_window_forward_fn(block_length))
         return text_sampling.generate(None, prompt, scfg, generator=generator,
                                       **self._text_sources(block_length, block_kv_cache))
 
@@ -230,6 +243,57 @@ class MMadaModel:
         return text_sampling.generate_stepwise(
             None, prompt, scfg, generator=generator,
             **self._text_sources(block_length, block_kv_cache))
+
+    def _segmented_run(self, prompt, scfg, generator=None, segment_steps=64,
+                       block_kv_cache=False, collect_states=False):
+        """A `text_sampling.SegmentedRun` on the block-windowed forward."""
+        _exact_only("segment_steps", block_kv_cache)
+        return text_sampling.SegmentedRun(
+            prompt, scfg, generator=generator, segment_steps=segment_steps,
+            window_forward_fn=self._text_window_forward_fn(scfg.block_length),
+            collect_states=collect_states)
+
+    def segmented_run(self, prompt, gen_length=128, steps=128, block_length=128,
+                      temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
+                      generator=None, segment_steps=64, parallel_threshold=0.0,
+                      parallel_warmup_steps=0):
+        """`generate`'s incremental form: a `SegmentedRun`; call `.step()`
+        (one chunk each) until True, then read `.x`. `generator` may be a
+        list of one generator a row."""
+        scfg = self._semiar_config(gen_length, steps, block_length, temperature, cfg_scale,
+                                   remasking, parallel_threshold, parallel_warmup_steps)
+        return self._segmented_run(prompt, scfg, generator=generator,
+                                   segment_steps=segment_steps)
+
+    def segmented_stepwise_run(self, prompt, gen_length=128, steps=128, block_length=128,
+                               temperature=0.0, cfg_scale=0.0, remasking="low_confidence",
+                               generator=None, segment_steps=8):
+        """Incremental stepwise generation: after each `.step()`,
+        `.last_states` holds the chunk's `(W, B, L)` per-step tokens
+        (concatenated: `generate_stepwise`'s trajectory)."""
+        scfg = self._semiar_config(gen_length, steps, block_length, temperature, cfg_scale,
+                                   remasking)
+        return self._segmented_run(prompt, scfg, generator=generator,
+                                   segment_steps=segment_steps, collect_states=True)
+
+    def segmented_chunk_runner(self, steps_per_block, block_length, temperature=0.0,
+                               cfg_scale=0.0, remasking="low_confidence",
+                               parallel_threshold=0.0, parallel_warmup_steps=0):
+        """`run(x, prompt_index, block_ends, transfers, step_offsets,
+        generators=None)`: one chunk of the serving engine's continuous
+        batching (`text_sampling.run_rows`), every row at its own block
+        (`block_ends` `(B,)`) and in-block step (`step_offsets`), drawing
+        from its own generator (`generators`, stochastic settings)."""
+        block_cfg = self._semiar_config(block_length, steps_per_block, block_length,
+                                        temperature, cfg_scale, remasking,
+                                        parallel_threshold, parallel_warmup_steps)
+        window = self._text_window_forward_fn(block_length)
+
+        def run(x, prompt_index, block_ends, transfers, step_offsets, generators=None):
+            return text_sampling.run_rows(block_cfg, x, prompt_index, block_ends, transfers,
+                                          step_offsets, generators, window)
+
+        return run
 
     # ----------------------------------------------------------------- mmu
     def mmu_generate(self, input_ids, max_new_tokens=128, steps=128, block_length=128,
@@ -272,17 +336,22 @@ class MMadaModel:
         """(B, num_vq_tokens) raw image codes, or with `stepwise` each step's
         `(timesteps, B, num_vq_tokens)`. `block_kv_cache` (True / "int8"):
         capture the K/V outside the image span once and forward only the
-        span each step, re-captured every `cache_refresh_every` steps."""
-        _refuse_segmented(segment_timesteps=segment_timesteps)
-        mcfg = t2i_sampling.MaskGITConfig(
-            timesteps=timesteps, temperature=temperature,
-            guidance_scale=guidance_scale, noise_schedule=noise_schedule,
-            mask_id=self.vocab.mask_token_id, num_vq_tokens=num_vq_tokens,
-            codebook_size=self.vocab.image_codebook_size,
-            text_vocab_size=self.vocab.image_offset, greedy=greedy,
-            cfg_interval=tuple(cfg_interval), cache_refresh_every=cache_refresh_every,
-        )
+        span each step, re-captured every `cache_refresh_every` steps.
+        `segment_timesteps` (0 = off) runs the exact sampler in windows of at
+        most that many steps, with the same codes."""
+        mcfg = self._maskgit_config(temperature, timesteps, guidance_scale, noise_schedule,
+                                    num_vq_tokens, greedy, cfg_interval, cache_refresh_every)
         fwd = self._window_forward_fn(num_vq_tokens, self.vocab.image_window)
+        if segment_timesteps:
+            if stepwise:
+                raise ValueError(
+                    "stepwise + segment_timesteps: drive t2i_segmented_run and read "
+                    ".last_window per chunk instead (true incremental streaming)")
+            _exact_only("segment_timesteps", block_kv_cache)
+            return t2i_sampling.t2i_generate_segmented(
+                fwd, input_ids, mcfg, generator=generator, uncond_input_ids=uncond_input_ids,
+                attention_mask=attention_mask, uncond_attention_mask=uncond_attention_mask,
+                segment_timesteps=segment_timesteps)
         cache_fns = (self._span_cache_fns(self.vocab.image_window, num_vq_tokens,
                                           _cache_dtype(block_kv_cache))
                      if block_kv_cache else None)
@@ -293,19 +362,56 @@ class MMadaModel:
             uncond_attention_mask=uncond_attention_mask, cache_fns=cache_fns,
         )
 
+    def _maskgit_config(self, temperature, timesteps, guidance_scale, noise_schedule,
+                        num_vq_tokens, greedy, cfg_interval, cache_refresh_every=0):
+        return t2i_sampling.MaskGITConfig(
+            timesteps=timesteps, temperature=temperature,
+            guidance_scale=guidance_scale, noise_schedule=noise_schedule,
+            mask_id=self.vocab.mask_token_id, num_vq_tokens=num_vq_tokens,
+            codebook_size=self.vocab.image_codebook_size,
+            text_vocab_size=self.vocab.image_offset, greedy=greedy,
+            cfg_interval=tuple(cfg_interval), cache_refresh_every=cache_refresh_every,
+        )
+
+    def t2i_segmented_run(self, input_ids, uncond_input_ids=None, attention_mask=None,
+                          uncond_attention_mask=None, temperature=1.0, timesteps=18,
+                          guidance_scale=0.0, noise_schedule=cosine_schedule,
+                          num_vq_tokens=1024, generator=None, greedy=False,
+                          segment_timesteps=8, block_kv_cache=False, cfg_interval=(0.0, 1.0)):
+        """`t2i_generate`'s incremental form: a `SegmentedT2IRun`; call
+        `.step()` until True, then read `.codes` (`.last_window` after each
+        window)."""
+        mcfg = self._maskgit_config(temperature, timesteps, guidance_scale, noise_schedule,
+                                    num_vq_tokens, greedy, cfg_interval)
+        return self._t2i_segmented_run(
+            input_ids, mcfg, generator=generator, uncond_input_ids=uncond_input_ids,
+            attention_mask=attention_mask, uncond_attention_mask=uncond_attention_mask,
+            segment_timesteps=segment_timesteps, block_kv_cache=block_kv_cache)
+
+    def _t2i_segmented_run(self, input_ids, mcfg, generator=None, uncond_input_ids=None,
+                           attention_mask=None, uncond_attention_mask=None,
+                           segment_timesteps=8, block_kv_cache=False):
+        _exact_only("segment_timesteps", block_kv_cache)
+        return t2i_sampling.SegmentedT2IRun(
+            self._window_forward_fn(mcfg.num_vq_tokens, self.vocab.image_window), input_ids,
+            mcfg, generator=generator, uncond_input_ids=uncond_input_ids,
+            attention_mask=attention_mask, uncond_attention_mask=uncond_attention_mask,
+            segment_timesteps=segment_timesteps)
+
+
+def _exact_only(knob: str, block_kv_cache) -> None:
+    """The segmented runs are the exact sampler's: a chunk or window that
+    re-captured the block-KV cache would change its staleness (JAX's
+    refusal)."""
+    if block_kv_cache:
+        raise ValueError(f"{knob} supports the exact sampler only (per-chunk K/V recapture "
+                         "would change the block-cache staleness semantics)")
+
 
 def _cache_dtype(block_kv_cache):
     """Sampler flag -> cache dtype: False / True = the compute dtype, "int8"
     = the quantized cache (`llada._quantize_kv`)."""
     return "int8" if block_kv_cache == "int8" else None
-
-
-def _refuse_segmented(**knobs) -> None:
-    changed = sorted(k for k, v in knobs.items() if v)
-    if changed:
-        raise NotImplementedError(
-            f"{', '.join(changed)}: the segmented runs belong to the serving engine, "
-            "which is not ported yet (ROADMAP A.9)")
 
 
 def _check_policy(policy: Policy, device: torch.device) -> None:

@@ -4,12 +4,16 @@ Counterpart of `mmada_tpu/sampling/gumbel.py`. Gumbel noise is the log-space
 form `logits + T * g` with `g = -log(-log u)` in fp32; at T=0 every sampler
 reduces to argmax, the token-exact configuration. Random numbers come from
 an explicit `torch.Generator` on the tensors' device, so they differ from
-the JAX streams; the distributions are the same.
+the JAX streams; the distributions are the same. Where JAX gives each row
+its own key, the port gives each row its own generator: `generator` may be a
+list with one entry a row, and each row then draws its own `(1, ...)`
+numbers as a batch-1 run would, so a row's draws do not depend on what
+shares its batch; a `None` entry draws nothing (its numbers are zeros).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -17,20 +21,34 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 _EPS = 1e-20
 
 
-def uniform(shape, generator: Optional[torch.Generator], device,
-            low: float = 0.0) -> torch.Tensor:
+Generators = Union[None, torch.Generator, Sequence[Optional[torch.Generator]]]
+
+
+def _rows(draw, shape, generators, device) -> torch.Tensor:
+    """`draw(shape, generator)` row by row: row i from `generators[i]` with
+    shape `(1, *shape[1:])`; a `None` entry draws nothing (zeros)."""
+    row = (1, *shape[1:])
+    return torch.cat([draw(row, g) if g is not None
+                      else torch.zeros(row, device=device, dtype=torch.float32)
+                      for g in generators])
+
+
+def uniform(shape, generator: Generators, device, low: float = 0.0) -> torch.Tensor:
     """fp32 uniform numbers in [low, 1)."""
+    if isinstance(generator, (list, tuple)):
+        return _rows(lambda s, g: uniform(s, g, device, low), shape, generator, device)
     u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
     return u * (1.0 - low) + low if low else u
 
 
-def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+def gumbel_noise(shape, generator: Generators, device) -> torch.Tensor:
+    if isinstance(generator, (list, tuple)):
+        return _rows(lambda s, g: gumbel_noise(s, g, device), shape, generator, device)
     u = uniform(shape, generator, device, low=_EPS)
     return -torch.log(-torch.log(u) + _EPS)
 
 
-def gumbel_argmax(logits: torch.Tensor, generator: Optional[torch.Generator],
-                  temperature: float) -> torch.Tensor:
+def gumbel_argmax(logits: torch.Tensor, generator: Generators, temperature: float) -> torch.Tensor:
     """argmax(logits + T * Gumbel): exact argmax at T=0."""
     logits = logits.float()
     if temperature == 0.0 or generator is None:

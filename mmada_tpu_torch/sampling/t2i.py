@@ -23,6 +23,12 @@ image positions (doubled under CFG) at offset `img_lo`.
 `cache_refresh_every=N` re-captures before steps t > 0 with t % N == 0. A
 `cfg_interval` narrower than every step is refused with the cache, as JAX
 refuses it: the cache holds the CFG batch's rows.
+
+The segmented run (`SegmentedT2IRun`, `t2i_generate_segmented`; the exact
+sampler only) runs the same step loop window by window, at most
+`segment_timesteps` steps a window, with the window list cut at the
+`cfg_interval` boundaries as JAX cuts it (so a window is guided or not as a
+whole); the carry and the draws are the monolithic run's.
 """
 
 from __future__ import annotations
@@ -232,3 +238,70 @@ def t2i_generate_stepwise(
     `t2i_generate`'s codes)."""
     return torch.stack(list(_scan(forward_fn, input_ids, cfg, generator, uncond_input_ids,
                                   attention_mask, uncond_attention_mask, cache_fns)))
+
+
+class SegmentedT2IRun:
+    """One segmented MaskGIT generation: `step()` runs ONE window of at most
+    `segment_timesteps` steps and returns True after the last; `.last_window`
+    holds the window's sampled grids `(W, B, n)` (incremental stepwise
+    streaming) and, after the last window, `.codes` the `(B, n)` codes. The
+    windows are cut at the `cfg_interval` boundaries, as in JAX
+    (`mmada_tpu/sampling/t2i.py:363-388`)."""
+
+    def __init__(self, forward_fn: WindowForwardFn, input_ids: torch.Tensor, cfg: MaskGITConfig,
+                 generator: Optional[torch.Generator] = None,
+                 uncond_input_ids: Optional[torch.Tensor] = None,
+                 attention_mask: Optional[torch.Tensor] = None,
+                 uncond_attention_mask: Optional[torch.Tensor] = None,
+                 segment_timesteps: int = 8):
+        if segment_timesteps < 1:
+            raise ValueError(f"segment_timesteps must be >= 1, got {segment_timesteps}")
+        if not cfg.greedy and generator is None:
+            raise ValueError("categorical sampling requires a torch.Generator")
+        self.cfg = cfg
+        lo_idx, hi_idx = cfg_interval_steps(cfg)
+        use_cfg = uncond_input_ids is not None and cfg.guidance_scale > 0
+        cuts = {lo_idx, hi_idx} if use_cfg else set()
+        self._windows = []
+        for s in range(0, cfg.timesteps, segment_timesteps):
+            e = min(s + segment_timesteps, cfg.timesteps)
+            points = sorted({s, e} | {c for c in cuts if s < c < e})
+            self._windows += list(zip(points[:-1], points[1:]))
+        self._steps = _scan(forward_fn, input_ids, cfg, generator, uncond_input_ids,
+                            attention_mask, uncond_attention_mask, None)
+        self._i = 0
+        self.done = False
+        self.codes = None
+        self.last_window = None
+
+    @property
+    def total_chunks(self) -> int:
+        return len(self._windows)
+
+    def step(self) -> bool:
+        """Run ONE window; True once the last window has run."""
+        if not self.done:
+            s0, s1 = self._windows[self._i]
+            self.last_window = torch.stack([next(self._steps) for _ in range(s1 - s0)])
+            self._i += 1
+            if self._i == len(self._windows):
+                self.done = True
+                self.codes = self.last_window[-1]
+        return self.done
+
+
+def t2i_generate_segmented(forward_fn: WindowForwardFn, input_ids: torch.Tensor,
+                           cfg: MaskGITConfig, generator: Optional[torch.Generator] = None,
+                           uncond_input_ids: Optional[torch.Tensor] = None,
+                           attention_mask: Optional[torch.Tensor] = None,
+                           uncond_attention_mask: Optional[torch.Tensor] = None,
+                           segment_timesteps: int = 8) -> torch.Tensor:
+    """`t2i_generate` as windows of at most `segment_timesteps` steps: the
+    same codes."""
+    run = SegmentedT2IRun(forward_fn, input_ids, cfg, generator=generator,
+                          uncond_input_ids=uncond_input_ids, attention_mask=attention_mask,
+                          uncond_attention_mask=uncond_attention_mask,
+                          segment_timesteps=segment_timesteps)
+    while not run.step():
+        pass
+    return run.codes

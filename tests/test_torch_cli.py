@@ -174,13 +174,17 @@ def test_mmu_cli_prints_jax_answers(tmp_path, monkeypatch, capsys, printed_ids):
         assert got == want
 
 
-def test_clis_refuse_what_is_not_ported(tmp_path, monkeypatch):
+def test_clis_refuse_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """`quantative` waits for the eval modules (A.13); `segment_steps` runs
+    the segmented sampler, which answers as the monolithic one."""
     monkeypatch.chdir(REPO)
     with pytest.raises(NotImplementedError, match="A.13"):
         inference_t2i_torch.main([f"config={TINY}", "quantative=true", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="A.9"):
-        generate_torch.main([f"config={TINY}", "segment_steps=4", "device=cpu",
-                             "gen_length=8", "steps=4", "block_length=8"])
+    argv = [f"config={TINY}", "device=cpu", "gen_length=16", "steps=8", "block_length=8"]
+    assert generate_torch.main(argv) == 0
+    want = capsys.readouterr().out
+    assert generate_torch.main(argv + ["segment_steps=3"]) == 0
+    assert capsys.readouterr().out == want
     assert inference_mmu_torch.main([f"config={TINY}", f"mmu_image_root={tmp_path}",
                                      "device=cpu"]) == 1
 

@@ -5,7 +5,8 @@ through attention, the served and trained paths through the kernels (with
 masks too, on a frame past 4096 tokens, and on int4 weights), the W8A8
 int8 product on the card, the bf16-only model on the card, the launches'
 device, MAGVIT-v2 on the card (against the CPU, whatever the TF32 flags) and
-MMU requests through B1 alone.
+MMU requests through B1 alone, the serving engine's batches, streams and
+t2i windows.
 
 They skip without a CUDA device (the kernel has no CPU mode). This file
 imports neither jax nor the JAX package, so it also runs beside the card,
@@ -1528,3 +1529,96 @@ def test_kv_step_on_the_card_matches_its_plain_path(cuda_device, cache):
     assert torch.isfinite(got).all()
     assert rel(got, want) <= 5e-2, rel(got, want)
     assert rel(got, exact) <= 5e-2, rel(got, exact)
+
+
+def _small_engine_model(device):
+    vocab = tiny_layout()
+    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2)
+    return MMadaModel.init(cfg, vocab, device=device, dtype=torch.bfloat16,
+                           generator=torch.Generator(device).manual_seed(0), policy=BF16)
+
+
+def _solo(model, prompt, seed, **kw):
+    g = torch.Generator(model.device).manual_seed(seed) if kw.get("temperature", 0) else None
+    return model.generate(torch.as_tensor(prompt, device=model.device)[None], generator=g,
+                          **kw)[0].cpu().numpy()
+
+
+def test_engine_rows_with_their_seeds_on_the_card(cuda_device):
+    """Two stochastic requests released together share one batch (B1 once a
+    layer a step) and each equals its solo run with its seed."""
+    import numpy as np
+
+    from mmada_tpu_torch.serve.engine import ServingEngine, TextSettings
+
+    model = _small_engine_model(cuda_device)
+    kw = dict(gen_length=16, steps=8, block_length=8, temperature=1.0)
+    eng = ServingEngine(model, min_chunk_device_ms=0, max_wait_ms=1).start()
+    try:
+        eng.pause()
+        before = flash_attention.launches
+        futs = [eng.submit_text(np.arange(3, 9), TextSettings(**kw), seed=s) for s in (0, 1)]
+        eng.resume()
+        outs = [f.result(120) for f in futs]
+        assert flash_attention.launches - before == model.cfg.n_layers * 8
+        assert eng.stats["batches"] == 1
+    finally:
+        eng.stop()
+    for s, got in zip((0, 1), outs):
+        np.testing.assert_array_equal(got, _solo(model, np.arange(3, 9), s, **kw))
+
+
+def test_stream_join_on_the_card(cuda_device):
+    """A chunked request joins a running stream; at T = 0 each answer equals
+    its solo monolithic run (the rows of one chunk at different blocks), and
+    a segmented run of the first its engine answer, bit for bit."""
+    import time
+
+    import numpy as np
+
+    from mmada_tpu_torch.serve.engine import ServingEngine, TextSettings
+
+    model = _small_engine_model(cuda_device)
+    kw = dict(gen_length=32, steps=16, block_length=8)
+    settings = TextSettings(**kw, segment_steps=1)
+    pa, pb = np.arange(3, 9), np.arange(10, 16)
+    eng = ServingEngine(model, min_chunk_device_ms=0, max_wait_ms=1).start()
+    try:
+        fa = eng.submit_text(pa, settings)
+        while eng.stats["chunks"] < 2:
+            time.sleep(0.001)
+        eng.pause()
+        fb = eng.submit_text(pb, settings)
+        eng.resume()
+        ra, rb = fa.result(120), fb.result(120)
+        assert eng.stats["stream_joins"] == 1
+    finally:
+        eng.stop()
+    np.testing.assert_array_equal(ra, _solo(model, pa, 0, **kw))
+    np.testing.assert_array_equal(rb, _solo(model, pb, 0, **kw))
+    seg = model.generate(torch.as_tensor(pa, device=cuda_device)[None], segment_steps=3, **kw)
+    np.testing.assert_array_equal(seg[0].cpu().numpy(), ra)
+
+
+def test_t2i_windows_on_the_card(cuda_device):
+    """The segmented t2i run (windows of 2, cut by a guidance interval)
+    gives the monolithic codes with the same generator; B1 once a layer a
+    step."""
+    model = _small_engine_model(cuda_device)
+    v = model.vocab
+    frame = torch.cat([torch.full((1, 6), 5), torch.full((1, 1), 250),
+                       torch.full((1, 16), v.mask_token_id), torch.full((1, 1), 251)], 1)
+    uncond = frame.clone()
+    uncond[:, :6] = v.pad_token_id
+    kw = dict(uncond_input_ids=uncond.to(cuda_device), timesteps=6, guidance_scale=2.0,
+              num_vq_tokens=16, cfg_interval=(1 / 6, 5 / 6))
+
+    def run(**extra):
+        g = torch.Generator(cuda_device).manual_seed(4)
+        return model.t2i_generate(frame.to(cuda_device), generator=g, **kw, **extra)
+
+    want = run()
+    before = flash_attention.launches
+    got = run(segment_timesteps=2)
+    assert flash_attention.launches - before == model.cfg.n_layers * 6
+    assert torch.equal(got, want)

@@ -251,8 +251,10 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     """In a fresh interpreter where jax, yaml, PIL and mmada_tpu cannot be
     imported, the port imports, runs a tiny forward, takes a train step,
     runs attention forward and backward at 4,224 tokens (the long tier),
-    runs an int4 forward and a W8A8 forward (`entry.quantize`), and encodes
-    and decodes an image with a tiny MAGVIT-v2."""
+    runs an int4 forward and a W8A8 forward (`entry.quantize`), encodes
+    and decodes an image with a tiny MAGVIT-v2, and answers one request
+    through the serving engine (`serve.engine`, `utils.flops`); `app_torch`
+    imports too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -327,7 +329,16 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "                     block_kv_cache=parse_kv_cache('int8'), cache_refresh_every=1,\n"
         "                     parallel_threshold=0.9)\n"
         "assert out.shape == (2, 14) and (out != vocab.mask_token_id).all()\n"
-        "import chip_smoke, profile_cached\n"
+        "from mmada_tpu_torch.serve import engine\n"
+        "from mmada_tpu_torch.utils import flops\n"
+        "eng = engine.ServingEngine(model, min_chunk_device_ms=0).start()\n"
+        "st = engine.TextSettings(gen_length=8, steps=4, block_length=4, segment_steps=1)\n"
+        "got = eng.submit_text(ids[0, :6].numpy(), st).result(60)\n"
+        "eng.stop()\n"
+        "want = model.generate(ids[:1, :6], gen_length=8, steps=4, block_length=4)[0]\n"
+        "assert (torch.as_tensor(got) == want).all() and eng.stats['chunks'] == 4\n"
+        "assert flops.forward_matmul_flops_per_token(cfg, 14, 4, cfg.vocab_size) > 0\n"
+        "import chip_smoke, profile_cached, app_torch\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-B", "-c", code], cwd=REPO, capture_output=True,
@@ -341,6 +352,21 @@ _FORBIDDEN = re.compile(
     r"|import\s+mmada_tpu(\.|\s|$)|from\s+mmada_tpu(\.|\s))",
     re.MULTILINE,
 )
+
+
+def test_app_torch_imports_no_jax_and_pil_only_inside_functions():
+    """The HTTP front end imports nothing of JAX or the JAX package, and
+    PIL only inside the functions that need it (as the command lines do)."""
+    with open(os.path.join(REPO, "app_torch.py")) as f:
+        src = f.read()
+    imports = re.findall(r"^(\s*)(?:import\s+([\w.]+)|from\s+([\w.]+)\s+import)", src,
+                         re.MULTILINE)
+    assert imports
+    for indent, a, b in imports:
+        top = (a or b).split(".")[0]
+        assert top not in ("jax", "jaxlib", "mmada_tpu"), a or b
+        if top in ("PIL", "yaml"):
+            assert indent, a or b
 
 
 def test_source_scan_finds_no_forbidden_import():

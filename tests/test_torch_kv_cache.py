@@ -16,7 +16,7 @@ under the FP32 policy on inputs made from numpy seeds:
   refresh 0 and 2), and equal to the exact sampler where the cache is always
   fresh (refresh 1, one step a block, one t2i timestep);
 * the refusals (`cfg_interval` with the cache, a biased model with the
-  cache, segmented runs), the strict `kv_cache` parser, attention of a few
+  cache, segmented runs with the cache), the strict `kv_cache` parser, attention of a few
   queries over more than 4,096 keys (the one-pass tier, equal to JAX's
   `xla_attention` within 2e-4), and `entry.serve_*` with the knobs.
 """
@@ -281,7 +281,7 @@ def test_t2i_cached_fresh_equals_exact(models):
 
 def test_cache_refusals(models):
     """`cfg_interval` with the cache, the cache on a biased model, and the
-    segmented runs raise."""
+    segmented runs with the cache raise (JAX's `ValueError`)."""
     _, model = models
     frame, uncond = (torch.from_numpy(a) for a in _t2i_frame(model.vocab))
     with pytest.raises(ValueError, match="cfg_interval"):
@@ -294,10 +294,10 @@ def test_cache_refusals(models):
         biased.generate(prompt, **TEXT, block_kv_cache=True)
     with pytest.raises(ValueError, match="no-bias"):
         biased.t2i_generate(frame, **T2I, block_kv_cache="int8")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        model.generate(prompt, **TEXT, segment_steps=4)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        model.t2i_generate(frame, **T2I, segment_timesteps=2)
+    with pytest.raises(ValueError, match="exact sampler only"):
+        model.generate(prompt, **TEXT, segment_steps=4, block_kv_cache=True)
+    with pytest.raises(ValueError, match="exact sampler only"):
+        model.t2i_generate(frame, **T2I, segment_timesteps=2, block_kv_cache=True)
     with pytest.raises(NotImplementedError, match="remat"):
         llada.forward_kv_capture(model.params, model.cfg, prompt.long(), remat=True)
 

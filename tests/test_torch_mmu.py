@@ -4,8 +4,8 @@
 * `mmu_generate` is token-exact at T = 0 (cfg 0 and 1.5); `mmu_generate_fast`
   too, with an EOT that stops both after the first block, and with one that
   never stops them; both with each fast-sampler knob (the block-KV cache,
-  bf16 and int8, its refresh, tau-parallel and its warmup); `segment_steps`
-  raises.
+  bf16 and int8, its refresh, tau-parallel and its warmup); with
+  `segment_steps` too.
 * `serve_mmu(device="cpu")` answers as JAX's `get_code` + the
   `inference_mmu.py` frame + `mmu_generate` (or `mmu_generate_fast`) do.
 * `Trainer.prepare_batch` on pixel flows with `cache_keys` equals the JAX
@@ -158,11 +158,14 @@ def test_mmu_knobs_match_jax(models, knob):
 
 
 def test_mmu_segment_steps_raises(models):
-    """The segmented run belongs to the serving engine (ROADMAP A.9)."""
-    _, model, *_ = models
-    prompt = torch.from_numpy(_prompts(models, n=1)).long()
-    with pytest.raises(NotImplementedError, match="A.9"):
-        model.mmu_generate(prompt, **GEN, segment_steps=4)
+    """`segment_steps` runs the segmented sampler: JAX's answer at T = 0,
+    chunks that divide the block's steps and one that does not."""
+    jmodel, model, *_ = models
+    prompt = _prompts(models)
+    want = np.asarray(jmodel.mmu_generate(jnp.asarray(prompt), **GEN))
+    for seg in (3, 4):
+        got = model.mmu_generate(torch.from_numpy(prompt).long(), **GEN, segment_steps=seg)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("fast", [False, True])
