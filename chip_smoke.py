@@ -64,13 +64,23 @@ the exact MMU forward, which the chunk guard divides by) and through
 /health, /stats, /generate against the model on the app's frame,
 /generate_stepwise streamed, /t2i and /mmu against the t2i and MMU command
 lines' `run`, four concurrent /generate calls as one batch by /stats's
-counters), then removes the checkpoint, takes stage-1 train steps of the bf16 8B through `entry.train`, one
+counters), takes stage-1 train steps of the bf16 8B through `entry.train`, one
 stage-1 step whose flows carry 256-px images that MAGVIT-v2 encodes on the
 card (its frames equal those of the same flows carrying the codes), then
 train steps on 8,192-token frames, then turns attention masks on
 (`attention_bias_enabled=True`, the same weights) and answers t2i requests
 and takes stage-1 train steps with `t2i_masks` again, and one masked step
-on 8,192-token frames. It checks that the kernels really ran on each path
+on 8,192-token frames. Then the training command line, `train_torch` (phase
+10a: configs/proxy_160m.yaml, 4 steps with async saves, the EMA and the
+validation hooks on the repo's fixtures, `auto` remat resolving to `dots`,
+whose step's loss equals a `full` step's; a second invocation resuming every
+leaf of the state and the EMA at step 4; rotation; a third run stopped by a
+SIGTERM during step 2, leaving checkpoint-2; phase 10b: the stage-1 config
+on the 8B and MAGVIT-v2 of the checkpoint, its data through the real
+readers (an ImageNet folder, webdataset tars by the native streamer, a
+parquet file) from shards the smoke writes, 3 steps with the hooks at step
+2, `auto` resolving by the measured bytes, no save: the machine takes 45 GiB
+of writes a run), and removes the checkpoint. It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
 the int4 paths only), and that the masked paths' biases reached the
@@ -91,13 +101,16 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import logging
 import math
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 
@@ -283,6 +296,46 @@ ENGINE_JOIN_QUESTION = "What objects does this photo show you?"   # MMU_QUESTION
 # the HTTP phase (7e): app_torch's server on 127.0.0.1 over the checkpoint of
 # phase 7b''; its free port is asked of the OS
 HTTP_T2I_PROMPT = T2I_PROMPTS[0]
+# the training command line (phases 10a and 10b), `train_torch.run` on the
+# repo's configs. The validation hooks read the repo's fixtures by absolute
+# path (the proxy config names no prompts file)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = [
+    f"dataset.params.validation_prompts_file={ROOT}/validation_prompts/imagenet_prompts.txt",
+    f"dataset.params.mmu_validation_dir={ROOT}/mmu_validation",
+    f"dataset.params.lm_chat_validation_file={ROOT}/lm_chat_validation/questions.jsonl",
+]
+# 10a: configs/proxy_160m.yaml as written (full-size random MAGVIT-v2 at 512
+# px, its structured flows, loss_chunk 64, async checkpointing), 4 steps,
+# saves and hooks every 2, the EMA on; `auto` remat, which the config does
+# not set, so that its resolution runs; one checkpoint kept, so that the
+# save at step 4 rotates step 2's out; a line a step
+PROXY_CLI = [f"config={ROOT}/configs/proxy_160m.yaml", "training.max_train_steps=4",
+             "experiment.save_every=2", "experiment.generate_every=2",
+             "training.ema.enabled=true", "model.gradient_checkpointing=auto",
+             "experiment.checkpoints_total_limit=1", "experiment.log_every=1", *FIXTURES]
+PROXY_LAYERS = 8
+PROXY_ROWS, PROXY_FRAME = 12, 1091   # 4 + 4 + 4 rows; 64 + 1 + 1,024 + 2 tokens
+PROXY_TIMED_STEPS = 3                # dots against full, each from the same state
+# 10b: configs/mmada_pretraining_stage1.yaml with the 8B and MAGVIT-v2 of
+# phase 7b''; its data from shards the smoke writes (STAGE1_DATA); each
+# override for a reason: accumulation 1 (weights, gradients, two AdamW moments
+# and an accumulator, 5 x 16 GB, do not fit in 80 GB), the chunked head
+# (loss_chunk 128), the clip in the optimizer block (as phase 8), 3 steps
+# with the hooks at step 2, a line a step, and a shuffle buffer below the
+# shards' 24 samples (1,000 would decode each image ~40 times before the
+# first batch). gradient_checkpointing stays `auto`, as written. No save
+# (the fixed choice of this phase): the machine this smoke runs on accepts at
+# most 45 GiB of disk writes a run, deleted files counted, and phase 7b''
+# writes 16.5 GB; the 8B's train state is 48.5 GB. The save and resume checks
+# are phase 10a's
+STAGE1_CLI = [f"config={ROOT}/configs/mmada_pretraining_stage1.yaml",
+              "training.gradient_accumulation_steps=1", "training.loss_chunk=128",
+              "optimizer.params.max_grad_norm=1.0", "training.max_train_steps=3",
+              "experiment.save_every=0", "experiment.generate_every=2",
+              "experiment.log_every=1", "dataset.params.shuffle_buffer_size=16", *FIXTURES]
+STAGE1_STEPS = 3
+STAGE1_DATA = dict(classes=3, per_class=8, tars=2, per_tar=12, docs=40)
 
 
 def log(phase: str, msg: str) -> None:
@@ -469,6 +522,8 @@ def kernel_cases(h: int):
          t2i_len, False, None),
         ("cached long step", 1, h, h, LONG_TEXT_SETTINGS["block_length"], LONG_FRAME, False,
          None),
+        # the proxy config's training frame (phase 10a): 4 heads of 128
+        ("proxy train B12 (H 4)", PROXY_ROWS, 4, 4, PROXY_FRAME, PROXY_FRAME, True, None),
     ]
 
 
@@ -700,6 +755,8 @@ def bwd_cases(h: int):
          lambda: random_bias(1, h, 333, 333, 8)),
         ("masked gqa 32/8", 2, h, 8, 1155, 1155, False, False,
          lambda: t2i_mask_bias(cfg_batch=False)),
+        ("proxy train B12 (H 4, Function)", PROXY_ROWS, 4, 4, PROXY_FRAME, PROXY_FRAME, True,
+         True, None),
     ]
 
 
@@ -1689,8 +1746,6 @@ def main() -> int:
     # goes, before the weights are trained in place
     http = http_phase(ckpt_dir, loaded, image, reset_counts, counts)
     del loaded
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    log("checkpoint", f"removed {ckpt_dir}")
 
     # 8. the training path: stage-1 train steps of the same 8B (its weights
     # are trained in place), full remat, counters from 0
@@ -1800,12 +1855,28 @@ def main() -> int:
                next(r for r in long_records if r["tag"].startswith("masked long train")),
                next(r for r in long_bwd_records if r["tag"].startswith("masked long train")), n)
 
+    # 10. the training command line (`train_torch`): the proxy config (10a),
+    # then the stage-1 config on the 8B of phase 7b'' (10b). Only one 8B with
+    # its training state fits on the card: the served 8B and every trainer
+    # go first
+    del masked_long_trainer, masked, model, vq
+    free_memory()
+    proxy_cli = proxy_cli_phase(reset_counts, counts)
+    stage1_cli = stage1_cli_phase(ckpt_dir, os.path.join(ckpt_dir, "magvit2"), reset_counts,
+                                  counts)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("checkpoint", f"removed {ckpt_dir}")
+    log("train cli", f"B1 {proxy_cli['b1']} + {stage1_cli['b1']}, dq {proxy_cli['dq']} + "
+        f"{stage1_cli['dq']}, dkv {proxy_cli['dkv']} + {stage1_cli['dkv']} (proxy + stage 1, "
+        "hooks and auto's measuring forward included)")
+
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
     b1_parts = dict(serve=launches, mmu=mmu_launches, checkpoint=ckpt["b1"],
                     cached=cached["b1"], int4_cached=int4_cached["b1"], engine=engine["b1"],
-                    http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0])
+                    http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0],
+                    train_cli=proxy_cli["b1"] + stage1_cli["b1"])
     b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"])
     log("launches", f"B1 {sum(b1_parts.values())} by phase {b1_parts}; "
         f"B6 {sum(b6_parts.values())} by phase {b6_parts}")
@@ -1854,10 +1925,10 @@ def main() -> int:
                              dict(recs[0][key], library_ms=recs[0]["library_ms"]))
 
     for name, key, line, count, recs in (
-            ("flash_attention_bwd_dq", "dq", "895", train_launches[1] + pixel_train[0][1],
-             plain_bwd),
-            ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2] + pixel_train[0][2],
-             plain_bwd),
+            ("flash_attention_bwd_dq", "dq", "895", train_launches[1] + pixel_train[0][1]
+             + proxy_cli["dq"] + stage1_cli["dq"], plain_bwd),
+            ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2] + pixel_train[0][2]
+             + proxy_cli["dkv"] + stage1_cli["dkv"], plain_bwd),
             ("flash_attention_bwd_dq_bias", "dq", "746", masked_train[1], biased_bwd),
             ("flash_attention_bwd_dkv_bias", "dkv", "799", masked_train[2], biased_bwd),
             ("flash_attention_long_bwd_dq", "dq", "1185", long_train[2][1], long_bwd),
@@ -2890,6 +2961,385 @@ def step_share(phase, trainer, fwd_rec, bwd_rec, n_layers) -> None:
     log(phase, f"steady step {step_ms:.1f} ms: attention kernels "
         f"{sum(attn_ms.values()):.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in attn_ms.items())}; "
         f"{sum(attn_ms.values()) / step_ms:.1%})")
+
+
+def launch_delta(before, after):
+    """counts() after minus counts() before, kind by kind."""
+    return tuple(tuple(a - b for a, b in zip(x, y)) for x, y in zip(after, before))
+
+
+def counted_hooks(trainer, counts) -> list:
+    """Wrap `trainer.run_validation_hooks` so that each cadence records its
+    seconds and the launches its generations made; returns that list."""
+    import torch
+
+    spent, inner = [], trainer.run_validation_hooks
+
+    def run(raw=None):
+        before = counts()
+        t = time.perf_counter()
+        inner(raw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t, launch_delta(before, counts())))
+
+    trainer.run_validation_hooks = run
+    return spent
+
+
+def hook_files(out: str, step: int) -> list:
+    path = os.path.join(out, "validation", f"step_{step}")
+    return sorted(os.listdir(path)) if os.path.isdir(path) else []
+
+
+HOOK_FILES = sorted(["chat.jsonl", "mmu_answers.jsonl", "t2i_prompts.jsonl"]
+                    + [f"t2i_{i:03d}.png" for i in range(4)]
+                    + [f"pred_{i:03d}_{k}.png" for i in range(2)
+                       for k in ("model", "original", "recon")])
+
+
+def fit_logged(phase, trainer, loader, counts, seed):
+    """`trainer.fit(loader)` with the launches, the hooks' share of them,
+    the host RSS growth and the peak device memory; logs each step's line.
+    Returns (launches of the train steps, hooks' launches, fit seconds,
+    RSS growth, peak GiB)."""
+    import torch
+
+    hooks = counted_hooks(trainer, counts)
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    with rss_growth() as rss:
+        t = time.perf_counter()
+        trainer.fit(loader, rng_seed=seed)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    launched = launch_delta(before, counts())
+    hooked = tuple(tuple(sum(h[1][k][i] for h in hooks) for i in range(len(launched[k])))
+                   for k in range(len(launched)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in trainer.history:
+        log(phase, f"step {h['step']}: loss {h['loss']:.4f} (t2i {h['loss_t2i']:.4f} lm "
+            f"{h['loss_lm']:.4f} mmu {h['loss_mmu']:.4f}) grad_norm {h['grad_norm']:.4f}; "
+            f"{h['seconds']:.3f}s, {h['samples_per_sec']:.3f} samples/s, data time "
+            f"{h['data_time']:.3f}s against batch time {h['batch_time']:.3f}s (meters' means)")
+        if not all(map(math.isfinite, h.values())) or h["skipped_nonfinite"]:
+            raise AssertionError(f"{phase}: bad train step {h}")
+    for seconds, delta in hooks:
+        log(phase, f"validation hooks at a cadence: {seconds:.2f}s, launches {delta}")
+    for s in trainer.saves:
+        log(phase, f"save at step {s['step']} ({'waited' if s['wait'] else 'async'}): "
+            f"{s['bytes'] / 1e9:.3f} GB, host snapshot {s['snapshot_s']:.2f}s, write "
+            f"{s['write_s']:.2f}s ({s['bytes'] / s['write_s'] / 1e9:.2f} GB/s, fsync'd)")
+    log(phase, f"fit {fit_s:.2f}s; host RSS growth {rss['growth'] / 1e9:.3f} GB (before "
+        f"{rss['before'] / 1e9:.3f}); peak {peak:.2f} GiB allocated; hook failures "
+        f"{trainer.hook_failures}")
+    if trainer.hook_failures:
+        raise AssertionError(f"{phase}: validation hooks failed: {trainer.hook_failures}")
+    return launch_delta(hooked, launched), hooked, fit_s, rss["growth"], peak
+
+
+def differing_leaves(a: dict, b: dict) -> list:
+    """Keys of two flattened states whose tensors differ in dtype, shape or
+    bits, and the keys only one holds."""
+    import torch
+
+    diff = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = a[k], b[k].to(a[k].device)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            diff.append(k)
+    return diff
+
+
+def _clone(tree, grad=False):
+    if isinstance(tree, dict):
+        return {k: _clone(v, grad) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v, grad) for v in tree]
+    out = tree.detach().clone()
+    return out.requires_grad_() if grad else out
+
+
+def dots_against_full(trainer, loader) -> dict:
+    """The resolved `dots` step against a `full` step from copies of the
+    same state, on one batch with the same generators: their losses (bit for
+    bit: the forwards are the same), and each mode's step time, in turns
+    (full, dots, dots, full; the first step of each turn left out)."""
+    import torch
+
+    from mmada_tpu_torch.training.train_step import TrainState, make_train_step
+
+    batch = trainer.prepare_batch(next(iter(loader)))
+    base = trainer.state
+    losses, times = {}, {"full": [], "dots": []}
+    for mode in ("full", "dots", "dots", "full"):
+        step = make_train_step(dataclasses.replace(trainer.model, remat=mode),
+                               trainer.optimizer, trainer.step_cfg)
+        state = TrainState(params=_clone(base.params, grad=True),
+                           opt_state=_clone(base.opt_state), step=base.step.clone())
+        run = []
+        for i in range(PROXY_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch, torch.Generator("cuda").manual_seed(i))
+            run.append(metrics["loss"].clone())
+            torch.cuda.synchronize()
+            if i:   # the first step of a turn warms the allocator
+                times[mode].append(time.perf_counter() - t)
+        losses.setdefault(mode, run)
+        del state, step
+    same = all(torch.equal(a, b) for a, b in zip(losses["full"], losses["dots"]))
+    return {"losses": {m: [float(x) for x in v] for m, v in losses.items()},
+            "first_equal": torch.equal(losses["full"][0], losses["dots"][0]),
+            "all_equal": same,
+            "ms": {m: 1e3 * sorted(v)[len(v) // 2] for m, v in times.items()}}
+
+
+def proxy_cli_phase(reset_counts, counts) -> dict:
+    """Phase 10a: `train_torch` on configs/proxy_160m.yaml (PROXY_CLI): 4
+    steps with saves and hooks at 2 and 4, the EMA, `auto` resolving to
+    dots; a second invocation resuming every leaf of the state and the EMA
+    at step 4; the dots step against a full step; a third run stopped by
+    a SIGTERM during step 2, leaving a complete checkpoint-2."""
+    import signal
+
+    import torch
+
+    import train_torch
+    from mmada_tpu_torch.checkpoints import manager
+
+    n = PROXY_LAYERS
+    root = tempfile.mkdtemp(prefix="mmada_proxy_")
+    atexit.register(shutil.rmtree, root, True)
+    out = os.path.join(root, "run")
+    t = time.perf_counter()
+    trainer, loader = train_torch.setup(train_torch.read_config(
+        PROXY_CLI + [f"experiment.output_dir={out}"]))
+    log("proxy cli", f"setup (random 160M + MAGVIT-v2, pattern bank at 512 px) "
+        f"{time.perf_counter() - t:.2f}s")
+    reset_counts()
+    train, hooked, fit_s, _, _ = fit_logged("proxy cli", trainer, loader, counts, 0)
+    mode, info = trainer.remat_resolved
+    log("proxy cli", f"gradient_checkpointing=auto -> {mode}: {info}")
+    if mode != "dots":
+        raise AssertionError(f"auto resolved to {mode} on the proxy: {info}")
+    steps = trainer.max_train_steps
+    expect_launches("proxy cli", train, {"one-pass": (steps * 2 * n + 1, steps * n, steps * n)})
+    expect_launches("proxy cli hooks", hooked, {"one-pass": (hooked[0][0], 0, 0)})
+    for step in (2, 4):
+        if hook_files(out, step) != HOOK_FILES:
+            raise AssertionError(f"proxy hooks at step {step} wrote {hook_files(out, step)}")
+    kept = [s for s, _ in manager.list_checkpoints(out)]
+    log("proxy cli", f"checkpoints kept {kept} (limit 1: step 2's rotated out); saves "
+        f"{[(s['step'], s['wait']) for s in trainer.saves]}")
+    if kept != [4] or [s["step"] for s in trainer.saves] != [2, 4]:
+        raise AssertionError(f"proxy checkpoints {kept}, saves {trainer.saves}")
+
+    # a second invocation resumes the state and the EMA at step 4
+    t = time.perf_counter()
+    resumed, loader2 = train_torch.setup(train_torch.read_config(
+        PROXY_CLI + [f"experiment.output_dir={out}", "experiment.resume_from_checkpoint=latest"]))
+    diff = differing_leaves(manager.flatten(resumed._payload()),
+                            manager.flatten(trainer._payload()))
+    n_leaves = len(manager.flatten(resumed._payload()))
+    log("proxy cli", f"resumed at step {resumed.global_step} in {time.perf_counter() - t:.2f}s "
+        f"(setup included): {n_leaves} leaves (state, moments, EMA shadow and step), "
+        f"{len(diff)} differ")
+    if resumed.global_step != 4 or diff or resumed.ema_state is None:
+        raise AssertionError(f"proxy resume: step {resumed.global_step}, differing {diff[:8]}")
+    resumed.fit(loader2)
+    if resumed.history:
+        raise AssertionError("a run resumed at max_train_steps took steps")
+    template = _clone(resumed._payload())
+    nbytes = sum(t.numel() * t.element_size() for t in manager.flatten(template).values())
+    t = time.perf_counter()
+    manager.CheckpointManager(out).restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    log("proxy cli", f"restore of checkpoint-4 alone: {nbytes / 1e9:.3f} GB in {restore_s:.2f}s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s; the page cache warm from the write)")
+    del resumed, loader2, template
+
+    cmp = dots_against_full(trainer, loader)
+    log("proxy cli", f"dots against full from one state, one batch: losses {cmp['losses']}; "
+        f"first equal {cmp['first_equal']}, all equal {cmp['all_equal']}; step ms (median of "
+        f"{2 * (PROXY_TIMED_STEPS - 1)}, in turns) full {cmp['ms']['full']:.1f}, dots "
+        f"{cmp['ms']['dots']:.1f} ({cmp['ms']['full'] / cmp['ms']['dots'] - 1:+.1%} rate)")
+    if not cmp["first_equal"]:
+        raise AssertionError(f"the dots step's loss is not the full step's: {cmp['losses']}")
+    del trainer, loader
+    free_memory()
+
+    # a third run, stopped by a SIGTERM during step 2
+    stop_dir = os.path.join(root, "sigterm")
+    stopped, loader3 = train_torch.setup(train_torch.read_config(
+        PROXY_CLI + [f"experiment.output_dir={stop_dir}", "experiment.save_every=0",
+                     "experiment.generate_every=0"]))
+    previous = signal.getsignal(signal.SIGTERM)
+    prepare, calls = stopped.prepare_batch, []
+
+    def prepare_and_signal(raw):
+        calls.append(1)
+        if len(calls) == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return prepare(raw)
+
+    stopped.prepare_batch = prepare_and_signal
+    sig_train, _, _, _, _ = fit_logged("proxy sigterm", stopped, loader3, counts, 0)
+    kept = manager.list_checkpoints(stop_dir)
+    template = _clone(stopped._payload())
+    manager.CheckpointManager(stop_dir).restore(template)
+    diff = differing_leaves(manager.flatten(template), manager.flatten(stopped._payload()))
+    log("proxy sigterm", f"stopped at step {stopped.global_step}; complete checkpoints "
+        f"{[s for s, _ in kept]} ({'waited' if stopped.saves[-1]['wait'] else 'async'}), "
+        f"{len(diff)} leaves differ from the state; the smoke's SIGTERM handler back: "
+        f"{signal.getsignal(signal.SIGTERM) is previous}")
+    if (stopped.global_step != 2 or [s for s, _ in kept] != [2] or diff
+            or signal.getsignal(signal.SIGTERM) is not previous):
+        raise AssertionError("the SIGTERM run did not save checkpoint-2 and stop")
+    expect_launches("proxy sigterm", sig_train, {"one-pass": (2 * 2 * n + 1, 2 * n, 2 * n)})
+    del stopped, loader3, template
+    free_memory()
+    shutil.rmtree(root, ignore_errors=True)
+    total = [a + b + c for a, b, c in zip(train[0], hooked[0], sig_train[0])]
+    return {"b1": total[0], "dq": total[1], "dkv": total[2], "fit_s": fit_s,
+            "dots_ms": cmp["ms"]["dots"], "full_ms": cmp["ms"]["full"]}
+
+
+def write_stage1_data(root: str) -> dict:
+    """Shards of the stage-1 readers, written from seeds: an ImageNet-layout
+    folder of PNGs (non-square, so the transform resizes and crops) with a
+    label mapping, webdataset tars of PNG + caption samples (mmu), and a
+    RefinedWeb-style parquet file (lm). Images through `train_torch.write_png`
+    (PIL; the smoke imports none itself)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import train_torch
+
+    d = STAGE1_DATA
+    rng = np.random.default_rng(0)
+
+    def image(h, w):
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = rng.integers(0, 256, 3)
+        arr = (base + 40 * np.sin(xx[..., None] / rng.uniform(3, 30)) +
+               40 * np.cos(yy[..., None] / rng.uniform(3, 30)))
+        return np.clip(arr, 0, 255).astype(np.uint8)
+
+    imagenet = os.path.join(root, "imagenet")
+    with open(os.path.join(root, "labels.txt"), "w") as f:
+        for c in range(d["classes"]):
+            cls = f"n{c:08d}"
+            f.write(f"{cls} class {c} of the smoke\n")
+            os.makedirs(os.path.join(imagenet, cls))
+            for i in range(d["per_class"]):
+                train_torch.write_png(os.path.join(imagenet, cls, f"{i}.png"), image(256, 320))
+    png = os.path.join(root, "tmp.png")
+    for s in range(d["tars"]):
+        with tarfile.open(os.path.join(root, f"mmu-{s:05d}.tar"), "w") as tar:
+            for i in range(d["per_tar"]):
+                train_torch.write_png(png, image(300, 260))
+                with open(png, "rb") as f:
+                    pixels = f.read()
+                for name, data in ((f"{s:05d}{i:04d}.png", pixels),
+                                   (f"{s:05d}{i:04d}.txt", f"a picture {s} {i}".encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(data)
+                    tar.addfile(info, io.BytesIO(data))
+    os.remove(png)
+    words = ["the", "river", "stone", "cloud", "lantern", "engine", "garden", "of", "a"]
+    docs = [" ".join(rng.choice(words, int(rng.integers(20, 400)))) for _ in range(d["docs"])]
+    pq.write_table(pa.table({"content": docs}), os.path.join(root, "refinedweb.parquet"))
+    return {"t2i": imagenet, "labels": os.path.join(root, "labels.txt"),
+            "mmu": os.path.join(root, f"mmu-{{00000..{d['tars'] - 1:05d}}}.tar"),
+            "lm": os.path.join(root, "*.parquet")}
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def stage1_cli_phase(ckpt_dir: str, vq_dir: str, reset_counts, counts) -> dict:
+    """Phase 10b: `train_torch` on configs/mmada_pretraining_stage1.yaml
+    (STAGE1_CLI) with the 8B and MAGVIT-v2 of phase 7b'' and data through
+    the real readers (the tars by the native streamer): 3 steps, the hooks
+    at step 2, `auto` resolved by the measured bytes; no save (STAGE1_CLI's
+    comment says why)."""
+    import torch
+
+    import train_torch
+
+    n = 32
+    data = tempfile.mkdtemp(prefix="mmada_stage1_data_")
+    out = tempfile.mkdtemp(prefix="mmada_stage1_out_")
+    for path in (data, out):
+        atexit.register(shutil.rmtree, path, True)
+    t = time.perf_counter()
+    shards = write_stage1_data(data)
+    log("stage1 cli", f"wrote the shards in {time.perf_counter() - t:.2f}s: {shards}")
+    with open("/proc/meminfo") as f:
+        avail = next(int(ln.split()[1]) * 1024 for ln in f if ln.startswith("MemAvailable"))
+    log("stage1 cli", f"{shutil.disk_usage(out).free / 1e9:.1f} GB free under {out}; host "
+        f"MemAvailable {avail / 1e9:.1f} GB; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated on the card before the phase; fixed choice: no save of the 8B's state "
+        "(the machine's 45 GiB of disk writes a run; save and resume are checked in 10a)")
+    argv = STAGE1_CLI + [
+        f"model.mmada.pretrained_model_path={ckpt_dir}", f"model.vq_model.vq_model_path={vq_dir}",
+        f"dataset.params.train_t2i_shards_path_or_url={shards['t2i']}",
+        f"dataset.params.imagenet_label_mapping={shards['labels']}",
+        f"dataset.params.train_mmu_shards_path_or_url={shards['mmu']}",
+        f"dataset.params.train_lm_shards_path_or_url={shards['lm']}",
+        f"experiment.output_dir={out}"]
+    readers = _Records()
+    wds_log = logging.getLogger("mmada_tpu_torch.data.webdataset")
+    wds_log.addHandler(readers)
+    wds_log.setLevel(logging.INFO)
+    t = time.perf_counter()
+    trainer, loader = train_torch.setup(train_torch.read_config(argv))
+    log("stage1 cli", f"setup (the 8B and MAGVIT-v2 loaded, AdamW moments made) "
+        f"{time.perf_counter() - t:.2f}s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+    reset_counts()
+    train, hooked, fit_s, rss, peak = fit_logged("stage1 cli", trainer, loader, counts, 10086)
+    wds_log.removeHandler(readers)
+    mode, info = trainer.remat_resolved
+    log("stage1 cli", f"gradient_checkpointing=auto -> {mode}: dots would keep "
+        f"{info['dots_layer_bytes'] / 1e6:.1f} MB a layer, {info['dots_saved_bytes'] / 1e9:.2f} "
+        f"GB in all, beside {info['allocated_bytes'] / 1e9:.2f} GB allocated and "
+        f"{info['grads_bytes'] / 1e9:.2f} GB of gradients: {info['total_bytes'] / 1e9:.2f} GB "
+        f"against 0.92 x {info['budget_bytes'] / 1e9:.2f} GB ({info})")
+    log("stage1 cli", f"tar readers: {readers.messages}")
+    if not readers.messages or not all("native" in m for m in readers.messages):
+        raise AssertionError(f"the mmu reader did not take the native tar streamer: "
+                             f"{readers.messages}")
+    expect_launches("stage1 cli", train, {"one-pass": (
+        STAGE1_STEPS * 2 * n + 1, STAGE1_STEPS * n, STAGE1_STEPS * n)})
+    expect_launches("stage1 cli hooks", hooked, {"one-pass": (hooked[0][0], 0, 0)})
+    if hook_files(out, 2) != HOOK_FILES:
+        raise AssertionError(f"stage-1 hooks wrote {hook_files(out, 2)}")
+    if trainer.saves or len(trainer.history) != STAGE1_STEPS:
+        raise AssertionError(f"stage-1: saves {trainer.saves}, {len(trainer.history)} steps")
+    frames = [t for k, t in trainer.prepare_batch(next(iter(loader))).items()
+              if k.endswith("input_ids")]
+    shape = (sum(t.shape[0] for t in frames), {t.shape[1] for t in frames})
+    log("stage1 cli", f"(rows, frame lengths) {shape}")
+    if shape != (TRAIN_ROWS, {TRAIN_FRAME}):
+        raise AssertionError(f"the stage-1 batches are {shape}, the kernels were checked at "
+                             f"({TRAIN_ROWS}, {TRAIN_FRAME})")
+    history = trainer.history
+    del trainer, loader, frames
+    free_memory()
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(data, ignore_errors=True)
+    total = [a + b for a, b in zip(train[0], hooked[0])]
+    return {"b1": total[0], "dq": total[1], "dkv": total[2], "fit_s": fit_s, "rss": rss,
+            "peak": peak, "history": history, "remat": (mode, info)}
 
 
 def engine_phase(model, vq, vq_cfg, image, quantize, reset_counts, counts) -> dict:

@@ -426,7 +426,7 @@ def parse_cfg_interval(value):
 
 def parse_remat(value):
     """`training.gradient_checkpointing` -> False | "full" | "dots" | "auto"
-    (the port's forward takes False and "full"; `llada._check_remat`)."""
+    (`llada._check_remat`; the Trainer resolves "auto", `training/remat_auto.py`)."""
     if isinstance(value, str):
         v = value.strip().lower()
         if v in ("dots", "auto"):

@@ -15,7 +15,8 @@ stack) and an optimizer's in-place updates land in the storage serving
 reads. `forward` takes either form. RoPE rides into the attention call,
 which rotates q and k inside the kernel's C entry. `remat` recomputes each
 layer in the backward (`torch.utils.checkpoint`, the counterpart of
-`jax.checkpoint` in `_wrap_remat`). Every block matmul and the vocab head go
+`jax.checkpoint` in `_wrap_remat`): "full" all of it, "dots" all but the
+matmuls' outputs, which it keeps (`DOTS_SAVED_OPS`). Every block matmul and the vocab head go
 through `ops/quantization.py`'s dispatch (`maybe_matmul` / `multi_matmul`),
 so a weight may be a quantized leaf (int8, W8A8, int4: kernel B6) or a
 W8A8 training tag; a plain tensor takes `x @ w` as before.
@@ -36,7 +37,11 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import FP32, Policy
@@ -425,7 +430,7 @@ def forward(
     policy: Policy = FP32,
     logit_window: Optional[tuple[int, int]] = None,
     logit_positions: Optional[tuple] = None,
-    remat=False,  # False | True | "full" (_check_remat)
+    remat=False,  # False | True | "full" | "dots" | "auto" (_check_remat)
     return_normed_hidden: bool = False,
     taps: Optional[dict] = None,
 ) -> torch.Tensor:
@@ -439,6 +444,8 @@ def forward(
     gain each layer's per-channel input absmax at its quantized matmuls
     (`calibration_stats`, which runs without autograd, so without remat)."""
     remat = _check_remat(remat)
+    if not torch.is_grad_enabled():
+        remat = False
     x = params["wte"][input_ids].to(policy.compute_dtype)
     if cfg.input_emb_norm:
         x = x * math.sqrt(cfg.d_model)
@@ -449,10 +456,12 @@ def forward(
         bias = None  # reference-faithful: masks never reach attention
 
     sin, cos = rope_sin_cos(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
-    remat = remat and torch.is_grad_enabled()
     for lp in layer_params(params):
-        if remat:
+        if remat == "full":
             x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False)
+        elif remat == "dots":
+            x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False,
+                           context_fn=dots_context)
         else:
             x = _block(cfg, x, lp, bias, sin, cos, taps)
 
@@ -496,19 +505,37 @@ def calibration_stats(params: Params, cfg: LLaDAConfig, calib_batches,
     return acc
 
 
-def _check_remat(remat) -> bool:
-    """Activation checkpointing modes of `_wrap_remat`: False saves every
-    activation; True / "full" recomputes each layer in the backward. The
-    policy modes "dots" (save the matmul outputs) and "auto" (pick by memory
-    fit) are not ported yet."""
+#: The ops whose outputs `remat="dots"` keeps for the backward: the block's
+#: projection matmuls (`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`;
+#: `x @ w` of a (B, L, D) activation and a 2-D weight runs as one `mm`).
+#: Everything else, the attention kernel's forward included, is recomputed.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def dots_context(policy=dots_policy):
+    """The selective-checkpoint contexts of one `remat="dots"` layer."""
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _check_remat(remat):
+    """Activation checkpointing modes of `_wrap_remat` -> False | "full" |
+    "dots": False saves every activation; True / "full" recomputes each
+    layer in the backward; "dots" keeps the matmuls' outputs
+    (`DOTS_SAVED_OPS`) and recomputes the rest. An unresolved "auto" (a
+    forward outside the Trainer, which picks dots or full by memory fit,
+    `training/remat_auto.py`) is "full"."""
     if remat in (False, None):
         return False
-    if remat is True or remat == "full":
-        return True
-    if remat in ("dots", "auto"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet; use False, True or 'full'")
-    raise ValueError(f"remat must be False/True/'full', got {remat!r}")
+    if remat is True or remat in ("full", "auto"):
+        return "full"
+    if remat == "dots":
+        return "dots"
+    raise ValueError(f"remat must be False/True/'full'/'dots'/'auto', got {remat!r}")
 
 
 def _head(

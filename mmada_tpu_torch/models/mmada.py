@@ -66,8 +66,8 @@ class MMadaModel:
     vocab: VocabLayout
     policy: Policy = FP32
     remat: Any = False
-    """Activation checkpointing of the training path: False | True | "full"
-    (llada._check_remat)."""
+    """Activation checkpointing of the training path: False | True | "full" |
+    "dots" | "auto" (llada._check_remat)."""
 
     def __post_init__(self):
         if self.params is not None:  # a train step's template holds no weights

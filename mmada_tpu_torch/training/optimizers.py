@@ -1,15 +1,18 @@
-"""AdamW with a no-decay mask, global-norm clipping, and gradient
+"""AdamW and Lion with a no-decay mask, global-norm clipping, and gradient
 accumulation.
 
-Counterpart of `mmada_tpu/training/optimizers.py` (:19-64) and of the optax
-chain it builds, in optax's order:
+Counterpart of `mmada_tpu/training/optimizers.py` (:19-98) and of the optax
+chains it builds, in optax's order:
 
-    clip_by_global_norm -> Adam (bias-corrected, eps outside the sqrt)
-    -> add_decayed_weights(mask) -> scale by -lr(count)
+    AdamW: clip_by_global_norm -> Adam (bias-corrected, eps outside the sqrt)
+           -> add_decayed_weights(mask) -> scale by -lr(count)
+    Lion:  clip_by_global_norm -> sign((1 - b1) g + b1 m), m <- (1 - b2) g + b2 m
+           -> add_decayed_weights(mask) -> scale by -lr(count)
 
-State is one first and one second moment per parameter, in the
+AdamW's state is one first and one second moment per parameter, in the
 parameter's dtype unless `mu_dtype` says otherwise (optax's default with
-`mu_dtype=None`), and an update count on the device.
+`mu_dtype=None`), and an update count on the device; Lion's is one moment
+per parameter, in the parameter's dtype, and the count.
 
 Each operation rounds as optax's does on the same leaves, so bf16 weights
 and moments come out bit for bit as optax's (tests/test_torch_training.py
@@ -33,7 +36,6 @@ non-finite step is skipped on the device, with no host round trip.
 
 `MultiSteps` is optax's `MultiSteps` (gradient accumulation): the running
 mean of k micro-batch gradients, an inner update every k-th call.
-Lion is not ported yet.
 """
 
 from __future__ import annotations
@@ -69,14 +71,23 @@ def decay_mask(params: Named, no_decay_keys=NO_DECAY_KEYS) -> dict[str, bool]:
 
 
 def global_norm(tensors: Named) -> torch.Tensor:
-    """`optax.global_norm` with its rounding, on the device: per leaf,
+    """`optax.global_norm` with its rounding, on the device, over JAX's
+    leaves: the layers of a kind (`layers.{i}.{kind}`) form one leaf
+    (`blocks/{kind}`), as in the JAX package's layer-stacked tree. Per leaf,
     squares in the leaf's dtype summed in fp32 and rounded to that dtype;
-    the leaves' sums added in order (promoting as JAX does); the square root
-    in the result's dtype (bf16 for bf16 leaves)."""
-    total = None
-    for t in tensors.values():
+    the leaves' sums added in JAX's tree order (its paths sorted) promoting
+    as JAX does; the square root in the result's dtype (bf16 for bf16
+    leaves)."""
+    parts: dict[tuple, torch.Tensor] = {}
+    dtypes: dict[tuple, torch.dtype] = {}
+    for name, t in tensors.items():
+        path = tuple(_kind(name)[0].split("/"))
         part = sum((c * c).sum(dtype=torch.float32) for c in t.reshape(-1).split(CHUNK))
-        part = part.to(t.dtype)
+        parts[path] = part if path not in parts else parts[path] + part
+        dtypes[path] = t.dtype
+    total = None
+    for path in sorted(parts):
+        part = parts[path].to(dtypes[path])
         total = part if total is None else total + part
     return torch.sqrt(total)
 
@@ -103,6 +114,21 @@ class _Weak:
         return self.cache[key]
 
 
+def _learning_rate(learning_rate, count: torch.Tensor) -> torch.Tensor:
+    if callable(learning_rate):
+        return learning_rate(count)
+    return torch.full((), learning_rate, dtype=torch.float32, device=count.device)
+
+
+def _clip(grads: Named, max_grad_norm: Optional[float], c: "_Weak"):
+    """`clip_by_global_norm`'s per-chunk map (identity without a clip)."""
+    if max_grad_norm is None:
+        return lambda g: g
+    g_norm = global_norm(grads)
+    trigger = g_norm < max_grad_norm
+    return lambda g: torch.where(trigger, g, (g / g_norm.to(g.dtype)) * c("max_norm", g))
+
+
 @dataclasses.dataclass
 class AdamW:
     learning_rate: Union[float, Callable]
@@ -113,11 +139,6 @@ class AdamW:
     max_grad_norm: Optional[float] = 1.0
     mu_dtype: Optional[torch.dtype] = None
     no_decay_keys: tuple = NO_DECAY_KEYS
-
-    def _lr(self, count: torch.Tensor) -> torch.Tensor:
-        if callable(self.learning_rate):
-            return self.learning_rate(count)
-        return torch.full((), self.learning_rate, dtype=torch.float32, device=count.device)
 
     def init(self, params: Named) -> dict:
         device = next(iter(params.values())).device
@@ -139,22 +160,17 @@ class AdamW:
         f32 = dict(dtype=torch.float32, device=device)
         bc1 = 1.0 - torch.tensor(self.beta1, **f32) ** count_inc  # fp32, as optax
         bc2 = 1.0 - torch.tensor(self.beta2, **f32) ** count_inc
-        step_size = -1.0 * self._lr(count)
+        step_size = -1.0 * _learning_rate(self.learning_rate, count)
         c = _Weak(device, one_minus_b1=1 - self.beta1, b1=self.beta1,
                   one_minus_b2=1 - self.beta2, b2=self.beta2, eps=self.eps,
                   wd=self.weight_decay, max_norm=self.max_grad_norm or 0.0)
-        clip = None
-        if self.max_grad_norm is not None:
-            g_norm = global_norm(grads)
-            clip = (g_norm < self.max_grad_norm, g_norm)
+        clip = _clip(grads, self.max_grad_norm, c)
         decay = decay_mask(params, self.no_decay_keys)
         for name, p in params.items():
             flat = [t.reshape(-1).split(CHUNK)
                     for t in (p, grads[name], state["mu"][name], state["nu"][name])]
             for pc, g, mc, vc in zip(*flat):
-                if clip is not None:  # clip_by_global_norm
-                    trigger, g_norm = clip
-                    g = torch.where(trigger, g, (g / g_norm.to(g.dtype)) * c("max_norm", g))
+                g = clip(g)
                 # scale_by_adam: moments, bias corrections, the update
                 mu = c("one_minus_b1", g) * g + c("b1", mc) * mc
                 nu = c("one_minus_b2", g) * (g * g) + c("b2", vc) * vc
@@ -171,10 +187,54 @@ class AdamW:
 
 
 @dataclasses.dataclass
+class Lion:
+    """`optax.lion` after an optional global-norm clip, with the decay mask
+    (`mmada_tpu/training/optimizers.py:67-87`), rounding as optax does: each
+    op in the leaf's dtype, Python constants weakly typed."""
+
+    learning_rate: Union[float, Callable]
+    beta1: float = 0.9
+    beta2: float = 0.99
+    weight_decay: float = 0.0
+    max_grad_norm: Optional[float] = None
+    no_decay_keys: tuple = NO_DECAY_KEYS
+
+    def init(self, params: Named) -> dict:
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int64, device=device),
+                "mu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def apply(self, params: Named, grads: Named, state: dict,
+              gate: Optional[torch.Tensor] = None) -> None:
+        """One update, in place."""
+        count = state["count"]
+        step_size = -1.0 * _learning_rate(self.learning_rate, count)
+        c = _Weak(count.device, one_minus_b1=1 - self.beta1, b1=self.beta1,
+                  one_minus_b2=1 - self.beta2, b2=self.beta2, wd=self.weight_decay,
+                  max_norm=self.max_grad_norm or 0.0)
+        clip = _clip(grads, self.max_grad_norm, c)
+        decay = decay_mask(params, self.no_decay_keys)
+        for name, p in params.items():
+            flat = [t.reshape(-1).split(CHUNK) for t in (p, grads[name], state["mu"][name])]
+            for pc, g, mc in zip(*flat):
+                g = clip(g)
+                # scale_by_lion: the update's sign, then the moment
+                u = torch.sign(c("one_minus_b1", g) * g + c("b1", mc) * mc)
+                mu = c("one_minus_b2", g) * g + c("b2", mc) * mc
+                if decay[name]:  # add_decayed_weights (masked)
+                    u = u + c("wd", pc) * pc
+                u = step_size.to(u.dtype) * u  # scale_by_learning_rate
+                _keep(pc, pc + u, gate)        # apply_updates
+                _keep(mc, mu, gate)
+        count.add_(1 if gate is None else gate.to(count.dtype))
+
+
+@dataclasses.dataclass
 class MultiSteps:
     """Gradient accumulation over `every_k` calls (optax.MultiSteps)."""
 
-    inner: AdamW
+    inner: Union[AdamW, Lion]
     every_k: int
 
     def init(self, params: Named) -> dict:
@@ -199,17 +259,19 @@ class MultiSteps:
         _keep(mini, (mini + 1) % self.every_k, gate)
 
 
-def from_config(opt_cfg: Mapping, lr_schedule) -> AdamW:
+def from_config(opt_cfg: Mapping, lr_schedule) -> Union[AdamW, Lion]:
     """Build from the reference config's `optimizer:` block, as a dict:
-    `{"name": "adamw", "params": {"beta1": ..., "max_grad_norm": ...}}`."""
+    `{"name": "adamw" | "lion", "params": {"beta1": ..., "max_grad_norm":
+    ...}}`, with JAX's defaults (`mmada_tpu/training/optimizers.py:89-111`:
+    Lion's beta2 0.99, both decays 0.01)."""
     name = opt_cfg.get("name", "adamw")
-    if name != "adamw":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (only adamw)")
     p = opt_cfg.get("params", {})
-    mu_dtype = p.get("mu_dtype")
-    return AdamW(
-        lr_schedule, beta1=p.get("beta1", 0.9), beta2=p.get("beta2", 0.999),
-        eps=p.get("epsilon", 1e-8), weight_decay=p.get("weight_decay", 0.01),
-        max_grad_norm=p.get("max_grad_norm", None),
-        mu_dtype=getattr(torch, mu_dtype) if mu_dtype else None,
-    )
+    common = dict(beta1=p.get("beta1", 0.9), weight_decay=p.get("weight_decay", 0.01),
+                  max_grad_norm=p.get("max_grad_norm", None))
+    if name == "adamw":
+        mu_dtype = p.get("mu_dtype")
+        return AdamW(lr_schedule, beta2=p.get("beta2", 0.999), eps=p.get("epsilon", 1e-8),
+                     mu_dtype=getattr(torch, mu_dtype) if mu_dtype else None, **common)
+    if name == "lion":
+        return Lion(lr_schedule, beta2=p.get("beta2", 0.99), **common)
+    raise ValueError(f"unknown optimizer: {name}")

@@ -5,7 +5,7 @@ Counterpart of `mmada_tpu/training/train_step.py`: one optimizer step is
   corrupt (t2i span masking + lm / mmu Bernoulli masking, training/masking.py)
   -> one backbone forward over the `[t2i | lm | mmu]` concat batch
   -> three masked-CE losses (training/losses.py)
-  -> weighted sum -> grad -> clip -> AdamW update -> LR schedule,
+  -> weighted sum -> grad -> clip -> AdamW or Lion update -> LR schedule,
 
 everything on the batch's device and nothing read back to the host: the
 metrics are 0-d device tensors. Where the JAX step returns a new state, this
@@ -28,7 +28,7 @@ from mmada_tpu_torch.ops.quantization import tag_w8a8_ste
 from mmada_tpu_torch.sampling.schedules import cosine_schedule
 from mmada_tpu_torch.training import losses as L
 from mmada_tpu_torch.training import masking
-from mmada_tpu_torch.training.optimizers import AdamW, MultiSteps, global_norm
+from mmada_tpu_torch.training.optimizers import MultiSteps, global_norm
 
 
 @dataclasses.dataclass
@@ -203,7 +203,7 @@ def make_train_step(model_template: MMadaModel, optimizer, sc: StepConfig) -> Tr
     return TrainStep(model_template, optimizer, sc)
 
 
-def with_grad_accumulation(optimizer: AdamW, every_k: int):
+def with_grad_accumulation(optimizer, every_k: int):
     if every_k <= 1:
         return optimizer
     return MultiSteps(optimizer, every_k)

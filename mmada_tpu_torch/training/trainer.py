@@ -1,21 +1,36 @@
-"""Multi-task trainer: the stage-1..4 training loop, with keyword settings.
+"""Multi-task trainer: the stage-1..4 training loop.
 
-Counterpart of `mmada_tpu/training/trainer.py` (:56-420, 546-564) without
-yaml, Orbax or a device mesh: the settings are the reference config's blocks
-as plain dicts (`training`, `optimizer`, `lr_scheduler`). The host assembles
-clean frames (prompting); the train step corrupts them on the device,
-forwards once over the `[t2i | lm | mmu]` concat, computes the three losses
-and updates.
+Counterpart of `mmada_tpu/training/trainer.py` without Orbax or a device
+mesh (the port trains on one card; meshes are ROADMAP A.12). Built from a
+`core.config.Config` (`Trainer.from_config`, the keys JAX's constructor
+reads, `mmada_tpu/training/trainer.py:56-184`) or from keyword settings, the
+reference config's blocks as plain dicts (`training`, `optimizer`,
+`lr_scheduler`, `experiment`), which `entry.train` and `chip_smoke.py` use.
+The host assembles clean frames (prompting); the train step corrupts them
+on the device, forwards once over the `[t2i | lm | mmu]` concat, computes
+the three losses and updates.
 
 The flows carry images as pixels (`images`, `(B, H, W, 3)` in [-1, 1], with
 optional `cache_keys`), which the frozen MAGVIT-v2 encoder (`vq_params`,
 `vq_cfg`) turns into codes, as the JAX Trainer does; or as VQ codes already
-(`image_codes`, raw ids in [0, codebook)). Not ported: weight EMA,
-checkpoint save and resume, the validation hooks and the preemption
-handler.
+(`image_codes`, raw ids in [0, codebook)).
+
+`fit` adds what JAX's loop has around the step: the SIGTERM flag (installed
+on the main thread only; the next iteration saves with `wait=True` and
+stops; the previous handler is put back when `fit` returns), the weight EMA
+after each step (`training.ema.*`), the checkpoint cadence
+(`experiment.save_every`, async when `training.async_checkpointing`),
+`resume()`, the validation hooks on `experiment.generate_every` (logged with
+their traceback, never fatal), the meters' samples/s, data time and batch
+time in each logged line, and `experiment.profile_at_step` as a three-step
+`torch.profiler` trace. The loop's only host sync is the logging read; the
+meters' data time stops before the step and the batch time after the read,
+and save and hook time are left out of both (`saves` keeps each save's).
+`gradient_checkpointing: auto` is resolved at the first step
+(`training/remat_auto.py`; the decision in `remat_resolved`).
 
 The optimizer is built from the `optimizer` block alone, as the JAX Trainer
-builds it (`mmada_tpu/training/optimizers.py:89-98`): its clip is
+builds it (`mmada_tpu/training/optimizers.py:89-111`): its clip is
 `optimizer.params.max_grad_norm`. A `max_grad_norm` under `training:` (where
 the stage configs put it, configs/mmada_pretraining_stage1.yaml:63) is read
 by neither package.
@@ -23,15 +38,23 @@ by neither package.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
+import os
+import signal
+import threading
 import time
-from typing import Iterable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
 
+from mmada_tpu_torch.checkpoints.manager import CheckpointManager
 from mmada_tpu_torch.models import magvit2
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.sampling.schedules import get_mask_schedule
+from mmada_tpu_torch.training import ema as ema_mod
 from mmada_tpu_torch.training import losses as L
 from mmada_tpu_torch.training import optimizers
 from mmada_tpu_torch.training.lr_schedules import from_config as lr_from_config
@@ -41,6 +64,10 @@ from mmada_tpu_torch.training.train_step import (
     make_train_step,
     with_grad_accumulation,
 )
+from mmada_tpu_torch.utils.logging import MetricsLogger
+from mmada_tpu_torch.utils.meters import AverageMeter
+
+logger = logging.getLogger(__name__)
 
 
 class Trainer:
@@ -56,7 +83,18 @@ class Trainer:
         log_every: int = 50,
         vq_params=None,
         vq_cfg: Optional[magvit2.VQGANConfig] = None,
+        experiment: Optional[Mapping] = None,
+        validation: Optional[Mapping] = None,
+        write_image: Optional[Callable] = None,
+        read_image: Optional[Callable] = None,
     ):
+        """`experiment`: `output_dir` (None, the default: no checkpoints,
+        metrics file or hooks), `checkpoints_total_limit`, `save_every`,
+        `generate_every`, `profile_at_step`, `profile_dir`. `validation`:
+        the hooks' inputs, `prompts_file`, `mmu_dir`, `chat_file`,
+        `num_vq_tokens`, `resolution` (`from_config` reads them where JAX's
+        hooks do). `write_image(path, (H, W, 3) uint8)` and
+        `read_image(path, resolution) -> pixels` are the hooks' image IO."""
         tr = dict(training or {})
         self.model = model
         self.prompting = prompting
@@ -65,6 +103,9 @@ class Trainer:
         self._vq_cache: dict = {}
         self.lm_max_seq_length = lm_max_seq_length
         self.log_every = log_every
+        self.training = tr
+        self.validation = dict(validation or {})
+        self.write_image, self.read_image = write_image, read_image
         self.step_cfg = StepConfig(
             batch_size_t2i=tr.get("batch_size_t2i", 0),
             batch_size_lm=tr.get("batch_size_lm", 0),
@@ -89,10 +130,83 @@ class Trainer:
         lr = lr_from_config(lr_scheduler or {}, total_steps=self.max_train_steps)
         opt = optimizers.from_config(optimizer or {}, lr)
         self.optimizer = with_grad_accumulation(opt, tr.get("gradient_accumulation_steps", 1))
-        self.train_step = make_train_step(model, self.optimizer, self.step_cfg)
         self.state = TrainState.create(model.params, self.optimizer)
+        self.remat_resolved = None
+        if model.remat == "auto":
+            # resolved at the first step, on the real batch (remat_auto)
+            self.train_step = self._resolve_auto_remat
+        else:
+            self.train_step = make_train_step(model, self.optimizer, self.step_cfg)
+
+        # optional weight EMA (the reference ships one but never wires it,
+        # models/training_utils.py:61-297): training.ema.*
+        ema_cfg = dict(tr.get("ema") or {})
+        self.ema_cfg = ema_cfg
+        self.ema_state = (ema_mod.EMAState.create(self.state.params)
+                          if ema_cfg.get("enabled") else None)
+
+        ex = dict(experiment or {})
+        self.output_dir = ex.get("output_dir")
+        self.save_every = ex.get("save_every", 1000) if self.output_dir else 0
+        self.generate_every = ex.get("generate_every", 0) if self.output_dir else 0
+        self.async_checkpointing = bool(tr.get("async_checkpointing", False))
+        self.profile_at = ex.get("profile_at_step")
+        self.profile_dir = ex.get("profile_dir") or (
+            os.path.join(self.output_dir, "profile") if self.output_dir else "profile")
+        self.ckpt = self.metrics = None
+        if self.output_dir:
+            self.ckpt = CheckpointManager(self.output_dir, ex.get("checkpoints_total_limit"))
+            self.metrics = MetricsLogger(os.path.join(self.output_dir, "metrics.jsonl"))
         self.global_step = 0
         self.history: list[dict[str, float]] = []
+        self.saves: list[dict] = []          # CheckpointManager.last_save of each save
+        self.hook_failures: list[str] = []   # names of the hooks that raised
+        self._preempted = False
+
+    @classmethod
+    def from_config(cls, cfg, model: MMadaModel, prompting, vq_params=None, vq_cfg=None,
+                    write_image: Optional[Callable] = None,
+                    read_image: Optional[Callable] = None) -> "Trainer":
+        """The JAX Trainer's constructor (`Trainer(cfg, model, prompting,
+        vq_params, vq_cfg)`): the keys it reads, with its defaults."""
+        g = cfg.get_path
+        experiment = {
+            "output_dir": g("experiment.output_dir", "output"),
+            "checkpoints_total_limit": g("experiment.checkpoints_total_limit"),
+            "save_every": g("experiment.save_every", 1000),
+            "generate_every": g("experiment.generate_every", 0),
+            "profile_at_step": g("experiment.profile_at_step"),
+            "profile_dir": g("experiment.profile_dir"),
+        }
+        validation = {
+            "prompts_file": g("dataset.params.validation_prompts_file"),
+            "mmu_dir": g("dataset.params.mmu_validation_dir", "mmu_validation"),
+            "chat_file": g("dataset.params.lm_chat_validation_file",
+                           os.path.join("lm_chat_validation", "questions.jsonl")),
+            "num_vq_tokens": g("model.mmada.num_vq_tokens", 1024),
+            "resolution": g("dataset.preprocessing.resolution", 256),
+        }
+        return cls(model, prompting, training=g("training", {}), optimizer=g("optimizer", {}),
+                   lr_scheduler=g("lr_scheduler", {}),
+                   mask_schedule=g("mask_schedule.schedule", "cosine"),
+                   lm_max_seq_length=g("dataset.preprocessing.max_seq_length", 512),
+                   log_every=g("experiment.log_every", 50), vq_params=vq_params, vq_cfg=vq_cfg,
+                   experiment=experiment, validation=validation, write_image=write_image,
+                   read_image=read_image)
+
+    def _resolve_auto_remat(self, state, batch, generator=None):
+        """First-step trampoline for `gradient_checkpointing: auto`: pick
+        dots or full by memory fit at this batch's shapes, swap the chosen
+        step into `self.train_step`, and run the step."""
+        from mmada_tpu_torch.training.remat_auto import pick_remat
+
+        frames = [t for k, t in batch.items() if k.endswith("input_ids")]
+        rows, length = sum(t.shape[0] for t in frames), frames[0].shape[1]
+        mode, info = pick_remat(self.model, state, rows, length)
+        self.remat_resolved = (mode, info)
+        self.train_step = make_train_step(dataclasses.replace(self.model, remat=mode),
+                                          self.optimizer, self.step_cfg)
+        return self.train_step(state, batch, generator)
 
     @property
     def device(self) -> torch.device:
@@ -165,33 +279,235 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(self.device)
                 for k, v in batch.items()}
 
+    # ------------------------------------------------------- checkpoints
+    def _payload(self) -> dict:
+        """The checkpointed tree: the train state and, when enabled, the
+        EMA shadow and its step (which would otherwise reset on resume)."""
+        out = {"train": {"params": self.state.params, "opt_state": self.state.opt_state,
+                         "step": self.state.step}}
+        if self.ema_state is not None:
+            out["ema"] = {"shadow": self.ema_state.shadow, "step": self.ema_state.step}
+        return out
+
+    def save_checkpoint(self, wait: Optional[bool] = None) -> str:
+        """checkpoint-{global_step}: async when `training.async_checkpointing`
+        unless `wait`; preemption saves wait."""
+        if wait is None:
+            wait = not self.async_checkpointing
+        path = self.ckpt.save(self.global_step, self._payload(), wait=wait)
+        self.saves.append(self.ckpt.last_save)
+        return path
+
+    def resume(self) -> int:
+        """Restore the latest checkpoint into the train state (and the EMA),
+        in place, and `global_step`; returns the step (0: nothing to resume)."""
+        restored, step = self.ckpt.restore(self._payload())
+        if restored is not None:
+            self.global_step = step
+            logger.info("resumed from step %d", step)
+        return self.global_step
+
     # -------------------------------------------------------------- loop
+    def _install_preemption_handler(self):
+        """SIGTERM (maintenance events, spot preemption) sets a flag: the
+        next iteration saves and stops. Returns the handler it replaced,
+        or None off the main thread, where signals cannot be caught."""
+        if threading.current_thread() is not threading.main_thread():
+            return None
+
+        def handler(signum, frame):
+            self._preempted = True
+
+        previous = signal.signal(signal.SIGTERM, handler)
+        return signal.SIG_DFL if previous is None else previous
+
     def fit(self, loader: Iterable[Mapping], rng_seed: int = 0) -> TrainState:
-        """Train on `loader`'s raw batches until `max_train_steps`. Every
-        `log_every` steps the metrics are read back (the loop's only host
-        sync) into `history`, with the wall seconds and tokens/s since the
-        last log and, on the card, the peak device memory so far."""
+        """Train on `loader`'s raw batches until `max_train_steps` (or a
+        SIGTERM). Every `log_every` steps the metrics are read back (the
+        loop's only host sync) into `history` (and `metrics.jsonl`), with
+        the steps' wall seconds (data included, saves and hooks not) and
+        tokens/s since the last log, the meters' samples/s, data and batch
+        time, and, on the card, the peak device memory so far."""
         generator = torch.Generator(self.device).manual_seed(rng_seed)
-        end = time.perf_counter()
-        tokens = 0
-        for raw in loader:
-            if self.global_step >= self.max_train_steps:
-                break
-            batch = self.prepare_batch(raw)
-            tokens += sum(v.numel() for k, v in batch.items() if k.endswith("input_ids"))
-            self.state, metrics = self.train_step(self.state, batch, generator)
-            self.global_step += 1
-            if self.global_step % self.log_every == 0:
-                vals = {k: float(v) for k, v in metrics.items()}
-                now = time.perf_counter()
-                vals.update(step=self.global_step, seconds=now - end,
-                            tokens_per_s=tokens / (now - end))
-                if self.device.type == "cuda":
-                    vals["max_memory_allocated_gib"] = (
-                        torch.cuda.max_memory_allocated(self.device) / 2**30)
-                end, tokens = now, 0
-                self.history.append(vals)
+        batch_meter, data_meter = AverageMeter(), AverageMeter()
+        previous = self._install_preemption_handler()
+        profiler = None
+        window_s, tokens = 0.0, 0   # steps' wall time and tokens since the last log
+        try:
+            end = time.perf_counter()
+            for raw in loader:
+                if self.global_step >= self.max_train_steps:
+                    break
+                if self._preempted:
+                    logger.warning("preemption: saving checkpoint-%d and stopping",
+                                   self.global_step)
+                    if self.ckpt is not None:
+                        self.save_checkpoint(wait=True)
+                    break
+                if self.profile_at is not None and self.global_step == self.profile_at:
+                    profiler = self._start_profile()
+                if profiler is not None and self.global_step == self.profile_at + 3:
+                    profiler = self._stop_profile(profiler)
+                batch = self.prepare_batch(raw)
+                data_meter.update(time.perf_counter() - end)
+                tokens += sum(v.numel() for k, v in batch.items() if k.endswith("input_ids"))
+                self.state, metrics = self.train_step(self.state, batch, generator)
+                if self.ema_state is not None:
+                    ema_mod.ema_update(self.ema_state, self.state.params, **{
+                        k: self.ema_cfg[k] for k in ("max_decay", "inv_gamma", "power")
+                        if k in self.ema_cfg})
+                self.global_step += 1
+                logging_step = self.global_step % self.log_every == 0
+                if logging_step:
+                    vals = {k: float(v) for k, v in metrics.items()}   # the host sync
+                batch_meter.update(time.perf_counter() - end)
+                window_s += batch_meter.val
+                if logging_step:
+                    self._log(vals, batch_meter, data_meter, window_s, tokens)
+                    window_s, tokens = 0.0, 0
+                if self.save_every and self.global_step % self.save_every == 0:
+                    self.save_checkpoint()
+                if self.generate_every and self.global_step % self.generate_every == 0:
+                    self.run_validation_hooks(raw)
+                end = time.perf_counter()
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+            if profiler is not None:   # the loop ended inside the window
+                self._stop_profile(profiler)
+        if self.ckpt is not None:
+            self.ckpt.finalize()  # land any in-flight async save before returning
         return self.state
+
+    def _log(self, vals: dict, batch_meter, data_meter, seconds: float, tokens: int) -> None:
+        sc = self.step_cfg
+        total_batch = sc.batch_size_t2i + sc.batch_size_lm + sc.batch_size_mmu
+        vals.update(step=self.global_step, seconds=seconds, tokens_per_s=tokens / seconds,
+                    samples_per_sec=total_batch / max(batch_meter.avg, 1e-9),
+                    data_time=data_meter.avg, batch_time=batch_meter.avg)
+        if self.device.type == "cuda":
+            vals["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(self.device) / 2**30
+        self.history.append(vals)
+        if self.metrics is not None:
+            self.metrics.log(vals)
+        logger.info("step %d loss %.4f (t2i %.4f lm %.4f mmu %.4f) %.1f samp/s, data %.3fs "
+                    "batch %.3fs", self.global_step, vals["loss"], vals["loss_t2i"],
+                    vals["loss_lm"], vals["loss_mmu"], vals["samples_per_sec"],
+                    vals["data_time"], vals["batch_time"])
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        profiler.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_step{self.profile_at}.json")
+        profiler.export_chrome_trace(path)
+        logger.info("profile trace written to %s", path)
+        return None
+
+    # -------------------------------------------------------- validation
+    def _hook(self, name: str, fn, *args, **kwargs) -> None:
+        """Run one hook; a failure is logged with its traceback, never fatal."""
+        try:
+            fn(*args, **kwargs)
+        except Exception:  # a hook must never stop training
+            logger.exception("%s validation hook failed", name)
+            self.hook_failures.append(name)
+
+    def run_validation_hooks(self, raw: Optional[Mapping] = None) -> None:
+        """The cadence generations (train_mmada.py:698-730, 750-795): t2i
+        from the validation prompts file, the understanding of the
+        `mmu_validation` images, chat answers, and the triptychs of the
+        current batch's t2i images."""
+        model = dataclasses.replace(self.model, params=self.state.params)
+        v = self.validation
+        prompts_file = v.get("prompts_file")
+        if prompts_file and os.path.exists(prompts_file) and self.vq_params:
+            with open(prompts_file) as f:
+                prompts = [ln.strip() for ln in f if ln.strip()][:4]
+            self._hook("generate_images", self._generate_images, model, prompts)
+        prompts_path = os.path.join(v.get("mmu_dir") or "mmu_validation", "prompts.jsonl")
+        if os.path.exists(prompts_path) and self.vq_params:
+            self._hook("understanding_images", self._understanding_images, model, prompts_path)
+        chat_path = v.get("chat_file")
+        if chat_path and os.path.exists(chat_path):
+            self._hook("generate_chat_text", self._generate_chat_text, model, chat_path)
+        images = (raw or {}).get("t2i_flow", {}).get("images")
+        if images is not None and self.vq_params:
+            self._hook("visualize_predictions", self._visualize_predictions, model, images)
+
+    def _image_writer(self):
+        if self.write_image is None:
+            raise ValueError("the image hooks need write_image(path, uint8 array)")
+        return self.write_image
+
+    def _generate_images(self, model, prompts) -> None:
+        from mmada_tpu_torch.training import validation as V
+
+        tr = self.training
+        V.generate_images(model, self.vq_params, self.vq_cfg, self.prompting, prompts,
+                          self.output_dir, self.global_step, self._image_writer(),
+                          num_vq_tokens=self.validation.get("num_vq_tokens", 1024),
+                          timesteps=tr.get("generation_timesteps", 12),
+                          guidance_scale=tr.get("guidance_scale", 1.5))
+
+    def _understanding_images(self, model, prompts_path) -> None:
+        """Caption the task-typed validation images with their per-image
+        questions (train_mmada.py:872-932 + the mmu_validation fixtures)."""
+        from mmada_tpu_torch.training import validation as V
+
+        if self.read_image is None:
+            raise ValueError("the understanding hook needs read_image(path, resolution)")
+        res = self.validation.get("resolution", 256)
+        mmu_dir = os.path.dirname(prompts_path)
+        with open(prompts_path) as f:
+            entries = [json.loads(ln) for ln in f if ln.strip()]
+        images, questions = [], []
+        for e in entries[:8]:
+            path = os.path.join(mmu_dir, e.get("file_name", ""))
+            if not os.path.exists(path):
+                continue
+            images.append(self.read_image(path, res))
+            questions.append(e["prompt"])
+        if not images:
+            return
+        tr = self.training
+        V.understanding_images(model, self.vq_params, self.vq_cfg, self.prompting,
+                               self.prompting.text_tokenizer, np.stack(images), questions,
+                               self.output_dir, self.global_step,
+                               max_new_tokens=tr.get("validation_max_new_tokens", 32),
+                               steps=tr.get("validation_steps", 16))
+
+    def _generate_chat_text(self, model, chat_path) -> None:
+        from mmada_tpu_torch.training import validation as V
+
+        questions = []
+        with open(chat_path) as f:
+            for ln in f:
+                if ln.strip():
+                    rec = json.loads(ln)
+                    questions.append(rec.get("question") or rec.get("prompt") or "")
+        if not questions:
+            return
+        tr = self.training
+        n = tr.get("validation_max_new_tokens", 32)
+        V.generate_chat_text(model, self.prompting.text_tokenizer, questions[:4],
+                             self.output_dir, self.global_step, gen_length=n,
+                             steps=tr.get("validation_steps", 16), block_length=n)
+
+    def _visualize_predictions(self, model, images) -> None:
+        from mmada_tpu_torch.training import validation as V
+
+        imgs = np.asarray(images)[:2]
+        V.visualize_predictions(model, self.vq_params, self.vq_cfg, self.prompting, imgs,
+                                [""] * imgs.shape[0], self.output_dir, self.global_step,
+                                self._image_writer())
 
 
 def _pad_flows_to_common_length(batch: dict, eos_id: int) -> dict:

@@ -253,8 +253,10 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     runs attention forward and backward at 4,224 tokens (the long tier),
     runs an int4 forward and a W8A8 forward (`entry.quantize`), encodes
     and decodes an image with a tiny MAGVIT-v2, and answers one request
-    through the serving engine (`serve.engine`, `utils.flops`); `app_torch`
-    imports too."""
+    through the serving engine (`serve.engine`, `utils.flops`); `app_torch`,
+    `train_torch` and the training modules (data readers, checkpoint
+    manager, EMA, remat_auto, validation hooks) import too, without
+    pyarrow."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -338,7 +340,13 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "want = model.generate(ids[:1, :6], gen_length=8, steps=4, block_length=4)[0]\n"
         "assert (torch.as_tensor(got) == want).all() and eng.stats['chunks'] == 4\n"
         "assert flops.forward_matmul_flops_per_token(cfg, 14, 4, cfg.vocab_size) > 0\n"
-        "import chip_smoke, profile_cached, app_torch\n"
+        "import chip_smoke, profile_cached, app_torch, train_torch\n"
+        "from mmada_tpu_torch.data import (captions, combined, imagenet, native, synthetic,\n"
+        "                                  text, vqa, webdataset)\n"
+        "from mmada_tpu_torch.checkpoints import manager\n"
+        "from mmada_tpu_torch.training import ema, remat_auto, validation\n"
+        "from mmada_tpu_torch.utils import logging as _logging, meters\n"
+        "assert 'pyarrow' not in sys.modules\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-B", "-c", code], cwd=REPO, capture_output=True,
@@ -354,10 +362,10 @@ _FORBIDDEN = re.compile(
 )
 
 
-def test_app_torch_imports_no_jax_and_pil_only_inside_functions():
-    """The HTTP front end imports nothing of JAX or the JAX package, and
-    PIL only inside the functions that need it (as the command lines do)."""
-    with open(os.path.join(REPO, "app_torch.py")) as f:
+def _check_imports_only_inside_functions(name: str) -> None:
+    """`name` imports nothing of JAX or the JAX package, and PIL and yaml
+    only inside functions."""
+    with open(os.path.join(REPO, name)) as f:
         src = f.read()
     imports = re.findall(r"^(\s*)(?:import\s+([\w.]+)|from\s+([\w.]+)\s+import)", src,
                          re.MULTILINE)
@@ -367,6 +375,17 @@ def test_app_torch_imports_no_jax_and_pil_only_inside_functions():
         assert top not in ("jax", "jaxlib", "mmada_tpu"), a or b
         if top in ("PIL", "yaml"):
             assert indent, a or b
+
+
+def test_app_torch_imports_no_jax_and_pil_only_inside_functions():
+    """The HTTP front end imports nothing of JAX or the JAX package, and
+    PIL only inside the functions that need it (as the command lines do)."""
+    _check_imports_only_inside_functions("app_torch.py")
+
+
+def test_train_torch_imports_no_jax_and_pil_yaml_only_inside_functions():
+    """The training command line: no JAX, PIL and yaml inside functions."""
+    _check_imports_only_inside_functions("train_torch.py")
 
 
 def test_source_scan_finds_no_forbidden_import():

@@ -578,13 +578,20 @@ def test_per_kind_grad_norms_sum_layers():
 
 
 def test_unported_modes_raise(models):
+    """An unknown `forward_quantize` raises; the remat policies "dots" and
+    "auto" (unresolved: "full") now run, with the gradients of remat=False."""
     model = _port_model(models)
     with pytest.raises(ValueError, match="forward_quantize"):
         make_train_step(model, optimizers.AdamW(LR), StepConfig(**SIZES, forward_quantize="w4"))
+    ids = torch.arange(8, dtype=torch.long).reshape(2, 4)
+    grads = {}
+    for mode in (False, "dots", "auto"):
+        tree = llada.split_layers(model.params)
+        names, leaves = zip(*llada.named_leaves(tree))
+        loss = llada.forward(tree, model.cfg, ids, remat=mode).float().square().mean()
+        grads[mode] = torch.autograd.grad(loss, leaves)
     for mode in ("dots", "auto"):
-        with pytest.raises(NotImplementedError):
-            llada.forward(model.params, model.cfg, torch.zeros(1, 4, dtype=torch.long),
-                          remat=mode)
+        assert all(torch.equal(a, b) for a, b in zip(grads[mode], grads[False])), mode
 
 
 # ----------------------------------------------------------------- trainer
