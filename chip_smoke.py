@@ -337,6 +337,52 @@ STAGE1_CLI = [f"config={ROOT}/configs/mmada_pretraining_stage1.yaml",
 STAGE1_STEPS = 3
 STAGE1_DATA = dict(classes=3, per_class=8, tars=2, per_tar=12, docs=40)
 
+# phase 11, motion. 11a: the flagship motion VQ-VAE (MotionVQConfig(): pose
+# 263, width 512, 512 codes of 512, down_t 2; random fp32 weights from seed
+# 0, its EMA-reset codebook seeded by one `forward_train` on clip windows)
+# encodes batches of `motion_clip`s, 64 frames (16 codes) and 220 frames (55
+# codes): codes bit for bit against the fp32 CPU encode of the same weights
+# under every TF32 flag; decoded features within MOTION_FEATURE_ATOL of the
+# CPU's, scaled by the largest |feature| (the convs sum in other orders);
+# then `train_motion_vq_torch` on configs/motion_soak.yaml's VQ stage
+MOTION_CLIPS = ((8, 64), (4, 220))
+MOTION_FEATURE_ATOL = 1e-4
+MOTION_VQ_CLI = [f"config={ROOT}/configs/motion_soak.yaml", "training.max_train_steps=4",
+                 "training.log_every=1"]
+# 11b: t2m serving on the 8B with the t2m vocab (MMADA_8B_T2M, 135,170 rows).
+# The frame of configs/t2m_instruct.yaml: max_seq_length 64 (65 text
+# positions), <|som|>, max_motion_length 55, <|eom|>: 122 tokens; a caption
+# of 32 bytes leaves 30 pads, which the masked model keeps out of attention
+# (B2). 18 timesteps at T = 0 (the sampling stays categorical, from the seed)
+T2M_CAPTION = "a person walks forward and waves"
+T2M_SETTINGS = dict(num_motion_tokens=55, max_text_len=64, timesteps=18, temperature=0.0,
+                    seed=0)
+T2M_FRAME = T2M_SETTINGS["max_text_len"] + 1 + T2M_SETTINGS["num_motion_tokens"] + 2
+T2M_SEGMENT = 4
+T2M_LONG_TOKENS = 256          # the sampler's default motion length, for timing
+T2M_LONG_FRAME = T2M_SETTINGS["max_text_len"] + 1 + T2M_LONG_TOKENS + 2
+# 11c: `train_torch.run` with training.task=t2m on configs/t2m_instruct.yaml:
+# the 8B at random init (the repo has no MMaDA t2m weights) with the frames'
+# masks in attention, full remat (activations of 32 x 122 tokens beside the
+# weights, gradients and two AdamW moments), a token bank the smoke writes,
+# 3 steps of batch_size_t2m 32, a line a step; no save (the 8B's train state
+# is 65 GB against the machine's 45 GiB of writes a run: the proxy run
+# checks save and resume); then 3 LoRA steps (rank 32, alpha 64, the
+# embedding and head trained, configs/t2m_instruct_lora.yaml)
+T2M_BATCH = 32
+T2M_TRAIN_STEPS = 3
+T2M_TRAIN_CLI = [f"config={ROOT}/configs/t2m_instruct.yaml", "model.mmada.random_init=true",
+                 "model.mmada.attention_bias_enabled=true", "training.gradient_checkpointing=full",
+                 f"training.max_train_steps={T2M_TRAIN_STEPS}", "experiment.save_every=0",
+                 "experiment.log_every=1"]
+T2M_LORA = ["training.lora.rank=32", "training.lora.alpha=64",
+            "training.lora.train_embeddings=true"]
+# the proxy arch of configs/motion_soak.yaml (8 layers of 512, its t2m
+# stage, no remat as written): 2 steps saving each, a resume to 3 that must
+# land on the uninterrupted run's weights, and 2 LoRA steps
+T2M_PROXY_CLI = [f"config={ROOT}/configs/motion_soak.yaml", "model.mmada.attention_bias_enabled=true",
+                 "experiment.log_every=1"]
+
 
 def log(phase: str, msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.1f}s] {phase}: {msg}", flush=True)
@@ -524,6 +570,15 @@ def kernel_cases(h: int):
          None),
         # the proxy config's training frame (phase 10a): 4 heads of 128
         ("proxy train B12 (H 4)", PROXY_ROWS, 4, 4, PROXY_FRAME, PROXY_FRAME, True, None),
+        # text to motion (phase 11): the t2m frame exact (B1; B2 with its
+        # pads masked), the cached step (the motion span over the frame),
+        # the 256-token request, and a masked training batch
+        ("t2m B1 (exact)", 1, h, h, T2M_FRAME, T2M_FRAME, True, None),
+        ("t2m B2 (exact, frame mask)", 1, h, h, T2M_FRAME, T2M_FRAME, True, t2m_mask_bias),
+        ("t2m cached step", 1, h, h, T2M_SETTINGS["num_motion_tokens"], T2M_FRAME, False, None),
+        ("t2m 256 B1", 1, h, h, T2M_LONG_FRAME, T2M_LONG_FRAME, True, None),
+        ("t2m train B32 (masked)", T2M_BATCH, h, h, T2M_FRAME, T2M_FRAME, True,
+         t2m_train_mask_bias),
     ]
 
 
@@ -757,6 +812,8 @@ def bwd_cases(h: int):
          lambda: t2i_mask_bias(cfg_batch=False)),
         ("proxy train B12 (H 4, Function)", PROXY_ROWS, 4, 4, PROXY_FRAME, PROXY_FRAME, True,
          True, None),
+        ("t2m train B32 (masked, Function)", T2M_BATCH, h, h, T2M_FRAME, T2M_FRAME, True, True,
+         t2m_train_mask_bias),
     ]
 
 
@@ -1870,13 +1927,28 @@ def main() -> int:
         f"{stage1_cli['dq']}, dkv {proxy_cli['dkv']} + {stage1_cli['dkv']} (proxy + stage 1, "
         "hooks and auto's measuring forward included)")
 
+    # 11. motion: the flagship motion VQ-VAE (11a), t2m serving on the 8B
+    # with the t2m vocab (11b: exact, masked, cached, segmented, the engine),
+    # t2m training through `train_torch` (11c: the 8B full and LoRA, the
+    # proxy's save and resume); the card holds nothing of earlier phases
+    t = time.perf_counter()
+    motion_vq_model, motion_vq_cfg, motion_vq_rec = motion_vq_phase(reset_counts, counts)
+    t2m_serve = t2m_serving_phase(motion_vq_model, motion_vq_cfg, reset_counts, counts,
+                                  expect_no_bias_copies)
+    del motion_vq_model
+    free_memory()
+    t2m_train = t2m_train_phase(reset_counts, counts, expect_no_bias_copies)
+    log("motion", f"phases 11a-11c took {time.perf_counter() - t:.1f}s; t2m launches: B1 "
+        f"{t2m_serve['b1']} by (B, Lq, Lk) {dict(t2m_serve['b1_shapes'])}, B2 {t2m_serve['b2']} + "
+        f"{t2m_train['b2']}, dq-bias {t2m_train['dq']}, dkv-bias {t2m_train['dkv']}")
+
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
     b1_parts = dict(serve=launches, mmu=mmu_launches, checkpoint=ckpt["b1"],
                     cached=cached["b1"], int4_cached=int4_cached["b1"], engine=engine["b1"],
                     http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0],
-                    train_cli=proxy_cli["b1"] + stage1_cli["b1"])
+                    train_cli=proxy_cli["b1"] + stage1_cli["b1"], t2m=t2m_serve["b1"])
     b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"])
     log("launches", f"B1 {sum(b1_parts.values())} by phase {b1_parts}; "
         f"B6 {sum(b6_parts.values())} by phase {b6_parts}")
@@ -1889,10 +1961,24 @@ def main() -> int:
                                 "library_ms")},
              launches=cached["rect"][(r["shape"][0], r["shape"][3], r["shape"][4])])
         for r in records if r["tag"].startswith("cached")]
-    kernels = [b1,
-               kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
-                             masked_serve[0] + masked_train[0],
-                             [r for r in records if r["bias"] is not None], masked_rec)]
+
+    def t2m_shapes(recs, launched):
+        """The t2m shapes' times, each with its launches in phase 11."""
+        keys = ("tag", "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
+        return [dict({k: r[k] for k in keys}, launches=launched(r)) for r in recs
+                if r["tag"].startswith("t2m")]
+
+    b1["t2m_shapes"] = t2m_shapes(
+        [r for r in records if r["bias"] is None],
+        lambda r: t2m_serve["b1_shapes"][(r["shape"][0], r["shape"][3], r["shape"][4])])
+    b2 = kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
+                       masked_serve[0] + masked_train[0] + t2m_serve["b2"] + t2m_train["b2"]
+                       + t2m_train["proxy"][1][0],
+                       [r for r in records if r["bias"] is not None], masked_rec)
+    b2["t2m_shapes"] = t2m_shapes(
+        [r for r in records if r["bias"] is not None],
+        lambda r: t2m_serve["b2"] if r["shape"][0] == 1 else t2m_train["b2"])
+    kernels = [b1, b2]
     plain_bwd = [r for r in bwd_records if r["bias"] is None] + [unaligned["bwd"]]
     biased_bwd = [r for r in bwd_records if r["bias"] is not None]
     long_fwd = [r for r in long_records if r["bias"] is None]
@@ -1929,14 +2015,22 @@ def main() -> int:
              + proxy_cli["dq"] + stage1_cli["dq"], plain_bwd),
             ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2] + pixel_train[0][2]
              + proxy_cli["dkv"] + stage1_cli["dkv"], plain_bwd),
-            ("flash_attention_bwd_dq_bias", "dq", "746", masked_train[1], biased_bwd),
-            ("flash_attention_bwd_dkv_bias", "dkv", "799", masked_train[2], biased_bwd),
+            ("flash_attention_bwd_dq_bias", "dq", "746",
+             masked_train[1] + t2m_train["dq"] + t2m_train["proxy"][1][1], biased_bwd),
+            ("flash_attention_bwd_dkv_bias", "dkv", "799",
+             masked_train[2] + t2m_train["dkv"] + t2m_train["proxy"][1][2], biased_bwd),
             ("flash_attention_long_bwd_dq", "dq", "1185", long_train[2][1], long_bwd),
             ("flash_attention_long_bwd_dq_bias", "dq", "1185", masked_long[3][1], long_bwd_bias),
             ("flash_attention_long_bwd_dkv", "dkv", "1240", long_train[2][2], long_bwd),
             ("flash_attention_long_bwd_dkv_bias", "dkv", "1240", masked_long[3][2],
              long_bwd_bias)):
         kernels.append(bwd_record(name, key, line, count, recs))
+        if name.endswith("_bias") and "long" not in name:
+            t2m_rec = next(r for r in recs if r["tag"].startswith("t2m train"))
+            kernels[-1]["t2m_shapes"] = [dict(
+                {k: t2m_rec[key][k] for k in ("ms", "bound_ms", "bound_by", "plain_ms")},
+                tag=t2m_rec["tag"], shape=t2m_rec["shape"], library_ms=t2m_rec["library_ms"],
+                launches=t2m_train[key])]
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -3858,6 +3952,461 @@ def http_phase(root, loaded, image, reset_counts, counts) -> dict:
 
 # how every kernel of the JSON line is built
 WGMMA_DESIGN = "wgmma + TMA, producer and two consumer warpgroups"
+
+
+def motion_windows(clips, frames, seed=0):
+    """(clips, frames, 263) fp32 windows of `motion_clip`s on the card."""
+    import numpy as np
+    import torch
+
+    from mmada_tpu_torch.data.synthetic import motion_clip
+
+    rng = np.random.default_rng(seed)
+    out = [motion_clip(int(k), length=frames + 32)[s:s + frames]
+           for k, s in zip(rng.integers(0, 48, clips), rng.integers(0, 32, clips))]
+    return torch.as_tensor(np.stack(out), device="cuda")
+
+
+def motion_vq_phase(reset_counts, counts) -> dict:
+    """11a: the flagship motion VQ-VAE on the card (see MOTION_CLIPS), then
+    `train_motion_vq_torch` on the motion soak's VQ stage. Returns (vq, cfg)
+    and the timings."""
+    import copy
+
+    import torch
+
+    import train_motion_vq_torch
+    import train_torch
+    from mmada_tpu_torch.models import motion_vq
+
+    cfg = motion_vq.MotionVQConfig()
+    t = time.perf_counter()
+    vq = motion_vq.init_motion_vq(cfg, device="cuda",
+                                  generator=torch.Generator("cuda").manual_seed(0))
+    # the EMA-reset codebook seeded from 512 latents of 32 windows (one
+    # training-mode quantizer pass: no tiling noise at N = nb_code)
+    seed_clips = motion_windows(32, 64, seed=5)
+    state = motion_vq.CodebookState.create(cfg, device="cuda")
+    _, _, _, codebook, state = motion_vq.forward_train(None, vq, state, cfg, seed_clips)
+    with torch.no_grad():
+        vq.codebook.copy_(codebook)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in vq.parameters())
+    log("motion vq", f"MotionVQConfig() built and its codebook seeded on the card in "
+        f"{time.perf_counter() - t:.2f}s: {n_params} params; {int(state.initialized)} "
+        f"initialized, codes used by the seeding batch {int((state.code_count > 0.5).sum())}")
+    cpu_vq = copy.deepcopy(vq).cpu()
+    out = {}
+    reset_counts()
+    for clips, frames in MOTION_CLIPS:
+        x = motion_windows(clips, frames)
+        n = frames // 4
+        flags = {}
+        for name, (cudnn_tf32, matmul_tf32) in (("off", (False, False)), ("torch's defaults", (True, False)),
+                                                 ("on", (True, True))):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+                cudnn_tf32, matmul_tf32)
+            flags[name] = motion_vq.encode(vq, cfg, x)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        codes = flags["off"]
+        t = time.perf_counter()
+        cpu_codes = motion_vq.encode(cpu_vq, cfg, x.cpu())
+        cpu_s = time.perf_counter() - t
+        same = {k: bool(torch.equal(v.cpu(), cpu_codes)) for k, v in flags.items()}
+        # the margin the argmin had on the CPU: the gap between the nearest
+        # and the second nearest code, against the latents' error
+        z = motion_vq.encoder_forward(vq, cfg, x).detach()
+        z_cpu = motion_vq.encoder_forward(cpu_vq, cfg, x.cpu()).detach()
+        flat = z_cpu.reshape(-1, cfg.code_dim)
+        dist = torch.cdist(flat, cpu_vq.codebook.detach()).topk(2, largest=False).values
+        gap = float((dist[:, 1] - dist[:, 0]).min())
+        z_err = float((z.cpu() - z_cpu).abs().max())
+        feats = motion_vq.decode(vq, cfg, codes)
+        feats_cpu = motion_vq.decode(cpu_vq, cfg, cpu_codes)
+        f_err = float((feats.cpu() - feats_cpu).abs().max())
+        f_scale = float(feats_cpu.abs().max())
+        encode_ms = cuda_ms(lambda: motion_vq.encode(vq, cfg, x), 5, 1)
+        decode_ms = cuda_ms(lambda: motion_vq.decode(vq, cfg, codes), 5, 1)
+        rec = dict(clips=clips, frames=frames, codes=list(codes.shape),
+                   distinct=int(codes.unique().numel()), same_as_cpu=same,
+                   latent_max_abs_err=z_err, cpu_nearest_gap_min=gap,
+                   feature_max_abs_err=f_err, feature_max_abs=f_scale,
+                   encode_ms=encode_ms, decode_ms=decode_ms, cpu_encode_s=cpu_s)
+        log("motion vq", json.dumps(rec))
+        out[f"{clips}x{frames}"] = rec
+        if tuple(codes.shape) != (clips, n) or tuple(feats.shape) != (clips, frames, cfg.pose_dim):
+            raise AssertionError(f"motion VQ shapes: codes {tuple(codes.shape)}, features "
+                                 f"{tuple(feats.shape)}")
+        if not all(same.values()):
+            raise AssertionError(f"motion VQ codes on the card differ from the fp32 CPU's: "
+                                 f"{same} (latent error {z_err}, nearest-code gap {gap})")
+        if not (bool(torch.isfinite(feats).all()) and f_err <= MOTION_FEATURE_ATOL * f_scale):
+            raise AssertionError(f"motion VQ features depart from the CPU's: {f_err} against "
+                                 f"{MOTION_FEATURE_ATOL} x {f_scale}")
+    expect_launches("motion vq", counts(), {})
+    del cpu_vq
+
+    root = tempfile.mkdtemp(prefix="mmada_motion_vq_")
+    atexit.register(shutil.rmtree, root, True)
+    t = time.perf_counter()
+    _, _, history = train_motion_vq_torch.train(train_torch.read_config(
+        MOTION_VQ_CLI + [f"experiment.output_dir={root}"]))
+    train_s = time.perf_counter() - t
+    for h in history:
+        log("motion vq cli", f"step {h['step']}: loss {h['loss']:.4f} (recon {h['recon']:.4f} "
+            f"vel {h['vel']:.4f} commit {h['commit']:.4f}) perplexity {h['perplexity']:.1f}; "
+            f"{h['seconds'] * 1e3:.1f} ms")
+    if len(history) != 4 or not all(math.isfinite(h[k]) for h in history
+                                    for k in ("loss", "perplexity")):
+        raise AssertionError(f"train_motion_vq_torch: {history}")
+    if not os.path.exists(os.path.join(root, "motion_vq", "model.safetensors.index.json")):
+        raise AssertionError("train_motion_vq_torch saved no motion_vq/")
+    log("motion vq cli", f"4 steps of batch 64 x 64 frames in {train_s:.2f}s (setup and save "
+        "included)")
+    shutil.rmtree(root, ignore_errors=True)
+    out["cli_steps_ms"] = [h["seconds"] * 1e3 for h in history]
+    return vq, cfg, out
+
+
+def t2m_mask_bias(batch=1):
+    """The mask bias of `batch` t2m frames of T2M_CAPTION, as `serve_t2m`
+    builds them."""
+    return _mask_bias(t2m_frames(batch)[1])
+
+
+def t2m_frames(batch=1, caption=T2M_CAPTION, n=None):
+    """(ids, masks) numpy t2m generation frames (MMADA_8B_T2M's specials)."""
+    import numpy as np
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B_T2M
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    n = n or T2M_SETTINGS["num_motion_tokens"]
+    up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B_T2M),
+                            max_text_len=T2M_SETTINGS["max_text_len"])
+    motion = np.full((batch, n), MMADA_8B_T2M.mask_token_id, np.int64)
+    ids, masks, _ = up.t2m([caption] * batch, motion, motion, dropout=False)
+    return ids, masks
+
+
+def t2m_bank(root: str, rows: int = 64) -> str:
+    """A token bank (`dataset.token_bank`) of `rows` captions with random
+    motion codes, padded as `MotionTokenDataset` pads them: codes, EOM (512),
+    PAD (513) up to 55."""
+    import numpy as np
+
+    from mmada_tpu_torch.data.synthetic import motion_caption
+
+    rng = np.random.default_rng(0)
+    n = T2M_SETTINGS["num_motion_tokens"]
+    lengths = rng.integers(20, n - 1, rows)
+    tokens = np.full((rows, n), 513, np.int64)
+    for i, m in enumerate(lengths):
+        tokens[i, :m] = rng.integers(0, 512, m)
+        tokens[i, m] = 512
+    path = os.path.join(root, "bank.npz")
+    np.savez(path, captions=np.array([motion_caption(k) for k in range(rows)]), tokens=tokens,
+             lengths=lengths)
+    return path
+
+
+def t2m_train_mask_bias():
+    """The mask bias of a t2m training batch: T2M_BATCH frames of the bank's
+    captions (`motion_caption`), their pads masked."""
+    import numpy as np
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B_T2M
+    from mmada_tpu_torch.data.synthetic import motion_caption
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    up = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B_T2M),
+                            max_text_len=T2M_SETTINGS["max_text_len"])
+    codes = np.full((T2M_BATCH, T2M_SETTINGS["num_motion_tokens"]), MMADA_8B_T2M.motion_offset)
+    _, masks, _ = up.t2m([motion_caption(k) for k in range(T2M_BATCH)], codes, codes,
+                         dropout=False)
+    return _mask_bias(masks)
+
+
+def check_motion_codes(codes, rows, n) -> None:
+    if tuple(codes.shape) != (rows, n) or not bool(((codes >= 0) & (codes < 512)).all()):
+        raise AssertionError(f"t2m codes {tuple(codes.shape)} (want {(rows, n)}), in [0, 512): "
+                             f"{bool(((codes >= 0) & (codes < 512)).all())}")
+
+
+def check_fresh_span_step(model, frame, tag) -> dict:
+    """The t2m cached decode's first step at a fresh (compact) capture, its
+    motion-window logits and the exact forward's, each against the same
+    logits in fp32: the step (bf16 and int8 cache) may be at most
+    FRESH_STEP_FACTOR times as far from them as the exact forward is."""
+    import torch
+
+    n = T2M_SETTINGS["num_motion_tokens"]
+    lo = frame.shape[1] - n - 1
+    window = model._motion_window
+    exact = model.forward(frame, logit_window=window, logit_positions=(lo, n)).float()
+    errs = {}
+    steps = {}
+    for dtype in (None, "int8"):
+        capture, step = model._span_cache_fns(window, n, dtype)
+        kv = capture(frame)
+        steps[dtype] = step(frame[:, lo:lo + n], kv, lo).float()
+        del kv
+    ref = fp32_block_logits(model, frame, lo, n)[..., window[0]:window[1]]
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    errs = dict(exact_vs_fp32=rel(exact, ref), step_vs_fp32=rel(steps[None], ref),
+                int8_vs_fp32=rel(steps["int8"], ref), step_vs_exact=rel(steps[None], exact),
+                argmax_exact_vs_fp32=agree(exact, ref),
+                argmax_step_vs_exact=agree(steps[None], exact))
+    log("t2m", f"{tag}: a fresh capture's step over the motion span {(frame.shape[0], n)}: "
+        + ", ".join(f"{k} {v:.4e}" for k, v in errs.items())
+        + f" (limit: step and int8 at most {FRESH_STEP_FACTOR} x exact_vs_fp32)")
+    bar = FRESH_STEP_FACTOR * errs["exact_vs_fp32"]
+    if not (errs["step_vs_fp32"] <= bar and errs["int8_vs_fp32"] <= bar):
+        raise AssertionError(f"{tag}: the fresh t2m cached step departs from the fp32 function: "
+                             f"{errs}")
+    return errs
+
+
+def t2m_serving_phase(vq, vq_cfg, reset_counts, counts, expect_no_bias_copies) -> dict:
+    """11b: the full-width 8B with the t2m vocab, through `serve_t2m`, the
+    model's segmented run and the serving engine (see T2M_SETTINGS). Returns
+    the launches by path and the timings."""
+    import numpy as np
+    import torch
+
+    from mmada_tpu_torch.core.precision import BF16
+    from mmada_tpu_torch.core.vocab import MMADA_8B_T2M
+    from mmada_tpu_torch.entry import decode_motion, serve_t2m
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.serve.engine import ServingEngine, T2MSettings
+
+    cfg = llada.llada_8b(MMADA_8B_T2M.total_vocab_size)
+    t = time.perf_counter()
+    model = MMadaModel.init(cfg, MMADA_8B_T2M, device="cuda", dtype=torch.bfloat16,
+                            generator=torch.Generator("cuda").manual_seed(0), policy=BF16)
+    torch.cuda.synchronize()
+    log("t2m", f"8B with the t2m vocab ({MMADA_8B_T2M.total_vocab_size} rows) built on the card "
+        f"in {time.perf_counter() - t:.1f}s: {llada.param_count(model.params) / 1e9:.3f}e9 "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    masked = dataclasses.replace(model, cfg=dataclasses.replace(cfg, attention_bias_enabled=True))
+    n, steps = cfg.n_layers, T2M_SETTINGS["timesteps"]
+    span = T2M_SETTINGS["num_motion_tokens"]
+    ids, masks = t2m_frames()
+    log("t2m", f"frame {ids.shape[1]} tokens ({int((masks == 0).sum())} pads before the "
+        f"caption), {span} motion tokens, {steps} timesteps, T 0")
+    if ids.shape[1] != T2M_FRAME:
+        raise AssertionError(f"t2m frame {ids.shape[1]}, want {T2M_FRAME}")
+    out = {"b1": 0, "b2": 0, "rect": 0, "b1_shapes": collections.Counter(), "seconds": {}}
+
+    def request(tag, fn, want, square=None, rect=None):
+        result, seconds, launched, shapes, peak = timed_request(fn, reset_counts, counts)
+        expect_launches(tag, launched, want)
+        if square is not None:
+            expect_b1_shapes(tag, launched, shapes["b1"], square, rect)
+        out["b1"] += launched[0][0]
+        out["b2"] += launched[1][0]
+        out["rect"] += sum(1 for _, lq, lk in shapes["b1"] if lq < lk)
+        out["b1_shapes"].update(shapes["b1"])
+        out["seconds"][tag] = seconds
+        log("t2m", f"{tag}: {seconds:.3f}s; launches {launched}; B1 shapes "
+            f"{sorted(set(shapes['b1']))}; peak {peak:.2f} GiB allocated")
+        return result
+
+    kw = dict(T2M_SETTINGS)
+    exact = request("exact", lambda: serve_t2m(model, [T2M_CAPTION], **kw),
+                    {"one-pass": (n * steps, 0, 0)}, n * steps, 0)
+    check_motion_codes(exact, 1, span)
+    again = request("exact again", lambda: serve_t2m(model, [T2M_CAPTION], **kw),
+                    {"one-pass": (n * steps, 0, 0)})
+    masked_codes = request("exact masked", lambda: serve_t2m(masked, [T2M_CAPTION], **kw),
+                           {"one-pass bias": (n * steps, 0, 0)})
+    expect_no_bias_copies("t2m exact masked")
+    check_motion_codes(masked_codes, 1, span)
+    segmented = request("segmented", lambda: serve_t2m(model, [T2M_CAPTION],
+                                                       segment_timesteps=T2M_SEGMENT, **kw),
+                        {"one-pass": (n * steps, 0, 0)})
+    masked_segmented = request("segmented masked", lambda: serve_t2m(
+        masked, [T2M_CAPTION], segment_timesteps=T2M_SEGMENT, **kw),
+        {"one-pass bias": (n * steps, 0, 0)})
+    same = dict(repeat=_same(exact, again), segmented=_same(segmented, exact),
+                segmented_masked=_same(masked_segmented, masked_codes))
+    log("t2m", f"bit for bit: {same}; {exact.unique().numel()} distinct codes; the mask moved "
+        f"{float((masked_codes != exact).float().mean()):.3f} of them")
+    if not all(same.values()):
+        raise AssertionError(f"t2m: a repeat or a segmented run differs from the monolithic "
+                             f"run: {same}")
+
+    cached = request("cached", lambda: serve_t2m(model, [T2M_CAPTION], block_kv_cache=True, **kw),
+                     {"one-pass": (n + n * steps, 0, 0)}, n, n * steps)
+    cached8 = request("cached int8", lambda: serve_t2m(model, [T2M_CAPTION],
+                                                       block_kv_cache="int8", **kw),
+                      {"one-pass": (n + n * steps, 0, 0)}, n, n * steps)
+    refresh1 = request("cached refresh 1", lambda: serve_t2m(
+        model, [T2M_CAPTION], block_kv_cache=True, cache_refresh_every=1, **kw),
+        {"one-pass": (2 * n * steps, 0, 0)}, n * steps, n * steps)
+    one = dict(kw, timesteps=1)
+    exact1 = serve_t2m(model, [T2M_CAPTION], **one)
+    cached1 = serve_t2m(model, [T2M_CAPTION], block_kv_cache=True, **one)
+    for c in (cached, cached8, refresh1, cached1):
+        check_motion_codes(c, 1, span)
+    agree = {k: float((c == e).float().mean()) for k, c, e in (
+        ("cached", cached, exact), ("int8", cached8, exact), ("refresh 1", refresh1, exact),
+        ("one step", cached1, exact1))}
+    log("t2m", f"codes equal to the exact sampler's (share): {agree}; the bf16 step and "
+        "capture round otherwise than the exact forward (held by the fresh step below; the CPU "
+        "tests hold refresh 1 and one step token for token in fp32)")
+    frame = torch.as_tensor(ids, device="cuda")
+    out["fresh"] = check_fresh_span_step(model, frame, "t2m")
+
+    # the engine: a monolithic and a chunked request (windows of T2M_SEGMENT)
+    # on the masked 8B, released together, each against the direct call with
+    # its seed (T 1, the engine's default)
+    settings = [T2MSettings(timesteps=steps, num_motion_tokens=span),
+                T2MSettings(timesteps=steps, num_motion_tokens=span,
+                            segment_timesteps=T2M_SEGMENT)]
+    eng = ServingEngine(masked, min_chunk_device_ms=0).start()
+    try:
+        reset_counts()
+        eng.pause()
+        t = time.perf_counter()
+        futs = [eng.submit_t2m(ids[0], st, seed=7 + i, attention_mask=masks[0])
+                for i, st in enumerate(settings)]
+        eng.resume()
+        got = [f.result(600) for f in futs]
+        engine_s = time.perf_counter() - t
+        launched = counts()
+        stats = dict(eng.stats)
+    finally:
+        eng.stop()
+    expect_launches("t2m engine", launched, {"one-pass bias": (2 * n * steps, 0, 0)})
+    out["b2"] += launched[1][0]
+    direct = [masked.t2m_generate(torch.as_tensor(ids, device="cuda"),
+                                  attention_mask=torch.as_tensor(masks, device="cuda"),
+                                  timesteps=steps, num_motion_tokens=span,
+                                  generator=torch.Generator("cuda").manual_seed(7 + i))[0]
+              for i in range(2)]
+    engine_same = [bool(np.array_equal(g, d.cpu().numpy())) for g, d in zip(got, direct)]
+    log("t2m", f"engine: 2 requests (monolithic, windows of {T2M_SEGMENT}) in {engine_s:.3f}s; "
+        f"stats {stats}; equal to the direct call with the seed: {engine_same}")
+    if not all(engine_same) or stats["chunks"] != -(-steps // T2M_SEGMENT):
+        raise AssertionError(f"t2m engine: {engine_same}, chunks {stats['chunks']}")
+    out["seconds"]["engine (2 requests)"] = engine_s
+
+    # one request at the sampler's default of 256 motion tokens (B1, timing)
+    long_kw = dict(kw, num_motion_tokens=T2M_LONG_TOKENS)
+    long_codes = request(f"exact {T2M_LONG_TOKENS} tokens", lambda: serve_t2m(
+        model, [T2M_CAPTION], **long_kw), {"one-pass": (n * steps, 0, 0)}, n * steps, 0)
+    check_motion_codes(long_codes, 1, T2M_LONG_TOKENS)
+
+    # the codes as motion: the flagship VQ's decode (4 frames a code)
+    feats = decode_motion(vq, vq_cfg, torch.cat([exact, masked_codes]))
+    log("t2m", f"decoded to {tuple(feats.shape)} features, finite "
+        f"{bool(torch.isfinite(feats).all())}")
+    if tuple(feats.shape) != (2, 4 * span, vq_cfg.pose_dim) or not bool(
+            torch.isfinite(feats).all()):
+        raise AssertionError(f"decoded t2m features {tuple(feats.shape)}")
+    del model, masked
+    free_memory()
+    return out
+
+
+def t2m_train_phase(reset_counts, counts, expect_no_bias_copies) -> dict:
+    """11c: `train_torch.run` with training.task=t2m on the 8B (full
+    fine-tuning, then LoRA; see T2M_TRAIN_CLI), then on the motion soak's
+    proxy arch: save, resume, LoRA. Returns the launches and the steps."""
+    import torch
+
+    import train_torch
+    from mmada_tpu_torch.checkpoints.manager import flatten
+
+    root = tempfile.mkdtemp(prefix="mmada_t2m_")
+    atexit.register(shutil.rmtree, root, True)
+    bank = t2m_bank(root)
+    n = 32
+    out = {"b2": 0, "dq": 0, "dkv": 0}
+    for tag, extra in (("t2m train", []), ("t2m lora", T2M_LORA)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        run = train_torch.run(train_torch.read_config(T2M_TRAIN_CLI + extra + [
+            f"dataset.token_bank={bank}", f"training.batch_size_t2m={T2M_BATCH}",
+            f"experiment.output_dir={os.path.join(root, tag.replace(' ', '_'))}"]))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for h in run.history:
+            log(tag, f"step {h['step']}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} "
+                f"mask_prob {h['mask_prob']:.3f}; {h['seconds'] * 1e3:.1f} ms")
+        frames = run.next_batch()["input_ids"].shape
+        log(tag, f"{len(run.history)} steps of {tuple(frames)} frames in {total_s:.2f}s (the 8B "
+            f"built, the state made); launches {launched}; peak {peak:.2f} GiB allocated; "
+            f"model cfg attention_bias_enabled {run.model.cfg.attention_bias_enabled}, remat "
+            f"{run.model.remat}; lora {run.lora_cfg}")
+        if tuple(frames) != (T2M_BATCH, T2M_FRAME):
+            raise AssertionError(f"{tag}: frames {tuple(frames)}")
+        if len(run.history) != T2M_TRAIN_STEPS or not all(
+                math.isfinite(h["loss"]) and h["skipped_nonfinite"] == 0 for h in run.history):
+            raise AssertionError(f"{tag}: {run.history}")
+        k = T2M_TRAIN_STEPS
+        expect_launches(tag, launched, {"one-pass bias": (2 * n * k, n * k, n * k)})
+        expect_no_bias_copies(tag)
+        out["b2"] += launched[1][0]
+        out["dq"] += launched[1][1]
+        out["dkv"] += launched[1][2]
+        out[tag] = dict(steps_ms=[h["seconds"] * 1e3 for h in run.history],
+                        loss=[h["loss"] for h in run.history],
+                        grad_norm=[h["grad_norm"] for h in run.history], peak_gib=peak)
+        del run
+        free_memory()
+
+    # the proxy arch: 2 steps saving each, a resume to 3 against 3 in one go,
+    # then 2 LoRA steps; every step counted
+    proxy = os.path.join(root, "proxy")
+
+    def proxy_run(tag, *extra):
+        t = time.perf_counter()
+        run = train_torch.run(train_torch.read_config(T2M_PROXY_CLI + [
+            f"dataset.token_bank={bank}", *extra]))
+        log("t2m proxy", f"{tag}: steps {[h['step'] for h in run.history]}, losses "
+            f"{[round(h['loss'], 4) for h in run.history]}, {time.perf_counter() - t:.2f}s")
+        return run
+
+    reset_counts()
+    straight = proxy_run("3 steps", "training.max_train_steps=3", "experiment.save_every=0",
+                         f"experiment.output_dir={proxy}_a")
+    proxy_run("2 steps, saving each", "training.max_train_steps=2", "experiment.save_every=1",
+              f"experiment.output_dir={proxy}_b")
+    resumed = proxy_run("resumed to 3", "training.max_train_steps=3", "experiment.save_every=1",
+                        "experiment.resume_from_checkpoint=latest",
+                        f"experiment.output_dir={proxy}_b")
+    lora = proxy_run("lora", "training.max_train_steps=2", "experiment.save_every=0",
+                     f"experiment.output_dir={proxy}_c", *T2M_LORA)
+    launched = counts()
+    proxy_layers = 8
+    steps = 3 + 2 + 1 + 2   # the config sets no remat: one forward a step
+    expect_launches("t2m proxy", launched, {"one-pass bias": (
+        proxy_layers * steps, proxy_layers * steps, proxy_layers * steps)})
+    a, b = flatten(straight._payload()), flatten(resumed._payload())
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    log("t2m proxy", f"resumed at step 2 onto the uninterrupted run: {len(a)} tensors, "
+        f"{len(differ)} differ; checkpoints {sorted(os.listdir(proxy + '_b'))}; lora trains "
+        f"{sum(t.numel() for t in flatten(lora.state.params).values())} values")
+    if differ or sorted(a) != sorted(b) or [h["step"] for h in resumed.history] != [3]:
+        raise AssertionError(f"t2m proxy resume: {differ[:5]}")
+    out["proxy"] = launched
+    del straight, resumed, lora
+    free_memory()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def kernel_record(name, source, line, launches, recs, main_rec,

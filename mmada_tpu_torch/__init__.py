@@ -1,5 +1,6 @@
-"""MMaDA on PyTorch and CUDA: the text, t2i and MMU serving paths (with the
-MAGVIT-v2 image tokenizer) and the multi-task training step of the unified
+"""MMaDA on PyTorch and CUDA: the text, t2i, MMU and text-to-motion serving
+paths (with the MAGVIT-v2 image tokenizer and the motion VQ-VAE), the
+multi-task training step and t2m training (full and LoRA) of the unified
 masked-diffusion model, with its attention kernels (forward, and the dq /
 dkv backward) and its int4 matmul written by hand for Hopper.
 

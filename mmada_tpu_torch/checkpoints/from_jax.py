@@ -14,6 +14,10 @@
 * `magvit2_from_jax` takes the JAX package's MAGVIT-v2 params as numpy
   arrays and returns the port's: the same tree, with each HWIO conv kernel
   transposed to torch's OIHW.
+* `motion_vq_from_jax` takes the JAX package's motion VQ-VAE params as
+  numpy arrays (`init_motion_vq`, `motion_vq_from_torch`) and returns the
+  port's `MotionVQ`: each TIO conv kernel transposed to torch's `(out, in,
+  k)`, placed at the reference's positional keys.
 * `params_from_torch_state_dict` is the counterpart of
   `mmada_tpu/checkpoints/hf_import.params_from_torch_state_dict`: it reads a
   flat reference state dict (`model.transformer.blocks.{i}.q_proj.weight`,
@@ -125,3 +129,44 @@ def params_from_torch_state_dict(
     `hf_import.fill_params` over the dict's items."""
     return fill_params(state.items(), cfg, device=device, dtype=dtype,
                        block_group_size=block_group_size)
+
+
+def motion_vq_state_from_jax(np_tree) -> dict[str, np.ndarray]:
+    """The JAX motion VQ-VAE tree (numpy leaves) as a `MotionVQ` state dict:
+    the reference's positional keys, `(out, in, k)` conv weights."""
+    out: dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        out[f"{prefix}.weight"] = np.asarray(p["w"], np.float32).transpose(2, 1, 0)
+        out[f"{prefix}.bias"] = np.asarray(p["b"], np.float32)
+
+    def resnet(prefix, blocks):
+        for d, blk in enumerate(blocks):
+            conv(f"{prefix}.model.{d}.conv1", blk["conv1"])
+            conv(f"{prefix}.model.{d}.conv2", blk["conv2"])
+
+    enc, dec = np_tree["encoder"], np_tree["decoder"]
+    conv("encoder.model.0", enc["conv_in"])
+    for i, level in enumerate(enc["down"]):
+        conv(f"encoder.model.{2 + i}.0", level["conv"])
+        resnet(f"encoder.model.{2 + i}.1", level["resnet"])
+    conv(f"encoder.model.{2 + len(enc['down'])}", enc["conv_out"])
+    conv("decoder.model.0", dec["conv_in"])
+    for i, level in enumerate(dec["up"]):
+        resnet(f"decoder.model.{2 + i}.0", level["resnet"])
+        conv(f"decoder.model.{2 + i}.2", level["conv"])
+    conv(f"decoder.model.{2 + len(dec['up'])}", dec["conv_mid"])
+    conv(f"decoder.model.{4 + len(dec['up'])}", dec["conv_out"])
+    out["codebook"] = np.asarray(np_tree["codebook"], np.float32)
+    return out
+
+
+def motion_vq_from_jax(np_tree, cfg, device: DeviceLike = None,
+                       dtype: torch.dtype = torch.float32):
+    """The JAX `motion_vq.init_motion_vq` / `motion_vq_from_torch` tree
+    (numpy leaves) as the port's `MotionVQ` on `device` (`cfg` a
+    `MotionVQConfig`; a strict load checks every weight's place and shape)."""
+    from mmada_tpu_torch.checkpoints.motion_import import motion_vq_from_torch
+
+    return motion_vq_from_torch(motion_vq_state_from_jax(np_tree), cfg, device=device,
+                                dtype=dtype)

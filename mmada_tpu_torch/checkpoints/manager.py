@@ -24,7 +24,9 @@ and dtype against the shards' headers before it reads a byte, then copies
 each tensor into the template's tensor, on its device: any missing or extra
 key or any shape or dtype mismatch raises, and nothing is half restored.
 
-Exports of bare weights for serving are `hf_import.export_pretrained`.
+Exports of bare weights for serving are `hf_import.export_pretrained`;
+`save_params_only` / `load_params_only` write and read any tree of tensors
+(or a module's state dict, the motion VQ-VAE's) as safetensors shards.
 """
 
 from __future__ import annotations
@@ -200,23 +202,54 @@ class CheckpointManager:
             path = _item_path(self.output_dir, step)
         with open(os.path.join(path, METADATA)) as f:
             meta = json.load(f)
-        state_dir = os.path.join(path, STATE)
-        flat = flatten(template)
-        stored = {}
-        for name in safetensors_io.checkpoint_files(state_dir):
-            header, _ = safetensors_io.read_header(name)
-            stored.update(header)
-        missing, extra = sorted(set(flat) - set(stored)), sorted(set(stored) - set(flat))
-        if missing or extra:
-            raise ValueError(f"{path}: keys differ from the template: missing {missing[:8]} "
-                             f"({len(missing)}), extra {extra[:8]} ({len(extra)})")
-        for key, t in flat.items():
-            info = stored[key]
-            dtype = safetensors_io.DTYPES.get(info["dtype"])
-            if tuple(info["shape"]) != tuple(t.shape) or dtype != t.dtype:
-                raise ValueError(f"{path}: {key} is {info['dtype']} {info['shape']}, the "
-                                 f"template's {t.dtype} {list(t.shape)}")
-        with torch.no_grad():
-            for key, t in safetensors_io.iter_safetensors(state_dir):
-                flat[key].copy_(t)
+        _load_into(os.path.join(path, STATE), flatten(template), path)
         return template, int(meta["global_step"])
+
+
+def _load_into(state_dir: str, flat: dict, what: str) -> None:
+    """Copy the shards of `state_dir` into the tensors of `flat`, after every
+    key, shape and dtype is checked against the shards' headers."""
+    stored = {}
+    for name in safetensors_io.checkpoint_files(state_dir):
+        header, _ = safetensors_io.read_header(name)
+        stored.update(header)
+    missing, extra = sorted(set(flat) - set(stored)), sorted(set(stored) - set(flat))
+    if missing or extra:
+        raise ValueError(f"{what}: keys differ from the template: missing {missing[:8]} "
+                         f"({len(missing)}), extra {extra[:8]} ({len(extra)})")
+    for key, t in flat.items():
+        info = stored[key]
+        dtype = safetensors_io.DTYPES.get(info["dtype"])
+        if tuple(info["shape"]) != tuple(t.shape) or dtype != t.dtype:
+            raise ValueError(f"{what}: {key} is {info['dtype']} {info['shape']}, the "
+                             f"template's {t.dtype} {list(t.shape)}")
+    with torch.no_grad():
+        for key, t in safetensors_io.iter_safetensors(state_dir):
+            flat[key].copy_(t)
+
+
+def _flat_params(params: Any) -> dict[str, torch.Tensor]:
+    """A tree of tensors, or a module's state dict, flattened."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.state_dict())
+    return flatten(params)
+
+
+def save_params_only(path: str, params: Any) -> str:
+    """Export bare params (a tree of tensors, or a module such as the motion
+    VQ-VAE) as safetensors shards with an index under `path`, replacing what
+    was there (`mmada_tpu/checkpoints/manager.py:128-136`; the reference's
+    `unwrapped_model` safetensors)."""
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    flat = {k: t.detach() for k, t in _flat_params(params).items()}
+    safetensors_io.save_sharded(flat.items(), path)
+    return path
+
+
+def load_params_only(path: str, template: Any) -> Any:
+    """Copy the params saved under `path` into `template`'s tensors (a tree or
+    a module), in place, each key, shape and dtype checked first; returns
+    `template`."""
+    _load_into(path, _flat_params(template), path)
+    return template

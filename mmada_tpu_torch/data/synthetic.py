@@ -1,9 +1,8 @@
 """Structured synthetic data: learnable flows for on-chip proxy training.
 
-A copy of `mmada_tpu/data/synthetic.py` without its motion helpers
-(`motion_clip`, `motion_caption`: the text-to-motion training they feed is
-not ported, ROADMAP A.11): the same images, captions and text batches for
-the same seeds.
+A copy of `mmada_tpu/data/synthetic.py`: the same images, captions, text
+batches and motion clips (`motion_clip`, `motion_caption`, which feed the
+motion VQ-VAE and text-to-motion training) for the same seeds.
 
 The zero-egress environment has no real corpora, and the plain
 `dataset.synthetic` smoke flows (train.py) are *unlearnable* (random-noise
@@ -130,6 +129,27 @@ def text_batches(batch_size: int, n_sentences: int = 64, seed: int = 1,
             else:
                 rows.append(bank[rng.integers(0, n_sentences)])
         yield {"input_ids": rows}
+
+
+def motion_clip(k: int, length: int = 192, pose_dim: int = 263) -> np.ndarray:
+    """Deterministic smooth motion clip for pattern id k: a rank-4
+    superposition of sinusoids (k-derived frequencies/phases) mixed into
+    pose_dim channels. The motion analog of `pattern_image`: through ANY
+    fixed VQ encoder each clip maps to one fixed code sequence, so
+    caption -> codes is a memorizable mapping."""
+    rng = np.random.default_rng(1000 + k)
+    t = np.arange(length, dtype=np.float32)[:, None] / 32.0
+    freqs = rng.uniform(0.3, 2.0, size=(1, 4)).astype(np.float32)
+    phases = rng.uniform(0, 2 * np.pi, size=(1, 4)).astype(np.float32)
+    basis = np.sin(2 * np.pi * freqs * t + phases)           # (length, 4)
+    mix = (rng.normal(size=(4, pose_dim)) * 0.5).astype(np.float32)
+    return (basis @ mix).astype(np.float32)
+
+
+def motion_caption(k: int) -> str:
+    v = _VERB[k % len(_VERB)]
+    digits = " ".join(_DIGITS[int(c)] for c in f"{k:03d}")
+    return f"motion {digits} : a person {v} smoothly"
 
 
 def gate_forward_ids(tokenizer, n: int = 16, seq_len: int = 48,

@@ -1,4 +1,5 @@
-"""Entry points: answer text, t2i and MMU requests, decode images, and train.
+"""Entry points: answer text, t2i, MMU and t2m requests, decode images and
+motions, and train.
 
 Counterparts of the repo-root `generate.py`, `inference_t2i.py`,
 `inference_mmu.py` (from pixel arrays: the PIL transforms stay with the
@@ -17,6 +18,12 @@ CLIs) and `train.py`, with keyword arguments instead of a yaml config:
     image by MAGVIT-v2, builds `inference_mmu.py`'s frame and runs
     `mmu_generate` (or `mmu_generate_fast`, stopping at EOT); it returns
     each request's generated ids.
+  * `serve_t2m(model, prompts, ...)` builds the t2m frames
+    (`UniversalPrompting.t2m`, the motion span masked) and runs the MotionGIT
+    sampler; it returns the `(len(prompts), num_motion_tokens)` motion codes.
+  * `decode_motion(vq, vq_cfg, codes)` turns motion codes into `(B, 4n, 263)`
+    pose features by the motion VQ-VAE's decoder (frame -> `t2m_generate` ->
+    decode is `examples/text_to_motion_generation.py:60-87`).
   * `train(model, flows, steps, ...)` builds the multi-task `Trainer` and
     takes `steps` optimizer steps over the raw batches in `flows` (cycled),
     updating the model's weights in place; flows may carry pixels, which
@@ -29,11 +36,11 @@ CLIs) and `train.py`, with keyword arguments instead of a yaml config:
     `serve_t2i` take it as they take any model.
 
 The samplers are the exact ones unless a request asks for the fast ones:
-`serve_text`, `serve_mmu` and `serve_t2i` take `block_kv_cache` (False,
+`serve_text`, `serve_mmu`, `serve_t2i` and `serve_t2m` take `block_kv_cache` (False,
 True or "int8", also as a string, through the strict `parse_kv_cache`) and
 `cache_refresh_every`; `serve_text` and `serve_mmu` also
 `parallel_threshold` and `parallel_warmup_steps` (tau-parallel), `serve_t2i`
-`cfg_interval`; all three the segmented runs' `segment_steps` /
+`cfg_interval`; all four the segmented runs' `segment_steps` /
 `segment_timesteps` (the exact sampler in chunks, the same answers). The
 serving engine (`serve/engine.py`) and the HTTP front end (`app_torch.py`)
 serve concurrent requests.
@@ -53,7 +60,7 @@ import torch
 
 from mmada_tpu_torch.core.config import parse_kv_cache
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
-from mmada_tpu_torch.models import magvit2
+from mmada_tpu_torch.models import magvit2, motion_vq
 from mmada_tpu_torch.models.llada import calibration_stats
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.quantization import quantize_llada_params
@@ -174,6 +181,50 @@ def decode_images(vq, vq_cfg: magvit2.VQGANConfig, codes, device: DeviceLike = N
     device = _check_vq_device(vq, device)
     pixels = magvit2.decode_code(vq, vq_cfg, torch.as_tensor(codes, dtype=torch.long).to(device))
     return ((pixels + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu()
+
+
+def serve_t2m(model: MMadaModel, prompts: Sequence[str], tokenizer=None,
+              special_ids: Optional[SpecialIds] = None, device: DeviceLike = None,
+              num_motion_tokens: int = 256, max_text_len: int = 64, timesteps: int = 18,
+              temperature: float = 1.0, greedy: bool = False, seed: int = 0,
+              block_kv_cache=False, cache_refresh_every: int = 0,
+              segment_timesteps: int = 0) -> torch.Tensor:
+    """`(len(prompts), num_motion_tokens)` raw motion codes, on the CPU, from
+    one batch of t2m frames (every frame `max_text_len + 1 + n + 2` long; the
+    pads before a short caption are masked out of the exact sampler's
+    attention when the model's `attention_bias_enabled` is set). The model's
+    vocab must have a motion window (`with_motion`)."""
+    device = _check_device(model, device)
+    vocab = model.vocab
+    prompting = UniversalPrompting(
+        tokenizer or ByteTokenizer(), special_ids or SpecialIds.from_vocab(vocab),
+        max_text_len=max_text_len,
+    )
+    motion_ids = np.full((len(prompts), num_motion_tokens), vocab.mask_token_id, np.int64)
+    input_ids, attn, _ = prompting.t2m(list(prompts), motion_ids, motion_ids, dropout=False)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.long).to(device)
+
+    generator = None if greedy else torch.Generator(device).manual_seed(seed)
+    codes = model.t2m_generate(
+        dev(input_ids), attention_mask=dev(attn), temperature=temperature,
+        timesteps=timesteps, num_motion_tokens=num_motion_tokens, generator=generator,
+        greedy=greedy, block_kv_cache=parse_kv_cache(block_kv_cache),
+        cache_refresh_every=cache_refresh_every, segment_timesteps=segment_timesteps,
+    )
+    return codes.cpu()
+
+
+def decode_motion(vq: motion_vq.MotionVQ, vq_cfg: motion_vq.MotionVQConfig, codes,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """`(B, 2**down_t * n, pose_dim)` motion features, on the CPU, from
+    `(B, n)` raw motion codes (the motion VQ-VAE's decode, in fp32)."""
+    device = resolve_device(device)
+    if vq.device.type != device.type:
+        raise ValueError(f"motion VQ-VAE weights are on {vq.device}, the call asked for {device}")
+    codes = torch.as_tensor(codes, dtype=torch.long).to(vq.device)
+    return motion_vq.decode(vq, vq_cfg, codes).cpu()
 
 
 def serve_mmu(model: MMadaModel, vq, vq_cfg: magvit2.VQGANConfig, images, questions: Sequence[str],

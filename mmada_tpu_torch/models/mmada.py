@@ -1,4 +1,4 @@
-"""MMaDA: the unified multimodal masked-diffusion model: text, MMU and t2i.
+"""MMaDA: the unified multimodal masked-diffusion model: text, MMU, t2i, t2m.
 
 Counterpart of `MMadaModel` in `mmada_tpu/models/mmada.py` (:164): the LLaDA
 backbone plus the fused vocab layout plus the task entry points this slice
@@ -16,6 +16,8 @@ serves:
                      that holds the <|mmu|> image frame; the fast one stops
                      after the first block that ends in EOT in every row
   * `t2i_generate` - MaskGIT image-token generation with CFG
+  * `t2m_generate` - MaskGIT motion-token generation over the motion window
+                     (a vocab `with_motion`), no CFG
 
 Every sampler runs the exact sampler by default. The fast samplers are
 opt-in knobs, as in JAX: `block_kv_cache` (False, True or "int8": the
@@ -23,12 +25,12 @@ block-KV cached decode, `_text_cache_fns` / `_span_cache_fns` on
 `llada.forward_kv_capture` / `forward_kv_step`), `cache_refresh_every`, and
 for text and MMU `parallel_threshold` / `parallel_warmup_steps`
 (tau-parallel). The segmented runs (`segment_steps` on `generate` and
-`mmu_generate`, `segment_timesteps` on `t2i_generate`; the exact sampler
-only, as in JAX) run the sampler in chunks with the same tokens;
-`segmented_run`, `segmented_stepwise_run`, `segmented_chunk_runner` and
-`t2i_segmented_run` hand the chunks to the caller (the serving engine,
-`serve/engine.py`, and the HTTP front end's streams). Not ported:
-`with_pinned_fast_runner` (XLA layout pinning) and the t2m runs (ROADMAP A.11).
+`mmu_generate`, `segment_timesteps` on `t2i_generate` and `t2m_generate`;
+the exact sampler only, as in JAX) run the sampler in chunks with the same
+tokens; `segmented_run`, `segmented_stepwise_run`, `segmented_chunk_runner`,
+`t2i_segmented_run` and `t2m_segmented_run` hand the chunks to the caller
+(the serving engine, `serve/engine.py`, and the HTTP front end's streams).
+Not ported: `with_pinned_fast_runner` (XLA layout pinning).
 
 Image generation evaluates the vocab head only over the 8k image window and
 the image positions (`logit_window` + `logit_positions`); text steps only
@@ -54,6 +56,7 @@ from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import BF16, FP32, Policy
 from mmada_tpu_torch.core.vocab import VocabLayout
 from mmada_tpu_torch.models import llada
+from mmada_tpu_torch.sampling import motion as motion_sampling
 from mmada_tpu_torch.sampling import t2i as t2i_sampling
 from mmada_tpu_torch.sampling import text as text_sampling
 from mmada_tpu_torch.sampling.schedules import cosine_schedule
@@ -178,8 +181,9 @@ class MMadaModel:
         return capture, step
 
     def _window_forward_fn(self, num_tokens: int, window: tuple[int, int]):
-        """Vocab AND position windows: the head runs only over the image span's
-        hidden states and the image vocab slice."""
+        """Vocab AND position windows: the head runs only over the span's
+        hidden states (the image or motion span before the frame's last
+        position) and the `window` vocab slice."""
 
         def fn(tokens, attention_mask):
             seq_len = tokens.shape[1]
@@ -396,6 +400,62 @@ class MMadaModel:
             self._window_forward_fn(mcfg.num_vq_tokens, self.vocab.image_window), input_ids,
             mcfg, generator=generator, uncond_input_ids=uncond_input_ids,
             attention_mask=attention_mask, uncond_attention_mask=uncond_attention_mask,
+            segment_timesteps=segment_timesteps)
+
+    # ----------------------------------------------------------------- t2m
+    def _motion_config(self, temperature, timesteps, noise_schedule, num_motion_tokens,
+                       greedy, cache_refresh_every=0) -> motion_sampling.MotionGITConfig:
+        if self.vocab.motion_codebook_size == 0:
+            raise ValueError("vocab has no motion window; use vocab.with_motion()")
+        return motion_sampling.MotionGITConfig(
+            timesteps=timesteps, temperature=temperature, noise_schedule=noise_schedule,
+            mask_id=self.vocab.mask_token_id, num_motion_tokens=num_motion_tokens,
+            motion_vocab_size=self.vocab.motion_codebook_size,
+            motion_offset=self.vocab.motion_offset, greedy=greedy,
+            cache_refresh_every=cache_refresh_every,
+        )
+
+    @property
+    def _motion_window(self) -> tuple[int, int]:
+        """The sampler's window: the motion codes without EOM / PAD."""
+        lo = self.vocab.motion_offset
+        return lo, lo + self.vocab.motion_codebook_size
+
+    def t2m_generate(self, input_ids, attention_mask=None, temperature=1.0, timesteps=18,
+                     noise_schedule=cosine_schedule, num_motion_tokens=256, generator=None,
+                     greedy=False, block_kv_cache=False, cache_refresh_every=0,
+                     segment_timesteps=0):
+        """(B, num_motion_tokens) raw motion codes from (B, L) t2m frames.
+        `block_kv_cache` (True / "int8"): the cached decode, re-captured every
+        `cache_refresh_every` steps; it takes no mask, as JAX's (the exact
+        sampler passes `attention_mask` to the forward). `segment_timesteps`
+        (0 = off) runs the exact sampler in windows of at most that many
+        steps, with the same codes. `generator` may be a list, one a row."""
+        mcfg = self._motion_config(temperature, timesteps, noise_schedule, num_motion_tokens,
+                                   greedy, cache_refresh_every)
+        fwd = self._window_forward_fn(num_motion_tokens, self._motion_window)
+        if segment_timesteps:
+            _exact_only("segment_timesteps", block_kv_cache)
+            return motion_sampling.t2m_generate_segmented(
+                fwd, input_ids, mcfg, generator=generator, attention_mask=attention_mask,
+                segment_timesteps=segment_timesteps)
+        cache_fns = (self._span_cache_fns(self._motion_window, num_motion_tokens,
+                                          _cache_dtype(block_kv_cache))
+                     if block_kv_cache else None)
+        return motion_sampling.t2m_generate(fwd, input_ids, mcfg, generator=generator,
+                                            attention_mask=attention_mask, cache_fns=cache_fns)
+
+    def t2m_segmented_run(self, input_ids, attention_mask=None, temperature=1.0, timesteps=18,
+                          noise_schedule=cosine_schedule, num_motion_tokens=256, generator=None,
+                          greedy=False, segment_timesteps=8):
+        """`t2m_generate`'s incremental form: a `SegmentedT2MRun`; call
+        `.step()` until True, then read `.codes` (the serving engine's
+        chunked t2m)."""
+        mcfg = self._motion_config(temperature, timesteps, noise_schedule, num_motion_tokens,
+                                   greedy)
+        return motion_sampling.SegmentedT2MRun(
+            self._window_forward_fn(num_motion_tokens, self._motion_window), input_ids, mcfg,
+            generator=generator, attention_mask=attention_mask,
             segment_timesteps=segment_timesteps)
 
 

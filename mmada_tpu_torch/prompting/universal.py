@@ -1,7 +1,6 @@
-"""UniversalPrompting: the text, t2i, mmu and r2i sequence layouts.
+"""UniversalPrompting: the text, t2i, mmu, r2i and t2m sequence layouts.
 
-Counterpart of `mmada_tpu/prompting/universal.py` but for the motion frame
-(t2m), in pure numpy:
+Counterpart of `mmada_tpu/prompting/universal.py`, in pure numpy:
 
   t2i      [pad]* <|t2i|> <bos> text <eos> <|soi|> img <|eoi|>
   t2i_gen  same frame, no labels
@@ -10,6 +9,7 @@ Counterpart of `mmada_tpu/prompting/universal.py` but for the motion frame
   mmu      <|mmu|> <|soi|> img <|eoi|> <bos> text <eos> [<eos> padding]
   mmu_gen  same frame, no labels
   r2i      <|r2i|> <bos> text <eos> [<eos> padding] <|soi|> img <|eoi|>
+  t2m      [pad]* <|t2m|> <bos> cap <eos> <|som|> motion <|eom|>
 
 The text tokenizer is injected (duck-typed: `__call__(list[str])` -> dict
 with 'input_ids'); tests and the smoke run use the deterministic
@@ -65,7 +65,7 @@ class UniversalPrompting:
     """Task-keyed sequence assembler (reference __call__ dispatch,
     prompting_utils.py:482-541)."""
 
-    TASKS = ("t2i", "t2i_gen", "lm", "lm_chat", "mmu", "mmu_gen", "r2i")
+    TASKS = ("t2i", "t2i_gen", "lm", "lm_chat", "mmu", "mmu_gen", "r2i", "t2m")
 
     def __init__(
         self,
@@ -258,6 +258,37 @@ class UniversalPrompting:
         seqs = np.stack(seqs)
         return seqs, np.stack(pmasks), seqs.copy()
 
+    # ---------------------------------------------------------------- t2m
+    def t2m(self, texts, motion_ids: np.ndarray, labels: np.ndarray,
+            dropout: bool = True):
+        """Motion frame `[pad]* <|t2m|> <bos> cap <eos> <|som|> motion <|eom|>`
+        (prompting_utils.py:87-144); motion ids already in fused space.
+        Returns (input_ids, attention_mask, labels): the mask is 0 over the
+        pads, the labels IGNORE outside the motion span."""
+        token_lists = self._tokenize(texts)
+        b, n = motion_ids.shape
+        drops = (
+            self.rng.random(b) < self.cond_dropout_prob if dropout
+            else np.zeros(b, bool)
+        )
+        seqs, masks, labs = [], [], []
+        for i in range(b):
+            frame, pad_len = self._padded_text_frame(
+                token_lists[i], self.sp.t2m, bool(drops[i])
+            )
+            seq = np.concatenate(
+                [frame, [self.sp.som], motion_ids[i], [self.sp.eom]]
+            ).astype(np.int64)
+            lab = np.concatenate([
+                np.full(len(frame), self.ignore_id),
+                [self.ignore_id], labels[i], [self.ignore_id],
+            ]).astype(np.int64)
+            mask = np.concatenate(
+                [np.zeros(pad_len, np.int64), np.ones(len(seq) - pad_len, np.int64)]
+            )
+            seqs.append(seq), masks.append(mask), labs.append(lab)
+        return np.stack(seqs), np.stack(masks), np.stack(labs)
+
     # ------------------------------------------------------------ dispatch
     def __call__(self, inputs, task: str, **kwargs):
         if task == "t2i":
@@ -274,6 +305,8 @@ class UniversalPrompting:
             return self.mmu_gen(*inputs)
         if task == "r2i":
             return self.r2i(*inputs)
+        if task == "t2m":
+            return self.t2m(*inputs, **kwargs)
         raise NotImplementedError(f"unknown task: {task}")
 
 

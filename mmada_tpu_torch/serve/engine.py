@@ -1,16 +1,16 @@
 """Batched mixed-modal serving engine.
 
 Counterpart of `mmada_tpu/serve/engine.py` (`ServingEngine`, `:482`): a
-request queue for text, MMU and t2i; one dispatcher thread owns the card and
-runs every model call; callers get `concurrent.futures.Future`s.
+request queue for text, MMU, t2i and t2m; one dispatcher thread owns the card
+and runs every model call; callers get `concurrent.futures.Future`s.
 
   * Compatible requests (same kind, settings and frame length) that arrive
     together are micro-batched into one sampler call. Stochastic text and
     MMU rows each draw from their own generator seeded with the request's
     seed, so a row's answer is its solo run's whatever shares its batch
-    (JAX's per-row keys, `_jit_text_per_row_keys`). t2i requests run solo:
-    the MaskGIT sampler draws for the whole batch from one generator.
-  * `segment_steps` (text, MMU) and `segment_timesteps` (t2i) run a request
+    (JAX's per-row keys, `_jit_text_per_row_keys`). t2i and t2m requests run
+    solo: their MaskGIT samplers sample categorically from one generator.
+  * `segment_steps` (text, MMU) and `segment_timesteps` (t2i, t2m) run a request
     in chunks, and the dispatcher round-robins the chunks of the requests in
     flight with newly arrived work, so a heavy request yields the card every
     chunk. Chunked text and MMU requests with one key (kind, settings, frame
@@ -29,9 +29,8 @@ so JAX pads every batch to a power-of-two bucket with copies of its last row
 and sizes a stream's slot pool by the same buckets. On the card every row of
 a batch costs its compute, so the port runs a group at its own size and a
 stream's rows are exactly its requests (up to `max_batch`); a padding row or
-free slot never exists, and the stats keep JAX's keys and meanings.
-`submit_t2m` fails its future: motion is ROADMAP A.11. Results are numpy
-arrays, as JAX's are.
+free slot never exists, and the stats keep JAX's keys and meanings. Results
+are numpy arrays, as JAX's are.
 
 The dispatcher runs its calls under `torch.no_grad()` (grad mode is per
 thread); an error in a call fails the futures of its group or stream.
@@ -125,20 +124,20 @@ class T2ISettings:
 
 @dataclasses.dataclass(frozen=True)
 class T2MSettings:
-    """Kept for JAX's interface; the engine refuses t2m (ROADMAP A.11)."""
-
     timesteps: int = 18
     temperature: float = 1.0
     num_motion_tokens: int = 256
-    block_kv_cache: bool = False
+    block_kv_cache: Any = False        # the cached decode (opt-in)
     cache_refresh_every: int = 0
+    # > 0: run the MotionGIT loop as windows of at most N steps, interleaved
+    # with other work; the same codes (exact sampler only)
     segment_timesteps: int = 0
 
 
 @dataclasses.dataclass
 class _Request:
-    kind: str                      # 'text' | 'mmu' | 't2i'
-    payload: Any                   # prompt / frame ids, or the t2i tuple
+    kind: str                      # 'text' | 'mmu' | 't2i' | 't2m'
+    payload: Any                   # prompt / frame ids, or the t2i / t2m tuple
     settings: Any
     future: Future
     seed: int
@@ -146,8 +145,9 @@ class _Request:
 
 
 class _T2ITask:
-    """A chunked t2i request in flight: `step()` runs one window of its
-    `SegmentedT2IRun` (the dispatcher's step / done / fail_all protocol)."""
+    """A chunked t2i or t2m request in flight: `step()` runs one window of
+    its `SegmentedT2IRun` / `SegmentedT2MRun` (the dispatcher's step / done /
+    fail_all protocol)."""
 
     def __init__(self, run, grp):
         self.run = run
@@ -384,10 +384,9 @@ class ServingEngine:
 
     def submit_t2m(self, frame_ids, settings: T2MSettings, seed: int = 0,
                    attention_mask=None) -> Future:
-        fut: Future = Future()
-        fut.set_exception(NotImplementedError(
-            "t2m serving waits for the motion port (ROADMAP A.11)"))
-        return fut
+        """One t2m frame (`UniversalPrompting.t2m`, its motion span masked);
+        the future holds its `(num_motion_tokens,)` raw motion codes."""
+        return self._submit("t2m", (frame_ids, attention_mask), settings, seed)
 
     def submit_t2i(self, frame, uncond, settings: T2ISettings, seed: int = 0,
                    attention_mask=None, uncond_attention_mask=None) -> Future:
@@ -503,11 +502,14 @@ class ServingEngine:
             self._bump("cancelled", len(requests) - len(live))
         if not live:
             return
-        # group by (kind, settings, frame length); t2i runs solo (one
-        # generator for the batch would tie a request's image to its row)
+        # group by (kind, settings, frame length); t2i and t2m run solo (one
+        # generator for the batch would tie a request's codes to its row)
         groups: dict = {}
         for r in live:
-            if r.kind == "t2i":
+            if r.kind == "t2m":
+                length = (np.asarray(r.payload[0]).shape[-1], r.payload[1] is not None)
+                solo = id(r)
+            elif r.kind == "t2i":
                 length = (np.asarray(r.payload[0]).shape[-1], np.asarray(r.payload[1]).shape[-1],
                           r.payload[2] is not None, r.payload[3] is not None)
                 solo = id(r)
@@ -621,6 +623,26 @@ class ServingEngine:
                 return
             codes = self.model.t2i_generate(
                 stack(0), block_kv_cache=settings.block_kv_cache,
+                cache_refresh_every=settings.cache_refresh_every, **kw).cpu().numpy()
+            for i, r in enumerate(grp):
+                self._record_latency(r)
+                _deliver(r.future, codes[i])
+        elif kind == "t2m":
+            frame = self._tensor([grp[0].payload[0]])
+            attn = None if grp[0].payload[1] is None else self._tensor([grp[0].payload[1]])
+            if settings.segment_timesteps > 0 and settings.block_kv_cache:
+                raise ValueError("segment_timesteps is exact-sampler only — unset block_kv_cache")
+            kw = dict(attention_mask=attn, temperature=settings.temperature,
+                      timesteps=settings.timesteps,
+                      num_motion_tokens=settings.num_motion_tokens,
+                      generator=torch.Generator(self.model.device).manual_seed(grp[0].seed))
+            if settings.segment_timesteps > 0:
+                run = self.model.t2m_segmented_run(
+                    frame, segment_timesteps=settings.segment_timesteps, **kw)
+                self._active.append(_T2ITask(run, grp))
+                return
+            codes = self.model.t2m_generate(
+                frame, block_kv_cache=settings.block_kv_cache,
                 cache_refresh_every=settings.cache_refresh_every, **kw).cpu().numpy()
             for i, r in enumerate(grp):
                 self._record_latency(r)

@@ -12,7 +12,8 @@ generate.py:116-131). `model.mmada` takes either
     8B, `arch` overrides, `tie_word_embeddings`), random weights from
     `training.seed`.
 
-`model.vq_model` takes `tiny`, or `vq_model_path` / `vq_model_name` naming a
+`build_motion_vq` builds the motion VQ-VAE of `model.motion_vq_model` (its
+`pretrained_path` where the file exists). `model.vq_model` takes `tiny`, or `vq_model_path` / `vq_model_name` naming a
 local directory of MAGVIT-v2 weights; anything else falls back to random
 weights, with a warning, as in JAX. The port's MAGVIT-v2 computes in fp32
 whatever its weights' dtype (its codes are signs), so it is loaded in fp32
@@ -44,7 +45,7 @@ from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import policy_from_name
 from mmada_tpu_torch.core.vocab import MMADA_8B, VocabLayout, tiny_layout
 from mmada_tpu_torch.entry import QUANT_SCHEMES, quantize
-from mmada_tpu_torch.models import llada, magvit2
+from mmada_tpu_torch.models import llada, magvit2, motion_vq
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
 
@@ -218,6 +219,42 @@ def build_vq_model(cfg: Config, device: DeviceLike = None):
     logger.warning("VQ model %s unavailable locally; random init", path)
     return magvit2.init_magvit2(vq_cfg, device=device,
                                 generator=torch.Generator(device).manual_seed(1)), vq_cfg
+
+
+def motion_vq_config(cfg: Config):
+    """`model.motion_vq_model` as a `MotionVQConfig`, with JAX's defaults
+    (`train_motion_vq.py`)."""
+    m = cfg.get_path("model.motion_vq_model", Config())
+    return motion_vq.MotionVQConfig(
+        pose_dim=m.get("pose_dim", 263), code_dim=m.get("code_dim", 512),
+        nb_code=m.get("nb_code", 512), width=m.get("width", 512), down_t=m.get("down_t", 2),
+        depth=m.get("depth", 3), dilation_growth_rate=m.get("dilation_growth_rate", 3),
+        mu=m.get("mu", 0.99), quantizer=m.get("quantizer", "ema_reset"),
+        beta=m.get("beta", 1.0))
+
+
+def build_motion_vq(cfg: Config, device: DeviceLike = None):
+    """(MotionVQ, MotionVQConfig) of `model.motion_vq_model`: its
+    `pretrained_path` when it exists (a `save_params_only` directory, as
+    `train_motion_vq_torch.py` writes, or a reference `HumanVQVAE` state dict
+    in a .safetensors file), else random weights from seed 0, with a warning
+    (JAX's `eval_t2m.py` loads the file only where it exists)."""
+    from mmada_tpu_torch.checkpoints.manager import load_params_only
+    from mmada_tpu_torch.checkpoints.motion_import import motion_vq_from_torch
+    from mmada_tpu_torch.checkpoints.safetensors_io import iter_safetensors
+
+    device = resolve_device(device)
+    vq_cfg = motion_vq_config(cfg)
+    path = cfg.get_path("model.motion_vq_model.pretrained_path")
+    vq = motion_vq.init_motion_vq(vq_cfg, device=device,
+                                  generator=torch.Generator(device).manual_seed(0))
+    if path and os.path.isdir(str(path)):
+        return load_params_only(str(path), vq), vq_cfg
+    if path and os.path.isfile(str(path)):
+        return motion_vq_from_torch(dict(iter_safetensors(str(path))), vq_cfg,
+                                    device=device), vq_cfg
+    logger.warning("motion VQ-VAE %s unavailable locally; random init", path)
+    return vq, vq_cfg
 
 
 class Loaded(NamedTuple):

@@ -73,6 +73,12 @@ def answer_loss(logits, labels, masked_indices, p_mask, answer_lengths) -> torch
                        torch.zeros_like(ce)).sum() / labels.shape[0]
 
 
+def t2m_loss(logits, labels, masked_indices, p_mask, answer_lengths) -> torch.Tensor:
+    """Motion loss with the mmu normalization (modelling_ours.py:323-395,
+    the forward_process t2m branch)."""
+    return answer_loss(logits, labels, masked_indices, p_mask, answer_lengths)
+
+
 def chunked_weighted_ce(
     model,
     normed_hidden: torch.Tensor,  # (B, L, D) post-final-norm

@@ -1622,3 +1622,111 @@ def test_t2i_windows_on_the_card(cuda_device):
     got = run(segment_timesteps=2)
     assert flash_attention.launches - before == model.cfg.n_layers * 6
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ text to motion
+
+# the t2m frame of configs/t2m_instruct.yaml: 64 + 1 text positions,
+# <|som|>, 55 motion positions, <|eom|>
+T2M_FRAME = 122
+
+
+@pytest.mark.parametrize("b,h,pad", [(2, 4, 40), (4, 8, 0)])
+def test_t2m_frame_kernels_match_plain_versions(cuda_device, b, h, pad):
+    """B2 and dq-bias / dkv-bias at the t2m frame (122 tokens: fp32 bias rows
+    of 488 bytes, which `prepare_attention_bias` pads so that no kernel
+    copies the bias) with the frame's pad mask, against their plain versions
+    on the rows with an allowed key."""
+    q, k, v = _qkv(cuda_device, b, h, h, T2M_FRAME, T2M_FRAME, 128)
+    mask = torch.ones(b, T2M_FRAME, dtype=torch.long, device=cuda_device)
+    for row in range(b):
+        mask[row, :pad + 3 * row] = 0
+    bias = llada.prepare_attention_bias(mask)
+    sin, cos = llada.rope_sin_cos(T2M_FRAME, 128, 500000.0, device=cuda_device)
+    copies = (flash_attention.bias_copies, attention_bwd_dq.bias_copies,
+              attention_bwd_dkv.bias_copies)
+    got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    live = mask.bool()[:, None, :, None]
+    want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    assert_b1_close(got * live, want * live)
+    out = flash_attention(q, k, v, bias=bias)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(3),
+                       device=cuda_device).bfloat16() * live
+    delta = attention_delta(out, dout)
+    dq, lse = attention_bwd_dq(q, k, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, bias)
+    want_dq, want_lse = attention_bwd_dq_reference(q, k, v, dout, delta, bias)
+    want_dk, want_dv = attention_bwd_dkv_reference(q, k, v, dout, want_lse, delta, bias)
+    for g, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert_grad_close(g, w)
+    assert (flash_attention.bias_copies, attention_bwd_dq.bias_copies,
+            attention_bwd_dkv.bias_copies) == copies
+
+
+def test_t2m_paths_go_through_the_kernels(cuda_device):
+    """A 2-layer bf16 model with the motion vocab: masked exact t2m runs B2
+    once a layer a step, the cached t2m B1 (its capture and steps take no
+    mask), and a masked t2m train step (full remat) B2 twice a layer and
+    dq-bias / dkv-bias once; segmented and engine codes equal the direct
+    call's."""
+    import numpy as np
+
+    from mmada_tpu_torch.entry import serve_t2m
+    from mmada_tpu_torch.serve.engine import ServingEngine, T2MSettings
+    from mmada_tpu_torch.training import optimizers, t2m
+    from mmada_tpu_torch.training.train_step import TrainState
+
+    vocab, sp = _tiny_special()
+    vocab = vocab.with_motion(32)
+    cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=256, n_heads=2)
+    model = MMadaModel.init(cfg, vocab, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(cuda_device).manual_seed(0),
+                            policy=BF16, remat="full")
+    masked = dataclasses.replace(model, cfg=dataclasses.replace(cfg, attention_bias_enabled=True))
+    kernels = (flash_attention, attention_bwd_dq, attention_bwd_dkv)
+
+    def counts():
+        return tuple(getattr(f, a) for f in kernels for a in ("launches", "bias_launches"))
+
+    n, steps = cfg.n_layers, 4
+    kw = dict(special_ids=sp, num_motion_tokens=16, max_text_len=12, timesteps=steps)
+    c0 = counts()
+    exact = serve_t2m(masked, ["walk", "a person jumps"], **kw)
+    assert tuple(c - b for c, b in zip(counts(), c0)) == (0, steps * n, 0, 0, 0, 0)
+    seg = serve_t2m(masked, ["walk", "a person jumps"], segment_timesteps=3, **kw)
+    assert torch.equal(seg, exact) and exact.shape == (2, 16)
+    c0 = counts()
+    serve_t2m(model, ["walk"], block_kv_cache=True, **kw)
+    assert tuple(c - b for c, b in zip(counts(), c0)) == ((steps + 1) * n, 0, 0, 0, 0, 0)
+
+    frame = np.concatenate([[sp.pad] * 3, [sp.t2m, 1, 40, 41, 2], [sp.som],
+                            [vocab.mask_token_id] * 16, [sp.eom]])
+    mask = (frame != sp.pad).astype(np.int64)
+    eng = ServingEngine(masked, min_chunk_device_ms=0).start()
+    try:
+        got = eng.submit_t2m(frame, T2MSettings(timesteps=steps, num_motion_tokens=16,
+                                                segment_timesteps=2), seed=3,
+                             attention_mask=mask).result(300)
+    finally:
+        eng.stop()
+    want = masked.t2m_generate(torch.as_tensor(frame[None], device=cuda_device),
+                               attention_mask=torch.as_tensor(mask[None], device=cuda_device),
+                               timesteps=steps, num_motion_tokens=16,
+                               generator=torch.Generator(cuda_device).manual_seed(3))
+    np.testing.assert_array_equal(got, want[0].cpu().numpy())
+
+    opt = optimizers.AdamW(1e-4)
+    state = TrainState.create(masked.params, opt)
+    step = t2m.make_t2m_train_step(masked, opt, t2m.T2MStepConfig(
+        batch_size=2, max_text_len=8, num_motion_tokens=16))
+    ids = torch.as_tensor(np.stack([frame, frame]), device=cuda_device)
+    ids[:, 9:-1] = vocab.motion_offset + torch.arange(16, device=cuda_device) % 32
+    labels = torch.full_like(ids, -100)
+    labels[:, 9:-1] = ids[:, 9:-1]
+    c0 = counts()
+    state, m = step(state, {"input_ids": ids, "labels": labels,
+                            "attention_mask": torch.as_tensor(np.stack([mask, mask]),
+                                                              device=cuda_device)},
+                    torch.Generator(cuda_device).manual_seed(0))
+    assert tuple(c - b for c, b in zip(counts(), c0)) == (0, 2 * n, 0, n, 0, n)
+    assert np.isfinite(float(m["loss"])) and float(m["skipped_nonfinite"]) == 0

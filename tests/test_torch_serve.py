@@ -1,7 +1,8 @@
 """The port's serving engine on the CPU at tiny sizes.
 
 The cases of `tests/test_serve.py` (but the mesh cases, which wait for
-sharded serving, ROADMAP A.12, and t2m, A.11: `submit_t2m` fails naming it).
+sharded serving, ROADMAP A.12; the engine's t2m is held in
+tests/test_torch_t2m.py).
 At T = 0 the engine's answers are held against the JAX model's `generate` on
 the same weights; stochastic answers against the port's solo runs with the
 request's seed. Batching, joins and the chunk guard are held by the engine's
@@ -518,10 +519,12 @@ def test_cancellation_queued_and_mid_stream(models, engine):
 
 
 def test_t2m_fails_naming_the_motion_port(engine):
+    """A t2m request to a model whose vocab has no motion window fails its
+    future naming `with_motion` (engine t2m itself: test_torch_t2m.py)."""
     eng = engine()
     frame, _ = t2i_frame()
     f = eng.submit_t2m(frame, T2MSettings(timesteps=4, num_motion_tokens=N_IMG), seed=9)
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match="with_motion"):
         f.result(5)
 
 

@@ -453,8 +453,7 @@ def test_train_torch_cli_saves_and_resumes(tmp_path):
     assert json.loads((out / "checkpoint-3" / "metadata.json").read_text())["global_step"] == 3
 
 
-@pytest.mark.parametrize("override,item", [("training.task=t2m", "A.11"),
-                                           ("distributed.initialize=true", "A.12"),
+@pytest.mark.parametrize("override,item", [("distributed.initialize=true", "A.12"),
                                            ("parallel.tensor=2", "A.12")])
 def test_unported_training_modes_name_their_item(override, item):
     import train_torch

@@ -13,12 +13,23 @@ loader, then `fit`. The config is snapshotted into
         model.vq_model.vq_model_path=/path/to/magvitv2 \\
         training.gradient_accumulation_steps=1 training.loss_chunk=128
 
-One key more than `train.py`: `device` (the card unless `device=cpu`). A
-`config=` file is read with PyYAML; without it, give every key as a dotted
-override. PIL opens and resizes the images (`open_image`,
-`image_transform`) and writes the validation hooks' PNGs (`write_png`); the
-package itself imports neither. Not ported, each refused with its ROADMAP
-item: `training.task: t2m` (A.11) and `distributed.initialize` or a
+`training.task: t2m` runs text-to-motion training instead (`train_t2m`,
+JAX's `train.py` `train_t2m`): the model with the motion vocab, t2m frames
+from a token bank (`dataset.token_bank`, an .npz of captions, padded code
+rows and lengths), synthetic codes (`dataset.synthetic`) or HumanML3D's
+tokenized motions (`MotionTokenDataset`), full fine-tuning or LoRA when
+`training.lora` is set, one metrics line every `experiment.log_every` steps:
+
+    python train_torch.py config=configs/t2m_instruct.yaml \
+        model.mmada.pretrained_model_path=/path/to/MMaDA-8B dataset.motion_root=...
+
+One key more than `train.py`: `device` (the card unless `device=cpu`); and for
+t2m `model.mmada.attention_bias_enabled` (the frames' masks reach attention)
+and `experiment.resume_from_checkpoint=latest`. A `config=` file is read with
+PyYAML; without it, give every key as a dotted override. PIL opens and
+resizes the images (`open_image`, `image_transform`) and writes the
+validation hooks' PNGs (`write_png`); the package itself imports neither. Not
+ported, refused with its ROADMAP item: `distributed.initialize` or a
 `parallel` layout over more than one device (A.12).
 """
 
@@ -81,9 +92,6 @@ def write_png(path: str, pixels) -> None:
 
 def check_supported(cfg) -> None:
     """Refuse what the port does not train yet, naming its ROADMAP item."""
-    if cfg.get_path("training.task") == "t2m":
-        raise NotImplementedError("training.task=t2m (text-to-motion training, train.py "
-                                  "train_t2m) is not ported yet: ROADMAP A.11")
     if cfg.get_path("distributed.initialize", False):
         raise NotImplementedError("distributed.initialize (multi-host training) is not "
                                   "ported yet: ROADMAP A.12")
@@ -221,10 +229,201 @@ def setup(cfg):
 
 
 def run(cfg):
-    """`setup(cfg)`, then `fit` from `training.seed`; returns the Trainer."""
+    """`setup(cfg)`, then `fit` from `training.seed`; returns the Trainer
+    (for `training.task: t2m`, `train_t2m`'s `T2MRun`)."""
+    if cfg.get_path("training.task") == "t2m":
+        return train_t2m(cfg)
     trainer, loader = setup(cfg)
     trainer.fit(loader, rng_seed=cfg.get_path("training.seed", 0))
     return trainer
+
+
+def motion_samples(cfg, vocab):
+    """The t2m stream of (caption, padded code row, length): the token bank,
+    synthetic codes, or `MotionTokenDataset` (`train.py` `train_t2m`)."""
+    import numpy as np
+
+    n_motion = cfg.get_path("dataset.max_motion_length", 55)
+    if cfg.get_path("dataset.token_bank"):
+        # pre-tokenized deterministic bank: caption -> fixed code row, already
+        # padded MotionTokenDataset-style (codes, EOM, PAD...)
+        bank = np.load(cfg.get_path("dataset.token_bank"))
+        caps = [str(c) for c in bank["captions"]]
+        toks = np.asarray(bank["tokens"], np.int64)
+        lens = np.asarray(bank["lengths"], np.int64)
+
+        def samples():
+            rng = np.random.default_rng(0)
+            while True:
+                i = int(rng.integers(0, len(caps)))
+                yield caps[i], toks[i], int(lens[i])
+        return samples()
+    if cfg.get_path("dataset.synthetic"):
+        def samples():
+            rng = np.random.default_rng(0)
+            while True:
+                yield ("a person walks",
+                       rng.integers(0, vocab.motion_codebook_size, size=(n_motion,)), n_motion)
+        return samples()
+    from mmada_tpu_torch.data.motion import MotionTokenDataset
+
+    root = cfg.get_path("dataset.motion_root")
+    return iter(MotionTokenDataset(
+        root, cfg.get_path("dataset.split_file", (root or "") + "/train.txt"),
+        cfg.get_path("dataset.tokenizer_name", "VQVAE_tokens"),
+        nb_code=vocab.motion_codebook_size, max_motion_length=n_motion))
+
+
+class T2MRun:
+    """Text-to-motion training from a config (`train_t2m`): `fit()` takes
+    `training.max_train_steps` steps from `global_step`, logging `metrics.jsonl`
+    under `experiment.output_dir` every `experiment.log_every` steps
+    (`history` keeps the same lines, with each logged step's wall seconds)
+    and saving `checkpoint-{step}` every `experiment.save_every` steps and
+    at the last (none when it is 0: the port's Trainer's rule, where JAX
+    always saves at the end). `experiment.resume_from_checkpoint=latest`
+    restores the newest checkpoint and replays the data draws of the steps
+    it holds, so a resumed run continues the uninterrupted one (each step
+    corrupts its batch from a generator seeded by `training.seed` and the
+    step)."""
+
+    def __init__(self, cfg):
+        import dataclasses
+
+        import torch
+
+        from mmada_tpu_torch.checkpoints.manager import CheckpointManager
+        from mmada_tpu_torch.core.device import resolve_device
+        from mmada_tpu_torch.models import lora as lora_mod
+        from mmada_tpu_torch.serve.loader import (
+            build_model,
+            build_prompting,
+            build_text_tokenizer,
+            build_vocab,
+        )
+        from mmada_tpu_torch.training import t2m
+        from mmada_tpu_torch.training.lr_schedules import from_config as lr_from_config
+        from mmada_tpu_torch.training.optimizers import AdamW
+        from mmada_tpu_torch.training.train_step import TrainState
+        from mmada_tpu_torch.utils.logging import MetricsLogger
+
+        check_supported(cfg)
+        self.device = resolve_device(cfg.get("device"))
+        tokenizer = build_text_tokenizer(cfg)
+        vocab = build_vocab(cfg)
+        if vocab.motion_codebook_size == 0:
+            vocab = vocab.with_motion(cfg.get_path("model.mmada.motion_vocab_size", 512))
+        self.vocab = vocab
+        self.prompting = build_prompting(cfg, tokenizer, vocab)
+        model = build_model(cfg, vocab, self.device)
+        if cfg.get_path("model.mmada.attention_bias_enabled", False):
+            model = dataclasses.replace(model, cfg=dataclasses.replace(
+                model.cfg, attention_bias_enabled=True))
+        self.model = model
+        tr = cfg.training
+        self.batch_size = tr.get("batch_size_t2m", 32)
+        self.max_steps = tr.get("max_train_steps", 1000)
+        self.seed = int(tr.get("seed", 0))
+        lr = lr_from_config(cfg.get_path("lr_scheduler", {}), total_steps=self.max_steps)
+        sc = t2m.T2MStepConfig(
+            batch_size=self.batch_size, max_text_len=self.prompting.max_text_len,
+            num_motion_tokens=cfg.get_path("dataset.max_motion_length", 55),
+            skip_nonfinite_updates=tr.get("skip_nonfinite_updates", True))
+        # JAX's optimizers.adamw(lr): clip 1.0, decay 0.01, its no-decay mask
+        # on the trainable tree's paths
+        opt = AdamW(lr)
+        lora_raw = tr.get("lora")
+        self.lora_cfg = None
+        if lora_raw:
+            self.lora_cfg = lora_mod.LoRAConfig(
+                rank=lora_raw.get("rank", 32), alpha=lora_raw.get("alpha", 64),
+                targets=tuple(lora_raw.get("targets", lora_mod.DEFAULT_TARGETS)),
+                train_embeddings=lora_raw.get("train_embeddings", True))
+            adapters = lora_mod.init_lora(model.params, self.lora_cfg,
+                                          generator=torch.Generator(self.device).manual_seed(1))
+            self.state = t2m.lora_state(model.params, adapters, self.lora_cfg, opt)
+            self.step_fn = t2m.make_t2m_lora_train_step(model, opt, sc, self.lora_cfg)
+        else:
+            self.state = TrainState.create(model.params, opt)
+            self.step_fn = t2m.make_t2m_train_step(model, opt, sc)
+        self.stream = motion_samples(cfg, vocab)
+        self.output_dir = cfg.get_path("experiment.output_dir", "t2m-output")
+        os.makedirs(self.output_dir, exist_ok=True)
+        self.metrics = MetricsLogger(os.path.join(self.output_dir, "metrics.jsonl"))
+        self.ckpt = CheckpointManager(self.output_dir,
+                                      cfg.get_path("experiment.checkpoints_total_limit"))
+        self.save_every = cfg.get_path("experiment.save_every", 5000)
+        self.log_every = cfg.get_path("experiment.log_every", 50)
+        self.global_step = 0
+        self.history: list[dict] = []
+        if cfg.get_path("experiment.resume_from_checkpoint") == "latest":
+            self.resume()
+
+    def _payload(self) -> dict:
+        """The checkpointed state: the trainable tensors and the optimizer's
+        (its names with '.' for '/', the checkpoint's separator)."""
+        opt = self.state.opt_state
+        renamed = {k: ({n.replace("/", "."): t for n, t in v.items()} if isinstance(v, dict)
+                       else v) for k, v in opt.items()}
+        return {"train": {"params": self.state.params, "opt_state": renamed,
+                          "step": self.state.step}}
+
+    def next_batch(self) -> dict:
+        import numpy as np
+        import torch
+
+        from mmada_tpu_torch.training.t2m import map_motion_tokens
+
+        caps, toks = [], []
+        for _ in range(self.batch_size):
+            c, t, _ = next(self.stream)
+            caps.append(c)
+            toks.append(t)
+        fused = map_motion_tokens(np.stack(toks), self.vocab)
+        ids, masks, labels = self.prompting((caps, fused, fused), "t2m")
+        return {k: torch.as_tensor(v, dtype=torch.long).to(self.device)
+                for k, v in (("input_ids", ids), ("labels", labels), ("attention_mask", masks))}
+
+    def resume(self) -> int:
+        restored, step = self.ckpt.restore(self._payload())
+        if restored is not None:
+            for _ in range(step):  # the data draws of the steps it holds
+                self.next_batch()
+            self.global_step = step
+            logging.getLogger("train").info("t2m resumed from step %d", step)
+        return self.global_step
+
+    def fit(self) -> "T2MRun":
+        import time
+
+        import torch
+
+        log = logging.getLogger("train")
+        while self.global_step < self.max_steps:
+            t0 = time.perf_counter()
+            batch = self.next_batch()
+            gen = torch.Generator(self.device).manual_seed(self.seed * 1_000_003 + self.global_step)
+            self.state, m = self.step_fn(self.state, batch, gen)
+            self.global_step += 1
+            last = self.global_step == self.max_steps
+            if self.global_step % self.log_every == 0 or last:
+                vals = {k: float(v) for k, v in m.items()}
+                vals["seconds"] = time.perf_counter() - t0
+                self.metrics.log(vals, step=self.global_step)
+                self.history.append(dict(vals, step=self.global_step))
+                log.info("t2m step %d loss %.4f", self.global_step, vals["loss"])
+            if self.save_every and (self.global_step % self.save_every == 0 or last):
+                self.ckpt.save(self.global_step, self._payload())
+        self.ckpt.finalize()
+        return self
+
+
+def train_t2m(cfg) -> T2MRun:
+    """Text-to-motion training (`train.py` `train_t2m`): `T2MRun(cfg).fit()`;
+    the config is snapshotted into the output directory."""
+    run = T2MRun(cfg)
+    save_config(cfg, run.output_dir)
+    return run.fit()
 
 
 def main(argv) -> int:
