@@ -80,7 +80,15 @@ on the 8B and MAGVIT-v2 of the checkpoint, its data through the real
 readers (an ImageNet folder, webdataset tars by the native streamer, a
 parquet file) from shards the smoke writes, 3 steps with the hooks at step
 2, `auto` resolving by the measured bytes, no save: the machine takes 45 GiB
-of writes a run), and removes the checkpoint. It checks that the kernels really ran on each path
+of writes a run), and removes the checkpoint. Phase 11 is motion; phase 12
+the mesh path at this machine's world (one rank, or one spawned rank a
+card: NCCL's collectives probed exact, then 12a stage-1 steps of the 8B
+through the Trainer over `make_mesh(fsdp=-1)` against the same steps
+without a mesh, bit for bit on one card;
+12b the loader's sharded and pipelined 8B answering the text and t2i
+requests with the unsharded tokens; 12c B1, B2, a GQA shape and B4 on the
+head shards of T = 2, 4, 8, joined equal to the full calls bit for bit).
+It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
 the int4 paths only), and that the masked paths' biases reached the
@@ -1597,48 +1605,9 @@ def main() -> int:
     from mmada_tpu_torch.models import llada
     from mmada_tpu_torch.models.mmada import MMadaModel
     from mmada_tpu_torch.ops import _build
-    from mmada_tpu_torch.ops.flash_attention import (
-        attention_bwd_dkv,
-        attention_bwd_dq,
-        flash_attention,
-    )
-    from mmada_tpu_torch.ops.flash_attention_long import (
-        attention_bwd_dkv_long,
-        attention_bwd_dq_long,
-        flash_attention_long,
-    )
-    from mmada_tpu_torch.ops.int4_matmul import int4_matmul
+    from mmada_tpu_torch.ops.flash_attention import flash_attention
 
-    # (wrapper, counter): B1, dq, dkv; B2, dq-bias, dkv-bias; B4, B5-dq,
-    # B5-dkv; B4-bias, B5-dq-bias, B5-dkv-bias; B6
-    counters = [(fn, attr) for tier in ((flash_attention, attention_bwd_dq, attention_bwd_dkv),
-                                        (flash_attention_long, attention_bwd_dq_long,
-                                         attention_bwd_dkv_long))
-                for attr in ("launches", "bias_launches") for fn in tier]
-    counters.append((int4_matmul, "launches"))
-    # the wrappers that copy a bias no tensor map describes (B2, B3-bias,
-    # B4-bias, B5-dq-bias, B5-dkv-bias): the model builds its bias so that
-    # none is copied
-    copiers = (flash_attention, attention_bwd_dq, attention_bwd_dkv, flash_attention_long,
-               attention_bwd_dq_long, attention_bwd_dkv_long)
-
-    def reset_counts():
-        for fn, attr in counters:
-            setattr(fn, attr, 0)
-        for fn in copiers:
-            fn.bias_copies = 0
-
-    def expect_no_bias_copies(phase):
-        copies = {fn.__name__: fn.bias_copies for fn in copiers}
-        log(phase, f"bias copies {copies}")
-        if any(copies.values()):
-            raise AssertionError(f"{phase} copied its bias before a kernel: {copies}")
-
-    def counts():
-        """(fwd, dq, dkv) of the one-pass tier unbiased and biased, then of
-        the long tier unbiased and biased, then (B6,)."""
-        c = tuple(getattr(fn, attr) for fn, attr in counters)
-        return c[:3], c[3:6], c[6:9], c[9:12], c[12:]
+    reset_counts, counts, expect_no_bias_copies = kernel_counters()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1942,13 +1911,24 @@ def main() -> int:
         f"{t2m_serve['b1']} by (B, Lq, Lk) {dict(t2m_serve['b1_shapes'])}, B2 {t2m_serve['b2']} + "
         f"{t2m_train['b2']}, dq-bias {t2m_train['dq']}, dkv-bias {t2m_train['dkv']}")
 
+    # 12. parallelism (the mesh path) at this machine's world: stage-1 steps
+    # over make_mesh(fsdp=-1) on NCCL against the unsharded steps (12a), the
+    # loader's sharded and pipelined models serving (12b), the kernels on
+    # tensor parallelism's head shards (12c)
+    t = time.perf_counter()
+    par = parallel_phase(train, reset_counts, counts)
+    log("parallel", f"phases 12a-12c took {time.perf_counter() - t:.1f}s at world "
+        f"{par['world']}")
+    par_b1, par_dq, par_dkv = par["b1"], par["dq"], par["dkv"]
+
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
     b1_parts = dict(serve=launches, mmu=mmu_launches, checkpoint=ckpt["b1"],
                     cached=cached["b1"], int4_cached=int4_cached["b1"], engine=engine["b1"],
                     http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0],
-                    train_cli=proxy_cli["b1"] + stage1_cli["b1"], t2m=t2m_serve["b1"])
+                    train_cli=proxy_cli["b1"] + stage1_cli["b1"], t2m=t2m_serve["b1"],
+                    parallel=par_b1)
     b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"])
     log("launches", f"B1 {sum(b1_parts.values())} by phase {b1_parts}; "
         f"B6 {sum(b6_parts.values())} by phase {b6_parts}")
@@ -2012,9 +1992,9 @@ def main() -> int:
 
     for name, key, line, count, recs in (
             ("flash_attention_bwd_dq", "dq", "895", train_launches[1] + pixel_train[0][1]
-             + proxy_cli["dq"] + stage1_cli["dq"], plain_bwd),
+             + proxy_cli["dq"] + stage1_cli["dq"] + par_dq, plain_bwd),
             ("flash_attention_bwd_dkv", "dkv", "963", train_launches[2] + pixel_train[0][2]
-             + proxy_cli["dkv"] + stage1_cli["dkv"], plain_bwd),
+             + proxy_cli["dkv"] + stage1_cli["dkv"] + par_dkv, plain_bwd),
             ("flash_attention_bwd_dq_bias", "dq", "746",
              masked_train[1] + t2m_train["dq"] + t2m_train["proxy"][1][1], biased_bwd),
             ("flash_attention_bwd_dkv_bias", "dkv", "799",
@@ -2037,6 +2017,55 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def kernel_counters():
+    """(reset_counts, counts, expect_no_bias_copies) over the kernels'
+    wrappers' launch counters."""
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        flash_attention,
+    )
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        attention_bwd_dkv_long,
+        attention_bwd_dq_long,
+        flash_attention_long,
+    )
+    from mmada_tpu_torch.ops.int4_matmul import int4_matmul
+
+    # (wrapper, counter): B1, dq, dkv; B2, dq-bias, dkv-bias; B4, B5-dq,
+    # B5-dkv; B4-bias, B5-dq-bias, B5-dkv-bias; B6
+    counters = [(fn, attr) for tier in ((flash_attention, attention_bwd_dq, attention_bwd_dkv),
+                                        (flash_attention_long, attention_bwd_dq_long,
+                                         attention_bwd_dkv_long))
+                for attr in ("launches", "bias_launches") for fn in tier]
+    counters.append((int4_matmul, "launches"))
+    # the wrappers that copy a bias no tensor map describes (B2, B3-bias,
+    # B4-bias, B5-dq-bias, B5-dkv-bias): the model builds its bias so that
+    # none is copied
+    copiers = (flash_attention, attention_bwd_dq, attention_bwd_dkv, flash_attention_long,
+               attention_bwd_dq_long, attention_bwd_dkv_long)
+
+    def reset_counts():
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        for fn in copiers:
+            fn.bias_copies = 0
+
+    def expect_no_bias_copies(phase):
+        copies = {fn.__name__: fn.bias_copies for fn in copiers}
+        log(phase, f"bias copies {copies}")
+        if any(copies.values()):
+            raise AssertionError(f"{phase} copied its bias before a kernel: {copies}")
+
+    def counts():
+        """(fwd, dq, dkv) of the one-pass tier unbiased and biased, then of
+        the long tier unbiased and biased, then (B6,)."""
+        c = tuple(getattr(fn, attr) for fn, attr in counters)
+        return c[:3], c[3:6], c[6:9], c[9:12], c[12:]
+
+    return reset_counts, counts, expect_no_bias_copies
 
 
 def free_memory() -> None:
@@ -4406,6 +4435,497 @@ def t2m_train_phase(reset_counts, counts, expect_no_bias_copies) -> dict:
     del straight, resumed, lora
     free_memory()
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# phase 12, parallelism on the port at the world of this machine's cards. On
+# one card every collective over a group of one is skipped, so the mesh
+# path must compute the single-card function bit for bit; over more, one
+# spawned rank a card (`parallel_ranks`). 12a: stage-1 steps of the
+# full-width 8B through the Trainer over make_mesh(fsdp=-1) on NCCL against
+# the same steps without a mesh, on the same weights (each 8B made from
+# seed 0 on the card) and batches; 12b: the loader's sharded and pipelined
+# models serving the text and t2i requests of phases 5-6; 12c: the
+# attention kernels on the head shards tensor parallelism gives each rank,
+# at T = 2, 4 and 8
+PARALLEL_TRAIN_STEPS = 2
+RANKS_TRAIN_STEPS = 3       # over several cards: two steady steps after the first
+TP_SIZES = (2, 4, 8)
+# over several cards (one spawned rank a card): the rows split over the ranks
+# change the matmuls' heights and the fp32 loss sums' order, and the bf16
+# gradients are reduce-scattered in bf16, so the sharded steps are held to
+# the one-card steps within these bars, and the served logits normwise at
+# the small model's bf16 bar
+RANKS_LOSS_RTOL = 2e-3
+# with a tensor axis the row-parallel matmuls' bf16 outputs are summed over
+# the ranks in bf16: one more rounding of each block's output
+RANKS_TP_LOSS_RTOL = 1e-2
+RANKS_GRAD_NORM_RTOL = 2e-2
+RANKS_LOGITS_REL_L2 = SMALL_MODEL_REL_L2
+PARALLEL_RANKS_TIMEOUT_S = 900
+
+
+def sample_leaves(trainer) -> dict:
+    """A few slices of the trained weights, on the host: the embedding, the
+    first and last layers' projections, the head, a norm (over several
+    ranks each leaf is gathered whole first: every rank takes part)."""
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.parallel import sharding
+
+    leaves = dict(llada.named_leaves(trainer.state.params))
+    n = len(trainer.state.params["layers"]) - 1
+    picks = {"wte": (slice(0, 64), slice(0, 64)), "layers.0.q_proj": (slice(0, 64), slice(0, 64)),
+             f"layers.{n}.ff_out": (slice(0, 64), slice(0, 64)),
+             "layers.0.attn_out": (slice(4000, 4096), slice(0, 96)),
+             "ff_out": (slice(0, 32), slice(-64, None)), f"layers.{n}.ff_norm": (slice(0, 256),)}
+
+    def whole(name):
+        t = leaves[name].detach()
+        if trainer.layout is None:
+            return t
+        return sharding.gather_tensor(t, trainer.layout.specs[name], trainer.mesh)
+
+    return {k: whole(k)[idx].cpu().clone() for k, idx in picks.items()}
+
+
+def probe_nccl(mesh) -> str:
+    """The process group's collectives on the card at this world size: an
+    all-reduce, all-gather, reduce-scatter and broadcast of a known tensor,
+    each held to its exact result."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.arange(world * 8, dtype=torch.float32, device="cuda") + dist.get_rank()
+    summed = x.clone()
+    dist.all_reduce(summed)
+    gathered = torch.empty(world * x.numel(), device="cuda")
+    dist.all_gather_into_tensor(gathered, x)
+    scattered = torch.empty(x.numel() // world, device="cuda")
+    dist.reduce_scatter_tensor(scattered, x)
+    sent = x.clone()
+    dist.broadcast(sent, src=0)
+    torch.cuda.synchronize()
+    want = torch.arange(world * 8, dtype=torch.float32, device="cuda")
+    ok = (torch.equal(summed, world * want + sum(range(world)))
+          and torch.equal(sent, want) and gathered.numel() == world * x.numel()
+          and torch.equal(scattered, (world * want + sum(range(world))).chunk(world)[
+              dist.get_rank()]))
+    if not ok:
+        raise AssertionError("the NCCL collectives disagree with their exact results")
+    return (f"{dist.get_backend()} world {world}, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names}: all-reduce, all-gather, reduce-scatter, broadcast exact")
+
+
+def parallel_phase(train, reset_counts, counts) -> dict:
+    """Phase 12 at the world of this machine's cards: in this process on one
+    card, else one spawned rank a card (`parallel_ranks`). Returns the world
+    and rank 0's B1 / dq / dkv launches on the phase's main paths."""
+    import torch
+
+    world = torch.cuda.device_count()
+    if world > 1:
+        return parallel_ranks(world)
+    train_rec = parallel_train_phase(train, reset_counts, counts)
+    serve_rec = parallel_serving_phase(reset_counts, counts)
+    local_heads_phase()
+    torch.distributed.destroy_process_group()   # the NCCL group of 12a-12b
+    return dict(world=1, b1=sum(c[0] for c in train_rec["launched"]) + serve_rec["b1"]
+                + serve_rec["b1_unsharded"],
+                dq=sum(c[1] for c in train_rec["launched"]),
+                dkv=sum(c[2] for c in train_rec["launched"]))
+
+
+def parallel_ranks(world: int) -> dict:
+    """Phase 12 over `world` cards: one spawned process a card, joined over
+    NCCL through a rendezvous file; every rank runs `_parallel_rank`, rank 0
+    reports. A rank that fails or outlives the deadline fails the phase."""
+    import multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="mmada_ranks_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_rank, args=(rank, world, tmp))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_RANKS_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"phase 12 ranks: hung {hung}, exit codes {codes}")
+    with open(os.path.join(tmp, "rank0.json")) as f:
+        out = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 12 over several cards: 12a (the unsharded steps on
+    rank 0's card, then the sharded ones over every card), 12b (the
+    loader's sharded and pipelined models), 12c on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from mmada_tpu_torch.core.mesh import initialize_distributed, make_mesh
+    from mmada_tpu_torch.entry import train
+
+    initialize_distributed(f"file://{tmp}/rendezvous", world, rank, timeout_s=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts, counts, _ = kernel_counters()
+    mesh = make_mesh(fsdp=-1)
+    log(f"12 rank {rank}", probe_nccl(mesh))
+    tr = ranks_train_phase(rank, world, train, reset_counts, counts)
+    sv = ranks_serving_phase(rank, world, reset_counts, counts)
+    if rank == 0:
+        local_heads_phase()
+        with open(os.path.join(tmp, "rank0.json"), "w") as f:
+            json.dump(dict(world=world, b1=tr["b1"] + sv["b1"], dq=tr["dq"], dkv=tr["dkv"],
+                           train=tr, serve=sv), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ranks_train_phase(rank, world, train, reset_counts, counts) -> dict:
+    """12a over `world` cards: a stage-1 batch of 2W t2i + W lm + W mmu rows
+    (the parts divide over the ranks) trained RANKS_TRAIN_STEPS steps on
+    rank 0's card alone, then over make_mesh(fsdp=-1), each rank its rows,
+    and, on four cards or more, over (1, W/2, 2): fsdp and tensor
+    parallelism. The losses (fp32 sums in another order; bf16 partial sums
+    added over the tensor ranks), the bf16 grad norms (gradients
+    reduce-scattered in bf16) and the sampled weights are held to the
+    unsharded run within RANKS_LOSS_RTOL (RANKS_TP_LOSS_RTOL with a tensor
+    axis), RANKS_GRAD_NORM_RTOL and one bf16 ulp."""
+    import torch
+    import torch.distributed as dist
+
+    from mmada_tpu_torch.core.mesh import make_mesh, process_local_batch_slice
+    from mmada_tpu_torch.core.precision import BF16
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.parallel import sharding
+
+    cfg = llada.llada_8b()
+    settings = dict(TRAIN_SETTINGS, training=dict(
+        TRAIN_SETTINGS["training"], batch_size_t2i=2 * world, batch_size_lm=world,
+        batch_size_mmu=world))
+    plan = dict(STAGE1, settings=settings, rows=4 * world)
+    flows = [train_flows(seed, plan) for seed in range(RANKS_TRAIN_STEPS)]
+    n = cfg.n_layers * RANKS_TRAIN_STEPS
+
+    def fresh():
+        return MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
+                               generator=torch.Generator("cuda").manual_seed(0), policy=BF16,
+                               remat="full")
+
+    keys = ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm")
+    ref = None
+    out = dict(b1=0, dq=0, dkv=0)
+    if rank == 0:
+        trainer, launched = train_phase("12a unsharded", fresh(), RANKS_TRAIN_STEPS, train,
+                                        reset_counts, counts, plan=plan, flows=flows)
+        ref = dict(history=[{k: h[k] for k in keys + ("seconds",)} for h in trainer.history],
+                   leaves=sample_leaves(trainer), launched=launched[0],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        out.update(b1=launched[0][0], dq=launched[0][1], dkv=launched[0][2],
+                   unsharded_step_ms=min(h["seconds"] for h in ref["history"]) * 1e3,
+                   unsharded_peak_gib=ref["peak_gib"],
+                   unsharded_losses=[h["loss"] for h in ref["history"]])
+        del trainer
+        free_memory()
+    dist.barrier()
+    shapes = [(1, world, 1)] + ([(1, world // 2, 2)] if world >= 4 and world % 2 == 0 else [])
+    for shape in shapes:
+        mesh = make_mesh(*shape)
+        model = fresh()
+        specs = sharding.model_specs(cfg, mesh, model.params)
+        model = dataclasses.replace(model, mesh=mesh,
+                                    params=sharding.shard_params(model.params, specs, mesh))
+        free_memory()   # the whole weights go; each rank keeps its shards
+        local = [{name: {k: v[process_local_batch_slice(len(flow["input_ids"]), mesh)]
+                         for k, v in flow.items()} for name, flow in raw.items()}
+                 for raw in flows]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trainer = train(model, local, steps=RANKS_TRAIN_STEPS, log_every=1, mesh=mesh,
+                        **settings)
+        torch.cuda.synchronize()
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect_launches(f"12a {shape} rank {rank}", launched, {"one-pass": (2 * n, n, n)})
+        leaves = sample_leaves(trainer)   # every rank: the leaves are gathered
+        history = [{k: h[k] for k in keys + ("seconds",)} for h in trainer.history]
+        for h in history:
+            log(f"12a {shape} rank {rank}", f"sharded step: loss {h['loss']:.4f} grad_norm "
+                f"{h['grad_norm']:.4f}; {h['seconds']:.3f}s")
+        for k, v in zip(("b1", "dq", "dkv"), launched[0]):
+            out[k] += v
+        rec = dict(peak_gib=peak, step_ms=[h["seconds"] * 1e3 for h in history],
+                   losses=[h["loss"] for h in history])
+        out[str(shape)] = rec
+        if rank == 0:
+            loss_rtol = RANKS_TP_LOSS_RTOL if shape[2] > 1 else RANKS_LOSS_RTOL
+            for h, w in zip(history, ref["history"]):
+                for k in keys:
+                    rtol = RANKS_GRAD_NORM_RTOL if k == "grad_norm" else loss_rtol
+                    if not math.isclose(h[k], w[k], rel_tol=rtol):
+                        raise AssertionError(f"12a over mesh {shape}: {k} {h[k]} against "
+                                             f"{w[k]} unsharded (rtol {rtol})")
+            close = {k: bool(torch.allclose(leaves[k].float(), ref["leaves"][k].float(),
+                                            rtol=2.0 ** -7, atol=1e-6)) for k in leaves}
+            if not all(close.values()):
+                raise AssertionError(f"12a over mesh {shape}: sampled weights {close}")
+            log("12a", f"mesh {shape}, {plan['rows']} rows of {plan['frame']}: losses "
+                f"{rec['losses']} against {out['unsharded_losses']} unsharded; sampled "
+                f"weights within one bf16 ulp; steps {[round(t, 1) for t in rec['step_ms']]} "
+                f"ms against {out['unsharded_step_ms']:.1f} ms on one card; peak {peak:.2f} GiB "
+                f"a card against {ref['peak_gib']:.2f} GiB")
+        del trainer, model
+        free_memory()
+    return out
+
+
+def ranks_serving_phase(rank, world, reset_counts, counts) -> dict:
+    """12b over `world` cards: the 8B of `load_all`, whole on rank 0 first
+    (parallel.serving none), then served by the loader over every rank
+    (auto over fsdp, pipeline, auto over tensor: each rank its heads and
+    MLP hidden, the blocks' outputs summed in bf16). Every rank must end on
+    the same tokens; rank 0
+    holds the first t2i forward's logits (image window and span) within
+    RANKS_LOGITS_REL_L2 of the whole model's (the rows split over the
+    ranks change the matmuls' heights, and cuBLAS may then round otherwise)
+    and reports how many tokens equal the whole model's."""
+    import torch
+    import torch.distributed as dist
+
+    from mmada_tpu_torch.entry import serve_t2i, serve_text
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.parallel import pipeline
+    from mmada_tpu_torch.serve.loader import load_all
+
+    n_layers = llada.llada_8b().n_layers
+
+    config, first_logits = serving_config, t2i_first_logits
+    ref = None
+    if rank == 0:
+        model = load_all(config("none")).model
+        ref = (torch.stack(serve_text(model, TEXT_PROMPTS, **TEXT_SETTINGS)),
+               serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS), first_logits(model))
+        del model
+        free_memory()
+    dist.barrier()
+    out = dict(b1=0)
+    for mode, kw in (("auto", {}), ("pipeline", {}), ("tensor", dict(fsdp=1, tensor=-1))):
+        model = load_all(config("auto" if mode == "tensor" else mode, **kw)).model
+        if model.mesh is None or (mode == "pipeline") != (model.pipeline_axis == "fsdp"):
+            raise AssertionError(f"12b: the loader did not serve {mode} over the ranks")
+        reset_counts()
+        t = time.perf_counter()
+        text = torch.stack(serve_text(model, TEXT_PROMPTS, **TEXT_SETTINGS))
+        codes = serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = counts()
+        per = (n_layers // world, pipeline.microbatches(len(TEXT_PROMPTS), world),
+               pipeline.microbatches(2 * len(T2I_PROMPTS), world)) if mode == "pipeline" \
+            else (n_layers, 1, 1)
+        expect_launches(f"12b {mode} rank {rank}", launched, {"one-pass": (per[0] * (
+            per[1] * TEXT_SETTINGS["steps"] + per[2] * T2I_SETTINGS["timesteps"]), 0, 0)})
+        out["b1"] += launched[0][0]
+        logits = first_logits(model)
+        for name, t_ in (("text", text), ("t2i", codes)):
+            t_ = t_.to("cuda").contiguous()   # the answers come back on the host
+            every = [torch.empty_like(t_) for _ in range(world)]
+            dist.all_gather(every, t_)
+            if not all(torch.equal(e, t_) for e in every):
+                raise AssertionError(f"12b {mode}: the ranks' {name} tokens differ")
+        if rank == 0:
+            rel = float((logits - ref[2]).norm() / ref[2].norm())
+            agree = {"text": float((text.cpu() == ref[0].cpu()).float().mean()),
+                     "t2i": float((codes.cpu() == ref[1].cpu()).float().mean())}
+            out[mode] = dict(seconds=seconds, logits_rel_l2=rel, agreement=agree)
+            log("12b", f"{mode} over {world} ranks: text + t2i in {seconds:.2f}s, every rank "
+                f"the same tokens; first t2i forward rel L2 {rel:.3e} against the whole "
+                f"model (limit {RANKS_LOGITS_REL_L2}); tokens equal to its {agree}")
+            if not rel <= RANKS_LOGITS_REL_L2:
+                raise AssertionError(f"12b {mode}: logits rel L2 {rel} against the whole model")
+        del model, logits
+        free_memory()
+    return out
+
+
+def serving_config(mode, fsdp=-1, tensor=1):
+    """Phase 12b's config: the random-init 8B in bf16 from seed 0, a tiny
+    MAGVIT-v2, the mesh `parallel.*` and `parallel.serving` `mode`."""
+    from mmada_tpu_torch.core.config import Config
+
+    return Config({"model": {"mmada": {"random_init": True}, "vq_model": {"tiny": True}},
+                   "training": {"mixed_precision": "bf16", "seed": 0},
+                   "parallel": {"data": 1, "fsdp": fsdp, "tensor": tensor, "serving": mode}})
+
+
+def t2i_first_logits(model):
+    """The t2i sampler's first forward (T2I_PROMPTS' CFG batch, the image
+    window over the image span), in fp32."""
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+
+    ids = t2i_frames()
+    n = T2I_SETTINGS["num_vq_tokens"]
+    return model.forward(ids, logit_window=MMADA_8B.image_window,
+                         logit_positions=(ids.shape[1] - n - 1, n)).float()
+
+
+def parallel_train_phase(train, reset_counts, counts) -> dict:
+    """12a: PARALLEL_TRAIN_STEPS stage-1 steps without a mesh, then the same
+    steps over make_mesh(fsdp=-1) on a fresh 8B of the same seed: losses,
+    grad norms and the sampled weights bit for bit; each trainer's
+    moments freed before the other is built."""
+    import torch
+
+    from mmada_tpu_torch.core.mesh import make_mesh
+    from mmada_tpu_torch.core.precision import BF16
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+
+    cfg = llada.llada_8b()
+    flows = [train_flows(seed) for seed in range(PARALLEL_TRAIN_STEPS)]
+
+    def fresh():
+        return MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
+                               generator=torch.Generator("cuda").manual_seed(0), policy=BF16,
+                               remat="full")
+
+    mesh = make_mesh(fsdp=-1)
+    log("12a", probe_nccl(mesh))
+    runs = {}
+    for name, kw in (("unsharded", {}), ("sharded", {"mesh": mesh})):
+        trainer, launched = train_phase(f"12a {name}", fresh(), PARALLEL_TRAIN_STEPS, train,
+                                        reset_counts, counts, flows=flows, **kw)
+        n = cfg.n_layers * PARALLEL_TRAIN_STEPS
+        expect_launches(f"12a {name}", launched, {"one-pass": (2 * n, n, n)})
+        runs[name] = dict(
+            history=[{k: h[k] for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu",
+                                        "grad_norm", "seconds", "max_memory_allocated_gib")}
+                     for h in trainer.history],
+            leaves=sample_leaves(trainer), launched=launched,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            mesh=None if trainer.mesh is None else tuple(trainer.mesh.shape))
+        del trainer
+        free_memory()
+    a, b = runs["unsharded"], runs["sharded"]
+    for k in ("loss", "loss_t2i", "loss_lm", "loss_mmu", "grad_norm"):
+        got, want = [h[k] for h in b["history"]], [h[k] for h in a["history"]]
+        if got != want:
+            raise AssertionError(f"12a: sharded {k} {got} != unsharded {want}")
+    same = {k: torch.equal(a["leaves"][k], b["leaves"][k]) for k in a["leaves"]}
+    if not all(same.values()):
+        raise AssertionError(f"12a: sampled weights differ after the steps: {same}")
+    step_ms = {name: min(h["seconds"] for h in r["history"]) * 1e3 for name, r in runs.items()}
+    log("12a", f"mesh {b['mesh']}: losses {[h['loss'] for h in b['history']]} and grad norms "
+        f"{[h['grad_norm'] for h in b['history']]} bit for bit the unsharded steps'; sampled "
+        f"weights equal {same}; steady step {step_ms['sharded']:.1f} ms vs "
+        f"{step_ms['unsharded']:.1f} ms unsharded; peak {b['peak_gib']:.2f} vs "
+        f"{a['peak_gib']:.2f} GiB allocated; B1/dq/dkv {b['launched'][0]} (B3: dq "
+        f"{b['launched'][0][1]}, dkv {b['launched'][0][2]})")
+    return dict(step_ms=step_ms, peak_gib={k: r["peak_gib"] for k, r in runs.items()},
+                launched=[runs[k]["launched"][0] for k in runs])
+
+
+def parallel_serving_phase(reset_counts, counts) -> dict:
+    """12b: the 8B of `serve.loader.load_all` (random init from seed 0),
+    then the same weights over the one-rank mesh through the loader's
+    `shard_for_serving` with parallel.serving auto and pipeline (with one
+    rank the loader itself serves the model whole, as JAX's with one
+    device): each answers the text and t2i requests of phases 5-6 with the
+    unsharded model's tokens."""
+    import torch
+
+    from mmada_tpu_torch.core.mesh import make_mesh
+    from mmada_tpu_torch.entry import serve_t2i, serve_text
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.parallel import pipeline
+    from mmada_tpu_torch.serve.loader import load_all, shard_for_serving
+
+    n_layers = llada.llada_8b().n_layers
+    config = serving_config
+    loaded = load_all(config("auto"))
+    mesh = make_mesh(fsdp=-1)
+    models = {"unsharded": loaded.model,
+              "auto": shard_for_serving(config("auto"), loaded.model, mesh),
+              "pipeline": shard_for_serving(config("pipeline"), loaded.model, mesh)}
+    if models["auto"].mesh is None or models["pipeline"].pipeline_axis != "fsdp":
+        raise AssertionError("12b: the loader did not shard or pipeline the model")
+    out, launches = {}, {}
+    for name, model in models.items():
+        reset_counts()
+        t = time.perf_counter()
+        text = serve_text(model, TEXT_PROMPTS, **TEXT_SETTINGS)
+        codes = serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS)
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        out[name] = (torch.stack(text).cpu(), codes.cpu(), time.perf_counter() - t)
+        log("12b", f"{name}: text + t2i in {out[name][2]:.2f}s; launches {launches[name]}")
+        # the pipeline runs each forward's microbatches through every layer
+        # (JAX's rule: min(B, 2 stages), cut to divide B): the text batch of
+        # 3 one, the t2i CFG batch of 4 two
+        per_text, per_t2i = ((pipeline.microbatches(len(TEXT_PROMPTS), 1),
+                              pipeline.microbatches(2 * len(T2I_PROMPTS), 1))
+                             if name == "pipeline" else (1, 1))
+        expect_launches(f"12b {name}", launches[name], {"one-pass": (n_layers * (
+            per_text * TEXT_SETTINGS["steps"] + per_t2i * T2I_SETTINGS["timesteps"]), 0, 0)})
+    for name in ("auto", "pipeline"):
+        if not (torch.equal(out[name][0], out["unsharded"][0])
+                and torch.equal(out[name][1], out["unsharded"][1])):
+            raise AssertionError(f"12b: {name} answers differ from the unsharded model's")
+    log("12b", "sharded and pipelined text and t2i answers equal the unsharded model's")
+    del loaded, models
+    free_memory()
+    return dict(b1=sum(launches[k][0][0] for k in ("auto", "pipeline")),
+                b1_unsharded=launches["unsharded"][0][0],
+                seconds={k: v[2] for k, v in out.items()})
+
+
+def local_heads_phase() -> dict:
+    """12c: `tp_attention`'s local body on each head shard of T = 2, 4, 8 at
+    the 8B's t2i CFG frame (B1 with RoPE, B2 with the frames' mask), at one
+    GQA shape (32 heads over 8 kv heads) and at the 8,192-token frame (B4,
+    T = 4): the shards' outputs joined equal the full call bit for bit."""
+    import torch
+
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.ops.attention import bidirectional_attention
+    from mmada_tpu_torch.parallel.tp_attention import local_attention, shard_heads
+
+    h = llada.llada_8b().n_heads
+    cases = [("t2i CFG B1", 4, h, h, T2I_FRAME, True, None, TP_SIZES),
+             ("t2i CFG B2 (frame mask)", 4, h, h, T2I_FRAME, True,
+              lambda: t2i_mask_bias(cfg_batch=True), TP_SIZES),
+             ("gqa 32/8 B1", 2, h, 8, T2I_FRAME, True, None, TP_SIZES),
+             ("long 8192 B4", 1, h, h, LONG_FRAME, True, None, (4,))]
+    out = {}
+    for i, (tag, b, nh, kvh, length, rope, make_bias, sizes) in enumerate(cases):
+        q, k, v, sin, cos = attention_case(b, nh, kvh, length, length, rope, seed=900 + i)
+        bias = make_bias() if make_bias else None
+        full = bidirectional_attention(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
+        for t in sizes:
+            parts = [local_attention(shard_heads(q, r, t), shard_heads(k, r, t),
+                                     shard_heads(v, r, t), None, bias=bias, rope_sin=sin,
+                                     rope_cos=cos) for r in range(t)]
+            joined = torch.cat(parts, dim=1)
+            if not torch.equal(joined, full):
+                raise AssertionError(f"12c {tag}: {t} head shards joined differ from the full "
+                                     f"call (max abs {float((joined - full).abs().max())})")
+            out[f"{tag} T={t}"] = list(parts[0].shape)
+        del q, k, v, full, parts, joined
+    log("12c", f"head shards joined equal the full calls bit for bit: {out}")
     return out
 
 

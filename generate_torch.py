@@ -15,7 +15,10 @@ exact sampler in chunks of that many steps (the same tokens; the cached
 decode wins when both are set), as `generate.py` does.
 
 `load(cfg)` builds the tokenizer, prompting and model; `run(cfg, loaded)`
-returns each prompt's generated ids; `main` prints the answer's text.
+returns each prompt's generated ids; `main` prints the answer's text. Under
+`torchrun` the loader serves the model sharded or in pipeline stages over
+the ranks (`parallel.*`, `serve/loader.py`); every rank computes, rank 0
+prints.
 """
 
 import sys
@@ -104,10 +107,14 @@ def answer_text(loaded, ids) -> str:
 
 
 def main(argv) -> int:
+    from mmada_tpu_torch.core.mesh import is_main_process
+
     cfg = read_config(argv)
     loaded = load(cfg)
-    for ids in run(cfg, loaded):
-        print(answer_text(loaded, ids))
+    answers = run(cfg, loaded)   # every rank computes (a launcher's ranks)
+    if is_main_process():
+        for ids in answers:
+            print(answer_text(loaded, ids))
     return 0
 
 

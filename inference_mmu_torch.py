@@ -20,7 +20,8 @@ the cached decode and `fast` win when set), as `inference_mmu.py` does.
 
 `load(cfg)` calls `serve.loader.load_all`; `run(cfg, loaded, images)`
 returns each image's generated ids; `read_images` and `main` do the file
-work.
+work. Under `torchrun` the loader serves the model sharded or in pipeline
+stages over the ranks (`parallel.*`); every rank computes, rank 0 prints.
 """
 
 import os
@@ -124,6 +125,7 @@ def run(cfg, loaded, images):
 
 def main(argv) -> int:
     from generate_torch import answer_text
+    from mmada_tpu_torch.core.mesh import is_main_process
 
     cfg = read_config(argv)
     image_root = cfg.get("mmu_image_root", "mmu_validation")
@@ -133,8 +135,10 @@ def main(argv) -> int:
         print(f"no images under {image_root}", file=sys.stderr)
         return 1
     loaded = load(cfg)
-    for name, ids in zip(names, run(cfg, loaded, pixels)):
-        print(f"=== {name}\n{answer_text(loaded, ids)}\n")
+    answers = run(cfg, loaded, pixels)   # every rank computes (a launcher's ranks)
+    if is_main_process():
+        for name, ids in zip(names, answers):
+            print(f"=== {name}\n{answer_text(loaded, ids)}\n")
     return 0
 
 

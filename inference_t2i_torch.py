@@ -20,7 +20,9 @@ eval modules are ported (ROADMAP A.13).
 `load(cfg)` calls `serve.loader.load_all`; `run(cfg, loaded)` returns the
 codes and the uint8 images; `main` reads the prompts and writes the PNGs.
 Each batch of `batch_size` prompts draws from `seed` plus its first
-prompt's index.
+prompt's index. Under `torchrun` the loader serves the model sharded or in
+pipeline stages over the ranks (`parallel.*`); every rank computes, rank 0
+writes the PNGs and prints.
 """
 
 import os
@@ -107,12 +109,16 @@ def run(cfg, loaded, prompts):
 def main(argv) -> int:
     from PIL import Image
 
+    from mmada_tpu_torch.core.mesh import is_main_process
+
     cfg = read_config(argv)
     settings(cfg)  # refuse what is not ported before the weights are loaded
     output_dir = cfg.get("output_dir", "t2i_outputs")
     prompts = read_prompts(cfg)
     loaded = load(cfg)
-    _, images = run(cfg, loaded, prompts)
+    _, images = run(cfg, loaded, prompts)   # every rank computes (a launcher's ranks)
+    if not is_main_process():
+        return 0
     os.makedirs(output_dir, exist_ok=True)
     for i, prompt in enumerate(prompts):
         path = os.path.join(output_dir, f"{i:04d}.png")

@@ -24,6 +24,13 @@ and dtype against the shards' headers before it reads a byte, then copies
 each tensor into the template's tensor, on its device: any missing or extra
 key or any shape or dtype mismatch raises, and nothing is half restored.
 
+Over a mesh (`layout`: `parallel.sharding.StateLayout`, which knows each
+key's shards) the files keep the single-process layout: `save` gathers the
+state leaf by leaf on every rank, rank 0 copies each whole leaf to the host
+and writes, and the others wait for it (the save waits); `restore` reads the
+whole leaves on every rank and copies each rank's shard. So a run resumes
+at any world size.
+
 Exports of bare weights for serving are `hf_import.export_pretrained`;
 `save_params_only` / `load_params_only` write and read any tree of tensors
 (or a module's state dict, the motion VQ-VAE's) as safetensors shards.
@@ -43,6 +50,7 @@ from typing import Any, Optional
 import torch
 
 from mmada_tpu_torch.checkpoints import safetensors_io
+from mmada_tpu_torch.core.mesh import barrier, is_main_process
 
 logger = logging.getLogger(__name__)
 
@@ -116,7 +124,7 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any, extra_metadata: Optional[dict] = None,
-             wait: bool = True) -> str:
+             wait: bool = True, layout=None) -> str:
         """Write checkpoint-{step} (see the module docstring). With
         `wait=False` the host snapshot is taken here and the shards are
         written from a thread; `finalize()` lands them. `last_save` records
@@ -124,9 +132,11 @@ class CheckpointManager:
         "wait"}`."""
         self.finalize()  # at most one save in flight
         path = _item_path(self.output_dir, step)
+        flat = flatten(state)
+        if layout is not None:
+            return self._save_gathered(step, path, flat, extra_metadata, layout)
         if os.path.exists(path):
             shutil.rmtree(path)
-        flat = flatten(state)
         meta = {"global_step": int(step), **(extra_metadata or {})}
         t0 = time.perf_counter()
         if not wait:
@@ -144,6 +154,28 @@ class CheckpointManager:
             self._thread = threading.Thread(target=self._write, args=(path, flat),
                                             name=f"checkpoint-{step}", daemon=True)
             self._thread.start()
+        return path
+
+    def _save_gathered(self, step, path, flat, extra_metadata, layout) -> str:
+        """The mesh's save: every rank gathers, rank 0 writes, all wait."""
+        main = is_main_process()
+        if main and os.path.exists(path):
+            shutil.rmtree(path)
+        whole = {}
+        t0 = time.perf_counter()
+        for key, t in flat.items():
+            full = layout.whole(key, t.detach())
+            if main:
+                whole[key] = full.to("cpu", copy=True)
+            del full
+        if main:
+            self.last_save = {"step": int(step), "bytes": sum(
+                t.numel() * t.element_size() for t in whole.values()),
+                "snapshot_s": time.perf_counter() - t0, "write_s": None, "wait": True}
+            self._pending = (path, {"global_step": int(step), **(extra_metadata or {})})
+            self._write(path, whole)
+            self.finalize()
+        barrier()
         return path
 
     def _write(self, path: str, flat: dict) -> None:
@@ -189,9 +221,10 @@ class CheckpointManager:
             shutil.rmtree(path, ignore_errors=True)
 
     # ---------------------------------------------------------- restore
-    def restore(self, template: Any, step: Optional[int] = None):
+    def restore(self, template: Any, step: Optional[int] = None, layout=None):
         """Copy the latest checkpoint (or checkpoint-`step`) into the
-        tensors of `template`, in place. Returns (template, global_step), or
+        tensors of `template`, in place (with a `layout`: each rank's
+        shards of the whole leaves). Returns (template, global_step), or
         (None, 0) when there is no checkpoint."""
         self.finalize()
         if step is None:
@@ -202,13 +235,14 @@ class CheckpointManager:
             path = _item_path(self.output_dir, step)
         with open(os.path.join(path, METADATA)) as f:
             meta = json.load(f)
-        _load_into(os.path.join(path, STATE), flatten(template), path)
+        _load_into(os.path.join(path, STATE), flatten(template), path, layout)
         return template, int(meta["global_step"])
 
 
-def _load_into(state_dir: str, flat: dict, what: str) -> None:
+def _load_into(state_dir: str, flat: dict, what: str, layout=None) -> None:
     """Copy the shards of `state_dir` into the tensors of `flat`, after every
-    key, shape and dtype is checked against the shards' headers."""
+    key, shape and dtype is checked against the shards' headers (`layout`:
+    the tensors are shards of the stored leaves)."""
     stored = {}
     for name in safetensors_io.checkpoint_files(state_dir):
         header, _ = safetensors_io.read_header(name)
@@ -220,12 +254,13 @@ def _load_into(state_dir: str, flat: dict, what: str) -> None:
     for key, t in flat.items():
         info = stored[key]
         dtype = safetensors_io.DTYPES.get(info["dtype"])
-        if tuple(info["shape"]) != tuple(t.shape) or dtype != t.dtype:
+        shape = tuple(t.shape) if layout is None else layout.full_shape(key, t)
+        if tuple(info["shape"]) != shape or dtype != t.dtype:
             raise ValueError(f"{what}: {key} is {info['dtype']} {info['shape']}, the "
-                             f"template's {t.dtype} {list(t.shape)}")
+                             f"template's {t.dtype} {list(shape)}")
     with torch.no_grad():
         for key, t in safetensors_io.iter_safetensors(state_dir):
-            flat[key].copy_(t)
+            flat[key].copy_(t if layout is None else layout.local(key, t))
 
 
 def _flat_params(params: Any) -> dict[str, torch.Tensor]:

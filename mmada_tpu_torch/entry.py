@@ -278,14 +278,16 @@ def train(model: MMadaModel, flows: Sequence[Mapping], steps: int,
           training: Optional[Mapping] = None, optimizer: Optional[Mapping] = None,
           lr_scheduler: Optional[Mapping] = None, seed: int = 0,
           log_every: int = 1, vq_params=None,
-          vq_cfg: Optional[magvit2.VQGANConfig] = None) -> Trainer:
+          vq_cfg: Optional[magvit2.VQGANConfig] = None, mesh=None) -> Trainer:
     """Take `steps` train steps on the raw batches `flows` (each a dict of
     `t2i_flow` / `lm_flow` / `mmu_flow`, images as pixels, `images`, which
     MAGVIT-v2 (`vq_params`, `vq_cfg`) encodes, or as VQ codes,
     `image_codes`), cycling through them. `training` / `optimizer` /
     `lr_scheduler` are the reference config's blocks as dicts. The model's
     weights are updated in place; the returned Trainer holds the state and
-    the logged metrics (`history`)."""
+    the logged metrics (`history`). `mesh` (core/mesh.make_mesh) trains
+    the model sharded over it; every rank then passes its rows of the
+    flows."""
     _check_device(model, device)
     prompting = UniversalPrompting(
         tokenizer or ByteTokenizer(), special_ids or SpecialIds.from_vocab(model.vocab),
@@ -293,7 +295,7 @@ def train(model: MMadaModel, flows: Sequence[Mapping], steps: int,
     )
     trainer = Trainer(model, prompting, training=dict(training or {}, max_train_steps=steps),
                       optimizer=optimizer, lr_scheduler=lr_scheduler, log_every=log_every,
-                      vq_params=vq_params, vq_cfg=vq_cfg)
+                      vq_params=vq_params, vq_cfg=vq_cfg, mesh=mesh)
     trainer.fit(itertools.islice(itertools.cycle(flows), steps), rng_seed=seed)
     return trainer
 

@@ -51,9 +51,14 @@ from mmada_tpu_torch.ops.tensor_maps import ROW_FLOATS
 from mmada_tpu_torch.ops.quantization import (
     Int4Tensor,
     QuantizedTensor,
+    is_quantized,
     maybe_matmul,
     multi_matmul,
 )
+from mmada_tpu_torch.core.mesh import FSDP_AXIS, TENSOR_AXIS, axis_group, axis_size
+from mmada_tpu_torch.parallel import collectives as C
+from mmada_tpu_torch.parallel import ring_attention, sharding, tp_attention
+from mmada_tpu_torch.parallel.collectives import copy_to_group, sum_over_group
 
 Params = dict[str, Any]
 
@@ -300,7 +305,7 @@ def _qkv(cfg: LLaDAConfig, lp: Params, h: torch.Tensor):
     """Project normed hidden states to per-head q/k/v `(B, H, L, D)`
     (un-roped, as strided views of the projections)."""
     b, l, d = h.shape
-    nh, kvh, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
+    kvh, hd = cfg.effective_n_kv_heads, cfg.head_dim
     if cfg.block_type == "llama":
         # one activation-quantize pass for q/k/v under W8A8
         q, k, v = multi_matmul(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
@@ -316,9 +321,10 @@ def _qkv(cfg: LLaDAConfig, lp: Params, h: torch.Tensor):
         q = _norm(cfg, q, lp["q_norm"])
         k = _norm(cfg, k, lp["k_norm"])
 
-    q = q.view(b, l, nh, hd).transpose(1, 2)
-    k = k.view(b, l, kvh, hd).transpose(1, 2)
-    v = v.view(b, l, kvh, hd).transpose(1, 2)
+    # heads from the widths: a tensor-parallel rank holds its heads only
+    q = q.view(b, l, -1, hd).transpose(1, 2)
+    k = k.view(b, l, -1, hd).transpose(1, 2)
+    v = v.view(b, l, -1, hd).transpose(1, 2)
     return q, k, v
 
 
@@ -330,9 +336,10 @@ def _tap(taps: Optional[dict], site: str, t: torch.Tensor) -> None:
 
 
 def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor,
-         taps: Optional[dict] = None) -> torch.Tensor:
+         taps: Optional[dict] = None, tp=None) -> torch.Tensor:
     h = _norm(cfg, x, lp.get("ff_norm"))
     _tap(taps, "mlp_in", h)
+    h = copy_to_group(h, tp)
     if cfg.block_type == "llama":
         # act(ff_proj(h)) * up_proj(h): ff_proj is the gate input
         gate, up = multi_matmul(h, (lp["ff_proj"], lp["up_proj"]))
@@ -340,7 +347,7 @@ def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor,
     else:
         h = _activation(cfg, maybe_matmul(h, lp["ff_proj"]))
     _tap(taps, "mlp_mid", h)
-    return x + maybe_matmul(h, lp["ff_out"])
+    return x + sum_over_group(maybe_matmul(h, lp["ff_out"]), tp)
 
 
 def _join_cache(k: torch.Tensor, v: torch.Tensor, cache) -> tuple[torch.Tensor, torch.Tensor]:
@@ -365,27 +372,35 @@ def _block(
     taps: Optional[dict] = None,  # calibration_stats: the quantized matmuls' inputs
     return_kv: bool = False,
     cache=None,            # a cached step's layer cache: (kc, vc, span | None)
+    path=None,             # the mesh path (_MeshPath): gathers, tensor group, attention
 ):
     """One layer. With `return_kv` (the cache's capture pass) it returns
     `(x, (k, v))`, k rotated: RoPE runs here, outside the kernel, so the
     cached K is post-RoPE in the compute dtype, and attention takes no rope
     tables. With `cache` (a cached step: x holds the block's positions, sin
     and cos their rows) the block's queries attend to its fresh K/V joined
-    to the cache (`_join_cache`), rectangular and without rope tables."""
+    to the cache (`_join_cache`), rectangular and without rope tables.
+
+    With a mesh `path` the layer's fsdp shards are gathered first, and a
+    tensor-parallel block runs its local heads and MLP hidden between
+    Megatron's f (`copy_to_group`) and g (`sum_over_group`)."""
     b, l, d = x.shape
+    attend, tp = bidirectional_attention, None
+    if path is not None:
+        lp, tp, attend = path.layer(lp), path.tp, path.attend
     h = _norm(cfg, x, lp.get("attn_norm"))
     _tap(taps, "qkv_in", h)
-    q, k, v = _qkv(cfg, lp, h)
+    q, k, v = _qkv(cfg, lp, copy_to_group(h, tp))
     if return_kv or cache is not None or not cfg.rope_full_precision:
         q, k = apply_rope(q, k, sin, cos, full_precision=cfg.rope_full_precision)
         ka, va = (k, v) if cache is None else _join_cache(k, v, cache)
-        att = bidirectional_attention(q, ka, va, bias=bias)
+        att = attend(q, ka, va, bias=bias)
     else:
-        att = bidirectional_attention(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
-    att = att.transpose(1, 2).reshape(b, l, d)
+        att = attend(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
+    att = att.transpose(1, 2).reshape(b, l, -1)
     _tap(taps, "ctx", att)
-    x = x + maybe_matmul(att, lp["attn_out"])
-    x = _mlp(cfg, lp, x, taps)
+    x = x + sum_over_group(maybe_matmul(att, lp["attn_out"]), tp)
+    x = _mlp(cfg, lp, x, taps, tp)
     return (x, (k, v)) if return_kv else x
 
 
@@ -433,6 +448,8 @@ def forward(
     remat=False,  # False | True | "full" | "dots" | "auto" (_check_remat)
     return_normed_hidden: bool = False,
     taps: Optional[dict] = None,
+    mesh=None,
+    attn_impl: str = "auto",  # "auto" | "ring" (with a mesh: sequence over fsdp)
 ) -> torch.Tensor:
     """Logits `(B, L, V)`, or `(B, L, stop - start)` with
     `logit_window=(start, stop)` over the vocab; `logit_positions=(start,
@@ -442,11 +459,21 @@ def forward(
     norm and returns the `(B, L, D)` hidden states (the chunked training
     loss applies the head itself). `taps` (lists under CALIBRATION_SITES)
     gain each layer's per-channel input absmax at its quantized matmuls
-    (`calibration_stats`, which runs without autograd, so without remat)."""
+    (`calibration_stats`, which runs without autograd, so without remat).
+
+    With a `mesh` the params are this rank's shards (`parallel/sharding`)
+    and `input_ids` this rank's rows: the embedding and each layer gather
+    their shards (inside the layer's checkpoint, so full remat gathers
+    again in the backward), tensor-parallel blocks split heads and MLP
+    hidden, and the vocab head is gathered whole (`_MeshPath`);
+    `attn_impl="ring"` shards attention's sequence over fsdp instead
+    (`parallel/ring_attention`)."""
     remat = _check_remat(remat)
     if not torch.is_grad_enabled():
         remat = False
-    x = params["wte"][input_ids].to(policy.compute_dtype)
+    path = None if mesh is None else _MeshPath(cfg, mesh, params, attn_impl)
+    wte = params["wte"] if path is None else path.embedding(params["wte"])
+    x = wte[input_ids].to(policy.compute_dtype)
     if cfg.input_emb_norm:
         x = x * math.sqrt(cfg.d_model)
 
@@ -458,13 +485,22 @@ def forward(
     sin, cos = rope_sin_cos(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
     for lp in layer_params(params):
         if remat == "full":
-            x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False)
+            x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False, path=path)
         elif remat == "dots":
             x = checkpoint(_block, cfg, x, lp, bias, sin, cos, use_reentrant=False,
-                           context_fn=dots_context)
+                           context_fn=dots_context, path=path)
         else:
-            x = _block(cfg, x, lp, bias, sin, cos, taps)
+            x = _block(cfg, x, lp, bias, sin, cos, taps, path=path)
 
+    if return_normed_hidden:
+        return finish(params, cfg, x, None, logit_positions, policy, normed_only=True)
+    return finish(params, cfg, x, logit_window, logit_positions, policy, mesh)
+
+
+def finish(params: Params, cfg: LLaDAConfig, x: torch.Tensor, logit_window, logit_positions,
+           policy: Policy, mesh=None, normed_only: bool = False) -> torch.Tensor:
+    """After the layer stack: the position span (`logit_positions`), the
+    final norm, then the (windowed) vocab head unless `normed_only`."""
     if logit_positions is not None:
         # the head runs only over the span the sampler reads
         p_start, p_len = logit_positions
@@ -473,11 +509,10 @@ def forward(
             x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
         else:
             x = x[:, p_start:p_start + p_len]
-
     x = _norm(cfg, x, params["ln_f"])
-    if return_normed_hidden:
+    if normed_only:
         return x
-    return _head(params, cfg, x, logit_window, policy)
+    return _head(params, cfg, x, logit_window, policy, mesh)
 
 
 # the input of every quantized block matmul, as SmoothQuant's migration reads
@@ -544,7 +579,10 @@ def _head(
     x: torch.Tensor,                               # normed hidden (B, L', D)
     logit_window: Optional[tuple[int, int]],
     policy: Policy,
+    mesh=None,
 ) -> torch.Tensor:
+    if mesh is not None:   # the head gathered whole (a mesh's shards)
+        params = _MeshPath(cfg, mesh, params).head_params(params)
     head = params["wte"].T if cfg.weight_tying else params["ff_out"]
     if isinstance(head, (QuantizedTensor, Int4Tensor)):
         if logit_window is not None:
@@ -566,6 +604,105 @@ def _head(
     if cfg.scale_logits:
         logits = logits * (1.0 / math.sqrt(cfg.d_model))
     return logits
+
+
+class _MeshPath:
+    """What one forward over a mesh does beside the single-device layer
+    loop (the collectives GSPMD inserts for the JAX package's
+    `_dispatch_attention` / `_block`, `mmada_tpu/models/llada.py:270-410`):
+    each layer's fsdp shards gathered (`layer`), the tensor group of a
+    tensor-parallel block (`tp`, None when the block runs whole), the
+    attention of the local heads or the ring (`attend`), the embedding's
+    rows and the vocab head gathered whole (`embedding`, `head_params`)."""
+
+    def __init__(self, cfg: LLaDAConfig, mesh, params: Params, attn_impl: str = "auto"):
+        self.cfg, self.mesh, self.attn_impl = cfg, mesh, attn_impl
+        self.specs = sharding.model_specs(cfg, mesh, params)
+        tp_block = TENSOR_AXIS in sharding.spec_axes(self.specs["blocks"]["attn_out"])
+        self.tp = axis_group(mesh, TENSOR_AXIS) if tp_block else None
+        self.fsdp = axis_group(mesh, FSDP_AXIS)
+        self._layer_specs: dict = {}
+
+    def _spec(self, kind: str, leaf) -> tuple:
+        key = (kind, type(leaf), sharding._weight(leaf).dim())
+        if key not in self._layer_specs:
+            self._layer_specs[key] = sharding.resolved_spec(
+                self.cfg, self.specs, self.mesh, "blocks", kind, leaf)
+        return self._layer_specs[key]
+
+    def layer(self, lp: Params) -> Params:
+        """One layer's weights with their fsdp dims gathered; a quantized
+        weight's scales cut to this tensor rank's columns (or int4 row
+        groups) where its values are tensor-sharded."""
+        if self.fsdp is None and self.tp is None:
+            return lp
+        return {kind: self._gather(leaf, self._spec(kind, leaf)) for kind, leaf in lp.items()}
+
+    def _gather(self, leaf, spec):
+        w = sharding._weight(leaf)
+        for dim, axis in enumerate(spec):
+            if axis == FSDP_AXIS:
+                w = C.gather_shards(w, dim, self.fsdp)
+        if not is_quantized(leaf):
+            return w
+        if isinstance(leaf, Int4Tensor):
+            scales = leaf.scales
+            for dim, axis in enumerate(spec):
+                if axis == TENSOR_AXIS:
+                    scales = C.chunk(scales, dim - len(spec), self.tp)
+            return Int4Tensor(packed=w, scales=scales)
+        if hasattr(leaf, "scales"):
+            scales = C.chunk(leaf.scales, -1, self.tp) if spec[-1] == TENSOR_AXIS else leaf.scales
+            return type(leaf)(values=w, scales=scales)
+        return type(leaf)(values=w)   # a W8A8 training tag
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        spec = sharding.resolved_spec(self.cfg, self.specs, self.mesh, name)
+        tensor = axis_group(self.mesh, TENSOR_AXIS)
+        for dim, axis in enumerate(spec):
+            if axis == FSDP_AXIS:
+                t = C.gather_shards(t, dim, self.fsdp)
+            elif axis == TENSOR_AXIS:
+                t = C.gather_replicated(t, dim, tensor)
+            elif isinstance(axis, tuple):
+                t = C.gather_joined(t, dim, self.fsdp, tensor,
+                                    axis_group(self.mesh, (FSDP_AXIS, TENSOR_AXIS)))
+        return t
+
+    def embedding(self, wte: torch.Tensor) -> torch.Tensor:
+        """The whole embedding (its rows are sharded over fsdp x tensor)."""
+        if is_quantized(wte):
+            return wte
+        return self._whole("wte", wte)
+
+    def head_params(self, params: Params) -> Params:
+        """`params` with the vocab head (the embedding when tied) whole."""
+        name = "wte" if self.cfg.weight_tying else "ff_out"
+        head = params[name]
+        if is_quantized(head):   # frozen: gathered without autograd
+            spec = sharding.resolved_spec(self.cfg, self.specs, self.mesh, name, leaf=head)
+            w = sharding._weight(head)
+            for dim, axis in enumerate(spec):
+                if axis is not None:
+                    w = C.all_gather(w, dim, axis_group(self.mesh, axis))
+            head = (Int4Tensor(packed=w, scales=head.scales) if isinstance(head, Int4Tensor)
+                    else type(head)(values=w, scales=head.scales))
+        else:
+            head = self._whole(name, head)
+        return dict(params, **{name: head})
+
+    def attend(self, q, k, v, bias=None, rope_sin=None, rope_cos=None):
+        sp = axis_size(self.mesh, FSDP_AXIS)
+        if self.attn_impl == "ring" and bias is None and sp > 1 and q.shape[2] % sp == 0:
+            if rope_sin is not None:   # the ring shards the sequence: rotate first
+                q, k = apply_rope(q, k, rope_sin, rope_cos)
+            if k.shape[1] != q.shape[1]:   # GQA: the ring takes equal heads
+                rep = q.shape[1] // k.shape[1]
+                k = k.repeat_interleave(rep, dim=1)
+                v = v.repeat_interleave(rep, dim=1)
+            return ring_attention.ring_attention_rows(q, k, v, self.mesh)
+        return tp_attention.local_attention(q, k, v, self.tp, bias=bias,
+                                            rope_sin=rope_sin, rope_cos=rope_cos)
 
 
 # --------------------------------------------------------------------------
@@ -594,6 +731,7 @@ def forward_kv_capture(
     remat=False,
     drop_span: Optional[tuple[int, int]] = None,
     cache_dtype: Optional[str] = None,         # None | "int8"
+    mesh=None,
 ):
     """The backbone over the whole frame, without the vocab head, returning
     every layer's post-RoPE K and V: `(k, v)`, each `(n_layers, B, KVH, L,
@@ -604,20 +742,26 @@ def forward_kv_capture(
     recomputed every step; attention is invariant to the keys' order). No
     attention bias: the cache serves the unbiased (checkpoint-faithful)
     path only. Without autograd; `remat` must be False (nothing is saved
-    for a backward)."""
+    for a backward). With a `mesh` (every rank the same rows) the cache holds
+    this rank's kv heads of a tensor-parallel block."""
     if remat not in (False, None):
         raise NotImplementedError(
             f"forward_kv_capture serves without autograd: remat={remat!r} is not taken")
     if cache_dtype not in (None, "int8"):
         raise ValueError(f"cache_dtype must be None or 'int8', got {cache_dtype!r}")
-    x = params["wte"][input_ids].to(policy.compute_dtype)
+    path = None if mesh is None else _MeshPath(cfg, mesh, params)
+    wte = params["wte"] if path is None else path.embedding(params["wte"])
+    x = wte[input_ids].to(policy.compute_dtype)
     if cfg.input_emb_norm:
         x = x * math.sqrt(cfg.d_model)
     b, l = input_ids.shape
     sin, cos = rope_sin_cos(l, cfg.head_dim, cfg.rope_theta, device=x.device)
     lo, hi = drop_span if drop_span is not None else (l, l)
     layers = layer_params(params)
-    shape = (len(layers), b, cfg.effective_n_kv_heads, l - (hi - lo), cfg.head_dim)
+    kv_heads = cfg.effective_n_kv_heads
+    if path is not None and path.tp is not None:
+        kv_heads //= torch.distributed.get_world_size(path.tp)
+    shape = (len(layers), b, kv_heads, l - (hi - lo), cfg.head_dim)
 
     def empty():
         if cache_dtype == "int8":
@@ -627,7 +771,7 @@ def forward_kv_capture(
 
     k_cache, v_cache = empty(), empty()
     for i, lp in enumerate(layers):
-        x, kv = _block(cfg, x, lp, None, sin, cos, return_kv=True)
+        x, kv = _block(cfg, x, lp, None, sin, cos, return_kv=True, path=path)
         for t, cache in zip(kv, (k_cache, v_cache)):
             if drop_span is not None:
                 t = torch.cat([t[:, :, :lo], t[:, :, hi:]], dim=2)
@@ -649,6 +793,7 @@ def forward_kv_step(
     policy: Policy = FP32,
     logit_window: Optional[tuple[int, int]] = None,
     cache_is_compact: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """`(B, blk, V|window)` logits of the block's tokens against the cached
     K/V. Per layer (`_block` with the layer's cache): q/k/v of the block's
@@ -670,7 +815,9 @@ def forward_kv_step(
     blk = block_ids.shape[1]
     seq_len = cache_len + (blk if cache_is_compact else 0)
 
-    x = params["wte"][block_ids].to(policy.compute_dtype)
+    path = None if mesh is None else _MeshPath(cfg, mesh, params)
+    wte = params["wte"] if path is None else path.embedding(params["wte"])
+    x = wte[block_ids].to(policy.compute_dtype)
     if cfg.input_emb_norm:
         x = x * math.sqrt(cfg.d_model)
     sin, cos = rope_sin_cos(seq_len, cfg.head_dim, cfg.rope_theta, device=x.device)
@@ -683,6 +830,7 @@ def forward_kv_step(
             vc = _dequantize_kv(v_cache[0][i], v_cache[1][i], x.dtype)
         else:
             kc, vc = k_cache[i], v_cache[i]
-        x = _block(cfg, x, lp, None, sin, cos, cache=(kc, vc, None if cache_is_compact else span))
+        x = _block(cfg, x, lp, None, sin, cos,
+                   cache=(kc, vc, None if cache_is_compact else span), path=path)
     x = _norm(cfg, x, params["ln_f"])
-    return _head(params, cfg, x, logit_window, policy)
+    return _head(params, cfg, x, logit_window, policy, mesh)

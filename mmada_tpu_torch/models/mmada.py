@@ -32,6 +32,11 @@ tokens; `segmented_run`, `segmented_stepwise_run`, `segmented_chunk_runner`,
 (the serving engine, `serve/engine.py`, and the HTTP front end's streams).
 Not ported: `with_pinned_fast_runner` (XLA layout pinning).
 
+Over a mesh (`mesh`, `pipeline_axis`, `attn_impl`: the JAX model's fields)
+the model's params are this rank's shards and every sampler runs over it:
+sharded (FSDP and tensor parallelism, `llada._MeshPath`), in pipeline stages
+(`parallel/pipeline.py`) or with the ring (`parallel/ring_attention.py`).
+
 Image generation evaluates the vocab head only over the 8k image window and
 the image positions (`logit_window` + `logit_positions`); text steps only
 over the active block's positions.
@@ -55,7 +60,11 @@ from mmada_tpu_torch.checkpoints.hf_import import config_from_hf_json, load_pret
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
 from mmada_tpu_torch.core.precision import BF16, FP32, Policy
 from mmada_tpu_torch.core.vocab import VocabLayout
+from mmada_tpu_torch.core.mesh import axis_group
 from mmada_tpu_torch.models import llada
+from mmada_tpu_torch.parallel import pipeline
+from mmada_tpu_torch.parallel.collectives import all_gather, chunk
+from mmada_tpu_torch.parallel.tp_attention import best_batch_axes
 from mmada_tpu_torch.sampling import motion as motion_sampling
 from mmada_tpu_torch.sampling import t2i as t2i_sampling
 from mmada_tpu_torch.sampling import text as text_sampling
@@ -71,6 +80,20 @@ class MMadaModel:
     remat: Any = False
     """Activation checkpointing of the training path: False | True | "full" |
     "dots" | "auto" (llada._check_remat)."""
+    mesh: Any = None
+    """A (data, fsdp, tensor) `DeviceMesh` (core/mesh.py) whose shards
+    `params` hold (parallel/sharding.py). Serving (`forward`) takes every
+    row on every rank, runs its rows over the batch axes that divide the
+    batch (`tp_attention.best_batch_axes`) and gathers the logits, so every
+    rank has them all; the training path (`forward_hidden`) takes this
+    rank's rows."""
+    pipeline_axis: Any = None
+    """The mesh axis of GPipe serving (parallel/pipeline.py): `params` from
+    `pipeline.shard_stage_params`, no attention bias; every sampler's
+    forward then runs through the pipeline."""
+    attn_impl: str = "auto"
+    """"ring" with a mesh: attention's sequence sharded over fsdp
+    (parallel/ring_attention.py) where there is no bias."""
 
     def __post_init__(self):
         if self.params is not None:  # a train step's template holds no weights
@@ -111,24 +134,70 @@ class MMadaModel:
     @torch.no_grad()
     def forward(self, input_ids, attention_mask=None, attention_bias=None,
                 logit_window=None, logit_positions=None):
-        return llada.forward(
-            self.params, self.cfg, input_ids,
-            attention_mask=attention_mask, attention_bias=attention_bias,
-            policy=self.policy, logit_window=logit_window,
-            logit_positions=logit_positions,
-        )
+        if self.pipeline_axis is not None:
+            if self.cfg.attention_bias_enabled and (
+                    attention_mask is not None or attention_bias is not None):
+                raise ValueError("pipeline serving supports only the no-bias attention "
+                                 "path (attention_bias_enabled=False)")
+            return pipeline.pipeline_forward(
+                self.params, self.cfg, input_ids, self.mesh, axis_name=self.pipeline_axis,
+                policy=self.policy, logit_window=logit_window,
+                logit_positions=logit_positions)
+        if self.mesh is None:
+            return llada.forward(
+                self.params, self.cfg, input_ids,
+                attention_mask=attention_mask, attention_bias=attention_bias,
+                policy=self.policy, logit_window=logit_window,
+                logit_positions=logit_positions,
+            )
+        return self._mesh_forward(input_ids, attention_mask, attention_bias, logit_window,
+                                  logit_positions)
+
+    def _mesh_forward(self, input_ids, attention_mask, attention_bias, logit_window,
+                      logit_positions):
+        """Serving over the mesh: this rank's rows (over the batch axes that
+        divide the batch), then the logits of every row gathered."""
+        axes = best_batch_axes(input_ids.shape[0], self.mesh)
+        group = axis_group(self.mesh, axes) if axes else None
+
+        def rows(t):
+            return t if t is None or t.shape[0] == 1 else chunk(t, 0, group)
+
+        if logit_positions is not None and isinstance(logit_positions[0], torch.Tensor):
+            logit_positions = (rows(logit_positions[0]), logit_positions[1])
+        logits = llada.forward(
+            self.params, self.cfg, rows(input_ids), attention_mask=rows(attention_mask),
+            attention_bias=rows(attention_bias), policy=self.policy,
+            logit_window=logit_window, logit_positions=logit_positions,
+            mesh=self.mesh, attn_impl=self.attn_impl)
+        return all_gather(logits, 0, group)
 
     def forward_hidden(self, input_ids, attention_mask=None):
         """Post-final-norm hidden states `(B, L, D)`, with autograd; the
-        vocab head is NOT applied (the training loss path)."""
+        vocab head is NOT applied (the training loss path). Over a mesh,
+        `input_ids` are this rank's rows."""
+        if self.pipeline_axis is not None:
+            raise ValueError("forward_hidden is a training path; pipeline sharding "
+                             "is inference-only")
         return llada.forward(
             self.params, self.cfg, input_ids, attention_mask=attention_mask,
             policy=self.policy, remat=self.remat, return_normed_hidden=True,
+            mesh=self.mesh, attn_impl=self.attn_impl,
         )
 
     def apply_head(self, normed_hidden, logit_window=None):
         """Vocab-head matmul on (a chunk of) normed hidden states."""
-        return llada._head(self.params, self.cfg, normed_hidden, logit_window, self.policy)
+        return llada._head(self.params, self.cfg, normed_hidden, logit_window, self.policy,
+                           self.mesh)
+
+    def with_whole_head(self) -> "MMadaModel":
+        """This model with its vocab head gathered once (autograd reaches the
+        shards) for the chunked loss's many `apply_head` calls; itself
+        without a mesh."""
+        if self.mesh is None:
+            return self
+        params = llada._MeshPath(self.cfg, self.mesh, self.params).head_params(self.params)
+        return dataclasses.replace(self, params=params, mesh=None)
 
     def _text_window_forward_fn(self, block_length: int):
         """Semi-AR block-windowed forward: the full-width vocab head (text
@@ -140,6 +209,8 @@ class MMadaModel:
         return fn
 
     def _validate_kv_cache_support(self) -> None:
+        if self.pipeline_axis is not None:
+            raise ValueError("block_kv_cache is not supported under pipeline serving")
         if self.cfg.attention_bias_enabled:
             raise ValueError(
                 "block_kv_cache supports only the no-bias (checkpoint-faithful) "
@@ -153,11 +224,11 @@ class MMadaModel:
 
         def capture(tokens):
             return llada.forward_kv_capture(self.params, self.cfg, tokens, policy=self.policy,
-                                            cache_dtype=cache_dtype)
+                                            cache_dtype=cache_dtype, mesh=self.mesh)
 
         def step(block_tokens, kv, block_start):
             return llada.forward_kv_step(self.params, self.cfg, block_tokens, kv, block_start,
-                                         policy=self.policy)
+                                         policy=self.policy, mesh=self.mesh)
 
         return capture, step
 
@@ -171,12 +242,12 @@ class MMadaModel:
             lo = tokens.shape[1] - (num_tokens + 1)
             return llada.forward_kv_capture(self.params, self.cfg, tokens, policy=self.policy,
                                             drop_span=(lo, lo + num_tokens),
-                                            cache_dtype=cache_dtype)
+                                            cache_dtype=cache_dtype, mesh=self.mesh)
 
         def step(span_tokens, kv, span_start):
             return llada.forward_kv_step(self.params, self.cfg, span_tokens, kv, span_start,
                                          policy=self.policy, logit_window=window,
-                                         cache_is_compact=True)
+                                         cache_is_compact=True, mesh=self.mesh)
 
         return capture, step
 

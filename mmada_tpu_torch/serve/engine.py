@@ -297,9 +297,22 @@ class _Stream:
         return n
 
 
+def check_one_rank(model) -> None:
+    """The engine batches on one rank's host loop: a model whose mesh spans
+    more than one rank would need rank 0 to decide each batch and send it to
+    the others (ROADMAP A.12b)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.mesh.numel() > 1:
+        raise NotImplementedError(
+            f"the serving engine over a mesh of {mesh.mesh.numel()} ranks is not ported "
+            "(ROADMAP A.12b: rank 0 would decide each batch and broadcast it); serve "
+            "through the command lines, or with parallel.serving=none")
+
+
 class ServingEngine:
     def __init__(self, model, max_batch: int = 8, max_wait_ms: float = 10.0,
                  max_queue: int = 256, min_chunk_device_ms: float = 25.0):
+        check_one_rank(model)
         self.model = model
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0

@@ -20,8 +20,18 @@ whatever its weights' dtype (its codes are signs), so it is loaded in fp32
 (JAX's `load_magvit2` default is bf16).
 
 Every `build_*` takes `device` (the card unless told otherwise). Not ported:
-`enable_compilation_cache` (XLA's) and `serving_mesh` / `_maybe_shard`
-(ROADMAP A.12): the port serves on one card, as JAX does with one device.
+`enable_compilation_cache` (XLA's).
+
+Under a launcher of more than one rank (`torchrun`: the process group is
+joined here, `core/mesh.initialize_distributed`, NCCL on the card, gloo with
+`device=cpu`), `build_model` serves sharded, as JAX's loader does on a
+slice (`serving_mesh`, `shard_for_serving`): `parallel.serving` `auto`
+(the default) shards the weights over the mesh of `parallel.{data,fsdp,
+tensor}` (default all fsdp; `parallel/sharding.py`), `pipeline` splits the
+layers into GPipe stages over fsdp (`parallel/pipeline.py`; unquantized
+weights and layers the stages divide), `none` keeps every rank's model
+whole. Every rank then computes every request; the command lines print and
+write on rank 0.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from mmada_tpu_torch.core.config import (
     parse_remat,
 )
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
+from mmada_tpu_torch.core.mesh import initialize_distributed, mesh_from_config
 from mmada_tpu_torch.core.precision import policy_from_name
 from mmada_tpu_torch.core.vocab import MMADA_8B, VocabLayout, tiny_layout
 from mmada_tpu_torch.entry import QUANT_SCHEMES, quantize
@@ -167,7 +178,52 @@ def build_prompting(cfg: Config, tokenizer, vocab: VocabLayout) -> UniversalProm
     )
 
 
+def serving_mesh(cfg: Config, device: DeviceLike = None):
+    """The mesh to serve over when the run has more than one rank (joining
+    the launcher's ranks first), or None (one rank, or `parallel.serving:
+    none`)."""
+    initialize_distributed(device=device)
+    if not torch.distributed.is_initialized() or torch.distributed.get_world_size() == 1:
+        return None
+    if str(cfg.get_path("parallel.serving", "auto")).lower() == "none":
+        return None
+    return mesh_from_config(cfg, device)
+
+
+def shard_for_serving(cfg: Config, model: MMadaModel, mesh=None) -> MMadaModel:
+    """`model` over `mesh` (default `serving_mesh(cfg)`): sharded (`auto`)
+    or in pipeline stages (`pipeline`), as JAX's `_maybe_shard`; itself
+    without a mesh or with `parallel.serving: none`."""
+    from mmada_tpu_torch.parallel import pipeline, sharding
+
+    mode = str(cfg.get_path("parallel.serving", "auto")).lower()
+    if mode not in ("auto", "none", "pipeline"):
+        raise ValueError(f"parallel.serving must be auto, none or pipeline, got {mode!r}")
+    if mesh is None:
+        mesh = serving_mesh(cfg, model.device)
+    if mesh is None or mode == "none":
+        return model
+    if mode == "pipeline":
+        stages = mesh.size(1)
+        if model.cfg.n_layers % stages:
+            raise ValueError(f"{model.cfg.n_layers} layers do not divide the fsdp axis "
+                             f"({stages}) for pipeline stages")
+        logger.info("pipeline serving: %d stages over mesh %s", stages, tuple(mesh.shape))
+        return dataclasses.replace(model, params=pipeline.shard_stage_params(model.params, mesh),
+                                   mesh=mesh, pipeline_axis="fsdp")
+    logger.info("serving sharded over mesh %s", tuple(mesh.shape))
+    specs = sharding.model_specs(model.cfg, mesh, model.params)
+    return dataclasses.replace(model, params=sharding.shard_params(model.params, specs, mesh),
+                               mesh=mesh)
+
+
 def build_model(cfg: Config, vocab: VocabLayout, device: DeviceLike = None) -> MMadaModel:
+    """The model of `cfg` (see the module docstring), over the serving mesh
+    when the run has more than one rank."""
+    return shard_for_serving(cfg, _build_model(cfg, vocab, device))
+
+
+def _build_model(cfg: Config, vocab: VocabLayout, device: DeviceLike = None) -> MMadaModel:
     device = resolve_device(device)
     m = cfg.get_path("model.mmada", Config())
     policy = policy_from_name(

@@ -119,16 +119,33 @@ def forward_process(
     answer_lengths_lm: Optional[torch.Tensor] = None,
     lm_loss_mode: str = "llada",
     loss_chunk: int = 0,
+    rows: Optional[torch.Tensor] = None,
 ):
     """Returns (logits, loss_t2i, loss_lm, loss_mmu); with `loss_chunk > 0`
     the logits slot is None (they are never materialised) and the losses are
-    the same."""
+    the same.
+
+    `rows` (over a mesh: this rank's global row indices, `parallel/grads.py`)
+    forwards those rows only; the weights are built on the whole batch, so
+    each loss is the rows' share of the global one (summing the ranks'
+    shares gives it), and the logits slot is None."""
     bt, bl, bm = batch_size_t2i, batch_size_lm, batch_size_mmu
     attention_mask = None
     if t2i_masks is not None and bt > 0:
         pad = torch.ones((bl + bm, input_ids.shape[1]), dtype=t2i_masks.dtype,
                          device=t2i_masks.device)
         attention_mask = torch.cat([t2i_masks, pad], dim=0)
+
+    if rows is not None:
+        weights, lm_factor = loss_weights(
+            input_ids, labels, model.vocab.mask_token_id, bt, bl, bm, max_seq_length,
+            p_mask_lm, p_mask_mmu, answer_lengths, answer_lengths_lm, lm_loss_mode)
+        rows = rows.to(input_ids.device)
+        mask = None if attention_mask is None else attention_mask[rows]
+        hidden = model.forward_hidden(input_ids[rows], attention_mask=mask)
+        sums = chunked_weighted_ce(model.with_whole_head(), hidden, labels[rows],
+                                   weights[:, rows], loss_chunk or input_ids.shape[1])
+        return None, sums[0], sums[1] * lm_factor, sums[2]
 
     if loss_chunk:
         return _forward_process_chunked(
@@ -161,12 +178,32 @@ def _forward_process_chunked(
     loss_chunk,
 ):
     """The three tasks' per-position weight fields (none depends on the
-    logits), then one `chunked_weighted_ce` pass. The weight algebra is that
-    of `t2i_loss` / `lm_loss` / `answer_loss`."""
+    logits), then one `chunked_weighted_ce` pass."""
+    weights, lm_factor = loss_weights(
+        input_ids, labels, model.vocab.mask_token_id, bt, bl, bm, max_seq_length,
+        p_mask_lm, p_mask_mmu, answer_lengths, answer_lengths_lm, lm_loss_mode)
+    zero = torch.zeros((), dtype=torch.float32, device=input_ids.device)
+    hidden = model.forward_hidden(input_ids, attention_mask=attention_mask)
+    sums = chunked_weighted_ce(model, hidden, labels, weights, loss_chunk)
+    return (
+        None,
+        sums[0] if bt else zero,
+        sums[1] * lm_factor if bl else zero,
+        sums[2] if bm else zero,
+    )
+
+
+def loss_weights(input_ids, labels, mask_id, bt, bl, bm, max_seq_length, p_mask_lm,
+                 p_mask_mmu, answer_lengths, answer_lengths_lm, lm_loss_mode):
+    """(weights (3, B, L), lm_factor): the t2i / lm / mmu per-position weights
+    of the `[t2i | lm | mmu]` batch, whose CE-weighted sums are the three
+    losses (the lm loss times `lm_factor`). The algebra is that of
+    `t2i_loss` / `lm_loss` / `answer_loss`; every count is over the batch
+    given."""
     b, l = input_ids.shape
     device = input_ids.device
     valid = labels != IGNORE_ID
-    masked = input_ids == model.vocab.mask_token_id
+    masked = input_ids == mask_id
     weights = torch.zeros((3, b, l), dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
 
@@ -194,12 +231,4 @@ def _forward_process_chunked(
         active = masked[bt + bl:] & valid[bt + bl:]
         weights[2, bt + bl:] = torch.where(
             active, 1.0 / (p_mask_mmu * answer_lengths), zero) / bm
-
-    hidden = model.forward_hidden(input_ids, attention_mask=attention_mask)
-    sums = chunked_weighted_ce(model, hidden, labels, weights, loss_chunk)
-    return (
-        None,
-        sums[0] if bt else zero,
-        sums[1] * lm_factor if bl else zero,
-        sums[2] if bm else zero,
-    )
+    return weights, lm_factor

@@ -70,14 +70,16 @@ def decay_mask(params: Named, no_decay_keys=NO_DECAY_KEYS) -> dict[str, bool]:
     return out
 
 
-def global_norm(tensors: Named) -> torch.Tensor:
+def global_norm(tensors: Named, reduce: Optional[Callable] = None) -> torch.Tensor:
     """`optax.global_norm` with its rounding, on the device, over JAX's
     leaves: the layers of a kind (`layers.{i}.{kind}`) form one leaf
     (`blocks/{kind}`), as in the JAX package's layer-stacked tree. Per leaf,
     squares in the leaf's dtype summed in fp32 and rounded to that dtype;
     the leaves' sums added in JAX's tree order (its paths sorted) promoting
     as JAX does; the square root in the result's dtype (bf16 for bf16
-    leaves)."""
+    leaves). Over a mesh `tensors` are this rank's shards and `reduce`
+    ({path: fp32 sum} -> the same summed over the shards of each leaf,
+    `parallel/grads.py`) makes each leaf's sum whole before its rounding."""
     parts: dict[tuple, torch.Tensor] = {}
     dtypes: dict[tuple, torch.dtype] = {}
     for name, t in tensors.items():
@@ -85,6 +87,8 @@ def global_norm(tensors: Named) -> torch.Tensor:
         part = sum((c * c).sum(dtype=torch.float32) for c in t.reshape(-1).split(CHUNK))
         parts[path] = part if path not in parts else parts[path] + part
         dtypes[path] = t.dtype
+    if reduce is not None:
+        parts = reduce(parts)
     total = None
     for path in sorted(parts):
         part = parts[path].to(dtypes[path])
@@ -120,11 +124,12 @@ def _learning_rate(learning_rate, count: torch.Tensor) -> torch.Tensor:
     return torch.full((), learning_rate, dtype=torch.float32, device=count.device)
 
 
-def _clip(grads: Named, max_grad_norm: Optional[float], c: "_Weak"):
+def _clip(grads: Named, max_grad_norm: Optional[float], c: "_Weak",
+          norm_reduce: Optional[Callable] = None):
     """`clip_by_global_norm`'s per-chunk map (identity without a clip)."""
     if max_grad_norm is None:
         return lambda g: g
-    g_norm = global_norm(grads)
+    g_norm = global_norm(grads, norm_reduce)
     trigger = g_norm < max_grad_norm
     return lambda g: torch.where(trigger, g, (g / g_norm.to(g.dtype)) * c("max_norm", g))
 
@@ -139,6 +144,7 @@ class AdamW:
     max_grad_norm: Optional[float] = 1.0
     mu_dtype: Optional[torch.dtype] = None
     no_decay_keys: tuple = NO_DECAY_KEYS
+    norm_reduce: Optional[Callable] = None   # over a mesh: the clip's norm whole
 
     def init(self, params: Named) -> dict:
         device = next(iter(params.values())).device
@@ -164,7 +170,7 @@ class AdamW:
         c = _Weak(device, one_minus_b1=1 - self.beta1, b1=self.beta1,
                   one_minus_b2=1 - self.beta2, b2=self.beta2, eps=self.eps,
                   wd=self.weight_decay, max_norm=self.max_grad_norm or 0.0)
-        clip = _clip(grads, self.max_grad_norm, c)
+        clip = _clip(grads, self.max_grad_norm, c, self.norm_reduce)
         decay = decay_mask(params, self.no_decay_keys)
         for name, p in params.items():
             flat = [t.reshape(-1).split(CHUNK)
@@ -198,6 +204,7 @@ class Lion:
     weight_decay: float = 0.0
     max_grad_norm: Optional[float] = None
     no_decay_keys: tuple = NO_DECAY_KEYS
+    norm_reduce: Optional[Callable] = None   # over a mesh: the clip's norm whole
 
     def init(self, params: Named) -> dict:
         device = next(iter(params.values())).device
@@ -213,7 +220,7 @@ class Lion:
         c = _Weak(count.device, one_minus_b1=1 - self.beta1, b1=self.beta1,
                   one_minus_b2=1 - self.beta2, b2=self.beta2, wd=self.weight_decay,
                   max_norm=self.max_grad_norm or 0.0)
-        clip = _clip(grads, self.max_grad_norm, c)
+        clip = _clip(grads, self.max_grad_norm, c, self.norm_reduce)
         decay = decay_mask(params, self.no_decay_keys)
         for name, p in params.items():
             flat = [t.reshape(-1).split(CHUNK) for t in (p, grads[name], state["mu"][name])]

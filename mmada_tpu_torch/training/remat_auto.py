@@ -74,9 +74,11 @@ def dots_layer_bytes(model, rows: int, length: int) -> int:
     x = torch.zeros(rows, length, cfg.d_model, dtype=model.policy.compute_dtype,
                     device=device, requires_grad=True)
     sin, cos = llada.rope_sin_cos(length, cfg.head_dim, cfg.rope_theta, device=device)
+    # over a mesh: the layer's shards gathered, its tensor-parallel width
+    path = None if model.mesh is None else llada._MeshPath(cfg, model.mesh, params)
     with torch.enable_grad():
         out = checkpoint(llada._block, cfg, x, lp, None, sin, cos, use_reentrant=False,
-                         context_fn=lambda: llada.dots_context(counting_policy))
+                         context_fn=lambda: llada.dots_context(counting_policy), path=path)
     del out
     return kept[0] + x.numel() * x.element_size()
 

@@ -8,11 +8,22 @@ Counterpart of `mmada_tpu/training/train_step.py`: one optimizer step is
   -> weighted sum -> grad -> clip -> AdamW or Lion update -> LR schedule,
 
 everything on the batch's device and nothing read back to the host: the
-metrics are 0-d device tensors. Where the JAX step returns a new state, this
-one updates the parameters and the optimizer state in place (the full-width
-model leaves no room for a second copy). A step whose loss or gradient norm
-is not finite is skipped on the device: every tensor keeps its old value and
-the step count does not advance.
+metrics are 0-d device tensors.
+
+Over a mesh of more than one rank (the template model's `mesh`, its
+params this rank's shards) the step computes the global step
+(`parallel/grads.py`): `__call__` gathers the ranks' clean rows into the
+global batch and corrupts it whole, with the generator every rank seeds
+alike, so the masks and ratios are those of one device; `apply` takes that
+global batch, forwards this rank's rows with global denominators, sums the
+gradients over the batch axes, and updates the local shards with the
+global norm. The metrics are the global ones on every rank.
+
+Where the JAX step returns a new state, this one updates the parameters and
+the optimizer state in place (the full-width model leaves no room for a
+second copy). A step whose loss or gradient norm is not finite is skipped on
+the device: every tensor keeps its old value and the step count does not
+advance.
 """
 
 from __future__ import annotations
@@ -22,9 +33,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from mmada_tpu_torch.core.mesh import TENSOR_AXIS, axis_size, world_size
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.quantization import tag_w8a8_ste
+from mmada_tpu_torch.parallel.grads import MeshGrads
 from mmada_tpu_torch.sampling.schedules import cosine_schedule
 from mmada_tpu_torch.training import losses as L
 from mmada_tpu_torch.training import masking
@@ -125,14 +138,19 @@ def corrupt_batch(model: MMadaModel, sc: StepConfig, batch: dict,
     return out
 
 
-def per_kind_grad_norms(grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def per_kind_grad_norms(grads: dict[str, torch.Tensor], reduce=None) -> dict[str, torch.Tensor]:
     """`grad_norm/<kind>` per weight kind, the layers of a kind together
-    (`blocks/q_proj`, as the JAX package's layer-stacked tree names it)."""
-    sq: dict[str, list] = {}
+    (`blocks/q_proj`, as the JAX package's layer-stacked tree names it);
+    `reduce` as `global_norm`'s (over a mesh)."""
+    sq: dict[tuple, list] = {}
     for name, g in grads.items():
         kind = "blocks/" + name.split(".", 2)[2] if name.startswith("layers.") else name
-        sq.setdefault(kind, []).append(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2)
-    return {f"grad_norm/{k}": torch.stack(v).sum().sqrt() for k, v in sq.items()}
+        sq.setdefault(tuple(kind.split("/")), []).append(
+            torch.linalg.vector_norm(g, dtype=torch.float32) ** 2)
+    parts = {k: torch.stack(v).sum() for k, v in sq.items()}
+    if reduce is not None:
+        parts = reduce(parts)
+    return {"grad_norm/" + "/".join(k): v.sqrt() for k, v in parts.items()}
 
 
 class TrainStep:
@@ -148,6 +166,17 @@ class TrainStep:
         self.model = dataclasses.replace(model_template, params=None)
         self.optimizer = optimizer
         self.sc = sc
+        self.grads = None
+        mesh = model_template.mesh
+        if mesh is not None and world_size(mesh) > 1:
+            if sc.forward_quantize == "w8a8" and axis_size(mesh, TENSOR_AXIS) > 1:
+                raise NotImplementedError(
+                    "forward_quantize=w8a8 with a tensor axis above 1: per-token "
+                    "activation scales over row shards (ROADMAP A.12c)")
+            names = [n for n, _ in llada.named_leaves(model_template.params)]
+            self.grads = MeshGrads(model_template.cfg, mesh, names)
+            inner = getattr(optimizer, "inner", optimizer)   # MultiSteps' inner update
+            inner.norm_reduce = self.grads.norm_reduce       # the clip's norm, whole
 
     def loss(self, params, prepared: dict):
         sc = self.sc
@@ -166,6 +195,8 @@ class TrainStep:
             t2i_masks=prepared.get("t2i_masks"),
             answer_lengths_lm=prepared.get("answer_lengths_lm"),
             lm_loss_mode=sc.lm_loss_mode, loss_chunk=sc.loss_chunk,
+            rows=None if self.grads is None else self.grads.local_rows(
+                (sc.batch_size_t2i, sc.batch_size_lm, sc.batch_size_mmu)),
         )
         loss = sc.t2i_coeff * loss_t2i + sc.lm_coeff * loss_lm + sc.mmu_coeff * loss_mmu
         mask_prob = prepared.get("mask_prob")
@@ -176,12 +207,21 @@ class TrainStep:
         return loss, aux
 
     def apply(self, state: TrainState, prepared: dict):
+        """One update from an already corrupted batch (over a mesh: the
+        global batch, every rank the same)."""
         names, leaves = zip(*llada.named_leaves(state.params))
         loss, aux = self.loss(state.params, prepared)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {n: torch.zeros_like(t) if g is None else g
                  for n, t, g in zip(names, leaves, grads)}
-        grad_norm = global_norm(grads)
+        norm_reduce = None
+        if self.grads is not None:
+            self.grads.reduce(grads)
+            keys = ("loss_t2i", "loss_lm", "loss_mmu")
+            loss, *shares = self.grads.sum_rows([loss.detach()] + [aux[k] for k in keys])
+            aux.update(zip(keys, shares))
+            norm_reduce = self.grads.norm_reduce
+        grad_norm = global_norm(grads, norm_reduce)
         gate = None
         metrics = dict(aux)
         if self.sc.skip_nonfinite_updates:
@@ -191,11 +231,15 @@ class TrainStep:
         state.step.add_(1 if gate is None else gate.to(state.step.dtype))
         metrics.update(loss=loss.detach(), grad_norm=grad_norm)
         if self.sc.log_param_grad_norms:
-            metrics.update(per_kind_grad_norms(grads))
+            metrics.update(per_kind_grad_norms(grads, norm_reduce))
         return state, metrics
 
     def __call__(self, state: TrainState, batch: dict,
                  generator: Optional[torch.Generator] = None):
+        """Corrupt, then `apply`. Over a mesh `batch` holds this rank's clean
+        rows; they are gathered into the global batch first."""
+        if self.grads is not None:
+            batch = self.grads.gather_rows(batch, self.model.vocab.eos_token_id)
         return self.apply(state, corrupt_batch(self.model, self.sc, batch, generator))
 
 

@@ -1,7 +1,6 @@
 """Multi-task trainer: the stage-1..4 training loop.
 
-Counterpart of `mmada_tpu/training/trainer.py` without Orbax or a device
-mesh (the port trains on one card; meshes are ROADMAP A.12). Built from a
+Counterpart of `mmada_tpu/training/trainer.py` without Orbax. Built from a
 `core.config.Config` (`Trainer.from_config`, the keys JAX's constructor
 reads, `mmada_tpu/training/trainer.py:56-184`) or from keyword settings, the
 reference config's blocks as plain dicts (`training`, `optimizer`,
@@ -29,6 +28,18 @@ and save and hook time are left out of both (`saves` keeps each save's).
 `gradient_checkpointing: auto` is resolved at the first step
 (`training/remat_auto.py`; the decision in `remat_resolved`).
 
+Over a mesh (`mesh=`, or `from_config` under a process group of more than
+one rank: `parallel.{data,fsdp,tensor}`, `core/mesh.mesh_from_config`) the
+model's weights are sharded (`parallel/sharding.py`, JAX's
+`trainer.py:112-127`) and the loader's batches are this rank's rows of the
+global batch the config names (`train_torch.build_dataloader`); the train
+step is the global one (`train_step.py`), the optimizer and the EMA run on
+the shards, `auto` remat takes one decision for every rank (full if any
+rank's measure says so), the checkpoints keep the single-process layout
+(gathered leaf by leaf, rank 0 writes, the others wait; a run resumes at
+any world size), the hooks run on every rank and rank 0 writes their files,
+the metrics file and the profile.
+
 The optimizer is built from the `optimizer` block alone, as the JAX Trainer
 builds it (`mmada_tpu/training/optimizers.py:89-111`): its clip is
 `optimizer.params.max_grad_norm`. A `max_grad_norm` under `training:` (where
@@ -42,17 +53,30 @@ import dataclasses
 import json
 import logging
 import os
+import shutil
 import signal
+import tempfile
 import threading
 import time
 from typing import Callable, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmada_tpu_torch.checkpoints.manager import CheckpointManager
-from mmada_tpu_torch.models import magvit2
+from mmada_tpu_torch.core.mesh import (
+    BATCH_AXES,
+    axis_index,
+    axis_size,
+    is_main_process,
+    mesh_from_config,
+    world_size,
+)
+from mmada_tpu_torch.models import llada, magvit2
 from mmada_tpu_torch.models.mmada import MMadaModel
+from mmada_tpu_torch.parallel import sharding
+from mmada_tpu_torch.parallel.grads import pad_value
 from mmada_tpu_torch.sampling.schedules import get_mask_schedule
 from mmada_tpu_torch.training import ema as ema_mod
 from mmada_tpu_torch.training import losses as L
@@ -87,6 +111,7 @@ class Trainer:
         validation: Optional[Mapping] = None,
         write_image: Optional[Callable] = None,
         read_image: Optional[Callable] = None,
+        mesh=None,
     ):
         """`experiment`: `output_dir` (None, the default: no checkpoints,
         metrics file or hooks), `checkpoints_total_limit`, `save_every`,
@@ -96,7 +121,16 @@ class Trainer:
         hooks do). `write_image(path, (H, W, 3) uint8)` and
         `read_image(path, resolution) -> pixels` are the hooks' image IO."""
         tr = dict(training or {})
+        if model.pipeline_axis is not None:
+            raise ValueError("a model in pipeline stages serves only: train over "
+                             "parallel.{data,fsdp,tensor} (parallel.serving auto)")
+        if mesh is not None and model.mesh is None:
+            specs = sharding.model_specs(model.cfg, mesh, model.params)
+            model = dataclasses.replace(
+                model, params=sharding.shard_params(model.params, specs, mesh), mesh=mesh)
         self.model = model
+        self.mesh = model.mesh
+        self.main = is_main_process()
         self.prompting = prompting
         self.vq_params = vq_params
         self.vq_cfg = vq_cfg
@@ -154,9 +188,14 @@ class Trainer:
         self.profile_dir = ex.get("profile_dir") or (
             os.path.join(self.output_dir, "profile") if self.output_dir else "profile")
         self.ckpt = self.metrics = None
+        self.layout = None
+        if self.mesh is not None and world_size(self.mesh) > 1:
+            self.layout = sharding.StateLayout(model.cfg, self.mesh,
+                                      [n for n, _ in llada.named_leaves(model.params)])
         if self.output_dir:
             self.ckpt = CheckpointManager(self.output_dir, ex.get("checkpoints_total_limit"))
-            self.metrics = MetricsLogger(os.path.join(self.output_dir, "metrics.jsonl"))
+            if self.main:
+                self.metrics = MetricsLogger(os.path.join(self.output_dir, "metrics.jsonl"))
         self.global_step = 0
         self.history: list[dict[str, float]] = []
         self.saves: list[dict] = []          # CheckpointManager.last_save of each save
@@ -168,7 +207,11 @@ class Trainer:
                     write_image: Optional[Callable] = None,
                     read_image: Optional[Callable] = None) -> "Trainer":
         """The JAX Trainer's constructor (`Trainer(cfg, model, prompting,
-        vq_params, vq_cfg)`): the keys it reads, with its defaults."""
+        vq_params, vq_cfg)`): the keys it reads, with its defaults; under a
+        process group of more than one rank, the mesh of `parallel.*`."""
+        mesh = model.mesh
+        if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+            mesh = mesh_from_config(cfg, model.device)
         g = cfg.get_path
         experiment = {
             "output_dir": g("experiment.output_dir", "output"),
@@ -192,7 +235,7 @@ class Trainer:
                    lm_max_seq_length=g("dataset.preprocessing.max_seq_length", 512),
                    log_every=g("experiment.log_every", 50), vq_params=vq_params, vq_cfg=vq_cfg,
                    experiment=experiment, validation=validation, write_image=write_image,
-                   read_image=read_image)
+                   read_image=read_image, mesh=mesh)
 
     def _resolve_auto_remat(self, state, batch, generator=None):
         """First-step trampoline for `gradient_checkpointing: auto`: pick
@@ -203,6 +246,10 @@ class Trainer:
         frames = [t for k, t in batch.items() if k.endswith("input_ids")]
         rows, length = sum(t.shape[0] for t in frames), frames[0].shape[1]
         mode, info = pick_remat(self.model, state, rows, length)
+        if self.layout is not None:   # one decision for every rank
+            full = torch.tensor(float(mode == "full"), device=self.device)
+            dist.all_reduce(full, op=dist.ReduceOp.MAX)
+            mode = "full" if float(full) else "dots"
         self.remat_resolved = (mode, info)
         self.train_step = make_train_step(dataclasses.replace(self.model, remat=mode),
                                           self.optimizer, self.step_cfg)
@@ -291,17 +338,18 @@ class Trainer:
 
     def save_checkpoint(self, wait: Optional[bool] = None) -> str:
         """checkpoint-{global_step}: async when `training.async_checkpointing`
-        unless `wait`; preemption saves wait."""
+        unless `wait`; preemption saves wait; over a mesh every rank takes
+        part and the save waits."""
         if wait is None:
             wait = not self.async_checkpointing
-        path = self.ckpt.save(self.global_step, self._payload(), wait=wait)
+        path = self.ckpt.save(self.global_step, self._payload(), wait=wait, layout=self.layout)
         self.saves.append(self.ckpt.last_save)
         return path
 
     def resume(self) -> int:
         """Restore the latest checkpoint into the train state (and the EMA),
         in place, and `global_step`; returns the step (0: nothing to resume)."""
-        restored, step = self.ckpt.restore(self._payload())
+        restored, step = self.ckpt.restore(self._payload(), layout=self.layout)
         if restored is not None:
             self.global_step = step
             logger.info("resumed from step %d", step)
@@ -327,8 +375,13 @@ class Trainer:
         loop's only host sync) into `history` (and `metrics.jsonl`), with
         the steps' wall seconds (data included, saves and hooks not) and
         tokens/s since the last log, the meters' samples/s, data and batch
-        time, and, on the card, the peak device memory so far."""
-        generator = torch.Generator(self.device).manual_seed(rng_seed)
+        time, and, on the card, the peak device memory so far. Each step
+        draws its caption dropout (the prompting's `rng`) and corrupts its
+        batch from generators seeded by `rng_seed` and the step
+        (`step_seed`), so a resumed run draws what the uninterrupted one
+        drew; over a mesh each rank takes its rows' share of the global
+        batch's draws."""
+        generator = torch.Generator(self.device)
         batch_meter, data_meter = AverageMeter(), AverageMeter()
         previous = self._install_preemption_handler()
         profiler = None
@@ -338,19 +391,27 @@ class Trainer:
             for raw in loader:
                 if self.global_step >= self.max_train_steps:
                     break
+                if self.layout is not None:   # every rank stops at the same step
+                    flag = torch.tensor(float(self._preempted), device=self.device)
+                    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                    self._preempted = bool(float(flag))
                 if self._preempted:
                     logger.warning("preemption: saving checkpoint-%d and stopping",
                                    self.global_step)
                     if self.ckpt is not None:
                         self.save_checkpoint(wait=True)
                     break
-                if self.profile_at is not None and self.global_step == self.profile_at:
+                if (self.profile_at is not None and self.global_step == self.profile_at
+                        and self.main):
                     profiler = self._start_profile()
                 if profiler is not None and self.global_step == self.profile_at + 3:
                     profiler = self._stop_profile(profiler)
+                seed = step_seed(rng_seed, self.global_step)
+                self.prompting.rng = self._row_draws(np.random.default_rng(seed))
                 batch = self.prepare_batch(raw)
                 data_meter.update(time.perf_counter() - end)
                 tokens += sum(v.numel() for k, v in batch.items() if k.endswith("input_ids"))
+                generator.manual_seed(seed)
                 self.state, metrics = self.train_step(self.state, batch, generator)
                 if self.ema_state is not None:
                     ema_mod.ema_update(self.ema_state, self.state.params, **{
@@ -378,6 +439,13 @@ class Trainer:
         if self.ckpt is not None:
             self.ckpt.finalize()  # land any in-flight async save before returning
         return self.state
+
+    def _row_draws(self, rng):
+        """`rng`, or over a mesh its draws for the global batch cut to this
+        rank's rows."""
+        if self.layout is None:
+            return rng
+        return RowDraws(rng, axis_index(self.mesh, BATCH_AXES), axis_size(self.mesh, BATCH_AXES))
 
     def _log(self, vals: dict, batch_meter, data_meter, seconds: float, tokens: int) -> None:
         sc = self.step_cfg
@@ -426,6 +494,17 @@ class Trainer:
         `mmu_validation` images, chat answers, and the triptychs of the
         current batch's t2i images."""
         model = dataclasses.replace(self.model, params=self.state.params)
+        if not self.main:   # every rank samples (the mesh's collectives); rank 0 writes
+            output_dir, self.output_dir = self.output_dir, tempfile.mkdtemp()
+            try:
+                self._run_hooks(model, raw)
+            finally:
+                shutil.rmtree(self.output_dir, ignore_errors=True)
+                self.output_dir = output_dir
+            return
+        self._run_hooks(model, raw)
+
+    def _run_hooks(self, model, raw) -> None:
         v = self.validation
         prompts_file = v.get("prompts_file")
         if prompts_file and os.path.exists(prompts_file) and self.vq_params:
@@ -510,6 +589,22 @@ class Trainer:
                                 self._image_writer())
 
 
+class RowDraws:
+    """A numpy generator's `random(n)` for rank `index` of `ranks`: the
+    draws of the whole batch's n x ranks rows, cut to this rank's n."""
+
+    def __init__(self, rng, index: int, ranks: int):
+        self.rng, self.index, self.ranks = rng, index, ranks
+
+    def random(self, n):
+        return self.rng.random(n * self.ranks)[self.index * n:(self.index + 1) * n]
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The corruption generator's seed of train step `step` (0-based)."""
+    return seed * 1_000_003 + step
+
+
 def _pad_flows_to_common_length(batch: dict, eos_id: int) -> dict:
     """Pad every sequence array to the longest: labels with IGNORE_ID,
     prompt masks with 1, other masks with 0, ids with EOS."""
@@ -522,11 +617,6 @@ def _pad_flows_to_common_length(batch: dict, eos_id: int) -> dict:
         arr = np.asarray(batch[k])
         if arr.shape[1] == max_len:
             continue
-        if k.endswith("labels"):
-            fill = L.IGNORE_ID
-        elif k.endswith(("masks", "prompt_masks")):
-            fill = 1 if "prompt" in k else 0
-        else:
-            fill = eos_id
-        out[k] = np.pad(arr, ((0, 0), (0, max_len - arr.shape[1])), constant_values=fill)
+        out[k] = np.pad(arr, ((0, 0), (0, max_len - arr.shape[1])),
+                        constant_values=pad_value(k, eos_id))
     return out

@@ -256,7 +256,8 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     through the serving engine (`serve.engine`, `utils.flops`); `app_torch`,
     `train_torch` and the training modules (data readers, checkpoint
     manager, EMA, remat_auto, validation hooks) import too, without
-    pyarrow."""
+    pyarrow; the mesh modules (`core/mesh`, `parallel/`) import and a
+    one-rank mesh serves the model's logits."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'PIL', 'transformers', 'safetensors',"
@@ -341,6 +342,13 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "assert (torch.as_tensor(got) == want).all() and eng.stats['chunks'] == 4\n"
         "assert flops.forward_matmul_flops_per_token(cfg, 14, 4, cfg.vocab_size) > 0\n"
         "import chip_smoke, profile_cached, app_torch, train_torch\n"
+        "from mmada_tpu_torch.core import mesh\n"
+        "from mmada_tpu_torch.parallel import (collectives, grads, pipeline, ring_attention,\n"
+        "                                      sharding, tp_attention)\n"
+        "m = mesh.make_mesh(fsdp=-1, device='cpu')\n"
+        "sharded = dataclasses.replace(model, mesh=m, params=sharding.shard_params(\n"
+        "    model.params, sharding.model_specs(model.cfg, m), m))\n"
+        "assert torch.equal(sharded.forward(ids), model.forward(ids))\n"
         "from mmada_tpu_torch.data import (captions, combined, imagenet, native, synthetic,\n"
         "                                  text, vqa, webdataset)\n"
         "from mmada_tpu_torch.checkpoints import manager\n"

@@ -453,12 +453,21 @@ def test_train_torch_cli_saves_and_resumes(tmp_path):
     assert json.loads((out / "checkpoint-3" / "metadata.json").read_text())["global_step"] == 3
 
 
-@pytest.mark.parametrize("override,item", [("distributed.initialize=true", "A.12"),
-                                           ("parallel.tensor=2", "A.12")])
-def test_unported_training_modes_name_their_item(override, item):
+@pytest.mark.parametrize("override,item", [("training.task=t2m", "A.12c"),
+                                           ("parallel.serving=pipeline", "A.12c")])
+def test_unported_training_modes_name_their_item(override, item, monkeypatch):
+    """Over more than one rank (a launcher's WORLD_SIZE) t2m training and a
+    pipelined model are refused, naming their item; one rank trains them
+    (t2m) or serves whole, and `parallel.*` with `distributed.initialize`
+    is no longer refused."""
     import train_torch
 
     cfg = load_config(TINY, reader=train_torch._yaml, overrides=[override])
+    train_torch.check_supported(cfg)
+    wide = load_config(TINY, reader=train_torch._yaml, overrides=[
+        "parallel.tensor=2", "distributed.initialize=true"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    train_torch.check_supported(wide)
     with pytest.raises(NotImplementedError, match=item):
         train_torch.check_supported(cfg)
 

@@ -28,11 +28,28 @@ t2m `model.mmada.attention_bias_enabled` (the frames' masks reach attention)
 and `experiment.resume_from_checkpoint=latest`. A `config=` file is read with
 PyYAML; without it, give every key as a dotted override. PIL opens and
 resizes the images (`open_image`, `image_transform`) and writes the
-validation hooks' PNGs (`write_png`); the package itself imports neither. Not
-ported, refused with its ROADMAP item: `distributed.initialize` or a
-`parallel` layout over more than one device (A.12).
+validation hooks' PNGs (`write_png`); the package itself imports neither.
+
+Over several cards, one process a card under `torchrun` (NCCL; over gloo on
+the CPU with `device=cpu`):
+
+    torchrun --nproc-per-node 8 train_torch.py \
+        config=configs/mmada_pretraining_stage1.yaml \
+        config=configs/topologies/v5e8_fsdp.yaml ...
+
+`distributed.initialize` (with `distributed.coordinator`, `.num_processes`,
+`.process_id` where the launcher's environment does not say them) joins the
+ranks (`core/mesh.initialize_distributed`); the weights shard over the mesh
+of `parallel.{data,fsdp,tensor}` (the Trainer's mesh path); the config's
+batch sizes are the global batch and each rank's loader yields its rows of
+it (`build_dataloader`); rank 0 writes the config, the metrics, the
+checkpoints (in the single-process layout: a run resumes at any world size)
+and the hooks' files. Refused over more than one rank, naming the ROADMAP
+item: t2m training (A.12c: JAX's `train_t2m` runs on one device) and
+`parallel.serving: pipeline` (stages serve; they do not train).
 """
 
+import itertools
 import logging
 import os
 import sys
@@ -52,11 +69,15 @@ def read_config(argv):
 
 def save_config(cfg, output_dir: str) -> str:
     """`output_dir/config.yaml`, the run's resolved config (`Config.save` in
-    JAX, train_mmada.py:151-155)."""
+    JAX, train_mmada.py:151-155), written by rank 0."""
     import yaml
+
+    from mmada_tpu_torch.core.mesh import is_main_process
 
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, "config.yaml")
+    if not is_main_process():
+        return path
     with open(path, "w") as f:
         f.write(yaml.safe_dump(cfg.to_dict(), sort_keys=False))
     return path
@@ -90,25 +111,72 @@ def write_png(path: str, pixels) -> None:
     Image.fromarray(pixels).save(path)
 
 
+def initialize(cfg) -> bool:
+    """`distributed.initialize`: join the run's ranks (`train.py:309-318`),
+    on the config's device's backend."""
+    if not cfg.get_path("distributed.initialize", False):
+        return False
+    from mmada_tpu_torch.core.mesh import initialize_distributed
+
+    return initialize_distributed(
+        coordinator_address=cfg.get_path("distributed.coordinator", None),
+        num_processes=cfg.get_path("distributed.num_processes", None),
+        process_id=cfg.get_path("distributed.process_id", None),
+        device=cfg.get("device"))
+
+
+def _ranks() -> int:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
 def check_supported(cfg) -> None:
-    """Refuse what the port does not train yet, naming its ROADMAP item."""
-    if cfg.get_path("distributed.initialize", False):
-        raise NotImplementedError("distributed.initialize (multi-host training) is not "
-                                  "ported yet: ROADMAP A.12")
-    parallel = cfg.get_path("parallel") or {}
-    wide = {k: v for k, v in dict(parallel).items() if isinstance(v, int) and v > 1}
-    if wide:
-        raise NotImplementedError(f"parallel {wide}: device meshes are not ported yet "
-                                  "(ROADMAP A.12); the port trains on one device")
+    """Refuse what the port does not train over several ranks, naming its
+    ROADMAP item."""
+    if _ranks() <= 1:
+        return
+    if cfg.get_path("training.task") == "t2m":
+        raise NotImplementedError("t2m training over more than one rank is not ported "
+                                  "(ROADMAP A.12c; JAX's train_t2m runs on one device)")
+    if str(cfg.get_path("parallel.serving", "auto")).lower() == "pipeline":
+        raise NotImplementedError("parallel.serving=pipeline: pipeline stages serve and do "
+                                  "not train (ROADMAP A.12c); training shards with "
+                                  "parallel.{data,fsdp,tensor}")
 
 
-def build_dataloader(cfg):
+def local_rows(loader, mesh):
+    """This rank's rows of each flow of each raw batch (over the mesh's
+    data x fsdp; tensor ranks share rows)."""
+    from mmada_tpu_torch.core.mesh import process_local_batch_slice
+
+    for raw in loader:
+        out = {}
+        for name, flow in raw.items():
+            n = len(next(iter(flow.values())))
+            rows = process_local_batch_slice(n, mesh)
+            out[name] = {k: v[rows] for k, v in flow.items()}
+        yield out
+
+
+def build_dataloader(cfg, mesh=None):
     """The combined multi-flow loader from the config, as `train.py`'s:
     `dataset.synthetic_structured` (learnable pattern flows),
     `dataset.synthetic` (noise flows, for smoke runs), or the real readers:
     ImageNet folders or webdataset tars for t2i, RefinedWeb parquet for lm
     (the stage-4 base/instruct mixture by coefficients), webdataset tars for
-    mmu (the stage-4 `<name>_in_mmu_coeff` mixture)."""
+    mmu (the stage-4 `<name>_in_mmu_coeff` mixture). Over a `mesh` of more
+    than one rank every rank reads the global batches alike and yields its
+    rows of them (`local_rows`)."""
+    loader = _build_dataloader(cfg)
+    if mesh is None or mesh.mesh.numel() == 1:
+        return loader
+    return local_rows(loader, mesh)
+
+
+def _build_dataloader(cfg):
     import numpy as np
 
     from mmada_tpu_torch.data.combined import CombinedLoader
@@ -214,24 +282,30 @@ def build_dataloader(cfg):
 
 def setup(cfg):
     """(trainer, loader) of `cfg`: the models loaded, the Trainer built (its
-    config snapshotted), resumed when asked, and the loader built."""
+    config snapshotted), the loader built, and both resumed when asked (the
+    loader past the batches the checkpoint's steps took)."""
     from mmada_tpu_torch.serve.loader import load_all
     from mmada_tpu_torch.training.trainer import Trainer
 
+    initialize(cfg)
     check_supported(cfg)
     loaded = load_all(cfg, cfg.get("device"))
     trainer = Trainer.from_config(cfg, loaded.model, loaded.prompting, loaded.vq, loaded.vq_cfg,
                                   write_image=write_png, read_image=read_image)
     save_config(cfg, trainer.output_dir)
-    if cfg.get_path("experiment.resume_from_checkpoint") == "latest":
-        trainer.resume()
-    return trainer, build_dataloader(cfg)
+    loader = build_dataloader(cfg, trainer.mesh)
+    if cfg.get_path("experiment.resume_from_checkpoint") == "latest" and trainer.resume():
+        # the batches of the steps the checkpoint holds are read again and
+        # dropped, so the resumed run continues the uninterrupted one
+        loader = itertools.islice(loader, trainer.global_step, None)
+    return trainer, loader
 
 
 def run(cfg):
     """`setup(cfg)`, then `fit` from `training.seed`; returns the Trainer
     (for `training.task: t2m`, `train_t2m`'s `T2MRun`)."""
     if cfg.get_path("training.task") == "t2m":
+        initialize(cfg)
         return train_t2m(cfg)
     trainer, loader = setup(cfg)
     trainer.fit(loader, rng_seed=cfg.get_path("training.seed", 0))
