@@ -88,6 +88,12 @@ without a mesh, bit for bit on one card;
 12b the loader's sharded and pipelined 8B answering the text and t2i
 requests with the unsharded tokens; 12c B1, B2, a GQA shape and B4 on the
 head shards of T = 2, 4, 8, joined equal to the full calls bit for bit).
+Phase 13 is eval (A.13): t2i images of the 8B scored by CLIP ViT-L/14 and
+ImageReward-v1.0 through `inference_t2i_torch`'s scoring (13a),
+`eval_t2m_torch.run` on a HumanML3D-layout tree (13b), the motion VQ-VAE's
+reconstruction eval in `train_motion_vq_torch` (13c) and the SMPL fit of a
+generated clip (13d), each held against the fp32 CPU run of the same
+weights (EVAL_REL and the SMPL bars).
 It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
@@ -390,6 +396,42 @@ T2M_LORA = ["training.lora.rank=32", "training.lora.alpha=64",
 # land on the uninterrupted run's weights, and 2 LoRA steps
 T2M_PROXY_CLI = [f"config={ROOT}/configs/motion_soak.yaml", "model.mmada.attention_bias_enabled=true",
                  "experiment.log_every=1"]
+
+# phase 13, eval (A.13), on one 8B with the t2m vocab (random weights from seed
+# 0). 13a: two t2i requests (T2I_SETTINGS, B1) decoded by the flagship
+# MAGVIT-v2 and scored through `inference_t2i_torch.quantative` by CLIP
+# ViT-L/14 and ImageReward-v1.0 at their published widths (random fp32 weights
+# from seed 0) through `image_quality`'s own scorers: transformers' CLIP
+# processor (resize, crop, normalization) and `blip_pixels` resize the decoded
+# images to 224 px; the processor's tokenizer and BERT's read stand-in
+# vocabularies the smoke writes, since no CLIP or BERT vocabulary is on the
+# machine; the card's image and text embeddings and rewards against the fp32
+# CPU run of the same weights, max |card - CPU| / max |CPU| within EVAL_REL
+# (fp32 with TF32 off on both: only the order of the sums differs). 13b:
+# `eval_t2m_torch.run` over a HumanML3D-layout tree of EVAL_TREE_CLIPS
+# synthetic clips (batches of 32, 48 motion tokens, 18 timesteps) on the masked
+# 8B (B2: the frames' pads), the flagship motion VQ-VAE and the T2M evaluators
+# at Comp_v6_KLD005's widths (random weights written as `finest.tar`); the
+# evaluator embeddings against the CPU's on the card's codes, FID(gt, gt) 0,
+# R-precision in [0, 1]. 13c: `train_motion_vq_torch` with `eval.run_vq_eval`
+# on the tree at the flagship widths (windows of 40 frames: `MotionVQDataset`
+# draws a window from every clip, and the tree's shortest are 40), its
+# `vq_eval/*` against the CPU eval of the trained weights (MPJPE within
+# EVAL_REL). 13d: `joints2smpl` (20 camera + 150 body iterations) of a
+# 196-frame clip recovered from a generated motion, on the card against the CPU
+# fit, by the final loss (SMPL_LOSS_RTOL) and the joints (SMPL_JOINT_ATOL,
+# metres), not bit for bit: the order of the sums differs, and the camera's
+# first Adam step is the sign of a gradient that its init makes zero up to
+# rounding (tests/test_torch_eval_smpl.py). The bars sit above the readings
+# (loss 2.4e-7, joints 6.0e-5 m on the H100) with room for the order of the
+# sums; a control fit on the card with TF32 on is logged beside them
+EVAL_REL = 1e-4
+EVAL_TREE_CLIPS = 64
+EVAL_T2M = ["eval.batch_size=32", "eval.num_motion_tokens=48", "eval.timesteps=18"]
+EVAL_VQ_STEPS = 3
+SMPL_FRAMES = 196
+SMPL_LOSS_RTOL = 1e-5
+SMPL_JOINT_ATOL = 1e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -1386,8 +1428,8 @@ def move_params(tree, device=None, dtype=None):
 
     if isinstance(tree, dict):
         return {k: move_params(t, device, dtype) for k, t in tree.items()}
-    if isinstance(tree, list):
-        return [move_params(t, device, dtype) for t in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(move_params(t, device, dtype) for t in tree)
     if isinstance(tree, torch.Tensor):
         return tree.to(device=device, dtype=dtype)
     return type(tree)(**{f.name: getattr(tree, f.name).to(device=device)
@@ -1921,6 +1963,14 @@ def main() -> int:
         f"{par['world']}")
     par_b1, par_dq, par_dkv = par["b1"], par["dq"], par["dkv"]
 
+    # 13. eval: quantative t2i (13a: CLIP ViT-L/14 and ImageReward on the
+    # 8B's t2i images), the t2m eval (13b: eval_t2m_torch on the masked 8B
+    # over a HumanML3D-layout tree), the motion VQ-VAE's eval (13c) and the
+    # SMPL fit of a generated clip (13d), each against the fp32 CPU
+    ev = eval_phase(reset_counts, counts, expect_no_bias_copies)
+    log("eval", f"phases 13a-13d took {ev['seconds']['phase 13']:.1f}s; launches: B1 "
+        f"{ev['b1']}, B2 {ev['b2']}; seconds {ev['seconds']}")
+
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
@@ -1928,7 +1978,7 @@ def main() -> int:
                     cached=cached["b1"], int4_cached=int4_cached["b1"], engine=engine["b1"],
                     http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0],
                     train_cli=proxy_cli["b1"] + stage1_cli["b1"], t2m=t2m_serve["b1"],
-                    parallel=par_b1)
+                    parallel=par_b1, eval=ev["b1"])
     b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"])
     log("launches", f"B1 {sum(b1_parts.values())} by phase {b1_parts}; "
         f"B6 {sum(b6_parts.values())} by phase {b6_parts}")
@@ -1953,7 +2003,7 @@ def main() -> int:
         lambda r: t2m_serve["b1_shapes"][(r["shape"][0], r["shape"][3], r["shape"][4])])
     b2 = kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                        masked_serve[0] + masked_train[0] + t2m_serve["b2"] + t2m_train["b2"]
-                       + t2m_train["proxy"][1][0],
+                       + t2m_train["proxy"][1][0] + ev["b2"],
                        [r for r in records if r["bias"] is not None], masked_rec)
     b2["t2m_shapes"] = t2m_shapes(
         [r for r in records if r["bias"] is not None],
@@ -4452,13 +4502,14 @@ PARALLEL_TRAIN_STEPS = 2
 RANKS_TRAIN_STEPS = 3       # over several cards: two steady steps after the first
 TP_SIZES = (2, 4, 8)
 # over several cards (one spawned rank a card): the rows split over the ranks
-# change the matmuls' heights and the fp32 loss sums' order, and the bf16
-# gradients are reduce-scattered in bf16, so the sharded steps are held to
-# the one-card steps within these bars, and the served logits normwise at
-# the small model's bf16 bar
+# change the matmuls' heights and the fp32 loss sums' order, and each rank's
+# bf16 gradient is rounded before the reduce-scatter sums the ranks' in fp32,
+# so the sharded steps are held to the one-card steps within these bars, and
+# the served logits normwise at the small model's bf16 bar
 RANKS_LOSS_RTOL = 2e-3
-# with a tensor axis the row-parallel matmuls' bf16 outputs are summed over
-# the ranks in bf16: one more rounding of each block's output
+# with a tensor axis each block's row-parallel output is the fp32 sum of the
+# ranks' fp32 partial products, rounded once (ROADMAP C.8; the bar dates from
+# when the partials were rounded and summed in bf16)
 RANKS_TP_LOSS_RTOL = 1e-2
 RANKS_GRAD_NORM_RTOL = 2e-2
 RANKS_LOGITS_REL_L2 = SMALL_MODEL_REL_L2
@@ -4597,9 +4648,10 @@ def ranks_train_phase(rank, world, train, reset_counts, counts) -> dict:
     (the parts divide over the ranks) trained RANKS_TRAIN_STEPS steps on
     rank 0's card alone, then over make_mesh(fsdp=-1), each rank its rows,
     and, on four cards or more, over (1, W/2, 2): fsdp and tensor
-    parallelism. The losses (fp32 sums in another order; bf16 partial sums
-    added over the tensor ranks), the bf16 grad norms (gradients
-    reduce-scattered in bf16) and the sampled weights are held to the
+    parallelism. The losses (fp32 sums in another order; the row-parallel
+    partials summed over the tensor ranks in fp32), the bf16 grad norms (each
+    rank's bf16 gradient summed in fp32 by the reduce-scatter) and the
+    sampled weights are held to the
     unsharded run within RANKS_LOSS_RTOL (RANKS_TP_LOSS_RTOL with a tensor
     axis), RANKS_GRAD_NORM_RTOL and one bf16 ulp."""
     import torch
@@ -4696,7 +4748,8 @@ def ranks_serving_phase(rank, world, reset_counts, counts) -> dict:
     """12b over `world` cards: the 8B of `load_all`, whole on rank 0 first
     (parallel.serving none), then served by the loader over every rank
     (auto over fsdp, pipeline, auto over tensor: each rank its heads and
-    MLP hidden, the blocks' outputs summed in bf16). Every rank must end on
+    MLP hidden, the blocks' outputs summed from fp32 partials and rounded
+    once). Every rank must end on
     the same tokens; rank 0
     holds the first t2i forward's logits (image window and span) within
     RANKS_LOGITS_REL_L2 of the whole model's (the rows split over the
@@ -4926,6 +4979,304 @@ def local_heads_phase() -> dict:
             out[f"{tag} T={t}"] = list(parts[0].shape)
         del q, k, v, full, parts, joined
     log("12c", f"head shards joined equal the full calls bit for bit: {out}")
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| of two arrays or tensors (numpy, fp64)."""
+    import numpy as np
+
+    got, want = (np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64)
+                 for x in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def tree_leaves(tree):
+    """The tensors of a nested dict / list / tuple."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def stand_in_processors(path):
+    """transformers' processors over stand-in vocabularies written to
+    `path`: CLIP's (the `openai/clip-vit-large-patch14` image processor:
+    224 px, bicubic, center crop, CLIP's normalization; a letters-only BPE
+    vocab of 49,408 ids with <|startoftext|> 49406 and <|endoftext|> 49407,
+    the largest id, as the legacy pooling expects) and BERT's (the five specials and the
+    words of T2I_PROMPTS)."""
+    import json
+
+    from transformers import BertTokenizer, CLIPImageProcessor, CLIPProcessor, CLIPTokenizer
+
+    os.makedirs(path, exist_ok=True)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    vocab = {c: i for i, c in enumerate(letters)}
+    vocab.update({c + "</w>": 26 + i for i, c in enumerate(letters)})
+    vocab.update({f"<|unused{i}|>": i for i in range(52, 49406)})   # no holes
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    tok = CLIPTokenizer(os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt"),
+                        model_max_length=77)
+    CLIPProcessor(image_processor=CLIPImageProcessor(), tokenizer=tok).save_pretrained(path)
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(
+        {w for p in T2I_PROMPTS for w in p.lower().split()})
+    bert = os.path.join(path, "bert")
+    os.makedirs(bert, exist_ok=True)
+    with open(os.path.join(bert, "vocab.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+    return (CLIPProcessor.from_pretrained(path, local_files_only=True),
+            BertTokenizer.from_pretrained(bert, local_files_only=True))
+
+
+def eval_phase(reset_counts, counts, expect_no_bias_copies) -> dict:
+    """Phase 13 (see EVAL_REL): 13a quantative t2i, 13b the t2m eval, 13c
+    the motion VQ-VAE's eval, 13d the SMPL fit. Returns the B1 / B2
+    launches and the timings."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import eval_t2m_torch
+    import inference_t2i_torch
+    import train_motion_vq_torch
+    import train_torch
+    from mmada_tpu_torch.core.precision import BF16, exact_fp32_products
+    from mmada_tpu_torch.core.vocab import MMADA_8B_T2M
+    from mmada_tpu_torch.data.synthetic import write_humanml3d_tree
+    from mmada_tpu_torch.entry import decode_images, decode_motion, serve_t2i, serve_t2m
+    from mmada_tpu_torch.eval import clip, components, image_quality, smpl_fit
+    from mmada_tpu_torch.eval import image_reward as IR
+    from mmada_tpu_torch.eval import t2m_metrics as M
+    from mmada_tpu_torch.eval.motion_math import recover_from_ric
+    from mmada_tpu_torch.eval.t2m_eval import evaluate_motion_vq
+    from mmada_tpu_torch.eval.t2m_evaluator import EvaluatorWrapper
+    from mmada_tpu_torch.models import llada, magvit2, motion_vq
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.prompting.universal import ByteTokenizer, SpecialIds, UniversalPrompting
+
+    out = {"b1": 0, "b2": 0, "seconds": {}}
+    t_phase = time.perf_counter()
+    cfg = llada.llada_8b(MMADA_8B_T2M.total_vocab_size)
+    n = cfg.n_layers
+    model = MMadaModel.init(cfg, MMADA_8B_T2M, device="cuda", dtype=torch.bfloat16,
+                            generator=torch.Generator("cuda").manual_seed(0), policy=BF16)
+    masked = dataclasses.replace(model, cfg=dataclasses.replace(cfg, attention_bias_enabled=True))
+
+    # 13a: two t2i requests, decoded and scored
+    codes, seconds, launched, _, _ = timed_request(
+        lambda: serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS), reset_counts, counts)
+    expect_launches("13a t2i", launched, {"one-pass": (n * T2I_SETTINGS["timesteps"], 0, 0)})
+    out["b1"] += launched[0][0]
+    out["seconds"]["13a t2i"] = seconds
+    vq_cfg = magvit2.magvit2_default()
+    vq = magvit2.init_magvit2(vq_cfg, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(0))
+    images = decode_images(vq, vq_cfg, codes)
+    del vq
+    t = time.perf_counter()
+    ccfg, rcfg = clip.clip_vit_l14(), IR.image_reward_v1()
+    cparams = clip.init_clip(ccfg, seed=0, device="cuda")
+    rparams = IR.init_image_reward(rcfg, seed=0, device="cuda")
+    tmp = tempfile.mkdtemp(prefix="smoke_processors_")
+    try:
+        processor, bert = stand_in_processors(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def scorer(cp, rp):
+        towers = image_quality.clip_towers_scorer(cp, ccfg, processor)
+        towers.reward_fn = image_quality.blip_reward_fn(rp, rcfg, bert)
+        return towers
+
+    card = scorer(cparams, rparams)
+    cpu = scorer(move_params(cparams, "cpu"), move_params(rparams, "cpu"))
+    n_clip, n_reward = (sum(x.numel() for x in tree_leaves(p)) for p in (cparams, rparams))
+    if images.shape[1:3] == (ccfg.image_size, ccfg.image_size):
+        raise AssertionError(f"13a: decoded images {tuple(images.shape)} need no resize")
+    log("13a", f"{len(T2I_PROMPTS)} t2i requests {seconds:.2f}s, decoded to "
+        f"{tuple(images.shape)} (resized to 224 px by the scorers); CLIP ViT-L/14 "
+        f"({n_clip / 1e6:.1f}M) and ImageReward-v1.0 ({n_reward / 1e6:.1f}M) made in "
+        f"{time.perf_counter() - t:.1f}s")
+    results = inference_t2i_torch.quantative(card, images, T2I_PROMPTS)
+    pixels = images.numpy().astype(np.float32) / 127.5 - 1.0
+    got = dict(image=card.image_embed_fn(pixels), text=card.text_embed_fn(T2I_PROMPTS),
+               reward=card.reward_fn(pixels, T2I_PROMPTS))
+    t = time.perf_counter()
+    want = dict(image=cpu.image_embed_fn(pixels), text=cpu.text_embed_fn(T2I_PROMPTS),
+                reward=cpu.reward_fn(pixels, T2I_PROMPTS))
+    cpu_s = time.perf_counter() - t
+    errs = {k: rel_err(got[k], want[k]) for k in got}
+    cpu_results = inference_t2i_torch.quantative(cpu, images, T2I_PROMPTS)
+    clip_ms = cuda_ms(lambda: (card.image_embed_fn(pixels), card.text_embed_fn(T2I_PROMPTS)),
+                      3, 1) / len(T2I_PROMPTS)
+    reward_ms = cuda_ms(lambda: card.reward_fn(pixels, T2I_PROMPTS), 3, 1) / len(T2I_PROMPTS)
+    out["clip_ms"], out["reward_ms"] = clip_ms, reward_ms
+    log("13a", f"quantative {results}; CPU {cpu_results}; max |card - CPU| / max |CPU|: "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (bar {EVAL_REL:g}); CLIP {clip_ms:.2f} "
+        f"ms an image (image + text towers), ImageReward {reward_ms:.2f} ms an image; the CPU "
+        f"run {cpu_s:.1f}s")
+    if set(results) != {"clip_score_mean", "clip_score", "image_reward_mean"} or not all(
+            0 <= c <= 100 for c in results["clip_score"]) or not np.isfinite(
+            results["image_reward_mean"]):
+        raise AssertionError(f"13a: quantative summary {results}")
+    if max(errs.values()) > EVAL_REL:
+        raise AssertionError(f"13a: the card's scorers against the CPU's: {errs}")
+    del cparams, rparams, card, cpu
+    free_memory()
+
+    # 13b: eval_t2m_torch on a HumanML3D-layout tree, the masked 8B
+    tmp = tempfile.mkdtemp(prefix="smoke_eval_")
+    try:
+        root = os.path.join(tmp, "hml")
+        split = write_humanml3d_tree(root, EVAL_TREE_CLIPS)
+        os.makedirs(os.path.join(tmp, "ev"))
+        ev_state = components.random_evaluator_state()
+        torch.save(ev_state, os.path.join(tmp, "ev", "finest.tar"))
+        data = [f"dataset.motion_root={root}", f"dataset.split_file={split}",
+                f"eval.evaluator_dir={os.path.join(tmp, 'ev')}"]
+        ecfg = eval_t2m_torch.read_config(data + EVAL_T2M)
+        mcfg = motion_vq.MotionVQConfig()
+        mvq = motion_vq.init_motion_vq(mcfg, device="cuda",
+                                       generator=torch.Generator("cuda").manual_seed(0))
+        state = motion_vq.CodebookState.create(mcfg, device="cuda")
+        _, _, _, codebook, _ = motion_vq.forward_train(None, mvq, state, mcfg,
+                                                      motion_windows(32, 64, seed=5))
+        with torch.no_grad():
+            mvq.codebook.copy_(codebook)
+        evaluator = components.build_evaluator(ecfg, "cuda")
+        prompting = UniversalPrompting(ByteTokenizer(), SpecialIds.from_vocab(MMADA_8B_T2M),
+                                       max_text_len=T2M_SETTINGS["max_text_len"])
+        loaded = eval_t2m_torch.EvalLoaded(masked, mvq, mcfg, evaluator, prompting,
+                                           components.build_word_vectorizer(ecfg))
+        emb: dict = {}
+        metrics, seconds, launched, _, peak = timed_request(
+            lambda: eval_t2m_torch.run(ecfg, loaded, embeddings=emb), reset_counts, counts)
+        batches = list(components.build_eval_batches(ecfg, loaded.word_vectorizer))
+        n_batches, steps = len(batches), int(ecfg.get_path("eval.timesteps"))
+        expect_launches("13b t2m eval", launched, {"one-pass bias": (n * steps * n_batches, 0, 0)})
+        expect_no_bias_copies("13b t2m eval")
+        out["b2"] += launched[1][0]
+        out["seconds"]["13b a batch"] = seconds / n_batches
+        # the same embeddings on the CPU: the evaluators and the VQ decode of
+        # the card's codes, fp32
+        cpu_ev = EvaluatorWrapper.from_torch_checkpoint(
+            ev_state["text_encoder"], ev_state["motion_encoder"], ev_state["movement_encoder"],
+            device="cpu")
+        cpu_vq = copy.deepcopy(mvq).cpu()
+        rows = int(ecfg.get_path("eval.batch_size"))
+        cpu_emb = {"text": [], "gt": [], "gen": []}
+        for i, b in enumerate(batches):
+            text, gt = cpu_ev.get_co_embeddings(b["word_embs"], b["pos_onehot"], b["cap_lens"],
+                                                b["motion"], b["m_lens"])
+            gen = motion_vq.decode(cpu_vq, mcfg, torch.as_tensor(emb["codes"][i * rows:(i + 1) *
+                                                                              rows]))
+            t_len = b["motion"].shape[1]
+            gen = torch.nn.functional.pad(gen, (0, 0, 0, max(0, t_len - gen.shape[1])))[:, :t_len]
+            frames = min(4 * emb["codes"].shape[1], t_len)
+            cpu_emb["gen"].append(cpu_ev.get_motion_embeddings(gen, np.full(len(gen), frames)))
+            cpu_emb["text"].append(text)
+            cpu_emb["gt"].append(gt)
+        errs = {k: rel_err(emb[k], torch.cat(v)) for k, v in cpu_emb.items()}
+        mu, sigma = M.calculate_activation_statistics(emb["gt"])
+        fid_self = M.calculate_frechet_distance(mu, sigma, mu, sigma)
+        log("13b", f"eval_t2m_torch.run: {n_batches} batches of {rows} ({EVAL_TREE_CLIPS} clips), "
+            f"{emb['codes'].shape[1]} motion tokens, {steps} steps on the masked 8B: "
+            f"{seconds:.2f}s "
+            f"({seconds / n_batches:.2f}s a batch); launches {launched}; peak {peak:.2f} GiB; "
+            f"metrics { {k: round(float(v), 5) for k, v in metrics.items()} }; FID(gt, gt) "
+            f"{fid_self:.3e} (trace {np.trace(sigma):.1f}); embeddings max |card - CPU| / max "
+            f"|CPU| { {k: f'{v:.2e}' for k, v in errs.items()} }")
+        if max(errs.values()) > EVAL_REL:
+            raise AssertionError(f"13b: the evaluator embeddings against the CPU's: {errs}")
+        if abs(fid_self) > 1e-6 * np.trace(sigma) or not all(
+                0 <= metrics[f"r_precision_top{k}"] <= 1 for k in (1, 2, 3)) or not all(
+                np.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"13b: FID(gt, gt) {fid_self}, metrics {metrics}")
+        out["t2m_metrics"] = {k: float(v) for k, v in metrics.items()}
+
+        # 13c: train_motion_vq_torch with the reconstruction eval
+        argv = data + [EVAL_T2M[0], "eval.run_vq_eval=true",
+                       f"training.max_train_steps={EVAL_VQ_STEPS}", "training.batch_size=32",
+                       "training.log_every=1", "dataset.window_size=40",
+                       f"experiment.output_dir={os.path.join(tmp, 'vq')}"]
+        t = time.perf_counter()
+        trained, tcfg, history = train_motion_vq_torch.train(train_torch.read_config(argv))
+        vq_s = time.perf_counter() - t
+        got = {k[len("vq_eval/"):]: v for k, v in history[-1].items() if k.startswith("vq_eval/")}
+        vcfg = train_torch.read_config(argv)
+        t = time.perf_counter()
+        want = evaluate_motion_vq(copy.deepcopy(trained).cpu(), tcfg, cpu_ev,
+                                  components.build_eval_batches(
+                                      vcfg, components.build_word_vectorizer(vcfg)))
+        cpu_vq_s = time.perf_counter() - t
+        errs = {k: abs(got[k] - float(v)) / max(abs(float(v)), 1e-12) for k, v in want.items()}
+        log("13c", f"train_motion_vq_torch at MotionVQConfig() ({tcfg == mcfg}): "
+            f"{EVAL_VQ_STEPS} steps and the eval in {vq_s:.1f}s; vq_eval "
+            f"{ {k: round(v, 5) for k, v in got.items()} }; relative to the CPU eval of the "
+            f"trained weights ({cpu_vq_s:.1f}s) { {k: f'{v:.1e}' for k, v in errs.items()} }")
+        if not np.isfinite(got.get("mpjpe", np.nan)) or errs["mpjpe"] > EVAL_REL:
+            raise AssertionError(f"13c: MPJPE {got.get('mpjpe')} against the CPU's "
+                                 f"{want['mpjpe']}")
+        out["vq_eval"] = got
+        mean, std = np.load(os.path.join(root, "Mean.npy")), np.load(os.path.join(root, "Std.npy"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del masked, evaluator, loaded
+
+    # 13d: the SMPL fit of a 196-frame generated clip
+    tokens = SMPL_FRAMES // 4
+    kw = dict(T2M_SETTINGS, num_motion_tokens=tokens)
+    codes, seconds, launched, _, _ = timed_request(
+        lambda: serve_t2m(model, [T2M_CAPTION], **kw), reset_counts, counts)
+    expect_launches("13d t2m", launched, {"one-pass": (n * kw["timesteps"], 0, 0)})
+    out["b1"] += launched[0][0]
+    feats = decode_motion(mvq, mcfg, codes)[0].cpu().numpy() * (std + 1e-8) + mean
+    joints = np.asarray(recover_from_ric(feats, 22))
+    del model
+    free_memory()
+    info, cpu_info = {}, {}
+    t = time.perf_counter()
+    smpl_fit.joints2smpl(joints, device="cuda", info=info)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    _, verts, _ = smpl_fit.joints2smpl(joints, device="cpu", info=cpu_info)
+    cpu_fit_s = time.perf_counter() - t
+    # the control: the same fit on the card with TF32 products
+    matmul, tf32_info = torch.backends.cuda.matmul, {}
+    saved, matmul.fp32_precision = matmul.fp32_precision, "tf32"
+    try:
+        smpl_fit.joints2smpl(joints, device="cuda", info=tf32_info)
+    finally:
+        matmul.fp32_precision = saved
+
+    def loss_and_joints(fit):
+        return (abs(fit["loss"] - cpu_info["loss"]) / abs(cpu_info["loss"]),
+                float(np.abs(fit["joints"] - cpu_info["joints"]).max()))
+
+    (loss_rel, joint_err), (tf32_loss, tf32_joints) = map(loss_and_joints, (info, tf32_info))
+    fit_rmse = float(np.sqrt(np.mean((info["joints"][:, :22] + info["cam"].reshape(-1, 1, 3)
+                                      - joints) ** 2)))
+    out["seconds"]["13d smpl card"], out["seconds"]["13d smpl cpu"] = card_s, cpu_fit_s
+    log("13d", f"joints2smpl of {joints.shape} joints (SMPLifyConfig(): 20 + 150 Adam steps): "
+        f"card {card_s:.2f}s, CPU {cpu_fit_s:.2f}s; final loss {info['loss']:.2f} (CPU "
+        f"{cpu_info['loss']:.2f}, rel {loss_rel:.1e}, bar {SMPL_LOSS_RTOL:g}); joints max "
+        f"|card - CPU| {joint_err:.2e} m (bar {SMPL_JOINT_ATOL:g}); the control with TF32: "
+        f"loss rel {tf32_loss:.1e}, joints {tf32_joints:.2e} m; fit RMSE {fit_rmse:.4f} m; "
+        f"vertices {verts.shape}")
+    if loss_rel > SMPL_LOSS_RTOL or joint_err > SMPL_JOINT_ATOL or not np.isfinite(fit_rmse):
+        raise AssertionError(f"13d: the card's fit against the CPU's: loss rel {loss_rel}, "
+                             f"joints {joint_err}")
+    del mvq
+    free_memory()
+    out["seconds"]["phase 13"] = time.perf_counter() - t_phase
     return out
 
 

@@ -14,8 +14,10 @@ Images are written to `{output_dir}/NNNN.png` (PIL). One key more: `device`
 fast-decode knobs default to the family-resolved `serving.t2i.*` /
 `serving.*` values; `segment_timesteps` above 0 runs the exact sampler in
 windows of that many steps (the same codes; the cached decode wins when both
-are set), as `inference_t2i.py` does, and `quantative=true` raises until the
-eval modules are ported (ROADMAP A.13).
+are set), as `inference_t2i.py` does. `quantative=true` scores the images
+with CLIP (`eval.clip_dir`, a transformers CLIP checkpoint) on the run's
+device (`eval/image_quality.py`), writes `{output_dir}/quantative.json` and
+prints it; with no directory configured it writes `{}` (generation only).
 
 `load(cfg)` calls `serve.loader.load_all`; `run(cfg, loaded)` returns the
 codes and the uint8 images; `main` reads the prompts and writes the PNGs.
@@ -49,9 +51,6 @@ def settings(cfg) -> dict:
     from mmada_tpu_torch.core.config import parse_cfg_interval, parse_kv_cache
     from mmada_tpu_torch.serve.loader import task_serving_defaults
 
-    if cfg.get("quantative", False):
-        raise NotImplementedError("quantative=true scores images with CLIP / ImageReward, "
-                                  "which are not ported yet (ROADMAP A.13)")
     d = task_serving_defaults(cfg, "t2i")
     kv_cache = parse_kv_cache(cfg.get("kv_cache", d["kv_cache"]))
     return dict(
@@ -106,16 +105,34 @@ def run(cfg, loaded, prompts):
     return torch.cat(codes), torch.cat(images)
 
 
+def load_scorer(cfg):
+    """The CLIP scorer of `quantative=true` (`eval.clip_dir`) on the run's
+    device; a configured directory that does not load raises."""
+    from mmada_tpu_torch.eval.image_quality import load_scorer as load
+
+    return load(cfg.get_path("eval.clip_dir"), device=cfg.get("device"))
+
+
+def quantative(scorer, images, prompts) -> dict:
+    """The scorer's summary of the uint8 images, as `inference_t2i.py`
+    scores its PNGs' pixels ([-1, 1] from the uint8 values)."""
+    pixels = images.numpy().astype("float32") / 127.5 - 1.0
+    return scorer.quantitative_images(pixels, prompts)
+
+
 def main(argv) -> int:
+    import json
+
     from PIL import Image
 
     from mmada_tpu_torch.core.mesh import is_main_process
 
     cfg = read_config(argv)
-    settings(cfg)  # refuse what is not ported before the weights are loaded
+    settings(cfg)
     output_dir = cfg.get("output_dir", "t2i_outputs")
     prompts = read_prompts(cfg)
-    loaded = load(cfg)
+    loaded = load(cfg)   # under a launcher this joins the ranks' group
+    scorer = load_scorer(cfg) if cfg.get("quantative", False) and is_main_process() else None
     _, images = run(cfg, loaded, prompts)   # every rank computes (a launcher's ranks)
     if not is_main_process():
         return 0
@@ -124,6 +141,11 @@ def main(argv) -> int:
         path = os.path.join(output_dir, f"{i:04d}.png")
         Image.fromarray(images[i].numpy()).save(path)
         print(f"{path}: {prompt}")
+    if scorer is not None and prompts:
+        results = quantative(scorer, images, prompts)
+        with open(os.path.join(output_dir, "quantative.json"), "w") as f:
+            json.dump(results, f, indent=2)
+        print("quantative:", results or "(scoring models unavailable)")
     return 0
 
 

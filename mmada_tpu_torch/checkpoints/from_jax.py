@@ -18,6 +18,10 @@
   numpy arrays (`init_motion_vq`, `motion_vq_from_torch`) and returns the
   port's `MotionVQ`: each TIO conv kernel transposed to torch's `(out, in,
   k)`, placed at the reference's positional keys.
+* `clip_from_jax`, `image_reward_from_jax` and `evaluator_from_jax` take
+  the JAX package's eval models (CLIP, the BLIP reward model, the three T2M
+  evaluators) as numpy arrays and return the port's: the same layouts,
+  with the evaluators' TIO conv kernels transposed to `(out, in, k)`.
 * `params_from_torch_state_dict` is the counterpart of
   `mmada_tpu/checkpoints/hf_import.params_from_torch_state_dict`: it reads a
   flat reference state dict (`model.transformer.blocks.{i}.q_proj.weight`,
@@ -170,3 +174,38 @@ def motion_vq_from_jax(np_tree, cfg, device: DeviceLike = None,
 
     return motion_vq_from_torch(motion_vq_state_from_jax(np_tree), cfg, device=device,
                                 dtype=dtype)
+
+
+def clip_from_jax(np_tree, device: DeviceLike = None):
+    """The JAX `clip_jax.from_torch_state` tree (numpy leaves) as the port's
+    CLIP params (`eval/clip.py`): the same layout, fp32."""
+    from mmada_tpu_torch.eval.clip import to_tensors
+
+    return to_tensors(np_tree, device)
+
+
+def image_reward_from_jax(np_tree, device: DeviceLike = None):
+    """The JAX `image_reward_jax` tree (numpy leaves; `mlp` a list of
+    (w, b)) as the port's ImageReward params (`eval/image_reward.py`)."""
+    from mmada_tpu_torch.eval.clip import to_tensors
+
+    out = to_tensors({k: v for k, v in np_tree.items() if k != "mlp"}, device)
+    out["mlp"] = [tuple(to_tensors({"w": w, "b": b}, device).values())
+                  for w, b in np_tree["mlp"]]
+    return out
+
+
+def evaluator_from_jax(text_params, motion_params, movement_params, unit_length: int = 4,
+                       device: DeviceLike = None):
+    """The JAX `EvaluatorWrapper`'s three trees (numpy leaves) as the port's
+    `EvaluatorWrapper`: the movement encoder's TIO conv kernels transposed to
+    torch's `(out, in, k)`, the rest as they are."""
+    from mmada_tpu_torch.eval.clip import to_tensors
+    from mmada_tpu_torch.eval.t2m_evaluator import EvaluatorWrapper
+
+    movement = {k: ({"w": np.asarray(v["w"]).transpose(2, 1, 0), "b": v["b"]}
+                    if k.startswith("conv") else v) for k, v in movement_params.items()}
+    return EvaluatorWrapper(text_params=to_tensors(text_params, device),
+                            motion_params=to_tensors(motion_params, device),
+                            movement_params=to_tensors(movement, device),
+                            unit_length=unit_length)

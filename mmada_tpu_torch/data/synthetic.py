@@ -2,7 +2,9 @@
 
 A copy of `mmada_tpu/data/synthetic.py`: the same images, captions, text
 batches and motion clips (`motion_clip`, `motion_caption`, which feed the
-motion VQ-VAE and text-to-motion training) for the same seeds.
+motion VQ-VAE and text-to-motion training) for the same seeds; one function
+more, `write_humanml3d_tree`, a HumanML3D-layout tree of those clips for
+the motion evaluation.
 
 The zero-egress environment has no real corpora, and the plain
 `dataset.synthetic` smoke flows (train.py) are *unlearnable* (random-noise
@@ -150,6 +152,47 @@ def motion_caption(k: int) -> str:
     v = _VERB[k % len(_VERB)]
     digits = " ".join(_DIGITS[int(c)] for c in f"{k:03d}")
     return f"motion {digits} : a person {v} smoothly"
+
+
+def _pos(word: str) -> str:
+    if word in _DIGITS:
+        return "NUM"
+    if word in _VERB:
+        return "VERB"
+    return {"a": "DET", "person": "NOUN", "motion": "NOUN", "smoothly": "ADV"}.get(word, "OTHER")
+
+
+def write_humanml3d_tree(root: str, n_clips: int = 64, pose_dim: int = 263, seed: int = 0,
+                         split: str = "test") -> str:
+    """A HumanML3D-layout tree of `n_clips` synthetic clips under `root`:
+    `new_joint_vecs/{name}.npy` (`motion_clip` features, 40 to 196 frames),
+    `texts/{name}.txt` (`motion_caption` with POS tags, `caption#tok/POS
+    ...#0.0#0.0`), `Mean.npy` / `Std.npy` over the clips, and the split file
+    `{split}.txt`, whose path it returns: a stand-in for the HumanML3D
+    files where they are absent (the JAX package has no counterpart)."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    for sub in ("new_joint_vecs", "texts"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    names, clips = [], []
+    for k in range(n_clips):
+        name = f"{k:06d}"
+        clip = motion_clip(k, length=int(rng.integers(40, 197)), pose_dim=pose_dim)
+        np.save(os.path.join(root, "new_joint_vecs", f"{name}.npy"), clip)
+        caption = motion_caption(k)
+        tokens = " ".join(f"{w}/{_pos(w)}" for w in caption.split(" "))
+        with open(os.path.join(root, "texts", f"{name}.txt"), "w") as f:
+            f.write(f"{caption}#{tokens}#0.0#0.0\n")
+        names.append(name)
+        clips.append(clip)
+    frames = np.concatenate(clips)
+    np.save(os.path.join(root, "Mean.npy"), frames.mean(0).astype(np.float32))
+    np.save(os.path.join(root, "Std.npy"), frames.std(0).astype(np.float32))
+    split_file = os.path.join(root, f"{split}.txt")
+    with open(split_file, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return split_file
 
 
 def gate_forward_ids(tokenizer, n: int = 16, seq_len: int = 48,

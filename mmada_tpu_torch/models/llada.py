@@ -347,7 +347,49 @@ def _mlp(cfg: LLaDAConfig, lp: Params, x: torch.Tensor,
     else:
         h = _activation(cfg, maybe_matmul(h, lp["ff_proj"]))
     _tap(taps, "mlp_mid", h)
-    return x + sum_over_group(maybe_matmul(h, lp["ff_out"]), tp)
+    return x + _row_parallel(h, lp["ff_out"], tp)
+
+
+def _row_parallel(x: torch.Tensor, w, tp) -> torch.Tensor:
+    """`x @ w` of a row-parallel weight (attn_out, ff_out) summed over the
+    tensor group. Over several ranks each rank's partial product stays in
+    fp32 (a bf16 product accumulates in fp32 and is not rounded) and the
+    sum is rounded to x's dtype once, as XLA's sharded dot is: the sharded
+    forward is then the whole one up to the order of an fp32 sum. A
+    quantized weight's partial, bf16, is summed in fp32 likewise."""
+    if tp is None or torch.distributed.get_world_size(tp) == 1:
+        return maybe_matmul(x, w)
+    if isinstance(w, torch.Tensor) and x.dtype != torch.float32:
+        part = _fp32_product(x, w)
+    else:
+        part = maybe_matmul(x, w)
+    return sum_over_group(part, tp).to(x.dtype)
+
+
+class _Fp32Product(torch.autograd.Function):
+    """x @ w for bf16 operands, accumulated and returned in fp32 (cuBLAS's
+    bf16 product with an fp32 output on the card). The backward takes the
+    cotangent in x's dtype, as the whole model's bf16 product does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+            return out.view(*x.shape[:-1], w.shape[-1])
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gx = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = (x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+_fp32_product = _Fp32Product.apply
 
 
 def _join_cache(k: torch.Tensor, v: torch.Tensor, cache) -> tuple[torch.Tensor, torch.Tensor]:
@@ -399,7 +441,7 @@ def _block(
         att = attend(q, k, v, bias=bias, rope_sin=sin, rope_cos=cos)
     att = att.transpose(1, 2).reshape(b, l, -1)
     _tap(taps, "ctx", att)
-    x = x + sum_over_group(maybe_matmul(att, lp["attn_out"]), tp)
+    x = x + _row_parallel(att, lp["attn_out"], tp)
     x = _mlp(cfg, lp, x, taps, tp)
     return (x, (k, v)) if return_kv else x
 

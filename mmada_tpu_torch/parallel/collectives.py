@@ -21,9 +21,11 @@ rules, not module hooks:
   * `rotate`: send to the next rank of a ring, receive from the previous
     (the backward sends the gradient back the other way).
 
-A group of None (one rank) makes each of them the identity. `counts` tallies
-the collectives launched, by kind (the counterpart of the HLO collective
-audit of the JAX package's tests).
+Sums (`reduce_scatter`, `all_reduce`, `all_reduce_`) of bf16 or fp16
+tensors run in fp32 and round once, as XLA sums a sharded product or
+gradient (ROADMAP C.8). A group of None (one rank) makes each of them the
+identity. `counts` tallies the collectives launched, by kind (the
+counterpart of the HLO collective audit of the JAX package's tests).
 """
 
 from __future__ import annotations
@@ -61,10 +63,10 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if n == 1:
         return x
     counts["reduce_scatter"] += 1
-    src = x.detach().movedim(dim, 0).contiguous()
+    src = _wide(x.detach().movedim(dim, 0)).contiguous()
     out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=src.dtype, device=src.device)
     dist.reduce_scatter_tensor(out, src, group=group)
-    return out.movedim(0, dim)
+    return out.to(x.dtype).movedim(0, dim)
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -72,9 +74,27 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     if _size(group) == 1:
         return x
     counts["all_reduce"] += 1
-    out = x.detach().clone()
+    out = _wide(x.detach()).clone()
     dist.all_reduce(out, group=group)
-    return out
+    return out.to(x.dtype)
+
+
+def all_reduce_(x: torch.Tensor, group) -> None:
+    """`all_reduce` into `x` itself."""
+    if _size(group) == 1:
+        return
+    if _wide(x) is x:
+        counts["all_reduce"] += 1
+        dist.all_reduce(x, group=group)
+    else:
+        x.copy_(all_reduce(x, group))
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """A sum's operand in fp32 when it is narrower: the ranks' bf16 (or
+    fp16) parts are summed in fp32 and rounded once, as XLA sums a sharded
+    product, not rounded after each rank's addition."""
+    return x.float() if x.is_floating_point() and x.element_size() < 4 else x
 
 
 def chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -66,9 +66,7 @@ class MeshGrads:
         for name, g in grads.items():
             axes = tuple(a for a in BATCH_AXES if a not in self.axes[name])
             group = axis_group(self.mesh, axes)
-            if group is not None:
-                C.counts["all_reduce"] += 1
-                torch.distributed.all_reduce(g, group=group)
+            C.all_reduce_(g, group)
 
     def norm_reduce(self, parts: dict) -> dict:
         """{path: a leaf's sum of squares over this rank's shard} summed over

@@ -2,12 +2,13 @@
 
 Counterpart of `mmada_tpu/training/validation.py:42-245` (the reference's
 wandb-logged hooks, SURVEY.md §4): `generate_images` (train_mmada.py:798-868),
-`visualize_predictions` (:750-795), `understanding_images` (:872-932) and
-`generate_chat_text` (stage3:976-1046), on the port's samplers. Each writes
+`visualize_predictions` (:750-795), `understanding_images` (:872-932),
+`quantative_images` (stage4:1008-1115) and `generate_chat_text`
+(stage3:976-1046), on the port's samplers. Each writes
 under `{output_dir}/validation/step_{N}/` the files JAX's writes, with their
 names and contents: `t2i_{i:03d}.png` and `t2i_prompts.jsonl`;
 `pred_{i:03d}_{original,recon,model}.png`; `mmu_answers.jsonl`;
-`chat.jsonl`. The package imports no PIL, so the images go through the
+`quantative.json`; `chat.jsonl`. The package imports no PIL, so the images go through the
 caller's `write_image(path, (H, W, 3) uint8 array)` (`train_torch.write_png`);
 the pixels are JAX's `_save_image` conversion, `clip((x + 1) * 127.5, 0,
 255)` cast to uint8. JAX's random keys become torch generators (default:
@@ -203,6 +204,30 @@ def understanding_images(
         for i, a in enumerate(answers):
             f.write(json.dumps({"index": i, "question": questions[i], "answer": a}) + "\n")
     return answers
+
+
+def quantative_images(
+    model: MMadaModel,
+    vq_params, vq_cfg,
+    prompting,
+    prompts: Sequence[str],
+    scorer,
+    output_dir: str,
+    step: int,
+    write_image: ImageWriter,
+    **gen_kwargs,
+) -> dict:
+    """The stage-4 quality eval (train_mmada_stage4.py:1008-1115):
+    `generate_images` from the quantative prompts, scored with CLIP and
+    ImageReward by `scorer` (an `eval.image_quality.ImageQualityScorer`,
+    None for generation only); writes and returns the summary
+    (`quantative.json`)."""
+    pixels = generate_images(model, vq_params, vq_cfg, prompting, prompts, output_dir, step,
+                             write_image, **gen_kwargs)
+    results = scorer.quantitative_images(pixels, prompts) if scorer else {}
+    with open(os.path.join(_out_dir(output_dir, step), "quantative.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return results
 
 
 @torch.no_grad()

@@ -54,7 +54,8 @@ from mmada_tpu_torch.prompting.universal import ByteTokenizer
 from mmada_tpu_torch.serve import loader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCRIPTS = ("generate_torch.py", "inference_t2i_torch.py", "inference_mmu_torch.py")
+SCRIPTS = ("generate_torch.py", "inference_t2i_torch.py", "inference_mmu_torch.py",
+           "eval_t2m_torch.py")
 TINY = "configs/tiny_test.yaml"
 
 
@@ -174,12 +175,62 @@ def test_mmu_cli_prints_jax_answers(tmp_path, monkeypatch, capsys, printed_ids):
         assert got == want
 
 
+def write_tiny_clip(path, image_size=28):
+    """A tiny random CLIP checkpoint (`CLIPModel.save_pretrained`) with a
+    processor: a letters-only BPE vocab (no merges; EOT the largest id, as
+    the legacy pooling expects) and a 28-px image processor."""
+    import json
+
+    from transformers import CLIPImageProcessor, CLIPProcessor, CLIPTokenizer
+
+    from test_torch_eval_clip import tiny_clip
+
+    model, _ = tiny_clip()
+    model.save_pretrained(str(path))
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    vocab = {c: i for i, c in enumerate(letters)}
+    vocab.update({c + "</w>": 26 + i for i, c in enumerate(letters)})
+    vocab.update({"<|startoftext|>": 97, "<|endoftext|>": 98})
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n")
+    tok = CLIPTokenizer(str(path / "vocab.json"), str(path / "merges.txt"), model_max_length=16)
+    images = CLIPImageProcessor(size={"shortest_edge": image_size},
+                                crop_size={"height": image_size, "width": image_size})
+    CLIPProcessor(image_processor=images, tokenizer=tok).save_pretrained(str(path))
+    return str(path)
+
+
 def test_clis_refuse_what_is_not_ported(tmp_path, monkeypatch, capsys):
-    """`quantative` waits for the eval modules (A.13); `segment_steps` runs
-    the segmented sampler, which answers as the monolithic one."""
+    """`quantative=true` scores the images (it was refused until the eval
+    modules were ported): with a tiny CLIP checkpoint its `quantative.json`
+    is the port's scorer on the PNGs it wrote (and within 1e-4 of the
+    transformers CLIPModel's scores on them); with no checkpoint configured
+    it writes `{}`. `segment_steps` runs the segmented sampler, which
+    answers as the monolithic one."""
+    import json
+
+    from mmada_tpu_torch.eval.image_quality import load_scorer
+
     monkeypatch.chdir(REPO)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        inference_t2i_torch.main([f"config={TINY}", "quantative=true", "device=cpu"])
+    clip_dir = write_tiny_clip(tmp_path / "clip")
+    prompts = ["a red fox", "a cat"]
+    (tmp_path / "prompts.txt").write_text("\n".join(prompts) + "\n")
+    out = tmp_path / "t2i"
+    t2i = [f"config={TINY}", "device=cpu", "generation_timesteps=2",
+           f"validation_prompts_file={tmp_path / 'prompts.txt'}", "quantative=true",
+           "batch_size=2"]
+    assert inference_t2i_torch.main(t2i + [f"eval.clip_dir={clip_dir}",
+                                           f"output_dir={out}"]) == 0
+    assert "quantative: {'clip_score_mean'" in capsys.readouterr().out
+    got = json.loads((out / "quantative.json").read_text())
+    pixels = np.stack([np.asarray(Image.open(out / f"{i:04d}.png")) for i in range(2)])
+    pixels = pixels.astype(np.float32) / 127.5 - 1.0
+    assert got == load_scorer(clip_dir, device="cpu").quantitative_images(pixels, prompts)
+    cross = load_scorer(clip_dir, backend="transformers").quantitative_images(pixels, prompts)
+    np.testing.assert_allclose(got["clip_score"], cross["clip_score"], rtol=1e-4, atol=1e-4)
+    assert inference_t2i_torch.main(t2i + [f"output_dir={tmp_path / 'none'}"]) == 0
+    assert json.loads((tmp_path / "none" / "quantative.json").read_text()) == {}
+    assert "(scoring models unavailable)" in capsys.readouterr().out
     argv = [f"config={TINY}", "device=cpu", "gen_length=16", "steps=8", "block_length=8"]
     assert generate_torch.main(argv) == 0
     want = capsys.readouterr().out

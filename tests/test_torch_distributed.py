@@ -7,7 +7,9 @@ functions on the same mesh shapes over 2 or 4 of its 8 CPU devices
     too, and with int8 weights; `tp_attention` with a broadcast bias, a
     per-head bias and GQA; `ring_attention` and the model's ring; the
     pipeline's logits with 2 and 4 stages and a vocab window (fp32, atol
-    2e-5);
+    2e-5); bf16 over tensor 4 (ROADMAP C.8): equal to the whole bf16
+    forward, no farther from fp32 than JAX's sharded bf16 forward; two bf16
+    train steps over (1,2,2) no farther from fp32 than JAX's sharded ones;
   * greedy text and t2i samplers (T = 0) token-exact, the same on every rank
     (sharded, pipelined and cached);
   * two train steps on (1,2,1), (1,2,2) and (2,2,1), unmasked and with
@@ -34,6 +36,7 @@ import pytest
 import torch
 
 import torch_dist_worker as W
+from mmada_tpu.core import precision as jax_precision
 from mmada_tpu.core.mesh import make_mesh as jax_make_mesh
 from mmada_tpu.core.vocab import tiny_layout as jax_tiny_layout
 from mmada_tpu.models import llada as jax_llada
@@ -46,6 +49,7 @@ from mmada_tpu.parallel.tp_attention import tp_attention as jax_tp
 from mmada_tpu.training import optimizers as jax_optimizers
 from mmada_tpu.training import train_step as jax_train_step
 from mmada_tpu_torch.checkpoints.from_jax import named_from_jax, params_from_jax
+from mmada_tpu_torch.core.precision import BF16, FP32
 from mmada_tpu_torch.core.vocab import tiny_layout
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
@@ -57,6 +61,9 @@ TINY = os.path.join(REPO, "configs", "tiny_test.yaml")
 FWD_TOL = dict(atol=2e-5, rtol=0)
 STEP_TOL = dict(atol=5e-5, rtol=1e-3)
 WORLD4_SHAPES = [(1, 4, 1), (1, 2, 2), (1, 1, 4), (2, 2, 1)]
+BF16_SHAPE = (1, 1, 4)   # tensor 4: every block's attn_out and ff_out sums four partials
+# fsdp 2 x tensor 2: the bf16 gradients' reduce-scatter and the row-parallel sums
+BF16_STEP_SHAPE = (1, 2, 2)
 TRAIN_SHAPES = {2: [(1, 2, 1)], 4: [(1, 2, 2), (2, 2, 1)]}
 SIZES = dict(batch_size_t2i=4, batch_size_lm=4, batch_size_mmu=4, max_seq_length=8)
 TRAIN_VOCAB = dict(text_vocab_size=256, image_codebook_size=64)
@@ -142,11 +149,15 @@ def _jax_prepared(jmodel, batch, key):
     return {k: np.asarray(v) for k, v in prepared.items() if v is not None}
 
 
-def _jax_steps(training, masked, shape):
+def _jax_steps(training, masked, shape, bf16=False):
     """JAX's `make_train_step` over the mesh of `shape` (or one device):
-    each step's metrics and the weights after both, by the port's names."""
+    each step's metrics and the weights after both (fp32), by the port's
+    names; `bf16`: the bf16 weights, computed in bf16."""
     jcfg = dataclasses.replace(training["jcfg"], attention_bias_enabled=masked)
     jmodel = JaxMMadaModel(cfg=jcfg, params=training["jparams"], vocab=training["jvocab"])
+    if bf16:
+        jmodel = dataclasses.replace(jmodel, params=_bf16_params(jmodel.params),
+                                     policy=jax_precision.BF16)
     opt = jax_optimizers.adamw(LR, params_for_mask=jmodel.params)
     params = jmodel.params
     if shape is not None:
@@ -160,13 +171,17 @@ def _jax_steps(training, masked, shape):
             batch = {k: v for k, v in batch.items() if k != "t2i_masks"}
         state, m = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
         metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
-    named = named_from_jax(jax.device_get(state.params), device="cpu")
+    named = named_from_jax(jax.device_get(jax.tree.map(lambda w: w.astype(jnp.float32),
+                                                       state.params)), device="cpu")
     return metrics, {n: t.numpy() for n, t in named.items()}
 
 
-def _port_world1_steps(training, masked, prepared):
-    model = _port_model(training["np_params"], dataclasses.replace(
-        training["jcfg"], attention_bias_enabled=masked), **TRAIN_VOCAB)
+def _port_world1_steps(training, masked, prepared, bf16=False):
+    """The port's step on one device; `bf16`: the bf16 weights computed in
+    bf16, or with `bf16="weights"` the bf16 weights computed in fp32."""
+    model = _port_model(_bf16_np(training["jparams"]) if bf16 else training["np_params"],
+                        dataclasses.replace(training["jcfg"], attention_bias_enabled=masked),
+                        policy=BF16 if bf16 is True else FP32, **TRAIN_VOCAB)
     opt = optimizers.AdamW(LR, max_grad_norm=1.0)
     state = TrainState.create(model.params, opt)
     step = make_train_step(model, opt, StepConfig(**SIZES))
@@ -174,7 +189,7 @@ def _port_world1_steps(training, masked, prepared):
     for batch in prepared:
         state, m = step.apply(state, {k: torch.tensor(v) for k, v in batch.items()})
         metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
-    return metrics, {n: t.detach().numpy() for n, t in llada.named_leaves(state.params)}
+    return metrics, {n: t.detach().float().numpy() for n, t in llada.named_leaves(state.params)}
 
 
 # ---------------------------------------------------------------- the runs
@@ -223,6 +238,11 @@ def _world4_cases(serving, training):
                                               quantize="int8")))
     cases.append(("fwd_ring", "forward", dict(common, shape=(1, 4, 1), ids=s["ids"],
                                               attn_impl="ring")))
+    bf16 = dict(common, params=_bf16_np(s["jparams"]), ids=s["ids"], policy="bf16")
+    cases.append(("fwd_bf16", "forward", dict(bf16, shape=BF16_SHAPE)))
+    cases.append(("fwd_bf16_whole", "forward", dict(bf16, shape=None)))
+    cases.append(("bf16_sums", "bf16_sums", dict(shape=(8, 33), seed=11)))
+    cases.append(("row_parallel_bf16", "row_parallel_bf16", _row_parallel_inputs()))
     cases.append(("pipe4", "forward", dict(common, shape=(1, 4, 1), ids=s["ids"], pipeline=True,
                                            logit_window=(100, 260))))
     for name, kw in _attention_cases().items():
@@ -231,6 +251,9 @@ def _world4_cases(serving, training):
     for shape in TRAIN_SHAPES[4]:
         for m in (False, True):
             cases.append(_train_case(training, shape, m))
+    _, kind, kw = _train_case(training, BF16_STEP_SHAPE, False)
+    cases.append(("train_bf16", kind, dict(kw, params=_bf16_np(training["jparams"]),
+                                           policy="bf16")))
     cases.append(("refusals", "refusals", dict(common, shape=(1, 2, 2))))
     for scheme in (None, "int4"):
         cases.append((f"round_trip_{scheme}", "round_trip",
@@ -279,6 +302,7 @@ def _serving_references(serving):
             params, jnp.asarray(serving["ids"])))
     refs["full"] = np.asarray(jax.jit(lambda p, ids: jax_llada.forward(p, serving["jcfg"], ids))(
         serving["jparams"], jnp.asarray(serving["ids"])))
+    refs.update(_jax_bf16_forwards(serving))
     refs["tokens"] = _jax_tokens(serving)
     refs["cached"] = _port_cached_tokens(serving)
     return refs
@@ -291,6 +315,11 @@ def _training_references(training, out):
         refs[("jax", shape, masked)] = _jax_steps(training, masked, shape)
     for masked in (False, True):
         refs[("one", masked)] = _port_world1_steps(training, masked, _prepared(training, masked))
+    for shape in (BF16_STEP_SHAPE, None):
+        refs[("jax_bf16", shape)] = _jax_steps(training, False, shape, bf16=True)
+    refs["one_bf16"] = _port_world1_steps(training, False, _prepared(training, False), bf16=True)
+    refs["one_fp32_on_bf16"] = _port_world1_steps(training, False, _prepared(training, False),
+                                                  bf16="weights")
     refs["fit"] = _port_world1_fit(training)
     refs["serve_cli"] = _port_world1_cli(out)
     return refs
@@ -406,6 +435,40 @@ def _jax_forward(serving, shape, mask=None, attn_impl="auto", quantize=None):
     return np.asarray(fwd(params, jnp.asarray(serving["ids"]), mask))
 
 
+def _bf16_params(jparams):
+    return jax.tree.map(lambda w: w.astype(jnp.bfloat16), jparams)
+
+
+def _bf16_np(jparams):
+    """The bf16 weights as fp32 numpy (the port casts them back exactly)."""
+    return jax.tree.map(lambda w: np.asarray(w.astype(jnp.float32)), _bf16_params(jparams))
+
+
+def _jax_bf16_forwards(serving):
+    """JAX's bf16 forward on bf16 weights: sharded over BF16_SHAPE, whole,
+    and the same weights' fp32 forward."""
+    jcfg, params, ids = serving["jcfg"], _bf16_params(serving["jparams"]), serving["ids"]
+    mesh = _jmesh(BF16_SHAPE)
+    sharded = jax_sharding.shard_params(params, jax_sharding.llada_param_specs(jcfg), mesh)
+    fwd = jax.jit(lambda p, ids, mesh: jax_llada.forward(p, jcfg, ids, policy=jax_precision.BF16,
+                                                          mesh=mesh), static_argnums=2)
+    fp32 = jax.tree.map(lambda w: w.astype(jnp.float32), params)
+    return {"jax_bf16": np.asarray(fwd(sharded, jnp.asarray(ids), mesh)),
+            "jax_bf16_whole": np.asarray(fwd(params, jnp.asarray(ids), None)),
+            "bf16_weights_fp32": np.asarray(jax.jit(lambda p, ids: jax_llada.forward(
+                p, jcfg, ids))(fp32, jnp.asarray(ids)))}
+
+
+def _row_parallel_inputs():
+    """bf16-valued x (2, 5, 64), w (64, 24) and a cotangent (fp32 numpy)."""
+    import torch
+
+    g = torch.Generator().manual_seed(12)
+    x, w, cot = (torch.randn(shape, generator=g) for shape in ((2, 5, 64), (64, 24), (2, 5, 24)))
+    x, w = (t.to(torch.bfloat16).float() for t in (x, w))
+    return dict(x=x.numpy(), w=w.numpy(), cot=cot.numpy())
+
+
 def _jax_attention():
     out = {}
     for name, kw in _attention_cases().items():
@@ -438,10 +501,11 @@ def _jax_tokens(serving):
     return np.asarray(text), np.asarray(codes)
 
 
-def _port_model(np_params, jcfg, **vocab):
+def _port_model(np_params, jcfg, policy=FP32, **vocab):
     cfg = llada.LLaDAConfig(**_cfg_dict(jcfg))
-    return MMadaModel(cfg=cfg, params=params_from_jax(np_params, cfg, device="cpu"),
-                      vocab=tiny_layout(**vocab))
+    return MMadaModel(cfg=cfg, params=params_from_jax(np_params, cfg, device="cpu",
+                                                      dtype=policy.param_dtype),
+                      vocab=tiny_layout(**vocab), policy=policy)
 
 
 def _port_cached_tokens(serving):
@@ -498,6 +562,106 @@ def test_forward_matches_jax_on_every_rank(world4, refs, case):
     (B2 on the local heads), int8, and with the ring over fsdp."""
     for rank in world4:
         np.testing.assert_allclose(rank[case]["logits"], refs[case], **FWD_TOL)
+
+
+def test_bf16_tensor_parallel_sums_like_jax(world4, refs):
+    """bf16 weights and compute over tensor 4 (ROADMAP C.8): each rank's
+    row-parallel partial (attn_out, ff_out) stays fp32 and the sum is
+    rounded once, so the sharded logits equal the port's whole bf16
+    forward, and lie no farther from the same weights' fp32 forward than
+    JAX's sharded bf16 logits (which XLA sums in fp32) do. Before the
+    partials were rounded to bf16 and summed in bf16 (on this model: rel L2
+    5.86e-3 from fp32 against JAX's 5.66e-3, 4.88e-3 from the whole bf16
+    forward against JAX's 4.39e-3)."""
+    fp32 = refs["bf16_weights_fp32"]
+
+    def rel(a):
+        return float(np.linalg.norm(a - fp32) / np.linalg.norm(fp32))
+
+    jax_gap = float(np.abs(refs["jax_bf16"] - refs["jax_bf16_whole"]).max())
+    assert rel(refs["jax_bf16"]) > 0 and jax_gap > 0
+    for rank in world4:
+        got, whole = rank["fwd_bf16"]["logits"], rank["fwd_bf16_whole"]["logits"]
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, whole)
+        assert rel(got) <= rel(refs["jax_bf16"]), (rel(got), rel(refs["jax_bf16"]))
+        assert rel(whole) <= rel(refs["jax_bf16_whole"]) * 1.05
+
+
+def test_bf16_sharded_step_sums_like_jax(world4, refs):
+    """Two bf16 train steps over fsdp 2 x tensor 2 (ROADMAP C.8: the
+    gradients' reduce-scatter and the row-parallel sums) on the bf16
+    weights, against JAX's sharded bf16 step on the same mesh and batches:
+    the losses within 1e-4, the grad norms within a bf16 ulp, and the
+    weights after both steps (the L2 norm over every leaf) no farther from the
+    fp32 step of the same weights than JAX's, and no farther from the
+    port's unsharded bf16 step than JAX's sharded step lies from JAX's
+    unsharded one. Before the sums ran in fp32 (the partials and the
+    gradients summed in bf16): 2.617e-2 from fp32 against JAX's 2.599e-2,
+    and 1.37e-2 from the unsharded step against JAX's 1.85e-2; after:
+    2.589e-2 and 0.85e-2."""
+    jax_m, jax_w = refs[("jax_bf16", BF16_STEP_SHAPE)]
+    jax_whole = refs[("jax_bf16", None)][1]
+    whole, fp32 = refs["one_bf16"][1], refs["one_fp32_on_bf16"][1]
+
+    def dist(a, b):
+        return float(np.sqrt(sum(((a[n] - b[n]) ** 2).sum() for n in b)))
+
+    assert dist(jax_w, fp32) > 0 and dist(jax_w, jax_whole) > 0
+    for rank in world4:
+        got = rank["train_bf16"]
+        for i in range(2):
+            np.testing.assert_allclose(got["metrics"][i]["loss"], jax_m[i]["loss"], rtol=1e-4)
+            np.testing.assert_allclose(got["metrics"][i]["grad_norm"], jax_m[i]["grad_norm"],
+                                       rtol=2 ** -8)
+        w = got["params"]
+        assert dist(w, fp32) <= dist(jax_w, fp32), (dist(w, fp32), dist(jax_w, fp32))
+        assert dist(w, whole) <= dist(jax_w, jax_whole), (dist(w, whole),
+                                                          dist(jax_w, jax_whole))
+
+
+def test_bf16_collectives_sum_in_fp32_and_round_once(world4):
+    """The collectives' sums of bf16 tensors over four ranks (the fsdp
+    gradients' reduce-scatter, the tensor axis' all-reduces, the batch
+    axes' in-place all-reduce): the fp32 sum of the ranks' values rounded
+    to bf16 once, bit for bit, as XLA sums a sharded bf16 gradient; a sum
+    in bf16 would round after each rank's addition."""
+    import torch
+
+    parts = [torch.randn((8, 33), generator=torch.Generator().manual_seed(11 + r)).to(
+        torch.bfloat16) for r in range(4)]
+    want = sum(p.float() for p in parts).to(torch.bfloat16).float().numpy()
+    in_bf16 = parts[0]
+    for p in parts[1:]:
+        in_bf16 = in_bf16 + p
+    assert not np.array_equal(in_bf16.float().numpy(), want)   # the cases tell them apart
+    for rank, got in enumerate(world4):
+        got = got["bf16_sums"]
+        assert got["dtypes"] == {"torch.bfloat16"}
+        np.testing.assert_array_equal(got["all_reduce"], want)
+        np.testing.assert_array_equal(got["all_reduce_"], want)
+        np.testing.assert_array_equal(got["reduce_scatter"], want[2 * rank:2 * rank + 2])
+
+
+def test_bf16_row_parallel_product_and_its_gradients(world4):
+    """`llada._row_parallel` over tensor 4 in bf16, with autograd (the
+    tensor-parallel train step's path): the output is the fp32 product
+    rounded once, and each rank's gradients are its slices of the whole
+    bf16 product's (the cotangent in bf16, as the unsharded block takes it)."""
+    import torch
+
+    kw = _row_parallel_inputs()
+    x, w = (torch.from_numpy(kw[k]).to(torch.bfloat16) for k in ("x", "w"))
+    g = torch.from_numpy(kw["cot"]).to(torch.bfloat16)
+    y = (x.float() @ w.float()).to(torch.bfloat16).float().numpy()
+    gx, gw = (g @ w.T).float().numpy(), (x.reshape(-1, 64).T @ g.reshape(-1, 24)).float().numpy()
+    for rank, got in enumerate(world4):
+        got = got["row_parallel_bf16"]
+        sl = slice(16 * rank, 16 * (rank + 1))
+        assert got["dtype"] == "torch.bfloat16"
+        np.testing.assert_allclose(got["y"], y, rtol=2 ** -8, atol=0)
+        np.testing.assert_allclose(got["gx"], gx[..., sl], rtol=2 ** -8, atol=1e-6)
+        np.testing.assert_allclose(got["gw"], gw[sl], rtol=2 ** -8, atol=1e-6)
 
 
 def test_collectives_by_kind(world4, world2, serving):
@@ -677,3 +841,4 @@ def test_gather_params_round_trip(world4, serving, scheme):
         for path, w in want.items():
             np.testing.assert_array_equal(got["params"][path], w, err_msg=path)
         assert got["local"][key].size * (2 if scheme else 4) == want[key].size
+

@@ -384,7 +384,11 @@ def test_train_motion_vq_cli(tmp_path):
     """`train_motion_vq_torch.train` (synthetic windows at the tiny config):
     finite losses and perplexity a logged step, the weights saved by
     `save_params_only` and read back by `load_params_only` and the loader's
-    `build_motion_vq`; the evaluator stays refused (A.13)."""
+    `build_motion_vq`; with `eval.run_vq_eval=true` (refused until the
+    eval modules were ported) the reconstruction eval at the end: its
+    `vq_eval/*` line (MPJPE included, at 263 features) equals
+    `evaluate_motion_vq` on the trained weights, and without an evaluator
+    it raises before training."""
     import train_motion_vq_torch
     import train_torch
     from mmada_tpu_torch.models import motion_vq
@@ -412,7 +416,34 @@ def test_train_motion_vq_cli(tmp_path):
     loaded, _ = build_motion_vq(load_config(TINY, reader=train_torch._yaml, overrides=[
         *tiny, f"model.motion_vq_model.pretrained_path={out / 'motion_vq'}"]), device="cpu")
     torch.testing.assert_close(loaded.codebook, vq.codebook, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    from mmada_tpu_torch.data.synthetic import write_humanml3d_tree
+    from mmada_tpu_torch.eval import components
+    from mmada_tpu_torch.eval.t2m_eval import evaluate_motion_vq
+
+    split = write_humanml3d_tree(str(tmp_path / "hml"), n_clips=6)
+    (tmp_path / "ev").mkdir()
+    torch.save(components.random_evaluator_state(
+        text_hidden=8, text_out=6, move_hidden=8, move_out=6, motion_hidden=8, motion_out=6),
+        tmp_path / "ev" / "finest.tar")
+    vq_eval = [f"dataset.motion_root={tmp_path / 'hml'}", f"dataset.split_file={split}",
+               f"eval.evaluator_dir={tmp_path / 'ev'}", "eval.batch_size=4",
+               "eval.run_vq_eval=true", "training.tiny=false", "model.motion_vq_model.width=16",
+               "model.motion_vq_model.code_dim=16", "model.motion_vq_model.nb_code=32",
+               "model.motion_vq_model.depth=1"]
+    cfg = load_config(TINY, reader=train_torch._yaml, overrides=[
+        "device=cpu", "dataset.synthetic=true", "training.max_train_steps=2",
+        "training.batch_size=4", "dataset.window_size=16", *vq_eval,
+        f"experiment.output_dir={tmp_path / 'vq_eval'}"])
+    vq, mcfg, history = train_motion_vq_torch.train(cfg)
+    assert mcfg.pose_dim == 263 and history[-1]["step"] == 2
+    got = {k[len("vq_eval/"):]: v for k, v in history[-1].items() if k.startswith("vq_eval/")}
+    want = evaluate_motion_vq(vq, mcfg, components.build_evaluator(cfg, "cpu"),
+                              components.build_eval_batches(cfg, components.build_word_vectorizer(
+                                  cfg)))
+    assert got == {k: float(v) for k, v in want.items()} and np.isfinite(got["mpjpe"])
+    logged = [json.loads(ln) for ln in open(tmp_path / "vq_eval" / "metrics.jsonl")]
+    assert {k: v for k, v in logged[-1].items() if k != "time"} == history[-1]
+    with pytest.raises(ValueError, match="run_vq_eval"):
         train_motion_vq_torch.train(load_config(TINY, reader=train_torch._yaml, overrides=[
             "device=cpu", "dataset.synthetic=true", "eval.run_vq_eval=true"]))
 

@@ -12,6 +12,8 @@ that runs them (`train_torch`, PIL writing the PNGs):
 * `visualize_predictions` masks by each package's random stream, so both
   maskings are replaced by one fixed pattern: recon and predicted pixels
   within the decode bar;
+* `quantative_images` (the stage-4 CLIP / ImageReward summary) on the
+  greedy t2i hook with one scorer for both: `quantative.json` alike;
 * the same file names under `validation/step_{N}/`, and a failing hook
   logged with its traceback while training goes on.
 """
@@ -133,6 +135,46 @@ def test_generate_images_matches_jax(pair, tmp_path, monkeypatch):
     for name in ("t2i_prompts.jsonl",):
         assert (tmp_path / "p/validation/step_7" / name).read_text() == (
             tmp_path / "j/validation/step_7" / name).read_text()
+
+
+def _scorers():
+    """The same scorer for both packages: embeddings and rewards that are
+    plain functions of the pixels and prompts (numpy)."""
+    from mmada_tpu.eval.image_quality import ImageQualityScorer as JaxScorer
+    from mmada_tpu_torch.eval.image_quality import ImageQualityScorer
+
+    fns = dict(image_embed_fn=lambda px: np.asarray(px).reshape(len(px), -1)[:, ::97],
+               text_embed_fn=lambda texts: np.stack([np.linspace(-1, 1, 8)[:, None].repeat(
+                   (3 * 16 * 16 + 96) // 97, 1)[len(t) % 8] for t in texts]),
+               reward_fn=lambda px, prompts: np.asarray(px).mean(axis=(1, 2, 3)))
+    return JaxScorer(**fns), ImageQualityScorer(**fns)
+
+
+@pytest.mark.parametrize("scored", [True, False])
+def test_quantative_images_matches_jax(pair, tmp_path, monkeypatch, scored):
+    """The stage-4 hook: the greedy t2i codes equal, the CLIP scores and the
+    reward's mean within the decode bar, `quantative.json`'s keys equal;
+    without a scorer both write `{}`."""
+    (jmodel, jvq, jvq_cfg, jprompting), (model, vq, vq_cfg, prompting) = pair
+    _jax_saved(monkeypatch)
+    jcodes, codes = _greedy(JaxMMadaModel, monkeypatch), _greedy(MMadaModel, monkeypatch)
+    jscorer, scorer = _scorers() if scored else (None, None)
+    prompts = ["a red fox", "a lamp at dusk"]
+    want = JV.quantative_images(jmodel, jvq, jvq_cfg, jprompting, prompts, jscorer,
+                                str(tmp_path / "j"), 5, num_vq_tokens=64, timesteps=3)
+    written, write = _writer()
+    got = V.quantative_images(model, vq, vq_cfg, prompting, prompts, scorer, str(tmp_path / "p"),
+                              5, write, num_vq_tokens=64, timesteps=3)
+    np.testing.assert_array_equal(codes[0], jcodes[0])
+    assert got.keys() == want.keys() == ({"clip_score_mean", "clip_score", "image_reward_mean"}
+                                         if scored else set())
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], **PIXEL_TOL)
+    saved = json.loads((tmp_path / "p/validation/step_5/quantative.json").read_text())
+    assert saved.keys() == json.loads(
+        (tmp_path / "j/validation/step_5/quantative.json").read_text()).keys()
+    assert _files(tmp_path / "p", 5) == _files(tmp_path / "j", 5)
+    assert len(written) == 2
 
 
 def _fixed_mask(ids):

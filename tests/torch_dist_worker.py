@@ -107,10 +107,12 @@ def _mesh(shape):
 
 
 def _model(cfg: dict, params, vocab: dict, shape=None, attn_impl="auto", pipeline=False,
-           quantize=None):
+           quantize=None, policy="fp32"):
     """The port's model on the CPU from JAX's numpy params; over the mesh of
-    `shape`: sharded (or, `pipeline`, split into stages over fsdp)."""
+    `shape`: sharded (or, `pipeline`, split into stages over fsdp). With
+    `policy="bf16"` the weights are bf16 and the model computes in bf16."""
     from mmada_tpu_torch.checkpoints.from_jax import params_from_jax
+    from mmada_tpu_torch.core.precision import policy_from_name
     from mmada_tpu_torch.core.vocab import tiny_layout
     from mmada_tpu_torch.entry import quantize as quantize_model
     from mmada_tpu_torch.models import llada
@@ -119,8 +121,10 @@ def _model(cfg: dict, params, vocab: dict, shape=None, attn_impl="auto", pipelin
     from mmada_tpu_torch.parallel import sharding
 
     lcfg = llada.LLaDAConfig(**cfg)
-    model = MMadaModel(cfg=lcfg, params=params_from_jax(params, lcfg, device="cpu"),
-                       vocab=tiny_layout(**vocab), attn_impl=attn_impl)
+    pol = policy_from_name(policy)
+    model = MMadaModel(cfg=lcfg, params=params_from_jax(params, lcfg, device="cpu",
+                                                        dtype=pol.param_dtype),
+                       vocab=tiny_layout(**vocab), attn_impl=attn_impl, policy=pol)
     if quantize:
         model = quantize_model(model, quantize)
     if shape is None:
@@ -153,12 +157,12 @@ def prompting(vocab):
 # ------------------------------------------------------------------- cases
 
 def forward(cfg, params, vocab, shape, ids, mask=None, attn_impl="auto", pipeline=False,
-            logit_window=None, logit_positions=None, quantize=None):
+            logit_window=None, logit_positions=None, quantize=None, policy="fp32"):
     """The serving forward's logits (every rank all of them) and the
     collectives it launched, by kind."""
     from mmada_tpu_torch.parallel import collectives
 
-    model = _model(cfg, params, vocab, shape, attn_impl, pipeline, quantize)
+    model = _model(cfg, params, vocab, shape, attn_impl, pipeline, quantize, policy)
     before = collectives.counts.copy()
     logits = model.forward(_t(ids).long(), attention_mask=_t(mask),
                            logit_window=logit_window, logit_positions=logit_positions)
@@ -192,15 +196,17 @@ def samplers(cfg, params, vocab, shape, prompt, frame, uncond, text_kw, t2i_kw, 
     return {"text": text.numpy(), "t2i": codes.numpy()}
 
 
-def train_steps(cfg, params, vocab, shape, sizes, prepared, lr, remat=False, clip=1.0):
+def train_steps(cfg, params, vocab, shape, sizes, prepared, lr, remat=False, clip=1.0,
+                policy="fp32"):
     """`TrainStep.apply` on each global corrupted batch in `prepared`, over the
-    mesh: each step's metrics and every weight after the last, whole."""
+    mesh: each step's metrics and every weight after the last, whole (fp32
+    numpy; with `policy="bf16"` the weights and the compute are bf16)."""
     from mmada_tpu_torch.models import llada
     from mmada_tpu_torch.parallel import sharding
     from mmada_tpu_torch.training import optimizers
     from mmada_tpu_torch.training.train_step import StepConfig, TrainState, make_train_step
 
-    model = dataclasses.replace(_model(cfg, params, vocab, shape), remat=remat)
+    model = dataclasses.replace(_model(cfg, params, vocab, shape, policy=policy), remat=remat)
     opt = optimizers.AdamW(lr, max_grad_norm=clip)
     state = TrainState.create(model.params, opt)
     step = make_train_step(model, opt, StepConfig(**sizes))
@@ -211,7 +217,7 @@ def train_steps(cfg, params, vocab, shape, sizes, prepared, lr, remat=False, cli
     specs = sharding.model_specs(model.cfg, model.mesh)
     whole = sharding.gather_params(state.params, specs, model.mesh, model.cfg)
     return {"metrics": metrics,
-            "params": {n: t.detach().numpy() for n, t in llada.named_leaves(whole)}}
+            "params": {n: t.detach().float().numpy() for n, t in llada.named_leaves(whole)}}
 
 
 def trainer_fit(cfg, params, vocab, shape, training, flows, seed=0, ema=False):
@@ -324,6 +330,42 @@ def round_trip(cfg, params, vocab, shape, quantize=None):
     return {"params": _fields(whole), "local": _fields(model.params)}
 
 
+def bf16_sums(shape, seed):
+    """Each rank's bf16 tensor (drawn from `seed` + rank) summed over the
+    group: `all_reduce`, `all_reduce_` and `reduce_scatter` along dim 0."""
+    import torch.distributed as dist
+
+    from mmada_tpu_torch.parallel import collectives as C
+
+    rank = dist.get_rank()
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed + rank)).to(
+        torch.bfloat16)
+    inplace = x.clone()
+    C.all_reduce_(inplace, dist.group.WORLD)
+    return {"all_reduce": C.all_reduce(x, dist.group.WORLD).float().numpy(),
+            "all_reduce_": inplace.float().numpy(),
+            "reduce_scatter": C.reduce_scatter(x, 0, dist.group.WORLD).float().numpy(),
+            "dtypes": {str(t.dtype) for t in (inplace,)}}
+
+
+def row_parallel_bf16(x, w, cot):
+    """`llada._row_parallel` over the world as the tensor group, bf16: this
+    rank's slice of x's last axis and of w's rows; the sum (bf16) and the
+    gradients of sum(y * cot) for this rank's slices."""
+    import torch.distributed as dist
+
+    from mmada_tpu_torch.models import llada
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    k = x.shape[-1] // world
+    xs = _t(x[..., rank * k:(rank + 1) * k]).to(torch.bfloat16).requires_grad_(True)
+    ws = _t(w[rank * k:(rank + 1) * k]).to(torch.bfloat16).requires_grad_(True)
+    y = llada._row_parallel(xs, ws, dist.group.WORLD)
+    gx, gw = torch.autograd.grad((y.float() * _t(cot)).sum(), [xs, ws])
+    return {"y": y.float().detach().numpy(), "dtype": str(y.dtype),
+            "gx": gx.float().numpy(), "gw": gw.float().numpy()}
+
+
 def _fields(tree):
     out = {}
     for name, leaf in tree.items():
@@ -338,4 +380,5 @@ def _fields(tree):
 
 
 CASES = {f.__name__: f for f in (forward, tp_attention, ring, samplers, train_steps,
-                                 trainer_fit, train_cli, serve_cli, refusals, round_trip)}
+                                 trainer_fit, train_cli, serve_cli, refusals, round_trip,
+                                 bf16_sums, row_parallel_bf16)}

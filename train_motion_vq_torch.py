@@ -25,9 +25,14 @@ end `checkpoint-{max_train_steps}` (the weights, by `CheckpointManager`) and
         experiment.output_dir=/tmp/vq training.max_train_steps=200
     python train_motion_vq_torch.py dataset.synthetic=true device=cpu
 
+With `eval.run_vq_eval=true` the trained VQ-VAE is evaluated at the end as
+`train_motion_vq.py` does (`evaluate_motion_vq`: FID, R-precision,
+matching, diversity and MPJPE of the reconstructions, by the T2M evaluators
+of `eval.evaluator_dir` on the eval split of `dataset.motion_root` /
+`dataset.split_file`), logged as `vq_eval/*` at step `max_train_steps`;
+without those keys it raises before training (JAX's returns 1 after it).
 One key more than `train_motion_vq.py`: `device` (the card unless
-`device=cpu`). Not ported: `eval.run_vq_eval` (the evaluator metrics,
-ROADMAP A.13), refused.
+`device=cpu`).
 """
 
 import logging
@@ -94,10 +99,17 @@ def train(cfg):
     from mmada_tpu_torch.training.optimizers import AdamW
     from mmada_tpu_torch.utils.logging import MetricsLogger
 
-    if cfg.get_path("eval.run_vq_eval", False):
-        raise NotImplementedError("eval.run_vq_eval (the motion evaluator metrics) is not "
-                                  "ported yet: ROADMAP A.13")
     device = resolve_device(cfg.get("device"))
+    evaluator = eval_batches = None
+    if cfg.get_path("eval.run_vq_eval", False):
+        from mmada_tpu_torch.eval.components import (build_eval_batches, build_evaluator,
+                                                     build_word_vectorizer)
+
+        evaluator = build_evaluator(cfg, device)
+        eval_batches = evaluator and build_eval_batches(cfg, build_word_vectorizer(cfg))
+        if eval_batches is None:
+            raise ValueError("eval.run_vq_eval needs eval.evaluator_dir + dataset.motion_root + "
+                             "dataset.split_file")
     tr = cfg.get_path("training", {})
     batch_size = tr.get("batch_size", 32)
     max_steps = tr.get("max_train_steps", 100)
@@ -145,6 +157,15 @@ def train(cfg):
             history.append(vals)
             logger.info("step %d loss %.4f ppl %.1f recon %.4f", i, vals["loss"],
                         vals["perplexity"], vals["recon"])
+    if evaluator is not None:
+        # the reconstruction eval (`evaluation_vqvae`, utils/eval_trans.py:437+)
+        from mmada_tpu_torch.eval.t2m_eval import evaluate_motion_vq
+
+        results = evaluate_motion_vq(vq, mcfg, evaluator, eval_batches,
+                                     max_batches=cfg.get_path("eval.max_batches"))
+        vals = {"step": max_steps, **{f"vq_eval/{k}": float(v) for k, v in results.items()}}
+        metrics.log(vals)
+        history.append(vals)
     metrics.close()
     CheckpointManager(out_dir).save(max_steps, dict(vq.state_dict()))
     save_params_only(os.path.join(out_dir, "motion_vq"), vq)
