@@ -21,17 +21,34 @@ values, as in JAX. `AppState` loads through `serve.loader.load_all`, or takes
 an already-loaded model (`loaded=`). Not ported: the Gradio panel
 (`run_gradio`, ROADMAP A.9). PIL is imported inside the functions that need
 it, so the module imports without it.
+
+Over several ranks, as JAX's app serves on a slice,
+
+    torchrun --nproc-per-node 4 app_torch.py config=... parallel.tensor=4
+
+loads the model sharded over the mesh of `parallel.*` (the loader), and rank
+0 binds the port and runs the engine's dispatcher while ranks 1..N-1 follow
+it over the control channel (`serve/ranks.py`; `serving.control_timeout_s`,
+30 by default), running every model call on their shards. The stepwise
+demos go through the engine like every other request, so one ordered stream
+of calls reaches the model; MAGVIT-v2's encode and decode are not sharded
+and run on rank 0 only. A rank that fails a call alone, or falls behind,
+fails the requests in flight and stops the server: every rank exits with an
+error.
+`/health` and `/stats` answer on rank 0.
 """
 
 import base64
 import io
 import json
+import os
 import sys
 import threading
 
 import numpy as np
 
-from mmada_tpu_torch.serve.engine import ServingEngine, T2ISettings, TextSettings
+from mmada_tpu_torch.core.mesh import CONTROL_TIMEOUT_S
+from mmada_tpu_torch.serve.engine import ServingEngine, T2ISettings, TextSettings, partials
 
 THINK_PREFIX = (
     "You should first think about the reasoning process in the mind and "
@@ -61,19 +78,34 @@ class AppState:
                              f"{self.device}")
         self._torch = torch
         self.cfg = cfg
-        # the stepwise demos and MAGVIT-v2 run in the caller's thread
+        # MAGVIT-v2 runs in the caller's thread (rank 0 only)
         self.lock = threading.Lock()
         # the deployment's fast-decode defaults, family-resolved; request
         # fields override them
         self.serving_defaults = {t: task_serving_defaults(cfg, t) for t in ("text", "mmu", "t2i")}
-        # text, MMU and t2i requests: the batched engine, which owns the card
+        # every model call: the batched engine, which owns the card; over a
+        # mesh every rank builds it, rank 0 dispatches and the others follow
         self.engine = ServingEngine(
             self.model,
             min_chunk_device_ms=float(self.cfg.get_path("serving.min_chunk_device_ms", 25.0)),
-        ).start()
+            control_timeout_s=float(self.cfg.get_path("serving.control_timeout_s",
+                                                       CONTROL_TIMEOUT_S)),
+        )
+        if self.engine.leader:
+            self.engine.start()
+
+    @property
+    def leader(self) -> bool:
+        """Rank 0 (or one process): it serves HTTP."""
+        return self.engine.leader
+
+    def follow(self) -> int:
+        """Ranks 1..N-1: follow rank 0's engine until it stops (`follow`'s
+        return code)."""
+        return self.engine.follow()
 
     def stop_engine(self):
-        """Stop the engine; text, MMU and t2i requests fail after it."""
+        """Stop the engine; every request fails after it."""
         self.engine.stop()
 
     # ------------------------------------------------------------- tasks
@@ -85,12 +117,6 @@ class AppState:
         if not ids or ids[0] != bos:
             ids = [bos] + ids
         return [ids]
-
-    def _generator(self, seed):
-        return self._torch.Generator(self.device).manual_seed(seed)
-
-    def _tensor(self, ids):
-        return self._torch.as_tensor(np.asarray(ids), dtype=self._torch.long).to(self.device)
 
     def _answer(self, out, start):
         answer = np.asarray(out)[0, start:]
@@ -151,11 +177,9 @@ class AppState:
         if thinking:
             prompt = THINK_PREFIX + "\n" + prompt
         ids = self._text_ids(prompt)
-        with self.lock:
-            traj = self.model.generate_stepwise(
-                self._tensor(ids), gen_length=gen_length, steps=steps,
-                block_length=block_length, temperature=temperature, cfg_scale=cfg_scale,
-                generator=self._generator(seed) if temperature > 0 else None).cpu()
+        traj = self.engine.submit_text_steps(
+            np.asarray(ids[0]), seed=seed, gen_length=gen_length, steps=steps,
+            block_length=block_length, temperature=temperature, cfg_scale=cfg_scale).result()
         return [self._token_states(state) for state in traj[:, 0, len(ids[0]):]]
 
     def generate_text_stepwise_iter(self, prompt, gen_length=128, steps=64, block_length=32,
@@ -167,19 +191,13 @@ class AppState:
         if thinking:
             prompt = THINK_PREFIX + "\n" + prompt
         ids = self._text_ids(prompt)
-        run = self.model.segmented_stepwise_run(
-            self._tensor(ids), gen_length=gen_length, steps=steps, block_length=block_length,
-            temperature=temperature, cfg_scale=cfg_scale,
-            generator=self._generator(seed) if temperature > 0 else None,
-            segment_steps=max(1, int(segment_steps)))
-        while True:
-            with self.lock:  # card work inside; socket writes outside
-                done = run.step()
-                states = run.last_states[:, 0, len(ids[0]):].cpu()
-            for state in states:
+        fut = self.engine.submit_text_steps(
+            np.asarray(ids[0]), seed=seed, segment_steps=max(1, int(segment_steps)),
+            gen_length=gen_length, steps=steps, block_length=block_length,
+            temperature=temperature, cfg_scale=cfg_scale)
+        for window in partials(fut):   # the engine's chunks; socket writes here
+            for state in window[:, 0, len(ids[0]):]:
                 yield self._token_states(state)
-            if done:
-                break
 
     def _t2i_frames(self, prompt):
         num_vq = int(self.cfg.get_path("model.mmada.num_vq_tokens", 1024))
@@ -213,21 +231,19 @@ class AppState:
             uncond_attention_mask=np.asarray(uncond_attn[0])).result()[None]
         return self._decode(codes)
 
-    def _t2i_kw(self, prompt, timesteps, guidance_scale, temperature, seed):
-        """The sampler's tensors and keywords for one prompt (a batch of 1)."""
+    def _t2i_steps(self, prompt, timesteps, guidance_scale, temperature, seed, segment=0):
+        """The engine's stepwise t2i request for one prompt (a batch of 1)."""
         num_vq, input_ids, attn, uncond_ids, uncond_attn = self._t2i_frames(prompt)
-        return dict(input_ids=self._tensor(input_ids), uncond_input_ids=self._tensor(uncond_ids),
-                    attention_mask=self._tensor(attn),
-                    uncond_attention_mask=self._tensor(uncond_attn),
-                    temperature=temperature, timesteps=timesteps,
-                    guidance_scale=guidance_scale, num_vq_tokens=num_vq,
-                    generator=self._generator(seed))
+        return self.engine.submit_t2i_steps(
+            np.asarray(input_ids[0]), np.asarray(uncond_ids[0]), seed=seed,
+            attention_mask=np.asarray(attn[0]), uncond_attention_mask=np.asarray(uncond_attn[0]),
+            segment_timesteps=segment, temperature=temperature, timesteps=timesteps,
+            guidance_scale=guidance_scale, num_vq_tokens=num_vq)
 
     def t2i_stepwise(self, prompt, timesteps=15, guidance_scale=3.5, temperature=1.0, seed=0):
         """Each step's decoded frame."""
-        kw = self._t2i_kw(prompt, timesteps, guidance_scale, temperature, seed)
-        with self.lock:
-            trajectory = self.model.t2i_generate(kw.pop("input_ids"), stepwise=True, **kw).cpu()
+        trajectory = self._t2i_steps(prompt, timesteps, guidance_scale, temperature,
+                                     seed).result()
         return [self._decode(step_codes) for step_codes in trajectory]
 
     def t2i_stepwise_iter(self, prompt, timesteps=15, guidance_scale=3.5, temperature=1.0,
@@ -235,18 +251,11 @@ class AppState:
         """Incremental stepwise frames: each step's image as soon as its
         window of at most `segment_timesteps` steps has run
         (`SegmentedT2IRun`); frame for frame `t2i_stepwise`'s."""
-        kw = self._t2i_kw(prompt, timesteps, guidance_scale, temperature, seed)
-        run = self.model.t2i_segmented_run(kw.pop("input_ids"),
-                                           segment_timesteps=max(1, int(segment_timesteps)),
-                                           **kw)
-        while True:
-            with self.lock:
-                done = run.step()
-                window = run.last_window.cpu()
+        fut = self._t2i_steps(prompt, timesteps, guidance_scale, temperature, seed,
+                              segment=max(1, int(segment_timesteps)))
+        for window in partials(fut):
             for step_codes in window:
                 yield self._decode(step_codes)
-            if done:
-                break
 
     def status(self) -> dict:
         """The loaded model's identity card and the engine's counters."""
@@ -273,6 +282,8 @@ class AppState:
             },
             "vq_model_loaded": self.vq_params is not None,
             "devices": devices,
+            "mesh": None if self.model.mesh is None else dict(zip(
+                self.model.mesh.mesh_dim_names, self.model.mesh.shape)),
             "engine_running": self.engine.running,
         }
         with self.engine._stats_lock:
@@ -481,23 +492,43 @@ def make_server(state: AppState, port: int, host: str = "0.0.0.0"):
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def run_http(state: AppState, port: int, host: str = "0.0.0.0"):
+def run_http(state: AppState, port: int, host: str = "0.0.0.0") -> int:
+    """Serve until interrupted or the engine faults (a rank failed alone or
+    fell behind: the server shuts down). Returns the exit code: 1 after a
+    fault."""
     server = make_server(state, port, host)
-    print(f"serving on http://{host}:{port} (endpoints: {ENDPOINTS})", flush=True)
+    state.engine.on_fault = lambda exc: threading.Thread(target=server.shutdown,
+                                                         daemon=True).start()
+    mesh = state.model.mesh
+    ranks = "" if mesh is None else f", {mesh.mesh.numel()} ranks over mesh {tuple(mesh.shape)}"
+    print(f"serving on http://{host}:{port} (endpoints: {ENDPOINTS}{ranks})", flush=True)
     try:
         server.serve_forever()
     finally:
         server.server_close()
         state.stop_engine()
+    return 1 if state.engine.fault is not None else 0
 
 
 def main(argv) -> int:
+    """Rank 0 (or the one process) serves HTTP; the other ranks of a
+    launcher's run follow its engine."""
+    import torch.distributed as dist
+
     from generate_torch import read_config
 
     cfg = read_config(argv)
-    run_http(AppState(cfg), int(cfg.get("port", 7860)), str(cfg.get("host", "0.0.0.0")))
-    return 0
+    state = AppState(cfg)
+    if not state.leader:
+        return state.follow()
+    if state.model.mesh is None and dist.is_initialized() and dist.get_rank() > 0:
+        return 0   # parallel.serving none: rank 0 serves its whole model alone
+    return run_http(state, int(cfg.get("port", 7860)), str(cfg.get("host", "0.0.0.0")))
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    code = main(sys.argv[1:])
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # after a fault a thread may wait in a collective a failed rank left
+    os._exit(code)

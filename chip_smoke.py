@@ -87,7 +87,15 @@ through the Trainer over `make_mesh(fsdp=-1)` against the same steps
 without a mesh, bit for bit on one card;
 12b the loader's sharded and pipelined 8B answering the text and t2i
 requests with the unsharded tokens; 12c B1, B2, a GQA shape and B4 on the
-head shards of T = 2, 4, 8, joined equal to the full calls bit for bit).
+head shards of T = 2, 4, 8, joined equal to the full calls bit for bit;
+12d `app_torch` and its engine over the one-rank mesh, through the control
+channel, answering four concurrent /generate calls, /t2i, /mmu and a
+streamed /generate_stepwise on the masked 8B (B1 and B2) as the same calls
+without a mesh, bit for bit; with more than one card also the app over
+fsdp and over tensor, int4 over tensor, a W8A8 step over (1, W/2, 2) and
+C.8's witness, each rank's traceback in a file of its own).
+Phase 8 also takes one step under `utils/profiling.trace` (CUDA kernels
+inside its annotated span) and prints its model-FLOP share of 989 TFLOP/s.
 Phase 13 is eval (A.13): t2i images of the 8B scored by CLIP ViT-L/14 and
 ImageReward-v1.0 through `inference_t2i_torch`'s scoring (13a),
 `eval_t2m_torch.run` on a HumanML3D-layout tree (13b), the motion VQ-VAE's
@@ -127,6 +135,7 @@ import sys
 import tarfile
 import tempfile
 import time
+import traceback
 
 T0 = time.perf_counter()
 
@@ -1831,6 +1840,9 @@ def main() -> int:
     opt_ms = optimizer_ms(trainer)
     step_ms = min(h["seconds"] for h in trainer.history) * 1e3
     log("train", f"AdamW pass {opt_ms:.1f} ms ({opt_ms / step_ms:.1%} of the steady step)")
+    # one more step under utils/profiling.trace, its model-FLOP share
+    traced = traced_step(trainer, reset_counts, counts, smi)
+    train_launches = tuple(a + b for a, b in zip(train_launches, traced))
 
     del trainer
     free_memory()
@@ -1956,10 +1968,11 @@ def main() -> int:
     # 12. parallelism (the mesh path) at this machine's world: stage-1 steps
     # over make_mesh(fsdp=-1) on NCCL against the unsharded steps (12a), the
     # loader's sharded and pipelined models serving (12b), the kernels on
-    # tensor parallelism's head shards (12c)
+    # tensor parallelism's head shards (12c), the app and its engine over the
+    # mesh through the control channel (12d)
     t = time.perf_counter()
     par = parallel_phase(train, reset_counts, counts)
-    log("parallel", f"phases 12a-12c took {time.perf_counter() - t:.1f}s at world "
+    log("parallel", f"phases 12a-12d took {time.perf_counter() - t:.1f}s at world "
         f"{par['world']}")
     par_b1, par_dq, par_dkv = par["b1"], par["dq"], par["dkv"]
 
@@ -1979,7 +1992,8 @@ def main() -> int:
                     http=http["b1"], train=train_launches[0], pixel_train=pixel_train[0][0],
                     train_cli=proxy_cli["b1"] + stage1_cli["b1"], t2m=t2m_serve["b1"],
                     parallel=par_b1, eval=ev["b1"])
-    b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"])
+    b6_parts = dict(int4=int4_launches, checkpoint=ckpt["b6"], engine=engine["b6"],
+                    parallel=par["b6"])
     log("launches", f"B1 {sum(b1_parts.values())} by phase {b1_parts}; "
         f"B6 {sum(b6_parts.values())} by phase {b6_parts}")
     b1 = kernel_record("flash_attention_fwd", "flash_attention_fwd.cu", "650",
@@ -2003,7 +2017,7 @@ def main() -> int:
         lambda r: t2m_serve["b1_shapes"][(r["shape"][0], r["shape"][3], r["shape"][4])])
     b2 = kernel_record("flash_attention_fwd_bias", "flash_attention_fwd.cu", "686",
                        masked_serve[0] + masked_train[0] + t2m_serve["b2"] + t2m_train["b2"]
-                       + t2m_train["proxy"][1][0] + ev["b2"],
+                       + t2m_train["proxy"][1][0] + ev["b2"] + par["b2"],
                        [r for r in records if r["bias"] is not None], masked_rec)
     b2["t2m_shapes"] = t2m_shapes(
         [r for r in records if r["bias"] is not None],
@@ -3111,6 +3125,68 @@ def train_phase(phase, model, steps, train, reset_counts, counts, plan=STAGE1, f
     if int(trainer.state.step) != steps or len(trainer.history) != steps:
         raise AssertionError(f"train step count {int(trainer.state.step)}, want {steps}")
     return trainer, launched
+
+
+def traced_step(trainer, reset_counts, counts, smi) -> tuple:
+    """Phase 8's profiled step: one more stage-1 step of `trainer` under
+    `utils/profiling.trace` with the step inside an `annotate` span; the
+    Chrome trace must hold the card's kernels (B1, dq, dkv among them)
+    inside the span. Prints the step's model-FLOP share of 989 TFLOP/s
+    (`utils/flops.train_step_flops`, full remat) at the steady step's time,
+    on a line of its own beside the card's name and power limit. Returns
+    the step's (B1, dq, dkv) launches."""
+    import torch
+
+    from mmada_tpu_torch.utils import flops, profiling
+
+    batch = trainer.prepare_batch(train_flows(TRAIN_STEPS))
+    generator = torch.Generator("cuda").manual_seed(TRAIN_STEPS)
+    logdir = tempfile.mkdtemp(prefix="smoke_trace_")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with profiling.trace(logdir):
+            with profiling.annotate("stage1_step"):
+                with profiling.step_timer() as timed:
+                    trainer.state, metrics = trainer.train_step(trainer.state, batch, generator)
+                    loss = float(metrics["loss"])
+        window_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with open(os.path.join(logdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        parse_s = time.perf_counter() - t1
+        trace_mb = os.path.getsize(os.path.join(logdir, "trace.json")) / 2**20
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    launched = counts()
+    n = trainer.model.cfg.n_layers
+    expect_launches("train traced", launched, {"one-pass": (2 * n, n, n)})
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "stage1_step" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e
+               and any(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for lo, hi in spans)]
+    names = collections.Counter(e["name"] for e in kernels)
+    attn = sum(c for k, c in names.items() if "attn" in k or "flash" in k)
+    device_ms = sum(e["dur"] for e in kernels) / 1e3
+    log("train traced", f"one stage-1 step under profiling.trace: {timed['seconds']:.3f}s, loss "
+        f"{loss:.4f}; the window with the trace's export {window_s:.2f}s, {trace_mb:.1f} MB "
+        f"read back in {parse_s:.2f}s ({len(events)} events); span 'stage1_step' "
+        f"({len(spans)} events) holds {len(kernels)} CUDA kernels ({device_ms:.1f} ms of device "
+        f"time), {attn} of them attention's; the most launched "
+        f"{[(k[:48], c) for k, c in names.most_common(3)]}")
+    if not spans or not kernels or attn < 4 * n:
+        raise AssertionError(f"the trace's span holds {len(kernels)} kernels ({attn} attention)")
+    sc = trainer.step_cfg
+    rows = sc.batch_size_t2i + sc.batch_size_lm + sc.batch_size_mmu
+    frame = next(t for k, t in batch.items() if k.endswith("input_ids")).shape[1]
+    useful, hardware = flops.train_step_flops(trainer.model.cfg, rows, frame, remat="full")
+    step_s = min(h["seconds"] for h in trainer.history)
+    share = useful / step_s / flops.H100_BF16_PEAK
+    print(f"train_step_flops: {rows} x {frame} tokens, {useful / 1e12:.1f} TFLOP useful "
+          f"({hardware / 1e12:.1f} with full remat) in the steady step of {step_s:.3f}s: "
+          f"{share:.1%} of {flops.H100_BF16_PEAK / 1e12:.0f} TFLOP/s (hardware "
+          f"{hardware / step_s / flops.H100_BF16_PEAK:.1%}) | {smi}", flush=True)
+    return launched[0]
 
 
 def expect_launches(phase, launched, want) -> None:
@@ -4512,8 +4588,27 @@ RANKS_LOSS_RTOL = 2e-3
 # when the partials were rounded and summed in bf16)
 RANKS_TP_LOSS_RTOL = 1e-2
 RANKS_GRAD_NORM_RTOL = 2e-2
+# W8A8 over (1, W/2, 2): the forward over tensor is the unsharded one bit for
+# bit (exact int32 sums), so the first loss moves only with the fp32 loss
+# sums' order (the bf16 steps over fsdp alone: 7e-8), and the grad norm, a
+# bf16 value, by at most one bf16 ulp
+RANKS_W8A8_LOSS_RTOL = 1e-4
+RANKS_W8A8_GRAD_NORM_RTOL = 2.0 ** -7
 RANKS_LOGITS_REL_L2 = SMALL_MODEL_REL_L2
 PARALLEL_RANKS_TIMEOUT_S = 900
+# seconds a spawned rank's process group waits at a collective (the
+# rendezvous store's timeout): a rank that failed is seen by the parent, which
+# ends the others, long before
+RANKS_STORE_TIMEOUT_S = 120
+# phase 12d: app_torch over the mesh, on the masked 8B (B1 for text and MMU,
+# B2 for t2i): four concurrent /generate calls (one batch), /t2i, /mmu about
+# a 16-px image (the tiny MAGVIT-v2 of 12b: 64 codes), /generate_stepwise
+# streamed in chunks of APP_SEGMENT steps
+APP_TEXT = dict(gen_length=64, steps=16, block_length=32, temperature=0.0)
+APP_T2I = dict(timesteps=8, guidance_scale=3.5, temperature=1.0, seed=0)
+APP_MMU = dict(max_new_tokens=32, steps=16, block_length=32, temperature=0.0)
+APP_SEGMENT = 4
+APP_RESOLUTION = 16
 
 
 def sample_leaves(trainer) -> dict:
@@ -4582,7 +4677,7 @@ def parallel_phase(train, reset_counts, counts) -> dict:
     local_heads_phase()
     torch.distributed.destroy_process_group()   # the NCCL group of 12a-12b
     return dict(world=1, b1=sum(c[0] for c in train_rec["launched"]) + serve_rec["b1"]
-                + serve_rec["b1_unsharded"],
+                + serve_rec["b1_unsharded"], b2=serve_rec["b2"], b6=0,
                 dq=sum(c[1] for c in train_rec["launched"]),
                 dkv=sum(c[2] for c in train_rec["launched"]))
 
@@ -4590,7 +4685,9 @@ def parallel_phase(train, reset_counts, counts) -> dict:
 def parallel_ranks(world: int) -> dict:
     """Phase 12 over `world` cards: one spawned process a card, joined over
     NCCL through a rendezvous file; every rank runs `_parallel_rank`, rank 0
-    reports. A rank that fails or outlives the deadline fails the phase."""
+    reports. A rank that fails ends the phase at once: each rank writes its
+    traceback to a file of its own, which is printed here before the others
+    are ended; a rank that outlives the deadline fails it too."""
     import multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="mmada_ranks_")
@@ -4600,16 +4697,25 @@ def parallel_ranks(world: int) -> dict:
     for p in procs:
         p.start()
     deadline = time.monotonic() + PARALLEL_RANKS_TIMEOUT_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            time.sleep(5)   # the others' own errors reach their files
+            break
+        time.sleep(0.5)
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
     for p in procs:
         if p.is_alive():
             p.kill()
-            p.join(30)
+        p.join(30)
     codes = [p.exitcode for p in procs]
+    for rank in range(world):
+        path = os.path.join(tmp, f"rank{rank}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                print(f"--- phase 12 rank {rank} failed:\n{f.read()}", file=sys.stderr,
+                      flush=True)
     if hung or any(codes):
-        raise AssertionError(f"phase 12 ranks: hung {hung}, exit codes {codes}")
+        raise AssertionError(f"phase 12 ranks: still running {hung}, exit codes {codes}")
     with open(os.path.join(tmp, "rank0.json")) as f:
         out = json.load(f)
     shutil.rmtree(tmp, ignore_errors=True)
@@ -4617,16 +4723,30 @@ def parallel_ranks(world: int) -> dict:
 
 
 def _parallel_rank(rank: int, world: int, tmp: str) -> None:
-    """One rank of phase 12 over several cards: 12a (the unsharded steps on
-    rank 0's card, then the sharded ones over every card), 12b (the
-    loader's sharded and pipelined models), 12c on rank 0."""
+    """One rank of phase 12 over several cards (`_ranks_phase`); its
+    traceback, if it fails, goes to `tmp/rank<r>.txt`."""
+    try:
+        _ranks_phase(rank, world, tmp)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _ranks_phase(rank: int, world: int, tmp: str) -> None:
+    """12a (the unsharded steps on rank 0's card, then the sharded ones over
+    every card, and W8A8 steps over (1, W/2, 2) against one on rank 0's
+    card), 12b (the loader's sharded and pipelined models; the app over fsdp
+    and over tensor; C.8's witness), int4 over tensor, W8A8 served over
+    tensor, 12c on rank 0."""
     import torch
     import torch.distributed as dist
 
     from mmada_tpu_torch.core.mesh import initialize_distributed, make_mesh
     from mmada_tpu_torch.entry import train
 
-    initialize_distributed(f"file://{tmp}/rendezvous", world, rank, timeout_s=300)
+    initialize_distributed(f"file://{tmp}/rendezvous", world, rank,
+                           timeout_s=RANKS_STORE_TIMEOUT_S)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     reset_counts, counts, _ = kernel_counters()
@@ -4634,11 +4754,14 @@ def _parallel_rank(rank: int, world: int, tmp: str) -> None:
     log(f"12 rank {rank}", probe_nccl(mesh))
     tr = ranks_train_phase(rank, world, train, reset_counts, counts)
     sv = ranks_serving_phase(rank, world, reset_counts, counts)
+    q4 = ranks_int4_phase(rank, world, reset_counts, counts)
+    w8 = ranks_w8a8_serving(rank, world)
     if rank == 0:
         local_heads_phase()
         with open(os.path.join(tmp, "rank0.json"), "w") as f:
-            json.dump(dict(world=world, b1=tr["b1"] + sv["b1"], dq=tr["dq"], dkv=tr["dkv"],
-                           train=tr, serve=sv), f)
+            json.dump(dict(world=world, b1=tr["b1"] + sv["b1"] + q4["b1"], b2=sv["b2"],
+                           b6=q4["b6"], dq=tr["dq"], dkv=tr["dkv"], train=tr, serve=sv,
+                           int4=q4, w8a8=w8), f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -4741,7 +4864,86 @@ def ranks_train_phase(rank, world, train, reset_counts, counts) -> dict:
                 f"a card against {ref['peak_gib']:.2f} GiB")
         del trainer, model
         free_memory()
+    if world >= 4 and world % 2 == 0:
+        out["w8a8"] = ranks_w8a8_step(rank, world, train, settings, plan, flows, reset_counts,
+                                      counts)
+        for k, v in zip(("b1", "dq", "dkv"), out["w8a8"]["launched"]):
+            out[k] += v
     return out
+
+
+def ranks_w8a8_step(rank, world, train, settings, plan, flows, reset_counts, counts) -> dict:
+    """Stage-1 steps of the 8B with `forward_quantize: w8a8` (the block
+    matmuls' W8A8 forward, straight-through gradients): one on rank 0's card
+    alone, then two over (1, W/2, 2) on the first batch twice (the second
+    step's time is the steady one), where the row-parallel products take
+    their scales over the whole row and sum int32 partials, so the forward
+    over tensor is the unsharded one bit for bit. The sharded first loss is
+    held to the unsharded step's within RANKS_W8A8_LOSS_RTOL (the fp32 loss
+    sums run in another order) and its grad norm within
+    RANKS_W8A8_GRAD_NORM_RTOL (each rank's bf16 gradient summed in fp32 by
+    the reduce-scatter)."""
+    import torch
+    import torch.distributed as dist
+
+    from mmada_tpu_torch.core.mesh import make_mesh, process_local_batch_slice
+    from mmada_tpu_torch.core.precision import BF16
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.parallel import collectives, sharding
+
+    cfg = llada.llada_8b()
+    shape = (1, world // 2, 2)
+    w8 = dict(settings, training=dict(settings["training"], forward_quantize="w8a8"))
+
+    def fresh():
+        return MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
+                               generator=torch.Generator("cuda").manual_seed(0), policy=BF16,
+                               remat="full")
+
+    ref = None
+    if rank == 0:
+        trainer, _ = train_phase("12a w8a8 unsharded", fresh(), 1, train, reset_counts, counts,
+                                 plan=dict(plan, settings=w8), flows=flows[:1])
+        ref = {k: trainer.history[0][k] for k in ("loss", "grad_norm", "seconds")}
+        del trainer
+        free_memory()
+    dist.barrier()
+    mesh = make_mesh(*shape)
+    model = fresh()
+    model = dataclasses.replace(model, mesh=mesh, params=sharding.shard_params(
+        model.params, sharding.model_specs(cfg, mesh, model.params), mesh))
+    free_memory()
+    local = [{name: {k: v[process_local_batch_slice(len(flow["input_ids"]), mesh)]
+                     for k, v in flow.items()} for name, flow in flows[0].items()}]
+    reset_counts()
+    before = collectives.counts.copy()
+    trainer = train(model, local * 2, steps=2, log_every=1, mesh=mesh, **w8)
+    torch.cuda.synchronize()
+    launched = counts()
+    maxes = (collectives.counts - before)["all_reduce_max"]
+    n = cfg.n_layers
+    expect_launches(f"12a w8a8 {shape} rank {rank}", launched,
+                    {"one-pass": (4 * n, 2 * n, 2 * n)})
+    h = trainer.history[0]
+    rec = dict(loss=h["loss"], grad_norm=h["grad_norm"],
+               seconds=[x["seconds"] for x in trainer.history], unsharded=ref,
+               all_reduce_max=maxes, launched=list(launched[0]))
+    log(f"12a w8a8 rank {rank}", f"two W8A8 stage-1 steps over {shape} (the first batch "
+        f"twice): first loss {h['loss']:.6f}, grad_norm {h['grad_norm']:.4f} (unsharded "
+        f"{ref}); {[round(x, 3) for x in rec['seconds']]}s; {maxes} MAX all-reduces (the "
+        f"row-parallel scales); launches {launched[0]}")
+    if not (math.isfinite(h["loss"]) and h["grad_norm"] > 0 and maxes > 0):
+        raise AssertionError(f"12a w8a8: {rec}")
+    if rank == 0:
+        for k, rtol in (("loss", RANKS_W8A8_LOSS_RTOL), ("grad_norm", RANKS_W8A8_GRAD_NORM_RTOL)):
+            if not math.isclose(h[k], ref[k], rel_tol=rtol):
+                raise AssertionError(f"12a w8a8 over {shape}: {k} {h[k]} against {ref[k]} "
+                                     f"unsharded (rtol {rtol})")
+    del trainer, model
+    free_memory()
+    return rec
 
 
 def ranks_serving_phase(rank, world, reset_counts, counts) -> dict:
@@ -4754,29 +4956,54 @@ def ranks_serving_phase(rank, world, reset_counts, counts) -> dict:
     holds the first t2i forward's logits (image window and span) within
     RANKS_LOGITS_REL_L2 of the whole model's (the rows split over the
     ranks change the matmuls' heights, and cuBLAS may then round otherwise)
-    and reports how many tokens equal the whole model's."""
+    and reports how many tokens equal the whole model's. C.8's witness: the
+    whole model's and tensor's first t2i logits each against the fp32
+    forward of the same weights, and tensor's forward time. The app
+    (`ranks_app`) over fsdp and over tensor."""
     import torch
     import torch.distributed as dist
 
+    import app_torch
     from mmada_tpu_torch.entry import serve_t2i, serve_text
     from mmada_tpu_torch.models import llada
     from mmada_tpu_torch.parallel import pipeline
-    from mmada_tpu_torch.serve.loader import load_all
+    from mmada_tpu_torch.serve.loader import build_prompting, load_all
 
     n_layers = llada.llada_8b().n_layers
 
     config, first_logits = serving_config, t2i_first_logits
-    ref = None
+    ref = ref_app = exact = None
+    png = app_png()
+    out = dict(b1=0, b2=0)
     if rank == 0:
-        model = load_all(config("none")).model
+        loaded = load_all(config("none"))
+        model = loaded.model
         ref = (torch.stack(serve_text(model, TEXT_PROMPTS, **TEXT_SETTINGS)),
                serve_t2i(model, T2I_PROMPTS, **T2I_SETTINGS), first_logits(model))
-        del model
+        exact = fp32_t2i_first_logits(model)
+        out["whole_ms"] = cuda_ms(lambda: first_logits(model), 3, 1)
+        out["whole_rel_fp32"] = float((ref[2] - exact).norm() / exact.norm())
+        acfg = app_config("none")
+        state = app_torch.AppState(acfg, device="cuda", loaded=loaded._replace(
+            model=with_masks(model), prompting=build_prompting(acfg, loaded.tokenizer,
+                                                               loaded.vocab)))
+        try:
+            reset_counts()
+            ref_app = app_calls(state, png)
+            launched = counts()
+        finally:
+            state.stop_engine()
+        expect_launches("12d app one card", launched, app_launches(n_layers))
+        out["b1"] += launched[0][0]
+        out["b2"] += launched[1][0]
+        out["app one card seconds"] = ref_app["seconds"]
+        del model, loaded, state
         free_memory()
     dist.barrier()
-    out = dict(b1=0)
+    failures = []
     for mode, kw in (("auto", {}), ("pipeline", {}), ("tensor", dict(fsdp=1, tensor=-1))):
-        model = load_all(config("auto" if mode == "tensor" else mode, **kw)).model
+        loaded = load_all(config("auto" if mode == "tensor" else mode, **kw))
+        model = loaded.model
         if model.mesh is None or (mode == "pipeline") != (model.pipeline_axis == "fsdp"):
             raise AssertionError(f"12b: the loader did not serve {mode} over the ranks")
         reset_counts()
@@ -4799,18 +5026,209 @@ def ranks_serving_phase(rank, world, reset_counts, counts) -> dict:
             dist.all_gather(every, t_)
             if not all(torch.equal(e, t_) for e in every):
                 raise AssertionError(f"12b {mode}: the ranks' {name} tokens differ")
+        forward_ms = cuda_ms(lambda: first_logits(model), 3, 1) if mode == "tensor" else None
         if rank == 0:
             rel = float((logits - ref[2]).norm() / ref[2].norm())
             agree = {"text": float((text.cpu() == ref[0].cpu()).float().mean()),
                      "t2i": float((codes.cpu() == ref[1].cpu()).float().mean())}
-            out[mode] = dict(seconds=seconds, logits_rel_l2=rel, agreement=agree)
+            out[mode] = dict(seconds=seconds, logits_rel_l2=rel, agreement=agree,
+                             rel_fp32=float((logits - exact).norm() / exact.norm()),
+                             forward_ms=forward_ms)
             log("12b", f"{mode} over {world} ranks: text + t2i in {seconds:.2f}s, every rank "
                 f"the same tokens; first t2i forward rel L2 {rel:.3e} against the whole "
                 f"model (limit {RANKS_LOGITS_REL_L2}); tokens equal to its {agree}")
             if not rel <= RANKS_LOGITS_REL_L2:
                 raise AssertionError(f"12b {mode}: logits rel L2 {rel} against the whole model")
-        del model, logits
+            if mode == "tensor":
+                whole, tens = out["whole_rel_fp32"], out[mode]["rel_fp32"]
+                log("12b", f"C.8 witness: the first t2i forward (4 x {T2I_FRAME}) against the "
+                    f"fp32 forward of the same weights: whole model {whole:.4e}, tensor "
+                    f"{world} {tens:.4e} ({tens / whole:.3f}x; a fault past sqrt 2 x); tensor "
+                    f"{world}'s forward {forward_ms:.2f} ms against {out['whole_ms']:.2f} ms "
+                    f"on one card")
+                if tens > math.sqrt(2) * whole:
+                    failures.append(f"C.8 witness: tensor {world} {tens} from fp32 against "
+                                    f"the whole model's {whole}")
+        if mode in ("auto", "tensor"):
+            app = ranks_app(rank, mode, loaded, ref_app, png, reset_counts, counts, failures)
+            out["b1"] += app["b1"]
+            out["b2"] += app["b2"]
+            if rank == 0:
+                out[mode]["app_seconds"] = app["seconds"]
+        del model, logits, loaded
         free_memory()
+    if failures:
+        raise AssertionError("12b: " + "; ".join(failures))
+    return out
+
+
+def ranks_app(rank, mode, loaded, ref_app, png, reset_counts, counts, failures) -> dict:
+    """The app over the loader's model of 12b (masks on: B2 for t2i): every
+    rank builds `AppState`, rank 0 serves `app_calls` over HTTP and the
+    others follow its engine over the control channel. Over fsdp rank 0's
+    answers are held to the app's on one card (`ref_app`); over tensor to
+    the same mesh's calls on the same model, every rank (the model on the
+    app's text frames, `inference_t2i_torch.run`, `inference_mmu_torch.run`),
+    bit for bit. Every rank's launches are the schedule's."""
+    import torch
+
+    import app_torch
+    import generate_torch
+    import inference_mmu_torch
+    import inference_t2i_torch
+    from mmada_tpu_torch.serve.loader import build_prompting
+
+    n = loaded.model.cfg.n_layers
+    cfg = app_config("auto", **({} if mode == "auto" else dict(fsdp=1, tensor=-1)))
+    masked = loaded._replace(model=with_masks(loaded.model),
+                             prompting=build_prompting(cfg, loaded.tokenizer, loaded.vocab))
+    state = app_torch.AppState(cfg, device="cuda", loaded=masked)
+    cli = None
+    if mode == "tensor":
+        # the app's text frame starts with the tokenizer's BOS, the text
+        # command line's with the vocab's (as in JAX's app and generate.py),
+        # so /generate is held to the model on the app's frame (phase 7e's
+        # rule), /t2i and /mmu to their command lines
+        pixels = inference_mmu_torch.image_transform(app_torch.image_from_png_b64(png),
+                                                     APP_RESOLUTION)[None]
+        _, images = inference_t2i_torch.run(cfg, masked, [T2I_PROMPTS[0]])
+        ids = state._text_ids(TEXT_PROMPTS[0])
+        direct = masked.model.generate(torch.tensor(ids * 4, device="cuda"), **APP_TEXT).cpu()
+        cli = dict(generate=[state._answer(direct[i:i + 1], len(ids[0])) for i in range(4)],
+                   t2i=app_torch.png_b64(images[0].numpy()),
+                   mmu=generate_torch.answer_text(masked, inference_mmu_torch.run(
+                       cfg, masked, pixels)[0]))
+    reset_counts()
+    if state.leader:
+        try:
+            got = app_calls(state, png)
+        finally:
+            state.stop_engine()
+    else:
+        code = state.follow()
+        if code:
+            raise AssertionError(f"12d {mode}: rank {rank} followed to a fault ({code})")
+    launched = counts()
+    expect_launches(f"12d app {mode} rank {rank}", launched, app_launches(n))
+    out = dict(b1=launched[0][0], b2=launched[1][0])
+    if rank == 0:
+        out["seconds"] = got["seconds"]
+        if mode == "auto":
+            same = app_answers_equal(got, ref_app)
+            against = "the app on one card"
+        else:
+            # the batch's rows as a multiset: which request took which row
+            # is the order of arrival
+            same = {k: (sorted(got[k]) == sorted(cli[k]) if k == "generate" else got[k] == cli[k])
+                    for k in ("generate", "t2i", "mmu")}
+            against = "the model on the app's frame and the command lines over the same mesh"
+        log("12d", f"app_torch over {mode} {got['mesh']}: 4 concurrent /generate, /t2i, /mmu, "
+            f"/generate_stepwise streamed in {got['seconds']:.2f}s (one card "
+            f"{ref_app['seconds']:.2f}s); /stats deltas {got['deltas']}; answers equal to "
+            f"{against}: {same}; every rank's launches {launched[:2]}")
+        if not all(same.values()):
+            failures.append(f"12d app over {mode}: answers against {against} {same}")
+    return out
+
+
+def ranks_int4_phase(rank, world, reset_counts, counts) -> dict:
+    """int4 over tensor: every rank quantizes the 8B to int4 (B6) and the
+    loader's rule shards it over tensor = every rank (row-parallel weights
+    in whole 128-row groups); the app's engine serves a text and a t2i
+    request from rank 0, the others following. Every rank's B6 launches
+    equal and are the schedule's (every block matmul of every forward and
+    the head); the answers are valid ids."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import app_torch
+    from mmada_tpu_torch.core.mesh import make_mesh
+    from mmada_tpu_torch.entry import quantize
+    from mmada_tpu_torch.serve.engine import TextSettings
+    from mmada_tpu_torch.serve.loader import build_prompting, load_all, shard_for_serving
+
+    loaded = load_all(serving_config("none"))
+    qmodel = quantize(loaded.model, "int4")
+    loaded = loaded._replace(model=None)
+    free_memory()
+    cfg = app_config("auto", fsdp=1, tensor=-1)
+    mesh = make_mesh(fsdp=1, tensor=-1)
+    qmodel = shard_for_serving(cfg, qmodel, mesh)
+    free_memory()
+    n = qmodel.cfg.n_layers
+    state = app_torch.AppState(cfg, device="cuda", loaded=loaded._replace(
+        model=qmodel, prompting=build_prompting(cfg, loaded.tokenizer, loaded.vocab)))
+    reset_counts()
+    t = time.perf_counter()
+    if state.leader:
+        try:
+            ids = np.asarray(state._text_ids(TEXT_PROMPTS[0])[0])
+            text = state.engine.submit_text(ids, TextSettings(**APP_TEXT)).result()[len(ids):]
+            image = state.t2i(T2I_PROMPTS[0], **APP_T2I)
+        finally:
+            state.stop_engine()
+    elif state.follow():
+        raise AssertionError(f"12 int4: rank {rank} followed to a fault")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launched = counts()
+    forwards = APP_TEXT["steps"] + APP_T2I["timesteps"]
+    expect_launches(f"12 int4 tensor rank {rank}", launched, {
+        "one-pass": (n * forwards, 0, 0), "int4": ((7 * n + 1) * forwards,)})
+    b6 = torch.tensor([launched[4][0]], device="cuda")
+    every = [torch.empty_like(b6) for _ in range(world)]
+    dist.all_gather(every, b6)
+    out = dict(b1=launched[0][0], b6=launched[4][0], seconds=seconds)
+    if rank == 0:
+        log("12 int4", f"the int4 8B over tensor {world} {tuple(mesh.shape)}: a text and a t2i "
+            f"request through the app's engine in {seconds:.2f}s; B6 launches by rank "
+            f"{[int(e) for e in every]}; answer ids {text[:12].tolist()}, image {image.shape}")
+        check_answer_ids(torch.as_tensor(text), APP_TEXT["gen_length"], qmodel.vocab)
+        if image.shape[-1] != 3 or len({int(e) for e in every}) != 1:
+            raise AssertionError(f"12 int4: image {image.shape}, B6 by rank {every}")
+    del state, qmodel, loaded
+    free_memory()
+    return out
+
+
+def ranks_w8a8_serving(rank, world) -> dict:
+    """W8A8 served over tensor: every rank quantizes the 8B to W8A8, rank 0
+    takes the first t2i forward of the whole W8A8 model on its card, and
+    the loader's rule then shards it over (1, 1, W) and, on four cards or
+    more, (1, W/2, 2): each rank its heads, its MLP hidden and its K-shards
+    of the row-parallel weights, whose products take their scales over the
+    whole row and sum int32 partials. Rank 0's logits must equal the whole
+    W8A8 model's bit for bit."""
+    import torch
+
+    from mmada_tpu_torch.core.mesh import make_mesh
+    from mmada_tpu_torch.entry import quantize
+    from mmada_tpu_torch.serve.loader import load_all, shard_for_serving
+
+    qmodel = quantize(load_all(serving_config("none")).model, "w8a8")
+    free_memory()
+    whole = t2i_first_logits(qmodel) if rank == 0 else None
+    out = {}
+    meshes = [(1, world)] + ([(world // 2, 2)] if world >= 4 and world % 2 == 0 else [])
+    for fsdp, tensor in meshes:
+        mesh = make_mesh(fsdp=fsdp, tensor=tensor)
+        sharded = shard_for_serving(serving_config("auto", fsdp, tensor), qmodel, mesh)
+        logits = t2i_first_logits(sharded)
+        if rank == 0:
+            equal = bool(torch.equal(logits, whole))
+            out[str(tuple(mesh.shape))] = dict(
+                equal=equal, max_abs_diff=float((logits - whole).abs().max()))
+            log("12 w8a8", f"the W8A8 8B served over {tuple(mesh.shape)}: the first t2i "
+                f"forward's logits {tuple(logits.shape)} equal to the whole W8A8 model's on one "
+                f"card: {equal} (max |diff| {out[str(tuple(mesh.shape))]['max_abs_diff']:.3e})")
+            if not equal:
+                raise AssertionError(f"12 w8a8 over {tuple(mesh.shape)}: logits differ from "
+                                     f"the whole W8A8 model's")
+        del sharded, logits
+        free_memory()
+    del qmodel, whole
+    free_memory()
     return out
 
 
@@ -4833,6 +5251,174 @@ def t2i_first_logits(model):
     n = T2I_SETTINGS["num_vq_tokens"]
     return model.forward(ids, logit_window=MMADA_8B.image_window,
                          logit_positions=(ids.shape[1] - n - 1, n)).float()
+
+
+def fp32_t2i_first_logits(model):
+    """`t2i_first_logits`' forward in fp32 on the card, the function the bf16
+    logits round (C.8's witness), by the probe script's fp32 forward."""
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from scripts.tensor_sums_probe_torch import fp32_logits
+
+    ids = t2i_frames()
+    n = T2I_SETTINGS["num_vq_tokens"]
+    return fp32_logits(model, ids, dict(logit_window=MMADA_8B.image_window,
+                                        logit_positions=(ids.shape[1] - n - 1, n)))
+
+
+def app_config(mode, fsdp=-1, tensor=1):
+    """12d's config: `serving_config`'s with the app's t2i prompt length,
+    image size and the command lines' keys for APP_* (for the CLIs held
+    against the app over tensor)."""
+    return serving_config(mode, fsdp, tensor).merge({
+        "dataset": {"preprocessing": {"max_seq_length": T2I_SETTINGS["max_text_len"],
+                                      "resolution": APP_RESOLUTION}},
+        "model": {"mmada": {"num_vq_tokens": T2I_SETTINGS["num_vq_tokens"]}},
+        "batch_size": 1, "generation_timesteps": APP_T2I["timesteps"],
+        "guidance_scale": APP_T2I["guidance_scale"],
+        "generation_temperature": APP_T2I["temperature"], "seed": APP_T2I["seed"],
+        "max_new_tokens": APP_MMU["max_new_tokens"], "steps": APP_MMU["steps"],
+        "block_length": APP_MMU["block_length"], "question": MMU_QUESTION,
+        "gen_length": APP_TEXT["gen_length"], "temperature": APP_TEXT["temperature"],
+        "chat": False})
+
+
+def with_masks(model):
+    """The same weights with the frames' masks reaching attention (B2)."""
+    return dataclasses.replace(model, cfg=dataclasses.replace(model.cfg,
+                                                              attention_bias_enabled=True))
+
+
+def app_png() -> str:
+    """12d's /mmu image: APP_RESOLUTION px of seeded noise, as a PNG."""
+    import numpy as np
+
+    import app_torch
+
+    pixels = np.random.default_rng(12).integers(0, 256, (APP_RESOLUTION, APP_RESOLUTION, 3))
+    return app_torch.png_b64(pixels.astype(np.uint8))
+
+
+def app_calls(state, png) -> dict:
+    """`app_torch`'s HTTP server over `state` on 127.0.0.1 (a free port):
+    four concurrent /generate calls released together from a held
+    dispatcher (one batch by /stats), /t2i, /mmu and /generate_stepwise
+    streamed; the answers, the /stats deltas and the seconds. The engine is
+    left running."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    import app_torch
+
+    httpd = app_torch.make_server(state, 0, "127.0.0.1")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if resp.headers.get("Content-Type") == "application/x-ndjson":
+                return [json.loads(line) for line in resp if line.strip()]
+            return json.loads(resp.read())
+
+    text = dict(prompt=TEXT_PROMPTS[0], **APP_TEXT)
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        before = call("/stats")["engine"]
+        state.engine.pause()
+        answers = [None] * 4
+
+        def worker(i):
+            answers[i] = call("/generate", text)["text"]
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        while call("/stats")["engine"]["requests"] < before["requests"] + 4:
+            time.sleep(0.005)
+        state.engine.resume()
+        for th in threads:
+            th.join()
+        out["generate"] = answers
+        after = call("/stats")
+        out["deltas"] = {k: after["engine"][k] - before[k] for k in before}
+        out["mesh"] = after["mesh"]
+        out["t2i"] = call("/t2i", dict(prompt=T2I_PROMPTS[0], **APP_T2I))["image_png_b64"]
+        out["mmu"] = call("/mmu", dict(image_png_b64=png, question=MMU_QUESTION,
+                                       **APP_MMU))["text"]
+        out["stepwise"] = [s["step"] for s in call("/generate_stepwise", dict(
+            text, stream=True, segment_steps=APP_SEGMENT))]
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    # the four rows are one batch; their answers need not be equal over
+    # tensor: NCCL's ring sums each chunk of a buffer in its own rank order,
+    # so identical rows at other offsets may round otherwise (the batch is
+    # held to the command line's batch of the same rows instead)
+    if out["deltas"]["batches"] != 1 or out["deltas"]["batched_requests"] != 4:
+        raise AssertionError(f"12d: four concurrent /generate calls: {out['deltas']}")
+    if len(out["stepwise"]) != APP_TEXT["steps"]:
+        raise AssertionError(f"12d: {len(out['stepwise'])} streamed states")
+    return out
+
+
+def app_launches(n_layers) -> dict:
+    """What `app_calls` launches on the masked 8B: B1 for the batch of four,
+    MMU and the stepwise stream, B2 for t2i (its frames' masks)."""
+    return {"one-pass": (n_layers * (2 * APP_TEXT["steps"] + APP_MMU["steps"]), 0, 0),
+            "one-pass bias": (n_layers * APP_T2I["timesteps"], 0, 0)}
+
+
+def app_answers_equal(a: dict, b: dict) -> dict:
+    return {k: a[k] == b[k] for k in ("generate", "t2i", "mmu", "stepwise")}
+
+
+def parallel_app_phase(loaded, mesh, reset_counts, counts) -> dict:
+    """12d: `app_torch.AppState` (its engine) on the masked 8B of 12b, first
+    without a mesh, then over `mesh` of one rank through the control channel
+    (every model call an event; no follower): `app_calls`' answers equal bit
+    for bit, the launches the schedule's on both. Returns the launches and
+    the seconds."""
+    import app_torch
+    from mmada_tpu_torch.serve.loader import build_prompting, shard_for_serving
+
+    cfg = app_config("auto")
+    n = loaded.model.cfg.n_layers
+    masked = with_masks(loaded.model)
+    base = loaded._replace(prompting=build_prompting(cfg, loaded.tokenizer, loaded.vocab))
+    png = app_png()
+    out = dict(b1=0, b2=0)
+    got = {}
+    for name, model in (("no mesh", masked), ("mesh", shard_for_serving(cfg, masked, mesh))):
+        state = app_torch.AppState(cfg, device="cuda", loaded=base._replace(model=model))
+        try:
+            reset_counts()
+            got[name] = app_calls(state, png)
+            launched = counts()
+        finally:
+            state.stop_engine()
+        expect_launches(f"12d app {name}", launched, app_launches(n))
+        out["b1"] += launched[0][0]
+        out["b2"] += launched[1][0]
+        events = state.engine.channel.seq if state.engine.channel is not None else None
+        log("12d", f"app_torch {name} (mesh {got[name]['mesh']}): 4 concurrent /generate, /t2i, "
+            f"/mmu, /generate_stepwise streamed in {got[name]['seconds']:.2f}s; /stats deltas "
+            f"{got[name]['deltas']}; control-channel events {events}; launches {launched}")
+        if (name == "mesh") != (events is not None and events > 0):
+            raise AssertionError(f"12d {name}: control-channel events {events}")
+        out[f"{name} seconds"] = got[name]["seconds"]
+    same = app_answers_equal(got["mesh"], got["no mesh"])
+    log("12d", f"the app over the one-rank mesh answers as without a mesh: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"12d: answers over the mesh differ: {same}")
+    return out
 
 
 def parallel_train_phase(train, reset_counts, counts) -> dict:
@@ -4939,10 +5525,14 @@ def parallel_serving_phase(reset_counts, counts) -> dict:
                 and torch.equal(out[name][1], out["unsharded"][1])):
             raise AssertionError(f"12b: {name} answers differ from the unsharded model's")
     log("12b", "sharded and pipelined text and t2i answers equal the unsharded model's")
-    del loaded, models
+    del models
+    t = time.perf_counter()
+    app = parallel_app_phase(loaded, mesh, reset_counts, counts)
+    log("12d", f"took {time.perf_counter() - t:.1f}s")
+    del loaded
     free_memory()
-    return dict(b1=sum(launches[k][0][0] for k in ("auto", "pipeline")),
-                b1_unsharded=launches["unsharded"][0][0],
+    return dict(b1=sum(launches[k][0][0] for k in ("auto", "pipeline")) + app["b1"],
+                b1_unsharded=launches["unsharded"][0][0], b2=app["b2"],
                 seconds={k: v[2] for k, v in out.items()})
 
 

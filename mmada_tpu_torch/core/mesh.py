@@ -17,6 +17,10 @@ makes the groups of the joined axes the port reduces over: (data, fsdp), the
 batch's, and (fsdp, tensor), the embedding rows'. `axis_size`, `axis_index`
 and `axis_group` take one axis name or a tuple of them (joined major first).
 
+`control_store` is the serving engine's control channel (`serve/ranks.py`):
+a key-value store on the hosts, beside the collectives' groups, so that
+control never queues behind a card's stream and a wait can time out.
+
 `initialize_distributed` joins the ranks that `torchrun` (or any launcher
 setting `MASTER_ADDR`, `MASTER_PORT`, `WORLD_SIZE`, `RANK`, `LOCAL_RANK`)
 started: NCCL on the card, gloo on the CPU. `make_mesh` with no process group
@@ -48,6 +52,8 @@ Axes = Union[str, Sequence[str], None]
 
 #: seconds a collective may wait for the other ranks before it fails
 DEFAULT_TIMEOUT_S = 600
+#: seconds the serving engine's control channel waits for a rank
+CONTROL_TIMEOUT_S = 30
 
 
 def mesh_shape(n: int, data: int = 1, fsdp: int = -1, tensor: int = 1) -> tuple[int, int, int]:
@@ -114,6 +120,25 @@ def mesh_from_config(cfg, device: DeviceLike = None) -> DeviceMesh:
     p = cfg.get_path("parallel", None) or {}
     return make_mesh(data=int(p.get("data", 1)), fsdp=int(p.get("fsdp", -1)),
                      tensor=int(p.get("tensor", 1)), device=device)
+
+
+def control_store(timeout_s: float = CONTROL_TIMEOUT_S):
+    """A key-value store that every rank of the process group reaches: a TCP
+    store served by rank 0 (on `MASTER_ADDR`, else this host, at a port the
+    system picks; its address sent over the default group, so every rank
+    must call this), whose waits fail after `timeout_s`."""
+    timeout = datetime.timedelta(seconds=timeout_s)
+    address = [None]
+    if dist.get_rank() == 0:
+        host = os.environ.get("MASTER_ADDR") or "127.0.0.1"
+        store = dist.TCPStore(host, 0, dist.get_world_size(), True, timeout=timeout,
+                              wait_for_workers=False)
+        address = [(host, store.port)]
+    dist.broadcast_object_list(address, src=0)
+    if dist.get_rank() != 0:
+        store = dist.TCPStore(address[0][0], address[0][1], dist.get_world_size(), False,
+                              timeout=timeout)
+    return store
 
 
 def single_device_mesh(device: DeviceLike = None) -> DeviceMesh:

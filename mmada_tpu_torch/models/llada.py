@@ -51,9 +51,14 @@ from mmada_tpu_torch.ops.tensor_maps import ROW_FLOATS
 from mmada_tpu_torch.ops.quantization import (
     Int4Tensor,
     QuantizedTensor,
+    RowShards,
+    W8A8Tensor,
+    W8A8TrainTensor,
     is_quantized,
     maybe_matmul,
     multi_matmul,
+    w8a8_matmul,
+    w8a8_ste_matmul,
 )
 from mmada_tpu_torch.core.mesh import FSDP_AXIS, TENSOR_AXIS, axis_group, axis_size
 from mmada_tpu_torch.parallel import collectives as C
@@ -356,9 +361,18 @@ def _row_parallel(x: torch.Tensor, w, tp) -> torch.Tensor:
     fp32 (a bf16 product accumulates in fp32 and is not rounded) and the
     sum is rounded to x's dtype once, as XLA's sharded dot is: the sharded
     forward is then the whole one up to the order of an fp32 sum. A
-    quantized weight's partial, bf16, is summed in fp32 likewise."""
+    quantized weight's partial, bf16, is summed in fp32 likewise; a W8A8
+    weight (served or trained) sums the ranks' exact int32 products and
+    rounds once (`ops/quantization.w8a8_matmul` over `RowShards`): the whole
+    product bit for bit."""
     if tp is None or torch.distributed.get_world_size(tp) == 1:
         return maybe_matmul(x, w)
+    if isinstance(w, (W8A8Tensor, W8A8TrainTensor)):
+        shards = RowShards(max=lambda t: C.all_reduce_max(t, tp),
+                           sum=lambda t: C.all_reduce(t, tp))
+        if isinstance(w, W8A8Tensor):
+            return w8a8_matmul(x, w, shards=shards)
+        return w8a8_ste_matmul(x, w.values, shards=shards)
     if isinstance(w, torch.Tensor) and x.dtype != torch.float32:
         part = _fp32_product(x, w)
     else:
@@ -687,6 +701,9 @@ class _MeshPath:
                 w = C.gather_shards(w, dim, self.fsdp)
         if not is_quantized(leaf):
             return w
+        # a gather along a dim other than the first hands back a strided
+        # view; B6 reads a weight's rows whole (ROADMAP C.9)
+        w = w.contiguous()
         if isinstance(leaf, Int4Tensor):
             scales = leaf.scales
             for dim, axis in enumerate(spec):
@@ -727,6 +744,7 @@ class _MeshPath:
             for dim, axis in enumerate(spec):
                 if axis is not None:
                     w = C.all_gather(w, dim, axis_group(self.mesh, axis))
+            w = w.contiguous()   # as `_gather`'s (ROADMAP C.9)
             head = (Int4Tensor(packed=w, scales=head.scales) if isinstance(head, Int4Tensor)
                     else type(head)(values=w, scales=head.scales))
         else:

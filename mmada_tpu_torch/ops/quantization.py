@@ -19,6 +19,13 @@ calls at every block matmul and in the vocab head):
     trainable weight whose forward runs W8A8 and whose gradients are the
     plain x @ w's (straight-through).
 
+Over a tensor axis a row-parallel W8A8 product (`shards`: each rank holds a
+K-shard of x and of the weight; `RowShards` are the two reductions over
+those ranks, which the caller brings) takes its scales over the whole row as
+JAX's (the absmax reduced with MAX), quantizes its shard, and sums the ranks'
+int32 products (exact in any order) before it rescales and rounds once: bit
+for bit the unsharded product.
+
 The quantized classes index their leading (layer) axis, so
 `llada.layer_params` hands `_block` one layer's weight (`qt[i]`). Stacked
 weights are quantized one layer at a time, which gives the same codes as the
@@ -29,11 +36,19 @@ of the stack's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from mmada_tpu_torch.ops.int4_matmul import int4_matmul, pack_int4, unpack_int4
+
+
+class RowShards(NamedTuple):
+    """A row-parallel product's reductions over the ranks that hold the
+    other K-shards: the elementwise maximum and the sum."""
+
+    max: Callable[[torch.Tensor], torch.Tensor]
+    sum: Callable[[torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -107,9 +122,12 @@ def _per_layer(quant, w: torch.Tensor):
     return type(parts[0])(**{f: torch.stack([getattr(p, f) for p in parts]) for f in fields})
 
 
-def _quantize_tensor(w: torch.Tensor) -> QuantizedTensor:
+def _quantize_tensor(w: torch.Tensor, shards: Optional[RowShards] = None) -> QuantizedTensor:
+    """`shards`: a row-parallel weight's K-shard (its channels' absmax
+    over every shard)."""
     wf = w.float()
-    scales = torch.clamp(wf.abs().amax(dim=-2) / 127.0, min=1e-12)
+    amax = wf.abs().amax(dim=-2)
+    scales = torch.clamp((amax if shards is None else shards.max(amax)) / 127.0, min=1e-12)
     q = torch.clamp(torch.round(wf / scales[..., None, :]), -127, 127)
     return QuantizedTensor(values=q.to(torch.int8), scales=scales)
 
@@ -129,7 +147,19 @@ def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token symmetric int8: (x_q int8, x_scale fp32, keepdims). Split
     out so that q/k/v (and ff/up) quantize their shared input once."""
     xf = x.float()
-    x_scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+    return _codes(xf, xf.abs().amax(dim=-1, keepdim=True))
+
+
+def _row_shard_activations(x: torch.Tensor,
+                            shards: RowShards) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_activations` of this rank's K-shard of each row, at the
+    whole row's scale (the absmax a MAX over the shards)."""
+    xf = x.float()
+    return _codes(xf, shards.max(xf.abs().amax(dim=-1, keepdim=True)))
+
+
+def _codes(xf: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    x_scale = torch.clamp(amax / 127.0, min=1e-12)
     x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
     return x_q, x_scale
 
@@ -160,19 +190,26 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_matmul_prequant(x_q: torch.Tensor, x_scale: torch.Tensor, qw: QuantizedTensor,
-                         out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                         out_dtype: torch.dtype = torch.bfloat16,
+                         shards: Optional[RowShards] = None) -> torch.Tensor:
     """int8 x int8 product on pre-quantized activations, rescaled by (token
-    scale x channel scale) in fp32."""
+    scale x channel scale) in fp32; with `shards` the int32 products of the
+    K-shards are summed first."""
     acc = int8_matmul(x_q.reshape(-1, x_q.shape[-1]), qw.values)
+    if shards is not None:
+        acc = shards.sum(acc)
     acc = acc.reshape(*x_q.shape[:-1], acc.shape[-1])
     out = acc.float() * x_scale * qw.scales
     return out.to(out_dtype)
 
 
-def w8a8_matmul(x: torch.Tensor, qw: QuantizedTensor) -> torch.Tensor:
-    """Per-token dynamic activation quantization + the int8 product."""
-    x_q, x_scale = quantize_activations(x)
-    return w8a8_matmul_prequant(x_q, x_scale, qw, out_dtype=x.dtype)
+def w8a8_matmul(x: torch.Tensor, qw: QuantizedTensor,
+                shards: Optional[RowShards] = None) -> torch.Tensor:
+    """Per-token dynamic activation quantization + the int8 product; with
+    `shards`, a row-parallel product (the module docstring)."""
+    x_q, x_scale = (quantize_activations(x) if shards is None
+                    else _row_shard_activations(x, shards))
+    return w8a8_matmul_prequant(x_q, x_scale, qw, out_dtype=x.dtype, shards=shards)
 
 
 def quantize_tensor_int4(w: torch.Tensor) -> Int4Tensor:
@@ -239,15 +276,19 @@ def multi_matmul(x: torch.Tensor, weights) -> list:
 
 class _W8A8STE(torch.autograd.Function):
     """Forward: per-channel weight and per-token activation int8, the int8
-    product, rescale. Backward: the gradients of the unquantized x @ w."""
+    product, rescale. Backward: the gradients of the unquantized x @ w. With
+    `shards` (a row-parallel K-shard) the forward is the product summed over
+    the shards, and the backward this shard's part of the whole product's
+    gradients (Megatron's g: the summed output's cotangent is every rank's)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, shards=None):
         ctx.save_for_backward(x, w)
-        qw = quantize_tensor(w)
-        x_q, x_scale = quantize_activations(x)
+        qw = _per_layer(lambda t: _quantize_tensor(t, shards), w)
+        x_q, x_scale = (quantize_activations(x) if shards is None
+                        else _row_shard_activations(x, shards))
         return w8a8_matmul_prequant(x_q, x_scale, W8A8Tensor(values=qw.values, scales=qw.scales),
-                                    out_dtype=x.dtype)
+                                    out_dtype=x.dtype, shards=shards)
 
     @staticmethod
     def backward(ctx, g):
@@ -256,12 +297,14 @@ class _W8A8STE(torch.autograd.Function):
         dx = (g.to(dtype) @ w.to(dtype).transpose(-1, -2)).to(x.dtype)
         x2 = x.reshape(-1, x.shape[-1]).to(dtype)
         dw = (x2.transpose(0, 1) @ g.reshape(-1, g.shape[-1]).to(dtype)).to(w.dtype)
-        return dx, dw
+        return dx, dw, None
 
 
-def w8a8_ste_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """W8A8 forward, straight-through gradients to x and w."""
-    return _W8A8STE.apply(x, w)
+def w8a8_ste_matmul(x: torch.Tensor, w: torch.Tensor,
+                    shards: Optional[RowShards] = None) -> torch.Tensor:
+    """W8A8 forward, straight-through gradients to x and w; `shards` as in
+    `w8a8_matmul`."""
+    return _W8A8STE.apply(x, w, shards)
 
 
 def tag_w8a8_ste(params: Any) -> Any:

@@ -79,6 +79,16 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over the group (exact in any order)."""
+    if _size(group) == 1:
+        return x
+    counts["all_reduce_max"] += 1
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def all_reduce_(x: torch.Tensor, group) -> None:
     """`all_reduce` into `x` itself."""
     if _size(group) == 1:

@@ -18,7 +18,8 @@ A dim its axes do not divide falls back to replication on that dim
 GSPMD computes the global function of any layout, but the port's explicit
 tensor-parallel block holds it only where the heads, the kv heads and the
 MLP hidden divide the tensor axis, on a llama block without q/k norms whose
-weights are plain, int8 or int4 (group-aligned shards); elsewhere
+weights are plain, int8, W8A8 (the row-parallel product's scales taken over
+the whole row, `ops/quantization.py`) or int4 (group-aligned shards); elsewhere
 `model_specs` leaves the block's weights replicated over tensor, and the
 block runs whole on every tensor rank.
 
@@ -38,7 +39,6 @@ from mmada_tpu_torch.core.mesh import FSDP_AXIS, TENSOR_AXIS, axis_group, axis_i
 from mmada_tpu_torch.ops.quantization import (
     Int4Tensor,
     QuantizedTensor,
-    W8A8Tensor,
     W8A8TrainTensor,
     is_quantized,
 )
@@ -113,8 +113,6 @@ def tensor_parallel_ok(cfg, tensor: int, blocks: Optional[dict] = None) -> bool:
     if cfg.n_heads % tensor or cfg.effective_n_kv_heads % tensor or cfg.hidden_size % tensor:
         return False
     for name, leaf in (blocks or {}).items():
-        if isinstance(leaf, W8A8Tensor):
-            return False   # per-token activation scales over a row shard
         if isinstance(leaf, Int4Tensor) and name in ROW_PARALLEL:
             # a row shard must hold whole 128-row groups (one group: per-channel)
             if leaf.scales.shape[-2] % tensor:

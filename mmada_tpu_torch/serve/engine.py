@@ -36,23 +36,40 @@ The dispatcher runs its calls under `torch.no_grad()` (grad mode is per
 thread); an error in a call fails the futures of its group or stream.
 `pause()` / `resume()` hold the dispatcher between calls, so a caller can
 queue several requests and release them as one batch.
+
+The stepwise demos (`submit_text_steps`, `submit_t2i_steps`: every step's
+tokens, whole or streamed a chunk at a time through the future's `partial`
+queue) are requests of their own kinds, run solo, so that every model call
+of a server goes through the one dispatcher.
+
+Over a mesh (`model.mesh`) the engine publishes every action that touches
+the model on a control channel before it runs it (`serve/ranks.py`): rank
+0 `start()`s the dispatcher and ranks 1..N-1 `follow()` it, running the
+same calls on their shards. A rank that fails an event alone (rank 0 or a
+follower) or falls behind fails the requests in flight and stops the engine
+(`fault`, `on_fault`); with one rank the channel has no followers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
 import time
+import traceback
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
 
+from mmada_tpu_torch.core.mesh import CONTROL_TIMEOUT_S
 from mmada_tpu_torch.sampling.text import num_transfer_schedule
+from mmada_tpu_torch.serve import ranks
 from mmada_tpu_torch.utils.flops import forward_matmul_flops_per_token
 
 logger = logging.getLogger(__name__)
@@ -134,49 +151,85 @@ class T2MSettings:
     segment_timesteps: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class StepsSettings:
+    """A stepwise demo's sampler keywords (sorted (name, value) pairs) and
+    its chunk: 0 returns the whole trajectory, N > 0 streams it N steps at a
+    time."""
+    kwargs: tuple = ()
+    segment: int = 0
+
+
 @dataclasses.dataclass
 class _Request:
-    kind: str                      # 'text' | 'mmu' | 't2i' | 't2m'
+    kind: str                      # 'text' | 'mmu' | 't2i' | 't2m' | 'text_steps' | 't2i_steps'
     payload: Any                   # prompt / frame ids, or the t2i / t2m tuple
     settings: Any
     future: Future
     seed: int
     enqueue_time: float
+    partial: Optional[queue.Queue] = None   # a streamed demo's windows
+
+
+def _shadow(kind, payload, settings, seed) -> _Request:
+    """A follower's stand-in for one of rank 0's requests (its future is
+    never read)."""
+    return _Request(kind, payload, settings, Future(), seed, 0.0)
 
 
 class _T2ITask:
-    """A chunked t2i or t2m request in flight: `step()` runs one window of
-    its `SegmentedT2IRun` / `SegmentedT2MRun` (the dispatcher's step / done /
-    fail_all protocol)."""
+    """A chunked t2i or t2m request, or a streamed stepwise demo, in flight:
+    `step()` runs one window of its segmented run (the dispatcher's step /
+    done / keep / fail_all protocol); a demo's window (`window(run)`) goes to
+    its request's `partial` queue."""
 
-    def __init__(self, run, grp):
+    def __init__(self, run, grp, window=None):
         self.run = run
         self.grp = grp
+        self.window = window
 
     @property
     def done(self) -> bool:
         return self.run.done
 
+    @property
+    def requests(self) -> list:
+        return list(self.grp)
+
     def step(self):
-        if self.run.step():
-            codes = self.run.codes.cpu().numpy()
-            return [(r, codes[i]) for i, r in enumerate(self.grp)]
-        return []
+        done = self.run.step()
+        if self.window is not None:
+            part = self.window(self.run)
+            for r in self.grp:
+                if r.partial is not None:
+                    r.partial.put(part)
+        if not done:
+            return []
+        if self.window is not None:
+            return [(r, None) for r in self.grp]
+        codes = self.run.codes.cpu().numpy()
+        return [(r, codes[i]) for i, r in enumerate(self.grp)]
 
     def fail_all(self, exc: BaseException):
         for r in self.grp:
             _fail(r.future, exc)
         self.grp = []
 
-    def evict_cancelled(self) -> int:
-        """Abort once every awaiting request is cancelled (the rows share one
-        sampler call)."""
+    def kept_rows(self) -> Optional[list]:
+        """None, or [] once every awaiting request is cancelled (the rows
+        share one sampler call): then the run is aborted."""
         if self.grp and all(r.future.cancelled() for r in self.grp):
-            n = len(self.grp)
-            self.grp = []
+            return []
+        return None
+
+    def keep(self, rows: list) -> int:
+        """Keep `rows` of the group; none aborts the run. Returns the
+        number evicted."""
+        n = len(self.grp) - len(rows)
+        self.grp = [self.grp[i] for i in rows]
+        if not rows:
             self.run.done = True
-            return n
-        return 0
+        return n
 
 
 class _Stream:
@@ -224,6 +277,10 @@ class _Stream:
     @property
     def done(self) -> bool:
         return not self.rows
+
+    @property
+    def requests(self) -> list:
+        return [st["req"] for st in self.rows]
 
     def join(self, req: _Request) -> bool:
         """Admit `req` as a new row; False when the stream is full."""
@@ -287,32 +344,126 @@ class _Stream:
             _fail(st["req"].future, exc)
         self._keep([])
 
-    def evict_cancelled(self) -> int:
-        """Remove the rows whose request was cancelled: the card stops paying
-        for them from the next chunk."""
+    def kept_rows(self) -> Optional[list]:
+        """The rows whose request was not cancelled, or None when that is
+        every row."""
         keep = [i for i, st in enumerate(self.rows) if not st["req"].future.cancelled()]
-        n = len(self.rows) - len(keep)
-        if n:
-            self._keep(keep)
+        return None if len(keep) == len(self.rows) else keep
+
+    def keep(self, rows: list) -> int:
+        """Keep `rows`, evicting the others: the card stops paying for them
+        from the next chunk. Returns the number evicted."""
+        n = len(self.rows) - len(rows)
+        self._keep(rows)
         return n
 
 
-def check_one_rank(model) -> None:
-    """The engine batches on one rank's host loop: a model whose mesh spans
-    more than one rank would need rank 0 to decide each batch and send it to
-    the others (ROADMAP A.12b)."""
-    mesh = getattr(model, "mesh", None)
-    if mesh is not None and mesh.mesh.numel() > 1:
-        raise NotImplementedError(
-            f"the serving engine over a mesh of {mesh.mesh.numel()} ranks is not ported "
-            "(ROADMAP A.12b: rank 0 would decide each batch and broadcast it); serve "
-            "through the command lines, or with parallel.serving=none")
+def _tensor(rows, device) -> torch.Tensor:
+    return torch.as_tensor(np.stack([np.asarray(x).reshape(-1) for x in rows]),
+                           dtype=torch.long).to(device)
+
+
+def _text_window(run) -> np.ndarray:
+    return run.last_states.cpu().numpy()
+
+
+def _t2i_window(run) -> np.ndarray:
+    return run.last_window.cpu().numpy()
+
+
+#: the streamed demos' windows, by kind
+_WINDOWS = {"text_steps": _text_window, "t2i_steps": _t2i_window}
+
+
+def _call(model, kind: str, settings, payloads: list, seeds: list):
+    """The model call of one group (every rank runs it alike): the outputs
+    (numpy, one row a request), or a segmented run that the dispatcher steps
+    a window at a time."""
+    device = model.device
+
+    def gen(seed):
+        return torch.Generator(device).manual_seed(seed)
+
+    def stack(idx):
+        rows = [p[idx] for p in payloads]
+        return None if rows[0] is None else _tensor(rows, device)
+
+    if kind in ("text", "mmu"):
+        gens = [gen(s) for s in seeds] if settings.stochastic else None
+        return model.generate(
+            _tensor(payloads, device), gen_length=settings.gen_length, steps=settings.steps,
+            block_length=settings.block_length, temperature=settings.temperature,
+            cfg_scale=settings.cfg_scale, remasking=settings.remasking, generator=gens,
+            block_kv_cache=settings.block_kv_cache,
+            parallel_threshold=settings.parallel_threshold,
+            parallel_warmup_steps=settings.parallel_warmup_steps,
+            cache_refresh_every=settings.cache_refresh_every,
+        ).cpu().numpy()
+    if kind == "t2i":
+        if settings.segment_timesteps > 0 and settings.block_kv_cache:
+            raise ValueError("segment_timesteps is exact-sampler only — unset block_kv_cache")
+        kw = dict(uncond_input_ids=stack(1), attention_mask=stack(2),
+                  uncond_attention_mask=stack(3), temperature=settings.temperature,
+                  timesteps=settings.timesteps, guidance_scale=settings.guidance_scale,
+                  num_vq_tokens=settings.num_vq_tokens, generator=gen(seeds[0]),
+                  cfg_interval=settings.cfg_interval)
+        if settings.segment_timesteps > 0:
+            # chunked: the dispatcher interleaves other work between windows
+            return model.t2i_segmented_run(stack(0), segment_timesteps=settings.segment_timesteps,
+                                           **kw)
+        return model.t2i_generate(stack(0), block_kv_cache=settings.block_kv_cache,
+                                  cache_refresh_every=settings.cache_refresh_every,
+                                  **kw).cpu().numpy()
+    if kind == "t2m":
+        if settings.segment_timesteps > 0 and settings.block_kv_cache:
+            raise ValueError("segment_timesteps is exact-sampler only — unset block_kv_cache")
+        kw = dict(attention_mask=stack(1), temperature=settings.temperature,
+                  timesteps=settings.timesteps, num_motion_tokens=settings.num_motion_tokens,
+                  generator=gen(seeds[0]))
+        if settings.segment_timesteps > 0:
+            return model.t2m_segmented_run(stack(0), segment_timesteps=settings.segment_timesteps,
+                                           **kw)
+        return model.t2m_generate(stack(0), block_kv_cache=settings.block_kv_cache,
+                                  cache_refresh_every=settings.cache_refresh_every,
+                                  **kw).cpu().numpy()
+    if kind == "text_steps":
+        kw = dict(settings.kwargs)
+        g = gen(seeds[0]) if kw.get("temperature", 0.0) > 0 else None
+        if settings.segment:
+            return model.segmented_stepwise_run(_tensor(payloads, device), generator=g,
+                                                segment_steps=settings.segment, **kw)
+        return model.generate_stepwise(_tensor(payloads, device), generator=g,
+                                       **kw).cpu().numpy()
+    if kind == "t2i_steps":
+        kw = dict(settings.kwargs, uncond_input_ids=stack(1), attention_mask=stack(2),
+                  uncond_attention_mask=stack(3), generator=gen(seeds[0]))
+        if settings.segment:
+            return model.t2i_segmented_run(stack(0), segment_timesteps=settings.segment, **kw)
+        return model.t2i_generate(stack(0), stepwise=True, **kw).cpu().numpy()
+    raise ValueError(kind)
+
+
+def partials(fut: Future) -> Iterator[np.ndarray]:
+    """A streamed demo's windows as the dispatcher runs them, then its
+    end (the future's error raised, if it failed)."""
+    while True:
+        try:
+            yield fut.partial.get(timeout=0.05)
+        except queue.Empty:
+            if fut.done():
+                while not fut.partial.empty():
+                    yield fut.partial.get_nowait()
+                fut.result()
+                return
 
 
 class ServingEngine:
     def __init__(self, model, max_batch: int = 8, max_wait_ms: float = 10.0,
-                 max_queue: int = 256, min_chunk_device_ms: float = 25.0):
-        check_one_rank(model)
+                 max_queue: int = 256, min_chunk_device_ms: float = 25.0,
+                 control_timeout_s: float = CONTROL_TIMEOUT_S):
+        """Over a mesh every rank builds the engine (the control channel is
+        made over the process group); rank 0 then `start()`s it, the others
+        `follow()`."""
         self.model = model
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
@@ -341,12 +492,147 @@ class ServingEngine:
         self._quiescent = True
         # rolling completion latencies per kind (last 256), for /stats
         self._latencies: dict = {}
+        # over a mesh: the control channel, rank 0's own outcome of each
+        # event (the watch reads it), the requests of the action in flight
+        # (a fault fails them), the fault that stopped the engine
+        self.channel = (ranks.Channel(control_timeout_s)
+                        if getattr(model, "mesh", None) is not None else None)
+        self._tasks = itertools.count(1)
+        self._outcomes: dict = {}
+        self._busy: list = []
+        self._watch: Optional[ranks.Watch] = None
+        self._stop_published = False
+        self.fault: Optional[BaseException] = None
+        self.on_fault = None   # called once with the fault (the app exits on it)
+
+    @property
+    def leader(self) -> bool:
+        """Rank 0 (or no mesh): this engine's dispatcher decides."""
+        return self.channel is None or self.channel.leader
 
     # ------------------------------------------------------------ public
     def start(self):
+        if not self.leader:
+            raise RuntimeError(f"rank {self.channel.rank} follows rank 0: call follow()")
+        if self.channel is not None and self.channel.world > 1:
+            self._watch = ranks.Watch(self.channel, self._outcomes.get, self._on_fault)
+            self._watch.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         return self
+
+    def follow(self) -> int:
+        """Ranks 1..N-1: run rank 0's events on this rank's shards until its
+        stop. Returns 0, or 1 when rank 0 stopped for a fault. An event that
+        fails here is reported to rank 0 (with its traceback) and the loop
+        goes on: a request's own error fails on every rank, and rank 0's
+        watch stops every rank when only this one failed. When rank 0 failed
+        alone and left this rank in a collective, the collective's error
+        (once rank 0's process is gone) and then the channel's end the loop
+        with an exception."""
+        if self.leader:
+            raise RuntimeError("rank 0 decides: call start()")
+        tasks: dict = {}
+        with torch.no_grad():
+            while True:
+                seq, event = self.channel.receive()
+                if event[0] == "stop":
+                    return 1 if event[1] else 0
+                try:
+                    self._replay(tasks, event)
+                except Exception:
+                    logger.exception("event %d (%s) failed", seq, event[0])
+                    self.channel.report(seq, traceback.format_exc())
+                    tasks.pop(event[1], None)   # rank 0's task fails (or every rank stops)
+
+    def _replay(self, tasks: dict, event: tuple) -> None:
+        """One of rank 0's events, on this rank's shards."""
+        what, tid = event[0], event[1]
+        if what == "run":
+            _, _, kind, settings, payloads, seeds = event
+            out = _call(self.model, kind, settings, payloads, seeds)
+            if not isinstance(out, np.ndarray):
+                tasks[tid] = _T2ITask(out, [_shadow(kind, p, settings, s) for p, s in
+                                            zip(payloads, seeds)], _WINDOWS.get(kind))
+            return
+        if what == "stream":
+            _, _, kind, settings, prompt_len, max_batch = event
+            tasks[tid] = _Stream(self.model, kind, settings, prompt_len, max_batch)
+            return
+        task = tasks[tid]
+        if what == "join":
+            for payload, seed in zip(event[2], event[3]):
+                task.join(_shadow(task.key[0], payload, task.settings, seed))
+            return
+        if what == "keep":
+            task.keep(event[2])
+        elif what == "step":
+            task.step()
+        else:
+            raise ValueError(f"unknown event {what!r}")
+        if task.done:
+            del tasks[tid]
+
+    @contextlib.contextmanager
+    def _event(self, *event):
+        """Publish `event` to the followers (over a mesh), then run its
+        action here (the with-block); its outcome is kept for the watch.
+        When the action fails here, over several ranks, and not every
+        follower reports a failure of the same event within the channel's
+        timeout, the ranks have parted (`serve/ranks.py`): the engine stops
+        before the error reaches the caller."""
+        if self.channel is None:
+            yield
+            return
+        seq = self.channel.publish(event)
+        try:
+            yield
+        except BaseException:
+            shared = self.channel.world == 1 or self.channel.shared_failure(seq)
+            self._settle(seq, False)
+            if not shared:
+                self._on_fault(ranks.RankFault(
+                    f"rank 0 failed event {seq} ({event[0]}), which not every follower failed "
+                    f"within {self.channel.timeout_s:g}s:\n{traceback.format_exc()}"))
+            raise
+        self._settle(seq, True)
+
+    def _settle(self, seq: int, ok: bool) -> None:
+        self._outcomes[seq] = ok
+        self._outcomes.pop(seq - 4096, None)
+
+    def _on_fault(self, exc: BaseException) -> None:
+        """The ranks have parted (the watch, or `_event`): fail everything
+        in flight and queued, stop, tell the followers, then `on_fault`."""
+        if self.fault is not None:
+            return
+        self.fault = exc
+        self._stop.set()
+        self._gate.set()
+        self._publish_stop()   # before any caller wakes to the failure and exits
+        for r in list(self._busy):
+            _fail(r.future, exc)
+        for task in list(self._active):
+            task.fail_all(exc)
+        self._fail_queued(exc)
+        if self.on_fault is not None:
+            self.on_fault(exc)
+
+    def _publish_stop(self) -> None:
+        with self._stats_lock:
+            first, self._stop_published = not self._stop_published, True
+        if self.channel is not None and first:
+            self.channel.publish(("stop", self.fault is not None))
+        if self._watch is not None:
+            self._watch.halt()
+
+    def _fail_queued(self, exc: BaseException) -> None:
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            _fail(req.future, exc)
 
     @property
     def running(self) -> bool:
@@ -380,14 +666,12 @@ class ServingEngine:
         self._stop.set()
         self._gate.set()
         if self._thread:
-            self._thread.join(timeout=30)
+            # after a fault the dispatcher may wait in a collective a
+            # follower left: it is not waited for
+            self._thread.join(timeout=0 if self.fault is not None else 30)
         # resolve anything still queued so no caller hangs on result()
-        while True:
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            _fail(req.future, RuntimeError("engine stopped"))
+        self._fail_queued(RuntimeError("engine stopped"))
+        self._publish_stop()
 
     def submit_text(self, prompt_ids, settings: TextSettings, seed: int = 0) -> Future:
         return self._submit("text", prompt_ids, settings, seed)
@@ -406,13 +690,36 @@ class ServingEngine:
         return self._submit("t2i", (frame, uncond, attention_mask, uncond_attention_mask),
                             settings, seed)
 
+    def submit_text_steps(self, prompt_ids, seed: int = 0, segment_steps: int = 0,
+                          **sampler) -> Future:
+        """The text sampler's every step (`generate_stepwise`'s keywords in
+        `sampler`; a generator from `seed` when the temperature is above 0):
+        the future holds the `(steps, 1, L)` trajectory, or with
+        `segment_steps` > 0 the chunks' `(W, 1, L)` states go to its
+        `partial` queue as they run (read them with `partials`)."""
+        return self._submit("text_steps", prompt_ids,
+                            StepsSettings(tuple(sorted(sampler.items())), segment_steps), seed)
+
+    def submit_t2i_steps(self, frame, uncond, seed: int = 0, attention_mask=None,
+                         uncond_attention_mask=None, segment_timesteps: int = 0,
+                         **sampler) -> Future:
+        """Every t2i step's codes (`t2i_generate(stepwise=True)`'s keywords
+        in `sampler`), whole or streamed a window at a time, as
+        `submit_text_steps`."""
+        return self._submit("t2i_steps", (frame, uncond, attention_mask, uncond_attention_mask),
+                            StepsSettings(tuple(sorted(sampler.items())), segment_timesteps),
+                            seed)
+
     def _submit(self, kind, payload, settings, seed) -> Future:
         fut: Future = Future()
+        if kind in _WINDOWS and settings.segment:
+            fut.partial = queue.Queue()
         if self._draining or self._stop.is_set():
             fut.set_exception(RuntimeError("engine draining"))
             return fut
         try:
-            self._queue.put_nowait(_Request(kind, payload, settings, fut, seed, time.time()))
+            self._queue.put_nowait(_Request(kind, payload, settings, fut, seed, time.time(),
+                                            getattr(fut, "partial", None)))
         except queue.Full:
             fut.set_exception(RuntimeError("serving queue full — backpressure"))
             return fut
@@ -458,12 +765,13 @@ class ServingEngine:
                 if self._active:
                     self._step_active()
                 self._quiescent = not self._active and self._queue.empty()
-            if not self._active:  # a last flush only if nothing would hang
+            if not self._active and self.fault is None:  # a last flush only if nothing would hang
                 pending = self._collect(block=False)
                 if pending:
                     self._flush(pending)
             while self._active:
-                self._active.popleft().fail_all(RuntimeError("engine stopped"))
+                self._active.popleft().fail_all(self.fault or RuntimeError("engine stopped"))
+            self._publish_stop()
 
     def _collect(self, block: bool) -> list:
         """The queued requests, up to `max_batch`: what is already queued,
@@ -490,18 +798,23 @@ class ServingEngine:
         """Advance the oldest chunked task by ONE chunk, then requeue it
         unless it is done: round-robin at chunk granularity."""
         task = self._active.popleft()
-        evicted = task.evict_cancelled()
-        if evicted:
-            self._bump("cancelled", evicted)
+        rows = task.kept_rows()
+        if rows is not None:
+            with self._event("keep", task.tid, rows):
+                self._bump("cancelled", task.keep(rows))
         if task.done:
             return
         try:
-            finished = task.step()
+            self._busy = task.requests
+            with self._event("step", task.tid):
+                finished = task.step()
             self._bump("chunks")
         except Exception as e:
             logger.exception("chunk failed")
             task.fail_all(e)
             return
+        finally:
+            self._busy = []
         for req, tokens in finished:
             self._record_latency(req)
             _deliver(req.future, tokens)
@@ -515,11 +828,14 @@ class ServingEngine:
             self._bump("cancelled", len(requests) - len(live))
         if not live:
             return
-        # group by (kind, settings, frame length); t2i and t2m run solo (one
-        # generator for the batch would tie a request's codes to its row)
+        # group by (kind, settings, frame length); t2i, t2m and the demos run
+        # solo (one generator for the batch would tie a request's codes to
+        # its row)
         groups: dict = {}
         for r in live:
-            if r.kind == "t2m":
+            if r.kind in _WINDOWS:
+                length, solo = None, id(r)
+            elif r.kind == "t2m":
                 length = (np.asarray(r.payload[0]).shape[-1], r.payload[1] is not None)
                 solo = id(r)
             elif r.kind == "t2i":
@@ -584,81 +900,40 @@ class ServingEngine:
         for stream in self._active:
             if not isinstance(stream, _Stream) or stream.key != skey:
                 continue
-            while reqs and stream.join(reqs[0]):
-                reqs.pop(0)
-                self._bump("stream_joins")
+            n = min(len(reqs), self.max_batch - stream.occupancy)
+            if n > 0:
+                self._join(stream, reqs[:n])
+                reqs = reqs[n:]
+                self._bump("stream_joins", n)
         while reqs:
             take, reqs = reqs[:self.max_batch], reqs[self.max_batch:]
+            # built (and its shapes checked) before the followers are told
             stream = _Stream(self.model, kind, settings, prompt_len, self.max_batch)
-            for r in take:
-                stream.join(r)
+            stream.tid = next(self._tasks)
+            with self._event("stream", stream.tid, kind, settings, prompt_len, self.max_batch):
+                pass
+            self._join(stream, take)
             self._active.append(stream)
 
-    def _tensor(self, rows) -> torch.Tensor:
-        return torch.as_tensor(np.stack([np.asarray(x).reshape(-1) for x in rows]),
-                               dtype=torch.long).to(self.model.device)
+    def _join(self, stream: "_Stream", reqs: list) -> None:
+        with self._event("join", stream.tid, [r.payload for r in reqs], [r.seed for r in reqs]):
+            for r in reqs:
+                stream.join(r)
 
     def _run_monolithic(self, kind, settings, grp):
-        if kind in ("text", "mmu"):
-            prompts = self._tensor([r.payload for r in grp])
-            gens = ([torch.Generator(self.model.device).manual_seed(r.seed) for r in grp]
-                    if settings.stochastic else None)
-            out = self.model.generate(
-                prompts, gen_length=settings.gen_length, steps=settings.steps,
-                block_length=settings.block_length, temperature=settings.temperature,
-                cfg_scale=settings.cfg_scale, remasking=settings.remasking, generator=gens,
-                block_kv_cache=settings.block_kv_cache,
-                parallel_threshold=settings.parallel_threshold,
-                parallel_warmup_steps=settings.parallel_warmup_steps,
-                cache_refresh_every=settings.cache_refresh_every,
-            ).cpu().numpy()
-            for i, r in enumerate(grp):
-                self._record_latency(r)
-                _deliver(r.future, out[i])
-        elif kind == "t2i":
-            def stack(idx):
-                rows = [r.payload[idx] for r in grp]
-                return None if rows[0] is None else self._tensor(rows)
-
-            if settings.segment_timesteps > 0 and settings.block_kv_cache:
-                raise ValueError("segment_timesteps is exact-sampler only — unset block_kv_cache")
-            kw = dict(uncond_input_ids=stack(1), attention_mask=stack(2),
-                      uncond_attention_mask=stack(3), temperature=settings.temperature,
-                      timesteps=settings.timesteps, guidance_scale=settings.guidance_scale,
-                      num_vq_tokens=settings.num_vq_tokens,
-                      generator=torch.Generator(self.model.device).manual_seed(grp[0].seed),
-                      cfg_interval=settings.cfg_interval)
-            if settings.segment_timesteps > 0:
-                # chunked: the dispatcher interleaves other work between windows
-                run = self.model.t2i_segmented_run(
-                    stack(0), segment_timesteps=settings.segment_timesteps, **kw)
-                self._active.append(_T2ITask(run, grp))
-                return
-            codes = self.model.t2i_generate(
-                stack(0), block_kv_cache=settings.block_kv_cache,
-                cache_refresh_every=settings.cache_refresh_every, **kw).cpu().numpy()
-            for i, r in enumerate(grp):
-                self._record_latency(r)
-                _deliver(r.future, codes[i])
-        elif kind == "t2m":
-            frame = self._tensor([grp[0].payload[0]])
-            attn = None if grp[0].payload[1] is None else self._tensor([grp[0].payload[1]])
-            if settings.segment_timesteps > 0 and settings.block_kv_cache:
-                raise ValueError("segment_timesteps is exact-sampler only — unset block_kv_cache")
-            kw = dict(attention_mask=attn, temperature=settings.temperature,
-                      timesteps=settings.timesteps,
-                      num_motion_tokens=settings.num_motion_tokens,
-                      generator=torch.Generator(self.model.device).manual_seed(grp[0].seed))
-            if settings.segment_timesteps > 0:
-                run = self.model.t2m_segmented_run(
-                    frame, segment_timesteps=settings.segment_timesteps, **kw)
-                self._active.append(_T2ITask(run, grp))
-                return
-            codes = self.model.t2m_generate(
-                frame, block_kv_cache=settings.block_kv_cache,
-                cache_refresh_every=settings.cache_refresh_every, **kw).cpu().numpy()
-            for i, r in enumerate(grp):
-                self._record_latency(r)
-                _deliver(r.future, codes[i])
-        else:
-            raise ValueError(kind)
+        tid = next(self._tasks)
+        payloads, seeds = [r.payload for r in grp], [r.seed for r in grp]
+        self._busy = grp
+        try:
+            with self._event("run", tid, kind, settings, payloads, seeds):
+                out = _call(self.model, kind, settings, payloads, seeds)
+        finally:
+            self._busy = []
+        if not isinstance(out, np.ndarray):
+            task = _T2ITask(out, grp, _WINDOWS.get(kind))
+            task.tid = tid
+            self._active.append(task)
+            return
+        for i, r in enumerate(grp):
+            self._record_latency(r)
+            _deliver(r.future, out if kind in _WINDOWS else out[i])

@@ -1,6 +1,6 @@
 """Multi-task masked-diffusion losses: one forward, three weighted CE terms.
 
-Counterpart of `mmada_tpu/training/losses.py` (:35-241). The train batch is
+Counterpart of `mmada_tpu/training/losses.py` (:35-335). The train batch is
 a concat `[t2i rows | lm rows | mmu rows]`; one backbone forward gives the
 hidden states, and
 
@@ -10,6 +10,10 @@ hidden states, and
     lengths (chat SFT): sum CE / (p_mask answer_len) / B, or the reference's
     stage-3 compounding formula with `mode="reference_stage3"`;
   * mmu - sum over masked CE / (p_mask answer_len) / B.
+
+Stage 4 adds an r2i segment (`forward_process_with_r2i`); predict-all-tokens
+training weighs the t2i span (`get_loss_weight`, `weighted_t2i_loss`); the
+class-conditional path takes soft targets (`soft_target_cross_entropy`).
 
 With `loss_chunk > 0` the vocab head runs one position chunk at a time under
 `torch.utils.checkpoint` (the `jax.checkpoint` scan of the JAX package), so
@@ -232,3 +236,77 @@ def loss_weights(input_ids, labels, mask_id, bt, bl, bm, max_seq_length, p_mask_
         weights[2, bt + bl:] = torch.where(
             active, 1.0 / (p_mask_mmu * answer_lengths), zero) / bm
     return weights, lm_factor
+
+
+def soft_target_cross_entropy(
+    logits: torch.Tensor,        # (B, L, V)
+    targets: torch.Tensor,       # (B, L) hard ids with IGNORE_ID padding
+    soft_targets: torch.Tensor,  # (B, L-1, C) distributions over the first C classes
+) -> torch.Tensor:
+    """Soft-label CE skipping the first (class-id) token, averaged over the
+    positions not padded (training/utils.py:53-69 of the reference)."""
+    logits = logits[:, 1:, :soft_targets.shape[-1]]
+    targets = targets[:, 1:]
+    logp = F.log_softmax(logits.float(), dim=-1)
+    loss = -(soft_targets * logp).sum(dim=-1)
+    pad = targets == IGNORE_ID
+    loss = torch.where(pad, torch.zeros_like(loss), loss)
+    denom = torch.clamp((~pad).sum(), min=1)
+    return loss.sum() / denom
+
+
+def get_loss_weight(t: torch.Tensor, mask: torch.Tensor, min_val: float = 0.3) -> torch.Tensor:
+    """Per-position loss weights of predict-all-tokens / random-replace
+    training: unmasked positions decay toward `min_val` as the noise falls
+    (training/utils.py:72-73 of the reference)."""
+    return 1.0 - (1.0 - mask) * ((1.0 - t) * (1.0 - min_val))[:, None]
+
+
+def weighted_t2i_loss(logits, labels, max_seq_length: int,
+                      loss_weight: torch.Tensor) -> torch.Tensor:
+    """The predict-all-tokens t2i loss: the weighted mean CE over the image
+    span."""
+    ce, valid = masked_cross_entropy(logits[:, max_seq_length + 1:],
+                                     labels[:, max_seq_length + 1:])
+    w = loss_weight.float()
+    num = (ce * w * valid).sum()
+    denom = torch.clamp((w * valid).sum(), min=1e-6)
+    return num / denom
+
+
+def forward_process_with_r2i(
+    model,
+    input_ids: torch.Tensor,     # [t2i | lm | mmu | r2i] rows
+    labels: torch.Tensor,
+    batch_size_t2i: int,
+    batch_size_lm: int,
+    batch_size_mmu: int,
+    batch_size_r2i: int,
+    max_seq_length: int,
+    p_mask_lm=None,
+    p_mask_mmu=None,
+    p_mask_r2i=None,
+    answer_lengths=None,
+    answer_lengths_lm=None,
+    answer_lengths_r2i=None,
+    t2i_masks=None,
+    lm_loss_mode: str = "llada",
+):
+    """Stage 4's variant with the r2i (reasoning-to-image) rows, normalised
+    as mmu's: sum CE / (p len) / B (modeling_mmada.py:278-359 of the
+    reference). Returns (logits, loss_t2i, loss_lm, loss_mmu, loss_r2i)."""
+    bt, bl, bm, br = batch_size_t2i, batch_size_lm, batch_size_mmu, batch_size_r2i
+    # t2i and lm through forward_process, its mmu segment off: its tail
+    # slice would take the r2i rows too
+    logits, loss_t2i, loss_lm, _ = forward_process(
+        model, input_ids, labels, batch_size_t2i=bt, batch_size_lm=bl, batch_size_mmu=0,
+        max_seq_length=max_seq_length, p_mask_lm=p_mask_lm, t2i_masks=t2i_masks,
+        answer_lengths_lm=answer_lengths_lm, lm_loss_mode=lm_loss_mode)
+    masked = input_ids == model.vocab.mask_token_id
+    r0 = bt + bl + bm
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss_mmu = (answer_loss(logits[bt + bl:r0], labels[bt + bl:r0], masked[bt + bl:r0],
+                            p_mask_mmu, answer_lengths) if bm else zero)
+    loss_r2i = (answer_loss(logits[r0:r0 + br], labels[r0:r0 + br], masked[r0:r0 + br],
+                            p_mask_r2i, answer_lengths_r2i) if br else zero)
+    return logits, loss_t2i, loss_lm, loss_mmu, loss_r2i

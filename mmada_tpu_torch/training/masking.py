@@ -10,7 +10,9 @@ port is held to the same laws, not the same draws:
   * text (lm) - per-row uniform t, `p_mask = (1 - eps) t + eps`, iid
     Bernoulli masking;
   * mmu - the same law with the prompt positions restored and the answer
-    lengths recorded for the loss normalisation.
+    lengths recorded for the loss normalisation;
+  * eval - the image law from a fixed seed, optionally at fixed ratios
+    (`eval_image_corruption`).
 
 Every draw happens on the tensors' device (the generator must live there),
 with fixed shapes, so corruption adds no host round trip to a train step.
@@ -130,3 +132,32 @@ def mask_answer_tokens(
     answer_len = torch.sum(1 - prompt_mask, dim=-1, keepdim=True)
     answer_lengths = answer_len.expand(input_ids.shape)
     return noisy, p_mask, answer_lengths
+
+
+def eval_image_corruption(
+    seed: int,
+    image_tokens: torch.Tensor,
+    mask_id: int,
+    eval_mask_ratios: Optional[list] = None,
+    mask_schedule: Optional[Callable] = None,
+):
+    """Deterministic eval-time corruption: a generator seeded with `seed` on
+    the tokens' device, and with `eval_mask_ratios` each row's ratio drawn
+    from that list (a second generator, `seed + 1`, as JAX folds 1 into its
+    key); else the schedule's ratio of a uniform t. The reference saves and
+    restores the global RNG state around this (training/utils.py:80-98,
+    168-173); an explicit generator makes that free. Returns
+    `mask_image_tokens`' (input_ids, labels, mask_prob)."""
+    from mmada_tpu_torch.sampling.schedules import cosine_schedule
+
+    device = image_tokens.device
+    generator = torch.Generator(device).manual_seed(seed)
+    override = None
+    if eval_mask_ratios:
+        idx = torch.randint(0, len(eval_mask_ratios), (image_tokens.shape[0],),
+                            generator=torch.Generator(device).manual_seed(seed + 1),
+                            device=device)
+        override = torch.as_tensor(eval_mask_ratios, dtype=torch.float32, device=device)[idx]
+    return mask_image_tokens(generator, image_tokens, mask_id,
+                             mask_schedule=mask_schedule or cosine_schedule,
+                             mask_prob_override=override)

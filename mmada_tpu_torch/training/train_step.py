@@ -33,7 +33,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from mmada_tpu_torch.core.mesh import TENSOR_AXIS, axis_size, world_size
+from mmada_tpu_torch.core.mesh import world_size
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.quantization import tag_w8a8_ste
@@ -169,10 +169,8 @@ class TrainStep:
         self.grads = None
         mesh = model_template.mesh
         if mesh is not None and world_size(mesh) > 1:
-            if sc.forward_quantize == "w8a8" and axis_size(mesh, TENSOR_AXIS) > 1:
-                raise NotImplementedError(
-                    "forward_quantize=w8a8 with a tensor axis above 1: per-token "
-                    "activation scales over row shards (ROADMAP A.12c)")
+            # W8A8 over a tensor axis: the row-parallel products take their
+            # scales over the whole row (`llada._row_parallel`)
             names = [n for n, _ in llada.named_leaves(model_template.params)]
             self.grads = MeshGrads(model_template.cfg, mesh, names)
             inner = getattr(optimizer, "inner", optimizer)   # MultiSteps' inner update

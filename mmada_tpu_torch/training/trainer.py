@@ -22,8 +22,8 @@ after each step (`training.ema.*`), the checkpoint cadence
 `resume()`, the validation hooks on `experiment.generate_every` (logged with
 their traceback, never fatal), the meters' samples/s, data time and batch
 time in each logged line, and `experiment.profile_at_step` as a three-step
-`torch.profiler` trace. The loop's only host sync is the logging read; the
-meters' data time stops before the step and the batch time after the read,
+`torch.profiler` trace (`utils/profiling.trace`). The loop's only host sync
+is the logging read; the meters' data time stops before the step and the batch time after the read,
 and save and hook time are left out of both (`saves` keeps each save's).
 `gradient_checkpointing: auto` is resolved at the first step
 (`training/remat_auto.py`; the decision in `remat_resolved`).
@@ -88,6 +88,7 @@ from mmada_tpu_torch.training.train_step import (
     make_train_step,
     with_grad_accumulation,
 )
+from mmada_tpu_torch.utils import profiling
 from mmada_tpu_torch.utils.logging import MetricsLogger
 from mmada_tpu_torch.utils.meters import AverageMeter
 
@@ -464,19 +465,15 @@ class Trainer:
                     vals["data_time"], vals["batch_time"])
 
     def _start_profile(self):
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.__enter__()
-        return profiler
+        window = profiling.trace(self.profile_dir, f"trace_step{self.profile_at}.json",
+                                 cuda=self.device.type == "cuda")
+        window.__enter__()
+        return window
 
-    def _stop_profile(self, profiler) -> None:
-        profiler.__exit__(None, None, None)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(self.profile_dir, f"trace_step{self.profile_at}.json")
-        profiler.export_chrome_trace(path)
-        logger.info("profile trace written to %s", path)
+    def _stop_profile(self, window) -> None:
+        window.__exit__(None, None, None)
+        logger.info("profile trace written to %s", os.path.join(
+            self.profile_dir, f"trace_step{self.profile_at}.json"))
         return None
 
     # -------------------------------------------------------- validation

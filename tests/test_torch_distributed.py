@@ -22,7 +22,19 @@ functions on the same mesh shapes over 2 or 4 of its 8 CPU devices
     world 1 and at world 2 lands on the uninterrupted run; the three serving
     command lines under two ranks, sharded and pipelined, answer as one;
   * the refusals: pipeline stages of quantized weights or of layers they do
-    not divide, the serving engine over ranks.
+    not divide; the serving engine is served over four ranks;
+  * W8A8 over tensor 2 and 4: the logits equal the unsharded W8A8 forward
+    bit for bit (the row-parallel products sum exact int32 partials); two
+    W8A8 steps over (1,2,2) against JAX's sharded W8A8 step;
+  * the serving engine at world 2 over fsdp and over tensor (rank 0
+    dispatches, rank 1 follows over the control channel): text, a stream
+    joined mid-block, MMU, t2i with CFG, t2m, the stepwise demos, equal to
+    the engine at world 1 and, at T = 0 and greedy, to JAX's engine on its
+    CPU mesh; a cancel and a drain leave no rank waiting; `app_torch` at
+    world 2 answers as at world 1, four concurrent /generate calls one
+    batch; a follower's injected failure fails rank 0's request within the
+    channel's timeout and ends every rank with an error, and so does a
+    failure of rank 0 alone after its first collective.
 """
 
 import dataclasses
@@ -46,6 +58,7 @@ from mmada_tpu.parallel import pipeline as jax_pipeline
 from mmada_tpu.parallel import sharding as jax_sharding
 from mmada_tpu.parallel.ring_attention import ring_attention as jax_ring
 from mmada_tpu.parallel.tp_attention import tp_attention as jax_tp
+from mmada_tpu.serve import engine as jax_engine
 from mmada_tpu.training import optimizers as jax_optimizers
 from mmada_tpu.training import train_step as jax_train_step
 from mmada_tpu_torch.checkpoints.from_jax import named_from_jax, params_from_jax
@@ -64,9 +77,16 @@ WORLD4_SHAPES = [(1, 4, 1), (1, 2, 2), (1, 1, 4), (2, 2, 1)]
 BF16_SHAPE = (1, 1, 4)   # tensor 4: every block's attn_out and ff_out sums four partials
 # fsdp 2 x tensor 2: the bf16 gradients' reduce-scatter and the row-parallel sums
 BF16_STEP_SHAPE = (1, 2, 2)
+W8A8_STEP_SHAPE = (1, 2, 2)
 TRAIN_SHAPES = {2: [(1, 2, 1)], 4: [(1, 2, 2), (2, 2, 1)]}
 SIZES = dict(batch_size_t2i=4, batch_size_lm=4, batch_size_mmu=4, max_seq_length=8)
 TRAIN_VOCAB = dict(text_vocab_size=256, image_codebook_size=64)
+ENGINE_VOCAB = dict(text_vocab_size=256, image_codebook_size=64, motion_codebook_size=32,
+                    motion_special=2)
+ENGINE_SHAPES = [(1, 2, 1), (1, 1, 2)]
+ENGINE_JAX_SHAPE = (1, 1, 2)
+FAULT_TIMEOUT_S = 3.0
+INT4_HEAD_VOCAB = dict(text_vocab_size=320, image_codebook_size=64)   # 384 columns
 # JAX's sharded step compiles for each mesh (about 7 s each here): the
 # data x fsdp mesh unmasked and the fsdp x tensor mesh masked; every run is
 # also held to the port's one-device step, which test_torch_training.py
@@ -149,7 +169,7 @@ def _jax_prepared(jmodel, batch, key):
     return {k: np.asarray(v) for k, v in prepared.items() if v is not None}
 
 
-def _jax_steps(training, masked, shape, bf16=False):
+def _jax_steps(training, masked, shape, bf16=False, forward_quantize="none"):
     """JAX's `make_train_step` over the mesh of `shape` (or one device):
     each step's metrics and the weights after both (fp32), by the port's
     names; `bf16`: the bf16 weights, computed in bf16."""
@@ -164,7 +184,8 @@ def _jax_steps(training, masked, shape, bf16=False):
         params = jax_sharding.shard_params(params, jax_sharding.llada_param_specs(jcfg),
                                            _jmesh(shape))
     state = jax_train_step.TrainState.create(params, opt)
-    step = jax.jit(jax_train_step.make_train_step(jmodel, opt, jax_train_step.StepConfig(**SIZES)))
+    step = jax.jit(jax_train_step.make_train_step(
+        jmodel, opt, jax_train_step.StepConfig(**SIZES, forward_quantize=forward_quantize)))
     metrics = []
     for batch, key in zip(training["batches"], training["keys"]):
         if not masked:
@@ -195,18 +216,29 @@ def _port_world1_steps(training, masked, prepared, bf16=False):
 # ---------------------------------------------------------------- the runs
 
 @pytest.fixture(scope="module")
-def runs(serving, training, tmp_path_factory):
+def runs(serving, training, engine_setup, tmp_path_factory):
     """The worlds one after the other (at most four ranks at once beside
     this process, so that the suite's other workers keep their cores), the
-    references computed while each runs (JAX's sharded functions; the port
-    on one device)."""
+    references computed while each runs (JAX's sharded functions and
+    engine; the port on one device)."""
     out = tmp_path_factory.mktemp("train_cli")
     w4 = W.start(4, _world4_cases(serving, training), tmp_path_factory.mktemp("world4"))
     refs = _serving_references(serving)
-    w4 = w4.join()
-    w2 = W.start(2, _world2_cases(serving, training, out), tmp_path_factory.mktemp("world2"))
     refs.update(_training_references(training, out))
-    return dict(w4=w4, w2=w2.join(), out=out, refs=refs)
+    w4 = w4.join()
+    # the follower's injected failure comes last: it ends both ranks with an
+    # error, after their results are written
+    fault = ("fault", "engine_fault", _engine_case(engine_setup, (1, 1, 2), dict(
+        timeout_s=FAULT_TIMEOUT_S)))
+    w2 = W.start(2, _world2_cases(serving, training, out, engine_setup) + [fault],
+                 tmp_path_factory.mktemp("world2"), exit_codes=[1, 1])
+    # rank 0's own failure ends its two ranks too: a spawn of its own, beside
+    # the world-2 one
+    lead = W.start(2, [("leader_fault", "engine_leader_fault", _engine_case(
+        engine_setup, (1, 1, 2), dict(timeout_s=FAULT_TIMEOUT_S)))],
+        tmp_path_factory.mktemp("world2_leader_fault"), exit_codes=[1, 1])
+    refs.update(_engine_references(serving, engine_setup))
+    return dict(w4=w4, w2=w2.join(), lead=lead.join(), out=out, refs=refs)
 
 
 @pytest.fixture(scope="module")
@@ -258,14 +290,34 @@ def _world4_cases(serving, training):
     for scheme in (None, "int4"):
         cases.append((f"round_trip_{scheme}", "round_trip",
                       dict(common, shape=(1, 2, 2), quantize=scheme)))
+    cases.append(("fwd_w8a8_t4", "forward", dict(common, shape=(1, 1, 4), ids=s["ids"],
+                                                 quantize="w8a8")))
+    name, kind, kw = _train_case(training, W8A8_STEP_SHAPE, False)
+    cases.append(("train_w8a8", kind, dict(kw, sizes=dict(SIZES, forward_quantize="w8a8"))))
     return cases
 
 
-def _world2_cases(serving, training, out):
+def _world2_cases(serving, training, out, engine_setup):
     """Two ranks: the pipeline of 2 stages, the pipelined and cached samplers,
-    the (1,2,1) steps, the Trainer's fit, the serving command lines, and the
-    training command line's save at step 2 beside its uninterrupted run."""
+    the (1,2,1) steps, the Trainer's fit, the serving command lines, the
+    training command line's save at step 2 beside its uninterrupted run, the
+    W8A8 forward over tensor 2, the engine over fsdp and tensor, the app."""
     s, cases = serving, []
+    common = dict(cfg=_cfg_dict(s["jcfg"]), params=s["np_params"], vocab={})
+    cases.append(("fwd_w8a8_t2", "forward", dict(common, shape=(1, 1, 2), ids=s["ids"],
+                                                 quantize="w8a8")))
+    wide = _wide_int4()
+    cases.append(("fwd_int4_t2", "forward", dict(cfg=_cfg_dict(wide["jcfg"]),
+                                                 params=wide["np_params"], vocab={},
+                                                 shape=(1, 1, 2), ids=s["ids"], quantize="int4")))
+    head = _wide_int4(INT4_HEAD_VOCAB)
+    for shape in ((1, 2, 1), (1, 1, 2)):
+        cases.append((f"int4_operands{shape}", "int4_operands",
+                      dict(cfg=_cfg_dict(head["jcfg"]), params=head["np_params"],
+                           vocab=INT4_HEAD_VOCAB, shape=shape)))
+    for shape in ENGINE_SHAPES:
+        cases.append((f"engine{shape}", "engine_script", _engine_case(engine_setup, shape)))
+    cases.append(("app", "app_http", _app_case(["parallel.fsdp=1", "parallel.tensor=2"])))
     common = dict(cfg=_cfg_dict(s["jcfg"]), params=s["np_params"], vocab={})
     cases.append(("pipe2", "forward", dict(common, shape=(1, 2, 1), ids=s["ids"], pipeline=True,
                                            logit_window=(100, 260))))
@@ -289,6 +341,10 @@ def _world2_cases(serving, training, out):
 def _serving_references(serving):
     """What the ranks' forwards and samplers are held to, computed here."""
     refs = {f"fwd{shape}": _jax_forward(serving, shape) for shape in WORLD4_SHAPES}
+    from mmada_tpu_torch.entry import quantize
+
+    w8a8 = quantize(_port_model(serving["np_params"], serving["jcfg"]), "w8a8")
+    refs["fwd_w8a8"] = w8a8.forward(torch.from_numpy(serving["ids"]).long()).numpy()
     refs["fwd_masked"] = _jax_forward(serving, (1, 2, 2), mask=serving["mask"])
     refs["fwd_int8"] = _jax_forward(serving, (1, 2, 2), quantize="int8")
     refs["fwd_ring"] = _jax_forward(serving, (1, 4, 1), attn_impl="ring")
@@ -317,6 +373,7 @@ def _training_references(training, out):
         refs[("one", masked)] = _port_world1_steps(training, masked, _prepared(training, masked))
     for shape in (BF16_STEP_SHAPE, None):
         refs[("jax_bf16", shape)] = _jax_steps(training, False, shape, bf16=True)
+    refs["jax_w8a8"] = _jax_steps(training, False, W8A8_STEP_SHAPE, forward_quantize="w8a8")
     refs["one_bf16"] = _port_world1_steps(training, False, _prepared(training, False), bf16=True)
     refs["one_fp32_on_bf16"] = _port_world1_steps(training, False, _prepared(training, False),
                                                   bf16="weights")
@@ -815,11 +872,17 @@ def test_serving_clis_answer_over_ranks_as_one(world2, refs):
                 np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
 
 
-def test_refusals_over_ranks(world4):
+def test_refusals_over_ranks(world4, serving):
+    """The pipeline's refusals stay; the serving engine over four ranks is
+    served: rank 0's greedy answer is the unsharded model's, the followers
+    end on rank 0's stop."""
     got = world4[0]["refusals"]
     assert "unquantized" in got["pipeline_quantized"]
     assert "3 layers do not divide" in got["pipeline_layers"]
-    assert got["engine"].startswith("NotImplementedError") and "A.12b" in got["engine"]
+    model = _port_model(serving["np_params"], serving["jcfg"])
+    want = model.generate(torch.from_numpy(W.REFUSAL_PROMPT)[None], **W.REFUSAL_TEXT)[0]
+    np.testing.assert_array_equal(got["engine"], want.numpy())
+    assert [r["refusals"]["engine"] for r in world4[1:]] == [0, 0, 0]
 
 
 @pytest.mark.parametrize("scheme", [None, "int4"])
@@ -842,3 +905,288 @@ def test_gather_params_round_trip(world4, serving, scheme):
             np.testing.assert_array_equal(got["params"][path], w, err_msg=path)
         assert got["local"][key].size * (2 if scheme else 4) == want[key].size
 
+
+
+# ------------------------------------------------------------------ W8A8
+
+@pytest.mark.parametrize("case", ["fwd_w8a8_t2", "fwd_w8a8_t4"])
+def test_w8a8_tensor_parallel_logits_equal_unsharded(world4, world2, refs, case):
+    """W8A8 weights over tensor 2 and 4: each row-parallel product takes its
+    per-token scale over the whole row (a MAX over the tensor ranks) and
+    sums the ranks' exact int32 products before it rescales, so the logits
+    are the unsharded W8A8 forward's bit for bit."""
+    ranks = world2[0] if case.endswith("t2") else world4
+    for rank in ranks:
+        np.testing.assert_array_equal(rank[case]["logits"], refs["fwd_w8a8"])
+    assert ranks[0][case]["collectives"]["all_reduce_max"] > 0
+
+
+def test_int4_tensor_parallel_logits_match_unsharded(world2, refs):
+    """int4 weights whose row-parallel shards hold whole 128-row groups run
+    the tensor-parallel block (two sums a layer) and give the unsharded int4
+    forward's logits within the sharded forwards' fp32 bar."""
+    for rank in world2[0]:
+        got = rank["fwd_int4_t2"]
+        np.testing.assert_allclose(got["logits"], refs["fwd_int4"], **FWD_TOL)
+        assert got["collectives"]["all_reduce"] == 2 * 2
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1), (1, 1, 2)])
+def test_int4_operands_over_ranks_take_b6(world2, shape):
+    """ROADMAP C.9: every int4 operand the mesh path hands B6 (the first
+    layer's block weights after their fsdp gather, the vocab head gathered
+    whole) passes B6's operand check, which needs each row's bytes
+    contiguous. A gather along a weight's second dim (the row-parallel
+    weights' fsdp shards, the head's tensor shards) gave a strided view,
+    which the card refused ("x, packed and scales need a contiguous last
+    dim") and the CPU's plain version never checked."""
+    for rank in world2[0]:
+        checks = rank[f"int4_operands{shape}"]["checks"]
+        assert "head" in checks and "attn_out" in checks and "ff_out" in checks
+        assert checks == {name: None for name in checks}, checks
+
+
+def test_w8a8_sharded_steps_match_jax(world4, refs):
+    """Two W8A8 (straight-through) steps over (1,2,2) against JAX's sharded
+    W8A8 step on the same mesh and batches: the losses within 1e-4 and the
+    grad norms within a bf16 ulp (the bf16 C.8 test's bars), every weight
+    within the sharded steps' tolerance."""
+    metrics, params = refs["jax_w8a8"]
+    for rank in world4:
+        got = rank["train_w8a8"]
+        for i in range(2):
+            np.testing.assert_allclose(got["metrics"][i]["loss"], metrics[i]["loss"], rtol=1e-4)
+            np.testing.assert_allclose(got["metrics"][i]["grad_norm"], metrics[i]["grad_norm"],
+                                       rtol=2 ** -8)
+        for n, want in params.items():
+            np.testing.assert_allclose(got["params"][n], want, err_msg=n, **STEP_TOL)
+    # the quantized forward computes another loss than the plain step
+    assert metrics[0]["loss"] != refs[("one", False)][0][0]["loss"]
+
+
+# ------------------------------------------------------------------ engine
+
+@pytest.fixture(scope="module")
+def engine_setup():
+    """A 2-layer GQA model (4 heads over 2 kv heads: tensor 2 splits both)
+    with the image and motion codes, weights 8x the init's (greedy tokens
+    that vary along a span), and the engine's requests."""
+    jvocab = jax_tiny_layout(**ENGINE_VOCAB)
+    jcfg = jax_llada.tiny_config(vocab_size=jvocab.total_vocab_size, d_model=32, n_heads=4,
+                                 n_kv_heads=2, n_layers=2, mlp_hidden_size=64)
+    jcfg = dataclasses.replace(jcfg, mask_token_id=jvocab.mask_token_id)
+    jparams = jax.tree.map(lambda w: w * 8, jax_llada.init_params(jax.random.key(3), jcfg))
+    vocab = tiny_layout(**ENGINE_VOCAB)
+    rng = np.random.default_rng(7)
+    n_img, n_motion = 16, 8
+    frame = np.concatenate([rng.integers(3, 200, 6), [250], np.full(n_img, vocab.mask_token_id),
+                            [251]]).astype(np.int64)
+    uncond = frame.copy()
+    uncond[:6] = vocab.pad_token_id
+    t2m = np.concatenate([rng.integers(3, 200, 5), [240],
+                          np.full(n_motion, vocab.mask_token_id), [241]]).astype(np.int64)
+    inputs = dict(
+        prompts=[rng.integers(3, 200, 7).astype(np.int64) for _ in range(4)],
+        mmu=rng.integers(3, 200, 20).astype(np.int64),
+        text=dict(gen_length=16, steps=8, block_length=8, temperature=0.0), segment=1,
+        frame=frame, uncond=uncond,
+        t2i=dict(timesteps=4, guidance_scale=1.5, temperature=0.0, num_vq_tokens=n_img),
+        t2m_frame=t2m, t2m=dict(timesteps=4, temperature=0.0, num_motion_tokens=n_motion))
+    return dict(jcfg=jcfg, jparams=jparams, jvocab=jvocab, np_params=_np_tree(jparams),
+                inputs=inputs)
+
+
+def _engine_case(setup, shape, extra=None):
+    return dict(cfg=_cfg_dict(setup["jcfg"]), params=setup["np_params"], vocab=ENGINE_VOCAB,
+                shape=shape, inputs=setup["inputs"], **(extra or {}))
+
+
+def _app_case(parallel):
+    import app_torch
+
+    pixels = np.random.default_rng(8).uniform(0, 255, (16, 16, 3)).astype(np.uint8)
+    return dict(argv=[f"config={TINY}", "device=cpu", "model.mmada.num_vq_tokens=16",
+                      "dataset.preprocessing.resolution=16"] + parallel,
+                png=app_torch.png_b64(pixels), prompt="a red fox")
+
+
+def _wide_int4(vocab=None):
+    """A 2-layer model whose int4 block weights hold two or more 128-row
+    groups (d_model 256, MLP 512): tensor 2 shards the row-parallel weights
+    in whole groups, so the int4 blocks run tensor-parallel (B6's dispatch on
+    each shard). `vocab`: `tiny_layout`'s keywords (INT4_HEAD_VOCAB: a head
+    of 384 columns, B6's layout)."""
+    jvocab = jax_tiny_layout(**(vocab or {}))
+    jcfg = jax_llada.tiny_config(vocab_size=jvocab.total_vocab_size, d_model=256, n_heads=4,
+                                 n_layers=2, mlp_hidden_size=512)
+    jcfg = dataclasses.replace(jcfg, mask_token_id=jvocab.mask_token_id)
+    jparams = jax_llada.init_params(jax.random.key(6), jcfg)
+    return dict(jcfg=jcfg, np_params=_np_tree(jparams))
+
+
+def _engine_references(serving, setup):
+    """The engine script at world 1 (the port without a mesh), JAX's engine
+    on its CPU mesh at T = 0 (t2i and t2m greedy, as the ranks'), and the
+    app at world 1; computed while world 2 runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        refs = {"engine_one": W.engine_script(**_engine_case(setup, None)),
+                "app_one": W.app_http(**_app_case([]))}
+        from mmada_tpu_torch.entry import quantize
+
+        wide = _wide_int4()
+        refs["fwd_int4"] = quantize(_port_model(wide["np_params"], wide["jcfg"]), "int4").forward(
+            torch.from_numpy(serving["ids"]).long()).numpy()
+    finally:
+        torch.set_num_threads(n)
+    refs["engine_jax"] = _jax_engine(setup)
+    return refs
+
+
+def _jax_engine(setup):
+    """JAX's ServingEngine over its (1,1,2) mesh on the same weights: the
+    text batch, both stream rows, MMU, t2i (CFG) and t2m, at T = 0; its t2i
+    and t2m samplers called at greedy."""
+    import functools
+    from unittest import mock
+
+    inputs, jcfg = setup["inputs"], setup["jcfg"]
+    mesh = _jmesh(ENGINE_JAX_SHAPE)
+    params = jax_sharding.shard_params(setup["jparams"], jax_sharding.llada_param_specs(jcfg),
+                                       mesh)
+    jmodel = JaxMMadaModel(cfg=jcfg, params=params, vocab=setup["jvocab"], mesh=mesh)
+
+    @functools.partial(jax.jit, static_argnames=("settings",))
+    def t2i(model, frames, unconds, attns, uncond_attns, settings, key):
+        return model.t2i_generate(
+            frames, uncond_input_ids=unconds, attention_mask=attns,
+            uncond_attention_mask=uncond_attns, temperature=settings.temperature,
+            timesteps=settings.timesteps, guidance_scale=settings.guidance_scale,
+            num_vq_tokens=settings.num_vq_tokens, key=key, greedy=True)
+
+    @functools.partial(jax.jit, static_argnames=("settings",))
+    def t2m(model, frames, attns, settings, key):
+        return model.t2m_generate(frames, attention_mask=attns, temperature=settings.temperature,
+                                  timesteps=settings.timesteps,
+                                  num_motion_tokens=settings.num_motion_tokens, key=key,
+                                  greedy=True)
+
+    with mock.patch.object(jax_engine, "_jit_t2i", t2i), \
+            mock.patch.object(jax_engine, "_jit_t2m", t2m):
+        engine = jax_engine.ServingEngine(jmodel, min_chunk_device_ms=0, max_wait_ms=50).start()
+        try:
+            text = jax_engine.TextSettings(**inputs["text"])
+            chunked = dataclasses.replace(text, segment_steps=inputs["segment"])
+            futs = {"text": [engine.submit_text(p, text) for p in inputs["prompts"]],
+                    "stream": [engine.submit_text(p, chunked) for p in inputs["prompts"][:2]],
+                    "mmu": engine.submit_mmu(inputs["mmu"], text),
+                    "t2i": engine.submit_t2i(inputs["frame"], inputs["uncond"],
+                                             jax_engine.T2ISettings(**inputs["t2i"])),
+                    "t2m": engine.submit_t2m(inputs["t2m_frame"],
+                                             jax_engine.T2MSettings(**inputs["t2m"]))}
+            return {k: ([np.asarray(f.result(timeout=300)) for f in v] if isinstance(v, list)
+                        else np.asarray(v.result(timeout=300))) for k, v in futs.items()}
+        finally:
+            engine.stop()
+
+
+def _assert_same(got, want, key):
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), key
+        for g, w in zip(got, want):
+            _assert_same(g, w, key)
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=key)
+
+
+ENGINE_ANSWERS = ["text", "stochastic", "stream", "mmu", "t2i", "t2i_windows", "t2m",
+                  "text_steps", "text_steps_streamed", "t2i_steps", "t2i_steps_streamed",
+                  "after_cancel"]
+
+
+@pytest.mark.parametrize("shape", ENGINE_SHAPES)
+def test_engine_over_two_ranks_equals_world_one(world2, refs, shape):
+    """Rank 0 dispatches, rank 1 follows: every answer (greedy and seeded
+    stochastic rows, the joined stream, MMU, t2i whole and in windows, t2m,
+    the demos whole and streamed, the request after a cancel) equals the
+    engine's at world 1, the counters too; the follower ends on the drain's
+    stop, having taken every event."""
+    lead, follower = (rank[f"engine{shape}"] for rank in world2[0])
+    one = refs["engine_one"]
+    for key in ENGINE_ANSWERS:
+        _assert_same(lead[key], one[key], key)
+    counters = ("requests", "batches", "batched_requests", "stream_joins", "cancelled")
+    assert {k: lead["stats"][k] for k in counters} == {k: one["stats"][k] for k in counters}
+    assert lead["stream_joins"] == 1 and lead["stats"]["cancelled"] == 1
+    assert follower == {"follow": 0, "events": lead["events"]} and lead["events"] > 20
+    assert not np.array_equal(lead["stochastic"][0], lead["stochastic"][1])
+    # the streamed demos are the whole trajectories, chunk after chunk
+    np.testing.assert_array_equal(lead["text_steps_streamed"], lead["text_steps"])
+    np.testing.assert_array_equal(lead["t2i_steps_streamed"], lead["t2i_steps"])
+
+
+def test_engine_over_two_ranks_equals_jax_engine(world2, refs):
+    """At T = 0 (t2i and t2m greedy) the port's engine over fsdp 2 and
+    tensor 2 gives JAX's engine's tokens over its (1,1,2) CPU mesh: the text
+    batch, the stream rows, MMU, t2i with CFG (whole and in windows) and
+    t2m."""
+    jax_out = refs["engine_jax"]
+    for shape in ENGINE_SHAPES:
+        got = world2[0][0][f"engine{shape}"]
+        for i, want in enumerate(jax_out["text"]):
+            np.testing.assert_array_equal(got["text"][i], want)
+        for i, want in enumerate(jax_out["stream"]):
+            np.testing.assert_array_equal(got["stream"][i], want)
+        for key, want in (("mmu", jax_out["mmu"]), ("t2i", jax_out["t2i"]),
+                          ("t2i_windows", jax_out["t2i"]), ("t2m", jax_out["t2m"])):
+            np.testing.assert_array_equal(got[key], want, err_msg=key)
+        assert len(set(got["t2i"].tolist())) > 1 and len(set(got["t2m"].tolist())) > 1
+
+
+def test_app_over_two_ranks_answers_as_world_one(world2, refs):
+    """`app_torch` with its loader's model over tensor 2 (rank 0 serves HTTP,
+    rank 1 follows): /generate, /generate_stepwise (whole and streamed),
+    /t2i and /mmu answer as the app at world 1; four concurrent /generate
+    calls run as one batch."""
+    lead, follower = (rank["app"] for rank in world2[0])
+    one = refs["app_one"]
+    assert lead["mesh"] == {"data": 1, "fsdp": 1, "tensor": 2} and one["mesh"] is None
+    assert lead["health"] == {"status": "ok"}
+    for key in ("generate", "stepwise", "stepwise_stream", "t2i", "mmu", "concurrent"):
+        assert lead[key] == one[key], key
+    assert lead["stepwise_stream"] == lead["stepwise"]
+    assert lead["concurrent"] == [lead["generate"]] * 4
+    assert lead["deltas"]["batches"] == 1 and lead["deltas"]["batched_requests"] == 4
+    assert follower == {"follow": 0}
+
+
+def test_follower_failure_fails_rank_zero_within_the_timeout(world2):
+    """A follower whose t2i call raises: rank 0's t2i request fails with the
+    follower's traceback within the channel's timeout (plus its polling),
+    the engine stops (later requests fail at once), and both ranks exit
+    with an error; the text request before it was served."""
+    lead, follower = (rank["fault"] for rank in world2[0])
+    assert lead["text"].shape == (7 + 16,)
+    assert lead["error"] is not None and "injected follower failure" in lead["error"]
+    assert "rank 1 failed event" in lead["error"]
+    assert FAULT_TIMEOUT_S <= lead["seconds"] < FAULT_TIMEOUT_S + 5, lead["seconds"]
+    assert lead["late"] == "RuntimeError" and lead["running"] is False
+    assert follower["follow"] == 1
+
+
+def test_rank_zero_failure_stops_every_rank(runs):
+    """Rank 0's t2i call fails after its first collective, the follower
+    left in the next one: no follower reports the failure, so rank 0 stops
+    the engine within the channel's timeout instead of serving on with the
+    ranks out of step (its later requests fail at once), and the follower
+    ends with an error once rank 0's process is gone; both ranks exit with
+    an error."""
+    lead, follower = (rank["leader_fault"] for rank in runs["lead"])
+    assert lead["text"].shape == (7 + 16,)
+    assert lead["sums"] == 2
+    assert lead["error"] is not None and "RankFault" in lead["error"]
+    assert "rank 0 failed event" in lead["error"] and "injected rank-0 failure" in lead["error"]
+    assert FAULT_TIMEOUT_S <= lead["seconds"] < FAULT_TIMEOUT_S + 5, lead["seconds"]
+    assert lead["late"] == "RuntimeError" and lead["running"] is False
+    assert follower["follow"] is None and follower["error"] is not None

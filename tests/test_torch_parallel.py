@@ -217,8 +217,10 @@ def test_shard_params_matches_jax_shards(shape, scheme):
 def test_model_specs_keep_tensor_parallelism_only_where_it_holds():
     """The port's own rule: a block runs tensor-parallel only where heads,
     kv heads and MLP hidden divide the axis, on a llama block without q/k
-    norms, and with no W8A8 weight or int4 row shard that cuts a group;
-    otherwise its weights replicate over tensor (fsdp is kept)."""
+    norms, and with no int4 row shard that cuts a group; otherwise its
+    weights replicate over tensor (fsdp is kept). W8A8 weights run
+    tensor-parallel: a row-parallel product takes its scales over the whole
+    row."""
     mesh = FakeMesh((1, 2, 2))
     cfg = llada.tiny_config(d_model=256, n_heads=4, mlp_hidden_size=512)
 
@@ -233,7 +235,7 @@ def test_model_specs_keep_tensor_parallelism_only_where_it_holds():
     params = llada.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     assert tensor_in_blocks(cfg, Q.quantize_llada_params(params, bits=4))
     assert tensor_in_blocks(cfg, Q.quantize_llada_params(params))
-    assert not tensor_in_blocks(cfg, Q.quantize_llada_params(params, activations=True))
+    assert tensor_in_blocks(cfg, Q.quantize_llada_params(params, activations=True))
     small = llada.tiny_config(d_model=64, n_heads=4, mlp_hidden_size=128)
     small_params = llada.init_params(small, device="cpu",
                                      generator=torch.Generator().manual_seed(0))

@@ -1,7 +1,7 @@
 """The port's serving engine on the CPU at tiny sizes.
 
-The cases of `tests/test_serve.py` (but the mesh cases, which wait for
-sharded serving, ROADMAP A.12; the engine's t2m is held in
+The cases of `tests/test_serve.py` (but the mesh cases, which run over
+ranks in tests/test_torch_distributed.py; the engine's t2m is held in
 tests/test_torch_t2m.py).
 At T = 0 the engine's answers are held against the JAX model's `generate` on
 the same weights; stochastic answers against the port's solo runs with the

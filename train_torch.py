@@ -44,8 +44,8 @@ of `parallel.{data,fsdp,tensor}` (the Trainer's mesh path); the config's
 batch sizes are the global batch and each rank's loader yields its rows of
 it (`build_dataloader`); rank 0 writes the config, the metrics, the
 checkpoints (in the single-process layout: a run resumes at any world size)
-and the hooks' files. Refused over more than one rank, naming the ROADMAP
-item: t2m training (A.12c: JAX's `train_t2m` runs on one device) and
+and the hooks' files. Refused over more than one rank, as the JAX package
+has neither: t2m training (JAX's `train_t2m` runs on one device) and
 `parallel.serving: pipeline` (stages serve; they do not train).
 """
 
@@ -134,16 +134,15 @@ def _ranks() -> int:
 
 
 def check_supported(cfg) -> None:
-    """Refuse what the port does not train over several ranks, naming its
-    ROADMAP item."""
+    """Refuse what neither package trains over several ranks."""
     if _ranks() <= 1:
         return
     if cfg.get_path("training.task") == "t2m":
-        raise NotImplementedError("t2m training over more than one rank is not ported "
-                                  "(ROADMAP A.12c; JAX's train_t2m runs on one device)")
+        raise NotImplementedError("t2m training runs on one rank, as JAX's train_t2m runs on "
+                                  "one device")
     if str(cfg.get_path("parallel.serving", "auto")).lower() == "pipeline":
         raise NotImplementedError("parallel.serving=pipeline: pipeline stages serve and do "
-                                  "not train (ROADMAP A.12c); training shards with "
+                                  "not train, as in JAX; training shards with "
                                   "parallel.{data,fsdp,tensor}")
 
 
