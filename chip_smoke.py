@@ -102,6 +102,18 @@ ImageReward-v1.0 through `inference_t2i_torch`'s scoring (13a),
 reconstruction eval in `train_motion_vq_torch` (13c) and the SMPL fit of a
 generated clip (13d), each held against the fp32 CPU run of the same
 weights (EVAL_REL and the SMPL bars).
+Phase 14 is fp32 and every head width (A.17): the CUDA-core kernels B7
+(forward, both tiers), B8-dq, B8-dkv and B6-f32 (int4 with fp32 x) against
+their plain versions with their times (14a: fp32 at D 16-256, bf16 at D 96,
+256 and 512, biased, with RoPE, rectangular, 8,192 tokens, the t2i CFG frame;
+B6-f32 at the 8B's shapes; no spill in their SASS), then
+configs/tiny_test.yaml (fp32, 16-wide heads) through the command lines'
+`load` / `run` on the card token-exact against the CPU and `train_torch`'s
+trainer for 2 steps against the CPU's (14b), the full-width 8B under FP32
+(one t2i forward and a text request through B7, against the plain
+attention's fp32 logits) and its int4 form through B6-f32 (14c), and 256-wide
+heads at the 8B's widths (a masked t2i forward and train step against fp32,
+14d); B7, B8 and B6-f32 launch on none of phases 2-13.
 It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
@@ -294,6 +306,26 @@ CKPT_RSS_GROWTH = 4 * 10**9
 # fp32 sums straddle a rounding, and that spreads through 32 layers of bf16
 # activations, so one t2i forward's logits are held normwise
 INT4_MODEL_REL_L2 = 2e-2
+# phase 14 (A.17): B7, B8 and B6-f32 are fp32 FFMA kernels. In fp32 they sum
+# in another order than their plain versions and nothing else: the forward
+# within 1e-5 absolute (|out| ~ 1), the gradients within 1e-5 of their
+# largest entry, B6-f32 within 1e-5 of its output's largest entry; in bf16
+# they take phase 3's bars at D 128 (the one-pass tier: KERNEL_ATOL /
+# KERNEL_RTOL and B1_DIFFER_SHARE, GRAD_REL_L2 / GRAD_MAX_REL; the long tier:
+# within_one_ulp and long_grad_error)
+GENERIC_FWD_ATOL = 1e-5
+GENERIC_GRAD_REL = 1e-5
+GENERIC_INT4_REL = 1e-5
+# the fp32 8B through B7 against the same weights' forward with the plain
+# attention, and through B6-f32 against the dequantised weights in cuBLAS:
+# one fp32 function, summed in other orders, through 32 layers
+FP32_MODEL_REL_L2 = 1e-4
+GENERIC_DESIGN = "fp32 FFMA on the CUDA cores: 64-row tiles, 128-column chunks, D a runtime loop"
+TINY_CONFIG = "configs/tiny_test.yaml"
+TINY_TEXT = dict(gen_length=16, steps=8, block_length=8)
+TINY_MMU = dict(max_new_tokens=16, steps=8, block_length=16)
+FP32_TEXT = dict(gen_length=32, steps=4, block_length=32, temperature=0.0)
+WIDE_HEADS = 16   # 16 heads of 256 over the 8B's d_model of 4,096
 # the library's grouped-int4 matmul (B6's library time) rounds the scales to
 # bf16 (a relative change of at most 2^-9 per weight); it is held to the
 # plain version normwise, which a wrong nibble order or sign would miss by
@@ -560,9 +592,10 @@ def sdpa_mask(bias, dtype):
     return None if bias is None else bias.clamp_min(-1e30).to(dtype)
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): least time for these flops and bytes."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(bound_ms, bound_by): least time for these flops (at `peak` flop/s:
+    the tensor cores' bf16 rate by default) and bytes."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -571,24 +604,23 @@ def bias_bytes(bias):
     return 0 if bias is None else 4 * bias.numel()
 
 
-def attention_bound(b, h, kvh, lq, lk, rope, bias=None):
-    """Forward: 4 B H Lq Lk D flops; q, k, v, o (+ the fp32 rope tables,
-    + the fp32 bias)."""
-    d = 128
-    nbytes = 2 * d * (2 * b * h * lq + 2 * b * kvh * lk) + (2 * 4 * lq * d if rope else 0)
-    return bound(4 * b * h * lq * lk * d, nbytes + bias_bytes(bias))
+def attention_bound(b, h, kvh, lq, lk, rope, bias=None, d=128, es=2, peak=PEAK_BF16_FLOPS):
+    """Forward: 4 B H Lq Lk D flops; q, k, v, o of `es` bytes an element
+    (+ the fp32 rope tables, + the fp32 bias)."""
+    nbytes = es * d * (2 * b * h * lq + 2 * b * kvh * lk) + (2 * 4 * lq * d if rope else 0)
+    return bound(4 * b * h * lq * lk * d, nbytes + bias_bytes(bias), peak)
 
 
-def bwd_bounds(b, h, kvh, lq, lk, bias=None):
+def bwd_bounds(b, h, kvh, lq, lk, bias=None, d=128, es=2, peak=PEAK_BF16_FLOPS):
     """dq: 6 B H Lq Lk D flops; reads q, k, v, dO, delta (+ bias), writes dq,
     lse. dkv: 8 B H Lq Lk D flops; reads q, k, v, dO, lse, delta (+ bias),
-    writes dk, dv."""
-    d = 128
+    writes dk, dv. Operands of `es` bytes an element."""
     rows_q, rows_k = b * h * lq, b * kvh * lk
     extra = bias_bytes(bias)
-    dq = bound(6 * b * h * lq * lk * d, 2 * d * (3 * rows_q + 2 * rows_k) + 8 * rows_q + extra)
+    dq = bound(6 * b * h * lq * lk * d, es * d * (3 * rows_q + 2 * rows_k) + 8 * rows_q + extra,
+               peak)
     dkv = bound(8 * b * h * lq * lk * d,
-                2 * d * (2 * rows_q + 4 * rows_k) + 8 * rows_q + extra)
+                es * d * (2 * rows_q + 4 * rows_k) + 8 * rows_q + extra, peak)
     return dq, dkv
 
 
@@ -746,6 +778,9 @@ def check_rope_outside(h: int) -> None:
 # names: B1, B2; B3's and B3-bias's dq and dkv (the backward bodies with
 # ONE_PASS, unbiased and biased); B4, B4-bias, B5-dq and B5-dkv unbiased and
 # biased; each at D 64 and 128; B6 with tiles of 128 and 256 rows
+# the libraries of the CUDA-core kernels (B7 / B8; B6-f32): ptxas must spill
+# no register in any of their kernels
+GENERIC_LIBRARIES = ("attention_generic", "int4_matmul_f32")
 WGMMA_KERNELS = {
     "flash_attention_fwd": [f"{k}ILi{d}E" for d in (64, 128)
                             for k in ("attn_fwd_wgmma_kernel", "attn_fwd_bias_wgmma_kernel")],
@@ -767,8 +802,9 @@ def check_sass() -> dict:
     HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
     its SASS (`cuobjdump -sass`) and, after a cold build, its ptxas lines;
     fails if HGMMA or UTMALDG is missing, if ptxas spilled any register of
-    one of them, or if it serialised the wgmma of any kernel (C7510-C7520 in
-    a build log)."""
+    one of them or of the kernels of GENERIC_LIBRARIES (B7 / B8, B6-f32;
+    after a cold build), or if it serialised the wgmma of any kernel
+    (C7510-C7520 in a build log)."""
     import os
 
     from mmada_tpu_torch.ops import _build
@@ -806,6 +842,18 @@ def check_sass() -> dict:
             spilled = re.search(r"(\d+) bytes spill stores", found[0].get("ptxas", ""))
             if spilled and int(spilled.group(1)):
                 raise AssertionError(f"{want}: ptxas spilled registers ({found[0]['ptxas']})")
+    for name in GENERIC_LIBRARIES:   # B7 / B8 and B6-f32: no spill in any kernel
+        func, spills = None, {}
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "Compiling entry function" in line:
+                func = line.split("'")[1]
+            elif func and "spill" in line:
+                spilled = re.search(r"(\d+) bytes spill stores", line)
+                spills[func] = int(spilled.group(1)) if spilled else 0
+        log("sass", f"{name}: {len(spills)} kernels, spill stores {sorted(set(spills.values()))}")
+        if _build.build_logs.get(name) and (not spills or any(spills.values())):
+            raise AssertionError(f"{name}: ptxas spilled registers or listed no kernel "
+                                 f"({spills})")
     serialised = [line for text in _build.build_logs.values() for line in text.splitlines()
                   if any(f"C75{n}" in line for n in range(10, 21))]
     if serialised:
@@ -1984,6 +2032,14 @@ def main() -> int:
     log("eval", f"phases 13a-13d took {ev['seconds']['phase 13']:.1f}s; launches: B1 "
         f"{ev['b1']}, B2 {ev['b2']}; seconds {ev['seconds']}")
 
+    # 14. fp32 and every head width (A.17): B7, B8-dq, B8-dkv and B6-f32
+    # against their plain versions with their times (14a), then paths with
+    # the counters from 0 and every launch theirs: configs/tiny_test.yaml
+    # through the command lines against the CPU (14b), the full-width 8B under
+    # FP32 and its int4 form (14c), 256-wide heads at the 8B's widths (14d)
+    free_memory()
+    generic = generic_phase(reset_counts, counts)
+
     main_rec = next(r for r in records if r["tag"].startswith("t2i B4"))
     masked_rec = next(r for r in records if r["tag"].startswith("masked t2i B4"))
     one_pass = [r for r in records if r["bias"] is None] + [unaligned["fwd"]]
@@ -2075,6 +2131,7 @@ def main() -> int:
                 {k: t2m_rec[key][k] for k in ("ms", "bound_ms", "bound_by", "plain_ms")},
                 tag=t2m_rec["tag"], shape=t2m_rec["shape"], library_ms=t2m_rec["library_ms"],
                 launches=t2m_train[key])]
+    kernels += generic_kernel_records(generic)
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -2163,19 +2220,22 @@ def t2i_frames():
     return torch.as_tensor(np.concatenate([ids, uncond]), dtype=torch.long, device="cuda")
 
 
-def dequantized(params):
-    """`params` with every int4 weight replaced by its bf16 dequantisation
-    (one layer at a time), the other leaves shared."""
+def dequantized(params, dtype=None):
+    """`params` with every int4 weight replaced by its dequantisation in
+    `dtype` (bf16 by default; one layer at a time), the other leaves
+    shared."""
     import torch
 
     from mmada_tpu_torch.ops.quantization import Int4Tensor
+
+    dtype = dtype or torch.bfloat16
 
     def deq(w):
         if not isinstance(w, Int4Tensor):
             return w
         if len(w.shape) == 2:
-            return w.dequantize(torch.bfloat16)
-        return torch.stack([w[i].dequantize(torch.bfloat16) for i in range(w.shape[0])])
+            return w.dequantize(dtype)
+        return torch.stack([w[i].dequantize(dtype) for i in range(w.shape[0])])
 
     out = {k: deq(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: deq(v) for k, v in params["blocks"].items()}
@@ -2835,7 +2895,7 @@ def fp32_block_logits(model, frame, block_start, block):
     """The exact forward's logits over [block_start, block_start + block) in
     fp32 on the card, the function both bf16 paths round: each layer's
     weights cast to fp32 in turn, attention by the kernels' plain version
-    (the kernels take bf16 only), TF32 off."""
+    (a reference apart from every kernel), TF32 off."""
     import torch
 
     from mmada_tpu_torch.models import llada
@@ -5867,6 +5927,758 @@ def eval_phase(reset_counts, counts, expect_no_bias_copies) -> dict:
     del mvq
     free_memory()
     out["seconds"]["phase 13"] = time.perf_counter() - t_phase
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 14 (A.17): fp32 operands and every head width on the card
+# --------------------------------------------------------------------------
+
+def generic_counters():
+    """(reset, read) of the launch counters of B7 (`.generic_launches` and
+    `.generic_bias_launches` of the forward wrappers, both tiers), B8-dq,
+    B8-dkv and B6-f32 (`int4_matmul.f32_launches`); `reset_counts` leaves
+    them alone, so that phase 14 can show phases 2-13 launched none."""
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        flash_attention,
+    )
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        attention_bwd_dkv_long,
+        attention_bwd_dq_long,
+        flash_attention_long,
+    )
+    from mmada_tpu_torch.ops.int4_matmul import int4_matmul
+
+    wrappers = {"b7": (flash_attention, flash_attention_long),
+                "dq": (attention_bwd_dq, attention_bwd_dq_long),
+                "dkv": (attention_bwd_dkv, attention_bwd_dkv_long)}
+    counters = [(f"{kind}{suffix}", fn, attr) for kind, fns in wrappers.items()
+                for suffix, attr in (("", "generic_launches"), ("_bias", "generic_bias_launches"))
+                for fn in fns] + [("b6_f32", int4_matmul, "f32_launches")]
+
+    def reset():
+        for _, fn, attr in counters:
+            setattr(fn, attr, 0)
+
+    def read() -> dict:
+        out = collections.Counter()
+        for key, fn, attr in counters:
+            out[key] += getattr(fn, attr)
+        return {k: out[k] for k in ("b7", "b7_bias", "dq", "dq_bias", "dkv", "dkv_bias",
+                                    "b6_f32")}
+
+    return reset, read
+
+
+def expect_generic(phase, launched, want) -> None:
+    """B7 / B8 / B6-f32 launches (`generic_counters` read) must equal `want`
+    (keys it leaves out: 0)."""
+    expected = {k: want.get(k, 0) for k in launched}
+    if launched != expected:
+        raise AssertionError(f"{phase} launched {launched}, expected {expected}")
+
+
+def generic_bounds(dtype, b, h, kvh, lq, lk, d, rope, bias):
+    """(forward, dq, dkv) bounds of B7 / B8: `attention_bound`'s and
+    `bwd_bounds`' counts at head width d, at the card's rate for `dtype`
+    operands (bf16 on the tensor cores, fp32 on the CUDA cores: TF32
+    cannot meet fp32's bar)."""
+    import torch
+
+    es, peak = (2, PEAK_BF16_FLOPS) if dtype == torch.bfloat16 else (4, PEAK_FP32_FLOPS)
+    return (attention_bound(b, h, kvh, lq, lk, rope, bias, d, es, peak),
+            *bwd_bounds(b, h, kvh, lq, lk, bias, d, es, peak))
+
+
+def generic_case(dtype, b, h, kvh, lq, lk, d, rope, seed):
+    """Inputs of one B7 / B8 case: `attention_case`'s at head width d in
+    `dtype`."""
+    import torch
+
+    from mmada_tpu_torch.models.llada import rope_sin_cos
+
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = randn(b, h, lq, d) * 3.0, randn(b, kvh, lk, d), randn(b, kvh, lk, d)
+    sin, cos = rope_sin_cos(lq, d, 500000.0, device="cuda") if rope else (None, None)
+    return q, k, v, sin, cos
+
+
+def padded_rows_bias(b, l):
+    """The mask bias of b frames of length l whose first 10 + 15 row
+    positions are pads (those query rows have no allowed key)."""
+    import numpy as np
+
+    keep = np.ones((b, l), np.int64)
+    for row in range(b):
+        keep[row, :10 + 15 * row] = 0
+    return _mask_bias(keep)
+
+
+def generic_cases():
+    """(tag, dtype, B, H, KVH, Lq, Lk, D, rope, bias maker) of B7 and B8: fp32
+    at D 16, 64, 128 and 256, bf16 at D 96, 256 and 512, unbiased and biased,
+    with RoPE, rectangular, GQA; then the paths' shapes: the t2i CFG frame in
+    fp32 at D 128 (the fp32 8B) and in bf16 at D 256 (256-wide heads)."""
+    import torch
+
+    f32, b16, t2i = torch.float32, torch.bfloat16, T2I_FRAME
+    return [
+        ("fp32 D16 gqa rope", f32, 2, 8, 2, 387, 387, 16, True, None),
+        ("fp32 D64 rope mask", f32, 2, 8, 8, 387, 387, 64, True,
+         lambda: padded_rows_bias(2, 387)),
+        ("fp32 D128 rectangular", f32, 2, 32, 32, 256, t2i, 128, False, None),
+        ("fp32 D256 rope per-head bias", f32, 1, 4, 4, 333, 333, 256, True,
+         lambda: random_bias(1, 4, 333, 333, 11)),
+        ("bf16 D96 gqa rope mask", b16, 2, 8, 2, 387, 387, 96, True,
+         lambda: padded_rows_bias(2, 387)),
+        ("bf16 D256 rope", b16, 1, 16, 16, 640, 640, 256, True, None),
+        ("bf16 D512 rectangular per-head bias", b16, 1, 4, 4, 200, 500, 512, False,
+         lambda: random_bias(1, 4, 200, 500, 12)),
+        ("t2i CFG fp32 D128", f32, 4, 32, 32, t2i, t2i, 128, True, None),
+        ("masked t2i CFG fp32 D128", f32, 4, 32, 32, t2i, t2i, 128, True,
+         lambda: t2i_mask_bias(cfg_batch=True)),
+        ("t2i CFG bf16 D256", b16, 4, 16, 16, t2i, t2i, 256, True, None),
+    ]
+
+
+def generic_fwd_ok(got, want, long=False):
+    """(max abs err, passes) of a B7 output: fp32 within GENERIC_FWD_ATOL;
+    bf16 at phase 3's bars (the one-pass tier's atol / rtol and differing
+    share; the long tier within one bf16 ulp)."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        return err, bool(torch.isfinite(got).all()) and err <= GENERIC_FWD_ATOL
+    if long:
+        return within_one_ulp(got, want)
+    close = bool(((got.float() - want.float()).abs()
+                  <= KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).all())
+    return err, bool(torch.isfinite(got).all()) and close and (
+        differing_share(got, want) <= B1_DIFFER_SHARE)
+
+
+def generic_grad_error(got, want, long=False):
+    """(max abs err, rel L2, passes) of a B8 gradient: fp32 within
+    GENERIC_GRAD_REL of its largest entry; bf16 at phase 3's bars."""
+    import torch
+
+    if got.dtype != torch.float32:
+        return long_grad_error(got, want) if long else grad_error(got, want)
+    err = (got - want).abs()
+    max_err, rel = float(err.max()), float((got - want).norm() / want.norm())
+    return max_err, rel, bool(torch.isfinite(got).all()) and (
+        max_err <= GENERIC_GRAD_REL * float(want.abs().max()))
+
+
+def check_generic_kernels(cases):
+    """B7 and B8 against their plain versions (the backward as a pair: B8-dq's
+    lse goes into B8-dkv, the plain dq's into the plain dkv), with their
+    times; returns per-case records."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmada_tpu_torch.ops.attention import apply_rope
+    from mmada_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkv,
+        attention_bwd_dkv_reference,
+        attention_bwd_dq,
+        attention_bwd_dq_reference,
+        attention_delta,
+        flash_attention,
+        flash_attention_reference,
+        kernel_for,
+    )
+
+    records = []
+    for i, (tag, dtype, b, h, kvh, lq, lk, d, rope, make_bias) in enumerate(cases):
+        if kernel_for(dtype, d) != "generic":
+            raise AssertionError(f"{tag}: kernel_for routes {dtype} D {d} to the wgmma kernels")
+        q, k, v, sin, cos = generic_case(dtype, b, h, kvh, lq, lk, d, rope, seed=1400 + i)
+        bias = make_bias() if make_bias else None
+        kw = dict(rope_sin=sin, rope_cos=cos, bias=bias)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        fwd_err, fwd_ok = generic_fwd_ok(out, ref)
+        qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
+        g = torch.Generator("cuda").manual_seed(1500 + i)
+        dout = torch.randn((b, h, lq, d), generator=g, device="cuda").to(dtype)
+        if bias is not None:
+            dout = dout * live_rows(bias, dout.shape)
+        delta = attention_delta(ref, dout)
+        dq, lse = attention_bwd_dq(qr, kr, v, dout, delta, bias)
+        dk, dv = attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias)
+        want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta, bias)
+        want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta, bias)
+        torch.cuda.synchronize()
+        errors = {name: generic_grad_error(a, w) for name, a, w in (
+            ("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv))}
+        lse_err = float((lse - want_lse).abs().max())
+
+        (fwd_b, fwd_by), (dq_b, dq_by), (dkv_b, dkv_by) = generic_bounds(
+            dtype, b, h, kvh, lq, lk, d, rope, bias)
+        gqa = {"enable_gqa": True} if kvh != h else {}
+        mask = sdpa_mask(bias, dtype)
+        lib_in = [t.detach().requires_grad_() for t in (qr, kr, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask, **gqa)
+        rec = dict(
+            tag=tag, dtype=str(dtype).split(".")[-1], shape=[b, h, kvh, lq, lk], d=d, rope=rope,
+            bias=None if bias is None else list(bias.shape), max_abs_err=fwd_err,
+            ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), 5),
+            plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, **kw), 2, 1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qr, kr, v, attn_mask=mask, **gqa), 5),
+            bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err,
+            errors={k: [e[0], e[1]] for k, e in errors.items()},
+            dq=dict(ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias), 5),
+                    plain_ms=cuda_ms(lambda: attention_bwd_dq_reference(
+                        qr, kr, v, dout, delta, bias), 2, 1),
+                    bound_ms=dq_b, bound_by=dq_by, max_abs_err=errors["dq"][0]),
+            dkv=dict(ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias), 5),
+                     plain_ms=cuda_ms(lambda: attention_bwd_dkv_reference(
+                         qr, kr, v, dout, lse, delta, bias), 2, 1),
+                     bound_ms=dkv_b, bound_by=dkv_by,
+                     max_abs_err=max(errors["dk"][0], errors["dv"][0])),
+            bwd_library_ms=cuda_ms(
+                lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), 5))
+        log("generic", json.dumps(rec))
+        bad = [k for k, e in errors.items() if not e[2]]
+        if not fwd_ok or bad or lse_err > LSE_ATOL:
+            raise AssertionError(f"B7 / B8 disagree with their plain versions on {tag}: forward "
+                                 f"{fwd_ok} (max abs {fwd_err}), gradients {bad}, lse {lse_err}")
+        records.append(rec)
+        del q, k, v, out, ref, qr, kr, dout, dq, dk, dv, want_dq, want_dk, want_dv, lib_in, lib_out
+        free_memory()
+    return records
+
+
+def check_generic_long(cases):
+    """B7-long, B8-dq-long and B8-dkv against their plain versions (by head
+    chunks) at 8,192 tokens; returns per-case records."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmada_tpu_torch.ops.flash_attention import attention_delta
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        attention_bwd_dkv_long,
+        attention_bwd_dkv_long_reference,
+        attention_bwd_dq_long,
+        attention_bwd_dq_long_reference,
+        flash_attention_long,
+        flash_attention_long_reference,
+    )
+
+    records = []
+    for i, (tag, dtype, b, h, kvh, l, d) in enumerate(cases):
+        q, k, v, _, _ = generic_case(dtype, b, h, kvh, l, l, d, False, seed=1600 + i)
+        out = flash_attention_long(q, k, v)
+        ref = by_heads(flash_attention_long_reference, h, kvh, q, k, v)
+        torch.cuda.synchronize()
+        fwd_err, fwd_ok = generic_fwd_ok(out, ref, long=True)
+        g = torch.Generator("cuda").manual_seed(1700 + i)
+        dout = torch.randn((b, h, l, d), generator=g, device="cuda").to(dtype)
+        delta = attention_delta(ref, dout)
+        dq, lse = attention_bwd_dq_long(q, k, v, dout, delta)
+        dk, dv = attention_bwd_dkv_long(q, k, v, dout, lse, delta)
+        want_dq, want_lse = by_heads(attention_bwd_dq_long_reference, h, kvh, q, k, v, dout,
+                                     delta, heads=2)
+        want_dk, want_dv = by_heads(attention_bwd_dkv_long_reference, h, kvh, q, k, v, dout,
+                                    want_lse, delta, heads=2)
+        torch.cuda.synchronize()
+        errors = {name: generic_grad_error(a, w, long=True) for name, a, w in (
+            ("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv))}
+        lse_err = float((lse - want_lse).abs().max())
+        (fwd_b, fwd_by), (dq_b, dq_by), (dkv_b, dkv_by) = generic_bounds(
+            dtype, b, h, kvh, l, l, d, False, None)
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in)
+        rec = dict(
+            tag=tag, dtype=str(dtype).split(".")[-1], shape=[b, h, kvh, l, l], d=d, rope=False,
+            bias=None, max_abs_err=fwd_err,
+            ms=cuda_ms(lambda: flash_attention_long(q, k, v), 2),
+            plain_ms=cuda_ms(lambda: by_heads(flash_attention_long_reference, h, kvh, q, k, v),
+                             1, 1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3),
+            bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err,
+            errors={k: [e[0], e[1]] for k, e in errors.items()},
+            dq=dict(ms=cuda_ms(lambda: attention_bwd_dq_long(q, k, v, dout, delta), 2),
+                    plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dq_long_reference, h, kvh, q,
+                                                      k, v, dout, delta, heads=2), 1, 1),
+                    bound_ms=dq_b, bound_by=dq_by, max_abs_err=errors["dq"][0]),
+            dkv=dict(ms=cuda_ms(lambda: attention_bwd_dkv_long(q, k, v, dout, lse, delta), 2),
+                     plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dkv_long_reference, h, kvh,
+                                                       q, k, v, dout, lse, delta, heads=2), 1, 1),
+                     bound_ms=dkv_b, bound_by=dkv_by,
+                     max_abs_err=max(errors["dk"][0], errors["dv"][0])),
+            bwd_library_ms=cuda_ms(
+                lambda: torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True), 2))
+        log("generic long", json.dumps(rec))
+        bad = [k for k, e in errors.items() if not e[2]]
+        if not fwd_ok or bad or lse_err > LONG_LSE_ATOL:
+            raise AssertionError(f"B7-long / B8-long disagree with their plain versions on "
+                                 f"{tag}: forward {fwd_ok} (max abs {fwd_err}), gradients {bad}, "
+                                 f"lse {lse_err}")
+        records.append(rec)
+        del q, k, v, out, ref, dout, dq, dk, dv, want_dq, want_dk, want_dv, lib_in, lib_out
+        free_memory()
+    return records
+
+
+def check_int4_f32(cases):
+    """B6-f32 against its plain version (fp32 x @ the fp32 dequantisation) at
+    the 8B's shapes; returns per-case records."""
+    import torch
+
+    from mmada_tpu_torch.ops.int4_matmul import (
+        int4_matmul,
+        int4_matmul_reference,
+        pack_int4,
+        unpack_int4,
+    )
+
+    records = []
+    for i, (tag, m, k, n) in enumerate(cases):
+        g = torch.Generator("cuda").manual_seed(1800 + i)
+        x = torch.randn((m, k), generator=g, device="cuda")
+        packed, scales = pack_int4(torch.randn((k, n), generator=g, device="cuda") * 0.02)
+        out = int4_matmul(x, packed, scales)
+        ref = int4_matmul_reference(x, packed, scales)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ok = out.dtype == torch.float32 and bool(torch.isfinite(out).all()) and (
+            err <= GENERIC_INT4_REL * float(ref.abs().max()))
+        w = unpack_int4(packed, scales, torch.float32)
+        bound_ms, bound_by = bound(2 * m * k * n, 4 * m * k + k * n // 2 + 4 * (k // 128) * n
+                                   + 4 * m * n, PEAK_FP32_FLOPS)
+        rec = dict(tag=tag, shape=[m, k, n], max_abs_err=err, max_abs_out=float(ref.abs().max()),
+                   ms=cuda_ms(lambda: int4_matmul(x, packed, scales), 5),
+                   plain_ms=cuda_ms(lambda: int4_matmul_reference(x, packed, scales), 3, 1),
+                   library_ms=cuda_ms(lambda: x @ w, 5), bound_ms=bound_ms, bound_by=bound_by)
+        log("B6-f32", json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"B6-f32 disagrees with its plain version on {tag}: {err}")
+        records.append(rec)
+        del x, packed, scales, out, ref, w
+        free_memory()
+    return records
+
+
+@contextlib.contextmanager
+def greedy_t2i():
+    """`MMadaModel.t2i_generate` made greedy: the card's and the CPU's
+    categorical draws differ (their generators), argmax does not."""
+    from mmada_tpu_torch.models.mmada import MMadaModel
+
+    inner = MMadaModel.t2i_generate
+
+    def greedy(self, *args, **kw):
+        kw["greedy"] = True
+        return inner(self, *args, **kw)
+
+    MMadaModel.t2i_generate = greedy
+    try:
+        yield
+    finally:
+        MMadaModel.t2i_generate = inner
+
+
+def tiny_cli_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
+    """14b: configs/tiny_test.yaml (the fp32 policy, 4 heads of 16) through
+    the command lines' `load` / `run` on the card against the same calls on
+    the CPU, the CPU's random weights moved to the card: text, t2i (greedy)
+    and MMU token-exact at T = 0, and `train_torch.setup`'s trainer for 2
+    steps, each step's corrupted batch also taken by the CPU trainer, losses
+    within 1e-5 relative. Every launch is B7 / B8 (none of the wgmma
+    kernels), counted by the schedule; returns them."""
+    import numpy as np
+    import torch
+
+    import generate_torch
+    import inference_mmu_torch
+    import inference_t2i_torch
+    import train_torch
+    from mmada_tpu_torch.core.precision import FP32
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.training.train_step import corrupt_batch
+
+    base = [f"config={TINY_CONFIG}"]
+    tmp = tempfile.mkdtemp(prefix="tiny_cli_")
+    try:
+        cpu = inference_t2i_torch.load(inference_t2i_torch.read_config(base + ["device=cpu"]))
+        card = cpu._replace(model=dataclasses.replace(
+            cpu.model, params=move_params(cpu.model.params, "cuda")),
+            vq=move_params(cpu.vq, "cuda"))
+        cfg = cpu.model.cfg
+        if cpu.model.policy != FP32 or cfg.head_dim != 16:
+            raise AssertionError(f"tiny_test.yaml builds {cpu.model.policy}, head_dim "
+                                 f"{cfg.head_dim}: not the fp32 16-wide model")
+        n = cfg.n_layers
+        image = torch.as_tensor(np.random.default_rng(5).uniform(
+            -1, 1, (1, 16, 16, 3)).astype(np.float32))
+        text = [f"{k}={v}" for k, v in TINY_TEXT.items()]
+        mmu = [f"{k}={v}" for k, v in TINY_MMU.items()]
+        t2i = ["batch_size=2", "generation_temperature=0"]
+        calls = [
+            ("generate_torch", generate_torch, text,
+             lambda c, ld: generate_torch.run(c, ld, [TEXT_PROMPTS[2]]),
+             n * TINY_TEXT["steps"]),
+            ("inference_t2i_torch", inference_t2i_torch, t2i,
+             lambda c, ld: inference_t2i_torch.run(c, ld, T2I_PROMPTS),
+             n * int(cpu_timesteps(inference_t2i_torch, base + t2i))),
+            ("inference_mmu_torch", inference_mmu_torch, mmu,
+             lambda c, ld: inference_mmu_torch.run(c, ld, image), n * TINY_MMU["steps"]),
+        ]
+        out = {}
+        for name, cli, args, call, want_b7 in calls:
+            with greedy_t2i():
+                want = call(cli.read_config(base + args + ["device=cpu"]), cpu)
+                reset_counts()
+                generic_reset()
+                t = time.perf_counter()
+                got = call(cli.read_config(base + args), card)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+            launched = generic_read()
+            expect_launches(f"14b {name}", counts(), {})
+            expect_generic(f"14b {name}", launched, {"b7": want_b7})
+            if name == "inference_t2i_torch":   # (codes, images): codes exact, images one level
+                same = bool(torch.equal(got[0], want[0])) and int(
+                    (got[1].int() - want[1].int()).abs().max()) <= 1
+            else:
+                same = _same(got, want)
+            log("tiny cli", f"{name} on the card: {secs:.2f}s, B7 {launched['b7']}; "
+                f"equal to the CPU's: {same}")
+            if not same:
+                raise AssertionError(f"14b: {name} on the card differs from the CPU")
+            out[name] = launched
+
+        def setup(device):
+            args = base + ["dataset.synthetic=true", "training.max_train_steps=2",
+                           f"experiment.output_dir={os.path.join(tmp, device or 'cuda')}"]
+            cfg = train_torch.read_config(args + ([f"device={device}"] if device else []))
+            return cfg, *train_torch.setup(cfg)
+
+        _, cpu_tr, _ = setup("cpu")
+        card_cfg, card_tr, loader = setup(None)
+        with torch.no_grad():
+            cpu_leaves = dict(llada.named_leaves(cpu_tr.state.params))
+            for name, leaf in llada.named_leaves(card_tr.state.params):
+                leaf.copy_(cpu_leaves[name])
+        step_card, step_cpu, losses = card_tr.train_step, cpu_tr.train_step, []
+
+        def twin(state, batch, generator):
+            prepared = corrupt_batch(step_card.model, step_card.sc, batch, generator)
+            state, metrics = step_card.apply(state, prepared)
+            cpu_tr.state, cpu_metrics = step_cpu.apply(cpu_tr.state, {
+                k: v.cpu() if torch.is_tensor(v) else v for k, v in prepared.items()})
+            losses.append((float(metrics["loss"]), float(cpu_metrics["loss"])))
+            return state, metrics
+
+        card_tr.train_step = twin
+        reset_counts()
+        generic_reset()
+        t = time.perf_counter()
+        card_tr.fit(loader, rng_seed=card_cfg.get_path("training.seed", 0))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = generic_read()
+        expect_launches("14b train_torch", counts(), {})
+        expect_generic("14b train_torch", launched, {"b7": 2 * n, "dq": 2 * n, "dkv": 2 * n})
+        rel = [abs(a - b) / abs(b) for a, b in losses]
+        log("tiny cli", f"train_torch on the card: 2 steps in {secs:.2f}s, losses card/CPU "
+            f"{losses} (rel {rel}, limit 1e-5); launches {launched}")
+        if len(losses) != 2 or not all(math.isfinite(a) for a, _ in losses) or max(rel) > 1e-5:
+            raise AssertionError(f"14b: train_torch's steps on the card differ from the CPU's")
+        out["train_torch"] = launched
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cpu_timesteps(cli, argv) -> int:
+    """The t2i command line's timesteps for `argv`."""
+    return cli.settings(cli.read_config(argv))["timesteps"]
+
+
+def fp32_8b_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
+    """14c: the full-width 8B in fp32 (random weights, about 32 GB) under the
+    FP32 policy: one t2i CFG forward and a short text request through B7,
+    the forward's logits against the same weights' fp32 forward with the
+    plain attention (`fp32_block_logits`); then quantized to int4, the same
+    through B6-f32, against the dequantised fp32 weights in cuBLAS."""
+    import torch
+
+    from mmada_tpu_torch.core.precision import FP32
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import quantize
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = MMadaModel.init(llada.llada_8b(), MMADA_8B, device="cuda", dtype=torch.float32,
+                            generator=torch.Generator("cuda").manual_seed(0), policy=FP32)
+    torch.cuda.synchronize()
+    log("fp32 8B", f"built in {time.perf_counter() - t:.1f}s: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counters = (reset_counts, counts, generic_reset, generic_read)
+    out = {"fp32": fp32_8b_requests("fp32", model, counters,
+                                    lambda ids, s, n: fp32_block_logits(model, ids, s, n))}
+    qmodel = quantize(model, "int4")   # int4 weights, fp32 x: B6-f32 at every quantized matmul
+    del model
+    free_memory()
+
+    def dequantised_logits(ids, s, n):
+        deq = dataclasses.replace(qmodel, params=dequantized(qmodel.params, torch.float32))
+        return deq.forward(ids, logit_positions=(s, n))
+
+    out["int4"] = fp32_8b_requests("int4", qmodel, counters, dequantised_logits)
+    del qmodel
+    free_memory()
+    return out
+
+
+def fp32_8b_requests(tag, model, counters, reference) -> dict:
+    """14c's requests on `model` (the fp32 8B, or its int4 form): one t2i CFG
+    forward (timed, peak memory) and a text request of FP32_TEXT, their
+    launches counted, and the forward's logits (the image span over the whole
+    vocab) against `reference(ids, start, n)`."""
+    import torch
+
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.entry import serve_text
+
+    reset_counts, counts, generic_reset, generic_read = counters
+    ids = t2i_frames()
+    n, layers = T2I_SETTINGS["num_vq_tokens"], model.cfg.n_layers
+    start = ids.shape[1] - n - 1
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    generic_reset()
+    t = time.perf_counter()
+    got = model.forward(ids, logit_positions=(start, n))
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    answers = serve_text(model, [TEXT_PROMPTS[0]], **FP32_TEXT)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t
+    launched = generic_read()
+    for ans in answers:
+        check_answer_ids(ans, FP32_TEXT["gen_length"], MMADA_8B)
+    forwards = 1 + FP32_TEXT["steps"]
+    expect_launches(f"14c {tag}", counts(), {})
+    expect_generic(f"14c {tag}", launched, {
+        "b7": layers * forwards, "b6_f32": (7 * layers + 1) * forwards if tag == "int4" else 0})
+    want = reference(ids, start, n)
+    torch.cuda.synchronize()
+    rel = float((got - want).norm() / want.norm())
+    log("fp32 8B", f"{tag}: t2i CFG forward {tuple(ids.shape)} in {fwd_s:.2f}s, peak "
+        f"{peak:.2f} GiB; text request {FP32_TEXT} in {text_s:.2f}s, first ids "
+        f"{answers[0][:12].tolist()}; logits vs the reference: rel L2 {rel:.3e} (limit "
+        f"{FP32_MODEL_REL_L2}); launches {launched}")
+    if not (torch.isfinite(got).all() and rel <= FP32_MODEL_REL_L2):
+        raise AssertionError(f"14c: the fp32 8B ({tag}) disagrees with its reference: {rel}")
+    return dict(launched=launched, forward_s=fwd_s, text_s=text_s, peak_gib=peak, rel_l2=rel)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention by the kernels' plain versions (forward and
+    backward, both tiers) on any device: the reference path."""
+    from mmada_tpu_torch.ops import attention
+    from mmada_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+    from mmada_tpu_torch.ops.flash_attention_long import (
+        flash_attention_bwd_long_reference,
+        flash_attention_long_reference,
+    )
+
+    names = ("flash_attention", "flash_attention_bwd", "flash_attention_long",
+             "flash_attention_bwd_long")
+    saved = {k: getattr(attention, k) for k in names}
+    for k, fn in zip(names, (flash_attention_reference, flash_attention_bwd_reference,
+                             flash_attention_long_reference, flash_attention_bwd_long_reference)):
+        setattr(attention, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(attention, k, fn)
+
+
+def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
+    """14d: 256-wide heads at the 8B's widths (d_model 4,096, 16 heads, 2
+    layers, bf16, the frames' masks in attention): a masked t2i CFG forward
+    (B7-bias) against the fp32 forward of the same weights, and a masked
+    stage-1 train step (B7-bias, B8-dq-bias, B8-dkv-bias) against the fp32
+    step, both references with the plain attention, at phase 3's bars
+    (SMALL_MODEL_REL_L2; SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_GRAD_REL_L2)."""
+    import torch
+
+    from mmada_tpu_torch.core.precision import BF16, FP32, policy_products
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.training import optimizers
+    from mmada_tpu_torch.training.train_step import StepConfig, corrupt_batch, make_train_step
+
+    free_memory()
+    cfg = dataclasses.replace(llada.llada_8b(), n_heads=WIDE_HEADS, n_layers=2,
+                              attention_bias_enabled=True, mask_token_id=MMADA_8B.mask_token_id)
+    model = MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
+                            generator=torch.Generator("cuda").manual_seed(2), policy=BF16)
+    model32 = dataclasses.replace(model, params=move_params(model.params, dtype=torch.float32),
+                                  policy=FP32)
+    ids = t2i_frames()
+    mask = torch.as_tensor(t2i_masks(cfg_batch=True), dtype=torch.long, device="cuda")
+    n = T2I_SETTINGS["num_vq_tokens"]
+    kw = dict(attention_mask=mask, logit_positions=(ids.shape[1] - n - 1, n))
+    reset_counts()
+    generic_reset()
+    t = time.perf_counter()
+    got = model.forward(ids, **kw)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    fwd_launched = generic_read()
+    expect_launches("14d forward", counts(), {})
+    expect_generic("14d forward", fwd_launched, {"b7_bias": cfg.n_layers})
+    with plain_attention():
+        want = model32.forward(ids, **kw)
+    rel = float((got - want).norm() / want.norm())
+    log("wide heads", f"masked t2i CFG forward, {cfg.n_heads} heads of {cfg.head_dim}, bf16: "
+        f"{fwd_s:.2f}s; vs the fp32 forward: rel L2 {rel:.3e} (limit {SMALL_MODEL_REL_L2}); "
+        f"launches {fwd_launched}")
+    if not (torch.isfinite(got).all() and rel <= SMALL_MODEL_REL_L2):
+        raise AssertionError(f"14d: the 256-wide-head forward disagrees with fp32: {rel}")
+    del got, want
+
+    sc = StepConfig(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2, max_seq_length=40)
+    g = torch.Generator().manual_seed(4)
+    prepared = {k: v.cuda() for k, v in corrupt_batch(
+        model, sc, small_train_batch(MMADA_8B, sc, g), g).items()}
+
+    def loss_and_grads(m):
+        step = make_train_step(m, optimizers.AdamW(1e-3), sc)
+        tree = llada.split_layers(m.params)
+        with policy_products(m.policy):
+            loss, _ = step.loss(tree, prepared)
+            names, leaves = zip(*llada.named_leaves(tree))
+            grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), dict(zip(names, grads))
+
+    reset_counts()
+    generic_reset()
+    t = time.perf_counter()
+    loss, grads = loss_and_grads(model)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    step_launched = generic_read()
+    expect_launches("14d train step", counts(), {})
+    expect_generic("14d train step", step_launched, {
+        "b7_bias": cfg.n_layers, "dq_bias": cfg.n_layers, "dkv_bias": cfg.n_layers})
+    with plain_attention():
+        loss32, grads32 = loss_and_grads(model32)
+    loss_rel = abs(loss - loss32) / abs(loss32)
+    grad_rel = {k: float((grads[k].float() - grads32[k]).norm()
+                         / grads32[k].norm().clamp_min(1e-30)) for k in grads32}
+    worst = max(grad_rel, key=grad_rel.get)
+    log("wide heads", f"masked train step (6 rows of 200): {step_s:.2f}s; loss {loss:.5f} vs "
+        f"fp32 {loss32:.5f} (rel {loss_rel:.2e}, limit {SMALL_TRAIN_LOSS_REL}); worst gradient "
+        f"rel L2 {grad_rel[worst]:.2e} ({worst}, limit {SMALL_TRAIN_GRAD_REL_L2}); launches "
+        f"{step_launched}")
+    if not (math.isfinite(loss) and loss_rel <= SMALL_TRAIN_LOSS_REL
+            and grad_rel[worst] <= SMALL_TRAIN_GRAD_REL_L2):
+        raise AssertionError("14d: the 256-wide-head train step disagrees with the fp32 step")
+    del model, model32, grads, grads32
+    free_memory()
+    return dict(forward=fwd_launched, train=step_launched, forward_rel_l2=rel,
+                loss_rel=loss_rel, grad_rel_l2=grad_rel[worst])
+
+
+def generic_phase(reset_counts, counts) -> dict:
+    """Phase 14: 14a the kernels, 14b-14d the paths (see main). Fails if
+    phases 2-13 launched any of B7, B8 or B6-f32."""
+    import torch
+
+    generic_reset, generic_read = generic_counters()
+    before = generic_read()
+    log("generic", f"B7 / B8 / B6-f32 launches in phases 2-13: {before}")
+    expect_generic("phases 2-13", before, {})
+    t0 = time.perf_counter()
+    records = check_generic_kernels(generic_cases())
+    long_records = check_generic_long(
+        [("long bf16 D256", torch.bfloat16, 1, 16, 16, LONG_FRAME, 256),
+         ("long fp32 D128", torch.float32, 1, 16, 16, LONG_FRAME, 128)])
+    int4_records = check_int4_f32([("t2i CFG ff_proj", 4620, 4096, 12288),
+                                   ("text ff_out", 477, 12288, 4096)])
+    seconds = {"14a": time.perf_counter() - t0}
+    t = time.perf_counter()
+    cli = tiny_cli_phase(reset_counts, counts, generic_reset, generic_read)
+    seconds["14b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fp32 = fp32_8b_phase(reset_counts, counts, generic_reset, generic_read)
+    seconds["14c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wide = wide_heads_phase(reset_counts, counts, generic_reset, generic_read)
+    seconds["14d"] = time.perf_counter() - t
+    paths = [*cli.values(), fp32["fp32"]["launched"], fp32["int4"]["launched"], wide["forward"],
+             wide["train"]]
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    log("generic", f"phase 14 took {time.perf_counter() - t0:.1f}s ({seconds}); main-path "
+        f"launches {launches}")
+    return dict(records=records, long_records=long_records, int4_records=int4_records,
+                launches=launches, seconds=seconds)
+
+
+def generic_kernel_records(gen) -> list:
+    """The JSON line's entries of B7, B8-dq, B8-dkv and B6-f32: the times at
+    each's main-path case (the fp32 8B's t2i CFG frame; B6-f32 at its ff_proj
+    shape), the largest error over all cases, the launches of phase 14's
+    paths."""
+    recs = gen["records"] + gen["long_records"]
+    main = next(r for r in gen["records"] if r["tag"] == "t2i CFG fp32 D128")
+    launches = gen["launches"]
+
+    def entry(name, line, count, errors, rec, replaces="flash_attention.py"):
+        return dict(kernel_record(name, "attention_generic.cu", line, count,
+                                  [dict(max_abs_err=e) for e in errors], rec, replaces=replaces),
+                    design=GENERIC_DESIGN)
+
+    out = [
+        entry("attention_generic_fwd", "650,686,471,497,392,418",
+              launches["b7"] + launches["b7_bias"], [r["max_abs_err"] for r in recs], main),
+        entry("attention_generic_bwd_dq", "895,1185", launches["dq"] + launches["dq_bias"],
+              [r["dq"]["max_abs_err"] for r in recs], dict(main["dq"], library_ms=main[
+                  "bwd_library_ms"])),
+        entry("attention_generic_bwd_dkv", "963,1240", launches["dkv"] + launches["dkv_bias"],
+              [r["dkv"]["max_abs_err"] for r in recs], dict(main["dkv"], library_ms=main[
+                  "bwd_library_ms"])),
+    ]
+    int4_main = gen["int4_records"][0]
+    out.append(dict(kernel_record("int4_matmul_f32", "int4_matmul_f32.cu", "149",
+                                  launches["b6_f32"], gen["int4_records"], int4_main,
+                                  replaces="int4_matmul.py"), design=GENERIC_DESIGN))
+    keys = ("tag", "dtype", "shape", "d", "ms", "bound_ms", "bound_by", "plain_ms")
+    for e, part, lib in zip(out, (None, "dq", "dkv"), ("library_ms", "bwd_library_ms",
+                                                       "bwd_library_ms")):
+        e["shapes"] = [dict({k: (r[part] if part and k in r[part] else r).get(k) for k in keys},
+                            library_ms=r[lib]) for r in recs]
+    out[3]["shapes"] = [{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by",
+                                           "plain_ms", "library_ms")}
+                        for r in gen["int4_records"]]
     return out
 
 

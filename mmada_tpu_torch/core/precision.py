@@ -5,12 +5,18 @@ RoPE and the vocab head's output run in fp32; weights and activations in the
 policy's compute dtype. Two contexts fix how cuBLAS and cuDNN compute, whatever
 the caller's flags: `exact_bf16_reductions` (bf16 products with fp32 sums)
 and `exact_fp32_products` (fp32 products without TF32, MAGVIT-v2's).
+`policy_products` is the one the model's forwards and train steps run
+under: a policy that computes in fp32 computes every product in full fp32
+on the card too (its attention in the fp32 kernels B7 / B8), so that the
+card meets the CPU's answers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import inspect
 
 import torch
 
@@ -64,3 +70,27 @@ def exact_fp32_products():
         yield
     finally:
         cudnn.conv.fp32_precision, matmul.fp32_precision, cudnn.benchmark = saved
+
+
+def policy_products(policy: Policy):
+    """The context a model computes under: `exact_fp32_products` for a
+    policy whose compute dtype is fp32 (no TF32 in any cuBLAS or cuDNN
+    product, whatever the caller's flags), else none."""
+    if policy.compute_dtype == torch.float32:
+        return exact_fp32_products()
+    return contextlib.nullcontext()
+
+
+def under_policy(fn):
+    """`fn`, a function with a `policy` argument, run under
+    `policy_products(policy)`."""
+    params = inspect.signature(fn).parameters
+    index, default = list(params).index("policy"), params["policy"].default
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        policy = kwargs.get("policy", args[index] if len(args) > index else default)
+        with policy_products(policy):
+            return fn(*args, **kwargs)
+
+    return run

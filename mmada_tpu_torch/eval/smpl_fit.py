@@ -387,7 +387,7 @@ def joints2smpl(joint_seq: np.ndarray, model: Optional[BodyModel] = None,
     translation's row, vertices (T, V, 3), betas), numpy; `info`, a dict,
     receives the fit's joints (T, J, 3), camera and final loss."""
     device = resolve_device(device)
-    model = (model or synthetic_body_model()).to(device)
+    model = (model or synthetic_body_model(device=device)).to(device)
     cfg = cfg or SMPLifyConfig()
     t = joint_seq.shape[0]
     j3d = torch.as_tensor(np.asarray(joint_seq, np.float32), device=device)

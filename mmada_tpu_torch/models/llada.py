@@ -44,7 +44,7 @@ from torch.utils.checkpoint import (
 )
 
 from mmada_tpu_torch.core.device import DeviceLike, resolve_device
-from mmada_tpu_torch.core.precision import FP32, Policy
+from mmada_tpu_torch.core.precision import FP32, Policy, under_policy
 from mmada_tpu_torch.ops.attention import NEG_INF, apply_rope, bidirectional_attention
 from mmada_tpu_torch.ops.norms import layer_norm, rms_norm
 from mmada_tpu_torch.ops.tensor_maps import ROW_FLOATS
@@ -492,6 +492,7 @@ def prepare_attention_bias(
     return torch.clamp(out, min=NEG_INF)[..., :length]
 
 
+@under_policy
 def forward(
     params: Params,
     cfg: LLaDAConfig,
@@ -553,6 +554,7 @@ def forward(
     return finish(params, cfg, x, logit_window, logit_positions, policy, mesh)
 
 
+@under_policy
 def finish(params: Params, cfg: LLaDAConfig, x: torch.Tensor, logit_window, logit_positions,
            policy: Policy, mesh=None, normed_only: bool = False) -> torch.Tensor:
     """After the layer stack: the position span (`logit_positions`), the
@@ -629,6 +631,7 @@ def _check_remat(remat):
     raise ValueError(f"remat must be False/True/'full'/'dots'/'auto', got {remat!r}")
 
 
+@under_policy
 def _head(
     params: Params,
     cfg: LLaDAConfig,
@@ -783,6 +786,7 @@ def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype)
 
 
 @torch.no_grad()
+@under_policy
 def forward_kv_capture(
     params: Params,
     cfg: LLaDAConfig,
@@ -844,6 +848,7 @@ def forward_kv_capture(
 
 
 @torch.no_grad()
+@under_policy
 def forward_kv_step(
     params: Params,
     cfg: LLaDAConfig,

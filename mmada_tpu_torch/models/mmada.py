@@ -41,12 +41,15 @@ Image generation evaluates the vocab head only over the 8k image window and
 the image positions (`logit_window` + `logit_positions`); text steps only
 over the active block's positions.
 
-On the card the model computes in bf16: the attention kernels take bf16
-operands only, so a model whose weights are on CUDA and whose policy's
-compute dtype is not bf16 is refused when it is built (`init` and the
-constructor), naming `BF16`. The CPU keeps the FP32 policy, which the parity
-tests use. (JAX's Pallas kernels also take fp32; fp32 kernels on the card
-are ROADMAP A.17.)
+The model computes under either policy on either device, as JAX's does on
+its accelerator: `BF16` (bf16 weights and activations, fp32 islands) or
+`FP32` (everything fp32, the parity tests' policy and `configs/tiny_test.yaml`'s).
+On the card attention takes the kernels `ops.flash_attention.kernel_for`
+names for the compute dtype and head width (bf16 at head_dim 64 or 128: the
+wgmma kernels B1-B5; fp32, or bf16 at another multiple of 16 up to 512: the
+CUDA-core kernels B7 / B8), and under FP32 every other product runs in full
+fp32 (`core.precision.policy_products`: no TF32, whatever the caller's
+flags), so an FP32 model on the card meets the CPU's answers.
 """
 
 from __future__ import annotations
@@ -95,20 +98,14 @@ class MMadaModel:
     """"ring" with a mesh: attention's sequence sharded over fsdp
     (parallel/ring_attention.py) where there is no bias."""
 
-    def __post_init__(self):
-        if self.params is not None:  # a train step's template holds no weights
-            _check_policy(self.policy, self.device)
-
     # ------------------------------------------------------------- factory
     @classmethod
     def init(cls, cfg: llada.LLaDAConfig, vocab: VocabLayout,
              device: DeviceLike = None, dtype: torch.dtype = torch.float32,
              generator: Optional[torch.Generator] = None,
              policy: Policy = FP32, remat=False) -> "MMadaModel":
-        """Random weights made on `device` (the card unless told otherwise).
-        On the card `policy` must compute in bf16 (`BF16`)."""
+        """Random weights made on `device` (the card unless told otherwise)."""
         device = resolve_device(device)
-        _check_policy(policy, device)  # before 16 GB of weights are made
         params = llada.init_params(cfg, device=device, dtype=dtype, generator=generator)
         return cls(cfg=cfg, params=params, vocab=vocab, policy=policy, remat=remat)
 
@@ -118,10 +115,8 @@ class MMadaModel:
                         remat=False) -> "MMadaModel":
         """The model of a local checkpoint directory (`config.json` and
         safetensors or `pytorch_model.bin`), its weights streamed onto `device`
-        (the card unless told otherwise) in `dtype`. On the card `policy` must
-        compute in bf16; it is checked before any weight is read."""
+        (the card unless told otherwise) in `dtype`."""
         device = resolve_device(device)
-        _check_policy(policy, device)
         cfg = config_from_hf_json(model_dir)
         params = load_pretrained(model_dir, cfg, device=device, dtype=dtype)
         return cls(cfg=cfg, params=params, vocab=vocab, policy=policy, remat=remat)
@@ -544,10 +539,3 @@ def _cache_dtype(block_kv_cache):
     = the quantized cache (`llada._quantize_kv`)."""
     return "int8" if block_kv_cache == "int8" else None
 
-
-def _check_policy(policy: Policy, device: torch.device) -> None:
-    if device.type == "cuda" and policy.compute_dtype != torch.bfloat16:
-        raise ValueError(
-            f"a model on {device} computes in bf16: its attention kernels take bf16 "
-            f"only, and this policy computes in {policy.compute_dtype}; pass "
-            "policy=BF16 (mmada_tpu_torch.core.precision.BF16)")

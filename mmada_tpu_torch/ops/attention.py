@@ -33,12 +33,29 @@ outside the kernels, the rotation pulled back by autograd of the fp32
 `apply_rope` (the casts of `jax.vjp` of it). No gradient reaches the bias or
 the rope tables (JAX returns zeros for them, :245).
 
+Within each tier the card's kernels are routed by the operands' dtype and
+head width (`flash_attention.kernel_for`), a route and not a fallback:
+
+  | operands | head_dim                                | kernels                    |
+  |----------|-----------------------------------------|----------------------------|
+  | bf16     | 64, 128                                 | B1-B5, on wgmma            |
+  | bf16     | any other multiple of 16, 16 to 512     | B7 (forward), B8-dq, B8-dkv |
+  | fp32     | any multiple of 16, 16 to 512           | B7, B8-dq, B8-dkv          |
+  | other    |                                         | ValueError / TypeError     |
+
+B7 / B8 (`csrc/attention_generic.cu`, fp32 FFMA on the CUDA cores) compute
+each tier's function, the one-pass tier's RoPE in their C entry's rotation
+pass. JAX sends a head_dim that is not a multiple of 128 to `xla_attention`
+(:322-323), whose function is the one-pass tier's; the port's tiers take
+every width the table names.
+
 Routing of the backward differs from the JAX package's, not its function:
 JAX sends L < 256, and head_dim not a multiple of 128, to an XLA recompute
 (`_kernel_bwd_eligible`), because its kernels pad to 128-row tiles. The
-port's kernels take every shape its forward kernels take (head_dim 64 or
-128, GQA, rectangular Lq != Lk without RoPE in the one-pass tier), so the
-port has no such routing: the kernels' wrappers refuse any other shape.
+port's kernels take every shape its forward kernels take (GQA, rectangular
+Lq != Lk without RoPE in the one-pass tier, the table's dtypes and widths),
+so the port has no such routing: the kernels' wrappers refuse any other
+shape.
 
 Every tier computes the softmax in fp32, as the JAX kernel tiers do (JAX
 takes a `softmax_dtype` for its XLA path only).

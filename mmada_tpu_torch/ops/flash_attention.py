@@ -43,13 +43,32 @@ rowsum(dO * O) is computed here in fp32, as the JAX wrapper does. Each has a
 plain version, `*_reference`, that the CPU takes and the card's checks hold
 the kernel against.
 
+Which kernels a call on the card takes is `kernel_for(dtype, head_dim)`,
+the route by operand dtype and head width:
+
+  * bf16 at head_dim 64 or 128: "wgmma", the kernels above (B1-B3, and the
+    long tier's B4-B5);
+  * bf16 at any other multiple of 16 from 16 to 512, and fp32 at any
+    multiple of 16 from 16 to 512: "generic", the CUDA-core kernels of
+    `csrc/attention_generic.cu` (B7 forward, B8-dq, B8-dkv: fp32 FFMA, no
+    tensor core, no TF32), which compute each tier's same function with
+    ordinary loads (any strides, a bias with any row alignment; nothing is
+    copied);
+  * anything else: a ValueError naming the rule.
+
+It is a route by dtype and width, not a fallback: each route has its own
+counters and nothing is tried and caught.
+
 Each wrapper counts its launches: `<wrapper>.launches` for the unbiased
-kernel, `<wrapper>.bias_launches` for the biased one. A launch runs under
-`torch.cuda.device(q.device)`, on that device's current stream.
+wgmma kernel, `<wrapper>.bias_launches` for the biased one,
+`<wrapper>.generic_launches` and `<wrapper>.generic_bias_launches` for B7 /
+B8. A launch runs under `torch.cuda.device(q.device)`, on that device's
+current stream.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import Optional
 
@@ -70,9 +89,26 @@ from mmada_tpu_torch.ops.tensor_maps import (
 
 _KERNEL_SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
-_HEAD_DIMS = (64, 128)
+_GENERIC_SOURCE = "attention_generic"
+_HEAD_DIMS = (64, 128)          # the wgmma kernels' head widths (bf16)
+GENERIC_HEAD_DIMS = range(16, 513, 16)  # B7 / B8: bf16 or fp32
 NEG_F32 = float(torch.finfo(torch.float32).min)
 _fns: dict = {}
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernels that attention operands of `dtype` and `head_dim` take on
+    the card: "wgmma" (B1-B5) for bf16 at head_dim 64 or 128, "generic" (B7,
+    B8) for bf16 at any other, and fp32 at any, multiple of 16 from 16 to
+    512. Raises ValueError for anything else."""
+    if dtype == torch.bfloat16 and head_dim in _HEAD_DIMS:
+        return "wgmma"
+    if dtype in (torch.bfloat16, torch.float32) and head_dim in GENERIC_HEAD_DIMS:
+        return "generic"
+    raise ValueError(
+        f"no attention kernel for {dtype} operands at head_dim {head_dim}: the card takes "
+        f"bf16 at head_dim {_HEAD_DIMS} (wgmma) and bf16 or fp32 at any multiple of 16 "
+        f"from {GENERIC_HEAD_DIMS.start} to {GENERIC_HEAD_DIMS.stop - 1} (generic)")
 
 
 def _rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -126,10 +162,11 @@ def flash_attention_reference(
     return o.to(q.dtype)
 
 
-def _entry(source: str, name: str, n_ptr: int, arrays: int = 1):
+def _entry(source: str, name: str, n_ptr: int, arrays: int = 1, flags: int = 0):
     """The C entry `name` of the library built from `csrc/<source>.cu`, with
-    its ctypes signature: `n_ptr` pointers, B, H, KVH, Lq, Lk, D, `arrays`
-    addresses of long long arrays (`tensor_maps.spec_array`), the scale and
+    its ctypes signature: `n_ptr` pointers, `flags` ints (B7 / B8: the dtype
+    and the tier), B, H, KVH, Lq, Lk, D, `arrays` addresses of long long
+    arrays (`tensor_maps.spec_array`, or B7 / B8's strides), the scale and
     the stream."""
     fn = _fns.get(name)
     if fn is None:
@@ -137,19 +174,22 @@ def _entry(source: str, name: str, n_ptr: int, arrays: int = 1):
 
         fn = getattr(_build.load_library(source), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [*([p] * n_ptr), i, i, i, i, i, i, *([p] * arrays), ctypes.c_float, p]
+        fn.argtypes = [*([p] * n_ptr), *([i] * (flags + 6)), *([p] * arrays), ctypes.c_float,
+                       p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
-    """Device, dtype and rank. The kernels take any layout:
-    `tensor_maps.tma_operand` copies what a map cannot describe."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be bfloat16 for the CUDA kernel, got {t.dtype}")
+def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    """Device, dtype (q's, bf16 or fp32) and rank. The kernels take any
+    layout: `tensor_maps.tma_operand` copies what a map cannot describe, and
+    B7 / B8 copy only an operand whose last dim is not contiguous."""
+    if t.device != q.device:
+        raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
+        raise TypeError(f"{name} must be bfloat16 or float32, as q, for the CUDA kernels; "
+                        f"got {t.dtype} (q {q.dtype})")
     if t.dim() != 4:
         raise ValueError(f"{name} must be 4-D")
 
@@ -187,13 +227,68 @@ def _bias_map_operand(wrapper, bias: torch.Tensor, b: int, h: int, lq: int, lk: 
     return bias
 
 
-def _count_launch(wrapper, bias: Optional[torch.Tensor]) -> None:
+def _count_launch(wrapper, bias: Optional[torch.Tensor], generic: bool = False) -> None:
     """One launch of `wrapper`'s kernel: `.launches`, or `.bias_launches`
-    for its biased kernel."""
+    for its biased kernel; with `generic`, B7's / B8's (`.generic_launches`,
+    `.generic_bias_launches`)."""
+    attr = ("generic_" if generic else "") + ("launches" if bias is None else "bias_launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """An operand as B7 / B8 read it: any strides, the last dim contiguous."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _strides(*ts) -> array.array:
+    """The (batch, head, row) element strides of each 4-D operand, in order;
+    a broadcast axis of the bias (size 1) gets stride 0, a missing bias
+    zeros."""
+    flat = []
+    for t in ts:
+        flat += [0, 0, 0] if t is None else [
+            0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+    return array.array("q", flat)
+
+
+def _generic_bias(wrapper, bias: Optional[torch.Tensor], b, h, lq, lk, device):
+    """The fp32 bias as B7 / B8 read it (checked; copied only if its last dim
+    is not contiguous, counted in `wrapper.bias_copies`)."""
     if bias is None:
-        wrapper.launches += 1
-    else:
-        wrapper.bias_launches += 1
+        return None
+    _check_bias(bias, b, h, lq, lk, device)
+    if bias.stride(-1) != 1:
+        wrapper.bias_copies += 1
+        bias = bias.contiguous()
+    return bias
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return 1 if t.dtype == torch.bfloat16 else 0
+
+
+def _generic_fwd(wrapper, q, k, v, rope_sin=None, rope_cos=None, bias=None,
+                 long_tier: bool = False) -> torch.Tensor:
+    """B7 on checked operands: the one-pass function (`long_tier` False; RoPE
+    by the C entry's rotation pass into scratch of q's type) or the long
+    one. The output is written as (B, Lq, H, D), so the caller's merge of
+    the heads is a view."""
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    q, k, v = (_rows(t) for t in (q, k, v))
+    bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    q_rot = k_rot = None
+    if rope_sin is not None:
+        q_rot = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+        k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (q, k, v, out, bias, rope_sin, rope_cos, q_rot, k_rot)]
+    strides = _strides(q, k, v, out, bias)
+    fn = _entry(_GENERIC_SOURCE, "mmada_attention_generic_fwd", 9, flags=2)
+    _launch(fn, q.device, *ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
+            strides.buffer_info()[0], 1.0 / (d ** 0.5))
+    return out
 
 
 def flash_attention(
@@ -206,12 +301,15 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention through the Hopper kernel (CUDA tensors) or its plain version
     (CPU tensors). Any length and alignment; rectangular Lq != Lk only
-    without RoPE. Counts its launches in `flash_attention.launches` (B1) or
-    `flash_attention.bias_launches` (B2, with a bias): one per call, since
-    with RoPE the C entry runs its rotation kernel and the attention kernel
-    together. B1 and B2 read their operands through TMA tensor maps
-    (`tensor_maps`), so an operand that a map cannot describe is copied
-    first (a bias: `flash_attention.bias_copies`).
+    without RoPE. On the card `kernel_for(q.dtype, D)` picks the kernel:
+    B1 (B2 with a bias) for bf16 at D 64 or 128, counted in
+    `flash_attention.launches` (`.bias_launches`), else B7, counted in
+    `flash_attention.generic_launches` (`.generic_bias_launches`): one per
+    call, since with RoPE the C entry runs its rotation kernel and the
+    attention kernel together. B1 and B2 read their operands through TMA
+    tensor maps (`tensor_maps`), so an operand that a map cannot describe is
+    copied first (a bias: `flash_attention.bias_copies`); B7 reads any
+    strides.
 
     B2 adds the bias in log2 units, saturated at the finite min, so on the
     card every bias at or below -FLT_MAX / log2 e (about -2.36e38) counts as
@@ -224,13 +322,12 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {_HEAD_DIMS}")
+    route = kernel_for(q.dtype, d)
     if (rope_sin is None) != (rope_cos is None):
         raise ValueError("pass both rope tables or neither")
     if rope_sin is not None:
@@ -242,6 +339,10 @@ def flash_attention(
                     or t.data_ptr() % 16):
                 raise ValueError(f"{name} must be contiguous fp32 ({lq}, {d}) on {q.device}")
     bias = bias_as_float(bias)
+    if route == "generic":
+        out = _generic_fwd(flash_attention, q, k, v, rope_sin, rope_cos, bias)
+        _count_launch(flash_attention, bias, generic=True)
+        return out
     if bias is not None:
         bias = _bias_map_operand(flash_attention, bias, b, h, lq, lk, q.device)
     q, k, v = (tma_operand(t) for t in (q, k, v))
@@ -281,6 +382,8 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.bias_launches = 0
 flash_attention.bias_copies = 0
+flash_attention.generic_launches = 0
+flash_attention.generic_bias_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -348,15 +451,14 @@ def _check_bwd_shapes(q, k, v, dout, stats) -> tuple[int, int, int, int, int, in
     """Devices, dtypes and shapes of a backward kernel's operands; returns
     (B, H, KVH, Lq, Lk, D)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if (k.shape != v.shape or dout.shape != q.shape or k.shape[0] != b
             or k.shape[3] != d or h % kvh):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} dout {tuple(dout.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {_HEAD_DIMS}")
+    kernel_for(q.dtype, d)
     for name, t in stats:
         if (t.device != q.device or t.dtype != torch.float32
                 or tuple(t.shape) != (b, h, lq) or not t.is_contiguous()):
@@ -448,18 +550,65 @@ def _launch_dkv_wgmma(source: str, prefix: str, wrapper, q, k, v, dout, lse, del
     return dk, dv
 
 
+def _bwd_route(q, k, v, dout) -> str:
+    """`kernel_for` of a backward call, after its operands' devices, dtypes
+    and ranks are checked (a dtype no kernel takes is a TypeError, as in the
+    forward)."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _check_operand(name, t, q)
+    return kernel_for(q.dtype, q.shape[-1])
+
+
+def _generic_dq(wrapper, q, k, v, dout, delta, bias=None, long_tier: bool = False):
+    """(dq, lse) through B8-dq: the one-pass tier's function or (`long_tier`)
+    the long one's. Any strides with a contiguous last dim."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
+    q, k, v, dout = (_rows(t) for t in (q, k, v, dout))
+    bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
+    dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, dout, delta, bias, dq, lse)]
+    strides = _strides(q, k, v, dout, dq, bias)
+    _launch(_entry(_GENERIC_SOURCE, "mmada_attention_generic_dq", 8, flags=2), q.device, *ptrs,
+            _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d, strides.buffer_info()[0],
+            1.0 / (d ** 0.5))
+    return dq, lse
+
+
+def _generic_dkv(wrapper, q, k, v, dout, lse, delta, bias=None):
+    """(dk, dv) through B8-dkv, the function of both tiers (p = exp(s -
+    lse)); dk and dv of a kv head sum over its query heads in fp32."""
+    b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)])
+    q, k, v, dout = (_rows(t) for t in (q, k, v, dout))
+    bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
+    dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (q, k, v, dout, lse, delta, bias, dk, dv)]
+    strides = _strides(q, k, v, dout, dk, dv, bias)
+    _launch(_entry(_GENERIC_SOURCE, "mmada_attention_generic_dkv", 9, flags=1), q.device, *ptrs,
+            _dtype_code(q), b, h, kvh, lq, lk, d, strides.buffer_info()[0], 1.0 / (d ** 0.5))
+    return dk, dv
+
+
 def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dq, lse) through the Hopper dq kernel (CUDA tensors) or its plain
     version (CPU tensors). Counts launches in `attention_bwd_dq.launches`
     (B3), or `attention_bwd_dq.bias_launches` with a bias (B3-bias). Both
     read their operands through tensor maps and run on a persistent grid
     (each cluster walks several (tile pair, head, batch) items); a bias no
-    map describes is copied first (`attention_bwd_dq.bias_copies`)."""
+    map describes is copied first (`attention_bwd_dq.bias_copies`). Where
+    `kernel_for` says "generic" it launches B8-dq
+    (`.generic_launches`, `.generic_bias_launches`)."""
     if q.device.type == "cpu":
         return attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq runs on cuda or cpu, not {q.device}")
     bias = bias_as_float(bias)
+    if _bwd_route(q, k, v, dout) == "generic":
+        out = _generic_dq(attention_bwd_dq, q, k, v, dout, delta, bias)
+        _count_launch(attention_bwd_dq, bias, generic=True)
+        return out
     out = _launch_dq_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dq, q, k, v, dout,
                            delta, bias)
     _count_launch(attention_bwd_dq, bias)
@@ -469,6 +618,8 @@ def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, tor
 attention_bwd_dq.launches = 0
 attention_bwd_dq.bias_launches = 0
 attention_bwd_dq.bias_copies = 0
+attention_bwd_dq.generic_launches = 0
+attention_bwd_dq.generic_bias_launches = 0
 
 
 def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -476,12 +627,18 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tenso
     version (CPU tensors). Counts launches in `attention_bwd_dkv.launches`
     (B3), or `attention_bwd_dkv.bias_launches` with a bias (B3-bias). Both
     read their operands through tensor maps; a bias no map describes is
-    copied first (`attention_bwd_dkv.bias_copies`)."""
+    copied first (`attention_bwd_dkv.bias_copies`). Where `kernel_for` says
+    "generic" it launches B8-dkv (`.generic_launches`,
+    `.generic_bias_launches`)."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv runs on cuda or cpu, not {q.device}")
     bias = bias_as_float(bias)
+    if _bwd_route(q, k, v, dout) == "generic":
+        out = _generic_dkv(attention_bwd_dkv, q, k, v, dout, lse, delta, bias)
+        _count_launch(attention_bwd_dkv, bias, generic=True)
+        return out
     out = _launch_dkv_wgmma(_BWD_SOURCE, "flash_attention_bwd", attention_bwd_dkv, q, k, v,
                             dout, lse, delta, bias)
     _count_launch(attention_bwd_dkv, bias)
@@ -491,6 +648,8 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tenso
 attention_bwd_dkv.launches = 0
 attention_bwd_dkv.bias_launches = 0
 attention_bwd_dkv.bias_copies = 0
+attention_bwd_dkv.generic_launches = 0
+attention_bwd_dkv.generic_bias_launches = 0
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -26,13 +26,17 @@ max(rowsum(p), 1e-30) * scale with dp = dO.v^T, the row logsumexp lse = m +
 log(rowsum(p)), and dk, dv from p = exp(s - lse), all in fp32 before the
 final cast.
 
-Each wrapper launches its kernel for a CUDA tensor (bf16, head_dim 64 or
-128, Lq and Lk multiples of 128, as the JAX tiers require) and raises for
-anything the kernel does not take; it never falls back. For a CPU tensor it
-computes the plain version (`*_reference`), which takes any length; the CPU
-tests hold it against the JAX kernels and `chip_smoke.py` holds the kernel
-against it on the card. Each wrapper counts its launches in `.launches`
-(unbiased) and `.bias_launches` (biased).
+Each wrapper launches a kernel for a CUDA tensor (Lq and Lk multiples of
+128, as the JAX tiers require), chosen by `flash_attention.kernel_for`: B4 /
+B5 for bf16 at head_dim 64 or 128, else the CUDA-core kernels of
+`csrc/attention_generic.cu` with the long flag (B7-long, B8-dq-long; B8-dkv
+computes both tiers' dk and dv) for bf16 at other widths and for fp32, any
+multiple of 16 from 16 to 512. It raises for anything else; it never falls
+back. For a CPU tensor it computes the plain version (`*_reference`), which
+takes any length; the CPU tests hold it against the JAX kernels and
+`chip_smoke.py` holds the kernels against it on the card. Each wrapper
+counts its launches in `.launches` (unbiased) and `.bias_launches` (biased),
+and those of B7 / B8 in `.generic_launches` and `.generic_bias_launches`.
 """
 
 from __future__ import annotations
@@ -44,10 +48,13 @@ import torch
 from mmada_tpu_torch.ops.flash_attention import (
     NEG_F32,
     _bias_map_operand,
+    _bwd_route,
     _check_operand,
     _count_launch,
     _entry,
-    _HEAD_DIMS,
+    _generic_dkv,
+    _generic_dq,
+    _generic_fwd,
     _heads_fastest,
     _heads_like_q,
     _launch,
@@ -57,6 +64,7 @@ from mmada_tpu_torch.ops.flash_attention import (
     attention_bwd_dkv_reference,
     attention_delta,
     bias_as_float,
+    kernel_for,
 )
 from mmada_tpu_torch.ops.tensor_maps import (
     OUT_ROWS,
@@ -113,21 +121,25 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
     or not. Both read their operands through TMA tensor maps (`tensor_maps`:
     an operand a map cannot describe is copied first; a bias so copied
     counts in `.bias_copies`); B4-bias runs a bias broadcast over the heads
-    with the heads fastest in its grid (`_heads_fastest`)."""
+    with the heads fastest in its grid (`_heads_fastest`). Where `kernel_for`
+    says "generic", B7-long (`.generic_launches`, `.generic_bias_launches`)."""
     if q.device.type == "cpu":
         return flash_attention_long_reference(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_long runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q)
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {_HEAD_DIMS}")
+    route = kernel_for(q.dtype, d)
     _check_aligned(q, k)
     bias = bias_as_float(bias)
+    if route == "generic":
+        out = _generic_fwd(flash_attention_long, q, k, v, bias=bias, long_tier=True)
+        _count_launch(flash_attention_long, bias, generic=True)
+        return out
     q, k, v = (tma_operand(t) for t in (q, k, v))
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -148,6 +160,8 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
 flash_attention_long.launches = 0
 flash_attention_long.bias_launches = 0
 flash_attention_long.bias_copies = 0
+flash_attention_long.generic_launches = 0
+flash_attention_long.generic_bias_launches = 0
 
 
 def attention_bwd_dq_long_reference(
@@ -180,13 +194,19 @@ def attention_bwd_dq_long(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor
     """(dq, lse) through B5-dq (CUDA tensors; `.launches`, or B5-dq-bias and
     `.bias_launches`) or its plain version (CPU tensors). Both read their
     operands through TMA tensor maps (`tensor_maps`: an operand a map cannot
-    describe is copied first; a bias so copied counts in `.bias_copies`)."""
+    describe is copied first; a bias so copied counts in `.bias_copies`).
+    Where `kernel_for` says "generic", B8-dq-long (`.generic_launches`,
+    `.generic_bias_launches`)."""
     if q.device.type == "cpu":
         return attention_bwd_dq_long_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dq_long runs on cuda or cpu, not {q.device}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
+    if _bwd_route(q, k, v, dout) == "generic":
+        out = _generic_dq(attention_bwd_dq_long, q, k, v, dout, delta, bias, long_tier=True)
+        _count_launch(attention_bwd_dq_long, bias, generic=True)
+        return out
     out = _launch_dq_wgmma(_SOURCE, "flash_attention_long_bwd", attention_bwd_dq_long, q, k, v,
                            dout, delta, bias)
     _count_launch(attention_bwd_dq_long, bias)
@@ -196,6 +216,8 @@ def attention_bwd_dq_long(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor
 attention_bwd_dq_long.launches = 0
 attention_bwd_dq_long.bias_launches = 0
 attention_bwd_dq_long.bias_copies = 0
+attention_bwd_dq_long.generic_launches = 0
+attention_bwd_dq_long.generic_bias_launches = 0
 
 
 def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor,
@@ -203,13 +225,18 @@ def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.
     """(dk, dv) through B5-dkv (CUDA tensors; `.launches`, or B5-dkv-bias and
     `.bias_launches`) or its plain version (CPU tensors). Both read their
     operands through TMA tensor maps and bulk copies (a bias copied first
-    counts in `.bias_copies`)."""
+    counts in `.bias_copies`). Where `kernel_for` says "generic", B8-dkv
+    (`.generic_launches`, `.generic_bias_launches`)."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_long_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd_dkv_long runs on cuda or cpu, not {q.device}")
     _check_aligned(q, k)
     bias = bias_as_float(bias)
+    if _bwd_route(q, k, v, dout) == "generic":
+        out = _generic_dkv(attention_bwd_dkv_long, q, k, v, dout, lse, delta, bias)
+        _count_launch(attention_bwd_dkv_long, bias, generic=True)
+        return out
     out = _launch_dkv_wgmma(_SOURCE, "flash_attention_long_bwd", attention_bwd_dkv_long, q, k,
                             v, dout, lse, delta, bias)
     _count_launch(attention_bwd_dkv_long, bias)
@@ -219,6 +246,8 @@ def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.
 attention_bwd_dkv_long.launches = 0
 attention_bwd_dkv_long.bias_launches = 0
 attention_bwd_dkv_long.bias_copies = 0
+attention_bwd_dkv_long.generic_launches = 0
+attention_bwd_dkv_long.generic_bias_launches = 0
 
 
 def flash_attention_bwd_long(

@@ -13,15 +13,17 @@ both sign-extended. A contracting dim that is not a GROUP multiple packs
 per-channel (one group of K rows); such a weight never reaches the kernel
 (`quantization.int4_matmul_dispatch` sends it to the dequant route).
 
-`int4_matmul` launches B6 for a CUDA tensor and raises for anything B6 does
-not take: it never falls back. B6 runs on `wgmma` and reads x, the packed
+`int4_matmul` launches B6 for a CUDA tensor with bf16 x, B6-f32
+(`csrc/int4_matmul_f32.cu`: fp32 FFMA on the CUDA cores, no TF32, fp32 out)
+with fp32 x, and raises for anything else: it never falls back. B6 runs on `wgmma` and reads x, the packed
 weight and its scales and writes the output through TMA tensor maps, which
 the wrapper describes (`tensor_maps.describe_matrix`), with tiles of 128 or
 256 rows (`block_rows`). For a CPU tensor it computes
 `int4_matmul_reference`, JAX's function in plain PyTorch (dequantise in
 fp32, cast to x's dtype, then x @ w), which the CPU tests hold against the
-JAX kernel and `chip_smoke.py` holds B6 against on the card. It counts its
-launches in `int4_matmul.launches`; a launch runs under
+JAX kernel and `chip_smoke.py` holds B6 and B6-f32 against on the card.
+It counts B6's launches in `int4_matmul.launches` and B6-f32's in
+`int4_matmul.f32_launches`; a launch runs under
 `torch.cuda.device(x.device)` on that device's current stream.
 """
 
@@ -37,6 +39,7 @@ from mmada_tpu_torch.ops.tensor_maps import describe_matrix, spec_array
 GROUP = 128          # quantization group size along the contracting dim
 _PACK = GROUP // 2   # packed byte rows per group
 _SOURCE = "int4_matmul"
+_F32_SOURCE = "int4_matmul_f32"
 _BLOCK_COLS = 128    # output columns of a B6 tile
 _OUT_BOX = 64        # B6 stores its output 64 x 64 at a time
 # a wave's cost beyond its tiles' rows (pipeline fill, epilogue, launch), in
@@ -46,6 +49,7 @@ _OUT_BOX = 64        # B6 stores its output 64 x 64 at a time
 # copies of B6 forced to one height)
 _TILE_OVERHEAD_ROWS = 245
 _fn = None
+_f32_fn = None
 _sms: dict = {}
 # B6's map descriptions by (M, K, N, row strides, SMs): with the bases
 # checked 16-byte aligned they depend on nothing else, and describing four
@@ -111,6 +115,19 @@ def _entry():
     return _fn
 
 
+def _f32_entry():
+    global _f32_fn
+    if _f32_fn is None:
+        from mmada_tpu_torch.ops import _build
+
+        fn = _build.load_library(_F32_SOURCE).mmada_int4_matmul_f32
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, ll, p, ll, p, ll, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _f32_fn = fn
+    return _f32_fn
+
+
 def block_rows(m: int, n: int, sms: int) -> int:
     """B6's tile rows for an (m, n) output on a card of `sms` SMs: 256 where
     its fewer waves take less time than those of 128-row tiles (the
@@ -143,10 +160,11 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _check(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> tuple[int, int]:
-    """(K, N) of operands B6 takes; raises for anything else."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"x must be bfloat16 for the int4 kernel, got {x.dtype} "
-                        "(fp32 x is ROADMAP A.17)")
+    """(K, N) of operands B6 (bf16 x) or B6-f32 (fp32 x) takes; raises for
+    anything else."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bfloat16 (B6) or float32 (B6-f32) for the int4 kernels, "
+                        f"got {x.dtype}")
     if packed.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"packed must be int8 and scales float32, got {packed.dtype}, "
                         f"{scales.dtype}")
@@ -175,19 +193,28 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
     """x (..., K) @ dequant(packed (K/2, N), scales (K/128, N)) -> (..., N)
     in x's dtype, through B6 (CUDA tensors: bf16 x, K and N multiples of 128,
     128-row groups, 16-byte aligned rows; strided row views are read in
-    place through their tensor maps) or its plain version (CPU tensors).
-    Counts launches in `int4_matmul.launches`."""
+    place through their tensor maps), B6-f32 (fp32 x, the same layout) or
+    the plain version (CPU tensors). Counts launches in
+    `int4_matmul.launches` (B6) and `int4_matmul.f32_launches` (B6-f32)."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, packed, scales)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cuda or cpu, not {x.device}")
     k, n = _check(x, packed, scales)
     x2 = x.reshape(-1, k)
-    if x2.stride(0) % 8 or x2.data_ptr() % 16:
+    if x.dtype == torch.bfloat16 and (x2.stride(0) % 8 or x2.data_ptr() % 16):  # B6's TMA
         raise ValueError(f"x rows must be 16-byte aligned: stride {x2.stride()}")
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m:
+    if m and x.dtype == torch.float32:
+        with torch.cuda.device(x.device):
+            err = _f32_entry()(x2.data_ptr(), x2.stride(0), packed.data_ptr(), packed.stride(0),
+                               scales.data_ptr(), scales.stride(0), out.data_ptr(), m, k, n,
+                               torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"int4_matmul (fp32) kernel launch failed: cudaError {err}")
+        int4_matmul.f32_launches += 1
+    elif m:
         sms = _sm_count(x.device)
         key = (m, k, n, x2.stride(0), packed.stride(0), scales.stride(0), sms)
         maps = _maps.get(key)
@@ -206,3 +233,4 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
 
 
 int4_matmul.launches = 0
+int4_matmul.f32_launches = 0

@@ -12,9 +12,10 @@ calls at every block matmul and in the vocab head):
     quantized per token on the fly; an int8 x int8 product with exact int32
     sums (`int8_matmul`), rescaled by token scale x channel scale;
   * int4 (`Int4Tensor`): the grouped nibble layout of `ops/int4_matmul.py`;
-    its matmul is kernel B6 when the weight has the kernel's layout (K and N
-    multiples of 128, 128-row groups), else x @ the dequantised weight, the
-    JAX package's rule by layout (`int4_matmul_dispatch`);
+    its matmul is kernel B6 (B6-f32 for fp32 x, passed through uncast) when
+    the weight has the kernel's layout (K and N multiples of 128, 128-row
+    groups), else x @ the dequantised weight, the JAX package's rule by
+    layout (`int4_matmul_dispatch`);
   * training (`W8A8TrainTensor`, `w8a8_ste_matmul`, `tag_w8a8_ste`): a
     trainable weight whose forward runs W8A8 and whose gradients are the
     plain x @ w's (straight-through).
@@ -217,10 +218,11 @@ def quantize_tensor_int4(w: torch.Tensor) -> Int4Tensor:
 
 
 def int4_matmul_dispatch(x: torch.Tensor, qw: Int4Tensor) -> torch.Tensor:
-    """B6 (`int4_matmul`: the kernel on the card, its plain version on the
-    CPU) when the weight has the kernel's layout, else x @ the dequantised
-    weight: the JAX package's routing by layout (K < 128 packs per-channel;
-    a head whose N is not a 128 multiple)."""
+    """B6 (`int4_matmul`: the kernel on the card, B6-f32 for fp32 x, which
+    passes through uncast; the plain version on the CPU) when the weight has
+    the kernel's layout, else x @ the weight dequantised to x's dtype: the
+    JAX package's routing by layout (K < 128 packs per-channel; a head whose
+    N is not a 128 multiple)."""
     k, n = qw.shape[-2], qw.shape[-1]
     kernel_layout = k % 128 == 0 and n % 128 == 0 and qw.scales.shape[-2] * 128 == k
     if kernel_layout:

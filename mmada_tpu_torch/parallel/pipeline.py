@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from mmada_tpu_torch.core.mesh import FSDP_AXIS, axis_group, axis_index, axis_size
-from mmada_tpu_torch.core.precision import FP32, Policy
+from mmada_tpu_torch.core.precision import FP32, Policy, under_policy
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.ops.quantization import is_quantized
 from mmada_tpu_torch.parallel import collectives as C
@@ -56,6 +56,7 @@ def microbatches(batch: int, n_stages: int, num_microbatches: Optional[int] = No
 
 
 @torch.no_grad()
+@under_policy
 def pipeline_forward(
     params: dict,
     cfg: llada.LLaDAConfig,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from mmada_tpu_torch.checkpoints.manager import flatten
+from mmada_tpu_torch.core.precision import policy_products
 from mmada_tpu_torch.core.vocab import VocabLayout
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models import lora as lora_mod
@@ -141,8 +142,9 @@ class T2MTrainStep:
 
     def apply(self, state: TrainState, prepared: dict):
         names, leaves = zip(*self._named(state.params))
-        loss, aux = self.loss(state.params, prepared)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with policy_products(self.model.policy):  # the backward's products too
+            loss, aux = self.loss(state.params, prepared)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {n: torch.zeros_like(t) if g is None else g
                  for n, t, g in zip(names, leaves, grads)}
         grad_norm = global_norm(grads)

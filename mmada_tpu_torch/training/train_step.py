@@ -34,6 +34,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from mmada_tpu_torch.core.mesh import world_size
+from mmada_tpu_torch.core.precision import policy_products
 from mmada_tpu_torch.models import llada
 from mmada_tpu_torch.models.mmada import MMadaModel
 from mmada_tpu_torch.ops.quantization import tag_w8a8_ste
@@ -208,8 +209,9 @@ class TrainStep:
         """One update from an already corrupted batch (over a mesh: the
         global batch, every rank the same)."""
         names, leaves = zip(*llada.named_leaves(state.params))
-        loss, aux = self.loss(state.params, prepared)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with policy_products(self.model.policy):  # the backward's products too
+            loss, aux = self.loss(state.params, prepared)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {n: torch.zeros_like(t) if g is None else g
                  for n, t, g in zip(names, leaves, grads)}
         norm_reduce = None

@@ -193,9 +193,9 @@ def test_model_from_pretrained_on_the_cpu(tmp_path):
 
 
 def test_from_pretrained_checks_the_policy_before_reading(tmp_path):
-    """On the card an fp32 policy is refused before the (missing) weights are
-    read."""
-    with pytest.raises(ValueError, match="bf16"):
+    """The card takes an fp32 policy (its fp32 attention kernels, A.17): the
+    policy passes, and what fails is reading the missing checkpoint."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
         MMadaModel.from_pretrained(str(tmp_path / "missing"), MMADA_8B, device="cuda",
                                    policy=FP32)
 

@@ -3,7 +3,9 @@ biased, the one-pass tier and the long tier; the int4 matmul B6) against
 their plain versions, their refusals, the routing by length, gradients
 through attention, the served and trained paths through the kernels (with
 masks too, on a frame past 4096 tokens, and on int4 weights), the W8A8
-int8 product on the card, the bf16-only model on the card, the launches'
+int8 product on the card, an fp32 model on the card against the CPU, the
+CUDA-core kernels (B7, B8, B6-f32) at fp32 and at every head width and
+`kernel_for`'s routes, the launches'
 device, MAGVIT-v2 on the card (against the CPU, whatever the TF32 flags) and
 MMU requests through B1 alone, the serving engine's batches, streams and
 t2i windows.
@@ -180,10 +182,10 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     """A CUDA tensor launches the kernel or raises; nothing falls back."""
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 128)
     before = flash_attention.launches
-    with pytest.raises(TypeError):
-        flash_attention(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError):
-        flash_attention(q[..., :96], k[..., :96], v[..., :96])       # head_dim 96
+    with pytest.raises(TypeError):   # fp16: no kernel (kernel_for)
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):   # head_dim 8: no kernel (kernel_for)
+        flash_attention(q[..., :8], k[..., :8], v[..., :8])
     # misaligned (a 2-byte offset): B1 and B2 copy what a tensor map cannot
     # describe and give the contiguous copy's result
     odd = [t[..., 1:65] for t in (q, k, v)]
@@ -208,7 +210,7 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):   # the long tier takes 128-aligned lengths
         flash_attention_long(long_q[:, :, :4200], long_q[:, :, :4200], long_q[:, :, :4200])
     with pytest.raises(TypeError):
-        flash_attention_long(long_q.float(), long_q.float(), long_q.float())
+        flash_attention_long(long_q.half(), long_q.half(), long_q.half())
     assert (flash_attention_long.launches, flash_attention_long.bias_launches) == before_long
     # the misaligned call and its copy, and the rectangular call past 4096
     assert flash_attention.launches == before + 3
@@ -369,11 +371,11 @@ def test_backward_refuses_what_it_cannot_take(cuda_device):
     out = flash_attention(q, k, v)
     delta = attention_delta(out, q)
     with pytest.raises(TypeError):
-        attention_bwd_dq(q.float(), k.float(), v.float(), q.float(), delta)
+        attention_bwd_dq(q.half(), k.half(), v.half(), q.half(), delta)
     with pytest.raises(ValueError):
         attention_bwd_dq(q, k, v, q, delta.double())
     with pytest.raises(ValueError):
-        attention_bwd_dq(q[..., :96], k[..., :96], v[..., :96], q[..., :96], delta)
+        attention_bwd_dq(q[..., :8], k[..., :8], v[..., :8], q[..., :8], delta)
 
 
 def test_backward_past_the_one_pass_range_names_b5(cuda_device):
@@ -869,19 +871,193 @@ def test_model_logits_do_not_depend_on_reduced_precision_reductions(cuda_device)
     torch.testing.assert_close(allowed, exact, atol=0, rtol=0)
 
 
-def test_model_on_the_card_refuses_a_non_bf16_policy(cuda_device):
-    """ROADMAP C.2: the kernels take bf16 only, so an FP32 model on the card
-    is refused when it is built, not deep inside the kernel wrapper."""
+def test_fp32_model_on_the_card_matches_the_cpu(cuda_device):
+    """A tiny model under the FP32 policy, built on the card from the CPU's
+    weights: its logits within 1e-5 of the CPU's, through B7 (never the
+    wgmma kernels), with TF32 off in its products whatever the caller's
+    flags (`policy_products`); the same weights in bf16 on the card still
+    take B1."""
     vocab = tiny_layout()
     cfg = llada.tiny_config(vocab_size=vocab.total_vocab_size, d_model=128, n_heads=2)
-    with pytest.raises(ValueError, match="BF16"):
-        MMadaModel.init(cfg, vocab, device=cuda_device)
-    params = llada.init_params(cfg, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="BF16"):
-        MMadaModel(cfg=cfg, params=params, vocab=vocab, policy=FP32)
-    model = MMadaModel(cfg=cfg, params=params, vocab=vocab, policy=BF16)
-    with pytest.raises(ValueError, match="BF16"):
-        dataclasses.replace(model, policy=FP32)
+    params = llada.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(0, vocab.total_vocab_size, (2, 150),
+                        generator=torch.Generator().manual_seed(1))
+    want = MMadaModel(cfg=cfg, params=params, vocab=vocab, policy=FP32).forward(ids)
+    assert MMadaModel.init(cfg, vocab, device=cuda_device, policy=FP32).policy == FP32
+    card = MMadaModel(cfg=cfg, vocab=vocab, policy=FP32, params={
+        k: t.to(cuda_device) if torch.is_tensor(t) else {n: w.to(cuda_device)
+                                                          for n, w in t.items()}
+        for k, t in params.items()})
+    before = (flash_attention.launches, flash_attention.generic_launches)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = card.forward(ids.to(cuda_device)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    assert (flash_attention.launches, flash_attention.generic_launches) == (
+        before[0], before[1] + cfg.n_layers)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    bf16 = dataclasses.replace(card, params=llada.init_params(
+        cfg, device=cuda_device, dtype=torch.bfloat16), policy=BF16)
+    bf16.forward(ids.to(cuda_device))
+    assert flash_attention.launches == before[0] + cfg.n_layers
+
+
+def _generic_qkv(device, dtype, b, h, kvh, lq, lk, d, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    q = torch.randn(b, h, lq, d, generator=g, device=device) * 3
+    k = torch.randn(b, kvh, lk, d, generator=g, device=device)
+    v = torch.randn(b, kvh, lk, d, generator=g, device=device)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _assert_generic_grad_close(got, want):
+    """B8 against its plain version: fp32 within 1e-5 of the gradient's
+    largest entry (the sums' order only); bf16 at the wgmma kernels' bar."""
+    if got.dtype == torch.bfloat16:
+        assert_grad_close(got, want)
+    else:
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# (dtype, B, H, KVH, Lq, Lk, D, rope, bias): fp32 at every width, bf16 at the
+# widths the wgmma kernels do not take; GQA, RoPE, rectangular, biased
+GENERIC_CASES = [
+    (torch.float32, 2, 4, 2, 200, 200, 16, True, None),
+    (torch.float32, 1, 4, 4, 130, 77, 96, False, "head"),
+    (torch.float32, 2, 4, 4, 387, 387, 64, True, "mask"),
+    (torch.float32, 1, 4, 1, 300, 300, 128, True, None),
+    (torch.float32, 1, 2, 2, 129, 129, 256, True, "head"),
+    (torch.float32, 1, 2, 2, 65, 65, 512, False, None),
+    (torch.bfloat16, 2, 4, 2, 200, 200, 96, True, "mask"),
+    (torch.bfloat16, 1, 2, 1, 384, 384, 256, False, "head"),
+    (torch.bfloat16, 1, 2, 2, 129, 129, 512, True, None),
+    (torch.bfloat16, 1, 4, 4, 63, 127, 16, False, None),
+]
+
+
+def _generic_bias(device, kind, b, h, lq, lk):
+    g = torch.Generator(device).manual_seed(9)
+    if kind == "head":
+        return torch.randn(b, h, lq, lk, generator=g, device=device) * 2
+    if kind == "mask":
+        keep = torch.ones(b, lk, dtype=torch.long, device=device)
+        keep[:, :11] = 0
+        return llada.prepare_attention_bias(keep)
+    return None
+
+
+@pytest.mark.parametrize("dtype,b,h,kvh,lq,lk,d,rope,bias", GENERIC_CASES)
+def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq, lk, d, rope,
+                                              bias):
+    """B7 (RoPE by its C entry's rotation pass), then B8-dq and B8-dkv as a
+    pair (B8-dq's lse into B8-dkv), against the plain versions; counted in
+    `.generic_launches` / `.generic_bias_launches`, never in the wgmma
+    counters. fp32 forward within 1e-5 absolute."""
+    from mmada_tpu_torch.ops.attention import apply_rope
+
+    q, k, v = _generic_qkv(cuda_device, dtype, b, h, kvh, lq, lk, d)
+    bias = _generic_bias(cuda_device, bias, b, h, lq, lk)
+    attr = "generic_launches" if bias is None else "generic_bias_launches"
+    sin = cos = None
+    if rope:
+        sin, cos = llada.rope_sin_cos(lq, d, 500000.0, device=cuda_device)
+    wgmma = (flash_attention.launches, flash_attention.bias_launches, attention_bwd_dq.launches,
+             attention_bwd_dkv.launches)
+    before = tuple(getattr(f, attr) for f in (flash_attention, attention_bwd_dq,
+                                              attention_bwd_dkv))
+    got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        assert_b1_close(got, want)
+    qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    dout = torch.randn(want.shape, generator=g, device=cuda_device).to(dtype)
+    if bias is not None:   # no cotangent on rows without an allowed key, as in the model
+        dout = dout * (bias > torch.finfo(torch.float32).min).any(-1, keepdim=True)
+    delta = attention_delta(want, dout)
+    dq, lse = attention_bwd_dq(qr, kr, v, dout, delta, bias)
+    dk, dv = attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias)
+    want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta, bias)
+    want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta, bias)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for a, w, t in ((dq, want_dq, q), (dk, want_dk, k), (dv, want_dv, v)):
+        assert a.dtype == dtype and a.shape == t.shape
+        _assert_generic_grad_close(a, w)
+    assert tuple(getattr(f, attr) for f in (flash_attention, attention_bwd_dq,
+                                            attention_bwd_dkv)) == tuple(x + 1 for x in before)
+    assert (flash_attention.launches, flash_attention.bias_launches, attention_bwd_dq.launches,
+            attention_bwd_dkv.launches) == wgmma
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 256),
+                                     (torch.float32, 16)])
+def test_generic_long_kernels_match_plain_versions(cuda_device, dtype, d):
+    """B7-long and B8-dq-long / B8-dkv (the long tier's functions: p in fp32,
+    divided last) against their plain versions at 4,224 tokens, GQA."""
+    q, k, v = _generic_qkv(cuda_device, dtype, 1, 4, 2, 4224, 4224, d)
+    before = (flash_attention_long.launches, attention_bwd_dq_long.launches)
+    g0 = (flash_attention_long.generic_launches, attention_bwd_dq_long.generic_launches,
+          attention_bwd_dkv_long.generic_launches)
+    got = flash_attention_long(q, k, v)
+    want = flash_attention_long_reference(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=2 ** -14, rtol=2 ** -7)
+    dout = torch.randn(want.shape, generator=torch.Generator(cuda_device).manual_seed(3),
+                       device=cuda_device).to(dtype)
+    got = flash_attention_bwd_long(q, k, v, want, dout)
+    ref = flash_attention_bwd_long_reference(q, k, v, want, dout)
+    for a, w in zip(got, ref):
+        if dtype == torch.float32:
+            _assert_generic_grad_close(a, w)
+        else:
+            assert float((a.float() - w.float()).norm() / w.float().norm()) <= 1e-3
+    assert (flash_attention_long.launches, attention_bwd_dq_long.launches) == before
+    assert (flash_attention_long.generic_launches, attention_bwd_dq_long.generic_launches,
+            attention_bwd_dkv_long.generic_launches) == tuple(x + 1 for x in g0)
+
+
+def test_kernel_for_routes_on_the_card(cuda_device):
+    """bf16 at D 128 launches B1 and never B7; fp32 at D 128 and bf16 at D 96
+    launch B7 and never B1; fp16 and D 8 raise before any launch."""
+    counters = (flash_attention.launches, flash_attention.generic_launches)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 128)
+    flash_attention(q, k, v)
+    assert (flash_attention.launches, flash_attention.generic_launches) == (
+        counters[0] + 1, counters[1])
+    flash_attention(q.float(), k.float(), v.float())
+    flash_attention(q[..., :96], k[..., :96], v[..., :96])
+    assert (flash_attention.launches, flash_attention.generic_launches) == (
+        counters[0] + 1, counters[1] + 2)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="no attention kernel"):
+        flash_attention(q[..., :8], k[..., :8], v[..., :8])
+    assert (flash_attention.launches, flash_attention.generic_launches) == (
+        counters[0] + 1, counters[1] + 2)
+
+
+@pytest.mark.parametrize("m,k,n", [(477, 4096, 4096), (4620, 4096, 12288), (17, 12288, 4096),
+                                   (1, 128, 256), (200, 256, 384)])
+def test_int4_f32_kernel_matches_plain_version(cuda_device, m, k, n):
+    """B6-f32 (fp32 x) against x @ the fp32 dequantisation: within 1e-5 of
+    the output's largest entry; fp32 out; counted in `.f32_launches`."""
+    packed, scales = _int4_weight(cuda_device, (k, n), seed=m + n)
+    x = torch.randn((m, k), generator=torch.Generator(cuda_device).manual_seed(k),
+                    device=cuda_device)
+    before = (int4_matmul.launches, int4_matmul.f32_launches)
+    got = int4_matmul(x, packed, scales)
+    assert (int4_matmul.launches, int4_matmul.f32_launches) == (before[0], before[1] + 1)
+    want = int4_matmul_reference(x, packed, scales)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_launches_run_on_the_tensors_device(cuda_device):
@@ -1321,7 +1497,7 @@ def test_int4_kernel_refuses_what_it_cannot_take(cuda_device):
     small_p, small_s = _int4_weight(cuda_device, (64, 128), seed=9)   # per-channel
     before = int4_matmul.launches
     for call, err in (
-            (lambda: int4_matmul(x.float(), packed, scales), TypeError),      # fp32 x
+            (lambda: int4_matmul(x.half(), packed, scales), TypeError),       # fp16 x
             (lambda: int4_matmul(x[:, :128], packed, scales), ValueError),     # K vs packed
             (lambda: int4_matmul(x[:, :64], small_p, small_s), ValueError),    # K % 128
             (lambda: int4_matmul(x, packed[:, :192], scales[:, :192]), ValueError),  # N % 128
