@@ -1,23 +1,22 @@
 #!/usr/bin/env python3
 """Times the attention kernels B1, B2, B4 and B4-bias (the forwards), B3 and
 B3-bias (the one-pass backward), B5 (the long training path's staged
-backward, unbiased and biased) and the int4 matmul B6 against those of
-another checkout of the port, in turns on one NVIDIA GPU.
+backward, unbiased and biased), B7 (the forward at fp32 and at bf16 widths
+other than 64 and 128) and the int4 matmul B6 against those of another
+checkout of the port, in turns on one NVIDIA GPU.
 
     python3 attention_ab.py PARENT_DIR [--out chiprun_out/attention_ab.json]
-                            [--only forward|backward|int4]
+                            [--only forward|backward|int4|b7]
 
 PARENT_DIR is an unpacked checkout of the commit to compare with (for
-example `git archive HEAD | tar -x -C chip_checkout`). Its kernels are built
-from its own `mmada_tpu_torch/ops/csrc` with its own `_build.py` and launched
-through their C entries with the signatures they had there. The parent's
-B1, B2, B3, B4, B4-bias and B5 (biased and not) must take tensor maps, as
-here, and run through this checkout's wrappers; so do its B3-bias and B6
-unless they are the earlier `mma.sync` bodies (its csrc still holds
-`flash_attention_dkv.cuh`), which are called directly, B3-bias with element
-strides and B6 with row strides.
-This checkout's kernels run through its wrappers. Each measurement runs in
-the order parent, this, this, parent, on the same inputs:
+example `git archive HEAD | tar -x -C chip_checkout`) whose B1-B6 take
+tensor maps, as here, and run through this checkout's wrappers with its own
+C entries (`_through`), and whose B7 is a single CUDA-core body behind the
+entry `mmada_attention_generic_fwd`, called with the arguments its own
+wrapper passed (`parent_b7`). Its kernels are built from its own
+`mmada_tpu_torch/ops/csrc` with its own `_build.py`. This checkout's
+kernels run through its wrappers. Each measurement runs in the order parent, this, this, parent, on
+the same inputs:
 
   * B1 at the t2i CFG batch (4 x 32 heads x 1,155 tokens, RoPE) and at the
     served text batch (3 x 32 x 159, RoPE), B2 at the t2i CFG batch with the
@@ -53,8 +52,18 @@ the order parent, this, this, parent, on the same inputs:
     largest difference of the output from the parent's, in bf16 ulps of
     the larger entry.
 
+  * B7 at the four shapes PERF.md tracks (the t2i CFG frame, 4 x 1,155
+    tokens with RoPE, in bf16 at D 256 with 16 heads and in fp32 at D 128
+    with 32; the long tier at 1 x 16 x 8,192 tokens in bf16 at D 256 and
+    fp32 at D 128): CUDA events (10 calls after 2 warm-up; 3 after 1 on
+    the long tier) and device time, with the largest difference of the
+    output from the parent's (absolute and relative to its largest entry)
+    and which body this checkout took (`flash_attention.generic_body`);
+    beside them B1 and B2 at the t2i CFG frame and B4 at the long text frame
+    (D 128), each output held against the parent's bit for bit.
+
 `--only forward` runs the first two, `--only backward` the third, `--only
-int4` the last.
+int4` the fourth, `--only b7` the last.
 
 Prints one JSON line per measurement, the card's name and power limit as
 nvidia-smi reports them, and a summary JSON line last; with --out, writes
@@ -75,15 +84,13 @@ import chip_smoke
 
 
 def parent_kernels(parent_dir: str) -> dict:
-    """The kernels of the checkout at `parent_dir` (B1-B5 taking tensor
-    maps), as callables with the signatures of this checkout's wrappers: "forward"
-    (`flash_attention`: B1, or B2 with a bias), "long" (B4, or B4-bias with a
-    bias), "dq" and "dkv" (B3's, or B3-bias's with a bias), "long_dq" and
-    "long_dkv" (B5's, with an optional bias), "int4" (B6). Entries that take
-    the operands' tensor maps, as this checkout's do, run through this
-    checkout's wrappers (`_through`); a parent's B3-bias and B6 from before
-    their wgmma bodies (`strides_b3_bias_and_b6`) take strides and are
-    called directly."""
+    """The kernels of the checkout at `parent_dir` (B1-B6 taking tensor
+    maps), as callables with the signatures of this checkout's wrappers:
+    "forward" (`flash_attention`: B1, or B2 with a bias), "long" (B4, or
+    B4-bias with a bias), "dq" and "dkv" (B3's, or B3-bias's with a bias),
+    "long_dq" and "long_dkv" (B5's, with an optional bias), "int4" (B6), all
+    through this checkout's wrappers (`_through`); "b7" (the parent's B7,
+    through its own entry: `parent_b7`)."""
     import torch
 
     from mmada_tpu_torch.ops import flash_attention as fa
@@ -95,10 +102,8 @@ def parent_kernels(parent_dir: str) -> dict:
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
     build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long",
-                     "int4_matmul"])
+                     "int4_matmul", "attention_generic"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    by_strides = [ctypes.POINTER(ctypes.c_longlong)]
-    legacy = strides_b3_bias_and_b6(parent_dir)
 
     def entry(source, name, n_ptr, lists):
         fn = getattr(build.load_library(source), name)
@@ -123,32 +128,15 @@ def parent_kernels(parent_dir: str) -> dict:
                 for bias in ("", "_bias")}
     b4_bias = through(long_mod.flash_attention_long, "flash_attention_long",
                       "mmada_flash_attention_long_fwd_bias_bf16", 5)
-    b3_dq = {"": through(fa.attention_bwd_dq, "flash_attention_bwd",
-                         "mmada_flash_attention_bwd_dq_bf16", 7)}
-    b3_dkv = {"": through(fa.attention_bwd_dkv, "flash_attention_bwd",
-                          "mmada_flash_attention_bwd_dkv_bf16", 8)}
-    if legacy:
-        b3_dq["_bias"] = entry("flash_attention_bwd", "mmada_flash_attention_bwd_dq_bias_bf16",
-                               8, by_strides)
-        b3_dkv["_bias"] = entry("flash_attention_bwd",
-                                "mmada_flash_attention_bwd_dkv_bias_bf16", 9, by_strides)
-    else:
-        b3_dq["_bias"] = through(fa.attention_bwd_dq, "flash_attention_bwd",
-                                 "mmada_flash_attention_bwd_dq_bias_bf16", 8)
-        b3_dkv["_bias"] = through(fa.attention_bwd_dkv, "flash_attention_bwd",
-                                  "mmada_flash_attention_bwd_dkv_bias_bf16", 9)
-
-    def strides(*ts, bias):
-        """The element strides (batch, head, row) of each operand, then the
-        bias's (0 on a broadcast axis): the strides entries' layout."""
-        flat = [s for t in ts for s in t.stride()[:3]]
-        flat += [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3)]
-        return (ctypes.c_longlong * len(flat))(*flat)
-
-    def run(fn, *args):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent {fn.__name__} failed: cudaError {err}")
+    b3_dq = {bias: through(fa.attention_bwd_dq, "flash_attention_bwd",
+                           f"mmada_flash_attention_bwd_dq{bias}_bf16", 7 + bool(bias))
+             for bias in ("", "_bias")}
+    b3_dkv = {bias: through(fa.attention_bwd_dkv, "flash_attention_bwd",
+                            f"mmada_flash_attention_bwd_dkv{bias}_bf16", 8 + bool(bias))
+              for bias in ("", "_bias")}
+    b7 = getattr(build.load_library("attention_generic"), "mmada_attention_generic_fwd")
+    b7.argtypes = [p] * 9 + [i] * 8 + [p, ctypes.c_float, p]
+    b7.restype = ctypes.c_int
 
     def forward(q, k, v, rope_sin=None, rope_cos=None, bias=None):
         call = b1 if bias is None else b2
@@ -158,51 +146,22 @@ def parent_kernels(parent_dir: str) -> dict:
         return b4(q, k, v) if bias is None else b4_bias(q, k, v, bias)
 
     def dq(q, k, v, dout, delta, bias=None):
-        if bias is None or not legacy:
-            return b3_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
-        b, h, lq, d = q.shape
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
-        lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-        run(b3_dq["_bias"], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            delta.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, k.shape[1],
-            lq, k.shape[2], d, strides(q, k, v, dout, out, bias=bias), 1.0 / d ** 0.5)
-        return out, lse
+        return b3_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
 
     def dkv(q, k, v, dout, lse, delta, bias=None):
-        if bias is None or not legacy:
-            return b3_dkv["" if bias is None else "_bias"](q, k, v, dout, lse, delta, bias)
-        b, h, lq, d = q.shape
-        dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-        dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-        run(b3_dkv["_bias"], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-            k.shape[1], lq, k.shape[2], d, strides(q, k, v, dout, dk, dv, bias=bias),
-            1.0 / d ** 0.5)
-        return dk, dv
+        return b3_dkv["" if bias is None else "_bias"](q, k, v, dout, lse, delta, bias)
 
     b6 = getattr(build.load_library("int4_matmul"), "mmada_int4_matmul_bf16")
-    if legacy:
-        b6.argtypes = [p] * 4 + [i] * 3 + [ctypes.c_longlong] * 3 + [p]
-    else:
-        b6.argtypes = [p] * 4 + [i] * 3 + [p, p]
+    b6.argtypes = [p] * 4 + [i] * 3 + [p, p]
     b6.restype = ctypes.c_int
 
     def int4(x, packed, scales):
-        if not legacy:
-            own = int4_mod._fn
-            int4_mod._fn = b6
-            try:
-                return int4_mod.int4_matmul(x, packed, scales)
-            finally:
-                int4_mod._fn = own
-        (m, k), n = x.shape, packed.shape[1]
-        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-        err = b6(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
-                 x.stride(0), packed.stride(0), scales.stride(0),
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent mmada_int4_matmul_bf16 failed: cudaError {err}")
-        return out
+        own = int4_mod._fn
+        int4_mod._fn = b6
+        try:
+            return int4_mod.int4_matmul(x, packed, scales)
+        finally:
+            int4_mod._fn = own
 
     def b5_dq(q, k, v, dout, delta, bias=None):
         return long_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
@@ -211,15 +170,35 @@ def parent_kernels(parent_dir: str) -> dict:
         return long_dkv["" if bias is None else "_bias"](q, k, v, dout, lse, delta, bias)
 
     return {"forward": forward, "long": long_forward, "dq": dq, "dkv": dkv,
-            "long_dq": b5_dq, "long_dkv": b5_dkv, "int4": int4}
+            "long_dq": b5_dq, "long_dkv": b5_dkv, "int4": int4,
+            "b7": lambda *a, **kw: parent_b7(b7, *a, **kw)}
 
 
-def strides_b3_bias_and_b6(parent_dir: str) -> bool:
-    """Whether the parent's B3-bias and B6 entries take strides (their
-    mma.sync bodies: its csrc still holds flash_attention_dkv.cuh) rather
-    than tensor maps."""
-    return os.path.exists(os.path.join(parent_dir, "mmada_tpu_torch", "ops", "csrc",
-                                       "flash_attention_dkv.cuh"))
+def parent_b7(fn, q, k, v, rope_sin=None, rope_cos=None, bias=None, long_tier=False):
+    """The parent's B7 through its C entry `fn` (`mmada_attention_generic_fwd`):
+    operands with a contiguous last dim by element strides, RoPE into
+    scratch of q's type by its rotation pass, the output written as (B, Lq,
+    H, D); the arguments its wrapper passed."""
+    import torch
+
+    from mmada_tpu_torch.ops.flash_attention import _dtype_code, _strides
+
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    q_rot = k_rot = None
+    if rope_sin is not None:
+        q_rot = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+        k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (q, k, v, out, bias, rope_sin, rope_cos, q_rot, k_rot)]
+    strides = _strides(q, k, v, out, bias)
+    err = fn(*ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
+             strides.buffer_info()[0], 1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent mmada_attention_generic_fwd failed: cudaError {err}")
+    return out
 
 
 def _through(wrapper, name: str, fn):
@@ -398,7 +377,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_dir")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", choices=("forward", "backward", "int4"), default=None)
+    ap.add_argument("--only", choices=("forward", "backward", "int4", "b7"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_ab: no CUDA device", file=sys.stderr)
@@ -440,9 +419,14 @@ def main() -> int:
         time_b5(b5, emit)
     if args.only in (None, "forward"):
         time_b4_bias(b4, emit)
-        time_forwards(b1, b4, emit)
+    if args.only in (None, "forward", "b7"):
+        time_forward_kernels(b1, b4, emit)
+    if args.only in (None, "forward"):
+        time_model_forwards(b1, b4, emit)
     if args.only in (None, "int4"):
         time_b6({"parent": parent["int4"], "this": int4_matmul}, emit)
+    if args.only in (None, "b7"):
+        time_b7({"parent": parent["b7"], "this": (flash_attention, flash_attention_long)}, emit)
     print(smi, flush=True)
     summary = {r["tag"]: {name: t["mean"] for name, t in r["ms"].items()} for r in records}
     print(json.dumps({"card": smi, "mean_ms": summary}), flush=True)
@@ -453,18 +437,43 @@ def main() -> int:
     return 0
 
 
-def time_forwards(b1: dict, b4: dict, emit) -> None:
-    """B1, B2 and B4 of both versions, and four 8B forwards through one
-    version's forwards or the other's, in turns."""
-    import dataclasses
-
+def time_b7(b7: dict, emit) -> None:
+    """B7 of both versions at PERF.md's four shapes, in turns, on the same
+    inputs, with this checkout's body (`generic_body`) and the largest
+    difference of its output from the parent's."""
     import torch
 
-    from mmada_tpu_torch.core.precision import BF16
-    from mmada_tpu_torch.core.vocab import MMADA_8B
-    from mmada_tpu_torch.models import llada
-    from mmada_tpu_torch.models.mmada import MMadaModel
-    from mmada_tpu_torch.ops import attention
+    from mmada_tpu_torch.ops.flash_attention import generic_body
+
+    t2i, long_l = chip_smoke.T2I_FRAME, chip_smoke.LONG_FRAME
+    for tag, dtype, (b, h, l), d, long in (
+            ("B7 t2i CFG bf16 D256", torch.bfloat16, (4, 16, t2i), 256, False),
+            ("B7 t2i CFG fp32 D128", torch.float32, (4, 32, t2i), 128, False),
+            ("B7-long bf16 D256", torch.bfloat16, (1, 16, long_l), 256, True),
+            ("B7-long fp32 D128", torch.float32, (1, 16, long_l), 128, True)):
+        q, k, v, sin, cos = chip_smoke.generic_case(dtype, b, h, h, l, l, d, not long, seed=21)
+        kw = {"long_tier": True} if long else {"rope_sin": sin, "rope_cos": cos}
+        this = b7["this"][long]
+        fns = {"parent": lambda: b7["parent"](q, k, v, **kw),
+               "this": lambda: this(q, k, v) if long else this(q, k, v, **kw)}
+        outs = {name: fn() for name, fn in fns.items()}
+        gap = float((outs["this"].float() - outs["parent"].float()).abs().max())
+        iters, warm = (3, 1) if long else (10, 2)
+        times = in_turns(fns, lambda fn: chip_smoke.cuda_ms(fn, iters, warm))
+        device = in_turns(fns, lambda fn: device_ms(fn, iters))
+        emit(dict(tag=tag, shape=[b, h, h, l, l], d=d, body=generic_body(dtype, d), ms=times,
+                  device_ms=device, gap_to_parent=dict(
+                      abs=gap, rel=relative_gap(outs["this"], outs["parent"]))))
+        del q, k, v, outs
+        torch.cuda.empty_cache()
+
+
+def time_forward_kernels(b1: dict, b4: dict, emit) -> None:
+    """B1 and B2 at the t2i CFG frame and the text batch, B4 at the long text
+    frame, of both versions in turns, each output held against the plain
+    version's (differing share) and against the parent's, bit for bit."""
+    import torch
+
     from mmada_tpu_torch.ops.flash_attention import flash_attention_reference
 
     for tag, (b, h, l), masked in (("B1 t2i CFG", (4, 32, chip_smoke.T2I_FRAME), False),
@@ -474,26 +483,45 @@ def time_forwards(b1: dict, b4: dict, emit) -> None:
         kw = dict(rope_sin=sin, rope_cos=cos,
                   bias=chip_smoke.t2i_mask_bias(cfg_batch=True) if masked else None)
         want = flash_attention_reference(q, k, v, **kw)
-        shares = {name: differing_share(fn(q, k, v, **kw), want) for name, fn in b1.items()}
+        outs = {name: fn(q, k, v, **kw) for name, fn in b1.items()}
+        shares = {name: differing_share(out, want) for name, out in outs.items()}
         times = in_turns(b1, lambda fn: chip_smoke.cuda_ms(lambda: fn(q, k, v, **kw), 10))
         device = in_turns(b1, lambda fn: device_ms(lambda: fn(q, k, v, **kw)))
         rec = dict(tag=tag, shape=[b, h, h, l, l], ms=times, device_ms=device,
-                   differing_share=shares)
+                   differing_share=shares,
+                   same_as_parent=bool(torch.equal(outs["this"], outs["parent"])))
         if masked:  # the bias rows each head reads, against the kernel's time
             bias_bytes = 2 * h * kw["bias"].numel() * 4   # both passes, every head
             rec["bias_bytes_read"] = bias_bytes
             rec["bias_tb_per_s"] = {name: bias_bytes / (t["mean"] * 1e-3) / 1e12
                                     for name, t in device.items()}
         emit(rec)
-        del q, k, v, want, kw
+        del q, k, v, want, kw, outs
 
     l = chip_smoke.LONG_FRAME
     q, k, v, _, _ = chip_smoke.attention_case(1, 32, 32, l, l, False, seed=12)
+    outs = {name: fn(q, k, v) for name, fn in b4.items()}
     times = in_turns(b4, lambda fn: chip_smoke.cuda_ms(lambda: fn(q, k, v), 10))
     device = in_turns(b4, lambda fn: device_ms(lambda: fn(q, k, v)))
-    emit(dict(tag="B4 long text", shape=[1, 32, 32, l, l], ms=times, device_ms=device))
-    del q, k, v
+    emit(dict(tag="B4 long text", shape=[1, 32, 32, l, l], ms=times, device_ms=device,
+              same_as_parent=bool(torch.equal(outs["this"], outs["parent"]))))
+    del q, k, v, outs
 
+
+def time_model_forwards(b1: dict, b4: dict, emit) -> None:
+    """Four 8B forwards through one version's B1 / B2 and B4 or the
+    other's, in turns."""
+    import dataclasses
+
+    import torch
+
+    from mmada_tpu_torch.core.precision import BF16
+    from mmada_tpu_torch.core.vocab import MMADA_8B
+    from mmada_tpu_torch.models import llada
+    from mmada_tpu_torch.models.mmada import MMadaModel
+    from mmada_tpu_torch.ops import attention
+
+    l = chip_smoke.LONG_FRAME
     cfg = llada.llada_8b()
     model = MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
                             generator=torch.Generator("cuda").manual_seed(0), policy=BF16)

@@ -104,9 +104,11 @@ generated clip (13d), each held against the fp32 CPU run of the same
 weights (EVAL_REL and the SMPL bars).
 Phase 14 is fp32 and every head width (A.17): the CUDA-core kernels B7
 (forward, both tiers), B8-dq, B8-dkv and B6-f32 (int4 with fp32 x) against
-their plain versions with their times (14a: fp32 at D 16-256, bf16 at D 96,
-256 and 512, biased, with RoPE, rectangular, 8,192 tokens, the t2i CFG frame;
-B6-f32 at the 8B's shapes; no spill in their SASS), then
+their plain versions with their times (14a: fp32 at D 16-256, bf16 at D 16,
+48, 96, 192, 256 and 512, biased, with RoPE, rectangular, 8,192 tokens, the
+t2i CFG frame; B7's fp32 one-pass cases also against float64, no further
+from it than GENERIC_F64_RATIO times the plain version; B6-f32 at the 8B's
+shapes; no spill in their SASS), then
 configs/tiny_test.yaml (fp32, 16-wide heads) through the command lines'
 `load` / `run` on the card token-exact against the CPU and `train_torch`'s
 trainer for 2 steps against the CPU's (14b), the full-width 8B under FP32
@@ -314,6 +316,11 @@ INT4_MODEL_REL_L2 = 2e-2
 # KERNEL_RTOL and B1_DIFFER_SHARE, GRAD_REL_L2 / GRAD_MAX_REL; the long tier:
 # within_one_ulp and long_grad_error)
 GENERIC_FWD_ATOL = 1e-5
+# that bar is about the plain version's own distance from float64 at the t2i
+# frame (9.8e-6), so phase 14a also evaluates each fp32 one-pass case in
+# float64 and holds B7 to no more than this multiple of the plain version's
+# distance from it: as accurate as the plain version, up to a quarter
+GENERIC_F64_RATIO = 1.25
 GENERIC_GRAD_REL = 1e-5
 GENERIC_INT4_REL = 1e-5
 # the fp32 8B through B7 against the same weights' forward with the plain
@@ -321,6 +328,13 @@ GENERIC_INT4_REL = 1e-5
 # one fp32 function, summed in other orders, through 32 layers
 FP32_MODEL_REL_L2 = 1e-4
 GENERIC_DESIGN = "fp32 FFMA on the CUDA cores: 64-row tiles, 128-column chunks, D a runtime loop"
+# B7's two bodies (`flash_attention.generic_body`): fp32 at every width and
+# bf16 past 256 on the CUDA cores; bf16 at 16-256 on the tensor cores
+FFMA_DESIGN = ("fp32 FFMA on the CUDA cores: 128-row tiles (64 past D 128), the whole width to "
+               "256 in a block, register tiles fed by float4 reads, K and V staged by cp.async, "
+               "one walk over K in fp32")
+WIDE_DESIGN = ("wgmma + TMA at instances of 64, 128 and 256 columns, zero-filled past D; "
+               "producer and two consumer warpgroups, 64-key stages")
 TINY_CONFIG = "configs/tiny_test.yaml"
 TINY_TEXT = dict(gen_length=16, steps=8, block_length=8)
 TINY_MMU = dict(max_new_tokens=16, steps=8, block_length=16)
@@ -778,8 +792,10 @@ def check_rope_outside(h: int) -> None:
 # names: B1, B2; B3's and B3-bias's dq and dkv (the backward bodies with
 # ONE_PASS, unbiased and biased); B4, B4-bias, B5-dq and B5-dkv unbiased and
 # biased; each at D 64 and 128; B6 with tiles of 128 and 256 rows
-# the libraries of the CUDA-core kernels (B7 / B8; B6-f32): ptxas must spill
-# no register in any of their kernels
+# the libraries of the CUDA-core kernels (B7's ffma body, B8; B6-f32): ptxas
+# must spill no register in any of their kernels. B7's wgmma body
+# (attention_wide: both tiers, unbiased and biased, at instances 64, 128 and
+# 256) stands in WGMMA_KERNELS with the other wgmma kernels
 GENERIC_LIBRARIES = ("attention_generic", "int4_matmul_f32")
 WGMMA_KERNELS = {
     "flash_attention_fwd": [f"{k}ILi{d}E" for d in (64, 128)
@@ -792,13 +808,16 @@ WGMMA_KERNELS = {
         + [f"{k}ILi{d}ELb{bias}ELb0E" for d in (64, 128) for bias in (0, 1)
            for k in ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel")]),
     "int4_matmul": [f"int4_matmul_wgmma_kernelILi{mb}E" for mb in (1, 2)],
+    "attention_wide": [f"attn_wide_wgmma_kernelILi{d}ELb{bias}ELb{long}E" for d in (64, 128, 256)
+                       for bias in (0, 1) for long in (0, 1)],
 }
 
 
 def check_sass() -> dict:
     """Per kernel of the built libraries (WGMMA_KERNELS: B1, B2, B3-dq,
     B3-dkv, B3-dq-bias, B3-dkv-bias, B4, B4-bias, B5-dq, B5-dkv, B5-dq-bias,
-    B5-dkv-bias at D 64 and 128; B6 at both tile heights), the count of
+    B5-dkv-bias at D 64 and 128; B6 at both tile heights; B7's wgmma body
+    at its 12 instances), the count of
     HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
     its SASS (`cuobjdump -sass`) and, after a cold build, its ptxas lines;
     fails if HGMMA or UTMALDG is missing, if ptxas spilled any register of
@@ -1182,7 +1201,7 @@ def check_long_backward(cases):
     import torch.nn.functional as F
 
     from mmada_tpu_torch.ops.attention import KernelAttention, apply_rope, attention_backward
-    from mmada_tpu_torch.ops.flash_attention import attention_delta
+    from mmada_tpu_torch.ops.flash_attention import attention_delta, generic_body
     from mmada_tpu_torch.ops.flash_attention_long import (
         attention_bwd_dkv_long,
         attention_bwd_dkv_long_reference,
@@ -5936,9 +5955,11 @@ def eval_phase(reset_counts, counts, expect_no_bias_copies) -> dict:
 
 def generic_counters():
     """(reset, read) of the launch counters of B7 (`.generic_launches` and
-    `.generic_bias_launches` of the forward wrappers, both tiers), B8-dq,
-    B8-dkv and B6-f32 (`int4_matmul.f32_launches`); `reset_counts` leaves
-    them alone, so that phase 14 can show phases 2-13 launched none."""
+    `.generic_bias_launches` of the forward wrappers, both tiers; and by
+    body, `.wgmma_body_launches` and `.ffma_body_launches`: "b7_wgmma",
+    "b7_ffma"), B8-dq, B8-dkv and B6-f32 (`int4_matmul.f32_launches`);
+    `reset_counts` leaves them alone, so that phase 14 can show phases 2-13
+    launched none."""
     from mmada_tpu_torch.ops.flash_attention import (
         attention_bwd_dkv,
         attention_bwd_dq,
@@ -5956,7 +5977,9 @@ def generic_counters():
                 "dkv": (attention_bwd_dkv, attention_bwd_dkv_long)}
     counters = [(f"{kind}{suffix}", fn, attr) for kind, fns in wrappers.items()
                 for suffix, attr in (("", "generic_launches"), ("_bias", "generic_bias_launches"))
-                for fn in fns] + [("b6_f32", int4_matmul, "f32_launches")]
+                for fn in fns] + [("b6_f32", int4_matmul, "f32_launches")] + [
+        (f"b7_{body}", fn, f"{body}_body_launches") for body in ("wgmma", "ffma")
+        for fn in wrappers["b7"]]
 
     def reset():
         for _, fn, attr in counters:
@@ -5967,7 +5990,7 @@ def generic_counters():
         for key, fn, attr in counters:
             out[key] += getattr(fn, attr)
         return {k: out[k] for k in ("b7", "b7_bias", "dq", "dq_bias", "dkv", "dkv_bias",
-                                    "b6_f32")}
+                                    "b6_f32", "b7_wgmma", "b7_ffma")}
 
     return reset, read
 
@@ -6022,9 +6045,11 @@ def padded_rows_bias(b, l):
 
 def generic_cases():
     """(tag, dtype, B, H, KVH, Lq, Lk, D, rope, bias maker) of B7 and B8: fp32
-    at D 16, 64, 128 and 256, bf16 at D 96, 256 and 512, unbiased and biased,
-    with RoPE, rectangular, GQA; then the paths' shapes: the t2i CFG frame in
-    fp32 at D 128 (the fp32 8B) and in bf16 at D 256 (256-wide heads)."""
+    at D 16, 64, 128 and 256, bf16 at D 16, 48, 96, 192, 256 and 512 (B7's
+    wgmma body up to 256, zero-filled to its instances 64, 128 and 256; its
+    ffma body at 512), unbiased and biased, with RoPE, rectangular, GQA;
+    then the paths' shapes: the t2i CFG frame in fp32 at D 128 (the fp32 8B)
+    and in bf16 at D 256 (256-wide heads)."""
     import torch
 
     f32, b16, t2i = torch.float32, torch.bfloat16, T2I_FRAME
@@ -6035,8 +6060,13 @@ def generic_cases():
         ("fp32 D128 rectangular", f32, 2, 32, 32, 256, t2i, 128, False, None),
         ("fp32 D256 rope per-head bias", f32, 1, 4, 4, 333, 333, 256, True,
          lambda: random_bias(1, 4, 333, 333, 11)),
+        ("bf16 D16 gqa", b16, 2, 8, 2, 387, 387, 16, False, None),
+        ("bf16 D48 rope mask", b16, 2, 8, 8, 387, 387, 48, True,
+         lambda: padded_rows_bias(2, 387)),
         ("bf16 D96 gqa rope mask", b16, 2, 8, 2, 387, 387, 96, True,
          lambda: padded_rows_bias(2, 387)),
+        ("bf16 D192 rope per-head bias", b16, 1, 8, 8, 333, 333, 192, True,
+         lambda: random_bias(1, 8, 333, 333, 13)),
         ("bf16 D256 rope", b16, 1, 16, 16, 640, 640, 256, True, None),
         ("bf16 D512 rectangular per-head bias", b16, 1, 4, 4, 200, 500, 512, False,
          lambda: random_bias(1, 4, 200, 500, 12)),
@@ -6045,6 +6075,28 @@ def generic_cases():
          lambda: t2i_mask_bias(cfg_batch=True)),
         ("t2i CFG bf16 D256", b16, 4, 16, 16, t2i, t2i, 256, True, None),
     ]
+
+
+def float64_attention(q, k, v, rope_sin, rope_cos, bias):
+    """The one-pass function in float64 on the rotated operands, a batch at
+    a time (the t2i frame's scores take 1.4 GB in float64 for all four)."""
+    import torch
+
+    from mmada_tpu_torch.ops.attention import apply_rope
+    from mmada_tpu_torch.ops.flash_attention import _heads_like_q, bias_as_float
+
+    if rope_sin is not None:
+        q, k = apply_rope(q, k, rope_sin, rope_cos)
+    h, d = q.shape[1], q.shape[3]
+    k, v = _heads_like_q(k, h).double(), _heads_like_q(v, h).double()
+    bias = bias_as_float(bias)
+    out = []
+    for i in range(q.shape[0]):
+        s = torch.matmul(q[i:i + 1].double(), k[i:i + 1].transpose(-1, -2)) / d ** 0.5
+        if bias is not None:
+            s = s + bias[i if bias.shape[0] > 1 else 0:][:1].double()
+        out.append(torch.matmul(torch.softmax(s, dim=-1), v[i:i + 1]))
+    return torch.cat(out)
 
 
 def generic_fwd_ok(got, want, long=False):
@@ -6093,11 +6145,14 @@ def check_generic_kernels(cases):
         attention_delta,
         flash_attention,
         flash_attention_reference,
+        generic_body,
         kernel_for,
     )
 
     records = []
     for i, (tag, dtype, b, h, kvh, lq, lk, d, rope, make_bias) in enumerate(cases):
+        body = generic_body(dtype, d)
+        launched = getattr(flash_attention, f"{body}_body_launches")
         if kernel_for(dtype, d) != "generic":
             raise AssertionError(f"{tag}: kernel_for routes {dtype} D {d} to the wgmma kernels")
         q, k, v, sin, cos = generic_case(dtype, b, h, kvh, lq, lk, d, rope, seed=1400 + i)
@@ -6106,7 +6161,16 @@ def check_generic_kernels(cases):
         out = flash_attention(q, k, v, **kw)
         ref = flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
+        if getattr(flash_attention, f"{body}_body_launches") != launched + 1:
+            raise AssertionError(f"{tag}: B7's {body} body did not launch")
         fwd_err, fwd_ok = generic_fwd_ok(out, ref)
+        f64 = None
+        if dtype == torch.float32:
+            exact = float64_attention(q, k, v, sin, cos, bias)
+            f64 = dict(kernel=float((out.double() - exact).abs().max()),
+                       plain=float((ref.double() - exact).abs().max()))
+            del exact
+            free_memory()
         qr, kr = apply_rope(q, k, sin, cos) if rope else (q, k)
         g = torch.Generator("cuda").manual_seed(1500 + i)
         dout = torch.randn((b, h, lq, d), generator=g, device="cuda").to(dtype)
@@ -6130,12 +6194,12 @@ def check_generic_kernels(cases):
         lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask, **gqa)
         rec = dict(
             tag=tag, dtype=str(dtype).split(".")[-1], shape=[b, h, kvh, lq, lk], d=d, rope=rope,
-            bias=None if bias is None else list(bias.shape), max_abs_err=fwd_err,
+            body=body, bias=None if bias is None else list(bias.shape), max_abs_err=fwd_err,
             ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), 5),
             plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, **kw), 2, 1),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qr, kr, v, attn_mask=mask, **gqa), 5),
-            bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err,
+            bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err, float64_max_abs_err=f64,
             errors={k: [e[0], e[1]] for k, e in errors.items()},
             dq=dict(ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias), 5),
                     plain_ms=cuda_ms(lambda: attention_bwd_dq_reference(
@@ -6153,6 +6217,9 @@ def check_generic_kernels(cases):
         if not fwd_ok or bad or lse_err > LSE_ATOL:
             raise AssertionError(f"B7 / B8 disagree with their plain versions on {tag}: forward "
                                  f"{fwd_ok} (max abs {fwd_err}), gradients {bad}, lse {lse_err}")
+        if f64 is not None and f64["kernel"] > GENERIC_F64_RATIO * f64["plain"]:
+            raise AssertionError(f"B7 on {tag} lies {f64['kernel']} from float64, more than "
+                                 f"{GENERIC_F64_RATIO} x the plain version's {f64['plain']}")
         records.append(rec)
         del q, k, v, out, ref, qr, kr, dout, dq, dk, dv, want_dq, want_dk, want_dv, lib_in, lib_out
         free_memory()
@@ -6165,7 +6232,7 @@ def check_generic_long(cases):
     import torch
     import torch.nn.functional as F
 
-    from mmada_tpu_torch.ops.flash_attention import attention_delta
+    from mmada_tpu_torch.ops.flash_attention import attention_delta, generic_body
     from mmada_tpu_torch.ops.flash_attention_long import (
         attention_bwd_dkv_long,
         attention_bwd_dkv_long_reference,
@@ -6201,7 +6268,7 @@ def check_generic_long(cases):
         lib_out = F.scaled_dot_product_attention(*lib_in)
         rec = dict(
             tag=tag, dtype=str(dtype).split(".")[-1], shape=[b, h, kvh, l, l], d=d, rope=False,
-            bias=None, max_abs_err=fwd_err,
+            body=generic_body(dtype, d), bias=None, max_abs_err=fwd_err,
             ms=cuda_ms(lambda: flash_attention_long(q, k, v), 2),
             plain_ms=cuda_ms(lambda: by_heads(flash_attention_long_reference, h, kvh, q, k, v),
                              1, 1),
@@ -6347,7 +6414,7 @@ def tiny_cli_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
                 secs = time.perf_counter() - t
             launched = generic_read()
             expect_launches(f"14b {name}", counts(), {})
-            expect_generic(f"14b {name}", launched, {"b7": want_b7})
+            expect_generic(f"14b {name}", launched, {"b7": want_b7, "b7_ffma": want_b7})
             if name == "inference_t2i_torch":   # (codes, images): codes exact, images one level
                 same = bool(torch.equal(got[0], want[0])) and int(
                     (got[1].int() - want[1].int()).abs().max()) <= 1
@@ -6390,7 +6457,8 @@ def tiny_cli_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
         secs = time.perf_counter() - t
         launched = generic_read()
         expect_launches("14b train_torch", counts(), {})
-        expect_generic("14b train_torch", launched, {"b7": 2 * n, "dq": 2 * n, "dkv": 2 * n})
+        expect_generic("14b train_torch", launched,
+                       {"b7": 2 * n, "dq": 2 * n, "dkv": 2 * n, "b7_ffma": 2 * n})
         rel = [abs(a - b) / abs(b) for a, b in losses]
         log("tiny cli", f"train_torch on the card: 2 steps in {secs:.2f}s, losses card/CPU "
             f"{losses} (rel {rel}, limit 1e-5); launches {launched}")
@@ -6479,7 +6547,8 @@ def fp32_8b_requests(tag, model, counters, reference) -> dict:
     forwards = 1 + FP32_TEXT["steps"]
     expect_launches(f"14c {tag}", counts(), {})
     expect_generic(f"14c {tag}", launched, {
-        "b7": layers * forwards, "b6_f32": (7 * layers + 1) * forwards if tag == "int4" else 0})
+        "b7": layers * forwards, "b7_ffma": layers * forwards,
+        "b6_f32": (7 * layers + 1) * forwards if tag == "int4" else 0})
     want = reference(ids, start, n)
     torch.cuda.synchronize()
     rel = float((got - want).norm() / want.norm())
@@ -6554,7 +6623,8 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
     fwd_s = time.perf_counter() - t
     fwd_launched = generic_read()
     expect_launches("14d forward", counts(), {})
-    expect_generic("14d forward", fwd_launched, {"b7_bias": cfg.n_layers})
+    expect_generic("14d forward", fwd_launched, {"b7_bias": cfg.n_layers,
+                                                 "b7_wgmma": cfg.n_layers})
     with plain_attention():
         want = model32.forward(ids, **kw)
     rel = float((got - want).norm() / want.norm())
@@ -6588,7 +6658,8 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
     step_launched = generic_read()
     expect_launches("14d train step", counts(), {})
     expect_generic("14d train step", step_launched, {
-        "b7_bias": cfg.n_layers, "dq_bias": cfg.n_layers, "dkv_bias": cfg.n_layers})
+        "b7_bias": cfg.n_layers, "dq_bias": cfg.n_layers, "dkv_bias": cfg.n_layers,
+        "b7_wgmma": cfg.n_layers})
     with plain_attention():
         loss32, grads32 = loss_and_grads(model32)
     loss_rel = abs(loss - loss32) / abs(loss32)
@@ -6644,22 +6715,29 @@ def generic_phase(reset_counts, counts) -> dict:
 
 
 def generic_kernel_records(gen) -> list:
-    """The JSON line's entries of B7, B8-dq, B8-dkv and B6-f32: the times at
-    each's main-path case (the fp32 8B's t2i CFG frame; B6-f32 at its ff_proj
-    shape), the largest error over all cases, the launches of phase 14's
-    paths."""
+    """The JSON line's entries of B7 (one a body: the ffma body at the fp32
+    8B's t2i CFG frame, the wgmma body at 256-wide heads' t2i CFG frame),
+    B8-dq, B8-dkv and B6-f32 (at its ff_proj shape): the times at each's
+    main-path case, the largest error over its cases, the launches of phase
+    14's paths."""
     recs = gen["records"] + gen["long_records"]
     main = next(r for r in gen["records"] if r["tag"] == "t2i CFG fp32 D128")
+    wide = next(r for r in gen["records"] if r["tag"] == "t2i CFG bf16 D256")
     launches = gen["launches"]
 
-    def entry(name, line, count, errors, rec, replaces="flash_attention.py"):
-        return dict(kernel_record(name, "attention_generic.cu", line, count,
+    def entry(name, line, count, errors, rec, replaces="flash_attention.py",
+              source="attention_generic.cu", design=GENERIC_DESIGN):
+        return dict(kernel_record(name, source, line, count,
                                   [dict(max_abs_err=e) for e in errors], rec, replaces=replaces),
-                    design=GENERIC_DESIGN)
+                    design=design)
 
+    b7 = {body: [r for r in recs if r["body"] == body] for body in ("ffma", "wgmma")}
     out = [
-        entry("attention_generic_fwd", "650,686,471,497,392,418",
-              launches["b7"] + launches["b7_bias"], [r["max_abs_err"] for r in recs], main),
+        entry("attention_generic_fwd_ffma", "650,686,471,497,392,418", launches["b7_ffma"],
+              [r["max_abs_err"] for r in b7["ffma"]], main, design=FFMA_DESIGN),
+        entry("attention_wide_fwd_wgmma", "650,686,471,497,392,418", launches["b7_wgmma"],
+              [r["max_abs_err"] for r in b7["wgmma"]], wide, source="attention_wide.cu",
+              design=WIDE_DESIGN),
         entry("attention_generic_bwd_dq", "895,1185", launches["dq"] + launches["dq_bias"],
               [r["dq"]["max_abs_err"] for r in recs], dict(main["dq"], library_ms=main[
                   "bwd_library_ms"])),
@@ -6672,11 +6750,12 @@ def generic_kernel_records(gen) -> list:
                                   launches["b6_f32"], gen["int4_records"], int4_main,
                                   replaces="int4_matmul.py"), design=GENERIC_DESIGN))
     keys = ("tag", "dtype", "shape", "d", "ms", "bound_ms", "bound_by", "plain_ms")
-    for e, part, lib in zip(out, (None, "dq", "dkv"), ("library_ms", "bwd_library_ms",
-                                                       "bwd_library_ms")):
+    for e, part, lib, rs in zip(out, (None, None, "dq", "dkv"),
+                                ("library_ms", "library_ms", "bwd_library_ms", "bwd_library_ms"),
+                                (b7["ffma"], b7["wgmma"], recs, recs)):
         e["shapes"] = [dict({k: (r[part] if part and k in r[part] else r).get(k) for k in keys},
-                            library_ms=r[lib]) for r in recs]
-    out[3]["shapes"] = [{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by",
+                            library_ms=r[lib]) for r in rs]
+    out[4]["shapes"] = [{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by",
                                            "plain_ms", "library_ms")}
                         for r in gen["int4_records"]]
     return out

@@ -46,8 +46,9 @@ its accelerator: `BF16` (bf16 weights and activations, fp32 islands) or
 `FP32` (everything fp32, the parity tests' policy and `configs/tiny_test.yaml`'s).
 On the card attention takes the kernels `ops.flash_attention.kernel_for`
 names for the compute dtype and head width (bf16 at head_dim 64 or 128: the
-wgmma kernels B1-B5; fp32, or bf16 at another multiple of 16 up to 512: the
-CUDA-core kernels B7 / B8), and under FP32 every other product runs in full
+wgmma kernels B1-B5; fp32, or bf16 at another multiple of 16 up to 512: B7
+/ B8, in fp32 on the CUDA cores but B7's bf16 body up to 256 on the tensor
+cores), and under FP32 every other product runs in full
 fp32 (`core.precision.policy_products`: no TF32, whatever the caller's
 flags), so an FP32 model on the card meets the CPU's answers.
 """

@@ -49,21 +49,27 @@ the route by operand dtype and head width:
   * bf16 at head_dim 64 or 128: "wgmma", the kernels above (B1-B3, and the
     long tier's B4-B5);
   * bf16 at any other multiple of 16 from 16 to 512, and fp32 at any
-    multiple of 16 from 16 to 512: "generic", the CUDA-core kernels of
-    `csrc/attention_generic.cu` (B7 forward, B8-dq, B8-dkv: fp32 FFMA, no
-    tensor core, no TF32), which compute each tier's same function with
-    ordinary loads (any strides, a bias with any row alignment; nothing is
-    copied);
+    multiple of 16 from 16 to 512: "generic", kernel B7 forward and B8-dq,
+    B8-dkv backward, which compute each tier's same function (a bias with
+    any row alignment is read as it is). B8 is fp32 FFMA on the CUDA cores
+    (`csrc/attention_generic.cu`). B7 has two bodies, `generic_body(dtype,
+    head_dim)`: "wgmma" for bf16 at the widths 16-256 (the tensor cores,
+    `csrc/attention_wide.cu`: B1-B4's skeleton at an instance of 64, 128 or
+    256 columns, the operands zero-filled past D by TMA, RoPE first at the
+    real width), "ffma" for fp32 at every width and bf16 past 256 (the CUDA
+    cores, `csrc/attention_generic.cu`: register tiles, K and V staged by
+    cp.async, one walk over K in fp32; no TF32);
   * anything else: a ValueError naming the rule.
 
-It is a route by dtype and width, not a fallback: each route has its own
-counters and nothing is tried and caught.
+It is a route by dtype and width, not a fallback: each route and body has
+its own counters and nothing is tried and caught.
 
 Each wrapper counts its launches: `<wrapper>.launches` for the unbiased
 wgmma kernel, `<wrapper>.bias_launches` for the biased one,
 `<wrapper>.generic_launches` and `<wrapper>.generic_bias_launches` for B7 /
-B8. A launch runs under `torch.cuda.device(q.device)`, on that device's
-current stream.
+B8, and for B7 the body too: `<wrapper>.wgmma_body_launches` /
+`.ffma_body_launches` (biased or not). A launch runs under
+`torch.cuda.device(q.device)`, on that device's current stream.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from typing import Optional
 import torch
 
 from mmada_tpu_torch.ops.tensor_maps import (
+    BOX_COLS,
     OUT_ROWS,
     STEP_ROWS,
     TILE_ROWS,
@@ -90,8 +97,10 @@ from mmada_tpu_torch.ops.tensor_maps import (
 _KERNEL_SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _GENERIC_SOURCE = "attention_generic"
+_WIDE_SOURCE = "attention_wide"
 _HEAD_DIMS = (64, 128)          # the wgmma kernels' head widths (bf16)
 GENERIC_HEAD_DIMS = range(16, 513, 16)  # B7 / B8: bf16 or fp32
+WIDE_HEAD_DIMS = range(16, 257, 16)     # B7's wgmma body: bf16 (but 64 and 128)
 NEG_F32 = float(torch.finfo(torch.float32).min)
 _fns: dict = {}
 
@@ -109,6 +118,17 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
         f"no attention kernel for {dtype} operands at head_dim {head_dim}: the card takes "
         f"bf16 at head_dim {_HEAD_DIMS} (wgmma) and bf16 or fp32 at any multiple of 16 "
         f"from {GENERIC_HEAD_DIMS.start} to {GENERIC_HEAD_DIMS.stop - 1} (generic)")
+
+
+def generic_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The body of B7 (the forward of the "generic" route) that operands of
+    `dtype` and `head_dim` launch on the card: "wgmma" (the tensor cores)
+    for bf16 at a multiple of 16 up to 256, "ffma" (the CUDA cores) for fp32
+    at any width and bf16 past 256. Raises ValueError where `kernel_for`
+    does not say "generic" (B1-B4 take bf16 at 64 and 128)."""
+    if kernel_for(dtype, head_dim) != "generic":
+        raise ValueError(f"{dtype} at head_dim {head_dim} takes the wgmma kernels B1-B4, not B7")
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WIDE_HEAD_DIMS else "ffma"
 
 
 def _rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -267,27 +287,73 @@ def _dtype_code(t: torch.Tensor) -> int:
     return 1 if t.dtype == torch.bfloat16 else 0
 
 
-def _generic_fwd(wrapper, q, k, v, rope_sin=None, rope_cos=None, bias=None,
-                 long_tier: bool = False) -> torch.Tensor:
-    """B7 on checked operands: the one-pass function (`long_tier` False; RoPE
-    by the C entry's rotation pass into scratch of q's type) or the long
-    one. The output is written as (B, Lq, H, D), so the caller's merge of
-    the heads is a view."""
+def _rotated(x: torch.Tensor, rope_sin: torch.Tensor, rope_cos: torch.Tensor) -> torch.Tensor:
+    """x (B, heads, L, D) rotated at its real width into contiguous scratch
+    of its type, by the rotation kernel of `csrc/attention_generic.cu` (both
+    of B7's bodies run it before attention)."""
+    fn = _fns.get("rope")
+    if fn is None:
+        from mmada_tpu_torch.ops import _build
+
+        fn = _build.load_library(_GENERIC_SOURCE).mmada_attention_generic_rope
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+        _fns["rope"] = fn
+    x = _rows(x)
+    b, heads, l, d = x.shape
+    out = torch.empty((b, heads, l, d), dtype=x.dtype, device=x.device)
+    strides = _strides(x)
+    _launch(fn, x.device, x.data_ptr(), out.data_ptr(), rope_sin.data_ptr(), rope_cos.data_ptr(),
+            _dtype_code(x), b, heads, l, d, strides.buffer_info()[0])
+    return out
+
+
+def _wide_fwd(q, k, v, bias, long_tier: bool) -> torch.Tensor:
+    """B7's wgmma body on checked bf16 operands (D up to 256): q, k and v
+    read through tensor maps of their real width in boxes of BOX_COLS
+    columns (an operand no map describes copied first); the bias read as it
+    is."""
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
-    q, k, v = (_rows(t) for t in (q, k, v))
-    bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
+    q, k, v = (tma_operand(t) for t in (q, k, v))
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    q_rot = k_rot = None
+    args = spec_array(describe(q, TILE_ROWS, BOX_COLS), describe(k, STEP_ROWS, BOX_COLS),
+                      describe(v, STEP_ROWS, BOX_COLS), describe(out, OUT_ROWS, BOX_COLS))
+    args.extend(_strides(bias))
+    fn = _entry(_WIDE_SOURCE, "mmada_attention_wide_fwd_bf16", 5, flags=1)
+    _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if bias is None else bias.data_ptr(), int(long_tier), b, h, kvh, lq, lk, d,
+            args.buffer_info()[0], 1.0 / (d ** 0.5))
+    return out
+
+
+def _generic_fwd(wrapper, q, k, v, rope_sin=None, rope_cos=None, bias=None,
+                 long_tier: bool = False) -> torch.Tensor:
+    """B7 on checked operands, through the body `generic_body` names: the
+    one-pass function (`long_tier` False; with RoPE, q and k rotated first at
+    the real width by `_rotated`) or the long one. The output is written as
+    (B, Lq, H, D), so the caller's merge of the heads is a view. Counts the
+    launch in `wrapper`'s generic counters and its body's."""
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    body = generic_body(q.dtype, d)
+    bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
     if rope_sin is not None:
-        q_rot = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-        k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
-    ptrs = [None if t is None else t.data_ptr()
-            for t in (q, k, v, out, bias, rope_sin, rope_cos, q_rot, k_rot)]
-    strides = _strides(q, k, v, out, bias)
-    fn = _entry(_GENERIC_SOURCE, "mmada_attention_generic_fwd", 9, flags=2)
-    _launch(fn, q.device, *ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
-            strides.buffer_info()[0], 1.0 / (d ** 0.5))
+        q, k = _rotated(q, rope_sin, rope_cos), _rotated(k, rope_sin, rope_cos)
+    if body == "wgmma":
+        out = _wide_fwd(q, k, v, bias, long_tier)
+    else:  # the ffma body reads 16-byte pieces: operands a map could describe
+        q, k, v = (tma_operand(t) for t in (q, k, v))
+        out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+        ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, out, bias)]
+        strides = _strides(q, k, v, out, bias)
+        fn = _entry(_GENERIC_SOURCE, "mmada_attention_generic_fwd", 5, flags=2)
+        _launch(fn, q.device, *ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
+                strides.buffer_info()[0], 1.0 / (d ** 0.5))
+    _count_launch(wrapper, bias, generic=True)
+    attr = f"{body}_body_launches"
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
     return out
 
 
@@ -304,12 +370,15 @@ def flash_attention(
     without RoPE. On the card `kernel_for(q.dtype, D)` picks the kernel:
     B1 (B2 with a bias) for bf16 at D 64 or 128, counted in
     `flash_attention.launches` (`.bias_launches`), else B7, counted in
-    `flash_attention.generic_launches` (`.generic_bias_launches`): one per
-    call, since with RoPE the C entry runs its rotation kernel and the
-    attention kernel together. B1 and B2 read their operands through TMA
-    tensor maps (`tensor_maps`), so an operand that a map cannot describe is
-    copied first (a bias: `flash_attention.bias_copies`); B7 reads any
-    strides.
+    `flash_attention.generic_launches` (`.generic_bias_launches`) and in
+    its body's counter (`generic_body`: `.wgmma_body_launches` or
+    `.ffma_body_launches`). One count per call: with RoPE, B1's C entry
+    runs its rotation kernel and the attention kernel together, and B7's
+    wrapper rotates q and k at the real width first (`_rotated`). Both read
+    q, k and v as a TMA tensor map could describe them (`tensor_maps`), so
+    an operand that no map describes is copied first; B2's bias too
+    (`flash_attention.bias_copies`), B7's only if its last dim is not
+    contiguous.
 
     B2 adds the bias in log2 units, saturated at the finite min, so on the
     card every bias at or below -FLT_MAX / log2 e (about -2.36e38) counts as
@@ -340,9 +409,7 @@ def flash_attention(
                 raise ValueError(f"{name} must be contiguous fp32 ({lq}, {d}) on {q.device}")
     bias = bias_as_float(bias)
     if route == "generic":
-        out = _generic_fwd(flash_attention, q, k, v, rope_sin, rope_cos, bias)
-        _count_launch(flash_attention, bias, generic=True)
-        return out
+        return _generic_fwd(flash_attention, q, k, v, rope_sin, rope_cos, bias)
     if bias is not None:
         bias = _bias_map_operand(flash_attention, bias, b, h, lq, lk, q.device)
     q, k, v = (tma_operand(t) for t in (q, k, v))
@@ -384,6 +451,8 @@ flash_attention.bias_launches = 0
 flash_attention.bias_copies = 0
 flash_attention.generic_launches = 0
 flash_attention.generic_bias_launches = 0
+flash_attention.wgmma_body_launches = 0
+flash_attention.ffma_body_launches = 0
 
 
 # --------------------------------------------------------------------------

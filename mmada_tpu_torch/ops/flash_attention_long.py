@@ -28,11 +28,12 @@ final cast.
 
 Each wrapper launches a kernel for a CUDA tensor (Lq and Lk multiples of
 128, as the JAX tiers require), chosen by `flash_attention.kernel_for`: B4 /
-B5 for bf16 at head_dim 64 or 128, else the CUDA-core kernels of
-`csrc/attention_generic.cu` with the long flag (B7-long, B8-dq-long; B8-dkv
-computes both tiers' dk and dv) for bf16 at other widths and for fp32, any
-multiple of 16 from 16 to 512. It raises for anything else; it never falls
-back. For a CPU tensor it computes the plain version (`*_reference`), which
+B5 for bf16 at head_dim 64 or 128, else B7-long (through the body
+`flash_attention.generic_body` names: "wgmma" for bf16 up to 256, "ffma"
+for fp32 and bf16 past 256), B8-dq-long and B8-dkv (which computes both
+tiers' dk and dv) with the long flag, for bf16 at other widths and for
+fp32, any multiple of 16 from 16 to 512. It raises for anything else; it
+never falls back. For a CPU tensor it computes the plain version (`*_reference`), which
 takes any length; the CPU tests hold it against the JAX kernels and
 `chip_smoke.py` holds the kernels against it on the card. Each wrapper
 counts its launches in `.launches` (unbiased) and `.bias_launches` (biased),
@@ -122,7 +123,9 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
     an operand a map cannot describe is copied first; a bias so copied
     counts in `.bias_copies`); B4-bias runs a bias broadcast over the heads
     with the heads fastest in its grid (`_heads_fastest`). Where `kernel_for`
-    says "generic", B7-long (`.generic_launches`, `.generic_bias_launches`)."""
+    says "generic", B7-long (`.generic_launches`, `.generic_bias_launches`;
+    its body, `generic_body`, in `.wgmma_body_launches` /
+    `.ffma_body_launches`)."""
     if q.device.type == "cpu":
         return flash_attention_long_reference(q, k, v, bias)
     if q.device.type != "cuda":
@@ -137,9 +140,7 @@ def flash_attention_long(q, k, v, bias=None) -> torch.Tensor:
     _check_aligned(q, k)
     bias = bias_as_float(bias)
     if route == "generic":
-        out = _generic_fwd(flash_attention_long, q, k, v, bias=bias, long_tier=True)
-        _count_launch(flash_attention_long, bias, generic=True)
-        return out
+        return _generic_fwd(flash_attention_long, q, k, v, bias=bias, long_tier=True)
     q, k, v = (tma_operand(t) for t in (q, k, v))
     # written as (B, Lq, H, D) so the caller's merge of the heads is a view
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -162,6 +163,8 @@ flash_attention_long.bias_launches = 0
 flash_attention_long.bias_copies = 0
 flash_attention_long.generic_launches = 0
 flash_attention_long.generic_bias_launches = 0
+flash_attention_long.wgmma_body_launches = 0
+flash_attention_long.ffma_body_launches = 0
 
 
 def attention_bwd_dq_long_reference(

@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import array
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -111,10 +111,13 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
     return t if describable(t) else t.contiguous()
 
 
-def describe(t: torch.Tensor, box_rows: int) -> TensorMapSpec:
+def describe(t: torch.Tensor, box_rows: int, box_cols: Optional[int] = None) -> TensorMapSpec:
     """The tensor map of a (B, H, L, D) operand, read or written in boxes of
-    `box_rows` rows. Raises if t is not `describable` (the wrapper copies
-    such an operand first)."""
+    `box_rows` rows and `box_cols` columns (by default BOX_COLS, or D if
+    smaller; B7's wgmma body passes BOX_COLS at every width, so that a box
+    matches the 128-byte swizzle and TMA fills the columns past D with
+    zeros). Raises if t is not `describable` (the wrapper copies such an
+    operand first)."""
     shape, stride, size = t.shape, t.stride(), t.element_size()
     if not describable(t):
         raise ValueError(f"no tensor map describes shape {tuple(shape)} strides "
@@ -126,8 +129,8 @@ def describe(t: torch.Tensor, box_rows: int) -> TensorMapSpec:
     rows = stride[2] * size if l > 1 else d * size
     heads = stride[1] * size if h > 1 else rows * l
     batches = stride[0] * size if b > 1 else heads * h
-    return TensorMapSpec((d, l, h, b), (rows, heads, batches),
-                         (min(d, BOX_COLS), box_rows, 1, 1))
+    cols = min(d, BOX_COLS) if box_cols is None else box_cols
+    return TensorMapSpec((d, l, h, b), (rows, heads, batches), (cols, box_rows, 1, 1))
 
 
 def _bias_axes(t: torch.Tensor) -> tuple[bool, bool]:

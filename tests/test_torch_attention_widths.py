@@ -1,7 +1,8 @@
 """fp32 operands and every head width (the kernels B7 / B8 and B6-f32) against
 the JAX package, on the CPU.
 
-* `kernel_for`, the route the card takes by dtype and head width: its whole
+* `kernel_for`, the route the card takes by dtype and head width, and
+  `generic_body`, B7's forward body on the generic route: their whole
   table, the refusals included (this runs without a card);
 * the one-pass forward's plain version (what B7 computes) at head_dim 16, 96
   and 256, fp32 and bf16, with GQA and RoPE, unbiased and biased: against
@@ -40,6 +41,7 @@ from mmada_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_reference,
     flash_attention_reference,
+    generic_body,
     kernel_for,
 )
 from mmada_tpu_torch.ops.flash_attention_long import (
@@ -96,13 +98,28 @@ def _bias(b, h, lq, lk, seed=3):
     (torch.float32, 512, "generic"),
     (torch.float16, 128, None), (torch.float64, 64, None), (torch.float32, 8, None),
     (torch.bfloat16, 24, None), (torch.float32, 528, None), (torch.bfloat16, 0, None),
+    (torch.bfloat16, 48, "generic"), (torch.bfloat16, 192, "generic"),
+    (torch.bfloat16, 240, "generic"), (torch.bfloat16, 272, "generic"),
+    (torch.float32, 48, "generic"), (torch.float32, 96, "generic"),
+    (torch.float32, 192, "generic"), (torch.float32, 240, "generic"),
+    (torch.float32, 272, "generic"), (torch.float16, 48, None), (torch.bfloat16, 520, None),
 ])
 def test_kernel_for_routes_by_dtype_and_width(dtype, d, want):
+    """The route, and on the generic route B7's forward body: "wgmma" for
+    bf16 up to 256, "ffma" for fp32 and bf16 past 256."""
     if want is None:
         with pytest.raises(ValueError, match="no attention kernel"):
             kernel_for(dtype, d)
+        with pytest.raises(ValueError):
+            generic_body(dtype, d)
     else:
         assert kernel_for(dtype, d) == want
+    if want == "generic":
+        body = "wgmma" if dtype == torch.bfloat16 and d <= 256 else "ffma"
+        assert generic_body(dtype, d) == body
+    elif want == "wgmma":
+        with pytest.raises(ValueError, match="takes the wgmma kernels"):
+            generic_body(dtype, d)
 
 
 @pytest.mark.parametrize("biased", [False, True])

@@ -37,6 +37,7 @@ from mmada_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_reference,
+    generic_body,
 )
 from mmada_tpu_torch.ops.flash_attention_long import (
     attention_bwd_dkv_long,
@@ -935,6 +936,12 @@ GENERIC_CASES = [
     (torch.bfloat16, 1, 2, 1, 384, 384, 256, False, "head"),
     (torch.bfloat16, 1, 2, 2, 129, 129, 512, True, None),
     (torch.bfloat16, 1, 4, 4, 63, 127, 16, False, None),
+    # B7's wgmma body at the zero-filled widths (instances 64, 128, 256) and
+    # its ffma body at a width that is no multiple of 64
+    (torch.bfloat16, 1, 4, 2, 200, 200, 48, True, "mask"),
+    (torch.bfloat16, 1, 4, 4, 387, 387, 192, True, "head"),
+    (torch.bfloat16, 1, 4, 4, 100, 300, 240, False, None),
+    (torch.float32, 1, 4, 2, 300, 300, 208, True, None),
 ]
 
 
@@ -996,7 +1003,8 @@ def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq,
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 256),
-                                     (torch.float32, 16)])
+                                     (torch.float32, 16), (torch.bfloat16, 48),
+                                     (torch.bfloat16, 96), (torch.bfloat16, 192)])
 def test_generic_long_kernels_match_plain_versions(cuda_device, dtype, d):
     """B7-long and B8-dq-long / B8-dkv (the long tier's functions: p in fp32,
     divided last) against their plain versions at 4,224 tokens, GQA."""
@@ -1022,6 +1030,43 @@ def test_generic_long_kernels_match_plain_versions(cuda_device, dtype, d):
     assert (flash_attention_long.launches, attention_bwd_dq_long.launches) == before
     assert (flash_attention_long.generic_launches, attention_bwd_dq_long.generic_launches,
             attention_bwd_dkv_long.generic_launches) == tuple(x + 1 for x in g0)
+
+
+@pytest.mark.parametrize("long", [False, True])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 16), (torch.bfloat16, 48), (torch.bfloat16, 96), (torch.bfloat16, 192),
+    (torch.bfloat16, 256), (torch.bfloat16, 512), (torch.float32, 16), (torch.float32, 128),
+    (torch.float32, 256), (torch.float32, 512)])
+def test_b7_bodies_match_plain_versions(cuda_device, dtype, d, long):
+    """B7's forward through the body `generic_body` names (its counter
+    moves, the other body's does not), against the plain version: one-pass
+    with RoPE and a mask that shuts rows out, long with a per-head bias.
+    fp32 within 1e-5 absolute; bf16 at B1's bar (one-pass) or within one
+    bf16 ulp (long)."""
+    l = 256 if long else 200
+    q, k, v = _generic_qkv(cuda_device, dtype, 1, 4, 2, l, l, d, seed=d)
+    wrapper = flash_attention_long if long else flash_attention
+    body = generic_body(dtype, d)
+    other = "ffma" if body == "wgmma" else "wgmma"
+    before = (getattr(wrapper, f"{body}_body_launches"), getattr(wrapper, f"{other}_body_launches"))
+    if long:
+        bias = _generic_bias(cuda_device, "head", 1, 4, l, l)
+        got = flash_attention_long(q, k, v, bias)
+        want = flash_attention_long_reference(q, k, v, bias)
+    else:
+        bias = _generic_bias(cuda_device, "mask", 1, 4, l, l)
+        sin, cos = llada.rope_sin_cos(l, d, 500000.0, device=cuda_device)
+        got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+        want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
+    assert (getattr(wrapper, f"{body}_body_launches"),
+            getattr(wrapper, f"{other}_body_launches")) == (before[0] + 1, before[1])
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    elif long:
+        torch.testing.assert_close(got.float(), want.float(), atol=2 ** -14, rtol=2 ** -7)
+    else:
+        assert_b1_close(got, want)
 
 
 def test_kernel_for_routes_on_the_card(cuda_device):
