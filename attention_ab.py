@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Times the attention kernels B1, B2, B4 and B4-bias (the forwards), B3 and
 B3-bias (the one-pass backward), B5 (the long training path's staged
-backward, unbiased and biased), B7 (the forward at fp32 and at bf16 widths
-other than 64 and 128) and the int4 matmul B6 against those of another
-checkout of the port, in turns on one NVIDIA GPU.
+backward, unbiased and biased), B7 and B8 (the forward and the backward at
+fp32 and at bf16 widths other than 64 and 128) and the int4 matmul B6
+against those of another checkout of the port, in turns on one NVIDIA GPU.
 
     python3 attention_ab.py PARENT_DIR [--out chiprun_out/attention_ab.json]
-                            [--only forward|backward|int4|b7]
+                            [--only forward|backward|int4|b7|b8]
 
 PARENT_DIR is an unpacked checkout of the commit to compare with (for
 example `git archive HEAD | tar -x -C chip_checkout`) whose B1-B6 take
 tensor maps, as here, and run through this checkout's wrappers with its own
 C entries (`_through`), and whose B7 is a single CUDA-core body behind the
 entry `mmada_attention_generic_fwd`, called with the arguments its own
-wrapper passed (`parent_b7`). Its kernels are built from its own
+wrapper passed (`parent_b7`), and whose B8 is a single CUDA-core kernel a
+tier behind `mmada_attention_generic_dq` / `_dkv` (`parent_b8`, the
+arguments its wrappers passed). Its kernels are built from its own
 `mmada_tpu_torch/ops/csrc` with its own `_build.py`. This checkout's
 kernels run through its wrappers. Each measurement runs in the order parent, this, this, parent, on
 the same inputs:
@@ -60,10 +62,15 @@ the same inputs:
     output from the parent's (absolute and relative to its largest entry)
     and which body this checkout took (`flash_attention.generic_body`);
     beside them B1 and B2 at the t2i CFG frame and B4 at the long text frame
-    (D 128), each output held against the parent's bit for bit.
+    (D 128), each output held against the parent's bit for bit;
+  * B8-dq and B8-dkv at the same four shapes (the one-pass tier at the t2i
+    CFG frame, the long tier at 8,192 tokens; q and k unrotated, delta from
+    this checkout's forward, dkv fed this checkout's lse): CUDA events and
+    device time as B7's, the largest difference of each output (dq, lse; dk,
+    dv) from the parent's, and the body this checkout took.
 
 `--only forward` runs the first two, `--only backward` the third, `--only
-int4` the fourth, `--only b7` the last.
+int4` the fourth, `--only b7` the fifth, `--only b8` the last.
 
 Prints one JSON line per measurement, the card's name and power limit as
 nvidia-smi reports them, and a summary JSON line last; with --out, writes
@@ -137,6 +144,12 @@ def parent_kernels(parent_dir: str) -> dict:
     b7 = getattr(build.load_library("attention_generic"), "mmada_attention_generic_fwd")
     b7.argtypes = [p] * 9 + [i] * 8 + [p, ctypes.c_float, p]
     b7.restype = ctypes.c_int
+    b8 = {name: getattr(build.load_library("attention_generic"), f"mmada_attention_generic_{name}")
+          for name in ("dq", "dkv")}
+    b8["dq"].argtypes = [p] * 8 + [i] * 8 + [p, ctypes.c_float, p]
+    b8["dkv"].argtypes = [p] * 9 + [i] * 7 + [p, ctypes.c_float, p]
+    for fn in b8.values():
+        fn.restype = ctypes.c_int
 
     def forward(q, k, v, rope_sin=None, rope_cos=None, bias=None):
         call = b1 if bias is None else b2
@@ -171,7 +184,8 @@ def parent_kernels(parent_dir: str) -> dict:
 
     return {"forward": forward, "long": long_forward, "dq": dq, "dkv": dkv,
             "long_dq": b5_dq, "long_dkv": b5_dkv, "int4": int4,
-            "b7": lambda *a, **kw: parent_b7(b7, *a, **kw)}
+            "b7": lambda *a, **kw: parent_b7(b7, *a, **kw),
+            "b8": lambda *a, **kw: parent_b8(b8, *a, **kw)}
 
 
 def parent_b7(fn, q, k, v, rope_sin=None, rope_cos=None, bias=None, long_tier=False):
@@ -198,6 +212,42 @@ def parent_b7(fn, q, k, v, rope_sin=None, rope_cos=None, bias=None, long_tier=Fa
              strides.buffer_info()[0], 1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent mmada_attention_generic_fwd failed: cudaError {err}")
+    return out
+
+
+def parent_b8(fns, q, k, v, dout, delta, lse=None, long_tier=False):
+    """The parent's B8 through its C entries `fns` ("dq":
+    `mmada_attention_generic_dq`, "dkv": `..._dkv`), on operands with a
+    contiguous last dim by element strides, as its wrapper passed them:
+    (dq, lse) without `lse`, else (dk, dv)."""
+    import torch
+
+    from mmada_tpu_torch.ops.flash_attention import _dtype_code, _strides
+
+    q, k, v, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, dout))
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    if lse is None:
+        dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+        ptrs = [t.data_ptr() for t in (q, k, v, dout, delta)] + [None, dq.data_ptr(),
+                                                                 lse.data_ptr()]
+        strides = _strides(q, k, v, dout, dq, None)
+        err = fns["dq"](*ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
+                        strides.buffer_info()[0], 1.0 / d ** 0.5, stream)
+        out = (dq, lse)
+    else:
+        dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta)] + [None, dk.data_ptr(),
+                                                                      dv.data_ptr()]
+        strides = _strides(q, k, v, dout, dk, dv, None)
+        err = fns["dkv"](*ptrs, _dtype_code(q), b, h, kvh, lq, lk, d, strides.buffer_info()[0],
+                         1.0 / d ** 0.5, stream)
+        out = (dk, dv)
+    if err:
+        raise RuntimeError(f"parent B8 failed: cudaError {err}")
     return out
 
 
@@ -377,7 +427,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_dir")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", choices=("forward", "backward", "int4", "b7"), default=None)
+    ap.add_argument("--only", choices=("forward", "backward", "int4", "b7", "b8"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_ab: no CUDA device", file=sys.stderr)
@@ -427,6 +477,8 @@ def main() -> int:
         time_b6({"parent": parent["int4"], "this": int4_matmul}, emit)
     if args.only in (None, "b7"):
         time_b7({"parent": parent["b7"], "this": (flash_attention, flash_attention_long)}, emit)
+    if args.only in (None, "b8"):
+        time_b8(parent["b8"], emit)
     print(smi, flush=True)
     summary = {r["tag"]: {name: t["mean"] for name, t in r["ms"].items()} for r in records}
     print(json.dumps({"card": smi, "mean_ms": summary}), flush=True)
@@ -465,6 +517,50 @@ def time_b7(b7: dict, emit) -> None:
                   device_ms=device, gap_to_parent=dict(
                       abs=gap, rel=relative_gap(outs["this"], outs["parent"]))))
         del q, k, v, outs
+        torch.cuda.empty_cache()
+
+
+def time_b8(parent, emit) -> None:
+    """B8-dq and B8-dkv of both versions at PERF.md's four shapes, in turns,
+    on the same inputs, with this checkout's body and the largest difference
+    of each output from the parent's."""
+    import torch
+
+    from mmada_tpu_torch.ops import flash_attention as fa
+    from mmada_tpu_torch.ops import flash_attention_long as fl
+
+    t2i, long_l = chip_smoke.T2I_FRAME, chip_smoke.LONG_FRAME
+    for tag, dtype, (b, h, l), d, long in (
+            ("B8 t2i CFG bf16 D256", torch.bfloat16, (4, 16, t2i), 256, False),
+            ("B8 t2i CFG fp32 D128", torch.float32, (4, 32, t2i), 128, False),
+            ("B8-long bf16 D256", torch.bfloat16, (1, 16, long_l), 256, True),
+            ("B8-long fp32 D128", torch.float32, (1, 16, long_l), 128, True)):
+        q, k, v, _, _ = chip_smoke.generic_case(dtype, b, h, h, l, l, d, False, seed=31)
+        dout = torch.randn((b, h, l, d), generator=torch.Generator("cuda").manual_seed(32),
+                           device="cuda").to(dtype)
+        fwd, dq_fn, dkv_fn = ((fl.flash_attention_long, fl.attention_bwd_dq_long,
+                               fl.attention_bwd_dkv_long) if long else
+                              (fa.flash_attention, fa.attention_bwd_dq, fa.attention_bwd_dkv))
+        delta = fa.attention_delta(fwd(q, k, v), dout)
+        lse = dq_fn(q, k, v, dout, delta)[1]
+        rec = dict(tag=tag, shape=[b, h, h, l, l], d=d, body=fa.generic_body(dtype, d))
+        for part, fns, names in (
+                ("dq", {"parent": lambda: parent(q, k, v, dout, delta, long_tier=long),
+                        "this": lambda: dq_fn(q, k, v, dout, delta)}, ("dq", "lse")),
+                ("dkv", {"parent": lambda: parent(q, k, v, dout, delta, lse=lse),
+                         "this": lambda: dkv_fn(q, k, v, dout, lse, delta)}, ("dk", "dv"))):
+            outs = {name: fn() for name, fn in fns.items()}
+            iters, warm = (3, 1) if long else (10, 2)
+            rec[part] = dict(
+                ms=in_turns(fns, lambda fn: chip_smoke.cuda_ms(fn, iters, warm)),
+                device_ms=in_turns(fns, lambda fn: device_ms(fn, iters)),
+                gap_to_parent={n: dict(abs=float((a.float() - w.float()).abs().max()),
+                                       rel=relative_gap(a, w))
+                               for n, a, w in zip(names, outs["this"], outs["parent"])})
+            del outs
+        emit(dict(rec, ms={n: {"mean": rec["dq"]["ms"][n]["mean"] + rec["dkv"]["ms"][n]["mean"]}
+                           for n in ("parent", "this")}))
+        del q, k, v, dout, delta, lse
         torch.cuda.empty_cache()
 
 

@@ -102,20 +102,23 @@ ImageReward-v1.0 through `inference_t2i_torch`'s scoring (13a),
 reconstruction eval in `train_motion_vq_torch` (13c) and the SMPL fit of a
 generated clip (13d), each held against the fp32 CPU run of the same
 weights (EVAL_REL and the SMPL bars).
-Phase 14 is fp32 and every head width (A.17): the CUDA-core kernels B7
-(forward, both tiers), B8-dq, B8-dkv and B6-f32 (int4 with fp32 x) against
-their plain versions with their times (14a: fp32 at D 16-256, bf16 at D 16,
-48, 96, 192, 256 and 512, biased, with RoPE, rectangular, 8,192 tokens, the
-t2i CFG frame; B7's fp32 one-pass cases also against float64, no further
-from it than GENERIC_F64_RATIO times the plain version; B6-f32 at the 8B's
-shapes; no spill in their SASS), then
+Phase 14 is fp32 and every head width (A.17): the kernels B7 (forward,
+both tiers), B8-dq, B8-dkv (each through its body: "wgmma" on the tensor
+cores for bf16 up to 256, "ffma" on the CUDA cores for fp32 and bf16 past
+256, each case's body asserted) and B6-f32 (int4 with fp32 x) against their
+plain versions with their times (14a: fp32 at D 16-256, bf16 at D 16, 48,
+96, 192, 256 and 512, biased, with RoPE, rectangular, 8,192 tokens, the t2i
+CFG frame; the fp32 one-pass cases' outputs and gradients also against
+float64, no further from it than GENERIC_F64_RATIO times the plain version;
+B6-f32 at the 8B's shapes; no spill in their SASS), then
 configs/tiny_test.yaml (fp32, 16-wide heads) through the command lines'
 `load` / `run` on the card token-exact against the CPU and `train_torch`'s
 trainer for 2 steps against the CPU's (14b), the full-width 8B under FP32
 (one t2i forward and a text request through B7, against the plain
 attention's fp32 logits) and its int4 form through B6-f32 (14c), and 256-wide
 heads at the 8B's widths (a masked t2i forward and train step against fp32,
-14d); B7, B8 and B6-f32 launch on none of phases 2-13.
+14d); 14b-14c launch only the ffma bodies, 14d only the wgmma bodies; B7, B8
+and B6-f32 launch on none of phases 2-13.
 It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
@@ -327,7 +330,8 @@ GENERIC_INT4_REL = 1e-5
 # attention, and through B6-f32 against the dequantised weights in cuBLAS:
 # one fp32 function, summed in other orders, through 32 layers
 FP32_MODEL_REL_L2 = 1e-4
-GENERIC_DESIGN = "fp32 FFMA on the CUDA cores: 64-row tiles, 128-column chunks, D a runtime loop"
+INT4_F32_DESIGN = ("fp32 FFMA on the CUDA cores: 128 x 128 output tiles, K 16 rows at a time, "
+                   "W expanded into shared memory, 8 x 8 outputs a thread")
 # B7's two bodies (`flash_attention.generic_body`): fp32 at every width and
 # bf16 past 256 on the CUDA cores; bf16 at 16-256 on the tensor cores
 FFMA_DESIGN = ("fp32 FFMA on the CUDA cores: 128-row tiles (64 past D 128), the whole width to "
@@ -335,6 +339,13 @@ FFMA_DESIGN = ("fp32 FFMA on the CUDA cores: 128-row tiles (64 past D 128), the 
                "one walk over K in fp32")
 WIDE_DESIGN = ("wgmma + TMA at instances of 64, 128 and 256 columns, zero-filled past D; "
                "producer and two consumer warpgroups, 64-key stages")
+# B8's two bodies, by the same rule
+FFMA_BWD_DESIGN = ("fp32 FFMA on the CUDA cores: B7's register tiles and cp.async ring, the "
+                   "whole width to 256 in a block, dq's one-pass tier in two walks, its long "
+                   "tier online")
+WIDE_BWD_DESIGN = ("wgmma + TMA: B3's / B5's kernels zero-filled at instances 64 and 128; at "
+                   "256 dq over 32-key stages, dkv's warpgroups splitting dk / dv's columns "
+                   "and exchanging p^T, ds^T through shared memory")
 TINY_CONFIG = "configs/tiny_test.yaml"
 TINY_TEXT = dict(gen_length=16, steps=8, block_length=8)
 TINY_MMU = dict(max_new_tokens=16, steps=8, block_length=16)
@@ -792,10 +803,12 @@ def check_rope_outside(h: int) -> None:
 # names: B1, B2; B3's and B3-bias's dq and dkv (the backward bodies with
 # ONE_PASS, unbiased and biased); B4, B4-bias, B5-dq and B5-dkv unbiased and
 # biased; each at D 64 and 128; B6 with tiles of 128 and 256 rows
-# the libraries of the CUDA-core kernels (B7's ffma body, B8; B6-f32): ptxas
-# must spill no register in any of their kernels. B7's wgmma body
+# the libraries of the CUDA-core kernels (B7's and B8's ffma bodies; B6-f32):
+# ptxas must spill no register in any of their kernels. B7's wgmma body
 # (attention_wide: both tiers, unbiased and biased, at instances 64, 128 and
-# 256) stands in WGMMA_KERNELS with the other wgmma kernels
+# 256) and B8's at its instance of 256 (attention_wide_bwd: dq and dkv, both
+# tiers, unbiased and biased; at 64 and 128 B8's wgmma body is B3's and B5's
+# kernels) stand in WGMMA_KERNELS with the other wgmma kernels
 GENERIC_LIBRARIES = ("attention_generic", "int4_matmul_f32")
 WGMMA_KERNELS = {
     "flash_attention_fwd": [f"{k}ILi{d}E" for d in (64, 128)
@@ -810,6 +823,8 @@ WGMMA_KERNELS = {
     "int4_matmul": [f"int4_matmul_wgmma_kernelILi{mb}E" for mb in (1, 2)],
     "attention_wide": [f"attn_wide_wgmma_kernelILi{d}ELb{bias}ELb{long}E" for d in (64, 128, 256)
                        for bias in (0, 1) for long in (0, 1)],
+    "attention_wide_bwd": [f"attn_wide_{k}_wgmma_kernelILb{bias}ELb{one}E" for k in ("dq", "dkv")
+                           for bias in (0, 1) for one in (0, 1)],
 }
 
 
@@ -817,11 +832,13 @@ def check_sass() -> dict:
     """Per kernel of the built libraries (WGMMA_KERNELS: B1, B2, B3-dq,
     B3-dkv, B3-dq-bias, B3-dkv-bias, B4, B4-bias, B5-dq, B5-dkv, B5-dq-bias,
     B5-dkv-bias at D 64 and 128; B6 at both tile heights; B7's wgmma body
-    at its 12 instances), the count of
+    at its 12 instances; B8's wgmma body at its 8 instances of 256), the
+    count of
     HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
     its SASS (`cuobjdump -sass`) and, after a cold build, its ptxas lines;
     fails if HGMMA or UTMALDG is missing, if ptxas spilled any register of
-    one of them or of the kernels of GENERIC_LIBRARIES (B7 / B8, B6-f32;
+    one of them or of the kernels of GENERIC_LIBRARIES (B7's and B8's ffma
+    bodies, B6-f32;
     after a cold build), or if it serialised the wgmma of any kernel
     (C7510-C7520 in a build log)."""
     import os
@@ -5957,7 +5974,8 @@ def generic_counters():
     """(reset, read) of the launch counters of B7 (`.generic_launches` and
     `.generic_bias_launches` of the forward wrappers, both tiers; and by
     body, `.wgmma_body_launches` and `.ffma_body_launches`: "b7_wgmma",
-    "b7_ffma"), B8-dq, B8-dkv and B6-f32 (`int4_matmul.f32_launches`);
+    "b7_ffma"), B8-dq and B8-dkv (the same, by body: "dq_wgmma",
+    "dq_ffma", "dkv_wgmma", "dkv_ffma") and B6-f32 (`int4_matmul.f32_launches`);
     `reset_counts` leaves them alone, so that phase 14 can show phases 2-13
     launched none."""
     from mmada_tpu_torch.ops.flash_attention import (
@@ -5978,8 +5996,8 @@ def generic_counters():
     counters = [(f"{kind}{suffix}", fn, attr) for kind, fns in wrappers.items()
                 for suffix, attr in (("", "generic_launches"), ("_bias", "generic_bias_launches"))
                 for fn in fns] + [("b6_f32", int4_matmul, "f32_launches")] + [
-        (f"b7_{body}", fn, f"{body}_body_launches") for body in ("wgmma", "ffma")
-        for fn in wrappers["b7"]]
+        (f"{kind}_{body}", fn, f"{body}_body_launches") for kind, fns in wrappers.items()
+        for body in ("wgmma", "ffma") for fn in fns]
 
     def reset():
         for _, fn, attr in counters:
@@ -5990,7 +6008,8 @@ def generic_counters():
         for key, fn, attr in counters:
             out[key] += getattr(fn, attr)
         return {k: out[k] for k in ("b7", "b7_bias", "dq", "dq_bias", "dkv", "dkv_bias",
-                                    "b6_f32", "b7_wgmma", "b7_ffma")}
+                                    "b6_f32", "b7_wgmma", "b7_ffma", "dq_wgmma", "dq_ffma",
+                                    "dkv_wgmma", "dkv_ffma")}
 
     return reset, read
 
@@ -6099,6 +6118,37 @@ def float64_attention(q, k, v, rope_sin, rope_cos, bias):
     return torch.cat(out)
 
 
+def float64_attention_bwd(q, k, v, dout, bias):
+    """(dq, dk, dv) of the one-pass function in float64 on the rotated
+    operands, delta from the float64 output, a batch at a time (dk and dv
+    summed over each kv head's query heads)."""
+    import torch
+
+    from mmada_tpu_torch.ops.flash_attention import _heads_like_q, bias_as_float
+
+    h, kvh, d = q.shape[1], k.shape[1], q.shape[3]
+    bias = bias_as_float(bias)
+    grads = []
+    for i in range(q.shape[0]):
+        qi, do = q[i:i + 1].double(), dout[i:i + 1].double()
+        ki, vi = _heads_like_q(k[i:i + 1], h).double(), _heads_like_q(v[i:i + 1], h).double()
+        s = torch.matmul(qi, ki.transpose(-1, -2)) / d ** 0.5
+        if bias is not None:
+            s = s + bias[i if bias.shape[0] > 1 else 0:][:1].double()
+        p = torch.softmax(s, dim=-1)
+        del s
+        o = torch.matmul(p, vi)
+        ds = p * (torch.matmul(do, vi.transpose(-1, -2)) - (do * o).sum(-1, keepdim=True))
+        lk = ki.shape[2]
+        dk = torch.matmul(ds.transpose(-1, -2), qi) / d ** 0.5
+        dv = torch.matmul(p.transpose(-1, -2), do)
+        grads.append((torch.matmul(ds, ki) / d ** 0.5,
+                      dk.view(1, kvh, h // kvh, lk, d).sum(2),
+                      dv.view(1, kvh, h // kvh, lk, d).sum(2)))
+        del p, ds, o
+    return tuple(torch.cat(parts) for parts in zip(*grads))
+
+
 def generic_fwd_ok(got, want, long=False):
     """(max abs err, passes) of a B7 output: fp32 within GENERIC_FWD_ATOL;
     bf16 at phase 3's bars (the one-pass tier's atol / rtol and differing
@@ -6129,10 +6179,29 @@ def generic_grad_error(got, want, long=False):
         max_err <= GENERIC_GRAD_REL * float(want.abs().max()))
 
 
+def b8_body_launched(tag, dq_fn, dkv_fn, body, run):
+    """Run `run()` (one B8-dq and one B8-dkv call through `dq_fn` and
+    `dkv_fn`) and fail unless each moved its `body` counter by one and its
+    other body's by none; returns what `run` returns."""
+    other = "ffma" if body == "wgmma" else "wgmma"
+    fns = (dq_fn, dkv_fn)
+    before = [(getattr(f, f"{body}_body_launches"), getattr(f, f"{other}_body_launches"))
+              for f in fns]
+    out = run()
+    after = [(getattr(f, f"{body}_body_launches"), getattr(f, f"{other}_body_launches"))
+             for f in fns]
+    if after != [(a + 1, o) for a, o in before]:
+        raise AssertionError(f"{tag}: B8's {body} body did not launch once each "
+                             f"({before} -> {after})")
+    return out
+
+
 def check_generic_kernels(cases):
     """B7 and B8 against their plain versions (the backward as a pair: B8-dq's
     lse goes into B8-dkv, the plain dq's into the plain dkv), with their
-    times; returns per-case records."""
+    times, each B8 case's body asserted; each fp32 case also against the
+    float64 function (forward and gradients), no further from it than
+    GENERIC_F64_RATIO times the plain version; returns per-case records."""
     import torch
     import torch.nn.functional as F
 
@@ -6177,14 +6246,27 @@ def check_generic_kernels(cases):
         if bias is not None:
             dout = dout * live_rows(bias, dout.shape)
         delta = attention_delta(ref, dout)
-        dq, lse = attention_bwd_dq(qr, kr, v, dout, delta, bias)
-        dk, dv = attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias)
+
+        def backward():
+            dq, lse = attention_bwd_dq(qr, kr, v, dout, delta, bias)
+            return (dq, lse, *attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias))
+
+        dq, lse, dk, dv = b8_body_launched(tag, attention_bwd_dq, attention_bwd_dkv, body,
+                                           backward)
         want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta, bias)
         want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta, bias)
         torch.cuda.synchronize()
         errors = {name: generic_grad_error(a, w) for name, a, w in (
             ("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv))}
         lse_err = float((lse - want_lse).abs().max())
+        if dtype == torch.float32:   # the gradients' distance from float64, kernel and plain
+            exact = float64_attention_bwd(qr, kr, v, dout, bias)
+            f64["grads"] = {name: dict(kernel=float((a.double() - e).abs().max()),
+                                       plain=float((w.double() - e).abs().max()))
+                            for name, a, w, e in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                                     (want_dq, want_dk, want_dv), exact)}
+            del exact
+            free_memory()
 
         (fwd_b, fwd_by), (dq_b, dq_by), (dkv_b, dkv_by) = generic_bounds(
             dtype, b, h, kvh, lq, lk, d, rope, bias)
@@ -6201,11 +6283,13 @@ def check_generic_kernels(cases):
                 qr, kr, v, attn_mask=mask, **gqa), 5),
             bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err, float64_max_abs_err=f64,
             errors={k: [e[0], e[1]] for k, e in errors.items()},
-            dq=dict(ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias), 5),
+            dq=dict(body=body, ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias),
+                                          5),
                     plain_ms=cuda_ms(lambda: attention_bwd_dq_reference(
                         qr, kr, v, dout, delta, bias), 2, 1),
                     bound_ms=dq_b, bound_by=dq_by, max_abs_err=errors["dq"][0]),
-            dkv=dict(ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias), 5),
+            dkv=dict(body=body,
+                     ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias), 5),
                      plain_ms=cuda_ms(lambda: attention_bwd_dkv_reference(
                          qr, kr, v, dout, lse, delta, bias), 2, 1),
                      bound_ms=dkv_b, bound_by=dkv_by,
@@ -6220,6 +6304,11 @@ def check_generic_kernels(cases):
         if f64 is not None and f64["kernel"] > GENERIC_F64_RATIO * f64["plain"]:
             raise AssertionError(f"B7 on {tag} lies {f64['kernel']} from float64, more than "
                                  f"{GENERIC_F64_RATIO} x the plain version's {f64['plain']}")
+        far = {name: g for name, g in (f64 or {}).get("grads", {}).items()
+               if g["kernel"] > GENERIC_F64_RATIO * g["plain"]}
+        if far:
+            raise AssertionError(f"B8 on {tag}: gradients further from float64 than "
+                                 f"{GENERIC_F64_RATIO} x the plain version's: {far}")
         records.append(rec)
         del q, k, v, out, ref, qr, kr, dout, dq, dk, dv, want_dq, want_dk, want_dv, lib_in, lib_out
         free_memory()
@@ -6252,8 +6341,14 @@ def check_generic_long(cases):
         g = torch.Generator("cuda").manual_seed(1700 + i)
         dout = torch.randn((b, h, l, d), generator=g, device="cuda").to(dtype)
         delta = attention_delta(ref, dout)
-        dq, lse = attention_bwd_dq_long(q, k, v, dout, delta)
-        dk, dv = attention_bwd_dkv_long(q, k, v, dout, lse, delta)
+        body = generic_body(dtype, d)
+
+        def backward():
+            dq, lse = attention_bwd_dq_long(q, k, v, dout, delta)
+            return (dq, lse, *attention_bwd_dkv_long(q, k, v, dout, lse, delta))
+
+        dq, lse, dk, dv = b8_body_launched(tag, attention_bwd_dq_long, attention_bwd_dkv_long,
+                                           body, backward)
         want_dq, want_lse = by_heads(attention_bwd_dq_long_reference, h, kvh, q, k, v, dout,
                                      delta, heads=2)
         want_dk, want_dv = by_heads(attention_bwd_dkv_long_reference, h, kvh, q, k, v, dout,
@@ -6268,18 +6363,19 @@ def check_generic_long(cases):
         lib_out = F.scaled_dot_product_attention(*lib_in)
         rec = dict(
             tag=tag, dtype=str(dtype).split(".")[-1], shape=[b, h, kvh, l, l], d=d, rope=False,
-            body=generic_body(dtype, d), bias=None, max_abs_err=fwd_err,
+            body=body, bias=None, max_abs_err=fwd_err,
             ms=cuda_ms(lambda: flash_attention_long(q, k, v), 2),
             plain_ms=cuda_ms(lambda: by_heads(flash_attention_long_reference, h, kvh, q, k, v),
                              1, 1),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3),
             bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err,
             errors={k: [e[0], e[1]] for k, e in errors.items()},
-            dq=dict(ms=cuda_ms(lambda: attention_bwd_dq_long(q, k, v, dout, delta), 2),
+            dq=dict(body=body, ms=cuda_ms(lambda: attention_bwd_dq_long(q, k, v, dout, delta), 2),
                     plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dq_long_reference, h, kvh, q,
                                                       k, v, dout, delta, heads=2), 1, 1),
                     bound_ms=dq_b, bound_by=dq_by, max_abs_err=errors["dq"][0]),
-            dkv=dict(ms=cuda_ms(lambda: attention_bwd_dkv_long(q, k, v, dout, lse, delta), 2),
+            dkv=dict(body=body,
+                     ms=cuda_ms(lambda: attention_bwd_dkv_long(q, k, v, dout, lse, delta), 2),
                      plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dkv_long_reference, h, kvh,
                                                        q, k, v, dout, lse, delta, heads=2), 1, 1),
                      bound_ms=dkv_b, bound_by=dkv_by,
@@ -6458,7 +6554,8 @@ def tiny_cli_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
         launched = generic_read()
         expect_launches("14b train_torch", counts(), {})
         expect_generic("14b train_torch", launched,
-                       {"b7": 2 * n, "dq": 2 * n, "dkv": 2 * n, "b7_ffma": 2 * n})
+                       {"b7": 2 * n, "dq": 2 * n, "dkv": 2 * n, "b7_ffma": 2 * n,
+                        "dq_ffma": 2 * n, "dkv_ffma": 2 * n})
         rel = [abs(a - b) / abs(b) for a, b in losses]
         log("tiny cli", f"train_torch on the card: 2 steps in {secs:.2f}s, losses card/CPU "
             f"{losses} (rel {rel}, limit 1e-5); launches {launched}")
@@ -6629,7 +6726,7 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
         want = model32.forward(ids, **kw)
     rel = float((got - want).norm() / want.norm())
     log("wide heads", f"masked t2i CFG forward, {cfg.n_heads} heads of {cfg.head_dim}, bf16: "
-        f"{fwd_s:.2f}s; vs the fp32 forward: rel L2 {rel:.3e} (limit {SMALL_MODEL_REL_L2}); "
+        f"{fwd_s:.4f}s; vs the fp32 forward: rel L2 {rel:.3e} (limit {SMALL_MODEL_REL_L2}); "
         f"launches {fwd_launched}")
     if not (torch.isfinite(got).all() and rel <= SMALL_MODEL_REL_L2):
         raise AssertionError(f"14d: the 256-wide-head forward disagrees with fp32: {rel}")
@@ -6659,14 +6756,14 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
     expect_launches("14d train step", counts(), {})
     expect_generic("14d train step", step_launched, {
         "b7_bias": cfg.n_layers, "dq_bias": cfg.n_layers, "dkv_bias": cfg.n_layers,
-        "b7_wgmma": cfg.n_layers})
+        "b7_wgmma": cfg.n_layers, "dq_wgmma": cfg.n_layers, "dkv_wgmma": cfg.n_layers})
     with plain_attention():
         loss32, grads32 = loss_and_grads(model32)
     loss_rel = abs(loss - loss32) / abs(loss32)
     grad_rel = {k: float((grads[k].float() - grads32[k]).norm()
                          / grads32[k].norm().clamp_min(1e-30)) for k in grads32}
     worst = max(grad_rel, key=grad_rel.get)
-    log("wide heads", f"masked train step (6 rows of 200): {step_s:.2f}s; loss {loss:.5f} vs "
+    log("wide heads", f"masked train step (6 rows of 200): {step_s:.4f}s; loss {loss:.5f} vs "
         f"fp32 {loss32:.5f} (rel {loss_rel:.2e}, limit {SMALL_TRAIN_LOSS_REL}); worst gradient "
         f"rel L2 {grad_rel[worst]:.2e} ({worst}, limit {SMALL_TRAIN_GRAD_REL_L2}); launches "
         f"{step_launched}")
@@ -6715,50 +6812,52 @@ def generic_phase(reset_counts, counts) -> dict:
 
 
 def generic_kernel_records(gen) -> list:
-    """The JSON line's entries of B7 (one a body: the ffma body at the fp32
-    8B's t2i CFG frame, the wgmma body at 256-wide heads' t2i CFG frame),
-    B8-dq, B8-dkv and B6-f32 (at its ff_proj shape): the times at each's
+    """The JSON line's entries of B7, B8-dq and B8-dkv, one a body (the ffma
+    body at the fp32 8B's t2i CFG frame, the wgmma body at 256-wide heads'
+    t2i CFG frame), and B6-f32 (at its ff_proj shape): the times at each's
     main-path case, the largest error over its cases, the launches of phase
     14's paths."""
     recs = gen["records"] + gen["long_records"]
-    main = next(r for r in gen["records"] if r["tag"] == "t2i CFG fp32 D128")
-    wide = next(r for r in gen["records"] if r["tag"] == "t2i CFG bf16 D256")
+    main = {"ffma": next(r for r in gen["records"] if r["tag"] == "t2i CFG fp32 D128"),
+            "wgmma": next(r for r in gen["records"] if r["tag"] == "t2i CFG bf16 D256")}
     launches = gen["launches"]
-
-    def entry(name, line, count, errors, rec, replaces="flash_attention.py",
-              source="attention_generic.cu", design=GENERIC_DESIGN):
-        return dict(kernel_record(name, source, line, count,
-                                  [dict(max_abs_err=e) for e in errors], rec, replaces=replaces),
-                    design=design)
-
-    b7 = {body: [r for r in recs if r["body"] == body] for body in ("ffma", "wgmma")}
-    out = [
-        entry("attention_generic_fwd_ffma", "650,686,471,497,392,418", launches["b7_ffma"],
-              [r["max_abs_err"] for r in b7["ffma"]], main, design=FFMA_DESIGN),
-        entry("attention_wide_fwd_wgmma", "650,686,471,497,392,418", launches["b7_wgmma"],
-              [r["max_abs_err"] for r in b7["wgmma"]], wide, source="attention_wide.cu",
-              design=WIDE_DESIGN),
-        entry("attention_generic_bwd_dq", "895,1185", launches["dq"] + launches["dq_bias"],
-              [r["dq"]["max_abs_err"] for r in recs], dict(main["dq"], library_ms=main[
-                  "bwd_library_ms"])),
-        entry("attention_generic_bwd_dkv", "963,1240", launches["dkv"] + launches["dkv_bias"],
-              [r["dkv"]["max_abs_err"] for r in recs], dict(main["dkv"], library_ms=main[
-                  "bwd_library_ms"])),
-    ]
-    int4_main = gen["int4_records"][0]
-    out.append(dict(kernel_record("int4_matmul_f32", "int4_matmul_f32.cu", "149",
-                                  launches["b6_f32"], gen["int4_records"], int4_main,
-                                  replaces="int4_matmul.py"), design=GENERIC_DESIGN))
     keys = ("tag", "dtype", "shape", "d", "ms", "bound_ms", "bound_by", "plain_ms")
-    for e, part, lib, rs in zip(out, (None, None, "dq", "dkv"),
-                                ("library_ms", "library_ms", "bwd_library_ms", "bwd_library_ms"),
-                                (b7["ffma"], b7["wgmma"], recs, recs)):
-        e["shapes"] = [dict({k: (r[part] if part and k in r[part] else r).get(k) for k in keys},
-                            library_ms=r[lib]) for r in rs]
-    out[4]["shapes"] = [{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by",
-                                           "plain_ms", "library_ms")}
-                        for r in gen["int4_records"]]
-    return out
+    sources = {("b7", "ffma"): "attention_generic.cu", ("b7", "wgmma"): "attention_wide.cu",
+               ("dq", "ffma"): "attention_generic.cu", ("dq", "wgmma"): "attention_wide_bwd.cu",
+               ("dkv", "ffma"): "attention_generic.cu",
+               ("dkv", "wgmma"): "attention_wide_bwd.cu"}
+    names = {"b7": ("attention_generic_fwd_ffma", "attention_wide_fwd_wgmma"),
+             "dq": ("attention_generic_bwd_dq_ffma", "attention_wide_bwd_dq_wgmma"),
+             "dkv": ("attention_generic_bwd_dkv_ffma", "attention_wide_bwd_dkv_wgmma")}
+    lines = {"b7": "650,686,471,497,392,418", "dq": "895,1185", "dkv": "963,1240"}
+    designs = {"ffma": {"b7": FFMA_DESIGN, "dq": FFMA_BWD_DESIGN, "dkv": FFMA_BWD_DESIGN},
+               "wgmma": {"b7": WIDE_DESIGN, "dq": WIDE_BWD_DESIGN, "dkv": WIDE_BWD_DESIGN}}
+    out = []
+    for kind in ("b7", "dq", "dkv"):
+        for i, body in enumerate(("ffma", "wgmma")):
+            rs = [r for r in recs if r["body"] == body]
+            if kind == "b7":
+                errs, rec, lib = [r["max_abs_err"] for r in rs], main[body], "library_ms"
+                part = lambda r: r  # noqa: E731
+            else:
+                errs = [r[kind]["max_abs_err"] for r in rs]
+                rec = dict(main[body][kind], library_ms=main[body]["bwd_library_ms"])
+                lib = "bwd_library_ms"
+                part = lambda r, kind=kind: dict(r, **r[kind])  # noqa: E731
+            e = dict(kernel_record(names[kind][i], sources[kind, body], lines[kind],
+                                   launches[f"{kind}_{body}"],
+                                   [dict(max_abs_err=x) for x in errs], rec),
+                     design=designs[body][kind])
+            e["shapes"] = [dict({k: part(r).get(k) for k in keys}, library_ms=r[lib])
+                           for r in rs]
+            out.append(e)
+    int4_main = gen["int4_records"][0]
+    b6 = dict(kernel_record("int4_matmul_f32", "int4_matmul_f32.cu", "149", launches["b6_f32"],
+                            gen["int4_records"], int4_main, replaces="int4_matmul.py"),
+              design=INT4_F32_DESIGN)
+    b6["shapes"] = [{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by", "plain_ms",
+                                       "library_ms")} for r in gen["int4_records"]]
+    return out + [b6]
 
 
 def kernel_record(name, source, line, launches, recs, main_rec,

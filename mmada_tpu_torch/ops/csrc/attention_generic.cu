@@ -50,26 +50,21 @@
 // also holds the rotation both bodies run before attention with RoPE
 // (rope_generic_kernel, at the real width).
 //
-// B8 (simple and right first): a block of 256 threads (16 x 16) owns a tile
-// of 64 query rows (B8-dq) or 64 keys (B8-dkv) and at most DC = 128 output
-// columns; a head wider than 128 takes one block per 128-column chunk (the
-// grid's z), each recomputing the scores over the full width. A score tile
-// (64 x 64) is a product over D in chunks of 16 columns staged in shared
-// memory in fp32; each thread holds 4 x 4 scores (rows ty + 16 i, columns
-// tx + 16 j) and 4 x DC/16 outputs, so a row's max and sum are shuffles
-// within a half warp. p (or ds) goes to shared memory, and the value rows
-// stream through it 16 at a time for the product into the outputs. D is a
-// runtime loop: one instance per (type, bias, tier) serves every width. dq
-// walks K twice (pass 1: row max and sum; pass 2: the normalised p).
+// B8 has two bodies too, by the same rule (`generic_body`): bf16 at 16-256
+// other than 64 and 128 take the tensor cores (csrc/attention_wide_bwd.cu,
+// and B3's / B5's kernels at the instances of 64 and 128), fp32 at every
+// width and bf16 past 256 the "ffma" bodies here (attn_bwd_dq_ffma_kernel,
+// attn_bwd_dkv_ffma_kernel: B7's ffma body's register tiles and cp.async
+// ring; their design note stands above them).
 //
 // Bound: 4 B H Lq Lk D flops (forward; backward 8 B H Lq Lk D for dq and
 // dk/dv together, counted as the function needs them) against the fp32 rate
 // of 67 TFLOP/s on the CUDA cores, or the operands' bytes at 3.35 TB/s. At
 // the serving shapes (L ~ 1.2k, D >= 64) the flops bound them. B7's ffma body
-// does the bound's 4 units in fp32 (one walk) and 6 in bf16 (two walks); B8
-// recomputes the scores (twice in dq, once more per extra 128-column chunk)
-// and reads two fp32 values from shared memory per two FFMAs, so it reaches
-// a fraction of that rate: the times stand beside the bound in PERF.md.
+// does the bound's 4 units in fp32 (one walk) and 6 in bf16 (two walks);
+// B8's ffma dq does 4 units of L x L x D in the one-pass tier (a first walk
+// for the row max and sum, then s, dp and ds . k) and 3 in the long one
+// (online), its dkv 4 (s^T, dp^T, p^T . dO, ds^T . q), as the bound counts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,12 +74,6 @@
 namespace {
 
 constexpr int THREADS = 256;  // 16 x 16
-constexpr int TILE = 64;      // query rows / keys of a tile
-constexpr int KC = 16;        // contraction chunk of a score product
-constexpr int DC = 128;       // output columns of a block
-constexpr int NJ = DC / 16;   // output columns of a thread
-constexpr int SP = TILE + 1;  // padded row of the p tile
-constexpr int SA = KC + 1;    // padded row of a score chunk
 constexpr float NEG_F32 = -3.402823466e38f;
 constexpr int ROPE_THREADS = 256;
 
@@ -129,126 +118,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
-
-// acc[i][j] = sum over d < D of a[ty + 16 i][d] * b[tx + 16 j][d]: a and b
-// point at row 0 of their 64-row tiles (row stride sa_l, sb_l); rows at or
-// past a_rows / b_rows read as 0. sa, sb: 64 x SA floats of shared memory.
-template <typename T>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const T* a, long long a_l,
-                                         int a_rows, const T* b, long long b_l, int b_rows,
-                                         int D, float* sa, float* sb) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += KC) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e * 16 + ty;
-      sa[r * SA + tx] = r < a_rows ? widen(a[r * a_l + d0 + tx]) : 0.f;
-      sb[r * SA + tx] = r < b_rows ? widen(b[r * b_l + d0 + tx]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sa[(ty + 16 * i) * SA + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sb[(tx + 16 * j) * SA + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// acc[i][j] += sum over t < 64 of p[ty + 16 i][t] * v[t][tx + 16 j]: p is
-// the 64 x SP tile in shared memory, v points at row 0 (column 0 of this
-// block's chunk) of a 64-row tile of row stride v_l, rows at or past v_rows
-// read as 0; nc (a multiple of 16, at most DC) columns. sv: KC x DC floats.
-template <typename T>
-__device__ __forceinline__ void pv_tile(float (&acc)[4][NJ], const float* p, const T* v,
-                                        long long v_l, int v_rows, int nc, float* sv) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  for (int t0 = 0; t0 < TILE; t0 += KC) {
-    for (int idx = tid; idx < KC * nc; idx += THREADS) {
-      const int t = idx / nc, c = idx - t * nc;
-      sv[t * DC + c] = t0 + t < v_rows ? widen(v[(t0 + t) * v_l + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < KC; ++t) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * SP + t0 + t];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (16 * j < nc) {
-          const float vv = sv[t * DC + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The scores of the 64 x 64 tile (query rows q0 + ty + 16 i, keys k0 + tx +
-// 16 j): s = dot * scale + bias, -inf for keys at or past Lk.
-template <typename T, bool BIAS>
-__device__ __forceinline__ void score_tile(float (&s)[4][4], const Operand& q, const Operand& k,
-                                           const Bias& bias, const Shape& sh, int b, int h,
-                                           int kh, int q0, int k0, float* sa, float* sb) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  dot_tile<T>(s, rows_of<T>(q, b, h, q0), q.sl, sh.Lq - q0, rows_of<T>(k, b, kh, k0), k.sl,
-              sh.Lk - k0, sh.D, sa, sb);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = k0 + tx + 16 * j;
-      float x = __fmul_rn(s[i][j], sh.scale);
-      if (BIAS && r < sh.Lq && c < sh.Lk) x = __fadd_rn(x, bias.p[b * bias.sb + h * bias.sh +
-                                                                 r * bias.sq + c]);
-      s[i][j] = c < sh.Lk ? x : -INFINITY;
-    }
-  }
-}
-
-// Pass 1 of the one-pass forward and of dq: the row max m and the row sum l
-// of exp(s - m) over every key (online over the tiles).
-template <typename T, bool BIAS>
-__device__ __forceinline__ void row_stats(float (&m)[4], float (&l)[4], const Operand& q,
-                                          const Operand& k, const Bias& bias, const Shape& sh,
-                                          int b, int h, int kh, int q0, float* sa, float* sb) {
-  for (int k0 = 0; k0 < sh.Lk; k0 += TILE) {
-    float s[4][4];
-    score_tile<T, BIAS>(s, q, k, bias, sh, b, h, kh, q0, k0, sa, sb);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mx = half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      const float mn = fmaxf(m[i], mx);
-      float e = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + half_warp_sum(e);
-      m[i] = mn;
-    }
-  }
-}
-
-struct Smem {
-  float a[TILE * SA];
-  float b[TILE * SA];
-  float p[TILE * SP];
-  float v[KC * DC];
-};
 
 // ------------------------------------------------------------ B7, body "ffma"
 //
@@ -599,126 +468,402 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
   }
 }
 
-// B8-dq. grid (query tiles, B * H, column chunks). delta and lse: (B, H, Lq)
-// contiguous fp32; lse is written by the blocks of the first column chunk.
-template <typename T, bool BIAS, bool LONG>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_generic_kernel(Operand q, Operand k, Operand v, Operand dout, Operand dq,
-                           const float* __restrict__ delta, float* __restrict__ lse, Bias bias,
-                           Shape sh) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * TILE, b = blockIdx.y / sh.H, h = blockIdx.y % sh.H;
-  const int kh = h / (sh.H / sh.KVH), d0 = blockIdx.z * DC, nc = min(DC, sh.D - d0);
-  float m[4], l[4], dl[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    m[i] = LONG ? NEG_F32 : -INFINITY;
-    l[i] = 0.f;
-    dl[i] = r < sh.Lq ? delta[(long long)blockIdx.y * sh.Lq + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+// ------------------------------------------------------------ B8, body "ffma"
+//
+// B7's ffma body turned to the backward: one block of 256 threads (16 x 16:
+// ty, tx) owns R = 16 RI rows of the side it writes (dq: query rows; dkv:
+// keys) and DP output columns (the whole width up to 256; two passes of 256
+// past it, each recomputing the scores), and keeps two tiles of those rows
+// in shared memory for its life (dq: q and dO; dkv: k and v), their width
+// rounded up to 64 and zero-filled. The other side streams past them in
+// tiles of 64 rows (dq: keys; dkv: the queries of each query head of the
+// kv head's group), each as chunks through B7's ring of FSLOTS cp.async
+// slots: score chunks (64 rows x 64 columns; dq: K's then V's, dkv: q's then
+// dO's) and value chunks (VC rows x DP columns; dq: K's, dkv: dO's then
+// q's). Rows past the ends and columns past D arrive as zeros.
+//
+// Thread (ty, tx) holds the scores of its RI rows RI ty + i and the tile's
+// rows tx + 16 j (j < 4), as B7: s and dp (dq: q . k^T and dO . v^T; dkv:
+// k . q^T and v . dO^T), each a product of RI float4 reads of the resident
+// tile (a broadcast across the 16 lanes of a row group) and four of the
+// chunk per 16 RI FFMAs. It forms ds (dq) or p^T and ds^T (dkv) in fp32,
+// writes them to fp32 tiles in shared memory, and the value chunks stream
+// through pv_chunk into its outputs (rows RI ty + i, columns 64 c + 4 tx +
+// e): dq += ds . k, dv += p^T . dO and dk += ds^T . q. Every product and sum
+// is fp32 (bf16 operands widened as they load), so the function is the plain
+// version's up to the order of fp32 sums.
+//
+// dq's one-pass tier walks K twice, as the plain version's order wants: a
+// first walk (K's score chunks alone) for the row max m and sum l, then p =
+// exp(s - m) / l exactly, ds = p (dp - delta). The long tier walks once with
+// B5-dq's online schedule (the running max, l and the outputs rescaled by
+// exp(m - m'), divided by max(l, 1e-30) last), which is its function. dkv
+// takes p = exp(s - lse) (both tiers), query columns past Lq at p = 0.
+//
+// RI: dq 8 rows a thread up to DP 128 (about 250 registers: the outputs,
+// s and dp 32 each; 4 with a bias, whose addresses at 8 made ptxas spill),
+// 4 at DP 256 (2 past D 256 in fp32: two resident tiles of the whole
+// width, 516 floats a row, fit in shared memory only so); dkv
+// 4 up to DP 128 and 2 at DP 256, since dk, dv and a step's partial sums
+// (3 x RI x DP / 16) are live together. dkv sums each step's 64 queries
+// apart before adding them: its sums run over every query of the group's
+// heads (1,548 at 4 heads of 387), where the plain version's products sum
+// a head's at a time, and a single chain of fp32 sums lay up to 1.7x the
+// plain version's distance from float64 (D 16, GQA; 1.35x at D 256).
+
+// Shared memory of the backward ffma kernels: NP fp32 tiles of R x FPS (dq:
+// ds; dkv: p^T and ds^T), then in elements of T the two resident tiles (R
+// rows of round_up(D, 64) + PAD) and FSLOTS ring slots.
+template <typename T, int DP, int RI, int NP>
+struct BwdSmem {
+  static constexpr int R = 16 * RI;
+  static constexpr int PAD = 16 / (int)sizeof(T);
+  static constexpr int VC = DP == 256 ? 16 : 32;  // rows of a value chunk
+  static constexpr int KS = FKC + PAD;           // row of a score chunk
+  static constexpr int VS = DP + PAD;            // row of a value chunk
+  static constexpr int SLOT = FT * KS > VC * VS ? FT * KS : VC * VS;
+  static constexpr int P_TILE = R * FPS;         // floats of one fp32 tile
+  __host__ __device__ static int rs(int D) { return (D + 63) / 64 * 64 + PAD; }
+  __host__ __device__ static int bytes(int D) {
+    return NP * P_TILE * 4 + (2 * R * rs(D) + FSLOTS * SLOT) * (int)sizeof(T);
   }
-  row_stats<T, BIAS>(m, l, q, k, bias, sh, b, h, kh, q0, sm.a, sm.b);
-  if (LONG) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) l[i] = fmaxf(l[i], 1e-30f);
-  }
-  for (int k0 = 0; k0 < sh.Lk; k0 += TILE) {
-    float s[4][4], dp[4][4];
-    score_tile<T, BIAS>(s, q, k, bias, sh, b, h, kh, q0, k0, sm.a, sm.b);
-    dot_tile<T>(dp, rows_of<T>(dout, b, h, q0), dout.sl, sh.Lq - q0, rows_of<T>(v, b, kh, k0),
-                v.sl, sh.Lk - k0, sh.D, sm.a, sm.b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] - m[i]);
-        if (!LONG) p = p / l[i];
-        sm.p[(ty + 16 * i) * SP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
-      }
-    pv_tile<T>(acc, sm.p, rows_of<T>(k, b, kh, k0) + d0, k.sl, sh.Lk - k0, nc, sm.v);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= sh.Lq) continue;
-    T* out = const_cast<T*>(rows_of<T>(dq, b, h, r)) + d0;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (16 * j < nc)
-        out[tx + 16 * j] = narrow<T>(LONG ? acc[i][j] / l[i] * sh.scale : acc[i][j] * sh.scale);
-    if (blockIdx.z == 0 && tx == 0) lse[(long long)blockIdx.y * sh.Lq + r] = m[i] + logf(l[i]);
+};
+
+// `rows` rows of `cols` columns (16-byte pieces) from src (row 0, column
+// col0 of an operand of row stride sl) into dst (row stride ds) by
+// cp.async; rows at or past `valid` and columns at or past D as zeros.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ds, const T* src, long long sl, int rows,
+                                           int valid, int cols, int col0, int D,
+                                           const T* dummy) {
+  constexpr int E = 16 / (int)sizeof(T);
+  const int per_row = cols / E;
+  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
+    const int r = i / per_row, c = (i - r * per_row) * E;
+    const bool ok = r < valid && col0 + c < D;
+    cp_async16(dst + r * ds + c, ok ? src + r * sl + c : dummy, ok);
   }
 }
 
-// B8-dkv (both tiers: p = exp(s - lse) either way). grid (key tiles, B *
-// KVH, column chunks); the block walks every query row of every query head
-// of its kv head.
-template <typename T, bool BIAS>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkv_generic_kernel(Operand q, Operand k, Operand v, Operand dout, Operand dk,
-                            Operand dv, const float* __restrict__ lse,
-                            const float* __restrict__ delta, Bias bias, Shape sh) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * TILE, b = blockIdx.y / sh.KVH, kh = blockIdx.y % sh.KVH;
-  const int rep = sh.H / sh.KVH, d0 = blockIdx.z * DC, nc = min(DC, sh.D - d0);
-  float adk[4][NJ], adv[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-  for (int h = kh * rep; h < (kh + 1) * rep; ++h) {
-    const long long row0 = ((long long)b * sh.H + h) * sh.Lq;
-    for (int q0 = 0; q0 < sh.Lq; q0 += TILE) {
-      // transposed tiles: rows are keys k0 + ty + 16 i, columns queries q0 + tx + 16 j
-      float s[4][4], dp[4][4];
-      dot_tile<T>(s, rows_of<T>(k, b, kh, k0), k.sl, sh.Lk - k0, rows_of<T>(q, b, h, q0), q.sl,
-                  sh.Lq - q0, sh.D, sm.a, sm.b);
-      dot_tile<T>(dp, rows_of<T>(v, b, kh, k0), v.sl, sh.Lk - k0, rows_of<T>(dout, b, h, q0),
-                  dout.sl, sh.Lq - q0, sh.D, sm.a, sm.b);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = q0 + tx + 16 * j;
-        const float ls = c < sh.Lq ? lse[row0 + c] : 0.f;
-        const float dl = c < sh.Lq ? delta[row0 + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = k0 + ty + 16 * i;
-          float x = __fmul_rn(s[i][j], sh.scale);
-          if (BIAS && r < sh.Lk && c < sh.Lq)
-            x = __fadd_rn(x, bias.p[b * bias.sb + h * bias.sh + c * bias.sq + r]);
-          const float p = c < sh.Lq ? expf(x - ls) : 0.f;
-          s[i][j] = p;
-          dp[i][j] = p * (dp[i][j] - dl);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sm.p[(ty + 16 * i) * SP + tx + 16 * j] = s[i][j];
-      pv_tile<T>(adv, sm.p, rows_of<T>(dout, b, h, q0) + d0, dout.sl, sh.Lq - q0, nc, sm.v);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sm.p[(ty + 16 * i) * SP + tx + 16 * j] = dp[i][j];
-      pv_tile<T>(adk, sm.p, rows_of<T>(q, b, h, q0) + d0, q.sl, sh.Lq - q0, nc, sm.v);
+// The ring of a backward ffma kernel: chunk c's slot once it has landed and
+// every thread is done with the slot before it, queuing chunk c + FSLOTS - 1
+// (`issue`) into that one.
+template <typename T, int SLOT, class Issue>
+struct Ring {
+  T* ring;
+  int total, chunk;
+  Issue issue;
+
+  __device__ void start() {
+    for (int c = 0; c < FSLOTS - 1; ++c) {
+      if (c < total) issue(c, ring + c * SLOT);
+      cp_async_commit();
     }
   }
+
+  __device__ const T* next() {
+    cp_async_wait<FSLOTS - 2>();
+    __syncthreads();
+    const int c = chunk + FSLOTS - 1;
+    if (c < total) issue(c, ring + (c % FSLOTS) * SLOT);
+    cp_async_commit();
+    return ring + (chunk++ % FSLOTS) * SLOT;
+  }
+};
+
+template <typename T, int SLOT, class Issue>
+__device__ __forceinline__ Ring<T, SLOT, Issue> make_ring(T* ring, int total, Issue issue) {
+  return Ring<T, SLOT, Issue>{ring, total, 0, issue};
+}
+
+// s[i][j] = resident row RI ty + i . chunk row tx + 16 j over the whole
+// width: nk score chunks from the ring; res points at (row RI ty, column 0)
+// of the resident tile (row stride rs).
+template <typename T, int RI, int KS, class R>
+__device__ __forceinline__ void dots(float (&s)[RI][4], const T* res, int rs, int nk, R& ring) {
+  const int tx = threadIdx.x & 15;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= sh.Lk) continue;
-    T* gk = const_cast<T*>(rows_of<T>(dk, b, kh, r)) + d0;
-    T* gv = const_cast<T*>(rows_of<T>(dv, b, kh, r)) + d0;
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (16 * j < nc) {
-        gk[tx + 16 * j] = narrow<T>(adk[i][j] * sh.scale);
-        gv[tx + 16 * j] = narrow<T>(adv[i][j]);
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  for (int kc = 0; kc < nk; ++kc)
+    score_chunk<T, RI>(s, res + kc * FKC, rs, ring.next() + tx * KS, KS);
+}
+
+// acc += the NV value chunks of a step (the ring's next ones) against the
+// fp32 tile rows at p, summed apart first.
+template <typename T, int RI, int NC, int VC, int NV, class R>
+__device__ __forceinline__ void step_sum(float (&acc)[RI][4 * NC], const float* p, R& ring,
+                                         int col, int vs) {
+  float part[RI][4 * NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NC; ++j) part[i][j] = 0.f;
+  for (int vc = 0; vc < NV; ++vc) pv_chunk<T, RI, NC, VC>(part, p + vc * VC, ring.next() + col, vs);
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NC; ++j) acc[i][j] += part[i][j];
+}
+
+// B8-dq's ffma body. grid (query tiles of 16 RI rows, B * H, column passes
+// of DP). delta and lse: (B, H, Lq) contiguous fp32; lse is written by the
+// blocks of the first column pass.
+template <typename T, int DP, int RI, bool BIAS, bool LONG>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dq_ffma_kernel(Operand q, Operand k, Operand v, Operand dout, Operand dq,
+                        const float* __restrict__ delta, float* __restrict__ lse, Bias bias,
+                        Shape sh) {
+  using S = BwdSmem<T, DP, RI, 1>;
+  constexpr int BM = S::R, NC = DP / 64, VC = S::VC, NV = FT / VC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ps = reinterpret_cast<float*>(smem_raw);
+  const int RS = S::rs(sh.D);
+  T* qs = reinterpret_cast<T*>(smem_raw + S::P_TILE * 4);
+  T* dos = qs + BM * RS;
+  const T* dummy = static_cast<const T*>(q.p);  // a valid address for zero-filled pieces
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = blockIdx.x * BM, b = blockIdx.y / sh.H, h = blockIdx.y % sh.H;
+  const int kh = h / (sh.H / sh.KVH), c0 = blockIdx.z * DP;
+  const int nk = (sh.D + FKC - 1) / FKC, tiles = (sh.Lk + FT - 1) / FT;
+  const int n1 = LONG ? 0 : tiles * nk;  // the first walk's K score chunks
+  const int per = 2 * nk + NV;           // a tile's K and V score chunks, K value chunks
+
+  stage_rows<T>(qs, RS, rows_of<T>(q, b, h, min(q0, sh.Lq - 1)), q.sl, BM, sh.Lq - q0, RS - S::PAD,
+                0, sh.D, dummy);
+  stage_rows<T>(dos, RS, rows_of<T>(dout, b, h, min(q0, sh.Lq - 1)), dout.sl, BM, sh.Lq - q0,
+                RS - S::PAD, 0, sh.D, dummy);
+  cp_async_commit();
+  auto issue = [&](int c, T* slot) {
+    int tile, idx;
+    if (c < n1) {
+      tile = c / nk;
+      idx = c - tile * nk;
+    } else {
+      tile = (c - n1) / per;
+      idx = c - n1 - tile * per;
+    }
+    const int key0 = tile * FT;
+    if (idx < 2 * nk) {  // a K (then V) score chunk: 64 keys, columns FKC (idx % nk)..
+      const Operand& o = idx < nk ? k : v;
+      const int col = (idx % nk) * FKC;
+      stage_rows<T>(slot, S::KS, rows_of<T>(o, b, kh, min(key0, sh.Lk - 1)) + col, o.sl, FT,
+                    sh.Lk - key0, FKC, col, sh.D, dummy);
+    } else {  // a K value chunk: VC keys, columns c0..
+      const int r0 = key0 + (idx - 2 * nk) * VC;
+      stage_rows<T>(slot, S::VS, rows_of<T>(k, b, kh, min(r0, sh.Lk - 1)) + c0, k.sl, VC,
+                    sh.Lk - r0, DP, c0, sh.D, dummy);
+    }
+  };
+  auto ring = make_ring<T, S::SLOT>(dos + BM * RS, n1 + tiles * per, issue);
+  ring.start();
+
+  float m[RI], l[RI], acc[RI][4 * NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = LONG ? NEG_F32 : -INFINITY;  // the long tier's running max starts at the finite min
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * NC; ++j) acc[i][j] = 0.f;
+  }
+  // delta of this thread's rows, read where it is used (not held: at 8 rows
+  // a thread the registers hold the outputs, s and dp)
+  const float* delta_rows = delta + (long long)blockIdx.y * sh.Lq + q0 + RI * ty;
+  const int live_rows = sh.Lq - q0 - RI * ty;
+  const float* bias_bh = BIAS ? bias.p + b * bias.sb + h * bias.sh : nullptr;
+  // s * scale (+ bias), -inf past Lk, for tile t
+  auto scaled = [&](float (&s)[RI][4], int t) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = q0 + RI * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = t * FT + tx + 16 * j;
+        float x = __fmul_rn(s[i][j], sh.scale);
+        if (BIAS && r < sh.Lq && key < sh.Lk) x = __fadd_rn(x, bias_bh[r * bias.sq + key]);
+        s[i][j] = key < sh.Lk ? x : -INFINITY;
       }
+    }
+  };
+  const T* q_rows = qs + RI * ty * RS;
+  const T* do_rows = dos + RI * ty * RS;
+  if constexpr (!LONG) {  // the first walk: the row max and sum
+    for (int t = 0; t < tiles; ++t) {
+      float s[RI][4];
+      dots<T, RI, S::KS>(s, q_rows, RS, nk, ring);
+      scaled(s, t);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float mn = fmaxf(m[i], half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]),
+                                                         fmaxf(s[i][2], s[i][3]))));
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e += expf(s[i][j] - mn);
+        l[i] = l[i] * expf(m[i] - mn) + half_warp_sum(e);
+        m[i] = mn;
+      }
+    }
+  }
+  for (int t = 0; t < tiles; ++t) {
+    float s[RI][4], dp[RI][4];
+    dots<T, RI, S::KS>(s, q_rows, RS, nk, ring);
+    scaled(s, t);
+    dots<T, RI, S::KS>(dp, do_rows, RS, nk, ring);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      if constexpr (LONG) {  // the online step: the new max, l and the outputs rescaled
+        const float mn = fmaxf(m[i], half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]),
+                                                         fmaxf(s[i][2], s[i][3]))));
+        const float alpha = expf(m[i] - mn);
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = expf(s[i][j] - mn);
+          e += s[i][j];
+        }
+        l[i] = l[i] * alpha + half_warp_sum(e);
+        m[i] = mn;
+#pragma unroll
+        for (int j = 0; j < 4 * NC; ++j) acc[i][j] *= alpha;
+      } else {  // p normalised, as the plain version
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = expf(s[i][j] - m[i]) / l[i];
+      }
+      const float dl = i < live_rows ? __ldg(delta_rows + i) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ps[(RI * ty + i) * FPS + tx + 16 * j] = s[i][j] * (dp[i][j] - dl);
+    }
+    for (int vc = 0; vc < NV; ++vc)
+      pv_chunk<T, RI, NC, VC>(acc, ps + RI * ty * FPS + vc * VC, ring.next() + 4 * tx, S::VS);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = q0 + RI * ty + i;
+    if (r >= sh.Lq) continue;
+    const float div = LONG ? fmaxf(l[i], 1e-30f) : 1.f;
+    T* out = const_cast<T*>(rows_of<T>(dq, b, h, r)) + c0;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      const int col = 64 * cc + 4 * tx;
+      if (c0 + col >= sh.D) continue;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = LONG ? acc[i][4 * cc + e] / div * sh.scale : acc[i][4 * cc + e] * sh.scale;
+      store4(out + col, x);
+    }
+    if (blockIdx.z == 0 && tx == 0)
+      lse[(long long)blockIdx.y * sh.Lq + r] = m[i] + logf(LONG ? div : l[i]);
+  }
+}
+
+// B8-dkv's ffma body (both tiers: p = exp(s - lse) either way). grid (key
+// tiles of 16 RI keys, B * KVH, column passes of DP); the block walks every
+// query row of every query head of its kv head.
+template <typename T, int DP, int RI, bool BIAS>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dkv_ffma_kernel(Operand q, Operand k, Operand v, Operand dout, Operand dk, Operand dv,
+                         const float* __restrict__ lse, const float* __restrict__ delta, Bias bias,
+                         Shape sh) {
+  using S = BwdSmem<T, DP, RI, 2>;
+  constexpr int BK = S::R, NC = DP / 64, VC = S::VC, NV = FT / VC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* pts = reinterpret_cast<float*>(smem_raw);  // p^T, then ds^T
+  float* dss = pts + S::P_TILE;
+  const int RS = S::rs(sh.D);
+  T* ks = reinterpret_cast<T*>(smem_raw + 2 * S::P_TILE * 4);
+  T* vs = ks + BK * RS;
+  const T* dummy = static_cast<const T*>(q.p);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int k0 = blockIdx.x * BK, b = blockIdx.y / sh.KVH, kh = blockIdx.y % sh.KVH;
+  const int rep = sh.H / sh.KVH, c0 = blockIdx.z * DP;
+  const int nk = (sh.D + FKC - 1) / FKC, n_qt = (sh.Lq + FT - 1) / FT;
+  const int per = 2 * nk + 2 * NV;  // a step's q and dO score chunks, dO and q value chunks
+
+  stage_rows<T>(ks, RS, rows_of<T>(k, b, kh, min(k0, sh.Lk - 1)), k.sl, BK, sh.Lk - k0,
+                RS - S::PAD, 0, sh.D, dummy);
+  stage_rows<T>(vs, RS, rows_of<T>(v, b, kh, min(k0, sh.Lk - 1)), v.sl, BK, sh.Lk - k0,
+                RS - S::PAD, 0, sh.D, dummy);
+  cp_async_commit();
+  auto issue = [&](int c, T* slot) {
+    const int step = c / per, idx = c - step * per;
+    const int hq = kh * rep + step / n_qt, row0 = (step % n_qt) * FT;
+    if (idx < 2 * nk) {  // a q (then dO) score chunk: 64 queries, columns FKC (idx % nk)..
+      const Operand& o = idx < nk ? q : dout;
+      const int col = (idx % nk) * FKC;
+      stage_rows<T>(slot, S::KS, rows_of<T>(o, b, hq, min(row0, sh.Lq - 1)) + col, o.sl, FT,
+                    sh.Lq - row0, FKC, col, sh.D, dummy);
+    } else {  // a dO (then q) value chunk: VC queries, columns c0..
+      const int vc = idx - 2 * nk;
+      const Operand& o = vc < NV ? dout : q;
+      const int r0 = row0 + (vc % NV) * VC;
+      stage_rows<T>(slot, S::VS, rows_of<T>(o, b, hq, min(r0, sh.Lq - 1)) + c0, o.sl, VC,
+                    sh.Lq - r0, DP, c0, sh.D, dummy);
+    }
+  };
+  auto ring = make_ring<T, S::SLOT>(vs + BK * RS, rep * n_qt * per, issue);
+  ring.start();
+
+  float adk[RI][4 * NC], adv[RI][4 * NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NC; ++j) adk[i][j] = adv[i][j] = 0.f;
+  const T* k_rows = ks + RI * ty * RS;
+  const T* v_rows = vs + RI * ty * RS;
+  for (int step = 0; step < rep * n_qt; ++step) {
+    const int hq = kh * rep + step / n_qt, row0 = (step % n_qt) * FT;
+    const long long stat0 = ((long long)b * sh.H + hq) * sh.Lq;
+    // transposed tiles: rows are keys k0 + RI ty + i, columns queries row0 + tx + 16 j
+    float s[RI][4], dp[RI][4];
+    dots<T, RI, S::KS>(s, k_rows, RS, nk, ring);
+    dots<T, RI, S::KS>(dp, v_rows, RS, nk, ring);
+    const float* bias_bh = BIAS ? bias.p + b * bias.sb + hq * bias.sh : nullptr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qc = row0 + tx + 16 * j;
+      const bool live = qc < sh.Lq;
+      const float ls = live ? lse[stat0 + qc] : 0.f;
+      const float dl = live ? delta[stat0 + qc] : 0.f;
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int key = k0 + RI * ty + i;
+        float x = __fmul_rn(s[i][j], sh.scale);
+        if (BIAS && live && key < sh.Lk) x = __fadd_rn(x, bias_bh[qc * bias.sq + key]);
+        const float p = live ? expf(x - ls) : 0.f;
+        pts[(RI * ty + i) * FPS + tx + 16 * j] = p;
+        dss[(RI * ty + i) * FPS + tx + 16 * j] = p * (dp[i][j] - dl);
+      }
+    }
+    // the step's 64 queries summed apart, then added (the outputs' sums run
+    // over every query of the group's heads: blocked, their rounding stays
+    // near the plain version's per-head products)
+    step_sum<T, RI, NC, VC, NV>(adv, pts + RI * ty * FPS, ring, 4 * tx, S::VS);
+    step_sum<T, RI, NC, VC, NV>(adk, dss + RI * ty * FPS, ring, 4 * tx, S::VS);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = k0 + RI * ty + i;
+    if (r >= sh.Lk) continue;
+    T* gk = const_cast<T*>(rows_of<T>(dk, b, kh, r)) + c0;
+    T* gv = const_cast<T*>(rows_of<T>(dv, b, kh, r)) + c0;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      const int col = 64 * cc + 4 * tx;
+      if (c0 + col >= sh.D) continue;
+      float xk[4], xv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xk[e] = adk[i][4 * cc + e] * sh.scale;
+        xv[e] = adv[i][4 * cc + e];
+      }
+      store4(gk + col, xk);
+      store4(gv + col, xv);
+    }
   }
 }
 
@@ -763,10 +908,6 @@ Bias bias_of(const void* p, const long long* s) {
 bool bad_shape(const Shape& s) {
   return s.B < 1 || s.H < 1 || s.KVH < 1 || s.H % s.KVH || s.Lq < 1 || s.Lk < 1 ||
          s.D < 16 || s.D > 512 || s.D % 16 || s.B * s.H > 65535;
-}
-
-dim3 grid_of(int rows, int heads, int D) {
-  return dim3((rows + TILE - 1) / TILE, heads, (D + DC - 1) / DC);
 }
 
 // Whether the ffma body can read an operand with cp.async: base and every
@@ -821,28 +962,101 @@ cudaError_t fwd(Operand q, Operand k, Operand v, Operand o, Bias bias, bool long
   }
 }
 
+template <typename T, int DP, int RI, bool BIAS, bool LONG>
+cudaError_t launch_dq_ffma(const Operand& q, const Operand& k, const Operand& v,
+                           const Operand& dout, const Operand& g, const float* delta, float* lse,
+                           const Bias& bias, const Shape& sh, cudaStream_t stream) {
+  auto kernel = attn_bwd_dq_ffma_kernel<T, DP, RI, BIAS, LONG>;
+  const int smem = BwdSmem<T, DP, RI, 1>::bytes(sh.D);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.Lq + 16 * RI - 1) / (16 * RI), sh.B * sh.H, (sh.D + DP - 1) / DP);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, dout, g, delta, lse, bias, sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP, int RI, bool BIAS>
+cudaError_t launch_dkv_ffma(const Operand& q, const Operand& k, const Operand& v,
+                            const Operand& dout, const Operand& gk, const Operand& gv,
+                            const float* lse, const float* delta, const Bias& bias,
+                            const Shape& sh, cudaStream_t stream) {
+  auto kernel = attn_bwd_dkv_ffma_kernel<T, DP, RI, BIAS>;
+  const int smem = BwdSmem<T, DP, RI, 2>::bytes(sh.D);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.Lk + 16 * RI - 1) / (16 * RI), sh.B * sh.KVH, (sh.D + DP - 1) / DP);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, dout, gk, gv, lse, delta, bias, sh);
+  return cudaGetLastError();
+}
+
+// RI rows a thread unbiased, at most 4 biased (at 8 the bias's addresses
+// made ptxas spill)
+template <typename T, int DP, int RI>
+cudaError_t dq_tiers(const Operand& q, const Operand& k, const Operand& v, const Operand& dout,
+                     const Operand& g, const float* delta, float* lse, const Bias& bias,
+                     bool long_tier, const Shape& sh, cudaStream_t s) {
+  constexpr int RB = RI > 4 ? 4 : RI;
+  if (long_tier)
+    return bias.p ? launch_dq_ffma<T, DP, RB, true, true>(q, k, v, dout, g, delta, lse, bias, sh, s)
+                  : launch_dq_ffma<T, DP, RI, false, true>(q, k, v, dout, g, delta, lse, bias, sh,
+                                                           s);
+  return bias.p ? launch_dq_ffma<T, DP, RB, true, false>(q, k, v, dout, g, delta, lse, bias, sh, s)
+                : launch_dq_ffma<T, DP, RI, false, false>(q, k, v, dout, g, delta, lse, bias, sh,
+                                                          s);
+}
+
+template <typename T, int DP, int RI>
+cudaError_t dkv_bias(const Operand& q, const Operand& k, const Operand& v, const Operand& dout,
+                     const Operand& gk, const Operand& gv, const float* lse, const float* delta,
+                     const Bias& bias, const Shape& sh, cudaStream_t s) {
+  return bias.p ? launch_dkv_ffma<T, DP, RI, true>(q, k, v, dout, gk, gv, lse, delta, bias, sh, s)
+                : launch_dkv_ffma<T, DP, RI, false>(q, k, v, dout, gk, gv, lse, delta, bias, sh,
+                                                    s);
+}
+
+// B8's ffma bodies: fp32 at any width (DP the width rounded up to 64, 128
+// or 256; two passes of 256 past 256), bf16 past 256 (the wgmma body takes
+// bf16 up to 256: the entries refuse it here).
 template <typename T>
 cudaError_t dq(Operand q, Operand k, Operand v, Operand dout, Operand g, const float* delta,
                float* lse, Bias bias, bool long_tier, const Shape& sh, cudaStream_t stream) {
-  const dim3 grid = grid_of(sh.Lq, sh.B * sh.H, sh.D);
-  if (long_tier) {
-    if (bias.p) attn_bwd_dq_generic_kernel<T, true, true><<<grid, THREADS, 0, stream>>>(q, k, v, dout, g, delta, lse, bias, sh);
-    else attn_bwd_dq_generic_kernel<T, false, true><<<grid, THREADS, 0, stream>>>(q, k, v, dout, g, delta, lse, bias, sh);
+  if (!pieces_aligned<T>(q, sh.B, sh.H) || !pieces_aligned<T>(k, sh.B, sh.KVH) ||
+      !pieces_aligned<T>(v, sh.B, sh.KVH) || !pieces_aligned<T>(dout, sh.B, sh.H) ||
+      !pieces_aligned<T>(g, sh.B, sh.H))
+    return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    if (sh.D <= 256) return cudaErrorInvalidValue;
+    return dq_tiers<T, 256, 4>(q, k, v, dout, g, delta, lse, bias, long_tier, sh, stream);
   } else {
-    if (bias.p) attn_bwd_dq_generic_kernel<T, true, false><<<grid, THREADS, 0, stream>>>(q, k, v, dout, g, delta, lse, bias, sh);
-    else attn_bwd_dq_generic_kernel<T, false, false><<<grid, THREADS, 0, stream>>>(q, k, v, dout, g, delta, lse, bias, sh);
+    if (sh.D <= 64)
+      return dq_tiers<T, 64, 8>(q, k, v, dout, g, delta, lse, bias, long_tier, sh, stream);
+    if (sh.D <= 128)
+      return dq_tiers<T, 128, 8>(q, k, v, dout, g, delta, lse, bias, long_tier, sh, stream);
+    if (sh.D <= 256)
+      return dq_tiers<T, 256, 4>(q, k, v, dout, g, delta, lse, bias, long_tier, sh, stream);
+    return dq_tiers<T, 256, 2>(q, k, v, dout, g, delta, lse, bias, long_tier, sh, stream);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dkv(Operand q, Operand k, Operand v, Operand dout, Operand gk, Operand gv,
                 const float* lse, const float* delta, Bias bias, const Shape& sh,
                 cudaStream_t stream) {
-  const dim3 grid = grid_of(sh.Lk, sh.B * sh.KVH, sh.D);
-  if (bias.p) attn_bwd_dkv_generic_kernel<T, true><<<grid, THREADS, 0, stream>>>(q, k, v, dout, gk, gv, lse, delta, bias, sh);
-  else attn_bwd_dkv_generic_kernel<T, false><<<grid, THREADS, 0, stream>>>(q, k, v, dout, gk, gv, lse, delta, bias, sh);
-  return cudaGetLastError();
+  if (!pieces_aligned<T>(q, sh.B, sh.H) || !pieces_aligned<T>(k, sh.B, sh.KVH) ||
+      !pieces_aligned<T>(v, sh.B, sh.KVH) || !pieces_aligned<T>(dout, sh.B, sh.H) ||
+      !pieces_aligned<T>(gk, sh.B, sh.KVH) || !pieces_aligned<T>(gv, sh.B, sh.KVH))
+    return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    if (sh.D <= 256) return cudaErrorInvalidValue;
+    return dkv_bias<T, 256, 2>(q, k, v, dout, gk, gv, lse, delta, bias, sh, stream);
+  } else {
+    if (sh.D <= 64) return dkv_bias<T, 64, 4>(q, k, v, dout, gk, gv, lse, delta, bias, sh, stream);
+    if (sh.D <= 128)
+      return dkv_bias<T, 128, 4>(q, k, v, dout, gk, gv, lse, delta, bias, sh, stream);
+    return dkv_bias<T, 256, 2>(q, k, v, dout, gk, gv, lse, delta, bias, sh, stream);
+  }
 }
 
 }  // namespace
@@ -873,8 +1087,9 @@ extern "C" int mmada_attention_generic_fwd(const void* q, const void* k, const v
                      : fwd<float>(oq, ok, ov, oo, ob, long_tier, sh, s));
 }
 
-// Kernel B8-dq: (dq, lse) from q, k (rotated), v, dout and delta. strides: q,
-// k, v, dout, dq, bias.
+// Kernel B8-dq's ffma body: (dq, lse) from q, k (rotated), v, dout and delta;
+// fp32 at any width, bf16 past 256. long_tier 0: the one-pass function; 1:
+// the long one. strides: q, k, v, dout, dq, bias.
 extern "C" int mmada_attention_generic_dq(
     const void* q, const void* k, const void* v, const void* dout, const void* delta,
     const void* bias, void* dq_out, void* lse, int dtype, int long_tier, int B, int H, int KVH,
@@ -892,8 +1107,9 @@ extern "C" int mmada_attention_generic_dq(
                      : dq<float>(oq, ok, ov, od, og, dl, ls, ob, long_tier, sh, s));
 }
 
-// Kernel B8-dkv: (dk, dv) from q, k (rotated), v, dout, lse and delta.
-// strides: q, k, v, dout, dk, dv, bias.
+// Kernel B8-dkv's ffma body: (dk, dv) from q, k (rotated), v, dout, lse and
+// delta (both tiers' function); fp32 at any width, bf16 past 256. strides:
+// q, k, v, dout, dk, dv, bias.
 extern "C" int mmada_attention_generic_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* bias, void* dk_out, void* dv_out, int dtype, int B, int H,

@@ -80,15 +80,19 @@
 
 namespace {
 
+// D 64 or 128 (B3), or a multiple of 16 below 128 (B8's wgmma body, run
+// through the instance of 64 or 128 columns, zero-filled past D)
 bool bad_args(int B, int H, int KVH, int Lq, int Lk, int D) {
-  return bad_shape(B, H, KVH, Lq, Lk) || (D != 64 && D != 128);
+  return bad_shape(B, H, KVH, Lq, Lk) || D < 16 || D > 128 || D % 16;
 }
 
 }  // namespace
 
 // C entries, bound with ctypes. q, dO (B, H, Lq, D) and k, v (B, KVH, Lk, D):
-// bf16, any Lq and Lk, D 64 or 128; delta and lse: contiguous fp32 (B, H,
-// Lq). Each returns a cudaError_t; 0 is success.
+// bf16, any Lq and Lk, D 64 or 128 (B3, B3-bias) or another multiple of 16
+// below 128 (B8's wgmma body: the instance of 64 or 128 columns, its
+// operands described in boxes of 64 columns); delta and lse: contiguous fp32
+// (B, H, Lq). Each returns a cudaError_t; 0 is success.
 
 // B3's dq: dq (B, H, Lq, D) bf16 and lse. `maps`: the wrapper's descriptions
 // (ops/tensor_maps.py, MAP_SPEC values each, every stride a multiple of 16
@@ -102,10 +106,9 @@ extern "C" int mmada_flash_attention_bwd_dq_bf16(
   if (bad_args(B, H, KVH, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const void* bases[6] = {q, k, v, dout, dq, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dq_wgmma<128, false, true>(bases, maps, delta, lse, B, H, KVH,
-                                                           Lq, Lk, scale, s)
-                  : (int)launch_dq_wgmma<64, false, true>(bases, maps, delta, lse, B, H, KVH,
-                                                          Lq, Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dq_wgmma<128, false, true> : launch_dq_wgmma<64, false, true>;
+  return (int)launch(bases, maps, delta, lse, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // B3's dkv: dk, dv (B, KVH, Lk, D) bf16. `maps`: the descriptions of q
@@ -120,10 +123,9 @@ extern "C" int mmada_flash_attention_bwd_dkv_bf16(
   if (bad_args(B, H, KVH, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   const void* bases[7] = {q, k, v, dout, dk, dv, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dkv_wgmma<128, false, true>(bases, maps, lse, delta, B, H, KVH,
-                                                            Lq, Lk, scale, s)
-                  : (int)launch_dkv_wgmma<64, false, true>(bases, maps, lse, delta, B, H, KVH,
-                                                           Lq, Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dkv_wgmma<128, false, true> : launch_dkv_wgmma<64, false, true>;
+  return (int)launch(bases, maps, lse, delta, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // The biased entries (B3-bias) take the fp32 bias (B|1, H|1, Lq, Lk) after
@@ -141,10 +143,9 @@ extern "C" int mmada_flash_attention_bwd_dq_bias_bf16(
   if (bad_args(B, H, KVH, Lq, Lk, D) || bias == nullptr) return (int)cudaErrorInvalidValue;
   const void* bases[6] = {q, k, v, dout, dq, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dq_wgmma<128, true, true>(bases, maps, delta, lse, B, H, KVH,
-                                                          Lq, Lk, scale, s)
-                  : (int)launch_dq_wgmma<64, true, true>(bases, maps, delta, lse, B, H, KVH,
-                                                         Lq, Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dq_wgmma<128, true, true> : launch_dq_wgmma<64, true, true>;
+  return (int)launch(bases, maps, delta, lse, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // dkv-bias.
@@ -156,8 +157,7 @@ extern "C" int mmada_flash_attention_bwd_dkv_bias_bf16(
   if (bad_args(B, H, KVH, Lq, Lk, D) || bias == nullptr) return (int)cudaErrorInvalidValue;
   const void* bases[7] = {q, k, v, dout, dk, dv, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dkv_wgmma<128, true, true>(bases, maps, lse, delta, B, H, KVH,
-                                                           Lq, Lk, scale, s)
-                  : (int)launch_dkv_wgmma<64, true, true>(bases, maps, lse, delta, B, H, KVH,
-                                                          Lq, Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dkv_wgmma<128, true, true> : launch_dkv_wgmma<64, true, true>;
+  return (int)launch(bases, maps, lse, delta, B, H, KVH, Lq, Lk, scale, s, D);
 }

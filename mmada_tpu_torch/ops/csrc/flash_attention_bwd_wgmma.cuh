@@ -882,6 +882,16 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// Whether `spec` describes a (batches, heads, rows, d) bf16 operand in boxes
+// of 64 columns and `box_rows` rows: what an instance of width D >= d reads
+// (at d = D, 64 or 128, spec_is's description; at a narrower d, B8's wgmma
+// body, TMA zero-fills the columns past d and its stores drop them).
+inline bool instance_spec_is(const long long* spec, int d, int rows, int heads, int batches,
+                             int box_rows) {
+  return spec[0] == d && spec[1] == rows && spec[2] == heads && spec[3] == batches &&
+         spec[7] == 64 && spec[8] == box_rows && spec[9] == 1 && spec[10] == 1;
+}
+
 // The fp32 bias map of a biased launch from its description `spec`, where
 // the kernel takes it; an unbiased launch passes `fallback` (unread).
 inline cudaError_t encode_bias_map(CUtensorMap* map, const void* bias, const long long* spec,
@@ -921,16 +931,18 @@ cudaError_t item_grid(Kernel kernel, int smem, int items, dim3* grid) {
 // The dq kernel on the operands at `bases` that `maps` describes (q, k, v,
 // dO, dq; with BIAS the bias, then the grid order): B3's (ONE_PASS, no bias)
 // on item_grid's persistent grid, the others one cluster an item
-// (tile_grid).
+// (tile_grid). d: the operands' real width (B8's wgmma body runs a width
+// below D through this instance, zero-filled).
 template <int D, bool BIAS, bool ONE_PASS>
 cudaError_t launch_dq_wgmma(const void* const bases[6], const long long* maps,
                             const void* delta, void* lse, int B, int H, int KVH, int Lq,
-                            int Lk, float scale, cudaStream_t stream) {
+                            int Lk, float scale, cudaStream_t stream, int d = D) {
   const long long* bias = maps + 5 * MAP_SPEC;
-  if (!spec_is(maps, D, Lq, H, B, ATT_M) || !spec_is(maps + MAP_SPEC, D, Lk, KVH, B, STEP_N) ||
-      !spec_is(maps + 2 * MAP_SPEC, D, Lk, KVH, B, STEP_N) ||
-      !spec_is(maps + 3 * MAP_SPEC, D, Lq, H, B, ATT_M) ||
-      !spec_is(maps + 4 * MAP_SPEC, D, Lq, H, B, 64) ||
+  if (!instance_spec_is(maps, d, Lq, H, B, ATT_M) ||
+      !instance_spec_is(maps + MAP_SPEC, d, Lk, KVH, B, STEP_N) ||
+      !instance_spec_is(maps + 2 * MAP_SPEC, d, Lk, KVH, B, STEP_N) ||
+      !instance_spec_is(maps + 3 * MAP_SPEC, d, Lq, H, B, ATT_M) ||
+      !instance_spec_is(maps + 4 * MAP_SPEC, d, Lq, H, B, 64) ||
       (BIAS && !bias_spec_is(bias, Lk, Lq, H, B, ATT_M)))
     return cudaErrorInvalidValue;
   CUtensorMap tm[6];
@@ -958,18 +970,19 @@ cudaError_t launch_dq_wgmma(const void* const bases[6], const long long* maps,
 
 // The dkv kernel on the operands at `bases` that `maps` describes (q, k, v,
 // dO, dk, dv), then the row spans of lse and delta (ROWS_SPEC values each);
-// with BIAS the bias, then the grid order.
+// with BIAS the bias, then the grid order. d as launch_dq_wgmma's.
 template <int D, bool BIAS, bool ONE_PASS>
 cudaError_t launch_dkv_wgmma(const void* const bases[7], const long long* maps,
                              const void* lse, const void* delta, int B, int H, int KVH,
-                             int Lq, int Lk, float scale, cudaStream_t stream) {
+                             int Lq, int Lk, float scale, cudaStream_t stream, int d = D) {
   const long long* rows = maps + 6 * MAP_SPEC;
   const long long* bias = rows + 2 * ROWS_SPEC;
-  if (!spec_is(maps, D, Lq, H, B, STEP_N) || !spec_is(maps + MAP_SPEC, D, Lk, KVH, B, ATT_M) ||
-      !spec_is(maps + 2 * MAP_SPEC, D, Lk, KVH, B, ATT_M) ||
-      !spec_is(maps + 3 * MAP_SPEC, D, Lq, H, B, STEP_N) ||
-      !spec_is(maps + 4 * MAP_SPEC, D, Lk, KVH, B, 64) ||
-      !spec_is(maps + 5 * MAP_SPEC, D, Lk, KVH, B, 64) ||
+  if (!instance_spec_is(maps, d, Lq, H, B, STEP_N) ||
+      !instance_spec_is(maps + MAP_SPEC, d, Lk, KVH, B, ATT_M) ||
+      !instance_spec_is(maps + 2 * MAP_SPEC, d, Lk, KVH, B, ATT_M) ||
+      !instance_spec_is(maps + 3 * MAP_SPEC, d, Lq, H, B, STEP_N) ||
+      !instance_spec_is(maps + 4 * MAP_SPEC, d, Lk, KVH, B, 64) ||
+      !instance_spec_is(maps + 5 * MAP_SPEC, d, Lk, KVH, B, 64) ||
       !rows_spec_is(rows, Lq, H, B, STEP_N) || !rows_spec_is(rows + ROWS_SPEC, Lq, H, B, STEP_N) ||
       reinterpret_cast<uintptr_t>(lse) % 16 || reinterpret_cast<uintptr_t>(delta) % 16 ||
       (BIAS && !bias_spec_is(bias, Lk, Lq, H, B, STEP_N)))

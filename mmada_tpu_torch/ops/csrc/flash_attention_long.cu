@@ -453,16 +453,22 @@ cudaError_t launch_fwd_bias(const void* const bases[5], const long long* maps, i
   return cudaGetLastError();
 }
 
+// D 64 or 128; `wide` (the backward entries, which B8's wgmma body also
+// takes): any multiple of 16 up to 128, run through the instance of 64 or
+// 128 columns zero-filled past D
 bool bad_long_shape(int B, int H, int KVH, int Lq, int Lk, int D, bool bias,
-                    const void* bias_ptr) {
+                    const void* bias_ptr, bool wide = false) {
   return bad_shape(B, H, KVH, Lq, Lk) || Lq % ALIGN || Lk % ALIGN ||
-         (D != 64 && D != 128) || (bias && bias_ptr == nullptr);
+         (wide ? D < 16 || D > 128 || D % 16 : D != 64 && D != 128) ||
+         (bias && bias_ptr == nullptr);
 }
 
 }  // namespace
 
 // C entries, bound with ctypes: q, dO (B, H, Lq, D) and k, v (B, KVH, Lk,
-// D) bf16, Lq and Lk multiples of 128, D 64 or 128; delta and lse:
+// D) bf16, Lq and Lk multiples of 128, D 64 or 128 (the backward entries
+// also any other multiple of 16 below 128: B8's wgmma body, through the
+// instance of 64 or 128 columns); delta and lse:
 // contiguous fp32 (B, H, Lq); the bias: fp32 (B|1, H|1, Lq, Lk). Each takes
 // `maps`, the wrapper's descriptions (ops/tensor_maps.py, MAP_SPEC values
 // each, every stride a multiple of 16 bytes) of the operands it reads and
@@ -501,13 +507,13 @@ extern "C" int mmada_flash_attention_long_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* delta, void* dq, void* lse, int B, int H, int KVH, int Lq,
     int Lk, int D, const long long* maps, float scale, void* stream) {
-  if (bad_long_shape(B, H, KVH, Lq, Lk, D, false, nullptr)) return (int)cudaErrorInvalidValue;
+  if (bad_long_shape(B, H, KVH, Lq, Lk, D, false, nullptr, true))
+    return (int)cudaErrorInvalidValue;
   const void* bases[6] = {q, k, v, dout, dq, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dq_wgmma<128, false, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                     Lk, scale, s)
-                  : (int)launch_dq_wgmma<64, false, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                    Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dq_wgmma<128, false, false> : launch_dq_wgmma<64, false, false>;
+  return (int)launch(bases, maps, delta, lse, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // B5-dq-bias: B5-dq's `maps`, then the bias's (fp32, boxes of 32 columns
@@ -518,13 +524,13 @@ extern "C" int mmada_flash_attention_long_bwd_dq_bias_bf16(
     const void* delta, const void* bias, void* dq, void* lse, int B, int H,
     int KVH, int Lq, int Lk, int D, const long long* maps, float scale,
     void* stream) {
-  if (bad_long_shape(B, H, KVH, Lq, Lk, D, true, bias)) return (int)cudaErrorInvalidValue;
+  if (bad_long_shape(B, H, KVH, Lq, Lk, D, true, bias, true))
+    return (int)cudaErrorInvalidValue;
   const void* bases[6] = {q, k, v, dout, dq, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dq_wgmma<128, true, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                    Lk, scale, s)
-                  : (int)launch_dq_wgmma<64, true, false>(bases, maps, delta, lse, B, H, KVH, Lq,
-                                                   Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dq_wgmma<128, true, false> : launch_dq_wgmma<64, true, false>;
+  return (int)launch(bases, maps, delta, lse, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // B5-dkv: dk, dv (B, KVH, Lk, D) bf16. `maps`: the descriptions of q (boxes
@@ -535,13 +541,13 @@ extern "C" int mmada_flash_attention_long_bwd_dkv_bf16(
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
     int KVH, int Lq, int Lk, int D, const long long* maps, float scale,
     void* stream) {
-  if (bad_long_shape(B, H, KVH, Lq, Lk, D, false, nullptr)) return (int)cudaErrorInvalidValue;
+  if (bad_long_shape(B, H, KVH, Lq, Lk, D, false, nullptr, true))
+    return (int)cudaErrorInvalidValue;
   const void* bases[7] = {q, k, v, dout, dk, dv, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dkv_wgmma<128, false, false>(bases, maps, lse, delta, B, H, KVH, Lq,
-                                                      Lk, scale, s)
-                  : (int)launch_dkv_wgmma<64, false, false>(bases, maps, lse, delta, B, H, KVH, Lq,
-                                                     Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dkv_wgmma<128, false, false> : launch_dkv_wgmma<64, false, false>;
+  return (int)launch(bases, maps, lse, delta, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // B5-dkv-bias: B5-dkv's `maps`, then the bias's (boxes of 32 columns and 64
@@ -551,13 +557,13 @@ extern "C" int mmada_flash_attention_long_bwd_dkv_bias_bf16(
     const void* lse, const void* delta, const void* bias, void* dk, void* dv,
     int B, int H, int KVH, int Lq, int Lk, int D, const long long* maps,
     float scale, void* stream) {
-  if (bad_long_shape(B, H, KVH, Lq, Lk, D, true, bias)) return (int)cudaErrorInvalidValue;
+  if (bad_long_shape(B, H, KVH, Lq, Lk, D, true, bias, true))
+    return (int)cudaErrorInvalidValue;
   const void* bases[7] = {q, k, v, dout, dk, dv, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 128 ? (int)launch_dkv_wgmma<128, true, false>(bases, maps, lse, delta, B, H, KVH, Lq,
-                                                     Lk, scale, s)
-                  : (int)launch_dkv_wgmma<64, true, false>(bases, maps, lse, delta, B, H, KVH, Lq,
-                                                    Lk, scale, s);
+  const auto launch =
+      D > 64 ? launch_dkv_wgmma<128, true, false> : launch_dkv_wgmma<64, true, false>;
+  return (int)launch(bases, maps, lse, delta, B, H, KVH, Lq, Lk, scale, s, D);
 }
 
 // The bias tile reads of bias_tile_kernel, for the card test: the bias

@@ -50,15 +50,16 @@ the route by operand dtype and head width:
     long tier's B4-B5);
   * bf16 at any other multiple of 16 from 16 to 512, and fp32 at any
     multiple of 16 from 16 to 512: "generic", kernel B7 forward and B8-dq,
-    B8-dkv backward, which compute each tier's same function (a bias with
-    any row alignment is read as it is). B8 is fp32 FFMA on the CUDA cores
-    (`csrc/attention_generic.cu`). B7 has two bodies, `generic_body(dtype,
-    head_dim)`: "wgmma" for bf16 at the widths 16-256 (the tensor cores,
-    `csrc/attention_wide.cu`: B1-B4's skeleton at an instance of 64, 128 or
-    256 columns, the operands zero-filled past D by TMA, RoPE first at the
-    real width), "ffma" for fp32 at every width and bf16 past 256 (the CUDA
-    cores, `csrc/attention_generic.cu`: register tiles, K and V staged by
-    cp.async, one walk over K in fp32; no TF32);
+    B8-dkv backward, which compute each tier's same function. B7 and B8
+    each have two bodies, `generic_body(dtype, head_dim)`: "wgmma" for bf16
+    at the widths 16-256 (the tensor cores: B7 in `csrc/attention_wide.cu`,
+    B1-B4's skeleton at an instance of 64, 128 or 256 columns, the operands
+    zero-filled past D by TMA, RoPE first at the real width; B8 through B3's
+    and B5's kernels at the instances of 64 and 128 and
+    `csrc/attention_wide_bwd.cu` at 256, the same zero fill, computing B3's
+    and B5's functions), "ffma" for fp32 at every width and bf16 past 256
+    (the CUDA cores, `csrc/attention_generic.cu`: register tiles, the
+    streamed operand staged by cp.async, every product in fp32; no TF32);
   * anything else: a ValueError naming the rule.
 
 It is a route by dtype and width, not a fallback: each route and body has
@@ -67,7 +68,7 @@ its own counters and nothing is tried and caught.
 Each wrapper counts its launches: `<wrapper>.launches` for the unbiased
 wgmma kernel, `<wrapper>.bias_launches` for the biased one,
 `<wrapper>.generic_launches` and `<wrapper>.generic_bias_launches` for B7 /
-B8, and for B7 the body too: `<wrapper>.wgmma_body_launches` /
+B8, and the body too: `<wrapper>.wgmma_body_launches` /
 `.ffma_body_launches` (biased or not). A launch runs under
 `torch.cuda.device(q.device)`, on that device's current stream.
 """
@@ -98,6 +99,9 @@ _KERNEL_SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _GENERIC_SOURCE = "attention_generic"
 _WIDE_SOURCE = "attention_wide"
+_WIDE_BWD_SOURCE = "attention_wide_bwd"
+_LONG_SOURCE = "flash_attention_long"
+_WIDE_DQ_KEYS = 32   # keys of a stage of B8-dq's wgmma body at 256 (WKN, attention_wide_bwd.cu)
 _HEAD_DIMS = (64, 128)          # the wgmma kernels' head widths (bf16)
 GENERIC_HEAD_DIMS = range(16, 513, 16)  # B7 / B8: bf16 or fp32
 WIDE_HEAD_DIMS = range(16, 257, 16)     # B7's wgmma body: bf16 (but 64 and 128)
@@ -121,13 +125,15 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def generic_body(dtype: torch.dtype, head_dim: int) -> str:
-    """The body of B7 (the forward of the "generic" route) that operands of
-    `dtype` and `head_dim` launch on the card: "wgmma" (the tensor cores)
-    for bf16 at a multiple of 16 up to 256, "ffma" (the CUDA cores) for fp32
-    at any width and bf16 past 256. Raises ValueError where `kernel_for`
-    does not say "generic" (B1-B4 take bf16 at 64 and 128)."""
+    """The body of B7 and of B8 (the forward and the backward of the
+    "generic" route) that operands of `dtype` and `head_dim` launch on the
+    card: "wgmma" (the tensor cores) for bf16 at a multiple of 16 up to 256,
+    "ffma" (the CUDA cores) for fp32 at any width and bf16 past 256. Raises
+    ValueError where `kernel_for` does not say "generic" (B1-B5 take bf16 at
+    64 and 128)."""
     if kernel_for(dtype, head_dim) != "generic":
-        raise ValueError(f"{dtype} at head_dim {head_dim} takes the wgmma kernels B1-B4, not B7")
+        raise ValueError(f"{dtype} at head_dim {head_dim} takes the wgmma kernels B1-B5, "
+                         f"not B7 / B8")
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WIDE_HEAD_DIMS else "ffma"
 
 
@@ -203,8 +209,8 @@ def _entry(source: str, name: str, n_ptr: int, arrays: int = 1, flags: int = 0):
 
 def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
     """Device, dtype (q's, bf16 or fp32) and rank. The kernels take any
-    layout: `tensor_maps.tma_operand` copies what a map cannot describe, and
-    B7 / B8 copy only an operand whose last dim is not contiguous."""
+    layout: `tensor_maps.tma_operand` copies what a map cannot describe (B7
+    and B8 read 16-byte pieces or tensor maps too)."""
     if t.device != q.device:
         raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
@@ -255,8 +261,15 @@ def _count_launch(wrapper, bias: Optional[torch.Tensor], generic: bool = False) 
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
+def _count_body(wrapper, body: str) -> None:
+    """One launch of B7's or B8's `body` ("wgmma" or "ffma") by `wrapper`."""
+    attr = f"{body}_body_launches"
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def _rows(t: torch.Tensor) -> torch.Tensor:
-    """An operand as B7 / B8 read it: any strides, the last dim contiguous."""
+    """An operand as the rotation kernel reads it: any strides, the last dim
+    contiguous."""
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
@@ -352,8 +365,7 @@ def _generic_fwd(wrapper, q, k, v, rope_sin=None, rope_cos=None, bias=None,
         _launch(fn, q.device, *ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
                 strides.buffer_info()[0], 1.0 / (d ** 0.5))
     _count_launch(wrapper, bias, generic=True)
-    attr = f"{body}_body_launches"
-    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    _count_body(wrapper, body)
     return out
 
 
@@ -547,18 +559,21 @@ def _heads_fastest(bias: torch.Tensor) -> int:
 def _dq_maps(q, k, v, dout, dq) -> list:
     """The tensor maps of a wgmma dq kernel's operands (B3's, B5-dq's): q and
     dO read as resident tiles of 128 rows, k and v as streamed tiles of 64
-    keys, dq stored 64 rows at a time."""
-    return [describe(q, TILE_ROWS), describe(k, STEP_ROWS), describe(v, STEP_ROWS),
-            describe(dout, TILE_ROWS), describe(dq, OUT_ROWS)]
+    keys, dq stored 64 rows at a time; boxes of BOX_COLS columns (a head
+    narrower than the instance, B8's wgmma body, is zero-filled past D)."""
+    return [describe(q, TILE_ROWS, BOX_COLS), describe(k, STEP_ROWS, BOX_COLS),
+            describe(v, STEP_ROWS, BOX_COLS), describe(dout, TILE_ROWS, BOX_COLS),
+            describe(dq, OUT_ROWS, BOX_COLS)]
 
 
 def _dkv_maps(q, k, v, dout, dk, dv, lse, delta) -> list:
     """The descriptions of a wgmma dkv kernel's operands (B3's, B5-dkv's): k
     and v read as resident tiles of 128 rows, q and dO as streamed tiles of
-    64 query rows, dk and dv stored 64 rows at a time, lse and delta read in
-    spans of 64 rows."""
-    return [describe(q, STEP_ROWS), describe(k, TILE_ROWS), describe(v, TILE_ROWS),
-            describe(dout, STEP_ROWS), describe(dk, OUT_ROWS), describe(dv, OUT_ROWS),
+    64 query rows, dk and dv stored 64 rows at a time (boxes of BOX_COLS
+    columns, as `_dq_maps`), lse and delta read in spans of 64 rows."""
+    return [describe(q, STEP_ROWS, BOX_COLS), describe(k, TILE_ROWS, BOX_COLS),
+            describe(v, TILE_ROWS, BOX_COLS), describe(dout, STEP_ROWS, BOX_COLS),
+            describe(dk, OUT_ROWS, BOX_COLS), describe(dv, OUT_ROWS, BOX_COLS),
             describe_rows(lse, STEP_ROWS), describe_rows(delta, STEP_ROWS)]
 
 
@@ -628,35 +643,78 @@ def _bwd_route(q, k, v, dout) -> str:
     return kernel_for(q.dtype, q.shape[-1])
 
 
+def _wgmma_bwd_source(long_tier: bool) -> tuple[str, str]:
+    """(library, entry prefix) of B3's or B5's kernels, which B8's wgmma body
+    takes at the instances of 64 and 128 columns."""
+    if long_tier:
+        return _LONG_SOURCE, "flash_attention_long_bwd"
+    return _BWD_SOURCE, "flash_attention_bwd"
+
+
 def _generic_dq(wrapper, q, k, v, dout, delta, bias=None, long_tier: bool = False):
     """(dq, lse) through B8-dq: the one-pass tier's function or (`long_tier`)
-    the long one's. Any strides with a contiguous last dim."""
+    the long one's, by the body `generic_body` names (counted in `wrapper`'s
+    body counters). The wgmma body: B3's / B5-dq's kernels at D up to 128
+    (zero-filled to 64 or 128; their bias through a tensor map, copied first
+    if no map describes it), `csrc/attention_wide_bwd.cu` above (the bias
+    read as it is); the ffma body: `csrc/attention_generic.cu`. Operands a
+    tensor map could not describe are copied first."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
-    q, k, v, dout = (_rows(t) for t in (q, k, v, dout))
+    body = generic_body(q.dtype, d)
+    _count_body(wrapper, body)
+    if body == "wgmma" and d <= 128:
+        return _launch_dq_wgmma(*_wgmma_bwd_source(long_tier), wrapper, q, k, v, dout, delta,
+                                bias)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
     bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, dout, delta, bias, dq, lse)]
-    strides = _strides(q, k, v, dout, dq, bias)
-    _launch(_entry(_GENERIC_SOURCE, "mmada_attention_generic_dq", 8, flags=2), q.device, *ptrs,
-            _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d, strides.buffer_info()[0],
-            1.0 / (d ** 0.5))
+    if body == "wgmma":
+        args = spec_array(describe(q, TILE_ROWS, BOX_COLS), describe(k, _WIDE_DQ_KEYS, BOX_COLS),
+                          describe(v, _WIDE_DQ_KEYS, BOX_COLS), describe(dout, TILE_ROWS, BOX_COLS),
+                          describe(dq, OUT_ROWS, BOX_COLS))
+        args.extend(_strides(bias))
+        fn = _entry(_WIDE_BWD_SOURCE, "mmada_attention_wide_dq_bf16", 8, flags=1)
+        _launch(fn, q.device, *ptrs, int(long_tier), b, h, kvh, lq, lk, d,
+                args.buffer_info()[0], 1.0 / (d ** 0.5))
+    else:
+        strides = _strides(q, k, v, dout, dq, bias)
+        fn = _entry(_GENERIC_SOURCE, "mmada_attention_generic_dq", 8, flags=2)
+        _launch(fn, q.device, *ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
+                strides.buffer_info()[0], 1.0 / (d ** 0.5))
     return dq, lse
 
 
-def _generic_dkv(wrapper, q, k, v, dout, lse, delta, bias=None):
-    """(dk, dv) through B8-dkv, the function of both tiers (p = exp(s -
-    lse)); dk and dv of a kv head sum over its query heads in fp32."""
+def _generic_dkv(wrapper, q, k, v, dout, lse, delta, bias=None, long_tier: bool = False):
+    """(dk, dv) through B8-dkv, by the body `generic_body` names, as
+    `_generic_dq`; dk and dv of a kv head sum over its query heads in fp32.
+    The ffma body computes both tiers' function (p = exp(s - lse), every
+    product in fp32); the wgmma body B3-dkv's (p and ds one bf16 value each)
+    or with `long_tier` B5-dkv's (hi + lo)."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)])
-    q, k, v, dout = (_rows(t) for t in (q, k, v, dout))
+    body = generic_body(q.dtype, d)
+    _count_body(wrapper, body)
+    if body == "wgmma" and d <= 128:
+        return _launch_dkv_wgmma(*_wgmma_bwd_source(long_tier), wrapper, q, k, v, dout, lse,
+                                 delta, bias)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
     bias = _generic_bias(wrapper, bias, b, h, lq, lk, q.device)
     dk = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, kvh, lk, d), dtype=k.dtype, device=q.device)
     ptrs = [None if t is None else t.data_ptr()
             for t in (q, k, v, dout, lse, delta, bias, dk, dv)]
-    strides = _strides(q, k, v, dout, dk, dv, bias)
-    _launch(_entry(_GENERIC_SOURCE, "mmada_attention_generic_dkv", 9, flags=1), q.device, *ptrs,
-            _dtype_code(q), b, h, kvh, lq, lk, d, strides.buffer_info()[0], 1.0 / (d ** 0.5))
+    if body == "wgmma":
+        args = spec_array(*(describe(t, STEP_ROWS, BOX_COLS) for t in (q, k, v, dout, dk, dv)))
+        args.extend(_strides(bias))
+        fn = _entry(_WIDE_BWD_SOURCE, "mmada_attention_wide_dkv_bf16", 9, flags=1)
+        _launch(fn, q.device, *ptrs, int(long_tier), b, h, kvh, lq, lk, d,
+                args.buffer_info()[0], 1.0 / (d ** 0.5))
+    else:
+        strides = _strides(q, k, v, dout, dk, dv, bias)
+        fn = _entry(_GENERIC_SOURCE, "mmada_attention_generic_dkv", 9, flags=1)
+        _launch(fn, q.device, *ptrs, _dtype_code(q), b, h, kvh, lq, lk, d,
+                strides.buffer_info()[0], 1.0 / (d ** 0.5))
     return dk, dv
 
 
@@ -667,8 +725,9 @@ def attention_bwd_dq(q, k, v, dout, delta, bias=None) -> tuple[torch.Tensor, tor
     read their operands through tensor maps and run on a persistent grid
     (each cluster walks several (tile pair, head, batch) items); a bias no
     map describes is copied first (`attention_bwd_dq.bias_copies`). Where
-    `kernel_for` says "generic" it launches B8-dq
-    (`.generic_launches`, `.generic_bias_launches`)."""
+    `kernel_for` says "generic" it launches B8-dq (`.generic_launches`,
+    `.generic_bias_launches`; its body, `generic_body`, in
+    `.wgmma_body_launches` / `.ffma_body_launches`)."""
     if q.device.type == "cpu":
         return attention_bwd_dq_reference(q, k, v, dout, delta, bias)
     if q.device.type != "cuda":
@@ -689,6 +748,8 @@ attention_bwd_dq.bias_launches = 0
 attention_bwd_dq.bias_copies = 0
 attention_bwd_dq.generic_launches = 0
 attention_bwd_dq.generic_bias_launches = 0
+attention_bwd_dq.wgmma_body_launches = 0
+attention_bwd_dq.ffma_body_launches = 0
 
 
 def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -698,7 +759,8 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tenso
     read their operands through tensor maps; a bias no map describes is
     copied first (`attention_bwd_dkv.bias_copies`). Where `kernel_for` says
     "generic" it launches B8-dkv (`.generic_launches`,
-    `.generic_bias_launches`)."""
+    `.generic_bias_launches`; its body in `.wgmma_body_launches` /
+    `.ffma_body_launches`)."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_reference(q, k, v, dout, lse, delta, bias)
     if q.device.type != "cuda":
@@ -719,6 +781,8 @@ attention_bwd_dkv.bias_launches = 0
 attention_bwd_dkv.bias_copies = 0
 attention_bwd_dkv.generic_launches = 0
 attention_bwd_dkv.generic_bias_launches = 0
+attention_bwd_dkv.wgmma_body_launches = 0
+attention_bwd_dkv.ffma_body_launches = 0
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

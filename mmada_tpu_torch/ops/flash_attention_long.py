@@ -30,14 +30,16 @@ Each wrapper launches a kernel for a CUDA tensor (Lq and Lk multiples of
 128, as the JAX tiers require), chosen by `flash_attention.kernel_for`: B4 /
 B5 for bf16 at head_dim 64 or 128, else B7-long (through the body
 `flash_attention.generic_body` names: "wgmma" for bf16 up to 256, "ffma"
-for fp32 and bf16 past 256), B8-dq-long and B8-dkv (which computes both
-tiers' dk and dv) with the long flag, for bf16 at other widths and for
-fp32, any multiple of 16 from 16 to 512. It raises for anything else; it
-never falls back. For a CPU tensor it computes the plain version (`*_reference`), which
-takes any length; the CPU tests hold it against the JAX kernels and
-`chip_smoke.py` holds the kernels against it on the card. Each wrapper
+for fp32 and bf16 past 256), B8-dq-long and B8-dkv-long through the same
+bodies (the wgmma body B5's functions, the ffma body every product in
+fp32), for bf16 at other widths and for fp32, any multiple of 16 from 16 to
+512. It raises for anything else; it never falls back. For a CPU tensor it
+computes the plain version (`*_reference`), which takes any length; the CPU
+tests hold it against the JAX kernels and `chip_smoke.py` holds the kernels
+against it on the card. Each wrapper
 counts its launches in `.launches` (unbiased) and `.bias_launches` (biased),
-and those of B7 / B8 in `.generic_launches` and `.generic_bias_launches`.
+and those of B7 / B8 in `.generic_launches` and `.generic_bias_launches`
+(and by body, `.wgmma_body_launches` / `.ffma_body_launches`).
 """
 
 from __future__ import annotations
@@ -221,6 +223,8 @@ attention_bwd_dq_long.bias_launches = 0
 attention_bwd_dq_long.bias_copies = 0
 attention_bwd_dq_long.generic_launches = 0
 attention_bwd_dq_long.generic_bias_launches = 0
+attention_bwd_dq_long.wgmma_body_launches = 0
+attention_bwd_dq_long.ffma_body_launches = 0
 
 
 def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.Tensor,
@@ -237,7 +241,8 @@ def attention_bwd_dkv_long(q, k, v, dout, lse, delta, bias=None) -> tuple[torch.
     _check_aligned(q, k)
     bias = bias_as_float(bias)
     if _bwd_route(q, k, v, dout) == "generic":
-        out = _generic_dkv(attention_bwd_dkv_long, q, k, v, dout, lse, delta, bias)
+        out = _generic_dkv(attention_bwd_dkv_long, q, k, v, dout, lse, delta, bias,
+                           long_tier=True)
         _count_launch(attention_bwd_dkv_long, bias, generic=True)
         return out
     out = _launch_dkv_wgmma(_SOURCE, "flash_attention_long_bwd", attention_bwd_dkv_long, q, k,
@@ -251,6 +256,8 @@ attention_bwd_dkv_long.bias_launches = 0
 attention_bwd_dkv_long.bias_copies = 0
 attention_bwd_dkv_long.generic_launches = 0
 attention_bwd_dkv_long.generic_bias_launches = 0
+attention_bwd_dkv_long.wgmma_body_launches = 0
+attention_bwd_dkv_long.ffma_body_launches = 0
 
 
 def flash_attention_bwd_long(

@@ -2,8 +2,9 @@
 the JAX package, on the CPU.
 
 * `kernel_for`, the route the card takes by dtype and head width, and
-  `generic_body`, B7's forward body on the generic route: their whole
-  table, the refusals included (this runs without a card);
+  `generic_body`, B7's and B8's body on the generic route: their whole
+  table, the refusals included, and the C entries the backward launches by
+  body, width and tier (recorded, not run: this runs without a card);
 * the one-pass forward's plain version (what B7 computes) at head_dim 16, 96
   and 256, fp32 and bf16, with GQA and RoPE, unbiased and biased: against
   JAX's Pallas kernel in interpret mode at 256 (a multiple of 128, which JAX
@@ -21,6 +22,8 @@ atol 1e-5 plus rtol 1e-5 of each entry; bf16 at the existing files' bars:
 forward atol = rtol = 3e-2 (test_torch_attention.py), backward atol 0.15,
 rtol 0.1 (test_torch_attention_bwd.py). B6-f32: atol 1e-5.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,10 +106,13 @@ def _bias(b, h, lq, lk, seed=3):
     (torch.float32, 48, "generic"), (torch.float32, 96, "generic"),
     (torch.float32, 192, "generic"), (torch.float32, 240, "generic"),
     (torch.float32, 272, "generic"), (torch.float16, 48, None), (torch.bfloat16, 520, None),
+    (torch.bfloat16, 112, "generic"), (torch.bfloat16, 144, "generic"),
+    (torch.float32, 400, "generic"), (torch.bfloat16, 400, "generic"),
 ])
-def test_kernel_for_routes_by_dtype_and_width(dtype, d, want):
-    """The route, and on the generic route B7's forward body: "wgmma" for
-    bf16 up to 256, "ffma" for fp32 and bf16 past 256."""
+def test_kernel_for_routes_by_dtype_and_width(dtype, d, want, monkeypatch):
+    """The route, and on the generic route B7's and B8's body: "wgmma" for
+    bf16 up to 256, "ffma" for fp32 and bf16 past 256; the backward's C
+    entries by body and width, both tiers (`_bwd_entries`)."""
     if want is None:
         with pytest.raises(ValueError, match="no attention kernel"):
             kernel_for(dtype, d)
@@ -117,9 +123,51 @@ def test_kernel_for_routes_by_dtype_and_width(dtype, d, want):
     if want == "generic":
         body = "wgmma" if dtype == torch.bfloat16 and d <= 256 else "ffma"
         assert generic_body(dtype, d) == body
+        for long in (False, True):
+            if body == "ffma":
+                lib = "attention_generic"
+                want_entries = [(lib, "mmada_attention_generic_dq"),
+                                (lib, "mmada_attention_generic_dkv")]
+            elif d <= 128:   # B3's / B5's kernels at the instance of 64 or 128
+                lib = "flash_attention_long" if long else "flash_attention_bwd"
+                want_entries = [(lib, f"{lib}{'_bwd' if long else ''}_dq"),
+                                (lib, f"{lib}{'_bwd' if long else ''}_dkv")]
+            else:
+                lib = "attention_wide_bwd"
+                want_entries = [(lib, "mmada_attention_wide_dq_bf16"),
+                                (lib, "mmada_attention_wide_dkv_bf16")]
+            assert _bwd_entries(monkeypatch, dtype, d, long) == (want_entries, body)
     elif want == "wgmma":
         with pytest.raises(ValueError, match="takes the wgmma kernels"):
             generic_body(dtype, d)
+
+
+def _bwd_entries(monkeypatch, dtype, d, long):
+    """The C entries (library, name) B8-dq and B8-dkv launch for CPU operands
+    of `dtype` and width d handed to the card's launch code, the launches
+    recorded instead of run (a wgmma entry of B3 / B5 as (library, prefix +
+    "_dq" / "_dkv")), and the body both counted."""
+    from mmada_tpu_torch.ops import flash_attention as fa
+
+    launched = []
+    monkeypatch.setattr(fa, "_entry", lambda source, name, *a, **k: (source, name))
+    monkeypatch.setattr(fa, "_launch", lambda fn, device, *args: launched.append(fn))
+
+    def wgmma(kind):
+        def record(source, prefix, *args):
+            launched.append((source, f"{prefix}_{kind}"))
+            return None, None
+        return record
+
+    monkeypatch.setattr(fa, "_launch_dq_wgmma", wgmma("dq"))
+    monkeypatch.setattr(fa, "_launch_dkv_wgmma", wgmma("dkv"))
+    wrapper = types.SimpleNamespace(wgmma_body_launches=0, ffma_body_launches=0)
+    q, k, v, dout = (torch.zeros((1, 2, 8, d), dtype=dtype) for _ in range(4))
+    stats = torch.zeros((1, 2, 8))
+    fa._generic_dq(wrapper, q, k, v, dout, stats, long_tier=long)
+    fa._generic_dkv(wrapper, q, k, v, dout, stats, stats, long_tier=long)
+    bodies = {b for b in ("wgmma", "ffma") if getattr(wrapper, f"{b}_body_launches") == 2}
+    return launched, bodies.pop() if len(bodies) == 1 else bodies
 
 
 @pytest.mark.parametrize("biased", [False, True])

@@ -961,8 +961,9 @@ def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq,
                                               bias):
     """B7 (RoPE by its C entry's rotation pass), then B8-dq and B8-dkv as a
     pair (B8-dq's lse into B8-dkv), against the plain versions; counted in
-    `.generic_launches` / `.generic_bias_launches`, never in the wgmma
-    counters. fp32 forward within 1e-5 absolute."""
+    `.generic_launches` / `.generic_bias_launches` and B8's in the counter
+    of the body `generic_body` names, never in the wgmma counters. fp32
+    forward within 1e-5 absolute."""
     from mmada_tpu_torch.ops.attention import apply_rope
 
     q, k, v = _generic_qkv(cuda_device, dtype, b, h, kvh, lq, lk, d)
@@ -975,6 +976,7 @@ def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq,
              attention_bwd_dkv.launches)
     before = tuple(getattr(f, attr) for f in (flash_attention, attention_bwd_dq,
                                               attention_bwd_dkv))
+    bodies = _b8_bodies(attention_bwd_dq, attention_bwd_dkv)
     got = flash_attention(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
     want = flash_attention_reference(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias)
     assert got.dtype == dtype and got.shape == q.shape
@@ -1000,6 +1002,19 @@ def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq,
                                             attention_bwd_dkv)) == tuple(x + 1 for x in before)
     assert (flash_attention.launches, flash_attention.bias_launches, attention_bwd_dq.launches,
             attention_bwd_dkv.launches) == wgmma
+    assert _b8_bodies(attention_bwd_dq, attention_bwd_dkv) == _moved(bodies, generic_body(dtype, d))
+
+
+def _b8_bodies(dq_fn, dkv_fn) -> tuple:
+    """The body counters of a pair of B8 wrappers: (wgmma, ffma) of dq, then of dkv."""
+    return tuple(getattr(f, f"{b}_body_launches") for f in (dq_fn, dkv_fn)
+                 for b in ("wgmma", "ffma"))
+
+
+def _moved(counts: tuple, body: str) -> tuple:
+    """`_b8_bodies`' counts after one launch of dq and of dkv through `body`."""
+    i = 0 if body == "wgmma" else 1
+    return tuple(c + (j % 2 == i) for j, c in enumerate(counts))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 256),
@@ -1012,6 +1027,7 @@ def test_generic_long_kernels_match_plain_versions(cuda_device, dtype, d):
     before = (flash_attention_long.launches, attention_bwd_dq_long.launches)
     g0 = (flash_attention_long.generic_launches, attention_bwd_dq_long.generic_launches,
           attention_bwd_dkv_long.generic_launches)
+    bodies = _b8_bodies(attention_bwd_dq_long, attention_bwd_dkv_long)
     got = flash_attention_long(q, k, v)
     want = flash_attention_long_reference(q, k, v)
     if dtype == torch.float32:
@@ -1030,6 +1046,48 @@ def test_generic_long_kernels_match_plain_versions(cuda_device, dtype, d):
     assert (flash_attention_long.launches, attention_bwd_dq_long.launches) == before
     assert (flash_attention_long.generic_launches, attention_bwd_dq_long.generic_launches,
             attention_bwd_dkv_long.generic_launches) == tuple(x + 1 for x in g0)
+    assert _b8_bodies(attention_bwd_dq_long, attention_bwd_dkv_long) == _moved(
+        bodies, generic_body(dtype, d))
+
+
+@pytest.mark.parametrize("long", [False, True])
+@pytest.mark.parametrize("d", [16, 48, 96, 192, 240, 256])
+def test_b8_wgmma_body_matches_plain_versions(cuda_device, d, long):
+    """B8's wgmma body at the zero-filled widths (B3's / B5's kernels at the
+    instances of 64 and 128, attention_wide_bwd.cu at 256), biased, GQA:
+    one-pass with a mask that shuts rows out (their cotangent zero) at a
+    ragged length, B3's bar; long with a per-head bias, within 1e-3 rel L2
+    and 2^-7 of the largest entry (phase 3's long-tier bar). Only the wgmma
+    body's counters move."""
+    l = 256 if long else 200
+    q, k, v = _generic_qkv(cuda_device, torch.bfloat16, 1, 4, 2, l, l, d, seed=d + long)
+    bias = _generic_bias(cuda_device, "head" if long else "mask", 1, 4, l, l)
+    dout = torch.randn((1, 4, l, d), generator=torch.Generator(cuda_device).manual_seed(6),
+                       device=cuda_device).to(torch.bfloat16)
+    if not long:
+        dout = dout * (bias > torch.finfo(torch.float32).min).any(-1, keepdim=True)
+    fns = ((attention_bwd_dq_long, attention_bwd_dkv_long, attention_bwd_dq_long_reference,
+            attention_bwd_dkv_long_reference, flash_attention_long_reference) if long else
+           (attention_bwd_dq, attention_bwd_dkv, attention_bwd_dq_reference,
+            attention_bwd_dkv_reference, flash_attention_reference))
+    dq_fn, dkv_fn, dq_ref, dkv_ref, fwd_ref = fns
+    delta = attention_delta(fwd_ref(q, k, v, bias=bias), dout)
+    bodies = _b8_bodies(dq_fn, dkv_fn)
+    dq, lse = dq_fn(q, k, v, dout, delta, bias)
+    dk, dv = dkv_fn(q, k, v, dout, lse, delta, bias)
+    assert _b8_bodies(dq_fn, dkv_fn) == _moved(bodies, "wgmma")
+    want_dq, want_lse = dq_ref(q, k, v, dout, delta, bias)
+    want_dk, want_dv = dkv_ref(q, k, v, dout, want_lse, delta, bias)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    for a, w, t in ((dq, want_dq, q), (dk, want_dk, k), (dv, want_dv, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == t.shape
+        if long:
+            a, w = a.float(), w.float()
+            assert torch.isfinite(a).all()
+            assert float((a - w).norm() / w.norm()) <= 1e-3
+            assert float((a - w).abs().max()) <= 2 ** -7 * float(w.abs().max())
+        else:
+            assert_grad_close(a, w)
 
 
 @pytest.mark.parametrize("long", [False, True])

@@ -415,9 +415,9 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in joined
     assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert cmd[-1].endswith(os.path.join("csrc", "flash_attention_fwd.cu"))
-    assert _build.sources() == ["attention_generic", "attention_wide", "flash_attention_bwd",
-                                "flash_attention_fwd", "flash_attention_long", "int4_matmul",
-                                "int4_matmul_f32"]
+    assert _build.sources() == ["attention_generic", "attention_wide", "attention_wide_bwd",
+                                "flash_attention_bwd", "flash_attention_fwd",
+                                "flash_attention_long", "int4_matmul", "int4_matmul_f32"]
     # the C sources include CUDA headers only (no torch/extension.h): seconds to build
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
