@@ -11,9 +11,12 @@ against those of another checkout of the port, in turns on one NVIDIA GPU.
 PARENT_DIR is an unpacked checkout of the commit to compare with (for
 example `git archive HEAD | tar -x -C chip_checkout`) whose B1-B6 take
 tensor maps, as here, and run through this checkout's wrappers with its own
-C entries (`_through`), and whose B7 is a single CUDA-core body behind the
-entry `mmada_attention_generic_fwd`, called with the arguments its own
-wrapper passed (`parent_b7`), and whose B8 is a single CUDA-core kernel a
+C entries (`_through`), and whose B7 has a tensor-core body for bf16 up to
+D 256 behind `mmada_attention_wide_fwd_bf16` (run through this checkout's
+wrappers: the same maps) and a CUDA-core body for fp32 and wider bf16
+behind `mmada_attention_generic_fwd` (PR 24's signature: q and k rotated
+first), called with the arguments its own wrapper passed (`parent_b7`),
+and whose B8 is a single CUDA-core kernel a
 tier behind `mmada_attention_generic_dq` / `_dkv` (`parent_b8`, the
 arguments its wrappers passed). Its kernels are built from its own
 `mmada_tpu_torch/ops/csrc` with its own `_build.py`. This checkout's
@@ -50,19 +53,29 @@ the same inputs:
   * B6 at the int4 8B's main-path shapes (`chip_smoke.int4_cases`, the
     first eight: the served text batch's and the t2i CFG batch's matmuls
     and heads): CUDA events, 10 calls after 2 warm-up, and the device time
-    of a call; beside them the bound (`chip_smoke.int4_bound`) and the
-    largest difference of the output from the parent's, in bf16 ulps of
-    the larger entry.
+    of a call; beside them the bound (`chip_smoke.int4_bound`), the largest
+    difference of the output from the parent's, in bf16 ulps of the larger
+    entry, and whether the two are equal bit for bit; then B6-f32 (fp32 x)
+    at `chip_smoke.INT4_F32_CASES`, the parent's through its own C entry
+    `mmada_int4_matmul_f32` with the arguments its wrapper passed
+    (`parent_b6_f32`), with the fp32 bound and the largest difference from
+    the parent's relative to its largest entry.
 
   * B7 at the four shapes PERF.md tracks (the t2i CFG frame, 4 x 1,155
     tokens with RoPE, in bf16 at D 256 with 16 heads and in fp32 at D 128
     with 32; the long tier at 1 x 16 x 8,192 tokens in bf16 at D 256 and
     fp32 at D 128): CUDA events (10 calls after 2 warm-up; 3 after 1 on
     the long tier) and device time, with the largest difference of the
-    output from the parent's (absolute and relative to its largest entry)
-    and which body this checkout took (`flash_attention.generic_body`);
-    beside them B1 and B2 at the t2i CFG frame and B4 at the long text frame
-    (D 128), each output held against the parent's bit for bit;
+    output from the parent's (absolute and relative to its largest entry),
+    whether the two are equal bit for bit, and which body this checkout
+    took (`flash_attention.generic_body`); then bf16 D 512 (the rectangular
+    biased case of 1 x 4 heads x 200 x 500 keys, the t2i CFG frame and the
+    long tier with 8 heads), the parent's through its CUDA-core body; then
+    the wgmma instances of 64, 128 and 256 (D 48, 96, 192, one-pass with a
+    mask and long), the parent's `mmada_attention_wide_fwd_bf16` through
+    this checkout's wrappers, held bit for bit; beside them B1 and B2 at the
+    t2i CFG frame and B4 at the long text frame (D 128), each output held
+    against the parent's bit for bit;
   * B8-dq and B8-dkv at the same four shapes (the one-pass tier at the t2i
     CFG frame, the long tier at 8,192 tokens; q and k unrotated, delta from
     this checkout's forward, dkv fed this checkout's lse): CUDA events and
@@ -96,8 +109,10 @@ def parent_kernels(parent_dir: str) -> dict:
     "forward" (`flash_attention`: B1, or B2 with a bias), "long" (B4, or
     B4-bias with a bias), "dq" and "dkv" (B3's, or B3-bias's with a bias),
     "long_dq" and "long_dkv" (B5's, with an optional bias), "int4" (B6), all
-    through this checkout's wrappers (`_through`); "b7" (the parent's B7,
-    through its own entry: `parent_b7`)."""
+    through this checkout's wrappers (`_through`); "int4_f32" (the parent's
+    B6-f32 through its own entry: `parent_b6_f32`); "wide" (the parent's
+    B7 wgmma body through this checkout's one-pass and long wrappers); "b7"
+    (the parent's B7 CUDA-core body, through its own entry: `parent_b7`)."""
     import torch
 
     from mmada_tpu_torch.ops import flash_attention as fa
@@ -109,7 +124,7 @@ def parent_kernels(parent_dir: str) -> dict:
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
     build.build_all(["flash_attention_fwd", "flash_attention_bwd", "flash_attention_long",
-                     "int4_matmul", "attention_generic"])
+                     "int4_matmul", "int4_matmul_f32", "attention_generic", "attention_wide"])
     p, i = ctypes.c_void_p, ctypes.c_int
 
     def entry(source, name, n_ptr, lists):
@@ -141,8 +156,14 @@ def parent_kernels(parent_dir: str) -> dict:
     b3_dkv = {bias: through(fa.attention_bwd_dkv, "flash_attention_bwd",
                             f"mmada_flash_attention_bwd_dkv{bias}_bf16", 8 + bool(bias))
               for bias in ("", "_bias")}
+    wide_fn = getattr(build.load_library("attention_wide"), "mmada_attention_wide_fwd_bf16")
+    wide_fn.argtypes = [p] * 5 + [i] * 7 + [p, ctypes.c_float, p]
+    wide_fn.restype = ctypes.c_int
+    wide = {"one_pass": _through(fa.flash_attention, "mmada_attention_wide_fwd_bf16", wide_fn),
+            "long": _through(long_mod.flash_attention_long, "mmada_attention_wide_fwd_bf16",
+                             wide_fn)}
     b7 = getattr(build.load_library("attention_generic"), "mmada_attention_generic_fwd")
-    b7.argtypes = [p] * 9 + [i] * 8 + [p, ctypes.c_float, p]
+    b7.argtypes = [p] * 5 + [i] * 8 + [p, ctypes.c_float, p]
     b7.restype = ctypes.c_int
     b8 = {name: getattr(build.load_library("attention_generic"), f"mmada_attention_generic_{name}")
           for name in ("dq", "dkv")}
@@ -176,6 +197,11 @@ def parent_kernels(parent_dir: str) -> dict:
         finally:
             int4_mod._fn = own
 
+    b6_f32 = getattr(build.load_library("int4_matmul_f32"), "mmada_int4_matmul_f32")
+    ll = ctypes.c_longlong
+    b6_f32.argtypes = [p, ll, p, ll, p, ll, p, i, i, i, p]
+    b6_f32.restype = ctypes.c_int
+
     def b5_dq(q, k, v, dout, delta, bias=None):
         return long_dq["" if bias is None else "_bias"](q, k, v, dout, delta, bias)
 
@@ -184,34 +210,56 @@ def parent_kernels(parent_dir: str) -> dict:
 
     return {"forward": forward, "long": long_forward, "dq": dq, "dkv": dkv,
             "long_dq": b5_dq, "long_dkv": b5_dkv, "int4": int4,
-            "b7": lambda *a, **kw: parent_b7(b7, *a, **kw),
+            "int4_f32": lambda *a: parent_b6_f32(b6_f32, *a), "wide": wide,
+            "b7": lambda *a, **kw: parent_b7(b7, wide, *a, **kw),
             "b8": lambda *a, **kw: parent_b8(b8, *a, **kw)}
 
 
-def parent_b7(fn, q, k, v, rope_sin=None, rope_cos=None, bias=None, long_tier=False):
-    """The parent's B7 through its C entry `fn` (`mmada_attention_generic_fwd`):
-    operands with a contiguous last dim by element strides, RoPE into
-    scratch of q's type by its rotation pass, the output written as (B, Lq,
-    H, D); the arguments its wrapper passed."""
+def parent_b7(fn, wide, q, k, v, rope_sin=None, rope_cos=None, bias=None, long_tier=False):
+    """The parent's B7 as its wrapper called it: bf16 up to D 256 through its
+    wgmma body (`wide`: its entry in this checkout's wrappers), else through
+    its C entry `fn` (`mmada_attention_generic_fwd`): q and k rotated first
+    at the real width by the rotation kernel (`flash_attention._rotated`,
+    the same kernel in both checkouts), operands a tensor map could
+    describe, by element strides, the output written as (B, Lq, H, D)."""
     import torch
 
-    from mmada_tpu_torch.ops.flash_attention import _dtype_code, _strides
+    from mmada_tpu_torch.ops.flash_attention import _dtype_code, _rotated, _strides
+    from mmada_tpu_torch.ops.tensor_maps import tma_operand
 
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and q.shape[-1] <= 256:
+        if long_tier:
+            return wide["long"](q, k, v, bias)
+        return wide["one_pass"](q, k, v, rope_sin=rope_sin, rope_cos=rope_cos, bias=bias)
+    if rope_sin is not None:
+        q, k = _rotated(q, rope_sin, rope_cos), _rotated(k, rope_sin, rope_cos)
+    q, k, v = (tma_operand(t) for t in (q, k, v))
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    q_rot = k_rot = None
-    if rope_sin is not None:
-        q_rot = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-        k_rot = torch.empty((b, kvh, lk, d), dtype=q.dtype, device=q.device)
-    ptrs = [None if t is None else t.data_ptr()
-            for t in (q, k, v, out, bias, rope_sin, rope_cos, q_rot, k_rot)]
+    ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, out, bias)]
     strides = _strides(q, k, v, out, bias)
     err = fn(*ptrs, _dtype_code(q), int(long_tier), b, h, kvh, lq, lk, d,
              strides.buffer_info()[0], 1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent mmada_attention_generic_fwd failed: cudaError {err}")
+    return out
+
+
+def parent_b6_f32(fn, x, packed, scales):
+    """The parent's B6-f32 through its C entry `fn` (`mmada_int4_matmul_f32`:
+    one launch, no split of K), with the arguments its wrapper passed: x
+    (M, K) fp32 by its row stride, the packed weight and the scales by
+    theirs, the fp32 output (M, N)."""
+    import torch
+
+    m, k = x.shape
+    n = packed.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), x.stride(0), packed.data_ptr(), packed.stride(0), scales.data_ptr(),
+             scales.stride(0), out.data_ptr(), m, k, n, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent mmada_int4_matmul_f32 failed: cudaError {err}")
     return out
 
 
@@ -360,7 +408,8 @@ def time_b6(b6: dict, emit) -> None:
         device = in_turns(b6, lambda fn: device_ms(lambda: fn(x, packed, scales)))
         bound_ms, bound_by = chip_smoke.int4_bound(m, k, n)
         emit(dict(tag=f"B6 {tag}", shape=[m, k, n], ms=times, device_ms=device,
-                  bound_ms=bound_ms, bound_by=bound_by, ulps_from_parent=ulps))
+                  bound_ms=bound_ms, bound_by=bound_by, ulps_from_parent=ulps,
+                  same_as_parent=bool(torch.equal(outs["this"], outs["parent"]))))
         del x, packed, scales, outs, got, want
         torch.cuda.empty_cache()
 
@@ -475,8 +524,10 @@ def main() -> int:
         time_model_forwards(b1, b4, emit)
     if args.only in (None, "int4"):
         time_b6({"parent": parent["int4"], "this": int4_matmul}, emit)
+        time_b6_f32({"parent": parent["int4_f32"], "this": int4_matmul}, emit)
     if args.only in (None, "b7"):
         time_b7({"parent": parent["b7"], "this": (flash_attention, flash_attention_long)}, emit)
+        time_wide_instances(dict(parent["wide"], this=flash_attention), emit)
     if args.only in (None, "b8"):
         time_b8(parent["b8"], emit)
     print(smi, flush=True)
@@ -490,21 +541,31 @@ def main() -> int:
 
 
 def time_b7(b7: dict, emit) -> None:
-    """B7 of both versions at PERF.md's four shapes, in turns, on the same
-    inputs, with this checkout's body (`generic_body`) and the largest
-    difference of its output from the parent's."""
+    """B7 of both versions at PERF.md's shapes (the four of PRs 23-25, then
+    bf16 D 512: the rectangular biased case, the t2i CFG frame with 8 heads,
+    the long frame), in turns, on the same inputs, with this checkout's body
+    (`generic_body`), the largest difference of its output from the
+    parent's and whether the two are equal bit for bit."""
     import torch
 
     from mmada_tpu_torch.ops.flash_attention import generic_body
 
     t2i, long_l = chip_smoke.T2I_FRAME, chip_smoke.LONG_FRAME
-    for tag, dtype, (b, h, l), d, long in (
-            ("B7 t2i CFG bf16 D256", torch.bfloat16, (4, 16, t2i), 256, False),
-            ("B7 t2i CFG fp32 D128", torch.float32, (4, 32, t2i), 128, False),
-            ("B7-long bf16 D256", torch.bfloat16, (1, 16, long_l), 256, True),
-            ("B7-long fp32 D128", torch.float32, (1, 16, long_l), 128, True)):
-        q, k, v, sin, cos = chip_smoke.generic_case(dtype, b, h, h, l, l, d, not long, seed=21)
+    heads = chip_smoke.WIDER_HEADS
+    for tag, dtype, (b, h, lq, lk), d, long, bias in (
+            ("B7 t2i CFG bf16 D256", torch.bfloat16, (4, 16, t2i, t2i), 256, False, None),
+            ("B7 t2i CFG fp32 D128", torch.float32, (4, 32, t2i, t2i), 128, False, None),
+            ("B7-long bf16 D256", torch.bfloat16, (1, 16, long_l, long_l), 256, True, None),
+            ("B7-long fp32 D128", torch.float32, (1, 16, long_l, long_l), 128, True, None),
+            ("B7 bf16 D512 rectangular + bias", torch.bfloat16, (1, 4, 200, 500), 512, False,
+             lambda: chip_smoke.random_bias(1, 4, 200, 500, 12)),
+            ("B7 t2i CFG bf16 D512", torch.bfloat16, (4, heads, t2i, t2i), 512, False, None),
+            ("B7-long bf16 D512", torch.bfloat16, (1, heads, long_l, long_l), 512, True, None)):
+        rope = not long and lq == lk
+        q, k, v, sin, cos = chip_smoke.generic_case(dtype, b, h, h, lq, lk, d, rope, seed=21)
         kw = {"long_tier": True} if long else {"rope_sin": sin, "rope_cos": cos}
+        if bias is not None:
+            kw["bias"] = bias()
         this = b7["this"][long]
         fns = {"parent": lambda: b7["parent"](q, k, v, **kw),
                "this": lambda: this(q, k, v) if long else this(q, k, v, **kw)}
@@ -513,10 +574,65 @@ def time_b7(b7: dict, emit) -> None:
         iters, warm = (3, 1) if long else (10, 2)
         times = in_turns(fns, lambda fn: chip_smoke.cuda_ms(fn, iters, warm))
         device = in_turns(fns, lambda fn: device_ms(fn, iters))
-        emit(dict(tag=tag, shape=[b, h, h, l, l], d=d, body=generic_body(dtype, d), ms=times,
+        emit(dict(tag=tag, shape=[b, h, h, lq, lk], d=d, body=generic_body(dtype, d), ms=times,
                   device_ms=device, gap_to_parent=dict(
-                      abs=gap, rel=relative_gap(outs["this"], outs["parent"]))))
-        del q, k, v, outs
+                      abs=gap, rel=relative_gap(outs["this"], outs["parent"])),
+                  same_as_parent=bool(torch.equal(outs["this"], outs["parent"]))))
+        del q, k, v, outs, kw
+        torch.cuda.empty_cache()
+
+
+def time_wide_instances(wide: dict, emit) -> None:
+    """B7's wgmma instances of 64, 128 and 256 columns (bf16 D 48, 96, 192)
+    of both versions, the parent's through its own C entry and this
+    checkout's wrappers: the one-pass tier with RoPE and the served mask
+    bias (2 x 8 heads x 387 tokens), the long tier at 4,224 tokens; each
+    output held against the parent's bit for bit, with the times."""
+    import torch
+
+    from mmada_tpu_torch.ops.flash_attention_long import flash_attention_long
+
+    for d in (48, 96, 192):
+        for long in (False, True):
+            l = 4224 if long else 387
+            b = 1 if long else 2
+            q, k, v, sin, cos = chip_smoke.generic_case(torch.bfloat16, b, 8, 8, l, l, d,
+                                                        not long, seed=23)
+            if long:
+                fns = {name: (lambda fn=fn: fn(q, k, v)) for name, fn in (
+                    ("parent", wide["long"]), ("this", flash_attention_long))}
+            else:
+                bias = chip_smoke.padded_rows_bias(b, l)
+                fns = {name: (lambda fn=fn: fn(q, k, v, rope_sin=sin, rope_cos=cos, bias=bias))
+                       for name, fn in (("parent", wide["one_pass"]), ("this", wide["this"]))}
+            outs = {name: fn() for name, fn in fns.items()}
+            emit(dict(tag=f"B7 wgmma instance bf16 D{d}{' long' if long else ' + mask'}",
+                      shape=[b, 8, 8, l, l], d=d,
+                      ms=in_turns(fns, lambda fn: chip_smoke.cuda_ms(fn, 10)),
+                      same_as_parent=bool(torch.equal(outs["this"], outs["parent"]))))
+            del q, k, v, outs
+            torch.cuda.empty_cache()
+
+
+def time_b6_f32(b6: dict, emit) -> None:
+    """B6-f32 of both versions at its two cases (`chip_smoke.INT4_F32_CASES`),
+    in turns, on the same operands, with the bound and the largest
+    difference of the output from the parent's relative to its largest
+    entry."""
+    import torch
+
+    for i, (tag, m, k, n) in enumerate(chip_smoke.INT4_F32_CASES):
+        x, packed, scales = chip_smoke.int4_f32_operands(m, k, n, seed=1800 + i)
+        outs = {name: fn(x, packed, scales) for name, fn in b6.items()}
+        times = in_turns(b6, lambda fn: chip_smoke.cuda_ms(lambda: fn(x, packed, scales), 10))
+        device = in_turns(b6, lambda fn: device_ms(lambda: fn(x, packed, scales)))
+        bound_ms, bound_by = chip_smoke.bound(
+            2 * m * k * n, 4 * m * k + k * n // 2 + 4 * (k // 128) * n + 4 * m * n,
+            chip_smoke.PEAK_FP32_FLOPS)
+        emit(dict(tag=f"B6-f32 {tag}", shape=[m, k, n], ms=times, device_ms=device,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  gap_to_parent=relative_gap(outs["this"], outs["parent"])))
+        del x, packed, scales, outs
         torch.cuda.empty_cache()
 
 

@@ -104,21 +104,23 @@ generated clip (13d), each held against the fp32 CPU run of the same
 weights (EVAL_REL and the SMPL bars).
 Phase 14 is fp32 and every head width (A.17): the kernels B7 (forward,
 both tiers), B8-dq, B8-dkv (each through its body: "wgmma" on the tensor
-cores for bf16 up to 256, "ffma" on the CUDA cores for fp32 and bf16 past
-256, each case's body asserted) and B6-f32 (int4 with fp32 x) against their
-plain versions with their times (14a: fp32 at D 16-256, bf16 at D 16, 48,
-96, 192, 256 and 512, biased, with RoPE, rectangular, 8,192 tokens, the t2i
-CFG frame; the fp32 one-pass cases' outputs and gradients also against
-float64, no further from it than GENERIC_F64_RATIO times the plain version;
-B6-f32 at the 8B's shapes; no spill in their SASS), then
+cores for bf16 (B7 at every width, its instance of 512 past 256; B8 up to
+256), "ffma" on the CUDA cores for fp32 and B8's bf16 past 256, each case's
+bodies asserted) and B6-f32 (int4 with fp32 x) against their plain versions
+with their times (14a: fp32 at D 16-256, bf16 at D 16, 48, 96, 192, 256 and
+512, biased, with RoPE, rectangular, 8,192 tokens, the t2i CFG frame; the
+fp32 one-pass cases' outputs and gradients, and B6-f32's outputs, also
+against float64, no further from it than GENERIC_F64_RATIO times the plain
+version; B6-f32 at the 8B's shapes; no spill in their SASS), then
 configs/tiny_test.yaml (fp32, 16-wide heads) through the command lines'
 `load` / `run` on the card token-exact against the CPU and `train_torch`'s
 trainer for 2 steps against the CPU's (14b), the full-width 8B under FP32
 (one t2i forward and a text request through B7, against the plain
 attention's fp32 logits) and its int4 form through B6-f32 (14c), and 256-wide
 heads at the 8B's widths (a masked t2i forward and train step against fp32,
-14d); 14b-14c launch only the ffma bodies, 14d only the wgmma bodies; B7, B8
-and B6-f32 launch on none of phases 2-13.
+14d), and 512-wide heads the same way (14e: B7 through its instance of 512,
+B8 through its ffma body); 14b-14c launch only the ffma bodies, 14d only the
+wgmma bodies; B7, B8 and B6-f32 launch on none of phases 2-13.
 It checks that the kernels really ran on each path
 (launch counters, set to 0 just before the path and read just after: on
 each path exactly the kernels of its tier, unbiased or biased, and B6 on
@@ -330,15 +332,22 @@ GENERIC_INT4_REL = 1e-5
 # attention, and through B6-f32 against the dequantised weights in cuBLAS:
 # one fp32 function, summed in other orders, through 32 layers
 FP32_MODEL_REL_L2 = 1e-4
-INT4_F32_DESIGN = ("fp32 FFMA on the CUDA cores: 128 x 128 output tiles, K 16 rows at a time, "
-                   "W expanded into shared memory, 8 x 8 outputs a thread")
-# B7's two bodies (`flash_attention.generic_body`): fp32 at every width and
-# bf16 past 256 on the CUDA cores; bf16 at 16-256 on the tensor cores
+INT4_F32_DESIGN = ("fp32 FFMA on the CUDA cores: 128 x 128 output tiles, 64-row K stages in a "
+                   "3-slot cp.async ring, W expanded once a stage into a double-buffered shared "
+                   "tile, 8 x 8 outputs a thread from float4 reads, each 128-row group's "
+                   "products summed apart, K split across blocks (summed in a fixed order) "
+                   "where the tiles are few")
+# B7's two bodies (`flash_attention.generic_body`): fp32 at every width on
+# the CUDA cores; bf16 at every width on the tensor cores
 FFMA_DESIGN = ("fp32 FFMA on the CUDA cores: 128-row tiles (64 past D 128), the whole width to "
                "256 in a block, register tiles fed by float4 reads, K and V staged by cp.async, "
                "one walk over K in fp32")
 WIDE_DESIGN = ("wgmma + TMA at instances of 64, 128 and 256 columns, zero-filled past D; "
                "producer and two consumer warpgroups, 64-key stages")
+WIDE512_DESIGN = ("wgmma + TMA, the instance of 512 columns (272-512 zero-filled): 64 query "
+                  "rows a block, the two consumer warpgroups splitting q . k^T's contraction "
+                  "and the output's columns, the score halves summed through shared memory, "
+                  "K and V in 32-key tiles through rings of their own")
 # B8's two bodies, by the same rule
 FFMA_BWD_DESIGN = ("fp32 FFMA on the CUDA cores: B7's register tiles and cp.async ring, the "
                    "whole width to 256 in a block, dq's one-pass tier in two walks, its long "
@@ -351,6 +360,7 @@ TINY_TEXT = dict(gen_length=16, steps=8, block_length=8)
 TINY_MMU = dict(max_new_tokens=16, steps=8, block_length=16)
 FP32_TEXT = dict(gen_length=32, steps=4, block_length=32, temperature=0.0)
 WIDE_HEADS = 16   # 16 heads of 256 over the 8B's d_model of 4,096
+WIDER_HEADS = 8   # 8 heads of 512 over the same
 # the library's grouped-int4 matmul (B6's library time) rounds the scales to
 # bf16 (a relative change of at most 2^-9 per weight); it is held to the
 # plain version normwise, which a wrong nibble order or sign would miss by
@@ -805,8 +815,8 @@ def check_rope_outside(h: int) -> None:
 # biased; each at D 64 and 128; B6 with tiles of 128 and 256 rows
 # the libraries of the CUDA-core kernels (B7's and B8's ffma bodies; B6-f32):
 # ptxas must spill no register in any of their kernels. B7's wgmma body
-# (attention_wide: both tiers, unbiased and biased, at instances 64, 128 and
-# 256) and B8's at its instance of 256 (attention_wide_bwd: dq and dkv, both
+# (attention_wide: both tiers, unbiased and biased, at instances 64, 128,
+# 256 and 512) and B8's at its instance of 256 (attention_wide_bwd: dq and dkv, both
 # tiers, unbiased and biased; at 64 and 128 B8's wgmma body is B3's and B5's
 # kernels) stand in WGMMA_KERNELS with the other wgmma kernels
 GENERIC_LIBRARIES = ("attention_generic", "int4_matmul_f32")
@@ -822,7 +832,8 @@ WGMMA_KERNELS = {
            for k in ("attn_bwd_dq_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel")]),
     "int4_matmul": [f"int4_matmul_wgmma_kernelILi{mb}E" for mb in (1, 2)],
     "attention_wide": [f"attn_wide_wgmma_kernelILi{d}ELb{bias}ELb{long}E" for d in (64, 128, 256)
-                       for bias in (0, 1) for long in (0, 1)],
+                       for bias in (0, 1) for long in (0, 1)]
+    + [f"attn_wide512_wgmma_kernelILb{bias}ELb{long}E" for bias in (0, 1) for long in (0, 1)],
     "attention_wide_bwd": [f"attn_wide_{k}_wgmma_kernelILb{bias}ELb{one}E" for k in ("dq", "dkv")
                            for bias in (0, 1) for one in (0, 1)],
 }
@@ -832,7 +843,7 @@ def check_sass() -> dict:
     """Per kernel of the built libraries (WGMMA_KERNELS: B1, B2, B3-dq,
     B3-dkv, B3-dq-bias, B3-dkv-bias, B4, B4-bias, B5-dq, B5-dkv, B5-dq-bias,
     B5-dkv-bias at D 64 and 128; B6 at both tile heights; B7's wgmma body
-    at its 12 instances; B8's wgmma body at its 8 instances of 256), the
+    at its 16 instances; B8's wgmma body at its 8 instances of 256), the
     count of
     HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions in
     its SASS (`cuobjdump -sass`) and, after a cold build, its ptxas lines;
@@ -2072,7 +2083,8 @@ def main() -> int:
     # against their plain versions with their times (14a), then paths with
     # the counters from 0 and every launch theirs: configs/tiny_test.yaml
     # through the command lines against the CPU (14b), the full-width 8B under
-    # FP32 and its int4 form (14c), 256-wide heads at the 8B's widths (14d)
+    # FP32 and its int4 form (14c), 256- and 512-wide heads at the 8B's widths
+    # (14d, 14e)
     free_memory()
     generic = generic_phase(reset_counts, counts)
 
@@ -6065,10 +6077,11 @@ def padded_rows_bias(b, l):
 def generic_cases():
     """(tag, dtype, B, H, KVH, Lq, Lk, D, rope, bias maker) of B7 and B8: fp32
     at D 16, 64, 128 and 256, bf16 at D 16, 48, 96, 192, 256 and 512 (B7's
-    wgmma body up to 256, zero-filled to its instances 64, 128 and 256; its
-    ffma body at 512), unbiased and biased, with RoPE, rectangular, GQA;
-    then the paths' shapes: the t2i CFG frame in fp32 at D 128 (the fp32 8B)
-    and in bf16 at D 256 (256-wide heads)."""
+    wgmma body, zero-filled to its instances 64, 128, 256 and 512; B8's
+    wgmma body up to 256, its ffma body at 512), unbiased and biased, with
+    RoPE, rectangular, GQA; then the paths' shapes: the t2i CFG frame in
+    fp32 at D 128 (the fp32 8B) and in bf16 at D 256 and 512 (256- and
+    512-wide heads)."""
     import torch
 
     f32, b16, t2i = torch.float32, torch.bfloat16, T2I_FRAME
@@ -6093,6 +6106,7 @@ def generic_cases():
         ("masked t2i CFG fp32 D128", f32, 4, 32, 32, t2i, t2i, 128, True,
          lambda: t2i_mask_bias(cfg_batch=True)),
         ("t2i CFG bf16 D256", b16, 4, 16, 16, t2i, t2i, 256, True, None),
+        ("t2i CFG bf16 D512", b16, 4, WIDER_HEADS, WIDER_HEADS, t2i, t2i, 512, True, None),
     ]
 
 
@@ -6199,9 +6213,10 @@ def b8_body_launched(tag, dq_fn, dkv_fn, body, run):
 def check_generic_kernels(cases):
     """B7 and B8 against their plain versions (the backward as a pair: B8-dq's
     lse goes into B8-dkv, the plain dq's into the plain dkv), with their
-    times, each B8 case's body asserted; each fp32 case also against the
-    float64 function (forward and gradients), no further from it than
-    GENERIC_F64_RATIO times the plain version; returns per-case records."""
+    times, each case's B7 and B8 bodies asserted; each fp32 case also
+    against the float64 function (forward and gradients), no further from it
+    than GENERIC_F64_RATIO times the plain version; returns per-case
+    records."""
     import torch
     import torch.nn.functional as F
 
@@ -6220,7 +6235,7 @@ def check_generic_kernels(cases):
 
     records = []
     for i, (tag, dtype, b, h, kvh, lq, lk, d, rope, make_bias) in enumerate(cases):
-        body = generic_body(dtype, d)
+        body, bwd_body = generic_body(dtype, d), generic_body(dtype, d, backward=True)
         launched = getattr(flash_attention, f"{body}_body_launches")
         if kernel_for(dtype, d) != "generic":
             raise AssertionError(f"{tag}: kernel_for routes {dtype} D {d} to the wgmma kernels")
@@ -6251,7 +6266,7 @@ def check_generic_kernels(cases):
             dq, lse = attention_bwd_dq(qr, kr, v, dout, delta, bias)
             return (dq, lse, *attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias))
 
-        dq, lse, dk, dv = b8_body_launched(tag, attention_bwd_dq, attention_bwd_dkv, body,
+        dq, lse, dk, dv = b8_body_launched(tag, attention_bwd_dq, attention_bwd_dkv, bwd_body,
                                            backward)
         want_dq, want_lse = attention_bwd_dq_reference(qr, kr, v, dout, delta, bias)
         want_dk, want_dv = attention_bwd_dkv_reference(qr, kr, v, dout, want_lse, delta, bias)
@@ -6283,12 +6298,12 @@ def check_generic_kernels(cases):
                 qr, kr, v, attn_mask=mask, **gqa), 5),
             bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err, float64_max_abs_err=f64,
             errors={k: [e[0], e[1]] for k, e in errors.items()},
-            dq=dict(body=body, ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias),
-                                          5),
+            dq=dict(body=bwd_body,
+                    ms=cuda_ms(lambda: attention_bwd_dq(qr, kr, v, dout, delta, bias), 5),
                     plain_ms=cuda_ms(lambda: attention_bwd_dq_reference(
                         qr, kr, v, dout, delta, bias), 2, 1),
                     bound_ms=dq_b, bound_by=dq_by, max_abs_err=errors["dq"][0]),
-            dkv=dict(body=body,
+            dkv=dict(body=bwd_body,
                      ms=cuda_ms(lambda: attention_bwd_dkv(qr, kr, v, dout, lse, delta, bias), 5),
                      plain_ms=cuda_ms(lambda: attention_bwd_dkv_reference(
                          qr, kr, v, dout, lse, delta, bias), 2, 1),
@@ -6334,21 +6349,24 @@ def check_generic_long(cases):
     records = []
     for i, (tag, dtype, b, h, kvh, l, d) in enumerate(cases):
         q, k, v, _, _ = generic_case(dtype, b, h, kvh, l, l, d, False, seed=1600 + i)
+        body, bwd_body = generic_body(dtype, d), generic_body(dtype, d, backward=True)
+        launched = getattr(flash_attention_long, f"{body}_body_launches")
         out = flash_attention_long(q, k, v)
         ref = by_heads(flash_attention_long_reference, h, kvh, q, k, v)
         torch.cuda.synchronize()
+        if getattr(flash_attention_long, f"{body}_body_launches") != launched + 1:
+            raise AssertionError(f"{tag}: B7-long's {body} body did not launch")
         fwd_err, fwd_ok = generic_fwd_ok(out, ref, long=True)
         g = torch.Generator("cuda").manual_seed(1700 + i)
         dout = torch.randn((b, h, l, d), generator=g, device="cuda").to(dtype)
         delta = attention_delta(ref, dout)
-        body = generic_body(dtype, d)
 
         def backward():
             dq, lse = attention_bwd_dq_long(q, k, v, dout, delta)
             return (dq, lse, *attention_bwd_dkv_long(q, k, v, dout, lse, delta))
 
         dq, lse, dk, dv = b8_body_launched(tag, attention_bwd_dq_long, attention_bwd_dkv_long,
-                                           body, backward)
+                                           bwd_body, backward)
         want_dq, want_lse = by_heads(attention_bwd_dq_long_reference, h, kvh, q, k, v, dout,
                                      delta, heads=2)
         want_dk, want_dv = by_heads(attention_bwd_dkv_long_reference, h, kvh, q, k, v, dout,
@@ -6370,11 +6388,12 @@ def check_generic_long(cases):
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3),
             bound_ms=fwd_b, bound_by=fwd_by, lse_max_abs_err=lse_err,
             errors={k: [e[0], e[1]] for k, e in errors.items()},
-            dq=dict(body=body, ms=cuda_ms(lambda: attention_bwd_dq_long(q, k, v, dout, delta), 2),
+            dq=dict(body=bwd_body,
+                    ms=cuda_ms(lambda: attention_bwd_dq_long(q, k, v, dout, delta), 2),
                     plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dq_long_reference, h, kvh, q,
                                                       k, v, dout, delta, heads=2), 1, 1),
                     bound_ms=dq_b, bound_by=dq_by, max_abs_err=errors["dq"][0]),
-            dkv=dict(body=body,
+            dkv=dict(body=bwd_body,
                      ms=cuda_ms(lambda: attention_bwd_dkv_long(q, k, v, dout, lse, delta), 2),
                      plain_ms=cuda_ms(lambda: by_heads(attention_bwd_dkv_long_reference, h, kvh,
                                                        q, k, v, dout, lse, delta, heads=2), 1, 1),
@@ -6394,23 +6413,38 @@ def check_generic_long(cases):
     return records
 
 
-def check_int4_f32(cases):
-    """B6-f32 against its plain version (fp32 x @ the fp32 dequantisation) at
-    the 8B's shapes; returns per-case records."""
+# B6-f32's cases in phase 14a and in `attention_ab.py --only int4`: the int4
+# fp32 8B's t2i CFG ff_proj / ff_up, the text batch's ff_out, and 14c's text
+# request's q/k/v (63 rows: K split in four, `int4_matmul.f32_splits`)
+INT4_F32_CASES = [("t2i CFG ff_proj", 4620, 4096, 12288), ("text ff_out", 477, 12288, 4096),
+                  ("fp32 text q/k/v", 1 + len(TEXT_PROMPTS[0].encode()) + FP32_TEXT["gen_length"],
+                   4096, 4096)]
+
+
+def int4_f32_operands(m, k, n, seed):
+    """(x, packed, scales) of a B6-f32 case on the card: x fp32 (m, k) and a
+    random (k, n) weight packed to int4, from `seed`."""
     import torch
 
-    from mmada_tpu_torch.ops.int4_matmul import (
-        int4_matmul,
-        int4_matmul_reference,
-        pack_int4,
-        unpack_int4,
-    )
+    from mmada_tpu_torch.ops.int4_matmul import pack_int4
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    return (x, *pack_int4(torch.randn((k, n), generator=g, device="cuda") * 0.02))
+
+
+def check_int4_f32(cases):
+    """B6-f32 against its plain version (fp32 x @ the fp32 dequantisation) at
+    the 8B's shapes, and both against the same product in float64: the
+    kernel no further from it than GENERIC_F64_RATIO times the plain
+    version; returns per-case records."""
+    import torch
+
+    from mmada_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, unpack_int4
 
     records = []
     for i, (tag, m, k, n) in enumerate(cases):
-        g = torch.Generator("cuda").manual_seed(1800 + i)
-        x = torch.randn((m, k), generator=g, device="cuda")
-        packed, scales = pack_int4(torch.randn((k, n), generator=g, device="cuda") * 0.02)
+        x, packed, scales = int4_f32_operands(m, k, n, seed=1800 + i)
         out = int4_matmul(x, packed, scales)
         ref = int4_matmul_reference(x, packed, scales)
         torch.cuda.synchronize()
@@ -6418,15 +6452,23 @@ def check_int4_f32(cases):
         ok = out.dtype == torch.float32 and bool(torch.isfinite(out).all()) and (
             err <= GENERIC_INT4_REL * float(ref.abs().max()))
         w = unpack_int4(packed, scales, torch.float32)
+        exact = x.double() @ w.double()
+        f64 = dict(kernel=float((out.double() - exact).abs().max()),
+                   plain=float((ref.double() - exact).abs().max()))
+        del exact
         bound_ms, bound_by = bound(2 * m * k * n, 4 * m * k + k * n // 2 + 4 * (k // 128) * n
                                    + 4 * m * n, PEAK_FP32_FLOPS)
         rec = dict(tag=tag, shape=[m, k, n], max_abs_err=err, max_abs_out=float(ref.abs().max()),
+                   float64_max_abs_err=f64,
                    ms=cuda_ms(lambda: int4_matmul(x, packed, scales), 5),
                    plain_ms=cuda_ms(lambda: int4_matmul_reference(x, packed, scales), 3, 1),
                    library_ms=cuda_ms(lambda: x @ w, 5), bound_ms=bound_ms, bound_by=bound_by)
         log("B6-f32", json.dumps(rec))
         if not ok:
             raise AssertionError(f"B6-f32 disagrees with its plain version on {tag}: {err}")
+        if f64["kernel"] > GENERIC_F64_RATIO * f64["plain"]:
+            raise AssertionError(f"B6-f32 on {tag} lies {f64['kernel']} from float64, more than "
+                                 f"{GENERIC_F64_RATIO} x the plain version's {f64['plain']}")
         records.append(rec)
         del x, packed, scales, out, ref, w
         free_memory()
@@ -6685,13 +6727,17 @@ def plain_attention():
             setattr(attention, k, fn)
 
 
-def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
+def wide_heads_phase(reset_counts, counts, generic_reset, generic_read, phase="14d",
+                     heads=WIDE_HEADS) -> dict:
     """14d: 256-wide heads at the 8B's widths (d_model 4,096, 16 heads, 2
     layers, bf16, the frames' masks in attention): a masked t2i CFG forward
     (B7-bias) against the fp32 forward of the same weights, and a masked
     stage-1 train step (B7-bias, B8-dq-bias, B8-dkv-bias) against the fp32
     step, both references with the plain attention, at phase 3's bars
-    (SMALL_MODEL_REL_L2; SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_GRAD_REL_L2)."""
+    (SMALL_MODEL_REL_L2; SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_GRAD_REL_L2);
+    14e (`heads` WIDER_HEADS) the same with 512-wide heads. Each path's
+    bodies asserted (`generic_body`: B7's wgmma body at both widths, B8's
+    wgmma body at 256 and ffma body at 512)."""
     import torch
 
     from mmada_tpu_torch.core.precision import BF16, FP32, policy_products
@@ -6702,8 +6748,12 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
     from mmada_tpu_torch.training.train_step import StepConfig, corrupt_batch, make_train_step
 
     free_memory()
-    cfg = dataclasses.replace(llada.llada_8b(), n_heads=WIDE_HEADS, n_layers=2,
+    from mmada_tpu_torch.ops.flash_attention import generic_body
+
+    cfg = dataclasses.replace(llada.llada_8b(), n_heads=heads, n_layers=2,
                               attention_bias_enabled=True, mask_token_id=MMADA_8B.mask_token_id)
+    fwd_body = generic_body(torch.bfloat16, cfg.head_dim)
+    bwd_body = generic_body(torch.bfloat16, cfg.head_dim, backward=True)
     model = MMadaModel.init(cfg, MMADA_8B, device="cuda", dtype=torch.bfloat16,
                             generator=torch.Generator("cuda").manual_seed(2), policy=BF16)
     model32 = dataclasses.replace(model, params=move_params(model.params, dtype=torch.float32),
@@ -6719,17 +6769,18 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t
     fwd_launched = generic_read()
-    expect_launches("14d forward", counts(), {})
-    expect_generic("14d forward", fwd_launched, {"b7_bias": cfg.n_layers,
-                                                 "b7_wgmma": cfg.n_layers})
+    expect_launches(f"{phase} forward", counts(), {})
+    expect_generic(f"{phase} forward", fwd_launched, {"b7_bias": cfg.n_layers,
+                                                      f"b7_{fwd_body}": cfg.n_layers})
     with plain_attention():
         want = model32.forward(ids, **kw)
     rel = float((got - want).norm() / want.norm())
-    log("wide heads", f"masked t2i CFG forward, {cfg.n_heads} heads of {cfg.head_dim}, bf16: "
+    log(f"wide heads {phase}", f"masked t2i CFG forward, {cfg.n_heads} heads of {cfg.head_dim}, bf16: "
         f"{fwd_s:.4f}s; vs the fp32 forward: rel L2 {rel:.3e} (limit {SMALL_MODEL_REL_L2}); "
         f"launches {fwd_launched}")
     if not (torch.isfinite(got).all() and rel <= SMALL_MODEL_REL_L2):
-        raise AssertionError(f"14d: the 256-wide-head forward disagrees with fp32: {rel}")
+        raise AssertionError(f"{phase}: the {cfg.head_dim}-wide-head forward disagrees with "
+                             f"fp32: {rel}")
     del got, want
 
     sc = StepConfig(batch_size_t2i=2, batch_size_lm=2, batch_size_mmu=2, max_seq_length=40)
@@ -6753,23 +6804,25 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t
     step_launched = generic_read()
-    expect_launches("14d train step", counts(), {})
-    expect_generic("14d train step", step_launched, {
+    expect_launches(f"{phase} train step", counts(), {})
+    expect_generic(f"{phase} train step", step_launched, {
         "b7_bias": cfg.n_layers, "dq_bias": cfg.n_layers, "dkv_bias": cfg.n_layers,
-        "b7_wgmma": cfg.n_layers, "dq_wgmma": cfg.n_layers, "dkv_wgmma": cfg.n_layers})
+        f"b7_{fwd_body}": cfg.n_layers, f"dq_{bwd_body}": cfg.n_layers,
+        f"dkv_{bwd_body}": cfg.n_layers})
     with plain_attention():
         loss32, grads32 = loss_and_grads(model32)
     loss_rel = abs(loss - loss32) / abs(loss32)
     grad_rel = {k: float((grads[k].float() - grads32[k]).norm()
                          / grads32[k].norm().clamp_min(1e-30)) for k in grads32}
     worst = max(grad_rel, key=grad_rel.get)
-    log("wide heads", f"masked train step (6 rows of 200): {step_s:.4f}s; loss {loss:.5f} vs "
+    log(f"wide heads {phase}", f"masked train step (6 rows of 200): {step_s:.4f}s; loss {loss:.5f} vs "
         f"fp32 {loss32:.5f} (rel {loss_rel:.2e}, limit {SMALL_TRAIN_LOSS_REL}); worst gradient "
         f"rel L2 {grad_rel[worst]:.2e} ({worst}, limit {SMALL_TRAIN_GRAD_REL_L2}); launches "
         f"{step_launched}")
     if not (math.isfinite(loss) and loss_rel <= SMALL_TRAIN_LOSS_REL
             and grad_rel[worst] <= SMALL_TRAIN_GRAD_REL_L2):
-        raise AssertionError("14d: the 256-wide-head train step disagrees with the fp32 step")
+        raise AssertionError(f"{phase}: the {cfg.head_dim}-wide-head train step disagrees with "
+                             "the fp32 step")
     del model, model32, grads, grads32
     free_memory()
     return dict(forward=fwd_launched, train=step_launched, forward_rel_l2=rel,
@@ -6777,7 +6830,7 @@ def wide_heads_phase(reset_counts, counts, generic_reset, generic_read) -> dict:
 
 
 def generic_phase(reset_counts, counts) -> dict:
-    """Phase 14: 14a the kernels, 14b-14d the paths (see main). Fails if
+    """Phase 14: 14a the kernels, 14b-14e the paths (see main). Fails if
     phases 2-13 launched any of B7, B8 or B6-f32."""
     import torch
 
@@ -6789,9 +6842,9 @@ def generic_phase(reset_counts, counts) -> dict:
     records = check_generic_kernels(generic_cases())
     long_records = check_generic_long(
         [("long bf16 D256", torch.bfloat16, 1, 16, 16, LONG_FRAME, 256),
-         ("long fp32 D128", torch.float32, 1, 16, 16, LONG_FRAME, 128)])
-    int4_records = check_int4_f32([("t2i CFG ff_proj", 4620, 4096, 12288),
-                                   ("text ff_out", 477, 12288, 4096)])
+         ("long fp32 D128", torch.float32, 1, 16, 16, LONG_FRAME, 128),
+         ("long bf16 D512", torch.bfloat16, 1, WIDER_HEADS, WIDER_HEADS, LONG_FRAME, 512)])
+    int4_records = check_int4_f32(INT4_F32_CASES)
     seconds = {"14a": time.perf_counter() - t0}
     t = time.perf_counter()
     cli = tiny_cli_phase(reset_counts, counts, generic_reset, generic_read)
@@ -6802,49 +6855,62 @@ def generic_phase(reset_counts, counts) -> dict:
     t = time.perf_counter()
     wide = wide_heads_phase(reset_counts, counts, generic_reset, generic_read)
     seconds["14d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wider = wide_heads_phase(reset_counts, counts, generic_reset, generic_read, "14e",
+                             WIDER_HEADS)
+    seconds["14e"] = time.perf_counter() - t
     paths = [*cli.values(), fp32["fp32"]["launched"], fp32["int4"]["launched"], wide["forward"],
-             wide["train"]]
+             wide["train"], wider["forward"], wider["train"]]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    wide512 = wider["forward"]["b7_wgmma"] + wider["train"]["b7_wgmma"]
     log("generic", f"phase 14 took {time.perf_counter() - t0:.1f}s ({seconds}); main-path "
-        f"launches {launches}")
+        f"launches {launches}, B7's instance of 512 {wide512} of b7_wgmma (14e)")
     return dict(records=records, long_records=long_records, int4_records=int4_records,
-                launches=launches, seconds=seconds)
+                launches=launches, wide512_launches=wide512, seconds=seconds)
 
 
 def generic_kernel_records(gen) -> list:
     """The JSON line's entries of B7, B8-dq and B8-dkv, one a body (the ffma
     body at the fp32 8B's t2i CFG frame, the wgmma body at 256-wide heads'
-    t2i CFG frame), and B6-f32 (at its ff_proj shape): the times at each's
+    t2i CFG frame), B7's wgmma instance of 512 apart (at 512-wide heads' t2i
+    CFG frame; its launches those of 14e, the others' wgmma entry those of
+    the rest), and B6-f32 (at its ff_proj shape): the times at each's
     main-path case, the largest error over its cases, the launches of phase
     14's paths."""
     recs = gen["records"] + gen["long_records"]
     main = {"ffma": next(r for r in gen["records"] if r["tag"] == "t2i CFG fp32 D128"),
-            "wgmma": next(r for r in gen["records"] if r["tag"] == "t2i CFG bf16 D256")}
-    launches = gen["launches"]
+            "wgmma": next(r for r in gen["records"] if r["tag"] == "t2i CFG bf16 D256"),
+            "wgmma512": next(r for r in gen["records"] if r["tag"] == "t2i CFG bf16 D512")}
+    launches = dict(gen["launches"], b7_wgmma512=gen["wide512_launches"])
+    launches["b7_wgmma"] -= gen["wide512_launches"]
     keys = ("tag", "dtype", "shape", "d", "ms", "bound_ms", "bound_by", "plain_ms")
-    sources = {("b7", "ffma"): "attention_generic.cu", ("b7", "wgmma"): "attention_wide.cu",
-               ("dq", "ffma"): "attention_generic.cu", ("dq", "wgmma"): "attention_wide_bwd.cu",
-               ("dkv", "ffma"): "attention_generic.cu",
-               ("dkv", "wgmma"): "attention_wide_bwd.cu"}
-    names = {"b7": ("attention_generic_fwd_ffma", "attention_wide_fwd_wgmma"),
+    sources = {"ffma": "attention_generic.cu", "wgmma": "attention_wide_bwd.cu"}
+    names = {"b7": ("attention_generic_fwd_ffma", "attention_wide_fwd_wgmma",
+                    "attention_wide_fwd_wgmma_512"),
              "dq": ("attention_generic_bwd_dq_ffma", "attention_wide_bwd_dq_wgmma"),
              "dkv": ("attention_generic_bwd_dkv_ffma", "attention_wide_bwd_dkv_wgmma")}
     lines = {"b7": "650,686,471,497,392,418", "dq": "895,1185", "dkv": "963,1240"}
     designs = {"ffma": {"b7": FFMA_DESIGN, "dq": FFMA_BWD_DESIGN, "dkv": FFMA_BWD_DESIGN},
-               "wgmma": {"b7": WIDE_DESIGN, "dq": WIDE_BWD_DESIGN, "dkv": WIDE_BWD_DESIGN}}
+               "wgmma": {"b7": WIDE_DESIGN, "dq": WIDE_BWD_DESIGN, "dkv": WIDE_BWD_DESIGN},
+               "wgmma512": {"b7": WIDE512_DESIGN}}
     out = []
     for kind in ("b7", "dq", "dkv"):
-        for i, body in enumerate(("ffma", "wgmma")):
-            rs = [r for r in recs if r["body"] == body]
+        bodies = ("ffma", "wgmma", "wgmma512") if kind == "b7" else ("ffma", "wgmma")
+        for i, body in enumerate(bodies):
             if kind == "b7":
+                rs = [r for r in recs if r["body"] == body[:5]
+                      and (body == "ffma" or (r["d"] > 256) == (body == "wgmma512"))]
                 errs, rec, lib = [r["max_abs_err"] for r in rs], main[body], "library_ms"
                 part = lambda r: r  # noqa: E731
+                source = "attention_generic.cu" if body == "ffma" else "attention_wide.cu"
             else:
+                rs = [r for r in recs if r[kind]["body"] == body]
                 errs = [r[kind]["max_abs_err"] for r in rs]
                 rec = dict(main[body][kind], library_ms=main[body]["bwd_library_ms"])
                 lib = "bwd_library_ms"
                 part = lambda r, kind=kind: dict(r, **r[kind])  # noqa: E731
-            e = dict(kernel_record(names[kind][i], sources[kind, body], lines[kind],
+                source = sources[body]
+            e = dict(kernel_record(names[kind][i], source, lines[kind],
                                    launches[f"{kind}_{body}"],
                                    [dict(max_abs_err=x) for x in errs], rec),
                      design=designs[body][kind])
@@ -6856,7 +6922,8 @@ def generic_kernel_records(gen) -> list:
                             gen["int4_records"], int4_main, replaces="int4_matmul.py"),
               design=INT4_F32_DESIGN)
     b6["shapes"] = [{k: r[k] for k in ("tag", "shape", "ms", "bound_ms", "bound_by", "plain_ms",
-                                       "library_ms")} for r in gen["int4_records"]]
+                                       "library_ms", "float64_max_abs_err")}
+                    for r in gen["int4_records"]]
     return out + [b6]
 
 

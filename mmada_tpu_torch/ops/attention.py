@@ -43,10 +43,11 @@ head width (`flash_attention.kernel_for`), a route and not a fallback:
   | fp32     | any multiple of 16, 16 to 512           | B7, B8-dq, B8-dkv          |
   | other    |                                         | ValueError / TypeError     |
 
-B7 and B8 compute each tier's function, RoPE first by a rotation pass. B8
-is fp32 FFMA on the CUDA cores (`csrc/attention_generic.cu`); B7 has two
-bodies (`flash_attention.generic_body`): bf16 up to 256 on the tensor cores
-(`csrc/attention_wide.cu`), fp32 and bf16 past 256 on the CUDA cores. JAX sends a head_dim that is not a multiple of 128 to `xla_attention`
+B7 and B8 compute each tier's function, RoPE first by a rotation pass. Each
+has two bodies (`flash_attention.generic_body`): B7 takes bf16 at every
+width on the tensor cores (`csrc/attention_wide.cu`) and fp32 on the CUDA
+cores (`csrc/attention_generic.cu`); B8 bf16 up to 256 on the tensor cores,
+fp32 and bf16 past 256 on the CUDA cores. JAX sends a head_dim that is not a multiple of 128 to `xla_attention`
 (:322-323), whose function is the one-pass tier's; the port's tiers take
 every width the table names.
 

@@ -42,16 +42,16 @@
 // unfused multiplies and adds, to round as the plain version does.
 //
 // B7 has two bodies, chosen by `flash_attention.generic_body(dtype, D)`: bf16
-// at the widths 16-256 other than 64 and 128 take the tensor cores (the
-// "wgmma" body, csrc/attention_wide.cu); fp32 at every width and bf16 past
-// 256 take the "ffma" body here (attn_fwd_ffma_kernel: 64-row tiles, the
-// whole width to 256 in one block, register tiles fed by float4 reads, K and
-// V staged by cp.async; its design note stands above the kernel). This file
-// also holds the rotation both bodies run before attention with RoPE
+// at every width 16-512 other than 64 and 128 takes the tensor cores (the
+// "wgmma" body, csrc/attention_wide.cu); fp32 at every width takes the
+// "ffma" body here (attn_fwd_ffma_kernel: 64-row tiles, the whole width to
+// 256 in one block, register tiles fed by float4 reads, K and V staged by
+// cp.async; its design note stands above the kernel). This file also holds
+// the rotation both bodies run before attention with RoPE
 // (rope_generic_kernel, at the real width).
 //
-// B8 has two bodies too, by the same rule (`generic_body`): bf16 at 16-256
-// other than 64 and 128 take the tensor cores (csrc/attention_wide_bwd.cu,
+// B8 has two bodies too (`generic_body(dtype, D, backward=True)`): bf16 at
+// 16-256 other than 64 and 128 take the tensor cores (csrc/attention_wide_bwd.cu,
 // and B3's / B5's kernels at the instances of 64 and 128), fp32 at every
 // width and bf16 past 256 the "ffma" bodies here (attn_bwd_dq_ffma_kernel,
 // attn_bwd_dkv_ffma_kernel: B7's ffma body's register tiles and cp.async
@@ -61,7 +61,7 @@
 // dk/dv together, counted as the function needs them) against the fp32 rate
 // of 67 TFLOP/s on the CUDA cores, or the operands' bytes at 3.35 TB/s. At
 // the serving shapes (L ~ 1.2k, D >= 64) the flops bound them. B7's ffma body
-// does the bound's 4 units in fp32 (one walk) and 6 in bf16 (two walks);
+// does the bound's 4 units (one walk);
 // B8's ffma dq does 4 units of L x L x D in the one-pass tier (a first walk
 // for the row max and sum, then s, dp and ds . k) and 3 in the long one
 // (online), its dkv 4 (s^T, dp^T, p^T . dO, ds^T . q), as the bound counts.
@@ -144,10 +144,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 // end (a sum in blocks of 64 keys): its plain version normalises p first,
 // so a different order of sums is all that parts them, and a sum over
 // 1,155 keys in one running fp32 total reached the bar of 1e-5 on the t2i
-// frame where blocks of 64 stay below it. bf16 operands (D 272-512) in the
-// one-pass tier keep the two walks (pass 1 the row max and sum, pass 2 p
-// normalised and rounded to bf16), since there the rounding is part of the
-// function. At 8 rows a thread (about 250 registers) one block fills an
+// frame where blocks of 64 stay below it. At 8 rows a thread (about 250 registers) one block fills an
 // SM, and each float4 read from shared memory feeds twice the FFMAs of 4
 // rows a thread at two blocks an SM, the faster of the two on the H100.
 
@@ -213,17 +210,11 @@ struct FfmaSmem {
   }
 };
 
-// The chunk c of a block's sequence: pass 1's K chunks (n1 of them, nk a
-// tile), then each tile's nk K chunks and its nv V chunks.
-__device__ __forceinline__ void chunk_of(int c, int n1, int nk, int nv, int& tile, int& idx) {
-  const int per = nk + nv;
-  if (c < n1) {
-    tile = c / nk;
-    idx = c - tile * nk;
-  } else {
-    tile = (c - n1) / per;
-    idx = c - n1 - tile * per;
-  }
+// The chunk c of a block's sequence: each tile's nk K chunks, then its nv V
+// chunks.
+__device__ __forceinline__ void chunk_of(int c, int nk, int nv, int& tile, int& idx) {
+  tile = c / (nk + nv);
+  idx = c - tile * (nk + nv);
 }
 
 // s[i][j] += the dot of q row RI ty + i with k row tx + 16 j over one chunk
@@ -290,12 +281,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shape sh) {
   using S = FfmaSmem<T, DP>;
   constexpr int RI = S::RI, BM = S::BM;
-  // bf16's one-pass tier walks K twice (p normalised, then rounded); fp32's
-  // walks once and sums each tile's p . v apart before adding it (BLOCKED),
-  // which keeps its distance from the normalise-first plain version inside
-  // the fp32 bar at 1,155 keys; the long tier's function is the online one
-  constexpr bool TWO_WALK = sizeof(T) == 2 && !LONG;
-  constexpr bool BLOCKED = !TWO_WALK && !LONG;
+  // the one-pass tier walks once and sums each tile's p . v apart before
+  // adding it (BLOCKED), which keeps its distance from the normalise-first
+  // plain version inside the fp32 bar at 1,155 keys; the long tier's
+  // function is the online one
+  constexpr bool BLOCKED = !LONG;
   constexpr int NC = DP / 64;
   constexpr int E = S::E;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -309,8 +299,7 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
   const int kh = h / (sh.H / sh.KVH), c0 = blockIdx.z * DP;
   constexpr int VC = S::VC, NV = FT / VC;
   const int nk = (sh.D + FKC - 1) / FKC, tiles = (sh.Lk + FT - 1) / FT;
-  const int n1 = TWO_WALK ? tiles * nk : 0;
-  const int total = n1 + tiles * (nk + NV);
+  const int total = tiles * (nk + NV);
 
   {  // Q: BM rows of round_up(D, 64) columns, zeros past Lq and D
     const T* src = rows_of<T>(q, b, h, min(q0, sh.Lq - 1));
@@ -325,7 +314,7 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
   auto issue = [&](int c) {
     T* slot = ring + (c % FSLOTS) * S::SLOT;
     int tile, idx;
-    chunk_of(c, n1, nk, NV, tile, idx);
+    chunk_of(c, nk, NV, tile, idx);
     if (idx < nk) {  // K chunk: keys tile * FT.., columns idx * FKC..
       const int key0 = tile * FT;
       const T* src = rows_of<T>(k, b, kh, min(key0, sh.Lk - 1)) + idx * FKC;
@@ -391,8 +380,8 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
     }
   };
   // the online step of row i on a tile's scores: the new row max, p = exp(s
-  // - m) in place, l and (unless `stats`) the outputs rescaled
-  auto online = [&](float (&s)[4], int i, bool stats) {
+  // - m) in place, l and the outputs rescaled
+  auto online = [&](float (&s)[4], int i) {
     const float mx = half_warp_max(fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3])));
     const float mn = fmaxf(m[i], mx);
     const float alpha = expf(m[i] - mn);
@@ -404,31 +393,16 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
     }
     l[i] = l[i] * alpha + half_warp_sum(e);
     m[i] = mn;
-    if (!stats) {
 #pragma unroll
-      for (int j = 0; j < 4 * NC; ++j) acc[i][j] *= alpha;
-    }
+    for (int j = 0; j < 4 * NC; ++j) acc[i][j] *= alpha;
   };
 
-  if constexpr (TWO_WALK) {  // pass 1: the row max and sum
-    for (int t = 0; t < tiles; ++t) {
-      float s[RI][4];
-      scores(s, t);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) online(s[i], i, true);
-    }
-  }
   for (int t = 0; t < tiles; ++t) {
     float s[RI][4];
     scores(s, t);
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      if constexpr (TWO_WALK) {  // normalised, then rounded to v's type
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = widen(narrow<T>(expf(s[i][j] - m[i]) / l[i]));
-      } else {
-        online(s[i], i, false);
-      }
+      online(s[i], i);
 #pragma unroll
       for (int j = 0; j < 4; ++j) ps[(RI * ty + i) * FPS + tx + 16 * j] = s[i][j];
     }
@@ -454,7 +428,7 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
   for (int i = 0; i < RI; ++i) {
     const int r = q0 + RI * ty + i;
     if (r >= sh.Lq) continue;
-    const float div = TWO_WALK ? 1.f : LONG ? fmaxf(l[i], 1e-30f) : l[i];
+    const float div = LONG ? fmaxf(l[i], 1e-30f) : l[i];
     T* out = const_cast<T*>(rows_of<T>(o, b, h, r)) + c0;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
@@ -462,7 +436,7 @@ attn_fwd_ffma_kernel(Operand q, Operand k, Operand v, Operand o, Bias bias, Shap
       if (c0 + col >= sh.D) continue;
       float x[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = TWO_WALK ? acc[i][4 * cc + e] : acc[i][4 * cc + e] / div;
+      for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * cc + e] / div;
       store4(out + col, x);
     }
   }
@@ -944,22 +918,16 @@ cudaError_t ffma_tiers(const Operand& q, const Operand& k, const Operand& v, con
 }
 
 // B7's ffma body: fp32 at any width (DP the width rounded up to 64, 128 or
-// 256; two passes of 256 past 256), bf16 past 256 (the wgmma body takes
-// bf16 up to 256: the entry refuses it here).
-template <typename T>
+// 256; two passes of 256 past 256). bf16 takes the wgmma body at every
+// width (csrc/attention_wide.cu): the entry refuses it here.
 cudaError_t fwd(Operand q, Operand k, Operand v, Operand o, Bias bias, bool long_tier,
                 const Shape& sh, cudaStream_t stream) {
-  if (!pieces_aligned<T>(q, sh.B, sh.H) || !pieces_aligned<T>(k, sh.B, sh.KVH) ||
-      !pieces_aligned<T>(v, sh.B, sh.KVH) || !pieces_aligned<T>(o, sh.B, sh.H))
+  if (!pieces_aligned<float>(q, sh.B, sh.H) || !pieces_aligned<float>(k, sh.B, sh.KVH) ||
+      !pieces_aligned<float>(v, sh.B, sh.KVH) || !pieces_aligned<float>(o, sh.B, sh.H))
     return cudaErrorInvalidValue;
-  if constexpr (sizeof(T) == 2) {
-    if (sh.D <= 256) return cudaErrorInvalidValue;
-    return ffma_tiers<T, 256>(q, k, v, o, bias, long_tier, sh, stream);
-  } else {
-    if (sh.D <= 64) return ffma_tiers<T, 64>(q, k, v, o, bias, long_tier, sh, stream);
-    if (sh.D <= 128) return ffma_tiers<T, 128>(q, k, v, o, bias, long_tier, sh, stream);
-    return ffma_tiers<T, 256>(q, k, v, o, bias, long_tier, sh, stream);
-  }
+  if (sh.D <= 64) return ffma_tiers<float, 64>(q, k, v, o, bias, long_tier, sh, stream);
+  if (sh.D <= 128) return ffma_tiers<float, 128>(q, k, v, o, bias, long_tier, sh, stream);
+  return ffma_tiers<float, 256>(q, k, v, o, bias, long_tier, sh, stream);
 }
 
 template <typename T, int DP, int RI, bool BIAS, bool LONG>
@@ -1069,22 +1037,22 @@ cudaError_t dkv(Operand q, Operand k, Operand v, Operand dout, Operand gk, Opera
 // axis), or null. lse and delta: contiguous fp32 (B, H, Lq). Each returns a
 // cudaError_t; 0 is success.
 
-// Kernel B7's ffma body. long_tier 0: the one-pass function (q and k
-// already rotated, with RoPE: mmada_attention_generic_rope); 1: the long
-// function. strides: q, k, v, o, bias.
+// Kernel B7's ffma body, fp32 only (`dtype` 0; bf16 takes the wgmma body).
+// long_tier 0: the one-pass function (q and k already rotated, with RoPE:
+// mmada_attention_generic_rope); 1: the long function. strides: q, k, v, o,
+// bias.
 extern "C" int mmada_attention_generic_fwd(const void* q, const void* k, const void* v,
                                            void* o, const void* bias, int dtype,
                                            int long_tier, int B, int H, int KVH, int Lq,
                                            int Lk, int D, const long long* strides,
                                            float scale, void* stream) {
   const Shape sh{B, H, KVH, Lq, Lk, D, scale};
-  if (bad_shape(sh) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(sh) || dtype != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Operand oq = operand(q, strides), ok = operand(k, strides + 3),
                 ov = operand(v, strides + 6), oo = operand(o, strides + 9);
   const Bias ob = bias_of(bias, strides + 12);
-  return (int)(dtype ? fwd<bf16>(oq, ok, ov, oo, ob, long_tier, sh, s)
-                     : fwd<float>(oq, ok, ov, oo, ob, long_tier, sh, s));
+  return (int)fwd(oq, ok, ov, oo, ob, long_tier, sh, s);
 }
 
 // Kernel B8-dq's ffma body: (dq, lse) from q, k (rotated), v, dout and delta;

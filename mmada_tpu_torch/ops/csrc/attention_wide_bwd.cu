@@ -69,80 +69,9 @@
 namespace {
 
 constexpr int WD = 256;            // the instance's width
-constexpr int WKN = 32;            // keys of a dq stage's K and V tiles
-constexpr int WKBOX = WKN * 128;   // bytes of one 64-column box of such a tile
 constexpr int WDQ_STAGES = 3;
 constexpr int WDKV_STAGES = 2;
 constexpr int XCHG_BAR = 5;        // the dkv warpgroups' named barrier (1-4: turns, epilogues)
-
-// d = a . b (m64n32k16, both from shared memory, K-major), d's earlier
-// values neither read nor kept (as wgmma_ss_n64_first)
-__device__ __forceinline__ void wgmma_ss_n32_first(float (&d)[16], uint64_t desc_a,
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
-        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
-        "=f"(d[14]), "=f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(0));
-}
-
-// d += a . b (m64n32k16, both from shared memory, K-major)
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// s (64 x 32, fp32) = a . b^T over the 256 columns: `a` 64 rows of a tile
-// whose 64-column boxes lie A_BOX bytes apart, `b` 32 rows of one whose boxes
-// lie B_BOX apart, both K-major; 16 steps, the first of which does not read s.
-template <int A_BOX, int B_BOX>
-__device__ __forceinline__ void scores32_issue(float (&s)[16], const unsigned char* a,
-                                               const unsigned char* b) {
-  wgmma_ss_n32_first(s, desc_sw128(a, 16, 1024), desc_sw128(b, 16, 1024));
-#pragma unroll
-  for (int kk = 1; kk < WD / 16; ++kk) {
-    const int col = (kk % 4) * 32;
-    wgmma_ss_n32(s, desc_sw128(a + (kk / 4) * A_BOX + col, 16, 1024),
-                 desc_sw128(b + (kk / 4) * B_BOX + col, 16, 1024));
-  }
-}
-
-// acc (64 x 256) += x . K over the 32 keys of a dq stage's K tile (MN-major,
-// boxes WKBOX apart), x from registers in two k16 steps.
-__device__ __forceinline__ void acc32_issue(float (&acc)[WD / 2], const uint32_t (&x)[2][4],
-                                            const unsigned char* k) {
-#pragma unroll
-  for (int kb = 0; kb < 2; ++kb)
-    wgmma_rs_n256(acc, x[kb], desc_sw128(k + kb * 16 * 128, WKBOX, 1024));
-}
-
-// x (64 x 32 fp32, accumulator layout) as the register-A operand of two k16
-// steps, rounded once to bf16 (hi) and, with `lo`, the rest.
-template <bool LO>
-__device__ __forceinline__ void pack32(const float (&x)[16], uint32_t (&hi)[2][4],
-                                       uint32_t (&lo)[2][4]) {
-#pragma unroll
-  for (int kb = 0; kb < 2; ++kb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x0 = x[8 * kb + 2 * e], x1 = x[8 * kb + 2 * e + 1];
-      hi[kb][e] = pack_bf16(x0, x1);
-      if constexpr (LO) lo[kb][e] = pack_bf16_rest(x0, x1, hi[kb][e]);
-    }
-}
 
 // Zero the 64-column boxes at or past nb (wholly past the real width) of
 // `tiles` tiles of `box` bytes a box, `stride` bytes apart from `first`: TMA
@@ -315,7 +244,7 @@ attn_wide_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(&sm.full[st], (j / S) & 1);
       turn_begin(cw);
       wgmma_fence();
-      scores32_issue<ATT_BOX, WKBOX>(s, q_rows, sm.k(st));
+      scores32_issue<WD, ATT_BOX, WKBOX>(s, q_rows, sm.k(st));
       wgmma_commit();
       turn_end(cw, false);
       wgmma_wait<0>();
@@ -415,8 +344,8 @@ attn_wide_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&sm.full[st], (n1 / S) & 1);
     turn_begin(cw);
     wgmma_fence();
-    scores32_issue<ATT_BOX, WKBOX>(s, q_rows, sm.k(st));
-    scores32_issue<ATT_BOX, WKBOX>(dp, do_rows, sm.v(st));
+    scores32_issue<WD, ATT_BOX, WKBOX>(s, q_rows, sm.k(st));
+    scores32_issue<WD, ATT_BOX, WKBOX>(dp, do_rows, sm.v(st));
     wgmma_commit();
     turn_end(cw, false);
     wgmma_wait<0>();
@@ -431,8 +360,8 @@ attn_wide_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
     acc32_issue(acc, hi, sm.k(prev));
     if constexpr (!ONE_PASS) acc32_issue(acc, lo, sm.k(prev));
-    scores32_issue<ATT_BOX, WKBOX>(s, q_rows, sm.k(st));
-    scores32_issue<ATT_BOX, WKBOX>(dp, do_rows, sm.v(st));
+    scores32_issue<WD, ATT_BOX, WKBOX>(s, q_rows, sm.k(st));
+    scores32_issue<WD, ATT_BOX, WKBOX>(dp, do_rows, sm.v(st));
     wgmma_commit();
     turn_end(cw, false);
     wgmma_wait<0>();
@@ -638,8 +567,8 @@ attn_wide_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&sm.full[st], (i / S) & 1);
     // s^T and dp^T: the 64 keys x this warpgroup's 32 queries (32 cw..)
     wgmma_fence();
-    scores32_issue<STEP_BOX, STEP_BOX>(s, sm.k, sm.q(st) + cw * 32 * 128);
-    scores32_issue<STEP_BOX, STEP_BOX>(dp, sm.v(), sm.dout(st) + cw * 32 * 128);
+    scores32_issue<WD, STEP_BOX, STEP_BOX>(s, sm.k, sm.q(st) + cw * 32 * 128);
+    scores32_issue<WD, STEP_BOX, STEP_BOX>(dp, sm.v(), sm.dout(st) + cw * 32 * 128);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);

@@ -6,7 +6,7 @@
 // attention_wide.cu): bf16 packing, TMA
 // tile loads and stores through tensor maps, mbarrier waits, warpgroup
 // register rebalancing, the wgmma shared-memory matrix descriptor, the
-// m64nNk16 bf16 wgmma products (fp32 accumulate; N 64, 128, 256) these kernels take, 1-D
+// m64nNk16 bf16 wgmma products (fp32 accumulate; N 32, 64, 128, 256) these kernels take, 1-D
 // bulk copies, and the reads of an fp32 bias tile.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
@@ -585,6 +585,82 @@ __device__ __forceinline__ void step_acc_issue(float (&acc)[D / 2], const uint32
     else
       wgmma_rs_n64(acc, x[kb], desc, 1);
   }
+}
+
+// Tiles of 32 rows (B8-dq's K and V stages at D 256, B7's at 512): WKN rows,
+// boxes of WKBOX bytes.
+constexpr int WKN = 32;
+constexpr int WKBOX = WKN * 128;
+
+// d = a . b (m64n32k16, both from shared memory, K-major), d's earlier
+// values neither read nor kept (as wgmma_ss_n64_first)
+__device__ __forceinline__ void wgmma_ss_n32_first(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d += a . b (m64n32k16, both from shared memory, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// s (64 x 32, fp32) = a . b^T over COLS columns: `a` 64 rows of a tile
+// whose 64-column boxes lie A_BOX bytes apart, `b` 32 rows of one whose boxes
+// lie B_BOX apart, both K-major; COLS / 16 steps, the first of which does not
+// read s.
+template <int COLS, int A_BOX, int B_BOX>
+__device__ __forceinline__ void scores32_issue(float (&s)[16], const unsigned char* a,
+                                               const unsigned char* b) {
+  wgmma_ss_n32_first(s, desc_sw128(a, 16, 1024), desc_sw128(b, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < COLS / 16; ++kk) {
+    const int col = (kk % 4) * 32;
+    wgmma_ss_n32(s, desc_sw128(a + (kk / 4) * A_BOX + col, 16, 1024),
+                 desc_sw128(b + (kk / 4) * B_BOX + col, 16, 1024));
+  }
+}
+
+// acc (64 x 256) += x . b over the 32 rows of a tile `b` of WKN rows
+// (MN-major, its 64-column boxes WKBOX apart; B8-dq's K at D 256, B7's V at
+// 512), x from registers in two k16 steps.
+__device__ __forceinline__ void acc32_issue(float (&acc)[128], const uint32_t (&x)[2][4],
+                                            const unsigned char* b) {
+#pragma unroll
+  for (int kb = 0; kb < 2; ++kb)
+    wgmma_rs_n256(acc, x[kb], desc_sw128(b + kb * 16 * 128, WKBOX, 1024));
+}
+
+// x (64 x 32 fp32, accumulator layout) as the register-A operand of two k16
+// steps, rounded once to bf16 (hi) and, with `lo`, the rest.
+template <bool LO>
+__device__ __forceinline__ void pack32(const float (&x)[16], uint32_t (&hi)[2][4],
+                                       uint32_t (&lo)[2][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 2; ++kb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x0 = x[8 * kb + 2 * e], x1 = x[8 * kb + 2 * e + 1];
+      hi[kb][e] = pack_bf16(x0, x1);
+      if constexpr (LO) lo[kb][e] = pack_bf16_rest(x0, x1, hi[kb][e]);
+    }
 }
 
 // Ping-pong between the two consumer warpgroups: each issues its products

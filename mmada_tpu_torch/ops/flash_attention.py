@@ -51,15 +51,17 @@ the route by operand dtype and head width:
   * bf16 at any other multiple of 16 from 16 to 512, and fp32 at any
     multiple of 16 from 16 to 512: "generic", kernel B7 forward and B8-dq,
     B8-dkv backward, which compute each tier's same function. B7 and B8
-    each have two bodies, `generic_body(dtype, head_dim)`: "wgmma" for bf16
-    at the widths 16-256 (the tensor cores: B7 in `csrc/attention_wide.cu`,
-    B1-B4's skeleton at an instance of 64, 128 or 256 columns, the operands
-    zero-filled past D by TMA, RoPE first at the real width; B8 through B3's
-    and B5's kernels at the instances of 64 and 128 and
-    `csrc/attention_wide_bwd.cu` at 256, the same zero fill, computing B3's
-    and B5's functions), "ffma" for fp32 at every width and bf16 past 256
-    (the CUDA cores, `csrc/attention_generic.cu`: register tiles, the
-    streamed operand staged by cp.async, every product in fp32; no TF32);
+    each have two bodies, `generic_body(dtype, head_dim, backward)`:
+    "wgmma" for bf16 at every width (B7) or at 16-256 (B8) (the tensor
+    cores: B7 in `csrc/attention_wide.cu`, B1-B4's skeleton at an instance
+    of 64, 128 or 256 columns and a layout of its own at 512
+    (`wide_instance`), the operands zero-filled past D by TMA, RoPE first
+    at the real width; B8 through B3's and B5's kernels at the instances of
+    64 and 128 and `csrc/attention_wide_bwd.cu` at 256, the same zero fill,
+    computing B3's and B5's functions), "ffma" for fp32 at every width and
+    B8's bf16 past 256 (the CUDA cores, `csrc/attention_generic.cu`:
+    register tiles, the streamed operand staged by cp.async, every product
+    in fp32; no TF32);
   * anything else: a ValueError naming the rule.
 
 It is a route by dtype and width, not a fallback: each route and body has
@@ -101,10 +103,11 @@ _GENERIC_SOURCE = "attention_generic"
 _WIDE_SOURCE = "attention_wide"
 _WIDE_BWD_SOURCE = "attention_wide_bwd"
 _LONG_SOURCE = "flash_attention_long"
-_WIDE_DQ_KEYS = 32   # keys of a stage of B8-dq's wgmma body at 256 (WKN, attention_wide_bwd.cu)
+_WKN = 32   # rows of a 32-row tile (WKN, hopper_sm90.cuh): B8-dq's stages at 256, B7's K / V at 512
 _HEAD_DIMS = (64, 128)          # the wgmma kernels' head widths (bf16)
 GENERIC_HEAD_DIMS = range(16, 513, 16)  # B7 / B8: bf16 or fp32
-WIDE_HEAD_DIMS = range(16, 257, 16)     # B7's wgmma body: bf16 (but 64 and 128)
+WIDE_BWD_HEAD_DIMS = range(16, 257, 16)  # B8's wgmma body: bf16 (but 64 and 128)
+WIDE_INSTANCES = (64, 128, 256, 512)     # B7's wgmma body: bf16 at any generic width
 NEG_F32 = float(torch.finfo(torch.float32).min)
 _fns: dict = {}
 
@@ -124,17 +127,37 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
         f"from {GENERIC_HEAD_DIMS.start} to {GENERIC_HEAD_DIMS.stop - 1} (generic)")
 
 
-def generic_body(dtype: torch.dtype, head_dim: int) -> str:
-    """The body of B7 and of B8 (the forward and the backward of the
-    "generic" route) that operands of `dtype` and `head_dim` launch on the
-    card: "wgmma" (the tensor cores) for bf16 at a multiple of 16 up to 256,
-    "ffma" (the CUDA cores) for fp32 at any width and bf16 past 256. Raises
+def generic_body(dtype: torch.dtype, head_dim: int, backward: bool = False) -> str:
+    """The body of B7 (the forward of the "generic" route) or, with
+    `backward`, of B8 (its backward) that operands of `dtype` and
+    `head_dim` launch on the card: "wgmma" (the tensor cores) for bf16 at
+    every generic width (B7) or at a multiple of 16 up to 256 (B8), "ffma"
+    (the CUDA cores) for fp32 at any width and B8's bf16 past 256. Raises
     ValueError where `kernel_for` does not say "generic" (B1-B5 take bf16 at
     64 and 128)."""
     if kernel_for(dtype, head_dim) != "generic":
         raise ValueError(f"{dtype} at head_dim {head_dim} takes the wgmma kernels B1-B5, "
                          f"not B7 / B8")
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in WIDE_HEAD_DIMS else "ffma"
+    if dtype == torch.bfloat16 and (not backward or head_dim in WIDE_BWD_HEAD_DIMS):
+        return "wgmma"
+    return "ffma"
+
+
+def wide_instance(head_dim: int) -> int:
+    """The column width of B7's wgmma instance that a head of `head_dim`
+    (16-512) runs through, zero-filled past head_dim: 64, 128, 256 or 512."""
+    return next(w for w in WIDE_INSTANCES if head_dim <= w)
+
+
+def wide_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor) -> list:
+    """The tensor maps of B7's wgmma body, in boxes of BOX_COLS columns at
+    the real width: q in boxes of TILE_ROWS rows, k and v of STEP_ROWS, out
+    of OUT_ROWS; at the instance of 512 (64 query rows a block, K and V in
+    tiles of 32 keys) q in boxes of OUT_ROWS, k and v of _WKN."""
+    q_rows, kv_rows = ((OUT_ROWS, _WKN) if wide_instance(q.shape[-1]) == 512
+                       else (TILE_ROWS, STEP_ROWS))
+    return [describe(q, q_rows, BOX_COLS), describe(k, kv_rows, BOX_COLS),
+            describe(v, kv_rows, BOX_COLS), describe(out, OUT_ROWS, BOX_COLS)]
 
 
 def _rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -323,16 +346,14 @@ def _rotated(x: torch.Tensor, rope_sin: torch.Tensor, rope_cos: torch.Tensor) ->
 
 
 def _wide_fwd(q, k, v, bias, long_tier: bool) -> torch.Tensor:
-    """B7's wgmma body on checked bf16 operands (D up to 256): q, k and v
-    read through tensor maps of their real width in boxes of BOX_COLS
-    columns (an operand no map describes copied first); the bias read as it
-    is."""
+    """B7's wgmma body on checked bf16 operands (D 16-512): q, k and v read
+    through tensor maps of their real width (`wide_maps`; an operand no map
+    describes copied first); the bias read as it is."""
     b, h, lq, d = q.shape
     kvh, lk = k.shape[1], k.shape[2]
     q, k, v = (tma_operand(t) for t in (q, k, v))
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    args = spec_array(describe(q, TILE_ROWS, BOX_COLS), describe(k, STEP_ROWS, BOX_COLS),
-                      describe(v, STEP_ROWS, BOX_COLS), describe(out, OUT_ROWS, BOX_COLS))
+    args = spec_array(*wide_maps(q, k, v, out))
     args.extend(_strides(bias))
     fn = _entry(_WIDE_SOURCE, "mmada_attention_wide_fwd_bf16", 5, flags=1)
     _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -660,7 +681,7 @@ def _generic_dq(wrapper, q, k, v, dout, delta, bias=None, long_tier: bool = Fals
     read as it is); the ffma body: `csrc/attention_generic.cu`. Operands a
     tensor map could not describe are copied first."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("delta", delta)])
-    body = generic_body(q.dtype, d)
+    body = generic_body(q.dtype, d, backward=True)
     _count_body(wrapper, body)
     if body == "wgmma" and d <= 128:
         return _launch_dq_wgmma(*_wgmma_bwd_source(long_tier), wrapper, q, k, v, dout, delta,
@@ -671,8 +692,8 @@ def _generic_dq(wrapper, q, k, v, dout, delta, bias=None, long_tier: bool = Fals
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, dout, delta, bias, dq, lse)]
     if body == "wgmma":
-        args = spec_array(describe(q, TILE_ROWS, BOX_COLS), describe(k, _WIDE_DQ_KEYS, BOX_COLS),
-                          describe(v, _WIDE_DQ_KEYS, BOX_COLS), describe(dout, TILE_ROWS, BOX_COLS),
+        args = spec_array(describe(q, TILE_ROWS, BOX_COLS), describe(k, _WKN, BOX_COLS),
+                          describe(v, _WKN, BOX_COLS), describe(dout, TILE_ROWS, BOX_COLS),
                           describe(dq, OUT_ROWS, BOX_COLS))
         args.extend(_strides(bias))
         fn = _entry(_WIDE_BWD_SOURCE, "mmada_attention_wide_dq_bf16", 8, flags=1)
@@ -693,7 +714,7 @@ def _generic_dkv(wrapper, q, k, v, dout, lse, delta, bias=None, long_tier: bool 
     product in fp32); the wgmma body B3-dkv's (p and ds one bf16 value each)
     or with `long_tier` B5-dkv's (hi + lo)."""
     b, h, kvh, lq, lk, d = _check_bwd_shapes(q, k, v, dout, [("lse", lse), ("delta", delta)])
-    body = generic_body(q.dtype, d)
+    body = generic_body(q.dtype, d, backward=True)
     _count_body(wrapper, body)
     if body == "wgmma" and d <= 128:
         return _launch_dkv_wgmma(*_wgmma_bwd_source(long_tier), wrapper, q, k, v, dout, lse,

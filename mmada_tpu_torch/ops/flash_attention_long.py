@@ -29,11 +29,11 @@ final cast.
 Each wrapper launches a kernel for a CUDA tensor (Lq and Lk multiples of
 128, as the JAX tiers require), chosen by `flash_attention.kernel_for`: B4 /
 B5 for bf16 at head_dim 64 or 128, else B7-long (through the body
-`flash_attention.generic_body` names: "wgmma" for bf16 up to 256, "ffma"
-for fp32 and bf16 past 256), B8-dq-long and B8-dkv-long through the same
-bodies (the wgmma body B5's functions, the ffma body every product in
-fp32), for bf16 at other widths and for fp32, any multiple of 16 from 16 to
-512. It raises for anything else; it never falls back. For a CPU tensor it
+`flash_attention.generic_body` names: "wgmma" for bf16 at every width,
+"ffma" for fp32), B8-dq-long and B8-dkv-long (`generic_body(...,
+backward=True)`: "wgmma" for bf16 up to 256, "ffma" for fp32 and bf16 past
+256; the wgmma body B5's functions, the ffma body every product in fp32),
+for bf16 at other widths and for fp32, any multiple of 16 from 16 to 512. It raises for anything else; it never falls back. For a CPU tensor it
 computes the plain version (`*_reference`), which takes any length; the CPU
 tests hold it against the JAX kernels and `chip_smoke.py` holds the kernels
 against it on the card. Each wrapper

@@ -14,8 +14,9 @@ per-channel (one group of K rows); such a weight never reaches the kernel
 (`quantization.int4_matmul_dispatch` sends it to the dequant route).
 
 `int4_matmul` launches B6 for a CUDA tensor with bf16 x, B6-f32
-(`csrc/int4_matmul_f32.cu`: fp32 FFMA on the CUDA cores, no TF32, fp32 out)
-with fp32 x, and raises for anything else: it never falls back. B6 runs on `wgmma` and reads x, the packed
+(`csrc/int4_matmul_f32.cu`: fp32 FFMA on the CUDA cores, no TF32, fp32 out;
+K split across blocks where the output tiles are few, `f32_splits`) with
+fp32 x, and raises for anything else: it never falls back. B6 runs on `wgmma` and reads x, the packed
 weight and its scales and writes the output through TMA tensor maps, which
 the wrapper describes (`tensor_maps.describe_matrix`), with tiles of 128 or
 256 rows (`block_rows`). For a CPU tensor it computes
@@ -48,6 +49,11 @@ _OUT_BOX = 64        # B6 stores its output 64 x 64 at a time
 # H100, i.e. 253 and 237 rows' worth (attention_ab.py --only int4 against
 # copies of B6 forced to one height)
 _TILE_OVERHEAD_ROWS = 245
+# B6-f32: 128 x 128 output tiles, one block an SM (183,808 bytes of shared
+# memory, 255 registers a thread), at most _F32_MAX_SPLITS splits of K
+_F32_TILE = 128
+_F32_BLOCKS_PER_SM = 1
+_F32_MAX_SPLITS = 8
 _fn = None
 _f32_fn = None
 _sms: dict = {}
@@ -122,7 +128,7 @@ def _f32_entry():
 
         fn = _build.load_library(_F32_SOURCE).mmada_int4_matmul_f32
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, ll, p, ll, p, i, i, i, p]
+        fn.argtypes = [p, ll, p, ll, p, ll, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _f32_fn = fn
     return _f32_fn
@@ -138,6 +144,20 @@ def block_rows(m: int, n: int, sms: int) -> int:
         return math.ceil(tiles / sms) * (rows + _TILE_OVERHEAD_ROWS)
 
     return 256 if cost(256) < cost(128) else 128
+
+
+def f32_splits(m: int, k: int, n: int, sms: int) -> int:
+    """B6-f32's splits of K for an (m, k) x (k, n) product on a card of `sms`
+    SMs: 1 where the 128 x 128 output tiles fill two waves of the card's
+    block slots (`_F32_BLOCKS_PER_SM` an SM); else the divisor s of K's
+    128-row groups, at most _F32_MAX_SPLITS, whose waves of tiles x s blocks
+    walk the fewest groups (waves x groups / s), the smallest such s."""
+    tiles = math.ceil(m / _F32_TILE) * (n // _F32_TILE)
+    slots, groups = sms * _F32_BLOCKS_PER_SM, k // GROUP
+    if tiles >= 2 * slots:
+        return 1
+    splits = [s for s in range(1, min(_F32_MAX_SPLITS, groups) + 1) if groups % s == 0]
+    return min(splits, key=lambda s: (math.ceil(tiles * s / slots) * (groups // s), s))
 
 
 def int4_maps(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, out: torch.Tensor,
@@ -193,8 +213,10 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
     """x (..., K) @ dequant(packed (K/2, N), scales (K/128, N)) -> (..., N)
     in x's dtype, through B6 (CUDA tensors: bf16 x, K and N multiples of 128,
     128-row groups, 16-byte aligned rows; strided row views are read in
-    place through their tensor maps), B6-f32 (fp32 x, the same layout) or
-    the plain version (CPU tensors). Counts launches in
+    place through their tensor maps), B6-f32 (fp32 x, the same layout; x
+    copied first if its rows are not 16-byte aligned; K split by
+    `f32_splits`, the partials in a workspace of `torch.empty`) or the
+    plain version (CPU tensors). Counts launches in
     `int4_matmul.launches` (B6) and `int4_matmul.f32_launches` (B6-f32)."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, packed, scales)
@@ -207,9 +229,15 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and x.dtype == torch.float32:
+        if x2.stride(0) % 4 or x2.data_ptr() % 16:   # B6-f32 reads 16-byte pieces of x's rows
+            x2 = x2.clone(memory_format=torch.contiguous_format)
+        splits = f32_splits(m, k, n, _sm_count(x.device))
+        ws = None if splits == 1 else torch.empty((splits, m, n), dtype=torch.float32,
+                                                  device=x.device)
         with torch.cuda.device(x.device):
             err = _f32_entry()(x2.data_ptr(), x2.stride(0), packed.data_ptr(), packed.stride(0),
-                               scales.data_ptr(), scales.stride(0), out.data_ptr(), m, k, n,
+                               scales.data_ptr(), scales.stride(0), out.data_ptr(),
+                               None if ws is None else ws.data_ptr(), m, k, n, splits,
                                torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"int4_matmul (fp32) kernel launch failed: cudaError {err}")

@@ -2,20 +2,23 @@
 the JAX package, on the CPU.
 
 * `kernel_for`, the route the card takes by dtype and head width, and
-  `generic_body`, B7's and B8's body on the generic route: their whole
-  table, the refusals included, and the C entries the backward launches by
-  body, width and tier (recorded, not run: this runs without a card);
-* the one-pass forward's plain version (what B7 computes) at head_dim 16, 96
-  and 256, fp32 and bf16, with GQA and RoPE, unbiased and biased: against
-  JAX's Pallas kernel in interpret mode at 256 (a multiple of 128, which JAX
-  sends to Pallas) and against JAX's `xla_attention` at 16 and 96 (the
-  function JAX runs at widths Pallas does not take);
+  `generic_body`, B7's and B8's body on the generic route (forward and
+  backward apart): their whole table, the refusals included, and the C
+  entries the forward and the backward launch by body, width and tier
+  (recorded, not run: this runs without a card);
+* the one-pass forward's plain version (what B7 computes) at head_dim 16,
+  96, 256 and 512, fp32 and bf16, with GQA and RoPE, unbiased and biased:
+  against JAX's Pallas kernel in interpret mode at 256 and 512 (multiples
+  of 128, which JAX sends to Pallas) and against JAX's `xla_attention` at 16
+  and 96 (the function JAX runs at widths Pallas does not take);
 * at head_dim 256 in both dtypes: the long tier's forward against
   `flash_attention_online`, and both tiers' backward against
   `flash_attention_bwd` / `flash_attention_bwd_staged`, all in interpret
   mode, called directly at small L (as test_torch_attention_long.py does);
 * B6-f32's function: JAX's `int4_matmul(..., interpret=True)` with fp32 x
-  against `int4_matmul_reference` with fp32 x.
+  against `int4_matmul_reference` with fp32 x, and against B6-f32's split
+  schedule (K split in equal parts, the partials summed in the kernel's
+  fixed order) emulated in plain PyTorch.
 
 Tolerances: fp32 forward atol 1e-5 (summation order only); fp32 gradients
 atol 1e-5 plus rtol 1e-5 of each entry; bf16 at the existing files' bars:
@@ -110,20 +113,29 @@ def _bias(b, h, lq, lk, seed=3):
     (torch.float32, 400, "generic"), (torch.bfloat16, 400, "generic"),
 ])
 def test_kernel_for_routes_by_dtype_and_width(dtype, d, want, monkeypatch):
-    """The route, and on the generic route B7's and B8's body: "wgmma" for
-    bf16 up to 256, "ffma" for fp32 and bf16 past 256; the backward's C
-    entries by body and width, both tiers (`_bwd_entries`)."""
+    """The route, and on the generic route B7's and B8's body: B7 "wgmma"
+    for bf16 at every width, "ffma" for fp32; B8 "wgmma" for bf16 up to 256,
+    "ffma" for fp32 and bf16 past 256; the C entries of the forward
+    (`_fwd_entry`) and the backward (`_bwd_entries`) by body and width, both
+    tiers."""
     if want is None:
         with pytest.raises(ValueError, match="no attention kernel"):
             kernel_for(dtype, d)
         with pytest.raises(ValueError):
             generic_body(dtype, d)
+        with pytest.raises(ValueError):
+            generic_body(dtype, d, backward=True)
     else:
         assert kernel_for(dtype, d) == want
     if want == "generic":
+        fwd_body = "wgmma" if dtype == torch.bfloat16 else "ffma"
         body = "wgmma" if dtype == torch.bfloat16 and d <= 256 else "ffma"
-        assert generic_body(dtype, d) == body
+        assert generic_body(dtype, d) == fwd_body
+        assert generic_body(dtype, d, backward=True) == body
+        fwd_entry = (("attention_wide", "mmada_attention_wide_fwd_bf16") if fwd_body == "wgmma"
+                     else ("attention_generic", "mmada_attention_generic_fwd"))
         for long in (False, True):
+            assert _fwd_entry(monkeypatch, dtype, d, long) == (fwd_entry, fwd_body)
             if body == "ffma":
                 lib = "attention_generic"
                 want_entries = [(lib, "mmada_attention_generic_dq"),
@@ -140,6 +152,27 @@ def test_kernel_for_routes_by_dtype_and_width(dtype, d, want, monkeypatch):
     elif want == "wgmma":
         with pytest.raises(ValueError, match="takes the wgmma kernels"):
             generic_body(dtype, d)
+        with pytest.raises(ValueError, match="takes the wgmma kernels"):
+            generic_body(dtype, d, backward=True)
+
+
+def _fwd_entry(monkeypatch, dtype, d, long):
+    """The C entry (library, name) B7 launches for CPU operands of `dtype`
+    and width d handed to the card's launch code (recorded, not run), and
+    the body it counted."""
+    from mmada_tpu_torch.ops import flash_attention as fa
+
+    launched = []
+    monkeypatch.setattr(fa, "_entry", lambda source, name, *a, **k: (source, name))
+    monkeypatch.setattr(fa, "_launch", lambda fn, device, *args: launched.append(fn))
+    wrapper = types.SimpleNamespace(wgmma_body_launches=0, ffma_body_launches=0,
+                                    generic_launches=0, generic_bias_launches=0)
+    q, k, v = (torch.zeros((1, 2, 8, d), dtype=dtype) for _ in range(3))
+    fa._generic_fwd(wrapper, q, k, v, long_tier=long)
+    (entry,) = launched
+    bodies = [b for b in ("wgmma", "ffma") if getattr(wrapper, f"{b}_body_launches") == 1]
+    assert wrapper.generic_launches == 1
+    return entry, bodies[0] if len(bodies) == 1 else bodies
 
 
 def _bwd_entries(monkeypatch, dtype, d, long):
@@ -171,7 +204,7 @@ def _bwd_entries(monkeypatch, dtype, d, long):
 
 
 @pytest.mark.parametrize("biased", [False, True])
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [16, 96, 256, 512])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_one_pass_forward_at_every_width(dtype, d, biased):
     b, h, kvh, l = 1, 4, 2, 136
@@ -253,4 +286,26 @@ def test_int4_with_fp32_x_matches_the_pallas_kernel(m, k, n):
     want = JI.int4_matmul(jnp.asarray(x), jp, js, interpret=True)
     got = I.int4_matmul(torch.from_numpy(x), p, s)   # a CPU tensor: the plain version
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(33, 1024, 384, 4), (130, 2048, 256, 8)])
+def test_int4_split_sums_match_the_pallas_kernel(m, k, n, splits):
+    """B6-f32's schedule where the output tiles are few (`f32_splits`): K
+    cut into `splits` equal parts of whole 128-row groups, each part's fp32
+    partial x[:, K_z] @ W[K_z], the partials summed in the order 0, 1, ...
+    as the kernel's second pass sums them; against JAX's kernel within the
+    fp32 bar."""
+    rng = np.random.default_rng(k + splits)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jp, js = JI.pack_int4(jnp.asarray(w))
+    p, s = I.pack_int4(torch.from_numpy(w))
+    want = JI.int4_matmul(jnp.asarray(x), jp, js, interpret=True)
+    xt, wt = torch.from_numpy(x), I.unpack_int4(p, s, torch.float32)
+    step = k // splits
+    assert step % I.GROUP == 0
+    got = xt[:, :step] @ wt[:step]
+    for z in range(1, splits):
+        got = got + xt[:, z * step:(z + 1) * step] @ wt[z * step:(z + 1) * step]
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)

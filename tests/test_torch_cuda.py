@@ -962,7 +962,8 @@ def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq,
     """B7 (RoPE by its C entry's rotation pass), then B8-dq and B8-dkv as a
     pair (B8-dq's lse into B8-dkv), against the plain versions; counted in
     `.generic_launches` / `.generic_bias_launches` and B8's in the counter
-    of the body `generic_body` names, never in the wgmma counters. fp32
+    of the body `generic_body(..., backward=True)` names, never in the wgmma
+    counters. fp32
     forward within 1e-5 absolute."""
     from mmada_tpu_torch.ops.attention import apply_rope
 
@@ -1002,7 +1003,8 @@ def test_generic_kernels_match_plain_versions(cuda_device, dtype, b, h, kvh, lq,
                                             attention_bwd_dkv)) == tuple(x + 1 for x in before)
     assert (flash_attention.launches, flash_attention.bias_launches, attention_bwd_dq.launches,
             attention_bwd_dkv.launches) == wgmma
-    assert _b8_bodies(attention_bwd_dq, attention_bwd_dkv) == _moved(bodies, generic_body(dtype, d))
+    assert _b8_bodies(attention_bwd_dq, attention_bwd_dkv) == _moved(
+        bodies, generic_body(dtype, d, backward=True))
 
 
 def _b8_bodies(dq_fn, dkv_fn) -> tuple:
@@ -1047,7 +1049,7 @@ def test_generic_long_kernels_match_plain_versions(cuda_device, dtype, d):
     assert (flash_attention_long.generic_launches, attention_bwd_dq_long.generic_launches,
             attention_bwd_dkv_long.generic_launches) == tuple(x + 1 for x in g0)
     assert _b8_bodies(attention_bwd_dq_long, attention_bwd_dkv_long) == _moved(
-        bodies, generic_body(dtype, d))
+        bodies, generic_body(dtype, d, backward=True))
 
 
 @pytest.mark.parametrize("long", [False, True])

@@ -1,7 +1,7 @@
 """The two design arguments of B7's bodies, against the JAX package on the CPU.
 
 * Zero-filled widths (the wgmma body): q, k and v padded with zero columns
-  to the next instance width (64, 128 or 256), the scale kept at
+  to the next instance width (64, 128, 256 or 512), the scale kept at
   1/sqrt(real D), the result sliced back, equal JAX's function at the real D:
   the one-pass tier against `xla_attention` (JAX's function at widths its
   Pallas kernel does not take), the long tier against `flash_attention_online`
@@ -10,13 +10,16 @@
   computation runs in float64: against the same computation at the real
   width it agrees to 1e-12 (the zero columns add exact zeros), against
   JAX's fp32 within atol 2e-6 (JAX's own fp32 rounding, scores of about
-  +-15 at D 192-240, reaches 1.52e-6 against float64 on these inputs).
+  +-15 at D 192-240, reaches 1.52e-6 against float64 on these inputs); at
+  the instance of 512 within atol 3e-6 (JAX's online kernel in fp32 reaches
+  2.02e-6 against float64 at D 512 on these inputs, 1.45e-6 at D 320).
 * The one-walk fp32 schedule (the ffma body): 64-key tiles, a running max,
   the sum and the outputs rescaled, the division last, keys past Lk at -inf,
   written as plain torch here, against JAX's one-pass fp32 function within
   the forward bar of test_torch_attention_widths.py (1e-5), on a row that a
   finite-min mask shuts out and with Lk not a multiple of 64.
-* The tensor maps the wgmma body describes (64-column boxes at any width).
+* The tensor maps the wgmma body describes (64-column boxes at any width;
+  at the instance of 512, q in boxes of 64 rows and k, v of 32).
   The body each (dtype, head_dim) takes is pinned by
   test_torch_attention_widths.py::test_kernel_for_routes_by_dtype_and_width.
 """
@@ -30,10 +33,11 @@ from mmada_tpu.models import llada as jax_llada
 from mmada_tpu.ops import attention as jax_attention
 from mmada_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from mmada_tpu.ops.flash_attention import flash_attention_online
-from mmada_tpu_torch.ops.flash_attention import NEG_F32
+from mmada_tpu_torch.ops.flash_attention import NEG_F32, wide_instance, wide_maps
 from mmada_tpu_torch.ops.tensor_maps import BOX_COLS, describe
 
 ZERO_FILL_TOL = dict(atol=2e-6, rtol=0)
+ZERO_FILL_TOL_512 = dict(atol=3e-6, rtol=0)   # JAX's fp32 sums over 272-512 columns
 EXACT_TOL = dict(atol=1e-12, rtol=0)
 ONE_WALK_TOL = dict(atol=1e-5, rtol=0)   # FWD_TOL["fp32"] of test_torch_attention_widths.py
 TILE = 64                                 # keys of a tile of the ffma body
@@ -50,8 +54,11 @@ def one_thread():
 
 
 def instance_width(d: int) -> int:
-    """The wgmma body's instance that a real width d runs through."""
-    return 64 if d <= 64 else 128 if d <= 128 else 256
+    """The wgmma body's instance that a real width d runs through (the
+    port's `wide_instance` must agree)."""
+    width = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+    assert wide_instance(d) == width
+    return width
 
 
 def _inputs(b, h, kvh, lq, lk, d, seed):
@@ -106,7 +113,7 @@ def _padded_attention(q, k, v, bias, d, long, width):
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("long", [False, True])
-@pytest.mark.parametrize("d", [16, 48, 96, 192, 240])
+@pytest.mark.parametrize("d", [16, 48, 96, 192, 240, 320, 512])
 def test_zero_filled_width_is_the_real_width_function(d, long, masked, rope):
     b, h, kvh, l = 1, 2, 1, 128
     q, k, v = _inputs(b, h, kvh, l, l, d, seed=d + 2 * long + 4 * masked)
@@ -127,7 +134,7 @@ def test_zero_filled_width_is_the_real_width_function(d, long, masked, rope):
     np.testing.assert_allclose(got.numpy(), _padded_attention(*args, d).numpy(), **EXACT_TOL)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               **ZERO_FILL_TOL)
+                               **(ZERO_FILL_TOL if d <= 256 else ZERO_FILL_TOL_512))
 
 
 def _one_walk(q, k, v, bias):
@@ -194,3 +201,22 @@ def test_wide_body_maps_keep_the_real_width_in_full_boxes(d):
     assert spec.box == (BOX_COLS, 64, 1, 1)
     assert spec.strides == (2 * d, 2 * d * 40, 2 * d * 40 * 3)
     assert describe(t, 64).box == (min(d, BOX_COLS), 64, 1, 1)
+
+
+@pytest.mark.parametrize("d", [48, 192, 272, 320, 496, 512])
+def test_wide_body_maps_of_each_instance(d):
+    """`wide_maps`, the maps B7's wgmma body launches with: q in boxes of
+    128 rows, k and v of 64 and the output of 64 up to the instance of 256;
+    at the instance of 512 (272-512), whose blocks hold 64 query rows and
+    stream K and V in tiles of 32 keys, q in boxes of 64 rows and k and v of
+    32; every box 64 columns wide, every dim at the real width."""
+    q = torch.zeros((2, 4, 40, d), dtype=torch.bfloat16)
+    k, v = (torch.zeros((2, 2, 72, d), dtype=torch.bfloat16) for _ in range(2))
+    out = torch.zeros((2, 40, 4, d), dtype=torch.bfloat16).transpose(1, 2)
+    q_rows, kv_rows = (64, 32) if d > 256 else (128, 64)
+    maps = wide_maps(q, k, v, out)
+    for spec, rows, (l, h) in zip(maps, (q_rows, kv_rows, kv_rows, 64),
+                                  ((40, 4), (72, 2), (72, 2), (40, 4))):
+        assert spec.dims == (d, l, h, 2)
+        assert spec.box == (BOX_COLS, rows, 1, 1)
+    assert maps[3].strides == (2 * d * 4, 2 * d, 2 * d * 4 * 40)   # (B, Lq, H, D) storage

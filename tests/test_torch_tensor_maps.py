@@ -595,3 +595,21 @@ def test_b6_refuses_a_view_no_map_describes(make):
     t = make()
     with pytest.raises(ValueError, match="no tensor map describes|2-D"):
         describe_matrix(t, 64, 64)
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (4620, 4096, 12288, 1), (4620, 12288, 4096, 1), (4620, 4096, 4096, 1),
+    (477, 12288, 4096, 1), (477, 4096, 12288, 1), (1155, 4096, 4096, 1),
+    (60, 4096, 4096, 4), (60, 12288, 4096, 4), (60, 4096, 134656, 1), (1, 256, 128, 2),
+])
+def test_b6_f32_splits_of_the_int4_matmul(m, k, n, splits):
+    """B6-f32's splits of K (`f32_splits`): none where the 128 x 128 output
+    tiles fill two waves of the H100's 132 block slots (one an SM: the t2i
+    batch, the text head) or where splitting walks no fewer groups a slot
+    (the text batch's 477 rows: 128 tiles, one wave either way); else the
+    divisor of K's groups, at most 8, that walks the fewest (60 rows: four
+    splits of 32 tiles in one wave); every split a whole number of 128-row
+    groups."""
+    got = int4_mod.f32_splits(m, k, n, H100_SMS)
+    assert got == splits
+    assert (k // int4_mod.GROUP) % got == 0 and got <= 8
