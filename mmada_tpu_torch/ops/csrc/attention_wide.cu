@@ -409,8 +409,8 @@ attn_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // At D 512 a 128-row Q tile (128 KB) and one 64-key K + V stage (128 KB) do
 // not fit a block's 227 KB, so the instance of 512 (real widths 272-512)
 // has its own layout. A block owns 64 query rows; pairs of neighbouring
-// tiles share each K / V tile by multicast, as at 256 (clusters of four ran
-// 8-20% slower, single blocks within 1% unmasked; H100). Both consumer
+// tiles share each K / V tile by multicast, as at 256 (on the H100 clusters
+// of four ran slower, single blocks no faster). Both consumer
 // warpgroups take all 64 rows and split the width between them: warpgroup
 // cw contracts q . k^T over the columns 256 cw..256 cw + 255 (m64n32k16
 // from shared memory) and accumulates the output's same 256 columns
@@ -426,7 +426,7 @@ attn_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Waiting for the scores alone while the product ran (wgmma.wait_group 1)
 // made ptxas serialise every wgmma of the kernel (C7513: the scores'
 // registers are defined while a wgmma of the group is in flight) and ran
-// 6-10% slower. Shared memory: Q 64 KB, two K and two V slots of 32 KB,
+// slower. Shared memory: Q 64 KB, two K and two V slots of 32 KB,
 // the exchange buffers (16 values a thread, two parities, both warpgroups:
 // 32 KB): 230,472 bytes with the barriers and the alignment. The one-pass
 // tier walks K twice as the other instances do (6 units of L x L x D), the

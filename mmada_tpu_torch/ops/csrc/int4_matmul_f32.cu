@@ -34,12 +34,13 @@
 // broadcast) and 8 float4 reads of W along N (128 contiguous bytes per
 // quarter-warp: no bank conflict) feed 256 FFMAs, one 128-bit read per 16.
 // Each group's products are summed apart and then added to the total (a
-// sum in blocks of 128 K rows): a single chain of fp32 sums over K = 12,288
-// lay 2.6x cuBLAS's distance from float64 at 477 rows, the blocked sums
-// 0.43x. That takes 64 more registers, so one block fills an SM (255
-// registers a thread, 183,808 bytes of shared memory); at two blocks an SM
-// (128 registers, 32-row stages) the single chain spilled and ran no
-// faster, and 32-row stages ran 6% slower than 64 (H100).
+// sum in blocks of 128 K rows): at 477 rows a single chain of fp32 sums
+// over K = 12,288 lay further from float64 than cuBLAS's product, past the
+// bar of 1.25 times its distance (`chip_smoke.py` 14a). That takes 64 more
+// registers, so one block fills an SM (255 registers a thread, 183,808
+// bytes of shared memory); on the H100, two blocks an SM (128 registers,
+// the single chain) spilled and ran no faster, and 32-row stages ran
+// slower than 64.
 //
 // Small M: where the output tiles do not fill two waves of the card's block
 // slots, the wrapper splits K across blocks (`int4_matmul.f32_splits`, a
